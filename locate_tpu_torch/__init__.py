@@ -1,10 +1,10 @@
 """locate-tpu on PyTorch and CUDA: the port of the JAX package `locate_tpu`
 to an NVIDIA H100, one slice at a time (ROADMAP.md).
 
-This slice is the generator's sampling path. Its modules keep the JAX
-package's layout (`config`, `ops/`, `nn/`, `models/`, `io/`, `cli`); the
-TPU kernels on the path are CUDA C++ kernels in `csrc/`, built at first
-use. The package imports neither JAX nor `locate_tpu`. Entry points run on
+Ported so far: the generator's sampling path and the alternating GAN
+train step. The modules keep the JAX package's layout (`config`, `ops/`,
+`nn/`, `models/`, `objectives/`, `train/`, `io/`, `cli`); the TPU kernels
+on those paths are CUDA C++ kernels in `csrc/`, built at first use. The package imports neither JAX nor `locate_tpu`. Entry points run on
 the card unless the caller passes `device="cpu"`.
 """
 

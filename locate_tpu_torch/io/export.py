@@ -1,6 +1,7 @@
 """Loading exported generators, counterpart of `locate_tpu/io/export.py`.
 
-`params_from_jax` is the function that carries weights across frameworks.
+`params_from_jax` is the function that carries weights across frameworks
+(`flatten_tree` gives it a params pytree's arrays).
 It takes the JAX generator's params as numpy arrays keyed by their pytree
 path, joined with `/` (the `.npz` that `locate-tpu export` writes) or `.`
 (the `--torch=PATH.pt` state_dict of `locate_tpu/io/torch_bridge.py`), and
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -21,6 +22,22 @@ import torch
 from locate_tpu_torch.config import AttentionConfig, ModelConfig, StyleConfig
 from locate_tpu_torch.device import resolve_device
 from locate_tpu_torch.models.generator import Generator, build_generator
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A params pytree of nested dicts and lists (JAX arrays or numpy) as
+    numpy arrays keyed by their `/`-joined path, the layout of the `.npz`
+    that `locate-tpu export` writes."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten_tree(v, f"{prefix}{i}/"))
+    else:
+        out[prefix.rstrip("/")] = np.asarray(tree)
+    return out
 
 
 def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

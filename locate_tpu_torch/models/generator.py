@@ -18,7 +18,7 @@ from torch import nn
 
 from locate_tpu_torch.config import ModelConfig
 from locate_tpu_torch.device import resolve_device
-from locate_tpu_torch.nn.blocks import ToRGB, generator_stage
+from locate_tpu_torch.nn.blocks import ToRGB, generator_stage, run_stages
 from locate_tpu_torch.ops import initializers
 from locate_tpu_torch.ops.activations import Act
 from locate_tpu_torch.ops.conv import Dense
@@ -59,7 +59,7 @@ class Generator(nn.Module):
         ])
         self.head = nn.Sequential(
             make_norm(cfg.norm, chans[-1], cfg.group_norm_groups,
-                      compute_dtype=compute_dtype, device=gen.device),
+                      compute_dtype=compute_dtype, device=initializers.device_of(gen)),
             Act(cfg.act, cfg.leaky_slope),
             ToRGB(chans[-1], cfg.img_channels, compute_dtype=compute_dtype, gen=gen),
         )
@@ -75,7 +75,7 @@ class Generator(nn.Module):
                 raise ValueError("class-conditional generator needs labels")
             z = torch.cat([z, self.class_embed.to(cd)[labels]], dim=-1)
         x = self.seed(z).reshape(z.shape[0], 4, 4, self.chans[0])
-        return self.head(self.trunk(x))
+        return self.head(run_stages(self.trunk, x, self.config.remat))
 
 
 def build_generator(cfg: ModelConfig, compute_dtype=None, device=None,

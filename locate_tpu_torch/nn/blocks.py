@@ -1,4 +1,4 @@
-"""Generator blocks, counterpart of `locate_tpu/nn/blocks.py`.
+"""Generator and discriminator blocks, counterpart of `locate_tpu/nn/blocks.py`.
 
 Module and attribute names follow the JAX params pytree, so a block's
 `state_dict()` keys are the JAX dotted paths (`main.0.scale`,
@@ -13,13 +13,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from locate_tpu_torch.config import ModelConfig
 from locate_tpu_torch.ops import initializers
 from locate_tpu_torch.ops.activations import Act
 from locate_tpu_torch.ops.attention import LocateAttention
-from locate_tpu_torch.ops.conv import Conv2d, FactorizedConv2d, UpsampleNearest
+from locate_tpu_torch.ops.conv import (Conv2d, DownsampleAvg, FactorizedConv2d,
+                                       UpsampleNearest)
 from locate_tpu_torch.ops.norm import make_norm
 
 # `gate_profile.json` `min_locations` of every fused-stage flavor in the
@@ -45,7 +47,7 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.main = nn.Sequential(
             make_norm(cfg.norm, in_ch, cfg.group_norm_groups,
-                      compute_dtype=compute_dtype, device=gen.device),
+                      compute_dtype=compute_dtype, device=initializers.device_of(gen)),
             Act(cfg.act, cfg.leaky_slope),
             _conv(in_ch, out_ch, cfg, compute_dtype, gen),
         )
@@ -78,6 +80,14 @@ def stage_fusable(cfg: ModelConfig) -> bool:
     )
 
 
+def _refuse_fused_stage(cfg: ModelConfig, resolution: int) -> None:
+    if stage_fusable(cfg) and resolution * resolution >= FUSE_MIN_LOCATIONS:
+        raise NotImplementedError(
+            f"a {resolution}x{resolution} stage with use_pallas runs the fused "
+            "stage kernels (ops/pallas/fused_stage.py) in the JAX package; they "
+            "are not ported yet (ROADMAP.md, Queue 2)")
+
+
 def _attention_layer(cfg: ModelConfig, out_ch: int, compute_dtype, gen):
     if cfg.attention.kind == "self":
         raise NotImplementedError(
@@ -92,17 +102,42 @@ def generator_stage(in_ch: int, out_ch: int, resolution: int, cfg: ModelConfig,
                     gen: Optional[torch.Generator] = None) -> nn.Sequential:
     """One generator stage: [upsample] + conv blocks + attention.
     `resolution` is the stage's output resolution."""
-    if stage_fusable(cfg) and resolution * resolution >= FUSE_MIN_LOCATIONS:
-        raise NotImplementedError(
-            f"a {resolution}x{resolution} stage with use_pallas runs the fused "
-            "stage kernels (ops/pallas/fused_stage.py) in the JAX package; they "
-            "are not ported yet (ROADMAP.md, Queue 2)")
+    _refuse_fused_stage(cfg, resolution)
     layers = [] if first else [UpsampleNearest(2)]
     layers.append(ConvBlock(in_ch, out_ch, cfg, compute_dtype, gen))
     for _ in range(cfg.blocks_per_stage - 1):
         layers.append(ConvBlock(out_ch, out_ch, cfg, compute_dtype, gen))
     if cfg.attention_at(resolution):
         layers.append(_attention_layer(cfg, out_ch, compute_dtype, gen))
+    return nn.Sequential(*layers)
+
+
+def run_stages(stages: nn.Sequential, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """Run `stages` in turn. With `remat` (model.remat, `nn/core.py:maybe_remat`)
+    each stage's activations are recomputed in the backward pass instead of
+    stored, through non-reentrant `torch.utils.checkpoint`."""
+    for stage in stages:
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(stage, x, use_reentrant=False)
+        else:
+            x = stage(x)
+    return x
+
+
+def discriminator_stage(in_ch: int, out_ch: int, resolution: int, cfg: ModelConfig,
+                        last: bool, compute_dtype: Optional[torch.dtype] = None,
+                        gen: Optional[torch.Generator] = None) -> nn.Sequential:
+    """One discriminator stage, the generator's mirror: conv blocks +
+    attention + [2x average-pool downsample unless `last`]. `resolution`
+    is the stage's input resolution."""
+    _refuse_fused_stage(cfg, resolution)
+    layers = [ConvBlock(in_ch, out_ch, cfg, compute_dtype, gen)]
+    for _ in range(cfg.blocks_per_stage - 1):
+        layers.append(ConvBlock(out_ch, out_ch, cfg, compute_dtype, gen))
+    if cfg.attention_at(resolution):
+        layers.append(_attention_layer(cfg, out_ch, compute_dtype, gen))
+    if not last:
+        layers.append(DownsampleAvg(2))
     return nn.Sequential(*layers)
 
 
@@ -119,3 +154,9 @@ class ToRGB(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(super().forward(x).float()).to(self.compute_dtype or x.dtype)
+
+
+def from_rgb(img_channels: int, out_ch: int, compute_dtype: Optional[torch.dtype] = None,
+             gen: Optional[torch.Generator] = None) -> Conv2d:
+    """Image -> feature map: a 1x1 conv (params `w`, `b`)."""
+    return Conv2d(img_channels, out_ch, (1, 1), compute_dtype=compute_dtype, gen=gen)

@@ -40,7 +40,7 @@ class Conv2d(nn.Module):
         self.compute_dtype = compute_dtype
         w = weight_init(gen, (*kernel, in_ch, out_ch))      # HWIO draw
         self.w = nn.Parameter(w.permute(3, 2, 0, 1).contiguous())
-        self.b = nn.Parameter(torch.zeros(out_ch, device=gen.device)) if use_bias else None
+        self.b = nn.Parameter(initializers.zeros(gen, (out_ch,))) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype or x.dtype
@@ -78,7 +78,7 @@ class Dense(nn.Module):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.w = nn.Parameter(weight_init(gen, (in_dim, out_dim)))
-        self.b = nn.Parameter(torch.zeros(out_dim, device=gen.device)) if use_bias else None
+        self.b = nn.Parameter(initializers.zeros(gen, (out_dim,))) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype or x.dtype
@@ -102,3 +102,30 @@ class UpsampleNearest(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return upsample_nearest(x, self.factor)
+
+
+def downsample_avg(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Average-pool downsample of an NHWC tensor by reshape-mean; the mean
+    sums and divides in f32 and rounds to x's dtype, as `jnp.mean` does."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // factor, factor, w // factor, factor, c)
+    return x.float().mean(dim=(2, 4)).to(x.dtype)
+
+
+class DownsampleAvg(nn.Module):
+    def __init__(self, factor: int = 2):
+        super().__init__()
+        self.factor = factor
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return downsample_avg(x, self.factor)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> (N, C): the spatial mean, in f32 rounded to x's dtype."""
+    return x.float().mean(dim=(1, 2)).to(x.dtype)
+
+
+class GlobalAvgPool(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return global_avg_pool(x)

@@ -12,12 +12,16 @@ The gate is the per-location MLP
 with x (N, HW, C) in the compute dtype, W1x (C, Hd) and W2 (Hd, Cout)
 cast to it, and pos_proj, the biases and the gate math in f32.
 
-`softmax_gate_stats` and `softmax_gate_apply` launch the kernels of
-`csrc/fused_attention.cu` for CUDA tensors (forward only) and run the
-plain version for CPU tensors; nothing falls back from one to the other.
-Each wrapper counts its kernel launches in its `launches` attribute.
-The sigmoid gate's one-pass kernel and every backward kernel are not
-ported yet (ROADMAP.md, Queue 2).
+Four wrappers launch the kernels of `csrc/fused_attention.cu` for CUDA
+tensors and run the plain version for CPU tensors; nothing falls back
+from one to the other. Forward: `softmax_gate_stats` and
+`softmax_gate_apply`. Backward: `softmax_gate_csum` (pass A, the
+per-(n, channel) sum c of the softmax Jacobian) and
+`softmax_gate_backward` (pass B, dx and every weight gradient). Each
+wrapper counts its kernel launches in its `launches` attribute.
+`fused_locate_attention` runs the four through a first-order
+`torch.autograd.Function`, as `_make_fused_core` does in JAX. The sigmoid
+gate's kernels are not ported yet (ROADMAP.md, Queue 2).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import ctypes
 from typing import Callable, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.cuda import build
@@ -33,8 +38,15 @@ from locate_tpu_torch.ops.cuda import build
 # activation codes of csrc/fused_attention.cu
 ACT_CODES = {"leaky_relu": 0, "relu": 1, "silu": 2, "gelu": 3}
 
+# activations whose backward runs the kernels (`_PALLAS_BWD_ACTS`); the
+# others take the vjp of the plain composition, as JAX does
+BWD_ACTS = ("leaky_relu", "relu")
+
 # shared memory a block may use on sm_90 (227 KB)
 _MAX_SMEM = 232448
+
+# blocks the backward kernel aims for: two per SM of the H100's 132
+_BWD_TARGET_BLOCKS = 264
 
 
 def _act(kind: str, slope: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -47,6 +59,22 @@ def _act(kind: str, slope: float) -> Callable[[torch.Tensor], torch.Tensor]:
 def _clamp_gate(g: torch.Tensor, gate_max: float) -> torch.Tensor:
     """Cap the gate at `gate_max` (0 = off)."""
     return g.clamp(max=gate_max) if gate_max > 0.0 else g
+
+
+def _gate_mask(g: torch.Tensor, gate_max: float):
+    """d(clamped gate)/d(gate): 1 where g <= gate_max, 0 above (1.0 when
+    the clamp is off)."""
+    return (g <= gate_max).float() if gate_max > 0.0 else 1.0
+
+
+def _act_grad(kind: str, slope: float) -> Callable[[torch.Tensor], torch.Tensor]:
+    """act'(u) with the subgradients of `_act_grad`: leaky_relu is 1 at
+    u >= 0, relu is 0 at 0."""
+    if kind == "leaky_relu":
+        return lambda u: torch.where(u >= 0, 1.0, slope)
+    if kind == "relu":
+        return lambda u: torch.where(u > 0, 1.0, 0.0)
+    raise ValueError(f"no backward kernel for activation {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +135,52 @@ def softmax_gate_apply_reference(x2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
     return (x2d.float() * g).to(x2d.dtype)
 
 
+def _dgate(xf, dyf, cout):
+    """dL/dg: x * dy, summed over channels for a broadcast gate (Cout = 1)."""
+    dg = xf * dyf
+    if cout == 1 and dg.shape[-1] != 1:
+        dg = dg.sum(dim=-1, keepdim=True)
+    return dg
+
+
+def softmax_gate_csum_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
+                                leaky_slope, hw_scale, gate_max) -> torch.Tensor:
+    """c (N, 1, Cout) f32 = sum over HW of g * mask * dg, mirroring
+    `_softmax_csum_kernel`."""
+    l = gate_logits_reference(x2d, pos_proj, w1x, b1, w2, b2, act=act,
+                              leaky_slope=leaky_slope)
+    g = torch.exp(l - m) / se * hw_scale
+    dg = _dgate(x2d.float(), dy2d.float(), l.shape[-1]) * _gate_mask(g, gate_max)
+    return (g * dg).sum(dim=1, keepdim=True)
+
+
+def softmax_gate_backward_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, c, *,
+                                    act, leaky_slope, hw_scale, gate_max):
+    """(dx, dpos_proj, dW1x, db1, dW2, db2), mirroring `_bwd_body` step by
+    step: h, dl and du are rounded to the compute dtype before their
+    products; dx is in the compute dtype; the parameter gradients sum in
+    f32 and are cast to their parameters' dtypes."""
+    cd = x2d.dtype
+    xf, dyf = x2d.float(), dy2d.float()
+    w1c, w2c = w1x.to(cd).float(), w2.to(cd).float()
+    u = xf @ w1c + pos_proj.float() + b1.float()
+    h = _act(act, leaky_slope)(u).to(cd).float()
+    l = h @ w2c + b2.float()
+    g = torch.exp(l - m) / se * hw_scale
+    ghat = _clamp_gate(g, gate_max)
+    # c was summed from the masked dg, so only the local dg needs the mask
+    dl = g * (_gate_mask(g, gate_max) * _dgate(xf, dyf, l.shape[-1])) - (g / hw_scale) * c
+    dlc = dl.to(cd).float()
+    du = _act_grad(act, leaky_slope)(u) * (dlc @ w2c.t())
+    duc = du.to(cd).float()
+    dx = (ghat * dyf + duc @ w1c.t()).to(cd)
+    dw1 = torch.einsum("nsc,nsh->ch", xf, duc)
+    dw2 = torch.einsum("nsh,nsc->hc", h, dlc)
+    return (dx, du.sum(dim=0).to(pos_proj.dtype), dw1.to(w1x.dtype),
+            du.sum(dim=(0, 1)).to(b1.dtype), dw2.to(w2.dtype),
+            dl.sum(dim=(0, 1)).to(b2.dtype))
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -126,8 +200,14 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_stats.restype = i
         lib.locate_softmax_apply.argtypes = [i] + [p] * 9 + [i] * 7 + [f, f, f, p]
         lib.locate_softmax_apply.restype = i
+        lib.locate_softmax_csum.argtypes = [i] + [p] * 11 + [i] * 7 + [f, f, f, p]
+        lib.locate_softmax_csum.restype = i
+        lib.locate_softmax_bwd.argtypes = [i] + [p] * 15 + [i] * 8 + [f, f, f, p]
+        lib.locate_softmax_bwd.restype = i
         lib.locate_softmax_smem_bytes.argtypes = [i] * 4
         lib.locate_softmax_smem_bytes.restype = ctypes.c_size_t
+        lib.locate_softmax_bwd_smem_bytes.argtypes = [i] * 4
+        lib.locate_softmax_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.locate_cuda_error_string.argtypes = [i]
         lib.locate_cuda_error_string.restype = ctypes.c_char_p
         lib._locate_typed = True
@@ -165,23 +245,9 @@ def _kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act):
         raise ValueError(f"unsupported activation for fused attention: {act!r}")
     if n > 65535:
         raise ValueError(f"batch {n} exceeds the kernel grid's 65535 rows")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x2d, *tensors.values())
-    ):
-        raise NotImplementedError(
-            "the CUDA location-attention kernels are forward-only: run under "
-            "torch.inference_mode() (the backward kernels come with the "
-            "training slice, ROADMAP.md Queue 2)"
-        )
     cd = x2d.dtype
-    return (
-        x2d.contiguous(),
-        pos_proj.float().contiguous(),
-        w1x.to(cd).contiguous(),
-        b1.float().contiguous(),
-        w2.to(cd).contiguous(),
-        b2.float().contiguous(),
-    )
+    return tuple(t.detach().contiguous() for t in (
+        x2d, pos_proj.float(), w1x.to(cd), b1.float(), w2.to(cd), b2.float()))
 
 
 def _tile_for(lib, c, hd, cout) -> int:
@@ -241,11 +307,8 @@ def softmax_gate_apply(x2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
     ops = _kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act)
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
-    for name, s in (("m", m), ("se", se)):
-        if tuple(s.shape) != (n, 1, cout) or s.device != x2d.device:
-            raise ValueError(f"{name} must be (N, 1, Cout) on {x2d.device}")
-    m = m.float().contiguous()
-    se = se.float().contiguous()
+    m = _stats_operand("m", m, n, cout, x2d.device)
+    se = _stats_operand("se", se, n, cout, x2d.device)
     lib = _library()
     t = _tile_for(lib, c, hd, cout)
     with torch.cuda.device(x2d.device):
@@ -264,6 +327,166 @@ def softmax_gate_apply(x2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
 softmax_gate_apply.launches = 0
 
 
+def _stats_operand(name, s, n, cout, device):
+    if tuple(s.shape) != (n, 1, cout) or s.device != device:
+        raise ValueError(f"{name} must be (N, 1, Cout) on {device}")
+    return s.detach().float().contiguous()
+
+
+def _grad_operand(x2d, dy2d):
+    if tuple(dy2d.shape) != tuple(x2d.shape) or dy2d.device != x2d.device:
+        raise ValueError(f"dy must be {tuple(x2d.shape)} on {x2d.device}")
+    return dy2d.detach().to(x2d.dtype).contiguous()
+
+
+def _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act):
+    if act not in BWD_ACTS:
+        raise ValueError(f"no backward kernel for activation {act!r} "
+                         f"(kernels: {BWD_ACTS})")
+    ops = _kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act)
+    n, _, _ = x2d.shape
+    cout = w2.shape[1]
+    return (ops[0], _grad_operand(x2d, dy2d), *ops[1:],
+            _stats_operand("m", m, n, cout, x2d.device),
+            _stats_operand("se", se, n, cout, x2d.device))
+
+
+def softmax_gate_csum(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
+                      leaky_slope, hw_scale, gate_max):
+    """c (N, 1, Cout) f32, backward pass A. CUDA tensors: the csum kernel
+    and a fixed-order reduction of its per-tile partials (replaces
+    `_softmax_csum_kernel`); CPU tensors: the plain version."""
+    if x2d.device.type == "cpu":
+        return softmax_gate_csum_reference(
+            x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act=act,
+            leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x2d.device}")
+    ops = _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act)
+    n, hw, c = x2d.shape
+    hd, cout = w1x.shape[1], w2.shape[1]
+    lib = _library()
+    t = _tile_for(lib, c, hd, cout)
+    tiles = -(-hw // t)
+    with torch.cuda.device(x2d.device):
+        f32 = dict(dtype=torch.float32, device=x2d.device)
+        part_c = torch.empty((n, tiles, cout), **f32)
+        csum = torch.empty((n, 1, cout), **f32)
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        err = lib.locate_softmax_csum(
+            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
+            part_c.data_ptr(), csum.data_ptr(), n, hw, c, hd, cout, t,
+            ACT_CODES[act], float(leaky_slope), float(hw_scale), float(gate_max),
+            stream)
+    _check(lib, err, "softmax csum")
+    softmax_gate_csum.launches += 1
+    return csum
+
+
+softmax_gate_csum.launches = 0
+
+
+def bwd_grid(n: int, hw: int, c: int) -> Tuple[int, int]:
+    """(tile rows, batch rows per block) of the backward kernel: the
+    forward's tile, halved (to a multiple of 4, at least 4) while the grid
+    has fewer than `_BWD_TARGET_BLOCKS` one-row blocks; then as many batch
+    rows per block as keep it at about that many blocks. Every extra row
+    per block shrinks the weight-gradient workspace by one block's slice."""
+    t = tile_rows(c)
+    while t > 4 and -(-hw // t) * n < _BWD_TARGET_BLOCKS:
+        t = max(4, t // 2 // 4 * 4)
+    tiles = -(-hw // t)
+    nb = min(n, max(1, -(-_BWD_TARGET_BLOCKS // tiles)))
+    return t, -(-n // nb)
+
+
+def softmax_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, *, act,
+                          leaky_slope, hw_scale, gate_max):
+    """(dx, dpos_proj, dW1x, db1, dW2, db2), backward pass B, each cast to
+    its input's dtype. CUDA tensors: the backward kernel and two
+    fixed-order reductions of its per-block partials (replaces
+    `_bwd_kernel_softmax`); CPU tensors: the plain version."""
+    if x2d.device.type == "cpu":
+        return softmax_gate_backward_reference(
+            x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act=act,
+            leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x2d.device}")
+    ops = _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act)
+    n, hw, c = x2d.shape
+    hd, cout = w1x.shape[1], w2.shape[1]
+    csum = _stats_operand("c", csum, n, cout, x2d.device)
+    lib = _library()
+    t, rows = bwd_grid(n, hw, c)
+    smem = lib.locate_softmax_bwd_smem_bytes(c, hd, cout, t)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"C={c}, Hd={hd}, Cout={cout} needs {smem} bytes of shared "
+                         f"memory per backward block, over the card's {_MAX_SMEM}")
+    tiles, nb = -(-hw // t), -(-n // rows)
+    sizes = (c * hd, hd * cout, hd, cout)
+    with torch.cuda.device(x2d.device):
+        f32 = dict(dtype=torch.float32, device=x2d.device)
+        dx = torch.empty_like(ops[0])
+        part_w = torch.empty((tiles * nb, sum(sizes)), **f32)
+        part_pp = torch.empty((nb, hw, hd), **f32)
+        dw = torch.empty(sum(sizes), **f32)
+        dpp = torch.empty((hw, hd), **f32)
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        err = lib.locate_softmax_bwd(
+            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
+            csum.data_ptr(), dx.data_ptr(), part_w.data_ptr(), part_pp.data_ptr(),
+            dw.data_ptr(), dpp.data_ptr(), n, hw, c, hd, cout, t, rows,
+            ACT_CODES[act], float(leaky_slope), float(hw_scale), float(gate_max),
+            stream)
+    _check(lib, err, "softmax backward")
+    softmax_gate_backward.launches += 1
+    dw1, dw2, db1, db2 = dw.split(sizes)
+    return (dx, dpp.to(pos_proj.dtype), dw1.view(c, hd).to(w1x.dtype), db1.to(b1.dtype),
+            dw2.view(hd, cout).to(w2.dtype), db2.to(b2.dtype))
+
+
+softmax_gate_backward.launches = 0
+
+
+class SoftmaxGate(torch.autograd.Function):
+    """y = x * min(softmax_HW(l) * HW, gate_max), first-order only: the
+    counterpart of `_make_fused_core`'s custom_vjp. Forward: the stats and
+    apply passes, saving (x, pos_proj, w1x, b1, w2, b2, m, se). Backward:
+    the csum and backward passes for leaky_relu and relu; for the other
+    activations the vjp of the plain composition. Differentiating the
+    backward again raises (`once_differentiable`): second-order terms
+    such as R1 go through the plain composition instead."""
+
+    @staticmethod
+    def forward(ctx, x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope, hw_scale,
+                gate_max):
+        kw = dict(act=act, leaky_slope=leaky_slope)
+        m, se = softmax_gate_stats(x2d, pos_proj, w1x, b1, w2, b2, **kw)
+        y = softmax_gate_apply(x2d, pos_proj, w1x, b1, w2, b2, m, se,
+                               hw_scale=hw_scale, gate_max=gate_max, **kw)
+        ctx.save_for_backward(x2d, pos_proj, w1x, b1, w2, b2, m, se)
+        ctx.options = dict(act=act, leaky_slope=leaky_slope, hw_scale=hw_scale,
+                           gate_max=gate_max)
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        x2d, pos_proj, w1x, b1, w2, b2, m, se = ctx.saved_tensors
+        opts = ctx.options
+        if opts["act"] in BWD_ACTS:
+            c = softmax_gate_csum(x2d, dy, pos_proj, w1x, b1, w2, b2, m, se, **opts)
+            grads = softmax_gate_backward(x2d, dy, pos_proj, w1x, b1, w2, b2, m, se,
+                                          c, **opts)
+        else:
+            inputs = [t.detach().requires_grad_(True)
+                      for t in (x2d, pos_proj, w1x, b1, w2, b2)]
+            with torch.enable_grad():
+                y = locate_attention_core_reference(*inputs, mode="softmax", **opts)
+                grads = torch.autograd.grad(y, inputs, dy)
+        return (*grads, None, None, None, None)
+
+
 def fused_locate_attention(
     x: torch.Tensor,         # (N, H, W, C)
     pos_proj: torch.Tensor,  # (H*W, Hd)
@@ -277,24 +500,21 @@ def fused_locate_attention(
     leaky_slope: float = 0.2,
     gate_max: float = 0.0,
 ) -> torch.Tensor:
-    """Residual-form location attention of an NHWC tensor: the two kernels
-    (stats, then apply) for CUDA tensors, the plain version for CPU ones."""
+    """Residual-form location attention of an NHWC tensor through
+    `SoftmaxGate`: the four kernels for CUDA tensors, their plain versions
+    for CPU ones. Differentiable to first order only."""
     n, h, w, c = x.shape
     hw = float(h * w)
     x2d = x.reshape(n, h * w, c)
-    if x.device.type == "cpu":
+    if mode != "softmax":
+        if x.device.type != "cpu":
+            raise NotImplementedError(
+                f"mode={mode!r}: the sigmoid gate's kernel (_sigmoid_kernel) is "
+                "not ported yet (ROADMAP.md, Queue 2)")
         y = locate_attention_core_reference(
             x2d, pos_proj, w1x, b1, w2, b2, mode=mode, act=act,
             leaky_slope=leaky_slope, hw_scale=hw, gate_max=gate_max)
         return y.reshape(x.shape)
-    if mode != "softmax":
-        raise NotImplementedError(
-            f"mode={mode!r}: the sigmoid gate's kernel (_sigmoid_kernel) is not "
-            "ported yet (ROADMAP.md, Queue 2)"
-        )
-    m, se = softmax_gate_stats(x2d, pos_proj, w1x, b1, w2, b2, act=act,
-                               leaky_slope=leaky_slope)
-    y = softmax_gate_apply(x2d, pos_proj, w1x, b1, w2, b2, m, se, act=act,
-                           leaky_slope=leaky_slope, hw_scale=hw,
-                           gate_max=gate_max)
+    y = SoftmaxGate.apply(x2d, pos_proj, w1x, b1, w2, b2, act, float(leaky_slope),
+                          hw, float(gate_max))
     return y.reshape(x.shape)

@@ -13,20 +13,25 @@ from typing import Optional, Sequence
 import torch
 
 
-def he_normal(gen: torch.Generator, shape: Sequence[int],
+def device_of(gen: Optional[torch.Generator]) -> Optional[torch.device]:
+    """The generator's device; with no generator, torch's default one (CPU)."""
+    return None if gen is None else gen.device
+
+
+def he_normal(gen: Optional[torch.Generator], shape: Sequence[int],
               fan_in: Optional[int] = None) -> torch.Tensor:
     """Kaiming-normal for weights in HWIO / [in, out] layout
     (fan_in = product of all but the last dim)."""
     if fan_in is None:
         fan_in = math.prod(shape[:-1])
     std = math.sqrt(2.0 / max(1, fan_in))
-    return torch.randn(tuple(shape), generator=gen, device=gen.device) * std
+    return torch.randn(tuple(shape), generator=gen, device=device_of(gen)) * std
 
 
-def normal(gen: torch.Generator, shape: Sequence[int],
+def normal(gen: Optional[torch.Generator], shape: Sequence[int],
            stddev: float = 0.02) -> torch.Tensor:
-    return torch.randn(tuple(shape), generator=gen, device=gen.device) * stddev
+    return torch.randn(tuple(shape), generator=gen, device=device_of(gen)) * stddev
 
 
-def zeros(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
-    return torch.zeros(tuple(shape), device=gen.device)
+def zeros(gen: Optional[torch.Generator], shape: Sequence[int]) -> torch.Tensor:
+    return torch.zeros(tuple(shape), device=device_of(gen))

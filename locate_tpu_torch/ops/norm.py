@@ -63,6 +63,22 @@ class PixelNorm(nn.Module):
         return (xf / torch.sqrt(ms + self.eps)).to(cd)
 
 
+def minibatch_stddev(x: torch.Tensor, group_size: int, eps: float = 1e-8) -> torch.Tensor:
+    """Minibatch standard deviation (`locate_tpu/ops/norm.py:minibatch_stddev`):
+    per group of `group_size` consecutive examples, the biased stddev of
+    every activation across the group, averaged to one scalar per group
+    and repeated for its members. Returns (N, 1) float32."""
+    n = x.shape[0]
+    g = min(group_size, n)
+    if n % g:
+        raise ValueError(
+            f"minibatch_stddev: batch {n} not divisible by group {g} "
+            "(pick mbstd_group dividing the per-replica batch)")
+    y = x.float().reshape(n // g, g, -1)
+    sd = torch.sqrt(y.var(dim=1, unbiased=False) + eps)
+    return sd.mean(dim=1).repeat_interleave(g)[:, None]
+
+
 def make_norm(kind: str, channels: int, groups: int = 8,
               compute_dtype: Optional[torch.dtype] = None,
               device: Optional[torch.device] = None) -> nn.Module:

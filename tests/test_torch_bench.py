@@ -1,0 +1,63 @@
+"""The port's `bench` command (the counterpart of bench.py) on the CPU: one
+JSON line from a full-width lsun_bedroom_128 train step at batch 1, and
+every config bench builds, the modes the port does not run included
+(the guard against bench.py's round-5 override crash, where a config
+the bench built could not be built)."""
+
+import json
+
+import pytest
+import torch
+
+from locate_tpu_torch import cli
+
+
+@pytest.fixture
+def two_threads():
+    """A full-width step on the CPU, beside other test workers: two
+    threads each keep the workers from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_bench_prints_one_json_line(capsys, two_threads):
+    assert cli.main(["bench", "1", "1", "--device=cpu"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    d = json.loads(lines[0])
+    assert d["unit"] == "images/sec" and d["value"] > 0 and d["batch"] == 1
+    assert d["use_pallas"] is True and "cpu" in d["metric"] and d["device"] == "cpu"
+    # G and D forward and backward at 128^2: tens of GFLOP per image
+    assert d["flops_per_step"] > 1e10
+    assert d["mfu"] is None  # no tensor-core peak for a CPU rate
+
+
+@pytest.mark.parametrize("modes", [[], ["xla"], ["fused"], ["e2e"], ["spc=16"],
+                                   ["xla", "spc=16"], ["fused", "spc=4"],
+                                   ["e2e", "spc=16"]])
+def test_every_bench_config_builds(modes):
+    cfg = cli.bench_config(128, modes)
+    t = cfg.train
+    assert cfg.name == "lsun_bedroom_128" and cfg.data.resolution == 128
+    assert t.global_batch == 128 and t.compute_dtype == "bfloat16"
+    assert cfg.use_pallas == ("xla" not in modes)
+    assert t.fused_step == ("fused" in modes)
+    assert (t.r1_gamma, t.ada_target, t.augment_p, t.lecam_gamma, t.grad_norm_limit,
+            t.max_nonfinite_skips) == (0.0, 0.0, 0.0, 0.0, 0.0, 0)
+    spc = [int(m[4:]) for m in modes if m.startswith("spc=")]
+    assert t.steps_per_call == (spc[0] if spc else 1)
+    assert cfg.parallel.data_parallel == 1
+
+
+@pytest.mark.parametrize("modes,message", [(["fused"], "fused"), (["e2e"], "data pipeline"),
+                                           (["spc=16"], "steps_per_call")])
+def test_unported_bench_modes_raise(modes, message):
+    with pytest.raises(NotImplementedError, match=message):
+        cli.main(["bench", "1", "1", *modes, "--device=cpu"])
+
+
+def test_bench_refuses_unknown_arguments():
+    with pytest.raises(SystemExit, match="unknown argument"):
+        cli.main(["bench", "1", "1", "lsun_bedroom_128", "--device=cpu"])
