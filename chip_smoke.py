@@ -3,61 +3,92 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the full width of lsun_bedroom_128
-(use_pallas=true, bf16 compute, f32 params): serving (the generator) and
-training (the alternating GAN train step, the main path), and holds every
-CUDA kernel against its plain PyTorch version. Phases, one line each:
+Drives the port's paths through the entry points a user calls and holds
+every CUDA kernel against its plain PyTorch version: lsun_bedroom_128 at
+full width (use_pallas=true, bf16 compute, f32 params), serving and the
+alternating train step, the main path of the softmax gate's kernels; then
+ffhq_512 at full width and depth, serving and its train step with lazy R1,
+the main path of the fused-stage kernels. Phases, one line each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
-  2. build: compiles csrc/fused_attention.cu with `-Xptxas -v`, prints each
-     kernel's registers, shared memory and spills, and the dynamic shared
-     memory of the forward and backward blocks at every (C, Hd) of the path;
-  3. forward kernels (stats, apply) against the plain version at the nine
-     distinct gate shapes of G and D, batch 64, bf16, with gate weights
-     that make the gate vary and pass the clamp at 16, plus one f32 shape
-     with TF32 off. Rule in bf16: the kernel's norm-relative error against
-     an f32 plain computation of the same inputs is at most twice the bf16
-     plain version's. Rule in f32: norm-relative error against the plain
-     version at most 1e-4;
-  4. backward kernels (csum, backward) against the plain backward at the
-     same shapes under the same rules, for c, dx, dpos_proj, dW1x, db1, dW2
-     and db2. These are sums that cancel (db2 exactly: sum_s dl = c - c),
-     so each error is taken against the norm of the sum of its terms'
-     absolute values, the scale rounding error grows with; the same inputs
-     run twice give bitwise-equal gradients;
-  5. serving: seeded random weights with non-zero logit convs serve
-     requests of batch 1, 16 and 64 through `generate_samples`; the forward
-     launch counters read 6 per forward; each attention layer of the
-     batch-64 request is held against the plain version on the activations
-     it received; the kernel path, the plain path and an f32 plain
-     generator run the same latents (kernel error <= 2x plain error);
-     `bench-sample`'s images/sec at batch 64 for both paths, peak memory,
-     idle share;
-  6. training (the main path): the shipped preset (R1 gamma 1 every 16
-     steps, the grad-norm and non-finite guards, EMA 0.999), batch 64,
-     seeded weights, 3 steps from step 0 through `make_train_step`: losses,
-     norms and r1 finite, G, D and EMA moved, the guard counters as the
-     norms imply, launch counters 30 / 30 / 24 / 24 per step. Then one
-     step's gradients from one state and batch with the same latents on
-     the kernel path, the plain path and an f32 plain path: the kernel
+  2. build: csrc/fused_attention.cu and csrc/fused_stage.cu, one nvcc each,
+     started together, with `-Xptxas -v`: each kernel's registers, shared
+     memory and spills, and the dynamic shared memory of the gate's blocks
+     at every (C, Hd) of the path and of the stage's at 512^2 x 64;
+  3. the gate's forward kernels (stats, apply) against the plain version at
+     the nine G and D gate shapes of lsun_bedroom_128, batch 64, bf16, with
+     gate weights that make the gate vary and pass the clamp at 16, plus one
+     f32 shape with TF32 off; then at ffhq_512's new shapes (HW 65536 and
+     262144, C 64), batch 16. Rule in bf16: the kernel's norm-relative error
+     against an f32 plain computation of the same inputs is at most twice
+     the bf16 plain version's. Rule in f32: at most 1e-4 against the plain
+     version;
+  4. the gate's backward kernels (csum, backward) at the same shapes under
+     the same rules, for c, dx, dpos_proj, dW1x, db1, dW2 and db2. These are
+     sums that cancel (db2 exactly: sum_s dl = c - c), so each error is taken
+     against the norm of the sum of its terms' absolute values, the scale
+     rounding error grows with; the same inputs run twice give bitwise-equal
+     gradients;
+  5. lsun_bedroom_128 serving: seeded random weights with non-zero logit
+     convs serve requests of batch 1, 16 and 64 through `generate_samples`;
+     the launch counters read 6 per forward for each forward gate kernel and
+     0 for every other; each attention layer of the batch-64 request is held
+     against the plain version on the activations it received; the kernel
+     path, the plain path and an f32 plain generator run the same latents
+     (kernel error <= 2x plain error); `bench-sample`'s images/sec at batch
+     64 for both paths, peak memory, idle share;
+  6. lsun_bedroom_128 training: the shipped preset (R1 gamma 1 every 16
+     steps, the grad-norm and non-finite guards, EMA 0.999), batch 64, seeded
+     weights, 3 steps from step 0 through `make_train_step`: losses, norms and
+     r1 finite, G, D and EMA moved, the guard counters as the norms imply,
+     launch counters 30 / 30 / 24 / 24 per step and no fused-stage launch.
+     Then one step's gradients from one state and batch with the same latents
+     on the kernel path, the plain path and an f32 plain path: the kernel
      path's error against f32 is at most twice the plain path's, for D and
-     for G. With random weights the 128^2 model's gradient is
-     ill-conditioned (the f32 plain path's own gradient moves by percents
-     when the weights move by 1e-7, printed), so two more checks carry the
-     weight: each of the step's 24 gate backward calls is held against the
-     plain backward on its own saved tensors (the bf16 rule), and at 64^2
-     (one stage fewer, same widths) the f32 kernel path's gradients are
-     within 1e-3 of the f32 plain path's (or ten times the plain path's own
-     change under 1e-7 weight noise, if larger), each call within 1e-4;
-  7. training throughput: `bench 128 20` and `bench 128 20 xla`
-     (images/sec, flops per step, MFU), peak memory of a batch-128 step with
-     R1 firing (r1_remat on and off), and over 3 steps of each path the
+     for G. With random weights the 128^2 model's gradient is ill-conditioned
+     (the f32 plain path's own gradient moves by percents when the weights
+     move by 1e-7, printed), so two more checks carry the weight: each of the
+     step's 24 gate backward calls is held against the plain backward on its
+     own saved tensors (the bf16 rule), and at 64^2 (one stage fewer, same
+     widths) the f32 kernel path's gradients are within 1e-3 of the f32 plain
+     path's (or ten times the plain path's own change under 1e-7 weight
+     noise, if larger), each call within 1e-4;
+  7. lsun_bedroom_128 training throughput: `bench 128 20` and `bench 128 20
+     xla` (images/sec, flops per step, MFU), peak memory of a batch-128 step
+     with R1 firing (r1_remat on and off), and over 3 steps of each path the
      device's idle share and its kernels by time;
-  8. each kernel's time at each shape (CUDA graphs of back-to-back launches
-     timed with CUDA events) beside its bound, share of the bound and the
-     plain version's time;
-  9. one JSON line `{"kernels": [...]}`;
- 10. the card's name and power limit again, then the last line
+  8. (in 3 and 4) each gate kernel's time at each shape (CUDA graphs of
+     back-to-back launches timed with CUDA events) beside its bound, share
+     of the bound and the plain version's time;
+  9. the four fused-stage kernels against their plain versions at
+     ffhq_512's 512^2 stage (C = Co = 64, Hd = 16), batch 16, bf16 and f32
+     under the rules of 3: the softmax stats pass in G's `up` form (coarse
+     256^2 in) and D's plain form, the pooled apply pass, the conv pass
+     plain, `up`, `down` and with a 1x1 skip (C 32), the conv backward plain
+     and `up` (its outputs against their absolute-term scales, two f32 runs
+     bitwise equal); each bf16 case timed beside its bound and the plain
+     version's time;
+ 10. ffhq_512 serving: one request of 4 through `generate_samples` (the
+     launches of one forward: the stage's stats pass once, the gate's kernels
+     at the seven stages below), the kernel path, the plain path and an f32
+     plain generator on the same latents (kernel error <= 2x plain error),
+     the idle share of a batch-16 request, and `bench-sample ffhq_512
+     --batch=16` on both paths with peak memory;
+ 11. ffhq_512 training (the fused-stage kernels' main path): the preset as
+     shipped (R1 gamma 0.1 every 16 steps, remat, both guards) at batch 16,
+     3 steps from step 0: the checks of 6, launches per step of all eight
+     kernels as the step implies, sec/step, images/sec, peak memory, idle
+     share and top kernels; then the plain path's 3 steps alike;
+ 12. one ffhq_512 step's gradients with R1 on the kernel path, each of its
+     four fused-stage backward calls held against the plain backward chain
+     on its own saved tensors (the bf16 rule);
+ 13. one step's whole gradients at ffhq_512's widths cut to 64^2 with every
+     stage fused, f32 kernel path against f32 plain path (the tolerance of
+     6), each of the 20 fused-stage backward calls within 1e-4;
+ 14. one 512^2 G stage and one D stage, forward plus backward, fused,
+     unfused and on the plain path;
+ 15. one JSON line `{"kernels": [...]}` for the eight kernels;
+ 16. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -112,10 +143,40 @@ KERNELS = ("softmax_stats", "softmax_apply", "softmax_csum", "softmax_bwd")
 REPLACES = {"softmax_stats": "locate_tpu/ops/pallas/fused_attention.py:152",
             "softmax_apply": "locate_tpu/ops/pallas/fused_attention.py:179",
             "softmax_csum": "locate_tpu/ops/pallas/fused_attention.py:358",
-            "softmax_bwd": "locate_tpu/ops/pallas/fused_attention.py:397"}
-# the CUDA kernels of csrc/fused_attention.cu, as ptxas and the profiler name them
+            "softmax_bwd": "locate_tpu/ops/pallas/fused_attention.py:397",
+            "stage_conv": "locate_tpu/ops/pallas/fused_stage.py:366",
+            "stage_softmax_stats": "locate_tpu/ops/pallas/fused_stage.py:410",
+            "stage_softmax_apply_pool": "locate_tpu/ops/pallas/fused_stage.py:397",
+            "stage_conv_bwd": "locate_tpu/ops/pallas/fused_stage.py:451"}
+# the CUDA kernels of csrc/fused_attention.cu and csrc/fused_stage.cu, as
+# ptxas and the profiler name them (a name before any name it contains)
 CUDA_KERNELS = ("softmax_stats_partial", "softmax_stats_merge", "softmax_apply",
                 "softmax_csum_partial", "softmax_bwd", "reduce_partials")
+STAGE_SOURCE = "locate_tpu_torch/csrc/fused_stage.cu"
+STAGE_KERNELS = ("stage_conv", "stage_softmax_stats", "stage_softmax_apply_pool",
+                 "stage_conv_bwd")
+STAGE_CUDA_KERNELS = ("stage_conv_bwd", "stage_softmax_apply_pool", "stage_softmax_stats",
+                      "stage_conv", "softmax_stats_merge", "reduce_partials")
+ALL_CUDA_KERNELS = STAGE_CUDA_KERNELS + CUDA_KERNELS
+
+# ffhq_512 (config.py:792-808): batch 16 per card (the preset's global 256
+# over a v5p-32's 16 chips); the gate's new shapes (HW, C, Hd) at 256^2 and
+# 512^2; per train step, the fused-stage launches of each shape (G's 512^2
+# stage runs `up` forms, D's the plain ones; remat reruns each stage's
+# forward in the backward), and the gate's launches per step and per served
+# forward (every stage below 512^2 of G and D, plus G's 512^2 apply and the
+# four fused backward calls' gate stats, csum and backward)
+FFHQ_BATCH = 16
+FFHQ_GATE_SHAPES = [(65536, 64, 16), (262144, 64, 16)]
+FFHQ_STAGE_PER_STEP = {"stage_softmax_stats": {"up": 3, "plain": 6},
+                       "stage_softmax_apply_pool": {"plain": 6},
+                       "stage_conv": {"up": 1, "plain": 3},
+                       "stage_conv_bwd": {"up": 1, "plain": 3}}
+FFHQ_GATE_PER_STEP = {"softmax_stats": 67, "softmax_apply": 66, "softmax_csum": 32,
+                      "softmax_bwd": 32}
+FFHQ_SERVE_PER_FORWARD = {"softmax_stats": 7, "softmax_apply": 8, "softmax_csum": 0,
+                          "softmax_bwd": 0, "stage_conv": 0, "stage_softmax_stats": 1,
+                          "stage_softmax_apply_pool": 0, "stage_conv_bwd": 0}
 
 
 class SmokeFailure(Exception):
@@ -145,9 +206,9 @@ def nvidia_smi() -> str:
 
 
 def kernel_name(mangled: str) -> str:
-    """The readable name of a compiled kernel: its CUDA_KERNELS name with
-    <bf16> or <f32> for the templates, else the mangled name itself."""
-    base = next((k for k in CUDA_KERNELS if k in mangled), mangled)
+    """The readable name of a compiled kernel: its ALL_CUDA_KERNELS name
+    with <bf16> or <f32> for the templates, else the mangled name itself."""
+    base = next((k for k in ALL_CUDA_KERNELS if k in mangled), mangled)
     if "nv_bfloat16" in mangled:
         return base + "<bf16>"
     if "IfE" in mangled:
@@ -215,7 +276,7 @@ def kernel_split(fn, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
-        name = next((k for k in CUDA_KERNELS if k in ev.key), None)
+        name = next((k for k in ALL_CUDA_KERNELS if k in ev.key), None)
         if name:
             total = getattr(ev, "device_time_total", None)
             if total is None:
@@ -349,12 +410,16 @@ def cases():
     return out + [(*F32_SHAPE, torch.float32)]
 
 
-def phase_forward(fa):
+def ffhq_gate_cases():
+    return [(hw, c, hd, torch.bfloat16) for hw, c, hd in FFHQ_GATE_SHAPES]
+
+
+def phase_forward(fa, shapes, batch, phase="forward-kernels-vs-plain"):
     """Phase 3 and the forward half of phase 8."""
     rows = []
-    for i, (hw, c, hd, dtype) in enumerate(cases()):
-        ops, _ = gate_inputs(BATCH, hw, c, hd, dtype, seed=100 + i)
-        shape = dict(N=BATCH, HW=hw, C=c, Hd=hd, Cout=c)
+    for i, (hw, c, hd, dtype) in enumerate(shapes):
+        ops, _ = gate_inputs(batch, hw, c, hd, dtype, seed=100 + i)
+        shape = dict(N=batch, HW=hw, C=c, Hd=hd, Cout=c)
         with torch.inference_mode():
             kern = run_forward(fa, ops, hw, plain=False)
             plain = run_forward(fa, ops, hw, plain=True)
@@ -381,26 +446,26 @@ def phase_forward(fa):
             m, se = fa.softmax_gate_stats(*kops, **KW)
             row["softmax_stats"] = timed(
                 "softmax_stats", lambda: fa.softmax_gate_stats(*kops, **KW),
-                lambda: fa.softmax_gate_stats_reference(*kops, **KW), BATCH, hw, c, hd, dtype)
+                lambda: fa.softmax_gate_stats_reference(*kops, **KW), batch, hw, c, hd, dtype)
             row["softmax_apply"] = timed(
                 "softmax_apply", lambda: fa.softmax_gate_apply(*kops, m, se, **apply_kw),
                 lambda: fa.softmax_gate_apply_reference(*kops, m, se, **apply_kw),
-                BATCH, hw, c, hd, dtype)
+                batch, hw, c, hd, dtype)
             row["profiler_us_per_call"] = kernel_split(lambda: fa.softmax_gate_apply(
                 *kops, *fa.softmax_gate_stats(*kops, **KW), **apply_kw))
-        say("forward-kernels-vs-plain", **row)
+        say(phase, **row)
         rows.append(row)
         del ops, kops, m, se
         torch.cuda.empty_cache()
     return rows
 
 
-def phase_backward(fa):
+def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
     """Phase 4 and the backward half of phase 8."""
     rows = []
-    for i, (hw, c, hd, dtype) in enumerate(cases()):
-        ops, dy = gate_inputs(BATCH, hw, c, hd, dtype, seed=200 + i)
-        shape = dict(N=BATCH, HW=hw, C=c, Hd=hd, Cout=c)
+    for i, (hw, c, hd, dtype) in enumerate(shapes):
+        ops, dy = gate_inputs(batch, hw, c, hd, dtype, seed=200 + i)
+        shape = dict(N=batch, HW=hw, C=c, Hd=hd, Cout=c)
         with torch.no_grad():
             kern = run_backward(fa, ops, dy, hw, plain=False)
             again = run_backward(fa, ops, dy, hw, plain=False)
@@ -409,7 +474,7 @@ def phase_backward(fa):
             torch.cuda.synchronize()
         row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""),
                    bwd_grid=dict(zip(("tile_rows", "batch_rows_per_block"),
-                                     fa.bwd_grid(BATCH, hw, c))))
+                                     fa.bwd_grid(batch, hw, c))))
         for name, k, a in zip(GRAD_NAMES, kern, again):
             check(torch.equal(k, a), f"{name} at {shape}: two runs differ bitwise")
         row["bitwise_repeatable"] = True
@@ -430,17 +495,17 @@ def phase_backward(fa):
                 "softmax_csum", lambda: fa.softmax_gate_csum(kops[0], dy, *kops[1:], m, se,
                                                              **opts),
                 lambda: fa.softmax_gate_csum_reference(kops[0], dy, *kops[1:], m, se, **opts),
-                BATCH, hw, c, hd, dtype)
+                batch, hw, c, hd, dtype)
             row["softmax_bwd"] = timed(
                 "softmax_bwd", lambda: fa.softmax_gate_backward(kops[0], dy, *kops[1:], m, se,
                                                                 cs, **opts),
                 lambda: fa.softmax_gate_backward_reference(kops[0], dy, *kops[1:], m, se, cs,
                                                            **opts),
-                BATCH, hw, c, hd, dtype)
+                batch, hw, c, hd, dtype)
             row["profiler_us_per_call"] = kernel_split(lambda: fa.softmax_gate_backward(
                 kops[0], dy, *kops[1:], m, se,
                 fa.softmax_gate_csum(kops[0], dy, *kops[1:], m, se, **opts), **opts))
-        say("backward-kernels-vs-plain", **row)
+        say(phase, **row)
         rows.append(row)
         del ops, dy, kops, m, se, cs
         torch.cuda.empty_cache()
@@ -491,17 +556,26 @@ def check_attention_layers(fa, captured):
     return out
 
 
-def reset_counters(fa):
-    for name in ("softmax_gate_stats", "softmax_gate_apply", "softmax_gate_csum",
-                 "softmax_gate_backward"):
-        getattr(fa, name).launches = 0
+def counters():
+    """{kernel: its wrapper} for the eight kernels of the two libraries."""
+    from locate_tpu_torch.ops import fused_attention as fa
+    from locate_tpu_torch.ops import fused_stage as fs
+
+    return {"softmax_stats": fa.softmax_gate_stats, "softmax_apply": fa.softmax_gate_apply,
+            "softmax_csum": fa.softmax_gate_csum, "softmax_bwd": fa.softmax_gate_backward,
+            **{k: getattr(fs, k) for k in STAGE_KERNELS}}
 
 
-def read_counters(fa) -> dict:
-    return {"softmax_stats": fa.softmax_gate_stats.launches,
-            "softmax_apply": fa.softmax_gate_apply.launches,
-            "softmax_csum": fa.softmax_gate_csum.launches,
-            "softmax_bwd": fa.softmax_gate_backward.launches}
+def reset_counters():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+NO_STAGE = {k: 0 for k in STAGE_KERNELS}
 
 
 def phase_generator(fa, cfg):
@@ -531,9 +605,9 @@ def phase_generator(fa, cfg):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     requests = (1, 16, BATCH)
-    reset_counters(fa)
+    reset_counters()
     images = [generate_samples(model, gen, b) for b in requests]
-    launches = read_counters(fa)
+    launches = read_counters()
     for h in hooks:
         h.remove()
     check(len(captured) == stages, f"captured {len(captured)} attention layers")
@@ -545,7 +619,7 @@ def phase_generator(fa, cfg):
         check(float(img.std()) > 0.0, f"request of {b}: constant images")
     want = stages * len(requests)
     check(launches == {"softmax_stats": want, "softmax_apply": want, "softmax_csum": 0,
-                       "softmax_bwd": 0},
+                       "softmax_bwd": 0, **NO_STAGE},
           f"serving launched {launches} for {len(requests)} forwards of {stages} stages")
 
     # the kernel path against the plain path, both against f32
@@ -673,30 +747,10 @@ def trainer(cfg, seed=0):
     return gan, create_train_state(cfg, gan, seed=seed + 2), make_train_step(cfg, gan)
 
 
-def phase_train(fa):
-    """Phase 6: the main path, three preset steps from step 0."""
-    from locate_tpu_torch.config import get_config
-
-    cfg = get_config("lsun_bedroom_128", {"use_pallas": "true"})
-    tcfg = cfg.train
-    check(tcfg.global_batch == BATCH and tcfg.compute_dtype == "bfloat16"
-          and tcfg.r1_gamma == 1.0 and tcfg.grad_norm_limit == 1e6
-          and tcfg.max_nonfinite_skips == 200 and tcfg.ema_decay == 0.999,
-          "lsun_bedroom_128 is not the shipped recipe")
-    gan, state, step = trainer(cfg)
-    batch = fixed_batch(BATCH)
-    before = [t.clone() for t in (state.g_params.flat, state.d_params.flat, state.ema_params)]
-    steps = 3
-    torch.cuda.synchronize()
-    reset_counters(fa)
-    t0 = time.perf_counter()
-    history = []
-    for _ in range(steps):
-        state, metrics = step(state, batch)
-        history.append(metrics)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read_counters(fa)
+def check_history(history, tcfg):
+    """The steps' metrics as floats, after checking them: all finite, R1 at
+    its steps only, the guard counters as the gradient norms imply (no
+    non-finite skips)."""
     history = [{k: float(v) for k, v in m.items()} for m in history]
     for i, m in enumerate(history):
         for k, v in m.items():
@@ -713,13 +767,58 @@ def phase_train(fa):
             check(guards == (count, streak, 0),
                   f"step {i}: {net} guard counters {guards}, the norms imply "
                   f"{(count, streak, 0)}")
+    return history
+
+
+def check_moved(before, state, history, tcfg):
+    """The largest change of G, D and the EMA (which follows G). A net
+    whose update passed the grad-norm guard at some step (a norm above
+    `grad_norm_limit` skips the update) moved, and so did the EMA with G;
+    a net whose every update was skipped did not move, and the EMA then
+    stays on G up to its own rounding."""
     moved = {name: float((after - b).abs().max()) for name, b, after in zip(
         ("g", "d", "ema"), before,
         (state.g_params.flat, state.d_params.flat, state.ema_params))}
     for name, delta in moved.items():
-        check(delta > 0.0, f"{name} params did not move")
+        net = "g" if name == "ema" else name
+        applied = sum(not (tcfg.grad_norm_limit > 0.0
+                           and m[f"{net}_grad_norm"] > tcfg.grad_norm_limit) for m in history)
+        if applied:
+            check(delta > 0.0, f"{name} params did not move after {applied} applied updates")
+        else:
+            check(delta <= (1e-5 if name == "ema" else 0.0),
+                  f"{name} params moved by {delta} though the guard skipped every update")
+    return moved
+
+
+def phase_train(fa):
+    """Phase 6: the main path, three preset steps from step 0."""
+    from locate_tpu_torch.config import get_config
+
+    cfg = get_config("lsun_bedroom_128", {"use_pallas": "true"})
+    tcfg = cfg.train
+    check(tcfg.global_batch == BATCH and tcfg.compute_dtype == "bfloat16"
+          and tcfg.r1_gamma == 1.0 and tcfg.grad_norm_limit == 1e6
+          and tcfg.max_nonfinite_skips == 200 and tcfg.ema_decay == 0.999,
+          "lsun_bedroom_128 is not the shipped recipe")
+    gan, state, step = trainer(cfg)
+    batch = fixed_batch(BATCH)
+    before = [t.clone() for t in (state.g_params.flat, state.d_params.flat, state.ema_params)]
+    steps = 3
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    history = []
+    for _ in range(steps):
+        state, metrics = step(state, batch)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    history = check_history(history, tcfg)
+    moved = check_moved(before, state, history, tcfg)
     per_step = {"softmax_stats": 30, "softmax_apply": 30, "softmax_csum": 24,
-                "softmax_bwd": 24}
+                "softmax_bwd": 24, **NO_STAGE}  # no stage fuses at 128^2
     check(launches == {k: v * steps for k, v in per_step.items()},
           f"train steps launched {launches}, want {per_step} per step")
     say("train", config="lsun_bedroom_128 as shipped, use_pallas=true", batch=BATCH,
@@ -799,8 +898,8 @@ def step_grads(cfg, weights, z_d, z_g, res, use_pallas, dtype, perturb=0.0):
                 p.mul_(1.0 + perturb * torch.randn(p.shape, device="cuda", generator=g))
     state = create_train_state(pcfg, gan)
     step = make_train_step(pcfg, gan)
-    real, labels, zd, ld, zg, lg = step.prepare(state, fixed_batch(BATCH, res), z_d=z_d,
-                                                z_g=z_g)
+    real, labels, zd, ld, zg, lg = step.prepare(state, fixed_batch(z_d.shape[0], res),
+                                                z_d=z_d, z_g=z_g)
     d_loss, d_aux, d_grads = step.d_loss_and_grads(state, real, labels, zd, ld)
     g_loss, g_grads = step.g_loss_and_grads(state, zg, lg)
     torch.cuda.synchronize()
@@ -909,9 +1008,604 @@ def phase_train_throughput():
     return kernel, plain
 
 
+# ---------------------------------------------------------------------------
+# ffhq_512: the fused-stage path
+# ---------------------------------------------------------------------------
+
+STAGE_KW = dict(act="leaky_relu", leaky_slope=0.2)
+BWD_NAMES = ("du", "dxs", "dWr", "dWc", "db_col", "dWskip")
+STAGE_OUTPUTS = {"stage_conv": ("y",), "stage_softmax_stats": ("w_pre", "m", "se"),
+                 "stage_softmax_apply_pool": ("y",), "stage_conv_bwd": BWD_NAMES}
+# (kernel, form, C, Co): G's 512^2 stage runs `up` forms from 256^2 x 64,
+# D's the plain ones; `down` is the conv-only pool tail; `skip` a 1x1 skip
+STAGE_CASES = [("stage_softmax_stats", "up", 64, 64), ("stage_softmax_stats", "plain", 64, 64),
+               ("stage_softmax_apply_pool", "plain", 64, 64),
+               ("stage_conv", "plain", 64, 64), ("stage_conv", "up", 64, 64),
+               ("stage_conv", "down", 64, 64), ("stage_conv", "skip", 32, 64),
+               ("stage_conv_bwd", "plain", 64, 64), ("stage_conv_bwd", "up", 64, 64)]
+
+
+def ffhq_config(**overrides):
+    from locate_tpu_torch.config import get_config
+
+    return get_config("ffhq_512", {"train.global_batch": str(FFHQ_BATCH), **overrides})
+
+
+def stage_inputs(n, hin, c, co, dtype, seed):
+    """(x, a, b, wr, wc, b_col, ws) of one stage as the kernels take them:
+    weights scaled to keep the stage's output of order one."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def r(*shape, scale=0.1):
+        return torch.randn(*shape, device="cuda", generator=g) * scale
+
+    ws = r(c, co, scale=1 / math.sqrt(c)).to(dtype) if c != co else None
+    return [r(n, hin, hin, c, scale=1.0).to(dtype), 1 + r(n, c), r(n, c),
+            r(3, c, co, scale=1 / math.sqrt(3 * c)).to(dtype),
+            r(3, co, co, scale=1 / math.sqrt(3 * co)).to(dtype), r(co), ws]
+
+
+def stage_gate(hw, co, seed):
+    """(pos_proj, w1x, b1, w2, b2), f32, making the gate vary and pass 16."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    hd = co // 4
+    r = lambda *shape, scale: torch.randn(*shape, device="cuda", generator=g) * scale  # noqa
+    return [r(hw, hd, scale=0.5), r(co, hd, scale=1 / math.sqrt(co)), r(hd, scale=0.1),
+            r(hd, co, scale=3 / math.sqrt(hd)), r(co, scale=0.1)]
+
+
+def as_f32(ts):
+    return [None if t is None else t.float() for t in ts]
+
+
+def run_stage(fs, kind, ops, gate, form, dw=None, stats=None, plain=False):
+    """One fused-stage kernel (or its plain version) on `ops`: its outputs,
+    named by STAGE_OUTPUTS[kind]. The apply pass takes x as w_pre, with
+    the softmax statistics `stats` of its gate logits."""
+    up, down = form == "up", form == "down"
+    if kind == "stage_conv":
+        fn = fs.stage_conv_reference if plain else fs.stage_conv
+        return (fn(*ops, upsample=up, downsample=down, **STAGE_KW),)
+    if kind == "stage_softmax_stats":
+        fn = fs.stage_softmax_stats_reference if plain else fs.stage_softmax_stats
+        return fn(*ops, *gate, upsample=up, **STAGE_KW)
+    if kind == "stage_softmax_apply_pool":
+        h, w = ops[0].shape[1:3]
+        fn = fs.stage_softmax_apply_pool_reference if plain else fs.stage_softmax_apply_pool
+        return (fn(ops[0], *gate, *stats, hw_scale=float(h * w), gate_max=16.0, **STAGE_KW),)
+    fn = fs.stage_conv_bwd_reference if plain else fs.stage_conv_bwd
+    return fn(ops[0], dw, *ops[1:5], ops[6], upsample=up, **STAGE_KW)
+
+
+def conv_bwd_scales(fs, ops, dw, up):
+    """`stage_conv_bwd`'s outputs computed on the absolute values of their
+    terms (f32): the scale each sum's rounding error grows with."""
+    x, a, b, wr, wc, _, ws = as_f32(ops)
+    u = fs._norm_act(x, a, b, **STAGE_KW)
+    if up:
+        u = fs.up2x(u)
+    v = fs._conv3(u, wr, dim=2)
+    dy0 = dw.float().abs() * fs.SQRT_HALF
+    dv = fs._conv3(dy0, wc.abs().transpose(1, 2), dim=1, sign=-1)
+    du = fs._conv3(dv, wr.abs().transpose(1, 2), dim=2, sign=-1)
+    dwc = torch.einsum("nhwkj,nhwc->kjc", fs._taps(v.abs(), 1).unflatten(-1, (3, -1)), dy0)
+    dwr = torch.einsum("nhwkc,nhwo->kco", fs._taps(u.abs(), 2).unflatten(-1, (3, -1)), dv)
+    dbc = dy0.sum(dim=(0, 1, 2))
+    if up:
+        du, dy0 = fs._pool2x_sum(du), fs._pool2x_sum(dy0)
+    if ws is None:
+        return du, dy0, dwr, dwc, dbc, None
+    return (du, dy0 @ ws.abs().t(), dwr, dwc, dbc,
+            torch.einsum("nhwc,nhwo->co", x.abs(), dy0))
+
+
+def stage_bound(kind, n, c, co, dtype, form, h=512):
+    """(bound_ms, bound_by) of one stage kernel at (N, h, h) fine pixels:
+    the bytes it must move (x, dw, w_pre in and out once, weights, f32
+    statistics and weight gradients) over the memory rate, and the convs'
+    and gate MLP's multiply-adds over the peak rate of the operand type."""
+    es = torch.finfo(dtype).bits // 8
+    up, down = form == "up", form == "down"
+    pf = n * h * h                       # fine pixels
+    px = pf // 4 if up else pf           # x-side pixels
+    skip = c != co
+    hd = co // 4
+    weights = (3 * c * co + 3 * co * co + (c * co if skip else 0)) * es + co * 4 + 2 * n * c * 4
+    gate_bytes = 2 * co * hd * es + (h * h * hd + hd + co) * 4 + 2 * n * co * 4
+    conv_flops = 2.0 * pf * 3 * (c * co + co * co) + (2.0 * px * c * co if skip else 0.0)
+    gate_flops = 2.0 * pf * 2 * co * hd
+    if kind == "stage_conv":
+        nbytes = px * c * es + pf * co * es // (4 if down else 1) + weights
+        flops = conv_flops
+    elif kind == "stage_softmax_stats":
+        nbytes, flops = px * c * es + pf * co * es + weights + gate_bytes, conv_flops + gate_flops
+    elif kind == "stage_softmax_apply_pool":
+        nbytes, flops = pf * co * es + pf * co * es // 4 + gate_bytes, gate_flops
+    else:  # recompute v; dv, du; dWr, dWc; the skip's two products
+        nbytes = 3 * px * c * es + pf * co * es + weights + (3 * c * co + 3 * co * co + co) * 4
+        flops = (2.0 * pf * 3 * (3 * c * co + 2 * co * co)
+                 + (4.0 * px * c * co if skip else 0.0))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_stage_kernels(fs, fa):
+    """Phase 9: the four fused-stage kernels against their plain versions at
+    ffhq_512's 512^2 stage shapes, batch 16, in bf16 (timed) and f32; the
+    backward's outputs against their absolute-term scales, and bitwise
+    repeatable in f32."""
+    n = FFHQ_BATCH
+    rows, times = [], {}
+    max_err = {k: 0.0 for k in STAGE_KERNELS}
+    for i, (kind, form, c, co) in enumerate(STAGE_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            ops = stage_inputs(n, 256 if form == "up" else 512, c, co, dtype, seed=300 + i)
+            gate = stage_gate(512 * 512, co, seed=400 + i)
+            dw = None
+            if kind == "stage_conv_bwd":
+                g = torch.Generator(device="cuda")
+                g.manual_seed(500 + i)
+                dw = torch.randn(n, 512, 512, co, device="cuda", generator=g).to(dtype)
+            shape = dict(kernel=kind, form=form, N=n, H=512, C=c, Co=co)
+            row = dict(shape, dtype=str(dtype).replace("torch.", ""))
+            with torch.no_grad():
+                # the apply pass's statistics, each path's own: x's in its
+                # dtype for the kernel and the plain version, f32 for the truth
+                stats = truth_stats = None
+                if kind == "stage_softmax_apply_pool":
+                    stats, truth_stats = (fa.softmax_gate_stats_reference(
+                        t.reshape(n, 512 * 512, co), *gate, **STAGE_KW)
+                        for t in (ops[0], ops[0].float()))
+                kern = run_stage(fs, kind, ops, gate, form, dw, stats)
+                plain = run_stage(fs, kind, ops, gate, form, dw, stats, plain=True)
+                truth = (plain if dtype == torch.float32 else
+                         run_stage(fs, kind, as_f32(ops), gate, form,
+                                   None if dw is None else dw.float(), truth_stats, plain=True))
+                scales = ((None,) * len(kern) if dw is None
+                          else conv_bwd_scales(fs, ops, dw, form == "up"))
+                if kind == "stage_conv_bwd" and dtype == torch.float32:
+                    again = run_stage(fs, kind, ops, gate, form, dw)
+                    for name, k, a in zip(BWD_NAMES, kern, again):
+                        check(k is None or torch.equal(k, a),
+                              f"{kind} {form}: {name} differs bitwise between two runs")
+                    row["bitwise_repeatable"] = True
+                torch.cuda.synchronize()
+            for name, k, p, t, sc in zip(STAGE_OUTPUTS[kind], kern, plain, truth, scales):
+                if k is None:
+                    continue
+                hold(name, shape, k, p, t, dtype, row, scale=sc)
+                max_err[kind] = max(max_err[kind], row[f"{name}_max_abs_err"])
+            del kern, plain, truth, scales
+            if dtype == torch.bfloat16:
+                with torch.no_grad():
+                    ms = graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw, stats), 3, 3)
+                    plain_ms = graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw, stats,
+                                                          plain=True), 3, 3)
+                b_ms, b_by = stage_bound(kind, n, c, co, dtype, form)
+                times[(kind, form)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                           bound_by=b_by, share_of_bound=b_ms / ms)
+                row.update(times[(kind, form)])
+            say("stage-kernels-vs-plain", **row)
+            rows.append(row)
+            del ops, gate, dw, stats, truth_stats
+            torch.cuda.empty_cache()
+    return rows, times, max_err
+
+
+def plain_stage_backward(fs, fa, o, gy, saved):
+    """`FusedStage`'s backward chain on its saved tensors through the
+    kernels' plain versions: the gradients of its twelve inputs."""
+    x, gn_scale, gn_bias, w_row, w_col, b_col, w_skip, *gate = saved
+    kw = dict(act=o.act, leaky_slope=o.leaky_slope)
+    if o.downsample:
+        gy = fs.up2x(gy.float() * 0.25).to(gy.dtype)
+    a, b = fs.fold_groupnorm(x, gn_scale, gn_bias, o.groups, o.eps)
+    wr, wc, ws = fs.kernel_weights(w_row, w_col, w_skip, x.dtype)
+    gate_grads, dw = (None,) * 5, gy
+    if o.mode is not None:
+        w_pre = fs.stage_conv_reference(x, a, b, wr, wc, b_col, ws, upsample=o.upsample, **kw)
+        n, h, w, co = w_pre.shape
+        w2d, gy2 = w_pre.reshape(n, h * w, co), gy.reshape(n, h * w, co)
+        opts = dict(hw_scale=float(h * w), gate_max=o.gate_max, **kw)
+        m, se = fa.softmax_gate_stats_reference(w2d, *gate, **kw)
+        c = fa.softmax_gate_csum_reference(w2d, gy2, *gate, m, se, **opts)
+        dw2d, *gate_grads = fa.softmax_gate_backward_reference(w2d, gy2, *gate, m, se, c, **opts)
+        dw = dw2d.reshape(w_pre.shape)
+    du, dxs, dwr, dwc, dbc, dws = fs.stage_conv_bwd_reference(x, dw, a, b, wr, wc, ws,
+                                                              upsample=o.upsample, **kw)
+    dx, d_scale, d_bias = fs.groupnorm_act_backward(x, du, dxs, gn_scale, gn_bias,
+                                                    groups=o.groups, eps=o.eps, **kw)
+    return (dx, d_scale, d_bias, dwr.permute(2, 1, 0)[:, :, None, :],
+            dwc.permute(2, 1, 0)[:, :, :, None], dbc,
+            None if dws is None else dws.t()[:, :, None, None], *gate_grads)
+
+
+@contextlib.contextmanager
+def checked_stage_backward(fs, fa, record):
+    """Hold every backward of `FusedStage` run inside the block against the
+    plain chain on the very tensors that call saved: in bf16 by the rule of
+    phase 4 (against the f32 plain chain on the same inputs), in f32 to
+    F32_TOL; db2, zero in exact arithmetic, against dW2's scale. One row per
+    call goes to `record`."""
+    original = fs.FusedStage.backward
+
+    def backward(ctx, gy):
+        # the saved tensors are unpacked once (a checkpointed stage allows
+        # no more): the kernel chain runs here on them, as the original does
+        o, saved = ctx.options, ctx.saved_tensors
+        check(o.hand_written, "the checked stage backward runs the kernel chain only")
+        with torch.no_grad():
+            grads = (None, *fs._backward(o, gy, *saved[:7], saved[7:]))
+            plain = plain_stage_backward(fs, fa, o, gy, saved)
+            truth = plain
+            if saved[0].dtype != torch.float32:
+                truth = plain_stage_backward(fs, fa, o, gy.float(), as_f32(saved))
+        x = saved[0]
+        shape = dict(N=x.shape[0], H=o.h, C=x.shape[-1], up=o.upsample, down=o.downsample)
+        row = dict(shape, dtype=str(x.dtype).replace("torch.", ""))
+        names = fs._NAMES
+        for name, k, p, t in zip(names, grads[1:], plain, truth):
+            if k is None:
+                continue
+            scale = truth[names.index("w2")] if name == "b2" else None
+            hold(name, shape, k, p, t, x.dtype, row, scale=scale)
+        record.append(row)
+        return grads
+
+    fs.FusedStage.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fs.FusedStage.backward = original
+
+
+def phase_ffhq_serving(cfg_g):
+    """Phase 10: serving ffhq_512 through `generate_samples` and
+    `bench-sample`, the kernel path against the plain path."""
+    from locate_tpu_torch.io.sampling import generate_samples
+    from locate_tpu_torch.models.gan import model_config
+    from locate_tpu_torch.models.generator import build_generator
+
+    mcfg = model_config(cfg_g)
+    check(mcfg.use_pallas and mcfg.resolution == 512, "ffhq_512 does not serve fused at 512^2")
+    model = build_generator(mcfg, "bfloat16", "cuda", seed=0).eval()
+    randomize_logit_convs(model, seed=1, scale=0.25)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    reset_counters()
+    images = generate_samples(model, gen, 4)
+    launches = read_counters()
+    check(images.shape == (4, 512, 512, 3) and str(images.dtype) == "uint8",
+          f"ffhq_512 request: images {images.shape} {images.dtype}")
+    check(float(images.std()) > 0.0, "ffhq_512 request: constant images")
+    check(launches == FFHQ_SERVE_PER_FORWARD,
+          f"one ffhq_512 forward launched {launches}, want {FFHQ_SERVE_PER_FORWARD}")
+    plain_cfg = dataclasses.replace(mcfg, use_pallas=False)
+    plain = build_generator(plain_cfg, "bfloat16", "cuda").eval()
+    truth = build_generator(plain_cfg, "float32", "cuda").eval()
+    plain.load_state_dict(model.state_dict())
+    truth.load_state_dict(model.state_dict())
+    gz = torch.Generator(device="cuda")
+    gz.manual_seed(3)
+    z = torch.randn(4, mcfg.latent_dim, device="cuda", generator=gz)
+    with torch.inference_mode():
+        yk, yp, yt = (m(z).float() for m in (model, plain, truth))
+    torch.cuda.synchronize()
+    for name, y in (("kernel", yk), ("plain", yp), ("f32", yt)):
+        check(bool(torch.isfinite(y).all()), f"ffhq_512 {name} generator: non-finite images")
+    ek, ep = rel_err(yk, yt), rel_err(yp, yt)
+    check(ek <= max(BF16_FACTOR * ep, 1e-6),
+          f"ffhq_512 generator: kernel path error {ek:.3e} > {BF16_FACTOR} x plain {ep:.3e}")
+    idle, _ = profile_calls(lambda: generate_samples(model, gen, FFHQ_BATCH))
+    del model, plain, truth
+    torch.cuda.empty_cache()
+
+    def bench_sample(use_pallas):
+        torch.cuda.reset_peak_memory_stats()
+        out = run_cli(["bench-sample", "ffhq_512", f"use_pallas={str(use_pallas).lower()}",
+                       f"--batch={FFHQ_BATCH}", "--steps=3"])
+        torch.cuda.empty_cache()
+        return dict(out, peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+    say("ffhq-serving", config="ffhq_512", launches_one_forward=launches,
+        rel_err_kernel_path_vs_f32=ek, rel_err_plain_path_vs_f32=ep,
+        max_abs_err_kernel_vs_plain_path=float((yk - yp).abs().max()),
+        kernel_path=bench_sample(True), plain_path=bench_sample(False),
+        device_idle_share_batch16=("not measured" if idle is None else idle))
+
+
+def timed_steps(step, state, batch, steps):
+    """(state, metrics of each step, seconds of each step)."""
+    history, seconds = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        history.append(metrics)
+    return state, history, seconds
+
+
+def phase_ffhq_train():
+    """Phase 11: the main path of the fused-stage kernels, ffhq_512 as
+    shipped at batch 16, three steps from step 0 (lazy R1 fires), then the
+    plain path's three steps, and a profile of each."""
+    cfg = ffhq_config()
+    tcfg = cfg.train
+    check(cfg.use_pallas and cfg.model.remat and cfg.model.resolution == 512
+          and tcfg.compute_dtype == "bfloat16" and tcfg.r1_gamma == 0.1
+          and tcfg.grad_norm_limit == 1e6 and tcfg.max_nonfinite_skips == 200,
+          "ffhq_512 is not the shipped recipe")
+    gan, state, step = trainer(cfg)
+    batch = fixed_batch(FFHQ_BATCH, 512)
+    before = [t.clone() for t in (state.g_params.flat, state.d_params.flat, state.ema_params)]
+    steps = 3
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    state, history, seconds = timed_steps(step, state, batch, steps)
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    history = check_history(history, tcfg)
+    moved = check_moved(before, state, history, tcfg)
+    per_step = {**FFHQ_GATE_PER_STEP,
+                **{k: sum(v.values()) for k, v in FFHQ_STAGE_PER_STEP.items()}}
+    check(launches == {k: v * steps for k, v in per_step.items()},
+          f"ffhq_512 steps launched {launches}, want {per_step} per step")
+    idle, top = profile_calls(lambda: step(state, batch), calls=2, top=15)
+    weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
+    params = dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel())
+    del gan, state, step, before
+    torch.cuda.empty_cache()
+
+    pcfg = ffhq_config(use_pallas="false")
+    gan, state, step = trainer(pcfg)
+    torch.cuda.reset_peak_memory_stats()
+    state, plain_history, plain_seconds = timed_steps(step, state, batch, steps)
+    plain_peak = torch.cuda.max_memory_allocated()
+    plain_history = check_history(plain_history, tcfg)
+    plain_idle, plain_top = profile_calls(lambda: step(state, batch), calls=2, top=15)
+    del gan, state, step
+    torch.cuda.empty_cache()
+
+    def rates(secs):
+        return dict(seconds_per_step=secs,
+                    images_per_sec_after_step0=FFHQ_BATCH * (len(secs) - 1) / sum(secs[1:]))
+
+    say("ffhq-train", config="ffhq_512 as shipped, batch 16", steps=steps, params=params,
+        launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
+        metrics=history, max_param_change=moved,
+        kernel_path=dict(rates(seconds), peak_memory_bytes=peak,
+                         device_idle_share="not measured" if idle is None else idle,
+                         top_kernels_2_steps=top),
+        plain_path=dict(rates(plain_seconds), peak_memory_bytes=plain_peak,
+                        metrics=plain_history,
+                        device_idle_share=("not measured" if plain_idle is None
+                                           else plain_idle),
+                        top_kernels_2_steps=plain_top))
+    return cfg, weights, launches
+
+
+def phase_ffhq_checked_backward(fs, fa, cfg, weights):
+    """Phase 12: one ffhq_512 step's gradients (R1 firing) on the kernel
+    path, each of its four fused-stage backward calls held against the
+    plain chain on its own saved tensors."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(6)
+    z = [torch.randn(FFHQ_BATCH, cfg.model.latent_dim, device="cuda", generator=g)
+         for _ in range(2)]
+    calls = []
+    with checked_stage_backward(fs, fa, calls):
+        _, _, d_loss, g_loss, r1 = step_grads(cfg, weights, *z, 512, True, "bfloat16")
+    check(len(calls) == 4, f"{len(calls)} fused-stage backward calls in one ffhq_512 step")
+    check(all(math.isfinite(v) for v in (d_loss, g_loss, r1)) and r1 > 0.0,
+          f"ffhq_512 step losses {d_loss}, {g_loss}, r1 {r1}")
+    say("ffhq-checked-stage-backward", calls=calls, d_loss=d_loss, g_loss=g_loss, r1=r1)
+
+
+def phase_ffhq_grads_64(fs, fa, blocks):
+    """Phase 13: one step's whole gradients at ffhq_512's widths cut to 64^2,
+    every stage fused (FUSE_MIN_LOCATIONS = 0), f32 kernel path against the
+    f32 plain path: within TRAIN_F32_TOL, or ten times what 1e-7 weight
+    noise moves the plain path by if larger; each fused-stage backward call
+    within F32_TOL of the plain chain."""
+    cfg = ffhq_config(**{"model.resolution": "64", "data.resolution": "64"})
+    gan, _, _ = trainer(cfg)
+    weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
+    del gan
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    z = [torch.randn(FFHQ_BATCH, cfg.model.latent_dim, device="cuda", generator=g)
+         for _ in range(2)]
+    calls = []
+    blocks.FUSE_MIN_LOCATIONS = 0
+    try:
+        with checked_stage_backward(fs, fa, calls):
+            reset_counters()
+            kernel = step_grads(cfg, weights, *z, 64, True, "float32")
+            launches = read_counters()
+    finally:
+        blocks.FUSE_MIN_LOCATIONS = None
+    stages = len(cfg.model.stage_resolutions())
+    check(len(calls) == 4 * stages, f"{len(calls)} fused-stage backward calls at 64^2")
+    check(all(launches[k] > 0 for k in STAGE_KERNELS), f"64^2 step launched {launches}")
+    plain = step_grads(cfg, weights, *z, 64, False, "float32")
+    noisy = step_grads(cfg, weights, *z, 64, False, "float32", perturb=1e-7)
+    rows = {}
+    for i, net in enumerate(("D", "G")):
+        e, moved = rel_err(kernel[i], plain[i]), rel_err(noisy[i], plain[i])
+        limit = max(TRAIN_F32_TOL, 10.0 * moved)
+        rows[net] = dict(rel_err_kernel_vs_plain_f32=e,
+                         rel_change_f32_at_1e7_weight_noise=moved)
+        check(e <= limit, f"{net} gradient at 64^2 f32, every stage fused: {e:.3e} > {limit:.3e}")
+    say("ffhq-train-grads-64", batch=FFHQ_BATCH, fused_stages=stages, gradients=rows,
+        launches=launches, stage_backward_calls_checked=len(calls),
+        worst_stage_backward_rel_err=max(v for r in calls for k, v in r.items()
+                                          if k.endswith("rel_err_kernel_vs_plain")),
+        losses=dict(kernel=kernel[2:], plain=plain[2:]))
+
+
+def event_ms(fn, reps=5):
+    """Milliseconds of one `fn()` by CUDA events over `reps` calls, after
+    two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_fusion_timing(blocks):
+    """Phase 14: forward plus backward of one 512^2 G stage and one D stage
+    of ffhq_512 (bf16, batch 16): fused; unfused (its layers one by one,
+    the gate through its own kernels); and the plain path (use_pallas off)."""
+    from locate_tpu_torch.models.gan import model_config
+
+    mcfg = model_config(ffhq_config())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    builds = {
+        "G_512_up_pair": (lambda c: blocks.generator_stage(
+            64, 64, 512, c, first=False, compute_dtype=torch.bfloat16, gen=gen),
+            (FFHQ_BATCH, 256, 256, 64)),
+        "D_512_down_pair": (lambda c: blocks.discriminator_stage(
+            64, 64, 512, c, last=False, compute_dtype=torch.bfloat16, gen=gen),
+            (FFHQ_BATCH, 512, 512, 64)),
+    }
+    rows = {}
+    for name, (build, shape) in builds.items():
+        stage = build(mcfg)
+        randomize_logit_convs(stage, seed=12, scale=0.25)
+        plain = build(dataclasses.replace(mcfg, use_pallas=False))
+        plain.load_state_dict(stage.state_dict())
+        x = torch.randn(shape, device="cuda", generator=gen).to(torch.bfloat16)
+        x.requires_grad_(True)
+        with torch.no_grad():
+            dy = torch.randn(stage(x).shape, device="cuda", generator=gen).to(torch.bfloat16)
+
+        def fwd_bwd(module):
+            y = module(x)
+            torch.autograd.grad(y, [x, *module.parameters()], dy)
+
+        times = {}
+        for mode, threshold in (("fused", None), ("unfused", 1 << 62)):
+            blocks.FUSE_MIN_LOCATIONS = threshold
+            times[f"{mode}_ms"] = event_ms(lambda: fwd_bwd(stage))
+        blocks.FUSE_MIN_LOCATIONS = None
+        times["plain_path_ms"] = event_ms(lambda: fwd_bwd(plain))
+        times["fused_over_unfused"] = times["fused_ms"] / times["unfused_ms"]
+        rows[name] = times
+        del stage, plain, x, dy
+        torch.cuda.empty_cache()
+    say("fusion-timing", batch=FFHQ_BATCH, dtype="bfloat16", stages=rows)
+    return rows
+
+
+def stage_entry(kernel, times, max_err, launches):
+    """The {"kernels": [...]} entry of a fused-stage kernel: per ffhq_512
+    train step at batch 16, each form's time times its launches a step."""
+    forms = FFHQ_STAGE_PER_STEP[kernel]
+
+    def total(key):
+        return sum(times[(kernel, f)][key] * k for f, k in forms.items())
+
+    by_ops = sum(times[(kernel, f)]["bound_ms"] * k for f, k in forms.items()
+                 if times[(kernel, f)]["bound_by"] == "operations")
+    return {
+        "name": kernel,
+        "route": "cuda",
+        "source": STAGE_SOURCE,
+        "replaces": REPLACES[kernel],
+        "launches": launches[kernel],  # ffhq_512's three train steps
+        "max_abs_err": max_err[kernel],
+        "ms": total("ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if by_ops >= total("bound_ms") / 2 else "bytes",
+        "library_ms": None,
+        "forms": [dict(form=f, launches_per_step=k,
+                       **{key: times[(kernel, f)][key]
+                          for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+                  for f, k in forms.items()],
+    }
+
+
 def per_step(rows, kind, mult, key):
     return sum(mult[(r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])] * r[kind][key]
                for r in rows if r["dtype"] == "bfloat16")
+
+
+def phase_build(fa, fs, build):
+    """Phase 2: both libraries, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    names = ("fused_attention", "fused_stage")
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = dict(zip(names, pool.map(build.build, names)))
+    reports = {name: parse_ptxas(build.ptxas_report(name)) for name in names}
+    for name, wanted in (("fused_attention", CUDA_KERNELS), ("fused_stage", STAGE_CUDA_KERNELS)):
+        for k in wanted:
+            check(any(n.startswith(k) for n in reports[name]), f"ptxas reported no {k}")
+    smem = {f"C={c},Hd={hd}": dict(
+        forward=int(fa._library().locate_softmax_smem_bytes(c, hd, c, fa.tile_rows(c))),
+        backward=int(fa._library().locate_softmax_bwd_smem_bytes(
+            c, hd, c, fa.bwd_grid(BATCH, hw, c)[0])))
+        for hw, c, hd in SHAPES}
+    stage_lib = fs._library()
+    stage_smem = {}
+    for kind, k in (("conv", fs._CONV), ("stats", fs._STATS), ("apply_pool", fs._APPLY_POOL),
+                    ("bwd", fs._BWD)):
+        th, tw = fs.pick_tile(k, 512, 512, 64, 64, 16, 64, lib=stage_lib)
+        stage_smem[kind] = dict(tile=f"{th}x{tw}", bytes=int(
+            stage_lib.locate_stage_smem_bytes(k, 64, 64, 16, 64, th, tw)))
+    say("build", libraries={n: os.path.relpath(str(p), REPO) for n, p in libs.items()},
+        seconds=time.perf_counter() - t0, kernels=reports, dynamic_smem_bytes=smem,
+        stage_dynamic_smem_at_512x512x64=stage_smem,
+        stage_conv_bwd_blocks=fs.bwd_blocks(FFHQ_BATCH, 512, 512, *fs.pick_tile(
+            fs._BWD, 512, 512, 64, 64, lib=stage_lib)))
+
+
+def gate_entry(kernel, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches):
+    rows = fwd_rows if kernel in ("softmax_stats", "softmax_apply") else bwd_rows
+    mult = FWD_PER_STEP if rows is fwd_rows else BWD_PER_STEP
+    names = {"softmax_stats": ("m", "se"), "softmax_apply": ("y",),
+             "softmax_csum": ("c",)}.get(kernel, GRAD_NAMES[1:])
+    lsun = [r for r in rows if r["shape"]["N"] == BATCH]
+    entry = {
+        "name": kernel,
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES[kernel],
+        # launches of the main path's run (3 lsun_bedroom_128 train steps)
+        "launches": train_launches[kernel],
+        "max_abs_err": max(r[f"{n}_max_abs_err"] for r in rows for n in names),
+        # per lsun_bedroom_128 train step at batch 64: each shape's time
+        # times its launches
+        "ms": per_step(lsun, kernel, mult, "ms"),
+        "plain_ms": per_step(lsun, kernel, mult, "plain_ms"),
+        "bound_ms": per_step(lsun, kernel, mult, "bound_ms"),
+        "bound_by": ("bytes" if all(r[kernel]["bound_by"] == "bytes" for r in lsun)
+                     else "operations"),
+        "library_ms": None,
+        "launches_ffhq_512_train": ffhq_launches[kernel],
+        "shapes": [dict(N=r["shape"]["N"], HW=r["shape"]["HW"], C=r["shape"]["C"],
+                        dtype=r["dtype"],
+                        **{k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms")})
+                   for r in rows],
+    }
+    if rows is fwd_rows:
+        entry["launches_serving"] = serve_launches[kernel]
+        entry["ms_per_served_forward"] = per_step(lsun, kernel, SERVE, "ms")
+    return entry
 
 
 def main() -> int:
@@ -919,7 +1613,9 @@ def main() -> int:
         print("chip_smoke: FAIL: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     from locate_tpu_torch.config import get_config
+    from locate_tpu_torch.nn import blocks
     from locate_tpu_torch.ops import fused_attention as fa
+    from locate_tpu_torch.ops import fused_stage as fs
     from locate_tpu_torch.ops.cuda import build
 
     t_start = time.perf_counter()
@@ -927,64 +1623,40 @@ def main() -> int:
     smi = nvidia_smi()
     say("card", torch_name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
-
-    t0 = time.perf_counter()
-    lib = build.build("fused_attention")
-    kernels = parse_ptxas(build.ptxas_report("fused_attention"))
-    for k in CUDA_KERNELS:
-        check(any(name.startswith(k) for name in kernels), f"ptxas reported no {k}")
-    smem = {f"C={c},Hd={hd}": dict(
-        forward=int(fa._library().locate_softmax_smem_bytes(c, hd, c, fa.tile_rows(c))),
-        backward=int(fa._library().locate_softmax_bwd_smem_bytes(
-            c, hd, c, fa.bwd_grid(BATCH, hw, c)[0])))
-        for hw, c, hd in SHAPES}
-    say("build", library=os.path.relpath(str(lib), REPO), seconds=time.perf_counter() - t0,
-        kernels=kernels, dynamic_smem_bytes=smem)
+    phase_build(fa, fs, build)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    fwd_rows = phase_forward(fa)
-    bwd_rows = phase_backward(fa)
+    # the gate kernels at lsun_bedroom_128's shapes, then at ffhq_512's new ones
+    fwd_rows = phase_forward(fa, cases(), BATCH)
+    fwd_rows += phase_forward(fa, ffhq_gate_cases(), FFHQ_BATCH, "ffhq-gate-forward")
+    bwd_rows = phase_backward(fa, cases(), BATCH)
+    bwd_rows += phase_backward(fa, ffhq_gate_cases(), FFHQ_BATCH, "ffhq-gate-backward")
 
+    # lsun_bedroom_128: serving and training (no stage fuses at 128^2)
     cfg = get_config("lsun_bedroom_128", {"use_pallas": "true"})
     serve_launches = phase_generator(fa, cfg)
     phase_serving(cfg)
-
     train_cfg, weights, train_launches = phase_train(fa)
     phase_train_grads(fa, train_cfg, weights)
     del weights
     phase_train_throughput()
 
-    out = []
-    for kernel in KERNELS:
-        rows = fwd_rows if kernel in ("softmax_stats", "softmax_apply") else bwd_rows
-        mult = FWD_PER_STEP if rows is fwd_rows else BWD_PER_STEP
-        names = {"softmax_stats": ("m", "se"), "softmax_apply": ("y",),
-                 "softmax_csum": ("c",)}.get(kernel, GRAD_NAMES[1:])
-        entry = {
-            "name": kernel,
-            "route": "cuda",
-            "source": SOURCE,
-            "replaces": REPLACES[kernel],
-            # launches of the main path's run (3 train steps)
-            "launches": train_launches[kernel],
-            "max_abs_err": max(r[f"{n}_max_abs_err"] for r in rows for n in names),
-            # per train step at batch 64: each shape's time times its launches
-            "ms": per_step(rows, kernel, mult, "ms"),
-            "plain_ms": per_step(rows, kernel, mult, "plain_ms"),
-            "bound_ms": per_step(rows, kernel, mult, "bound_ms"),
-            "bound_by": ("bytes" if all(r[kernel]["bound_by"] == "bytes" for r in rows)
-                         else "operations"),
-            "library_ms": None,
-            "shapes": [dict(HW=r["shape"]["HW"], C=r["shape"]["C"], dtype=r["dtype"],
-                            **{k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms")})
-                       for r in rows],
-        }
-        if rows is fwd_rows:
-            entry["launches_serving"] = serve_launches[kernel]
-            entry["ms_per_served_forward"] = per_step(rows, kernel, SERVE, "ms")
-        out.append(entry)
+    # ffhq_512: the fused-stage kernels, serving, training (their main path)
+    stage_rows, stage_times, stage_err = phase_stage_kernels(fs, fa)
+    phase_ffhq_serving(ffhq_config())
+    ffhq_cfg, ffhq_weights, ffhq_launches = phase_ffhq_train()
+    phase_ffhq_checked_backward(fs, fa, ffhq_cfg, ffhq_weights)
+    del ffhq_weights
+    phase_ffhq_grads_64(fs, fa, blocks)
+    phase_fusion_timing(blocks)
+
+    out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches)
+           for k in KERNELS]
+    out += [stage_entry(k, stage_times, stage_err, ffhq_launches) for k in STAGE_KERNELS]
+    for entry in out:
+        check(entry["launches"] > 0, f"{entry['name']} never launched on its main path")
     print(json.dumps({"kernels": out}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)

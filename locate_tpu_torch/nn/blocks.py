@@ -2,10 +2,13 @@
 
 Module and attribute names follow the JAX params pytree, so a block's
 `state_dict()` keys are the JAX dotted paths (`main.0.scale`,
-`main.2.row.w`, `skip.w`, ...). The JAX package's fused-stage dispatch
-(`_maybe_fused_stage`, kernels 7-11 of ROADMAP.md Queue 2) is not ported:
-where its profile would fuse a stage, the port raises rather than run the
-stage unfused.
+`main.2.row.w`, `skip.w`, ...). A stage is a `FusableStage`: an
+`nn.Sequential` of the same children whatever `use_pallas` says, whose
+forward is the port of `_maybe_fused_stage`. Where the config's conv block
+is fusable and a stage flavor reaches its threshold of locations, it runs
+that conv block (with the attention after it, the upsample before it or
+the pool after it) through `ops/fused_stage.py`; elsewhere it runs the
+layers one by one.
 """
 
 from __future__ import annotations
@@ -22,11 +25,25 @@ from locate_tpu_torch.ops.activations import Act
 from locate_tpu_torch.ops.attention import LocateAttention
 from locate_tpu_torch.ops.conv import (Conv2d, DownsampleAvg, FactorizedConv2d,
                                        UpsampleNearest)
+from locate_tpu_torch.ops.fused_stage import fused_stage
 from locate_tpu_torch.ops.norm import make_norm
 
-# `gate_profile.json` `min_locations` of every fused-stage flavor in the
-# JAX package: at or above it the JAX stage runs the fused-stage kernels.
-FUSE_MIN_LOCATIONS = 262144
+# The port's copy of the JAX package's `ops/pallas/gate_profile.json`
+# `min_locations`: a stage flavor fuses at or above its count of (fine)
+# locations. Kept at the JAX values so that both packages run the same
+# kernels at the same shapes; whether fusion pays on the H100 is measured
+# (PERF.md), not yet acted on.
+MIN_LOCATIONS = {"pair": 262144, "conv": 262144, "up_pair": 262144, "up_conv": 262144,
+                 "down_pair": 262144, "down_conv": 262144}
+# An int here overrides MIN_LOCATIONS for every flavor (tests force fusion
+# with it), as the JAX package's `FUSE_MIN_LOCATIONS` does.
+FUSE_MIN_LOCATIONS: Optional[int] = None
+
+
+def fuse_threshold(flavor: str) -> int:
+    if FUSE_MIN_LOCATIONS is not None:
+        return FUSE_MIN_LOCATIONS
+    return MIN_LOCATIONS[flavor]
 
 
 def _conv(in_ch, out_ch, cfg: ModelConfig, compute_dtype, gen):
@@ -80,12 +97,78 @@ def stage_fusable(cfg: ModelConfig) -> bool:
     )
 
 
-def _refuse_fused_stage(cfg: ModelConfig, resolution: int) -> None:
-    if stage_fusable(cfg) and resolution * resolution >= FUSE_MIN_LOCATIONS:
-        raise NotImplementedError(
-            f"a {resolution}x{resolution} stage with use_pallas runs the fused "
-            "stage kernels (ops/pallas/fused_stage.py) in the JAX package; they "
-            "are not ported yet (ROADMAP.md, Queue 2)")
+def _apply_fused_stage(cfg: ModelConfig, block: ConvBlock,
+                       attn: Optional[LocateAttention], x: torch.Tensor,
+                       compute_dtype, upsample: bool, downsample: bool) -> torch.Tensor:
+    """`block` (and the gate `attn` after it, if given) through
+    `fused_stage`, on the layers' own parameters. With `upsample`, x is
+    the coarse input of the stage's upsample; with `downsample`, the
+    stage's pool is fused in."""
+    norm, _, conv = block.main
+    kw = dict(groups=norm.groups, eps=norm.eps, act=cfg.act, leaky_slope=cfg.leaky_slope,
+              upsample=upsample, downsample=downsample)
+    if attn is not None:
+        _, h, w, _ = x.shape
+        if upsample:
+            h, w = 2 * h, 2 * w  # the gate's position features are fine
+        pos_proj, w1x, b1, w2, b2 = attn.gate_operands(h, w, conv.col.w.shape[0], x.device)
+        kw.update(mode=cfg.attention.mode, pos_proj=pos_proj, w1x=w1x, b1=b1, w2=w2, b2=b2,
+                  gate_max=cfg.attention.gate_max)
+    skip = None if block.skip is None else block.skip.w
+    return fused_stage(x.to(compute_dtype or x.dtype), norm.scale, norm.bias, conv.row.w,
+                       conv.col.w, conv.col.b, skip, **kw)
+
+
+class FusableStage(nn.Sequential):
+    """One resolution stage: the layers of an `nn.Sequential` (so its
+    state_dict keys do not depend on `use_pallas`), and the forward of
+    `_maybe_fused_stage`. With a fusable config, each conv block whose
+    flavor reaches its threshold runs fused: with the attention after it
+    (a pair), with the upsample before it (`up_`), with the pool after it
+    or after its attention (`down_`); the other layers run one by one."""
+
+    def __init__(self, layers, cfg: ModelConfig, compute_dtype: Optional[torch.dtype]):
+        super().__init__(*layers)
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not stage_fusable(self.cfg):
+            return super().forward(x)
+        layers = list(self)
+        i = 0
+        while i < len(layers):
+            up = (isinstance(layers[i], UpsampleNearest) and i + 1 < len(layers)
+                  and isinstance(layers[i + 1], ConvBlock))
+            if up:
+                i += 1  # the candidate conv block; x stays coarse
+            scale = 2 if up else 1
+            locs = x.shape[1] * x.shape[2] * scale * scale
+            block = layers[i]
+            conv = isinstance(block, ConvBlock)
+            nxt = layers[i + 1] if i + 1 < len(layers) else None
+            pair = (conv and isinstance(nxt, LocateAttention)
+                    and self.cfg.attention.residual)
+            if pair:
+                dn = (not up and i + 2 < len(layers)
+                      and isinstance(layers[i + 2], DownsampleAvg))
+                flavor = "up_pair" if up else ("down_pair" if dn else "pair")
+                if locs >= fuse_threshold(flavor):
+                    x = _apply_fused_stage(self.cfg, block, nxt, x, self.compute_dtype,
+                                           up, dn)
+                    i += 3 if dn else 2
+                    continue
+            dn = not up and isinstance(nxt, DownsampleAvg)
+            flavor = "up_conv" if up else ("down_conv" if dn else "conv")
+            if conv and locs >= fuse_threshold(flavor):
+                x = _apply_fused_stage(self.cfg, block, None, x, self.compute_dtype, up, dn)
+                i += 2 if dn else 1
+                continue
+            if up:
+                i -= 1  # not fused: run the upsample itself
+            x = layers[i](x)
+            i += 1
+        return x
 
 
 def _attention_layer(cfg: ModelConfig, out_ch: int, compute_dtype, gen):
@@ -99,17 +182,16 @@ def _attention_layer(cfg: ModelConfig, out_ch: int, compute_dtype, gen):
 
 def generator_stage(in_ch: int, out_ch: int, resolution: int, cfg: ModelConfig,
                     first: bool, compute_dtype: Optional[torch.dtype] = None,
-                    gen: Optional[torch.Generator] = None) -> nn.Sequential:
+                    gen: Optional[torch.Generator] = None) -> FusableStage:
     """One generator stage: [upsample] + conv blocks + attention.
     `resolution` is the stage's output resolution."""
-    _refuse_fused_stage(cfg, resolution)
     layers = [] if first else [UpsampleNearest(2)]
     layers.append(ConvBlock(in_ch, out_ch, cfg, compute_dtype, gen))
     for _ in range(cfg.blocks_per_stage - 1):
         layers.append(ConvBlock(out_ch, out_ch, cfg, compute_dtype, gen))
     if cfg.attention_at(resolution):
         layers.append(_attention_layer(cfg, out_ch, compute_dtype, gen))
-    return nn.Sequential(*layers)
+    return FusableStage(layers, cfg, compute_dtype)
 
 
 def run_stages(stages: nn.Sequential, x: torch.Tensor, remat: bool) -> torch.Tensor:
@@ -126,11 +208,10 @@ def run_stages(stages: nn.Sequential, x: torch.Tensor, remat: bool) -> torch.Ten
 
 def discriminator_stage(in_ch: int, out_ch: int, resolution: int, cfg: ModelConfig,
                         last: bool, compute_dtype: Optional[torch.dtype] = None,
-                        gen: Optional[torch.Generator] = None) -> nn.Sequential:
+                        gen: Optional[torch.Generator] = None) -> FusableStage:
     """One discriminator stage, the generator's mirror: conv blocks +
     attention + [2x average-pool downsample unless `last`]. `resolution`
     is the stage's input resolution."""
-    _refuse_fused_stage(cfg, resolution)
     layers = [ConvBlock(in_ch, out_ch, cfg, compute_dtype, gen)]
     for _ in range(cfg.blocks_per_stage - 1):
         layers.append(ConvBlock(out_ch, out_ch, cfg, compute_dtype, gen))
@@ -138,7 +219,7 @@ def discriminator_stage(in_ch: int, out_ch: int, resolution: int, cfg: ModelConf
         layers.append(_attention_layer(cfg, out_ch, compute_dtype, gen))
     if not last:
         layers.append(DownsampleAvg(2))
-    return nn.Sequential(*layers)
+    return FusableStage(layers, cfg, compute_dtype)
 
 
 class ToRGB(Conv2d):

@@ -151,22 +151,30 @@ class LocateAttention(nn.Module):
         return locate_gate(x, logits, self.cfg.mode, self.cfg.residual,
                            self.cfg.gate_max)
 
-    def fused_operands(self, x: torch.Tensor):
-        """(x in the compute dtype, pos_proj, w1x, b1, w2, b2): the fused
-        gate's operands, pos_proj precomputed in f32 from the W1[C:] slice."""
-        n, h, w, c = x.shape
-        cd = self.compute_dtype or x.dtype
+    def gate_operands(self, h: int, w: int, channels: int, device):
+        """(pos_proj, w1x, b1, w2, b2) of the fused gate on an h x w map of
+        `channels`: pos_proj precomputed in f32 from the W1[C:] slice, or
+        None without position features."""
         w1 = self.to_hidden.w[:, :, 0, 0].t()          # (C+P, Hd)
-        w1x, w1p = w1[:c], w1[c:]
+        w1x, w1p = w1[:channels], w1[channels:]
         w2 = self.to_logits.w[:, :, 0, 0].t()          # (Hd, Cout)
         p = self.cfg.pos_features
+        pos_proj = None
         if p:
-            pos = self._coords(h, w, torch.float32, x.device)
+            pos = self._coords(h, w, torch.float32, device)
             pos_proj = pos.reshape(h * w, p) @ w1p.float()
-        else:
-            pos_proj = torch.zeros((h * w, w1.shape[1]), dtype=torch.float32,
+        return pos_proj, w1x, self.to_hidden.b, w2, self.to_logits.b
+
+    def fused_operands(self, x: torch.Tensor):
+        """(x in the compute dtype, pos_proj, w1x, b1, w2, b2): the fused
+        gate's operands (`gate_operands`, zeros for a missing pos_proj)."""
+        n, h, w, c = x.shape
+        cd = self.compute_dtype or x.dtype
+        pos_proj, w1x, b1, w2, b2 = self.gate_operands(h, w, c, x.device)
+        if pos_proj is None:
+            pos_proj = torch.zeros((h * w, w1x.shape[1]), dtype=torch.float32,
                                    device=x.device)
-        return x.to(cd), pos_proj, w1x, self.to_hidden.b, w2, self.to_logits.b
+        return x.to(cd), pos_proj, w1x, b1, w2, b2
 
     def forward_fused(self, x: torch.Tensor) -> torch.Tensor:
         """Counterpart of the JAX layer's `apply_pallas`."""

@@ -130,9 +130,7 @@ def test_unported_discriminator_options_raise(tiny_config):
     _, tcfg = model_configs(tiny_config, "plain")
     with pytest.raises(NotImplementedError, match="spectral_norm"):
         build_discriminator(dataclasses.replace(tcfg, spectral_norm=True), "float32", "cpu")
-    cfg = tconfig.get_config("ffhq_512")
-    big = tconfig.ModelConfig(resolution=cfg.model.resolution, attention=cfg.model.attention,
-                              base_channels=16, max_channels=16, min_channels=8,
-                              use_pallas=True)
-    with pytest.raises(NotImplementedError, match="fused stage"):
-        build_discriminator(big, "float32", device="cpu")
+    with pytest.raises(NotImplementedError, match="self"):
+        build_discriminator(dataclasses.replace(
+            tcfg, attention=dataclasses.replace(tcfg.attention, kind="self")),
+            "float32", "cpu")

@@ -147,13 +147,28 @@ def test_unported_paths_raise(override, message):
         port_images(model, np.zeros((1, BASE["latent_dim"]), np.float32))
 
 
-def test_fused_stage_resolution_raises():
+def test_fused_stage_resolution_raises(monkeypatch):
     """Where the JAX package's gate profile fuses a whole stage (>= 512^2
-    locations with use_pallas, the ffhq_512 preset) the port raises."""
+    locations with use_pallas, the ffhq_512 preset) the port builds the
+    generator and runs that stage's upsample, conv block and gate through
+    `fused_stage` (on the CPU its plain versions), and nothing is raised."""
+    from locate_tpu_torch.nn import blocks
+
     cfg = tconfig.get_config("ffhq_512")
     model_cfg = tconfig.ModelConfig(**{
         **{f: getattr(cfg.model, f) for f in ("resolution", "attention")},
         "base_channels": 16, "max_channels": 16, "min_channels": 8,
         "use_pallas": cfg.use_pallas})
-    with pytest.raises(NotImplementedError, match="fused stage"):
-        build_generator(model_cfg, "float32", device="cpu")
+    model = build_generator(model_cfg, "float32", device="cpu")
+    top = model.trunk[-1]
+    assert isinstance(top, blocks.FusableStage)
+    calls = []
+    original = blocks.fused_stage
+    monkeypatch.setattr(blocks, "fused_stage",
+                        lambda *a, **kw: calls.append(kw) or original(*a, **kw))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 256, 256, 8))
+                         .astype(np.float32))
+    with torch.no_grad():
+        y = top(x)
+    assert y.shape == (1, 512, 512, 8) and bool(torch.isfinite(y).all())
+    assert len(calls) == 1 and calls[0]["upsample"] and calls[0]["mode"] == "softmax"

@@ -259,3 +259,208 @@ def test_function_gradients_on_the_card(cuda):
         scale = want[4] if i == 5 else w  # db2 against dW2, as above
         err = float((g.reshape(w.shape) - w).norm() / scale.norm().clamp_min(1e-12))
         assert err <= F32_TOL, (i, err)
+
+
+# ---------------------------------------------------------------------------
+# the fused-stage kernels (csrc/fused_stage.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+from locate_tpu_torch.ops import fused_stage as fs  # noqa: E402
+
+STAGE_KW = dict(act="leaky_relu", leaky_slope=0.2)
+# (C, Co, upsample, downsample)
+STAGE_VARIANTS = [(32, 32, False, False), (16, 32, False, False), (32, 32, True, False),
+                  (16, 32, True, False), (32, 32, False, True), (16, 32, False, True)]
+BWD_NAMES = ("du", "dxs", "dWr", "dWc", "db_col", "dWskip")
+
+
+def stage_inputs(n, hin, c, co, dtype, device, seed=0):
+    """(x, a, b, wr, wc, b_col, ws) as the kernels take them, weights
+    scaled to keep every stage output of order one."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def r(*shape, scale=0.1):
+        return torch.randn(*shape, generator=g) * scale
+
+    ws = r(c, co, scale=1 / math.sqrt(c)).to(dtype) if c != co else None
+    out = [r(n, hin, hin, c, scale=1.0).to(dtype), 1 + r(n, c), r(n, c),
+           r(3, c, co, scale=1 / math.sqrt(3 * c)).to(dtype),
+           r(3, co, co, scale=1 / math.sqrt(3 * co)).to(dtype), r(co), ws]
+    return [None if t is None else t.to(device) for t in out]
+
+
+def stage_gate(hw, co, dtype, device, seed=1):
+    """(pos_proj, w1x, b1, w2, b2) making the gate vary and reach 16."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    hd = max(8, co // 4)
+    r = lambda *shape, scale=0.1: torch.randn(*shape, generator=g) * scale  # noqa: E731
+    return [t.to(device) for t in (r(hw, hd, scale=0.5), r(co, hd, scale=1 / math.sqrt(co))
+                                   .to(dtype), r(hd), r(hd, co, scale=3 / math.sqrt(hd))
+                                   .to(dtype), r(co))]
+
+
+def as_f32(ops):
+    return [None if t is None else t.float() for t in ops]
+
+
+def hold(name, kern, plain, truth, scale=None):
+    """f32: within F32_TOL of the plain version; bf16: the kernel's error
+    against an f32 plain computation at most twice the plain version's."""
+    scale = truth if scale is None else scale
+    if truth is None:
+        diff = (kern.double() - plain.double()).norm()
+        err = float(diff / plain.double().norm().clamp_min(1e-12))
+        assert err <= F32_TOL, (name, err)
+        return
+    s = scale.double().norm().clamp_min(1e-12)
+    ek = float((kern.double() - truth.double()).norm() / s)
+    ep = float((plain.double() - truth.double()).norm() / s)
+    assert ek <= max(BF16_FACTOR * ep, 1e-5), (name, ek, ep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,co,up,dn", STAGE_VARIANTS)
+def test_stage_forward_kernels(cuda, c, co, up, dn, dtype):
+    n, hin = 2, (8 if up else 16)
+    ops = stage_inputs(n, hin, c, co, dtype, cuda)
+    f32 = dtype == torch.float32
+    kw = dict(upsample=up, downsample=dn, **STAGE_KW)
+    with torch.no_grad():
+        hold("stage_conv", fs.stage_conv(*ops, **kw), fs.stage_conv_reference(*ops, **kw),
+             None if f32 else fs.stage_conv_reference(*as_f32(ops), **kw))
+        h = 2 * hin if up else hin
+        gate = stage_gate(h * h, co, dtype, cuda)
+        if not dn:
+            kern = fs.stage_softmax_stats(*ops, *gate, upsample=up, **STAGE_KW)
+            plain = fs.stage_softmax_stats_reference(*ops, *gate, upsample=up, **STAGE_KW)
+            truth = (None,) * 3 if f32 else fs.stage_softmax_stats_reference(
+                *as_f32(ops), *as_f32(gate), upsample=up, **STAGE_KW)
+            for name, k, p, t in zip(("w_pre", "m", "se"), kern, plain, truth):
+                hold(name, k, p, t)
+        if not up:
+            w_pre = fs.stage_conv_reference(*ops, **STAGE_KW)
+            m, se = fa.softmax_gate_stats_reference(w_pre.reshape(n, h * h, co), *gate,
+                                                    **STAGE_KW)
+            opts = dict(hw_scale=float(h * h), gate_max=16.0, **STAGE_KW)
+            hold("apply_pool", fs.stage_softmax_apply_pool(w_pre, *gate, m, se, **opts),
+                 fs.stage_softmax_apply_pool_reference(w_pre, *gate, m, se, **opts),
+                 None if f32 else fs.stage_softmax_apply_pool_reference(
+                     w_pre.float(), *as_f32(gate), m, se, **opts))
+
+
+def stage_bwd(ops, dw, up, plain):
+    fn = fs.stage_conv_bwd_reference if plain else fs.stage_conv_bwd
+    with torch.no_grad():
+        out = fn(ops[0], dw, ops[1], ops[2], ops[3], ops[4], ops[6], upsample=up, **STAGE_KW)
+        torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,co,up", [(32, 32, False), (16, 32, False), (32, 32, True),
+                                     (16, 32, True), (64, 64, False)])
+def test_stage_conv_bwd_kernel(cuda, c, co, up, dtype):
+    """du, dxs and the weight gradients against the plain backward; two
+    runs bitwise equal."""
+    n, hin = 3, (8 if up else 32)
+    ops = stage_inputs(n, hin, c, co, dtype, cuda, seed=2)
+    h = 2 * hin if up else hin
+    g = torch.Generator(device="cpu").manual_seed(3)
+    dw = torch.randn(n, h, h, co, generator=g).to(device=cuda, dtype=dtype)
+    kern, again = stage_bwd(ops, dw, up, False), stage_bwd(ops, dw, up, False)
+    plain = stage_bwd(ops, dw, up, True)
+    truth = ((None,) * 6 if dtype == torch.float32
+             else stage_bwd(as_f32(ops), dw.float(), up, True))
+    for name, k, a, p, t in zip(BWD_NAMES, kern, again, plain, truth):
+        if k is None:
+            assert p is None and name == "dWskip"
+            continue
+        assert torch.equal(k, a), name
+        hold(name, k, p, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("up", [True, False])
+def test_stage_kernels_at_ffhq_512_shapes(cuda, up):
+    """G's 512^2 stage (coarse 256^2 x 64 in) and D's (512^2 x 64 in), batch
+    2, bf16: every kernel of the stage's forward and backward."""
+    n = 2
+    ops = stage_inputs(n, 256 if up else 512, 64, 64, torch.bfloat16, cuda, seed=4)
+    gate = stage_gate(512 * 512, 64, torch.bfloat16, cuda, seed=5)
+    with torch.no_grad():
+        kern = fs.stage_softmax_stats(*ops, *gate, upsample=up, **STAGE_KW)
+        plain = fs.stage_softmax_stats_reference(*ops, *gate, upsample=up, **STAGE_KW)
+        truth = fs.stage_softmax_stats_reference(*as_f32(ops), *as_f32(gate), upsample=up,
+                                                 **STAGE_KW)
+        for name, k, p, t in zip(("w_pre", "m", "se"), kern, plain, truth):
+            hold(name, k, p, t)
+        if not up:
+            opts = dict(hw_scale=512.0 * 512, gate_max=16.0, **STAGE_KW)
+            w_pre, m, se = plain
+            hold("apply_pool", fs.stage_softmax_apply_pool(w_pre, *gate, m, se, **opts),
+                 fs.stage_softmax_apply_pool_reference(w_pre, *gate, m, se, **opts),
+                 fs.stage_softmax_apply_pool_reference(w_pre.float(), *as_f32(gate), m, se,
+                                                       **opts))
+    dw = torch.randn(n, 512, 512, 64, device=cuda).to(torch.bfloat16)
+    for name, k, p, t in zip(BWD_NAMES, stage_bwd(ops, dw, up, False),
+                             stage_bwd(ops, dw, up, True),
+                             stage_bwd(as_f32(ops), dw.float(), up, True)):
+        if k is not None:
+            hold(name, k, p, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("up,dn", [(True, False), (False, True)])
+def test_fused_stage_function_on_the_card(cuda, up, dn):
+    """Gradients of `fused_stage` (the kernels and the gate's kernels) on
+    the card against autograd of `stage_oracle` on the card, f32, each
+    gradient to F32_TOL of its own scale; and the launches of one forward
+    and one backward."""
+    n, c, co, h = 2, 16, 32, 16
+    ops = stage_inputs(n, h // 2 if up else h, c, co, torch.float32, cuda, seed=6)
+    gate = stage_gate(h * h, co, torch.float32, cuda, seed=7)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    leaves = dict(x=ops[0], gn_scale=1 + torch.randn(c, generator=g).to(cuda) * 0.1,
+                  gn_bias=torch.randn(c, generator=g).to(cuda) * 0.1,
+                  w_row=ops[3].permute(2, 1, 0)[:, :, None, :].contiguous(),
+                  w_col=ops[4].permute(2, 1, 0)[:, :, :, None].contiguous(), b_col=ops[5],
+                  w_skip=ops[6].t()[:, :, None, None].contiguous(),
+                  pos_proj=gate[0], w1x=gate[1], b1=gate[2], w2=gate[3], b2=gate[4])
+    kw = dict(groups=4, mode="softmax", gate_max=16.0, upsample=up, downsample=dn,
+              **STAGE_KW)
+    side = h // 2 if dn else h
+    dy = torch.randn(n, side, side, co, generator=g).to(cuda)
+    counters = (fs.stage_conv, fs.stage_softmax_stats, fs.stage_softmax_apply_pool,
+                fs.stage_conv_bwd, fa.softmax_gate_apply, fa.softmax_gate_stats,
+                fa.softmax_gate_csum, fa.softmax_gate_backward)
+    before = [f.launches for f in counters]
+    inputs = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+    y = fs.fused_stage(inputs["x"], *(inputs[k] for k in fs._NAMES[1:7]),
+                       **{k: inputs[k] for k in fs._NAMES[7:]}, **kw)
+    got = torch.autograd.grad(y, list(inputs.values()), dy)
+    launched = [f.launches - b for f, b in zip(counters, before)]
+    # forward: stats, then apply (G) or apply-pool (D); backward: conv
+    # recompute, the gate's stats, csum and backward, then conv backward
+    assert launched == [1, 1, int(dn), 1, int(up), 1, 1, 1], launched
+    ref = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+    y_ref = fs.stage_oracle(ref, h=h, w=h, groups=4, eps=1e-5, act="leaky_relu",
+                            leaky_slope=0.2, mode="softmax", gate_max=16.0, upsample=up,
+                            downsample=dn)
+    want = torch.autograd.grad(y_ref, list(ref.values()), dy)
+    assert float((y - y_ref).detach().norm() / y_ref.detach().norm()) <= F32_TOL
+    for name, gk, gw in zip(leaves, got, want):
+        scale = want[-2] if name == "b2" else gw  # db2 against dW2, as above
+        err = float((gk - gw).norm() / scale.norm().clamp_min(1e-12))
+        assert err <= F32_TOL, (name, err)
+
+
+@pytest.mark.gpu
+def test_sigmoid_fused_stage_raises_on_the_card(cuda):
+    ops = stage_inputs(1, 8, 16, 16, torch.float32, cuda)
+    w = (torch.zeros(16, 16, 1, 3, device=cuda), torch.zeros(16, 16, 3, 1, device=cuda),
+         torch.zeros(16, device=cuda))
+    with pytest.raises(NotImplementedError, match="_kernel_sigmoid"):
+        fs.fused_stage(ops[0], torch.ones(16, device=cuda), torch.zeros(16, device=cuda), *w,
+                       None, groups=4, mode="sigmoid", w1x=torch.zeros(16, 8, device=cuda))
