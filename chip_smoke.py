@@ -8,7 +8,9 @@ every CUDA kernel against its plain PyTorch version: lsun_bedroom_128 at
 full width (use_pallas=true, bf16 compute, f32 params), serving and the
 alternating train step, the main path of the softmax gate's kernels; then
 ffhq_512 at full width and depth, serving and its train step with lazy R1,
-the main path of the fused-stage kernels. Phases, one line each:
+the main path of the fused-stage kernels; then ffhq_512 with
+model.attention.mode=sigmoid, serving and training alike, the main path of
+the sigmoid gate's three kernels. Phases, one line each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
   2. build: csrc/fused_attention.cu and csrc/fused_stage.cu, one nvcc each,
@@ -87,8 +89,28 @@ the main path of the fused-stage kernels. Phases, one line each:
      6), each of the 20 fused-stage backward calls within 1e-4;
  14. one 512^2 G stage and one D stage, forward plus backward, fused,
      unfused and on the plain path;
- 15. one JSON line `{"kernels": [...]}` for the eight kernels;
- 16. the card's name and power limit again, then the last line
+ 15. the sigmoid gate's two kernels (sigmoid_gate, sigmoid_bwd) against
+     their plain versions at ffhq_512's five gate shapes up to 16^2 (G's
+     three, D's two others), batch 16, bf16, one also in f32, and the
+     backward at the 512^2 stage's (262144, 64, 16), under the rules of 3
+     and 4 at gate_max 1.5 (below the gate's ceiling of 2, so the clamp
+     binds at about a third of the locations); two runs bitwise equal; each
+     timed beside its bound and the plain version's time;
+ 16. the stage's sigmoid pass (stage_sigmoid) at 512^2 in G's `up` and
+     D's `down` forms, plain and with a 1x1 skip, under the rules of 9 at
+     gate_max 1.5, timed alike;
+ 17. ffhq_512-sigmoid serving as 10: one forward launches the gate's
+     kernel 3 times and the stage's sigmoid pass once, no softmax kernel;
+ 18. ffhq_512-sigmoid training as 11: 27 / 16 / 9 launches a step of
+     sigmoid_gate / sigmoid_bwd / stage_sigmoid, 4 of stage_conv and of
+     stage_conv_bwd, none of the softmax kernels;
+ 19. as 12, the four sigmoid stage backward calls of one step;
+ 20. as 13, at 64^2 with every sigmoid stage fused;
+ 21. one sigmoid attention layer at ffhq_512's shapes from 32^2 to 256^2
+     (C 64), forward and forward plus backward through the kernels and the
+     plain composition: the input to a retune of the 256-location threshold;
+ 22. one JSON line `{"kernels": [...]}` for the eleven kernels;
+ 23. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -147,16 +169,20 @@ REPLACES = {"softmax_stats": "locate_tpu/ops/pallas/fused_attention.py:152",
             "stage_conv": "locate_tpu/ops/pallas/fused_stage.py:366",
             "stage_softmax_stats": "locate_tpu/ops/pallas/fused_stage.py:410",
             "stage_softmax_apply_pool": "locate_tpu/ops/pallas/fused_stage.py:397",
-            "stage_conv_bwd": "locate_tpu/ops/pallas/fused_stage.py:451"}
+            "stage_conv_bwd": "locate_tpu/ops/pallas/fused_stage.py:451",
+            "sigmoid_gate": "locate_tpu/ops/pallas/fused_attention.py:145",
+            "sigmoid_bwd": "locate_tpu/ops/pallas/fused_attention.py:387",
+            "stage_sigmoid": "locate_tpu/ops/pallas/fused_stage.py:378"}
 # the CUDA kernels of csrc/fused_attention.cu and csrc/fused_stage.cu, as
 # ptxas and the profiler name them (a name before any name it contains)
 CUDA_KERNELS = ("softmax_stats_partial", "softmax_stats_merge", "softmax_apply",
-                "softmax_csum_partial", "softmax_bwd", "reduce_partials")
+                "softmax_csum_partial", "softmax_bwd", "reduce_partials", "sigmoid_gate",
+                "sigmoid_bwd")
 STAGE_SOURCE = "locate_tpu_torch/csrc/fused_stage.cu"
 STAGE_KERNELS = ("stage_conv", "stage_softmax_stats", "stage_softmax_apply_pool",
                  "stage_conv_bwd")
 STAGE_CUDA_KERNELS = ("stage_conv_bwd", "stage_softmax_apply_pool", "stage_softmax_stats",
-                      "stage_conv", "softmax_stats_merge", "reduce_partials")
+                      "stage_conv", "stage_sigmoid", "softmax_stats_merge", "reduce_partials")
 ALL_CUDA_KERNELS = STAGE_CUDA_KERNELS + CUDA_KERNELS
 
 # ffhq_512 (config.py:792-808): batch 16 per card (the preset's global 256
@@ -177,6 +203,38 @@ FFHQ_GATE_PER_STEP = {"softmax_stats": 67, "softmax_apply": 66, "softmax_csum": 
 FFHQ_SERVE_PER_FORWARD = {"softmax_stats": 7, "softmax_apply": 8, "softmax_csum": 0,
                           "softmax_bwd": 0, "stage_conv": 0, "stage_softmax_stats": 1,
                           "stage_softmax_apply_pool": 0, "stage_conv_bwd": 0}
+
+# ffhq_512 with model.attention.mode=sigmoid: the gate runs its one-pass
+# kernel at the stages up to 16^2 (the JAX layer's 256 locations), the
+# plain composition from 32^2 to 256^2, and the fused stage's sigmoid pass
+# at 512^2 (G `up`, D `down`); each fused backward recomputes w with the
+# conv pass and runs the gate's one-pass backward on its 262,144 locations.
+# (HW, C, Hd) of the gates at G's 4^2, 8^2, 16^2 stages, then D's 16^2,
+# 8^2, 4^2 (D's gate runs at its stage's output width).
+SIGMOID = {"model.attention.mode": "sigmoid"}
+SIGMOID_KERNELS = ("sigmoid_gate", "sigmoid_bwd")
+SIGMOID_G_SHAPES = [(16, 512, 128), (64, 256, 64), (256, 128, 32)]
+SIGMOID_D_SHAPES = [(256, 256, 64), (64, 512, 128), (16, 512, 128)]
+SIGMOID_SHAPES = SIGMOID_G_SHAPES + [s for s in SIGMOID_D_SHAPES if s not in SIGMOID_G_SHAPES]
+SIGMOID_STAGE_BWD_SHAPE = (262144, 64, 16)
+SIGMOID_F32_SHAPE = (256, 128, 32)
+# below the sigmoid gate's ceiling of 2, so that the clamp binds in the
+# kernel checks (the preset's 16 never does)
+SIGMOID_GATE_MAX = 1.5
+# launches per train step (G forwards 3, D forwards 6, each D and G
+# backward once per pass: G 1, D 3) and per served forward
+SIGMOID_FWD_PER_STEP = {s: 3 * (s in SIGMOID_G_SHAPES) + 6 * (s in SIGMOID_D_SHAPES)
+                        for s in SIGMOID_SHAPES}
+SIGMOID_BWD_PER_STEP = {**{s: 1 * (s in SIGMOID_G_SHAPES) + 3 * (s in SIGMOID_D_SHAPES)
+                           for s in SIGMOID_SHAPES}, SIGMOID_STAGE_BWD_SHAPE: 4}
+SIGMOID_SERVE = {s: int(s in SIGMOID_G_SHAPES) for s in SIGMOID_SHAPES}
+SIGMOID_STAGE_PER_STEP = {"stage_sigmoid": {"up": 3, "down": 6},
+                          "stage_conv": {"up": 1, "plain": 3},
+                          "stage_conv_bwd": {"up": 1, "plain": 3}}
+SIGMOID_PER_STEP = {"sigmoid_gate": sum(SIGMOID_FWD_PER_STEP.values()),
+                    "sigmoid_bwd": sum(SIGMOID_BWD_PER_STEP.values()),
+                    **{k: sum(v.values()) for k, v in SIGMOID_STAGE_PER_STEP.items()}}
+SIGMOID_SERVE_PER_FORWARD = {"sigmoid_gate": sum(SIGMOID_SERVE.values()), "stage_sigmoid": 1}
 
 
 class SmokeFailure(Exception):
@@ -307,21 +365,25 @@ def bound(kind: str, n, hw, c, hd, cout, dtype):
     (each input read once, each output written once) over the memory rate
     and its multiply-adds over the peak rate for the operands' type. Every
     pass must compute the gate MLP (2*(C*Hd + Hd*Cout) flops a location);
-    the backward pass three times that (the forward, dh and dx, dW1x and
-    dW2)."""
+    a backward pass three times that (the forward, dh and dx, dW1x and
+    dW2). The sigmoid gate's two passes read no statistics."""
     es = torch.finfo(dtype).bits // 8
     weights = (c * hd + hd * cout) * es + (hw * hd + hd + cout) * 4
     xbytes = n * hw * c * es
     stats = 2 * n * cout * 4
     mlp = 2.0 * n * hw * (c * hd + hd * cout)
+    grads = (c * hd + hd * cout + hd + cout + hw * hd) * 4
     if kind == "softmax_stats":
         nbytes, flops = xbytes + weights + stats, mlp
     elif kind == "softmax_apply":
         nbytes, flops = 2 * xbytes + weights + stats, mlp
     elif kind == "softmax_csum":
         nbytes, flops = 2 * xbytes + weights + stats + n * cout * 4, mlp
+    elif kind == "sigmoid_gate":  # reads x, writes y
+        nbytes, flops = 2 * xbytes + weights, mlp
+    elif kind == "sigmoid_bwd":  # reads x and dy; writes dx and f32 gradients
+        nbytes, flops = 3 * xbytes + weights + grads, 3 * mlp
     else:  # softmax_bwd: reads x, dy, stats, c; writes dx and f32 gradients
-        grads = (c * hd + hd * cout + hd + cout + hw * hd) * 4
         nbytes, flops = 3 * xbytes + weights + stats + n * cout * 4 + grads, 3 * mlp
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -512,6 +574,92 @@ def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
     return rows
 
 
+def run_sigmoid(fa, ops, dy, plain: bool, forward: bool = True):
+    """(y, dx, dpos_proj, dW1x, db1, dW2, db2) of the sigmoid gate at
+    SIGMOID_GATE_MAX, kernels or plain versions; y is None without
+    `forward`."""
+    kw = dict(gate_max=SIGMOID_GATE_MAX, **KW)
+    fwd = fa.sigmoid_gate_reference if plain else fa.sigmoid_gate
+    bwd = fa.sigmoid_gate_backward_reference if plain else fa.sigmoid_gate_backward
+    return (fwd(*ops, **kw) if forward else None, *bwd(ops[0], dy, *ops[1:], **kw))
+
+
+def sigmoid_term_scales(fa, x2d, dy, pp, w1x, b1, w2, b2):
+    """The sigmoid backward's (dx, dpos_proj, dW1x, db1, dW2, db2) computed
+    on the absolute values of their terms, as `term_scales`."""
+    cd = x2d.dtype
+    xf, dyf = x2d.float(), dy.float()
+    w1c, w2c = w1x.to(cd).float(), w2.to(cd).float()
+    u = xf @ w1c + pp.float() + b1.float()
+    h = fa._act(KW["act"], KW["leaky_slope"])(u).to(cd).float()
+    p = torch.sigmoid(h @ w2c + b2.float())
+    dl = (2.0 * p * (1.0 - p) * fa._dgate(xf.abs(), dyf.abs(), w2.shape[1])
+          * fa._gate_mask(2.0 * p, SIGMOID_GATE_MAX))
+    du = fa._act_grad(KW["act"], KW["leaky_slope"])(u).abs() * (dl @ w2c.abs().t())
+    dx = fa._clamp_gate(2.0 * p, SIGMOID_GATE_MAX) * dyf.abs() + du @ w1c.abs().t()
+    return (dx, du.sum(dim=0), torch.einsum("nsc,nsh->ch", xf.abs(), du),
+            du.sum(dim=(0, 1)), torch.einsum("nsh,nsc->hc", h.abs(), dl), dl.sum(dim=(0, 1)))
+
+
+def phase_sigmoid_gate(fa):
+    """Phase 15: the sigmoid gate's two kernels against their plain versions
+    at ffhq_512's five gate shapes up to 16^2, batch 16, bf16, one of them
+    also in f32, and the backward at the 512^2 stage's (262144, 64, 16),
+    under the rules of phases 3-4 at gate_max 1.5 (the clamp binds at a
+    part of the locations); two runs bitwise equal; each timed beside its
+    bound and the plain version's time."""
+    n = FFHQ_BATCH
+    cases = ([(hw, c, hd, torch.bfloat16, True) for hw, c, hd in SIGMOID_SHAPES]
+             + [(*SIGMOID_F32_SHAPE, torch.float32, True),
+                (*SIGMOID_STAGE_BWD_SHAPE, torch.bfloat16, False)])
+    names = ("y",) + GRAD_NAMES[1:]
+    kw = dict(gate_max=SIGMOID_GATE_MAX, **KW)
+    rows = []
+    for i, (hw, c, hd, dtype, forward) in enumerate(cases):
+        ops, dy = gate_inputs(n, hw, c, hd, dtype, seed=600 + i)
+        shape = dict(N=n, HW=hw, C=c, Hd=hd, Cout=c)
+        with torch.no_grad():
+            kern = run_sigmoid(fa, ops, dy, False, forward)
+            again = run_sigmoid(fa, ops, dy, False, forward)
+            plain = run_sigmoid(fa, ops, dy, True, forward)
+            truth = run_sigmoid(fa, [ops[0].float()] + ops[1:], dy.float(), True, forward)
+            scales = (None, *sigmoid_term_scales(fa, ops[0].float(), dy, *ops[1:]))
+            l = fa.gate_logits_reference(ops[0].float(), *ops[1:], **KW)
+            clamped = float((2.0 * torch.sigmoid(l) > SIGMOID_GATE_MAX).float().mean())
+            del l
+            torch.cuda.synchronize()
+        row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""),
+                   gate_max=SIGMOID_GATE_MAX, clamped_share=clamped,
+                   bwd_grid=dict(zip(("tile_rows", "batch_rows_per_block"),
+                                     fa.bwd_grid(n, hw, c))))
+        check(0.05 < clamped < 0.95, f"gate_max {SIGMOID_GATE_MAX} clamps {clamped} at {shape}")
+        for name, k, a in zip(names, kern, again):
+            check(k is None or torch.equal(k, a), f"{name} at {shape}: two runs differ bitwise")
+        row["bitwise_repeatable"] = True
+        for name, k, p, t, sc in zip(names, kern, plain, truth, scales):
+            if k is not None:
+                hold(name, shape, k, p, t, dtype, row, scale=sc)
+        del kern, again, plain, truth, scales
+
+        kops = [ops[0], ops[1], ops[2].to(dtype), ops[3], ops[4].to(dtype), ops[5]]
+        with torch.no_grad():
+            if forward:
+                row["sigmoid_gate"] = timed(
+                    "sigmoid_gate", lambda: fa.sigmoid_gate(*kops, **kw),
+                    lambda: fa.sigmoid_gate_reference(*kops, **kw), n, hw, c, hd, dtype)
+            row["sigmoid_bwd"] = timed(
+                "sigmoid_bwd", lambda: fa.sigmoid_gate_backward(kops[0], dy, *kops[1:], **kw),
+                lambda: fa.sigmoid_gate_backward_reference(kops[0], dy, *kops[1:], **kw),
+                n, hw, c, hd, dtype)
+            row["profiler_us_per_call"] = kernel_split(
+                lambda: fa.sigmoid_gate_backward(kops[0], dy, *kops[1:], **kw))
+        say("sigmoid-gate-kernels-vs-plain", **row)
+        rows.append(row)
+        del ops, dy, kops
+        torch.cuda.empty_cache()
+    return rows
+
+
 def randomize_logit_convs(model, seed: int, scale: float) -> None:
     """Fill the zero-init logit convs (and all biases) so every gate
     varies: a zero logit conv makes the gate exactly 1, and a wrong gate
@@ -557,13 +705,21 @@ def check_attention_layers(fa, captured):
 
 
 def counters():
-    """{kernel: its wrapper} for the eight kernels of the two libraries."""
+    """{kernel: its wrapper} for the eleven kernels of the two libraries."""
     from locate_tpu_torch.ops import fused_attention as fa
     from locate_tpu_torch.ops import fused_stage as fs
 
     return {"softmax_stats": fa.softmax_gate_stats, "softmax_apply": fa.softmax_gate_apply,
             "softmax_csum": fa.softmax_gate_csum, "softmax_bwd": fa.softmax_gate_backward,
-            **{k: getattr(fs, k) for k in STAGE_KERNELS}}
+            **{k: getattr(fs, k) for k in STAGE_KERNELS},
+            "sigmoid_gate": fa.sigmoid_gate, "sigmoid_bwd": fa.sigmoid_gate_backward,
+            "stage_sigmoid": fs.stage_sigmoid}
+
+
+def expected(launches: dict, times: int = 1) -> dict:
+    """Every counter's launches for `times` runs of a path that launches
+    `launches` (the kernels it does not name: none)."""
+    return {k: launches.get(k, 0) * times for k in counters()}
 
 
 def reset_counters():
@@ -573,9 +729,6 @@ def reset_counters():
 
 def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
-
-
-NO_STAGE = {k: 0 for k in STAGE_KERNELS}
 
 
 def phase_generator(fa, cfg):
@@ -618,8 +771,7 @@ def phase_generator(fa, cfg):
               f"request of {b}: images {img.shape} {img.dtype}")
         check(float(img.std()) > 0.0, f"request of {b}: constant images")
     want = stages * len(requests)
-    check(launches == {"softmax_stats": want, "softmax_apply": want, "softmax_csum": 0,
-                       "softmax_bwd": 0, **NO_STAGE},
+    check(launches == expected({"softmax_stats": want, "softmax_apply": want}),
           f"serving launched {launches} for {len(requests)} forwards of {stages} stages")
 
     # the kernel path against the plain path, both against f32
@@ -817,9 +969,10 @@ def phase_train(fa):
     launches = read_counters()
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
+    # no stage fuses at 128^2
     per_step = {"softmax_stats": 30, "softmax_apply": 30, "softmax_csum": 24,
-                "softmax_bwd": 24, **NO_STAGE}  # no stage fuses at 128^2
-    check(launches == {k: v * steps for k, v in per_step.items()},
+                "softmax_bwd": 24}
+    check(launches == expected(per_step, steps),
           f"train steps launched {launches}, want {per_step} per step")
     say("train", config="lsun_bedroom_128 as shipped, use_pallas=true", batch=BATCH,
         steps=steps, seconds=seconds, launches=launches, metrics=history,
@@ -1015,7 +1168,8 @@ def phase_train_throughput():
 STAGE_KW = dict(act="leaky_relu", leaky_slope=0.2)
 BWD_NAMES = ("du", "dxs", "dWr", "dWc", "db_col", "dWskip")
 STAGE_OUTPUTS = {"stage_conv": ("y",), "stage_softmax_stats": ("w_pre", "m", "se"),
-                 "stage_softmax_apply_pool": ("y",), "stage_conv_bwd": BWD_NAMES}
+                 "stage_softmax_apply_pool": ("y",), "stage_conv_bwd": BWD_NAMES,
+                 "stage_sigmoid": ("y",)}
 # (kernel, form, C, Co): G's 512^2 stage runs `up` forms from 256^2 x 64,
 # D's the plain ones; `down` is the conv-only pool tail; `skip` a 1x1 skip
 STAGE_CASES = [("stage_softmax_stats", "up", 64, 64), ("stage_softmax_stats", "plain", 64, 64),
@@ -1023,6 +1177,9 @@ STAGE_CASES = [("stage_softmax_stats", "up", 64, 64), ("stage_softmax_stats", "p
                ("stage_conv", "plain", 64, 64), ("stage_conv", "up", 64, 64),
                ("stage_conv", "down", 64, 64), ("stage_conv", "skip", 32, 64),
                ("stage_conv_bwd", "plain", 64, 64), ("stage_conv_bwd", "up", 64, 64)]
+# the sigmoid pass: G's `up`, D's `down`, and the plain and 1x1-skip forms
+SIGMOID_STAGE_CASES = [("stage_sigmoid", "up", 64, 64), ("stage_sigmoid", "down", 64, 64),
+                       ("stage_sigmoid", "plain", 64, 64), ("stage_sigmoid", "skip", 32, 64)]
 
 
 def ffhq_config(**overrides):
@@ -1068,6 +1225,10 @@ def run_stage(fs, kind, ops, gate, form, dw=None, stats=None, plain=False):
     if kind == "stage_conv":
         fn = fs.stage_conv_reference if plain else fs.stage_conv
         return (fn(*ops, upsample=up, downsample=down, **STAGE_KW),)
+    if kind == "stage_sigmoid":
+        fn = fs.stage_sigmoid_reference if plain else fs.stage_sigmoid
+        return (fn(*ops, *gate, upsample=up, downsample=down, gate_max=SIGMOID_GATE_MAX,
+                   **STAGE_KW),)
     if kind == "stage_softmax_stats":
         fn = fs.stage_softmax_stats_reference if plain else fs.stage_softmax_stats
         return fn(*ops, *gate, upsample=up, **STAGE_KW)
@@ -1113,7 +1274,8 @@ def stage_bound(kind, n, c, co, dtype, form, h=512):
     skip = c != co
     hd = co // 4
     weights = (3 * c * co + 3 * co * co + (c * co if skip else 0)) * es + co * 4 + 2 * n * c * 4
-    gate_bytes = 2 * co * hd * es + (h * h * hd + hd + co) * 4 + 2 * n * co * 4
+    gate_weights = 2 * co * hd * es + (h * h * hd + hd + co) * 4  # pos_proj among them
+    gate_bytes = gate_weights + 2 * n * co * 4  # and the softmax statistics
     conv_flops = 2.0 * pf * 3 * (c * co + co * co) + (2.0 * px * c * co if skip else 0.0)
     gate_flops = 2.0 * pf * 2 * co * hd
     if kind == "stage_conv":
@@ -1121,6 +1283,9 @@ def stage_bound(kind, n, c, co, dtype, form, h=512):
         flops = conv_flops
     elif kind == "stage_softmax_stats":
         nbytes, flops = px * c * es + pf * co * es + weights + gate_bytes, conv_flops + gate_flops
+    elif kind == "stage_sigmoid":  # x in, y out (pooled under down), no statistics
+        nbytes = px * c * es + pf * co * es // (4 if down else 1) + weights + gate_weights
+        flops = conv_flops + gate_flops
     elif kind == "stage_softmax_apply_pool":
         nbytes, flops = pf * co * es + pf * co * es // 4 + gate_bytes, gate_flops
     else:  # recompute v; dv, du; dWr, dWc; the skip's two products
@@ -1132,15 +1297,15 @@ def stage_bound(kind, n, c, co, dtype, form, h=512):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_stage_kernels(fs, fa):
-    """Phase 9: the four fused-stage kernels against their plain versions at
-    ffhq_512's 512^2 stage shapes, batch 16, in bf16 (timed) and f32; the
-    backward's outputs against their absolute-term scales, and bitwise
-    repeatable in f32."""
+def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain"):
+    """Phase 9 (and 16 with the sigmoid cases): the fused-stage kernels
+    against their plain versions at ffhq_512's 512^2 stage shapes, batch
+    16, in bf16 (timed) and f32; the backward's outputs against their
+    absolute-term scales, and bitwise repeatable in f32; the sigmoid pass
+    at gate_max 1.5, where the clamp binds at a part of the pixels."""
     n = FFHQ_BATCH
-    rows, times = [], {}
-    max_err = {k: 0.0 for k in STAGE_KERNELS}
-    for i, (kind, form, c, co) in enumerate(STAGE_CASES):
+    rows, times, max_err = [], {}, {}
+    for i, (kind, form, c, co) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             ops = stage_inputs(n, 256 if form == "up" else 512, c, co, dtype, seed=300 + i)
             gate = stage_gate(512 * 512, co, seed=400 + i)
@@ -1177,7 +1342,16 @@ def phase_stage_kernels(fs, fa):
                 if k is None:
                     continue
                 hold(name, shape, k, p, t, dtype, row, scale=sc)
-                max_err[kind] = max(max_err[kind], row[f"{name}_max_abs_err"])
+                max_err[kind] = max(max_err.get(kind, 0.0), row[f"{name}_max_abs_err"])
+            if kind == "stage_sigmoid" and dtype == torch.float32:
+                with torch.no_grad():
+                    w = fs.stage_conv_reference(*ops, upsample=form == "up", **STAGE_KW)
+                    l = fa.gate_logits_reference(w.reshape(n, 512 * 512, co), *gate, **STAGE_KW)
+                    row["clamped_share"] = float(
+                        (2.0 * torch.sigmoid(l) > SIGMOID_GATE_MAX).float().mean())
+                    del w, l
+                check(0.05 < row["clamped_share"] < 0.95,
+                      f"{kind} {form}: gate_max {SIGMOID_GATE_MAX} clamps {row['clamped_share']}")
             del kern, plain, truth, scales
             if dtype == torch.bfloat16:
                 with torch.no_grad():
@@ -1188,7 +1362,7 @@ def phase_stage_kernels(fs, fa):
                 times[(kind, form)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                            bound_by=b_by, share_of_bound=b_ms / ms)
                 row.update(times[(kind, form)])
-            say("stage-kernels-vs-plain", **row)
+            say(phase, **row)
             rows.append(row)
             del ops, gate, dw, stats, truth_stats
             torch.cuda.empty_cache()
@@ -1209,10 +1383,15 @@ def plain_stage_backward(fs, fa, o, gy, saved):
         w_pre = fs.stage_conv_reference(x, a, b, wr, wc, b_col, ws, upsample=o.upsample, **kw)
         n, h, w, co = w_pre.shape
         w2d, gy2 = w_pre.reshape(n, h * w, co), gy.reshape(n, h * w, co)
-        opts = dict(hw_scale=float(h * w), gate_max=o.gate_max, **kw)
-        m, se = fa.softmax_gate_stats_reference(w2d, *gate, **kw)
-        c = fa.softmax_gate_csum_reference(w2d, gy2, *gate, m, se, **opts)
-        dw2d, *gate_grads = fa.softmax_gate_backward_reference(w2d, gy2, *gate, m, se, c, **opts)
+        if o.mode == "softmax":
+            opts = dict(hw_scale=float(h * w), gate_max=o.gate_max, **kw)
+            m, se = fa.softmax_gate_stats_reference(w2d, *gate, **kw)
+            c = fa.softmax_gate_csum_reference(w2d, gy2, *gate, m, se, **opts)
+            dw2d, *gate_grads = fa.softmax_gate_backward_reference(w2d, gy2, *gate, m, se, c,
+                                                                   **opts)
+        else:
+            dw2d, *gate_grads = fa.sigmoid_gate_backward_reference(w2d, gy2, *gate,
+                                                                   gate_max=o.gate_max, **kw)
         dw = dw2d.reshape(w_pre.shape)
     du, dxs, dwr, dwc, dbc, dws = fs.stage_conv_bwd_reference(x, dw, a, b, wr, wc, ws,
                                                               upsample=o.upsample, **kw)
@@ -1228,8 +1407,8 @@ def checked_stage_backward(fs, fa, record):
     """Hold every backward of `FusedStage` run inside the block against the
     plain chain on the very tensors that call saved: in bf16 by the rule of
     phase 4 (against the f32 plain chain on the same inputs), in f32 to
-    F32_TOL; db2, zero in exact arithmetic, against dW2's scale. One row per
-    call goes to `record`."""
+    F32_TOL; a softmax gate's db2, zero in exact arithmetic, against dW2's
+    scale. One row per call goes to `record`."""
     original = fs.FusedStage.backward
 
     def backward(ctx, gy):
@@ -1244,13 +1423,14 @@ def checked_stage_backward(fs, fa, record):
             if saved[0].dtype != torch.float32:
                 truth = plain_stage_backward(fs, fa, o, gy.float(), as_f32(saved))
         x = saved[0]
-        shape = dict(N=x.shape[0], H=o.h, C=x.shape[-1], up=o.upsample, down=o.downsample)
+        shape = dict(N=x.shape[0], H=o.h, C=x.shape[-1], mode=o.mode, up=o.upsample,
+                     down=o.downsample)
         row = dict(shape, dtype=str(x.dtype).replace("torch.", ""))
         names = fs._NAMES
         for name, k, p, t in zip(names, grads[1:], plain, truth):
             if k is None:
                 continue
-            scale = truth[names.index("w2")] if name == "b2" else None
+            scale = truth[names.index("w2")] if name == "b2" and o.mode == "softmax" else None
             hold(name, shape, k, p, t, x.dtype, row, scale=scale)
         record.append(row)
         return grads
@@ -1262,9 +1442,12 @@ def checked_stage_backward(fs, fa, record):
         fs.FusedStage.backward = original
 
 
-def phase_ffhq_serving(cfg_g):
-    """Phase 10: serving ffhq_512 through `generate_samples` and
-    `bench-sample`, the kernel path against the plain path."""
+def phase_ffhq_serving(overrides=None, want=FFHQ_SERVE_PER_FORWARD, phase="ffhq-serving"):
+    """Phase 10 (and 17 with the sigmoid gate): serving ffhq_512 (with the
+    config `overrides`) through `generate_samples` and `bench-sample`, the
+    kernel path against the plain path; one forward launches `want`."""
+    overrides = overrides or {}
+    cfg_g = ffhq_config(**overrides)
     from locate_tpu_torch.io.sampling import generate_samples
     from locate_tpu_torch.models.gan import model_config
     from locate_tpu_torch.models.generator import build_generator
@@ -1281,8 +1464,7 @@ def phase_ffhq_serving(cfg_g):
     check(images.shape == (4, 512, 512, 3) and str(images.dtype) == "uint8",
           f"ffhq_512 request: images {images.shape} {images.dtype}")
     check(float(images.std()) > 0.0, "ffhq_512 request: constant images")
-    check(launches == FFHQ_SERVE_PER_FORWARD,
-          f"one ffhq_512 forward launched {launches}, want {FFHQ_SERVE_PER_FORWARD}")
+    check(launches == expected(want), f"one ffhq_512 forward launched {launches}, want {want}")
     plain_cfg = dataclasses.replace(mcfg, use_pallas=False)
     plain = build_generator(plain_cfg, "bfloat16", "cuda").eval()
     truth = build_generator(plain_cfg, "float32", "cuda").eval()
@@ -1306,15 +1488,17 @@ def phase_ffhq_serving(cfg_g):
     def bench_sample(use_pallas):
         torch.cuda.reset_peak_memory_stats()
         out = run_cli(["bench-sample", "ffhq_512", f"use_pallas={str(use_pallas).lower()}",
-                       f"--batch={FFHQ_BATCH}", "--steps=3"])
+                       *(f"{k}={v}" for k, v in overrides.items()), f"--batch={FFHQ_BATCH}",
+                       "--steps=3"])
         torch.cuda.empty_cache()
         return dict(out, peak_memory_bytes=torch.cuda.max_memory_allocated())
 
-    say("ffhq-serving", config="ffhq_512", launches_one_forward=launches,
+    say(phase, config="ffhq_512", overrides=overrides, launches_one_forward=launches,
         rel_err_kernel_path_vs_f32=ek, rel_err_plain_path_vs_f32=ep,
         max_abs_err_kernel_vs_plain_path=float((yk - yp).abs().max()),
         kernel_path=bench_sample(True), plain_path=bench_sample(False),
         device_idle_share_batch16=("not measured" if idle is None else idle))
+    return launches
 
 
 def timed_steps(step, state, batch, steps):
@@ -1330,11 +1514,16 @@ def timed_steps(step, state, batch, steps):
     return state, history, seconds
 
 
-def phase_ffhq_train():
-    """Phase 11: the main path of the fused-stage kernels, ffhq_512 as
-    shipped at batch 16, three steps from step 0 (lazy R1 fires), then the
-    plain path's three steps, and a profile of each."""
-    cfg = ffhq_config()
+def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
+    """Phase 11 (and 18 with the sigmoid gate): the main path of the
+    fused-stage kernels, ffhq_512 as shipped (with the config `overrides`)
+    at batch 16, three steps from step 0 (lazy R1 fires), launching
+    `per_step` kernels a step, then the plain path's three steps, and a
+    profile of each."""
+    overrides = overrides or {}
+    per_step = per_step or {**FFHQ_GATE_PER_STEP,
+                            **{k: sum(v.values()) for k, v in FFHQ_STAGE_PER_STEP.items()}}
+    cfg = ffhq_config(**overrides)
     tcfg = cfg.train
     check(cfg.use_pallas and cfg.model.remat and cfg.model.resolution == 512
           and tcfg.compute_dtype == "bfloat16" and tcfg.r1_gamma == 0.1
@@ -1351,9 +1540,7 @@ def phase_ffhq_train():
     peak = torch.cuda.max_memory_allocated()
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
-    per_step = {**FFHQ_GATE_PER_STEP,
-                **{k: sum(v.values()) for k, v in FFHQ_STAGE_PER_STEP.items()}}
-    check(launches == {k: v * steps for k, v in per_step.items()},
+    check(launches == expected(per_step, steps),
           f"ffhq_512 steps launched {launches}, want {per_step} per step")
     idle, top = profile_calls(lambda: step(state, batch), calls=2, top=15)
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
@@ -1361,7 +1548,7 @@ def phase_ffhq_train():
     del gan, state, step, before
     torch.cuda.empty_cache()
 
-    pcfg = ffhq_config(use_pallas="false")
+    pcfg = ffhq_config(use_pallas="false", **overrides)
     gan, state, step = trainer(pcfg)
     torch.cuda.reset_peak_memory_stats()
     state, plain_history, plain_seconds = timed_steps(step, state, batch, steps)
@@ -1375,7 +1562,8 @@ def phase_ffhq_train():
         return dict(seconds_per_step=secs,
                     images_per_sec_after_step0=FFHQ_BATCH * (len(secs) - 1) / sum(secs[1:]))
 
-    say("ffhq-train", config="ffhq_512 as shipped, batch 16", steps=steps, params=params,
+    say(phase, config="ffhq_512 as shipped, batch 16", overrides=overrides, steps=steps,
+        params=params,
         launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
         metrics=history, max_param_change=moved,
         kernel_path=dict(rates(seconds), peak_memory_bytes=peak,
@@ -1389,10 +1577,10 @@ def phase_ffhq_train():
     return cfg, weights, launches
 
 
-def phase_ffhq_checked_backward(fs, fa, cfg, weights):
-    """Phase 12: one ffhq_512 step's gradients (R1 firing) on the kernel
-    path, each of its four fused-stage backward calls held against the
-    plain chain on its own saved tensors."""
+def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-backward"):
+    """Phase 12 (and 19 with the sigmoid gate): one ffhq_512 step's
+    gradients (R1 firing) on the kernel path, each of its four fused-stage
+    backward calls held against the plain chain on its own saved tensors."""
     g = torch.Generator(device="cuda")
     g.manual_seed(6)
     z = [torch.randn(FFHQ_BATCH, cfg.model.latent_dim, device="cuda", generator=g)
@@ -1403,16 +1591,19 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights):
     check(len(calls) == 4, f"{len(calls)} fused-stage backward calls in one ffhq_512 step")
     check(all(math.isfinite(v) for v in (d_loss, g_loss, r1)) and r1 > 0.0,
           f"ffhq_512 step losses {d_loss}, {g_loss}, r1 {r1}")
-    say("ffhq-checked-stage-backward", calls=calls, d_loss=d_loss, g_loss=g_loss, r1=r1)
+    say(phase, calls=calls, d_loss=d_loss, g_loss=g_loss, r1=r1)
 
 
-def phase_ffhq_grads_64(fs, fa, blocks):
-    """Phase 13: one step's whole gradients at ffhq_512's widths cut to 64^2,
-    every stage fused (FUSE_MIN_LOCATIONS = 0), f32 kernel path against the
-    f32 plain path: within TRAIN_F32_TOL, or ten times what 1e-7 weight
-    noise moves the plain path by if larger; each fused-stage backward call
-    within F32_TOL of the plain chain."""
-    cfg = ffhq_config(**{"model.resolution": "64", "data.resolution": "64"})
+def phase_ffhq_grads_64(fs, fa, blocks, overrides=None, kernels=STAGE_KERNELS,
+                        phase="ffhq-train-grads-64"):
+    """Phase 13 (and 20 with the sigmoid gate): one step's whole gradients
+    at ffhq_512's widths cut to 64^2, every stage fused (FUSE_MIN_LOCATIONS
+    = 0), f32 kernel path against the f32 plain path: within
+    TRAIN_F32_TOL, or ten times what 1e-7 weight noise moves the plain path
+    by if larger; each fused-stage backward call within F32_TOL of the
+    plain chain; each of `kernels` launched."""
+    cfg = ffhq_config(**{"model.resolution": "64", "data.resolution": "64",
+                         **(overrides or {})})
     gan, _, _ = trainer(cfg)
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
     del gan
@@ -1431,7 +1622,7 @@ def phase_ffhq_grads_64(fs, fa, blocks):
         blocks.FUSE_MIN_LOCATIONS = None
     stages = len(cfg.model.stage_resolutions())
     check(len(calls) == 4 * stages, f"{len(calls)} fused-stage backward calls at 64^2")
-    check(all(launches[k] > 0 for k in STAGE_KERNELS), f"64^2 step launched {launches}")
+    check(all(launches[k] > 0 for k in kernels), f"64^2 step launched {launches}")
     plain = step_grads(cfg, weights, *z, 64, False, "float32")
     noisy = step_grads(cfg, weights, *z, 64, False, "float32", perturb=1e-7)
     rows = {}
@@ -1441,7 +1632,7 @@ def phase_ffhq_grads_64(fs, fa, blocks):
         rows[net] = dict(rel_err_kernel_vs_plain_f32=e,
                          rel_change_f32_at_1e7_weight_noise=moved)
         check(e <= limit, f"{net} gradient at 64^2 f32, every stage fused: {e:.3e} > {limit:.3e}")
-    say("ffhq-train-grads-64", batch=FFHQ_BATCH, fused_stages=stages, gradients=rows,
+    say(phase, batch=FFHQ_BATCH, fused_stages=stages, gradients=rows,
         launches=launches, stage_backward_calls_checked=len(calls),
         worst_stage_backward_rel_err=max(v for r in calls for k, v in r.items()
                                           if k.endswith("rel_err_kernel_vs_plain")),
@@ -1509,10 +1700,76 @@ def phase_fusion_timing(blocks):
     return rows
 
 
-def stage_entry(kernel, times, max_err, launches):
+def phase_sigmoid_threshold():
+    """Phase 21: one sigmoid LocateAttention layer at ffhq_512's G shapes
+    from 32^2 to 256^2 (C 64, Hd 16; there both packages run the plain
+    composition), batch 16, bf16: forward, and forward plus backward,
+    through the one-pass kernels and through the plain composition. The
+    input to a retune of SIGMOID_FUSED_MAX_LOCATIONS (256, the TPU's)."""
+    from locate_tpu_torch.config import AttentionConfig
+    from locate_tpu_torch.ops.attention import LocateAttention
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rows = {}
+    for side in (32, 64, 128, 256):
+        layer = LocateAttention(64, AttentionConfig(mode="sigmoid", gate_max=16.0),
+                                compute_dtype=torch.bfloat16, use_pallas=True, gen=gen)
+        randomize_logit_convs(layer, seed=14, scale=0.25)
+        x = torch.randn(FFHQ_BATCH, side, side, 64, device="cuda", generator=gen)
+        x = x.to(torch.bfloat16).requires_grad_(True)
+        dy = torch.randn(x.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        row = {}
+        for path, fn in (("kernel", layer.forward_fused), ("plain", layer.forward_composed)):
+            with torch.no_grad():
+                row[f"{path}_forward_ms"] = event_ms(lambda: fn(x))
+            row[f"{path}_forward_backward_ms"] = event_ms(
+                lambda: torch.autograd.grad(fn(x), [x, *layer.parameters()], dy))
+        row["kernel_over_plain_forward_backward"] = (row["kernel_forward_backward_ms"]
+                                                     / row["plain_forward_backward_ms"])
+        rows[f"{side}^2"] = row
+        del layer, x, dy
+        torch.cuda.empty_cache()
+    say("sigmoid-threshold-timing", batch=FFHQ_BATCH, C=64, Hd=16, dtype="bfloat16",
+        rows=rows)
+
+
+def sigmoid_entry(kernel, rows, launches, serve_launches):
+    """The {"kernels": [...]} entry of a sigmoid gate kernel: per
+    ffhq_512-sigmoid train step at batch 16, each shape's time times its
+    launches a step."""
+    mult = SIGMOID_FWD_PER_STEP if kernel == "sigmoid_gate" else SIGMOID_BWD_PER_STEP
+    names = ("y",) if kernel == "sigmoid_gate" else GRAD_NAMES[1:]
+    timed_rows = [r for r in rows if kernel in r]
+    entry = {
+        "name": kernel,
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES[kernel],
+        "launches": launches[kernel],  # ffhq_512-sigmoid's three train steps
+        "max_abs_err": max(r[f"{n}_max_abs_err"] for r in timed_rows for n in names),
+        "ms": per_step(timed_rows, kernel, mult, "ms"),
+        "plain_ms": per_step(timed_rows, kernel, mult, "plain_ms"),
+        "bound_ms": per_step(timed_rows, kernel, mult, "bound_ms"),
+        "bound_by": ("bytes" if all(r[kernel]["bound_by"] == "bytes" for r in timed_rows
+                                    if r["dtype"] == "bfloat16") else "operations"),
+        "library_ms": None,
+        "shapes": [dict(N=r["shape"]["N"], HW=r["shape"]["HW"], C=r["shape"]["C"],
+                        dtype=r["dtype"], launches_per_step=mult[(
+                            r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])],
+                        **{k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms")})
+                   for r in timed_rows],
+    }
+    if kernel == "sigmoid_gate":
+        entry["launches_serving"] = serve_launches[kernel]
+        entry["ms_per_served_forward"] = per_step(timed_rows, kernel, SIGMOID_SERVE, "ms")
+    return entry
+
+
+def stage_entry(kernel, times, max_err, launches, forms=None):
     """The {"kernels": [...]} entry of a fused-stage kernel: per ffhq_512
     train step at batch 16, each form's time times its launches a step."""
-    forms = FFHQ_STAGE_PER_STEP[kernel]
+    forms = forms or FFHQ_STAGE_PER_STEP[kernel]
 
     def total(key):
         return sum(times[(kernel, f)][key] * k for f, k in forms.items())
@@ -1563,7 +1820,7 @@ def phase_build(fa, fs, build):
     stage_lib = fs._library()
     stage_smem = {}
     for kind, k in (("conv", fs._CONV), ("stats", fs._STATS), ("apply_pool", fs._APPLY_POOL),
-                    ("bwd", fs._BWD)):
+                    ("bwd", fs._BWD), ("sigmoid", fs._SIGMOID)):
         th, tw = fs.pick_tile(k, 512, 512, 64, 64, 16, 64, lib=stage_lib)
         stage_smem[kind] = dict(tile=f"{th}x{tw}", bytes=int(
             stage_lib.locate_stage_smem_bytes(k, 64, 64, 16, 64, th, tw)))
@@ -1645,18 +1902,38 @@ def main() -> int:
 
     # ffhq_512: the fused-stage kernels, serving, training (their main path)
     stage_rows, stage_times, stage_err = phase_stage_kernels(fs, fa)
-    phase_ffhq_serving(ffhq_config())
+    phase_ffhq_serving()
     ffhq_cfg, ffhq_weights, ffhq_launches = phase_ffhq_train()
     phase_ffhq_checked_backward(fs, fa, ffhq_cfg, ffhq_weights)
     del ffhq_weights
     phase_ffhq_grads_64(fs, fa, blocks)
     phase_fusion_timing(blocks)
 
+    # ffhq_512 with the sigmoid gate: its three kernels, serving, training
+    sigmoid_rows = phase_sigmoid_gate(fa)
+    _, sig_stage_times, sig_stage_err = phase_stage_kernels(
+        fs, fa, SIGMOID_STAGE_CASES, "sigmoid-stage-kernels-vs-plain")
+    sig_serve = phase_ffhq_serving(SIGMOID, SIGMOID_SERVE_PER_FORWARD, "ffhq-sigmoid-serving")
+    sig_cfg, sig_weights, sig_launches = phase_ffhq_train(SIGMOID, SIGMOID_PER_STEP,
+                                                          "ffhq-sigmoid-train")
+    phase_ffhq_checked_backward(fs, fa, sig_cfg, sig_weights,
+                                "ffhq-sigmoid-checked-stage-backward")
+    del sig_weights
+    phase_ffhq_grads_64(fs, fa, blocks, SIGMOID,
+                        ("stage_sigmoid", "stage_conv", "stage_conv_bwd", "sigmoid_bwd"),
+                        "ffhq-sigmoid-train-grads-64")
+    phase_sigmoid_threshold()
+
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches)
            for k in KERNELS]
     out += [stage_entry(k, stage_times, stage_err, ffhq_launches) for k in STAGE_KERNELS]
+    out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve) for k in SIGMOID_KERNELS]
+    out.append(stage_entry("stage_sigmoid", sig_stage_times, sig_stage_err, sig_launches,
+                           SIGMOID_STAGE_PER_STEP["stage_sigmoid"]))
     for entry in out:
+        entry["launches_ffhq_512_sigmoid_train"] = sig_launches[entry["name"]]
         check(entry["launches"] > 0, f"{entry['name']} never launched on its main path")
+    check(len(out) == 11, f"{len(out)} kernels listed")
     print(json.dumps({"kernels": out}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)

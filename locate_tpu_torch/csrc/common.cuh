@@ -1,8 +1,9 @@
 // Device helpers shared by the port's kernels: dtype conversion, the
 // activations of locate_tpu/ops/pallas/fused_attention.py:_act and their
-// subgradients, the (max, sum-exp) merge of per-tile softmax statistics,
-// and the fixed-order reduction of per-block partial sums. Each .cu file
-// includes this header and compiles into its own library.
+// subgradients, the sigmoid gate, the (max, sum-exp) merge of per-tile
+// softmax statistics, and the fixed-order reduction of per-block partial
+// sums. Each .cu file includes this header and compiles into its own
+// library.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,6 +48,15 @@ __device__ __forceinline__ float activate(float u, int act, float slope) {
 __device__ __forceinline__ float activate_grad(float u, int act, float slope) {
   if (act == kLeakyRelu) return u >= 0.f ? 1.f : slope;
   return u > 0.f ? 1.f : 0.f;  // relu
+}
+
+// jax.nn.sigmoid: 1 / (1 + exp(-l)).
+__device__ __forceinline__ float logistic(float l) { return 1.f / (1.f + expf(-l)); }
+
+// The residual sigmoid gate min(2 sigmoid(l), gate_max); gate_max 0 is no clamp.
+__device__ __forceinline__ float sigmoid_gate_of(float l, float gate_max) {
+  const float g = 2.f * logistic(l);
+  return gate_max > 0.f && g > gate_max ? gate_max : g;
 }
 
 // Softmax statistics, part 2: one thread per (n, channel) merges the

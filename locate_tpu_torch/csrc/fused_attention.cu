@@ -1,13 +1,21 @@
-// Softmax location-attention gate, forward and backward, for Hopper (sm_90a).
+// Location-attention gate, softmax and sigmoid, forward and backward, for
+// Hopper (sm_90a).
 //
-// Replaces the four TPU kernels of locate_tpu/ops/pallas/fused_attention.py:
+// Replaces the six TPU kernels of locate_tpu/ops/pallas/fused_attention.py:
 //   * _softmax_stats_kernel (:152)  -> softmax_stats_partial + softmax_stats_merge
 //   * _softmax_apply_kernel (:179)  -> softmax_apply
 //   * _softmax_csum_kernel  (:358)  -> softmax_csum_partial + reduce_partials
 //   * _bwd_kernel_softmax   (:397, body _bwd_body :408)
 //                                   -> softmax_bwd + reduce_partials (twice)
+//   * _sigmoid_kernel       (:145)  -> sigmoid_gate
+//   * _bwd_kernel_sigmoid   (:387, body _bwd_body :408)
+//                                   -> sigmoid_bwd + reduce_partials (twice)
 // (softmax_stats_merge and reduce_partials live in common.cuh, which the
-// fused-stage kernels share.)
+// fused-stage kernels share.) The sigmoid gate g = 2 sigmoid(l) is local to
+// a location, so its forward is one pass (the apply pass with g in place of
+// the softmax) and its backward is softmax_bwd's body with
+// dl = 2p(1 - p) * mask * dg, p = sigmoid(l), in place of the softmax
+// Jacobian: no statistics, no csum pass.
 //
 // All compute the per-location gate MLP
 //     u = x.W1x + pos_proj + b1        (f32 accumulation of compute-dtype products)
@@ -33,8 +41,9 @@
 // as the TPU kernel rounds it.
 //
 // Bound: every pass is memory-bound on this card. The stats pass must
-// read x once (2*N*HW*C bytes in bf16), the apply pass must read x and
-// write y, csum reads x and dy, bwd reads x and dy and writes dx; the gate
+// read x once (2*N*HW*C bytes in bf16), the apply pass and the sigmoid
+// gate must read x and write y, csum reads x and dy, bwd (either gate)
+// reads x and dy and writes dx; the gate
 // MLP is C*Hd + Hd*Cout multiply-adds per location (three times that in
 // the backward), well under the card's operations-per-byte line. The
 // logits are recomputed in every pass rather than stored, as on the TPU:
@@ -212,6 +221,19 @@ __global__ void __launch_bounds__(kThreads) softmax_stats_partial(
   }
 }
 
+// y = x * g for the tile's rows, from the gates in L.ls and x in L.xs.
+template <typename T>
+__device__ void store_gated(const Tile& L, T* __restrict__ y, int n, int HW, int t0,
+                            int rows, int C, int Cout) {
+  T* dst = y + ((size_t)n * HW + t0) * C;
+  const bool broadcast = Cout == 1;
+  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
+    const int t = i / C, c = i - t * C;
+    const float g = L.ls[t * Cout + (broadcast ? 0 : c)];
+    dst[i] = from_f32<T>(L.xs[c * L.ldt + t] * g);
+  }
+}
+
 // Apply pass: grid (tiles, N). m, se are (N, Cout).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) softmax_apply(
@@ -238,13 +260,28 @@ __global__ void __launch_bounds__(kThreads) softmax_apply(
     L.ls[o] = g;
   }
   __syncthreads();
-  T* dst = y + ((size_t)n * HW + t0) * C;
-  const bool broadcast = Cout == 1;
-  for (int i = threadIdx.x; i < rows * C; i += blockDim.x) {
-    const int t = i / C, c = i - t * C;
-    const float g = L.ls[t * Cout + (broadcast ? 0 : c)];
-    dst[i] = from_f32<T>(L.xs[c * L.ldt + t] * g);
-  }
+  store_gated<T>(L, y, n, HW, t0, rows, C, Cout);
+}
+
+// Sigmoid gate, one pass: grid (tiles, N). y = x * min(2 sigmoid(l), gate_max).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) sigmoid_gate(
+    const T* __restrict__ x, const float* __restrict__ pp, const T* __restrict__ w1,
+    const float* __restrict__ b1, const T* __restrict__ w2, const float* __restrict__ b2,
+    T* __restrict__ y, int HW, int C, int Hd, int Cout, int T_rows, int act, float slope,
+    float gate_max) {
+  extern __shared__ __align__(16) float smem[];
+  const Tile L = make_tile(smem, C, Hd, Cout, T_rows);
+  const int tile = blockIdx.x, n = blockIdx.y;
+  const int t0 = tile * T_rows;
+  const int rows = min(T_rows, HW - t0);
+  const int rows4 = (rows + 3) & ~3;
+  tile_logits<T>(x, pp, w1, b1, w2, b2, n, t0, rows, rows4, HW, C, Hd, Cout, act,
+                 slope, L);
+  for (int o = threadIdx.x; o < rows * Cout; o += blockDim.x)
+    L.ls[o] = sigmoid_gate_of(L.ls[o], gate_max);
+  __syncthreads();
+  store_gated<T>(L, y, n, HW, t0, rows, C, Cout);
 }
 
 // dL/dg of a broadcast gate (Cout = 1): for each of `rows` locations the
@@ -330,15 +367,17 @@ __host__ __device__ inline size_t bwd_tile_floats(int C, int Hd, int Cout, int T
 // own slice of part_w (blocks, C*Hd + Hd*Cout + Hd + Cout) and its rows'
 // du into its slice of part_pp (nb, HW, Hd). Each output of a slice is
 // owned by one thread for all R rows, so the sums are in a fixed order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) softmax_bwd(
-    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ pp,
-    const T* __restrict__ w1, const float* __restrict__ b1, const T* __restrict__ w2,
-    const float* __restrict__ b2, const float* __restrict__ m, const float* __restrict__ se,
-    const float* __restrict__ csum, T* __restrict__ dx, float* __restrict__ part_w,
-    float* __restrict__ part_pp, int N, int HW, int C, int Hd, int Cout, int T_rows,
-    int R, int act, float slope, float hw_scale, float gate_max) {
-  extern __shared__ __align__(16) float smem[];
+// S selects the gate (_bwd_body's two modes): softmax, dl = g * mask * dg -
+// (g / HW) * c from m, se and c; or sigmoid, dl = 2p(1 - p) * mask * dg
+// with p = sigmoid(l) and g = 2p, where m, se and c are unused.
+template <typename T, bool S>
+__device__ __forceinline__ void gate_bwd(
+    float* smem, const T* __restrict__ x, const T* __restrict__ dy,
+    const float* __restrict__ pp, const T* __restrict__ w1, const float* __restrict__ b1,
+    const T* __restrict__ w2, const float* __restrict__ b2, const float* __restrict__ m,
+    const float* __restrict__ se, const float* __restrict__ csum, T* __restrict__ dx,
+    float* __restrict__ part_w, float* __restrict__ part_pp, int N, int HW, int C, int Hd,
+    int Cout, int T_rows, int R, int act, float slope, float hw_scale, float gate_max) {
   Tile L;
   L.ldt = T_rows + 4;
   L.xs = smem;
@@ -377,9 +416,6 @@ __global__ void __launch_bounds__(kThreads) softmax_bwd(
     }
 
     // dl and the clamped gate; padding rows are zero
-    const float* mn = m + (size_t)n * Cout;
-    const float* sn = se + (size_t)n * Cout;
-    const float* cn = csum + (size_t)n * Cout;
     for (int o = threadIdx.x; o < rows4 * Cout; o += blockDim.x) {
       const int t = o / Cout, co = o - t * Cout;
       if (t >= rows) {
@@ -387,7 +423,9 @@ __global__ void __launch_bounds__(kThreads) softmax_bwd(
         gs[o] = 0.f;
         continue;
       }
-      const float g = expf(L.ls[o] - mn[co]) / sn[co] * hw_scale;
+      const size_t s = (size_t)n * Cout + co;
+      const float p = S ? logistic(L.ls[o]) : 0.f;
+      const float g = S ? 2.f * p : expf(L.ls[o] - m[s]) / se[s] * hw_scale;
       const size_t i = (row0 + t) * C + co;
       float dg = broadcast ? dgr[t] : to_f32(x[i]) * to_f32(dy[i]);
       float ghat = g;
@@ -395,7 +433,7 @@ __global__ void __launch_bounds__(kThreads) softmax_bwd(
         dg *= g <= gate_max ? 1.f : 0.f;
         if (g > gate_max) ghat = gate_max;
       }
-      L.ls[o] = g * dg - (g / hw_scale) * cn[co];
+      L.ls[o] = S ? 2.f * p * (1.f - p) * dg : g * dg - (g / hw_scale) * csum[s];
       gs[o] = ghat;
     }
     __syncthreads();
@@ -490,6 +528,33 @@ __global__ void __launch_bounds__(kThreads) softmax_bwd(
 }
 
 template <typename T>
+__global__ void __launch_bounds__(kThreads) softmax_bwd(
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ pp,
+    const T* __restrict__ w1, const float* __restrict__ b1, const T* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ m, const float* __restrict__ se,
+    const float* __restrict__ csum, T* __restrict__ dx, float* __restrict__ part_w,
+    float* __restrict__ part_pp, int N, int HW, int C, int Hd, int Cout, int T_rows,
+    int R, int act, float slope, float hw_scale, float gate_max) {
+  extern __shared__ __align__(16) float smem[];
+  gate_bwd<T, false>(smem, x, dy, pp, w1, b1, w2, b2, m, se, csum, dx, part_w, part_pp, N,
+                     HW, C, Hd, Cout, T_rows, R, act, slope, hw_scale, gate_max);
+}
+
+// The sigmoid gate's backward, one pass: softmax_bwd's grid, tiles and
+// workspace slices, without the softmax statistics and c.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) sigmoid_bwd(
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ pp,
+    const T* __restrict__ w1, const float* __restrict__ b1, const T* __restrict__ w2,
+    const float* __restrict__ b2, T* __restrict__ dx, float* __restrict__ part_w,
+    float* __restrict__ part_pp, int N, int HW, int C, int Hd, int Cout, int T_rows,
+    int R, int act, float slope, float gate_max) {
+  extern __shared__ __align__(16) float smem[];
+  gate_bwd<T, true>(smem, x, dy, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, dx, part_w,
+                    part_pp, N, HW, C, Hd, Cout, T_rows, R, act, slope, 1.f, gate_max);
+}
+
+template <typename T>
 cudaError_t launch_stats(const void* x, const void* pp, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* part_m, void* part_s,
                          void* m, void* se, int N, int HW, int C, int Hd, int Cout,
@@ -546,6 +611,22 @@ cudaError_t launch_csum(const void* x, const void* dy, const void* pp, const voi
 }
 
 template <typename T>
+cudaError_t launch_sigmoid(const void* x, const void* pp, const void* w1, const void* b1,
+                           const void* w2, const void* b2, void* y, int N, int HW, int C,
+                           int Hd, int Cout, int T_rows, int act, float slope,
+                           float gate_max, cudaStream_t stream) {
+  const int tiles = (HW + T_rows - 1) / T_rows;
+  const size_t smem = tile_floats(C, Hd, Cout, T_rows) * sizeof(float);
+  cudaError_t err = allow_smem(sigmoid_gate<T>, smem);
+  if (err != cudaSuccess) return err;
+  sigmoid_gate<T><<<dim3(tiles, N), kThreads, smem, stream>>>(
+      (const T*)x, (const float*)pp, (const T*)w1, (const float*)b1, (const T*)w2,
+      (const float*)b2, (T*)y, HW, C, Hd, Cout, T_rows, act, slope, gate_max);
+  return cudaGetLastError();
+}
+
+// S: the sigmoid gate's backward (m, se and c unused), else the softmax's.
+template <typename T, bool S>
 cudaError_t launch_bwd(const void* x, const void* dy, const void* pp, const void* w1,
                        const void* b1, const void* w2, const void* b2, const void* m,
                        const void* se, const void* c, void* dx, void* part_w, void* part_pp,
@@ -555,13 +636,19 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* pp, const void
   const int tiles = (HW + T_rows - 1) / T_rows;
   const int nb = (N + R - 1) / R;
   const size_t smem = bwd_tile_floats(C, Hd, Cout, T_rows) * sizeof(float);
-  cudaError_t err = allow_smem(softmax_bwd<T>, smem);
+  cudaError_t err = S ? allow_smem(sigmoid_bwd<T>, smem) : allow_smem(softmax_bwd<T>, smem);
   if (err != cudaSuccess) return err;
-  softmax_bwd<T><<<dim3(tiles, nb), kThreads, smem, stream>>>(
-      (const T*)x, (const T*)dy, (const float*)pp, (const T*)w1, (const float*)b1,
-      (const T*)w2, (const float*)b2, (const float*)m, (const float*)se, (const float*)c,
-      (T*)dx, (float*)part_w, (float*)part_pp, N, HW, C, Hd, Cout, T_rows, R, act, slope,
-      hw_scale, gate_max);
+  if (S)
+    sigmoid_bwd<T><<<dim3(tiles, nb), kThreads, smem, stream>>>(
+        (const T*)x, (const T*)dy, (const float*)pp, (const T*)w1, (const float*)b1,
+        (const T*)w2, (const float*)b2, (T*)dx, (float*)part_w, (float*)part_pp, N, HW, C,
+        Hd, Cout, T_rows, R, act, slope, gate_max);
+  else
+    softmax_bwd<T><<<dim3(tiles, nb), kThreads, smem, stream>>>(
+        (const T*)x, (const T*)dy, (const float*)pp, (const T*)w1, (const float*)b1,
+        (const T*)w2, (const float*)b2, (const float*)m, (const float*)se, (const float*)c,
+        (T*)dx, (float*)part_w, (float*)part_pp, N, HW, C, Hd, Cout, T_rows, R, act, slope,
+        hw_scale, gate_max);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int wtot = C * Hd + Hd * Cout + Hd + Cout;
@@ -637,12 +724,42 @@ int locate_softmax_bwd(int is_bf16, const void* x, const void* dy, const void* p
                        float gate_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return (int)launch_bwd<__nv_bfloat16>(x, dy, pp, w1, b1, w2, b2, m, se, c, dx, part_w,
-                                          part_pp, dw, dpp, N, HW, C, Hd, Cout, T_rows, R,
-                                          act, slope, hw_scale, gate_max, s);
-  return (int)launch_bwd<float>(x, dy, pp, w1, b1, w2, b2, m, se, c, dx, part_w, part_pp, dw,
-                                dpp, N, HW, C, Hd, Cout, T_rows, R, act, slope, hw_scale,
-                                gate_max, s);
+    return (int)launch_bwd<__nv_bfloat16, false>(x, dy, pp, w1, b1, w2, b2, m, se, c, dx,
+                                                 part_w, part_pp, dw, dpp, N, HW, C, Hd, Cout,
+                                                 T_rows, R, act, slope, hw_scale, gate_max, s);
+  return (int)launch_bwd<float, false>(x, dy, pp, w1, b1, w2, b2, m, se, c, dx, part_w,
+                                       part_pp, dw, dpp, N, HW, C, Hd, Cout, T_rows, R, act,
+                                       slope, hw_scale, gate_max, s);
+}
+
+// y: (N, HW, C) out.
+int locate_sigmoid_gate(int is_bf16, const void* x, const void* pp, const void* w1,
+                        const void* b1, const void* w2, const void* b2, void* y, int N, int HW,
+                        int C, int Hd, int Cout, int T_rows, int act, float slope,
+                        float gate_max, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return (int)launch_sigmoid<__nv_bfloat16>(x, pp, w1, b1, w2, b2, y, N, HW, C, Hd, Cout,
+                                              T_rows, act, slope, gate_max, s);
+  return (int)launch_sigmoid<float>(x, pp, w1, b1, w2, b2, y, N, HW, C, Hd, Cout, T_rows, act,
+                                    slope, gate_max, s);
+}
+
+// The workspaces and outputs of locate_softmax_bwd, without m, se and c.
+int locate_sigmoid_bwd(int is_bf16, const void* x, const void* dy, const void* pp,
+                       const void* w1, const void* b1, const void* w2, const void* b2, void* dx,
+                       void* part_w, void* part_pp, void* dw, void* dpp, int N, int HW, int C,
+                       int Hd, int Cout, int T_rows, int R, int act, float slope,
+                       float gate_max, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return (int)launch_bwd<__nv_bfloat16, true>(x, dy, pp, w1, b1, w2, b2, nullptr, nullptr,
+                                                nullptr, dx, part_w, part_pp, dw, dpp, N, HW,
+                                                C, Hd, Cout, T_rows, R, act, slope, 1.f,
+                                                gate_max, s);
+  return (int)launch_bwd<float, true>(x, dy, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, dx,
+                                      part_w, part_pp, dw, dpp, N, HW, C, Hd, Cout, T_rows, R,
+                                      act, slope, 1.f, gate_max, s);
 }
 
 const char* locate_cuda_error_string(int err) {

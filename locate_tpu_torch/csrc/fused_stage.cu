@@ -1,7 +1,8 @@
 // Fused stage group, forward and backward, for Hopper (sm_90a).
 //
-// Replaces four TPU kernels of locate_tpu/ops/pallas/fused_stage.py:
+// Replaces five TPU kernels of locate_tpu/ops/pallas/fused_stage.py:
 //   * _kernel_conv_only          (:366) -> stage_conv
+//   * _kernel_sigmoid            (:378) -> stage_sigmoid
 //   * _kernel_softmax_stats      (:410) -> stage_softmax_stats + softmax_stats_merge
 //   * _kernel_softmax_apply_pool (:397) -> stage_softmax_apply_pool
 //   * _kernel_conv_bwd           (:451) -> stage_conv_bwd + reduce_partials
@@ -19,6 +20,11 @@
 // `upsample` x is the coarse tensor: u, the skip and the 1x1 product are
 // taken at the coarse pixel under each fine pixel, which is what expanding
 // them gives. Under `downsample` the output is w averaged over 2x2 in f32.
+//
+// The sigmoid kernel takes the gate logits l (below) of the tile's w and
+// writes only y = (w * min(2 sigmoid(l), gate_max))_cd, fine, or under
+// `downsample` the 2x2 f32 average of those cd values: no w_pre and no
+// statistics, since the sigmoid gate is local to a pixel.
 //
 // The softmax stats kernel also writes w (w_pre, always fine) and each
 // tile's per-channel (max, sum-exp) of the gate logits
@@ -42,8 +48,9 @@
 // Bound: the conv products are 2*3*(C*Co + Co*Co) flops per fine pixel
 // (about 49 kflop at C = Co = 64; three times that in the backward) against
 // about 2*(C + Co) bytes of traffic in bf16, so at the ffhq_512 shapes a
-// pass is bound by operations on the tensor cores' 989 TFLOP/s, by bytes
-// only where the gate dominates (apply-pool). This first version runs the
+// pass is bound by operations on the tensor cores' 989 TFLOP/s where x is
+// coarse (`up`) or y pooled (`down`), and by bytes where both are fine or
+// the gate dominates (apply-pool). This first version runs the
 // products as f32 FMAs on the CUDA cores (67 TFLOP/s): no tensor cores,
 // TMA or wgmma.
 //
@@ -69,11 +76,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr float kSqrtHalf = 0.7071067811865476f;
 
-enum Kind { kConv = 0, kStats = 1, kApplyPool = 2, kBwd = 3 };
+enum Kind { kConv = 0, kStats = 1, kApplyPool = 2, kBwd = 3, kSigmoid = 4 };
 
 // Shared-memory regions of one block, in floats (each a multiple of 4).
-// Forward: R0 = u on the halo'd tile, then y; R1 = v, then the gate's h and
-// l. Apply-pool: R0 = w, R1 = h and l. Backward: R0 = u, R1 = dy0 (both
+// Forward (conv, stats, sigmoid): R0 = u on the halo'd tile, then y; R1 =
+// v, then the gate's h and l. Apply-pool: R0 = w, R1 = h and l. Backward: R0 = u, R1 = dy0 (both
 // halo'd), R2 = v, then du before pooling; R3 = dv.
 struct Layout {
   size_t r[4];
@@ -96,7 +103,7 @@ __host__ __device__ inline Layout layout(int kind, int C, int Co, int Hd, int Co
   } else {
     L.r[0] = maxz((TH + 2) * TWP * C, P * Co);
     L.r[1] = (TH + 2) * (size_t)TW * Co;
-    if (kind == kStats) L.r[1] = maxz(L.r[1], P * Hd + P * Cout);
+    if (kind == kStats || kind == kSigmoid) L.r[1] = maxz(L.r[1], P * Hd + P * Cout);
   }
   for (int i = 0; i < 4; ++i) L.r[i] = (L.r[i] + 3) & ~(size_t)3;
   return L;
@@ -404,6 +411,40 @@ __global__ void __launch_bounds__(kThreads) stage_conv(
   store_tile<T>(U, g, Co, down, out);
 }
 
+// stage_sigmoid: grid (tiles, N). The conv block's w, the gate logits on
+// it, then y = (w * min(2 sigmoid(l), gate_max))_cd, written fine or,
+// under `down`, 2x2-averaged in f32 (_kernel_sigmoid).
+template <typename T>
+__global__ void __launch_bounds__(kThreads) stage_sigmoid(
+    const T* __restrict__ x, const float* __restrict__ a, const float* __restrict__ b,
+    const T* __restrict__ wr, const T* __restrict__ wc, const float* __restrict__ bc,
+    const T* __restrict__ ws, const float* __restrict__ pp, const T* __restrict__ w1,
+    const float* __restrict__ b1, const T* __restrict__ w2, const float* __restrict__ b2,
+    T* __restrict__ out, int H, int W, int C, int Co, int Hd, int Cout, int TH, int TW,
+    int act, float slope, float gate_max, int up, int down) {
+  extern __shared__ __align__(16) float smem[];
+  const Layout L = layout(kSigmoid, C, Co, Hd, Cout, TH, TW);
+  float* U = smem;
+  float* V = U + L.r[0];
+  const int tx = W / TW;
+  const Geo g(blockIdx.y, (blockIdx.x / tx) * TH, (blockIdx.x % tx) * TW, H, W, TH, TW, up);
+  conv_tile<T>(x, a, b, wr, wc, bc, ws, g, C, Co, act, slope, U, V);
+  const int P = TH * TW;
+  float* Hs = V;
+  float* Ls = V + (size_t)P * Hd;
+  gate_logits<T>(U, g, Co, pp, w1, b1, w2, b2, Hd, Cout, act, slope, Hs, Ls);
+  for (int e = threadIdx.x; e < P * Cout; e += blockDim.x)
+    Ls[e] = sigmoid_gate_of(Ls[e], gate_max);
+  __syncthreads();
+  const bool broadcast = Cout == 1;
+  for (int e = threadIdx.x; e < P * Co; e += blockDim.x) {
+    const int co = e % Co, p = e / Co;
+    U[e] = round_cd<T>(U[e] * Ls[(size_t)p * Cout + (broadcast ? 0 : co)]);
+  }
+  __syncthreads();
+  store_tile<T>(U, g, Co, down, out);
+}
+
 // stage_softmax_stats: grid (tiles, N). Writes w_pre (fine) and the tile's
 // per-channel (max, sum-exp) of the gate logits to part_m / part_s
 // (N, tiles, Cout).
@@ -660,6 +701,24 @@ cudaError_t launch_conv(const void* x, const void* a, const void* b, const void*
 }
 
 template <typename T>
+cudaError_t launch_sigmoid(const void* x, const void* a, const void* b, const void* wr,
+                           const void* wc, const void* bc, const void* ws, const void* pp,
+                           const void* w1, const void* b1, const void* w2, const void* b2,
+                           void* out, int N, int H, int W, int C, int Co, int Hd, int Cout,
+                           int TH, int TW, int act, float slope, float gate_max, int up,
+                           int down, cudaStream_t stream) {
+  const size_t smem = smem_floats(kSigmoid, C, Co, Hd, Cout, TH, TW) * sizeof(float);
+  cudaError_t err = allow_smem(stage_sigmoid<T>, smem);
+  if (err != cudaSuccess) return err;
+  stage_sigmoid<T><<<dim3((H / TH) * (W / TW), N), kThreads, smem, stream>>>(
+      (const T*)x, (const float*)a, (const float*)b, (const T*)wr, (const T*)wc,
+      (const float*)bc, (const T*)ws, (const float*)pp, (const T*)w1, (const float*)b1,
+      (const T*)w2, (const float*)b2, (T*)out, H, W, C, Co, Hd, Cout, TH, TW, act, slope,
+      gate_max, up, down);
+  return cudaGetLastError();
+}
+
+template <typename T>
 cudaError_t launch_stats(const void* x, const void* a, const void* b, const void* wr,
                          const void* wc, const void* bc, const void* ws, const void* pp,
                          const void* w1, const void* b1, const void* w2, const void* b2,
@@ -737,6 +796,22 @@ int locate_stage_conv(int is_bf16, const void* x, const void* a, const void* b, 
                                            act, slope, up, down, s);
   return (int)launch_conv<float>(x, a, b, wr, wc, bc, ws, out, N, H, W, C, Co, TH, TW, act,
                                  slope, up, down, s);
+}
+
+// out: (N, H, W, Co), or (N, H/2, W/2, Co) under `down`.
+int locate_stage_sigmoid(int is_bf16, const void* x, const void* a, const void* b,
+                         const void* wr, const void* wc, const void* bc, const void* ws,
+                         const void* pp, const void* w1, const void* b1, const void* w2,
+                         const void* b2, void* out, int N, int H, int W, int C, int Co, int Hd,
+                         int Cout, int TH, int TW, int act, float slope, float gate_max, int up,
+                         int down, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return (int)launch_sigmoid<__nv_bfloat16>(x, a, b, wr, wc, bc, ws, pp, w1, b1, w2, b2, out,
+                                              N, H, W, C, Co, Hd, Cout, TH, TW, act, slope,
+                                              gate_max, up, down, s);
+  return (int)launch_sigmoid<float>(x, a, b, wr, wc, bc, ws, pp, w1, b1, w2, b2, out, N, H, W,
+                                    C, Co, Hd, Cout, TH, TW, act, slope, gate_max, up, down, s);
 }
 
 // part_m, part_s: (N, (H/TH)*(W/TW), Cout) workspaces; m, se: (N, Cout) out.

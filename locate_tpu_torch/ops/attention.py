@@ -6,12 +6,13 @@
     gate  = softmax_{H,W}(a) * H*W | sigmoid(a) * 2
     y     = x * min(gate, gate_max)
 
-`LocateAttention` keeps both apply paths of the JAX layer. The composed
-path concatenates the position features in the compute dtype and runs two
-1x1 convs; the fused path precomputes `pos_proj` in f32 from the W1[C:]
-slice and calls `ops/fused_attention.py`, whose CUDA kernels serve CUDA
-tensors. In bf16 the two round differently, so each is held against its
-own JAX counterpart.
+`LocateAttention` keeps both apply paths of the JAX layer and its
+dispatch between them. The composed path concatenates the position
+features in the compute dtype and runs two 1x1 convs; the fused path
+precomputes `pos_proj` in f32 from the W1[C:] slice and calls
+`ops/fused_attention.py`, whose CUDA kernels serve CUDA tensors. In bf16
+the two round differently, so each is held against its own JAX
+counterpart.
 """
 
 from __future__ import annotations
@@ -29,6 +30,13 @@ from locate_tpu_torch.ops import initializers
 from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.conv import Conv2d
 from locate_tpu_torch.ops.fused_attention import fused_locate_attention
+
+# The JAX layer's threshold for the sigmoid gate's one-pass kernel
+# (`fused_profitable`: fused at H*W <= 256, the XLA composition above), a
+# measurement of the TPU's. Kept so that both packages run the same kernels
+# at the same shapes; whether it suits the H100 is measured (PERF.md), not
+# yet acted on.
+SIGMOID_FUSED_MAX_LOCATIONS = 256
 
 
 @functools.lru_cache(maxsize=64)
@@ -123,18 +131,15 @@ class LocateAttention(nn.Module):
                 self._pos[key] = coord_features(h, w, self.cfg.pos_features, dtype, device)
         return self._pos[key]
 
+    def fused_profitable(self, hw: int) -> bool:
+        """The JAX layer's dispatch (`fused_profitable`): the softmax gate
+        always runs fused, the sigmoid gate at H*W <= SIGMOID_FUSED_MAX_LOCATIONS."""
+        return self.cfg.mode == "softmax" or hw <= SIGMOID_FUSED_MAX_LOCATIONS
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.use_fused:
-            return self.forward_composed(x)
-        if self.cfg.mode == "softmax":
-            return self.forward_fused(x)
         _, h, w, _ = x.shape
-        if h * w <= 256:
-            # JAX runs the sigmoid gate's one-pass kernel here
-            raise NotImplementedError(
-                "use_pallas with attention.mode='sigmoid' at H*W <= 256 runs "
-                "the sigmoid kernel (_sigmoid_kernel), not ported yet "
-                "(ROADMAP.md, Queue 2)")
+        if self.use_fused and self.fused_profitable(h * w):
+            return self.forward_fused(x)
         return self.forward_composed(x)
 
     def forward_composed(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,27 +1,29 @@
-"""Softmax location-attention gate: plain PyTorch version and the wrappers
-of its Hopper kernels. Counterpart of `locate_tpu/ops/pallas/fused_attention.py`.
+"""Location-attention gate, softmax and sigmoid: plain PyTorch versions and
+the wrappers of their Hopper kernels. Counterpart of
+`locate_tpu/ops/pallas/fused_attention.py`.
 
 The gate is the per-location MLP
 
     u = x @ W1x + pos_proj + b1      (HW, Hd)   per location
     h = act(u)                       rounded to the compute dtype
     l = h @ W2 + b2                  (HW, Cout) per location, f32
-    g = min(softmax_HW(l) * HW, gate_max)
+    g = min(softmax_HW(l) * HW, gate_max)   or   min(2 sigmoid(l), gate_max)
     y = x * g
 
 with x (N, HW, C) in the compute dtype, W1x (C, Hd) and W2 (Hd, Cout)
 cast to it, and pos_proj, the biases and the gate math in f32.
 
-Four wrappers launch the kernels of `csrc/fused_attention.cu` for CUDA
+Six wrappers launch the kernels of `csrc/fused_attention.cu` for CUDA
 tensors and run the plain version for CPU tensors; nothing falls back
-from one to the other. Forward: `softmax_gate_stats` and
-`softmax_gate_apply`. Backward: `softmax_gate_csum` (pass A, the
+from one to the other. Softmax forward: `softmax_gate_stats` and
+`softmax_gate_apply`; backward: `softmax_gate_csum` (pass A, the
 per-(n, channel) sum c of the softmax Jacobian) and
-`softmax_gate_backward` (pass B, dx and every weight gradient). Each
-wrapper counts its kernel launches in its `launches` attribute.
-`fused_locate_attention` runs the four through a first-order
-`torch.autograd.Function`, as `_make_fused_core` does in JAX. The sigmoid
-gate's kernels are not ported yet (ROADMAP.md, Queue 2).
+`softmax_gate_backward` (pass B, dx and every weight gradient). Sigmoid,
+each one pass: `sigmoid_gate` and `sigmoid_gate_backward`. Each wrapper
+counts its kernel launches in its `launches` attribute.
+`fused_locate_attention` runs them through a first-order
+`torch.autograd.Function` per mode, `SoftmaxGate` or `SigmoidGate`, as
+`_make_fused_core` does in JAX.
 """
 
 from __future__ import annotations
@@ -154,22 +156,23 @@ def softmax_gate_csum_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, *, 
     return (g * dg).sum(dim=1, keepdim=True)
 
 
-def softmax_gate_backward_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, c, *,
-                                    act, leaky_slope, hw_scale, gate_max):
-    """(dx, dpos_proj, dW1x, db1, dW2, db2), mirroring `_bwd_body` step by
-    step: h, dl and du are rounded to the compute dtype before their
-    products; dx is in the compute dtype; the parameter gradients sum in
-    f32 and are cast to their parameters' dtypes."""
+def _recompute(x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope):
+    """(xf, w1c, w2c, u, h, l) of `_bwd_body`'s recomputed forward in f32,
+    h rounded to the compute dtype."""
     cd = x2d.dtype
-    xf, dyf = x2d.float(), dy2d.float()
+    xf = x2d.float()
     w1c, w2c = w1x.to(cd).float(), w2.to(cd).float()
     u = xf @ w1c + pos_proj.float() + b1.float()
     h = _act(act, leaky_slope)(u).to(cd).float()
-    l = h @ w2c + b2.float()
-    g = torch.exp(l - m) / se * hw_scale
-    ghat = _clamp_gate(g, gate_max)
-    # c was summed from the masked dg, so only the local dg needs the mask
-    dl = g * (_gate_mask(g, gate_max) * _dgate(xf, dyf, l.shape[-1])) - (g / hw_scale) * c
+    return xf, w1c, w2c, u, h, h @ w2c + b2.float()
+
+
+def _mlp_backward(x2d, dyf, pos_proj, w1x, b1, w2, b2, xf, w1c, w2c, u, h, ghat, dl, act,
+                  leaky_slope):
+    """`_bwd_body` after dl: dl and du rounded to the compute dtype before
+    their products; dx in the compute dtype; the parameter gradients summed
+    in f32 and cast to their parameters' dtypes."""
+    cd = x2d.dtype
     dlc = dl.to(cd).float()
     du = _act_grad(act, leaky_slope)(u) * (dlc @ w2c.t())
     duc = du.to(cd).float()
@@ -179,6 +182,40 @@ def softmax_gate_backward_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se,
     return (dx, du.sum(dim=0).to(pos_proj.dtype), dw1.to(w1x.dtype),
             du.sum(dim=(0, 1)).to(b1.dtype), dw2.to(w2.dtype),
             dl.sum(dim=(0, 1)).to(b2.dtype))
+
+
+def softmax_gate_backward_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, c, *,
+                                    act, leaky_slope, hw_scale, gate_max):
+    """(dx, dpos_proj, dW1x, db1, dW2, db2), mirroring `_bwd_body`'s softmax
+    branch step by step."""
+    xf, w1c, w2c, u, h, l = _recompute(x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope)
+    dyf = dy2d.float()
+    g = torch.exp(l - m) / se * hw_scale
+    # c was summed from the masked dg, so only the local dg needs the mask
+    dl = g * (_gate_mask(g, gate_max) * _dgate(xf, dyf, l.shape[-1])) - (g / hw_scale) * c
+    return _mlp_backward(x2d, dyf, pos_proj, w1x, b1, w2, b2, xf, w1c, w2c, u, h,
+                         _clamp_gate(g, gate_max), dl, act, leaky_slope)
+
+
+def sigmoid_gate_reference(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope,
+                           gate_max) -> torch.Tensor:
+    """`_sigmoid_kernel`: y = x * min(2 sigmoid(l), gate_max) in x's dtype."""
+    return locate_attention_core_reference(x2d, pos_proj, w1x, b1, w2, b2, mode="sigmoid",
+                                           act=act, leaky_slope=leaky_slope, hw_scale=1.0,
+                                           gate_max=gate_max)
+
+
+def sigmoid_gate_backward_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, *, act,
+                                    leaky_slope, gate_max):
+    """(dx, dpos_proj, dW1x, db1, dW2, db2), mirroring `_bwd_body`'s sigmoid
+    branch step by step: p = sigmoid(l), g = 2p, dl = 2p(1 - p) * mask * dg."""
+    xf, w1c, w2c, u, h, l = _recompute(x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope)
+    dyf = dy2d.float()
+    p = torch.sigmoid(l)
+    g = 2.0 * p
+    dl = 2.0 * p * (1.0 - p) * (_gate_mask(g, gate_max) * _dgate(xf, dyf, l.shape[-1]))
+    return _mlp_backward(x2d, dyf, pos_proj, w1x, b1, w2, b2, xf, w1c, w2c, u, h,
+                         _clamp_gate(g, gate_max), dl, act, leaky_slope)
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +241,10 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_csum.restype = i
         lib.locate_softmax_bwd.argtypes = [i] + [p] * 15 + [i] * 8 + [f, f, f, p]
         lib.locate_softmax_bwd.restype = i
+        lib.locate_sigmoid_gate.argtypes = [i] + [p] * 7 + [i] * 7 + [f, f, p]
+        lib.locate_sigmoid_gate.restype = i
+        lib.locate_sigmoid_bwd.argtypes = [i] + [p] * 12 + [i] * 8 + [f, f, p]
+        lib.locate_sigmoid_bwd.restype = i
         lib.locate_softmax_smem_bytes.argtypes = [i] * 4
         lib.locate_softmax_smem_bytes.restype = ctypes.c_size_t
         lib.locate_softmax_bwd_smem_bytes.argtypes = [i] * 4
@@ -340,15 +381,17 @@ def _grad_operand(x2d, dy2d):
 
 
 def _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act):
+    """The backward kernels' operands: x, dy, the gate's, and the softmax
+    statistics m and se (None for the sigmoid gate, which has none)."""
     if act not in BWD_ACTS:
         raise ValueError(f"no backward kernel for activation {act!r} "
                          f"(kernels: {BWD_ACTS})")
     ops = _kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act)
     n, _, _ = x2d.shape
     cout = w2.shape[1]
-    return (ops[0], _grad_operand(x2d, dy2d), *ops[1:],
-            _stats_operand("m", m, n, cout, x2d.device),
-            _stats_operand("se", se, n, cout, x2d.device))
+    stats = () if m is None else (_stats_operand("m", m, n, cout, x2d.device),
+                                  _stats_operand("se", se, n, cout, x2d.device))
+    return (ops[0], _grad_operand(x2d, dy2d), *ops[1:], *stats)
 
 
 def softmax_gate_csum(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
@@ -400,22 +443,14 @@ def bwd_grid(n: int, hw: int, c: int) -> Tuple[int, int]:
     return t, -(-n // nb)
 
 
-def softmax_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, *, act,
-                          leaky_slope, hw_scale, gate_max):
-    """(dx, dpos_proj, dW1x, db1, dW2, db2), backward pass B, each cast to
-    its input's dtype. CUDA tensors: the backward kernel and two
-    fixed-order reductions of its per-block partials (replaces
-    `_bwd_kernel_softmax`); CPU tensors: the plain version."""
-    if x2d.device.type == "cpu":
-        return softmax_gate_backward_reference(
-            x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act=act,
-            leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x2d.device}")
-    ops = _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act)
+def _launch_backward(fn: str, ops, x2d, w1x, w2, act, floats):
+    """Run the backward kernel `fn` of the C interface on its operands
+    `ops` (x, dy, the gate's, and the softmax's statistics and c) and
+    reduce its per-block partials: (dx, dpos_proj, dW1x, db1, dW2, db2) in
+    f32 but dx, which is in x's dtype. `floats` follow the activation code
+    in the kernel's arguments."""
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
-    csum = _stats_operand("c", csum, n, cout, x2d.device)
     lib = _library()
     t, rows = bwd_grid(n, hw, c)
     smem = lib.locate_softmax_bwd_smem_bytes(c, hd, cout, t)
@@ -432,20 +467,102 @@ def softmax_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, *, 
         dw = torch.empty(sum(sizes), **f32)
         dpp = torch.empty((hw, hd), **f32)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        err = lib.locate_softmax_bwd(
-            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
-            csum.data_ptr(), dx.data_ptr(), part_w.data_ptr(), part_pp.data_ptr(),
-            dw.data_ptr(), dpp.data_ptr(), n, hw, c, hd, cout, t, rows,
-            ACT_CODES[act], float(leaky_slope), float(hw_scale), float(gate_max),
-            stream)
-    _check(lib, err, "softmax backward")
-    softmax_gate_backward.launches += 1
+        err = getattr(lib, fn)(
+            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops), dx.data_ptr(),
+            part_w.data_ptr(), part_pp.data_ptr(), dw.data_ptr(), dpp.data_ptr(), n, hw, c,
+            hd, cout, t, rows, ACT_CODES[act], *floats, stream)
+    _check(lib, err, fn)
     dw1, dw2, db1, db2 = dw.split(sizes)
-    return (dx, dpp.to(pos_proj.dtype), dw1.view(c, hd).to(w1x.dtype), db1.to(b1.dtype),
-            dw2.view(hd, cout).to(w2.dtype), db2.to(b2.dtype))
+    return dx, dpp, dw1.view(c, hd), db1, dw2.view(hd, cout), db2
+
+
+def _cast_grads(grads, pos_proj, w1x, b1, w2, b2):
+    dx, dpp, dw1, db1, dw2, db2 = grads
+    return (dx, dpp.to(pos_proj.dtype), dw1.to(w1x.dtype), db1.to(b1.dtype),
+            dw2.to(w2.dtype), db2.to(b2.dtype))
+
+
+def softmax_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, *, act,
+                          leaky_slope, hw_scale, gate_max):
+    """(dx, dpos_proj, dW1x, db1, dW2, db2), backward pass B, each cast to
+    its input's dtype. CUDA tensors: the backward kernel and two
+    fixed-order reductions of its per-block partials (replaces
+    `_bwd_kernel_softmax`); CPU tensors: the plain version."""
+    if x2d.device.type == "cpu":
+        return softmax_gate_backward_reference(
+            x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act=act,
+            leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x2d.device}")
+    ops = _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act)
+    csum = _stats_operand("c", csum, x2d.shape[0], w2.shape[1], x2d.device)
+    grads = _launch_backward("locate_softmax_bwd", (*ops, csum), x2d, w1x, w2, act,
+                             (float(leaky_slope), float(hw_scale), float(gate_max)))
+    softmax_gate_backward.launches += 1
+    return _cast_grads(grads, pos_proj, w1x, b1, w2, b2)
 
 
 softmax_gate_backward.launches = 0
+
+
+def sigmoid_gate(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, gate_max):
+    """y (N, HW, C) in x's dtype, y = x * min(2 sigmoid(l), gate_max). CUDA
+    tensors: the one-pass `sigmoid_gate` kernel (replaces
+    `_sigmoid_kernel`); CPU tensors: the plain version."""
+    if x2d.device.type == "cpu":
+        return sigmoid_gate_reference(x2d, pos_proj, w1x, b1, w2, b2, act=act,
+                                      leaky_slope=leaky_slope, gate_max=gate_max)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x2d.device}")
+    ops = _kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act)
+    n, hw, c = x2d.shape
+    hd, cout = w1x.shape[1], w2.shape[1]
+    lib = _library()
+    t = _tile_for(lib, c, hd, cout)
+    with torch.cuda.device(x2d.device):
+        y = torch.empty_like(ops[0])
+        stream = torch.cuda.current_stream(x2d.device).cuda_stream
+        err = lib.locate_sigmoid_gate(
+            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops), y.data_ptr(),
+            n, hw, c, hd, cout, t, ACT_CODES[act], float(leaky_slope), float(gate_max),
+            stream)
+    _check(lib, err, "sigmoid gate")
+    sigmoid_gate.launches += 1
+    return y
+
+
+sigmoid_gate.launches = 0
+
+
+def sigmoid_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope,
+                          gate_max):
+    """(dx, dpos_proj, dW1x, db1, dW2, db2) of the sigmoid gate in one pass,
+    each cast to its input's dtype. CUDA tensors: the `sigmoid_bwd` kernel
+    and two fixed-order reductions of its per-block partials (replaces
+    `_bwd_kernel_sigmoid`); CPU tensors: the plain version."""
+    if x2d.device.type == "cpu":
+        return sigmoid_gate_backward_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, act=act,
+                                               leaky_slope=leaky_slope, gate_max=gate_max)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x2d.device}")
+    ops = _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, None, None, act)
+    grads = _launch_backward("locate_sigmoid_bwd", ops, x2d, w1x, w2, act,
+                             (float(leaky_slope), float(gate_max)))
+    sigmoid_gate_backward.launches += 1
+    return _cast_grads(grads, pos_proj, w1x, b1, w2, b2)
+
+
+sigmoid_gate_backward.launches = 0
+
+
+def _vjp_of_plain(mode, x2d, pos_proj, w1x, b1, w2, b2, dy, opts):
+    """The vjp of `locate_attention_core_reference`: the backward of the
+    activations without a backward kernel, as `jax.vjp` of the XLA
+    composition is in JAX."""
+    inputs = [t.detach().requires_grad_(True) for t in (x2d, pos_proj, w1x, b1, w2, b2)]
+    with torch.enable_grad():
+        y = locate_attention_core_reference(*inputs, mode=mode, **opts)
+        return torch.autograd.grad(y, inputs, dy)
 
 
 class SoftmaxGate(torch.autograd.Function):
@@ -479,12 +596,33 @@ class SoftmaxGate(torch.autograd.Function):
             grads = softmax_gate_backward(x2d, dy, pos_proj, w1x, b1, w2, b2, m, se,
                                           c, **opts)
         else:
-            inputs = [t.detach().requires_grad_(True)
-                      for t in (x2d, pos_proj, w1x, b1, w2, b2)]
-            with torch.enable_grad():
-                y = locate_attention_core_reference(*inputs, mode="softmax", **opts)
-                grads = torch.autograd.grad(y, inputs, dy)
+            grads = _vjp_of_plain("softmax", x2d, pos_proj, w1x, b1, w2, b2, dy, opts)
         return (*grads, None, None, None, None)
+
+
+class SigmoidGate(torch.autograd.Function):
+    """y = x * min(2 sigmoid(l), gate_max), first-order only: the
+    counterpart of `_make_fused_core`'s custom_vjp for mode="sigmoid".
+    Forward: the one-pass gate, saving (x, pos_proj, w1x, b1, w2, b2).
+    Backward: the one-pass backward kernel for leaky_relu and relu; for
+    the other activations the vjp of the plain composition."""
+
+    @staticmethod
+    def forward(ctx, x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope, gate_max):
+        ctx.save_for_backward(x2d, pos_proj, w1x, b1, w2, b2)
+        ctx.options = dict(act=act, leaky_slope=leaky_slope, gate_max=gate_max)
+        return sigmoid_gate(x2d, pos_proj, w1x, b1, w2, b2, **ctx.options)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        opts = ctx.options
+        if opts["act"] in BWD_ACTS:
+            grads = sigmoid_gate_backward(saved[0], dy, *saved[1:], **opts)
+        else:
+            grads = _vjp_of_plain("sigmoid", *saved, dy, dict(opts, hw_scale=1.0))
+        return (*grads, None, None, None)
 
 
 def fused_locate_attention(
@@ -501,20 +639,16 @@ def fused_locate_attention(
     gate_max: float = 0.0,
 ) -> torch.Tensor:
     """Residual-form location attention of an NHWC tensor through
-    `SoftmaxGate`: the four kernels for CUDA tensors, their plain versions
-    for CPU ones. Differentiable to first order only."""
+    `SoftmaxGate` or `SigmoidGate`: the kernels for CUDA tensors, their
+    plain versions for CPU ones. Differentiable to first order only."""
     n, h, w, c = x.shape
-    hw = float(h * w)
     x2d = x.reshape(n, h * w, c)
-    if mode != "softmax":
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                f"mode={mode!r}: the sigmoid gate's kernel (_sigmoid_kernel) is "
-                "not ported yet (ROADMAP.md, Queue 2)")
-        y = locate_attention_core_reference(
-            x2d, pos_proj, w1x, b1, w2, b2, mode=mode, act=act,
-            leaky_slope=leaky_slope, hw_scale=hw, gate_max=gate_max)
-        return y.reshape(x.shape)
-    y = SoftmaxGate.apply(x2d, pos_proj, w1x, b1, w2, b2, act, float(leaky_slope),
-                          hw, float(gate_max))
+    if mode == "sigmoid":
+        y = SigmoidGate.apply(x2d, pos_proj, w1x, b1, w2, b2, act, float(leaky_slope),
+                              float(gate_max))
+    elif mode == "softmax":
+        y = SoftmaxGate.apply(x2d, pos_proj, w1x, b1, w2, b2, act, float(leaky_slope),
+                              float(h * w), float(gate_max))
+    else:
+        raise ValueError(f"unknown attention mode {mode!r}")
     return y.reshape(x.shape)

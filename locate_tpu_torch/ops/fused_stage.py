@@ -12,13 +12,15 @@ conv block with its GroupNorm folded into a per-(n, c) affine (a, b):
 optionally behind a nearest-2x upsample of x (`upsample`: x is the coarse
 tensor; the expanded tensor never exists) or in front of a 2x2 average pool
 (`downsample`: pooled in f32 before the write), and optionally followed by
-the softmax location-attention gate of `ops/fused_attention.py` on w.
+the softmax or sigmoid location-attention gate of `ops/fused_attention.py`
+on w.
 
-Four wrappers launch the kernels of `csrc/fused_stage.cu` for CUDA tensors
+Five wrappers launch the kernels of `csrc/fused_stage.cu` for CUDA tensors
 and run their plain versions for CPU tensors; nothing falls back from one
 to the other, and each counts its launches in `launches`:
 
     stage_conv                 replaces `_kernel_conv_only`
+    stage_sigmoid              replaces `_kernel_sigmoid`
     stage_softmax_stats        replaces `_kernel_softmax_stats`
     stage_softmax_apply_pool   replaces `_kernel_softmax_apply_pool`
     stage_conv_bwd             replaces `_kernel_conv_bwd`
@@ -26,13 +28,13 @@ to the other, and each counts its launches in `launches`:
 Each plain version repeats its kernel's own rounding order, which in bf16
 differs from `stage_oracle`'s (the exact layer composition, where the
 activation runs after the cast): a kernel is held to its plain version.
-`FusedStage` chains them as `_make_stage_core` does: forward, then a
-first-order backward that recomputes w, runs the gate's backward kernels
-on it and then the conv-block backward, with the act' and GroupNorm
-backward as a plain epilogue. Other activations, and `oracle_bwd=True`,
-take the vjp of `stage_oracle`. The sigmoid gate's fused kernel
-(`_kernel_sigmoid`) is not ported: a CUDA tensor raises, a CPU tensor runs
-the plain version.
+`FusedStage` chains them as `_make_stage_core` does: forward (the sigmoid
+gate in one pass, the softmax gate's stats pass then its apply pass), then
+a first-order backward that recomputes w, runs the gate's backward kernels
+on it (softmax: stats, csum, backward; sigmoid: its one-pass backward) and
+then the conv-block backward, with the act' and GroupNorm backward as a
+plain epilogue. Other activations, and `oracle_bwd=True`, take the vjp of
+`stage_oracle`.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from locate_tpu_torch.ops.cuda import build
 SQRT_HALF = 0.7071067811865476
 
 # kinds of csrc/fused_stage.cu's shared-memory layouts
-_CONV, _STATS, _APPLY_POOL, _BWD = 0, 1, 2, 3
+_CONV, _STATS, _APPLY_POOL, _BWD, _SIGMOID = 0, 1, 2, 3, 4
 
 # tile candidates (rows, cols) in order of preference: the largest whose
 # shared memory lets two blocks share an SM, else the largest that fits
@@ -199,6 +201,20 @@ def stage_conv_reference(x, a, b, wr, wc, bc, ws, *, act, leaky_slope,
     return down2x(y) if downsample else y
 
 
+def stage_sigmoid_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act,
+                            leaky_slope, gate_max, upsample=False, downsample=False):
+    """`_kernel_sigmoid`: the sigmoid gate on the conv block's w, the gated
+    values cast to the compute dtype, then (under `downsample`) pooled in
+    f32 and cast again, as the kernel pools its cd-cast values."""
+    w_pre = _conv_block(x, a, b, wr, wc, bc, ws, act=act, leaky_slope=leaky_slope,
+                        upsample=upsample)
+    n, h, w, co = w_pre.shape
+    y = fa.sigmoid_gate_reference(w_pre.reshape(n, h * w, co), pp, w1x, b1, w2, b2, act=act,
+                                  leaky_slope=leaky_slope, gate_max=gate_max)
+    y = y.reshape(w_pre.shape)
+    return down2x(y) if downsample else y
+
+
 def stage_softmax_stats_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act,
                                   leaky_slope, upsample=False):
     """`_kernel_softmax_stats`: (w_pre (N, H, W, Co), m, se (N, 1, Cout))."""
@@ -292,6 +308,8 @@ def _library() -> ctypes.CDLL:
         lib.locate_stage_smem_bytes.restype = ctypes.c_size_t
         lib.locate_stage_conv.argtypes = [i] + [p] * 8 + [i] * 8 + [f, i, i, p]
         lib.locate_stage_conv.restype = i
+        lib.locate_stage_sigmoid.argtypes = [i] + [p] * 13 + [i] * 10 + [f, f, i, i, p]
+        lib.locate_stage_sigmoid.restype = i
         lib.locate_stage_softmax_stats.argtypes = [i] + [p] * 17 + [i] * 10 + [f, i, p]
         lib.locate_stage_softmax_stats.restype = i
         lib.locate_stage_softmax_apply_pool.argtypes = [i] + [p] * 9 + [i] * 9 + [f] * 3 + [p]
@@ -420,6 +438,40 @@ def stage_conv(x, a, b, wr, wc, bc, ws, *, act, leaky_slope, upsample=False,
 
 
 stage_conv.launches = 0
+
+
+def stage_sigmoid(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, leaky_slope,
+                  gate_max, upsample=False, downsample=False):
+    """The conv block's output with the sigmoid gate applied, (N, H, W, Co),
+    (N, H/2, W/2, Co) under `downsample`, in x's dtype; pp is at the fine
+    resolution. CUDA tensors: the one-pass `stage_sigmoid` kernel (replaces
+    `_kernel_sigmoid`); CPU tensors: the plain version."""
+    if upsample and downsample:
+        raise ValueError("upsample and downsample are mutually exclusive")
+    if not _on_card(x):
+        return stage_sigmoid_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act=act,
+                                       leaky_slope=leaky_slope, gate_max=gate_max,
+                                       upsample=upsample, downsample=downsample)
+    if act not in fa.ACT_CODES:
+        raise ValueError(f"unsupported activation for the fused stage: {act!r}")
+    ops, (n, h, w, c, co) = _conv_operands(x, a, b, wr, wc, bc, ws, upsample)
+    gate, (hd, cout) = _gate_operands(x, pp, w1x, b1, w2, b2, co, h * w)
+    lib = _library()
+    th, tw = pick_tile(_SIGMOID, h, w, c, co, hd, cout, lib=lib)
+    oh, ow = (h // 2, w // 2) if downsample else (h, w)
+    with torch.cuda.device(x.device):
+        out = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.locate_stage_sigmoid(
+            int(x.dtype == torch.bfloat16), *(_ptr(o) for o in ops + gate), out.data_ptr(),
+            n, h, w, c, co, hd, cout, th, tw, fa.ACT_CODES[act], float(leaky_slope),
+            float(gate_max), int(upsample), int(downsample), stream)
+    _check(lib, err, "stage sigmoid")
+    stage_sigmoid.launches += 1
+    return out
+
+
+stage_sigmoid.launches = 0
 
 
 def _gate_operands(x, pp, w1x, b1, w2, b2, co, hw):
@@ -610,17 +662,6 @@ def kernel_weights(w_row, w_col, w_skip, dtype):
     return wr, wc, ws
 
 
-def _sigmoid_gated(o: StageOptions, w_pre, gate):
-    """The sigmoid gate on w_pre (N, H, W, Co), pooled under `downsample`:
-    the plain version of `_kernel_sigmoid`'s gate, for CPU tensors."""
-    n, h, w, co = w_pre.shape
-    y = fa.locate_attention_core_reference(
-        w_pre.reshape(n, h * w, co), *gate, mode="sigmoid", act=o.act,
-        leaky_slope=o.leaky_slope, hw_scale=float(h * w), gate_max=o.gate_max)
-    y = y.reshape(w_pre.shape)
-    return down2x(y) if o.downsample else y
-
-
 def _forward(o: StageOptions, x, gn_scale, gn_bias, w_row, w_col, b_col, w_skip, gate):
     kw = dict(act=o.act, leaky_slope=o.leaky_slope)
     a, b = fold_groupnorm(x, gn_scale, gn_bias, o.groups, o.eps)
@@ -628,9 +669,9 @@ def _forward(o: StageOptions, x, gn_scale, gn_bias, w_row, w_col, b_col, w_skip,
     if o.mode is None:
         return stage_conv(x, a, b, wr, wc, b_col, ws, upsample=o.upsample,
                           downsample=o.downsample, **kw)
-    if o.mode != "softmax":
-        w_pre = stage_conv(x, a, b, wr, wc, b_col, ws, upsample=o.upsample, **kw)
-        return _sigmoid_gated(o, w_pre, gate)
+    if o.mode == "sigmoid":
+        return stage_sigmoid(x, a, b, wr, wc, b_col, ws, *gate, gate_max=o.gate_max,
+                             upsample=o.upsample, downsample=o.downsample, **kw)
     w_pre, m, se = stage_softmax_stats(x, a, b, wr, wc, b_col, ws, *gate,
                                        upsample=o.upsample, **kw)
     opts = dict(hw_scale=float(o.h * o.w), gate_max=o.gate_max, **kw)
@@ -655,16 +696,14 @@ def _backward(o: StageOptions, gy, x, gn_scale, gn_bias, w_row, w_col, b_col, w_
         w_pre = stage_conv(x, a, b, wr, wc, b_col, ws, upsample=o.upsample, **kw)
         n, h, w, co = w_pre.shape
         w2d, gy2 = w_pre.reshape(n, h * w, co), gy.reshape(n, h * w, co)
-        opts = dict(hw_scale=float(h * w), gate_max=o.gate_max, **kw)
         if o.mode == "softmax":
+            opts = dict(hw_scale=float(h * w), gate_max=o.gate_max, **kw)
             m, se = fa.softmax_gate_stats(w2d, *gate, **kw)
             c = fa.softmax_gate_csum(w2d, gy2, *gate, m, se, **opts)
             dw2d, *gate_grads = fa.softmax_gate_backward(w2d, gy2, *gate, m, se, c, **opts)
-        else:  # sigmoid, on the CPU only (fused_stage raises on the card)
-            leaves = [t.detach().requires_grad_(True) for t in (w2d, *gate)]
-            with torch.enable_grad():
-                y = fa.locate_attention_core_reference(*leaves, mode=o.mode, **opts)
-                dw2d, *gate_grads = torch.autograd.grad(y, leaves, gy2)
+        else:
+            dw2d, *gate_grads = fa.sigmoid_gate_backward(w2d, gy2, *gate, gate_max=o.gate_max,
+                                                         **kw)
         dw = dw2d.reshape(w_pre.shape)
     du, dxs, dwr, dwc, dbc, dws = stage_conv_bwd(x, dw, a, b, wr, wc, ws,
                                                  upsample=o.upsample, **kw)
@@ -751,10 +790,6 @@ def fused_stage(
         raise ValueError("upsample and downsample are mutually exclusive")
     if mode not in (None, "softmax", "sigmoid"):
         raise ValueError(f"unknown gate mode {mode!r}")
-    if mode == "sigmoid" and _on_card(x):
-        raise NotImplementedError(
-            "mode='sigmoid': the fused stage's sigmoid kernel (_kernel_sigmoid) is not "
-            "ported yet (ROADMAP.md, Queue 2)")
     n, h, w, c = x.shape
     if upsample:
         h, w = 2 * h, 2 * w

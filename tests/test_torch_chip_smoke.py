@@ -1,7 +1,7 @@
 """What of chip_smoke.py runs without a card: its ptxas parser on every
 kernel of csrc/fused_attention.cu and csrc/fused_stage.cu (and on a kernel
-it does not know), its bounds and launch counts, and its refusal to report
-anything when there is no card."""
+it does not know), its bounds and launch counts, the softmax and the
+sigmoid gate's, and its refusal to report anything when there is no card."""
 
 import importlib.util
 import os
@@ -116,6 +116,75 @@ def test_ffhq_launches_per_step_add_up(smoke):
                         "stage_conv": 4, "stage_conv_bwd": 4}
     assert smoke.FFHQ_GATE_PER_STEP["softmax_csum"] == 4 * 8  # 4 backward calls x 8 stages
     assert set(smoke.FFHQ_SERVE_PER_FORWARD) == set(smoke.KERNELS) | set(smoke.STAGE_KERNELS)
+
+
+SIGMOID_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__436c6669_18_fused_attention_cu_10596a5e12sigmoid_gateI13__nv_bfloat16EEvPKT_PKfS4_S6_S4_S6_PS2_iiiiiiff' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__436c6669_18_fused_attention_cu_10596a5e11sigmoid_bwdIfEEvPKT_S3_PKfS3_S5_S3_S5_PS1_PfS7_iiiiiiiiff' for 'sm_90a'
+    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__35eedcd4_14_fused_stage_cu_ac477c5713stage_sigmoidI13__nv_bfloat16EEvPKT_PKfS6_S4_S4_S6_S4_S6_S4_S6_S4_S6_PS2_iiiiiiiiiffii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, used 1 barriers
+"""
+
+
+def test_ptxas_parser_names_the_sigmoid_kernels(smoke):
+    """The sigmoid gate's two kernels and the stage's sigmoid pass, each
+    under its own name (none of the three holds another kernel's name)."""
+    kernels = smoke.parse_ptxas(SIGMOID_PTXAS_LOG)
+    assert set(kernels) == {"sigmoid_gate<bf16>", "sigmoid_bwd<f32>", "stage_sigmoid<bf16>"}
+    assert kernels["sigmoid_bwd<f32>"]["spill_stores"] == 8
+    assert kernels["stage_sigmoid<bf16>"]["registers"] == 122
+    assert {"sigmoid_gate", "sigmoid_bwd"} <= set(smoke.CUDA_KERNELS)
+    assert "stage_sigmoid" in smoke.STAGE_CUDA_KERNELS
+
+
+def test_bounds_of_the_sigmoid_kernels(smoke):
+    """ffhq_512, batch 16, bf16. The stage's sigmoid pass at 512^2, C = Co
+    = 64: in its plain form it reads x and writes y (1.074 GB) and reads
+    the f32 pos_proj (16.8 MB), 0.3255 ms by bytes; in G's `up` and D's
+    `down` forms its 53,248 flops a pixel over 4,194,304 pixels take 0.2258
+    ms, more than their 671 MB of traffic (0.200 ms). The gate's backward at
+    the stage's 262,144 locations reads x and dy and writes dx (1.61 GB),
+    and reads pos_proj and writes dpos_proj: 0.4908 ms. At the gate's
+    shapes up to 16^2 every bound is at most 2 microseconds."""
+    bf16 = torch.bfloat16
+    t, by = smoke.stage_bound("stage_sigmoid", 16, 64, 64, bf16, "plain")
+    assert by == "bytes" and 0.3255 < t < 0.3256
+    assert smoke.stage_bound("stage_conv", 16, 64, 64, bf16, "plain")[0] < t  # no pos_proj
+    for form in ("up", "down"):
+        t, by = smoke.stage_bound("stage_sigmoid", 16, 64, 64, bf16, form)
+        assert by == "operations" and 0.2258 < t < 0.2259
+    t, by = smoke.bound("sigmoid_bwd", 16, 262144, 64, 16, 64, bf16)
+    assert by == "bytes" and 0.490 < t < 0.491
+    for hw, c, hd in smoke.SIGMOID_SHAPES:
+        for kind in ("sigmoid_gate", "sigmoid_bwd"):
+            assert smoke.bound(kind, 16, hw, c, hd, c, bf16)[0] < 2e-3
+
+
+def test_sigmoid_launches_per_step_add_up(smoke):
+    """One ffhq_512-sigmoid train step: G forwards three times (the fake,
+    the G step, its remat recompute) and D six (real, fake, the G step,
+    each recomputed); the gate's one-pass kernel runs at the stages up to
+    16^2 (three in G, three in D), the stage's sigmoid pass at 512^2; each
+    of the four backward passes (G once, D three times) runs the gate's
+    backward at its three small stages and in the fused stage's backward,
+    with the conv recompute and the conv backward. One served forward:
+    G's three gates and its 512^2 stage."""
+    assert smoke.SIGMOID_PER_STEP == {"sigmoid_gate": 27, "sigmoid_bwd": 16,
+                                      "stage_sigmoid": 9, "stage_conv": 4, "stage_conv_bwd": 4}
+    assert sum(smoke.SIGMOID_FWD_PER_STEP.values()) == 9 * 3
+    assert sum(smoke.SIGMOID_BWD_PER_STEP.values()) == 4 * 4
+    assert smoke.SIGMOID_SERVE_PER_FORWARD == {"sigmoid_gate": 3, "stage_sigmoid": 1}
+    assert len(smoke.SIGMOID_SHAPES) == 5
+    assert smoke.SIGMOID_GATE_MAX < 2.0  # the clamp binds below the gate's ceiling
+    per_step = {k: sum(v.values()) for k, v in smoke.SIGMOID_STAGE_PER_STEP.items()}
+    assert all(smoke.SIGMOID_PER_STEP[k] == v for k, v in per_step.items())
+    assert set(smoke.REPLACES) == set(smoke.KERNELS) | set(smoke.STAGE_KERNELS) | {
+        "sigmoid_gate", "sigmoid_bwd", "stage_sigmoid"}
 
 
 def test_fails_without_a_card():

@@ -137,7 +137,6 @@ def test_sample_cli_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("override,message", [
     (dict(arch="style"), "style"),
     (dict(g_rgb="skip"), "skip"),
-    (dict(use_pallas=True, attention=tconfig.AttentionConfig(mode="sigmoid")), "sigmoid"),
     (dict(attention=tconfig.AttentionConfig(kind="self")), "self"),
 ])
 def test_unported_paths_raise(override, message):

@@ -456,11 +456,181 @@ def test_fused_stage_function_on_the_card(cuda, up, dn):
         assert err <= F32_TOL, (name, err)
 
 
+# ---------------------------------------------------------------------------
+# the sigmoid gate's kernels (sigmoid_gate, sigmoid_bwd, stage_sigmoid)
+# ---------------------------------------------------------------------------
+
+SIGMOID_NAMES = ("dx", "dpos_proj", "dW1x", "db1", "dW2", "db2")
+
+
+def sigmoid_inputs(n, hw, c, hd, cout, dtype, device, seed=0):
+    """Gate weights whose logits spread over a few units, so that gate_max
+    1.5 clamps a part of the locations."""
+    ops = make_inputs(n, hw, c, hd, cout, dtype, device, seed=seed)
+    ops[4] = ops[4] / 3.0
+    return ops
+
+
+def run_sigmoid(ops, dy, act, gate_max, kernel):
+    """(y, dx, dpos_proj, dW1x, db1, dW2, db2): the forward and the
+    backward, kernels or plain versions."""
+    kw = dict(act=act, leaky_slope=0.2, gate_max=gate_max)
+    if kernel:
+        fwd, bwd = fa.sigmoid_gate, fa.sigmoid_gate_backward
+    else:
+        fwd, bwd = fa.sigmoid_gate_reference, fa.sigmoid_gate_backward_reference
+    with torch.no_grad():
+        out = (fwd(*ops, **kw), *bwd(ops[0], dy, *ops[1:], **kw))
+        torch.cuda.synchronize()
+    return out
+
+
+def check_sigmoid(ops, dy, act, gate_max):
+    kern = run_sigmoid(ops, dy, act, gate_max, kernel=True)
+    plain = run_sigmoid(ops, dy, act, gate_max, kernel=False)
+    names = ("y",) + SIGMOID_NAMES
+    if ops[0].dtype == torch.float32:
+        for name, k, p in zip(names, kern, plain):
+            assert rel_err(k, p) <= F32_TOL, (name, rel_err(k, p))
+        return kern
+    truth = run_sigmoid([ops[0].float()] + ops[1:], dy.float(), act, gate_max, kernel=False)
+    for name, k, p, t in zip(names, kern, plain, truth):
+        ek, ep = rel_err(k, t), rel_err(p, t)
+        assert ek <= max(BF16_FACTOR * ep, 1e-6), (name, ek, ep)
+    return kern
+
+
 @pytest.mark.gpu
-def test_sigmoid_fused_stage_raises_on_the_card(cuda):
-    ops = stage_inputs(1, 8, 16, 16, torch.float32, cuda)
-    w = (torch.zeros(16, 16, 1, 3, device=cuda), torch.zeros(16, 16, 3, 1, device=cuda),
-         torch.zeros(16, device=cuda))
-    with pytest.raises(NotImplementedError, match="_kernel_sigmoid"):
-        fs.fused_stage(ops[0], torch.ones(16, device=cuda), torch.zeros(16, device=cuda), *w,
-                       None, groups=4, mode="sigmoid", w1x=torch.zeros(16, 8, device=cuda))
+@pytest.mark.parametrize("hw,c,hd", [(16, 512, 128), (64, 256, 64), (256, 128, 32),
+                                     (4096, 64, 16)])
+def test_sigmoid_kernels_at_ffhq_512_shapes_bf16(cuda, hw, c, hd):
+    """The three standalone-gate shapes of ffhq_512 (its stages up to 16^2)
+    and the 512^2 stage's backward shape (Hd 16), cut to 4096 locations."""
+    ops = sigmoid_inputs(4, hw, c, hd, c, torch.bfloat16, cuda)
+    check_sigmoid(ops, make_dy(4, hw, c, torch.bfloat16, cuda), "leaky_relu", 1.5)
+    l = fa.gate_logits_reference(ops[0].float(), *ops[1:], act="leaky_relu", leaky_slope=0.2)
+    share = float((2 * torch.sigmoid(l) > 1.5).float().mean())
+    assert 0.05 < share < 0.95, share
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["leaky_relu", "relu"])
+@pytest.mark.parametrize("gate_max", [0.0, 1.5])
+@pytest.mark.parametrize("per_channel", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sigmoid_kernel_options(cuda, act, gate_max, per_channel, dtype):
+    hw, c, hd = 200, 48, 12  # a ragged last tile, C and Hd off the main path
+    ops = sigmoid_inputs(3, hw, c, hd, c if per_channel else 1, dtype, cuda, seed=2)
+    check_sigmoid(ops, make_dy(3, hw, c, dtype, cuda), act, gate_max)
+
+
+@pytest.mark.gpu
+def test_sigmoid_backward_is_bitwise_repeatable(cuda):
+    ops = sigmoid_inputs(16, 1024, 64, 16, 64, torch.bfloat16, cuda, seed=3)
+    dy = make_dy(16, 1024, 64, torch.bfloat16, cuda)
+    first = run_sigmoid(ops, dy, "leaky_relu", 1.5, kernel=True)
+    second = run_sigmoid(ops, dy, "leaky_relu", 1.5, kernel=True)
+    for name, a, b in zip(("y",) + SIGMOID_NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_sigmoid_function_on_the_card(cuda):
+    """Gradients of fused_locate_attention(mode="sigmoid") (the kernels)
+    against autograd of the plain composition, f32, and its launches."""
+    ops = sigmoid_inputs(2, 256, 32, 8, 32, torch.float32, cuda, seed=7)
+    ops[0] = ops[0].reshape(2, 16, 16, 32)
+    dy = make_dy(2, 256, 32, torch.float32, cuda).reshape(2, 16, 16, 32)
+    counters = (fa.sigmoid_gate, fa.sigmoid_gate_backward, fa.softmax_gate_stats)
+    before = [f.launches for f in counters]
+    inputs = [t.clone().requires_grad_(True) for t in ops]
+    y = fa.fused_locate_attention(*inputs, mode="sigmoid", gate_max=1.5)
+    got = torch.autograd.grad(y, inputs, dy)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 0]
+    ref = [t.clone().requires_grad_(True) for t in ops]
+    y_ref = fa.locate_attention_core_reference(
+        ref[0].reshape(2, 256, 32), *ref[1:], mode="sigmoid", act="leaky_relu",
+        leaky_slope=0.2, hw_scale=1.0, gate_max=1.5)
+    want = torch.autograd.grad(y_ref, ref, dy.reshape(2, 256, 32))
+    assert rel_err(y.detach().reshape(y_ref.shape), y_ref.detach()) <= F32_TOL
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert rel_err(g.reshape(w.shape), w) <= F32_TOL, i
+
+
+def sigmoid_stage(ops, gate, up, dn, plain, gate_max=1.5):
+    fn = fs.stage_sigmoid_reference if plain else fs.stage_sigmoid
+    with torch.no_grad():
+        return fn(*ops, *gate, upsample=up, downsample=dn, gate_max=gate_max, **STAGE_KW)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,co,up,dn", STAGE_VARIANTS)
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_stage_sigmoid_kernel(cuda, c, co, up, dn, dtype, per_channel):
+    n, hin = 2, (8 if up else 16)
+    ops = stage_inputs(n, hin, c, co, dtype, cuda, seed=9)
+    h = 2 * hin if up else hin
+    gate = stage_gate(h * h, co, dtype, cuda, seed=10)
+    gate[3] = gate[3] / 3.0  # logits over a few units: gate_max 1.5 clamps a part
+    if not per_channel:
+        gate[3], gate[4] = gate[3][:, :1].contiguous(), gate[4][:1].contiguous()
+    kern = sigmoid_stage(ops, gate, up, dn, plain=False)
+    plain = sigmoid_stage(ops, gate, up, dn, plain=True)
+    truth = None if dtype == torch.float32 else sigmoid_stage(as_f32(ops), as_f32(gate), up,
+                                                              dn, plain=True)
+    hold("stage_sigmoid", kern, plain, truth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("up", [True, False])
+def test_stage_sigmoid_at_ffhq_512_shapes(cuda, up):
+    """G's 512^2 stage (`up`, coarse 256^2 x 64 in) and D's (`down`), batch
+    2, bf16, gate_max 1.5 and the preset's 16."""
+    n = 2
+    ops = stage_inputs(n, 256 if up else 512, 64, 64, torch.bfloat16, cuda, seed=11)
+    gate = stage_gate(512 * 512, 64, torch.bfloat16, cuda, seed=12)
+    for gate_max in (1.5, 16.0):
+        hold("stage_sigmoid", sigmoid_stage(ops, gate, up, not up, False, gate_max),
+             sigmoid_stage(ops, gate, up, not up, True, gate_max),
+             sigmoid_stage(as_f32(ops), as_f32(gate), up, not up, True, gate_max))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("up,dn", [(True, False), (False, True)])
+def test_sigmoid_fused_stage_function_on_the_card(cuda, up, dn):
+    """Gradients of `fused_stage(mode="sigmoid")` on the card against
+    autograd of `stage_oracle`, f32, and the launches of one forward and
+    one backward: the stage's one pass, then the conv recompute, the
+    gate's one-pass backward and the conv backward."""
+    n, c, co, h = 2, 16, 32, 16
+    ops = stage_inputs(n, h // 2 if up else h, c, co, torch.float32, cuda, seed=13)
+    gate = stage_gate(h * h, co, torch.float32, cuda, seed=14)
+    gate[3] = gate[3] / 3.0
+    g = torch.Generator(device="cpu").manual_seed(15)
+    leaves = dict(x=ops[0], gn_scale=1 + torch.randn(c, generator=g).to(cuda) * 0.1,
+                  gn_bias=torch.randn(c, generator=g).to(cuda) * 0.1,
+                  w_row=ops[3].permute(2, 1, 0)[:, :, None, :].contiguous(),
+                  w_col=ops[4].permute(2, 1, 0)[:, :, :, None].contiguous(), b_col=ops[5],
+                  w_skip=ops[6].t()[:, :, None, None].contiguous(),
+                  pos_proj=gate[0], w1x=gate[1], b1=gate[2], w2=gate[3], b2=gate[4])
+    kw = dict(groups=4, mode="sigmoid", gate_max=1.5, upsample=up, downsample=dn, **STAGE_KW)
+    side = h // 2 if dn else h
+    dy = torch.randn(n, side, side, co, generator=g).to(cuda)
+    counters = (fs.stage_sigmoid, fs.stage_conv, fs.stage_conv_bwd, fa.sigmoid_gate_backward,
+                fs.stage_softmax_stats, fa.softmax_gate_backward)
+    before = [f.launches for f in counters]
+    inputs = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+    y = fs.fused_stage(inputs["x"], *(inputs[k] for k in fs._NAMES[1:7]),
+                       **{k: inputs[k] for k in fs._NAMES[7:]}, **kw)
+    got = torch.autograd.grad(y, list(inputs.values()), dy)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 1, 0, 0]
+    ref = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+    y_ref = fs.stage_oracle(ref, h=h, w=h, groups=4, eps=1e-5, act="leaky_relu",
+                            leaky_slope=0.2, mode="sigmoid", gate_max=1.5, upsample=up,
+                            downsample=dn)
+    want = torch.autograd.grad(y_ref, list(ref.values()), dy)
+    assert float((y - y_ref).detach().norm() / y_ref.detach().norm()) <= F32_TOL
+    for name, gk, gw in zip(leaves, got, want):
+        err = float((gk - gw).norm() / gw.norm().clamp_min(1e-12))
+        assert err <= F32_TOL, (name, err)
