@@ -10,13 +10,18 @@ alternating train step, the main path of the softmax gate's kernels; then
 ffhq_512 at full width and depth, serving and its train step with lazy R1,
 the main path of the fused-stage kernels; then ffhq_512 with
 model.attention.mode=sigmoid, serving and training alike, the main path of
-the sigmoid gate's three kernels. Phases, one line each:
+the sigmoid gate's three kernels; then lsun_bedroom_128 with
+model.attention.kind=self, serving with all six self-attention layers and
+training with five, the main path of the three flash kernels. Phases, one
+line each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
-  2. build: csrc/fused_attention.cu and csrc/fused_stage.cu, one nvcc each,
-     started together, with `-Xptxas -v`: each kernel's registers, shared
-     memory and spills, and the dynamic shared memory of the gate's blocks
-     at every (C, Hd) of the path and of the stage's at 512^2 x 64;
+  2. build: csrc/fused_attention.cu, csrc/fused_stage.cu and
+     csrc/flash_attention.cu, one nvcc each, started together, with
+     `-Xptxas -v`: each kernel's registers, shared memory and spills, and
+     the dynamic shared memory of the gate's blocks at every (C, Hd) of the
+     path, of the stage's at 512^2 x 64 and of the flash kernels' at every
+     (T, dh, dv) with the q tile picked there;
   3. the gate's forward kernels (stats, apply) against the plain version at
      the nine G and D gate shapes of lsun_bedroom_128, batch 64, bf16, with
      gate weights that make the gate vary and pass the clamp at 16, plus one
@@ -109,8 +114,33 @@ the sigmoid gate's three kernels. Phases, one line each:
  21. one sigmoid attention layer at ffhq_512's shapes from 32^2 to 256^2
      (C 64), forward and forward plus backward through the kernels and the
      plain composition: the input to a retune of the 256-location threshold;
- 22. one JSON line `{"kernels": [...]}` for the eleven kernels;
- 23. the card's name and power limit again, then the last line
+ 22. the three flash kernels (flash_fwd, flash_dq, flash_dkv) against their
+     plain versions at the nine (T, dh, dv) of lsun_bedroom_128's
+     self-attention layers (G's six from T = 16, dh 64, dv 256 to T = 16384,
+     dh 8, dv 32, and D's three others), batch 16, plus heads = 2 and one
+     S != T case, bf16 and f32, under the rules of 3 and 4; two runs bitwise
+     equal; each bf16 case timed beside its bound, its plain version and
+     `F.scaled_dot_product_attention` (forward, and autograd backward for the
+     two backward kernels together), which the port never calls; then the
+     training shapes at batch 64, timed only;
+ 23. lsun_bedroom_128 + attention.kind=self serving, all six layers:
+     requests of 1, 16 and 64 (6 flash_fwd launches a forward, nothing
+     else), each layer of the batch-16 request against the plain composition
+     on its own q, k, v, the three generators on the same latents,
+     `bench-sample` at batch 1, 16, 64 with peak memory, the plain path at
+     the largest batch the allocator grants (its refusal at batch 64, one
+     68.7 GB score tensor, is caught and recorded), idle share, top kernels;
+ 24. the same preset training as shipped (batch 64, R1, both guards, EMA)
+     with attention at 4^2..64^2: 3 steps from step 0 under the checks of 6,
+     launches 25 / 20 / 20 a step, sec/step, images/sec, peak memory, idle
+     share, top kernels; then the plain path alike; a refused batch is
+     halved and recorded;
+ 25. one such step's gradients with each of its 20 flash backward calls held
+     against the plain backward on its own saved tensors (bf16), and at
+     64^2 in f32 the whole gradients against the plain path (the tolerance
+     of 6), each call within 1e-4;
+ 26. one JSON line `{"kernels": [...]}` for the fourteen kernels;
+ 27. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -172,7 +202,10 @@ REPLACES = {"softmax_stats": "locate_tpu/ops/pallas/fused_attention.py:152",
             "stage_conv_bwd": "locate_tpu/ops/pallas/fused_stage.py:451",
             "sigmoid_gate": "locate_tpu/ops/pallas/fused_attention.py:145",
             "sigmoid_bwd": "locate_tpu/ops/pallas/fused_attention.py:387",
-            "stage_sigmoid": "locate_tpu/ops/pallas/fused_stage.py:378"}
+            "stage_sigmoid": "locate_tpu/ops/pallas/fused_stage.py:378",
+            "flash_fwd": "locate_tpu/ops/pallas/flash_attention.py:86",
+            "flash_dq": "locate_tpu/ops/pallas/flash_attention.py:178",
+            "flash_dkv": "locate_tpu/ops/pallas/flash_attention.py:202"}
 # the CUDA kernels of csrc/fused_attention.cu and csrc/fused_stage.cu, as
 # ptxas and the profiler name them (a name before any name it contains)
 CUDA_KERNELS = ("softmax_stats_partial", "softmax_stats_merge", "softmax_apply",
@@ -183,7 +216,9 @@ STAGE_KERNELS = ("stage_conv", "stage_softmax_stats", "stage_softmax_apply_pool"
                  "stage_conv_bwd")
 STAGE_CUDA_KERNELS = ("stage_conv_bwd", "stage_softmax_apply_pool", "stage_softmax_stats",
                       "stage_conv", "stage_sigmoid", "softmax_stats_merge", "reduce_partials")
-ALL_CUDA_KERNELS = STAGE_CUDA_KERNELS + CUDA_KERNELS
+FLASH_SOURCE = "locate_tpu_torch/csrc/flash_attention.cu"
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+ALL_CUDA_KERNELS = STAGE_CUDA_KERNELS + CUDA_KERNELS + FLASH_KERNELS
 
 # ffhq_512 (config.py:792-808): batch 16 per card (the preset's global 256
 # over a v5p-32's 16 chips); the gate's new shapes (HW, C, Hd) at 256^2 and
@@ -236,6 +271,36 @@ SIGMOID_PER_STEP = {"sigmoid_gate": sum(SIGMOID_FWD_PER_STEP.values()),
                     **{k: sum(v.values()) for k, v in SIGMOID_STAGE_PER_STEP.items()}}
 SIGMOID_SERVE_PER_FORWARD = {"sigmoid_gate": sum(SIGMOID_SERVE.values()), "stage_sigmoid": 1}
 
+# lsun_bedroom_128 with model.attention.kind=self (heads 1, dk = C/8,
+# dv = C/2): serving runs all six layers (T up to 16384); training drops the
+# 128^2 layer, because R1 runs through the kernel-free twin of D, whose
+# plain attention holds (T, T) f32 matrices, 1.07 GB a tensor an image at
+# 128^2. (T, dh, dv) of G's layer at each resolution, and of D's (whose
+# layer runs at its stage's output width).
+SELF = {"model.attention.kind": "self"}
+SELF_TRAIN_STAGES = "4,8,16,32,64"
+FLASH_BATCH = 16
+FLASH_G_SHAPES = {4: (16, 64, 256), 8: (64, 32, 128), 16: (256, 16, 64), 32: (1024, 8, 32),
+                  64: (4096, 8, 32), 128: (16384, 8, 32)}
+FLASH_D_SHAPES = {128: (16384, 8, 32), 64: (4096, 8, 32), 32: (1024, 16, 64),
+                  16: (256, 32, 128), 8: (64, 64, 256), 4: (16, 64, 256)}
+FLASH_SHAPES = list(FLASH_G_SHAPES.values()) + [s for s in FLASH_D_SHAPES.values()
+                                                if s not in FLASH_G_SHAPES.values()]
+FLASH_TRAIN_RES = (4, 8, 16, 32, 64)
+# launches per train step of each (T, dh, dv): forward G twice (the fake,
+# the G step) and D three times (real, fake, the G step); backward G once
+# and D three times, each one dQ and one dK/dV pass; no remat, and R1's
+# twin launches nothing
+FLASH_FWD_PER_STEP, FLASH_BWD_PER_STEP = {}, {}
+for _res in FLASH_TRAIN_RES:
+    for _shape, _fwd, _bwd in ((FLASH_G_SHAPES[_res], 2, 1), (FLASH_D_SHAPES[_res], 3, 3)):
+        FLASH_FWD_PER_STEP[_shape] = FLASH_FWD_PER_STEP.get(_shape, 0) + _fwd
+        FLASH_BWD_PER_STEP[_shape] = FLASH_BWD_PER_STEP.get(_shape, 0) + _bwd
+FLASH_PER_STEP = {"flash_fwd": sum(FLASH_FWD_PER_STEP.values()),
+                  "flash_dq": sum(FLASH_BWD_PER_STEP.values()),
+                  "flash_dkv": sum(FLASH_BWD_PER_STEP.values())}
+FLASH_NAMES = ("o", "ell", "dq", "dk", "dv")
+
 
 class SmokeFailure(Exception):
     pass
@@ -265,13 +330,15 @@ def nvidia_smi() -> str:
 
 def kernel_name(mangled: str) -> str:
     """The readable name of a compiled kernel: its ALL_CUDA_KERNELS name
-    with <bf16> or <f32> for the templates, else the mangled name itself."""
+    with <bf16> or <f32> for the templates (and a second, integer argument
+    where there is one, as the flash kernels' rows per thread), else the
+    mangled name itself."""
     base = next((k for k in ALL_CUDA_KERNELS if k in mangled), mangled)
-    if "nv_bfloat16" in mangled:
-        return base + "<bf16>"
-    if "IfE" in mangled:
-        return base + "<f32>"
-    return base
+    m = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+))?E", mangled)
+    if not m:
+        return base
+    dtype = "f32" if m.group(1) == "f" else "bf16"
+    return f"{base}<{dtype}{',' + m.group(2) if m.group(2) else ''}>"
 
 
 def parse_ptxas(log: str) -> dict:
@@ -660,6 +727,18 @@ def phase_sigmoid_gate(fa):
     return rows
 
 
+def fill_gammas(model, value: float = 0.5) -> int:
+    """Set every self-attention block's zero-init `gamma`, so that the
+    block attends and its gradients are not all zero; returns how many."""
+    n = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("gamma"):
+                p.fill_(value)
+                n += 1
+    return n
+
+
 def randomize_logit_convs(model, seed: int, scale: float) -> None:
     """Fill the zero-init logit convs (and all biases) so every gate
     varies: a zero logit conv makes the gate exactly 1, and a wrong gate
@@ -705,7 +784,8 @@ def check_attention_layers(fa, captured):
 
 
 def counters():
-    """{kernel: its wrapper} for the eleven kernels of the two libraries."""
+    """{kernel: its wrapper} for the fourteen kernels of the three libraries."""
+    from locate_tpu_torch.ops import flash_attention as fl
     from locate_tpu_torch.ops import fused_attention as fa
     from locate_tpu_torch.ops import fused_stage as fs
 
@@ -713,7 +793,8 @@ def counters():
             "softmax_csum": fa.softmax_gate_csum, "softmax_bwd": fa.softmax_gate_backward,
             **{k: getattr(fs, k) for k in STAGE_KERNELS},
             "sigmoid_gate": fa.sigmoid_gate, "sigmoid_bwd": fa.sigmoid_gate_backward,
-            "stage_sigmoid": fs.stage_sigmoid}
+            "stage_sigmoid": fs.stage_sigmoid,
+            **{k: getattr(fl, k) for k in FLASH_KERNELS}}
 
 
 def expected(launches: dict, times: int = 1) -> dict:
@@ -888,7 +969,8 @@ def fixed_batch(n, res=128, device="cuda"):
 
 
 def trainer(cfg, seed=0):
-    """A seeded GAN with non-zero logit convs, its fresh state and step."""
+    """A seeded GAN with non-zero logit convs (and self-attention gammas),
+    its fresh state and step."""
     from locate_tpu_torch.models.gan import build_gan
     from locate_tpu_torch.train.state import create_train_state
     from locate_tpu_torch.train.step import make_train_step
@@ -896,6 +978,7 @@ def trainer(cfg, seed=0):
     gan = build_gan(cfg, "cuda", seed=seed)
     for net in (gan.generator, gan.discriminator):
         randomize_logit_convs(net, seed=seed + 1, scale=0.25)
+        fill_gammas(net)
     return gan, create_train_state(cfg, gan, seed=seed + 2), make_train_step(cfg, gan)
 
 
@@ -1734,6 +1817,588 @@ def phase_sigmoid_threshold():
         rows=rows)
 
 
+# ---------------------------------------------------------------------------
+# lsun_bedroom_128 with attention.kind=self: the flash kernels' path
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(b, t, s, dh, dv, dtype, seed):
+    """(q, k, v, do): k and v of unit variance, q of variance 4, so the
+    scaled scores have a standard deviation of 2 and no softmax row is flat."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g) * scale).to(dtype)
+
+    return r(b, t, dh, scale=2.0), r(b, s, dh), r(b, s, dv), r(b, t, dv)
+
+
+def batch_chunk(t, s):
+    """Batch rows a plain version takes at once: its (T, S) f32 matrices,
+    half a dozen of them in the backward, stay at 2 GB each."""
+    return max(1, 2 ** 29 // (t * s))
+
+
+def chunked(fn, tensors, chunk):
+    """`fn` over `chunk` batch rows of `tensors` at a time, its outputs
+    joined again (every batch row of an attention call is independent)."""
+    b = tensors[0].shape[0]
+    if chunk >= b:
+        out = fn(*tensors)
+        return out if isinstance(out, tuple) else (out,)
+    parts = []
+    for i in range(0, b, chunk):
+        out = fn(*(x[i:i + chunk] for x in tensors))
+        parts.append(out if isinstance(out, tuple) else (out,))
+    return tuple(torch.cat(col) for col in zip(*parts))
+
+
+def run_flash(fl, q, k, v, do, scale, plain: bool):
+    """(o, ell, dq, dk, dv) through the three kernels, or through their
+    plain versions a few batch rows at a time."""
+    if not plain:
+        o, ell = fl.flash_fwd(q, k, v, scale)
+        delta = fl.row_delta(o, do)
+        return (o, ell, fl.flash_dq(q, k, v, do, ell, delta, scale),
+                *fl.flash_dkv(q, k, v, do, ell, delta, scale))
+
+    def one(q, k, v, do):
+        o, ell = fl.flash_forward_reference(q, k, v, scale)
+        return (o, ell, *fl.flash_backward_reference(q, k, v, o, ell, do, scale))
+
+    return chunked(one, (q, k, v, do), batch_chunk(q.shape[1], k.shape[1]))
+
+
+def flash_scales(fl, q, k, v, do, scale):
+    """(None, None, dq, dk, dv): the backward outputs computed on the
+    absolute values of their terms (f32), the scale each sum's rounding
+    error grows with."""
+    def one(q, k, v, do):
+        q, k, v, do = (x.float() for x in (q, k, v, do))
+        o, ell = fl.flash_forward_reference(q, k, v, scale)
+        p = torch.exp(fl._scores(q, k, scale) - ell.unsqueeze(-1))
+        ds = p * (torch.matmul(do.abs(), v.abs().transpose(1, 2))
+                  + (do.abs() * o.abs()).sum(-1, keepdim=True))
+        return (torch.matmul(ds, k.abs()) * scale,
+                torch.matmul(ds.transpose(1, 2), q.abs()) * scale,
+                torch.matmul(p.transpose(1, 2), do.abs()))
+
+    return (None, None, *chunked(one, (q, k, v, do), batch_chunk(q.shape[1], k.shape[1])))
+
+
+def flash_bound(kernel, b, t, s, dh, dv, dtype):
+    """(bound_ms, bound_by): the bytes the kernel must move (q, k, v and,
+    for the backward passes, dO, ell and delta read once; its outputs
+    written once) over the memory rate, and its products' flops, 2 B T S
+    times (dh + dv) forward, (2 dh + dv) for dQ, (2 dh + 2 dv) for dK/dV,
+    over the peak rate of the operand type."""
+    es = torch.finfo(dtype).bits // 8
+    qkv = b * (t * dh + s * dh + s * dv)
+    if kernel == "flash_fwd":
+        nbytes, width = es * (qkv + b * t * dv) + 4 * b * t, dh + dv
+    elif kernel == "flash_dq":
+        nbytes, width = es * (qkv + b * t * dv + b * t * dh) + 8 * b * t, 2 * dh + dv
+    else:
+        nbytes = es * (qkv + b * t * dv + b * s * (dh + dv)) + 8 * b * t
+        width = 2 * dh + 2 * dv
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * b * t * s * width / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_times(fl, q, k, v, do, scale):
+    """{kernel: ms, plain_ms, bound_ms, bound_by, library_ms} of the three
+    kernels on these operands. The kernels and the library call are timed
+    as CUDA graphs of back-to-back launches; the plain versions, which run
+    a few batch rows at a time, by events. The library yardstick is
+    `F.scaled_dot_product_attention`: its forward for flash_fwd, its
+    autograd backward (dQ, dK and dV in one) for flash_dq and flash_dkv
+    together. Where the allocator refuses the library call, its time is
+    None and the refusal is recorded."""
+    import torch.nn.functional as F
+
+    b, t, dh = q.shape
+    s, dv = v.shape[1], v.shape[2]
+    big = t * s >= 4096 * 4096
+    reps = (3, 2) if big else (10, 5)
+    chunk = batch_chunk(t, s)
+    with torch.no_grad():
+        o, ell = fl.flash_fwd(q, k, v, scale)
+        delta = fl.row_delta(o, do)
+        ms = {"flash_fwd": graph_ms(lambda: fl.flash_fwd(q, k, v, scale), *reps),
+              "flash_dq": graph_ms(lambda: fl.flash_dq(q, k, v, do, ell, delta, scale), *reps),
+              "flash_dkv": graph_ms(lambda: fl.flash_dkv(q, k, v, do, ell, delta, scale), *reps)}
+        plain = {
+            "flash_fwd": event_ms(lambda: chunked(
+                lambda q, k, v: fl.flash_forward_reference(q, k, v, scale), (q, k, v), chunk),
+                2 if big else 5),
+            "flash_dq": event_ms(lambda: chunked(
+                lambda *a: fl.flash_dq_reference(*a, scale), (q, k, v, do, ell, delta), chunk),
+                2 if big else 5),
+            "flash_dkv": event_ms(lambda: chunked(
+                lambda *a: fl.flash_dkv_reference(*a, scale), (q, k, v, do, ell, delta), chunk),
+                2 if big else 5)}
+    library, refusal = {"flash_fwd": None, "flash_bwd": None}, None
+    try:
+        with torch.no_grad():
+            library["flash_fwd"] = graph_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), *reps)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        library["flash_bwd"] = event_ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), 3 if big else 10)
+        del leaves, out
+    except torch.cuda.OutOfMemoryError as e:
+        refusal = str(e).split(". GPU")[0]
+    release_memory()
+    rows = {}
+    for kernel in FLASH_KERNELS:
+        b_ms, b_by = flash_bound(kernel, b, t, s, dh, dv, q.dtype)
+        rows[kernel] = dict(ms=ms[kernel], plain_ms=plain[kernel], bound_ms=b_ms, bound_by=b_by,
+                            share_of_bound=b_ms / ms[kernel],
+                            library_ms=library["flash_fwd" if kernel == "flash_fwd"
+                                               else "flash_bwd"])
+    rows["flash_dq"]["library_covers"] = rows["flash_dkv"]["library_covers"] = (
+        "flash_dq and flash_dkv together (one autograd backward, timed by events)")
+    if refusal:
+        rows["library_refused"] = refusal
+    return rows
+
+
+def check_flash(fl, q, k, v, do, scale, shape, row):
+    """Hold the three kernels to their plain versions on these operands by
+    the rules of phases 3-4, two runs bitwise equal; fills `row`."""
+    dtype = q.dtype
+    with torch.no_grad():
+        kern = run_flash(fl, q, k, v, do, scale, plain=False)
+        again = run_flash(fl, q, k, v, do, scale, plain=False)
+        plain = run_flash(fl, q, k, v, do, scale, plain=True)
+        truth = plain
+        if dtype != torch.float32:
+            truth = run_flash(fl, *(x.float() for x in (q, k, v, do)), scale, plain=True)
+        scales = flash_scales(fl, q, k, v, do, scale)
+        torch.cuda.synchronize()
+    for name, a, b in zip(FLASH_NAMES, kern, again):
+        check(torch.equal(a, b), f"{name} at {shape}: two runs differ bitwise")
+    row["bitwise_repeatable"] = True
+    for name, kk, pp, tt, sc in zip(FLASH_NAMES, kern, plain, truth, scales):
+        check(kk.shape == pp.shape and kk.dtype == pp.dtype, f"{name} at {shape}: {kk.shape}")
+        hold(name, shape, kk, pp, tt, dtype, row, scale=sc)
+
+
+def softmax_peak(fl, q, k, scale):
+    """Mean over the first image's rows of S times the largest probability:
+    1 for a flat softmax."""
+    with torch.no_grad():
+        s = fl._scores(q[:1].float(), k[:1].float(), scale)
+        return float((torch.softmax(s, dim=-1).amax(dim=-1) * k.shape[1]).mean())
+
+
+def phase_flash_kernels(fl):
+    """Phase 22: the three flash kernels against their plain versions at the
+    nine (T, dh, dv) of lsun_bedroom_128's self-attention layers (G's six,
+    D's three others), batch 16, plus heads = 2 at 32^2 (batch 32, dh 8,
+    dv 16) and one S != T case, in bf16 and f32, with a random dO, under
+    the rules of phases 3 and 4 (backward outputs against the norm of the
+    sum of their absolute terms); two runs bitwise equal; each bf16 case
+    timed beside its bound, its plain version and the library call. Then
+    the training shapes again at the train batch (64), timed only: the
+    per-step numbers of the kernels line."""
+    cases = [(FLASH_BATCH, t, t, dh, dv, "layer") for t, dh, dv in FLASH_SHAPES]
+    cases += [(2 * FLASH_BATCH, 1024, 1024, 8, 16, "heads=2"),
+              (FLASH_BATCH, 1024, 4096, 8, 32, "S != T")]
+    rows = []
+    for i, (b, t, s, dh, dv, what) in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = flash_inputs(b, t, s, dh, dv, dtype, seed=700 + i)
+            scale = dh ** -0.5
+            shape = dict(B=b, T=t, S=s, dh=dh, dv=dv)
+            row = dict(shape=shape, case=what, dtype=str(dtype).replace("torch.", ""),
+                       softmax_peak=softmax_peak(fl, q, k, scale))
+            check(row["softmax_peak"] > 2.0, f"flat softmax at {shape}")
+            check_flash(fl, q, k, v, do, scale, shape, row)
+            if dtype == torch.bfloat16:
+                row.update(flash_times(fl, q, k, v, do, scale))
+            say("flash-kernels-vs-plain", **row)
+            rows.append(row)
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    train_rows = []
+    for i, shape3 in enumerate(FLASH_FWD_PER_STEP):
+        t, dh, dv = shape3
+        q, k, v, do = flash_inputs(BATCH, t, t, dh, dv, torch.bfloat16, seed=750 + i)
+        row = dict(shape=dict(B=BATCH, T=t, S=t, dh=dh, dv=dv), dtype="bfloat16",
+                   launches_per_step=dict(flash_fwd=FLASH_FWD_PER_STEP[shape3],
+                                          flash_dq=FLASH_BWD_PER_STEP[shape3],
+                                          flash_dkv=FLASH_BWD_PER_STEP[shape3]),
+                   **flash_times(fl, q, k, v, do, dh ** -0.5))
+        say("flash-kernels-train-batch", **row)
+        train_rows.append(row)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return rows, train_rows
+
+
+def self_config(**overrides):
+    from locate_tpu_torch.config import get_config
+
+    return get_config("lsun_bedroom_128", {"use_pallas": "true", **SELF, **overrides})
+
+
+def check_self_attention_layers(fl, captured):
+    """Each self-attention layer of a served request, held against the
+    plain composition on the very q, k, v it computed (the bf16 rule)."""
+    out = []
+    for layer, (q, k, v), o in captured:
+        with torch.inference_mode():
+            chunk = batch_chunk(q.shape[1], k.shape[1])
+            (plain,) = chunked(lambda *a: fl.attention_reference(*a, scale=layer.scale),
+                               (q, k, v), chunk)
+            (truth,) = chunked(lambda *a: fl.attention_reference(
+                *(x.float() for x in a), scale=layer.scale), (q, k, v), chunk)
+        ek, ep = rel_err(o, truth), rel_err(plain, truth)
+        row = dict(B=q.shape[0], T=q.shape[1], dh=q.shape[2], dv=v.shape[2],
+                   rel_err_kernel_vs_f32=ek, rel_err_plain_vs_f32=ep,
+                   softmax_peak=softmax_peak(fl, q, k, layer.scale))
+        check(ek <= max(BF16_FACTOR * ep, BF16_FLOOR),
+              f"self-attention layer at T={q.shape[1]}: kernel error {ek:.3e} > "
+              f"{BF16_FACTOR} x plain error {ep:.3e}")
+        check(row["softmax_peak"] > 1.5, f"self-attention layer at T={q.shape[1]}: flat softmax")
+        out.append(row)
+    return out
+
+
+def phase_self_serving(fl):
+    """Phase 23: serving lsun_bedroom_128 with attention.kind=self, all six
+    layers (T up to 16384). Requests of batch 1, 16 and 64 through
+    `generate_samples`: 6 flash_fwd launches a forward and no other kernel;
+    each layer of the batch-16 request held against the plain composition
+    on the q, k, v it computed; the kernel path, the plain path and an f32
+    plain generator on the same 4 latents; `bench-sample` at batch 1, 16 and
+    64 on the kernel path with peak memory, and on the plain path at batch
+    16 (halved while the allocator refuses it) and at batch 64, where one
+    f32 score tensor alone is 68.7 GB: that refusal is caught and recorded;
+    the idle share and top kernels of a batch-16 request."""
+    from locate_tpu_torch.io.sampling import generate_samples
+    from locate_tpu_torch.models.gan import model_config
+    from locate_tpu_torch.models.generator import build_generator
+    from locate_tpu_torch.ops.self_attention import SelfAttention
+
+    cfg = self_config()
+    mcfg = model_config(cfg)
+    check(mcfg.attention.kind == "self" and mcfg.attention_stages == "all"
+          and mcfg.use_pallas and mcfg.attention.heads == 1, "not the self-attention preset")
+    model = build_generator(mcfg, "bfloat16", "cuda", seed=0).eval()
+    randomize_logit_convs(model, seed=1, scale=0.25)
+    stages = len(mcfg.stage_resolutions())
+    check(fill_gammas(model) == stages, "a stage has no self-attention layer")
+    captured = []
+    original = SelfAttention.attend
+
+    def attend(layer, q, k, v):
+        o = original(layer, q, k, v)
+        if q.shape[0] == FLASH_BATCH:
+            captured.append((layer, (q, k, v), o))
+        return o
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    requests = (1, FLASH_BATCH, BATCH)
+    SelfAttention.attend = attend
+    try:
+        reset_counters()
+        images = [generate_samples(model, gen, b) for b in requests]
+        launches = read_counters()
+    finally:
+        SelfAttention.attend = original
+    check(launches == expected({"flash_fwd": stages * len(requests)}),
+          f"serving launched {launches} for {len(requests)} forwards of {stages} layers")
+    for b, img in zip(requests, images):
+        check(img.shape == (b, 128, 128, 3) and str(img.dtype) == "uint8",
+              f"request of {b}: images {img.shape} {img.dtype}")
+        check(float(img.std()) > 0.0, f"request of {b}: constant images")
+    check([tuple(c[1][0].shape[1:]) + (c[1][2].shape[2],) for c in captured]
+          == list(FLASH_G_SHAPES.values()), "the layers' (T, dh, dv) are not FLASH_G_SHAPES")
+    layers = check_self_attention_layers(fl, captured)
+    del captured, images
+
+    plain = build_generator(dataclasses.replace(mcfg, use_pallas=False), "bfloat16", "cuda").eval()
+    truth = build_generator(dataclasses.replace(mcfg, use_pallas=False), "float32", "cuda").eval()
+    plain.load_state_dict(model.state_dict())
+    truth.load_state_dict(model.state_dict())
+    gz = torch.Generator(device="cuda")
+    gz.manual_seed(3)
+    z = torch.randn(4, mcfg.latent_dim, device="cuda", generator=gz)
+    with torch.inference_mode():
+        yk, yp, yt = (m(z).float() for m in (model, plain, truth))
+    torch.cuda.synchronize()
+    for name, y in (("kernel", yk), ("plain", yp), ("f32", yt)):
+        check(bool(torch.isfinite(y).all()), f"self-attention {name} generator: non-finite")
+        check(float(y.abs().max()) <= 1.0, f"self-attention {name} generator: outside [-1, 1]")
+    ek, ep = rel_err(yk, yt), rel_err(yp, yt)
+    check(ek <= max(BF16_FACTOR * ep, 1e-6),
+          f"self-attention generator: kernel path error {ek:.3e} > {BF16_FACTOR} x plain {ep:.3e}")
+    idle, top = profile_calls(lambda: generate_samples(model, gen, FLASH_BATCH), top=8)
+    del model, plain, truth
+    torch.cuda.empty_cache()
+
+    def bench_sample(use_pallas, batch, steps):
+        torch.cuda.reset_peak_memory_stats()
+        out = run_cli(["bench-sample", "lsun_bedroom_128", "model.attention.kind=self",
+                       f"use_pallas={str(use_pallas).lower()}", f"--batch={batch}",
+                       f"--steps={steps}"])
+        torch.cuda.empty_cache()
+        return dict(out, batch=batch, peak_memory_bytes=torch.cuda.max_memory_allocated())
+
+    kernel_path = [bench_sample(True, b, steps) for b, steps in ((1, 10), (FLASH_BATCH, 5),
+                                                                 (BATCH, 3))]
+    plain_path, refusals = None, []
+    for b in (BATCH, FLASH_BATCH, FLASH_BATCH // 2, FLASH_BATCH // 4):
+        # the one place a refusal of the allocator is expected: the plain
+        # path's (T, T) f32 scores at 128^2
+        release_memory()
+        try:
+            plain_path = bench_sample(False, b, 3)
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            refusals.append(dict(batch=b, refused=str(e).split(". GPU")[0]))
+    release_memory()
+    check(plain_path is not None, f"the plain path served no batch: {refusals}")
+    say("self-serving", config="lsun_bedroom_128, attention.kind=self, all six layers",
+        requests=list(requests), launches=launches, attention_layers_batch_16=layers,
+        rel_err_kernel_path_vs_f32=ek, rel_err_plain_path_vs_f32=ep,
+        max_abs_err_kernel_vs_plain_path=float((yk - yp).abs().max()), image_std=float(yt.std()),
+        kernel_path=kernel_path, plain_path=plain_path, plain_path_refused=refusals,
+        device_idle_share_batch16=("not measured" if idle is None else idle),
+        top_kernels_batch16=top)
+    return launches
+
+
+def release_memory():
+    """Drop what a refused call left behind (its frames hold tensors until
+    the exception is gone) and hand the cached blocks back."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def self_train_attempt(cfg, batch_size, steps=3):
+    """`steps` preset steps from step 0 at `batch_size`, checked: (times,
+    memory, metrics and profile; the launches; the GAN's weights). The
+    allocator's refusal is the caller's to catch."""
+    tcfg = cfg.train
+    gan, state, step = trainer(cfg)
+    batch = fixed_batch(batch_size)
+    before = [t.clone() for t in (state.g_params.flat, state.d_params.flat, state.ema_params)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    state, history, seconds = timed_steps(step, state, batch, steps)
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    history = check_history(history, tcfg)
+    moved = check_moved(before, state, history, tcfg)
+    idle, top = profile_calls(lambda: step(state, batch), calls=2, top=12)
+    out = dict(batch=batch_size, seconds_per_step=seconds,
+               images_per_sec_after_step0=batch_size * (steps - 1) / sum(seconds[1:]),
+               peak_memory_bytes=peak, metrics=history, max_param_change=moved,
+               device_idle_share="not measured" if idle is None else idle,
+               top_kernels_2_steps=top,
+               params=dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel()))
+    weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
+    return out, launches, weights
+
+
+def halving(run, first):
+    """`run(batch)` at `first`, halved while the allocator refuses it:
+    (result, batch, the refusals)."""
+    refusals, batch = [], first
+    while batch >= 1:
+        release_memory()
+        try:
+            return run(batch), batch, refusals
+        except torch.cuda.OutOfMemoryError as e:
+            refusals.append(dict(batch=batch, refused=str(e).split(". GPU")[0]))
+        batch //= 2
+    raise SmokeFailure(f"no batch fits: {refusals}")
+
+
+def phase_self_train():
+    """Phase 24: the flash kernels' main path. lsun_bedroom_128 as shipped
+    (batch 64, R1 gamma 1 every 16 steps, both guards, EMA) with
+    attention.kind=self at the stages 4^2..64^2 (five layers a net), 3 steps
+    from step 0 (R1 fires, through the kernel-free twin of D): the checks of
+    phase 6, launches per step 25 / 20 / 20 of flash_fwd / flash_dq /
+    flash_dkv and no other kernel, sec/step, images/sec, peak memory, idle
+    share and top kernels; then the plain path's 3 steps alike. A batch the
+    allocator refuses is halved and the refusal recorded."""
+    cfg = self_config(**{"model.attention_stages": SELF_TRAIN_STAGES})
+    tcfg = cfg.train
+    check(tcfg.global_batch == BATCH and tcfg.compute_dtype == "bfloat16"
+          and tcfg.r1_gamma == 1.0 and tcfg.r1_interval == 16 and tcfg.r1_remat
+          and tcfg.grad_norm_limit == 1e6 and tcfg.max_nonfinite_skips == 200
+          and tcfg.ema_decay == 0.999 and not cfg.model.remat,
+          "lsun_bedroom_128 is not the shipped recipe")
+    check([r for r in cfg.model.stage_resolutions() if cfg.model.attention_at(r)]
+          == list(FLASH_TRAIN_RES), "attention stages are not 4..64")
+    steps = 3
+    (kernel, launches, weights), batch, refusals = halving(
+        lambda b: self_train_attempt(cfg, b, steps), BATCH)
+    check(launches == expected(FLASH_PER_STEP, steps),
+          f"self-attention train steps launched {launches}, want {FLASH_PER_STEP} per step")
+    torch.cuda.empty_cache()
+    pcfg = self_config(**{"model.attention_stages": SELF_TRAIN_STAGES, "use_pallas": "false"})
+    (plain, _, _), plain_batch, plain_refusals = halving(
+        lambda b: self_train_attempt(pcfg, b, steps), batch)
+    torch.cuda.empty_cache()
+    say("self-train", config="lsun_bedroom_128 as shipped, attention.kind=self at 4..64",
+        steps=steps, launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        kernel_path=kernel, kernel_path_refused=refusals,
+        plain_path=plain, plain_path_refused=plain_refusals)
+    return cfg, weights, launches, batch
+
+
+@contextlib.contextmanager
+def checked_flash_backward(fl, record):
+    """Hold every backward of `FlashAttention` run inside the block against
+    the plain backward on the very tensors that call saved: in bf16 by the
+    rule of phase 4 (against an f32 plain backward from an f32 plain
+    forward of the same q, k, v), in f32 to F32_TOL; each output against
+    the norm of the sum of its absolute terms. One row per call goes to
+    `record`."""
+    original = fl.FlashAttention.backward
+
+    def backward(ctx, do):
+        q, k, v, o, ell = ctx.saved_tensors  # unpacked once
+        scale = ctx.scale
+        with torch.no_grad():
+            grads = fl.flash_backward(q, k, v, o, ell, do, scale)
+            chunk = batch_chunk(q.shape[1], k.shape[1])
+            plain = chunked(lambda *a: fl.flash_backward_reference(*a, scale),
+                            (q, k, v, o, ell, do), chunk)
+            truth = plain
+            if q.dtype != torch.float32:
+                def f32(q, k, v, do):
+                    q, k, v, do = (x.float() for x in (q, k, v, do))
+                    return fl.flash_backward_reference(
+                        q, k, v, *fl.flash_forward_reference(q, k, v, scale), do, scale)
+
+                truth = chunked(f32, (q, k, v, do), chunk)
+            scales = flash_scales(fl, q, k, v, do, scale)[2:]
+        shape = dict(B=q.shape[0], T=q.shape[1], dh=q.shape[2], dv=v.shape[2])
+        row = dict(shape, dtype=str(q.dtype).replace("torch.", ""))
+        for name, kk, pp, tt, sc in zip(FLASH_NAMES[2:], grads, plain, truth, scales):
+            hold(name, shape, kk, pp, tt, q.dtype, row, scale=sc)
+        record.append(row)
+        return (*grads, None)
+
+    fl.FlashAttention.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fl.FlashAttention.backward = original
+
+
+def phase_self_train_grads(fl, cfg, weights, batch):
+    """Phase 25: one step's gradients (R1 firing) of the training
+    configuration on the kernel path, each of its 20 flash backward calls
+    held against the plain backward on its own saved tensors (bf16 rule);
+    then at 64^2 with all five layers, f32, batch 16: the kernel path's
+    whole gradients within TRAIN_F32_TOL of the plain path's (or ten times
+    what 1e-7 weight noise moves the plain path by, if larger), each flash
+    backward call within F32_TOL."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    z_d = torch.randn(batch, cfg.model.latent_dim, device="cuda", generator=g)
+    z_g = torch.randn(batch, cfg.model.latent_dim, device="cuda", generator=g)
+    calls = []
+    with checked_flash_backward(fl, calls):
+        reset_counters()
+        _, _, d_loss, g_loss, r1 = step_grads(cfg, weights, z_d, z_g, 128, True, "bfloat16")
+        launches = read_counters()
+    want = FLASH_PER_STEP["flash_dq"]
+    check(len(calls) == want, f"{len(calls)} flash backward calls in one step, want {want}")
+    check(launches == expected({"flash_fwd": FLASH_PER_STEP["flash_fwd"], "flash_dq": want,
+                                "flash_dkv": want}), f"one step's gradients launched {launches}")
+    check(all(math.isfinite(x) for x in (d_loss, g_loss, r1)) and r1 > 0.0,
+          f"self-attention step losses {d_loss}, {g_loss}, r1 {r1}")
+    # over the calls whose errors are above the rounding-noise floor
+    worst = {name: max([r[f"{name}_rel_err_kernel_vs_f32"] / r[f"{name}_rel_err_plain_vs_f32"]
+                        for r in calls if r[f"{name}_rel_err_plain_vs_f32"] > BF16_FLOOR],
+                       default=None)
+             for name in FLASH_NAMES[2:]}
+
+    cfg64 = self_config(**{"model.resolution": "64", "data.resolution": "64"})
+    gan, _, _ = trainer(cfg64)
+    w64 = (gan.generator.state_dict(), gan.discriminator.state_dict())
+    del gan
+    z = [t[:FLASH_BATCH] for t in (z_d, z_g)]  # the whole batch where it is smaller
+    calls64 = []
+    with checked_flash_backward(fl, calls64):
+        k64 = step_grads(cfg64, w64, *z, 64, True, "float32")
+    p64 = step_grads(cfg64, w64, *z, 64, False, "float32")
+    noisy64 = step_grads(cfg64, w64, *z, 64, False, "float32", perturb=1e-7)
+    check(len(calls64) == want, f"{len(calls64)} flash backward calls at 64^2, want {want}")
+    rows = {}
+    for i, net in enumerate(("D", "G")):
+        e, moved = rel_err(k64[i], p64[i]), rel_err(noisy64[i], p64[i])
+        limit = max(TRAIN_F32_TOL, 10.0 * moved)
+        rows[net] = dict(rel_err_kernel_vs_plain_f32_at_64=e,
+                         rel_change_f32_at_64_at_1e7_weight_noise=moved)
+        check(e <= limit, f"{net} gradient at 64^2 f32, self-attention: {e:.3e} > {limit:.3e}")
+    say("self-train-grads", batch=batch, r1_fired=True, d_loss=d_loss, g_loss=g_loss, r1=r1,
+        flash_backward_calls_checked={"bf16_128": len(calls), "f32_64": len(calls64)},
+        worst_kernel_over_plain_error_ratio_bf16=worst,
+        worst_flash_backward_rel_err_f32=max(v for r in calls64 for k, v in r.items()
+                                             if k.endswith("rel_err_kernel_vs_plain")),
+        gradients_f32_at_64=rows, losses_at_64=dict(kernel=k64[2:], plain=p64[2:]),
+        calls_bf16=calls)
+
+
+def flash_entry(kernel, rows, train_rows, launches, serve_launches):
+    """The {"kernels": [...]} entry of a flash kernel: per self-attention
+    train step at batch 64, each shape's time times its launches a step
+    (timed at batch 64 in phase 22's second half)."""
+    mult = FLASH_FWD_PER_STEP if kernel == "flash_fwd" else FLASH_BWD_PER_STEP
+    names = {"flash_fwd": ("o", "ell"), "flash_dq": ("dq",), "flash_dkv": ("dk", "dv")}[kernel]
+
+    def total(key):
+        vals = [r[kernel][key] for r in train_rows]
+        if any(v is None for v in vals):
+            return None
+        return sum(mult[(r["shape"]["T"], r["shape"]["dh"], r["shape"]["dv"])] * v
+                   for r, v in zip(train_rows, vals))
+
+    by_ops = sum(mult[(r["shape"]["T"], r["shape"]["dh"], r["shape"]["dv"])]
+                 * r[kernel]["bound_ms"] for r in train_rows
+                 if r[kernel]["bound_by"] == "operations")
+    entry = {
+        "name": kernel,
+        "route": "cuda",
+        "source": FLASH_SOURCE,
+        "replaces": REPLACES[kernel],
+        "launches": launches[kernel],  # the self-attention configuration's three train steps
+        "max_abs_err": max(r[f"{n}_max_abs_err"] for r in rows for n in names),
+        "ms": total("ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if by_ops >= total("bound_ms") / 2 else "bytes",
+        "library_ms": total("library_ms"),
+        "shapes": [dict(r["shape"], dtype=r["dtype"],
+                        **{k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")})
+                   for r in rows + train_rows if kernel in r],
+    }
+    if kernel == "flash_fwd":
+        entry["launches_serving"] = serve_launches[kernel]
+    else:
+        entry["library_covers"] = train_rows[0][kernel]["library_covers"]
+    return entry
+
+
 def sigmoid_entry(kernel, rows, launches, serve_launches):
     """The {"kernels": [...]} entry of a sigmoid gate kernel: per
     ffhq_512-sigmoid train step at batch 16, each shape's time times its
@@ -1800,16 +2465,17 @@ def per_step(rows, kind, mult, key):
                for r in rows if r["dtype"] == "bfloat16")
 
 
-def phase_build(fa, fs, build):
-    """Phase 2: both libraries, one nvcc each, started together."""
+def phase_build(fa, fs, fl, build):
+    """Phase 2: the three libraries, one nvcc each, started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    names = ("fused_attention", "fused_stage")
+    names = ("fused_attention", "fused_stage", "flash_attention")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
     reports = {name: parse_ptxas(build.ptxas_report(name)) for name in names}
-    for name, wanted in (("fused_attention", CUDA_KERNELS), ("fused_stage", STAGE_CUDA_KERNELS)):
+    for name, wanted in (("fused_attention", CUDA_KERNELS), ("fused_stage", STAGE_CUDA_KERNELS),
+                         ("flash_attention", FLASH_KERNELS)):
         for k in wanted:
             check(any(n.startswith(k) for n in reports[name]), f"ptxas reported no {k}")
     smem = {f"C={c},Hd={hd}": dict(
@@ -1824,8 +2490,17 @@ def phase_build(fa, fs, build):
         th, tw = fs.pick_tile(k, 512, 512, 64, 64, 16, 64, lib=stage_lib)
         stage_smem[kind] = dict(tile=f"{th}x{tw}", bytes=int(
             stage_lib.locate_stage_smem_bytes(k, 64, 64, 16, 64, th, tw)))
+    flash_lib = fl._library()
+    flash_smem = {}
+    for t, dh, dv in FLASH_SHAPES:
+        tiles = {k: fl.pick_tile(kind, FLASH_BATCH, t, dh, dv, flash_lib)
+                 for k, kind in zip(FLASH_KERNELS, (fl._FWD, fl._DQ, fl._DKV))}
+        flash_smem[f"T={t},dh={dh},dv={dv}"] = {
+            k: dict(q_tile=bq, bytes=int(flash_lib.locate_flash_smem_bytes(kind, dh, dv, bq)))
+            for (k, bq), kind in zip(tiles.items(), (fl._FWD, fl._DQ, fl._DKV))}
     say("build", libraries={n: os.path.relpath(str(p), REPO) for n, p in libs.items()},
         seconds=time.perf_counter() - t0, kernels=reports, dynamic_smem_bytes=smem,
+        flash_dynamic_smem_at_batch_16=flash_smem,
         stage_dynamic_smem_at_512x512x64=stage_smem,
         stage_conv_bwd_blocks=fs.bwd_blocks(FFHQ_BATCH, 512, 512, *fs.pick_tile(
             fs._BWD, 512, 512, 64, 64, lib=stage_lib)))
@@ -1871,6 +2546,7 @@ def main() -> int:
         return 2
     from locate_tpu_torch.config import get_config
     from locate_tpu_torch.nn import blocks
+    from locate_tpu_torch.ops import flash_attention as fl
     from locate_tpu_torch.ops import fused_attention as fa
     from locate_tpu_torch.ops import fused_stage as fs
     from locate_tpu_torch.ops.cuda import build
@@ -1880,7 +2556,7 @@ def main() -> int:
     smi = nvidia_smi()
     say("card", torch_name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
-    phase_build(fa, fs, build)
+    phase_build(fa, fs, fl, build)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1924,16 +2600,27 @@ def main() -> int:
                         "ffhq-sigmoid-train-grads-64")
     phase_sigmoid_threshold()
 
+    # lsun_bedroom_128 with full self-attention: the three flash kernels,
+    # serving (all six layers), training (five layers a net, their main path)
+    flash_rows, flash_train_rows = phase_flash_kernels(fl)
+    self_serve = phase_self_serving(fl)
+    self_cfg, self_weights, self_launches, self_batch = phase_self_train()
+    phase_self_train_grads(fl, self_cfg, self_weights, self_batch)
+    del self_weights
+
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches)
            for k in KERNELS]
     out += [stage_entry(k, stage_times, stage_err, ffhq_launches) for k in STAGE_KERNELS]
     out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve) for k in SIGMOID_KERNELS]
     out.append(stage_entry("stage_sigmoid", sig_stage_times, sig_stage_err, sig_launches,
                            SIGMOID_STAGE_PER_STEP["stage_sigmoid"]))
+    out += [flash_entry(k, flash_rows, flash_train_rows, self_launches, self_serve)
+            for k in FLASH_KERNELS]
     for entry in out:
         entry["launches_ffhq_512_sigmoid_train"] = sig_launches[entry["name"]]
+        entry["launches_self_attention_train"] = self_launches[entry["name"]]
         check(entry["launches"] > 0, f"{entry['name']} never launched on its main path")
-    check(len(out) == 11, f"{len(out)} kernels listed")
+    check(len(out) == 14, f"{len(out)} kernels listed")
     print(json.dumps({"kernels": out}), flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(nvidia_smi(), flush=True)

@@ -1,6 +1,6 @@
 """Command line of the PyTorch port, counterpart of `locate_tpu/cli.py`.
 
-    python -m locate_tpu_torch bench [batch] [steps] [xla] [--device=D]
+    python -m locate_tpu_torch bench [batch] [steps] [xla] [key=value ...] [--device=D]
     python -m locate_tpu_torch bench-sample lsun_bedroom_128 use_pallas=true --batch=64
     python -m locate_tpu_torch sample lsun_bedroom_128 --generator=PATH.npz --out=grid.png
 
@@ -68,12 +68,13 @@ def bench_modes(argv: List[str]) -> Tuple[int, int, List[str]]:
     return batch, steps, modes
 
 
-def bench_config(batch: int, modes: List[str]) -> Config:
+def bench_config(batch: int, modes: List[str], overrides: Optional[dict] = None) -> Config:
     """The config bench.py (:110-175) builds for `modes`: lsun_bedroom_128
     at 128^2, bf16, use_pallas unless `xla`, the reference-parity pins
     (R1, ADA, LeCam, both update guards off), one device, and for spc=N the
     cadences that steps_per_call=N requires. The port's default is one
-    step per call (bench.py's is 16)."""
+    step per call (bench.py's is 16). `overrides` (config key -> value, as
+    `model.attention.kind=self` on the command line) are applied last."""
     spc = 1
     for m in modes:
         if m.startswith("spc="):
@@ -99,6 +100,7 @@ def bench_config(batch: int, modes: List[str]) -> Config:
             "train.total_steps": str(100_000 * spc),
             "train.steps_per_call": str(spc),
         })
+    ov.update(overrides or {})
     cfg = get_config("lsun_bedroom_128", ov)
     if "e2e" in modes:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="packed"))
@@ -133,11 +135,13 @@ def step_flops(cfg: Config, device, batch: int) -> int:
 
 
 def cmd_bench(argv: List[str]) -> int:
-    """`bench [batch] [steps] [xla|fused|e2e|spc=N] [--device D]`: training
-    throughput of the lsun_bedroom_128 train step, the counterpart of
-    `locate-tpu bench` (bench.py) with one step per call: 10 warm-up steps,
-    then the best of 3 windows of `steps` steps on one fixed uint8 batch
-    (numpy seed 0). One JSON line: images/sec, flops per step, MFU."""
+    """`bench [batch] [steps] [xla|fused|e2e|spc=N] [key=value ...] [--device D]`:
+    training throughput of the lsun_bedroom_128 train step, the counterpart
+    of `locate-tpu bench` (bench.py) with one step per call: 10 warm-up
+    steps, then the best of 3 windows of `steps` steps on one fixed uint8
+    batch (numpy seed 0). `key=value` arguments override the config (for
+    example `model.attention.kind=self model.attention_stages=4,8,16,32,64`).
+    One JSON line: images/sec, flops per step, MFU."""
     import numpy as np
     import torch
 
@@ -147,8 +151,9 @@ def cmd_bench(argv: List[str]) -> int:
     from locate_tpu_torch.train.step import make_train_step
 
     flags, bare = _split_args(argv)
-    batch, steps, modes = bench_modes(bare)
-    cfg = bench_config(batch, modes)
+    pairs = [a for a in bare if "=" in a and not a.startswith("spc=")]
+    batch, steps, modes = bench_modes([a for a in bare if a not in pairs])
+    cfg = bench_config(batch, modes, parse_cli_overrides(pairs))
     if "fused" in modes:
         raise NotImplementedError(
             "bench fused: the fused simultaneous step (train.fused_step) is not "

@@ -8,7 +8,8 @@ forward is the port of `_maybe_fused_stage`. Where the config's conv block
 is fusable and a stage flavor reaches its threshold of locations, it runs
 that conv block (with the attention after it, the upsample before it or
 the pool after it) through `ops/fused_stage.py`; elsewhere it runs the
-layers one by one.
+layers one by one. A self-attention layer (`attention.kind="self"`) is
+never part of a fused pair.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from locate_tpu_torch.ops.conv import (Conv2d, DownsampleAvg, FactorizedConv2d,
                                        UpsampleNearest)
 from locate_tpu_torch.ops.fused_stage import fused_stage
 from locate_tpu_torch.ops.norm import make_norm
+from locate_tpu_torch.ops.self_attention import SelfAttention
 
 # The port's copy of the JAX package's `ops/pallas/gate_profile.json`
 # `min_locations`: a stage flavor fuses at or above its count of (fine)
@@ -173,9 +175,8 @@ class FusableStage(nn.Sequential):
 
 def _attention_layer(cfg: ModelConfig, out_ch: int, compute_dtype, gen):
     if cfg.attention.kind == "self":
-        raise NotImplementedError(
-            "attention.kind='self' (ops/self_attention.py and its flash "
-            "kernels) is not ported yet (ROADMAP.md)")
+        return SelfAttention(out_ch, cfg.attention, compute_dtype,
+                             use_pallas=cfg.use_pallas, gen=gen)
     return LocateAttention(out_ch, cfg.attention, cfg.act, cfg.leaky_slope,
                            compute_dtype, use_pallas=cfg.use_pallas, gen=gen)
 

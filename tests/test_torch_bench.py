@@ -58,6 +58,17 @@ def test_unported_bench_modes_raise(modes, message):
         cli.main(["bench", "1", "1", *modes, "--device=cpu"])
 
 
+def test_bench_config_takes_overrides_last():
+    """`bench [batch] [steps] key=value ...`: config overrides, applied
+    after bench's own pins."""
+    cfg = cli.bench_config(64, ["xla"], {"model.attention.kind": "self",
+                                         "model.attention_stages": "4,8,16,32,64",
+                                         "train.r1_gamma": "1.0"})
+    assert cfg.model.attention.kind == "self" and not cfg.use_pallas
+    assert cfg.model.attention_at(64) and not cfg.model.attention_at(128)
+    assert cfg.train.r1_gamma == 1.0 and cfg.train.global_batch == 64
+
+
 def test_bench_refuses_unknown_arguments():
     with pytest.raises(SystemExit, match="unknown argument"):
         cli.main(["bench", "1", "1", "lsun_bedroom_128", "--device=cpu"])

@@ -1,7 +1,8 @@
 """What of chip_smoke.py runs without a card: its ptxas parser on every
-kernel of csrc/fused_attention.cu and csrc/fused_stage.cu (and on a kernel
-it does not know), its bounds and launch counts, the softmax and the
-sigmoid gate's, and its refusal to report anything when there is no card."""
+kernel of csrc/fused_attention.cu, csrc/fused_stage.cu and
+csrc/flash_attention.cu (and on a kernel it does not know), its bounds and
+launch counts, the softmax and the sigmoid gate's and the flash kernels',
+and its refusal to report anything when there is no card."""
 
 import importlib.util
 import os
@@ -184,7 +185,99 @@ def test_sigmoid_launches_per_step_add_up(smoke):
     per_step = {k: sum(v.values()) for k, v in smoke.SIGMOID_STAGE_PER_STEP.items()}
     assert all(smoke.SIGMOID_PER_STEP[k] == v for k, v in per_step.items())
     assert set(smoke.REPLACES) == set(smoke.KERNELS) | set(smoke.STAGE_KERNELS) | {
-        "sigmoid_gate", "sigmoid_bwd", "stage_sigmoid"}
+        "sigmoid_gate", "sigmoid_bwd", "stage_sigmoid"} | set(smoke.FLASH_KERNELS)
+
+
+FLASH_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000baa4_18_flash_attention_cu_51c301b59flash_dkvI13__nv_bfloat16Li4EEvPKT_S4_S4_S4_PKfS6_PS2_S7_iiiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 77 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000baa4_18_flash_attention_cu_51c301b59flash_dkvIfLi1EEvPKT_S3_S3_S3_PKfS5_PS1_S6_iiiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 79 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000baa4_18_flash_attention_cu_51c301b58flash_dqIfLi4EEvPKT_S3_S3_S3_PKfS5_PS1_iiiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 71 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000baa4_18_flash_attention_cu_51c301b59flash_fwdI13__nv_bfloat16Li1EEvPKT_S4_S4_PS2_Pfiiiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 60 registers, used 1 barriers
+"""
+
+
+def test_ptxas_parser_names_the_flash_kernels(smoke):
+    """The flash kernels are templates on the operand type and the rows a
+    thread takes of a score tile (4: 64-row q tiles, 1: 16-row ones): each
+    instance keeps a name of its own."""
+    kernels = smoke.parse_ptxas(FLASH_PTXAS_LOG)
+    assert set(kernels) == {"flash_dkv<bf16,4>", "flash_dkv<f32,1>", "flash_dq<f32,4>",
+                            "flash_fwd<bf16,1>"}
+    assert kernels["flash_dkv<bf16,4>"]["registers"] == 77
+    assert set(smoke.FLASH_KERNELS) <= set(smoke.ALL_CUDA_KERNELS)
+
+
+def test_bounds_of_the_flash_kernels(smoke):
+    """lsun_bedroom_128's self-attention layers, bf16. At 64^2 and batch 64
+    (T 4096, dh 8, dv 32) the three are bound by operations: 2 B T S times
+    40, 48 and 80 flops over 989 TFLOP/s, 0.0869, 0.1042 and 0.1737 ms, far
+    above their O(T) traffic. At 4^2 (T 16, dh 64, dv 256) the operands
+    outweigh the work: bound by bytes, under a microsecond. The dK/dV
+    pass's flops are those of the forward and the dQ pass less the shared
+    score product: (2 dh + 2 dv) = (dh + dv) + (2 dh + dv) - dh."""
+    bf16 = torch.bfloat16
+    want = {"flash_fwd": 0.0869, "flash_dq": 0.1042, "flash_dkv": 0.1737}
+    for kernel, ms in want.items():
+        t, by = smoke.flash_bound(kernel, 64, 4096, 4096, 8, 32, bf16)
+        assert by == "operations" and abs(t - ms) < 1e-4
+        t, by = smoke.flash_bound(kernel, 64, 16, 16, 64, 256, bf16)
+        assert by == "bytes" and t < 1e-3
+    # f32 operands: the CUDA cores' 67 TFLOP/s
+    t, _ = smoke.flash_bound("flash_fwd", 16, 16384, 16384, 8, 32, torch.float32)
+    assert abs(t - 2 * 16 * 16384 ** 2 * 40 / 67e12 * 1e3) < 1e-6
+
+
+def test_flash_launches_per_step_add_up(smoke):
+    """One self-attention train step (five layers a net, no remat): G
+    forwards twice and D three times, 25 flash_fwd launches; the four
+    backward passes (G once, D three times) run one dQ and one dK/dV pass a
+    layer, 20 each. G's and D's layers share two shapes (64^2, and 4^2,
+    where both are 512 wide)."""
+    assert smoke.FLASH_PER_STEP == {"flash_fwd": 25, "flash_dq": 20, "flash_dkv": 20}
+    assert len(smoke.FLASH_FWD_PER_STEP) == 8 and len(smoke.FLASH_SHAPES) == 9
+    assert smoke.FLASH_FWD_PER_STEP[(4096, 8, 32)] == 5
+    assert smoke.FLASH_BWD_PER_STEP[(16, 64, 256)] == 4
+    assert (16384, 8, 32) not in smoke.FLASH_FWD_PER_STEP  # training drops the 128^2 layer
+    assert smoke.SELF_TRAIN_STAGES == ",".join(str(r) for r in smoke.FLASH_TRAIN_RES)
+
+
+def test_flash_shapes_are_the_configs(smoke):
+    """chip_smoke's table of (T, dh, dv) is what the config gives: G's layer
+    at a stage's own width, D's at its stage's output width."""
+    from locate_tpu_torch.config import get_config
+    from locate_tpu_torch.ops.self_attention import _head_dims
+
+    cfg = get_config("lsun_bedroom_128", smoke.SELF).model
+    chans, res = cfg.stage_channels(), cfg.stage_resolutions()
+    for i, r in enumerate(res):
+        assert smoke.FLASH_G_SHAPES[r] == (r * r, *_head_dims(chans[i], cfg.attention))
+        assert smoke.FLASH_D_SHAPES[r] == (r * r, *_head_dims(chans[max(i - 1, 0)],
+                                                              cfg.attention))
+
+
+def test_chunked_plain_versions(smoke):
+    """The plain versions run a few batch rows at a time on the card; the
+    joined result is the whole call's."""
+    from locate_tpu_torch.ops import flash_attention as fl
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(5, 12, d, generator=g) for d in (4, 4, 6, 6))
+    whole = smoke.run_flash(fl, q, k, v, do, 0.5, plain=True)
+    parts = smoke.chunked(lambda *a: smoke.run_flash(fl, *a, 0.5, plain=True), (q, k, v, do), 2)
+    for a, b in zip(whole, parts):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    assert smoke.batch_chunk(16384, 16384) == 2 and smoke.batch_chunk(4096, 4096) == 32
+    # on CPU tensors the wrappers take the plain versions: the same numbers
+    for a, b in zip(whole, smoke.run_flash(fl, q, k, v, do, 0.5, plain=False)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 
 
 def test_fails_without_a_card():

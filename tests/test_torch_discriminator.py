@@ -130,7 +130,12 @@ def test_unported_discriminator_options_raise(tiny_config):
     _, tcfg = model_configs(tiny_config, "plain")
     with pytest.raises(NotImplementedError, match="spectral_norm"):
         build_discriminator(dataclasses.replace(tcfg, spectral_norm=True), "float32", "cpu")
-    with pytest.raises(NotImplementedError, match="self"):
-        build_discriminator(dataclasses.replace(
-            tcfg, attention=dataclasses.replace(tcfg.attention, kind="self")),
-            "float32", "cpu")
+    # attention.kind="self" used to raise here: it builds and runs, with the
+    # JAX pytree's names for its leaves
+    model = build_discriminator(dataclasses.replace(
+        tcfg, attention=dataclasses.replace(tcfg.attention, kind="self")), "float32", "cpu")
+    keys = set(model.state_dict())
+    assert {"trunk.0.2.gamma", "trunk.0.2.q.w", "trunk.0.2.o.b"} <= keys
+    assert not any("to_hidden" in k for k in keys)
+    logits = model(torch.zeros(2, 16, 16, 3))
+    assert logits.shape == (2,) and bool(torch.isfinite(logits).all())

@@ -137,13 +137,33 @@ def test_sample_cli_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("override,message", [
     (dict(arch="style"), "style"),
     (dict(g_rgb="skip"), "skip"),
-    (dict(attention=tconfig.AttentionConfig(kind="self")), "self"),
+    (dict(attention=tconfig.AttentionConfig(kind="self")), None),
 ])
 def test_unported_paths_raise(override, message):
+    """The paths still to port raise; `attention.kind="self"`, which used
+    to, builds and runs (message None): a self-attention layer per stage,
+    the identity at init, so the images are those of a generator without
+    attention."""
     fields = {**BASE, "attention": tconfig.AttentionConfig(**ATTN), **override}
+    z = np.random.default_rng(3).standard_normal((1, BASE["latent_dim"])).astype(np.float32)
+    if message is None:
+        from locate_tpu_torch.ops.self_attention import SelfAttention
+
+        for use_pallas in (False, True):
+            cfg = tconfig.ModelConfig(**fields, use_pallas=use_pallas)
+            model = build_generator(cfg, "float32", device="cpu")
+            layers = [m for m in model.modules() if isinstance(m, SelfAttention)]
+            assert len(layers) == len(cfg.stage_resolutions()) == 3
+            assert all(m.use_pallas == use_pallas for m in layers)
+            bare = build_generator(tconfig.ModelConfig(**fields, attention_stages="none"),
+                                   "float32", device="cpu")
+            bare.load_state_dict(model.state_dict(), strict=False)
+            np.testing.assert_allclose(port_images(model, z), port_images(bare, z),
+                                       rtol=1e-6, atol=1e-6)
+        return
     with pytest.raises(NotImplementedError, match=message):
         model = build_generator(tconfig.ModelConfig(**fields), "float32", device="cpu")
-        port_images(model, np.zeros((1, BASE["latent_dim"]), np.float32))
+        port_images(model, z)
 
 
 def test_fused_stage_resolution_raises(monkeypatch):

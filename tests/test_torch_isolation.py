@@ -19,6 +19,8 @@ def port_modules():
 
 
 def test_import_loads_no_jax():
+    assert {"locate_tpu_torch.ops.flash_attention",
+            "locate_tpu_torch.ops.self_attention"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {['locate_tpu_torch'] + port_modules()!r}:\n"
@@ -44,6 +46,9 @@ def sources():
 
 def test_no_source_imports_the_jax_package():
     assert len(sources()) > 10
+    names = {os.path.relpath(path, REPO) for path in sources()}
+    assert {"locate_tpu_torch/ops/flash_attention.py", "locate_tpu_torch/ops/self_attention.py",
+            "locate_tpu_torch/csrc/flash_attention.cu"} <= names
     offenders = []
     for path in sources():
         with open(path) as fh:
@@ -54,3 +59,16 @@ def test_no_source_imports_the_jax_package():
                 if importing and (JAX_PACKAGE.search(code) or re.search(r"\bjax\b", code)):
                     offenders.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
     assert not offenders, offenders
+
+
+def test_every_kernel_library_has_its_source():
+    """The three libraries `ops/cuda/build.py` builds, each from one `.cu` of
+    the package and the shared header, under a name its digest decides."""
+    from locate_tpu_torch.ops.cuda import build
+
+    paths = {name: build.library_path(name)
+             for name in ("fused_attention", "fused_stage", "flash_attention")}
+    assert len(set(paths.values())) == 3
+    for name, path in paths.items():
+        assert path.parent == build.BUILD_DIR and path.name.startswith(f"lib{name}-")
+        assert [p.name for p in build._sources(name)] == [f"{name}.cu", "common.cuh"]

@@ -634,3 +634,180 @@ def test_sigmoid_fused_stage_function_on_the_card(cuda, up, dn):
     for name, gk, gw in zip(leaves, got, want):
         err = float((gk - gw).norm() / gw.norm().clamp_min(1e-12))
         assert err <= F32_TOL, (name, err)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+from locate_tpu_torch.ops import flash_attention as fl  # noqa: E402
+
+# (T, dh, dv) of lsun_bedroom_128's six self-attention layers (heads 1)
+FLASH_SHAPES = [(16, 64, 256), (64, 32, 128), (256, 16, 64), (1024, 8, 32), (4096, 8, 32),
+                (16384, 8, 32)]
+
+
+def flash_inputs(b, t, s, dh, dv, dtype, device, seed=0):
+    """(q, k, v, do): q and k of unit variance, so the scaled scores have
+    unit variance and the softmax is far from flat."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    shapes = ((b, t, dh), (b, s, dh), (b, s, dv), (b, t, dv))
+    return [torch.randn(sh, generator=g).to(dtype).to(device) for sh in shapes]
+
+
+def flash_run(q, k, v, do, scale, kernel):
+    """(o, ell, dq, dk, dv) through the kernels or the plain versions."""
+    with torch.no_grad():
+        if not kernel:
+            o, ell = fl.flash_forward_reference(q, k, v, scale)
+            return (o, ell, *fl.flash_backward_reference(q, k, v, o, ell, do, scale))
+        o, ell = fl.flash_fwd(q, k, v, scale)
+        delta = fl.row_delta(o, do)
+        dq = fl.flash_dq(q, k, v, do, ell, delta, scale)
+        out = (o, ell, dq, *fl.flash_dkv(q, k, v, do, ell, delta, scale))
+        torch.cuda.synchronize()
+    return out
+
+
+def flash_scales(q, k, v, do, scale):
+    """(dq, dk, dv) computed on the absolute values of their terms (f32):
+    the scale each sum's rounding error grows with."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    o, ell = fl.flash_forward_reference(q, k, v, scale)
+    p = torch.exp(torch.matmul(q, k.transpose(1, 2)) * scale - ell.unsqueeze(-1))
+    ds = p * (torch.matmul(do.abs(), v.abs().transpose(1, 2))
+              + (do.abs() * o.abs()).sum(-1, keepdim=True))
+    return (torch.matmul(ds, k.abs()) * scale, torch.matmul(ds.transpose(1, 2), q.abs()) * scale,
+            torch.matmul(p.transpose(1, 2), do.abs()))
+
+
+def check_flash(b, t, s, dh, dv, dtype, device, seed=0):
+    q, k, v, do = flash_inputs(b, t, s, dh, dv, dtype, device, seed)
+    scale = dh ** -0.5
+    kern = flash_run(q, k, v, do, scale, kernel=True)
+    plain = flash_run(q, k, v, do, scale, kernel=False)
+    truth = (None,) * 5
+    if dtype != torch.float32:
+        truth = flash_run(*(x.float() for x in (q, k, v, do)), scale, kernel=False)
+    scales = (None, None, *flash_scales(q, k, v, do, scale))
+    for name, kk, pp, tt, sc in zip(("o", "ell", "dq", "dk", "dv"), kern, plain, truth, scales):
+        assert kk.shape == pp.shape and kk.dtype == pp.dtype, name
+        assert bool(torch.isfinite(kk).all()), name
+        if tt is None:
+            sc = pp if sc is None else sc
+            err = float((kk.double() - pp.double()).norm() / sc.double().norm().clamp_min(1e-12))
+            assert err <= F32_TOL, (name, err)
+        else:
+            hold(name, kk, pp, tt, scale=sc)
+    return kern
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,dh,dv", FLASH_SHAPES)
+def test_flash_kernels_at_lsun_shapes(cuda, t, dh, dv, dtype):
+    """Batch 4 (1 at 128^2, where the plain version's (T, T) f32 matrices
+    take a gigabyte each): both q tiles, 16 rows at the small stages."""
+    check_flash(1 if t == 16384 else 4, t, t, dh, dv, dtype, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s,dh,dv", [
+    (3, 200, 200, 12, 20),     # ragged q and kv tiles, widths off the main path
+    (2, 100, 333, 8, 32),      # S != T
+    (2, 333, 100, 16, 8),
+    (5, 7, 5, 5, 7),           # odd widths, one short tile
+    (40, 300, 300, 32, 64),    # enough blocks for the 64-row q tile, ragged
+    (2, 64, 64, 64, 256),      # the widest heads of the path, on the 16-row tile
+])
+def test_flash_kernel_options(cuda, b, t, s, dh, dv, dtype):
+    check_flash(b, t, s, dh, dv, dtype, cuda, seed=1)
+
+
+@pytest.mark.gpu
+def test_flash_tiles_and_too_wide_heads(cuda):
+    """The q tile is 64 rows where that fills the card, else 16; heads too
+    wide for a block's shared memory raise."""
+    assert fl.pick_tile(fl._FWD, 64, 16384, 8, 32) == 64
+    assert fl.pick_tile(fl._FWD, 1, 4096, 8, 32) == 16
+    assert fl.pick_tile(fl._DKV, 64, 16, 64, 256) == 16
+    assert fl.pick_tile(fl._DKV, 64, 4096, 8, 32) == 64
+    q, k, v, _ = flash_inputs(1, 16, 16, 512, 512, torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fl.flash_fwd(q, k, v, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_is_bitwise_repeatable(cuda, dtype):
+    q, k, v, do = flash_inputs(3, 1000, 1000, 8, 32, dtype, cuda, seed=2)
+    first = flash_run(q, k, v, do, 8 ** -0.5, kernel=True)
+    again = flash_run(q, k, v, do, 8 ** -0.5, kernel=True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_function_on_the_card(cuda):
+    """Gradients of `flash_attention` against autograd of the plain
+    composition, f32, non-contiguous operands; one launch of each kernel; a
+    second derivative raises."""
+    q, k, v, do = flash_inputs(4, 96, 96, 16, 24, torch.float32, cuda, seed=3)
+    q = q.transpose(0, 1).contiguous().transpose(0, 1)  # same values, other strides
+    counters = (fl.flash_fwd, fl.flash_dq, fl.flash_dkv)
+    before = [f.launches for f in counters]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = fl.flash_attention(*leaves, scale=0.25)
+    got = torch.autograd.grad(o, leaves, do)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1]
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o_ref = fl.attention_reference(*ref, scale=0.25)
+    want = torch.autograd.grad(o_ref, ref, do)
+    assert rel_err(o.detach(), o_ref.detach()) <= F32_TOL
+    for name, g, w in zip("qkv", got, want):
+        assert rel_err(g, w) <= F32_TOL, name
+    o = fl.flash_attention(*leaves, scale=0.25)
+    (gq,) = torch.autograd.grad((o * o).sum(), leaves[:1], create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        gq.sum().backward()
+    with pytest.raises(ValueError, match="do not match"):
+        fl.flash_fwd(q, k[:, :-1], v, 0.25)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fl.flash_fwd(q.half(), k.half(), v.half(), 0.25)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [1, 2])
+def test_self_attention_layer_on_the_card(cuda, heads):
+    """`SelfAttention` with use_pallas on a CUDA tensor runs the kernels
+    (never the plain composition) and agrees with the layer without them."""
+    from locate_tpu_torch.config import AttentionConfig
+    from locate_tpu_torch.ops import self_attention as sa
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    cfg = AttentionConfig(kind="self", heads=heads)
+    layer = sa.SelfAttention(64, cfg, torch.float32, use_pallas=True, gen=gen)
+    plain = sa.SelfAttention(64, cfg, torch.float32, use_pallas=False, gen=gen)
+    with torch.no_grad():
+        layer.gamma.fill_(0.7)
+        for conv in (layer.q, layer.k):
+            conv.w.mul_(3.0)
+    plain.load_state_dict(layer.state_dict())
+    x = torch.randn(2, 16, 16, 64, device=cuda, generator=gen)
+    dy = torch.randn(2, 16, 16, 64, device=cuda, generator=gen)
+    before = fl.flash_fwd.launches, fl.flash_dq.launches, fl.flash_dkv.launches
+    outs = []
+    for m in (layer, plain):
+        xx = x.clone().requires_grad_(True)
+        y = m(xx)
+        outs.append((y.detach(), *torch.autograd.grad(y, [xx, *m.parameters()], dy)))
+    assert (fl.flash_fwd.launches, fl.flash_dq.launches, fl.flash_dkv.launches) == tuple(
+        b + 1 for b in before)
+    names = ["y", "dx", *(n for n, _ in layer.named_parameters())]
+    grads = dict(zip(names, zip(*outs)))
+    for name, (got, want) in grads.items():
+        # the key bias's gradient is rounding noise around 0 (a shift of every
+        # key's score, which the softmax ignores): on the key weights' scale
+        scale = grads["k.w"][1] if name == "k.b" else want
+        assert float((got - want).norm() / scale.norm()) <= F32_TOL, name
