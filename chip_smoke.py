@@ -21,7 +21,10 @@ line each:
      `-Xptxas -v`: each kernel's registers, shared memory and spills, and
      the dynamic shared memory of the gate's blocks at every (C, Hd) of the
      path, of the stage's at 512^2 x 64 and of the flash kernels' at every
-     (T, dh, dv) with the q tile picked there;
+     (T, dh, dv) with the q tile picked there, on both routes of the
+     backward passes, with the blocks that fit on an SM; the SASS of every
+     mma instance of the bf16 backward (`cuobjdump -sass`) holds HMMA or
+     HGMMA instructions, and none spills more than 16 bytes;
   3. the gate's forward kernels (stats, apply) against the plain version at
      the nine G and D gate shapes of lsun_bedroom_128, batch 64, bf16, with
      gate weights that make the gate vary and pass the clamp at 16, plus one
@@ -85,7 +88,11 @@ line each:
      shipped (R1 gamma 0.1 every 16 steps, remat, both guards) at batch 16,
      3 steps from step 0: the checks of 6, launches per step of all eight
      kernels as the step implies, sec/step, images/sec, peak memory, idle
-     share and top kernels; then the plain path's 3 steps alike;
+     share and top kernels; the same steps again with the grad-norm guard
+     raised to 1e9, where G's and D's updates all apply and G, D and the
+     EMA move (random weights give G a norm of 2e6-2e7, above the shipped
+     1e6, so this is the card's check of G's Adam update); then the plain
+     path's 3 steps alike;
  12. one ffhq_512 step's gradients with R1 on the kernel path, each of its
      four fused-stage backward calls held against the plain backward chain
      on its own saved tensors (the bf16 rule);
@@ -119,10 +126,14 @@ line each:
      self-attention layers (G's six from T = 16, dh 64, dv 256 to T = 16384,
      dh 8, dv 32, and D's three others), batch 16, plus heads = 2 and one
      S != T case, bf16 and f32, under the rules of 3 and 4; two runs bitwise
-     equal; each bf16 case timed beside its bound, its plain version and
-     `F.scaled_dot_product_attention` (forward, and autograd backward for the
-     two backward kernels together), which the port never calls; then the
-     training shapes at batch 64, timed only;
+     equal; in bf16 the backward passes on the tensor-core (mma) route and,
+     on the same inputs, on the simt route, both under the bf16 rule; each
+     bf16 case timed beside its bound, its exponential floor (B T S
+     exponentials on 2,112 SFU lanes), blocks per SM, its plain version, the
+     simt route and `F.scaled_dot_product_attention` (forward, and autograd
+     backward for the two backward kernels together), which the port never
+     calls; then the training shapes at batch 64, timed only; fails if the
+     mma pair is slower than the library's backward at (64, 1024, 16, 64);
  23. lsun_bedroom_128 + attention.kind=self serving, all six layers:
      requests of 1, 16 and 64 (6 flash_fwd launches a forward, nothing
      else), each layer of the batch-16 request against the plain composition
@@ -132,14 +143,17 @@ line each:
      68.7 GB score tensor, is caught and recorded), idle share, top kernels;
  24. the same preset training as shipped (batch 64, R1, both guards, EMA)
      with attention at 4^2..64^2: 3 steps from step 0 under the checks of 6,
-     launches 25 / 20 / 20 a step, sec/step, images/sec, peak memory, idle
-     share, top kernels; then the plain path alike; a refused batch is
-     halved and recorded;
- 25. one such step's gradients with each of its 20 flash backward calls held
-     against the plain backward on its own saved tensors (bf16), and at
-     64^2 in f32 the whole gradients against the plain path (the tolerance
-     of 6), each call within 1e-4;
- 26. one JSON line `{"kernels": [...]}` for the fourteen kernels;
+     launches 25 / 20 / 20 a step, every backward launch on the mma route,
+     sec/step, images/sec, peak memory, idle share, top kernels; then the
+     plain path alike; a refused batch is halved and recorded;
+ 25. one such step's gradients with each of its 20 flash backward calls on
+     the mma route and held against the plain backward on its own saved
+     tensors (bf16), and at 64^2 in f32 (the simt route) the whole
+     gradients against the plain path (the tolerance of 6), each call
+     within 1e-4;
+ 26. one JSON line `{"kernels": [...]}` for the fourteen kernels (the flash
+     backward pair with its mma-route launches and the simt route's time
+     of the same launches beside its own);
  27. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -218,7 +232,16 @@ STAGE_CUDA_KERNELS = ("stage_conv_bwd", "stage_softmax_apply_pool", "stage_softm
                       "stage_conv", "stage_sigmoid", "softmax_stats_merge", "reduce_partials")
 FLASH_SOURCE = "locate_tpu_torch/csrc/flash_attention.cu"
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
-ALL_CUDA_KERNELS = STAGE_CUDA_KERNELS + CUDA_KERNELS + FLASH_KERNELS
+# the tensor-core instances of the two backward wrappers (the mma route,
+# bf16), templates on the padded head widths; each must hold HMMA or HGMMA
+FLASH_MMA_KERNELS = ("flash_dq_mma", "flash_dkv_mma")
+FLASH_MMA_SPILL_LIMIT = 16  # bytes: the simt kernels' worst spill
+ALL_CUDA_KERNELS = STAGE_CUDA_KERNELS + CUDA_KERNELS + FLASH_MMA_KERNELS + FLASH_KERNELS
+# the exponential floor of a flash pass: B T S exponentials on the H100's
+# 132 x 16 SFU lanes (one ex2 a lane a clock) at the SXM card's 1.98 GHz
+# boost clock, the clock PEAK_FLOPS's f32 figure (132 x 128 FMA x 2) assumes
+SFU_LANES = 132 * 16
+SFU_HZ = 1.98e9
 
 # ffhq_512 (config.py:792-808): batch 16 per card (the preset's global 256
 # over a v5p-32's 16 chips); the gate's new shapes (HW, C, Hd) at 256^2 and
@@ -331,11 +354,15 @@ def nvidia_smi() -> str:
 def kernel_name(mangled: str) -> str:
     """The readable name of a compiled kernel: its ALL_CUDA_KERNELS name
     with <bf16> or <f32> for the templates (and a second, integer argument
-    where there is one, as the flash kernels' rows per thread), else the
-    mangled name itself."""
+    where there is one, as the flash kernels' rows per thread), or with its
+    integer arguments where it has only those (the mma kernels' <DH,DV>),
+    else the mangled name itself."""
     base = next((k for k in ALL_CUDA_KERNELS if k in mangled), mangled)
     m = re.search(r"I(f|13__nv_bfloat16)(?:Li(\d+))?E", mangled)
     if not m:
+        ints = re.search(r"I((?:Li\d+E)+)E", mangled)  # integer arguments only
+        if ints:
+            return f"{base}<{','.join(re.findall(r'Li(\d+)E', ints.group(1)))}>"
         return base
     dtype = "f32" if m.group(1) == "f" else "bf16"
     return f"{base}<{dtype}{',' + m.group(2) if m.group(2) else ''}>"
@@ -806,10 +833,28 @@ def expected(launches: dict, times: int = 1) -> dict:
 def reset_counters():
     for fn in counters().values():
         fn.launches = 0
+        for route in ("mma", "simt"):
+            if hasattr(fn, f"launches_{route}"):
+                setattr(fn, f"launches_{route}", 0)
 
 
 def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
+
+
+def read_route_counters() -> dict:
+    """{kernel: {route: launches}} of the two flash backward wrappers."""
+    from locate_tpu_torch.ops import flash_attention as fl
+
+    return {k: {r: getattr(getattr(fl, k), f"launches_{r}") for r in ("mma", "simt")}
+            for k in ("flash_dq", "flash_dkv")}
+
+
+def routes_expected(per_call: int, route: str = "mma") -> dict:
+    """The route counters after `per_call` launches of each backward pass,
+    all on `route`."""
+    return {k: {r: per_call * (r == route) for r in ("mma", "simt")}
+            for k in ("flash_dq", "flash_dkv")}
 
 
 def phase_generator(fa, cfg):
@@ -1597,6 +1642,36 @@ def timed_steps(step, state, batch, steps):
     return state, history, seconds
 
 
+# a grad-norm guard above the random-weight ffhq_512 (softmax) G's norm of
+# 2e6-2e7, so that G's Adam update runs on the card
+RAISED_GRAD_NORM_LIMIT = 1e9
+
+
+def raised_guard_steps(steps, phase):
+    """`steps` kernel-path steps of ffhq_512 (softmax gate) from step 0 with
+    train.grad_norm_limit at RAISED_GRAD_NORM_LIMIT: every update of G and
+    D is applied, and G, D and the EMA move."""
+    cfg = ffhq_config(**{"train.grad_norm_limit": str(RAISED_GRAD_NORM_LIMIT)})
+    tcfg = cfg.train
+    check(tcfg.grad_norm_limit == RAISED_GRAD_NORM_LIMIT, "the guard was not raised")
+    gan, state, step = trainer(cfg)
+    before = [t.clone() for t in (state.g_params.flat, state.d_params.flat, state.ema_params)]
+    state, history, seconds = timed_steps(step, state, fixed_batch(FFHQ_BATCH, 512), steps)
+    history = check_history(history, tcfg)
+    moved = check_moved(before, state, history, tcfg)
+    for net in ("g", "d"):
+        norms = [m[f"{net}_grad_norm"] for m in history]
+        check(max(norms) < RAISED_GRAD_NORM_LIMIT and history[-1][f"{net}_grad_limit_count"] == 0,
+              f"{phase}: {net} updates skipped under the raised guard, norms {norms}")
+    check(all(moved[k] > 0.0 for k in ("g", "d", "ema")),
+          f"{phase}: under the raised guard not every net moved: {moved}")
+    del gan, state, step, before
+    torch.cuda.empty_cache()
+    return dict(grad_norm_limit=RAISED_GRAD_NORM_LIMIT, seconds_per_step=seconds,
+                g_grad_norms=[m["g_grad_norm"] for m in history],
+                d_grad_norms=[m["d_grad_norm"] for m in history], max_param_change=moved)
+
+
 def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     """Phase 11 (and 18 with the sigmoid gate): the main path of the
     fused-stage kernels, ffhq_512 as shipped (with the config `overrides`)
@@ -1854,14 +1929,15 @@ def chunked(fn, tensors, chunk):
     return tuple(torch.cat(col) for col in zip(*parts))
 
 
-def run_flash(fl, q, k, v, do, scale, plain: bool):
-    """(o, ell, dq, dk, dv) through the three kernels, or through their
+def run_flash(fl, q, k, v, do, scale, plain: bool, route=None):
+    """(o, ell, dq, dk, dv) through the three kernels (the backward passes
+    on `route`, `backward_route`'s choice unless given), or through their
     plain versions a few batch rows at a time."""
     if not plain:
         o, ell = fl.flash_fwd(q, k, v, scale)
         delta = fl.row_delta(o, do)
-        return (o, ell, fl.flash_dq(q, k, v, do, ell, delta, scale),
-                *fl.flash_dkv(q, k, v, do, ell, delta, scale))
+        return (o, ell, fl.flash_dq(q, k, v, do, ell, delta, scale, route=route),
+                *fl.flash_dkv(q, k, v, do, ell, delta, scale, route=route))
 
     def one(q, k, v, do):
         o, ell = fl.flash_forward_reference(q, k, v, scale)
@@ -1907,15 +1983,24 @@ def flash_bound(kernel, b, t, s, dh, dv, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def flash_exp_floor(b, t, s):
+    """ms of the B T S exponentials of one flash pass on every SFU lane of
+    the card at once: a floor beside the bound, which each backward pass
+    meets again because it recomputes P."""
+    return b * t * s / (SFU_LANES * SFU_HZ) * 1e3
+
+
 def flash_times(fl, q, k, v, do, scale):
-    """{kernel: ms, plain_ms, bound_ms, bound_by, library_ms} of the three
-    kernels on these operands. The kernels and the library call are timed
-    as CUDA graphs of back-to-back launches; the plain versions, which run
-    a few batch rows at a time, by events. The library yardstick is
-    `F.scaled_dot_product_attention`: its forward for flash_fwd, its
-    autograd backward (dQ, dK and dV in one) for flash_dq and flash_dkv
-    together. Where the allocator refuses the library call, its time is
-    None and the refusal is recorded."""
+    """{kernel: ms, plain_ms, bound_ms, bound_by, library_ms, exp_floor_ms}
+    of the three kernels on these operands, and for the two backward
+    passes their route, blocks per SM and, where the route is mma, the simt
+    route's time and blocks on the same operands. The kernels and the
+    library call are timed as CUDA graphs of back-to-back launches; the
+    plain versions, which run a few batch rows at a time, by events. The
+    library yardstick is `F.scaled_dot_product_attention`: its forward for
+    flash_fwd, its autograd backward (dQ, dK and dV in one) for flash_dq and
+    flash_dkv together. Where the allocator refuses the library call, its
+    time is None and the refusal is recorded."""
     import torch.nn.functional as F
 
     b, t, dh = q.shape
@@ -1923,12 +2008,20 @@ def flash_times(fl, q, k, v, do, scale):
     big = t * s >= 4096 * 4096
     reps = (3, 2) if big else (10, 5)
     chunk = batch_chunk(t, s)
+    route = fl.backward_route(q.dtype, dh, dv)
     with torch.no_grad():
         o, ell = fl.flash_fwd(q, k, v, scale)
         delta = fl.row_delta(o, do)
+
+        def backward_ms(r):
+            return {"flash_dq": graph_ms(
+                        lambda: fl.flash_dq(q, k, v, do, ell, delta, scale, route=r), *reps),
+                    "flash_dkv": graph_ms(
+                        lambda: fl.flash_dkv(q, k, v, do, ell, delta, scale, route=r), *reps)}
+
         ms = {"flash_fwd": graph_ms(lambda: fl.flash_fwd(q, k, v, scale), *reps),
-              "flash_dq": graph_ms(lambda: fl.flash_dq(q, k, v, do, ell, delta, scale), *reps),
-              "flash_dkv": graph_ms(lambda: fl.flash_dkv(q, k, v, do, ell, delta, scale), *reps)}
+              **backward_ms(route)}
+        simt = backward_ms(fl.SIMT) if route == fl.MMA else None
         plain = {
             "flash_fwd": event_ms(lambda: chunked(
                 lambda q, k, v: fl.flash_forward_reference(q, k, v, scale), (q, k, v), chunk),
@@ -1952,15 +2045,34 @@ def flash_times(fl, q, k, v, do, scale):
     except torch.cuda.OutOfMemoryError as e:
         refusal = str(e).split(". GPU")[0]
     release_memory()
+    lib = fl._library()
+    is_bf16 = int(q.dtype == torch.bfloat16)
     rows = {}
-    for kernel in FLASH_KERNELS:
+    for kernel, kind in zip(FLASH_KERNELS, (fl._FWD, fl._DQ, fl._DKV)):
         b_ms, b_by = flash_bound(kernel, b, t, s, dh, dv, q.dtype)
         rows[kernel] = dict(ms=ms[kernel], plain_ms=plain[kernel], bound_ms=b_ms, bound_by=b_by,
                             share_of_bound=b_ms / ms[kernel],
                             library_ms=library["flash_fwd" if kernel == "flash_fwd"
-                                               else "flash_bwd"])
+                                               else "flash_bwd"],
+                            exp_floor_ms=flash_exp_floor(b, t, s))  # phase 22's record only
+        if kernel == "flash_fwd":
+            continue
+        simt_tile = fl.pick_tile(kind, b, t, dh, dv, lib)
+        simt_blocks = int(lib.locate_flash_blocks_per_sm(0, kind, is_bf16, dh, dv, simt_tile))
+        if route == fl.MMA:
+            rows[kernel].update(
+                route=route, mma_widths=fl.mma_widths(dh, dv),
+                blocks_per_sm=int(lib.locate_flash_blocks_per_sm(
+                    1, kind, 1, *fl.mma_widths(dh, dv), 0)),
+                ms_simt=simt[kernel], blocks_per_sm_simt=simt_blocks,
+                simt_over_mma=simt[kernel] / ms[kernel])
+        else:
+            rows[kernel].update(route=route, blocks_per_sm=simt_blocks)
     rows["flash_dq"]["library_covers"] = rows["flash_dkv"]["library_covers"] = (
         "flash_dq and flash_dkv together (one autograd backward, timed by events)")
+    if library["flash_bwd"] is not None:
+        rows["backward_pair_over_library"] = (
+            (ms["flash_dq"] + ms["flash_dkv"]) / library["flash_bwd"])
     if refusal:
         rows["library_refused"] = refusal
     return rows
@@ -1970,9 +2082,12 @@ def check_flash(fl, q, k, v, do, scale, shape, row):
     """Hold the three kernels to their plain versions on these operands by
     the rules of phases 3-4, two runs bitwise equal; fills `row`."""
     dtype = q.dtype
+    route = fl.backward_route(dtype, q.shape[2], v.shape[2])
     with torch.no_grad():
         kern = run_flash(fl, q, k, v, do, scale, plain=False)
         again = run_flash(fl, q, k, v, do, scale, plain=False)
+        simt = (run_flash(fl, q, k, v, do, scale, plain=False, route=fl.SIMT)
+                if route == fl.MMA else None)
         plain = run_flash(fl, q, k, v, do, scale, plain=True)
         truth = plain
         if dtype != torch.float32:
@@ -1982,9 +2097,13 @@ def check_flash(fl, q, k, v, do, scale, shape, row):
     for name, a, b in zip(FLASH_NAMES, kern, again):
         check(torch.equal(a, b), f"{name} at {shape}: two runs differ bitwise")
     row["bitwise_repeatable"] = True
+    row["backward_route"] = route
     for name, kk, pp, tt, sc in zip(FLASH_NAMES, kern, plain, truth, scales):
         check(kk.shape == pp.shape and kk.dtype == pp.dtype, f"{name} at {shape}: {kk.shape}")
         hold(name, shape, kk, pp, tt, dtype, row, scale=sc)
+    if simt is not None:  # the same inputs on the simt route, under the same rule
+        for name, kk, pp, tt, sc in list(zip(FLASH_NAMES, simt, plain, truth, scales))[2:]:
+            hold(f"{name}_simt", shape, kk, pp, tt, dtype, row, scale=sc)
 
 
 def softmax_peak(fl, q, k, scale):
@@ -2001,10 +2120,14 @@ def phase_flash_kernels(fl):
     D's three others), batch 16, plus heads = 2 at 32^2 (batch 32, dh 8,
     dv 16) and one S != T case, in bf16 and f32, with a random dO, under
     the rules of phases 3 and 4 (backward outputs against the norm of the
-    sum of their absolute terms); two runs bitwise equal; each bf16 case
-    timed beside its bound, its plain version and the library call. Then
-    the training shapes again at the train batch (64), timed only: the
-    per-step numbers of the kernels line."""
+    sum of their absolute terms); two runs bitwise equal; in bf16 the
+    backward passes on the mma route and, on the same inputs, on the simt
+    route, both under that rule; each bf16 case timed beside its bound, its
+    exponential floor, its plain version, the simt route and the library
+    call. Then the training shapes again at the train batch (64), timed
+    only: the per-step numbers of the kernels line. Fails if the mma pair
+    is slower than the library's backward at D's 32^2 layer (T 1024, dh 16,
+    dv 64, batch 64)."""
     cases = [(FLASH_BATCH, t, t, dh, dv, "layer") for t, dh, dv in FLASH_SHAPES]
     cases += [(2 * FLASH_BATCH, 1024, 1024, 8, 16, "heads=2"),
               (FLASH_BATCH, 1024, 4096, 8, 32, "S != T")]
@@ -2037,6 +2160,13 @@ def phase_flash_kernels(fl):
         train_rows.append(row)
         del q, k, v, do
         torch.cuda.empty_cache()
+    (d32,) = [r for r in train_rows if (r["shape"]["T"], r["shape"]["dh"], r["shape"]["dv"])
+              == FLASH_D_SHAPES[32]]
+    pair = d32["flash_dq"]["ms"] + d32["flash_dkv"]["ms"]
+    library = d32["flash_dq"]["library_ms"]
+    check(d32["flash_dq"]["route"] == "mma" and library is not None and pair < library,
+          f"flash_dq + flash_dkv at {d32['shape']}: {pair:.4f} ms on the "
+          f"{d32['flash_dq']['route']} route, the library's backward {library} ms")
     return rows, train_rows
 
 
@@ -2197,11 +2327,12 @@ def self_train_attempt(cfg, batch_size, steps=3):
     reset_counters()
     state, history, seconds = timed_steps(step, state, batch, steps)
     launches = read_counters()
+    routes = read_route_counters()
     peak = torch.cuda.max_memory_allocated()
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
     idle, top = profile_calls(lambda: step(state, batch), calls=2, top=12)
-    out = dict(batch=batch_size, seconds_per_step=seconds,
+    out = dict(batch=batch_size, seconds_per_step=seconds, backward_routes=routes,
                images_per_sec_after_step0=batch_size * (steps - 1) / sum(seconds[1:]),
                peak_memory_bytes=peak, metrics=history, max_param_change=moved,
                device_idle_share="not measured" if idle is None else idle,
@@ -2231,7 +2362,8 @@ def phase_self_train():
     attention.kind=self at the stages 4^2..64^2 (five layers a net), 3 steps
     from step 0 (R1 fires, through the kernel-free twin of D): the checks of
     phase 6, launches per step 25 / 20 / 20 of flash_fwd / flash_dq /
-    flash_dkv and no other kernel, sec/step, images/sec, peak memory, idle
+    flash_dkv and no other kernel, every backward launch on the mma route,
+    sec/step, images/sec, peak memory, idle
     share and top kernels; then the plain path's 3 steps alike. A batch the
     allocator refuses is halved and the refusal recorded."""
     cfg = self_config(**{"model.attention_stages": SELF_TRAIN_STAGES})
@@ -2248,6 +2380,9 @@ def phase_self_train():
         lambda b: self_train_attempt(cfg, b, steps), BATCH)
     check(launches == expected(FLASH_PER_STEP, steps),
           f"self-attention train steps launched {launches}, want {FLASH_PER_STEP} per step")
+    want_routes = routes_expected(FLASH_PER_STEP["flash_dq"] * steps)
+    check(kernel["backward_routes"] == want_routes,
+          f"the steps' backward launches took {kernel['backward_routes']}, want {want_routes}")
     torch.cuda.empty_cache()
     pcfg = self_config(**{"model.attention_stages": SELF_TRAIN_STAGES, "use_pallas": "false"})
     (plain, _, _), plain_batch, plain_refusals = halving(
@@ -2258,7 +2393,7 @@ def phase_self_train():
         launches_per_step={k: v / steps for k, v in launches.items()},
         kernel_path=kernel, kernel_path_refused=refusals,
         plain_path=plain, plain_path_refused=plain_refusals)
-    return cfg, weights, launches, batch
+    return cfg, weights, launches, batch, kernel["backward_routes"]
 
 
 @contextlib.contextmanager
@@ -2305,11 +2440,12 @@ def checked_flash_backward(fl, record):
 def phase_self_train_grads(fl, cfg, weights, batch):
     """Phase 25: one step's gradients (R1 firing) of the training
     configuration on the kernel path, each of its 20 flash backward calls
-    held against the plain backward on its own saved tensors (bf16 rule);
+    on the mma route and held against the plain backward on its own saved
+    tensors (bf16 rule);
     then at 64^2 with all five layers, f32, batch 16: the kernel path's
     whole gradients within TRAIN_F32_TOL of the plain path's (or ten times
     what 1e-7 weight noise moves the plain path by, if larger), each flash
-    backward call within F32_TOL."""
+    backward call on the simt route and within F32_TOL."""
     g = torch.Generator(device="cuda")
     g.manual_seed(8)
     z_d = torch.randn(batch, cfg.model.latent_dim, device="cuda", generator=g)
@@ -2318,11 +2454,12 @@ def phase_self_train_grads(fl, cfg, weights, batch):
     with checked_flash_backward(fl, calls):
         reset_counters()
         _, _, d_loss, g_loss, r1 = step_grads(cfg, weights, z_d, z_g, 128, True, "bfloat16")
-        launches = read_counters()
+        launches, routes = read_counters(), read_route_counters()
     want = FLASH_PER_STEP["flash_dq"]
     check(len(calls) == want, f"{len(calls)} flash backward calls in one step, want {want}")
     check(launches == expected({"flash_fwd": FLASH_PER_STEP["flash_fwd"], "flash_dq": want,
                                 "flash_dkv": want}), f"one step's gradients launched {launches}")
+    check(routes == routes_expected(want), f"one step's backward launches took {routes}")
     check(all(math.isfinite(x) for x in (d_loss, g_loss, r1)) and r1 > 0.0,
           f"self-attention step losses {d_loss}, {g_loss}, r1 {r1}")
     # over the calls whose errors are above the rounding-noise floor
@@ -2338,7 +2475,10 @@ def phase_self_train_grads(fl, cfg, weights, batch):
     z = [t[:FLASH_BATCH] for t in (z_d, z_g)]  # the whole batch where it is smaller
     calls64 = []
     with checked_flash_backward(fl, calls64):
+        reset_counters()
         k64 = step_grads(cfg64, w64, *z, 64, True, "float32")
+        routes64 = read_route_counters()
+    check(routes64 == routes_expected(want, "simt"), f"the f32 step's backward took {routes64}")
     p64 = step_grads(cfg64, w64, *z, 64, False, "float32")
     noisy64 = step_grads(cfg64, w64, *z, 64, False, "float32", perturb=1e-7)
     check(len(calls64) == want, f"{len(calls64)} flash backward calls at 64^2, want {want}")
@@ -2351,6 +2491,7 @@ def phase_self_train_grads(fl, cfg, weights, batch):
         check(e <= limit, f"{net} gradient at 64^2 f32, self-attention: {e:.3e} > {limit:.3e}")
     say("self-train-grads", batch=batch, r1_fired=True, d_loss=d_loss, g_loss=g_loss, r1=r1,
         flash_backward_calls_checked={"bf16_128": len(calls), "f32_64": len(calls64)},
+        backward_routes={"bf16_128": routes, "f32_64": routes64},
         worst_kernel_over_plain_error_ratio_bf16=worst,
         worst_flash_backward_rel_err_f32=max(v for r in calls64 for k, v in r.items()
                                              if k.endswith("rel_err_kernel_vs_plain")),
@@ -2358,10 +2499,12 @@ def phase_self_train_grads(fl, cfg, weights, batch):
         calls_bf16=calls)
 
 
-def flash_entry(kernel, rows, train_rows, launches, serve_launches):
+def flash_entry(kernel, rows, train_rows, launches, serve_launches, routes):
     """The {"kernels": [...]} entry of a flash kernel: per self-attention
     train step at batch 64, each shape's time times its launches a step
-    (timed at batch 64 in phase 22's second half)."""
+    (timed at batch 64 in phase 22's second half); for the backward passes
+    also the simt route's time of the same launches and the launches the
+    main path's run made on the mma route."""
     mult = FLASH_FWD_PER_STEP if kernel == "flash_fwd" else FLASH_BWD_PER_STEP
     names = {"flash_fwd": ("o", "ell"), "flash_dq": ("dq",), "flash_dkv": ("dk", "dv")}[kernel]
 
@@ -2389,13 +2532,17 @@ def flash_entry(kernel, rows, train_rows, launches, serve_launches):
         "library_ms": total("library_ms"),
         "shapes": [dict(r["shape"], dtype=r["dtype"],
                         **{k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                     "library_ms")})
+                                                     "library_ms", "ms_simt")
+                           if k in r[kernel]})
                    for r in rows + train_rows if kernel in r],
     }
     if kernel == "flash_fwd":
         entry["launches_serving"] = serve_launches[kernel]
     else:
         entry["library_covers"] = train_rows[0][kernel]["library_covers"]
+        entry["backward_route"] = sorted({r[kernel]["route"] for r in train_rows})
+        entry["launches_mma"] = routes[kernel]["mma"]
+        entry["ms_simt"] = total("ms_simt")  # the same launches on the simt route
     return entry
 
 
@@ -2465,8 +2612,49 @@ def per_step(rows, kind, mult, key):
                for r in rows if r["dtype"] == "bfloat16")
 
 
+def cuobjdump_path() -> str:
+    """The toolkit's cuobjdump (CUDA_HOME, /usr/local/cuda, PATH), else the
+    copy Triton's package carries; None where there is none."""
+    import shutil
+
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "cuobjdump")):
+            return os.path.join(root, "bin", "cuobjdump")
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    try:
+        import triton
+    except ImportError:
+        return None
+    path = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                        "cuobjdump")
+    return path if os.path.isfile(path) else None
+
+
+def sass_tensor_ops(library) -> dict:
+    """{kernel: tensor-core instructions (HMMA or HGMMA) in its SASS} of a
+    built library, read with `cuobjdump -sass`."""
+    tool = cuobjdump_path()
+    check(tool is not None, "no cuobjdump: the SASS of the mma kernels cannot be read")
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = kernel_name(m.group(1))
+            counts[current] = 0
+        elif current and re.search(r"\bHG?MMA\b", line):
+            counts[current] += 1
+    return counts
+
+
 def phase_build(fa, fs, fl, build):
-    """Phase 2: the three libraries, one nvcc each, started together."""
+    """Phase 2: the three libraries, one nvcc each, started together; the
+    flash library's mma kernels hold tensor-core instructions and spill
+    at most FLASH_MMA_SPILL_LIMIT bytes; shared memory and blocks per SM
+    of the flash kernels at each (T, dh, dv), both routes."""
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
@@ -2475,9 +2663,22 @@ def phase_build(fa, fs, fl, build):
         libs = dict(zip(names, pool.map(build.build, names)))
     reports = {name: parse_ptxas(build.ptxas_report(name)) for name in names}
     for name, wanted in (("fused_attention", CUDA_KERNELS), ("fused_stage", STAGE_CUDA_KERNELS),
-                         ("flash_attention", FLASH_KERNELS)):
+                         ("flash_attention", FLASH_KERNELS + FLASH_MMA_KERNELS)):
         for k in wanted:
             check(any(n.startswith(k) for n in reports[name]), f"ptxas reported no {k}")
+    sass = sass_tensor_ops(libs["flash_attention"])
+    mma = {}
+    for k in FLASH_MMA_KERNELS:
+        want = {f"{k}<{a},{b}>" for a, b in fl.MMA_WIDTHS}
+        check(want <= set(sass), f"the SASS lists {sorted(n for n in sass if n.startswith(k))}, "
+                                 f"want {sorted(want)}")
+        for n in sorted(want):
+            ptx = reports["flash_attention"].get(n, {})
+            mma[n] = dict(ptx, tensor_core_instructions=sass[n])
+            check(sass[n] > 0, f"{n}: no HMMA or HGMMA instruction in its SASS")
+            check(max(ptx.get("spill_stores", 0), ptx.get("spill_loads", 0))
+                  <= FLASH_MMA_SPILL_LIMIT, f"{n} spills: {ptx}")
+    simt_bf16 = {n: c for n, c in sass.items() if n.startswith(("flash_dq<bf16", "flash_dkv<bf16"))}
     smem = {f"C={c},Hd={hd}": dict(
         forward=int(fa._library().locate_softmax_smem_bytes(c, hd, c, fa.tile_rows(c))),
         backward=int(fa._library().locate_softmax_bwd_smem_bytes(
@@ -2492,14 +2693,27 @@ def phase_build(fa, fs, fl, build):
             stage_lib.locate_stage_smem_bytes(k, 64, 64, 16, 64, th, tw)))
     flash_lib = fl._library()
     flash_smem = {}
-    for t, dh, dv in FLASH_SHAPES:
-        tiles = {k: fl.pick_tile(kind, FLASH_BATCH, t, dh, dv, flash_lib)
-                 for k, kind in zip(FLASH_KERNELS, (fl._FWD, fl._DQ, fl._DKV))}
-        flash_smem[f"T={t},dh={dh},dv={dv}"] = {
-            k: dict(q_tile=bq, bytes=int(flash_lib.locate_flash_smem_bytes(kind, dh, dv, bq)))
-            for (k, bq), kind in zip(tiles.items(), (fl._FWD, fl._DQ, fl._DKV))}
+    for t, dh, dv in FLASH_SHAPES + [(1024, 8, 16)]:
+        row = {}
+        for k, kind in zip(FLASH_KERNELS, (fl._FWD, fl._DQ, fl._DKV)):
+            bq = fl.pick_tile(kind, FLASH_BATCH, t, dh, dv, flash_lib)
+            row[k] = dict(route="simt", q_tile=bq,
+                          bytes=int(flash_lib.locate_flash_smem_bytes(kind, dh, dv, bq)),
+                          blocks_per_sm=int(flash_lib.locate_flash_blocks_per_sm(
+                              0, kind, 1, dh, dv, bq)))
+        for k, kind in zip(FLASH_MMA_KERNELS, (fl._DQ, fl._DKV)):
+            wide = fl.mma_widths(dh, dv)
+            row[k] = dict(route="mma", widths=wide,
+                          bytes=int(flash_lib.locate_flash_mma_smem_bytes(kind, *wide)),
+                          blocks_per_sm=int(flash_lib.locate_flash_blocks_per_sm(
+                              1, kind, 1, *wide, 0)))
+            check(row[k]["blocks_per_sm"] >= 1, f"{k} at dh={dh}, dv={dv}: {row[k]}")
+        flash_smem[f"T={t},dh={dh},dv={dv}"] = row
+    d32 = flash_smem["T=1024,dh=16,dv=64"]["flash_dkv_mma"]["blocks_per_sm"]
+    check(d32 >= 2, f"flash_dkv_mma at dh 16, dv 64: {d32} block(s) an SM, want at least 2")
     say("build", libraries={n: os.path.relpath(str(p), REPO) for n, p in libs.items()},
         seconds=time.perf_counter() - t0, kernels=reports, dynamic_smem_bytes=smem,
+        flash_mma_kernels=mma, flash_simt_bf16_tensor_core_instructions=simt_bf16,
         flash_dynamic_smem_at_batch_16=flash_smem,
         stage_dynamic_smem_at_512x512x64=stage_smem,
         stage_conv_bwd_blocks=fs.bwd_blocks(FFHQ_BATCH, 512, 512, *fs.pick_tile(
@@ -2580,6 +2794,9 @@ def main() -> int:
     stage_rows, stage_times, stage_err = phase_stage_kernels(fs, fa)
     phase_ffhq_serving()
     ffhq_cfg, ffhq_weights, ffhq_launches = phase_ffhq_train()
+    # with the softmax gate random weights give G a norm above the shipped
+    # guard: only with it raised does G's Adam update run on the card
+    say("ffhq-train-raised-guard", **raised_guard_steps(3, "ffhq-train-raised-guard"))
     phase_ffhq_checked_backward(fs, fa, ffhq_cfg, ffhq_weights)
     del ffhq_weights
     phase_ffhq_grads_64(fs, fa, blocks)
@@ -2604,7 +2821,7 @@ def main() -> int:
     # serving (all six layers), training (five layers a net, their main path)
     flash_rows, flash_train_rows = phase_flash_kernels(fl)
     self_serve = phase_self_serving(fl)
-    self_cfg, self_weights, self_launches, self_batch = phase_self_train()
+    self_cfg, self_weights, self_launches, self_batch, self_routes = phase_self_train()
     phase_self_train_grads(fl, self_cfg, self_weights, self_batch)
     del self_weights
 
@@ -2614,8 +2831,8 @@ def main() -> int:
     out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve) for k in SIGMOID_KERNELS]
     out.append(stage_entry("stage_sigmoid", sig_stage_times, sig_stage_err, sig_launches,
                            SIGMOID_STAGE_PER_STEP["stage_sigmoid"]))
-    out += [flash_entry(k, flash_rows, flash_train_rows, self_launches, self_serve)
-            for k in FLASH_KERNELS]
+    out += [flash_entry(k, flash_rows, flash_train_rows, self_launches, self_serve,
+                        self_routes) for k in FLASH_KERNELS]
     for entry in out:
         entry["launches_ffhq_512_sigmoid_train"] = sig_launches[entry["name"]]
         entry["launches_self_attention_train"] = self_launches[entry["name"]]

@@ -114,11 +114,16 @@ cudaError_t launch_reduce(const float* part, float* out, int G, int P, int W,
   return cudaGetLastError();
 }
 
+// Opt `kernel` in to `bytes` of dynamic shared memory. A refusal is
+// returned and cleared, so that it does not resurface as a later launch's
+// cudaGetLastError().
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();
+  return err;
 }
 
 }  // namespace

@@ -5,37 +5,66 @@
 //
 // Replaces the three Pallas kernels of locate_tpu/ops/pallas/flash_attention.py:
 // `_fwd_kernel` (flash_fwd), `_dq_kernel` (flash_dq) and `_dkv_kernel`
-// (flash_dkv). The (T, S) score matrix never reaches device memory: a block
-// holds one (q tile, kv tile) of it at a time in registers and shared memory.
+// (flash_dkv), which share `_recompute_p_ds`. The (T, S) score matrix never
+// reaches device memory: a block holds one (q tile, kv tile) of it at a time.
 //
 // What bounds them on this card: operations. The operands are O(T) and stay
 // in L2, the work is O(T S): 2 B T S (dh + dv) flops forward, (2 dh + dv)
-// for dQ, (2 dh + 2 dv) for dK/dV, and B T S exponentials, which at dh = 8
-// come second after the tensor cores' rate.
+// for dQ, (2 dh + 2 dv) for dK/dV on the bf16 tensor cores, and B T S
+// exponentials a pass on the 2,112 SFU lanes. At dh = 8 the exponentials
+// are the larger floor: each backward pass recomputes P.
 //
-// What the design does about it:
+// Two routes, chosen by the caller (ops/flash_attention.py:backward_route):
+//
+// * mma: bf16 dQ and dK/dV on the tensor cores (flash_dq_mma,
+//   flash_dkv_mma), templates on the padded head widths (DH, DV) in
+//   FLASH_MMA_WIDTHS; the caller names the template a call runs on
+//   (ops/flash_attention.py:mma_widths). dh and dv must be multiples of 8
+//   and are zero-padded up to DH and DV in shared memory, never in device
+//   memory (dh = 8 runs at the mma depth of 16).
+//   - Every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate) with
+//     operands read by ldmatrix from bf16 tiles staged once each, in rows
+//     padded by 8 elements so that the 8 rows of an ldmatrix fall in
+//     distinct banks; ldmatrix.trans reads the same tile the other way.
+//   - A block owns 16 rows a warp (q rows for dQ, kv rows for dK/dV): 8
+//     warps up to dv = 64, held to 128 registers so that two blocks fit on
+//     an SM, 4 for the wider templates. It walks the other side in tiles
+//     of 64 rows, double-buffered with cp.async, so that the next tile's
+//     copy overlaps the current tile's products. Rows past the end are zero-filled by the
+//     copy and masked out of P.
+//   - flash_dq_mma keeps the score tile with q along its rows: the f32
+//     fragment of dS, rounded to bf16, is the A fragment of dS K with no
+//     trip through shared memory. flash_dkv_mma computes the transposed
+//     tile S^T = K Q^T (kv along its rows), so P^T and dS^T are the A
+//     fragments of dV += P^T dO and dK += dS^T Q; ell and delta are then per
+//     column and staged with each q tile.
+//   - Q (dQ) or K (dK/dV) fragments, and dO (dQ, dv <= 64) or V (dK/dV,
+//     dv <= 32), stay in registers for the whole walk, within the 128
+//     registers of the 8-warp blocks; dQ, dK and dV accumulate in registers,
+//     except dV at DV = 256 (T <= 64 on the model's path), which accumulates
+//     in f32 shared memory, each warp over its own rows.
+//   - P = 2^(s * scale * log2(e) - ell * log2(e)): one FMA and one ex2.approx
+//     an element; the ragged last tile alone masks P.
+// * simt: every other call (f32, widths outside the templates) and the
+//   forward: all products as f32 FMAs on the CUDA cores from shared memory,
+//   on register micro-tiles (RQ x 4 for the score tile, MR x 4 for the
+//   accumulating products), operands staged as f32 in the orientation each
+//   product reads with 16-byte loads, f32 accumulators in shared memory, so
+//   dv = 256 fits and any dh, dv within 227 KB works; a q tile is 64 or 16
+//   rows (template RQ), a kv tile 64. The bf16 backward stays callable here
+//   for comparison only.
+//
+// Both routes:
 //  * The TPU grid's sequential innermost dimension is a loop inside the
-//    block. flash_fwd and flash_dq: one block owns one (batch, q tile) and
-//    walks the kv tiles; flash_dkv: one block owns one (batch, kv tile) and
-//    walks the q tiles. No output is shared between blocks, so there are no
-//    atomics and two runs are bitwise equal.
-//  * All six products run in the kernel body as f32 FMAs from shared
-//    memory on register micro-tiles (RQ x 4 for the score tile, MR x 4 for
-//    the accumulating products, MR chosen so that narrow outputs such as
-//    dv = 32 still occupy every thread). Operands are staged as f32, in the
-//    orientation each product reads with 16-byte loads (a tile is staged
-//    twice where two products read it both ways). Tensor-core products
-//    (mma / wgmma; dh = 8 needs padding to their depth) are later work.
-//  * A kv tile is 64 wide; a q tile is 64 or 16 rows (template RQ), picked
-//    by the caller for enough blocks to fill the card and for T as small as
-//    16. Ragged edges are masked, nothing is padded in device memory.
-//  * Accumulators (O, dQ, dK, dV) live in shared memory in f32, so dv = 256
-//    fits and any dh, dv within 227 KB works without a template per width.
+//    block. flash_fwd and dQ: one block owns one (batch, q tile) and walks
+//    the kv tiles; dK/dV: one block owns one (batch, kv tile) and walks the
+//    q tiles. No output is shared between blocks, so there are no atomics
+//    and two runs are bitwise equal.
 //  * Rounding as the TPU kernels: scores summed in f32 from compute-dtype
-//    operands, scaled in f32, exp in f32, P and dS rounded to the compute
-//    dtype before their second product, each tile's product added to the
-//    f32 accumulator (dQ and dK scaled per tile), one cast at the store.
-//    The running max starts at -1e30.
+//    operands, exp in f32, P and dS rounded to the compute dtype before
+//    their second product, f32 accumulation (dQ and dK scaled per tile on
+//    the simt route, once at the end on the mma route), one cast at the
+//    store. The running max starts at -1e30.
 //  * ell (the per-row logsumexp) and delta are (B, T) f32: the TPU's
 //    128-lane broadcast has no use here. delta = rowsum(dO * O) is computed
 //    by the caller.
@@ -472,6 +501,500 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dQ and dK/dV on the tensor cores (the mma route)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// A block of the template (DH, DV) owns 16 rows a warp. Up to dv = 64 it
+// is 8 warps (128 rows: each walked tile serves twice the rows of 4 warps)
+// held to 128 registers a thread, so that two blocks fit on an SM; the wide
+// templates, whose tiles would not fit twice, take 4.
+__host__ __device__ constexpr int mma_warps(int DV) { return DV <= 64 ? 8 : 4; }
+__host__ __device__ constexpr int mma_rows(int DV) { return 16 * mma_warps(DV); }
+__host__ __device__ constexpr int mma_min_blocks(int DV) { return DV <= 64 ? 2 : 1; }
+constexpr int kMmaWalk = 64;  // rows of a walked tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes (or 4) from device to shared memory, zero-filled where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a b: one m16n8k16 product, bf16 operands, f32 accumulator
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (ex2.approx, subnormal results flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment (16 x 16, row-major) of rows row0.. and columns col0.. of
+// a bf16 tile with row stride ld.
+__device__ __forceinline__ void frag_a(uint32_t (&r)[4], const bf16* tile, int ld, int row0,
+                                       int col0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(r, tile + (row0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * ld + col0 +
+                 ((lane >> 4) << 3));
+}
+
+// c[n] += A B for NT n-tiles of 8 columns and KS k-steps of 16, B read from
+// a tile stored [n][k] (the operand transposed: K for Q K^T).
+template <int KS, int NT>
+__device__ __forceinline__ void mma_nk(float (&c)[NT][4], const uint32_t (&a)[KS][4],
+                                       const bf16* tile, int ld) {
+  const int lane = threadIdx.x & 31;
+  const bf16* base = tile + ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, base + np * 16 * ld + kk * 16);
+      mma16816(c[2 * np], a[kk], b[0], b[1]);
+      mma16816(c[2 * np + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// The same with A's fragments read from shared memory step by step (rows
+// a_row0.. of a_tile), for operands too wide to keep in registers.
+template <int KS, int NT>
+__device__ __forceinline__ void mma_nk_smem(float (&c)[NT][4], const bf16* a_tile, int lda,
+                                            int a_row0, const bf16* tile, int ld) {
+  const int lane = threadIdx.x & 31;
+  const bf16* base = tile + ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4];
+    frag_a(a, a_tile, lda, a_row0, kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, base + np * 16 * ld + kk * 16);
+      mma16816(c[2 * np], a, b[0], b[1]);
+      mma16816(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// c[n] += A B, B read transposed (ldmatrix.trans) from a tile stored
+// [k][n], its columns from n0 (K for dS K, dO for P^T dO, Q for dS^T Q).
+template <int KS, int NT>
+__device__ __forceinline__ void mma_kn(float (&c)[NT][4], const uint32_t (&a)[KS][4],
+                                       const bf16* tile, int ld, int n0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* base =
+      tile + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + n0 + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, base + kk * 16 * ld + np * 16);
+      mma16816(c[2 * np], a[kk], b[0], b[1]);
+      mma16816(c[2 * np + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// The A fragments (4 k-steps of 16) of a 16 x 64 f32 accumulator tile,
+// rounded to bf16: n-tiles 2kk and 2kk+1 make k-step kk.
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+}
+
+// ROWS x width of a row-major (rows_total, width) bf16 matrix from row
+// row0 into shared memory [ROWS][W + 8] by cp.async, 16 bytes a copy; rows
+// past rows_total are zero-filled, columns width..W are left alone.
+template <int ROWS, int W>
+__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src, int row0,
+                                            int rows_total, int width) {
+  const int chunks = width >> 3;
+  for (int e = threadIdx.x; e < ROWS * chunks; e += blockDim.x) {
+    const int r = e / chunks, c = (e - r * chunks) << 3;
+    const bool valid = row0 + r < rows_total;
+    cp_async16(dst + r * (W + 8) + c, valid ? src + (size_t)(row0 + r) * width + c : src, valid);
+  }
+}
+
+// Zero the columns width..W of ROWS rows of a [ROWS][W + 8] tile: the
+// padding up to the mma depth, written once and never copied over.
+template <int ROWS, int W>
+__device__ __forceinline__ void zero_pad(bf16* dst, int width) {
+  const int chunks = (W - width) >> 3;
+  for (int e = threadIdx.x; e < ROWS * chunks; e += blockDim.x) {
+    const int r = e / chunks, c = width + ((e - r * chunks) << 3);
+    *reinterpret_cast<uint4*>(dst + r * (W + 8) + c) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// ell and delta of the kMmaWalk rows from q0 into shared memory (zero past Tq).
+__device__ __forceinline__ void stage_stats(float* ell_s, float* dl_s, const float* ell,
+                                            const float* delta, int q0, int Tq) {
+  for (int e = threadIdx.x; e < 2 * kMmaWalk; e += blockDim.x) {
+    const int r = e & (kMmaWalk - 1);
+    const bool valid = q0 + r < Tq;
+    const float* src = e < kMmaWalk ? ell : delta;
+    cp_async4((e < kMmaWalk ? ell_s : dl_s) + r, valid ? src + q0 + r : src, valid);
+  }
+}
+
+// Rows row and row + 8 (those below `rows`) and the first `width` columns
+// of a warp's accumulator fragments, times mult, as bf16.
+template <int NT>
+__device__ __forceinline__ void store_frags(bf16* out, int ld, int row, int rows, int width,
+                                            const float (&c)[NT][4], float mult) {
+  const int col = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n * 8 >= width) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row + 8 * h < rows)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8 * h) * ld + n * 8 + col) =
+            __floats2bfloat162_rn(c[n][2 * h] * mult, c[n][2 * h + 1] * mult);
+  }
+}
+
+// acc (a warp's 16 rows, stride ld, f32 in shared memory) += fragments c
+// at columns col0..; each lane owns the positions of its fragments.
+template <int NT>
+__device__ __forceinline__ void add_frags(float* acc, int ld, const float (&c)[NT][4],
+                                          int col0) {
+  const int lane = threadIdx.x & 31;
+  const int r = lane >> 2, col = col0 + 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2* p = reinterpret_cast<float2*>(acc + (r + 8 * h) * ld + n * 8 + col);
+      float2 x = *p;
+      x.x += c[n][2 * h];
+      x.y += c[n][2 * h + 1];
+      *p = x;
+    }
+}
+
+// Shared-memory bytes of one block of the mma kernels (kind 1: dQ, 2: dK/dV).
+__host__ __device__ inline size_t dq_mma_bytes(int DH, int DV) {
+  return (size_t)(mma_rows(DV) + 2 * kMmaWalk) * ((DH + 8) + (DV + 8)) * sizeof(bf16);
+}
+__host__ __device__ inline size_t dkv_mma_bytes(int DH, int DV) {
+  return dq_mma_bytes(DH, DV) + 4 * kMmaWalk * sizeof(float) +
+         (DV > 128 ? (size_t)mma_rows(DV) * (DV + 8) * sizeof(float) : 0);
+}
+
+// dQ: block = (batch row, mma_rows(DV) q rows), loop over kv tiles of 64.
+template <int DH, int DV>
+__global__ void __launch_bounds__(32 * mma_warps(DV), mma_min_blocks(DV))
+flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+             const bf16* __restrict__ dout, const float* __restrict__ ell,
+             const float* __restrict__ delta, bf16* __restrict__ dq, int Tq, int S, int dh,
+             int dv, int q_tiles, float scale) {
+  constexpr int LH = DH + 8, LV = DV + 8, kRows = mma_rows(DV);
+  constexpr bool kHold = DV <= 64;  // dO's fragments stay in registers
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [kRows][LH]
+  bf16* dOs = Qs + kRows * LH;                // [kRows][LV]
+  bf16* Ks = dOs + kRows * LV;                // [2][kMmaWalk][LH]
+  bf16* Vs = Ks + 2 * kMmaWalk * LH;          // [2][kMmaWalk][LV]
+
+  const int b = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - b * q_tiles) * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = q0 + warp * 16 + (lane >> 2);  // this lane's rows: row, row + 8
+  const bool active = q0 + warp * 16 < Tq;
+  q += (size_t)b * Tq * dh;
+  dout += (size_t)b * Tq * dv;
+  k += (size_t)b * S * dh;
+  v += (size_t)b * S * dv;
+
+  zero_pad<kRows, DH>(Qs, dh);
+  zero_pad<kRows, DV>(dOs, dv);
+  zero_pad<2 * kMmaWalk, DH>(Ks, dh);
+  zero_pad<2 * kMmaWalk, DV>(Vs, dv);
+  stage_async<kRows, DH>(Qs, q, q0, Tq, dh);
+  stage_async<kRows, DV>(dOs, dout, q0, Tq, dv);
+  stage_async<kMmaWalk, DH>(Ks, k, 0, S, dh);
+  stage_async<kMmaWalk, DV>(Vs, v, 0, S, dv);
+  cp_async_commit();
+
+  const float c = scale * kLog2e;
+  float ell_r[2], dl_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row + 8 * h < Tq;
+    ell_r[h] = in ? ell[(size_t)b * Tq + row + 8 * h] * kLog2e : 0.f;
+    dl_r[h] = in ? delta[(size_t)b * Tq + row + 8 * h] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qa[DH / 16][4];
+  uint32_t oa[kHold ? DV / 16 : 1][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) frag_a(qa[kk], Qs, LH, warp * 16, kk * 16);
+  if constexpr (kHold) {
+#pragma unroll
+    for (int kk = 0; kk < DV / 16; ++kk) frag_a(oa[kk], dOs, LV, warp * 16, kk * 16);
+  }
+  float acc[DH / 8][4];
+  zero(acc);
+
+  const int kv_tiles = (S + kMmaWalk - 1) / kMmaWalk;
+  for (int j = 0; j < kv_tiles; ++j) {
+    if (j + 1 < kv_tiles) {  // the next tile's copy runs under this tile's products
+      const int nb = (j + 1) & 1;
+      stage_async<kMmaWalk, DH>(Ks + nb * kMmaWalk * LH, k, (j + 1) * kMmaWalk, S, dh);
+      stage_async<kMmaWalk, DV>(Vs + nb * kMmaWalk * LV, v, (j + 1) * kMmaWalk, S, dv);
+      cp_async_commit();
+    }
+    if (active) {
+      const bf16* Kt = Ks + (j & 1) * kMmaWalk * LH;
+      const bf16* Vt = Vs + (j & 1) * kMmaWalk * LV;
+      float s[8][4], dp[8][4];
+      zero(s);
+      zero(dp);
+      mma_nk<DH / 16, 8>(s, qa, Kt, LH);  // S = Q K^T
+      if constexpr (kHold)
+        mma_nk<DV / 16, 8>(dp, oa, Vt, LV);  // dP = dO V^T
+      else
+        mma_nk_smem<DV / 16, 8>(dp, dOs, LV, warp * 16, Vt, LV);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = ex2(fmaf(s[n][e], c, -ell_r[e >> 1]));  // P
+      if ((j + 1) * kMmaWalk > S) {  // the last tile: P is 0 past S
+        const int col = j * kMmaWalk + 2 * (lane & 3);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + n * 8 + (e & 1) >= S) s[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - dl_r[e >> 1]);  // dS
+      uint32_t dsa[4][4];
+      to_a_frags(dsa, dp);
+      mma_kn<4, DH / 8>(acc, dsa, Kt, LH, 0);  // dQ += dS K
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (active) store_frags<DH / 8>(dq + (size_t)b * Tq * dh, dh, row, Tq, dh, acc, scale);
+}
+
+// dK, dV: block = (batch row, mma_rows(DV) kv rows), loop over q tiles of 64.
+template <int DH, int DV>
+__global__ void __launch_bounds__(32 * mma_warps(DV), mma_min_blocks(DV))
+flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+              const bf16* __restrict__ dout, const float* __restrict__ ell,
+              const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dvo,
+              int Tq, int S, int dh, int dv, int kv_tiles, float scale) {
+  constexpr int LH = DH + 8, LV = DV + 8, LA = DV + 8, kRows = mma_rows(DV);
+  constexpr bool kHold = DV <= 32;    // V's fragments stay in registers
+  constexpr bool kShared = DV > 128;  // dV accumulates in shared memory
+  extern __shared__ float4 smem4[];
+  float* ell_s = reinterpret_cast<float*>(smem4);  // [2][kMmaWalk]
+  float* dl_s = ell_s + 2 * kMmaWalk;              // [2][kMmaWalk]
+  float* dVa = dl_s + 2 * kMmaWalk;                // [kRows][LA] where kShared
+  bf16* Ks = reinterpret_cast<bf16*>(dVa + (kShared ? kRows * LA : 0));  // [kRows][LH]
+  bf16* Vs = Ks + kRows * LH;                      // [kRows][LV]
+  bf16* Qs = Vs + kRows * LV;                      // [2][kMmaWalk][LH]
+  bf16* dOs = Qs + 2 * kMmaWalk * LH;              // [2][kMmaWalk][LV]
+
+  const int b = blockIdx.x / kv_tiles;
+  const int s0 = (blockIdx.x - b * kv_tiles) * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = s0 + warp * 16 + (lane >> 2);  // this lane's kv rows: row, row + 8
+  const bool active = s0 + warp * 16 < S;
+  q += (size_t)b * Tq * dh;
+  dout += (size_t)b * Tq * dv;
+  k += (size_t)b * S * dh;
+  v += (size_t)b * S * dv;
+  ell += (size_t)b * Tq;
+  delta += (size_t)b * Tq;
+
+  zero_pad<kRows, DH>(Ks, dh);
+  zero_pad<kRows, DV>(Vs, dv);
+  zero_pad<2 * kMmaWalk, DH>(Qs, dh);
+  zero_pad<2 * kMmaWalk, DV>(dOs, dv);
+  stage_async<kRows, DH>(Ks, k, s0, S, dh);
+  stage_async<kRows, DV>(Vs, v, s0, S, dv);
+  stage_async<kMmaWalk, DH>(Qs, q, 0, Tq, dh);
+  stage_async<kMmaWalk, DV>(dOs, dout, 0, Tq, dv);
+  stage_stats(ell_s, dl_s, ell, delta, 0, Tq);
+  cp_async_commit();
+  if constexpr (kShared) {
+    for (int e = lane; e < 16 * LA; e += 32) dVa[warp * 16 * LA + e] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t ka[DH / 16][4];
+  uint32_t va[kHold ? DV / 16 : 1][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) frag_a(ka[kk], Ks, LH, warp * 16, kk * 16);
+  if constexpr (kHold) {
+#pragma unroll
+    for (int kk = 0; kk < DV / 16; ++kk) frag_a(va[kk], Vs, LV, warp * 16, kk * 16);
+  }
+  float dka[DH / 8][4];
+  float dva[kShared ? 2 : DV / 8][4];
+  zero(dka);
+  zero(dva);
+
+  const float c = scale * kLog2e;
+  const int q_tiles = (Tq + kMmaWalk - 1) / kMmaWalk;
+  for (int i = 0; i < q_tiles; ++i) {
+    if (i + 1 < q_tiles) {  // the next tile's copy runs under this tile's products
+      const int nb = (i + 1) & 1, n0 = (i + 1) * kMmaWalk;
+      stage_async<kMmaWalk, DH>(Qs + nb * kMmaWalk * LH, q, n0, Tq, dh);
+      stage_async<kMmaWalk, DV>(dOs + nb * kMmaWalk * LV, dout, n0, Tq, dv);
+      stage_stats(ell_s + nb * kMmaWalk, dl_s + nb * kMmaWalk, ell, delta, n0, Tq);
+      cp_async_commit();
+    }
+    if (active) {
+      const bf16* Qt = Qs + (i & 1) * kMmaWalk * LH;
+      const bf16* dOt = dOs + (i & 1) * kMmaWalk * LV;
+      const float* el = ell_s + (i & 1) * kMmaWalk;
+      const float* dl = dl_s + (i & 1) * kMmaWalk;
+      float s[8][4], dp[8][4];
+      zero(s);
+      zero(dp);
+      mma_nk<DH / 16, 8>(s, ka, Qt, LH);  // S^T = K Q^T
+      if constexpr (kHold)
+        mma_nk<DV / 16, 8>(dp, va, dOt, LV);  // dP^T = V dO^T
+      else
+        mma_nk_smem<DV / 16, 8>(dp, Vs, LV, warp * 16, dOt, LV);
+      const int cl = 2 * (lane & 3);  // this lane's first column of each n-tile
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 e2 = *reinterpret_cast<const float2*>(el + n * 8 + cl);
+        const float lse[2] = {e2.x * kLog2e, e2.y * kLog2e};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = ex2(fmaf(s[n][e], c, -lse[e & 1]));  // P^T
+      }
+      if ((i + 1) * kMmaWalk > Tq) {  // the last tile: P^T is 0 past Tq
+        const int col = i * kMmaWalk + cl;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + n * 8 + (e & 1) >= Tq) s[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + n * 8 + cl);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - (e & 1 ? d2.y : d2.x));
+      }
+      uint32_t pa[4][4], dsa[4][4];
+      to_a_frags(pa, s);
+      to_a_frags(dsa, dp);
+      if constexpr (kShared) {
+#pragma unroll
+        for (int chunk = 0; chunk < DV / 64; ++chunk) {
+          float part[8][4];
+          zero(part);
+          mma_kn<4, 8>(part, pa, dOt, LV, chunk * 64);  // dV += P^T dO
+          add_frags<8>(dVa + warp * 16 * LA, LA, part, chunk * 64);
+        }
+      } else {
+        mma_kn<4, DV / 8>(dva, pa, dOt, LV, 0);  // dV += P^T dO
+      }
+      mma_kn<4, DH / 8>(dka, dsa, Qt, LH, 0);  // dK += dS^T Q
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (!active) return;
+  store_frags<DH / 8>(dk + (size_t)b * S * dh, dh, row, S, dh, dka, scale);
+  if constexpr (kShared) {
+    __syncwarp();
+    const int r0 = s0 + warp * 16;
+    bf16* out = dvo + ((size_t)b * S + r0) * dv;
+    for (int e = lane; e < 16 * dv; e += 32) {
+      const int r = e / dv, col = e - r * dv;
+      if (r0 + r < S) out[e] = __float2bfloat16(dVa[(warp * 16 + r) * LA + col]);
+    }
+  } else {
+    store_frags<DV / 8>(dvo + (size_t)b * S * dv, dv, row, S, dv, dva, 1.f);
+  }
+}
+
+// (DH, DV) of the instantiated mma templates. Which one a call runs on is
+// the caller's choice (ops/flash_attention.py:MMA_WIDTHS and mma_widths);
+// the C interface takes that pair and dispatches it exactly.
+#define FLASH_MMA_WIDTHS(X) X(16, 16) X(16, 32) X(16, 64) X(32, 128) X(64, 256)
+
+// True where (DH, DV) is an instantiated template.
+inline bool mma_template(int DH, int DV) {
+#define FLASH_IS(a, b) \
+  if (DH == a && DV == b) return true;
+  FLASH_MMA_WIDTHS(FLASH_IS)
+#undef FLASH_IS
+  return false;
+}
+
+// True where the template (DH, DV) can run (dh, dv): multiples of 8 (the
+// 16-byte copies of a bf16 row) that it holds.
+inline bool mma_holds(int DH, int DV, int dh, int dv) {
+  return mma_template(DH, DV) && dh >= 1 && dv >= 1 && dh % 8 == 0 && dv % 8 == 0 && dh <= DH &&
+         dv <= DV;
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -522,11 +1045,103 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+template <int DH, int DV>
+cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                          const void* ell, const void* delta, void* dq, int B, int Tq, int S,
+                          int dh, int dv, float scale, cudaStream_t stream) {
+  const int tiles = tiles_of(Tq, mma_rows(DV));
+  if (!grid_fits((long long)B * tiles)) return cudaErrorInvalidValue;
+  const size_t smem = dq_mma_bytes(DH, DV);
+  cudaError_t err = allow_smem(flash_dq_mma<DH, DV>, smem);
+  if (err != cudaSuccess) return err;
+  flash_dq_mma<DH, DV><<<B * tiles, 32 * mma_warps(DV), smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)ell,
+      (const float*)delta, (bf16*)dq, Tq, S, dh, dv, tiles, scale);
+  return cudaGetLastError();
+}
+
+template <int DH, int DV>
+cudaError_t launch_dkv_mma(const void* q, const void* k, const void* v, const void* dout,
+                           const void* ell, const void* delta, void* dk, void* dvo, int B, int Tq,
+                           int S, int dh, int dv, float scale, cudaStream_t stream) {
+  const int tiles = tiles_of(S, mma_rows(DV));
+  if (!grid_fits((long long)B * tiles)) return cudaErrorInvalidValue;
+  const size_t smem = dkv_mma_bytes(DH, DV);
+  cudaError_t err = allow_smem(flash_dkv_mma<DH, DV>, smem);
+  if (err != cudaSuccess) return err;
+  flash_dkv_mma<DH, DV><<<B * tiles, 32 * mma_warps(DV), smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, (const float*)ell,
+      (const float*)delta, (bf16*)dk, (bf16*)dvo, Tq, S, dh, dv, tiles, scale);
+  return cudaGetLastError();
+}
+
+// Blocks of `kernel` that fit on one SM at once (threads, registers, shared
+// memory), 0 where its shared memory is refused; -(cudaError_t) where the
+// query fails otherwise (the error cleared).
+template <typename K>
+int occupancy(K kernel, int threads, size_t smem) {
+  if (allow_smem(kernel, smem) != cudaSuccess) return 0;
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)err;
+  }
+  return n;
+}
+
+template <typename T, int RQ>
+int simt_blocks(int kind, int dh, int dv) {
+  const int bq = 16 * RQ;
+  if (kind == 0) return occupancy(flash_fwd<T, RQ>, kThreads, fwd_floats(dh, dv, bq) * 4);
+  if (kind == 1) return occupancy(flash_dq<T, RQ>, kThreads, dq_floats(dh, dv, bq) * 4);
+  return occupancy(flash_dkv<T, RQ>, kThreads, dkv_floats(dh, dv, bq) * 4);
+}
+
+template <int DH, int DV>
+int mma_blocks(int kind) {
+  const int threads = 32 * mma_warps(DV);
+  if (kind == 1) return occupancy(flash_dq_mma<DH, DV>, threads, dq_mma_bytes(DH, DV));
+  return occupancy(flash_dkv_mma<DH, DV>, threads, dkv_mma_bytes(DH, DV));
+}
+
+constexpr int kRouteSimt = 0, kRouteMma = 1;
+
+// The mma template (DH, DV) launched on (dh, dv); cudaErrorInvalidValue
+// where it is not instantiated or does not hold the widths.
+cudaError_t dq_mma(const void* q, const void* k, const void* v, const void* dout,
+                   const void* ell, const void* delta, void* dq, int B, int Tq, int S, int dh,
+                   int dv, int DH, int DV, float scale, cudaStream_t stream) {
+  if (!mma_holds(DH, DV, dh, dv)) return cudaErrorInvalidValue;
+#define FLASH_CALL(a, b)                                                                   \
+  if (DH == a && DV == b)                                                                  \
+    return launch_dq_mma<a, b>(q, k, v, dout, ell, delta, dq, B, Tq, S, dh, dv, scale, stream);
+  FLASH_MMA_WIDTHS(FLASH_CALL)
+#undef FLASH_CALL
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t dkv_mma(const void* q, const void* k, const void* v, const void* dout,
+                    const void* ell, const void* delta, void* dk, void* dvo, int B, int Tq,
+                    int S, int dh, int dv, int DH, int DV, float scale, cudaStream_t stream) {
+  if (!mma_holds(DH, DV, dh, dv)) return cudaErrorInvalidValue;
+#define FLASH_CALL(a, b)                                                                  \
+  if (DH == a && DV == b)                                                                 \
+    return launch_dkv_mma<a, b>(q, k, v, dout, ell, delta, dk, dvo, B, Tq, S, dh, dv, scale, \
+                                stream);
+  FLASH_MMA_WIDTHS(FLASH_CALL)
+#undef FLASH_CALL
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Plain C interface, loaded with ctypes. `is_bf16` selects the compute
-// dtype (1: bfloat16, 0: float32); `bq` is the q tile, 64 or 16 rows.
-// Returns a cudaError_t (0 = launched).
+// Plain C interface, loaded with ctypes. `route` selects the kernels of the
+// two backward passes (0: simt, 1: mma, bf16 only); `is_bf16` the compute
+// dtype (1: bfloat16, 0: float32); `bq` the simt route's q tile, 64 or 16
+// rows; `DH`, `DV` the mma route's template (0 on the simt route, whose
+// kernels take any widths, and `bq` 0 on the mma route, whose blocks are
+// the template's). Returns a cudaError_t (0 = launched).
 #define FLASH_DISPATCH(fn, ...)                                             \
   do {                                                                      \
     if (bq == 64) {                                                         \
@@ -542,11 +1157,38 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 extern "C" {
 
-// kind 0: flash_fwd, 1: flash_dq, 2: flash_dkv.
+// kind 0: flash_fwd, 1: flash_dq, 2: flash_dkv, on the simt route.
 size_t locate_flash_smem_bytes(int kind, int dh, int dv, int bq) {
   const size_t floats = kind == 0 ? fwd_floats(dh, dv, bq)
                         : kind == 1 ? dq_floats(dh, dv, bq) : dkv_floats(dh, dv, bq);
   return floats * sizeof(float);
+}
+
+// kind 1: flash_dq, 2: flash_dkv, on the mma route: the bytes of the
+// template (DH, DV), 0 where it is not instantiated.
+size_t locate_flash_mma_smem_bytes(int kind, int DH, int DV) {
+  if ((kind != 1 && kind != 2) || !mma_template(DH, DV)) return 0;
+  return kind == 1 ? dq_mma_bytes(DH, DV) : dkv_mma_bytes(DH, DV);
+}
+
+// Blocks of a kernel that fit on one SM at once; 0 where there is no such
+// kernel or its shared memory is refused. On the mma route (dh, dv) name
+// the template.
+int locate_flash_blocks_per_sm(int route, int kind, int is_bf16, int dh, int dv, int bq) {
+  if (route == kRouteMma) {
+    const int DH = dh, DV = dv;
+    if (!is_bf16 || (kind != 1 && kind != 2) || !mma_template(DH, DV)) return 0;
+#define FLASH_MMA_BLOCKS(a, b) \
+    if (DH == a && DV == b) return mma_blocks<a, b>(kind);
+    FLASH_MMA_WIDTHS(FLASH_MMA_BLOCKS)
+#undef FLASH_MMA_BLOCKS
+    return 0;
+  }
+  if (bq == 64) return is_bf16 ? simt_blocks<__nv_bfloat16, 4>(kind, dh, dv)
+                               : simt_blocks<float, 4>(kind, dh, dv);
+  if (bq == 16) return is_bf16 ? simt_blocks<__nv_bfloat16, 1>(kind, dh, dv)
+                               : simt_blocks<float, 1>(kind, dh, dv);
+  return 0;
 }
 
 // q (B, T, dh), k (B, S, dh), v (B, S, dv) in; o (B, T, dv) and ell (B, T) f32 out.
@@ -558,19 +1200,29 @@ int locate_flash_fwd(int is_bf16, const void* q, const void* k, const void* v, v
 }
 
 // dout (B, T, dv), ell and delta (B, T) f32 in; dq (B, T, dh) out.
-int locate_flash_dq(int is_bf16, const void* q, const void* k, const void* v, const void* dout,
-                    const void* ell, const void* delta, void* dq, int B, int T, int S, int dh,
-                    int dv, int bq, float scale, void* stream) {
+int locate_flash_dq(int route, int is_bf16, const void* q, const void* k, const void* v,
+                    const void* dout, const void* ell, const void* delta, void* dq, int B, int T,
+                    int S, int dh, int dv, int bq, int DH, int DV, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == kRouteMma) {
+    if (!is_bf16) return (int)cudaErrorInvalidValue;
+    return (int)dq_mma(q, k, v, dout, ell, delta, dq, B, T, S, dh, dv, DH, DV, scale, s);
+  }
+  if (route != kRouteSimt) return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(launch_dq, q, k, v, dout, ell, delta, dq, B, T, S, dh, dv, scale, s);
 }
 
 // The inputs of locate_flash_dq; dk (B, S, dh) and dv_out (B, S, dv) out.
-int locate_flash_dkv(int is_bf16, const void* q, const void* k, const void* v,
+int locate_flash_dkv(int route, int is_bf16, const void* q, const void* k, const void* v,
                      const void* dout, const void* ell, const void* delta, void* dk,
-                     void* dv_out, int B, int T, int S, int dh, int dv, int bq, float scale,
-                     void* stream) {
+                     void* dv_out, int B, int T, int S, int dh, int dv, int bq, int DH, int DV,
+                     float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == kRouteMma) {
+    if (!is_bf16) return (int)cudaErrorInvalidValue;
+    return (int)dkv_mma(q, k, v, dout, ell, delta, dk, dv_out, B, T, S, dh, dv, DH, DV, scale, s);
+  }
+  if (route != kRouteSimt) return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(launch_dkv, q, k, v, dout, ell, delta, dk, dv_out, B, T, S, dh, dv, scale, s);
 }
 

@@ -13,11 +13,17 @@ tensors and run the plain version for CPU tensors; nothing falls back from
 one to the other: `flash_fwd` (O and the per-row logsumexp `ell`),
 `flash_dq` and `flash_dkv` (the two backward passes, from `ell` and
 `delta = rowsum(dO * O)`). Each counts its kernel launches in its
-`launches` attribute. `flash_attention` runs them through `FlashAttention`,
-a first-order `torch.autograd.Function` that saves q, k, v, o and ell (all
-O(T)) and never the (T, S) matrix. `attention_reference` is the
-composition that materializes it: the path without kernels, and the one a
-second derivative (R1) takes.
+`launches` attribute. The two backward passes have two routes, which
+`backward_route` picks from the dtype and the head widths: "mma" (bf16 on
+the tensor cores, widths padded to a template of `MMA_WIDTHS`) and "simt"
+(f32 FMAs on the CUDA cores: f32, and widths no template takes); each
+route's launches are counted apart too (`launches_mma`, `launches_simt`).
+Only an explicit `route="simt"` sends a bf16 call the mma route takes to
+the simt kernels, for comparing the two. `flash_attention` runs the
+kernels through `FlashAttention`, a first-order `torch.autograd.Function`
+that saves q, k, v, o and ell (all O(T)) and never the (T, S) matrix.
+`attention_reference` is the composition that materializes it: the path
+without kernels, and the one a second derivative (R1) takes.
 """
 
 from __future__ import annotations
@@ -36,8 +42,16 @@ _MAX_SMEM = 232448
 _FILL_BLOCKS = 132
 # kernel kinds of `locate_flash_smem_bytes`
 _FWD, _DQ, _DKV = 0, 1, 2
-# the two q tiles the kernels are built for (a kv tile is 64 rows)
+# the two q tiles the simt kernels are built for (a kv tile is 64 rows)
 Q_TILES = (64, 16)
+# the two routes of the backward passes, and their codes in the C interface
+MMA, SIMT = "mma", "simt"
+_ROUTE_CODE = {SIMT: 0, MMA: 1}
+# (dh, dv) of the mma kernels' templates, narrowest first: a call's widths
+# (multiples of 8) are padded, in shared memory, up to the first pair that
+# holds both (`mma_widths`), and the library launches the pair it is given;
+# each must be instantiated in csrc/flash_attention.cu:FLASH_MMA_WIDTHS
+MMA_WIDTHS = ((16, 16), (16, 32), (16, 64), (32, 128), (64, 256))
 
 
 # ---------------------------------------------------------------------------
@@ -134,9 +148,13 @@ def _library() -> ctypes.CDLL:
         lib.locate_flash_smem_bytes.restype = ctypes.c_size_t
         lib.locate_flash_fwd.argtypes = [i] + [p] * 5 + [i] * 6 + [f, p]
         lib.locate_flash_fwd.restype = i
-        lib.locate_flash_dq.argtypes = [i] + [p] * 7 + [i] * 6 + [f, p]
+        lib.locate_flash_mma_smem_bytes.argtypes = [i] * 3
+        lib.locate_flash_mma_smem_bytes.restype = ctypes.c_size_t
+        lib.locate_flash_blocks_per_sm.argtypes = [i] * 6
+        lib.locate_flash_blocks_per_sm.restype = i
+        lib.locate_flash_dq.argtypes = [i, i] + [p] * 7 + [i] * 8 + [f, p]
         lib.locate_flash_dq.restype = i
-        lib.locate_flash_dkv.argtypes = [i] + [p] * 8 + [i] * 6 + [f, p]
+        lib.locate_flash_dkv.argtypes = [i, i] + [p] * 8 + [i] * 8 + [f, p]
         lib.locate_flash_dkv.restype = i
         lib.locate_flash_error_string.argtypes = [i]
         lib.locate_flash_error_string.restype = ctypes.c_char_p
@@ -160,6 +178,22 @@ def _on_card(t: torch.Tensor) -> bool:
     return True
 
 
+def mma_widths(dh: int, dv: int) -> Optional[Tuple[int, int]]:
+    """The (DH, DV) template the mma kernels run (dh, dv) on: the first pair
+    of `MMA_WIDTHS` that holds both, for widths that are multiples of 8 (the
+    16-byte copies of a bf16 row); None where no template takes them."""
+    if dh < 1 or dv < 1 or dh % 8 or dv % 8:
+        return None
+    return next(((a, b) for a, b in MMA_WIDTHS if dh <= a and dv <= b), None)
+
+
+def backward_route(dtype: torch.dtype, dh: int, dv: int) -> str:
+    """The kernels of the two backward passes: "mma" for bf16 at widths a
+    template takes, "simt" otherwise (f32 keeps its f32 products, since
+    TF32 would miss the f32 rule of 1e-4)."""
+    return MMA if dtype == torch.bfloat16 and mma_widths(dh, dv) else SIMT
+
+
 def tile_candidates(kind: int, b: int, t: int) -> Tuple[int, ...]:
     """The q tiles to try, in order. flash_fwd and flash_dq own one q tile a
     block: 64 rows where that still gives the card's 132 SMs a block each,
@@ -171,10 +205,22 @@ def tile_candidates(kind: int, b: int, t: int) -> Tuple[int, ...]:
 
 
 def pick_tile(kind: int, b: int, t: int, dh: int, dv: int,
-              lib: Optional[ctypes.CDLL] = None) -> int:
+              lib: Optional[ctypes.CDLL] = None, route: str = SIMT) -> int:
     """The first q tile of `tile_candidates` whose block fits in an SM's
-    shared memory (the library says how much a block takes)."""
+    shared memory (the library says how much a block takes). The mma route
+    has no tile to pick (its blocks are the template's): the library's
+    bytes for the template `mma_widths` names must fit, and 0 is
+    returned."""
     lib = lib or _library()
+    if route == MMA:
+        wide = mma_widths(dh, dv)
+        nbytes = lib.locate_flash_mma_smem_bytes(kind, *wide) if wide else 0
+        if nbytes == 0:
+            raise ValueError(f"dh={dh}, dv={dv}: no mma template takes these widths")
+        if nbytes > _MAX_SMEM:
+            raise ValueError(f"dh={dh}, dv={dv}: the mma block takes {nbytes} bytes of "
+                             f"shared memory, more than {_MAX_SMEM}")
+        return 0
     for bq in tile_candidates(kind, b, t):
         if lib.locate_flash_smem_bytes(kind, dh, dv, bq) <= _MAX_SMEM:
             return bq
@@ -239,57 +285,100 @@ def flash_fwd(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
 flash_fwd.launches = 0
 
 
-def flash_dq(q, k, v, do, ell, delta, scale: float) -> torch.Tensor:
-    """dq (B, T, dh) in q's dtype. CUDA tensors: the `flash_dq` kernel
-    (replaces `_dq_kernel`); CPU tensors: the plain version."""
-    if not _on_card(q):
-        return flash_dq_reference(q, k, v, do, ell, delta, scale)
+def _route_of(route: Optional[str], dtype: torch.dtype, dh: int, dv: int) -> str:
+    """`route`, or `backward_route`'s choice where it is None; a route the
+    call cannot take raises."""
+    if route is None:
+        return backward_route(dtype, dh, dv)
+    if route not in _ROUTE_CODE:
+        raise ValueError(f"route must be {MMA!r} or {SIMT!r}, got {route!r}")
+    if route == MMA and backward_route(dtype, dh, dv) != MMA:
+        raise ValueError(f"the mma route takes bf16 with widths a template of {MMA_WIDTHS} "
+                         f"holds (multiples of 8), got {dtype}, dh={dh}, dv={dv}")
+    return route
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x at a 16-byte boundary, where the mma kernels' 16-byte copies need
+    it (a view into a larger tensor may start elsewhere)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _backward_call(kind, q, k, v, do, ell, delta, route):
+    """The checked operands of a backward pass (`kind` _DQ or _DKV) on the
+    card: ((q, k, v, do), ell, delta, (b, t, s, dh, dv), route, (q tile,
+    DH, DV), library); the simt route's q tile, or the mma route's
+    template, the other zero."""
     (q, k, v, do), (b, t, s, dh, dv) = _operands(q, k, v, do)
     if tuple(do.shape) != (b, t, dv):
         raise ValueError(f"do must be {(b, t, dv)}, got {tuple(do.shape)}")
     ell, delta = _row_stat("ell", ell, b, t, q.device), _row_stat("delta", delta, b, t, q.device)
+    route = _route_of(route, q.dtype, dh, dv)
+    if route == MMA:
+        q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     lib = _library()
-    bq = pick_tile(_DQ, b, t, dh, dv, lib)
+    bq = pick_tile(kind, b, t, dh, dv, lib, route)
+    wide = mma_widths(dh, dv) if route == MMA else (0, 0)
+    return (q, k, v, do), ell, delta, (b, t, s, dh, dv), route, (bq, *wide), lib
+
+
+def _count(fn, route: str) -> None:
+    fn.launches += 1
+    if route == MMA:
+        fn.launches_mma += 1
+    else:
+        fn.launches_simt += 1
+
+
+def flash_dq(q, k, v, do, ell, delta, scale: float, route: Optional[str] = None) -> torch.Tensor:
+    """dq (B, T, dh) in q's dtype. CUDA tensors: the `flash_dq` kernel
+    (replaces `_dq_kernel`) on `route`, `backward_route`'s choice unless
+    given; CPU tensors: the plain version (a route the call cannot take
+    raises on both)."""
+    if not _on_card(q):
+        _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
+        return flash_dq_reference(q, k, v, do, ell, delta, scale)
+    (q, k, v, do), ell, delta, (b, t, s, dh, dv), route, tile, lib = _backward_call(
+        _DQ, q, k, v, do, ell, delta, route)
     with torch.cuda.device(q.device):
         dq = torch.empty_like(q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.locate_flash_dq(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), ell.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t, s, dh, dv,
-            bq, float(scale), stream)
-    _check(lib, err, "flash_dq")
-    flash_dq.launches += 1
+            _ROUTE_CODE[route], int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), ell.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, t,
+            s, dh, dv, *tile, float(scale), stream)
+    _check(lib, err, f"flash_dq ({route})")
+    _count(flash_dq, route)
     return dq
 
 
-flash_dq.launches = 0
+flash_dq.launches = flash_dq.launches_mma = flash_dq.launches_simt = 0
 
 
-def flash_dkv(q, k, v, do, ell, delta, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_dkv(q, k, v, do, ell, delta, scale: float,
+              route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk (B, S, dh), dv (B, S, dv)) in q's dtype. CUDA tensors: the
-    `flash_dkv` kernel (replaces `_dkv_kernel`); CPU tensors: the plain
-    version."""
+    `flash_dkv` kernel (replaces `_dkv_kernel`) on `route`,
+    `backward_route`'s choice unless given; CPU tensors: the plain version
+    (a route the call cannot take raises on both)."""
     if not _on_card(q):
+        _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
         return flash_dkv_reference(q, k, v, do, ell, delta, scale)
-    (q, k, v, do), (b, t, s, dh, dv) = _operands(q, k, v, do)
-    if tuple(do.shape) != (b, t, dv):
-        raise ValueError(f"do must be {(b, t, dv)}, got {tuple(do.shape)}")
-    ell, delta = _row_stat("ell", ell, b, t, q.device), _row_stat("delta", delta, b, t, q.device)
-    lib = _library()
-    bq = pick_tile(_DKV, b, t, dh, dv, lib)
+    (q, k, v, do), ell, delta, (b, t, s, dh, dv), route, tile, lib = _backward_call(
+        _DKV, q, k, v, do, ell, delta, route)
     with torch.cuda.device(q.device):
         dk, dv_out = torch.empty_like(k), torch.empty_like(v)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.locate_flash_dkv(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), ell.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv_out.data_ptr(), b, t, s, dh, dv, bq, float(scale), stream)
-    _check(lib, err, "flash_dkv")
-    flash_dkv.launches += 1
+            _ROUTE_CODE[route], int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), ell.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv_out.data_ptr(), b, t, s, dh, dv, *tile, float(scale), stream)
+    _check(lib, err, f"flash_dkv ({route})")
+    _count(flash_dkv, route)
     return dk, dv_out
 
 
-flash_dkv.launches = 0
+flash_dkv.launches = flash_dkv.launches_mma = flash_dkv.launches_simt = 0
 
 
 def flash_backward(q, k, v, o, ell, do, scale: float):

@@ -811,3 +811,168 @@ def test_self_attention_layer_on_the_card(cuda, heads):
         # key's score, which the softmax ignores): on the key weights' scale
         scale = grads["k.w"][1] if name == "k.b" else want
         assert float((got - want).norm() / scale.norm()) <= F32_TOL, name
+
+
+# ---------------------------------------------------------------------------
+# the two routes of the flash backward passes (mma: bf16 on the tensor cores)
+# ---------------------------------------------------------------------------
+
+# (T, dh, dv) of all nine self-attention layers of lsun_bedroom_128 (G's six
+# and D's three others)
+FLASH_ALL_SHAPES = FLASH_SHAPES + [(1024, 16, 64), (256, 32, 128), (64, 64, 256)]
+
+
+def flash_backward_on(route, q, k, v, do, scale):
+    """(dq, dk, dv) of the two backward passes on `route` (None: the route
+    `backward_route` picks), from the kernel forward's ell."""
+    with torch.no_grad():
+        o, ell = fl.flash_fwd(q, k, v, scale)
+        delta = fl.row_delta(o, do)
+        out = (fl.flash_dq(q, k, v, do, ell, delta, scale, route=route),
+               *fl.flash_dkv(q, k, v, do, ell, delta, scale, route=route))
+        torch.cuda.synchronize()
+    return out
+
+
+def check_mma(b, t, s, dh, dv, device, seed=0):
+    """The mma route against the plain versions (the bf16 rule); the simt
+    route on the same inputs under the same rule; two mma runs bitwise
+    equal; one launch of each mma kernel a call."""
+    q, k, v, do = flash_inputs(b, t, s, dh, dv, torch.bfloat16, device, seed)
+    scale = dh ** -0.5
+    assert fl.backward_route(q.dtype, dh, dv) == fl.MMA
+    before = fl.flash_dq.launches_mma, fl.flash_dkv.launches_mma
+    mma = flash_backward_on(None, q, k, v, do, scale)
+    assert (fl.flash_dq.launches_mma, fl.flash_dkv.launches_mma) == (before[0] + 1,
+                                                                     before[1] + 1)
+    again = flash_backward_on(fl.MMA, q, k, v, do, scale)
+    simt = flash_backward_on(fl.SIMT, q, k, v, do, scale)
+    plain = flash_run(q, k, v, do, scale, kernel=False)[2:]
+    truth = flash_run(*(x.float() for x in (q, k, v, do)), scale, kernel=False)[2:]
+    scales = flash_scales(q, k, v, do, scale)
+    for name, a, a2, sm, p, tr, sc in zip(("dq", "dk", "dv"), mma, again, simt, plain, truth,
+                                          scales):
+        assert a.shape == p.shape and a.dtype == p.dtype, name
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, a2), name
+        hold(name, a, p, tr, scale=sc)
+        hold(f"{name} simt", sm, p, tr, scale=sc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,dh,dv", FLASH_ALL_SHAPES)
+def test_flash_mma_route_at_lsun_shapes(cuda, t, dh, dv):
+    check_mma(1 if t == 16384 else 4, t, t, dh, dv, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,s,dh,dv", [
+    (2, 100, 77, 8, 32),       # ragged q and kv tiles, S < T
+    (3, 17, 17, 8, 16),        # T 17: one short tile; heads = 2's widths, dv 16
+    (2, 1024, 1024, 8, 16),    # heads = 2 at 32^2 (dh 8, dv 16 padded to 16, 16)
+    (2, 77, 300, 16, 64),      # S > T
+    (2, 333, 100, 16, 8),      # dv 8 padded to 16
+    (2, 130, 200, 24, 40),     # widths between templates: padded to (32, 128)
+    (2, 64, 64, 64, 256),      # the widest template, dV in shared memory
+    (2, 200, 200, 64, 256),    # the same over several q tiles
+])
+def test_flash_mma_route_edges_and_padding(cuda, b, t, s, dh, dv):
+    check_mma(b, t, s, dh, dv, cuda, seed=5)
+
+
+@pytest.mark.gpu
+def test_flash_mma_route_is_bitwise_repeatable(cuda):
+    q, k, v, do = flash_inputs(3, 1000, 1000, 8, 32, torch.bfloat16, cuda, seed=6)
+    first = flash_backward_on(fl.MMA, q, k, v, do, 8 ** -0.5)
+    again = flash_backward_on(fl.MMA, q, k, v, do, 8 ** -0.5)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
+def test_flash_route_counters_after_one_backward(cuda, dtype, route):
+    """One `FlashAttention` backward launches each backward pass once, on
+    the route `backward_route` picks: mma in bf16, simt in f32."""
+    q, k, v, do = flash_inputs(2, 96, 96, 8, 32, dtype, cuda, seed=7)
+    before = {f: (f.launches, f.launches_mma, f.launches_simt)
+              for f in (fl.flash_dq, fl.flash_dkv)}
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o = fl.flash_attention(*leaves, scale=0.25)
+    torch.autograd.grad(o, leaves, do)
+    for f, (n, n_mma, n_simt) in before.items():
+        assert f.launches == n + 1
+        assert (f.launches_mma - n_mma, f.launches_simt - n_simt) == (
+            (1, 0) if route == "mma" else (0, 1))
+
+
+@pytest.mark.gpu
+def test_flash_mma_widths_match_the_library(cuda):
+    """Every template `MMA_WIDTHS` names (the pairs `mma_widths` pads to) is
+    instantiated in the library, with shared memory that fits and at least
+    one block an SM; a pair that is no template has none; an explicit
+    route the call cannot take raises."""
+    lib = fl._library()
+    for dh, dv in [(8, 16), (8, 32), (16, 8), (16, 64), (24, 40), (32, 128), (64, 256)]:
+        assert fl.mma_widths(dh, dv) in fl.MMA_WIDTHS
+    for wide in fl.MMA_WIDTHS:
+        for kind in (fl._DQ, fl._DKV):
+            assert 0 < lib.locate_flash_mma_smem_bytes(kind, *wide) <= fl._MAX_SMEM
+            assert lib.locate_flash_blocks_per_sm(1, kind, 1, *wide, 0) >= 1
+    for dh, dv in [(12, 20), (72, 64), (64, 264), (8, 32), (24, 40)]:
+        assert lib.locate_flash_mma_smem_bytes(fl._DQ, dh, dv) == 0
+    for dh, dv in [(12, 20), (72, 64), (64, 264)]:
+        assert fl.mma_widths(dh, dv) is None
+    q, k, v, do = flash_inputs(1, 32, 32, 12, 20, torch.bfloat16, cuda)
+    with torch.no_grad():
+        o, ell = fl.flash_fwd(q, k, v, 0.5)
+        delta = fl.row_delta(o, do)
+        with pytest.raises(ValueError, match="mma route"):
+            fl.flash_dq(q, k, v, do, ell, delta, 0.5, route=fl.MMA)
+        with pytest.raises(ValueError, match="route must be"):
+            fl.flash_dkv(q, k, v, do, ell, delta, 0.5, route="tensor")
+
+
+@pytest.mark.gpu
+def test_flash_mma_launch_refuses_a_template_that_cannot_hold_the_widths(cuda):
+    """The C interface runs the template it is named and pads nothing: a
+    pair narrower than the widths, or no template at all, is refused
+    before any launch; the pair `mma_widths` names launches."""
+    q, k, v, do = flash_inputs(1, 32, 32, 8, 32, torch.bfloat16, cuda)
+    lib = fl._library()
+    with torch.no_grad():
+        o, ell = fl.flash_fwd(q, k, v, 0.5)
+        delta = fl.row_delta(o, do)
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(wide):
+        return lib.locate_flash_dq(1, 1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                   ell.data_ptr(), delta.data_ptr(), dq.data_ptr(), 1, 32, 32,
+                                   8, 32, 0, *wide, 0.5, stream)
+
+    assert launch((16, 16)) != 0      # dv 32 does not fit DV 16
+    assert launch((24, 32)) != 0      # no such template
+    assert launch(fl.mma_widths(8, 32)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(dq, fl.flash_dq(q, k, v, do, ell, delta, 0.5))
+
+
+@pytest.mark.gpu
+def test_flash_mma_route_takes_unaligned_views(cuda):
+    """Operands that are contiguous views starting off a 16-byte boundary
+    (the mma kernels copy 16 bytes at a time) give the same gradients as
+    aligned copies of the same values."""
+    q, k, v, do = flash_inputs(2, 64, 64, 8, 32, torch.bfloat16, cuda, seed=8)
+
+    def shifted(x):  # the same values one element into a larger buffer
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    want = flash_backward_on(fl.MMA, q, k, v, do, 8 ** -0.5)
+    got = flash_backward_on(fl.MMA, *(shifted(x) for x in (q, k, v, do)), 8 ** -0.5)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
