@@ -22,9 +22,9 @@ line each:
      the dynamic shared memory of the gate's blocks at every (C, Hd) of the
      path, of the stage's at 512^2 x 64 and of the flash kernels' at every
      (T, dh, dv) with the q tile picked there, on both routes of the
-     backward passes, with the blocks that fit on an SM; the SASS of every
-     mma instance of the bf16 backward (`cuobjdump -sass`) holds HMMA or
-     HGMMA instructions, and none spills more than 16 bytes;
+     three passes, with the blocks that fit on an SM; the SASS of every
+     mma instance of the bf16 forward and backward (`cuobjdump -sass`)
+     holds HMMA or HGMMA instructions, and none spills more than 16 bytes;
   3. the gate's forward kernels (stats, apply) against the plain version at
      the nine G and D gate shapes of lsun_bedroom_128, batch 64, bf16, with
      gate weights that make the gate vary and pass the clamp at 16, plus one
@@ -126,24 +126,27 @@ line each:
      self-attention layers (G's six from T = 16, dh 64, dv 256 to T = 16384,
      dh 8, dv 32, and D's three others), batch 16, plus heads = 2 and one
      S != T case, bf16 and f32, under the rules of 3 and 4; two runs bitwise
-     equal; in bf16 the backward passes on the tensor-core (mma) route and,
-     on the same inputs, on the simt route, both under the bf16 rule; each
+     equal; in bf16 all three passes on the tensor-core (mma) route and, on
+     the same inputs, on the simt route, both under the bf16 rule; each
      bf16 case timed beside its bound, its exponential floor (B T S
      exponentials on 2,112 SFU lanes), blocks per SM, its plain version, the
      simt route and `F.scaled_dot_product_attention` (forward, and autograd
      backward for the two backward kernels together), which the port never
      calls; then the training shapes at batch 64, timed only; fails if the
-     mma pair is slower than the library's backward at (64, 1024, 16, 64);
+     mma pair is slower than the library's backward at (64, 1024, 16, 64),
+     or `flash_fwd` slower than the library's forward at (16, 256, 32, 128)
+     or (64, 4096, 8, 32);
  23. lsun_bedroom_128 + attention.kind=self serving, all six layers:
-     requests of 1, 16 and 64 (6 flash_fwd launches a forward, nothing
-     else), each layer of the batch-16 request against the plain composition
-     on its own q, k, v, the three generators on the same latents,
+     requests of 1, 16 and 64 (6 flash_fwd launches a forward, all on the
+     mma route, nothing else), each layer of the batch-16 request against
+     the plain composition on its own q, k, v, the three generators on the
+     same latents,
      `bench-sample` at batch 1, 16, 64 with peak memory, the plain path at
      the largest batch the allocator grants (its refusal at batch 64, one
      68.7 GB score tensor, is caught and recorded), idle share, top kernels;
  24. the same preset training as shipped (batch 64, R1, both guards, EMA)
      with attention at 4^2..64^2: 3 steps from step 0 under the checks of 6,
-     launches 25 / 20 / 20 a step, every backward launch on the mma route,
+     launches 25 / 20 / 20 a step, every launch on the mma route,
      sec/step, images/sec, peak memory, idle share, top kernels; then the
      plain path alike; a refused batch is halved and recorded;
  25. one such step's gradients with each of its 20 flash backward calls on
@@ -151,9 +154,9 @@ line each:
      tensors (bf16), and at 64^2 in f32 (the simt route) the whole
      gradients against the plain path (the tolerance of 6), each call
      within 1e-4;
- 26. one JSON line `{"kernels": [...]}` for the fourteen kernels (the flash
-     backward pair with its mma-route launches and the simt route's time
-     of the same launches beside its own);
+ 26. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
+     flash kernels with their mma-route launches and the simt route's time
+     of the same launches beside their own);
  27. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -232,9 +235,9 @@ STAGE_CUDA_KERNELS = ("stage_conv_bwd", "stage_softmax_apply_pool", "stage_softm
                       "stage_conv", "stage_sigmoid", "softmax_stats_merge", "reduce_partials")
 FLASH_SOURCE = "locate_tpu_torch/csrc/flash_attention.cu"
 FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
-# the tensor-core instances of the two backward wrappers (the mma route,
-# bf16), templates on the padded head widths; each must hold HMMA or HGMMA
-FLASH_MMA_KERNELS = ("flash_dq_mma", "flash_dkv_mma")
+# the tensor-core instances of the three wrappers (the mma route, bf16),
+# templates on the padded head widths; each must hold HMMA or HGMMA
+FLASH_MMA_KERNELS = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")
 FLASH_MMA_SPILL_LIMIT = 16  # bytes: the simt kernels' worst spill
 ALL_CUDA_KERNELS = STAGE_CUDA_KERNELS + CUDA_KERNELS + FLASH_MMA_KERNELS + FLASH_KERNELS
 # the exponential floor of a flash pass: B T S exponentials on the H100's
@@ -843,18 +846,19 @@ def read_counters() -> dict:
 
 
 def read_route_counters() -> dict:
-    """{kernel: {route: launches}} of the two flash backward wrappers."""
+    """{kernel: {route: launches}} of the three flash wrappers."""
     from locate_tpu_torch.ops import flash_attention as fl
 
     return {k: {r: getattr(getattr(fl, k), f"launches_{r}") for r in ("mma", "simt")}
-            for k in ("flash_dq", "flash_dkv")}
+            for k in FLASH_KERNELS}
 
 
-def routes_expected(per_call: int, route: str = "mma") -> dict:
-    """The route counters after `per_call` launches of each backward pass,
-    all on `route`."""
-    return {k: {r: per_call * (r == route) for r in ("mma", "simt")}
-            for k in ("flash_dq", "flash_dkv")}
+def routes_expected(launches: dict, route: str = "mma") -> dict:
+    """The route counters of the three flash wrappers after `launches`
+    ({kernel: launches}, none where a kernel is not named), all on
+    `route`."""
+    return {k: {r: launches.get(k, 0) * (r == route) for r in ("mma", "simt")}
+            for k in FLASH_KERNELS}
 
 
 def phase_generator(fa, cfg):
@@ -1930,11 +1934,11 @@ def chunked(fn, tensors, chunk):
 
 
 def run_flash(fl, q, k, v, do, scale, plain: bool, route=None):
-    """(o, ell, dq, dk, dv) through the three kernels (the backward passes
-    on `route`, `backward_route`'s choice unless given), or through their
-    plain versions a few batch rows at a time."""
+    """(o, ell, dq, dk, dv) through the three kernels (on `route`,
+    `flash_route`'s choice unless given), or through their plain versions a
+    few batch rows at a time."""
     if not plain:
-        o, ell = fl.flash_fwd(q, k, v, scale)
+        o, ell = fl.flash_fwd(q, k, v, scale, route=route)
         delta = fl.row_delta(o, do)
         return (o, ell, fl.flash_dq(q, k, v, do, ell, delta, scale, route=route),
                 *fl.flash_dkv(q, k, v, do, ell, delta, scale, route=route))
@@ -1992,14 +1996,14 @@ def flash_exp_floor(b, t, s):
 
 def flash_times(fl, q, k, v, do, scale):
     """{kernel: ms, plain_ms, bound_ms, bound_by, library_ms, exp_floor_ms}
-    of the three kernels on these operands, and for the two backward
-    passes their route, blocks per SM and, where the route is mma, the simt
-    route's time and blocks on the same operands. The kernels and the
-    library call are timed as CUDA graphs of back-to-back launches; the
-    plain versions, which run a few batch rows at a time, by events. The
-    library yardstick is `F.scaled_dot_product_attention`: its forward for
-    flash_fwd, its autograd backward (dQ, dK and dV in one) for flash_dq and
-    flash_dkv together. Where the allocator refuses the library call, its
+    of the three kernels on these operands, with their route, blocks per SM
+    and, where the route is mma, the simt route's time and blocks on the
+    same operands. The kernels and the library call are timed as CUDA
+    graphs of back-to-back launches; the plain versions, which run a few
+    batch rows at a time, by events. The library yardstick is
+    `F.scaled_dot_product_attention`: its forward for flash_fwd, its
+    autograd backward (dQ, dK and dV in one) for flash_dq and flash_dkv
+    together. Where the allocator refuses the library call, its
     time is None and the refusal is recorded."""
     import torch.nn.functional as F
 
@@ -2008,20 +2012,20 @@ def flash_times(fl, q, k, v, do, scale):
     big = t * s >= 4096 * 4096
     reps = (3, 2) if big else (10, 5)
     chunk = batch_chunk(t, s)
-    route = fl.backward_route(q.dtype, dh, dv)
+    route = fl.flash_route(q.dtype, dh, dv)
     with torch.no_grad():
         o, ell = fl.flash_fwd(q, k, v, scale)
         delta = fl.row_delta(o, do)
 
-        def backward_ms(r):
-            return {"flash_dq": graph_ms(
+        def kernel_ms(r):
+            return {"flash_fwd": graph_ms(lambda: fl.flash_fwd(q, k, v, scale, route=r), *reps),
+                    "flash_dq": graph_ms(
                         lambda: fl.flash_dq(q, k, v, do, ell, delta, scale, route=r), *reps),
                     "flash_dkv": graph_ms(
                         lambda: fl.flash_dkv(q, k, v, do, ell, delta, scale, route=r), *reps)}
 
-        ms = {"flash_fwd": graph_ms(lambda: fl.flash_fwd(q, k, v, scale), *reps),
-              **backward_ms(route)}
-        simt = backward_ms(fl.SIMT) if route == fl.MMA else None
+        ms = kernel_ms(route)
+        simt = kernel_ms(fl.SIMT) if route == fl.MMA else None
         plain = {
             "flash_fwd": event_ms(lambda: chunked(
                 lambda q, k, v: fl.flash_forward_reference(q, k, v, scale), (q, k, v), chunk),
@@ -2055,8 +2059,6 @@ def flash_times(fl, q, k, v, do, scale):
                             library_ms=library["flash_fwd" if kernel == "flash_fwd"
                                                else "flash_bwd"],
                             exp_floor_ms=flash_exp_floor(b, t, s))  # phase 22's record only
-        if kernel == "flash_fwd":
-            continue
         simt_tile = fl.pick_tile(kind, b, t, dh, dv, lib)
         simt_blocks = int(lib.locate_flash_blocks_per_sm(0, kind, is_bf16, dh, dv, simt_tile))
         if route == fl.MMA:
@@ -2073,6 +2075,8 @@ def flash_times(fl, q, k, v, do, scale):
     if library["flash_bwd"] is not None:
         rows["backward_pair_over_library"] = (
             (ms["flash_dq"] + ms["flash_dkv"]) / library["flash_bwd"])
+    if library["flash_fwd"] is not None:
+        rows["forward_over_library"] = ms["flash_fwd"] / library["flash_fwd"]
     if refusal:
         rows["library_refused"] = refusal
     return rows
@@ -2082,7 +2086,7 @@ def check_flash(fl, q, k, v, do, scale, shape, row):
     """Hold the three kernels to their plain versions on these operands by
     the rules of phases 3-4, two runs bitwise equal; fills `row`."""
     dtype = q.dtype
-    route = fl.backward_route(dtype, q.shape[2], v.shape[2])
+    route = fl.flash_route(dtype, q.shape[2], v.shape[2])
     with torch.no_grad():
         kern = run_flash(fl, q, k, v, do, scale, plain=False)
         again = run_flash(fl, q, k, v, do, scale, plain=False)
@@ -2097,12 +2101,12 @@ def check_flash(fl, q, k, v, do, scale, shape, row):
     for name, a, b in zip(FLASH_NAMES, kern, again):
         check(torch.equal(a, b), f"{name} at {shape}: two runs differ bitwise")
     row["bitwise_repeatable"] = True
-    row["backward_route"] = route
+    row["route"] = route
     for name, kk, pp, tt, sc in zip(FLASH_NAMES, kern, plain, truth, scales):
         check(kk.shape == pp.shape and kk.dtype == pp.dtype, f"{name} at {shape}: {kk.shape}")
         hold(name, shape, kk, pp, tt, dtype, row, scale=sc)
     if simt is not None:  # the same inputs on the simt route, under the same rule
-        for name, kk, pp, tt, sc in list(zip(FLASH_NAMES, simt, plain, truth, scales))[2:]:
+        for name, kk, pp, tt, sc in zip(FLASH_NAMES, simt, plain, truth, scales):
             hold(f"{name}_simt", shape, kk, pp, tt, dtype, row, scale=sc)
 
 
@@ -2127,7 +2131,9 @@ def phase_flash_kernels(fl):
     call. Then the training shapes again at the train batch (64), timed
     only: the per-step numbers of the kernels line. Fails if the mma pair
     is slower than the library's backward at D's 32^2 layer (T 1024, dh 16,
-    dv 64, batch 64)."""
+    dv 64, batch 64), or flash_fwd slower than the library's forward at
+    D's 16^2 layer (T 256, dh 32, dv 128, batch 16) or at the 64^2 layers
+    (T 4096, dh 8, dv 32, batch 64)."""
     cases = [(FLASH_BATCH, t, t, dh, dv, "layer") for t, dh, dv in FLASH_SHAPES]
     cases += [(2 * FLASH_BATCH, 1024, 1024, 8, 16, "heads=2"),
               (FLASH_BATCH, 1024, 4096, 8, 32, "S != T")]
@@ -2160,14 +2166,34 @@ def phase_flash_kernels(fl):
         train_rows.append(row)
         del q, k, v, do
         torch.cuda.empty_cache()
-    (d32,) = [r for r in train_rows if (r["shape"]["T"], r["shape"]["dh"], r["shape"]["dv"])
-              == FLASH_D_SHAPES[32]]
+    check_against_library(rows, train_rows)
+    return rows, train_rows
+
+
+def layer_row(rows, shape3):
+    """The one bf16 row of a layer case at (T, dh, dv) `shape3`."""
+    (row,) = [r for r in rows if r["dtype"] == "bfloat16" and r.get("case", "layer") == "layer"
+              and (r["shape"]["T"], r["shape"]["dh"], r["shape"]["dv"]) == shape3]
+    return row
+
+
+def check_against_library(rows, train_rows):
+    """Phase 22's checks against `F.scaled_dot_product_attention`: the mma
+    pair faster than its backward at D's 32^2 layer at batch 64, and
+    flash_fwd, on the mma route, faster than its forward at D's 16^2 layer
+    at batch 16 and at the 64^2 layers at batch 64."""
+    d32 = layer_row(train_rows, FLASH_D_SHAPES[32])
     pair = d32["flash_dq"]["ms"] + d32["flash_dkv"]["ms"]
     library = d32["flash_dq"]["library_ms"]
     check(d32["flash_dq"]["route"] == "mma" and library is not None and pair < library,
           f"flash_dq + flash_dkv at {d32['shape']}: {pair:.4f} ms on the "
           f"{d32['flash_dq']['route']} route, the library's backward {library} ms")
-    return rows, train_rows
+    for r in (layer_row(rows, FLASH_D_SHAPES[16]), layer_row(train_rows, FLASH_D_SHAPES[64])):
+        fwd = r["flash_fwd"]
+        check(fwd["route"] == "mma" and fwd["library_ms"] is not None
+              and fwd["ms"] < fwd["library_ms"],
+              f"flash_fwd at {r['shape']}: {fwd['ms']:.4f} ms on the {fwd['route']} route, "
+              f"the library's forward {fwd['library_ms']} ms")
 
 
 def self_config(**overrides):
@@ -2202,7 +2228,8 @@ def check_self_attention_layers(fl, captured):
 def phase_self_serving(fl):
     """Phase 23: serving lsun_bedroom_128 with attention.kind=self, all six
     layers (T up to 16384). Requests of batch 1, 16 and 64 through
-    `generate_samples`: 6 flash_fwd launches a forward and no other kernel;
+    `generate_samples`: 6 flash_fwd launches a forward, all on the mma
+    route, and no other kernel;
     each layer of the batch-16 request held against the plain composition
     on the q, k, v it computed; the kernel path, the plain path and an f32
     plain generator on the same 4 latents; `bench-sample` at batch 1, 16 and
@@ -2239,11 +2266,13 @@ def phase_self_serving(fl):
     try:
         reset_counters()
         images = [generate_samples(model, gen, b) for b in requests]
-        launches = read_counters()
+        launches, routes = read_counters(), read_route_counters()
     finally:
         SelfAttention.attend = original
     check(launches == expected({"flash_fwd": stages * len(requests)}),
           f"serving launched {launches} for {len(requests)} forwards of {stages} layers")
+    check(routes == routes_expected(launches),
+          f"serving's flash_fwd launches took {routes['flash_fwd']}, want all on mma")
     for b, img in zip(requests, images):
         check(img.shape == (b, 128, 128, 3) and str(img.dtype) == "uint8",
               f"request of {b}: images {img.shape} {img.dtype}")
@@ -2296,7 +2325,8 @@ def phase_self_serving(fl):
     release_memory()
     check(plain_path is not None, f"the plain path served no batch: {refusals}")
     say("self-serving", config="lsun_bedroom_128, attention.kind=self, all six layers",
-        requests=list(requests), launches=launches, attention_layers_batch_16=layers,
+        requests=list(requests), launches=launches, routes=routes,
+        attention_layers_batch_16=layers,
         rel_err_kernel_path_vs_f32=ek, rel_err_plain_path_vs_f32=ep,
         max_abs_err_kernel_vs_plain_path=float((yk - yp).abs().max()), image_std=float(yt.std()),
         kernel_path=kernel_path, plain_path=plain_path, plain_path_refused=refusals,
@@ -2332,7 +2362,7 @@ def self_train_attempt(cfg, batch_size, steps=3):
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
     idle, top = profile_calls(lambda: step(state, batch), calls=2, top=12)
-    out = dict(batch=batch_size, seconds_per_step=seconds, backward_routes=routes,
+    out = dict(batch=batch_size, seconds_per_step=seconds, routes=routes,
                images_per_sec_after_step0=batch_size * (steps - 1) / sum(seconds[1:]),
                peak_memory_bytes=peak, metrics=history, max_param_change=moved,
                device_idle_share="not measured" if idle is None else idle,
@@ -2362,7 +2392,7 @@ def phase_self_train():
     attention.kind=self at the stages 4^2..64^2 (five layers a net), 3 steps
     from step 0 (R1 fires, through the kernel-free twin of D): the checks of
     phase 6, launches per step 25 / 20 / 20 of flash_fwd / flash_dq /
-    flash_dkv and no other kernel, every backward launch on the mma route,
+    flash_dkv and no other kernel, every launch on the mma route,
     sec/step, images/sec, peak memory, idle
     share and top kernels; then the plain path's 3 steps alike. A batch the
     allocator refuses is halved and the refusal recorded."""
@@ -2380,9 +2410,9 @@ def phase_self_train():
         lambda b: self_train_attempt(cfg, b, steps), BATCH)
     check(launches == expected(FLASH_PER_STEP, steps),
           f"self-attention train steps launched {launches}, want {FLASH_PER_STEP} per step")
-    want_routes = routes_expected(FLASH_PER_STEP["flash_dq"] * steps)
-    check(kernel["backward_routes"] == want_routes,
-          f"the steps' backward launches took {kernel['backward_routes']}, want {want_routes}")
+    want_routes = routes_expected(launches)
+    check(kernel["routes"] == want_routes,
+          f"the steps' flash launches took {kernel['routes']}, want {want_routes}")
     torch.cuda.empty_cache()
     pcfg = self_config(**{"model.attention_stages": SELF_TRAIN_STAGES, "use_pallas": "false"})
     (plain, _, _), plain_batch, plain_refusals = halving(
@@ -2393,7 +2423,7 @@ def phase_self_train():
         launches_per_step={k: v / steps for k, v in launches.items()},
         kernel_path=kernel, kernel_path_refused=refusals,
         plain_path=plain, plain_path_refused=plain_refusals)
-    return cfg, weights, launches, batch, kernel["backward_routes"]
+    return cfg, weights, launches, batch, kernel["routes"]
 
 
 @contextlib.contextmanager
@@ -2459,7 +2489,7 @@ def phase_self_train_grads(fl, cfg, weights, batch):
     check(len(calls) == want, f"{len(calls)} flash backward calls in one step, want {want}")
     check(launches == expected({"flash_fwd": FLASH_PER_STEP["flash_fwd"], "flash_dq": want,
                                 "flash_dkv": want}), f"one step's gradients launched {launches}")
-    check(routes == routes_expected(want), f"one step's backward launches took {routes}")
+    check(routes == routes_expected(FLASH_PER_STEP), f"one step's flash launches took {routes}")
     check(all(math.isfinite(x) for x in (d_loss, g_loss, r1)) and r1 > 0.0,
           f"self-attention step losses {d_loss}, {g_loss}, r1 {r1}")
     # over the calls whose errors are above the rounding-noise floor
@@ -2478,7 +2508,8 @@ def phase_self_train_grads(fl, cfg, weights, batch):
         reset_counters()
         k64 = step_grads(cfg64, w64, *z, 64, True, "float32")
         routes64 = read_route_counters()
-    check(routes64 == routes_expected(want, "simt"), f"the f32 step's backward took {routes64}")
+    check(routes64 == routes_expected(FLASH_PER_STEP, "simt"),
+          f"the f32 step's flash launches took {routes64}")
     p64 = step_grads(cfg64, w64, *z, 64, False, "float32")
     noisy64 = step_grads(cfg64, w64, *z, 64, False, "float32", perturb=1e-7)
     check(len(calls64) == want, f"{len(calls64)} flash backward calls at 64^2, want {want}")
@@ -2491,7 +2522,7 @@ def phase_self_train_grads(fl, cfg, weights, batch):
         check(e <= limit, f"{net} gradient at 64^2 f32, self-attention: {e:.3e} > {limit:.3e}")
     say("self-train-grads", batch=batch, r1_fired=True, d_loss=d_loss, g_loss=g_loss, r1=r1,
         flash_backward_calls_checked={"bf16_128": len(calls), "f32_64": len(calls64)},
-        backward_routes={"bf16_128": routes, "f32_64": routes64},
+        routes={"bf16_128": routes, "f32_64": routes64},
         worst_kernel_over_plain_error_ratio_bf16=worst,
         worst_flash_backward_rel_err_f32=max(v for r in calls64 for k, v in r.items()
                                              if k.endswith("rel_err_kernel_vs_plain")),
@@ -2502,9 +2533,9 @@ def phase_self_train_grads(fl, cfg, weights, batch):
 def flash_entry(kernel, rows, train_rows, launches, serve_launches, routes):
     """The {"kernels": [...]} entry of a flash kernel: per self-attention
     train step at batch 64, each shape's time times its launches a step
-    (timed at batch 64 in phase 22's second half); for the backward passes
-    also the simt route's time of the same launches and the launches the
-    main path's run made on the mma route."""
+    (timed at batch 64 in phase 22's second half), beside the simt route's
+    time of the same launches, and the launches the main path's run made
+    on the mma route."""
     mult = FLASH_FWD_PER_STEP if kernel == "flash_fwd" else FLASH_BWD_PER_STEP
     names = {"flash_fwd": ("o", "ell"), "flash_dq": ("dq",), "flash_dkv": ("dk", "dv")}[kernel]
 
@@ -2540,9 +2571,9 @@ def flash_entry(kernel, rows, train_rows, launches, serve_launches, routes):
         entry["launches_serving"] = serve_launches[kernel]
     else:
         entry["library_covers"] = train_rows[0][kernel]["library_covers"]
-        entry["backward_route"] = sorted({r[kernel]["route"] for r in train_rows})
-        entry["launches_mma"] = routes[kernel]["mma"]
-        entry["ms_simt"] = total("ms_simt")  # the same launches on the simt route
+    entry["routes"] = sorted({r[kernel]["route"] for r in train_rows})
+    entry["launches_mma"] = routes[kernel]["mma"]
+    entry["ms_simt"] = total("ms_simt")  # the same launches on the simt route
     return entry
 
 
@@ -2678,7 +2709,8 @@ def phase_build(fa, fs, fl, build):
             check(sass[n] > 0, f"{n}: no HMMA or HGMMA instruction in its SASS")
             check(max(ptx.get("spill_stores", 0), ptx.get("spill_loads", 0))
                   <= FLASH_MMA_SPILL_LIMIT, f"{n} spills: {ptx}")
-    simt_bf16 = {n: c for n, c in sass.items() if n.startswith(("flash_dq<bf16", "flash_dkv<bf16"))}
+    simt_names = tuple(f"{k}<bf16" for k in FLASH_KERNELS)
+    simt_bf16 = {n: c for n, c in sass.items() if n.startswith(simt_names)}
     smem = {f"C={c},Hd={hd}": dict(
         forward=int(fa._library().locate_softmax_smem_bytes(c, hd, c, fa.tile_rows(c))),
         backward=int(fa._library().locate_softmax_bwd_smem_bytes(
@@ -2701,7 +2733,7 @@ def phase_build(fa, fs, fl, build):
                           bytes=int(flash_lib.locate_flash_smem_bytes(kind, dh, dv, bq)),
                           blocks_per_sm=int(flash_lib.locate_flash_blocks_per_sm(
                               0, kind, 1, dh, dv, bq)))
-        for k, kind in zip(FLASH_MMA_KERNELS, (fl._DQ, fl._DKV)):
+        for k, kind in zip(FLASH_MMA_KERNELS, (fl._FWD, fl._DQ, fl._DKV)):
             wide = fl.mma_widths(dh, dv)
             row[k] = dict(route="mma", widths=wide,
                           bytes=int(flash_lib.locate_flash_mma_smem_bytes(kind, *wide)),

@@ -12,51 +12,62 @@
 // in L2, the work is O(T S): 2 B T S (dh + dv) flops forward, (2 dh + dv)
 // for dQ, (2 dh + 2 dv) for dK/dV on the bf16 tensor cores, and B T S
 // exponentials a pass on the 2,112 SFU lanes. At dh = 8 the exponentials
-// are the larger floor: each backward pass recomputes P.
+// are the larger floor, for the forward as for each backward pass (which
+// recomputes P): the mma route keeps the other work of an element (its
+// scale, max, sum and bf16 rounding) to a few FP32 instructions beside its
+// one ex2, so that the SFU sets the pace.
 //
-// Two routes, chosen by the caller (ops/flash_attention.py:backward_route):
+// Two routes, chosen by the caller (ops/flash_attention.py:flash_route):
 //
-// * mma: bf16 dQ and dK/dV on the tensor cores (flash_dq_mma,
-//   flash_dkv_mma), templates on the padded head widths (DH, DV) in
-//   FLASH_MMA_WIDTHS; the caller names the template a call runs on
-//   (ops/flash_attention.py:mma_widths). dh and dv must be multiples of 8
+// * mma: bf16 forward, dQ and dK/dV on the tensor cores (flash_fwd_mma,
+//   flash_dq_mma, flash_dkv_mma), templates on the padded head widths
+//   (DH, DV) in FLASH_MMA_WIDTHS; the caller names the template a call runs
+//   on (ops/flash_attention.py:mma_widths). dh and dv must be multiples of 8
 //   and are zero-padded up to DH and DV in shared memory, never in device
 //   memory (dh = 8 runs at the mma depth of 16).
 //   - Every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate) with
 //     operands read by ldmatrix from bf16 tiles staged once each, in rows
 //     padded by 8 elements so that the 8 rows of an ldmatrix fall in
 //     distinct banks; ldmatrix.trans reads the same tile the other way.
-//   - A block owns 16 rows a warp (q rows for dQ, kv rows for dK/dV): 8
-//     warps up to dv = 64, held to 128 registers so that two blocks fit on
-//     an SM, 4 for the wider templates. It walks the other side in tiles
-//     of 64 rows, double-buffered with cp.async, so that the next tile's
-//     copy overlaps the current tile's products. Rows past the end are zero-filled by the
-//     copy and masked out of P.
-//   - flash_dq_mma keeps the score tile with q along its rows: the f32
-//     fragment of dS, rounded to bf16, is the A fragment of dS K with no
-//     trip through shared memory. flash_dkv_mma computes the transposed
-//     tile S^T = K Q^T (kv along its rows), so P^T and dS^T are the A
-//     fragments of dV += P^T dO and dK += dS^T Q; ell and delta are then per
-//     column and staged with each q tile.
-//   - Q (dQ) or K (dK/dV) fragments, and dO (dQ, dv <= 64) or V (dK/dV,
-//     dv <= 32), stay in registers for the whole walk, within the 128
-//     registers of the 8-warp blocks; dQ, dK and dV accumulate in registers,
-//     except dV at DV = 256 (T <= 64 on the model's path), which accumulates
-//     in f32 shared memory, each warp over its own rows.
-//   - P = 2^(s * scale * log2(e) - ell * log2(e)): one FMA and one ex2.approx
-//     an element; the ragged last tile alone masks P.
-// * simt: every other call (f32, widths outside the templates) and the
-//   forward: all products as f32 FMAs on the CUDA cores from shared memory,
+//   - A block owns 16 rows a warp (q rows for the forward and dQ, kv rows
+//     for dK/dV): 8 warps up to dv = 64, held to 128 registers so that two
+//     blocks fit on an SM, 4 for the wider templates. It walks the other
+//     side in tiles of 64 rows, double-buffered with cp.async, so that the
+//     next tile's copy overlaps the current tile's products. Rows past the
+//     end are zero-filled by the copy and masked out of P.
+//   - flash_fwd_mma and flash_dq_mma keep the score tile with q along its
+//     rows: the f32 fragment of P (forward) or dS (dQ), rounded to bf16, is
+//     the A fragment of P V or dS K with no trip through shared memory.
+//     flash_dkv_mma computes the transposed tile S^T = K Q^T (kv along its
+//     rows), so P^T and dS^T are the A fragments of dV += P^T dO and
+//     dK += dS^T Q; ell and delta are then per column and staged with each
+//     q tile.
+//   - Q (forward, dQ) or K (dK/dV) fragments, and dO (dQ, dv <= 64) or V
+//     (dK/dV, dv <= 32), stay in registers for the whole walk, within the
+//     128 registers of the 8-warp blocks; O, dQ, dK and dV accumulate in
+//     registers, except O and dV at DV = 256 (T <= 64 on the model's path),
+//     which accumulate in f32 shared memory, each warp over its own rows.
+//   - The forward's online softmax lives in registers, in base 2: x = s *
+//     scale * log2(e), the running row max m of x (from -1e30) and the sum
+//     l of p = 2^(x - m) in f32, the accumulator rescaled by 2^(m_old -
+//     m_new) a tile, o = acc / l and ell = m ln 2 + log l at the end. The
+//     4 lanes that share a row reduce its max with two shuffles a tile and
+//     its sum once, at the end. Scores past S are set to -1e30 before the
+//     max.
+//   - The backward's P = 2^(s * scale * log2(e) - ell * log2(e)): one FMA
+//     and one ex2.approx an element; the ragged last tile alone masks P.
+// * simt: every other call (f32, widths outside the templates): all
+//   products as f32 FMAs on the CUDA cores from shared memory,
 //   on register micro-tiles (RQ x 4 for the score tile, MR x 4 for the
 //   accumulating products), operands staged as f32 in the orientation each
 //   product reads with 16-byte loads, f32 accumulators in shared memory, so
 //   dv = 256 fits and any dh, dv within 227 KB works; a q tile is 64 or 16
-//   rows (template RQ), a kv tile 64. The bf16 backward stays callable here
+//   rows (template RQ), a kv tile 64. The bf16 kernels stay callable here
 //   for comparison only.
 //
 // Both routes:
 //  * The TPU grid's sequential innermost dimension is a loop inside the
-//    block. flash_fwd and dQ: one block owns one (batch, q tile) and walks
+//    block. Forward and dQ: one block owns one (batch, q tile) and walks
 //    the kv tiles; dK/dV: one block owns one (batch, kv tile) and walks the
 //    q tiles. No output is shared between blocks, so there are no atomics
 //    and two runs are bitwise equal.
@@ -501,7 +512,7 @@ flash_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dQ and dK/dV on the tensor cores (the mma route)
+// bf16 forward, dQ and dK/dV on the tensor cores (the mma route)
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
@@ -513,8 +524,12 @@ using bf16 = __nv_bfloat16;
 __host__ __device__ constexpr int mma_warps(int DV) { return DV <= 64 ? 8 : 4; }
 __host__ __device__ constexpr int mma_rows(int DV) { return 16 * mma_warps(DV); }
 __host__ __device__ constexpr int mma_min_blocks(int DV) { return DV <= 64 ? 2 : 1; }
+// Above DV = 128 an f32 accumulator of DV columns (O, dV) would take more
+// registers than a thread has to spare: it lives in shared memory instead.
+__host__ __device__ constexpr bool mma_acc_in_smem(int DV) { return DV > 128; }
 constexpr int kMmaWalk = 64;  // rows of a walked tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -690,10 +705,11 @@ __device__ __forceinline__ void stage_stats(float* ell_s, float* dl_s, const flo
 }
 
 // Rows row and row + 8 (those below `rows`) and the first `width` columns
-// of a warp's accumulator fragments, times mult, as bf16.
+// of a warp's accumulator fragments, times mult[0] (row) and mult[1]
+// (row + 8), as bf16.
 template <int NT>
 __device__ __forceinline__ void store_frags(bf16* out, int ld, int row, int rows, int width,
-                                            const float (&c)[NT][4], float mult) {
+                                            const float (&c)[NT][4], const float (&mult)[2]) {
   const int col = 2 * (threadIdx.x & 3);
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
@@ -702,36 +718,214 @@ __device__ __forceinline__ void store_frags(bf16* out, int ld, int row, int rows
     for (int h = 0; h < 2; ++h)
       if (row + 8 * h < rows)
         *reinterpret_cast<__nv_bfloat162*>(out + (size_t)(row + 8 * h) * ld + n * 8 + col) =
-            __floats2bfloat162_rn(c[n][2 * h] * mult, c[n][2 * h + 1] * mult);
+            __floats2bfloat162_rn(c[n][2 * h] * mult[h], c[n][2 * h + 1] * mult[h]);
   }
 }
-
-// acc (a warp's 16 rows, stride ld, f32 in shared memory) += fragments c
-// at columns col0..; each lane owns the positions of its fragments.
 template <int NT>
-__device__ __forceinline__ void add_frags(float* acc, int ld, const float (&c)[NT][4],
-                                          int col0) {
+__device__ __forceinline__ void store_frags(bf16* out, int ld, int row, int rows, int width,
+                                            const float (&c)[NT][4], float mult) {
+  const float both[2] = {mult, mult};
+  store_frags<NT>(out, ld, row, rows, width, c, both);
+}
+
+// acc (a warp's 16 rows, stride ld, f32 in shared memory) = acc * alpha0
+// (rows 0-7) or alpha1 (rows 8-15) + fragments c, at columns col0..; each
+// lane owns the positions of its fragments.
+template <int NT>
+__device__ __forceinline__ void add_frags(float* acc, int ld, const float (&c)[NT][4], int col0,
+                                          float alpha0 = 1.f, float alpha1 = 1.f) {
   const int lane = threadIdx.x & 31;
   const int r = lane >> 2, col = col0 + 2 * (lane & 3);
 #pragma unroll
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
+      const float alpha = h ? alpha1 : alpha0;
       float2* p = reinterpret_cast<float2*>(acc + (r + 8 * h) * ld + n * 8 + col);
       float2 x = *p;
-      x.x += c[n][2 * h];
-      x.y += c[n][2 * h + 1];
+      x.x = x.x * alpha + c[n][2 * h];
+      x.y = x.y * alpha + c[n][2 * h + 1];
       *p = x;
     }
 }
 
-// Shared-memory bytes of one block of the mma kernels (kind 1: dQ, 2: dK/dV).
+// The fragments at columns col0.. of a warp's f32 accumulator in shared
+// memory, from the positions add_frags gives this lane.
+template <int NT>
+__device__ __forceinline__ void load_frags(float (&c)[NT][4], const float* acc, int ld,
+                                           int col0) {
+  const int lane = threadIdx.x & 31;
+  const int r = lane >> 2, col = col0 + 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 x = *reinterpret_cast<const float2*>(acc + (r + 8 * h) * ld + n * 8 + col);
+      c[n][2 * h] = x.x;
+      c[n][2 * h + 1] = x.y;
+    }
+}
+
+// Max and sum over the 4 lanes that hold one row of an mma fragment.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Shared-memory bytes of one block of the mma kernels (kind 0: forward,
+// 1: dQ, 2: dK/dV).
+__host__ __device__ inline size_t fwd_mma_bytes(int DH, int DV) {
+  return ((size_t)mma_rows(DV) * (DH + 8) + 2 * kMmaWalk * ((DH + 8) + (DV + 8))) *
+             sizeof(bf16) +
+         (mma_acc_in_smem(DV) ? (size_t)mma_rows(DV) * (DV + 8) * sizeof(float) : 0);
+}
 __host__ __device__ inline size_t dq_mma_bytes(int DH, int DV) {
   return (size_t)(mma_rows(DV) + 2 * kMmaWalk) * ((DH + 8) + (DV + 8)) * sizeof(bf16);
 }
 __host__ __device__ inline size_t dkv_mma_bytes(int DH, int DV) {
   return dq_mma_bytes(DH, DV) + 4 * kMmaWalk * sizeof(float) +
-         (DV > 128 ? (size_t)mma_rows(DV) * (DV + 8) * sizeof(float) : 0);
+         (mma_acc_in_smem(DV) ? (size_t)mma_rows(DV) * (DV + 8) * sizeof(float) : 0);
+}
+
+// Forward: block = (batch row, mma_rows(DV) q rows), loop over kv tiles of
+// 64 with the online softmax in registers (base 2, see the header).
+template <int DH, int DV>
+__global__ void __launch_bounds__(32 * mma_warps(DV), mma_min_blocks(DV))
+flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+              bf16* __restrict__ o, float* __restrict__ ell, int Tq, int S, int dh, int dv,
+              int q_tiles, float scale) {
+  constexpr int LH = DH + 8, LV = DV + 8, LA = DV + 8, kRows = mma_rows(DV);
+  constexpr bool kShared = mma_acc_in_smem(DV);  // O accumulates in shared memory
+  extern __shared__ float4 smem4[];
+  float* Oa = reinterpret_cast<float*>(smem4);                           // [kRows][LA] where kShared
+  bf16* Qs = reinterpret_cast<bf16*>(Oa + (kShared ? kRows * LA : 0));  // [kRows][LH]
+  bf16* Ks = Qs + kRows * LH;                                            // [2][kMmaWalk][LH]
+  bf16* Vs = Ks + 2 * kMmaWalk * LH;                                     // [2][kMmaWalk][LV]
+
+  const int b = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - b * q_tiles) * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = q0 + warp * 16 + (lane >> 2);  // this lane's rows: row, row + 8
+  const bool active = q0 + warp * 16 < Tq;
+  float* Ow = Oa + warp * 16 * LA;  // this warp's rows of the shared accumulator
+  q += (size_t)b * Tq * dh;
+  k += (size_t)b * S * dh;
+  v += (size_t)b * S * dv;
+
+  zero_pad<kRows, DH>(Qs, dh);
+  zero_pad<2 * kMmaWalk, DH>(Ks, dh);
+  zero_pad<2 * kMmaWalk, DV>(Vs, dv);
+  stage_async<kRows, DH>(Qs, q, q0, Tq, dh);
+  stage_async<kMmaWalk, DH>(Ks, k, 0, S, dh);
+  stage_async<kMmaWalk, DV>(Vs, v, 0, S, dv);
+  cp_async_commit();
+  if constexpr (kShared) {
+    for (int e = lane; e < 16 * LA; e += 32) Ow[e] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t qa[DH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) frag_a(qa[kk], Qs, LH, warp * 16, kk * 16);
+  float acc[kShared ? 1 : DV / 8][4];
+  zero(acc);
+  // rows row and row + 8: the running max of x and this lane's part of the
+  // running sum of p (the lane's 2 columns of each n-tile)
+  float m[2] = {kNegBig, kNegBig}, l[2] = {0.f, 0.f};
+
+  const float c = scale * kLog2e;
+  const int kv_tiles = (S + kMmaWalk - 1) / kMmaWalk;
+  for (int j = 0; j < kv_tiles; ++j) {
+    if (j + 1 < kv_tiles) {  // the next tile's copy runs under this tile's products
+      const int nb = (j + 1) & 1;
+      stage_async<kMmaWalk, DH>(Ks + nb * kMmaWalk * LH, k, (j + 1) * kMmaWalk, S, dh);
+      stage_async<kMmaWalk, DV>(Vs + nb * kMmaWalk * LV, v, (j + 1) * kMmaWalk, S, dv);
+      cp_async_commit();
+    }
+    if (active) {
+      const bf16* Kt = Ks + (j & 1) * kMmaWalk * LH;
+      const bf16* Vt = Vs + (j & 1) * kMmaWalk * LV;
+      float s[8][4];
+      zero(s);
+      mma_nk<DH / 16, 8>(s, qa, Kt, LH);  // S = Q K^T
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= c;  // x
+      if ((j + 1) * kMmaWalk > S) {  // the last tile: no score past S
+        const int col = j * kMmaWalk + 2 * (lane & 3);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + n * 8 + (e & 1) >= S) s[n][e] = kNegBig;
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = kNegBig;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * h], s[n][2 * h + 1]));
+        const float m_next = fmaxf(m[h], quad_max(mx));
+        alpha[h] = ex2(m[h] - m_next);
+        m[h] = m_next;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = ex2(s[n][e] - m[e >> 1]);  // P, unrounded in the sum
+          l[e >> 1] += s[n][e];
+        }
+      uint32_t pa[4][4];
+      to_a_frags(pa, s);
+      if constexpr (kShared) {
+#pragma unroll
+        for (int chunk = 0; chunk < DV / 64; ++chunk) {
+          float part[8][4];
+          zero(part);
+          mma_kn<4, 8>(part, pa, Vt, LV, chunk * 64);  // O = O alpha + P V
+          add_frags<8>(Ow, LA, part, chunk * 64, alpha[0], alpha[1]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+        mma_kn<4, DV / 8>(acc, pa, Vt, LV, 0);  // O = O alpha + P V
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (!active) return;
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    inv[h] = 1.f / l[h];
+  }
+  bf16* out = o + (size_t)b * Tq * dv;
+  if constexpr (kShared) {
+#pragma unroll
+    for (int chunk = 0; chunk < DV / 64; ++chunk) {
+      float part[8][4];
+      load_frags<8>(part, Ow, LA, chunk * 64);
+      store_frags<8>(out + chunk * 64, dv, row, Tq, dv - chunk * 64, part, inv);
+    }
+  } else {
+    store_frags<DV / 8>(out, dv, row, Tq, dv, acc, inv);
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row + 8 * h < Tq) ell[(size_t)b * Tq + row + 8 * h] = m[h] * kLn2 + logf(l[h]);
+  }
 }
 
 // dQ: block = (batch row, mma_rows(DV) q rows), loop over kv tiles of 64.
@@ -844,7 +1038,7 @@ flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
               int Tq, int S, int dh, int dv, int kv_tiles, float scale) {
   constexpr int LH = DH + 8, LV = DV + 8, LA = DV + 8, kRows = mma_rows(DV);
   constexpr bool kHold = DV <= 32;    // V's fragments stay in registers
-  constexpr bool kShared = DV > 128;  // dV accumulates in shared memory
+  constexpr bool kShared = mma_acc_in_smem(DV);  // dV accumulates in shared memory
   extern __shared__ float4 smem4[];
   float* ell_s = reinterpret_cast<float*>(smem4);  // [2][kMmaWalk]
   float* dl_s = ell_s + 2 * kMmaWalk;              // [2][kMmaWalk]
@@ -1046,6 +1240,20 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 }
 
 template <int DH, int DV>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v, void* o, void* ell, int B,
+                           int Tq, int S, int dh, int dv, float scale, cudaStream_t stream) {
+  const int tiles = tiles_of(Tq, mma_rows(DV));
+  if (!grid_fits((long long)B * tiles)) return cudaErrorInvalidValue;
+  const size_t smem = fwd_mma_bytes(DH, DV);
+  cudaError_t err = allow_smem(flash_fwd_mma<DH, DV>, smem);
+  if (err != cudaSuccess) return err;
+  flash_fwd_mma<DH, DV><<<B * tiles, 32 * mma_warps(DV), smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)ell, Tq, S, dh, dv, tiles,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int DH, int DV>
 cudaError_t launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
                           const void* ell, const void* delta, void* dq, int B, int Tq, int S,
                           int dh, int dv, float scale, cudaStream_t stream) {
@@ -1101,6 +1309,7 @@ int simt_blocks(int kind, int dh, int dv) {
 template <int DH, int DV>
 int mma_blocks(int kind) {
   const int threads = 32 * mma_warps(DV);
+  if (kind == 0) return occupancy(flash_fwd_mma<DH, DV>, threads, fwd_mma_bytes(DH, DV));
   if (kind == 1) return occupancy(flash_dq_mma<DH, DV>, threads, dq_mma_bytes(DH, DV));
   return occupancy(flash_dkv_mma<DH, DV>, threads, dkv_mma_bytes(DH, DV));
 }
@@ -1109,6 +1318,17 @@ constexpr int kRouteSimt = 0, kRouteMma = 1;
 
 // The mma template (DH, DV) launched on (dh, dv); cudaErrorInvalidValue
 // where it is not instantiated or does not hold the widths.
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* o, void* ell, int B, int Tq,
+                    int S, int dh, int dv, int DH, int DV, float scale, cudaStream_t stream) {
+  if (!mma_holds(DH, DV, dh, dv)) return cudaErrorInvalidValue;
+#define FLASH_CALL(a, b)                                                                   \
+  if (DH == a && DV == b)                                                                  \
+    return launch_fwd_mma<a, b>(q, k, v, o, ell, B, Tq, S, dh, dv, scale, stream);
+  FLASH_MMA_WIDTHS(FLASH_CALL)
+#undef FLASH_CALL
+  return cudaErrorInvalidValue;
+}
+
 cudaError_t dq_mma(const void* q, const void* k, const void* v, const void* dout,
                    const void* ell, const void* delta, void* dq, int B, int Tq, int S, int dh,
                    int dv, int DH, int DV, float scale, cudaStream_t stream) {
@@ -1136,8 +1356,8 @@ cudaError_t dkv_mma(const void* q, const void* k, const void* v, const void* dou
 
 }  // namespace
 
-// Plain C interface, loaded with ctypes. `route` selects the kernels of the
-// two backward passes (0: simt, 1: mma, bf16 only); `is_bf16` the compute
+// Plain C interface, loaded with ctypes. `route` selects the kernel of a
+// pass (0: simt, 1: mma, bf16 only); `is_bf16` the compute
 // dtype (1: bfloat16, 0: float32); `bq` the simt route's q tile, 64 or 16
 // rows; `DH`, `DV` the mma route's template (0 on the simt route, whose
 // kernels take any widths, and `bq` 0 on the mma route, whose blocks are
@@ -1164,11 +1384,12 @@ size_t locate_flash_smem_bytes(int kind, int dh, int dv, int bq) {
   return floats * sizeof(float);
 }
 
-// kind 1: flash_dq, 2: flash_dkv, on the mma route: the bytes of the
-// template (DH, DV), 0 where it is not instantiated.
+// kind 0: flash_fwd, 1: flash_dq, 2: flash_dkv, on the mma route: the
+// bytes of the template (DH, DV), 0 where it is not instantiated.
 size_t locate_flash_mma_smem_bytes(int kind, int DH, int DV) {
-  if ((kind != 1 && kind != 2) || !mma_template(DH, DV)) return 0;
-  return kind == 1 ? dq_mma_bytes(DH, DV) : dkv_mma_bytes(DH, DV);
+  if (kind < 0 || kind > 2 || !mma_template(DH, DV)) return 0;
+  return kind == 0 ? fwd_mma_bytes(DH, DV) : kind == 1 ? dq_mma_bytes(DH, DV)
+                                                       : dkv_mma_bytes(DH, DV);
 }
 
 // Blocks of a kernel that fit on one SM at once; 0 where there is no such
@@ -1177,7 +1398,7 @@ size_t locate_flash_mma_smem_bytes(int kind, int DH, int DV) {
 int locate_flash_blocks_per_sm(int route, int kind, int is_bf16, int dh, int dv, int bq) {
   if (route == kRouteMma) {
     const int DH = dh, DV = dv;
-    if (!is_bf16 || (kind != 1 && kind != 2) || !mma_template(DH, DV)) return 0;
+    if (!is_bf16 || kind < 0 || kind > 2 || !mma_template(DH, DV)) return 0;
 #define FLASH_MMA_BLOCKS(a, b) \
     if (DH == a && DV == b) return mma_blocks<a, b>(kind);
     FLASH_MMA_WIDTHS(FLASH_MMA_BLOCKS)
@@ -1192,10 +1413,15 @@ int locate_flash_blocks_per_sm(int route, int kind, int is_bf16, int dh, int dv,
 }
 
 // q (B, T, dh), k (B, S, dh), v (B, S, dv) in; o (B, T, dv) and ell (B, T) f32 out.
-int locate_flash_fwd(int is_bf16, const void* q, const void* k, const void* v, void* o,
-                     void* ell, int B, int T, int S, int dh, int dv, int bq, float scale,
-                     void* stream) {
+int locate_flash_fwd(int route, int is_bf16, const void* q, const void* k, const void* v,
+                     void* o, void* ell, int B, int T, int S, int dh, int dv, int bq, int DH,
+                     int DV, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == kRouteMma) {
+    if (!is_bf16) return (int)cudaErrorInvalidValue;
+    return (int)fwd_mma(q, k, v, o, ell, B, T, S, dh, dv, DH, DV, scale, s);
+  }
+  if (route != kRouteSimt) return (int)cudaErrorInvalidValue;
   FLASH_DISPATCH(launch_fwd, q, k, v, o, ell, B, T, S, dh, dv, scale, s);
 }
 

@@ -13,13 +13,13 @@ tensors and run the plain version for CPU tensors; nothing falls back from
 one to the other: `flash_fwd` (O and the per-row logsumexp `ell`),
 `flash_dq` and `flash_dkv` (the two backward passes, from `ell` and
 `delta = rowsum(dO * O)`). Each counts its kernel launches in its
-`launches` attribute. The two backward passes have two routes, which
-`backward_route` picks from the dtype and the head widths: "mma" (bf16 on
-the tensor cores, widths padded to a template of `MMA_WIDTHS`) and "simt"
-(f32 FMAs on the CUDA cores: f32, and widths no template takes); each
-route's launches are counted apart too (`launches_mma`, `launches_simt`).
-Only an explicit `route="simt"` sends a bf16 call the mma route takes to
-the simt kernels, for comparing the two. `flash_attention` runs the
+`launches` attribute. Each has two routes, which `flash_route` picks from
+the dtype and the head widths: "mma" (bf16 on the tensor cores, widths
+padded to a template of `MMA_WIDTHS`) and "simt" (f32 FMAs on the CUDA
+cores: f32, and widths no template takes); each route's launches are
+counted apart too (`launches_mma`, `launches_simt`). Only an explicit
+`route="simt"` sends a bf16 call the mma route takes to the simt kernels,
+for comparing the two. `flash_attention` runs the
 kernels through `FlashAttention`, a first-order `torch.autograd.Function`
 that saves q, k, v, o and ell (all O(T)) and never the (T, S) matrix.
 `attention_reference` is the composition that materializes it: the path
@@ -44,7 +44,7 @@ _FILL_BLOCKS = 132
 _FWD, _DQ, _DKV = 0, 1, 2
 # the two q tiles the simt kernels are built for (a kv tile is 64 rows)
 Q_TILES = (64, 16)
-# the two routes of the backward passes, and their codes in the C interface
+# the two routes of the three passes, and their codes in the C interface
 MMA, SIMT = "mma", "simt"
 _ROUTE_CODE = {SIMT: 0, MMA: 1}
 # (dh, dv) of the mma kernels' templates, narrowest first: a call's widths
@@ -146,7 +146,7 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.locate_flash_smem_bytes.argtypes = [i] * 4
         lib.locate_flash_smem_bytes.restype = ctypes.c_size_t
-        lib.locate_flash_fwd.argtypes = [i] + [p] * 5 + [i] * 6 + [f, p]
+        lib.locate_flash_fwd.argtypes = [i, i] + [p] * 5 + [i] * 8 + [f, p]
         lib.locate_flash_fwd.restype = i
         lib.locate_flash_mma_smem_bytes.argtypes = [i] * 3
         lib.locate_flash_mma_smem_bytes.restype = ctypes.c_size_t
@@ -187,10 +187,10 @@ def mma_widths(dh: int, dv: int) -> Optional[Tuple[int, int]]:
     return next(((a, b) for a, b in MMA_WIDTHS if dh <= a and dv <= b), None)
 
 
-def backward_route(dtype: torch.dtype, dh: int, dv: int) -> str:
-    """The kernels of the two backward passes: "mma" for bf16 at widths a
-    template takes, "simt" otherwise (f32 keeps its f32 products, since
-    TF32 would miss the f32 rule of 1e-4)."""
+def flash_route(dtype: torch.dtype, dh: int, dv: int) -> str:
+    """The kernels of the three passes: "mma" for bf16 at widths a template
+    takes, "simt" otherwise (f32 keeps its f32 products, since TF32 would
+    miss the f32 rule of 1e-4)."""
     return MMA if dtype == torch.bfloat16 and mma_widths(dh, dv) else SIMT
 
 
@@ -261,38 +261,14 @@ def _row_stat(name: str, x: torch.Tensor, b: int, t: int, device) -> torch.Tenso
     return x.detach().float().contiguous()
 
 
-def flash_fwd(q, k, v, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o (B, T, dv) in q's dtype, ell (B, T) f32). CUDA tensors: the
-    `flash_fwd` kernel (replaces `_fwd_kernel`); CPU tensors: the plain
-    version."""
-    if not _on_card(q):
-        return flash_forward_reference(q, k, v, scale)
-    (q, k, v), (b, t, s, dh, dv) = _operands(q, k, v)
-    lib = _library()
-    bq = pick_tile(_FWD, b, t, dh, dv, lib)
-    with torch.cuda.device(q.device):
-        o = torch.empty((b, t, dv), dtype=q.dtype, device=q.device)
-        ell = torch.empty((b, t), dtype=torch.float32, device=q.device)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.locate_flash_fwd(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), ell.data_ptr(), b, t, s, dh, dv, bq, float(scale), stream)
-    _check(lib, err, "flash_fwd")
-    flash_fwd.launches += 1
-    return o, ell
-
-
-flash_fwd.launches = 0
-
-
 def _route_of(route: Optional[str], dtype: torch.dtype, dh: int, dv: int) -> str:
-    """`route`, or `backward_route`'s choice where it is None; a route the
+    """`route`, or `flash_route`'s choice where it is None; a route the
     call cannot take raises."""
     if route is None:
-        return backward_route(dtype, dh, dv)
+        return flash_route(dtype, dh, dv)
     if route not in _ROUTE_CODE:
         raise ValueError(f"route must be {MMA!r} or {SIMT!r}, got {route!r}")
-    if route == MMA and backward_route(dtype, dh, dv) != MMA:
+    if route == MMA and flash_route(dtype, dh, dv) != MMA:
         raise ValueError(f"the mma route takes bf16 with widths a template of {MMA_WIDTHS} "
                          f"holds (multiples of 8), got {dtype}, dh={dh}, dv={dv}")
     return route
@@ -304,22 +280,29 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _plan(kind, tensors, b, t, dh, dv, route):
+    """How a pass (`kind`) runs on the card: (its operands, 16-byte aligned
+    on the mma route; the route; (q tile, DH, DV), the simt route's q tile
+    or the mma route's template, the other zero; the library)."""
+    route = _route_of(route, tensors[0].dtype, dh, dv)
+    if route == MMA:
+        tensors = [_aligned(x) for x in tensors]
+    lib = _library()
+    bq = pick_tile(kind, b, t, dh, dv, lib, route)
+    wide = mma_widths(dh, dv) if route == MMA else (0, 0)
+    return tensors, route, (bq, *wide), lib
+
+
 def _backward_call(kind, q, k, v, do, ell, delta, route):
     """The checked operands of a backward pass (`kind` _DQ or _DKV) on the
     card: ((q, k, v, do), ell, delta, (b, t, s, dh, dv), route, (q tile,
-    DH, DV), library); the simt route's q tile, or the mma route's
-    template, the other zero."""
+    DH, DV), library), as `_plan` gives them."""
     (q, k, v, do), (b, t, s, dh, dv) = _operands(q, k, v, do)
     if tuple(do.shape) != (b, t, dv):
         raise ValueError(f"do must be {(b, t, dv)}, got {tuple(do.shape)}")
     ell, delta = _row_stat("ell", ell, b, t, q.device), _row_stat("delta", delta, b, t, q.device)
-    route = _route_of(route, q.dtype, dh, dv)
-    if route == MMA:
-        q, k, v, do = (_aligned(x) for x in (q, k, v, do))
-    lib = _library()
-    bq = pick_tile(kind, b, t, dh, dv, lib, route)
-    wide = mma_widths(dh, dv) if route == MMA else (0, 0)
-    return (q, k, v, do), ell, delta, (b, t, s, dh, dv), route, (bq, *wide), lib
+    (q, k, v, do), route, tile, lib = _plan(kind, (q, k, v, do), b, t, dh, dv, route)
+    return (q, k, v, do), ell, delta, (b, t, s, dh, dv), route, tile, lib
 
 
 def _count(fn, route: str) -> None:
@@ -330,9 +313,36 @@ def _count(fn, route: str) -> None:
         fn.launches_simt += 1
 
 
+def flash_fwd(q, k, v, scale: float,
+              route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o (B, T, dv) in q's dtype, ell (B, T) f32). CUDA tensors: the
+    `flash_fwd` kernel (replaces `_fwd_kernel`) on `route`, `flash_route`'s
+    choice unless given; CPU tensors: the plain version (a route the call
+    cannot take raises on both)."""
+    if not _on_card(q):
+        _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
+        return flash_forward_reference(q, k, v, scale)
+    (q, k, v), (b, t, s, dh, dv) = _operands(q, k, v)
+    (q, k, v), route, tile, lib = _plan(_FWD, (q, k, v), b, t, dh, dv, route)
+    with torch.cuda.device(q.device):
+        o = torch.empty((b, t, dv), dtype=q.dtype, device=q.device)
+        ell = torch.empty((b, t), dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.locate_flash_fwd(
+            _ROUTE_CODE[route], int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), o.data_ptr(), ell.data_ptr(), b, t, s, dh, dv, *tile, float(scale),
+            stream)
+    _check(lib, err, f"flash_fwd ({route})")
+    _count(flash_fwd, route)
+    return o, ell
+
+
+flash_fwd.launches = flash_fwd.launches_mma = flash_fwd.launches_simt = 0
+
+
 def flash_dq(q, k, v, do, ell, delta, scale: float, route: Optional[str] = None) -> torch.Tensor:
     """dq (B, T, dh) in q's dtype. CUDA tensors: the `flash_dq` kernel
-    (replaces `_dq_kernel`) on `route`, `backward_route`'s choice unless
+    (replaces `_dq_kernel`) on `route`, `flash_route`'s choice unless
     given; CPU tensors: the plain version (a route the call cannot take
     raises on both)."""
     if not _on_card(q):
@@ -359,7 +369,7 @@ def flash_dkv(q, k, v, do, ell, delta, scale: float,
               route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk (B, S, dh), dv (B, S, dv)) in q's dtype. CUDA tensors: the
     `flash_dkv` kernel (replaces `_dkv_kernel`) on `route`,
-    `backward_route`'s choice unless given; CPU tensors: the plain version
+    `flash_route`'s choice unless given; CPU tensors: the plain version
     (a route the call cannot take raises on both)."""
     if not _on_card(q):
         _route_of(route, q.dtype, q.shape[-1], v.shape[-1])

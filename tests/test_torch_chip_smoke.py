@@ -287,3 +287,56 @@ def test_fails_without_a_card():
                           text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _flash_row(shape3, b, fwd_ms, fwd_library, route="mma", case=None):
+    """A phase-22 row as `flash_times` fills it, with made-up times."""
+    t, dh, dv = shape3
+    row = dict(shape=dict(B=b, T=t, S=t, dh=dh, dv=dv), dtype="bfloat16")
+    if case:
+        row["case"] = case
+    for kernel, ms, library in (("flash_fwd", fwd_ms, fwd_library), ("flash_dq", 1.0, 5.0),
+                                ("flash_dkv", 2.0, 5.0)):
+        row[kernel] = dict(ms=ms, plain_ms=10 * ms, bound_ms=0.1, bound_by="operations",
+                           library_ms=library, route=route, ms_simt=4 * ms)
+    return row
+
+
+def _library_rows(smoke, d16_ms=0.01, d64_ms=0.7, route="mma"):
+    rows = [_flash_row(s, 16, d16_ms if s == smoke.FLASH_D_SHAPES[16] else 0.5, 0.05, route,
+                       "layer") for s in smoke.FLASH_SHAPES]
+    rows.append(_flash_row((1024, 8, 32), 16, 9.0, 0.05, route, "S != T"))
+    train = [_flash_row(s, 64, d64_ms if s == smoke.FLASH_D_SHAPES[64] else 9.0, 15.0, route)
+             for s in smoke.FLASH_FWD_PER_STEP]
+    return rows, train
+
+
+def test_phase_22_holds_flash_fwd_to_the_library(smoke):
+    """Phase 22 fails where flash_fwd, on the mma route, is not faster than
+    the library's forward at D's 16^2 layer (batch 16) or at the 64^2
+    layers (batch 64); other shapes do not decide it."""
+    smoke.check_against_library(*_library_rows(smoke))
+    for kw in (dict(d16_ms=0.06), dict(d64_ms=15.5), dict(route="simt")):
+        with pytest.raises(smoke.SmokeFailure, match="flash_"):
+            smoke.check_against_library(*_library_rows(smoke, **kw))
+
+
+def test_kernels_line_gives_the_forward_its_routes(smoke):
+    """The `flash_fwd` entry of the kernels line carries, like the backward
+    pair's, its launches on the mma route and the simt route's time of the
+    same launches: each shape's time times its launches a step."""
+    rows, train = _library_rows(smoke)
+    for r in rows:
+        r.update(o_max_abs_err=0.01, ell_max_abs_err=0.002)
+    launches = {"flash_fwd": 75, "flash_dq": 60, "flash_dkv": 60}
+    routes = smoke.routes_expected(launches)
+    entry = smoke.flash_entry("flash_fwd", rows, train, launches, {"flash_fwd": 18}, routes)
+    per_step = sum(smoke.FLASH_FWD_PER_STEP.values())
+    assert entry["launches"] == 75 and entry["launches_mma"] == 75
+    assert entry["launches_serving"] == 18 and entry["routes"] == ["mma"]
+    want = 0.7 * 5 + 9.0 * (per_step - 5)  # (4096, 8, 32) runs 5 times a step
+    assert abs(entry["ms"] - want) < 1e-9 and abs(entry["ms_simt"] - 4 * want) < 1e-9
+    assert entry["max_abs_err"] == 0.01
+    for key in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        assert key in entry

@@ -1,10 +1,10 @@
-"""The routes of the flash backward passes, on the CPU: which kernels
-`backward_route` picks (mma: bf16 on the tensor cores at the widths of a
+"""The routes of the three flash passes, on the CPU: which kernels
+`flash_route` picks (mma: bf16 on the tensor cores at the widths of a
 template; simt: f32 and every other width), how widths pad to a template,
 what the wrappers refuse, and what chip_smoke.py reads of the mma kernels
 (their names in ptxas and SASS listings, the exponential floor, the route
-counters). The kernels themselves run on the card only
-(tests/test_torch_kernels_gpu.py)."""
+counters, the checks against the library). The kernels themselves run on
+the card only (tests/test_torch_kernels_gpu.py)."""
 
 import importlib.util
 import os
@@ -40,7 +40,7 @@ LAYERS = [((16, 64, 256), (64, 256)), ((64, 32, 128), (32, 128)), ((256, 16, 64)
 @pytest.mark.parametrize("layer,padded", LAYERS)
 def test_bf16_layers_take_the_mma_route(layer, padded):
     _, dh, dv = layer
-    assert fl.backward_route(torch.bfloat16, dh, dv) == fl.MMA
+    assert fl.flash_route(torch.bfloat16, dh, dv) == fl.MMA
     assert fl.mma_widths(dh, dv) == padded
 
 
@@ -59,7 +59,7 @@ def test_the_layers_are_chip_smokes(smoke):
     (torch.float16, 8, 32),
 ])
 def test_everything_else_takes_the_simt_route(dtype, dh, dv):
-    assert fl.backward_route(dtype, dh, dv) == fl.SIMT
+    assert fl.flash_route(dtype, dh, dv) == fl.SIMT
 
 
 def test_padding_goes_to_the_narrowest_template():
@@ -205,8 +205,126 @@ def test_exp_floor_of_the_dominant_shape(smoke):
 
 
 def test_route_counters_expected(smoke):
-    assert smoke.routes_expected(20) == {"flash_dq": {"mma": 20, "simt": 0},
-                                         "flash_dkv": {"mma": 20, "simt": 0}}
-    assert smoke.routes_expected(3, "simt")["flash_dkv"] == {"mma": 0, "simt": 3}
-    assert smoke.read_route_counters().keys() == {"flash_dq", "flash_dkv"}
+    assert smoke.routes_expected(smoke.FLASH_PER_STEP) == {
+        "flash_fwd": {"mma": 25, "simt": 0}, "flash_dq": {"mma": 20, "simt": 0},
+        "flash_dkv": {"mma": 20, "simt": 0}}
+    assert smoke.routes_expected({"flash_dkv": 3}, "simt") == {
+        "flash_fwd": {"mma": 0, "simt": 0}, "flash_dq": {"mma": 0, "simt": 0},
+        "flash_dkv": {"mma": 0, "simt": 3}}
+    assert smoke.read_route_counters().keys() == {"flash_fwd", "flash_dq", "flash_dkv"}
     assert smoke.RAISED_GRAD_NORM_LIMIT > 2e7  # above random-weight ffhq_512 G's norm
+
+
+# ---------------------------------------------------------------------------
+# the forward's two routes
+# ---------------------------------------------------------------------------
+
+
+def _forward_counts():
+    return fl.flash_fwd.launches, fl.flash_fwd.launches_mma, fl.flash_fwd.launches_simt
+
+
+@pytest.mark.parametrize("layer,padded", LAYERS)
+def test_the_forward_takes_the_mma_route_at_every_bf16_layer(layer, padded):
+    """The forward routes as the backward passes do: each bf16 layer of the
+    model goes to the mma kernel of its template; on CPU tensors that route
+    runs the plain version and counts no launch."""
+    _, dh, dv = layer
+    assert fl.flash_route(torch.bfloat16, dh, dv) == fl.MMA
+    q, k, v, *_ = _operands(torch.bfloat16, dh=dh, dv=dv)
+    before = _forward_counts()
+    o, ell = fl.flash_fwd(q, k, v, dh ** -0.5, route=fl.MMA)
+    want = fl.flash_forward_reference(q, k, v, dh ** -0.5)
+    assert torch.equal(o, want[0]) and torch.equal(ell, want[1])
+    assert _forward_counts() == before
+
+
+@pytest.mark.parametrize("route", [None, "mma", "simt"])
+def test_cpu_forward_runs_the_plain_version_on_any_route(route):
+    q, k, v, *_ = _operands(torch.bfloat16)
+    before = _forward_counts()
+    o, ell = fl.flash_fwd(q, k, v, 0.5, route=route)
+    want = fl.flash_forward_reference(q, k, v, 0.5)
+    assert torch.equal(o, want[0]) and torch.equal(ell, want[1])
+    assert o.dtype == torch.bfloat16 and ell.dtype == torch.float32
+    assert _forward_counts() == before
+
+
+def test_f32_forward_keeps_the_simt_route():
+    """f32 keeps its f32 products: the forward takes the simt kernel by
+    default and refuses the mma route, on the CPU too."""
+    q, k, v, *_ = _operands(torch.float32)
+    assert fl.flash_route(q.dtype, 8, 16) == fl.SIMT
+    with pytest.raises(ValueError, match="mma route"):
+        fl.flash_fwd(q, k, v, 0.5, route=fl.MMA)
+    o, _ = fl.flash_fwd(q, k, v, 0.5, route=fl.SIMT)
+    assert torch.equal(o, fl.flash_forward_reference(q, k, v, 0.5)[0])
+
+
+@pytest.mark.parametrize("dh,dv", [(12, 20), (72, 64), (64, 264), (5, 7)])
+def test_forward_refuses_the_mma_route_outside_the_templates(dh, dv):
+    q, k, v, *_ = _operands(torch.bfloat16, dh=dh, dv=dv)
+    with pytest.raises(ValueError, match="mma route"):
+        fl.flash_fwd(q, k, v, 0.5, route=fl.MMA)
+    with pytest.raises(ValueError, match="route must be"):
+        fl.flash_fwd(q, k, v, 0.5, route="wgmma")
+
+
+def test_the_forward_mma_tile_asks_the_library():
+    """The forward's mma block is the template's: the library is asked for
+    the bytes of kind 0 (the forward) at the padded widths."""
+    asked = []
+
+    class Lib:
+        def locate_flash_mma_smem_bytes(self, kind, dh, dv):
+            asked.append((kind, dh, dv))
+            return 22528
+
+    assert fl._FWD == 0
+    assert fl.pick_tile(fl._FWD, 64, 4096, 8, 32, Lib(), fl.MMA) == 0
+    assert fl.pick_tile(fl._FWD, 16, 256, 32, 128, Lib(), fl.MMA) == 0
+    assert asked == [(fl._FWD, 16, 32), (fl._FWD, 32, 128)]
+
+
+def test_the_forward_refuses_other_devices():
+    m = torch.zeros(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fl.flash_fwd(m, m, m, 1.0, route=fl.MMA)
+
+
+FWD_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000baa4_18_flash_attention_cu_51c301b513flash_fwd_mmaILi16ELi32EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000baa4_18_flash_attention_cu_51c301b513flash_fwd_mmaILi64ELi256EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiif' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000baa4_18_flash_attention_cu_51c301b59flash_fwdI13__nv_bfloat16Li4EEvPKT_S4_S4_PS2_Pfiiiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 60 registers, used 1 barriers
+"""
+
+
+def test_ptxas_and_sass_name_the_forward_mma_kernel(smoke, tmp_path, monkeypatch):
+    """flash_fwd_mma's instances keep names of their own, apart from the
+    simt forward whose name theirs contains, in ptxas's report and in the
+    SASS listing; phase 2 checks all three mma kernels."""
+    assert smoke.FLASH_MMA_KERNELS == ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")
+    assert (smoke.ALL_CUDA_KERNELS.index("flash_fwd_mma")
+            < smoke.ALL_CUDA_KERNELS.index("flash_fwd"))
+    kernels = smoke.parse_ptxas(FWD_PTXAS_LOG)
+    assert set(kernels) == {"flash_fwd_mma<16,32>", "flash_fwd_mma<64,256>", "flash_fwd<bf16,4>"}
+    assert kernels["flash_fwd_mma<64,256>"]["spill_stores"] == 8
+    assert kernels["flash_fwd_mma<16,32>"]["registers"] == 96
+    listing = tmp_path / "listing.txt"
+    listing.write_text(
+        "\t\tFunction : _ZN50_GLOBAL__N__0_flash_attention_cu_13flash_fwd_mmaILi32ELi128EEEvPK\n"
+        "        /*0100*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;\n"
+        "        /*0110*/                   MUFU.EX2 R8, R8 ;\n"
+        "\t\tFunction : _ZN50_GLOBAL__N__0_flash_attention_cu_9flash_fwdI13__nv_bfloat16Li1EEvPK\n"
+        "        /*0100*/                   FFMA R1, R2, R3, R1 ;\n")
+    tool = tmp_path / "cuobjdump"
+    tool.write_text(f"#!{sys.executable}\nimport sys\nprint(open({str(listing)!r}).read())\n")
+    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(smoke, "cuobjdump_path", lambda: str(tool))
+    assert smoke.sass_tensor_ops("lib.so") == {"flash_fwd_mma<32,128>": 1, "flash_fwd<bf16,1>": 0}

@@ -824,7 +824,7 @@ FLASH_ALL_SHAPES = FLASH_SHAPES + [(1024, 16, 64), (256, 32, 128), (64, 64, 256)
 
 def flash_backward_on(route, q, k, v, do, scale):
     """(dq, dk, dv) of the two backward passes on `route` (None: the route
-    `backward_route` picks), from the kernel forward's ell."""
+    `flash_route` picks), from the kernel forward's ell."""
     with torch.no_grad():
         o, ell = fl.flash_fwd(q, k, v, scale)
         delta = fl.row_delta(o, do)
@@ -840,7 +840,7 @@ def check_mma(b, t, s, dh, dv, device, seed=0):
     equal; one launch of each mma kernel a call."""
     q, k, v, do = flash_inputs(b, t, s, dh, dv, torch.bfloat16, device, seed)
     scale = dh ** -0.5
-    assert fl.backward_route(q.dtype, dh, dv) == fl.MMA
+    assert fl.flash_route(q.dtype, dh, dv) == fl.MMA
     before = fl.flash_dq.launches_mma, fl.flash_dkv.launches_mma
     mma = flash_backward_on(None, q, k, v, do, scale)
     assert (fl.flash_dq.launches_mma, fl.flash_dkv.launches_mma) == (before[0] + 1,
@@ -893,7 +893,7 @@ def test_flash_mma_route_is_bitwise_repeatable(cuda):
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
 def test_flash_route_counters_after_one_backward(cuda, dtype, route):
     """One `FlashAttention` backward launches each backward pass once, on
-    the route `backward_route` picks: mma in bf16, simt in f32."""
+    the route `flash_route` picks: mma in bf16, simt in f32."""
     q, k, v, do = flash_inputs(2, 96, 96, 8, 32, dtype, cuda, seed=7)
     before = {f: (f.launches, f.launches_mma, f.launches_simt)
               for f in (fl.flash_dq, fl.flash_dkv)}
@@ -916,11 +916,12 @@ def test_flash_mma_widths_match_the_library(cuda):
     for dh, dv in [(8, 16), (8, 32), (16, 8), (16, 64), (24, 40), (32, 128), (64, 256)]:
         assert fl.mma_widths(dh, dv) in fl.MMA_WIDTHS
     for wide in fl.MMA_WIDTHS:
-        for kind in (fl._DQ, fl._DKV):
+        for kind in (fl._FWD, fl._DQ, fl._DKV):
             assert 0 < lib.locate_flash_mma_smem_bytes(kind, *wide) <= fl._MAX_SMEM
             assert lib.locate_flash_blocks_per_sm(1, kind, 1, *wide, 0) >= 1
     for dh, dv in [(12, 20), (72, 64), (64, 264), (8, 32), (24, 40)]:
         assert lib.locate_flash_mma_smem_bytes(fl._DQ, dh, dv) == 0
+        assert lib.locate_flash_mma_smem_bytes(fl._FWD, dh, dv) == 0
     for dh, dv in [(12, 20), (72, 64), (64, 264)]:
         assert fl.mma_widths(dh, dv) is None
     q, k, v, do = flash_inputs(1, 32, 32, 12, 20, torch.bfloat16, cuda)
@@ -976,3 +977,130 @@ def test_flash_mma_route_takes_unaligned_views(cuda):
     got = flash_backward_on(fl.MMA, *(shifted(x) for x in (q, k, v, do)), 8 ** -0.5)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the forward's mma route (flash_fwd_mma)
+# ---------------------------------------------------------------------------
+
+
+def forward_on(route, q, k, v, scale):
+    """(o, ell) of the forward on `route` (None: `flash_route`'s choice)."""
+    with torch.no_grad():
+        out = fl.flash_fwd(q, k, v, scale, route=route)
+        torch.cuda.synchronize()
+    return out
+
+
+def check_fwd_mma(b, t, s, dh, dv, device, seed=0):
+    """The forward's mma route against the plain version (the bf16 rule);
+    the simt forward on the same inputs under the same rule; two mma runs
+    bitwise equal; one mma launch a call."""
+    q, k, v, _ = flash_inputs(b, t, s, dh, dv, torch.bfloat16, device, seed)
+    scale = dh ** -0.5
+    assert fl.flash_route(q.dtype, dh, dv) == fl.MMA
+    before = fl.flash_fwd.launches_mma
+    mma = forward_on(None, q, k, v, scale)
+    assert fl.flash_fwd.launches_mma == before + 1
+    again = forward_on(fl.MMA, q, k, v, scale)
+    simt = forward_on(fl.SIMT, q, k, v, scale)
+    with torch.no_grad():
+        plain = fl.flash_forward_reference(q, k, v, scale)
+        truth = fl.flash_forward_reference(q.float(), k.float(), v.float(), scale)
+    for name, a, a2, sm, p, tr in zip(("o", "ell"), mma, again, simt, plain, truth):
+        assert a.shape == p.shape and a.dtype == p.dtype, name
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, a2), name
+        hold(name, a, p, tr)
+        hold(f"{name} simt", sm, p, tr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,dh,dv", FLASH_ALL_SHAPES)
+def test_flash_fwd_mma_at_lsun_shapes(cuda, t, dh, dv):
+    """Every template at the widths of lsun_bedroom_128's nine layers."""
+    check_fwd_mma(1 if t == 16384 else 4, t, t, dh, dv, cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,s,dh,dv", [
+    (2, 100, 300, 8, 32),      # ragged q and kv tiles, S > T
+    (2, 300, 100, 16, 64),     # S < T: one ragged kv tile
+    (3, 17, 17, 8, 16),        # one short tile of each; heads = 2's widths
+    (2, 1024, 1024, 8, 16),    # heads = 2 at 32^2
+    (2, 333, 100, 16, 8),      # dv 8 padded to 16
+    (2, 130, 200, 24, 40),     # widths between templates: padded to (32, 128)
+    (2, 64, 64, 64, 256),      # the widest template, O in shared memory
+    (2, 200, 333, 64, 256),    # the same over several ragged q and kv tiles
+])
+def test_flash_fwd_mma_edges_and_padding(cuda, b, t, s, dh, dv):
+    check_fwd_mma(b, t, s, dh, dv, cuda, seed=9)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_mma_is_bitwise_repeatable(cuda):
+    q, k, v, _ = flash_inputs(3, 1000, 1000, 8, 32, torch.bfloat16, cuda, seed=10)
+    first = forward_on(fl.MMA, q, k, v, 8 ** -0.5)
+    again = forward_on(fl.MMA, q, k, v, 8 ** -0.5)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_flash_fwd_mma_takes_unaligned_views(cuda):
+    """Operands that start off a 16-byte boundary give the forward the same
+    (o, ell) as aligned copies of the same values."""
+    q, k, v, _ = flash_inputs(2, 96, 80, 8, 32, torch.bfloat16, cuda, seed=11)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    want = forward_on(fl.MMA, q, k, v, 8 ** -0.5)
+    got = forward_on(fl.MMA, *(shifted(x) for x in (q, k, v)), 8 ** -0.5)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"), (torch.float32, "simt")])
+def test_flash_fwd_route_counters_after_one_forward(cuda, dtype, route):
+    """One `FlashAttention` forward launches the forward once, on the route
+    `flash_route` picks, and no backward pass."""
+    q, k, v, _ = flash_inputs(2, 96, 96, 8, 32, dtype, cuda, seed=12)
+    counters = (fl.flash_fwd, fl.flash_dq, fl.flash_dkv)
+    before = [(f.launches, f.launches_mma, f.launches_simt) for f in counters]
+    with torch.no_grad():
+        fl.flash_attention(q, k, v, scale=0.25)
+    after = [(f.launches, f.launches_mma, f.launches_simt) for f in counters]
+    assert after[0] == (before[0][0] + 1, before[0][1] + (route == "mma"),
+                        before[0][2] + (route == "simt"))
+    assert after[1:] == before[1:]
+
+
+@pytest.mark.gpu
+def test_flash_fwd_mma_launch_refuses_a_template_that_cannot_hold_the_widths(cuda):
+    """The forward's C interface runs the template it is named: a pair too
+    narrow for the widths, no template, or f32 on the mma route is refused
+    before any launch."""
+    q, k, v, _ = flash_inputs(1, 32, 32, 8, 32, torch.bfloat16, cuda)
+    lib = fl._library()
+    o = torch.empty(1, 32, 32, dtype=q.dtype, device=cuda)
+    ell = torch.empty(1, 32, dtype=torch.float32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(wide, is_bf16=1):
+        return lib.locate_flash_fwd(1, is_bf16, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    o.data_ptr(), ell.data_ptr(), 1, 32, 32, 8, 32, 0, *wide,
+                                    0.5, stream)
+
+    assert launch((16, 16)) != 0      # dv 32 does not fit DV 16
+    assert launch((24, 32)) != 0      # no such template
+    assert launch((16, 32), is_bf16=0) != 0
+    assert launch(fl.mma_widths(8, 32)) == 0
+    torch.cuda.synchronize()
+    want = fl.flash_fwd(q, k, v, 0.5)
+    assert torch.equal(o, want[0]) and torch.equal(ell, want[1])
