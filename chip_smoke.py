@@ -25,6 +25,9 @@ line each:
      three passes, with the blocks that fit on an SM; the SASS of every
      mma instance of the bf16 forward and backward (`cuobjdump -sass`)
      holds HMMA or HGMMA instructions, and none spills more than 16 bytes;
+     the two mma kernels of the stage (`stage_softmax_stats_mma`,
+     `stage_conv_bwd_mma`) at each (C, Co) template: HMMA in the SASS, no
+     spill, registers, shared memory and blocks an SM;
   3. the gate's forward kernels (stats, apply) against the plain version at
      the nine G and D gate shapes of lsun_bedroom_128, batch 64, bf16, with
      gate weights that make the gate vary and pass the clamp at 16, plus one
@@ -76,8 +79,13 @@ line each:
      256^2 in) and D's plain form, the pooled apply pass, the conv pass
      plain, `up`, `down` and with a 1x1 skip (C 32), the conv backward plain
      and `up` (its outputs against their absolute-term scales, two f32 runs
-     bitwise equal); each bf16 case timed beside its bound and the plain
-     version's time;
+     bitwise equal), the stats pass and the backward also with the 1x1
+     skip (C 32); the stats pass and the backward in bf16 on the mma route
+     (the wrappers' choice) and, on the same inputs, the simt route, both
+     under the bf16 rule, each case twice and bitwise equal, f32 on the
+     simt route; each bf16 case timed beside its bound and the plain
+     version's time, and those two kernels beside the simt route's time
+     (fails if the mma route is not the faster);
  10. ffhq_512 serving: one request of 4 through `generate_samples` (the
      launches of one forward: the stage's stats pass once, the gate's kernels
      at the seven stages below), the kernel path, the plain path and an f32
@@ -87,18 +95,20 @@ line each:
  11. ffhq_512 training (the fused-stage kernels' main path): the preset as
      shipped (R1 gamma 0.1 every 16 steps, remat, both guards) at batch 16,
      3 steps from step 0: the checks of 6, launches per step of all eight
-     kernels as the step implies, sec/step, images/sec, peak memory, idle
+     kernels as the step implies, every launch of stage_softmax_stats and
+     stage_conv_bwd on the mma route, sec/step, images/sec, peak memory, idle
      share and top kernels; the same steps again with the grad-norm guard
      raised to 1e9, where G's and D's updates all apply and G, D and the
      EMA move (random weights give G a norm of 2e6-2e7, above the shipped
      1e6, so this is the card's check of G's Adam update); then the plain
      path's 3 steps alike;
  12. one ffhq_512 step's gradients with R1 on the kernel path, each of its
-     four fused-stage backward calls held against the plain backward chain
-     on its own saved tensors (the bf16 rule);
+     four fused-stage backward calls (on the mma route) held against the
+     plain backward chain on its own saved tensors (the bf16 rule);
  13. one step's whole gradients at ffhq_512's widths cut to 64^2 with every
      stage fused, f32 kernel path against f32 plain path (the tolerance of
-     6), each of the 20 fused-stage backward calls within 1e-4;
+     6), each of the 20 fused-stage backward calls within 1e-4, on the simt
+     route;
  14. one 512^2 G stage and one D stage, forward plus backward, fused,
      unfused and on the plain path;
  15. the sigmoid gate's two kernels (sigmoid_gate, sigmoid_bwd) against
@@ -155,8 +165,9 @@ line each:
      gradients against the plain path (the tolerance of 6), each call
      within 1e-4;
  26. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
-     flash kernels with their mma-route launches and the simt route's time
-     of the same launches beside their own);
+     flash kernels, `stage_softmax_stats` and `stage_conv_bwd` with their
+     mma-route launches and the simt route's time of the same launches
+     beside their own);
  27. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -231,6 +242,12 @@ CUDA_KERNELS = ("softmax_stats_partial", "softmax_stats_merge", "softmax_apply",
 STAGE_SOURCE = "locate_tpu_torch/csrc/fused_stage.cu"
 STAGE_KERNELS = ("stage_conv", "stage_softmax_stats", "stage_softmax_apply_pool",
                  "stage_conv_bwd")
+# the tensor-core instances of stage_softmax_stats and stage_conv_bwd (their
+# mma route, bf16), templates on (C, Co); each must hold HMMA and not spill
+STAGE_MMA_KERNELS = ("stage_softmax_stats_mma", "stage_conv_bwd_mma")
+# the two wrappers with two routes, and the simt time each bf16 case of
+# phase 9 must beat on the mma route
+STAGE_ROUTED = ("stage_softmax_stats", "stage_conv_bwd")
 STAGE_CUDA_KERNELS = ("stage_conv_bwd", "stage_softmax_apply_pool", "stage_softmax_stats",
                       "stage_conv", "stage_sigmoid", "softmax_stats_merge", "reduce_partials")
 FLASH_SOURCE = "locate_tpu_torch/csrc/flash_attention.cu"
@@ -239,7 +256,8 @@ FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # templates on the padded head widths; each must hold HMMA or HGMMA
 FLASH_MMA_KERNELS = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")
 FLASH_MMA_SPILL_LIMIT = 16  # bytes: the simt kernels' worst spill
-ALL_CUDA_KERNELS = STAGE_CUDA_KERNELS + CUDA_KERNELS + FLASH_MMA_KERNELS + FLASH_KERNELS
+ALL_CUDA_KERNELS = (STAGE_MMA_KERNELS + STAGE_CUDA_KERNELS + CUDA_KERNELS + FLASH_MMA_KERNELS
+                    + FLASH_KERNELS)
 # the exponential floor of a flash pass: B T S exponentials on the H100's
 # 132 x 16 SFU lanes (one ex2 a lane a clock) at the SXM card's 1.98 GHz
 # boost clock, the clock PEAK_FLOPS's f32 figure (132 x 128 FMA x 2) assumes
@@ -853,6 +871,22 @@ def read_route_counters() -> dict:
             for k in FLASH_KERNELS}
 
 
+def read_stage_routes() -> dict:
+    """{kernel: {route: launches}} of the two fused-stage wrappers with two
+    routes (STAGE_ROUTED)."""
+    from locate_tpu_torch.ops import fused_stage as fs
+
+    return {k: {r: getattr(getattr(fs, k), f"launches_{r}") for r in ("mma", "simt")}
+            for k in STAGE_ROUTED}
+
+
+def stage_routes_expected(launches: dict, route: str = "mma") -> dict:
+    """The route counters of STAGE_ROUTED after `launches` ({kernel:
+    launches}), all on `route`."""
+    return {k: {r: launches.get(k, 0) * (r == route) for r in ("mma", "simt")}
+            for k in STAGE_ROUTED}
+
+
 def routes_expected(launches: dict, route: str = "mma") -> dict:
     """The route counters of the three flash wrappers after `launches`
     ({kernel: launches}, none where a kernel is not named), all on
@@ -1308,7 +1342,8 @@ STAGE_CASES = [("stage_softmax_stats", "up", 64, 64), ("stage_softmax_stats", "p
                ("stage_softmax_apply_pool", "plain", 64, 64),
                ("stage_conv", "plain", 64, 64), ("stage_conv", "up", 64, 64),
                ("stage_conv", "down", 64, 64), ("stage_conv", "skip", 32, 64),
-               ("stage_conv_bwd", "plain", 64, 64), ("stage_conv_bwd", "up", 64, 64)]
+               ("stage_conv_bwd", "plain", 64, 64), ("stage_conv_bwd", "up", 64, 64),
+               ("stage_softmax_stats", "skip", 32, 64), ("stage_conv_bwd", "skip", 32, 64)]
 # the sigmoid pass: G's `up`, D's `down`, and the plain and 1x1-skip forms
 SIGMOID_STAGE_CASES = [("stage_sigmoid", "up", 64, 64), ("stage_sigmoid", "down", 64, 64),
                        ("stage_sigmoid", "plain", 64, 64), ("stage_sigmoid", "skip", 32, 64)]
@@ -1349,11 +1384,13 @@ def as_f32(ts):
     return [None if t is None else t.float() for t in ts]
 
 
-def run_stage(fs, kind, ops, gate, form, dw=None, stats=None, plain=False):
+def run_stage(fs, kind, ops, gate, form, dw=None, stats=None, plain=False, route=None):
     """One fused-stage kernel (or its plain version) on `ops`: its outputs,
     named by STAGE_OUTPUTS[kind]. The apply pass takes x as w_pre, with
-    the softmax statistics `stats` of its gate logits."""
+    the softmax statistics `stats` of its gate logits. `route` goes to the
+    two kernels of STAGE_ROUTED (None: the wrapper's choice)."""
     up, down = form == "up", form == "down"
+    routed = {} if plain else dict(route=route)
     if kind == "stage_conv":
         fn = fs.stage_conv_reference if plain else fs.stage_conv
         return (fn(*ops, upsample=up, downsample=down, **STAGE_KW),)
@@ -1363,13 +1400,13 @@ def run_stage(fs, kind, ops, gate, form, dw=None, stats=None, plain=False):
                    **STAGE_KW),)
     if kind == "stage_softmax_stats":
         fn = fs.stage_softmax_stats_reference if plain else fs.stage_softmax_stats
-        return fn(*ops, *gate, upsample=up, **STAGE_KW)
+        return fn(*ops, *gate, upsample=up, **STAGE_KW, **routed)
     if kind == "stage_softmax_apply_pool":
         h, w = ops[0].shape[1:3]
         fn = fs.stage_softmax_apply_pool_reference if plain else fs.stage_softmax_apply_pool
         return (fn(ops[0], *gate, *stats, hw_scale=float(h * w), gate_max=16.0, **STAGE_KW),)
     fn = fs.stage_conv_bwd_reference if plain else fs.stage_conv_bwd
-    return fn(ops[0], dw, *ops[1:5], ops[6], upsample=up, **STAGE_KW)
+    return fn(ops[0], dw, *ops[1:5], ops[6], upsample=up, **STAGE_KW, **routed)
 
 
 def conv_bwd_scales(fs, ops, dw, up):
@@ -1434,7 +1471,11 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
     against their plain versions at ffhq_512's 512^2 stage shapes, batch
     16, in bf16 (timed) and f32; the backward's outputs against their
     absolute-term scales, and bitwise repeatable in f32; the sigmoid pass
-    at gate_max 1.5, where the clamp binds at a part of the pixels."""
+    at gate_max 1.5, where the clamp binds at a part of the pixels. The
+    two kernels of STAGE_ROUTED run bf16 on the mma route (the wrappers'
+    choice) and, on the same inputs, on the simt route, both under the
+    bf16 rule, each case twice and bitwise equal; the mma route must be
+    the faster; f32 takes the simt route."""
     n = FFHQ_BATCH
     rows, times, max_err = [], {}, {}
     for i, (kind, form, c, co) in enumerate(cases):
@@ -1456,25 +1497,40 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
                     stats, truth_stats = (fa.softmax_gate_stats_reference(
                         t.reshape(n, 512 * 512, co), *gate, **STAGE_KW)
                         for t in (ops[0], ops[0].float()))
+                routed = kind in STAGE_ROUTED
+                before = read_stage_routes()
                 kern = run_stage(fs, kind, ops, gate, form, dw, stats)
+                if routed:
+                    row["route"] = fs.MMA if dtype == torch.bfloat16 else fs.SIMT
+                    want = {k: dict(before[k]) for k in STAGE_ROUTED}
+                    want[kind][row["route"]] += 1
+                    check(read_stage_routes() == want,
+                          f"{kind} {form} {dtype}: not on the {row['route']} route")
                 plain = run_stage(fs, kind, ops, gate, form, dw, stats, plain=True)
                 truth = (plain if dtype == torch.float32 else
                          run_stage(fs, kind, as_f32(ops), gate, form,
                                    None if dw is None else dw.float(), truth_stats, plain=True))
                 scales = ((None,) * len(kern) if dw is None
                           else conv_bwd_scales(fs, ops, dw, form == "up"))
-                if kind == "stage_conv_bwd" and dtype == torch.float32:
+                if routed:
                     again = run_stage(fs, kind, ops, gate, form, dw)
-                    for name, k, a in zip(BWD_NAMES, kern, again):
+                    for name, k, a in zip(STAGE_OUTPUTS[kind], kern, again):
                         check(k is None or torch.equal(k, a),
                               f"{kind} {form}: {name} differs bitwise between two runs")
                     row["bitwise_repeatable"] = True
+                    del again
+                simt = (run_stage(fs, kind, ops, gate, form, dw, route=fs.SIMT)
+                        if routed and dtype == torch.bfloat16 else None)
                 torch.cuda.synchronize()
             for name, k, p, t, sc in zip(STAGE_OUTPUTS[kind], kern, plain, truth, scales):
                 if k is None:
                     continue
                 hold(name, shape, k, p, t, dtype, row, scale=sc)
                 max_err[kind] = max(max_err.get(kind, 0.0), row[f"{name}_max_abs_err"])
+            if simt is not None:  # the simt route on the same inputs, under the same rule
+                for name, k, p, t, sc in zip(STAGE_OUTPUTS[kind], simt, plain, truth, scales):
+                    if k is not None:
+                        hold(f"simt_{name}", shape, k, p, t, dtype, row, scale=sc)
             if kind == "stage_sigmoid" and dtype == torch.float32:
                 with torch.no_grad():
                     w = fs.stage_conv_reference(*ops, upsample=form == "up", **STAGE_KW)
@@ -1484,15 +1540,22 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
                     del w, l
                 check(0.05 < row["clamped_share"] < 0.95,
                       f"{kind} {form}: gate_max {SIGMOID_GATE_MAX} clamps {row['clamped_share']}")
-            del kern, plain, truth, scales
+            del kern, plain, truth, scales, simt
             if dtype == torch.bfloat16:
                 with torch.no_grad():
                     ms = graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw, stats), 3, 3)
                     plain_ms = graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw, stats,
                                                           plain=True), 3, 3)
+                    ms_simt = (graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw,
+                                                          route=fs.SIMT), 3, 3)
+                               if kind in STAGE_ROUTED else None)
                 b_ms, b_by = stage_bound(kind, n, c, co, dtype, form)
                 times[(kind, form)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                            bound_by=b_by, share_of_bound=b_ms / ms)
+                if ms_simt is not None:
+                    times[(kind, form)].update(ms_simt=ms_simt, route=fs.MMA)
+                    check(ms < ms_simt, f"{kind} {form}: the mma route ({ms:.4f} ms) is not "
+                                        f"faster than the simt route ({ms_simt:.4f} ms)")
                 row.update(times[(kind, form)])
             say(phase, **row)
             rows.append(row)
@@ -1698,12 +1761,15 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     state, history, seconds = timed_steps(step, state, batch, steps)
-    launches = read_counters()
+    launches, stage_routes = read_counters(), read_stage_routes()
     peak = torch.cuda.max_memory_allocated()
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
     check(launches == expected(per_step, steps),
           f"ffhq_512 steps launched {launches}, want {per_step} per step")
+    # every (bf16) launch of the two routed stage kernels on the tensor cores
+    check(stage_routes == stage_routes_expected(launches),
+          f"ffhq_512 steps' stage kernels took the routes {stage_routes}")
     idle, top = profile_calls(lambda: step(state, batch), calls=2, top=15)
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
     params = dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel())
@@ -1727,7 +1793,7 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     say(phase, config="ffhq_512 as shipped, batch 16", overrides=overrides, steps=steps,
         params=params,
         launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
-        metrics=history, max_param_change=moved,
+        stage_routes=stage_routes, metrics=history, max_param_change=moved,
         kernel_path=dict(rates(seconds), peak_memory_bytes=peak,
                          device_idle_share="not measured" if idle is None else idle,
                          top_kernels_2_steps=top),
@@ -1736,7 +1802,7 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
                         device_idle_share=("not measured" if plain_idle is None
                                            else plain_idle),
                         top_kernels_2_steps=plain_top))
-    return cfg, weights, launches
+    return cfg, weights, launches, stage_routes
 
 
 def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-backward"):
@@ -1748,12 +1814,18 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-
     z = [torch.randn(FFHQ_BATCH, cfg.model.latent_dim, device="cuda", generator=g)
          for _ in range(2)]
     calls = []
+    before = read_stage_routes()
     with checked_stage_backward(fs, fa, calls):
         _, _, d_loss, g_loss, r1 = step_grads(cfg, weights, *z, 512, True, "bfloat16")
+    after = read_stage_routes()
     check(len(calls) == 4, f"{len(calls)} fused-stage backward calls in one ffhq_512 step")
+    moved = {k: {r: after[k][r] - before[k][r] for r in after[k]} for k in after}
+    check(moved["stage_conv_bwd"] == {"mma": 4, "simt": 0}
+          and moved["stage_softmax_stats"]["simt"] == 0,
+          f"the checked ffhq_512 step's stage kernels took the routes {moved}")
     check(all(math.isfinite(v) for v in (d_loss, g_loss, r1)) and r1 > 0.0,
           f"ffhq_512 step losses {d_loss}, {g_loss}, r1 {r1}")
-    say(phase, calls=calls, d_loss=d_loss, g_loss=g_loss, r1=r1)
+    say(phase, calls=calls, stage_routes=moved, d_loss=d_loss, g_loss=g_loss, r1=r1)
 
 
 def phase_ffhq_grads_64(fs, fa, blocks, overrides=None, kernels=STAGE_KERNELS,
@@ -1779,12 +1851,14 @@ def phase_ffhq_grads_64(fs, fa, blocks, overrides=None, kernels=STAGE_KERNELS,
         with checked_stage_backward(fs, fa, calls):
             reset_counters()
             kernel = step_grads(cfg, weights, *z, 64, True, "float32")
-            launches = read_counters()
+            launches, stage_routes = read_counters(), read_stage_routes()
     finally:
         blocks.FUSE_MIN_LOCATIONS = None
     stages = len(cfg.model.stage_resolutions())
     check(len(calls) == 4 * stages, f"{len(calls)} fused-stage backward calls at 64^2")
     check(all(launches[k] > 0 for k in kernels), f"64^2 step launched {launches}")
+    check(stage_routes == stage_routes_expected(launches, "simt"),
+          f"the f32 64^2 step's stage kernels took the routes {stage_routes}")
     plain = step_grads(cfg, weights, *z, 64, False, "float32")
     noisy = step_grads(cfg, weights, *z, 64, False, "float32", perturb=1e-7)
     rows = {}
@@ -2609,9 +2683,12 @@ def sigmoid_entry(kernel, rows, launches, serve_launches):
     return entry
 
 
-def stage_entry(kernel, times, max_err, launches, forms=None):
+def stage_entry(kernel, times, max_err, launches, forms=None, routes=None):
     """The {"kernels": [...]} entry of a fused-stage kernel: per ffhq_512
-    train step at batch 16, each form's time times its launches a step."""
+    train step at batch 16, each form's time times its launches a step;
+    for the two kernels of STAGE_ROUTED beside the simt route's time of
+    the same launches, with the launches the main path's run made on the
+    mma route (`routes`, read_stage_routes())."""
     forms = forms or FFHQ_STAGE_PER_STEP[kernel]
 
     def total(key):
@@ -2619,7 +2696,9 @@ def stage_entry(kernel, times, max_err, launches, forms=None):
 
     by_ops = sum(times[(kernel, f)]["bound_ms"] * k for f, k in forms.items()
                  if times[(kernel, f)]["bound_by"] == "operations")
-    return {
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by") + (("ms_simt",) if kernel in STAGE_ROUTED
+                                                       else ())
+    entry = {
         "name": kernel,
         "route": "cuda",
         "source": STAGE_SOURCE,
@@ -2632,10 +2711,14 @@ def stage_entry(kernel, times, max_err, launches, forms=None):
         "bound_by": "operations" if by_ops >= total("bound_ms") / 2 else "bytes",
         "library_ms": None,
         "forms": [dict(form=f, launches_per_step=k,
-                       **{key: times[(kernel, f)][key]
-                          for key in ("ms", "plain_ms", "bound_ms", "bound_by")})
+                       **{key: times[(kernel, f)][key] for key in keys})
                   for f, k in forms.items()],
     }
+    if kernel in STAGE_ROUTED:
+        entry["routes"] = ["mma"]
+        entry["launches_mma"] = routes[kernel]["mma"]
+        entry["ms_simt"] = total("ms_simt")  # the same launches on the simt route
+    return entry
 
 
 def per_step(rows, kind, mult, key):
@@ -2693,7 +2776,8 @@ def phase_build(fa, fs, fl, build):
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
     reports = {name: parse_ptxas(build.ptxas_report(name)) for name in names}
-    for name, wanted in (("fused_attention", CUDA_KERNELS), ("fused_stage", STAGE_CUDA_KERNELS),
+    for name, wanted in (("fused_attention", CUDA_KERNELS),
+                         ("fused_stage", STAGE_CUDA_KERNELS + STAGE_MMA_KERNELS),
                          ("flash_attention", FLASH_KERNELS + FLASH_MMA_KERNELS)):
         for k in wanted:
             check(any(n.startswith(k) for n in reports[name]), f"ptxas reported no {k}")
@@ -2721,8 +2805,28 @@ def phase_build(fa, fs, fl, build):
     for kind, k in (("conv", fs._CONV), ("stats", fs._STATS), ("apply_pool", fs._APPLY_POOL),
                     ("bwd", fs._BWD), ("sigmoid", fs._SIGMOID)):
         th, tw = fs.pick_tile(k, 512, 512, 64, 64, 16, 64, lib=stage_lib)
-        stage_smem[kind] = dict(tile=f"{th}x{tw}", bytes=int(
-            stage_lib.locate_stage_smem_bytes(k, 64, 64, 16, 64, th, tw)))
+        stage_smem[kind] = dict(route="simt", tile=f"{th}x{tw}", bytes=int(
+            stage_lib.locate_stage_smem_bytes(0, k, 64, 64, 16, 64, th, tw)))
+        if k in (fs._STATS, fs._BWD):
+            stage_smem[kind]["blocks_per_sm"] = int(
+                stage_lib.locate_stage_blocks_per_sm(0, k, 64, 64, 16, 64, th, tw))
+    # the mma instances of the two routed kernels: HMMA in the SASS, no
+    # spill, their shared memory and blocks an SM at each template
+    stage_sass = sass_tensor_ops(libs["fused_stage"])
+    stage_mma = {}
+    for k, kind in zip(STAGE_MMA_KERNELS, (fs._STATS, fs._BWD)):
+        for c, co in fs.STAGE_MMA_WIDTHS:
+            n = f"{k}<{c},{co}>"
+            ptx = reports["fused_stage"].get(n, {})
+            check(stage_sass.get(n, 0) > 0, f"{n}: no HMMA or HGMMA instruction in its SASS")
+            check(bool(ptx) and ptx.get("spill_stores", 0) == 0 and ptx.get("spill_loads", 0) == 0,
+                  f"{n} spills: {ptx}")
+            hd, cout = (fs.MMA_HD, co) if kind == fs._STATS else (0, 0)
+            stage_mma[n] = dict(ptx, tensor_core_instructions=stage_sass[n], bytes=int(
+                stage_lib.locate_stage_smem_bytes(1, kind, c, co, hd, cout, *fs._MMA_TILE)),
+                blocks_per_sm=int(stage_lib.locate_stage_blocks_per_sm(
+                    1, kind, c, co, hd, cout, *fs._MMA_TILE)))
+            check(stage_mma[n]["blocks_per_sm"] >= 1, f"{n}: no block fits on an SM")
     flash_lib = fl._library()
     flash_smem = {}
     for t, dh, dv in FLASH_SHAPES + [(1024, 8, 16)]:
@@ -2747,7 +2851,7 @@ def phase_build(fa, fs, fl, build):
         seconds=time.perf_counter() - t0, kernels=reports, dynamic_smem_bytes=smem,
         flash_mma_kernels=mma, flash_simt_bf16_tensor_core_instructions=simt_bf16,
         flash_dynamic_smem_at_batch_16=flash_smem,
-        stage_dynamic_smem_at_512x512x64=stage_smem,
+        stage_dynamic_smem_at_512x512x64=stage_smem, stage_mma_kernels=stage_mma,
         stage_conv_bwd_blocks=fs.bwd_blocks(FFHQ_BATCH, 512, 512, *fs.pick_tile(
             fs._BWD, 512, 512, 64, 64, lib=stage_lib)))
 
@@ -2825,7 +2929,7 @@ def main() -> int:
     # ffhq_512: the fused-stage kernels, serving, training (their main path)
     stage_rows, stage_times, stage_err = phase_stage_kernels(fs, fa)
     phase_ffhq_serving()
-    ffhq_cfg, ffhq_weights, ffhq_launches = phase_ffhq_train()
+    ffhq_cfg, ffhq_weights, ffhq_launches, ffhq_routes = phase_ffhq_train()
     # with the softmax gate random weights give G a norm above the shipped
     # guard: only with it raised does G's Adam update run on the card
     say("ffhq-train-raised-guard", **raised_guard_steps(3, "ffhq-train-raised-guard"))
@@ -2839,8 +2943,8 @@ def main() -> int:
     _, sig_stage_times, sig_stage_err = phase_stage_kernels(
         fs, fa, SIGMOID_STAGE_CASES, "sigmoid-stage-kernels-vs-plain")
     sig_serve = phase_ffhq_serving(SIGMOID, SIGMOID_SERVE_PER_FORWARD, "ffhq-sigmoid-serving")
-    sig_cfg, sig_weights, sig_launches = phase_ffhq_train(SIGMOID, SIGMOID_PER_STEP,
-                                                          "ffhq-sigmoid-train")
+    sig_cfg, sig_weights, sig_launches, _ = phase_ffhq_train(SIGMOID, SIGMOID_PER_STEP,
+                                                             "ffhq-sigmoid-train")
     phase_ffhq_checked_backward(fs, fa, sig_cfg, sig_weights,
                                 "ffhq-sigmoid-checked-stage-backward")
     del sig_weights
@@ -2859,7 +2963,8 @@ def main() -> int:
 
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches)
            for k in KERNELS]
-    out += [stage_entry(k, stage_times, stage_err, ffhq_launches) for k in STAGE_KERNELS]
+    out += [stage_entry(k, stage_times, stage_err, ffhq_launches, routes=ffhq_routes)
+            for k in STAGE_KERNELS]
     out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve) for k in SIGMOID_KERNELS]
     out.append(stage_entry("stage_sigmoid", sig_stage_times, sig_stage_err, sig_launches,
                            SIGMOID_STAGE_PER_STEP["stage_sigmoid"]))

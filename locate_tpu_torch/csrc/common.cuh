@@ -1,9 +1,10 @@
 // Device helpers shared by the port's kernels: dtype conversion, the
 // activations of locate_tpu/ops/pallas/fused_attention.py:_act and their
 // subgradients, the sigmoid gate, the (max, sum-exp) merge of per-tile
-// softmax statistics, and the fixed-order reduction of per-block partial
-// sums. Each .cu file includes this header and compiles into its own
-// library.
+// softmax statistics, the fixed-order reduction of per-block partial
+// sums, and the bf16 tensor-core primitives (mma.sync m16n8k16, ldmatrix,
+// cp.async) of the mma routes. Each .cu file includes this header and
+// compiles into its own library.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -124,6 +125,141 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) cudaGetLastError();
   return err;
+}
+
+// ---- bf16 tensor-core primitives (mma.sync m16n8k16, ldmatrix, cp.async) ----
+// shared by the mma routes of flash_attention.cu and fused_stage.cu
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes (or 4) from device to shared memory, zero-filled where !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a b: one m16n8k16 product, bf16 operands, f32 accumulator
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A fragment (16 x 16, row-major) of rows row0.. and columns col0.. of
+// a bf16 tile with row stride ld.
+__device__ __forceinline__ void frag_a(uint32_t (&r)[4], const bf16* tile, int ld, int row0,
+                                       int col0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(r, tile + (row0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * ld + col0 +
+                 ((lane >> 4) << 3));
+}
+
+// c[n] += A B for NT n-tiles of 8 columns and KS k-steps of 16, B read from
+// a tile stored [n][k] (the operand transposed: K for Q K^T).
+template <int KS, int NT>
+__device__ __forceinline__ void mma_nk(float (&c)[NT][4], const uint32_t (&a)[KS][4],
+                                       const bf16* tile, int ld) {
+  const int lane = threadIdx.x & 31;
+  const bf16* base = tile + ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, base + np * 16 * ld + kk * 16);
+      mma16816(c[2 * np], a[kk], b[0], b[1]);
+      mma16816(c[2 * np + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// The same with A's fragments read from shared memory step by step (rows
+// a_row0.. of a_tile), for operands too wide to keep in registers.
+template <int KS, int NT>
+__device__ __forceinline__ void mma_nk_smem(float (&c)[NT][4], const bf16* a_tile, int lda,
+                                            int a_row0, const bf16* tile, int ld) {
+  const int lane = threadIdx.x & 31;
+  const bf16* base = tile + ((lane & 7) + ((lane >> 4) << 3)) * ld + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[4];
+    frag_a(a, a_tile, lda, a_row0, kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4(b, base + np * 16 * ld + kk * 16);
+      mma16816(c[2 * np], a, b[0], b[1]);
+      mma16816(c[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// c[n] += A B, B read transposed (ldmatrix.trans) from a tile stored
+// [k][n], its columns from n0 (K for dS K, dO for P^T dO, Q for dS^T Q).
+template <int KS, int NT>
+__device__ __forceinline__ void mma_kn(float (&c)[NT][4], const uint32_t (&a)[KS][4],
+                                       const bf16* tile, int ld, int n0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* base =
+      tile + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + n0 + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4_t(b, base + kk * 16 * ld + np * 16);
+      mma16816(c[2 * np], a[kk], b[0], b[1]);
+      mma16816(c[2 * np + 1], a[kk], b[2], b[3]);
+    }
+}
+
+// The A fragments (4 k-steps of 16) of a 16 x 64 f32 accumulator tile,
+// rounded to bf16: n-tiles 2kk and 2kk+1 make k-step kk.
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&c)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
 }
 
 }  // namespace

@@ -3,9 +3,11 @@
 // Replaces five TPU kernels of locate_tpu/ops/pallas/fused_stage.py:
 //   * _kernel_conv_only          (:366) -> stage_conv
 //   * _kernel_sigmoid            (:378) -> stage_sigmoid
-//   * _kernel_softmax_stats      (:410) -> stage_softmax_stats + softmax_stats_merge
+//   * _kernel_softmax_stats      (:410) -> stage_softmax_stats (bf16: stage_softmax_stats_mma)
+//                                          + softmax_stats_merge
 //   * _kernel_softmax_apply_pool (:397) -> stage_softmax_apply_pool
-//   * _kernel_conv_bwd           (:451) -> stage_conv_bwd + reduce_partials
+//   * _kernel_conv_bwd           (:451) -> stage_conv_bwd (bf16: stage_conv_bwd_mma)
+//                                          + reduce_partials
 // (softmax_stats_merge and reduce_partials are the gate kernels' own, in common.cuh.)
 //
 // The conv block of one tile of the fine output, with the GroupNorm folded
@@ -50,11 +52,17 @@
 // about 2*(C + Co) bytes of traffic in bf16, so at the ffhq_512 shapes a
 // pass is bound by operations on the tensor cores' 989 TFLOP/s where x is
 // coarse (`up`) or y pooled (`down`), and by bytes where both are fine or
-// the gate dominates (apply-pool). This first version runs the
-// products as f32 FMAs on the CUDA cores (67 TFLOP/s): no tensor cores,
-// TMA or wgmma.
+// the gate dominates (apply-pool).
 //
-// Design. The TPU tiles whole image rows; at 512 x 64 channels a bf16 row
+// Two routes, chosen by the caller (ops/fused_stage.py:stage_route):
+// * simt: every kernel below, f32 and bf16, runs its products as f32 FMAs
+//   on the CUDA cores (67 TFLOP/s); f32 keeps it, since TF32 would miss
+//   the f32 rule of 1e-4.
+// * mma: bf16 at the widths of the templates, for the two kernels that
+//   took the most time over their bounds, stage_softmax_stats_mma and
+//   stage_conv_bwd_mma (their design is with them, further down).
+//
+// Design of the simt route. The TPU tiles whole image rows; at 512 x 64 channels a bf16 row
 // is 64 KB, so here a block's tile is TH rows x TW columns of the fine
 // image, with a 1-row halo for the (3,1) conv and a 2-column halo (1 is
 // needed, 2 keeps rows float4-aligned) for the (1,3) conv, zeroed outside
@@ -684,6 +692,733 @@ __global__ void __launch_bounds__(kThreads) stage_conv_bwd(
   }
 }
 
+// ---- bf16 on the tensor cores (the mma route) ------------------------------
+//
+// stage_softmax_stats_mma and stage_conv_bwd_mma compute what the simt
+// kernels above compute, for bf16 at the (C, Co) of the templates
+// (ops/fused_stage.py:STAGE_MMA_WIDTHS; the gate's Hd 16 and Cout = Co).
+// Every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate) on operands
+// read by ldmatrix from bf16 tiles in shared memory, rows padded by 8
+// elements against bank conflicts.
+//
+// * A conv is an implicit GEMM. M is 16 pixels (a tile row, or any 16
+//   pixels: ldmatrix takes one address a row, so a tap's one-pixel or
+//   one-row shift, and `upsample`'s coarse pixel under a fine one, cost only
+//   an address); K is a tap's channels, summed over the 3 taps; N is Co.
+//   u is held on x's grid (coarse under `upsample`) with a 1-pixel halo, so
+//   an upsampled stage computes u once a coarse pixel. Each weight is
+//   staged once per block as [K][N] and read either way: ldmatrix.trans for
+//   the forward products, plain ldmatrix for the transposes (dv, du, dxs),
+//   so the tap reversal is an index.
+// * A weight gradient is a product with K = the tile's pixels: its
+//   transposed operand comes from the same pixel-major tile by
+//   ldmatrix.trans.
+// * Blocks are persistent (8 warps; as many as fit on the card at once:
+//   two an SM of the stats pass, one of the backward), each walking a
+//   strided share of the 8 x 16 tiles with the weights staged once. A
+//   tile's loads overlap other work: the stats pass's in the other block
+//   of the SM; the backward's are fetched by cp.async a tile ahead, under
+//   the current tile's products (its registers allow one block). In the backward
+//   every warp keeps its share of dWc, dWr and dWskip (three 16 x Co
+//   blocks: a tap each, or the skip's one) in registers across all its
+//   tiles and writes it once, at the end, to its block's slice of `part`:
+//   no read-modify-write of the workspace a tile (the simt kernel's 98.5 KB
+//   a tile at C = Co = 64). db_col is summed in f32 from the loads of dw.
+// * Every rounding point is the simt kernels' (u, v, dy0, dv to cd; the
+//   epilogue's acc -> cd, + b_col -> cd, + skip -> cd, x cd(1/sqrt 2) -> cd;
+//   h to cd; du pooled in f32 before its rounding); only the order of the
+//   f32 sums differs. One owner per output and fixed-order sums: two runs
+//   are bitwise equal.
+//
+// Bound at ffhq_512 (batch 16, 512^2, C = Co = 64): the stats pass's 223
+// GFLOP take 0.23 ms on the tensor cores' 989 TFLOP/s, its bytes 0.29 ms;
+// the backward's 515 GFLOP 0.52 ms, its bytes 0.61 ms: both are bound by
+// bytes in their plain forms. What holds these first mma versions from it: 8 or 16 warps an
+// SM and the barriers between a tile's phases (a TMA ring with warp
+// specialisation, and wgmma, are later work), and the v halo recomputed
+// (10 rows for 8).
+
+constexpr int kMmaTH = 8, kMmaTW = 16;  // a tile: 8 rows x 16 columns of fine pixels
+constexpr int kMmaThreads = 256;        // 8 warps
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMmaHd = 16;              // the gate's hidden width on this route
+// the halo'd regions, in pixels: u (on x's grid, sized for the fine one)
+// and dy0, (TH + 2) x (TW + 2); v, TH + 2 rows; dv, TW + 2 columns
+constexpr int kUW = kMmaTW + 2, kUPix = (kMmaTH + 2) * kUW;
+constexpr int kVPix = (kMmaTH + 2) * kMmaTW;
+constexpr int kDvPix = kMmaTH * kUW;
+constexpr int kTilePix = kMmaTH * kMmaTW;
+
+__host__ __device__ constexpr bool mma_widths_ok(int C, int CO) {
+  return CO == 64 && (C == 64 || C == 32);
+}
+
+// Shared-memory bytes of a block: the weights, then the tiles.
+__host__ __device__ inline size_t stats_mma_bytes(int C, int CO) {
+  const size_t LC = C + 8, LO = CO + 8, LH = kMmaHd + 8;
+  const size_t w = (3 * C + 3 * CO + (C != CO ? C : 0)) * LO + CO * LH + kMmaHd * LO;
+  return (w + kUPix * LC + (C != CO ? kTilePix * LC : 0) + kVPix * LO) * sizeof(bf16) +
+         kMmaWarps * CO * sizeof(float2);
+}
+__host__ __device__ inline size_t bwd_mma_bytes(int C, int CO) {
+  const size_t LC = C + 8, LO = CO + 8;
+  const size_t w = (3 * C + 3 * CO + (C != CO ? C : 0)) * LO;
+  return (w + kUPix * C + kUPix * CO + kUPix * LC + kUPix * LO + kVPix * LO + kDvPix * LO +
+          (C != CO ? kTilePix * LC : 0) + (kTilePix / 4) * LO) *
+         sizeof(bf16);
+}
+
+// c[m][n] += sum over KS k-steps of A_m B, for MT m-tiles sharing B. A's
+// 16 rows are pixels: this lane supplies row (lane & 15) of m-tile m as
+// arow[m], at the step's channel 0. B comes from a [k][n] tile
+// (ldmatrix.trans, `kn`) or from one stored [n][k] (`nk`, the transpose),
+// its columns from `b`.
+template <int MT, int KS, int NT>
+__device__ __forceinline__ void mma_rows_kn(float (&c)[MT][NT][4], const bf16* const (&arow)[MT],
+                                            const bf16* b, int ldb) {
+  const int lane = threadIdx.x & 31;
+  const bf16* bp = b + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ldb + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ldsm_x4(a[m], arow[m] + ((lane >> 4) << 3) + kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t w[4];
+      ldsm_x4_t(w, bp + kk * 16 * ldb + np * 16);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma16816(c[m][2 * np], a[m], w[0], w[1]);
+        mma16816(c[m][2 * np + 1], a[m], w[2], w[3]);
+      }
+    }
+  }
+}
+template <int MT, int KS, int NT>
+__device__ __forceinline__ void mma_rows_nk(float (&c)[MT][NT][4], const bf16* const (&arow)[MT],
+                                            const bf16* b, int ldb) {
+  const int lane = threadIdx.x & 31;
+  const bf16* bp = b + ((lane & 7) + ((lane >> 4) << 3)) * ldb + (((lane >> 3) & 1) << 3);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ldsm_x4(a[m], arow[m] + ((lane >> 4) << 3) + kk * 16);
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t w[4];
+      ldsm_x4(w, bp + np * 16 * ldb + kk * 16);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma16816(c[m][2 * np], a[m], w[0], w[1]);
+        mma16816(c[m][2 * np + 1], a[m], w[2], w[3]);
+      }
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_acc(float (&c)[MT][NT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[m][n][e] = 0.f;
+}
+
+// rows x width bf16 of a row-major matrix into shared memory with row
+// stride ld, 16 bytes a copy (width % 8 == 0, src 16-byte aligned)
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int rows,
+                                           int width, int ld) {
+  const int chunks = width >> 3;
+  for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
+    const int r = e / chunks, c = (e - r * chunks) << 3;
+    *reinterpret_cast<uint4*>(dst + r * ld + c) =
+        __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * width + c));
+  }
+}
+
+// Eight bf16 (16 bytes) as f32, and eight f32 rounded to bf16 (to nearest even).
+__device__ __forceinline__ void unpack8(const uint4 v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = bf16_lo(w[k]);
+    f[2 * k + 1] = bf16_hi(w[k]);
+  }
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                    pack_bf16(f[6], f[7]));
+}
+
+// Where a block's tile sits, and the maps from its pixels to the tiles.
+struct MmaTile {
+  int n, r0, c0, H, W, sh;  // sh: 1 under upsample (x is coarse), else 0
+  __device__ MmaTile(int tile, int H_, int W_, int up) : H(H_), W(W_), sh(up) {
+    const int tx = W / kMmaTW, per_image = (H / kMmaTH) * tx;
+    n = tile / per_image;
+    const int rest = tile - n * per_image;
+    r0 = (rest / tx) * kMmaTH;
+    c0 = (rest - (rest / tx) * tx) * kMmaTW;
+  }
+  // the u tile's pixel (row-major, kUW wide) under fine pixel (R, Cc), at
+  // most one pixel outside the tile (where outside the image: a zero pixel)
+  __device__ int u_pix(int R, int Cc) const {
+    return ((R >> sh) - (r0 >> sh) + 1) * kUW + (Cc >> sh) - (c0 >> sh) + 1;
+  }
+  // the x-side tile's pixel ((TH >> sh) x (TW >> sh), row-major) under
+  // tile pixel (i, j)
+  __device__ int x_pix(int i, int j) const { return (i >> sh) * (kMmaTW >> sh) + (j >> sh); }
+  // pixel (i, j) of the x-side tile in x (and du, dxs), in pixels
+  __device__ size_t x_global(int i, int j) const {
+    return ((size_t)n * (H >> sh) + (r0 >> sh) + i) * (W >> sh) + (c0 >> sh) + j;
+  }
+  __device__ size_t fine(int r, int c) const { return ((size_t)n * H + r) * W + c; }
+};
+
+// The raw bf16 x of a tile on its halo'd tile of x's grid, ((TH >> sh) +
+// 2) x ((TW >> sh) + 2) pixels (rows kUW apart, C unpadded), and the raw
+// dw on the halo'd fine tile (TH + 2) x (TW + 2), by cp.async, zero-filled
+// outside the image: started a tile ahead, so that the copy of the next
+// tile runs under this tile's products. The caller commits and waits.
+template <int C>
+__device__ __forceinline__ void fetch_x(const bf16* __restrict__ x, const MmaTile& g, bf16* XR) {
+  constexpr int CH = C / 8;
+  const int uh = (kMmaTH >> g.sh) + 2, uw = (kMmaTW >> g.sh) + 2;
+  const int xh = g.H >> g.sh, xw = g.W >> g.sh;
+  const int xr0 = (g.r0 >> g.sh) - 1, xc0 = (g.c0 >> g.sh) - 1;
+  for (int e = threadIdx.x; e < uh * uw * CH; e += blockDim.x) {
+    const int p = e / CH, ch = (e - p * CH) * 8;
+    const int ur = p / uw, uc = p - ur * uw;
+    const int xr = xr0 + ur, xc = xc0 + uc;
+    const bool inside = xr >= 0 && xr < xh && xc >= 0 && xc < xw;
+    cp_async16(XR + (ur * kUW + uc) * C + ch,
+               inside ? x + (((size_t)g.n * xh + xr) * xw + xc) * C + ch : x, inside);
+  }
+}
+template <int CO>
+__device__ __forceinline__ void fetch_dw(const bf16* __restrict__ dw, const MmaTile& g,
+                                         bf16* DR) {
+  constexpr int CH = CO / 8;
+  for (int e = threadIdx.x; e < kUPix * CH; e += blockDim.x) {
+    const int p = e / CH, ch = (e - p * CH) * 8;
+    const int dr = p / kUW, dc = p - dr * kUW;
+    const int r = g.r0 - 1 + dr, c = g.c0 - 1 + dc;
+    const bool inside = r >= 0 && r < g.H && c >= 0 && c < g.W;
+    cp_async16(DR + p * CO + ch, inside ? dw + g.fine(r, c) * CO + ch : dw, inside);
+  }
+}
+
+// u = act(x a + b) rounded to bf16 on the halo'd tile (zero outside the
+// image, where the fetch left zeros but act(b) need not be 0), and, where
+// `X` is given, x itself on the x-side tile: from the tile fetched into XR
+// (kGlobal false), or straight from x (kGlobal true; X by cp.async, which
+// the caller commits and waits for).
+template <int C, bool kGlobal>
+__device__ void make_u(const bf16* XR, const bf16* __restrict__ x, const float* __restrict__ a,
+                       const float* __restrict__ b, const MmaTile& g, int act, float slope,
+                       bf16* U, bf16* X) {
+  constexpr int LC = C + 8, CH = C / 8;
+  const int uh = (kMmaTH >> g.sh) + 2, uw = (kMmaTW >> g.sh) + 2;
+  const int xh = g.H >> g.sh, xw = g.W >> g.sh;
+  const int xr0 = (g.r0 >> g.sh) - 1, xc0 = (g.c0 >> g.sh) - 1;
+  const float* an = a + (size_t)g.n * C;
+  const float* bn = b + (size_t)g.n * C;
+  for (int e = threadIdx.x; e < uh * uw * CH; e += blockDim.x) {
+    const int p = e / CH, ch = (e - p * CH) * 8;
+    const int ur = p / uw, uc = p - ur * uw;
+    const int xr = xr0 + ur, xc = xc0 + uc;
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if (xr >= 0 && xr < xh && xc >= 0 && xc < xw) {
+      float f[8];
+      if constexpr (kGlobal)
+        unpack8(__ldg(reinterpret_cast<const uint4*>(
+                    x + (((size_t)g.n * xh + xr) * xw + xc) * C + ch)), f);
+      else
+        unpack8(*reinterpret_cast<const uint4*>(XR + (ur * kUW + uc) * C + ch), f);
+      const float4 a0 = __ldg(reinterpret_cast<const float4*>(an + ch));
+      const float4 a1 = __ldg(reinterpret_cast<const float4*>(an + ch + 4));
+      const float4 b0 = __ldg(reinterpret_cast<const float4*>(bn + ch));
+      const float4 b1 = __ldg(reinterpret_cast<const float4*>(bn + ch + 4));
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) f[k] = activate(f[k] * av[k] + bv[k], act, slope);
+      out = pack8(f);
+    }
+    *reinterpret_cast<uint4*>(U + (ur * kUW + uc) * LC + ch) = out;
+  }
+  if (X) {
+    const int xr = kMmaTH >> g.sh, xwt = kMmaTW >> g.sh;
+    for (int e = threadIdx.x; e < xr * xwt * CH; e += blockDim.x) {
+      const int p = e / CH, ch = (e - p * CH) * 8;
+      const int i = p / xwt, j = p - i * xwt;
+      if constexpr (kGlobal)
+        cp_async16(X + p * LC + ch, x + g.x_global(i, j) * C + ch, true);
+      else
+        *reinterpret_cast<uint4*>(X + p * LC + ch) =
+            *reinterpret_cast<const uint4*>(XR + ((i + 1) * kUW + j + 1) * C + ch);
+    }
+  }
+}
+
+// Row i of v (image row r0 - 1 + i; zero outside the image, as u is there)
+// on the tile's 16 columns, the (1,3) conv of u, rounded to bf16 into
+// V [(TH + 2) * TW][CO + 8]. One m-tile, by one warp.
+template <int C, int CO>
+__device__ __forceinline__ void v_row_mma(const bf16* U, const bf16* Wr, const MmaTile& g, int i,
+                                          bf16* V) {
+  constexpr int LC = C + 8, LO = CO + 8;
+  const int lane = threadIdx.x & 31;
+  float acc[1][CO / 8][4];
+  zero_acc(acc);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const bf16* const arow[1] = {U + g.u_pix(g.r0 - 1 + i, g.c0 + (lane & 15) + t - 1) * LC};
+    mma_rows_kn<1, C / 16, CO / 8>(acc, arow, Wr + t * C * LO, LO);
+  }
+  const int q = lane >> 2, col = 2 * (lane & 3);
+#pragma unroll
+  for (int nt = 0; nt < CO / 8; ++nt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(V + (i * kMmaTW + q + 8 * h) * LO + nt * 8 + col) =
+          pack_bf16(acc[0][nt][2 * h], acc[0][nt][2 * h + 1]);
+}
+
+// The conv block's w on row i of the tile (the forward's body, _stage_tile,
+// on the mma route), from v's rows i..i + 2 in V, into this warp's
+// fragments w[nt][e] (pixel (i, (lane >> 2) + 8 (e >> 1)), channel nt * 8
+// + 2 (lane & 3) + (e & 1)), rounded as conv_tile rounds. The skip is x
+// itself (C == CO), read from x in device memory (in L2: the tile's u was
+// just made from it), or (x . Ws)_cd with x from the x-side tile X. Written
+// for the stats pass, and for stage_conv and stage_sigmoid to call
+// unchanged.
+template <int C, int CO>
+__device__ __forceinline__ void w_row_mma(const bf16* V, const bf16* X,
+                                          const bf16* __restrict__ x, const bf16* Wc,
+                                          const bf16* Ws, const float* __restrict__ bc,
+                                          const MmaTile& g, int i, float (&w)[CO / 8][4]) {
+  constexpr int LC = C + 8, LO = CO + 8;
+  const int lane = threadIdx.x & 31;
+  float acc[1][CO / 8][4];
+  zero_acc(acc);
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    const bf16* const arow[1] = {V + ((i + t) * kMmaTW + (lane & 15)) * LO};
+    mma_rows_kn<1, CO / 16, CO / 8>(acc, arow, Wc + t * CO * LO, LO);
+  }
+  float sk[1][CO / 8][4];
+  if constexpr (C != CO) {
+    zero_acc(sk);
+    const bf16* const arow[1] = {X + g.x_pix(i, lane & 15) * LC};
+    mma_rows_kn<1, C / 16, CO / 8>(sk, arow, Ws, LO);
+  }
+  const float sqh = round_cd<bf16>(kSqrtHalf);
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int nt = 0; nt < CO / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q = (lane >> 2) + 8 * (e >> 1), n = nt * 8 + col + (e & 1);
+      float skip;
+      if constexpr (C != CO) {
+        skip = round_cd<bf16>(sk[0][nt][e]);
+      } else {
+        skip = __bfloat162float(x[g.x_global(i >> g.sh, q >> g.sh) * C + n]);
+      }
+      const float y = round_cd<bf16>(round_cd<bf16>(acc[0][nt][e]) + round_cd<bf16>(bc[n]));
+      w[nt][e] = round_cd<bf16>(round_cd<bf16>(y + skip) * sqh);
+    }
+}
+
+// (m, s) <- the merge of two partial softmax statistics
+__device__ __forceinline__ void stats_merge(float& m, float& s, float m2, float s2) {
+  const float mx = fmaxf(m, m2);
+  s = s * expf(m - mx) + s2 * expf(m2 - mx);
+  m = mx;
+}
+
+// stage_softmax_stats on the tensor cores. Per tile: u and x in; v on 10
+// rows, spread over the 8 warps; then each warp takes one row of 16 pixels
+// through w (stored as w_pre), the gate MLP h = (act(w W1 + pos_proj +
+// b1))_cd, l = h W2 + b2 on the tensor cores (w and h handed on as A
+// fragments in registers), and the per-channel (max, sum-exp) of its 16
+// pixels by warp shuffles; the 8 warps' partials are merged in a fixed
+// order into the tile's entry of (part_m, part_s), (N, tiles, CO), which
+// softmax_stats_merge folds.
+template <int C, int CO>
+__global__ void __launch_bounds__(kMmaThreads, 2) stage_softmax_stats_mma(
+    const bf16* __restrict__ x, const float* __restrict__ a, const float* __restrict__ b,
+    const bf16* __restrict__ wr, const bf16* __restrict__ wc, const float* __restrict__ bc,
+    const bf16* __restrict__ ws, const float* __restrict__ pp, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    bf16* __restrict__ w_pre, float* __restrict__ part_m, float* __restrict__ part_s, int N,
+    int H, int W, int act, float slope, int up) {
+  static_assert(mma_widths_ok(C, CO), "no mma template for these widths");
+  constexpr int LO = CO + 8, LH = kMmaHd + 8, NT = CO / 8;
+  extern __shared__ float4 smem4[];
+  bf16* Wr = reinterpret_cast<bf16*>(smem4);  // [3][C][LO]
+  bf16* Wc = Wr + 3 * C * LO;                 // [3][CO][LO]
+  bf16* Ws = Wc + 3 * CO * LO;                // [C][LO] (1x1 skip)
+  bf16* W1 = Ws + (C != CO ? C * LO : 0);     // [CO][LH]
+  bf16* W2 = W1 + CO * LH;                    // [Hd][LO]
+  bf16* U = W2 + kMmaHd * LO;                 // [kUPix][C + 8]
+  bf16* X = U + kUPix * (C + 8);              // [kTilePix][C + 8] (1x1 skip)
+  bf16* V = X + (C != CO ? kTilePix * (C + 8) : 0);        // [kVPix][LO]
+  float2* St = reinterpret_cast<float2*>(V + kVPix * LO);  // [warps][CO]
+
+  stage_rows(Wr, wr, 3 * C, CO, LO);
+  stage_rows(Wc, wc, 3 * CO, CO, LO);
+  if constexpr (C != CO) stage_rows(Ws, ws, C, CO, LO);
+  stage_rows(W1, w1, CO, kMmaHd, LH);
+  stage_rows(W2, w2, kMmaHd, CO, LO);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  const int total = N * (H / kMmaTH) * (W / kMmaTW);
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    const MmaTile g(tile, H, W, up);
+    make_u<C, true>(nullptr, x, a, b, g, act, slope, U, C != CO ? X : nullptr);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    for (int i = warp; i < kMmaTH + 2; i += kMmaWarps) v_row_mma<C, CO>(U, Wr, g, i, V);
+    __syncthreads();
+
+    // this warp's row: w, stored as w_pre; the gate logits; their statistics
+    const int i = warp;
+    float w[NT][4];
+    w_row_mma<C, CO>(V, X, x, Wc, Ws, bc, g, i, w);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(w_pre + g.fine(g.r0 + i, g.c0 + q + 8 * h) * CO + nt * 8 +
+                                     col) = pack_bf16(w[nt][2 * h], w[nt][2 * h + 1]);
+    uint32_t wa[CO / 16][4];
+    to_a_frags(wa, w);
+    float hc[2][4];
+    zero(hc);
+    mma_kn<CO / 16, 2>(hc, wa, W1, LH, 0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* ppl = pp + ((size_t)(g.r0 + i) * W + g.c0 + q + 8 * (e >> 1)) * kMmaHd;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int j = nt * 8 + col + (e & 1);
+        hc[nt][e] = round_cd<bf16>(activate(hc[nt][e] + ppl[j] + b1[j], act, slope));
+      }
+    }
+    const uint32_t ha[1][4] = {{pack_bf16(hc[0][0], hc[0][1]), pack_bf16(hc[0][2], hc[0][3]),
+                                pack_bf16(hc[1][0], hc[1][1]), pack_bf16(hc[1][2], hc[1][3])}};
+    float l[NT][4];
+    zero(l);
+    mma_kn<1, NT>(l, ha, W2, LO, 0);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = nt * 8 + col + e;
+        const float l0 = l[nt][e] + b2[n], l1 = l[nt][2 + e] + b2[n];
+        float m = fmaxf(l0, l1);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        float s = expf(l0 - m) + expf(l1 - m);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane < 4) St[warp * CO + n] = make_float2(m, s);
+      }
+    __syncthreads();
+    // the tile's statistics: the warps' partials in a fixed order. The
+    // next tile writes U, X and V, which no warp reads now; St is written
+    // again only after two more barriers.
+    for (int n = threadIdx.x; n < CO; n += blockDim.x) {
+      float m = St[n].x, s = St[n].y;
+      for (int k = 1; k < kMmaWarps; ++k) stats_merge(m, s, St[k * CO + n].x, St[k * CO + n].y);
+      part_m[(size_t)tile * CO + n] = m;  // (N, tiles, CO): tile = n * tiles + its index
+      part_s[(size_t)tile * CO + n] = s;
+    }
+  }
+}
+
+// stage_conv_bwd on the tensor cores: block k takes tiles k, k + gridDim.x,
+// ... Per tile: u, x (1x1 skip), dy0 = (dw / sqrt 2)_cd on the halo'd tile
+// (db_col summed from the same loads) and, under upsample, dy0_s in; v on
+// 10 rows and dv on 8 rows x 18 columns (16, and the two halo columns of
+// all 8 rows as one more m-tile), spread over the warps; the weight
+// gradients into each warp's registers (warps 0-3: dWc, 16 of its input
+// channels, all three taps; 4-7: dWr alike, or at C 32 two warps of dWr
+// and two of dWskip); du by row pairs (pooled 2 x 2 in f32 between a lane
+// and its neighbour under upsample); dxs. At the end each block writes
+// [dWr | dWc | db_col | dWskip] once to its slice of part.
+template <int C, int CO>
+__global__ void __launch_bounds__(kMmaThreads, 1) stage_conv_bwd_mma(
+    const bf16* __restrict__ x, const bf16* __restrict__ dw, const float* __restrict__ a,
+    const float* __restrict__ b, const bf16* __restrict__ wr, const bf16* __restrict__ wc,
+    const bf16* __restrict__ ws, bf16* __restrict__ du, bf16* __restrict__ dxs,
+    float* __restrict__ part, int N, int H, int W, int act, float slope, int up) {
+  static_assert(mma_widths_ok(C, CO), "no mma template for these widths");
+  constexpr bool kSkip = C != CO;
+  constexpr int LC = C + 8, LO = CO + 8, NT = CO / 8, CH = CO / 8;
+  extern __shared__ float4 smem4[];
+  bf16* Wr = reinterpret_cast<bf16*>(smem4);  // [3][C][LO]
+  bf16* Wc = Wr + 3 * C * LO;                 // [3][CO][LO]
+  bf16* Ws = Wc + 3 * CO * LO;                // [C][LO] (1x1 skip)
+  bf16* U = Ws + (kSkip ? C * LO : 0);        // [kUPix][LC]
+  bf16* D = U + kUPix * LC;                   // [kUPix][LO]: dy0, fine, halo'd
+  bf16* V = D + kUPix * LO;                   // [kVPix][LO]
+  bf16* DV = V + kVPix * LO;                  // [kDvPix][LO]
+  bf16* X = DV + kDvPix * LO;                 // [kTilePix][LC] (1x1 skip)
+  bf16* DS = X + (kSkip ? kTilePix * LC : 0); // [kTilePix / 4][LO]: dy0_s under upsample
+  bf16* XR = DS + (kTilePix / 4) * LO;        // [kUPix][C]: the fetched x
+  bf16* DR = XR + kUPix * C;                  // [kUPix][CO]: the fetched dw
+
+  stage_rows(Wr, wr, 3 * C, CO, LO);
+  stage_rows(Wc, wc, 3 * CO, CO, LO);
+  if constexpr (kSkip) stage_rows(Ws, ws, C, CO, LO);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // this warp's weight-gradient block: role 0 dWc, 1 dWr, 2 dWskip; its
+  // input channels mt * 16..; taps 3 (the skip's one)
+  const int role = warp < 4 ? 0 : (warp - 4 < C / 16 ? 1 : 2);
+  const int mt = role == 0 ? warp : (role == 1 ? warp - 4 : warp - 4 - C / 16);
+  const int ntap = role == 2 ? 1 : 3;
+  float wacc[3][NT][4];
+  zero(wacc[0]);
+  zero(wacc[1]);
+  zero(wacc[2]);
+  float dbacc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // channels (tid % CH) * 8..
+
+  const int total = N * (H / kMmaTH) * (W / kMmaTW);
+  if ((int)blockIdx.x < total) {
+    const MmaTile g(blockIdx.x, H, W, up);
+    fetch_x<C>(x, g, XR);
+    fetch_dw<CO>(dw, g, DR);
+  }
+  cp_async_commit();
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    const MmaTile g(tile, H, W, up);
+    const int xr = kMmaTH >> g.sh, xwt = kMmaTW >> g.sh;  // the x-side tile
+
+    // 1. from the fetched x and dw: u (and x), dy0 on the halo'd fine tile
+    //    (zero outside the image, as the fetch left it), dy0_s under upsample
+    cp_async_wait_all();
+    __syncthreads();
+    make_u<C, false>(XR, x, a, b, g, act, slope, U, kSkip ? X : nullptr);
+    for (int e = threadIdx.x; e < kUPix * CH; e += blockDim.x) {
+      const int p = e / CH, ch = (e - p * CH) * 8;
+      const int dr = p / kUW, dc = p - dr * kUW;
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(DR + p * CO + ch), f);
+      const bool interior = dr >= 1 && dr <= kMmaTH && dc >= 1 && dc <= kMmaTW;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        f[k] *= kSqrtHalf;
+        if (interior) dbacc[k] += f[k];
+      }
+      *reinterpret_cast<uint4*>(D + p * LO + ch) = pack8(f);
+    }
+    if (g.sh) {
+      for (int e = threadIdx.x; e < xr * xwt * CH; e += blockDim.x) {
+        const int p = e / CH, ch = (e - p * CH) * 8;
+        const int i = p / xwt, j = p - i * xwt;
+        const bf16* d = DR + ((2 * i + 1) * kUW + 2 * j + 1) * CO + ch;  // fine (2i, 2j)
+        float f0[8], f1[8], f2[8], f3[8], s[8];
+        unpack8(*reinterpret_cast<const uint4*>(d), f0);
+        unpack8(*reinterpret_cast<const uint4*>(d + CO), f1);
+        unpack8(*reinterpret_cast<const uint4*>(d + kUW * CO), f2);
+        unpack8(*reinterpret_cast<const uint4*>(d + kUW * CO + CO), f3);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          s[k] = f0[k] * kSqrtHalf + f1[k] * kSqrtHalf + f2[k] * kSqrtHalf + f3[k] * kSqrtHalf;
+        *reinterpret_cast<uint4*>(DS + p * LO + ch) = pack8(s);
+      }
+    }
+    __syncthreads();
+    // the next tile's x and dw, under this tile's products
+    if (tile + (int)gridDim.x < total) {
+      const MmaTile gn(tile + gridDim.x, H, W, up);
+      fetch_x<C>(x, gn, XR);
+      fetch_dw<CO>(dw, gn, DR);
+    }
+    cp_async_commit();
+
+    // 2. v on 10 rows; dv on 8 rows x 18 columns, dv[i] = sum_t dy0[i + t - 1] . Wc[2 - t]^T
+    for (int unit = warp; unit < (kMmaTH + 2) + kMmaTH + 1; unit += kMmaWarps) {
+      if (unit < kMmaTH + 2) {
+        v_row_mma<C, CO>(U, Wr, g, unit, V);
+        continue;
+      }
+      const int k = unit - (kMmaTH + 2);  // dv row k, or (k == TH) the halo columns
+      const int li = k < kMmaTH ? k : (lane & 7);  // this lane's A pixel: DV row, column
+      const int lc = k < kMmaTH ? (lane & 15) + 1 : ((lane & 15) < 8 ? 0 : kUW - 1);
+      float acc[1][NT][4];
+      zero_acc(acc);
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const bf16* const arow[1] = {D + ((li + t) * kUW + lc) * LO};
+        mma_rows_nk<1, CO / 16, NT>(acc, arow, Wc + (2 - t) * CO * LO, LO);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qq = (lane >> 2) + 8 * h;
+        const int pi = k < kMmaTH ? k : (qq & 7);
+        const int pc = k < kMmaTH ? qq + 1 : (qq < 8 ? 0 : kUW - 1);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          *reinterpret_cast<uint32_t*>(DV + (pi * kUW + pc) * LO + nt * 8 + 2 * (lane & 3)) =
+              pack_bf16(acc[0][nt][2 * h], acc[0][nt][2 * h + 1]);
+      }
+    }
+    __syncthreads();
+
+    // 3. the weight gradients, K = the tile's pixels 16 at a time:
+    //    dWc[t] += v[i + t - 1]^T dy0, dWr[t] += u[:, j + t - 1]^T dv,
+    //    dWskip += x^T dy0_s
+    {
+      const int kbs = role == 2 && g.sh ? (xr * xwt) / 16 : kMmaTH;
+      const int ka = (lane & 7) + ((lane >> 4) << 3);         // A's pixel in the k-block
+      const int kbp = (lane & 7) + (((lane >> 3) & 1) << 3);  // B's pixel
+      const int ach = mt * 16 + (((lane >> 3) & 1) << 3);
+      const int bch = (lane >> 4) << 3;
+      for (int kb = 0; kb < kbs; ++kb) {
+        const bf16* bp;
+        if (role == 1) bp = DV + (kb * kUW + kbp + 1) * LO;
+        else if (role == 2 && g.sh) bp = DS + (kb * 16 + kbp) * LO;
+        else bp = D + ((kb + 1) * kUW + kbp + 1) * LO;
+        uint32_t bf[NT / 2][4];
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) ldsm_x4_t(bf[np], bp + bch + np * 16);
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          if (t < ntap) {
+            const bf16* ap;
+            if (role == 0) ap = V + ((kb + t) * kMmaTW + ka) * LO + ach;
+            else if (role == 1) ap = U + g.u_pix(g.r0 + kb, g.c0 + ka + t - 1) * LC + ach;
+            else ap = X + (g.sh ? kb * 16 + ka : kb * kMmaTW + ka) * LC + ach;
+            uint32_t af[4];
+            ldsm_x4_t(af, ap);
+#pragma unroll
+            for (int np = 0; np < NT / 2; ++np) {
+              mma16816(wacc[t][2 * np], af, bf[np][0], bf[np][1]);
+              mma16816(wacc[t][2 * np + 1], af, bf[np][2], bf[np][3]);
+            }
+          }
+        }
+      }
+    }
+
+    // 4. du = sum_t dv[:, j + t - 1] . Wr[2 - t]^T: warp w takes rows
+    //    2 (w / 2) and 2 (w / 2) + 1, the half w % 2 of the channels; under
+    //    upsample pooled 2 x 2 in f32, (left + right) + (left + right) below
+    {
+      constexpr int NH = C / 16;  // n-tiles of a half
+      const int rp = warp >> 1, nh = warp & 1;
+      float acc[2][NH][4];
+      zero_acc(acc);
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const bf16* const arow[2] = {DV + ((2 * rp) * kUW + (lane & 15) + t) * LO,
+                                     DV + ((2 * rp + 1) * kUW + (lane & 15) + t) * LO};
+        mma_rows_nk<2, CO / 16, NH>(acc, arow, Wr + ((2 - t) * C + nh * (C / 2)) * LO, LO);
+      }
+      const int col0 = nh * (C / 2) + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qq = (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int nt = 0; nt < NH; ++nt) {
+          if (g.sh) {
+            float s[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v0 = acc[0][nt][2 * h + e], v1 = acc[1][nt][2 * h + e];
+              s[e] = (v0 + __shfl_xor_sync(0xffffffffu, v0, 4)) +
+                     (v1 + __shfl_xor_sync(0xffffffffu, v1, 4));
+            }
+            if (!(qq & 1))
+              *reinterpret_cast<uint32_t*>(du + g.x_global(rp, qq >> 1) * C + col0 + nt * 8) =
+                  pack_bf16(s[0], s[1]);
+          } else {
+#pragma unroll
+            for (int m = 0; m < 2; ++m)
+              *reinterpret_cast<uint32_t*>(du + g.fine(g.r0 + 2 * rp + m, g.c0 + qq) * C + col0 +
+                                           nt * 8) =
+                  pack_bf16(acc[m][nt][2 * h], acc[m][nt][2 * h + 1]);
+          }
+        }
+      }
+    }
+
+    // 5. dxs: dy0_s itself (identity skip), or (dy0_s . Ws^T)_cd
+    if constexpr (kSkip) {
+      const int mtiles = (xr * xwt) / 16;
+      for (int m = warp; m < mtiles; m += kMmaWarps) {
+        const bf16* const arow[1] = {g.sh ? DS + (m * 16 + (lane & 15)) * LO
+                                          : D + ((m + 1) * kUW + (lane & 15) + 1) * LO};
+        float acc[1][C / 8][4];
+        zero_acc(acc);
+        mma_rows_nk<1, CO / 16, C / 8>(acc, arow, Ws, LO);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pq = m * 16 + (lane >> 2) + 8 * h;
+          const size_t o = g.x_global(pq / xwt, pq % xwt) * C + 2 * (lane & 3);
+#pragma unroll
+          for (int nt = 0; nt < C / 8; ++nt)
+            *reinterpret_cast<uint32_t*>(dxs + o + nt * 8) =
+                pack_bf16(acc[0][nt][2 * h], acc[0][nt][2 * h + 1]);
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < xr * xwt * CH; e += blockDim.x) {
+        const int p = e / CH, ch = (e - p * CH) * 8;
+        const int i = p / xwt, j = p - i * xwt;
+        const bf16* src = g.sh ? DS + p * LO : D + ((i + 1) * kUW + j + 1) * LO;
+        *reinterpret_cast<uint4*>(dxs + g.x_global(i, j) * C + ch) =
+            *reinterpret_cast<const uint4*>(src + ch);
+      }
+    }
+    __syncthreads();  // the next tile overwrites every region
+  }
+
+  // this block's slice of part: [dWr (3, C, CO) | dWc (3, CO, CO) | db_col (CO) | dWskip (C, CO)]
+  float* pwr = part + (size_t)blockIdx.x * (3 * C * CO + 3 * CO * CO + CO + (kSkip ? C * CO : 0));
+  float* pwc = pwr + 3 * C * CO;
+  float* pbc = pwc + 3 * CO * CO;
+  float* pws = pbc + CO;
+  {
+    float* base = role == 0 ? pwc : (role == 1 ? pwr : pws);
+    const int rows = role == 0 ? CO : C;  // a tap's input channels
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      if (t < ntap) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = mt * 16 + (lane >> 2) + 8 * h, n = nt * 8 + 2 * (lane & 3);
+            *reinterpret_cast<float2*>(base + ((size_t)t * rows + m) * CO + n) =
+                make_float2(wacc[t][nt][2 * h], wacc[t][nt][2 * h + 1]);
+          }
+      }
+    }
+  }
+  // db_col: each thread's 8 channels, then a channel's threads in order
+  float* red = reinterpret_cast<float*>(U);  // [threads][8]: U is free after the last barrier
+#pragma unroll
+  for (int k = 0; k < 8; ++k) red[threadIdx.x * 8 + k] = dbacc[k];
+  __syncthreads();
+  for (int n = threadIdx.x; n < CO; n += blockDim.x) {
+    float s = 0.f;
+    for (int t = n / 8; t < kMmaThreads; t += CH) s += red[t * 8 + (n & 7)];
+    pbc[n] = s;
+  }
+}
+
 // ---- launchers -------------------------------------------------------------
 
 template <typename T>
@@ -775,6 +1510,70 @@ cudaError_t launch_conv_bwd(const void* x, const void* dw, const void* a, const 
   return launch_reduce((const float*)part, (float*)grads, 1, blocks, wtot, stream);
 }
 
+// The persistent grid of an mma kernel: at most `per_sm` blocks an SM.
+template <typename K>
+cudaError_t persistent_grid(K kernel, size_t smem, int tiles, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *grid = tiles < sms * per_sm ? tiles : sms * per_sm;
+  return cudaSuccess;
+}
+
+template <int C, int CO>
+cudaError_t launch_stats_mma(const void* x, const void* a, const void* b, const void* wr,
+                             const void* wc, const void* bc, const void* ws, const void* pp,
+                             const void* w1, const void* b1, const void* w2, const void* b2,
+                             void* w_pre, void* part_m, void* part_s, void* m, void* se, int N,
+                             int H, int W, int act, float slope, int up, cudaStream_t stream) {
+  const size_t smem = stats_mma_bytes(C, CO);
+  cudaError_t err = allow_smem(stage_softmax_stats_mma<C, CO>, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (H / kMmaTH) * (W / kMmaTW);
+  int grid = 0;
+  err = persistent_grid(stage_softmax_stats_mma<C, CO>, smem, N * tiles, &grid);
+  if (err != cudaSuccess) return err;
+  stage_softmax_stats_mma<C, CO><<<grid, kMmaThreads, smem, stream>>>(
+      (const bf16*)x, (const float*)a, (const float*)b, (const bf16*)wr, (const bf16*)wc,
+      (const float*)bc, (const bf16*)ws, (const float*)pp, (const bf16*)w1, (const float*)b1,
+      (const bf16*)w2, (const float*)b2, (bf16*)w_pre, (float*)part_m, (float*)part_s, N, H, W,
+      act, slope, up);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_stats_merge((const float*)part_m, (const float*)part_s, (float*)m, (float*)se,
+                            N, tiles, CO, stream);
+}
+
+template <int C, int CO>
+cudaError_t launch_conv_bwd_mma(const void* x, const void* dw, const void* a, const void* b,
+                                const void* wr, const void* wc, const void* ws, void* du,
+                                void* dxs, void* part, void* grads, int N, int H, int W,
+                                int blocks, int act, float slope, int up, cudaStream_t stream) {
+  const size_t smem = bwd_mma_bytes(C, CO);
+  cudaError_t err = allow_smem(stage_conv_bwd_mma<C, CO>, smem);
+  if (err != cudaSuccess) return err;
+  if (blocks < 1 || blocks > N * (H / kMmaTH) * (W / kMmaTW)) return cudaErrorInvalidValue;
+  stage_conv_bwd_mma<C, CO><<<blocks, kMmaThreads, smem, stream>>>(
+      (const bf16*)x, (const bf16*)dw, (const float*)a, (const float*)b, (const bf16*)wr,
+      (const bf16*)wc, (const bf16*)ws, (bf16*)du, (bf16*)dxs, (float*)part, N, H, W, act, slope,
+      up);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int wtot = 3 * C * CO + 3 * CO * CO + CO + (C != CO ? C * CO : 0);
+  return launch_reduce((const float*)part, (float*)grads, 1, blocks, wtot, stream);
+}
+
+// Whether the mma route takes a call: bf16, a template's (C, Co), a 1x1
+// skip exactly where C != Co, the route's tile, and (stats) its gate widths.
+bool mma_call_ok(int is_bf16, int C, int Co, const void* ws, int TH, int TW, int Hd, int Cout) {
+  return is_bf16 && mma_widths_ok(C, Co) && (ws != nullptr) == (C != Co) && TH == kMmaTH &&
+         TW == kMmaTW && Hd == kMmaHd && Cout == Co;
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. `is_bf16` selects the compute
@@ -782,8 +1581,44 @@ cudaError_t launch_conv_bwd(const void* x, const void* dw, const void* a, const 
 // is null for an identity skip. Returns a cudaError_t (0 = launched).
 extern "C" {
 
-size_t locate_stage_smem_bytes(int kind, int C, int Co, int Hd, int Cout, int TH, int TW) {
-  return smem_floats(kind, C, Co, Hd, Cout, TH, TW) * sizeof(float);
+// Dynamic shared memory of a block of `kind` on `route` (0: simt, 1: mma);
+// 0 where the mma route has no kernel for the widths, kind or tile.
+size_t locate_stage_smem_bytes(int route, int kind, int C, int Co, int Hd, int Cout, int TH,
+                               int TW) {
+  if (route == 0) return smem_floats(kind, C, Co, Hd, Cout, TH, TW) * sizeof(float);
+  if (!mma_widths_ok(C, Co) || TH != kMmaTH || TW != kMmaTW) return 0;
+  if (kind == kStats) return Hd == kMmaHd && Cout == Co ? stats_mma_bytes(C, Co) : 0;
+  return kind == kBwd ? bwd_mma_bytes(C, Co) : 0;
+}
+
+// Blocks of the stats (kind 1) or backward (kind 3) bf16 kernel of `route`
+// that fit on an SM at the shared memory above; -1 where there is none.
+int locate_stage_blocks_per_sm(int route, int kind, int C, int Co, int Hd, int Cout, int TH,
+                               int TW) {
+  const size_t smem = locate_stage_smem_bytes(route, kind, C, Co, Hd, Cout, TH, TW);
+  if (smem == 0 || (kind != kStats && kind != kBwd)) return -1;
+  int n = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  auto query = [&](auto kernel, int threads) {
+    err = allow_smem(kernel, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  };
+  if (route == 0) {
+    if (kind == kStats) query(stage_softmax_stats<__nv_bfloat16>, kThreads);
+    else query(stage_conv_bwd<__nv_bfloat16>, kThreads);
+  } else if (C == 64) {
+    if (kind == kStats) query(stage_softmax_stats_mma<64, 64>, kMmaThreads);
+    else query(stage_conv_bwd_mma<64, 64>, kMmaThreads);
+  } else {
+    if (kind == kStats) query(stage_softmax_stats_mma<32, 64>, kMmaThreads);
+    else query(stage_conv_bwd_mma<32, 64>, kMmaThreads);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return n;
 }
 
 int locate_stage_conv(int is_bf16, const void* x, const void* a, const void* b, const void* wr,
@@ -815,13 +1650,23 @@ int locate_stage_sigmoid(int is_bf16, const void* x, const void* a, const void* 
 }
 
 // part_m, part_s: (N, (H/TH)*(W/TW), Cout) workspaces; m, se: (N, Cout) out.
-int locate_stage_softmax_stats(int is_bf16, const void* x, const void* a, const void* b,
+// route 1 (mma) takes bf16 at a template's widths and tile only.
+int locate_stage_softmax_stats(int route, int is_bf16, const void* x, const void* a, const void* b,
                                const void* wr, const void* wc, const void* bc, const void* ws,
                                const void* pp, const void* w1, const void* b1, const void* w2,
                                const void* b2, void* w_pre, void* part_m, void* part_s, void* m,
                                void* se, int N, int H, int W, int C, int Co, int Hd, int Cout,
                                int TH, int TW, int act, float slope, int up, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!mma_call_ok(is_bf16, C, Co, ws, TH, TW, Hd, Cout)) return (int)cudaErrorInvalidValue;
+    if (C == 64)
+      return (int)launch_stats_mma<64, 64>(x, a, b, wr, wc, bc, ws, pp, w1, b1, w2, b2, w_pre,
+                                           part_m, part_s, m, se, N, H, W, act, slope, up, s);
+    return (int)launch_stats_mma<32, 64>(x, a, b, wr, wc, bc, ws, pp, w1, b1, w2, b2, w_pre,
+                                         part_m, part_s, m, se, N, H, W, act, slope, up, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_stats<__nv_bfloat16>(x, a, b, wr, wc, bc, ws, pp, w1, b1, w2, b2, w_pre,
                                             part_m, part_s, m, se, N, H, W, C, Co, Hd, Cout, TH,
@@ -847,12 +1692,25 @@ int locate_stage_softmax_apply_pool(int is_bf16, const void* w_pre, const void* 
 }
 
 // part: (blocks, wtot) workspace; grads: (wtot,) f32 out, laid out as a slice.
-int locate_stage_conv_bwd(int is_bf16, const void* x, const void* dw, const void* a,
-                          const void* b, const void* wr, const void* wr_t, const void* wc_t,
-                          const void* ws_t, void* du, void* dxs, void* part, void* grads, int N,
-                          int H, int W, int C, int Co, int TH, int TW, int blocks, int act,
-                          float slope, int up, void* stream) {
+// The simt route (0) takes wr and the tap-reversed transposes wr_t, wc_t,
+// ws_t; the mma route (1) takes wr, wc and ws, bf16 at a template's widths
+// and tile.
+int locate_stage_conv_bwd(int route, int is_bf16, const void* x, const void* dw, const void* a,
+                          const void* b, const void* wr, const void* wc, const void* ws,
+                          const void* wr_t, const void* wc_t, const void* ws_t, void* du,
+                          void* dxs, void* part, void* grads, int N, int H, int W, int C, int Co,
+                          int TH, int TW, int blocks, int act, float slope, int up,
+                          void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!mma_call_ok(is_bf16, C, Co, ws, TH, TW, kMmaHd, Co)) return (int)cudaErrorInvalidValue;
+    if (C == 64)
+      return (int)launch_conv_bwd_mma<64, 64>(x, dw, a, b, wr, wc, ws, du, dxs, part, grads, N,
+                                              H, W, blocks, act, slope, up, s);
+    return (int)launch_conv_bwd_mma<32, 64>(x, dw, a, b, wr, wc, ws, du, dxs, part, grads, N, H,
+                                            W, blocks, act, slope, up, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_conv_bwd<__nv_bfloat16>(x, dw, a, b, wr, wr_t, wc_t, ws_t, du, dxs, part,
                                                grads, N, H, W, C, Co, TH, TW, blocks, act, slope,

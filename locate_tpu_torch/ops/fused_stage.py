@@ -25,6 +25,14 @@ to the other, and each counts its launches in `launches`:
     stage_softmax_apply_pool   replaces `_kernel_softmax_apply_pool`
     stage_conv_bwd             replaces `_kernel_conv_bwd`
 
+`stage_softmax_stats` and `stage_conv_bwd` have two routes each, which
+`stage_route` picks from the dtype and the widths: "mma" (bf16 at the
+(C, Co) of `STAGE_MMA_WIDTHS`, on the tensor cores: `stage_softmax_stats_mma`
+and `stage_conv_bwd_mma`) and "simt" (f32 FMAs on the CUDA cores: f32, and
+every other width). Each route's launches are counted apart too
+(`launches_mma`, `launches_simt`); `route="simt"` sends a bf16 call to the
+simt kernel, to compare the two on one card.
+
 Each plain version repeats its kernel's own rounding order, which in bf16
 differs from `stage_oracle`'s (the exact layer composition, where the
 activation runs after the cast): a kernel is held to its plain version.
@@ -47,6 +55,8 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from locate_tpu_torch.ops import fused_attention as fa
+# the two routes and their launch counting are the flash wrappers' own
+from locate_tpu_torch.ops.flash_attention import _ROUTE_CODE, MMA, SIMT, _count
 from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.cuda import build
 
@@ -64,6 +74,14 @@ _TWO_PER_SM = 232448 // 2 - 1024
 # blocks of the backward kernel: two per SM of the H100's 132, each
 # looping over its share of the tiles into its own slice of the workspace
 _BWD_TARGET_BLOCKS = 264
+
+# (C, Co) of the mma route's templates (csrc/fused_stage.cu:mma_widths_ok):
+# every fused 512^2 stage of ffhq_512 (64, 64), and the 1x1-skip form
+# (32, 64); a 1x1 skip exactly where C != Co. The gate there: Hd 16 and
+# Cout = Co. Its tile is fixed: 8 rows x 16 columns.
+STAGE_MMA_WIDTHS = ((64, 64), (32, 64))
+MMA_HD = 16
+_MMA_TILE = (8, 16)
 
 
 def _inv_sqrt2(dtype: torch.dtype) -> float:
@@ -304,17 +322,19 @@ def _library() -> ctypes.CDLL:
     lib = build.load_library("fused_stage")
     if not getattr(lib, "_locate_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.locate_stage_smem_bytes.argtypes = [i] * 7
+        lib.locate_stage_smem_bytes.argtypes = [i] * 8
         lib.locate_stage_smem_bytes.restype = ctypes.c_size_t
+        lib.locate_stage_blocks_per_sm.argtypes = [i] * 8
+        lib.locate_stage_blocks_per_sm.restype = i
         lib.locate_stage_conv.argtypes = [i] + [p] * 8 + [i] * 8 + [f, i, i, p]
         lib.locate_stage_conv.restype = i
         lib.locate_stage_sigmoid.argtypes = [i] + [p] * 13 + [i] * 10 + [f, f, i, i, p]
         lib.locate_stage_sigmoid.restype = i
-        lib.locate_stage_softmax_stats.argtypes = [i] + [p] * 17 + [i] * 10 + [f, i, p]
+        lib.locate_stage_softmax_stats.argtypes = [i, i] + [p] * 17 + [i] * 10 + [f, i, p]
         lib.locate_stage_softmax_stats.restype = i
         lib.locate_stage_softmax_apply_pool.argtypes = [i] + [p] * 9 + [i] * 9 + [f] * 3 + [p]
         lib.locate_stage_softmax_apply_pool.restype = i
-        lib.locate_stage_conv_bwd.argtypes = [i] + [p] * 12 + [i] * 9 + [f, i, p]
+        lib.locate_stage_conv_bwd.argtypes = [i, i] + [p] * 14 + [i] * 9 + [f, i, p]
         lib.locate_stage_conv_bwd.restype = i
         lib.locate_stage_error_string.argtypes = [i]
         lib.locate_stage_error_string.restype = ctypes.c_char_p
@@ -338,17 +358,66 @@ def _on_card(t: torch.Tensor) -> bool:
     return True
 
 
+def stage_route(dtype: torch.dtype, c: int, co: int, *, skip: Optional[bool] = None,
+                h: Optional[int] = None, w: Optional[int] = None, hd: Optional[int] = None,
+                cout: Optional[int] = None) -> str:
+    """The kernel of `stage_softmax_stats` and `stage_conv_bwd`: "mma" for
+    bf16 at the (C, Co) of a template (`STAGE_MMA_WIDTHS`), "simt"
+    otherwise (f32 keeps its f32 products, since TF32 would miss the f32
+    rule of 1e-4). What a call also names must fit the template: a 1x1
+    skip (`skip`) exactly where C != Co, fine dims (h, w) that the 8 x 16
+    tile divides, the gate's Hd 16 and Cout = Co."""
+    if dtype != torch.bfloat16 or (c, co) not in STAGE_MMA_WIDTHS:
+        return SIMT
+    if skip is not None and skip != (c != co):
+        return SIMT
+    if h is not None and (h % _MMA_TILE[0] or w % _MMA_TILE[1]):
+        return SIMT
+    if hd is not None and (hd != MMA_HD or cout != co):
+        return SIMT
+    return MMA
+
+
+def _route_of(route: Optional[str], dtype: torch.dtype, c: int, co: int, **shape) -> str:
+    """`route`, or `stage_route`'s choice where it is None; a route the call
+    cannot take raises."""
+    if route is None:
+        return stage_route(dtype, c, co, **shape)
+    if route not in _ROUTE_CODE:
+        raise ValueError(f"route must be {MMA!r} or {SIMT!r}, got {route!r}")
+    if route == MMA and stage_route(dtype, c, co, **shape) != MMA:
+        raise ValueError(f"the mma route takes bf16 at (C, Co) in {STAGE_MMA_WIDTHS} (a 1x1 "
+                         f"skip where C != Co, an image the {_MMA_TILE} tile divides, the "
+                         f"gate's Hd {MMA_HD} and Cout = Co), got {dtype}, C={c}, Co={co}, "
+                         f"{shape}")
+    return route
+
+
 def pick_tile(kind: int, h: int, w: int, c: int, co: int, hd: int = 0, cout: int = 0,
-              lib: Optional[ctypes.CDLL] = None) -> Tuple[int, int]:
-    """(rows, cols) of a block's tile of fine pixels: the first candidate
-    that divides the image and lets two blocks share an SM, else the
-    first that fits in one SM's shared memory."""
+              lib: Optional[ctypes.CDLL] = None, route: str = SIMT) -> Tuple[int, int]:
+    """(rows, cols) of a block's tile of fine pixels. On the simt route the
+    first candidate that divides the image and lets two blocks share an
+    SM, else the first that fits in one SM's shared memory. The mma route
+    has one tile, 8 x 16: the library's bytes for it (0 where no template
+    takes the widths) must fit in an SM."""
     lib = lib or _library()
+    if route == MMA:
+        th, tw = _MMA_TILE
+        nbytes = lib.locate_stage_smem_bytes(_ROUTE_CODE[MMA], kind, c, co, hd, cout, th, tw)
+        if nbytes == 0:
+            raise ValueError(f"C={c}, Co={co}, Hd={hd}, Cout={cout}: no mma template of kind "
+                             f"{kind} takes these widths")
+        if nbytes > fa._MAX_SMEM:
+            raise ValueError(f"C={c}, Co={co}: the mma block takes {nbytes} bytes of shared "
+                             f"memory, more than {fa._MAX_SMEM}")
+        if h % th or w % tw:
+            raise ValueError(f"the mma route's {th}x{tw} tile does not divide {h}x{w}")
+        return th, tw
     fits = []
     for th, tw in (_BWD_TILES if kind == _BWD else _FWD_TILES):
         if h % th or w % tw:
             continue
-        smem = lib.locate_stage_smem_bytes(kind, c, co, hd, cout, th, tw)
+        smem = lib.locate_stage_smem_bytes(_ROUTE_CODE[SIMT], kind, c, co, hd, cout, th, tw)
         if smem <= _TWO_PER_SM:
             return th, tw
         if smem <= fa._MAX_SMEM:
@@ -357,6 +426,14 @@ def pick_tile(kind: int, h: int, w: int, c: int, co: int, hd: int = 0, cout: int
         raise ValueError(f"no tile of a {h}x{w} image with C={c}, Co={co}, Hd={hd} "
                          f"fits in {fa._MAX_SMEM} bytes of shared memory")
     return fits[0]
+
+
+def _fine_dims(x: torch.Tensor, upsample: bool) -> Tuple[int, int, int]:
+    """(H, W, C) of an NHWC x, (H, W) the fine dims (doubled under upsample)."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
+    _, h, w, c = x.shape
+    return (2 * h, 2 * w, c) if upsample else (h, w, c)
 
 
 def _conv_operands(x, a, b, wr, wc, bc, ws, upsample):
@@ -493,12 +570,17 @@ def _gate_operands(x, pp, w1x, b1, w2, b2, co, hw):
 
 
 def stage_softmax_stats(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, leaky_slope,
-                        upsample=False):
+                        upsample=False, route=None):
     """(w_pre (N, H, W, Co) in x's dtype, m, se (N, 1, Cout) f32): the conv
     block's output and the max and sum-exp over H*W of the gate logits on
-    it. CUDA tensors: the `stage_softmax_stats` kernel and the merge of
-    its per-tile statistics, `softmax_stats_merge` (replaces
-    `_kernel_softmax_stats`); CPU tensors: the plain version."""
+    it. CUDA tensors: the `stage_softmax_stats` kernel (on the mma route
+    `stage_softmax_stats_mma`, see `stage_route`) and the merge of its
+    per-tile statistics, `softmax_stats_merge` (replaces
+    `_kernel_softmax_stats`); CPU tensors: the plain version on any
+    route."""
+    h, w, c = _fine_dims(x, upsample)
+    route = _route_of(route, x.dtype, c, wr.shape[-1], skip=ws is not None, h=h, w=w,
+                      hd=w1x.shape[1], cout=w2.shape[1])
     if not _on_card(x):
         return stage_softmax_stats_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2,
                                              act=act, leaky_slope=leaky_slope,
@@ -508,7 +590,7 @@ def stage_softmax_stats(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, le
     ops, (n, h, w, c, co) = _conv_operands(x, a, b, wr, wc, bc, ws, upsample)
     gate, (hd, cout) = _gate_operands(x, pp, w1x, b1, w2, b2, co, h * w)
     lib = _library()
-    th, tw = pick_tile(_STATS, h, w, c, co, hd, cout, lib=lib)
+    th, tw = pick_tile(_STATS, h, w, c, co, hd, cout, lib=lib, route=route)
     tiles = (h // th) * (w // tw)
     with torch.cuda.device(x.device):
         f32 = dict(dtype=torch.float32, device=x.device)
@@ -519,16 +601,17 @@ def stage_softmax_stats(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, le
         se = torch.empty((n, 1, cout), **f32)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.locate_stage_softmax_stats(
-            int(x.dtype == torch.bfloat16), *(_ptr(o) for o in ops + gate),
+            _ROUTE_CODE[route], int(x.dtype == torch.bfloat16), *(_ptr(o) for o in ops + gate),
             w_pre.data_ptr(), part_m.data_ptr(), part_s.data_ptr(), m.data_ptr(),
             se.data_ptr(), n, h, w, c, co, hd, cout, th, tw, fa.ACT_CODES[act],
             float(leaky_slope), int(upsample), stream)
-    _check(lib, err, "stage softmax stats")
-    stage_softmax_stats.launches += 1
+    _check(lib, err, f"stage softmax stats ({route})")
+    _count(stage_softmax_stats, route)
     return w_pre, m, se
 
 
 stage_softmax_stats.launches = 0
+stage_softmax_stats.launches_mma = stage_softmax_stats.launches_simt = 0
 
 
 def stage_softmax_apply_pool(w_pre, pp, w1x, b1, w2, b2, m, se, *, act, leaky_slope,
@@ -571,18 +654,24 @@ def stage_softmax_apply_pool(w_pre, pp, w1x, b1, w2, b2, m, se, *, act, leaky_sl
 stage_softmax_apply_pool.launches = 0
 
 
-def bwd_blocks(n: int, h: int, w: int, th: int, tw: int) -> int:
-    """Blocks of the backward kernel: at most `_BWD_TARGET_BLOCKS`, each
-    owning one slice of the weight-gradient workspace."""
-    return min(n * (h // th) * (w // tw), _BWD_TARGET_BLOCKS)
+def bwd_blocks(n: int, h: int, w: int, th: int, tw: int,
+               target: int = _BWD_TARGET_BLOCKS) -> int:
+    """Blocks of the backward kernel: at most `target` (the simt route's
+    `_BWD_TARGET_BLOCKS`; on the mma route the blocks that fit on the
+    card at once), each owning one slice of the weight-gradient
+    workspace."""
+    return min(n * (h // th) * (w // tw), target)
 
 
-def stage_conv_bwd(x, dw, a, b, wr, wc, ws, *, act, leaky_slope, upsample=False):
+def stage_conv_bwd(x, dw, a, b, wr, wc, ws, *, act, leaky_slope, upsample=False, route=None):
     """(du, dxs, dWr, dWc, db_col, dWskip) of `stage_conv_bwd_reference`.
-    CUDA tensors: the `stage_conv_bwd` kernel and `reduce_partials`, a
+    CUDA tensors: the `stage_conv_bwd` kernel (on the mma route
+    `stage_conv_bwd_mma`, see `stage_route`) and `reduce_partials`, a
     fixed-order sum of its per-block weight-gradient partials, bitwise
     repeatable (replaces `_kernel_conv_bwd`); CPU tensors: the plain
-    version."""
+    version on any route."""
+    h, w, c = _fine_dims(x, upsample)
+    route = _route_of(route, x.dtype, c, wr.shape[-1], skip=ws is not None, h=h, w=w)
     if not _on_card(x):
         return stage_conv_bwd_reference(x, dw, a, b, wr, wc, ws, act=act,
                                         leaky_slope=leaky_slope, upsample=upsample)
@@ -593,14 +682,24 @@ def stage_conv_bwd(x, dw, a, b, wr, wc, ws, *, act, leaky_slope, upsample=False)
         raise ValueError(f"dw must be {(n, h, w, co)} on {x.device}, got {tuple(dw.shape)}")
     x_, a_, b_, wr_, wc_, _, ws_ = ops
     dw_ = _dense(dw, x.dtype)
-    # the transposes run the forward's shifted products: tap t of the
-    # column transpose is Wc[2 - t]^T, of the row transpose Wr[2 - t]^T
-    wr_t = wr_.flip(0).transpose(1, 2).contiguous()
-    wc_t = wc_.flip(0).transpose(1, 2).contiguous()
-    ws_t = None if ws_ is None else ws_.t().contiguous()
+    wr_t = wc_t = ws_t = None
+    if route == SIMT:
+        # the transposes run the forward's shifted products: tap t of the
+        # column transpose is Wc[2 - t]^T, of the row transpose Wr[2 - t]^T
+        # (the mma kernel reads wr, wc and ws both ways itself)
+        wr_t = wr_.flip(0).transpose(1, 2).contiguous()
+        wc_t = wc_.flip(0).transpose(1, 2).contiguous()
+        ws_t = None if ws_ is None else ws_.t().contiguous()
     lib = _library()
-    th, tw = pick_tile(_BWD, h, w, c, co, lib=lib)
-    blocks = bwd_blocks(n, h, w, th, tw)
+    th, tw = pick_tile(_BWD, h, w, c, co, lib=lib, route=route)
+    target = _BWD_TARGET_BLOCKS
+    if route == MMA:  # persistent blocks: as many as fit on the card at once
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        per_sm = lib.locate_stage_blocks_per_sm(_ROUTE_CODE[MMA], _BWD, c, co, 0, 0, th, tw)
+        if per_sm < 1:
+            raise RuntimeError(f"stage conv backward (mma): no block fits on an SM ({per_sm})")
+        target = sms * per_sm
+    blocks = bwd_blocks(n, h, w, th, tw, target)
     sizes = [3 * c * co, 3 * co * co, co] + ([c * co] if ws_ is not None else [])
     with torch.cuda.device(x.device):
         du = torch.empty_like(x_)
@@ -609,19 +708,20 @@ def stage_conv_bwd(x, dw, a, b, wr, wc, ws, *, act, leaky_slope, upsample=False)
         grads = torch.empty(sum(sizes), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.locate_stage_conv_bwd(
-            int(x.dtype == torch.bfloat16), x_.data_ptr(), dw_.data_ptr(), a_.data_ptr(),
-            b_.data_ptr(), wr_.data_ptr(), wr_t.data_ptr(), wc_t.data_ptr(), _ptr(ws_t),
-            du.data_ptr(), dxs.data_ptr(), part.data_ptr(), grads.data_ptr(),
+            _ROUTE_CODE[route], int(x.dtype == torch.bfloat16), x_.data_ptr(), dw_.data_ptr(),
+            a_.data_ptr(), b_.data_ptr(), wr_.data_ptr(), wc_.data_ptr(), _ptr(ws_), _ptr(wr_t),
+            _ptr(wc_t), _ptr(ws_t), du.data_ptr(), dxs.data_ptr(), part.data_ptr(), grads.data_ptr(),
             n, h, w, c, co, th, tw, blocks, fa.ACT_CODES[act], float(leaky_slope),
             int(upsample), stream)
-    _check(lib, err, "stage conv backward")
-    stage_conv_bwd.launches += 1
+    _check(lib, err, f"stage conv backward ({route})")
+    _count(stage_conv_bwd, route)
     parts = grads.split(sizes)
     dws = parts[3].view(c, co) if ws_ is not None else None
     return du, dxs, parts[0].view(3, c, co), parts[1].view(3, co, co), parts[2], dws
 
 
 stage_conv_bwd.launches = 0
+stage_conv_bwd.launches_mma = stage_conv_bwd.launches_simt = 0
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,9 @@ of the same inputs: the kernel's error may be at most twice the bf16
 plain version's (the rule of scripts/bf16_kernel_sweep.py).
 """
 
+import importlib.util
 import math
+import os
 
 import pytest
 import torch
@@ -349,10 +351,12 @@ def test_stage_forward_kernels(cuda, c, co, up, dn, dtype):
                      w_pre.float(), *as_f32(gate), m, se, **opts))
 
 
-def stage_bwd(ops, dw, up, plain):
+def stage_bwd(ops, dw, up, plain, route=None):
     fn = fs.stage_conv_bwd_reference if plain else fs.stage_conv_bwd
+    kw = {} if plain else dict(route=route)
     with torch.no_grad():
-        out = fn(ops[0], dw, ops[1], ops[2], ops[3], ops[4], ops[6], upsample=up, **STAGE_KW)
+        out = fn(ops[0], dw, ops[1], ops[2], ops[3], ops[4], ops[6], upsample=up, **STAGE_KW,
+                 **kw)
         torch.cuda.synchronize()
     return out
 
@@ -409,6 +413,110 @@ def test_stage_kernels_at_ffhq_512_shapes(cuda, up):
                              stage_bwd(as_f32(ops), dw.float(), up, True)):
         if k is not None:
             hold(name, k, p, t)
+
+
+def chip_smoke():
+    """chip_smoke.py as a module, for its helpers (no phase runs)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# the tensor-core (mma) route of stage_softmax_stats and stage_conv_bwd:
+# (C, Co, upsample) of each template in both forms
+MMA_STAGE_FORMS = [(64, 64, False), (64, 64, True), (32, 64, False), (32, 64, True)]
+
+
+def route_counts(fn):
+    return fn.launches_mma, fn.launches_simt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,co,up", MMA_STAGE_FORMS)
+def test_stage_softmax_stats_mma_route(cuda, c, co, up):
+    """bf16 on the mma route (the route's own choice) and on the simt route
+    on the same inputs, each under the bf16 rule against the f32 plain
+    version; the mma route twice, bitwise equal."""
+    n, hin = 2, (16 if up else 32)
+    h = 2 * hin if up else hin
+    ops = stage_inputs(n, hin, c, co, torch.bfloat16, cuda, seed=9)
+    gate = stage_gate(h * h, co, torch.bfloat16, cuda, seed=10)
+    assert fs.stage_route(torch.bfloat16, c, co, skip=ops[6] is not None, h=h, w=h,
+                          hd=gate[1].shape[1], cout=co) == fs.MMA
+    kw = dict(upsample=up, **STAGE_KW)
+    before = route_counts(fs.stage_softmax_stats)
+    with torch.no_grad():
+        kern = fs.stage_softmax_stats(*ops, *gate, **kw)
+        again = fs.stage_softmax_stats(*ops, *gate, **kw)
+        simt = fs.stage_softmax_stats(*ops, *gate, route="simt", **kw)
+        plain = fs.stage_softmax_stats_reference(*ops, *gate, **kw)
+        truth = fs.stage_softmax_stats_reference(*as_f32(ops), *as_f32(gate), **kw)
+        torch.cuda.synchronize()
+    after = route_counts(fs.stage_softmax_stats)
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 1)
+    for name, k, a, sm, p, t in zip(("w_pre", "m", "se"), kern, again, simt, plain, truth):
+        assert torch.equal(k, a), name
+        hold(name, k, p, t)
+        hold(name + " (simt)", sm, p, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,co,up", MMA_STAGE_FORMS)
+def test_stage_conv_bwd_mma_route(cuda, c, co, up):
+    """du, dxs and the weight gradients of the mma route and the simt route
+    on the same bf16 inputs, under the bf16 rule against the f32 plain
+    backward (each output on the scale of its absolute terms, as the sums
+    cancel); the mma route twice, bitwise equal. Batch 3 at 64^2 gives
+    the persistent blocks several tiles each and a ragged last share."""
+    n, hin = 3, (32 if up else 64)
+    h = 2 * hin if up else hin
+    ops = stage_inputs(n, hin, c, co, torch.bfloat16, cuda, seed=11)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    dw = torch.randn(n, h, h, co, generator=g).to(device=cuda, dtype=torch.bfloat16)
+    before = route_counts(fs.stage_conv_bwd)
+    kern, again = stage_bwd(ops, dw, up, False), stage_bwd(ops, dw, up, False)
+    simt = stage_bwd(ops, dw, up, False, route="simt")
+    after = route_counts(fs.stage_conv_bwd)
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 1)
+    plain = stage_bwd(ops, dw, up, True)
+    truth = stage_bwd(as_f32(ops), dw.float(), up, True)
+    scales = chip_smoke().conv_bwd_scales(fs, ops, dw, up)
+    for name, k, a, sm, p, t, sc in zip(BWD_NAMES, kern, again, simt, plain, truth, scales):
+        if k is None:
+            assert sm is None and p is None and name == "dWskip"
+            continue
+        assert torch.equal(k, a), name
+        hold(name, k, p, t, sc)
+        hold(name + " (simt)", sm, p, t, sc)
+
+
+@pytest.mark.gpu
+def test_stage_routes_refuse_and_f32_keeps_simt(cuda):
+    """f32 takes the simt kernels; an explicit mma route that the call
+    cannot take raises before any launch; the C interface refuses a call
+    the mma templates do not hold."""
+    ops = stage_inputs(2, 16, 64, 64, torch.float32, cuda, seed=13)
+    dw = torch.randn(2, 16, 16, 64, device=cuda)
+    before = route_counts(fs.stage_conv_bwd)
+    stage_bwd(ops, dw, False, False)
+    after = route_counts(fs.stage_conv_bwd)
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+    with pytest.raises(ValueError, match="mma route"):
+        stage_bwd(ops, dw, False, False, route="mma")
+    lib = fs._library()
+    assert lib.locate_stage_smem_bytes(1, fs._BWD, 48, 64, 0, 0, 8, 16) == 0
+    assert lib.locate_stage_smem_bytes(1, fs._STATS, 64, 64, 32, 64, 8, 16) == 0
+    assert lib.locate_stage_smem_bytes(1, fs._CONV, 64, 64, 0, 0, 8, 16) == 0
+    assert lib.locate_stage_blocks_per_sm(1, fs._BWD, 64, 64, 0, 0, 8, 16) >= 1
+    assert lib.locate_stage_blocks_per_sm(1, fs._STATS, 32, 64, 16, 64, 8, 16) >= 1
+    # f32 x on the mma route: refused by the library itself (cudaErrorInvalidValue)
+    x = ops[0].contiguous()
+    err = lib.locate_stage_conv_bwd(1, 0, *[x.data_ptr()] * 14, 2, 16, 16, 64, 64, 8, 16, 1,
+                                    0, 0.2, 0, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 @pytest.mark.gpu

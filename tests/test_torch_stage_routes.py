@@ -1,0 +1,310 @@
+"""The routes of `stage_softmax_stats` and `stage_conv_bwd`, on the CPU:
+which kernels `stage_route` picks (mma: bf16 on the tensor cores at the
+(C, Co) of a template; simt: f32 and every other width), what the
+wrappers refuse, how a route counts its launches and asks the library for
+its tile, and what chip_smoke.py reads of the two mma kernels (their names
+in ptxas and SASS listings, the route counters of an ffhq_512 step, the
+kernels line). The kernels themselves run on the card only
+(tests/test_torch_kernels_gpu.py)."""
+
+import importlib.util
+import os
+import stat
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from locate_tpu_torch.config import get_config
+from locate_tpu_torch.ops import fused_stage as fs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KW = dict(act="leaky_relu", leaky_slope=0.2)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("c,co", [(64, 64), (32, 64)])
+def test_bf16_templates_take_the_mma_route(c, co):
+    assert (c, co) in fs.STAGE_MMA_WIDTHS
+    assert fs.stage_route(torch.bfloat16, c, co) == fs.MMA
+    assert fs.stage_route(torch.bfloat16, c, co, skip=c != co, h=512, w=512, hd=16,
+                          cout=co) == fs.MMA
+
+
+def test_ffhq_512_fused_stages_are_on_a_template():
+    """Every stage that fuses in ffhq_512 (256^2 and 512^2: 64 channels,
+    the gate's hidden width C / 4 = 16, per-channel gate) fits the
+    (64, 64) template."""
+    model = get_config("ffhq_512").model
+    chans = dict(zip(model.stage_resolutions(), model.stage_channels()))
+    assert chans[256] == chans[512] == 64
+    hd = max(8, 64 // model.attention.bottleneck)
+    assert model.attention.per_channel
+    for res in (256, 512):
+        assert fs.stage_route(torch.bfloat16, chans[res], chans[res], skip=False, h=res,
+                              w=res, hd=hd, cout=chans[res]) == fs.MMA
+
+
+@pytest.mark.parametrize("dtype,c,co,shape", [
+    (torch.float32, 64, 64, {}),              # f32 keeps f32 products (TF32 misses 1e-4)
+    (torch.float16, 64, 64, {}),
+    (torch.bfloat16, 32, 32, {}),             # widths no template takes
+    (torch.bfloat16, 48, 64, {}),
+    (torch.bfloat16, 64, 32, {}),
+    (torch.bfloat16, 128, 128, {}),
+    (torch.bfloat16, 64, 64, dict(skip=True)),    # a 1x1 skip where C == Co
+    (torch.bfloat16, 32, 64, dict(skip=False)),   # C != Co needs the skip
+    (torch.bfloat16, 64, 64, dict(h=20, w=32)),   # the 8 x 16 tile does not divide
+    (torch.bfloat16, 64, 64, dict(h=16, w=24)),
+    (torch.bfloat16, 64, 64, dict(hd=32, cout=64)),  # the gate's widths
+    (torch.bfloat16, 64, 64, dict(hd=16, cout=1)),
+])
+def test_everything_else_takes_the_simt_route(dtype, c, co, shape):
+    assert fs.stage_route(dtype, c, co, **shape) == fs.SIMT
+
+
+def _stage(dtype, n=2, hin=16, c=64, co=64, seed=0, up=False):
+    """(x, a, b, wr, wc, b_col, ws) and the gate (pos_proj, w1x, b1, w2, b2)
+    of a small stage, made with numpy, in `dtype` where the kernels take
+    it."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=0.1):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * scale)
+
+    ws = r(c, co, scale=c ** -0.5).to(dtype) if c != co else None
+    ops = [r(n, hin, hin, c, scale=1.0).to(dtype), 1 + r(n, c), r(n, c),
+           r(3, c, co, scale=(3 * c) ** -0.5).to(dtype),
+           r(3, co, co, scale=(3 * co) ** -0.5).to(dtype), r(co), ws]
+    h = 2 * hin if up else hin
+    gate = [r(h * h, 16, scale=0.5), r(co, 16, scale=co ** -0.5).to(dtype), r(16),
+            r(16, co, scale=0.75).to(dtype), r(co)]
+    return ops, gate
+
+
+def _counts(fn):
+    return fn.launches, fn.launches_mma, fn.launches_simt
+
+
+@pytest.mark.parametrize("route", [None, "mma", "simt"])
+@pytest.mark.parametrize("c,co,up", [(64, 64, False), (32, 64, True)])
+def test_cpu_wrappers_run_the_plain_version_on_any_route(route, c, co, up):
+    """On CPU tensors the route names the card's kernels only: the plain
+    versions run, bitwise, and no launch is counted."""
+    ops, gate = _stage(torch.bfloat16, hin=8 if up else 16, c=c, co=co, up=up)
+    dw = torch.randn(2, 16, 16, co, generator=torch.Generator().manual_seed(1)).bfloat16()
+    counts = [_counts(f) for f in (fs.stage_softmax_stats, fs.stage_conv_bwd)]
+    got = fs.stage_softmax_stats(*ops, *gate, upsample=up, route=route, **KW)
+    want = fs.stage_softmax_stats_reference(*ops, *gate, upsample=up, **KW)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    got = fs.stage_conv_bwd(ops[0], dw, *ops[1:5], ops[6], upsample=up, route=route, **KW)
+    want = fs.stage_conv_bwd_reference(ops[0], dw, *ops[1:5], ops[6], upsample=up, **KW)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert counts == [_counts(f) for f in (fs.stage_softmax_stats, fs.stage_conv_bwd)]
+
+
+def test_wrappers_refuse_a_route_the_call_cannot_take():
+    """An explicit mma route raises for f32, for widths no template holds
+    and for a shape the tile does not divide, on the CPU too; an unknown
+    route raises."""
+    ops, gate = _stage(torch.float32)
+    dw = torch.zeros(2, 16, 16, 64)
+    with pytest.raises(ValueError, match="mma route"):
+        fs.stage_softmax_stats(*ops, *gate, route=fs.MMA, **KW)
+    with pytest.raises(ValueError, match="mma route"):
+        fs.stage_conv_bwd(ops[0], dw, *ops[1:5], ops[6], route=fs.MMA, **KW)
+    ops, gate = _stage(torch.bfloat16, c=32, co=32)
+    with pytest.raises(ValueError, match="mma route"):
+        fs.stage_conv_bwd(ops[0], dw[..., :32], *ops[1:5], ops[6], route=fs.MMA, **KW)
+    ops, gate = _stage(torch.bfloat16, hin=12)
+    with pytest.raises(ValueError, match="mma route"):
+        fs.stage_softmax_stats(*ops, *gate, route=fs.MMA, **KW)
+    ops, gate = _stage(torch.bfloat16)
+    with pytest.raises(ValueError, match="route must be"):
+        fs.stage_softmax_stats(*ops, *gate, route="wgmma", **KW)
+    with pytest.raises(ValueError, match="route must be"):
+        fs.stage_conv_bwd(ops[0], dw, *ops[1:5], ops[6], route="tensor", **KW)
+
+
+def test_wrappers_refuse_other_devices():
+    m = torch.zeros(2, 16, 16, 64, device="meta")
+    w = torch.zeros(3, 64, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        fs.stage_conv_bwd(m, m, m[:, 0, 0], m[:, 0, 0], w, w, None, route=fs.SIMT, **KW)
+
+
+def test_each_launch_counts_on_its_route():
+    class Fn:
+        launches = launches_mma = launches_simt = 0
+
+    for route in (fs.MMA, fs.SIMT, fs.MMA, fs.MMA):
+        fs._count(Fn, route)
+    assert (Fn.launches, Fn.launches_mma, Fn.launches_simt) == (4, 3, 1)
+    for fn in (fs.stage_softmax_stats, fs.stage_conv_bwd):
+        assert fn.launches == fn.launches_mma + fn.launches_simt
+
+
+class _Lib:
+    """A stand-in for the library's shared-memory query."""
+
+    def __init__(self, nbytes):
+        self.nbytes, self.asked = nbytes, []
+
+    def locate_stage_smem_bytes(self, route, kind, c, co, hd, cout, th, tw):
+        self.asked.append((route, kind, c, co, hd, cout, th, tw))
+        return self.nbytes
+
+
+def test_the_mma_tile_asks_the_library():
+    """On the mma route the tile is the route's 8 x 16, and the library is
+    asked for that block's bytes (route code 1); 0 means no template,
+    bytes over an SM's refuse, and so does an image the tile does not
+    divide. The simt route asks with code 0."""
+    lib = _Lib(155520)
+    assert fs.pick_tile(fs._BWD, 512, 512, 64, 64, lib=lib, route=fs.MMA) == (8, 16)
+    assert lib.asked == [(1, fs._BWD, 64, 64, 0, 0, 8, 16)]
+    lib = _Lib(103232)
+    assert fs.pick_tile(fs._STATS, 512, 512, 32, 64, 16, 64, lib=lib, route=fs.MMA) == (8, 16)
+    assert lib.asked == [(1, fs._STATS, 32, 64, 16, 64, 8, 16)]
+    with pytest.raises(ValueError, match="no mma template"):
+        fs.pick_tile(fs._STATS, 512, 512, 64, 64, 32, 64, lib=_Lib(0), route=fs.MMA)
+    with pytest.raises(ValueError, match="shared memory"):
+        fs.pick_tile(fs._BWD, 512, 512, 64, 64, lib=_Lib(300000), route=fs.MMA)
+    with pytest.raises(ValueError, match="does not divide"):
+        fs.pick_tile(fs._BWD, 512, 520, 64, 64, lib=_Lib(1000), route=fs.MMA)
+    lib = _Lib(1000)
+    assert fs.pick_tile(fs._BWD, 512, 512, 64, 64, lib=lib) == fs._BWD_TILES[0]
+    assert lib.asked[0][0] == 0
+
+
+def test_mma_backward_blocks_follow_the_card():
+    """The mma backward's persistent blocks: as many as fit on the card at
+    once, never more than there are tiles."""
+    assert fs.bwd_blocks(16, 512, 512, 8, 16, 132) == 132
+    assert fs.bwd_blocks(1, 16, 32, 8, 16, 132) == 4
+    assert fs.bwd_blocks(16, 512, 512, 4, 16) == fs._BWD_TARGET_BLOCKS
+
+
+def test_the_fused_stage_takes_the_routes_choice():
+    """`FusedStage`'s chain calls both wrappers without a route: on the
+    CPU it runs the plain chain, bf16 as f32."""
+    ops, gate = _stage(torch.bfloat16)
+    x = ops[0].requires_grad_(True)
+    w_row = ops[3].permute(2, 1, 0)[:, :, None, :].float().requires_grad_(True)
+    w_col = ops[4].permute(2, 1, 0)[:, :, :, None].float().requires_grad_(True)
+    y = fs.fused_stage(x, torch.ones(64), torch.zeros(64), w_row, w_col, ops[5], None,
+                       groups=4, mode="softmax", pos_proj=gate[0], w1x=gate[1].float(),
+                       b1=gate[2], w2=gate[3].float(), b2=gate[4], gate_max=16.0)
+    dx, dr, dc = torch.autograd.grad(y.float().sum(), [x, w_row, w_col])
+    assert dx.dtype == torch.bfloat16 and torch.isfinite(dx.float()).all()
+    assert torch.isfinite(dr).all() and torch.isfinite(dc).all()
+
+
+STAGE_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b23stage_softmax_stats_mmaILi64ELi64EEEvPK13__nv_bfloat16PKfS5_S3_S3_S5_S3_S5_S3_S5_S3_S5_PS1_PfS7_iiiifi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 124 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b18stage_conv_bwd_mmaILi32ELi64EEEvPK13__nv_bfloat16S3_PKfS5_S3_S3_S3_PS1_S6_Pfiiiifi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 203 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b14stage_conv_bwdI13__nv_bfloat16EEvPKT_S4_PKfS6_S4_S4_S4_S4_PS2_S7_Pfiiiiiiiiifi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 187 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b19stage_softmax_statsIfEEvPKT_PKfS5_S3_S3_S5_S3_S5_S3_S5_S3_S5_PS1_PfS7_iiiiiiiiifi' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 120 registers, used 1 barriers
+"""
+
+
+def test_ptxas_names_the_stage_mma_kernels(smoke):
+    """The stage's mma kernels are templates on (C, Co): each instance keeps
+    a name of its own, apart from the simt kernel whose name it contains."""
+    assert smoke.STAGE_MMA_KERNELS == ("stage_softmax_stats_mma", "stage_conv_bwd_mma")
+    for k in smoke.STAGE_MMA_KERNELS:
+        simt = k[:-len("_mma")]
+        assert smoke.ALL_CUDA_KERNELS.index(k) < smoke.ALL_CUDA_KERNELS.index(simt)
+    kernels = smoke.parse_ptxas(STAGE_PTXAS_LOG)
+    assert set(kernels) == {"stage_softmax_stats_mma<64,64>", "stage_conv_bwd_mma<32,64>",
+                            "stage_conv_bwd<bf16>", "stage_softmax_stats<f32>"}
+    assert kernels["stage_conv_bwd_mma<32,64>"]["registers"] == 203
+    assert kernels["stage_softmax_stats_mma<64,64>"]["spill_stores"] == 0
+
+
+def test_sass_counts_the_stage_mma_kernels(smoke, tmp_path, monkeypatch):
+    listing = tmp_path / "listing.txt"
+    listing.write_text(
+        "\t\tFunction : _ZN50_GLOBAL__N__0_fused_stage_cu_18stage_conv_bwd_mmaILi64ELi64EEEvPK\n"
+        "        /*0100*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;\n"
+        "        /*0110*/                   LDSM.16.MT88.4 R8, [R2] ;\n"
+        "        /*0120*/                   HMMA.16816.F32.BF16 R28, R4, R22, R28 ;\n"
+        "        /*0130*/                   HMMA.16816.F32.BF16 R32, R4, R22, R32 ;\n"
+        "\t\tFunction : _ZN50_GLOBAL__N__0_fused_stage_cu_14stage_conv_bwdI13__nv_bfloat16EEvPK\n"
+        "        /*0100*/                   FFMA R1, R2, R3, R1 ;\n")
+    tool = tmp_path / "cuobjdump"
+    tool.write_text(f"#!{sys.executable}\nimport sys\nprint(open({str(listing)!r}).read())\n")
+    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(smoke, "cuobjdump_path", lambda: str(tool))
+    assert smoke.sass_tensor_ops("lib.so") == {"stage_conv_bwd_mma<64,64>": 3,
+                                               "stage_conv_bwd<bf16>": 0}
+
+
+def test_ffhq_512_step_route_expectation(smoke):
+    """An ffhq_512 step (softmax gate) launches 9 stats passes and 4
+    backward passes, all on the mma route; with the sigmoid gate 4 backward
+    passes and no stats pass; the f32 step at 64^2 takes the simt route."""
+    per_step = {k: sum(v.values()) for k, v in smoke.FFHQ_STAGE_PER_STEP.items()}
+    launches = smoke.expected(per_step, 3)
+    assert smoke.stage_routes_expected(launches) == {
+        "stage_softmax_stats": {"mma": 27, "simt": 0}, "stage_conv_bwd": {"mma": 12, "simt": 0}}
+    sig = smoke.expected(smoke.SIGMOID_PER_STEP, 3)
+    assert smoke.stage_routes_expected(sig) == {
+        "stage_softmax_stats": {"mma": 0, "simt": 0}, "stage_conv_bwd": {"mma": 12, "simt": 0}}
+    assert smoke.stage_routes_expected({"stage_conv_bwd": 20}, "simt") == {
+        "stage_softmax_stats": {"mma": 0, "simt": 0}, "stage_conv_bwd": {"mma": 0, "simt": 20}}
+    assert smoke.read_stage_routes().keys() == set(smoke.STAGE_ROUTED)
+
+
+def test_phase_9_covers_every_template(smoke):
+    """Phase 9 runs both routed kernels at both templates: (64, 64) in the
+    plain and `up` forms, (32, 64) with the 1x1 skip."""
+    cases = {(k, f, c, co) for k, f, c, co in smoke.STAGE_CASES if k in smoke.STAGE_ROUTED}
+    for k in smoke.STAGE_ROUTED:
+        assert {(k, "plain", 64, 64), (k, "up", 64, 64), (k, "skip", 32, 64)} <= cases
+    assert {(c, co) for _, _, c, co in cases} == set(fs.STAGE_MMA_WIDTHS)
+
+
+def test_kernels_line_carries_the_stage_routes(smoke):
+    """Rows 9 and 11 of the kernels line: the mma route's per-step time,
+    beside the simt route's time of the same launches and the main path's
+    launches on the mma route; the other stage rows have no route keys."""
+    times, err = {}, {}
+    for kernel, forms in smoke.FFHQ_STAGE_PER_STEP.items():
+        err[kernel] = 0.01
+        for f in forms:
+            times[(kernel, f)] = dict(ms=2.0, plain_ms=30.0, bound_ms=0.3, bound_by="bytes",
+                                      ms_simt=20.0)
+    launches = smoke.expected({k: sum(v.values()) for k, v in
+                               smoke.FFHQ_STAGE_PER_STEP.items()}, 3)
+    routes = smoke.stage_routes_expected(launches)
+    rows = {k: smoke.stage_entry(k, times, err, launches, routes=routes)
+            for k in smoke.STAGE_KERNELS}
+    assert rows["stage_softmax_stats"]["ms"] == 18.0
+    assert rows["stage_softmax_stats"]["ms_simt"] == 180.0
+    assert rows["stage_softmax_stats"]["launches_mma"] == 27
+    assert rows["stage_conv_bwd"]["ms_simt"] == 80.0 and rows["stage_conv_bwd"]["routes"] == ["mma"]
+    assert "ms_simt" in rows["stage_conv_bwd"]["forms"][0]
+    assert "launches_mma" not in rows["stage_conv"] and "ms_simt" not in rows["stage_conv"]
+    for row in rows.values():
+        assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(row)
