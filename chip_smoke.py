@@ -25,9 +25,11 @@ line each:
      three passes, with the blocks that fit on an SM; the SASS of every
      mma instance of the bf16 forward and backward (`cuobjdump -sass`)
      holds HMMA or HGMMA instructions, and none spills more than 16 bytes;
-     the two mma kernels of the stage (`stage_softmax_stats_mma`,
-     `stage_conv_bwd_mma`) at each (C, Co) template: HMMA in the SASS, no
-     spill, registers, shared memory and blocks an SM;
+     the four mma kernels of the stage (`stage_softmax_stats_mma`,
+     `stage_conv_bwd_mma`, `stage_conv_mma`, `stage_sigmoid_mma`) at each
+     (C, Co) template: HMMA in the SASS, no spill, registers, shared
+     memory and blocks an SM; the simt kernels' shared memory and blocks
+     an SM beside them;
   3. the gate's forward kernels (stats, apply) against the plain version at
      the nine G and D gate shapes of lsun_bedroom_128, batch 64, bf16, with
      gate weights that make the gate vary and pass the clamp at 16, plus one
@@ -80,12 +82,12 @@ line each:
      plain, `up`, `down` and with a 1x1 skip (C 32), the conv backward plain
      and `up` (its outputs against their absolute-term scales, two f32 runs
      bitwise equal), the stats pass and the backward also with the 1x1
-     skip (C 32); the stats pass and the backward in bf16 on the mma route
-     (the wrappers' choice) and, on the same inputs, the simt route, both
-     under the bf16 rule, each case twice and bitwise equal, f32 on the
-     simt route; each bf16 case timed beside its bound and the plain
-     version's time, and those two kernels beside the simt route's time
-     (fails if the mma route is not the faster);
+     skip (C 32); the conv pass, the stats pass and the backward in bf16
+     on the mma route (the wrappers' choice) and, on the same inputs, the
+     simt route, both under the bf16 rule, each case twice and bitwise
+     equal, f32 on the simt route; each bf16 case timed beside its bound,
+     the plain version's time and the simt route's time (fails if the mma
+     route is not the faster);
  10. ffhq_512 serving: one request of 4 through `generate_samples` (the
      launches of one forward: the stage's stats pass once, the gate's kernels
      at the seven stages below), the kernel path, the plain path and an f32
@@ -95,16 +97,18 @@ line each:
  11. ffhq_512 training (the fused-stage kernels' main path): the preset as
      shipped (R1 gamma 0.1 every 16 steps, remat, both guards) at batch 16,
      3 steps from step 0: the checks of 6, launches per step of all eight
-     kernels as the step implies, every launch of stage_softmax_stats and
-     stage_conv_bwd on the mma route, sec/step, images/sec, peak memory, idle
+     kernels as the step implies, every launch of stage_conv,
+     stage_softmax_stats and stage_conv_bwd on the mma route, sec/step,
+     images/sec, peak memory, idle
      share and top kernels; the same steps again with the grad-norm guard
      raised to 1e9, where G's and D's updates all apply and G, D and the
      EMA move (random weights give G a norm of 2e6-2e7, above the shipped
      1e6, so this is the card's check of G's Adam update); then the plain
      path's 3 steps alike;
  12. one ffhq_512 step's gradients with R1 on the kernel path, each of its
-     four fused-stage backward calls (on the mma route) held against the
-     plain backward chain on its own saved tensors (the bf16 rule);
+     four fused-stage backward calls (the recompute of w by stage_conv
+     and the backward, both on the mma route) held against the plain
+     backward chain on its own saved tensors (the bf16 rule);
  13. one step's whole gradients at ffhq_512's widths cut to 64^2 with every
      stage fused, f32 kernel path against f32 plain path (the tolerance of
      6), each of the 20 fused-stage backward calls within 1e-4, on the simt
@@ -120,12 +124,13 @@ line each:
      timed beside its bound and the plain version's time;
  16. the stage's sigmoid pass (stage_sigmoid) at 512^2 in G's `up` and
      D's `down` forms, plain and with a 1x1 skip, under the rules of 9 at
-     gate_max 1.5, timed alike;
+     gate_max 1.5, on both routes, timed alike;
  17. ffhq_512-sigmoid serving as 10: one forward launches the gate's
      kernel 3 times and the stage's sigmoid pass once, no softmax kernel;
  18. ffhq_512-sigmoid training as 11: 27 / 16 / 9 launches a step of
      sigmoid_gate / sigmoid_bwd / stage_sigmoid, 4 of stage_conv and of
-     stage_conv_bwd, none of the softmax kernels;
+     stage_conv_bwd, none of the softmax kernels; the three stage kernels
+     on the mma route;
  19. as 12, the four sigmoid stage backward calls of one step;
  20. as 13, at 64^2 with every sigmoid stage fused;
  21. one sigmoid attention layer at ffhq_512's shapes from 32^2 to 256^2
@@ -165,9 +170,9 @@ line each:
      gradients against the plain path (the tolerance of 6), each call
      within 1e-4;
  26. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
-     flash kernels, `stage_softmax_stats` and `stage_conv_bwd` with their
-     mma-route launches and the simt route's time of the same launches
-     beside their own);
+     flash kernels and the four routed stage kernels with their mma-route
+     launches and the simt route's time of the same launches beside their
+     own);
  27. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -242,12 +247,13 @@ CUDA_KERNELS = ("softmax_stats_partial", "softmax_stats_merge", "softmax_apply",
 STAGE_SOURCE = "locate_tpu_torch/csrc/fused_stage.cu"
 STAGE_KERNELS = ("stage_conv", "stage_softmax_stats", "stage_softmax_apply_pool",
                  "stage_conv_bwd")
-# the tensor-core instances of stage_softmax_stats and stage_conv_bwd (their
-# mma route, bf16), templates on (C, Co); each must hold HMMA and not spill
-STAGE_MMA_KERNELS = ("stage_softmax_stats_mma", "stage_conv_bwd_mma")
-# the two wrappers with two routes, and the simt time each bf16 case of
-# phase 9 must beat on the mma route
-STAGE_ROUTED = ("stage_softmax_stats", "stage_conv_bwd")
+# the tensor-core instances of the routed stage kernels (their mma route,
+# bf16), templates on (C, Co); each must hold HMMA and not spill
+STAGE_MMA_KERNELS = ("stage_softmax_stats_mma", "stage_conv_bwd_mma", "stage_conv_mma",
+                     "stage_sigmoid_mma")
+# the four wrappers with two routes, and the simt time each bf16 case of
+# phases 9 and 16 must beat on the mma route
+STAGE_ROUTED = ("stage_softmax_stats", "stage_conv_bwd", "stage_conv", "stage_sigmoid")
 STAGE_CUDA_KERNELS = ("stage_conv_bwd", "stage_softmax_apply_pool", "stage_softmax_stats",
                       "stage_conv", "stage_sigmoid", "softmax_stats_merge", "reduce_partials")
 FLASH_SOURCE = "locate_tpu_torch/csrc/flash_attention.cu"
@@ -1393,11 +1399,11 @@ def run_stage(fs, kind, ops, gate, form, dw=None, stats=None, plain=False, route
     routed = {} if plain else dict(route=route)
     if kind == "stage_conv":
         fn = fs.stage_conv_reference if plain else fs.stage_conv
-        return (fn(*ops, upsample=up, downsample=down, **STAGE_KW),)
+        return (fn(*ops, upsample=up, downsample=down, **STAGE_KW, **routed),)
     if kind == "stage_sigmoid":
         fn = fs.stage_sigmoid_reference if plain else fs.stage_sigmoid
         return (fn(*ops, *gate, upsample=up, downsample=down, gate_max=SIGMOID_GATE_MAX,
-                   **STAGE_KW),)
+                   **STAGE_KW, **routed),)
     if kind == "stage_softmax_stats":
         fn = fs.stage_softmax_stats_reference if plain else fs.stage_softmax_stats
         return fn(*ops, *gate, upsample=up, **STAGE_KW, **routed)
@@ -1472,10 +1478,10 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
     16, in bf16 (timed) and f32; the backward's outputs against their
     absolute-term scales, and bitwise repeatable in f32; the sigmoid pass
     at gate_max 1.5, where the clamp binds at a part of the pixels. The
-    two kernels of STAGE_ROUTED run bf16 on the mma route (the wrappers'
-    choice) and, on the same inputs, on the simt route, both under the
-    bf16 rule, each case twice and bitwise equal; the mma route must be
-    the faster; f32 takes the simt route."""
+    kernels of STAGE_ROUTED (all but the apply-pool pass) run bf16 on the
+    mma route (the wrappers' choice) and, on the same inputs, on the simt
+    route, both under the bf16 rule, each case twice and bitwise equal;
+    the mma route must be the faster; f32 takes the simt route."""
     n = FFHQ_BATCH
     rows, times, max_err = [], {}, {}
     for i, (kind, form, c, co) in enumerate(cases):
@@ -1808,7 +1814,9 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
 def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-backward"):
     """Phase 12 (and 19 with the sigmoid gate): one ffhq_512 step's
     gradients (R1 firing) on the kernel path, each of its four fused-stage
-    backward calls held against the plain chain on its own saved tensors."""
+    backward calls held against the plain chain on its own saved tensors;
+    each recomputes w (stage_conv) and runs the conv backward on the mma
+    route."""
     g = torch.Generator(device="cuda")
     g.manual_seed(6)
     z = [torch.randn(FFHQ_BATCH, cfg.model.latent_dim, device="cuda", generator=g)
@@ -1820,8 +1828,8 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-
     after = read_stage_routes()
     check(len(calls) == 4, f"{len(calls)} fused-stage backward calls in one ffhq_512 step")
     moved = {k: {r: after[k][r] - before[k][r] for r in after[k]} for k in after}
-    check(moved["stage_conv_bwd"] == {"mma": 4, "simt": 0}
-          and moved["stage_softmax_stats"]["simt"] == 0,
+    check(moved["stage_conv_bwd"] == moved["stage_conv"] == {"mma": 4, "simt": 0}
+          and moved["stage_softmax_stats"]["simt"] == moved["stage_sigmoid"]["simt"] == 0,
           f"the checked ffhq_512 step's stage kernels took the routes {moved}")
     check(all(math.isfinite(v) for v in (d_loss, g_loss, r1)) and r1 > 0.0,
           f"ffhq_512 step losses {d_loss}, {g_loss}, r1 {r1}")
@@ -1869,7 +1877,7 @@ def phase_ffhq_grads_64(fs, fa, blocks, overrides=None, kernels=STAGE_KERNELS,
                          rel_change_f32_at_1e7_weight_noise=moved)
         check(e <= limit, f"{net} gradient at 64^2 f32, every stage fused: {e:.3e} > {limit:.3e}")
     say(phase, batch=FFHQ_BATCH, fused_stages=stages, gradients=rows,
-        launches=launches, stage_backward_calls_checked=len(calls),
+        launches=launches, stage_routes=stage_routes, stage_backward_calls_checked=len(calls),
         worst_stage_backward_rel_err=max(v for r in calls for k, v in r.items()
                                           if k.endswith("rel_err_kernel_vs_plain")),
         losses=dict(kernel=kernel[2:], plain=plain[2:]))
@@ -2685,10 +2693,11 @@ def sigmoid_entry(kernel, rows, launches, serve_launches):
 
 def stage_entry(kernel, times, max_err, launches, forms=None, routes=None):
     """The {"kernels": [...]} entry of a fused-stage kernel: per ffhq_512
-    train step at batch 16, each form's time times its launches a step;
-    for the two kernels of STAGE_ROUTED beside the simt route's time of
-    the same launches, with the launches the main path's run made on the
-    mma route (`routes`, read_stage_routes())."""
+    train step at batch 16 (ffhq_512-sigmoid for stage_sigmoid), each
+    form's time times its launches a step; for the kernels of
+    STAGE_ROUTED beside the simt route's time of the same launches, with
+    the launches the main path's run made on the mma route (`routes`,
+    read_stage_routes())."""
     forms = forms or FFHQ_STAGE_PER_STEP[kernel]
 
     def total(key):
@@ -2807,21 +2816,21 @@ def phase_build(fa, fs, fl, build):
         th, tw = fs.pick_tile(k, 512, 512, 64, 64, 16, 64, lib=stage_lib)
         stage_smem[kind] = dict(route="simt", tile=f"{th}x{tw}", bytes=int(
             stage_lib.locate_stage_smem_bytes(0, k, 64, 64, 16, 64, th, tw)))
-        if k in (fs._STATS, fs._BWD):
+        if k != fs._APPLY_POOL:
             stage_smem[kind]["blocks_per_sm"] = int(
                 stage_lib.locate_stage_blocks_per_sm(0, k, 64, 64, 16, 64, th, tw))
-    # the mma instances of the two routed kernels: HMMA in the SASS, no
-    # spill, their shared memory and blocks an SM at each template
+    # the mma instances of the routed kernels: HMMA in the SASS, no spill,
+    # their shared memory and blocks an SM at each template
     stage_sass = sass_tensor_ops(libs["fused_stage"])
     stage_mma = {}
-    for k, kind in zip(STAGE_MMA_KERNELS, (fs._STATS, fs._BWD)):
+    for k, kind in zip(STAGE_MMA_KERNELS, (fs._STATS, fs._BWD, fs._CONV, fs._SIGMOID)):
         for c, co in fs.STAGE_MMA_WIDTHS:
             n = f"{k}<{c},{co}>"
             ptx = reports["fused_stage"].get(n, {})
             check(stage_sass.get(n, 0) > 0, f"{n}: no HMMA or HGMMA instruction in its SASS")
             check(bool(ptx) and ptx.get("spill_stores", 0) == 0 and ptx.get("spill_loads", 0) == 0,
                   f"{n} spills: {ptx}")
-            hd, cout = (fs.MMA_HD, co) if kind == fs._STATS else (0, 0)
+            hd, cout = (fs.MMA_HD, co) if kind in (fs._STATS, fs._SIGMOID) else (0, 0)
             stage_mma[n] = dict(ptx, tensor_core_instructions=stage_sass[n], bytes=int(
                 stage_lib.locate_stage_smem_bytes(1, kind, c, co, hd, cout, *fs._MMA_TILE)),
                 blocks_per_sm=int(stage_lib.locate_stage_blocks_per_sm(
@@ -2943,8 +2952,8 @@ def main() -> int:
     _, sig_stage_times, sig_stage_err = phase_stage_kernels(
         fs, fa, SIGMOID_STAGE_CASES, "sigmoid-stage-kernels-vs-plain")
     sig_serve = phase_ffhq_serving(SIGMOID, SIGMOID_SERVE_PER_FORWARD, "ffhq-sigmoid-serving")
-    sig_cfg, sig_weights, sig_launches, _ = phase_ffhq_train(SIGMOID, SIGMOID_PER_STEP,
-                                                             "ffhq-sigmoid-train")
+    sig_cfg, sig_weights, sig_launches, sig_routes = phase_ffhq_train(
+        SIGMOID, SIGMOID_PER_STEP, "ffhq-sigmoid-train")
     phase_ffhq_checked_backward(fs, fa, sig_cfg, sig_weights,
                                 "ffhq-sigmoid-checked-stage-backward")
     del sig_weights
@@ -2967,7 +2976,7 @@ def main() -> int:
             for k in STAGE_KERNELS]
     out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve) for k in SIGMOID_KERNELS]
     out.append(stage_entry("stage_sigmoid", sig_stage_times, sig_stage_err, sig_launches,
-                           SIGMOID_STAGE_PER_STEP["stage_sigmoid"]))
+                           SIGMOID_STAGE_PER_STEP["stage_sigmoid"], sig_routes))
     out += [flash_entry(k, flash_rows, flash_train_rows, self_launches, self_serve,
                         self_routes) for k in FLASH_KERNELS]
     for entry in out:

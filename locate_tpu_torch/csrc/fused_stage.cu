@@ -1,8 +1,8 @@
 // Fused stage group, forward and backward, for Hopper (sm_90a).
 //
 // Replaces five TPU kernels of locate_tpu/ops/pallas/fused_stage.py:
-//   * _kernel_conv_only          (:366) -> stage_conv
-//   * _kernel_sigmoid            (:378) -> stage_sigmoid
+//   * _kernel_conv_only          (:366) -> stage_conv (bf16: stage_conv_mma)
+//   * _kernel_sigmoid            (:378) -> stage_sigmoid (bf16: stage_sigmoid_mma)
 //   * _kernel_softmax_stats      (:410) -> stage_softmax_stats (bf16: stage_softmax_stats_mma)
 //                                          + softmax_stats_merge
 //   * _kernel_softmax_apply_pool (:397) -> stage_softmax_apply_pool
@@ -58,9 +58,10 @@
 // * simt: every kernel below, f32 and bf16, runs its products as f32 FMAs
 //   on the CUDA cores (67 TFLOP/s); f32 keeps it, since TF32 would miss
 //   the f32 rule of 1e-4.
-// * mma: bf16 at the widths of the templates, for the two kernels that
-//   took the most time over their bounds, stage_softmax_stats_mma and
-//   stage_conv_bwd_mma (their design is with them, further down).
+// * mma: bf16 at the widths of the templates, for the four kernels that
+//   compute the conv block: stage_softmax_stats_mma, stage_conv_bwd_mma,
+//   stage_conv_mma and stage_sigmoid_mma (their design is with them,
+//   further down). The apply-pool pass has only the simt route.
 //
 // Design of the simt route. The TPU tiles whole image rows; at 512 x 64 channels a bf16 row
 // is 64 KB, so here a block's tile is TH rows x TW columns of the fine
@@ -694,9 +695,10 @@ __global__ void __launch_bounds__(kThreads) stage_conv_bwd(
 
 // ---- bf16 on the tensor cores (the mma route) ------------------------------
 //
-// stage_softmax_stats_mma and stage_conv_bwd_mma compute what the simt
-// kernels above compute, for bf16 at the (C, Co) of the templates
-// (ops/fused_stage.py:STAGE_MMA_WIDTHS; the gate's Hd 16 and Cout = Co).
+// stage_conv_mma, stage_sigmoid_mma, stage_softmax_stats_mma and
+// stage_conv_bwd_mma compute what the simt kernels above compute, for bf16
+// at the (C, Co) of the templates (ops/fused_stage.py:STAGE_MMA_WIDTHS; the
+// gate's Hd 16 and Cout = Co).
 // Every product is mma.sync.m16n8k16 (bf16 in, f32 accumulate) on operands
 // read by ldmatrix from bf16 tiles in shared memory, rows padded by 8
 // elements against bank conflicts.
@@ -714,26 +716,35 @@ __global__ void __launch_bounds__(kThreads) stage_conv_bwd(
 //   transposed operand comes from the same pixel-major tile by
 //   ldmatrix.trans.
 // * Blocks are persistent (8 warps; as many as fit on the card at once:
-//   two an SM of the stats pass, one of the backward), each walking a
-//   strided share of the 8 x 16 tiles with the weights staged once. A
-//   tile's loads overlap other work: the stats pass's in the other block
-//   of the SM; the backward's are fetched by cp.async a tile ahead, under
+//   two an SM of the three forward passes, one of the backward), each
+//   walking a strided share of the 8 x 16 tiles with the weights staged
+//   once. A tile's loads overlap other work: a forward pass's in the other
+//   block of the SM; the backward's are fetched by cp.async a tile ahead, under
 //   the current tile's products (its registers allow one block). In the backward
 //   every warp keeps its share of dWc, dWr and dWskip (three 16 x Co
 //   blocks: a tap each, or the skip's one) in registers across all its
 //   tiles and writes it once, at the end, to its block's slice of `part`:
 //   no read-modify-write of the workspace a tile (the simt kernel's 98.5 KB
 //   a tile at C = Co = 64). db_col is summed in f32 from the loads of dw.
+// * The gate MLP runs on the tensor cores on w's fragments
+//   (gate_logits_mma, shared by the stats and sigmoid passes).
+// * stage_conv_mma and stage_sigmoid_mma stage each tile's output as bf16
+//   in shared memory and write it with 16-byte stores, fine or pooled
+//   2 x 2 (store_staged); the stats pass writes w_pre from its fragments.
 // * Every rounding point is the simt kernels' (u, v, dy0, dv to cd; the
 //   epilogue's acc -> cd, + b_col -> cd, + skip -> cd, x cd(1/sqrt 2) -> cd;
-//   h to cd; du pooled in f32 before its rounding); only the order of the
+//   h to cd; the sigmoid pass's (w g) to cd; du and the `down` output
+//   pooled in f32 before their rounding); only the order of the
 //   f32 sums differs. One owner per output and fixed-order sums: two runs
 //   are bitwise equal.
 //
-// Bound at ffhq_512 (batch 16, 512^2, C = Co = 64): the stats pass's 223
-// GFLOP take 0.23 ms on the tensor cores' 989 TFLOP/s, its bytes 0.29 ms;
-// the backward's 515 GFLOP 0.52 ms, its bytes 0.61 ms: both are bound by
-// bytes in their plain forms. What holds these first mma versions from it: 8 or 16 warps an
+// Bound at ffhq_512 (batch 16, 512^2, C = Co = 64): the conv pass's 206
+// GFLOP take 0.21 ms on the tensor cores' 989 TFLOP/s, its bytes 0.32 ms
+// plain and 0.20 ms `up` or `down` (x or the output a quarter); the sigmoid
+// pass adds the gate's 17 GFLOP; the stats pass's 223 GFLOP take 0.23 ms,
+// its bytes 0.29 ms; the backward's 515 GFLOP 0.52 ms, its bytes 0.61 ms:
+// the plain forms are bound by bytes, the `up` and `down` forward forms by
+// operations. What holds these first mma versions from it: 8 or 16 warps an
 // SM and the barriers between a tile's phases (a TMA ring with warp
 // specialisation, and wgmma, are later work), and the v halo recomputed
 // (10 rows for 8).
@@ -753,7 +764,13 @@ __host__ __device__ constexpr bool mma_widths_ok(int C, int CO) {
   return CO == 64 && (C == 64 || C == 32);
 }
 
-// Shared-memory bytes of a block: the weights, then the tiles.
+// Shared-memory bytes of a block: the weights, then the tiles. The conv
+// and sigmoid passes stage their output tile in v's region.
+__host__ __device__ inline size_t conv_mma_bytes(int C, int CO, bool gate) {
+  const size_t LC = C + 8, LO = CO + 8, LH = kMmaHd + 8;
+  const size_t w = (3 * C + 3 * CO + (C != CO ? C : 0)) * LO + (gate ? CO * LH + kMmaHd * LO : 0);
+  return (w + kUPix * LC + (C != CO ? kTilePix * LC : 0) + kVPix * LO) * sizeof(bf16);
+}
 __host__ __device__ inline size_t stats_mma_bytes(int C, int CO) {
   const size_t LC = C + 8, LO = CO + 8, LH = kMmaHd + 8;
   const size_t w = (3 * C + 3 * CO + (C != CO ? C : 0)) * LO + CO * LH + kMmaHd * LO;
@@ -1035,6 +1052,177 @@ __device__ __forceinline__ void w_row_mma(const bf16* V, const bf16* X,
     }
 }
 
+// The gate logits l = h W2 + b2, h = (act(w W1 + pos_proj + b1))_cd, of
+// the warp's row i of the tile (16 pixels) on the tensor cores: w (in
+// w_row_mma's layout) handed on as A fragments, h as one A fragment; l,
+// f32, in w's layout. W1 [CO][Hd + 8] and W2 [Hd][CO + 8] are staged; pp
+// is pos_proj (H W, Hd) at the fine resolution.
+template <int CO>
+__device__ __forceinline__ void gate_logits_mma(const float (&w)[CO / 8][4], const bf16* W1,
+                                                const bf16* W2, const float* __restrict__ pp,
+                                                const float* __restrict__ b1,
+                                                const float* __restrict__ b2, const MmaTile& g,
+                                                int i, int act, float slope,
+                                                float (&l)[CO / 8][4]) {
+  constexpr int LO = CO + 8, LH = kMmaHd + 8, NT = CO / 8;
+  const int lane = threadIdx.x & 31, q = lane >> 2, col = 2 * (lane & 3);
+  uint32_t wa[CO / 16][4];
+  to_a_frags(wa, w);
+  float hc[2][4];
+  zero(hc);
+  mma_kn<CO / 16, 2>(hc, wa, W1, LH, 0);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float* ppl = pp + ((size_t)(g.r0 + i) * g.W + g.c0 + q + 8 * (e >> 1)) * kMmaHd;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int j = nt * 8 + col + (e & 1);
+      hc[nt][e] = round_cd<bf16>(activate(hc[nt][e] + ppl[j] + b1[j], act, slope));
+    }
+  }
+  const uint32_t ha[1][4] = {{pack_bf16(hc[0][0], hc[0][1]), pack_bf16(hc[0][2], hc[0][3]),
+                              pack_bf16(hc[1][0], hc[1][1]), pack_bf16(hc[1][2], hc[1][3])}};
+  zero(l);
+  mma_kn<1, NT>(l, ha, W2, LO, 0);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) l[nt][e] += b2[nt * 8 + col + (e & 1)];
+}
+
+// The block's output tile Y [kTilePix][CO + 8] (bf16, row-major pixels) to
+// out, one thread a 16-byte chunk of an output pixel, consecutive threads
+// on consecutive addresses: at the fine resolution, or under `down` pooled
+// 2 x 2 in f32 in store_tile's order, ((y00 + y01) + (y10 + y11)) * 0.25
+// with (y00, y01) the upper row, and rounded once.
+template <int CO>
+__device__ __forceinline__ void store_staged(const bf16* Y, const MmaTile& g, int down,
+                                             bf16* __restrict__ out) {
+  constexpr int LO = CO + 8, CH = CO / 8;
+  if (!down) {
+    for (int e = threadIdx.x; e < kTilePix * CH; e += blockDim.x) {
+      const int p = e / CH, ch = (e - p * CH) * 8;
+      *reinterpret_cast<uint4*>(out + g.fine(g.r0 + p / kMmaTW, g.c0 + p % kMmaTW) * CO + ch) =
+          *reinterpret_cast<const uint4*>(Y + p * LO + ch);
+    }
+    return;
+  }
+  constexpr int PW = kMmaTW / 2;  // pooled pixels a tile row
+  for (int e = threadIdx.x; e < (kTilePix / 4) * CH; e += blockDim.x) {
+    const int p = e / CH, ch = (e - p * CH) * 8;
+    const int pi = p / PW, pj = p - pi * PW;
+    const bf16* y = Y + ((2 * pi) * kMmaTW + 2 * pj) * LO + ch;
+    float y00[8], y01[8], y10[8], y11[8], s[8];
+    unpack8(*reinterpret_cast<const uint4*>(y), y00);
+    unpack8(*reinterpret_cast<const uint4*>(y + LO), y01);
+    unpack8(*reinterpret_cast<const uint4*>(y + kMmaTW * LO), y10);
+    unpack8(*reinterpret_cast<const uint4*>(y + (kMmaTW + 1) * LO), y11);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s[k] = ((y00[k] + y01[k]) + (y10[k] + y11[k])) * 0.25f;
+    const size_t o =
+        (((size_t)g.n * (g.H / 2) + g.r0 / 2 + pi) * (g.W / 2) + g.c0 / 2 + pj) * CO + ch;
+    *reinterpret_cast<uint4*>(out + o) = pack8(s);
+  }
+}
+
+// stage_conv_mma (kGate false) and stage_sigmoid_mma (kGate true): block k
+// takes tiles k, k + gridDim.x, ... Per tile: u and x in; v on 10 rows,
+// spread over the 8 warps; then each warp's row of w through w_row_mma,
+// as in the stats pass; under the gate its logits by gate_logits_mma and
+// y = (w min(2 sigmoid(l), gate_max))_cd; once every warp is done with v,
+// the rows go to a bf16 tile in v's region, which the block writes out
+// (store_staged). The next tile's make_u writes U and X only, and its v
+// comes after a barrier that every thread reaches only once its stores
+// are issued, so the staged tile needs no barrier of its own at the end.
+template <int C, int CO, bool kGate>
+__device__ __forceinline__ void conv_tiles_mma(
+    const bf16* __restrict__ x, const float* __restrict__ a, const float* __restrict__ b,
+    const bf16* __restrict__ wr, const bf16* __restrict__ wc, const float* __restrict__ bc,
+    const bf16* __restrict__ ws, const float* __restrict__ pp, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    bf16* __restrict__ out, int N, int H, int W, int act, float slope, float gate_max, int up,
+    int down) {
+  static_assert(mma_widths_ok(C, CO), "no mma template for these widths");
+  static_assert(kTilePix <= kVPix, "the output tile must fit in v's region");
+  constexpr int LC = C + 8, LO = CO + 8, LH = kMmaHd + 8, NT = CO / 8;
+  extern __shared__ float4 smem4[];
+  bf16* Wr = reinterpret_cast<bf16*>(smem4);     // [3][C][LO]
+  bf16* Wc = Wr + 3 * C * LO;                    // [3][CO][LO]
+  bf16* Ws = Wc + 3 * CO * LO;                   // [C][LO] (1x1 skip)
+  bf16* W1 = Ws + (C != CO ? C * LO : 0);        // [CO][LH] (gate)
+  bf16* W2 = W1 + (kGate ? CO * LH : 0);         // [Hd][LO] (gate)
+  bf16* U = W2 + (kGate ? kMmaHd * LO : 0);      // [kUPix][LC]
+  bf16* X = U + kUPix * LC;                      // [kTilePix][LC] (1x1 skip)
+  bf16* V = X + (C != CO ? kTilePix * LC : 0);   // [kVPix][LO]
+  bf16* Y = V;                                   // [kTilePix][LO]: the output tile
+
+  stage_rows(Wr, wr, 3 * C, CO, LO);
+  stage_rows(Wc, wc, 3 * CO, CO, LO);
+  if constexpr (C != CO) stage_rows(Ws, ws, C, CO, LO);
+  if constexpr (kGate) {
+    stage_rows(W1, w1, CO, kMmaHd, LH);
+    stage_rows(W2, w2, kMmaHd, CO, LO);
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  const int total = N * (H / kMmaTH) * (W / kMmaTW);
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    const MmaTile g(tile, H, W, up);
+    make_u<C, true>(nullptr, x, a, b, g, act, slope, U, C != CO ? X : nullptr);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    for (int i = warp; i < kMmaTH + 2; i += kMmaWarps) v_row_mma<C, CO>(U, Wr, g, i, V);
+    __syncthreads();
+
+    float w[NT][4];
+    w_row_mma<C, CO>(V, X, x, Wc, Ws, bc, g, warp, w);
+    if constexpr (kGate) {
+      float l[NT][4];
+      gate_logits_mma<CO>(w, W1, W2, pp, b1, b2, g, warp, act, slope, l);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          w[nt][e] = round_cd<bf16>(w[nt][e] * sigmoid_gate_of(l[nt][e], gate_max));
+    }
+    __syncthreads();  // every warp is done with V
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(Y + (warp * kMmaTW + q + 8 * h) * LO + nt * 8 + col) =
+            pack_bf16(w[nt][2 * h], w[nt][2 * h + 1]);
+    __syncthreads();
+    store_staged<CO>(Y, g, down, out);
+  }
+}
+
+// stage_conv on the tensor cores: out is fine, or pooled under `down`.
+template <int C, int CO>
+__global__ void __launch_bounds__(kMmaThreads, 2) stage_conv_mma(
+    const bf16* __restrict__ x, const float* __restrict__ a, const float* __restrict__ b,
+    const bf16* __restrict__ wr, const bf16* __restrict__ wc, const float* __restrict__ bc,
+    const bf16* __restrict__ ws, bf16* __restrict__ out, int N, int H, int W, int act,
+    float slope, int up, int down) {
+  conv_tiles_mma<C, CO, false>(x, a, b, wr, wc, bc, ws, nullptr, nullptr, nullptr, nullptr,
+                               nullptr, out, N, H, W, act, slope, 0.f, up, down);
+}
+
+// stage_sigmoid on the tensor cores (the gate per channel, Cout = CO).
+template <int C, int CO>
+__global__ void __launch_bounds__(kMmaThreads, 2) stage_sigmoid_mma(
+    const bf16* __restrict__ x, const float* __restrict__ a, const float* __restrict__ b,
+    const bf16* __restrict__ wr, const bf16* __restrict__ wc, const float* __restrict__ bc,
+    const bf16* __restrict__ ws, const float* __restrict__ pp, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    bf16* __restrict__ out, int N, int H, int W, int act, float slope, float gate_max, int up,
+    int down) {
+  conv_tiles_mma<C, CO, true>(x, a, b, wr, wc, bc, ws, pp, w1, b1, w2, b2, out, N, H, W, act,
+                              slope, gate_max, up, down);
+}
+
 // (m, s) <- the merge of two partial softmax statistics
 __device__ __forceinline__ void stats_merge(float& m, float& s, float m2, float s2) {
   const float mx = fmaxf(m, m2);
@@ -1099,31 +1287,14 @@ __global__ void __launch_bounds__(kMmaThreads, 2) stage_softmax_stats_mma(
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<uint32_t*>(w_pre + g.fine(g.r0 + i, g.c0 + q + 8 * h) * CO + nt * 8 +
                                      col) = pack_bf16(w[nt][2 * h], w[nt][2 * h + 1]);
-    uint32_t wa[CO / 16][4];
-    to_a_frags(wa, w);
-    float hc[2][4];
-    zero(hc);
-    mma_kn<CO / 16, 2>(hc, wa, W1, LH, 0);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float* ppl = pp + ((size_t)(g.r0 + i) * W + g.c0 + q + 8 * (e >> 1)) * kMmaHd;
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int j = nt * 8 + col + (e & 1);
-        hc[nt][e] = round_cd<bf16>(activate(hc[nt][e] + ppl[j] + b1[j], act, slope));
-      }
-    }
-    const uint32_t ha[1][4] = {{pack_bf16(hc[0][0], hc[0][1]), pack_bf16(hc[0][2], hc[0][3]),
-                                pack_bf16(hc[1][0], hc[1][1]), pack_bf16(hc[1][2], hc[1][3])}};
     float l[NT][4];
-    zero(l);
-    mma_kn<1, NT>(l, ha, W2, LO, 0);
+    gate_logits_mma<CO>(w, W1, W2, pp, b1, b2, g, i, act, slope, l);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int n = nt * 8 + col + e;
-        const float l0 = l[nt][e] + b2[n], l1 = l[nt][2 + e] + b2[n];
+        const float l0 = l[nt][e], l1 = l[nt][2 + e];
         float m = fmaxf(l0, l1);
 #pragma unroll
         for (int o = 4; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
@@ -1525,6 +1696,42 @@ cudaError_t persistent_grid(K kernel, size_t smem, int tiles, int* grid) {
 }
 
 template <int C, int CO>
+cudaError_t launch_conv_mma(const void* x, const void* a, const void* b, const void* wr,
+                            const void* wc, const void* bc, const void* ws, void* out, int N,
+                            int H, int W, int act, float slope, int up, int down,
+                            cudaStream_t stream) {
+  const size_t smem = conv_mma_bytes(C, CO, false);
+  cudaError_t err = allow_smem(stage_conv_mma<C, CO>, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid(stage_conv_mma<C, CO>, smem, N * (H / kMmaTH) * (W / kMmaTW), &grid);
+  if (err != cudaSuccess) return err;
+  stage_conv_mma<C, CO><<<grid, kMmaThreads, smem, stream>>>(
+      (const bf16*)x, (const float*)a, (const float*)b, (const bf16*)wr, (const bf16*)wc,
+      (const float*)bc, (const bf16*)ws, (bf16*)out, N, H, W, act, slope, up, down);
+  return cudaGetLastError();
+}
+
+template <int C, int CO>
+cudaError_t launch_sigmoid_mma(const void* x, const void* a, const void* b, const void* wr,
+                               const void* wc, const void* bc, const void* ws, const void* pp,
+                               const void* w1, const void* b1, const void* w2, const void* b2,
+                               void* out, int N, int H, int W, int act, float slope,
+                               float gate_max, int up, int down, cudaStream_t stream) {
+  const size_t smem = conv_mma_bytes(C, CO, true);
+  cudaError_t err = allow_smem(stage_sigmoid_mma<C, CO>, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid(stage_sigmoid_mma<C, CO>, smem, N * (H / kMmaTH) * (W / kMmaTW), &grid);
+  if (err != cudaSuccess) return err;
+  stage_sigmoid_mma<C, CO><<<grid, kMmaThreads, smem, stream>>>(
+      (const bf16*)x, (const float*)a, (const float*)b, (const bf16*)wr, (const bf16*)wc,
+      (const float*)bc, (const bf16*)ws, (const float*)pp, (const bf16*)w1, (const float*)b1,
+      (const bf16*)w2, (const float*)b2, (bf16*)out, N, H, W, act, slope, gate_max, up, down);
+  return cudaGetLastError();
+}
+
+template <int C, int CO>
 cudaError_t launch_stats_mma(const void* x, const void* a, const void* b, const void* wr,
                              const void* wc, const void* bc, const void* ws, const void* pp,
                              const void* w1, const void* b1, const void* w2, const void* b2,
@@ -1568,10 +1775,37 @@ cudaError_t launch_conv_bwd_mma(const void* x, const void* dw, const void* a, co
 }
 
 // Whether the mma route takes a call: bf16, a template's (C, Co), a 1x1
-// skip exactly where C != Co, the route's tile, and (stats) its gate widths.
+// skip exactly where C != Co, the route's tile, and (stats, sigmoid) its
+// gate widths.
 bool mma_call_ok(int is_bf16, int C, int Co, const void* ws, int TH, int TW, int Hd, int Cout) {
   return is_bf16 && mma_widths_ok(C, Co) && (ws != nullptr) == (C != Co) && TH == kMmaTH &&
          TW == kMmaTW && Hd == kMmaHd && Cout == Co;
+}
+
+// The blocks of `kernel` that fit on an SM with `smem` bytes of dynamic
+// shared memory, into *n.
+template <typename K>
+cudaError_t occupancy(K kernel, int threads, size_t smem, int* n) {
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(n, kernel, threads, smem);
+}
+template <int C>
+cudaError_t mma_occupancy(int kind, size_t smem, int* n) {
+  switch (kind) {
+    case kConv: return occupancy(stage_conv_mma<C, 64>, kMmaThreads, smem, n);
+    case kSigmoid: return occupancy(stage_sigmoid_mma<C, 64>, kMmaThreads, smem, n);
+    case kStats: return occupancy(stage_softmax_stats_mma<C, 64>, kMmaThreads, smem, n);
+    default: return occupancy(stage_conv_bwd_mma<C, 64>, kMmaThreads, smem, n);
+  }
+}
+cudaError_t simt_occupancy(int kind, size_t smem, int* n) {
+  switch (kind) {
+    case kConv: return occupancy(stage_conv<bf16>, kThreads, smem, n);
+    case kSigmoid: return occupancy(stage_sigmoid<bf16>, kThreads, smem, n);
+    case kStats: return occupancy(stage_softmax_stats<bf16>, kThreads, smem, n);
+    default: return occupancy(stage_conv_bwd<bf16>, kThreads, smem, n);
+  }
 }
 
 }  // namespace
@@ -1587,33 +1821,27 @@ size_t locate_stage_smem_bytes(int route, int kind, int C, int Co, int Hd, int C
                                int TW) {
   if (route == 0) return smem_floats(kind, C, Co, Hd, Cout, TH, TW) * sizeof(float);
   if (!mma_widths_ok(C, Co) || TH != kMmaTH || TW != kMmaTW) return 0;
-  if (kind == kStats) return Hd == kMmaHd && Cout == Co ? stats_mma_bytes(C, Co) : 0;
-  return kind == kBwd ? bwd_mma_bytes(C, Co) : 0;
+  const bool gate_ok = Hd == kMmaHd && Cout == Co;
+  switch (kind) {
+    case kConv: return conv_mma_bytes(C, Co, false);
+    case kSigmoid: return gate_ok ? conv_mma_bytes(C, Co, true) : 0;
+    case kStats: return gate_ok ? stats_mma_bytes(C, Co) : 0;
+    case kBwd: return bwd_mma_bytes(C, Co);
+    default: return 0;
+  }
 }
 
-// Blocks of the stats (kind 1) or backward (kind 3) bf16 kernel of `route`
-// that fit on an SM at the shared memory above; -1 where there is none.
+// Blocks of the bf16 kernel of `kind` (all but the apply-pool pass) on
+// `route` that fit on an SM at the shared memory above; -1 where there is
+// none.
 int locate_stage_blocks_per_sm(int route, int kind, int C, int Co, int Hd, int Cout, int TH,
                                int TW) {
   const size_t smem = locate_stage_smem_bytes(route, kind, C, Co, Hd, Cout, TH, TW);
-  if (smem == 0 || (kind != kStats && kind != kBwd)) return -1;
+  if (smem == 0 || kind == kApplyPool || kind < kConv || kind > kSigmoid) return -1;
   int n = -1;
-  cudaError_t err = cudaErrorInvalidValue;
-  auto query = [&](auto kernel, int threads) {
-    err = allow_smem(kernel, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
-  };
-  if (route == 0) {
-    if (kind == kStats) query(stage_softmax_stats<__nv_bfloat16>, kThreads);
-    else query(stage_conv_bwd<__nv_bfloat16>, kThreads);
-  } else if (C == 64) {
-    if (kind == kStats) query(stage_softmax_stats_mma<64, 64>, kMmaThreads);
-    else query(stage_conv_bwd_mma<64, 64>, kMmaThreads);
-  } else {
-    if (kind == kStats) query(stage_softmax_stats_mma<32, 64>, kMmaThreads);
-    else query(stage_conv_bwd_mma<32, 64>, kMmaThreads);
-  }
+  const cudaError_t err = route == 0 ? simt_occupancy(kind, smem, &n)
+                          : C == 64  ? mma_occupancy<64>(kind, smem, &n)
+                                     : mma_occupancy<32>(kind, smem, &n);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return -1;
@@ -1621,11 +1849,22 @@ int locate_stage_blocks_per_sm(int route, int kind, int C, int Co, int Hd, int C
   return n;
 }
 
-int locate_stage_conv(int is_bf16, const void* x, const void* a, const void* b, const void* wr,
-                      const void* wc, const void* bc, const void* ws, void* out, int N, int H,
-                      int W, int C, int Co, int TH, int TW, int act, float slope, int up,
-                      int down, void* stream) {
+// route 1 (mma) takes bf16 at a template's widths and tile only, as in
+// locate_stage_softmax_stats.
+int locate_stage_conv(int route, int is_bf16, const void* x, const void* a, const void* b,
+                      const void* wr, const void* wc, const void* bc, const void* ws, void* out,
+                      int N, int H, int W, int C, int Co, int TH, int TW, int act, float slope,
+                      int up, int down, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!mma_call_ok(is_bf16, C, Co, ws, TH, TW, kMmaHd, Co)) return (int)cudaErrorInvalidValue;
+    if (C == 64)
+      return (int)launch_conv_mma<64, 64>(x, a, b, wr, wc, bc, ws, out, N, H, W, act, slope, up,
+                                          down, s);
+    return (int)launch_conv_mma<32, 64>(x, a, b, wr, wc, bc, ws, out, N, H, W, act, slope, up,
+                                        down, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_conv<__nv_bfloat16>(x, a, b, wr, wc, bc, ws, out, N, H, W, C, Co, TH, TW,
                                            act, slope, up, down, s);
@@ -1634,13 +1873,23 @@ int locate_stage_conv(int is_bf16, const void* x, const void* a, const void* b, 
 }
 
 // out: (N, H, W, Co), or (N, H/2, W/2, Co) under `down`.
-int locate_stage_sigmoid(int is_bf16, const void* x, const void* a, const void* b,
+// route 1 (mma) takes bf16 at a template's widths, tile and gate widths only.
+int locate_stage_sigmoid(int route, int is_bf16, const void* x, const void* a, const void* b,
                          const void* wr, const void* wc, const void* bc, const void* ws,
                          const void* pp, const void* w1, const void* b1, const void* w2,
                          const void* b2, void* out, int N, int H, int W, int C, int Co, int Hd,
                          int Cout, int TH, int TW, int act, float slope, float gate_max, int up,
                          int down, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!mma_call_ok(is_bf16, C, Co, ws, TH, TW, Hd, Cout)) return (int)cudaErrorInvalidValue;
+    if (C == 64)
+      return (int)launch_sigmoid_mma<64, 64>(x, a, b, wr, wc, bc, ws, pp, w1, b1, w2, b2, out, N,
+                                             H, W, act, slope, gate_max, up, down, s);
+    return (int)launch_sigmoid_mma<32, 64>(x, a, b, wr, wc, bc, ws, pp, w1, b1, w2, b2, out, N,
+                                           H, W, act, slope, gate_max, up, down, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_sigmoid<__nv_bfloat16>(x, a, b, wr, wc, bc, ws, pp, w1, b1, w2, b2, out,
                                               N, H, W, C, Co, Hd, Cout, TH, TW, act, slope,

@@ -25,13 +25,14 @@ to the other, and each counts its launches in `launches`:
     stage_softmax_apply_pool   replaces `_kernel_softmax_apply_pool`
     stage_conv_bwd             replaces `_kernel_conv_bwd`
 
-`stage_softmax_stats` and `stage_conv_bwd` have two routes each, which
+Every wrapper but the apply-pool pass's has two routes, which
 `stage_route` picks from the dtype and the widths: "mma" (bf16 at the
-(C, Co) of `STAGE_MMA_WIDTHS`, on the tensor cores: `stage_softmax_stats_mma`
-and `stage_conv_bwd_mma`) and "simt" (f32 FMAs on the CUDA cores: f32, and
-every other width). Each route's launches are counted apart too
-(`launches_mma`, `launches_simt`); `route="simt"` sends a bf16 call to the
-simt kernel, to compare the two on one card.
+(C, Co) of `STAGE_MMA_WIDTHS`, on the tensor cores: `stage_conv_mma`,
+`stage_sigmoid_mma`, `stage_softmax_stats_mma` and `stage_conv_bwd_mma`)
+and "simt" (f32 FMAs on the CUDA cores: f32, and every other width). Each
+route's launches are counted apart too (`launches_mma`, `launches_simt`);
+`route="simt"` sends a bf16 call to the simt kernel, to compare the two on
+one card.
 
 Each plain version repeats its kernel's own rounding order, which in bf16
 differs from `stage_oracle`'s (the exact layer composition, where the
@@ -326,9 +327,9 @@ def _library() -> ctypes.CDLL:
         lib.locate_stage_smem_bytes.restype = ctypes.c_size_t
         lib.locate_stage_blocks_per_sm.argtypes = [i] * 8
         lib.locate_stage_blocks_per_sm.restype = i
-        lib.locate_stage_conv.argtypes = [i] + [p] * 8 + [i] * 8 + [f, i, i, p]
+        lib.locate_stage_conv.argtypes = [i, i] + [p] * 8 + [i] * 8 + [f, i, i, p]
         lib.locate_stage_conv.restype = i
-        lib.locate_stage_sigmoid.argtypes = [i] + [p] * 13 + [i] * 10 + [f, f, i, i, p]
+        lib.locate_stage_sigmoid.argtypes = [i, i] + [p] * 13 + [i] * 10 + [f, f, i, i, p]
         lib.locate_stage_sigmoid.restype = i
         lib.locate_stage_softmax_stats.argtypes = [i, i] + [p] * 17 + [i] * 10 + [f, i, p]
         lib.locate_stage_softmax_stats.restype = i
@@ -361,12 +362,13 @@ def _on_card(t: torch.Tensor) -> bool:
 def stage_route(dtype: torch.dtype, c: int, co: int, *, skip: Optional[bool] = None,
                 h: Optional[int] = None, w: Optional[int] = None, hd: Optional[int] = None,
                 cout: Optional[int] = None) -> str:
-    """The kernel of `stage_softmax_stats` and `stage_conv_bwd`: "mma" for
-    bf16 at the (C, Co) of a template (`STAGE_MMA_WIDTHS`), "simt"
-    otherwise (f32 keeps its f32 products, since TF32 would miss the f32
-    rule of 1e-4). What a call also names must fit the template: a 1x1
-    skip (`skip`) exactly where C != Co, fine dims (h, w) that the 8 x 16
-    tile divides, the gate's Hd 16 and Cout = Co."""
+    """The kernel of the four routed wrappers: "mma" for bf16 at the
+    (C, Co) of a template (`STAGE_MMA_WIDTHS`), "simt" otherwise (f32
+    keeps its f32 products, since TF32 would miss the f32 rule of 1e-4).
+    What a call also names must fit the template: a 1x1 skip (`skip`)
+    exactly where C != Co, fine dims (h, w) that the 8 x 16 tile divides
+    (a `downsample` output's too: the tile pools to 4 x 8), the gate's
+    (`hd`, `cout`) Hd 16 and Cout = Co (a gate per channel)."""
     if dtype != torch.bfloat16 or (c, co) not in STAGE_MMA_WIDTHS:
         return SIMT
     if skip is not None and skip != (c != co):
@@ -428,12 +430,20 @@ def pick_tile(kind: int, h: int, w: int, c: int, co: int, hd: int = 0, cout: int
     return fits[0]
 
 
-def _fine_dims(x: torch.Tensor, upsample: bool) -> Tuple[int, int, int]:
-    """(H, W, C) of an NHWC x, (H, W) the fine dims (doubled under upsample)."""
+def _call_route(route: Optional[str], x: torch.Tensor, wr: torch.Tensor,
+                ws: Optional[torch.Tensor], upsample: bool, w1x: Optional[torch.Tensor] = None,
+                w2: Optional[torch.Tensor] = None) -> str:
+    """The route of a call on x (NHWC, coarse under `upsample`) with these
+    conv weights and, for the gated passes, gate weights: `route`, or
+    `stage_route`'s choice where it is None (see `_route_of`); the fine
+    dims (H, W) are x's, doubled under upsample."""
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
     _, h, w, c = x.shape
-    return (2 * h, 2 * w, c) if upsample else (h, w, c)
+    if upsample:
+        h, w = 2 * h, 2 * w
+    gate = {} if w1x is None else dict(hd=w1x.shape[1], cout=w2.shape[1])
+    return _route_of(route, x.dtype, c, wr.shape[-1], skip=ws is not None, h=h, w=w, **gate)
 
 
 def _conv_operands(x, a, b, wr, wc, bc, ws, upsample):
@@ -487,12 +497,14 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stage_conv(x, a, b, wr, wc, bc, ws, *, act, leaky_slope, upsample=False,
-               downsample=False):
+               downsample=False, route=None):
     """The conv block's output w (N, H, W, Co), (N, H/2, W/2, Co) under
-    `downsample`, in x's dtype. CUDA tensors: the `stage_conv` kernel
-    (replaces `_kernel_conv_only`); CPU tensors: the plain version."""
+    `downsample`, in x's dtype. CUDA tensors: the `stage_conv` kernel (on
+    the mma route `stage_conv_mma`, see `stage_route`; replaces
+    `_kernel_conv_only`); CPU tensors: the plain version on any route."""
     if upsample and downsample:
         raise ValueError("upsample and downsample are mutually exclusive")
+    route = _call_route(route, x, wr, ws, upsample)
     if not _on_card(x):
         return stage_conv_reference(x, a, b, wr, wc, bc, ws, act=act, leaky_slope=leaky_slope,
                                     upsample=upsample, downsample=downsample)
@@ -500,31 +512,34 @@ def stage_conv(x, a, b, wr, wc, bc, ws, *, act, leaky_slope, upsample=False,
         raise ValueError(f"unsupported activation for the fused stage: {act!r}")
     ops, (n, h, w, c, co) = _conv_operands(x, a, b, wr, wc, bc, ws, upsample)
     lib = _library()
-    th, tw = pick_tile(_CONV, h, w, c, co, lib=lib)
+    th, tw = pick_tile(_CONV, h, w, c, co, lib=lib, route=route)
     oh, ow = (h // 2, w // 2) if downsample else (h, w)
     with torch.cuda.device(x.device):
         out = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.locate_stage_conv(
-            int(x.dtype == torch.bfloat16), *(_ptr(o) for o in ops), out.data_ptr(),
-            n, h, w, c, co, th, tw, fa.ACT_CODES[act], float(leaky_slope), int(upsample),
-            int(downsample), stream)
-    _check(lib, err, "stage conv")
-    stage_conv.launches += 1
+            _ROUTE_CODE[route], int(x.dtype == torch.bfloat16), *(_ptr(o) for o in ops),
+            out.data_ptr(), n, h, w, c, co, th, tw, fa.ACT_CODES[act], float(leaky_slope),
+            int(upsample), int(downsample), stream)
+    _check(lib, err, f"stage conv ({route})")
+    _count(stage_conv, route)
     return out
 
 
 stage_conv.launches = 0
+stage_conv.launches_mma = stage_conv.launches_simt = 0
 
 
 def stage_sigmoid(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, leaky_slope,
-                  gate_max, upsample=False, downsample=False):
+                  gate_max, upsample=False, downsample=False, route=None):
     """The conv block's output with the sigmoid gate applied, (N, H, W, Co),
     (N, H/2, W/2, Co) under `downsample`, in x's dtype; pp is at the fine
-    resolution. CUDA tensors: the one-pass `stage_sigmoid` kernel (replaces
-    `_kernel_sigmoid`); CPU tensors: the plain version."""
+    resolution. CUDA tensors: the one-pass `stage_sigmoid` kernel (on the
+    mma route `stage_sigmoid_mma`, see `stage_route`; replaces
+    `_kernel_sigmoid`); CPU tensors: the plain version on any route."""
     if upsample and downsample:
         raise ValueError("upsample and downsample are mutually exclusive")
+    route = _call_route(route, x, wr, ws, upsample, w1x, w2)
     if not _on_card(x):
         return stage_sigmoid_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act=act,
                                        leaky_slope=leaky_slope, gate_max=gate_max,
@@ -534,21 +549,23 @@ def stage_sigmoid(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, leaky_sl
     ops, (n, h, w, c, co) = _conv_operands(x, a, b, wr, wc, bc, ws, upsample)
     gate, (hd, cout) = _gate_operands(x, pp, w1x, b1, w2, b2, co, h * w)
     lib = _library()
-    th, tw = pick_tile(_SIGMOID, h, w, c, co, hd, cout, lib=lib)
+    th, tw = pick_tile(_SIGMOID, h, w, c, co, hd, cout, lib=lib, route=route)
     oh, ow = (h // 2, w // 2) if downsample else (h, w)
     with torch.cuda.device(x.device):
         out = torch.empty((n, oh, ow, co), dtype=x.dtype, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.locate_stage_sigmoid(
-            int(x.dtype == torch.bfloat16), *(_ptr(o) for o in ops + gate), out.data_ptr(),
-            n, h, w, c, co, hd, cout, th, tw, fa.ACT_CODES[act], float(leaky_slope),
-            float(gate_max), int(upsample), int(downsample), stream)
-    _check(lib, err, "stage sigmoid")
-    stage_sigmoid.launches += 1
+            _ROUTE_CODE[route], int(x.dtype == torch.bfloat16),
+            *(_ptr(o) for o in ops + gate), out.data_ptr(), n, h, w, c, co, hd, cout, th, tw,
+            fa.ACT_CODES[act], float(leaky_slope), float(gate_max), int(upsample),
+            int(downsample), stream)
+    _check(lib, err, f"stage sigmoid ({route})")
+    _count(stage_sigmoid, route)
     return out
 
 
 stage_sigmoid.launches = 0
+stage_sigmoid.launches_mma = stage_sigmoid.launches_simt = 0
 
 
 def _gate_operands(x, pp, w1x, b1, w2, b2, co, hw):
@@ -578,9 +595,7 @@ def stage_softmax_stats(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, le
     per-tile statistics, `softmax_stats_merge` (replaces
     `_kernel_softmax_stats`); CPU tensors: the plain version on any
     route."""
-    h, w, c = _fine_dims(x, upsample)
-    route = _route_of(route, x.dtype, c, wr.shape[-1], skip=ws is not None, h=h, w=w,
-                      hd=w1x.shape[1], cout=w2.shape[1])
+    route = _call_route(route, x, wr, ws, upsample, w1x, w2)
     if not _on_card(x):
         return stage_softmax_stats_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2,
                                              act=act, leaky_slope=leaky_slope,
@@ -670,8 +685,7 @@ def stage_conv_bwd(x, dw, a, b, wr, wc, ws, *, act, leaky_slope, upsample=False,
     fixed-order sum of its per-block weight-gradient partials, bitwise
     repeatable (replaces `_kernel_conv_bwd`); CPU tensors: the plain
     version on any route."""
-    h, w, c = _fine_dims(x, upsample)
-    route = _route_of(route, x.dtype, c, wr.shape[-1], skip=ws is not None, h=h, w=w)
+    route = _call_route(route, x, wr, ws, upsample)
     if not _on_card(x):
         return stage_conv_bwd_reference(x, dw, a, b, wr, wc, ws, act=act,
                                         leaky_slope=leaky_slope, upsample=upsample)

@@ -493,6 +493,126 @@ def test_stage_conv_bwd_mma_route(cuda, c, co, up):
         hold(name + " (simt)", sm, p, t, sc)
 
 
+# the mma route of the two forward passes (stage_conv_mma,
+# stage_sigmoid_mma): (C, Co, upsample, downsample) of each template's forms
+MMA_FORWARD_FORMS = [(64, 64, False, False), (64, 64, True, False), (64, 64, False, True),
+                     (32, 64, False, False), (32, 64, True, False), (32, 64, False, True)]
+
+
+def stage_forward(kind, ops, gate, up, dn, plain=False, route=None):
+    """stage_conv or stage_sigmoid (gate_max 1.5), or its plain version."""
+    kw = dict(upsample=up, downsample=dn, **STAGE_KW)
+    if not plain:
+        kw["route"] = route
+    with torch.no_grad():
+        if kind == "conv":
+            out = (fs.stage_conv_reference if plain else fs.stage_conv)(*ops, **kw)
+        else:
+            fn = fs.stage_sigmoid_reference if plain else fs.stage_sigmoid
+            out = fn(*ops, *gate, gate_max=1.5, **kw)
+        torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["conv", "sigmoid"])
+@pytest.mark.parametrize("c,co,up,dn", MMA_FORWARD_FORMS)
+def test_stage_forward_mma_route(cuda, kind, c, co, up, dn):
+    """stage_conv and stage_sigmoid in bf16 on the mma route (the route's
+    own choice) and on the simt route on the same inputs, each under the
+    bf16 rule against the f32 plain version; the mma route twice, bitwise
+    equal; one mma launch a call. Batch 3 at 128^2 fine gives 384 tiles:
+    more than the persistent blocks, so a block takes several, and some
+    one more than others."""
+    n, h = 3, 128
+    hin = h // 2 if up else h
+    ops = stage_inputs(n, hin, c, co, torch.bfloat16, cuda, seed=16)
+    gate = stage_gate(h * h, co, torch.bfloat16, cuda, seed=17)
+    gate[3] = gate[3] / 3.0  # logits over a few units: gate_max 1.5 clamps a part
+    fn = fs.stage_conv if kind == "conv" else fs.stage_sigmoid
+    before = route_counts(fn)
+    kern = stage_forward(kind, ops, gate, up, dn)
+    again = stage_forward(kind, ops, gate, up, dn)
+    simt = stage_forward(kind, ops, gate, up, dn, route="simt")
+    after = route_counts(fn)
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 1)
+    side = h // 2 if dn else h
+    assert kern.shape == (n, side, side, co) and kern.dtype == torch.bfloat16
+    assert torch.equal(kern, again)
+    plain = stage_forward(kind, ops, gate, up, dn, plain=True)
+    truth = stage_forward(kind, as_f32(ops), as_f32(gate), up, dn, plain=True)
+    hold(kind, kern, plain, truth)
+    hold(kind + " (simt)", simt, plain, truth)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["softmax", "sigmoid"])
+@pytest.mark.parametrize("up,dn", [(True, False), (False, True)])
+def test_fused_stage_routes_on_the_card(cuda, mode, up, dn):
+    """One bf16 `fused_stage` forward plus backward at (C, Co) = (64, 64):
+    the gated pass (stage_softmax_stats or stage_sigmoid), the backward's
+    recompute of w (stage_conv) and the conv backward each launch once,
+    all on the mma route; the outputs and gradients are finite."""
+    n, c, h = 2, 64, 32
+    ops = stage_inputs(n, h // 2 if up else h, c, c, torch.bfloat16, cuda, seed=18)
+    gate = stage_gate(h * h, c, torch.float32, cuda, seed=19)
+    g = torch.Generator(device="cpu").manual_seed(20)
+    leaves = dict(x=ops[0], gn_scale=1 + torch.randn(c, generator=g).to(cuda) * 0.1,
+                  gn_bias=torch.randn(c, generator=g).to(cuda) * 0.1,
+                  w_row=ops[3].float().permute(2, 1, 0)[:, :, None, :].contiguous(),
+                  w_col=ops[4].float().permute(2, 1, 0)[:, :, :, None].contiguous(),
+                  b_col=ops[5])
+    inputs = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+    routed = (fs.stage_conv, fs.stage_sigmoid, fs.stage_softmax_stats, fs.stage_conv_bwd)
+    before = [route_counts(f) for f in routed]
+    y = fs.fused_stage(*inputs.values(), None, groups=4, mode=mode, pos_proj=gate[0],
+                       w1x=gate[1], b1=gate[2], w2=gate[3], b2=gate[4], gate_max=1.5,
+                       upsample=up, downsample=dn, **STAGE_KW)
+    dy = torch.randn(y.shape, generator=g).to(device=cuda, dtype=y.dtype)
+    grads = torch.autograd.grad(y, list(inputs.values()), dy)
+    moved = [(a[0] - b[0], a[1] - b[1]) for a, b in zip((route_counts(f) for f in routed),
+                                                          before)]
+    gated = (1, 0)
+    assert moved == [(1, 0), gated if mode == "sigmoid" else (0, 0),
+                     gated if mode == "softmax" else (0, 0), (1, 0)], moved
+    assert torch.isfinite(y.float()).all()
+    for name, gr in zip(inputs, grads):
+        assert torch.isfinite(gr.float()).all(), name
+
+
+@pytest.mark.gpu
+def test_stage_forward_mma_launch_refuses_an_unfit_call(cuda):
+    """The C interface's mma route refuses, before any launch, f32, widths
+    no template takes, a missing 1x1 skip where C != Co and (sigmoid) a
+    gate with Cout 1; its two forward kernels fit two blocks an SM at each
+    template."""
+    lib = fs._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    buf = torch.zeros(1 << 20, device=cuda)
+    p = buf.data_ptr()
+
+    def conv(is_bf16, c, co, ws):
+        return lib.locate_stage_conv(1, is_bf16, p, p, p, p, p, p, ws, p, 2, 16, 16, c, co, 8,
+                                     16, 0, 0.2, 0, 0, stream)
+
+    def sigmoid(c, co, hd, cout):
+        return lib.locate_stage_sigmoid(1, 1, p, p, p, p, p, p, None, p, p, p, p, p, p, 2, 16,
+                                        16, c, co, hd, cout, 8, 16, 0, 0.2, 1.5, 0, 0, stream)
+
+    assert conv(0, 64, 64, None) != 0        # f32
+    assert conv(1, 48, 64, p) != 0           # no template
+    assert conv(1, 32, 64, None) != 0        # C != Co without its skip
+    assert conv(1, 64, 64, p) != 0           # a skip where C == Co
+    assert sigmoid(64, 64, 16, 1) != 0       # a gate shared by the channels
+    assert sigmoid(64, 64, 8, 64) != 0       # Hd 8
+    assert lib.locate_stage_conv(2, 1, p, p, p, p, p, p, None, p, 2, 16, 16, 64, 64, 8, 16, 0,
+                                 0.2, 0, 0, stream) != 0  # no such route
+    torch.cuda.synchronize()
+    for c, co in fs.STAGE_MMA_WIDTHS:
+        for kind, hd, cout in ((fs._CONV, 0, 0), (fs._SIGMOID, 16, co)):
+            assert lib.locate_stage_blocks_per_sm(1, kind, c, co, hd, cout, 8, 16) >= 2
+
+
 @pytest.mark.gpu
 def test_stage_routes_refuse_and_f32_keeps_simt(cuda):
     """f32 takes the simt kernels; an explicit mma route that the call
@@ -509,7 +629,9 @@ def test_stage_routes_refuse_and_f32_keeps_simt(cuda):
     lib = fs._library()
     assert lib.locate_stage_smem_bytes(1, fs._BWD, 48, 64, 0, 0, 8, 16) == 0
     assert lib.locate_stage_smem_bytes(1, fs._STATS, 64, 64, 32, 64, 8, 16) == 0
-    assert lib.locate_stage_smem_bytes(1, fs._CONV, 64, 64, 0, 0, 8, 16) == 0
+    assert lib.locate_stage_smem_bytes(1, fs._CONV, 48, 64, 0, 0, 8, 16) == 0
+    assert lib.locate_stage_smem_bytes(1, fs._SIGMOID, 64, 64, 16, 1, 8, 16) == 0
+    assert lib.locate_stage_smem_bytes(1, fs._APPLY_POOL, 64, 64, 16, 64, 8, 16) == 0
     assert lib.locate_stage_blocks_per_sm(1, fs._BWD, 64, 64, 0, 0, 8, 16) >= 1
     assert lib.locate_stage_blocks_per_sm(1, fs._STATS, 32, 64, 16, 64, 8, 16) >= 1
     # f32 x on the mma route: refused by the library itself (cudaErrorInvalidValue)

@@ -1,11 +1,11 @@
-"""The routes of `stage_softmax_stats` and `stage_conv_bwd`, on the CPU:
-which kernels `stage_route` picks (mma: bf16 on the tensor cores at the
-(C, Co) of a template; simt: f32 and every other width), what the
-wrappers refuse, how a route counts its launches and asks the library for
-its tile, and what chip_smoke.py reads of the two mma kernels (their names
-in ptxas and SASS listings, the route counters of an ffhq_512 step, the
-kernels line). The kernels themselves run on the card only
-(tests/test_torch_kernels_gpu.py)."""
+"""The routes of `stage_conv`, `stage_sigmoid`, `stage_softmax_stats` and
+`stage_conv_bwd`, on the CPU: which kernels `stage_route` picks (mma: bf16
+on the tensor cores at the (C, Co) of a template; simt: f32 and every
+other width), what the wrappers refuse, how a route counts its launches
+and asks the library for its tile, and what chip_smoke.py reads of the
+four mma kernels (their names in ptxas and SASS listings, the route
+counters of an ffhq_512 step, the kernels line). The kernels themselves
+run on the card only (tests/test_torch_kernels_gpu.py)."""
 
 import importlib.util
 import os
@@ -137,6 +137,101 @@ def test_wrappers_refuse_a_route_the_call_cannot_take():
         fs.stage_conv_bwd(ops[0], dw, *ops[1:5], ops[6], route="tensor", **KW)
 
 
+# (C, Co, upsample, downsample): the forms of the two forward passes the
+# mma route takes, on a 16^2 fine image (the 8 x 16 tile divides it)
+FORWARD_FORMS = [(64, 64, False, False), (64, 64, True, False), (64, 64, False, True),
+                 (32, 64, False, False), (32, 64, False, True)]
+
+
+def _forward_call(dtype, c, co, up, hin=None, hd=16, cout=None, skip=None):
+    """The conv and gate operands of a forward call at fine 16^2 (x coarse
+    8^2 under `up`): (ops, gate) with Hd `hd` and Cout `cout` (Co if None);
+    `skip` overrides whether a 1x1 skip is passed."""
+    hin = hin or (8 if up else 16)
+    ops, gate = _stage(dtype, hin=hin, c=c, co=co, up=up)
+    if skip is not None:
+        rng = torch.Generator().manual_seed(2)
+        ops[6] = (torch.randn(c, co, generator=rng) * c ** -0.5).to(dtype) if skip else None
+    cout = co if cout is None else cout
+    gen = torch.Generator().manual_seed(3)
+    h = 2 * hin if up else hin
+    gate = [torch.randn(h * h, hd, generator=gen) * 0.5,
+            (torch.randn(co, hd, generator=gen) * co ** -0.5).to(dtype), torch.zeros(hd),
+            (torch.randn(hd, cout, generator=gen) * 0.75).to(dtype), torch.zeros(cout)]
+    return ops, gate
+
+
+@pytest.mark.parametrize("c,co,up,dn", FORWARD_FORMS)
+def test_conv_and_sigmoid_calls_take_the_mma_route(c, co, up, dn):
+    """bf16 conv and sigmoid calls at (64, 64) and (32, 64) with its 1x1
+    skip go to the mma route in every form; a `down` call is routed by the
+    fine dims the tile divides (its output is 8 x 8 here)."""
+    ops, gate = _forward_call(torch.bfloat16, c, co, up)
+    x, wr, ws = ops[0], ops[3], ops[6]
+    assert fs._call_route(None, x, wr, ws, up) == fs.MMA                      # stage_conv
+    assert fs._call_route(None, x, wr, ws, up, gate[1], gate[3]) == fs.MMA    # stage_sigmoid
+    out = fs.stage_conv(*ops, upsample=up, downsample=dn, route=fs.MMA, **KW)
+    assert out.shape == (2, 8, 8, co) if dn else out.shape == (2, 16, 16, co)
+
+
+UNFIT = {  # what a forward call names, and why the mma route does not take it
+    "f32": dict(dtype=torch.float32),
+    "gate_cout_1": dict(cout=1),              # a gate shared by the channels
+    "gate_hd_8": dict(hd=8),
+    "gate_hd_32": dict(hd=32),
+    "tile_does_not_divide": dict(hin=12),     # 12 rows: the 8 x 16 tile does not fit
+    "skip_where_c_equals_co": dict(skip=True),
+    "widths_32_32": dict(c=32, co=32),
+}
+
+
+@pytest.mark.parametrize("why", sorted(UNFIT))
+def test_unfit_conv_and_sigmoid_calls_take_the_simt_route(why):
+    """f32, a gate with Cout 1 or Hd != 16, an image the tile does not
+    divide, a 1x1 skip where C == Co and widths no template takes go to
+    the simt route (the conv pass, which has no gate, goes to mma where only
+    the gate's widths are off); an explicit mma route raises for them, on
+    the CPU too."""
+    kw = dict(dtype=torch.bfloat16, c=64, co=64)
+    kw.update(UNFIT[why])
+    dtype, c, co = kw.pop("dtype"), kw.pop("c"), kw.pop("co")
+    ops, gate = _forward_call(dtype, c, co, False, **kw)
+    x, wr, ws = ops[0], ops[3], ops[6]
+    gate_only = why.startswith("gate_")
+    assert fs._call_route(None, x, wr, ws, False, gate[1], gate[3]) == fs.SIMT
+    assert fs._call_route(None, x, wr, ws, False) == (fs.MMA if gate_only else fs.SIMT)
+    with pytest.raises(ValueError, match="mma route"):
+        fs.stage_sigmoid(*ops, *gate, gate_max=1.5, route=fs.MMA, **KW)
+    if not gate_only:
+        with pytest.raises(ValueError, match="mma route"):
+            fs.stage_conv(*ops, route=fs.MMA, **KW)
+
+
+@pytest.mark.parametrize("route", [None, "mma", "simt"])
+@pytest.mark.parametrize("c,co,up,dn", [(64, 64, True, False), (32, 64, False, True)])
+def test_cpu_conv_and_sigmoid_run_the_plain_version_on_any_route(route, c, co, up, dn):
+    """On CPU tensors `stage_conv` and `stage_sigmoid` return their plain
+    versions bitwise on any route and count no launch on either."""
+    ops, gate = _forward_call(torch.bfloat16, c, co, up)
+    counts = [_counts(f) for f in (fs.stage_conv, fs.stage_sigmoid)]
+    kw = dict(upsample=up, downsample=dn, **KW)
+    assert torch.equal(fs.stage_conv(*ops, route=route, **kw),
+                       fs.stage_conv_reference(*ops, **kw))
+    assert torch.equal(fs.stage_sigmoid(*ops, *gate, gate_max=1.5, route=route, **kw),
+                       fs.stage_sigmoid_reference(*ops, *gate, gate_max=1.5, **kw))
+    assert counts == [_counts(f) for f in (fs.stage_conv, fs.stage_sigmoid)]
+    for fn in (fs.stage_conv, fs.stage_sigmoid):
+        assert fn.launches == fn.launches_mma + fn.launches_simt
+
+
+def test_unknown_route_of_the_forward_passes_raises():
+    ops, gate = _forward_call(torch.bfloat16, 64, 64, False)
+    with pytest.raises(ValueError, match="route must be"):
+        fs.stage_conv(*ops, route="wgmma", **KW)
+    with pytest.raises(ValueError, match="route must be"):
+        fs.stage_sigmoid(*ops, *gate, gate_max=1.5, route="tensor", **KW)
+
+
 def test_wrappers_refuse_other_devices():
     m = torch.zeros(2, 16, 16, 64, device="meta")
     w = torch.zeros(3, 64, 64, device="meta")
@@ -224,19 +319,28 @@ ptxas info    : Used 187 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b19stage_softmax_statsIfEEvPKT_PKfS5_S3_S3_S5_S3_S5_S3_S5_S3_S5_PS1_PfS7_iiiiiiiiifi' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 120 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b14stage_conv_mmaILi64ELi64EEEvPK13__nv_bfloat16PKfS5_S3_S3_S5_S3_PS1_iiiifii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 110 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b17stage_sigmoid_mmaILi32ELi64EEEvPK13__nv_bfloat16PKfS5_S3_S3_S5_S3_S5_S3_S5_S3_S5_PS1_iiiiffii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 126 registers, used 1 barriers
 """
 
 
 def test_ptxas_names_the_stage_mma_kernels(smoke):
     """The stage's mma kernels are templates on (C, Co): each instance keeps
     a name of its own, apart from the simt kernel whose name it contains."""
-    assert smoke.STAGE_MMA_KERNELS == ("stage_softmax_stats_mma", "stage_conv_bwd_mma")
+    assert smoke.STAGE_MMA_KERNELS == ("stage_softmax_stats_mma", "stage_conv_bwd_mma",
+                                       "stage_conv_mma", "stage_sigmoid_mma")
     for k in smoke.STAGE_MMA_KERNELS:
         simt = k[:-len("_mma")]
         assert smoke.ALL_CUDA_KERNELS.index(k) < smoke.ALL_CUDA_KERNELS.index(simt)
     kernels = smoke.parse_ptxas(STAGE_PTXAS_LOG)
     assert set(kernels) == {"stage_softmax_stats_mma<64,64>", "stage_conv_bwd_mma<32,64>",
-                            "stage_conv_bwd<bf16>", "stage_softmax_stats<f32>"}
+                            "stage_conv_bwd<bf16>", "stage_softmax_stats<f32>",
+                            "stage_conv_mma<64,64>", "stage_sigmoid_mma<32,64>"}
+    assert kernels["stage_sigmoid_mma<32,64>"]["registers"] == 126
     assert kernels["stage_conv_bwd_mma<32,64>"]["registers"] == 203
     assert kernels["stage_softmax_stats_mma<64,64>"]["spill_stores"] == 0
 
@@ -260,36 +364,53 @@ def test_sass_counts_the_stage_mma_kernels(smoke, tmp_path, monkeypatch):
 
 
 def test_ffhq_512_step_route_expectation(smoke):
-    """An ffhq_512 step (softmax gate) launches 9 stats passes and 4
-    backward passes, all on the mma route; with the sigmoid gate 4 backward
-    passes and no stats pass; the f32 step at 64^2 takes the simt route."""
+    """An ffhq_512 step (softmax gate) launches 9 stats passes, 4 conv
+    passes (the backward's recompute of w) and 4 backward passes, all on
+    the mma route; with the sigmoid gate 9 sigmoid passes, 4 conv passes,
+    4 backward passes and no stats pass; the f32 step at 64^2 takes the
+    simt route."""
+    none = {"mma": 0, "simt": 0}
     per_step = {k: sum(v.values()) for k, v in smoke.FFHQ_STAGE_PER_STEP.items()}
     launches = smoke.expected(per_step, 3)
     assert smoke.stage_routes_expected(launches) == {
-        "stage_softmax_stats": {"mma": 27, "simt": 0}, "stage_conv_bwd": {"mma": 12, "simt": 0}}
+        "stage_softmax_stats": {"mma": 27, "simt": 0}, "stage_conv_bwd": {"mma": 12, "simt": 0},
+        "stage_conv": {"mma": 12, "simt": 0}, "stage_sigmoid": none}
+    one = smoke.stage_routes_expected(smoke.expected(smoke.SIGMOID_PER_STEP))
+    assert one["stage_sigmoid"] == {"mma": 9, "simt": 0}
+    assert one["stage_conv"] == {"mma": 4, "simt": 0}
     sig = smoke.expected(smoke.SIGMOID_PER_STEP, 3)
     assert smoke.stage_routes_expected(sig) == {
-        "stage_softmax_stats": {"mma": 0, "simt": 0}, "stage_conv_bwd": {"mma": 12, "simt": 0}}
-    assert smoke.stage_routes_expected({"stage_conv_bwd": 20}, "simt") == {
-        "stage_softmax_stats": {"mma": 0, "simt": 0}, "stage_conv_bwd": {"mma": 0, "simt": 20}}
+        "stage_softmax_stats": none, "stage_conv_bwd": {"mma": 12, "simt": 0},
+        "stage_conv": {"mma": 12, "simt": 0}, "stage_sigmoid": {"mma": 27, "simt": 0}}
+    assert smoke.stage_routes_expected({"stage_conv_bwd": 20, "stage_sigmoid": 10}, "simt") == {
+        "stage_softmax_stats": none, "stage_conv_bwd": {"mma": 0, "simt": 20},
+        "stage_conv": none, "stage_sigmoid": {"mma": 0, "simt": 10}}
     assert smoke.read_stage_routes().keys() == set(smoke.STAGE_ROUTED)
 
 
 def test_phase_9_covers_every_template(smoke):
-    """Phase 9 runs both routed kernels at both templates: (64, 64) in the
-    plain and `up` forms, (32, 64) with the 1x1 skip."""
-    cases = {(k, f, c, co) for k, f, c, co in smoke.STAGE_CASES if k in smoke.STAGE_ROUTED}
+    """Phases 9 and 16 run every routed kernel at both templates: (64, 64)
+    in the plain and `up` forms, (32, 64) with the 1x1 skip, and the two
+    forward passes that pool in their `down` form."""
+    cases = {(k, f, c, co) for k, f, c, co in smoke.STAGE_CASES + smoke.SIGMOID_STAGE_CASES
+             if k in smoke.STAGE_ROUTED}
     for k in smoke.STAGE_ROUTED:
         assert {(k, "plain", 64, 64), (k, "up", 64, 64), (k, "skip", 32, 64)} <= cases
+    for k in ("stage_conv", "stage_sigmoid"):
+        assert (k, "down", 64, 64) in cases
     assert {(c, co) for _, _, c, co in cases} == set(fs.STAGE_MMA_WIDTHS)
+    assert "stage_softmax_apply_pool" not in smoke.STAGE_ROUTED
 
 
 def test_kernels_line_carries_the_stage_routes(smoke):
-    """Rows 9 and 11 of the kernels line: the mma route's per-step time,
-    beside the simt route's time of the same launches and the main path's
-    launches on the mma route; the other stage rows have no route keys."""
+    """Rows 7, 8, 9 and 11 of the kernels line: the mma route's per-step
+    time, beside the simt route's time of the same launches and the main
+    path's launches on the mma route (stage_sigmoid's from the
+    ffhq_512-sigmoid steps); the apply-pool row has no route keys."""
     times, err = {}, {}
-    for kernel, forms in smoke.FFHQ_STAGE_PER_STEP.items():
+    forms_of = dict(smoke.FFHQ_STAGE_PER_STEP,
+                    stage_sigmoid=smoke.SIGMOID_STAGE_PER_STEP["stage_sigmoid"])
+    for kernel, forms in forms_of.items():
         err[kernel] = 0.01
         for f in forms:
             times[(kernel, f)] = dict(ms=2.0, plain_ms=30.0, bound_ms=0.3, bound_by="bytes",
@@ -299,12 +420,22 @@ def test_kernels_line_carries_the_stage_routes(smoke):
     routes = smoke.stage_routes_expected(launches)
     rows = {k: smoke.stage_entry(k, times, err, launches, routes=routes)
             for k in smoke.STAGE_KERNELS}
+    sig_launches = smoke.expected(smoke.SIGMOID_PER_STEP, 3)
+    rows["stage_sigmoid"] = smoke.stage_entry(
+        "stage_sigmoid", times, err, sig_launches, forms_of["stage_sigmoid"],
+        smoke.stage_routes_expected(sig_launches))
     assert rows["stage_softmax_stats"]["ms"] == 18.0
     assert rows["stage_softmax_stats"]["ms_simt"] == 180.0
     assert rows["stage_softmax_stats"]["launches_mma"] == 27
     assert rows["stage_conv_bwd"]["ms_simt"] == 80.0 and rows["stage_conv_bwd"]["routes"] == ["mma"]
     assert "ms_simt" in rows["stage_conv_bwd"]["forms"][0]
-    assert "launches_mma" not in rows["stage_conv"] and "ms_simt" not in rows["stage_conv"]
+    assert rows["stage_conv"]["ms"] == 8.0 and rows["stage_conv"]["ms_simt"] == 80.0
+    assert rows["stage_conv"]["launches_mma"] == 12 and rows["stage_conv"]["routes"] == ["mma"]
+    assert rows["stage_sigmoid"]["ms"] == 18.0 and rows["stage_sigmoid"]["ms_simt"] == 180.0
+    assert rows["stage_sigmoid"]["launches"] == rows["stage_sigmoid"]["launches_mma"] == 27
+    assert {f["form"] for f in rows["stage_sigmoid"]["forms"]} == {"up", "down"}
+    apply_pool = rows["stage_softmax_apply_pool"]
+    assert "launches_mma" not in apply_pool and "ms_simt" not in apply_pool
     for row in rows.values():
         assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(row)
