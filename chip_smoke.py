@@ -29,7 +29,9 @@ line each:
      `stage_conv_bwd_mma`, `stage_conv_mma`, `stage_sigmoid_mma`) at each
      (C, Co) template: HMMA in the SASS, no spill, registers, shared
      memory and blocks an SM; the simt kernels' shared memory and blocks
-     an SM beside them;
+     an SM beside them; the gate backward's mma kernel (`softmax_bwd_mma`)
+     alike: HMMA in the SASS, no spill, registers, shared memory and
+     blocks an SM;
   3. the gate's forward kernels (stats, apply) against the plain version at
      the nine G and D gate shapes of lsun_bedroom_128, batch 64, bf16, with
      gate weights that make the gate vary and pass the clamp at 16, plus one
@@ -43,7 +45,10 @@ line each:
      sums that cancel (db2 exactly: sum_s dl = c - c), so each error is taken
      against the norm of the sum of its terms' absolute values, the scale
      rounding error grows with; the same inputs run twice give bitwise-equal
-     gradients;
+     gradients. The backward runs on the route its wrapper picks: at each
+     bf16 C = 64 shape the tensor-core kernel (mma), and on the same inputs
+     the simt kernel too, both under the rule, each twice bitwise equal,
+     the mma route the faster (timed); every other shape and f32 on simt;
   5. lsun_bedroom_128 serving: seeded random weights with non-zero logit
      convs serve requests of batch 1, 16 and 64 through `generate_samples`;
      the launch counters read 6 per forward for each forward gate kernel and
@@ -56,7 +61,8 @@ line each:
      steps, the grad-norm and non-finite guards, EMA 0.999), batch 64, seeded
      weights, 3 steps from step 0 through `make_train_step`: losses, norms and
      r1 finite, G, D and EMA moved, the guard counters as the norms imply,
-     launch counters 30 / 30 / 24 / 24 per step and no fused-stage launch.
+     launch counters 30 / 30 / 24 / 24 per step and no fused-stage launch,
+     softmax_bwd's 24 on their routes: 9 mma (C = 64), 15 simt.
      Then one step's gradients from one state and batch with the same latents
      on the kernel path, the plain path and an f32 plain path: the kernel
      path's error against f32 is at most twice the plain path's, for D and
@@ -98,7 +104,8 @@ line each:
      shipped (R1 gamma 0.1 every 16 steps, remat, both guards) at batch 16,
      3 steps from step 0: the checks of 6, launches per step of all eight
      kernels as the step implies, every launch of stage_conv,
-     stage_softmax_stats and stage_conv_bwd on the mma route, sec/step,
+     stage_softmax_stats and stage_conv_bwd on the mma route, softmax_bwd's
+     32 on their routes (17 mma, 15 simt), sec/step,
      images/sec, peak memory, idle
      share and top kernels; the same steps again with the grad-norm guard
      raised to 1e9, where G's and D's updates all apply and G, D and the
@@ -170,9 +177,9 @@ line each:
      gradients against the plain path (the tolerance of 6), each call
      within 1e-4;
  26. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
-     flash kernels and the four routed stage kernels with their mma-route
-     launches and the simt route's time of the same launches beside their
-     own);
+     flash kernels, the four routed stage kernels and softmax_bwd with their
+     mma-route launches and the simt route's time of the same launches
+     beside their own);
  27. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -214,6 +221,9 @@ SHAPES = G_SHAPES + [s for s in D_SHAPES if s not in G_SHAPES]
 SERVE = {s: int(s in G_SHAPES) for s in SHAPES}
 FWD_PER_STEP = {s: 2 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
 BWD_PER_STEP = {s: 1 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
+# the gate backward's tensor-core instance (its mma route: bf16 at (C, Hd,
+# Cout) = (64, 16, 64)); it must hold HMMA and not spill
+GATE_MMA_KERNELS = ("softmax_bwd_mma",)
 F32_SHAPE = (1024, 64, 16)
 F32_TOL = 1e-4
 # a whole step's gradient tree at 64^2, kernel path vs plain path, f32: at
@@ -262,8 +272,8 @@ FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # templates on the padded head widths; each must hold HMMA or HGMMA
 FLASH_MMA_KERNELS = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")
 FLASH_MMA_SPILL_LIMIT = 16  # bytes: the simt kernels' worst spill
-ALL_CUDA_KERNELS = (STAGE_MMA_KERNELS + STAGE_CUDA_KERNELS + CUDA_KERNELS + FLASH_MMA_KERNELS
-                    + FLASH_KERNELS)
+ALL_CUDA_KERNELS = (GATE_MMA_KERNELS + STAGE_MMA_KERNELS + STAGE_CUDA_KERNELS + CUDA_KERNELS
+                    + FLASH_MMA_KERNELS + FLASH_KERNELS)
 # the exponential floor of a flash pass: B T S exponentials on the H100's
 # 132 x 16 SFU lanes (one ex2 a lane a clock) at the SXM card's 1.98 GHz
 # boost clock, the clock PEAK_FLOPS's f32 figure (132 x 128 FMA x 2) assumes
@@ -285,6 +295,13 @@ FFHQ_STAGE_PER_STEP = {"stage_softmax_stats": {"up": 3, "plain": 6},
                        "stage_conv_bwd": {"up": 1, "plain": 3}}
 FFHQ_GATE_PER_STEP = {"softmax_stats": 67, "softmax_apply": 66, "softmax_csum": 32,
                       "softmax_bwd": 32}
+# softmax_bwd's launches a step at each (HW, C, Hd): G's stages once, D's
+# three times (D's gate at its stage's output width), the 512^2 stages'
+# through the fused stage's backward
+FFHQ_BWD_PER_STEP = {(16, 512, 128): 1 + 3, (64, 256, 64): 1, (256, 128, 32): 1,
+                     (1024, 64, 16): 1, (4096, 64, 16): 1 + 3, (16384, 64, 16): 1 + 3,
+                     (65536, 64, 16): 1 + 3, (262144, 64, 16): 1 + 3, (1024, 128, 32): 3,
+                     (256, 256, 64): 3, (64, 512, 128): 3}
 FFHQ_SERVE_PER_FORWARD = {"softmax_stats": 7, "softmax_apply": 8, "softmax_csum": 0,
                           "softmax_bwd": 0, "stage_conv": 0, "stage_softmax_stats": 1,
                           "stage_softmax_apply_pool": 0, "stage_conv_bwd": 0}
@@ -525,8 +542,9 @@ def run_forward(fa, ops, hw, plain: bool):
     return m, se, y
 
 
-def run_backward(fa, ops, dy, hw, plain: bool):
-    """(c, dx, dpos_proj, dW1x, db1, dW2, db2), each path its own stats."""
+def run_backward(fa, ops, dy, hw, plain: bool, route=None):
+    """(c, dx, dpos_proj, dW1x, db1, dW2, db2), each path its own stats;
+    the kernels' backward on `route` (the wrapper's choice where None)."""
     opts = dict(hw_scale=float(hw), gate_max=16.0, **KW)
     if plain:
         m, se = fa.softmax_gate_stats_reference(*ops, **KW)
@@ -535,7 +553,7 @@ def run_backward(fa, ops, dy, hw, plain: bool):
     else:
         m, se = fa.softmax_gate_stats(*ops, **KW)
         c = fa.softmax_gate_csum(ops[0], dy, *ops[1:], m, se, **opts)
-        grads = fa.softmax_gate_backward(ops[0], dy, *ops[1:], m, se, c, **opts)
+        grads = fa.softmax_gate_backward(ops[0], dy, *ops[1:], m, se, c, route=route, **opts)
     return (c, *grads)
 
 
@@ -644,22 +662,37 @@ def phase_forward(fa, shapes, batch, phase="forward-kernels-vs-plain"):
 
 
 def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
-    """Phase 4 and the backward half of phase 8."""
+    """Phase 4 and the backward half of phase 8. softmax_bwd runs on the
+    route its wrapper picks (`gate_bwd_route`); where that is the mma route
+    (bf16 at C = 64), the simt route runs on the same inputs too, under
+    the same rule and twice bitwise equal, is timed beside it, and must be
+    the slower."""
     rows = []
     for i, (hw, c, hd, dtype) in enumerate(shapes):
         ops, dy = gate_inputs(batch, hw, c, hd, dtype, seed=200 + i)
         shape = dict(N=batch, HW=hw, C=c, Hd=hd, Cout=c)
+        route = fa.gate_bwd_route(dtype, hw, c, hd, c)
         with torch.no_grad():
+            before = read_gate_routes()
             kern = run_backward(fa, ops, dy, hw, plain=False)
+            want = dict(before, **{route: before[route] + 1})
+            check(read_gate_routes() == want, f"softmax_bwd at {shape}: not on the {route} route")
             again = run_backward(fa, ops, dy, hw, plain=False)
+            simt = simt_again = None
+            if route == "mma":
+                simt = run_backward(fa, ops, dy, hw, plain=False, route="simt")
+                simt_again = run_backward(fa, ops, dy, hw, plain=False, route="simt")
             plain = run_backward(fa, ops, dy, hw, plain=True)
             truth = run_backward(fa, [ops[0].float()] + ops[1:], dy.float(), hw, plain=True)
             torch.cuda.synchronize()
-        row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""),
+        row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""), route=route,
                    bwd_grid=dict(zip(("tile_rows", "batch_rows_per_block"),
                                      fa.bwd_grid(batch, hw, c))))
         for name, k, a in zip(GRAD_NAMES, kern, again):
             check(torch.equal(k, a), f"{name} at {shape}: two runs differ bitwise")
+        if simt is not None:
+            for name, k, a in zip(GRAD_NAMES, simt, simt_again):
+                check(torch.equal(k, a), f"{name} at {shape} (simt): two runs differ bitwise")
         row["bitwise_repeatable"] = True
         with torch.no_grad():
             m, se = fa.softmax_gate_stats_reference(ops[0].float(), *ops[1:], **KW)
@@ -667,7 +700,11 @@ def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
                                  dict(hw_scale=float(hw), gate_max=16.0, **KW))
         for name, k, p, t, sc in zip(GRAD_NAMES, kern, plain, truth, scales):
             hold(name, shape, k, p, t, dtype, row, scale=sc)
-        del kern, again, plain, truth
+        if simt is not None:  # the simt route on the same inputs, under the same rule
+            for name, k, p, t, sc in zip(GRAD_NAMES[1:], simt[1:], plain[1:], truth[1:],
+                                         scales[1:]):
+                hold(f"simt_{name}", shape, k, p, t, dtype, row, scale=sc)
+        del kern, again, simt, simt_again, plain, truth
 
         kops = [ops[0], ops[1], ops[2].to(dtype), ops[3], ops[4].to(dtype), ops[5]]
         opts = dict(hw_scale=float(hw), gate_max=16.0, **KW)
@@ -685,6 +722,15 @@ def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
                 lambda: fa.softmax_gate_backward_reference(kops[0], dy, *kops[1:], m, se, cs,
                                                            **opts),
                 batch, hw, c, hd, dtype)
+            row["softmax_bwd"]["route"] = route
+            if route == "mma":
+                ms, ms_simt = row["softmax_bwd"]["ms"], graph_ms(
+                    lambda: fa.softmax_gate_backward(kops[0], dy, *kops[1:], m, se, cs,
+                                                     route="simt", **opts))
+                row["softmax_bwd"]["ms_simt"] = ms_simt
+                row["softmax_bwd"]["share_of_bound_simt"] = row["softmax_bwd"]["bound_ms"] / ms_simt
+                check(ms < ms_simt, f"softmax_bwd at {shape}: the mma route ({ms:.4f} ms) is not "
+                                    f"faster than the simt route ({ms_simt:.4f} ms)")
             row["profiler_us_per_call"] = kernel_split(lambda: fa.softmax_gate_backward(
                 kops[0], dy, *kops[1:], m, se,
                 fa.softmax_gate_csum(kops[0], dy, *kops[1:], m, se, **opts), **opts))
@@ -867,6 +913,23 @@ def reset_counters():
 
 def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
+
+
+def read_gate_routes() -> dict:
+    """{route: launches} of softmax_bwd, the gate wrapper with two routes."""
+    from locate_tpu_torch.ops import fused_attention as fa
+
+    return {r: getattr(fa.softmax_gate_backward, f"launches_{r}") for r in ("mma", "simt")}
+
+
+def gate_routes_per_step(fa, per_step: dict, steps: int = 1) -> dict:
+    """{route: launches} of softmax_bwd over `steps` steps that launch it
+    `per_step[(HW, C, Hd)]` times a step at each shape, bf16, Cout = C:
+    9 mma and 15 simt a lsun_bedroom_128 step, 17 and 15 an ffhq_512 one."""
+    out = {"mma": 0, "simt": 0}
+    for (hw, c, hd), k in per_step.items():
+        out[fa.gate_bwd_route(torch.bfloat16, hw, c, hd, c)] += k * steps
+    return out
 
 
 def read_route_counters() -> dict:
@@ -1146,14 +1209,18 @@ def phase_train(fa):
                 "softmax_bwd": 24}
     check(launches == expected(per_step, steps),
           f"train steps launched {launches}, want {per_step} per step")
+    routes = read_gate_routes()
+    check(routes == gate_routes_per_step(fa, BWD_PER_STEP, steps),
+          f"train steps' softmax_bwd took the routes {routes}, want "
+          f"{gate_routes_per_step(fa, BWD_PER_STEP)} per step")
     say("train", config="lsun_bedroom_128 as shipped, use_pallas=true", batch=BATCH,
-        steps=steps, seconds=seconds, launches=launches, metrics=history,
-        max_param_change=moved,
+        steps=steps, seconds=seconds, launches=launches, softmax_bwd_routes=routes,
+        metrics=history, max_param_change=moved,
         params=dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel()))
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
     del gan, state, step, before
     torch.cuda.empty_cache()
-    return cfg, weights, launches
+    return cfg, weights, launches, routes
 
 
 @contextlib.contextmanager
@@ -1186,7 +1253,8 @@ def checked_gate_backward(fa, record):
                                                **opts)
             scales = term_scales(fa, xf, dy.float(), pp, w1x, b1, w2, b2, *stats, c, opts)
         n, hw, c = x2d.shape
-        row = dict(N=n, HW=hw, C=c, dtype=str(x2d.dtype).replace("torch.", ""))
+        row = dict(N=n, HW=hw, C=c, dtype=str(x2d.dtype).replace("torch.", ""),
+                   route=fa.gate_bwd_route(x2d.dtype, hw, c, w1x.shape[1], w2.shape[1]))
         shape = dict(N=n, HW=hw, C=c)
         for name, k, pi, ti, sc in zip(GRAD_NAMES[1:], grads, p, t, scales[1:]):
             hold(name, shape, k, pi, ti, x2d.dtype, row, scale=sc)
@@ -1767,7 +1835,7 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     state, history, seconds = timed_steps(step, state, batch, steps)
-    launches, stage_routes = read_counters(), read_stage_routes()
+    launches, stage_routes, gate_routes = read_counters(), read_stage_routes(), read_gate_routes()
     peak = torch.cuda.max_memory_allocated()
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
@@ -1776,6 +1844,13 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     # every (bf16) launch of the two routed stage kernels on the tensor cores
     check(stage_routes == stage_routes_expected(launches),
           f"ffhq_512 steps' stage kernels took the routes {stage_routes}")
+    # softmax_bwd's launches (none with the sigmoid gate) on the route of each shape
+    from locate_tpu_torch.ops import fused_attention as fa
+
+    want_gate = gate_routes_per_step(
+        fa, FFHQ_BWD_PER_STEP if per_step.get("softmax_bwd") else {}, steps)
+    check(gate_routes == want_gate,
+          f"ffhq_512 steps' softmax_bwd took the routes {gate_routes}, want {want_gate}")
     idle, top = profile_calls(lambda: step(state, batch), calls=2, top=15)
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
     params = dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel())
@@ -1799,7 +1874,8 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     say(phase, config="ffhq_512 as shipped, batch 16", overrides=overrides, steps=steps,
         params=params,
         launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
-        stage_routes=stage_routes, metrics=history, max_param_change=moved,
+        stage_routes=stage_routes, softmax_bwd_routes=gate_routes, metrics=history,
+        max_param_change=moved,
         kernel_path=dict(rates(seconds), peak_memory_bytes=peak,
                          device_idle_share="not measured" if idle is None else idle,
                          top_kernels_2_steps=top),
@@ -2785,7 +2861,7 @@ def phase_build(fa, fs, fl, build):
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
     reports = {name: parse_ptxas(build.ptxas_report(name)) for name in names}
-    for name, wanted in (("fused_attention", CUDA_KERNELS),
+    for name, wanted in (("fused_attention", CUDA_KERNELS + GATE_MMA_KERNELS),
                          ("fused_stage", STAGE_CUDA_KERNELS + STAGE_MMA_KERNELS),
                          ("flash_attention", FLASH_KERNELS + FLASH_MMA_KERNELS)):
         for k in wanted:
@@ -2836,6 +2912,26 @@ def phase_build(fa, fs, fl, build):
                 blocks_per_sm=int(stage_lib.locate_stage_blocks_per_sm(
                     1, kind, c, co, hd, cout, *fs._MMA_TILE)))
             check(stage_mma[n]["blocks_per_sm"] >= 1, f"{n}: no block fits on an SM")
+    # the gate backward's mma instance alike, with the simt kernel's
+    # shared memory at the same widths (its tile at lsun's 16384 locations)
+    gate_sass = sass_tensor_ops(libs["fused_attention"])
+    gate_lib = fa._library()
+    gate_bwd = {}
+    for k in GATE_MMA_KERNELS:
+        ptx = reports["fused_attention"].get(k, {})
+        check(gate_sass.get(k, 0) > 0, f"{k}: no HMMA or HGMMA instruction in its SASS")
+        check(bool(ptx) and ptx.get("spill_stores", 0) == 0 and ptx.get("spill_loads", 0) == 0,
+              f"{k} spills: {ptx}")
+        gate_bwd[k] = dict(ptx, tensor_core_instructions=gate_sass[k], widths=fa.GATE_MMA_WIDTHS,
+                           bytes=int(gate_lib.locate_softmax_bwd_mma_smem_bytes(
+                               *fa.GATE_MMA_WIDTHS)),
+                           blocks_per_sm=int(gate_lib.locate_softmax_bwd_mma_blocks_per_sm()))
+        check(gate_bwd[k]["blocks_per_sm"] >= 1, f"{k}: no block fits on an SM")
+    simt_tile = fa.bwd_grid(BATCH, 16384, 64)[0]
+    gate_bwd["softmax_bwd<bf16>"] = dict(
+        reports["fused_attention"].get("softmax_bwd<bf16>", {}),
+        tensor_core_instructions=gate_sass.get("softmax_bwd<bf16>", 0),
+        bytes=int(gate_lib.locate_softmax_bwd_smem_bytes(64, 16, 64, simt_tile)))
     flash_lib = fl._library()
     flash_smem = {}
     for t, dh, dv in FLASH_SHAPES + [(1024, 8, 16)]:
@@ -2861,11 +2957,13 @@ def phase_build(fa, fs, fl, build):
         flash_mma_kernels=mma, flash_simt_bf16_tensor_core_instructions=simt_bf16,
         flash_dynamic_smem_at_batch_16=flash_smem,
         stage_dynamic_smem_at_512x512x64=stage_smem, stage_mma_kernels=stage_mma,
+        gate_bwd_kernels=gate_bwd,
         stage_conv_bwd_blocks=fs.bwd_blocks(FFHQ_BATCH, 512, 512, *fs.pick_tile(
             fs._BWD, 512, 512, 64, 64, lib=stage_lib)))
 
 
-def gate_entry(kernel, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches):
+def gate_entry(kernel, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
+               gate_routes=None):
     rows = fwd_rows if kernel in ("softmax_stats", "softmax_apply") else bwd_rows
     mult = FWD_PER_STEP if rows is fwd_rows else BWD_PER_STEP
     names = {"softmax_stats": ("m", "se"), "softmax_apply": ("y",),
@@ -2896,6 +2994,14 @@ def gate_entry(kernel, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_
     if rows is fwd_rows:
         entry["launches_serving"] = serve_launches[kernel]
         entry["ms_per_served_forward"] = per_step(lsun, kernel, SERVE, "ms")
+    if kernel == "softmax_bwd":  # two routes: the mma shapes beside their simt time
+        entry["routes"] = sorted({r[kernel]["route"] for r in lsun})
+        entry["launches_mma"] = gate_routes["mma"]
+        entry["ms_simt"] = sum(mult[(r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])]
+                               * r[kernel].get("ms_simt", r[kernel]["ms"])
+                               for r in lsun if r["dtype"] == "bfloat16")
+        for shape, r in zip(entry["shapes"], rows):
+            shape.update({k: r[kernel][k] for k in ("route", "ms_simt") if k in r[kernel]})
     return entry
 
 
@@ -2930,7 +3036,7 @@ def main() -> int:
     cfg = get_config("lsun_bedroom_128", {"use_pallas": "true"})
     serve_launches = phase_generator(fa, cfg)
     phase_serving(cfg)
-    train_cfg, weights, train_launches = phase_train(fa)
+    train_cfg, weights, train_launches, gate_routes = phase_train(fa)
     phase_train_grads(fa, train_cfg, weights)
     del weights
     phase_train_throughput()
@@ -2970,8 +3076,8 @@ def main() -> int:
     phase_self_train_grads(fl, self_cfg, self_weights, self_batch)
     del self_weights
 
-    out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches)
-           for k in KERNELS]
+    out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
+                      gate_routes) for k in KERNELS]
     out += [stage_entry(k, stage_times, stage_err, ffhq_launches, routes=ffhq_routes)
             for k in STAGE_KERNELS]
     out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve) for k in SIGMOID_KERNELS]

@@ -128,7 +128,8 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 // ---- bf16 tensor-core primitives (mma.sync m16n8k16, ldmatrix, cp.async) ----
-// shared by the mma routes of flash_attention.cu and fused_stage.cu
+// shared by the mma routes of flash_attention.cu, fused_stage.cu and
+// fused_attention.cu
 
 using bf16 = __nv_bfloat16;
 
@@ -148,6 +149,10 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// all but the most recently committed group
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
@@ -260,6 +265,62 @@ __device__ __forceinline__ void zero(float (&c)[N][4]) {
   for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+}
+
+// rows x width bf16 of a row-major matrix into shared memory with row
+// stride ld, 16 bytes a copy (width % 8 == 0, src 16-byte aligned)
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int rows,
+                                           int width, int ld) {
+  const int chunks = width >> 3;
+  for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
+    const int r = e / chunks, c = (e - r * chunks) << 3;
+    *reinterpret_cast<uint4*>(dst + r * ld + c) =
+        __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * width + c));
+  }
+}
+
+// The gate MLP's hidden width on the mma routes
+constexpr int kGateHd = 16;
+
+// The gate MLP of one warp's 16 locations on the tensor cores:
+//     u = x W1 + pos_proj + b1,  h = (act(u))_cd,  l = h W2 + b2,
+// x handed in as A fragments (KS k-steps of 16 channels), h handed on to
+// W2 as one A fragment. W1 [KS * 16][kGateHd + 8] and W2 [kGateHd][NT * 8
+// + 8] are staged bf16; pp_lo and pp_hi are pos_proj's rows (kGateHd f32)
+// of this lane's two locations, lane / 4 and 8 + lane / 4. Out, in
+// C-fragment layout (location lane / 4 + 8 (e >> 1), column nt * 8 +
+// 2 (lane % 4) + (e & 1)): u and h (f32, h rounded to bf16), and l. The
+// fused stage's forward passes (gate_logits_mma) and the gate's backward
+// (softmax_bwd_mma, which also needs act'(u)) share it.
+template <int KS, int NT>
+__device__ __forceinline__ void gate_mlp_mma(const uint32_t (&xa)[KS][4], const bf16* W1,
+                                             const bf16* W2, const float* __restrict__ pp_lo,
+                                             const float* __restrict__ pp_hi,
+                                             const float* __restrict__ b1,
+                                             const float* __restrict__ b2, int act, float slope,
+                                             float (&u)[2][4], float (&h)[2][4],
+                                             float (&l)[NT][4]) {
+  const int lane = threadIdx.x & 31, col = 2 * (lane & 3);
+  zero(u);
+  mma_kn<KS, 2>(u, xa, W1, kGateHd + 8, 0);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float* ppl = e >> 1 ? pp_hi : pp_lo;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int j = nt * 8 + col + (e & 1);
+      u[nt][e] = u[nt][e] + ppl[j] + b1[j];
+      h[nt][e] = round_cd<bf16>(activate(u[nt][e], act, slope));
+    }
+  }
+  const uint32_t ha[1][4] = {{pack_bf16(h[0][0], h[0][1]), pack_bf16(h[0][2], h[0][3]),
+                              pack_bf16(h[1][0], h[1][1]), pack_bf16(h[1][2], h[1][3])}};
+  zero(l);
+  mma_kn<1, NT>(l, ha, W2, NT * 8 + 8, 0);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) l[nt][e] += b2[nt * 8 + col + (e & 1)];
 }
 
 }  // namespace

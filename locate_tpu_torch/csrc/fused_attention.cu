@@ -6,7 +6,9 @@
 //   * _softmax_apply_kernel (:179)  -> softmax_apply
 //   * _softmax_csum_kernel  (:358)  -> softmax_csum_partial + reduce_partials
 //   * _bwd_kernel_softmax   (:397, body _bwd_body :408)
-//                                   -> softmax_bwd + reduce_partials (twice)
+//                                   -> softmax_bwd + reduce_partials (twice);
+//                                      bf16 at (C, Hd, Cout) = (64, 16, 64):
+//                                      softmax_bwd_mma (the tensor cores)
 //   * _sigmoid_kernel       (:145)  -> sigmoid_gate
 //   * _bwd_kernel_sigmoid   (:387, body _bwd_body :408)
 //                                   -> sigmoid_bwd + reduce_partials (twice)
@@ -63,8 +65,9 @@
 // so that four consecutive locations of one channel load as one float4;
 // the small products run as f32 FMA loops with a 4-location register
 // tile, the weights read through the read-only cache (C=512 x Hd=128
-// weights would not fit in shared memory as f32). This first version uses
-// no tensor cores, TMA or wgmma.
+// weights would not fit in shared memory as f32). These simt kernels use
+// no tensor cores; the softmax backward's bf16 route at the gate width of
+// the 64-channel stages does (softmax_bwd_mma, below).
 
 #include "common.cuh"
 
@@ -554,6 +557,299 @@ __global__ void __launch_bounds__(kThreads) sigmoid_bwd(
                     part_pp, N, HW, C, Hd, Cout, T_rows, R, act, slope, 1.f, gate_max);
 }
 
+// ---- softmax_bwd on the tensor cores: bf16 at (C, Hd, Cout) = (64, 16, 64) ----
+//
+// softmax_bwd_mma computes what gate_bwd<bf16, false> computes, with its
+// rounding points (h, dl and du rounded to bf16 before their products, dx
+// rounded once, the weight gradients f32 sums), on mma.sync m16n8k16 (bf16
+// operands through ldmatrix, f32 accumulators). Grid (HW / 128, nb): block
+// (tile, b) owns 128 locations and the batch rows b R .. b R + R - 1, as
+// gate_bwd's grid does with a 128-location tile. Each of its 8 warps owns
+// 16 consecutive locations and works alone until the block's end:
+//   * x and dy of its 16 locations come by cp.async as bf16 [16][64 + 8],
+//     the next batch row's a row ahead (two stages);
+//   * u, h and l by gate_mlp_mma (the fused stage's gate core), act'(u)
+//     from u;
+//   * dl element-wise in l's C fragments, with m, se and c of (n, channel)
+//     read once a row; dl_cd as A fragments into du = act'(u) (dl_cd W2^T),
+//     4 k-steps into 2 n-tiles of Hd;
+//   * dx = min(g, gate_max) dy + du_cd W1x^T: the accumulators start at
+//     min(g, gate_max) dy, one k-step into 8 n-tiles of C; rounded once,
+//     staged over dy and written with 16-byte stores;
+//   * dW1x += x^T du_cd and dW2 += h^T dl_cd take the locations as k: h,
+//     dl_cd and du_cd are staged per warp and read back, like x, by
+//     ldmatrix.trans; the sums stay in registers (32 + 32 f32 a lane) over
+//     the block's rows, beside db1 = sum du and db2 = sum dl (f32, summed
+//     over the 16 locations by warp shuffles) and the warp's 16 x 16 of
+//     dpos_proj;
+//   * at the end the 8 warps' sums are added in a fixed order through
+//     shared memory into the block's slice of part_w ([dW1x | dW2 | db1 |
+//     db2], gate_bwd's layout, which launch_reduce sums), and dpos_proj
+//     goes to the batch group's slice of part_pp. One owner per output and
+//     no atomics: two runs are bitwise equal.
+// Registers bound it to one block (8 warps) an SM; the prefetch a row ahead
+// keeps 4 KB a warp in flight. S selects the sigmoid gate's dl (2p(1 - p)
+// mask dg, g = 2p), left for the sigmoid backward: only the softmax (S
+// false) is instantiated.
+constexpr int kGateC = 64, kGateCout = 64;  // the template's widths (Hd: kGateHd)
+constexpr int kBwdTile = 128;               // locations a block, 16 a warp
+constexpr int kBwdWarps = kBwdTile / 16;
+constexpr int kLX = kGateC + 8, kLH = kGateHd + 8, kLO = kGateCout + 8;
+// bf16 of a warp's region: x and dy (two stages each), h, dl_cd, du_cd
+constexpr int kWarpElems = 2 * 2 * 16 * kLX + 16 * kLH + 16 * kLO + 16 * kLH;
+constexpr int kWTot = kGateC * kGateHd + kGateHd * kGateCout + kGateHd + kGateCout;
+static_assert(kBwdWarps * 32 == kThreads, "a warp for each 16 locations of the tile");
+static_assert(kWarpElems * sizeof(bf16) >= kWTot * sizeof(float),
+              "a warp's sums must fit in its region");
+
+__host__ __device__ constexpr size_t bwd_mma_bytes() {
+  return (size_t)(kGateC * kLH + kGateHd * kLO + kBwdWarps * kWarpElems) * sizeof(bf16);
+}
+
+// x and dy of a warp's 16 locations (rows row0.. of the (N HW, C) tensors)
+// into Xs and Ds [16][kLX], by cp.async; the caller commits.
+__device__ __forceinline__ void fetch_rows(const bf16* __restrict__ x,
+                                           const bf16* __restrict__ dy, size_t row0, bf16* Xs,
+                                           bf16* Ds) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int e = lane + 32 * k, r = e >> 3, ch = (e & 7) << 3;
+    cp_async16(Xs + r * kLX + ch, x + (row0 + r) * kGateC + ch, true);
+    cp_async16(Ds + r * kLX + ch, dy + (row0 + r) * kGateC + ch, true);
+  }
+}
+
+// the sum of v over the 8 lanes of one lane % 4 (the 16 locations of a
+// C fragment, once v holds a lane's two), in a fixed order
+__device__ __forceinline__ float sum_locations(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+template <bool S>
+__global__ void __launch_bounds__(kThreads, 1) softmax_bwd_mma(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy, const float* __restrict__ pp,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ m, const float* __restrict__ se,
+    const float* __restrict__ csum, bf16* __restrict__ dx, float* __restrict__ part_w,
+    float* __restrict__ part_pp, int N, int HW, int R, int act, float slope, float hw_scale,
+    float gate_max) {
+  extern __shared__ float4 smem4[];
+  bf16* W1s = reinterpret_cast<bf16*>(smem4);  // [C][kLH]
+  bf16* W2s = W1s + kGateC * kLH;              // [Hd][kLO]
+  bf16* region = W2s + kGateHd * kLO;          // [warps][kWarpElems]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  bf16* Xb = region + warp * kWarpElems;  // [2][16][kLX] x
+  bf16* Db = Xb + 2 * 16 * kLX;           // [2][16][kLX] dy, then dx
+  bf16* Hs = Db + 2 * 16 * kLX;           // [16][kLH] h
+  bf16* DLs = Hs + 16 * kLH;              // [16][kLO] dl_cd
+  bf16* DUs = DLs + 16 * kLO;             // [16][kLH] du_cd
+
+  const int tile = blockIdx.x, b = blockIdx.y, tiles = gridDim.x;
+  const int loc0 = tile * kBwdTile + 16 * warp;  // the warp's first location
+  const int n0 = b * R, rows = min(R, N - n0);
+  if (rows > 0) fetch_rows(x, dy, (size_t)n0 * HW + loc0, Xb, Db);
+  cp_async_commit();
+  stage_rows(W1s, w1, kGateC, kGateHd, kLH);
+  stage_rows(W2s, w2, kGateHd, kGateCout, kLO);
+  __syncthreads();
+
+  float dw1[4][2][4], dw2[8][4], dpos[2][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) zero(dw1[mt]);
+  zero(dw2);
+  zero(dpos);
+  float db1[2][2] = {{0.f, 0.f}, {0.f, 0.f}}, db2[2] = {0.f, 0.f};
+  const float inv_hw = 1.f / hw_scale;
+  const float* ppl = pp + (size_t)(loc0 + q) * kGateHd;
+  // ldmatrix.trans rows and columns: A = (x or h)^T, channels by locations;
+  // B = (du_cd or dl_cd), locations by columns
+  const int ka = (lane & 7) + ((lane >> 4) << 3), ac = ((lane >> 3) & 1) << 3;
+  const int kb = (lane & 7) + (((lane >> 3) & 1) << 3), bc = (lane >> 4) << 3;
+
+  for (int r = 0; r < rows; ++r) {
+    const int n = n0 + r;
+    const bf16* Xs = Xb + (r & 1) * 16 * kLX;
+    bf16* Ds = Db + (r & 1) * 16 * kLX;
+    if (r + 1 < rows)
+      fetch_rows(x, dy, (size_t)(n + 1) * HW + loc0, Xb + ((r + 1) & 1) * 16 * kLX,
+                 Db + ((r + 1) & 1) * 16 * kLX);
+    cp_async_commit();
+    cp_async_wait_one();  // this row's x and dy
+    __syncwarp();
+
+    // 1. u, h, l; h staged for dW2
+    float u[2][4], h[2][4], l[8][4];
+    {
+      uint32_t xa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) frag_a(xa[kk], Xs, kLX, 0, kk * 16);
+      gate_mlp_mma<4, 8>(xa, W1s, W2s, ppl, ppl + 8 * kGateHd, b1, b2, act, slope, u, h, l);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(Hs + (q + 8 * hh) * kLH + nt * 8 + col) =
+            pack_bf16(h[nt][2 * hh], h[nt][2 * hh + 1]);
+
+    // 2. dl (into l) and min(g, gate_max) dy (gd, dx's first term); db2
+    float gd[8][4];
+    const size_t s0 = (size_t)n * kGateCout + col;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float2 mv = make_float2(0.f, 0.f), sv = mv, cv = mv;
+      if (!S) {
+        mv = *reinterpret_cast<const float2*>(m + s0 + nt * 8);
+        sv = *reinterpret_cast<const float2*>(se + s0 + nt * 8);
+        cv = *reinterpret_cast<const float2*>(csum + s0 + nt * 8);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int o = (q + 8 * hh) * kLX + nt * 8 + col;
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Xs + o));
+        const float2 dv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Ds + o));
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int e = 2 * hh + e1;
+          const float de = e1 ? dv.y : dv.x;
+          const float p = S ? logistic(l[nt][e]) : 0.f;
+          const float g = S ? 2.f * p : expf(l[nt][e] - (e1 ? mv.y : mv.x)) /
+                                            (e1 ? sv.y : sv.x) * hw_scale;
+          float dg = (e1 ? xv.y : xv.x) * de;
+          float ghat = g;
+          if (gate_max > 0.f) {
+            dg *= g <= gate_max ? 1.f : 0.f;
+            if (g > gate_max) ghat = gate_max;
+          }
+          l[nt][e] = S ? 2.f * p * (1.f - p) * dg : g * dg - (g * inv_hw) * (e1 ? cv.y : cv.x);
+          gd[nt][e] = ghat * de;
+        }
+      }
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const float v = sum_locations(l[nt][e1] + l[nt][2 + e1]);
+        if (nt == q) db2[e1] += v;  // this lane keeps channels q * 8 + col, + 1
+      }
+    }
+    uint32_t dla[4][4];
+    to_a_frags(dla, l);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f)  // f: (row q or q + 8) x (n-tile 2kk or 2kk + 1)
+        *reinterpret_cast<uint32_t*>(DLs + (q + 8 * (f & 1)) * kLO + (2 * kk + (f >> 1)) * 8 +
+                                     col) = dla[kk][f];
+
+    // 3. du = act'(u) (dl_cd W2^T); db1, dpos_proj; du_cd staged for dW1x
+    float du[2][4];
+    zero(du);
+    mma_nk<4, 2>(du, dla, W2s, kLO);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        du[nt][e] *= activate_grad(u[nt][e], act, slope);
+        dpos[nt][e] += du[nt][e];
+      }
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) db1[nt][e1] += sum_locations(du[nt][e1] + du[nt][2 + e1]);
+    }
+    const uint32_t dua[1][4] = {{pack_bf16(du[0][0], du[0][1]), pack_bf16(du[0][2], du[0][3]),
+                                 pack_bf16(du[1][0], du[1][1]), pack_bf16(du[1][2], du[1][3])}};
+#pragma unroll
+    for (int f = 0; f < 4; ++f)
+      *reinterpret_cast<uint32_t*>(DUs + (q + 8 * (f & 1)) * kLH + (f >> 1) * 8 + col) =
+          dua[0][f];
+
+    // 4. dx = min(g, gate_max) dy + du_cd W1x^T, rounded once, staged over
+    //    dy (each lane overwrites only the dy it read)
+    mma_nk<1, 8>(gd, dua, W1s, kLH);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(Ds + (q + 8 * hh) * kLX + nt * 8 + col) =
+            pack_bf16(gd[nt][2 * hh], gd[nt][2 * hh + 1]);
+    __syncwarp();  // h, dl_cd, du_cd and dx staged
+
+    // 5. dW1x += x^T du_cd (4 m-tiles of C), dW2 += h^T dl_cd (8 n-tiles of Cout)
+    {
+      uint32_t bf[4], af[4];
+      ldsm_x4_t(bf, DUs + kb * kLH + bc);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        ldsm_x4_t(af, Xs + ka * kLX + mt * 16 + ac);
+        mma16816(dw1[mt][0], af, bf[0], bf[1]);
+        mma16816(dw1[mt][1], af, bf[2], bf[3]);
+      }
+      ldsm_x4_t(af, Hs + ka * kLH + ac);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        ldsm_x4_t(bf, DLs + kb * kLO + bc + np * 16);
+        mma16816(dw2[2 * np], af, bf[0], bf[1]);
+        mma16816(dw2[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+
+    // 6. dx out, 16 bytes a lane a store, the 16 rows contiguous
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = lane + 32 * k, rr = e >> 3, ch = (e & 7) << 3;
+      *reinterpret_cast<uint4*>(dx + ((size_t)n * HW + loc0 + rr) * kGateC + ch) =
+          *reinterpret_cast<const uint4*>(Ds + rr * kLX + ch);
+    }
+    __syncwarp();  // the fetch of row r + 2 overwrites this stage
+  }
+
+  // the warps' sums, [dW1x (C, Hd) | dW2 (Hd, Cout) | db1 | db2] each, then
+  // added in warp order into the block's slice of part_w
+  cp_async_wait_all();
+  __syncthreads();  // every warp is done with its region
+  float* red = reinterpret_cast<float*>(region);  // [warps][kWTot]
+  float* rw = red + warp * kWTot;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(rw + (mt * 16 + q + 8 * hh) * kGateHd + nt * 8 + col) =
+            make_float2(dw1[mt][nt][2 * hh], dw1[mt][nt][2 * hh + 1]);
+  float* rw2 = rw + kGateC * kGateHd;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(rw2 + (q + 8 * hh) * kGateCout + nt * 8 + col) =
+          make_float2(dw2[nt][2 * hh], dw2[nt][2 * hh + 1]);
+  float* rb1 = rw2 + kGateHd * kGateCout;
+  if (q == 0) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      *reinterpret_cast<float2*>(rb1 + nt * 8 + col) = make_float2(db1[nt][0], db1[nt][1]);
+  }
+  *reinterpret_cast<float2*>(rb1 + kGateHd + q * 8 + col) = make_float2(db2[0], db2[1]);
+  __syncthreads();
+  float* pw = part_w + ((size_t)b * tiles + tile) * kWTot;
+  for (int o = threadIdx.x; o < kWTot; o += blockDim.x) {
+    float s = red[o];
+    for (int w = 1; w < kBwdWarps; ++w) s += red[w * kWTot + o];
+    pw[o] = s;
+  }
+  // the warp's dpos_proj, summed over the block's rows
+  float* ppp = part_pp + ((size_t)b * HW + loc0) * kGateHd;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(ppp + (q + 8 * hh) * kGateHd + nt * 8 + col) =
+          make_float2(dpos[nt][2 * hh], dpos[nt][2 * hh + 1]);
+}
+
 template <typename T>
 cudaError_t launch_stats(const void* x, const void* pp, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* part_m, void* part_s,
@@ -657,6 +953,35 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* pp, const void
   return launch_reduce((const float*)part_pp, (float*)dpp, 1, nb, HW * Hd, stream);
 }
 
+// softmax_bwd_mma on grid (HW / 128, ceil(N / R)), then the two fixed-order
+// reductions of its workspaces (gate_bwd's, with a 128-location tile).
+cudaError_t launch_bwd_mma(const void* x, const void* dy, const void* pp, const void* w1,
+                           const void* b1, const void* w2, const void* b2, const void* m,
+                           const void* se, const void* c, void* dx, void* part_w, void* part_pp,
+                           void* dw, void* dpp, int N, int HW, int R, int act, float slope,
+                           float hw_scale, float gate_max, cudaStream_t stream) {
+  const int tiles = HW / kBwdTile, nb = (N + R - 1) / R;
+  const size_t smem = bwd_mma_bytes();
+  cudaError_t err = allow_smem(softmax_bwd_mma<false>, smem);
+  if (err != cudaSuccess) return err;
+  softmax_bwd_mma<false><<<dim3(tiles, nb), kThreads, smem, stream>>>(
+      (const bf16*)x, (const bf16*)dy, (const float*)pp, (const bf16*)w1, (const float*)b1,
+      (const bf16*)w2, (const float*)b2, (const float*)m, (const float*)se, (const float*)c,
+      (bf16*)dx, (float*)part_w, (float*)part_pp, N, HW, R, act, slope, hw_scale, gate_max);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = launch_reduce((const float*)part_w, (float*)dw, 1, tiles * nb, kWTot, stream);
+  if (err != cudaSuccess) return err;
+  return launch_reduce((const float*)part_pp, (float*)dpp, 1, nb, HW * kGateHd, stream);
+}
+
+// Whether the mma route takes a backward call: bf16 at the template's
+// widths, its 128-location tile, an HW the tile divides.
+bool bwd_mma_fits(int is_bf16, int HW, int C, int Hd, int Cout, int T_rows) {
+  return is_bf16 && C == kGateC && Hd == kGateHd && Cout == kGateCout && T_rows == kBwdTile &&
+         HW % kBwdTile == 0;
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. `is_bf16` selects the compute
@@ -712,17 +1037,46 @@ int locate_softmax_csum(int is_bf16, const void* x, const void* dy, const void* 
                                  Cout, T_rows, act, slope, hw_scale, gate_max, s);
 }
 
+// Dynamic shared memory of a softmax_bwd_mma block; 0 where the template
+// does not take the widths.
+size_t locate_softmax_bwd_mma_smem_bytes(int C, int Hd, int Cout) {
+  return C == kGateC && Hd == kGateHd && Cout == kGateCout ? bwd_mma_bytes() : 0;
+}
+
+// Blocks of softmax_bwd_mma that fit on an SM; -1 on an error.
+int locate_softmax_bwd_mma_blocks_per_sm() {
+  int n = -1;
+  cudaError_t err = allow_smem(softmax_bwd_mma<false>, bwd_mma_bytes());
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, softmax_bwd_mma<false>, kThreads,
+                                                        bwd_mma_bytes());
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return n;
+}
+
 // part_w: (ceil(HW/T_rows) * ceil(N/R), C*Hd + Hd*Cout + Hd + Cout) and
 // part_pp: (ceil(N/R), HW, Hd) workspaces; dx: (N, HW, C) out; dw: the
 // concatenated f32 [dW1x (C, Hd), dW2 (Hd, Cout), db1 (Hd), db2 (Cout)]
-// out; dpp: (HW, Hd) out.
-int locate_softmax_bwd(int is_bf16, const void* x, const void* dy, const void* pp,
+// out; dpp: (HW, Hd) out. route 0 is the simt kernel (every dtype and
+// width); route 1 the tensor cores' (softmax_bwd_mma), which takes bf16 at
+// (C, Hd, Cout) = (64, 16, 64) with T_rows = 128 dividing HW only.
+int locate_softmax_bwd(int route, int is_bf16, const void* x, const void* dy, const void* pp,
                        const void* w1, const void* b1, const void* w2, const void* b2,
                        const void* m, const void* se, const void* c, void* dx, void* part_w,
                        void* part_pp, void* dw, void* dpp, int N, int HW, int C, int Hd,
                        int Cout, int T_rows, int R, int act, float slope, float hw_scale,
                        float gate_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!bwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows) || R < 1)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_bwd_mma(x, dy, pp, w1, b1, w2, b2, m, se, c, dx, part_w, part_pp, dw, dpp,
+                               N, HW, R, act, slope, hw_scale, gate_max, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_bwd<__nv_bfloat16, false>(x, dy, pp, w1, b1, w2, b2, m, se, c, dx,
                                                  part_w, part_pp, dw, dpp, N, HW, C, Hd, Cout,

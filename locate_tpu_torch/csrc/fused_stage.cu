@@ -752,7 +752,7 @@ __global__ void __launch_bounds__(kThreads) stage_conv_bwd(
 constexpr int kMmaTH = 8, kMmaTW = 16;  // a tile: 8 rows x 16 columns of fine pixels
 constexpr int kMmaThreads = 256;        // 8 warps
 constexpr int kMmaWarps = kMmaThreads / 32;
-constexpr int kMmaHd = 16;              // the gate's hidden width on this route
+constexpr int kMmaHd = kGateHd;         // the gate's hidden width on this route
 // the halo'd regions, in pixels: u (on x's grid, sized for the fine one)
 // and dy0, (TH + 2) x (TW + 2); v, TH + 2 rows; dv, TW + 2 columns
 constexpr int kUW = kMmaTW + 2, kUPix = (kMmaTH + 2) * kUW;
@@ -843,18 +843,6 @@ __device__ __forceinline__ void zero_acc(float (&c)[MT][NT][4]) {
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) c[m][n][e] = 0.f;
-}
-
-// rows x width bf16 of a row-major matrix into shared memory with row
-// stride ld, 16 bytes a copy (width % 8 == 0, src 16-byte aligned)
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int rows,
-                                           int width, int ld) {
-  const int chunks = width >> 3;
-  for (int e = threadIdx.x; e < rows * chunks; e += blockDim.x) {
-    const int r = e / chunks, c = (e - r * chunks) << 3;
-    *reinterpret_cast<uint4*>(dst + r * ld + c) =
-        __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * width + c));
-  }
 }
 
 // Eight bf16 (16 bytes) as f32, and eight f32 rounded to bf16 (to nearest even).
@@ -1053,8 +1041,8 @@ __device__ __forceinline__ void w_row_mma(const bf16* V, const bf16* X,
 }
 
 // The gate logits l = h W2 + b2, h = (act(w W1 + pos_proj + b1))_cd, of
-// the warp's row i of the tile (16 pixels) on the tensor cores: w (in
-// w_row_mma's layout) handed on as A fragments, h as one A fragment; l,
+// the warp's row i of the tile (16 pixels) on the tensor cores
+// (gate_mlp_mma): w (in w_row_mma's layout) handed on as A fragments; l,
 // f32, in w's layout. W1 [CO][Hd + 8] and W2 [Hd][CO + 8] are staged; pp
 // is pos_proj (H W, Hd) at the fine resolution.
 template <int CO>
@@ -1064,30 +1052,12 @@ __device__ __forceinline__ void gate_logits_mma(const float (&w)[CO / 8][4], con
                                                 const float* __restrict__ b2, const MmaTile& g,
                                                 int i, int act, float slope,
                                                 float (&l)[CO / 8][4]) {
-  constexpr int LO = CO + 8, LH = kMmaHd + 8, NT = CO / 8;
-  const int lane = threadIdx.x & 31, q = lane >> 2, col = 2 * (lane & 3);
+  const int q = (threadIdx.x & 31) >> 2;
   uint32_t wa[CO / 16][4];
   to_a_frags(wa, w);
-  float hc[2][4];
-  zero(hc);
-  mma_kn<CO / 16, 2>(hc, wa, W1, LH, 0);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float* ppl = pp + ((size_t)(g.r0 + i) * g.W + g.c0 + q + 8 * (e >> 1)) * kMmaHd;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int j = nt * 8 + col + (e & 1);
-      hc[nt][e] = round_cd<bf16>(activate(hc[nt][e] + ppl[j] + b1[j], act, slope));
-    }
-  }
-  const uint32_t ha[1][4] = {{pack_bf16(hc[0][0], hc[0][1]), pack_bf16(hc[0][2], hc[0][3]),
-                              pack_bf16(hc[1][0], hc[1][1]), pack_bf16(hc[1][2], hc[1][3])}};
-  zero(l);
-  mma_kn<1, NT>(l, ha, W2, LO, 0);
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) l[nt][e] += b2[nt * 8 + col + (e & 1)];
+  const float* ppl = pp + ((size_t)(g.r0 + i) * g.W + g.c0 + q) * kMmaHd;
+  float u[2][4], h[2][4];
+  gate_mlp_mma<CO / 16, CO / 8>(wa, W1, W2, ppl, ppl + 8 * kMmaHd, b1, b2, act, slope, u, h, l);
 }
 
 // The block's output tile Y [kTilePix][CO + 8] (bf16, row-major pixels) to

@@ -21,6 +21,14 @@ per-(n, channel) sum c of the softmax Jacobian) and
 `softmax_gate_backward` (pass B, dx and every weight gradient). Sigmoid,
 each one pass: `sigmoid_gate` and `sigmoid_gate_backward`. Each wrapper
 counts its kernel launches in its `launches` attribute.
+
+`softmax_gate_backward` has two routes, which `gate_bwd_route` picks from
+the dtype and the widths: "mma" (bf16 at (C, Hd, Cout) = (64, 16, 64) with
+HW a multiple of 128, on the tensor cores: `softmax_bwd_mma`) and "simt"
+(f32 FMAs on the CUDA cores: f32, every other width, a gate with Cout 1).
+Each route's launches are counted apart too (`launches_mma`,
+`launches_simt`); `route="simt"` sends a bf16 call to the simt kernel, to
+compare the two on one card. The sigmoid backward keeps the simt kernel.
 `fused_locate_attention` runs them through a first-order
 `torch.autograd.Function` per mode, `SoftmaxGate` or `SigmoidGate`, as
 `_make_fused_core` does in JAX.
@@ -29,13 +37,16 @@ counts its kernel launches in its `launches` attribute.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Tuple
+import functools
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.cuda import build
+# the two routes and their launch counting are the flash wrappers' own
+from locate_tpu_torch.ops.flash_attention import _ROUTE_CODE, MMA, SIMT, _count
 
 # activation codes of csrc/fused_attention.cu
 ACT_CODES = {"leaky_relu": 0, "relu": 1, "silu": 2, "gelu": 3}
@@ -49,6 +60,11 @@ _MAX_SMEM = 232448
 
 # blocks the backward kernel aims for: two per SM of the H100's 132
 _BWD_TARGET_BLOCKS = 264
+
+# (C, Hd, Cout) of the backward's mma template (csrc/fused_attention.cu:
+# softmax_bwd_mma), and its tile of locations, which must divide HW
+GATE_MMA_WIDTHS = (64, 16, 64)
+GATE_MMA_TILE = 128
 
 
 def _act(kind: str, slope: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -239,7 +255,7 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_apply.restype = i
         lib.locate_softmax_csum.argtypes = [i] + [p] * 11 + [i] * 7 + [f, f, f, p]
         lib.locate_softmax_csum.restype = i
-        lib.locate_softmax_bwd.argtypes = [i] + [p] * 15 + [i] * 8 + [f, f, f, p]
+        lib.locate_softmax_bwd.argtypes = [i, i] + [p] * 15 + [i] * 8 + [f, f, f, p]
         lib.locate_softmax_bwd.restype = i
         lib.locate_sigmoid_gate.argtypes = [i] + [p] * 7 + [i] * 7 + [f, f, p]
         lib.locate_sigmoid_gate.restype = i
@@ -249,6 +265,10 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_smem_bytes.restype = ctypes.c_size_t
         lib.locate_softmax_bwd_smem_bytes.argtypes = [i] * 4
         lib.locate_softmax_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.locate_softmax_bwd_mma_smem_bytes.argtypes = [i] * 3
+        lib.locate_softmax_bwd_mma_smem_bytes.restype = ctypes.c_size_t
+        lib.locate_softmax_bwd_mma_blocks_per_sm.argtypes = []
+        lib.locate_softmax_bwd_mma_blocks_per_sm.restype = i
         lib.locate_cuda_error_string.argtypes = [i]
         lib.locate_cuda_error_string.restype = ctypes.c_char_p
         lib._locate_typed = True
@@ -443,21 +463,72 @@ def bwd_grid(n: int, hw: int, c: int) -> Tuple[int, int]:
     return t, -(-n // nb)
 
 
-def _launch_backward(fn: str, ops, x2d, w1x, w2, act, floats):
+def gate_bwd_route(dtype: torch.dtype, hw: int, c: int, hd: int, cout: int) -> str:
+    """The kernel of `softmax_gate_backward`: "mma" for bf16 at the
+    template's (C, Hd, Cout) (`GATE_MMA_WIDTHS`) with HW a multiple of its
+    128-location tile, "simt" otherwise (f32 keeps its f32 products, every
+    other width and a gate with Cout 1 the simt kernel)."""
+    if (dtype == torch.bfloat16 and (c, hd, cout) == GATE_MMA_WIDTHS
+            and hw % GATE_MMA_TILE == 0):
+        return MMA
+    return SIMT
+
+
+def _gate_route_of(route: Optional[str], dtype: torch.dtype, hw: int, c: int, hd: int,
+                   cout: int) -> str:
+    """`route`, or `gate_bwd_route`'s choice where it is None; a route the
+    call cannot take raises."""
+    if route is None:
+        return gate_bwd_route(dtype, hw, c, hd, cout)
+    if route not in _ROUTE_CODE:
+        raise ValueError(f"route must be {MMA!r} or {SIMT!r}, got {route!r}")
+    if route == MMA and gate_bwd_route(dtype, hw, c, hd, cout) != MMA:
+        raise ValueError(f"the mma route takes bf16 at (C, Hd, Cout) = {GATE_MMA_WIDTHS} with "
+                         f"HW a multiple of {GATE_MMA_TILE}, got {dtype}, HW={hw}, C={c}, "
+                         f"Hd={hd}, Cout={cout}")
+    return route
+
+
+def bwd_mma_grid(n: int, hw: int, slots: int) -> int:
+    """Batch rows per block of the mma route, whose grid is (HW / 128
+    tiles, ceil(N / rows)): as many batch groups as keep the grid within
+    `slots` blocks (the blocks that fit on the card at once), at least one,
+    so that a block's weight-gradient sums stay in its registers over as
+    many rows as one wave allows."""
+    nb = min(n, max(1, slots // (hw // GATE_MMA_TILE)))
+    return -(-n // nb)
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_slots(device_index: int) -> int:
+    """Blocks of `softmax_bwd_mma` that fit on the card at once."""
+    per_sm = _library().locate_softmax_bwd_mma_blocks_per_sm()
+    if per_sm < 1:
+        raise RuntimeError(f"softmax backward (mma): no block fits on an SM ({per_sm})")
+    return torch.cuda.get_device_properties(device_index).multi_processor_count * per_sm
+
+
+def _launch_backward(fn: str, ops, x2d, w1x, w2, act, floats, route: Optional[str] = None):
     """Run the backward kernel `fn` of the C interface on its operands
     `ops` (x, dy, the gate's, and the softmax's statistics and c) and
     reduce its per-block partials: (dx, dpos_proj, dW1x, db1, dW2, db2) in
     f32 but dx, which is in x's dtype. `floats` follow the activation code
-    in the kernel's arguments."""
+    in the kernel's arguments; `route` leads them where the kernel has two
+    (None where it has one, the simt kernel)."""
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
     lib = _library()
-    t, rows = bwd_grid(n, hw, c)
-    smem = lib.locate_softmax_bwd_smem_bytes(c, hd, cout, t)
+    if route == MMA:
+        t, rows = GATE_MMA_TILE, bwd_mma_grid(n, hw, _mma_slots(x2d.device.index))
+        smem = lib.locate_softmax_bwd_mma_smem_bytes(c, hd, cout)
+    else:
+        t, rows = bwd_grid(n, hw, c)
+        smem = lib.locate_softmax_bwd_smem_bytes(c, hd, cout, t)
     if smem > _MAX_SMEM:
         raise ValueError(f"C={c}, Hd={hd}, Cout={cout} needs {smem} bytes of shared "
                          f"memory per backward block, over the card's {_MAX_SMEM}")
     tiles, nb = -(-hw // t), -(-n // rows)
+    lead = () if route is None else (_ROUTE_CODE[route],)
     sizes = (c * hd, hd * cout, hd, cout)
     with torch.cuda.device(x2d.device):
         f32 = dict(dtype=torch.float32, device=x2d.device)
@@ -468,10 +539,10 @@ def _launch_backward(fn: str, ops, x2d, w1x, w2, act, floats):
         dpp = torch.empty((hw, hd), **f32)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = getattr(lib, fn)(
-            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops), dx.data_ptr(),
+            *lead, int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops), dx.data_ptr(),
             part_w.data_ptr(), part_pp.data_ptr(), dw.data_ptr(), dpp.data_ptr(), n, hw, c,
             hd, cout, t, rows, ACT_CODES[act], *floats, stream)
-    _check(lib, err, fn)
+    _check(lib, err, fn if route is None else f"{fn} ({route})")
     dw1, dw2, db1, db2 = dw.split(sizes)
     return dx, dpp, dw1.view(c, hd), db1, dw2.view(hd, cout), db2
 
@@ -483,26 +554,36 @@ def _cast_grads(grads, pos_proj, w1x, b1, w2, b2):
 
 
 def softmax_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, *, act,
-                          leaky_slope, hw_scale, gate_max):
+                          leaky_slope, hw_scale, gate_max, route=None):
     """(dx, dpos_proj, dW1x, db1, dW2, db2), backward pass B, each cast to
-    its input's dtype. CUDA tensors: the backward kernel and two
-    fixed-order reductions of its per-block partials (replaces
-    `_bwd_kernel_softmax`); CPU tensors: the plain version."""
+    its input's dtype. CUDA tensors: the backward kernel on `route`
+    (`gate_bwd_route`'s choice unless given: `softmax_bwd_mma` on the
+    tensor cores or the simt `softmax_bwd`) and two fixed-order reductions
+    of its per-block partials (replaces `_bwd_kernel_softmax`); CPU
+    tensors: the plain version (a route the call cannot take raises on
+    both)."""
+    if x2d.dim() != 3:
+        raise ValueError(f"x2d must be (N, HW, C), got {tuple(x2d.shape)}")
+    route = _gate_route_of(route, x2d.dtype, x2d.shape[1], x2d.shape[2], w1x.shape[1],
+                           w2.shape[1])
     if x2d.device.type == "cpu":
         return softmax_gate_backward_reference(
             x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act=act,
             leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
     if x2d.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2d.device}")
-    ops = _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act)
-    csum = _stats_operand("c", csum, x2d.shape[0], w2.shape[1], x2d.device)
-    grads = _launch_backward("locate_softmax_bwd", (*ops, csum), x2d, w1x, w2, act,
-                             (float(leaky_slope), float(hw_scale), float(gate_max)))
-    softmax_gate_backward.launches += 1
+    ops = (*_bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act),
+           _stats_operand("c", csum, x2d.shape[0], w2.shape[1], x2d.device))
+    if route == MMA:  # cp.async and ldmatrix move 16 bytes at a time
+        ops = tuple(o if o.data_ptr() % 16 == 0 else o.clone() for o in ops)
+    grads = _launch_backward("locate_softmax_bwd", ops, x2d, w1x, w2, act,
+                             (float(leaky_slope), float(hw_scale), float(gate_max)), route)
+    _count(softmax_gate_backward, route)
     return _cast_grads(grads, pos_proj, w1x, b1, w2, b2)
 
 
 softmax_gate_backward.launches = 0
+softmax_gate_backward.launches_mma = softmax_gate_backward.launches_simt = 0
 
 
 def sigmoid_gate(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, gate_max):

@@ -1,0 +1,245 @@
+"""The routes of `softmax_gate_backward`, on the CPU: which kernel
+`gate_bwd_route` picks (mma: bf16 on the tensor cores at (C, Hd, Cout) =
+(64, 16, 64) with HW a multiple of 128; simt: f32 and every other width),
+what the wrapper refuses, that a CPU call runs the plain version and counts
+no launch, the mma route's grid, and what chip_smoke.py reads of the mma
+kernel (its name in ptxas and SASS listings, the route counts of a train
+step, the kernels line). The kernel itself runs on the card only
+(tests/test_torch_kernels_gpu.py, `-k gate_bwd_mma`)."""
+
+import importlib.util
+import os
+import stat
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from locate_tpu_torch.ops import fused_attention as fa
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OPTS = dict(act="leaky_relu", leaky_slope=0.2, gate_max=16.0)
+
+# (HW, C, Hd) of lsun_bedroom_128's gates at C >= 128 (G's 4^2-16^2, D's
+# 32^2-4^2): the widths that stay on the simt route
+WIDE_SHAPES = [(16, 512, 128), (64, 256, 64), (256, 128, 32), (1024, 128, 32),
+               (256, 256, 64), (64, 512, 128)]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("hw", [128, 1024, 4096, 16384, 65536, 262144])
+def test_bf16_at_the_template_takes_the_mma_route(hw):
+    assert fa.GATE_MMA_WIDTHS == (64, 16, 64) and fa.GATE_MMA_TILE == 128
+    assert fa.gate_bwd_route(torch.bfloat16, hw, 64, 16, 64) == fa.MMA
+
+
+@pytest.mark.parametrize("dtype,hw,c,hd,cout", [
+    (torch.float32, 1024, 64, 16, 64),        # f32 keeps f32 products
+    (torch.float16, 1024, 64, 16, 64),
+    *[(torch.bfloat16, hw, c, hd, c) for hw, c, hd in WIDE_SHAPES],
+    (torch.bfloat16, 1024, 64, 16, 1),        # a gate broadcast over the channels
+    (torch.bfloat16, 1024, 64, 32, 64),       # Hd != 16
+    (torch.bfloat16, 1024, 64, 8, 64),
+    (torch.bfloat16, 1000, 64, 16, 64),       # 128 does not divide HW
+    (torch.bfloat16, 64, 64, 16, 64),
+    (torch.bfloat16, 16448, 64, 16, 64),
+])
+def test_everything_else_takes_the_simt_route(dtype, hw, c, hd, cout):
+    assert fa.gate_bwd_route(dtype, hw, c, hd, cout) == fa.SIMT
+
+
+def _gate(dtype, n=2, hw=256, c=64, hd=16, cout=64, seed=0):
+    """(x, dy, pos_proj, w1x, b1, w2, b2, m, se, c) of a small gate, made
+    with numpy; the statistics and c from the plain passes."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, hw, c), dtype=np.float32)).to(dtype)
+    dy = torch.from_numpy(rng.standard_normal((n, hw, c), dtype=np.float32)).to(dtype)
+    pp = torch.from_numpy(rng.standard_normal((hw, hd), dtype=np.float32) * 0.5)
+    w1 = torch.from_numpy(rng.standard_normal((c, hd), dtype=np.float32) / np.sqrt(c))
+    b1 = torch.from_numpy(rng.standard_normal(hd, dtype=np.float32) * 0.1)
+    w2 = torch.from_numpy(rng.standard_normal((hd, cout), dtype=np.float32) * 3 / np.sqrt(hd))
+    b2 = torch.from_numpy(rng.standard_normal(cout, dtype=np.float32) * 0.1)
+    kw = dict(act=OPTS["act"], leaky_slope=OPTS["leaky_slope"])
+    m, se = fa.softmax_gate_stats_reference(x, pp, w1, b1, w2, b2, **kw)
+    cs = fa.softmax_gate_csum_reference(x, dy, pp, w1, b1, w2, b2, m, se, hw_scale=float(hw),
+                                        **OPTS)
+    return x, dy, pp, w1, b1, w2, b2, m, se, cs
+
+
+def _counts():
+    f = fa.softmax_gate_backward
+    return f.launches, f.launches_mma, f.launches_simt
+
+
+@pytest.mark.parametrize("route", [None, "mma", "simt"])
+def test_cpu_backward_runs_the_plain_version_on_any_route(route):
+    """On CPU tensors the route names the card's kernels only: the plain
+    version runs, bitwise, and no launch is counted."""
+    ops = _gate(torch.bfloat16)
+    before = _counts()
+    got = fa.softmax_gate_backward(*ops, hw_scale=256.0, route=route, **OPTS)
+    want = fa.softmax_gate_backward_reference(*ops, hw_scale=256.0, **OPTS)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert _counts() == before
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == (2, 256, 64)
+
+
+@pytest.mark.parametrize("dtype,hw,hd,cout", [
+    (torch.float32, 256, 16, 64),    # f32
+    (torch.bfloat16, 200, 16, 64),   # 128 does not divide HW
+    (torch.bfloat16, 256, 8, 64),    # Hd != 16
+    (torch.bfloat16, 256, 16, 1),    # Cout 1
+])
+def test_mma_route_on_an_unfit_call_raises(dtype, hw, hd, cout):
+    """An explicit mma route raises where the template cannot take the call,
+    on the CPU too."""
+    ops = _gate(dtype, hw=hw, hd=hd, cout=cout)
+    with pytest.raises(ValueError, match="mma route"):
+        fa.softmax_gate_backward(*ops, hw_scale=float(hw), route=fa.MMA, **OPTS)
+
+
+def test_mma_route_refuses_a_wider_gate():
+    ops = _gate(torch.bfloat16, n=1, hw=256, c=128, hd=32, cout=128)
+    with pytest.raises(ValueError, match="mma route"):
+        fa.softmax_gate_backward(*ops, hw_scale=256.0, route=fa.MMA, **OPTS)
+    assert len(fa.softmax_gate_backward(*ops, hw_scale=256.0, route=fa.SIMT, **OPTS)) == 6
+
+
+def test_unknown_route_raises():
+    ops = _gate(torch.bfloat16)
+    with pytest.raises(ValueError, match="route must be"):
+        fa.softmax_gate_backward(*ops, hw_scale=256.0, route="wgmma", **OPTS)
+
+
+def test_the_sigmoid_backward_has_no_route():
+    """The sigmoid gate's backward keeps its one (simt) kernel: it takes no
+    route and counts no routes."""
+    import inspect
+
+    assert "route" not in inspect.signature(fa.sigmoid_gate_backward).parameters
+    assert not hasattr(fa.sigmoid_gate_backward, "launches_mma")
+
+
+@pytest.mark.parametrize("n,hw,slots,rows", [
+    (64, 16384, 132, 64),    # 128 tiles: one batch group, one wave
+    (64, 4096, 132, 16),     # 32 tiles x 4 groups
+    (64, 1024, 132, 4),      # 8 tiles x 16 groups
+    (64, 1024, 264, 2),
+    (16, 65536, 132, 16),    # more tiles than slots: one group
+    (16, 262144, 132, 16),
+    (4, 1024, 132, 1),       # fewer rows than groups would take
+    (5, 128, 132, 1),
+])
+def test_mma_grid_fills_one_wave(n, hw, slots, rows):
+    """Batch rows per block of the mma route: as many batch groups as keep
+    (tiles x groups) within the card's slots, each row in one group."""
+    assert fa.bwd_mma_grid(n, hw, slots) == rows
+    tiles, groups = hw // fa.GATE_MMA_TILE, -(-n // rows)
+    assert groups * rows >= n and (groups - 1) * rows < n
+    assert tiles * groups <= max(slots, tiles)
+
+
+def test_simt_grid_is_unchanged():
+    assert fa.bwd_grid(64, 16384, 64) == (64, 32)
+    assert fa.bwd_grid(16, 262144, 64) == (64, 16)
+
+
+def test_lsun_step_route_counts(smoke):
+    """A lsun_bedroom_128 train step runs softmax_bwd 24 times: 9 on the mma
+    route (G's 1024, 4096 and 16384; D's 16384 and 4096, three times
+    each) and 15 on the simt route; ffhq_512's 32: 17 and 15."""
+    assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP) == {"mma": 9, "simt": 15}
+    assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP, 3) == {"mma": 27, "simt": 45}
+    assert sum(smoke.FFHQ_BWD_PER_STEP.values()) == smoke.FFHQ_GATE_PER_STEP["softmax_bwd"]
+    assert smoke.gate_routes_per_step(fa, smoke.FFHQ_BWD_PER_STEP) == {"mma": 17, "simt": 15}
+    assert smoke.gate_routes_per_step(fa, {}) == {"mma": 0, "simt": 0}
+    assert smoke.read_gate_routes().keys() == {"mma", "simt"}
+
+
+def test_phases_4_and_8_cover_the_template(smoke):
+    """Phases 4 and 8 run every C = 64 shape of the two main paths in bf16,
+    the shapes the mma route takes, and one f32 shape (simt)."""
+    bf16 = {(hw, c, hd) for hw, c, hd, d in smoke.cases() + smoke.ffhq_gate_cases()
+            if d == torch.bfloat16 and fa.gate_bwd_route(d, hw, c, hd, c) == fa.MMA}
+    assert bf16 == {(1024, 64, 16), (4096, 64, 16), (16384, 64, 16), (65536, 64, 16),
+                    (262144, 64, 16)}
+    hw, c, hd, d = smoke.cases()[-1]
+    assert d == torch.float32 and fa.gate_bwd_route(d, hw, c, hd, c) == fa.SIMT
+
+
+GATE_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115softmax_bwd_mmaILb0EEEvPK13__nv_bfloat16S3_PKfS3_S5_S3_S5_S5_S5_S5_PS1_PfS7_iiiiiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115softmax_bwd_mmaILb0EEEvPK13__nv_bfloat16S3_PKfS3_S5_S3_S5_S5_S5_S5_PS1_PfS7_iiiiiff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, 472 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111softmax_bwdI13__nv_bfloat16EEvPKT_S4_PKfS4_S6_S4_S6_S6_S6_S6_PS2_PfS8_iiiiiiiifff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111softmax_bwdI13__nv_bfloat16EEvPKT_S4_PKfS4_S6_S4_S6_S6_S6_S6_PS2_PfS8_iiiiiiiifff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 480 bytes cmem[0]
+"""
+
+
+def test_ptxas_names_the_gate_mma_kernel(smoke):
+    """softmax_bwd_mma keeps a name of its own, apart from the simt kernel
+    whose name it contains."""
+    assert smoke.GATE_MMA_KERNELS == ("softmax_bwd_mma",)
+    assert (smoke.ALL_CUDA_KERNELS.index("softmax_bwd_mma")
+            < smoke.ALL_CUDA_KERNELS.index("softmax_bwd"))
+    kernels = smoke.parse_ptxas(GATE_PTXAS_LOG)
+    assert set(kernels) == {"softmax_bwd_mma", "softmax_bwd<bf16>"}
+    assert kernels["softmax_bwd_mma"]["registers"] == 168
+    assert kernels["softmax_bwd_mma"]["spill_stores"] == 0
+
+
+def test_sass_counts_the_gate_mma_kernel(smoke, tmp_path, monkeypatch):
+    listing = tmp_path / "listing.txt"
+    listing.write_text(
+        "\t\tFunction : _ZN12_GLOBAL__N_115softmax_bwd_mmaILb0EEEvPK13__nv_bfloat16S3_PKf\n"
+        "        /*0100*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;\n"
+        "        /*0110*/                   LDSM.16.MT88.4 R8, [R2] ;\n"
+        "        /*0120*/                   HMMA.16816.F32.BF16 R28, R4, R22, R28 ;\n"
+        "\t\tFunction : _ZN12_GLOBAL__N_111softmax_bwdI13__nv_bfloat16EEvPKT_S4_PKf\n"
+        "        /*0100*/                   FFMA R1, R2, R3, R1 ;\n")
+    tool = tmp_path / "cuobjdump"
+    tool.write_text(f"#!{sys.executable}\nimport sys\nprint(open({str(listing)!r}).read())\n")
+    tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(smoke, "cuobjdump_path", lambda: str(tool))
+    assert smoke.sass_tensor_ops("lib.so") == {"softmax_bwd_mma": 2, "softmax_bwd<bf16>": 0}
+
+
+def test_kernels_line_carries_the_gate_routes(smoke):
+    """Row 5 of the kernels line: the per-step time on the routes the
+    wrapper picks, beside the simt route's time of the same launches and
+    the main path's launches on the mma route."""
+    rows = []
+    for hw, c, hd in smoke.SHAPES:
+        route = fa.gate_bwd_route(torch.bfloat16, hw, c, hd, c)
+        t = dict(ms=1.0 if route == fa.MMA else 2.0, plain_ms=3.0, bound_ms=0.1,
+                 bound_by="bytes", route=route)
+        if route == fa.MMA:
+            t["ms_simt"] = 4.0
+        rows.append(dict(shape=dict(N=smoke.BATCH, HW=hw, C=c, Hd=hd, Cout=c),
+                         dtype="bfloat16", softmax_bwd=t,
+                         **{f"{n}_max_abs_err": 0.01 for n in smoke.GRAD_NAMES}))
+    launches = smoke.expected({"softmax_bwd": 24}, 3)
+    routes = smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP, 3)
+    entry = smoke.gate_entry("softmax_bwd", [], rows, launches, launches, launches, routes)
+    assert entry["ms"] == 9 * 1.0 + 15 * 2.0
+    assert entry["ms_simt"] == 9 * 4.0 + 15 * 2.0
+    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 27
+    assert entry["launches"] == 72 and entry["route"] == "cuda"
+    assert {s["route"] for s in entry["shapes"]} == {"mma", "simt"}
+    assert sum("ms_simt" in s for s in entry["shapes"]) == 3
+    for key in ("name", "source", "replaces", "max_abs_err", "plain_ms", "bound_ms",
+                "bound_by", "library_ms"):
+        assert key in entry

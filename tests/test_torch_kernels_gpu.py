@@ -140,13 +140,17 @@ def test_launch_counters_and_forward_only(cuda):
     assert w1.grad is not None and bool(torch.isfinite(w1.grad).all())
 
 
-def run_backward(ops, dy, act, gate_max, hw, kernel):
+def run_backward(ops, dy, act, gate_max, hw, kernel, route=None):
     """(c, dx, dpos_proj, dW1x, db1, dW2, db2): stats, csum and backward,
-    all kernels or all plain versions."""
+    all kernels (the backward on `route`, the wrapper's choice where None)
+    or all plain versions."""
     kw = dict(act=act, leaky_slope=0.2)
     opts = dict(hw_scale=float(hw), gate_max=gate_max, **kw)
     if kernel:
-        stats, csum, bwd = fa.softmax_gate_stats, fa.softmax_gate_csum, fa.softmax_gate_backward
+        stats, csum = fa.softmax_gate_stats, fa.softmax_gate_csum
+
+        def bwd(*args, **kw):
+            return fa.softmax_gate_backward(*args, route=route, **kw)
     else:
         stats = fa.softmax_gate_stats_reference
         csum = fa.softmax_gate_csum_reference
@@ -169,8 +173,8 @@ def grad_errors(got, truth):
     return errs
 
 
-def check_backward(ops, dy, act, gate_max, hw):
-    kern = run_backward(ops, dy, act, gate_max, hw, kernel=True)
+def check_backward(ops, dy, act, gate_max, hw, route=None):
+    kern = run_backward(ops, dy, act, gate_max, hw, kernel=True, route=route)
     if ops[0].dtype == torch.float32:
         plain = run_backward(ops, dy, act, gate_max, hw, kernel=False)
         for name, e in grad_errors(kern, plain).items():
@@ -261,6 +265,89 @@ def test_function_gradients_on_the_card(cuda):
         scale = want[4] if i == 5 else w  # db2 against dW2, as above
         err = float((g.reshape(w.shape) - w).norm() / scale.norm().clamp_min(1e-12))
         assert err <= F32_TOL, (i, err)
+
+
+def gate_route_counts():
+    f = fa.softmax_gate_backward
+    return f.launches, f.launches_mma, f.launches_simt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate_max", [16.0, 1.5])
+@pytest.mark.parametrize("n,hw", [(2, 1024), (4, 4096)])
+def test_gate_bwd_mma_route_against_plain(cuda, n, hw, gate_max):
+    """softmax_bwd_mma (the wrapper's choice at bf16, C = 64, Hd = 16) and the
+    simt kernel on the same inputs, each under the bf16 rule; at gate_max
+    1.5 the clamp binds at a part of the locations."""
+    ops = make_inputs(n, hw, 64, 16, 64, torch.bfloat16, cuda, seed=11)
+    dy = make_dy(n, hw, 64, torch.bfloat16, cuda, seed=12)
+    assert fa.gate_bwd_route(torch.bfloat16, hw, 64, 16, 64) == fa.MMA
+    before = gate_route_counts()
+    check_backward(ops, dy, "leaky_relu", gate_max, hw)
+    after = gate_route_counts()
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (1, 1, 0)
+    check_backward(ops, dy, "leaky_relu", gate_max, hw, route=fa.SIMT)
+    assert gate_route_counts()[2] == after[2] + 1
+    if gate_max < 16.0:
+        with torch.no_grad():
+            pm, ps = fa.softmax_gate_stats_reference(ops[0].float(), *ops[1:],
+                                                     act="leaky_relu", leaky_slope=0.2)
+            l = fa.gate_logits_reference(ops[0].float(), *ops[1:], act="leaky_relu",
+                                         leaky_slope=0.2)
+            share = float((torch.exp(l - pm) / ps * hw > gate_max).float().mean())
+        assert 0.01 < share < 0.99, share
+
+
+@pytest.mark.gpu
+def test_gate_bwd_mma_relu_against_plain(cuda):
+    ops = make_inputs(3, 2048, 64, 16, 64, torch.bfloat16, cuda, seed=13)
+    check_backward(ops, make_dy(3, 2048, 64, torch.bfloat16, cuda), "relu", 0.0, 2048,
+                   route=fa.MMA)
+
+
+@pytest.mark.gpu
+def test_gate_bwd_mma_is_bitwise_repeatable(cuda):
+    ops = make_inputs(8, 4096, 64, 16, 64, torch.bfloat16, cuda, seed=14)
+    dy = make_dy(8, 4096, 64, torch.bfloat16, cuda)
+    first = run_backward(ops, dy, "leaky_relu", 16.0, 4096, kernel=True, route=fa.MMA)
+    second = run_backward(ops, dy, "leaky_relu", 16.0, 4096, kernel=True, route=fa.MMA)
+    for name, a, b in zip(GRAD_NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_gate_bwd_mma_route_counters_after_one_gate(cuda):
+    """One SoftmaxGate forward and backward at the template's widths: stats
+    and apply once, csum once, the backward once on the mma route."""
+    ops = make_inputs(2, 1024, 64, 16, 64, torch.bfloat16, cuda, seed=15)
+    w1 = ops[2].clone().requires_grad_(True)
+    before = gate_route_counts()
+    y = fa.fused_locate_attention(ops[0].reshape(2, 32, 32, 64), ops[1], w1, *ops[3:],
+                                  gate_max=16.0)
+    y.float().sum().backward()
+    after = gate_route_counts()
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
+    assert w1.grad is not None and bool(torch.isfinite(w1.grad).all())
+
+
+@pytest.mark.gpu
+def test_gate_bwd_mma_refuses_a_wider_gate(cuda):
+    """route="mma" at C = 128 raises in the wrapper; the C interface itself
+    refuses a call the template cannot take (cudaErrorInvalidValue) before
+    it reads an operand."""
+    ops = make_inputs(2, 1024, 128, 32, 128, torch.bfloat16, cuda)
+    dy = make_dy(2, 1024, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="mma route"):
+        run_backward(ops, dy, "leaky_relu", 16.0, 1024, kernel=True, route=fa.MMA)
+    lib = fa._library()
+    for bf16, hw, c, hd, cout, t in [(1, 1024, 128, 32, 128, 128), (0, 1024, 64, 16, 64, 128),
+                                     (1, 1000, 64, 16, 64, 128), (1, 1024, 64, 16, 64, 64)]:
+        err = lib.locate_softmax_bwd(1, bf16, *([None] * 15), 2, hw, c, hd, cout, t, 1, 0,
+                                     0.2, float(hw), 16.0, None)
+        assert err == 1, (bf16, hw, c, hd, cout, t, err)  # cudaErrorInvalidValue
+    assert lib.locate_softmax_bwd_mma_smem_bytes(128, 32, 128) == 0
+    assert lib.locate_softmax_bwd_mma_smem_bytes(64, 16, 64) <= fa._MAX_SMEM
+    assert lib.locate_softmax_bwd_mma_blocks_per_sm() >= 1
 
 
 # ---------------------------------------------------------------------------
