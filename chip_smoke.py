@@ -25,11 +25,12 @@ line each:
      three passes, with the blocks that fit on an SM; the SASS of every
      mma instance of the bf16 forward and backward (`cuobjdump -sass`)
      holds HMMA or HGMMA instructions, and none spills more than 16 bytes;
-     the four mma kernels of the stage (`stage_softmax_stats_mma`,
-     `stage_conv_bwd_mma`, `stage_conv_mma`, `stage_sigmoid_mma`) at each
-     (C, Co) template: HMMA in the SASS, no spill, registers, shared
-     memory and blocks an SM; the simt kernels' shared memory and blocks
-     an SM beside them; the gate backward's mma kernel (`softmax_bwd_mma`)
+     the five mma kernels of the stage (`stage_softmax_stats_mma`,
+     `stage_conv_bwd_mma`, `stage_conv_mma`, `stage_sigmoid_mma` at each
+     (C, Co) template, `stage_softmax_apply_pool_mma` at (64, 64)): HMMA
+     in the SASS, no spill, registers, shared memory and blocks an SM; the
+     simt kernels' shared memory and blocks an SM beside them; the gate
+     backward's two mma kernels (`softmax_bwd_mma`, `sigmoid_bwd_mma`)
      alike: HMMA in the SASS, no spill, registers, shared memory and
      blocks an SM;
   3. the gate's forward kernels (stats, apply) against the plain version at
@@ -88,12 +89,12 @@ line each:
      plain, `up`, `down` and with a 1x1 skip (C 32), the conv backward plain
      and `up` (its outputs against their absolute-term scales, two f32 runs
      bitwise equal), the stats pass and the backward also with the 1x1
-     skip (C 32); the conv pass, the stats pass and the backward in bf16
-     on the mma route (the wrappers' choice) and, on the same inputs, the
-     simt route, both under the bf16 rule, each case twice and bitwise
-     equal, f32 on the simt route; each bf16 case timed beside its bound,
-     the plain version's time and the simt route's time (fails if the mma
-     route is not the faster);
+     skip (C 32); the conv pass, the stats pass, the pooled apply pass and
+     the backward in bf16 on the mma route (the wrappers' choice) and, on
+     the same inputs, the simt route, both under the bf16 rule, each case
+     twice and bitwise equal, f32 on the simt route; each bf16 case timed
+     beside its bound, the plain version's time and the simt route's time
+     (fails if the mma route is not the faster);
  10. ffhq_512 serving: one request of 4 through `generate_samples` (the
      launches of one forward: the stage's stats pass once, the gate's kernels
      at the seven stages below), the kernel path, the plain path and an f32
@@ -104,8 +105,9 @@ line each:
      shipped (R1 gamma 0.1 every 16 steps, remat, both guards) at batch 16,
      3 steps from step 0: the checks of 6, launches per step of all eight
      kernels as the step implies, every launch of stage_conv,
-     stage_softmax_stats and stage_conv_bwd on the mma route, softmax_bwd's
-     32 on their routes (17 mma, 15 simt), sec/step,
+     stage_softmax_stats, stage_softmax_apply_pool (6 a step) and
+     stage_conv_bwd on the mma route, softmax_bwd's 32 on their routes
+     (17 mma, 15 simt), sec/step,
      images/sec, peak memory, idle
      share and top kernels; the same steps again with the grad-norm guard
      raised to 1e9, where G's and D's updates all apply and G, D and the
@@ -128,7 +130,11 @@ line each:
      backward at the 512^2 stage's (262144, 64, 16), under the rules of 3
      and 4 at gate_max 1.5 (below the gate's ceiling of 2, so the clamp
      binds at about a third of the locations); two runs bitwise equal; each
-     timed beside its bound and the plain version's time;
+     timed beside its bound and the plain version's time; the backward at
+     (262144, 64, 16) in bf16 on the mma route (sigmoid_bwd_mma) and, on
+     the same inputs, the simt route, both under the rule, each twice
+     bitwise equal, timed (fails if the mma route is not the faster); the
+     shapes up to 16^2 and f32 on the simt route;
  16. the stage's sigmoid pass (stage_sigmoid) at 512^2 in G's `up` and
      D's `down` forms, plain and with a 1x1 skip, under the rules of 9 at
      gate_max 1.5, on both routes, timed alike;
@@ -137,8 +143,10 @@ line each:
  18. ffhq_512-sigmoid training as 11: 27 / 16 / 9 launches a step of
      sigmoid_gate / sigmoid_bwd / stage_sigmoid, 4 of stage_conv and of
      stage_conv_bwd, none of the softmax kernels; the three stage kernels
-     on the mma route;
- 19. as 12, the four sigmoid stage backward calls of one step;
+     on the mma route; sigmoid_bwd's 16 on their routes (4 mma at the
+     512^2 stages, 12 simt);
+ 19. as 12, the four sigmoid stage backward calls of one step, their gate
+     backward on the mma route;
  20. as 13, at 64^2 with every sigmoid stage fused;
  21. one sigmoid attention layer at ffhq_512's shapes from 32^2 to 256^2
      (C 64), forward and forward plus backward through the kernels and the
@@ -177,9 +185,9 @@ line each:
      gradients against the plain path (the tolerance of 6), each call
      within 1e-4;
  26. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
-     flash kernels, the four routed stage kernels and softmax_bwd with their
-     mma-route launches and the simt route's time of the same launches
-     beside their own);
+     flash kernels, the five routed stage kernels, softmax_bwd and
+     sigmoid_bwd with their mma-route launches and the simt route's time of
+     the same launches beside their own);
  27. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -221,9 +229,9 @@ SHAPES = G_SHAPES + [s for s in D_SHAPES if s not in G_SHAPES]
 SERVE = {s: int(s in G_SHAPES) for s in SHAPES}
 FWD_PER_STEP = {s: 2 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
 BWD_PER_STEP = {s: 1 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
-# the gate backward's tensor-core instance (its mma route: bf16 at (C, Hd,
-# Cout) = (64, 16, 64)); it must hold HMMA and not spill
-GATE_MMA_KERNELS = ("softmax_bwd_mma",)
+# the gate backward's tensor-core kernels, one body (their mma route: bf16
+# at (C, Hd, Cout) = (64, 16, 64)); each must hold HMMA and not spill
+GATE_MMA_KERNELS = ("softmax_bwd_mma", "sigmoid_bwd_mma")
 F32_SHAPE = (1024, 64, 16)
 F32_TOL = 1e-4
 # a whole step's gradient tree at 64^2, kernel path vs plain path, f32: at
@@ -257,13 +265,15 @@ CUDA_KERNELS = ("softmax_stats_partial", "softmax_stats_merge", "softmax_apply",
 STAGE_SOURCE = "locate_tpu_torch/csrc/fused_stage.cu"
 STAGE_KERNELS = ("stage_conv", "stage_softmax_stats", "stage_softmax_apply_pool",
                  "stage_conv_bwd")
-# the tensor-core instances of the routed stage kernels (their mma route,
-# bf16), templates on (C, Co); each must hold HMMA and not spill
+# the tensor-core kernels of the routed stage wrappers (their mma route,
+# bf16), the first four templates on (C, Co), the apply-pool pass's at
+# (64, 64) only; each must hold HMMA and not spill
 STAGE_MMA_KERNELS = ("stage_softmax_stats_mma", "stage_conv_bwd_mma", "stage_conv_mma",
-                     "stage_sigmoid_mma")
-# the four wrappers with two routes, and the simt time each bf16 case of
+                     "stage_sigmoid_mma", "stage_softmax_apply_pool_mma")
+# the five wrappers with two routes, and the simt time each bf16 case of
 # phases 9 and 16 must beat on the mma route
-STAGE_ROUTED = ("stage_softmax_stats", "stage_conv_bwd", "stage_conv", "stage_sigmoid")
+STAGE_ROUTED = ("stage_softmax_stats", "stage_conv_bwd", "stage_conv", "stage_sigmoid",
+                "stage_softmax_apply_pool")
 STAGE_CUDA_KERNELS = ("stage_conv_bwd", "stage_softmax_apply_pool", "stage_softmax_stats",
                       "stage_conv", "stage_sigmoid", "softmax_stats_merge", "reduce_partials")
 FLASH_SOURCE = "locate_tpu_torch/csrc/flash_attention.cu"
@@ -741,13 +751,14 @@ def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
     return rows
 
 
-def run_sigmoid(fa, ops, dy, plain: bool, forward: bool = True):
+def run_sigmoid(fa, ops, dy, plain: bool, forward: bool = True, route=None):
     """(y, dx, dpos_proj, dW1x, db1, dW2, db2) of the sigmoid gate at
-    SIGMOID_GATE_MAX, kernels or plain versions; y is None without
-    `forward`."""
+    SIGMOID_GATE_MAX, kernels (the backward on `route`, the wrapper's
+    choice where None) or plain versions; y is None without `forward`."""
     kw = dict(gate_max=SIGMOID_GATE_MAX, **KW)
     fwd = fa.sigmoid_gate_reference if plain else fa.sigmoid_gate
-    bwd = fa.sigmoid_gate_backward_reference if plain else fa.sigmoid_gate_backward
+    bwd = (fa.sigmoid_gate_backward_reference if plain
+           else lambda *a, **k: fa.sigmoid_gate_backward(*a, route=route, **k))
     return (fwd(*ops, **kw) if forward else None, *bwd(ops[0], dy, *ops[1:], **kw))
 
 
@@ -768,26 +779,45 @@ def sigmoid_term_scales(fa, x2d, dy, pp, w1x, b1, w2, b2):
             du.sum(dim=(0, 1)), torch.einsum("nsh,nsc->hc", h.abs(), dl), dl.sum(dim=(0, 1)))
 
 
+def sigmoid_gate_cases():
+    """Phase 15's (HW, C, Hd, dtype, forward) cases: ffhq_512's five gate
+    shapes up to 16^2 in bf16 and one in f32, forward and backward, and the
+    backward alone at the 512^2 stage's shape in bf16."""
+    return ([(hw, c, hd, torch.bfloat16, True) for hw, c, hd in SIGMOID_SHAPES]
+            + [(*SIGMOID_F32_SHAPE, torch.float32, True),
+               (*SIGMOID_STAGE_BWD_SHAPE, torch.bfloat16, False)])
+
+
 def phase_sigmoid_gate(fa):
     """Phase 15: the sigmoid gate's two kernels against their plain versions
     at ffhq_512's five gate shapes up to 16^2, batch 16, bf16, one of them
     also in f32, and the backward at the 512^2 stage's (262144, 64, 16),
     under the rules of phases 3-4 at gate_max 1.5 (the clamp binds at a
     part of the locations); two runs bitwise equal; each timed beside its
-    bound and the plain version's time."""
+    bound and the plain version's time. sigmoid_bwd runs on the route its
+    wrapper picks (`gate_bwd_route`); where that is the mma route (bf16 at
+    the 512^2 stage's shape), the simt route runs on the same inputs too,
+    under the same rule and twice bitwise equal, is timed beside it, and
+    must be the slower."""
     n = FFHQ_BATCH
-    cases = ([(hw, c, hd, torch.bfloat16, True) for hw, c, hd in SIGMOID_SHAPES]
-             + [(*SIGMOID_F32_SHAPE, torch.float32, True),
-                (*SIGMOID_STAGE_BWD_SHAPE, torch.bfloat16, False)])
     names = ("y",) + GRAD_NAMES[1:]
     kw = dict(gate_max=SIGMOID_GATE_MAX, **KW)
     rows = []
-    for i, (hw, c, hd, dtype, forward) in enumerate(cases):
+    for i, (hw, c, hd, dtype, forward) in enumerate(sigmoid_gate_cases()):
         ops, dy = gate_inputs(n, hw, c, hd, dtype, seed=600 + i)
         shape = dict(N=n, HW=hw, C=c, Hd=hd, Cout=c)
+        route = fa.gate_bwd_route(dtype, hw, c, hd, c)
         with torch.no_grad():
+            before = read_gate_routes("sigmoid_bwd")
             kern = run_sigmoid(fa, ops, dy, False, forward)
+            want = dict(before, **{route: before[route] + 1})
+            check(read_gate_routes("sigmoid_bwd") == want,
+                  f"sigmoid_bwd at {shape}: not on the {route} route")
             again = run_sigmoid(fa, ops, dy, False, forward)
+            simt = simt_again = None
+            if route == "mma":
+                simt = run_sigmoid(fa, ops, dy, False, False, route="simt")
+                simt_again = run_sigmoid(fa, ops, dy, False, False, route="simt")
             plain = run_sigmoid(fa, ops, dy, True, forward)
             truth = run_sigmoid(fa, [ops[0].float()] + ops[1:], dy.float(), True, forward)
             scales = (None, *sigmoid_term_scales(fa, ops[0].float(), dy, *ops[1:]))
@@ -796,17 +826,23 @@ def phase_sigmoid_gate(fa):
             del l
             torch.cuda.synchronize()
         row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""),
-                   gate_max=SIGMOID_GATE_MAX, clamped_share=clamped,
+                   gate_max=SIGMOID_GATE_MAX, clamped_share=clamped, route=route,
                    bwd_grid=dict(zip(("tile_rows", "batch_rows_per_block"),
                                      fa.bwd_grid(n, hw, c))))
         check(0.05 < clamped < 0.95, f"gate_max {SIGMOID_GATE_MAX} clamps {clamped} at {shape}")
         for name, k, a in zip(names, kern, again):
             check(k is None or torch.equal(k, a), f"{name} at {shape}: two runs differ bitwise")
+        if simt is not None:
+            for name, k, a in zip(names[1:], simt[1:], simt_again[1:]):
+                check(torch.equal(k, a), f"{name} at {shape} (simt): two runs differ bitwise")
         row["bitwise_repeatable"] = True
         for name, k, p, t, sc in zip(names, kern, plain, truth, scales):
             if k is not None:
                 hold(name, shape, k, p, t, dtype, row, scale=sc)
-        del kern, again, plain, truth, scales
+        if simt is not None:  # the simt route on the same inputs, under the same rule
+            for name, k, p, t, sc in zip(names[1:], simt[1:], plain[1:], truth[1:], scales[1:]):
+                hold(f"simt_{name}", shape, k, p, t, dtype, row, scale=sc)
+        del kern, again, simt, simt_again, plain, truth, scales
 
         kops = [ops[0], ops[1], ops[2].to(dtype), ops[3], ops[4].to(dtype), ops[5]]
         with torch.no_grad():
@@ -818,6 +854,14 @@ def phase_sigmoid_gate(fa):
                 "sigmoid_bwd", lambda: fa.sigmoid_gate_backward(kops[0], dy, *kops[1:], **kw),
                 lambda: fa.sigmoid_gate_backward_reference(kops[0], dy, *kops[1:], **kw),
                 n, hw, c, hd, dtype)
+            row["sigmoid_bwd"]["route"] = route
+            if route == "mma":
+                ms, ms_simt = row["sigmoid_bwd"]["ms"], graph_ms(
+                    lambda: fa.sigmoid_gate_backward(kops[0], dy, *kops[1:], route="simt", **kw))
+                row["sigmoid_bwd"]["ms_simt"] = ms_simt
+                row["sigmoid_bwd"]["share_of_bound_simt"] = row["sigmoid_bwd"]["bound_ms"] / ms_simt
+                check(ms < ms_simt, f"sigmoid_bwd at {shape}: the mma route ({ms:.4f} ms) is not "
+                                    f"faster than the simt route ({ms_simt:.4f} ms)")
             row["profiler_us_per_call"] = kernel_split(
                 lambda: fa.sigmoid_gate_backward(kops[0], dy, *kops[1:], **kw))
         say("sigmoid-gate-kernels-vs-plain", **row)
@@ -915,17 +959,18 @@ def read_counters() -> dict:
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def read_gate_routes() -> dict:
-    """{route: launches} of softmax_bwd, the gate wrapper with two routes."""
-    from locate_tpu_torch.ops import fused_attention as fa
-
-    return {r: getattr(fa.softmax_gate_backward, f"launches_{r}") for r in ("mma", "simt")}
+def read_gate_routes(kernel: str = "softmax_bwd") -> dict:
+    """{route: launches} of a gate backward wrapper with two routes
+    (softmax_bwd or sigmoid_bwd)."""
+    return {r: getattr(counters()[kernel], f"launches_{r}") for r in ("mma", "simt")}
 
 
 def gate_routes_per_step(fa, per_step: dict, steps: int = 1) -> dict:
-    """{route: launches} of softmax_bwd over `steps` steps that launch it
-    `per_step[(HW, C, Hd)]` times a step at each shape, bf16, Cout = C:
-    9 mma and 15 simt a lsun_bedroom_128 step, 17 and 15 an ffhq_512 one."""
+    """{route: launches} of a gate backward (softmax_bwd or sigmoid_bwd)
+    over `steps` steps that launch it `per_step[(HW, C, Hd)]` times a step
+    at each shape, bf16, Cout = C: softmax_bwd 9 mma and 15 simt a
+    lsun_bedroom_128 step, 17 and 15 an ffhq_512 one; sigmoid_bwd 4 and 12
+    an ffhq_512-sigmoid one."""
     out = {"mma": 0, "simt": 0}
     for (hw, c, hd), k in per_step.items():
         out[fa.gate_bwd_route(torch.bfloat16, hw, c, hd, c)] += k * steps
@@ -941,7 +986,7 @@ def read_route_counters() -> dict:
 
 
 def read_stage_routes() -> dict:
-    """{kernel: {route: launches}} of the two fused-stage wrappers with two
+    """{kernel: {route: launches}} of the fused-stage wrappers with two
     routes (STAGE_ROUTED)."""
     from locate_tpu_torch.ops import fused_stage as fs
 
@@ -1462,7 +1507,7 @@ def run_stage(fs, kind, ops, gate, form, dw=None, stats=None, plain=False, route
     """One fused-stage kernel (or its plain version) on `ops`: its outputs,
     named by STAGE_OUTPUTS[kind]. The apply pass takes x as w_pre, with
     the softmax statistics `stats` of its gate logits. `route` goes to the
-    two kernels of STAGE_ROUTED (None: the wrapper's choice)."""
+    kernels of STAGE_ROUTED (None: the wrapper's choice)."""
     up, down = form == "up", form == "down"
     routed = {} if plain else dict(route=route)
     if kind == "stage_conv":
@@ -1478,7 +1523,8 @@ def run_stage(fs, kind, ops, gate, form, dw=None, stats=None, plain=False, route
     if kind == "stage_softmax_apply_pool":
         h, w = ops[0].shape[1:3]
         fn = fs.stage_softmax_apply_pool_reference if plain else fs.stage_softmax_apply_pool
-        return (fn(ops[0], *gate, *stats, hw_scale=float(h * w), gate_max=16.0, **STAGE_KW),)
+        return (fn(ops[0], *gate, *stats, hw_scale=float(h * w), gate_max=16.0, **STAGE_KW,
+                   **routed),)
     fn = fs.stage_conv_bwd_reference if plain else fs.stage_conv_bwd
     return fn(ops[0], dw, *ops[1:5], ops[6], upsample=up, **STAGE_KW, **routed)
 
@@ -1546,10 +1592,10 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
     16, in bf16 (timed) and f32; the backward's outputs against their
     absolute-term scales, and bitwise repeatable in f32; the sigmoid pass
     at gate_max 1.5, where the clamp binds at a part of the pixels. The
-    kernels of STAGE_ROUTED (all but the apply-pool pass) run bf16 on the
-    mma route (the wrappers' choice) and, on the same inputs, on the simt
-    route, both under the bf16 rule, each case twice and bitwise equal;
-    the mma route must be the faster; f32 takes the simt route."""
+    kernels of STAGE_ROUTED (all five) run bf16 on the mma route (the
+    wrappers' choice) and, on the same inputs, on the simt route, both
+    under the bf16 rule, each case twice and bitwise equal; the mma route
+    must be the faster; f32 takes the simt route."""
     n = FFHQ_BATCH
     rows, times, max_err = [], {}, {}
     for i, (kind, form, c, co) in enumerate(cases):
@@ -1587,14 +1633,14 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
                 scales = ((None,) * len(kern) if dw is None
                           else conv_bwd_scales(fs, ops, dw, form == "up"))
                 if routed:
-                    again = run_stage(fs, kind, ops, gate, form, dw)
+                    again = run_stage(fs, kind, ops, gate, form, dw, stats)
                     for name, k, a in zip(STAGE_OUTPUTS[kind], kern, again):
                         check(k is None or torch.equal(k, a),
                               f"{kind} {form}: {name} differs bitwise between two runs")
                     row["bitwise_repeatable"] = True
                     del again
-                simt = (run_stage(fs, kind, ops, gate, form, dw, route=fs.SIMT)
-                        if routed and dtype == torch.bfloat16 else None)
+                simt = (run_stage(fs, kind, ops, gate, form, dw, stats, route=fs.SIMT)
+                         if routed and dtype == torch.bfloat16 else None)
                 torch.cuda.synchronize()
             for name, k, p, t, sc in zip(STAGE_OUTPUTS[kind], kern, plain, truth, scales):
                 if k is None:
@@ -1620,7 +1666,7 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
                     ms = graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw, stats), 3, 3)
                     plain_ms = graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw, stats,
                                                           plain=True), 3, 3)
-                    ms_simt = (graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw,
+                    ms_simt = (graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw, stats,
                                                           route=fs.SIMT), 3, 3)
                                if kind in STAGE_ROUTED else None)
                 b_ms, b_by = stage_bound(kind, n, c, co, dtype, form)
@@ -1835,7 +1881,8 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     state, history, seconds = timed_steps(step, state, batch, steps)
-    launches, stage_routes, gate_routes = read_counters(), read_stage_routes(), read_gate_routes()
+    launches, stage_routes = read_counters(), read_stage_routes()
+    gate_routes = {k: read_gate_routes(k) for k in ("softmax_bwd", "sigmoid_bwd")}
     peak = torch.cuda.max_memory_allocated()
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
@@ -1844,13 +1891,15 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     # every (bf16) launch of the two routed stage kernels on the tensor cores
     check(stage_routes == stage_routes_expected(launches),
           f"ffhq_512 steps' stage kernels took the routes {stage_routes}")
-    # softmax_bwd's launches (none with the sigmoid gate) on the route of each shape
+    # the gate backward's launches (softmax_bwd's, or sigmoid_bwd's with the
+    # sigmoid gate) on the route of each shape
     from locate_tpu_torch.ops import fused_attention as fa
 
-    want_gate = gate_routes_per_step(
-        fa, FFHQ_BWD_PER_STEP if per_step.get("softmax_bwd") else {}, steps)
-    check(gate_routes == want_gate,
-          f"ffhq_512 steps' softmax_bwd took the routes {gate_routes}, want {want_gate}")
+    for kernel, shapes in (("softmax_bwd", FFHQ_BWD_PER_STEP),
+                           ("sigmoid_bwd", SIGMOID_BWD_PER_STEP)):
+        want_gate = gate_routes_per_step(fa, shapes if per_step.get(kernel) else {}, steps)
+        check(gate_routes[kernel] == want_gate,
+              f"ffhq_512 steps' {kernel} took the routes {gate_routes[kernel]}, want {want_gate}")
     idle, top = profile_calls(lambda: step(state, batch), calls=2, top=15)
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
     params = dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel())
@@ -1874,7 +1923,7 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     say(phase, config="ffhq_512 as shipped, batch 16", overrides=overrides, steps=steps,
         params=params,
         launches=launches, launches_per_step={k: v / steps for k, v in launches.items()},
-        stage_routes=stage_routes, softmax_bwd_routes=gate_routes, metrics=history,
+        stage_routes=stage_routes, gate_bwd_routes=gate_routes, metrics=history,
         max_param_change=moved,
         kernel_path=dict(rates(seconds), peak_memory_bytes=peak,
                          device_idle_share="not measured" if idle is None else idle,
@@ -1884,7 +1933,7 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
                         device_idle_share=("not measured" if plain_idle is None
                                            else plain_idle),
                         top_kernels_2_steps=plain_top))
-    return cfg, weights, launches, stage_routes
+    return cfg, weights, launches, dict(stage_routes, **gate_routes)
 
 
 def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-backward"):
@@ -1892,20 +1941,28 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-
     gradients (R1 firing) on the kernel path, each of its four fused-stage
     backward calls held against the plain chain on its own saved tensors;
     each recomputes w (stage_conv) and runs the conv backward on the mma
-    route."""
+    route, and with the sigmoid gate the gate's backward too
+    (sigmoid_bwd_mma); D's forward pools on the mma route."""
     g = torch.Generator(device="cuda")
     g.manual_seed(6)
     z = [torch.randn(FFHQ_BATCH, cfg.model.latent_dim, device="cuda", generator=g)
          for _ in range(2)]
     calls = []
-    before = read_stage_routes()
+
+    def routes():
+        return dict(read_stage_routes(), sigmoid_bwd=read_gate_routes("sigmoid_bwd"))
+
+    before = routes()
     with checked_stage_backward(fs, fa, calls):
         _, _, d_loss, g_loss, r1 = step_grads(cfg, weights, *z, 512, True, "bfloat16")
-    after = read_stage_routes()
+    after = routes()
     check(len(calls) == 4, f"{len(calls)} fused-stage backward calls in one ffhq_512 step")
     moved = {k: {r: after[k][r] - before[k][r] for r in after[k]} for k in after}
+    sigmoid = cfg.model.attention.mode == "sigmoid"
     check(moved["stage_conv_bwd"] == moved["stage_conv"] == {"mma": 4, "simt": 0}
-          and moved["stage_softmax_stats"]["simt"] == moved["stage_sigmoid"]["simt"] == 0,
+          and moved["stage_softmax_stats"]["simt"] == moved["stage_sigmoid"]["simt"] == 0
+          and moved["stage_softmax_apply_pool"]["simt"] == 0
+          and moved["sigmoid_bwd"]["mma"] == (4 if sigmoid else 0),
           f"the checked ffhq_512 step's stage kernels took the routes {moved}")
     check(all(math.isfinite(v) for v in (d_loss, g_loss, r1)) and r1 > 0.0,
           f"ffhq_512 step losses {d_loss}, {g_loss}, r1 {r1}")
@@ -2735,10 +2792,12 @@ def flash_entry(kernel, rows, train_rows, launches, serve_launches, routes):
     return entry
 
 
-def sigmoid_entry(kernel, rows, launches, serve_launches):
+def sigmoid_entry(kernel, rows, launches, serve_launches, routes=None):
     """The {"kernels": [...]} entry of a sigmoid gate kernel: per
     ffhq_512-sigmoid train step at batch 16, each shape's time times its
-    launches a step."""
+    launches a step; for sigmoid_bwd beside the simt route's time of the
+    same launches, with the launches the main path's run made on the mma
+    route (`routes`, phase 18's counters)."""
     mult = SIGMOID_FWD_PER_STEP if kernel == "sigmoid_gate" else SIGMOID_BWD_PER_STEP
     names = ("y",) if kernel == "sigmoid_gate" else GRAD_NAMES[1:]
     timed_rows = [r for r in rows if kernel in r]
@@ -2758,12 +2817,19 @@ def sigmoid_entry(kernel, rows, launches, serve_launches):
         "shapes": [dict(N=r["shape"]["N"], HW=r["shape"]["HW"], C=r["shape"]["C"],
                         dtype=r["dtype"], launches_per_step=mult[(
                             r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])],
-                        **{k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms")})
+                        **{k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms", "route",
+                                                     "ms_simt") if k in r[kernel]})
                    for r in timed_rows],
     }
     if kernel == "sigmoid_gate":
         entry["launches_serving"] = serve_launches[kernel]
         entry["ms_per_served_forward"] = per_step(timed_rows, kernel, SIGMOID_SERVE, "ms")
+    else:  # two routes: the mma shape beside its simt time
+        bf16 = [r for r in timed_rows if r["dtype"] == "bfloat16"]
+        entry["routes"] = sorted({r[kernel]["route"] for r in bf16})
+        entry["launches_mma"] = routes[kernel]["mma"]
+        entry["ms_simt"] = sum(mult[(r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])]
+                               * r[kernel].get("ms_simt", r[kernel]["ms"]) for r in bf16)
     return entry
 
 
@@ -2891,29 +2957,32 @@ def phase_build(fa, fs, fl, build):
                     ("bwd", fs._BWD), ("sigmoid", fs._SIGMOID)):
         th, tw = fs.pick_tile(k, 512, 512, 64, 64, 16, 64, lib=stage_lib)
         stage_smem[kind] = dict(route="simt", tile=f"{th}x{tw}", bytes=int(
-            stage_lib.locate_stage_smem_bytes(0, k, 64, 64, 16, 64, th, tw)))
-        if k != fs._APPLY_POOL:
-            stage_smem[kind]["blocks_per_sm"] = int(
-                stage_lib.locate_stage_blocks_per_sm(0, k, 64, 64, 16, 64, th, tw))
-    # the mma instances of the routed kernels: HMMA in the SASS, no spill,
-    # their shared memory and blocks an SM at each template
+            stage_lib.locate_stage_smem_bytes(0, k, 64, 64, 16, 64, th, tw)), blocks_per_sm=int(
+            stage_lib.locate_stage_blocks_per_sm(0, k, 64, 64, 16, 64, th, tw)))
+    # the mma kernels of the routed wrappers: HMMA in the SASS, no spill,
+    # their shared memory and blocks an SM at each template (the apply-pool
+    # pass's only at (64, 64), and not a template)
     stage_sass = sass_tensor_ops(libs["fused_stage"])
     stage_mma = {}
-    for k, kind in zip(STAGE_MMA_KERNELS, (fs._STATS, fs._BWD, fs._CONV, fs._SIGMOID)):
-        for c, co in fs.STAGE_MMA_WIDTHS:
-            n = f"{k}<{c},{co}>"
+    kinds = (fs._STATS, fs._BWD, fs._CONV, fs._SIGMOID, fs._APPLY_POOL)
+    for k, kind in zip(STAGE_MMA_KERNELS, kinds):
+        pool = kind == fs._APPLY_POOL
+        for c, co in ([(64, 64)] if pool else fs.STAGE_MMA_WIDTHS):
+            n = k if pool else f"{k}<{c},{co}>"
             ptx = reports["fused_stage"].get(n, {})
             check(stage_sass.get(n, 0) > 0, f"{n}: no HMMA or HGMMA instruction in its SASS")
             check(bool(ptx) and ptx.get("spill_stores", 0) == 0 and ptx.get("spill_loads", 0) == 0,
                   f"{n} spills: {ptx}")
-            hd, cout = (fs.MMA_HD, co) if kind in (fs._STATS, fs._SIGMOID) else (0, 0)
+            gated = kind in (fs._STATS, fs._SIGMOID, fs._APPLY_POOL)
+            hd, cout = (fs.MMA_HD, co) if gated else (0, 0)
             stage_mma[n] = dict(ptx, tensor_core_instructions=stage_sass[n], bytes=int(
                 stage_lib.locate_stage_smem_bytes(1, kind, c, co, hd, cout, *fs._MMA_TILE)),
                 blocks_per_sm=int(stage_lib.locate_stage_blocks_per_sm(
                     1, kind, c, co, hd, cout, *fs._MMA_TILE)))
             check(stage_mma[n]["blocks_per_sm"] >= 1, f"{n}: no block fits on an SM")
-    # the gate backward's mma instance alike, with the simt kernel's
-    # shared memory at the same widths (its tile at lsun's 16384 locations)
+    # the gate backward's two mma kernels alike, each at its own occupancy,
+    # with the simt kernels' shared memory at the same widths (their tile at
+    # lsun's 16384 locations)
     gate_sass = sass_tensor_ops(libs["fused_attention"])
     gate_lib = fa._library()
     gate_bwd = {}
@@ -2925,13 +2994,14 @@ def phase_build(fa, fs, fl, build):
         gate_bwd[k] = dict(ptx, tensor_core_instructions=gate_sass[k], widths=fa.GATE_MMA_WIDTHS,
                            bytes=int(gate_lib.locate_softmax_bwd_mma_smem_bytes(
                                *fa.GATE_MMA_WIDTHS)),
-                           blocks_per_sm=int(gate_lib.locate_softmax_bwd_mma_blocks_per_sm()))
+                           blocks_per_sm=int(gate_lib.locate_softmax_bwd_mma_blocks_per_sm(
+                               int(k == "sigmoid_bwd_mma"))))
         check(gate_bwd[k]["blocks_per_sm"] >= 1, f"{k}: no block fits on an SM")
     simt_tile = fa.bwd_grid(BATCH, 16384, 64)[0]
-    gate_bwd["softmax_bwd<bf16>"] = dict(
-        reports["fused_attention"].get("softmax_bwd<bf16>", {}),
-        tensor_core_instructions=gate_sass.get("softmax_bwd<bf16>", 0),
-        bytes=int(gate_lib.locate_softmax_bwd_smem_bytes(64, 16, 64, simt_tile)))
+    for k in ("softmax_bwd<bf16>", "sigmoid_bwd<bf16>"):
+        gate_bwd[k] = dict(reports["fused_attention"].get(k, {}),
+                           tensor_core_instructions=gate_sass.get(k, 0),
+                           bytes=int(gate_lib.locate_softmax_bwd_smem_bytes(64, 16, 64, simt_tile)))
     flash_lib = fl._library()
     flash_smem = {}
     for t, dh, dv in FLASH_SHAPES + [(1024, 8, 16)]:
@@ -3080,7 +3150,8 @@ def main() -> int:
                       gate_routes) for k in KERNELS]
     out += [stage_entry(k, stage_times, stage_err, ffhq_launches, routes=ffhq_routes)
             for k in STAGE_KERNELS]
-    out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve) for k in SIGMOID_KERNELS]
+    out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve, sig_routes)
+            for k in SIGMOID_KERNELS]
     out.append(stage_entry("stage_sigmoid", sig_stage_times, sig_stage_err, sig_launches,
                            SIGMOID_STAGE_PER_STEP["stage_sigmoid"], sig_routes))
     out += [flash_entry(k, flash_rows, flash_train_rows, self_launches, self_serve,

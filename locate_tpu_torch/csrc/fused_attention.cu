@@ -11,7 +11,8 @@
 //                                      softmax_bwd_mma (the tensor cores)
 //   * _sigmoid_kernel       (:145)  -> sigmoid_gate
 //   * _bwd_kernel_sigmoid   (:387, body _bwd_body :408)
-//                                   -> sigmoid_bwd + reduce_partials (twice)
+//                                   -> sigmoid_bwd + reduce_partials (twice);
+//                                      bf16 at (64, 16, 64): sigmoid_bwd_mma
 // (softmax_stats_merge and reduce_partials live in common.cuh, which the
 // fused-stage kernels share.) The sigmoid gate g = 2 sigmoid(l) is local to
 // a location, so its forward is one pass (the apply pass with g in place of
@@ -66,8 +67,9 @@
 // the small products run as f32 FMA loops with a 4-location register
 // tile, the weights read through the read-only cache (C=512 x Hd=128
 // weights would not fit in shared memory as f32). These simt kernels use
-// no tensor cores; the softmax backward's bf16 route at the gate width of
-// the 64-channel stages does (softmax_bwd_mma, below).
+// no tensor cores; the two backward passes' bf16 route at the gate width
+// of the 64-channel stages does (softmax_bwd_mma and sigmoid_bwd_mma, on
+// one body, gate_bwd_mma, below).
 
 #include "common.cuh"
 
@@ -557,22 +559,26 @@ __global__ void __launch_bounds__(kThreads) sigmoid_bwd(
                     part_pp, N, HW, C, Hd, Cout, T_rows, R, act, slope, 1.f, gate_max);
 }
 
-// ---- softmax_bwd on the tensor cores: bf16 at (C, Hd, Cout) = (64, 16, 64) ----
+// ---- the gate backward on the tensor cores: bf16 at (C, Hd, Cout) = (64, 16, 64) ----
 //
-// softmax_bwd_mma computes what gate_bwd<bf16, false> computes, with its
+// gate_bwd_mma<S> computes what gate_bwd<bf16, S> computes, with its
 // rounding points (h, dl and du rounded to bf16 before their products, dx
 // rounded once, the weight gradients f32 sums), on mma.sync m16n8k16 (bf16
-// operands through ldmatrix, f32 accumulators). Grid (HW / 128, nb): block
-// (tile, b) owns 128 locations and the batch rows b R .. b R + R - 1, as
-// gate_bwd's grid does with a 128-location tile. Each of its 8 warps owns
+// operands through ldmatrix, f32 accumulators). Two kernels wrap it, as
+// softmax_bwd and sigmoid_bwd wrap gate_bwd: softmax_bwd_mma (S false) and
+// sigmoid_bwd_mma (S true, which reads no m, se or c). Grid (HW / 128, nb):
+// block (tile, b) owns 128 locations and the batch rows b R .. b R + R - 1,
+// as gate_bwd's grid does with a 128-location tile. Each of its 8 warps owns
 // 16 consecutive locations and works alone until the block's end:
 //   * x and dy of its 16 locations come by cp.async as bf16 [16][64 + 8],
 //     the next batch row's a row ahead (two stages);
 //   * u, h and l by gate_mlp_mma (the fused stage's gate core), act'(u)
 //     from u;
-//   * dl element-wise in l's C fragments, with m, se and c of (n, channel)
-//     read once a row; dl_cd as A fragments into du = act'(u) (dl_cd W2^T),
-//     4 k-steps into 2 n-tiles of Hd;
+//   * dl element-wise in l's C fragments: softmax, g = exp(l - m) / se HW
+//     and dl = g mask dg - (g / HW) c, with m, se and c of (n, channel) read
+//     once a row; sigmoid, p = logistic(l), g = 2p and dl = 2p(1 - p) mask
+//     dg; mask is g <= gate_max. dl_cd as A fragments into du = act'(u)
+//     (dl_cd W2^T), 4 k-steps into 2 n-tiles of Hd;
 //   * dx = min(g, gate_max) dy + du_cd W1x^T: the accumulators start at
 //     min(g, gate_max) dy, one k-step into 8 n-tiles of C; rounded once,
 //     staged over dy and written with 16-byte stores;
@@ -588,9 +594,8 @@ __global__ void __launch_bounds__(kThreads) sigmoid_bwd(
 //     goes to the batch group's slice of part_pp. One owner per output and
 //     no atomics: two runs are bitwise equal.
 // Registers bound it to one block (8 warps) an SM; the prefetch a row ahead
-// keeps 4 KB a warp in flight. S selects the sigmoid gate's dl (2p(1 - p)
-// mask dg, g = 2p), left for the sigmoid backward: only the softmax (S
-// false) is instantiated.
+// keeps 4 KB a warp in flight. Each instance is sized by its own occupancy
+// (locate_softmax_bwd_mma_blocks_per_sm).
 constexpr int kGateC = 64, kGateCout = 64;  // the template's widths (Hd: kGateHd)
 constexpr int kBwdTile = 128;               // locations a block, 16 a warp
 constexpr int kBwdWarps = kBwdTile / 16;
@@ -628,8 +633,9 @@ __device__ __forceinline__ float sum_locations(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
+// S: the sigmoid gate (m, se and csum unused, hw_scale 1), else the softmax.
 template <bool S>
-__global__ void __launch_bounds__(kThreads, 1) softmax_bwd_mma(
+__device__ __forceinline__ void gate_bwd_mma(
     const bf16* __restrict__ x, const bf16* __restrict__ dy, const float* __restrict__ pp,
     const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ m, const float* __restrict__ se,
@@ -850,6 +856,28 @@ __global__ void __launch_bounds__(kThreads, 1) softmax_bwd_mma(
           make_float2(dpos[nt][2 * hh], dpos[nt][2 * hh + 1]);
 }
 
+__global__ void __launch_bounds__(kThreads, 1) softmax_bwd_mma(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy, const float* __restrict__ pp,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ m, const float* __restrict__ se,
+    const float* __restrict__ csum, bf16* __restrict__ dx, float* __restrict__ part_w,
+    float* __restrict__ part_pp, int N, int HW, int R, int act, float slope, float hw_scale,
+    float gate_max) {
+  gate_bwd_mma<false>(x, dy, pp, w1, b1, w2, b2, m, se, csum, dx, part_w, part_pp, N, HW, R, act,
+                      slope, hw_scale, gate_max);
+}
+
+// The sigmoid gate's backward on the tensor cores: softmax_bwd_mma's grid,
+// tiles and workspace slices, without the softmax statistics and c.
+__global__ void __launch_bounds__(kThreads, 1) sigmoid_bwd_mma(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy, const float* __restrict__ pp,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, bf16* __restrict__ dx, float* __restrict__ part_w,
+    float* __restrict__ part_pp, int N, int HW, int R, int act, float slope, float gate_max) {
+  gate_bwd_mma<true>(x, dy, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, dx, part_w, part_pp,
+                     N, HW, R, act, slope, 1.f, gate_max);
+}
+
 template <typename T>
 cudaError_t launch_stats(const void* x, const void* pp, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* part_m, void* part_s,
@@ -953,8 +981,10 @@ cudaError_t launch_bwd(const void* x, const void* dy, const void* pp, const void
   return launch_reduce((const float*)part_pp, (float*)dpp, 1, nb, HW * Hd, stream);
 }
 
-// softmax_bwd_mma on grid (HW / 128, ceil(N / R)), then the two fixed-order
+// softmax_bwd_mma (S false) or sigmoid_bwd_mma (S true, m, se and c
+// unused) on grid (HW / 128, ceil(N / R)), then the two fixed-order
 // reductions of its workspaces (gate_bwd's, with a 128-location tile).
+template <bool S>
 cudaError_t launch_bwd_mma(const void* x, const void* dy, const void* pp, const void* w1,
                            const void* b1, const void* w2, const void* b2, const void* m,
                            const void* se, const void* c, void* dx, void* part_w, void* part_pp,
@@ -962,12 +992,18 @@ cudaError_t launch_bwd_mma(const void* x, const void* dy, const void* pp, const 
                            float hw_scale, float gate_max, cudaStream_t stream) {
   const int tiles = HW / kBwdTile, nb = (N + R - 1) / R;
   const size_t smem = bwd_mma_bytes();
-  cudaError_t err = allow_smem(softmax_bwd_mma<false>, smem);
+  cudaError_t err = S ? allow_smem(sigmoid_bwd_mma, smem) : allow_smem(softmax_bwd_mma, smem);
   if (err != cudaSuccess) return err;
-  softmax_bwd_mma<false><<<dim3(tiles, nb), kThreads, smem, stream>>>(
-      (const bf16*)x, (const bf16*)dy, (const float*)pp, (const bf16*)w1, (const float*)b1,
-      (const bf16*)w2, (const float*)b2, (const float*)m, (const float*)se, (const float*)c,
-      (bf16*)dx, (float*)part_w, (float*)part_pp, N, HW, R, act, slope, hw_scale, gate_max);
+  if (S)
+    sigmoid_bwd_mma<<<dim3(tiles, nb), kThreads, smem, stream>>>(
+        (const bf16*)x, (const bf16*)dy, (const float*)pp, (const bf16*)w1, (const float*)b1,
+        (const bf16*)w2, (const float*)b2, (bf16*)dx, (float*)part_w, (float*)part_pp, N, HW, R,
+        act, slope, gate_max);
+  else
+    softmax_bwd_mma<<<dim3(tiles, nb), kThreads, smem, stream>>>(
+        (const bf16*)x, (const bf16*)dy, (const float*)pp, (const bf16*)w1, (const float*)b1,
+        (const bf16*)w2, (const float*)b2, (const float*)m, (const float*)se, (const float*)c,
+        (bf16*)dx, (float*)part_w, (float*)part_pp, N, HW, R, act, slope, hw_scale, gate_max);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = launch_reduce((const float*)part_w, (float*)dw, 1, tiles * nb, kWTot, stream);
@@ -1037,19 +1073,23 @@ int locate_softmax_csum(int is_bf16, const void* x, const void* dy, const void* 
                                  Cout, T_rows, act, slope, hw_scale, gate_max, s);
 }
 
-// Dynamic shared memory of a softmax_bwd_mma block; 0 where the template
-// does not take the widths.
+// Dynamic shared memory of a softmax_bwd_mma or sigmoid_bwd_mma block (the
+// same for both); 0 where the template does not take the widths.
 size_t locate_softmax_bwd_mma_smem_bytes(int C, int Hd, int Cout) {
   return C == kGateC && Hd == kGateHd && Cout == kGateCout ? bwd_mma_bytes() : 0;
 }
 
-// Blocks of softmax_bwd_mma that fit on an SM; -1 on an error.
-int locate_softmax_bwd_mma_blocks_per_sm() {
+// Blocks of softmax_bwd_mma (sigmoid 0) or sigmoid_bwd_mma (sigmoid 1)
+// that fit on an SM; -1 on an error.
+int locate_softmax_bwd_mma_blocks_per_sm(int sigmoid) {
   int n = -1;
-  cudaError_t err = allow_smem(softmax_bwd_mma<false>, bwd_mma_bytes());
+  const size_t smem = bwd_mma_bytes();
+  cudaError_t err = sigmoid ? allow_smem(sigmoid_bwd_mma, smem) : allow_smem(softmax_bwd_mma, smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, softmax_bwd_mma<false>, kThreads,
-                                                        bwd_mma_bytes());
+    err = sigmoid ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sigmoid_bwd_mma, kThreads,
+                                                                  smem)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, softmax_bwd_mma, kThreads,
+                                                                  smem);
   if (err != cudaSuccess) {
     cudaGetLastError();
     return -1;
@@ -1073,8 +1113,8 @@ int locate_softmax_bwd(int route, int is_bf16, const void* x, const void* dy, co
   if (route == 1) {
     if (!bwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows) || R < 1)
       return (int)cudaErrorInvalidValue;
-    return (int)launch_bwd_mma(x, dy, pp, w1, b1, w2, b2, m, se, c, dx, part_w, part_pp, dw, dpp,
-                               N, HW, R, act, slope, hw_scale, gate_max, s);
+    return (int)launch_bwd_mma<false>(x, dy, pp, w1, b1, w2, b2, m, se, c, dx, part_w, part_pp,
+                                      dw, dpp, N, HW, R, act, slope, hw_scale, gate_max, s);
   }
   if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
@@ -1100,12 +1140,22 @@ int locate_sigmoid_gate(int is_bf16, const void* x, const void* pp, const void* 
 }
 
 // The workspaces and outputs of locate_softmax_bwd, without m, se and c.
-int locate_sigmoid_bwd(int is_bf16, const void* x, const void* dy, const void* pp,
+// route 0 is the simt kernel (every dtype and width); route 1 the tensor
+// cores' (sigmoid_bwd_mma), under locate_softmax_bwd's condition.
+int locate_sigmoid_bwd(int route, int is_bf16, const void* x, const void* dy, const void* pp,
                        const void* w1, const void* b1, const void* w2, const void* b2, void* dx,
                        void* part_w, void* part_pp, void* dw, void* dpp, int N, int HW, int C,
                        int Hd, int Cout, int T_rows, int R, int act, float slope,
                        float gate_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!bwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows) || R < 1)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_bwd_mma<true>(x, dy, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, dx,
+                                     part_w, part_pp, dw, dpp, N, HW, R, act, slope, 1.f,
+                                     gate_max, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_bwd<__nv_bfloat16, true>(x, dy, pp, w1, b1, w2, b2, nullptr, nullptr,
                                                 nullptr, dx, part_w, part_pp, dw, dpp, N, HW,

@@ -6,6 +6,7 @@
 //   * _kernel_softmax_stats      (:410) -> stage_softmax_stats (bf16: stage_softmax_stats_mma)
 //                                          + softmax_stats_merge
 //   * _kernel_softmax_apply_pool (:397) -> stage_softmax_apply_pool
+//                                          (bf16: stage_softmax_apply_pool_mma)
 //   * _kernel_conv_bwd           (:451) -> stage_conv_bwd (bf16: stage_conv_bwd_mma)
 //                                          + reduce_partials
 // (softmax_stats_merge and reduce_partials are the gate kernels' own, in common.cuh.)
@@ -60,8 +61,9 @@
 //   the f32 rule of 1e-4.
 // * mma: bf16 at the widths of the templates, for the four kernels that
 //   compute the conv block: stage_softmax_stats_mma, stage_conv_bwd_mma,
-//   stage_conv_mma and stage_sigmoid_mma (their design is with them,
-//   further down). The apply-pool pass has only the simt route.
+//   stage_conv_mma and stage_sigmoid_mma, and for the apply-pool pass at
+//   (Co, Hd, Cout) = (64, 16, 64): stage_softmax_apply_pool_mma (their
+//   design is with them, further down).
 //
 // Design of the simt route. The TPU tiles whole image rows; at 512 x 64 channels a bf16 row
 // is 64 KB, so here a block's tile is TH rows x TW columns of the fine
@@ -1286,6 +1288,157 @@ __global__ void __launch_bounds__(kMmaThreads, 2) stage_softmax_stats_mma(
   }
 }
 
+// stage_softmax_apply_pool on the tensor cores, bf16 at (Co, Hd, Cout) =
+// (64, 16, 64): what stage_softmax_apply_pool<bf16> computes, with its
+// rounding points (h and y = (w g) to bf16, the 2 x 2 pool in f32 in
+// store_tile's order, ((y00 + y01) + (y10 + y11)) * 0.25, rounded once).
+// It reads w_pre (537 MB at batch 16 and 512^2) and writes a quarter of
+// that: bound by bytes, so the design keeps loads in flight and the
+// block's warps out of each other's way.
+// * Persistent blocks of 8 warps walk the 8 x 16 tiles, tile t being
+//   spatial tile t / N of image t % N: the images of one spatial tile run
+//   side by side and read its pos_proj from L2 (it would be read from
+//   device memory once an image with the images outermost).
+// * A warp owns 2 rows x 8 columns of each tile (16 pixels, one m-tile:
+//   fragment row r is pixel (r / 8, r % 8)), so a 2 x 2 pool is a lane
+//   (rows r and r + 8) and its neighbour lane ^ 4 (the next column): no
+//   block barrier after the weights are staged.
+// * The warp's next tile is fetched by cp.async (its 16 pixels of w_pre,
+//   2 KB, and of pos_proj, 1 KB) under the current tile's work, two stages
+//   a warp.
+// * w's A fragments by ldmatrix; gate_mlp_mma on them, pos_proj from the
+//   staged rows; g = min(exp(l - m) / se HW, gate_max) and y = (w g)_cd on
+//   l's C fragments, w read again from the staged tile in their layout
+//   (the fragments would hold 16 registers through the gate MLP, and the
+//   kernel fits three blocks an SM at 80), with (m, se) of the warp's
+//   image staged in its region when the image changes.
+// * The pooled 4 pixels x 64 channels (512 B, contiguous in out) are
+//   staged in the warp's region and written with 16-byte stores.
+// One owner per output: two runs are bitwise equal.
+constexpr int kApCo = 64;                                     // Co = Cout; Hd: kMmaHd
+constexpr int kApLO = kApCo + 8, kApLH = kMmaHd + 8, kApLP = kMmaHd + 4;
+constexpr int kApStageBytes = 16 * kApLO * 2 + 16 * kApLP * 4;  // w [16][kApLO], pp [16][kApLP]
+// two stages, (m, se) [Co], the pooled pixels [4][kApLO]
+constexpr int kApWarpBytes = 2 * kApStageBytes + kApCo * 8 + 4 * kApLO * 2;
+constexpr int kApBlocks = 3;                                    // blocks an SM it is built for
+
+__host__ __device__ constexpr size_t apply_pool_mma_bytes() {
+  return (size_t)(kApCo * kApLH + kMmaHd * kApLO) * sizeof(bf16) +
+         (size_t)kMmaWarps * kApWarpBytes;
+}
+
+// w_pre and pos_proj of a warp's 16 pixels, rows r0 and r0 + 1 x columns
+// c0..c0 + 7 of image n (row r of Ws and Ps: pixel (r0 + r / 8, c0 + r % 8)),
+// by cp.async; the caller commits.
+__device__ __forceinline__ void fetch_pool_pixels(const bf16* __restrict__ w_pre,
+                                                  const float* __restrict__ pp, int n, int r0,
+                                                  int c0, int H, int W, bf16* Ws, float* Ps) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int e = lane + 32 * k, r = e >> 3, ch = (e & 7) << 3;
+    cp_async16(Ws + r * kApLO + ch,
+               w_pre + (((size_t)n * H + r0 + (r >> 3)) * W + c0 + (r & 7)) * kApCo + ch, true);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int e = lane + 32 * k, r = e >> 2, ch = (e & 3) << 2;
+    cp_async16(Ps + r * kApLP + ch,
+               pp + ((size_t)(r0 + (r >> 3)) * W + c0 + (r & 7)) * kMmaHd + ch, true);
+  }
+}
+
+__global__ void __launch_bounds__(kMmaThreads, kApBlocks) stage_softmax_apply_pool_mma(
+    const bf16* __restrict__ w_pre, const float* __restrict__ pp, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    const float* __restrict__ m, const float* __restrict__ se, bf16* __restrict__ out, int N,
+    int H, int W, int act, float slope, float hw_scale, float gate_max) {
+  extern __shared__ float4 smem4[];
+  bf16* W1 = reinterpret_cast<bf16*>(smem4);  // [Co][kApLH]
+  bf16* W2 = W1 + kApCo * kApLH;              // [Hd][kApLO]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  char* region = reinterpret_cast<char*>(W2 + kMmaHd * kApLO) + warp * kApWarpBytes;
+  float4* MS = reinterpret_cast<float4*>(region + 2 * kApStageBytes);  // (m, se) of channel pairs
+  bf16* Os = reinterpret_cast<bf16*>(MS + kApCo / 2);                   // [4][kApLO] pooled
+  const int dr = 2 * (warp >> 1), dc = 8 * (warp & 1);  // the warp's pixels in a tile
+  const int tx = W / kMmaTW, tiles = N * (H / kMmaTH) * tx;
+  const auto stage_w = [&](int k) {
+    return reinterpret_cast<bf16*>(region + (k & 1) * kApStageBytes);
+  };
+  const auto stage_p = [&](int k) {
+    return reinterpret_cast<float*>(region + (k & 1) * kApStageBytes + 16 * kApLO * 2);
+  };
+  const auto fetch = [&](int t, int k) {
+    const int sp = t / N, n = t - sp * N, ty = sp / tx;
+    fetch_pool_pixels(w_pre, pp, n, ty * kMmaTH + dr, (sp - ty * tx) * kMmaTW + dc, H, W,
+                      stage_w(k), stage_p(k));
+  };
+  if ((int)blockIdx.x < tiles) fetch(blockIdx.x, 0);
+  cp_async_commit();
+  stage_rows(W1, w1, kApCo, kMmaHd, kApLH);
+  stage_rows(W2, w2, kMmaHd, kApCo, kApLO);
+  __syncthreads();
+
+  int image = -1;
+  for (int t = blockIdx.x, k = 0; t < tiles; t += gridDim.x, ++k) {
+    if (t + (int)gridDim.x < tiles) fetch(t + gridDim.x, k + 1);
+    cp_async_commit();
+    const int sp = t / N, n = t - sp * N, ty = sp / tx;
+    const int r0 = ty * kMmaTH + dr, c0 = (sp - ty * tx) * kMmaTW + dc;
+    if (n != image) {  // lane: channels 2 lane and 2 lane + 1
+      const float2 mv = __ldg(reinterpret_cast<const float2*>(m + (size_t)n * kApCo) + lane);
+      const float2 sv = __ldg(reinterpret_cast<const float2*>(se + (size_t)n * kApCo) + lane);
+      MS[lane] = make_float4(mv.x, sv.x, mv.y, sv.y);
+      image = n;
+    }
+    cp_async_wait_one();  // this tile's w and pos_proj
+    __syncwarp();
+    bf16* Ws = stage_w(k);
+    const float* Ps = stage_p(k);
+
+    uint32_t wa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) frag_a(wa[kk], Ws, kApLO, 0, kk * 16);
+    float u[2][4], h[2][4], l[8][4];
+    gate_mlp_mma<4, 8>(wa, W1, W2, Ps + q * kApLP, Ps + (q + 8) * kApLP, b1, b2, act, slope, u,
+                       h, l);
+
+    // y = (w g)_cd on l's fragments (w of rows q and q + 8 from Ws), then
+    // the pool with lane ^ 4; one lane of the two writes each n-tile
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float4 ms = MS[(nt * 8 + col) >> 1];
+      const uint32_t wt = *reinterpret_cast<const uint32_t*>(Ws + q * kApLO + nt * 8 + col);
+      const uint32_t wb = *reinterpret_cast<const uint32_t*>(Ws + (q + 8) * kApLO + nt * 8 + col);
+      const float wv[4] = {bf16_lo(wt), bf16_hi(wt), bf16_lo(wb), bf16_hi(wb)};
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float g = expf(l[nt][e] - (e & 1 ? ms.z : ms.x)) / (e & 1 ? ms.w : ms.y) * hw_scale;
+        if (gate_max > 0.f && g > gate_max) g = gate_max;
+        y[e] = wv[e] * g;
+      }
+      const uint32_t top = pack_bf16(y[0], y[1]), bot = pack_bf16(y[2], y[3]);
+      const uint32_t top2 = __shfl_xor_sync(0xffffffffu, top, 4);
+      const uint32_t bot2 = __shfl_xor_sync(0xffffffffu, bot, 4);
+      const float s0 = ((bf16_lo(top) + bf16_lo(top2)) + (bf16_lo(bot) + bf16_lo(bot2))) * 0.25f;
+      const float s1 = ((bf16_hi(top) + bf16_hi(top2)) + (bf16_hi(bot) + bf16_hi(bot2))) * 0.25f;
+      if ((q & 1) == (nt & 1))
+        *reinterpret_cast<uint32_t*>(Os + (q >> 1) * kApLO + nt * 8 + col) = pack_bf16(s0, s1);
+    }
+    __syncwarp();
+    {  // pooled row r0 / 2, columns c0 / 2..c0 / 2 + 3: 512 contiguous bytes
+      const int p = lane >> 3, ch = (lane & 7) << 3;
+      *reinterpret_cast<uint4*>(
+          out + (((size_t)n * (H >> 1) + (r0 >> 1)) * (W >> 1) + (c0 >> 1) + p) * kApCo + ch) =
+          *reinterpret_cast<const uint4*>(Os + p * kApLO + ch);
+    }
+    __syncwarp();  // the fetch two tiles on overwrites this stage, the next tile Os
+  }
+  cp_async_wait_all();
+}
+
 // stage_conv_bwd on the tensor cores: block k takes tiles k, k + gridDim.x,
 // ... Per tile: u, x (1x1 skip), dy0 = (dw / sqrt 2)_cd on the halo'd tile
 // (db_col summed from the same loads) and, under upsample, dy0_s in; v on
@@ -1744,6 +1897,25 @@ cudaError_t launch_conv_bwd_mma(const void* x, const void* dw, const void* a, co
   return launch_reduce((const float*)part, (float*)grads, 1, blocks, wtot, stream);
 }
 
+cudaError_t launch_apply_pool_mma(const void* w_pre, const void* pp, const void* w1,
+                                  const void* b1, const void* w2, const void* b2, const void* m,
+                                  const void* se, void* out, int N, int H, int W, int act,
+                                  float slope, float hw_scale, float gate_max,
+                                  cudaStream_t stream) {
+  const size_t smem = apply_pool_mma_bytes();
+  cudaError_t err = allow_smem(stage_softmax_apply_pool_mma, smem);
+  if (err != cudaSuccess) return err;
+  int grid = 0;
+  err = persistent_grid(stage_softmax_apply_pool_mma, smem, N * (H / kMmaTH) * (W / kMmaTW),
+                        &grid);
+  if (err != cudaSuccess) return err;
+  stage_softmax_apply_pool_mma<<<grid, kMmaThreads, smem, stream>>>(
+      (const bf16*)w_pre, (const float*)pp, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+      (const float*)b2, (const float*)m, (const float*)se, (bf16*)out, N, H, W, act, slope,
+      hw_scale, gate_max);
+  return cudaGetLastError();
+}
+
 // Whether the mma route takes a call: bf16, a template's (C, Co), a 1x1
 // skip exactly where C != Co, the route's tile, and (stats, sigmoid) its
 // gate widths.
@@ -1766,6 +1938,7 @@ cudaError_t mma_occupancy(int kind, size_t smem, int* n) {
     case kConv: return occupancy(stage_conv_mma<C, 64>, kMmaThreads, smem, n);
     case kSigmoid: return occupancy(stage_sigmoid_mma<C, 64>, kMmaThreads, smem, n);
     case kStats: return occupancy(stage_softmax_stats_mma<C, 64>, kMmaThreads, smem, n);
+    case kApplyPool: return occupancy(stage_softmax_apply_pool_mma, kMmaThreads, smem, n);
     default: return occupancy(stage_conv_bwd_mma<C, 64>, kMmaThreads, smem, n);
   }
 }
@@ -1774,6 +1947,7 @@ cudaError_t simt_occupancy(int kind, size_t smem, int* n) {
     case kConv: return occupancy(stage_conv<bf16>, kThreads, smem, n);
     case kSigmoid: return occupancy(stage_sigmoid<bf16>, kThreads, smem, n);
     case kStats: return occupancy(stage_softmax_stats<bf16>, kThreads, smem, n);
+    case kApplyPool: return occupancy(stage_softmax_apply_pool<bf16>, kThreads, smem, n);
     default: return occupancy(stage_conv_bwd<bf16>, kThreads, smem, n);
   }
 }
@@ -1796,18 +1970,18 @@ size_t locate_stage_smem_bytes(int route, int kind, int C, int Co, int Hd, int C
     case kConv: return conv_mma_bytes(C, Co, false);
     case kSigmoid: return gate_ok ? conv_mma_bytes(C, Co, true) : 0;
     case kStats: return gate_ok ? stats_mma_bytes(C, Co) : 0;
+    case kApplyPool: return gate_ok && C == Co && Co == kApCo ? apply_pool_mma_bytes() : 0;
     case kBwd: return bwd_mma_bytes(C, Co);
     default: return 0;
   }
 }
 
-// Blocks of the bf16 kernel of `kind` (all but the apply-pool pass) on
-// `route` that fit on an SM at the shared memory above; -1 where there is
-// none.
+// Blocks of the bf16 kernel of `kind` on `route` that fit on an SM at the
+// shared memory above; -1 where there is none.
 int locate_stage_blocks_per_sm(int route, int kind, int C, int Co, int Hd, int Cout, int TH,
                                int TW) {
   const size_t smem = locate_stage_smem_bytes(route, kind, C, Co, Hd, Cout, TH, TW);
-  if (smem == 0 || kind == kApplyPool || kind < kConv || kind > kSigmoid) return -1;
+  if (smem == 0 || kind < kConv || kind > kSigmoid) return -1;
   int n = -1;
   const cudaError_t err = route == 0 ? simt_occupancy(kind, smem, &n)
                           : C == 64  ? mma_occupancy<64>(kind, smem, &n)
@@ -1895,13 +2069,23 @@ int locate_stage_softmax_stats(int route, int is_bf16, const void* x, const void
                                   up, s);
 }
 
-int locate_stage_softmax_apply_pool(int is_bf16, const void* w_pre, const void* pp,
+// m, se: (N, Cout); out: (N, H/2, W/2, Co). route 1 (mma) takes bf16 at
+// (Co, Hd, Cout) = (64, 16, 64), the route's tile dividing (H, W), only.
+int locate_stage_softmax_apply_pool(int route, int is_bf16, const void* w_pre, const void* pp,
                                     const void* w1, const void* b1, const void* w2,
                                     const void* b2, const void* m, const void* se, void* out,
                                     int N, int H, int W, int Co, int Hd, int Cout, int TH, int TW,
                                     int act, float slope, float hw_scale, float gate_max,
                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!mma_call_ok(is_bf16, Co, Co, nullptr, TH, TW, Hd, Cout) || Co != kApCo ||
+        H % kMmaTH != 0 || W % kMmaTW != 0)
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_apply_pool_mma(w_pre, pp, w1, b1, w2, b2, m, se, out, N, H, W, act, slope,
+                                      hw_scale, gate_max, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_apply_pool<__nv_bfloat16>(w_pre, pp, w1, b1, w2, b2, m, se, out, N, H, W,
                                                  Co, Hd, Cout, TH, TW, act, slope, hw_scale,

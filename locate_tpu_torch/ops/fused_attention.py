@@ -22,13 +22,14 @@ per-(n, channel) sum c of the softmax Jacobian) and
 each one pass: `sigmoid_gate` and `sigmoid_gate_backward`. Each wrapper
 counts its kernel launches in its `launches` attribute.
 
-`softmax_gate_backward` has two routes, which `gate_bwd_route` picks from
-the dtype and the widths: "mma" (bf16 at (C, Hd, Cout) = (64, 16, 64) with
-HW a multiple of 128, on the tensor cores: `softmax_bwd_mma`) and "simt"
-(f32 FMAs on the CUDA cores: f32, every other width, a gate with Cout 1).
-Each route's launches are counted apart too (`launches_mma`,
-`launches_simt`); `route="simt"` sends a bf16 call to the simt kernel, to
-compare the two on one card. The sigmoid backward keeps the simt kernel.
+The two backward wrappers, `softmax_gate_backward` and
+`sigmoid_gate_backward`, have two routes each, which `gate_bwd_route` picks
+from the dtype and the widths: "mma" (bf16 at (C, Hd, Cout) = (64, 16, 64)
+with HW a multiple of 128, on the tensor cores: `softmax_bwd_mma` and
+`sigmoid_bwd_mma`, one body) and "simt" (f32 FMAs on the CUDA cores: f32,
+every other width, a gate with Cout 1). Each route's launches are counted
+apart too (`launches_mma`, `launches_simt`); `route="simt"` sends a bf16
+call to the simt kernel, to compare the two on one card.
 `fused_locate_attention` runs them through a first-order
 `torch.autograd.Function` per mode, `SoftmaxGate` or `SigmoidGate`, as
 `_make_fused_core` does in JAX.
@@ -62,7 +63,7 @@ _MAX_SMEM = 232448
 _BWD_TARGET_BLOCKS = 264
 
 # (C, Hd, Cout) of the backward's mma template (csrc/fused_attention.cu:
-# softmax_bwd_mma), and its tile of locations, which must divide HW
+# gate_bwd_mma), and its tile of locations, which must divide HW
 GATE_MMA_WIDTHS = (64, 16, 64)
 GATE_MMA_TILE = 128
 
@@ -259,7 +260,7 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_bwd.restype = i
         lib.locate_sigmoid_gate.argtypes = [i] + [p] * 7 + [i] * 7 + [f, f, p]
         lib.locate_sigmoid_gate.restype = i
-        lib.locate_sigmoid_bwd.argtypes = [i] + [p] * 12 + [i] * 8 + [f, f, p]
+        lib.locate_sigmoid_bwd.argtypes = [i, i] + [p] * 12 + [i] * 8 + [f, f, p]
         lib.locate_sigmoid_bwd.restype = i
         lib.locate_softmax_smem_bytes.argtypes = [i] * 4
         lib.locate_softmax_smem_bytes.restype = ctypes.c_size_t
@@ -267,7 +268,7 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.locate_softmax_bwd_mma_smem_bytes.argtypes = [i] * 3
         lib.locate_softmax_bwd_mma_smem_bytes.restype = ctypes.c_size_t
-        lib.locate_softmax_bwd_mma_blocks_per_sm.argtypes = []
+        lib.locate_softmax_bwd_mma_blocks_per_sm.argtypes = [i]
         lib.locate_softmax_bwd_mma_blocks_per_sm.restype = i
         lib.locate_cuda_error_string.argtypes = [i]
         lib.locate_cuda_error_string.restype = ctypes.c_char_p
@@ -464,7 +465,8 @@ def bwd_grid(n: int, hw: int, c: int) -> Tuple[int, int]:
 
 
 def gate_bwd_route(dtype: torch.dtype, hw: int, c: int, hd: int, cout: int) -> str:
-    """The kernel of `softmax_gate_backward`: "mma" for bf16 at the
+    """The kernel of both gates' backward (`softmax_gate_backward`,
+    `sigmoid_gate_backward`): "mma" for bf16 at the
     template's (C, Hd, Cout) (`GATE_MMA_WIDTHS`) with HW a multiple of its
     128-location tile, "simt" otherwise (f32 keeps its f32 products, every
     other width and a gate with Cout 1 the simt kernel)."""
@@ -500,26 +502,29 @@ def bwd_mma_grid(n: int, hw: int, slots: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _mma_slots(device_index: int) -> int:
-    """Blocks of `softmax_bwd_mma` that fit on the card at once."""
-    per_sm = _library().locate_softmax_bwd_mma_blocks_per_sm()
+def _mma_slots(device_index: int, sigmoid: bool) -> int:
+    """Blocks of the gate's mma backward kernel (`sigmoid_bwd_mma` or
+    `softmax_bwd_mma`) that fit on the card at once."""
+    per_sm = _library().locate_softmax_bwd_mma_blocks_per_sm(int(sigmoid))
     if per_sm < 1:
-        raise RuntimeError(f"softmax backward (mma): no block fits on an SM ({per_sm})")
+        gate = "sigmoid" if sigmoid else "softmax"
+        raise RuntimeError(f"{gate} backward (mma): no block fits on an SM ({per_sm})")
     return torch.cuda.get_device_properties(device_index).multi_processor_count * per_sm
 
 
-def _launch_backward(fn: str, ops, x2d, w1x, w2, act, floats, route: Optional[str] = None):
-    """Run the backward kernel `fn` of the C interface on its operands
-    `ops` (x, dy, the gate's, and the softmax's statistics and c) and
-    reduce its per-block partials: (dx, dpos_proj, dW1x, db1, dW2, db2) in
-    f32 but dx, which is in x's dtype. `floats` follow the activation code
-    in the kernel's arguments; `route` leads them where the kernel has two
-    (None where it has one, the simt kernel)."""
+def _launch_backward(fn: str, ops, x2d, w1x, w2, act, floats, route: str):
+    """Run the backward kernel `fn` of the C interface (the softmax's or the
+    sigmoid's) on `route` with its operands `ops` (x, dy, the gate's, and
+    the softmax's statistics and c) and reduce its per-block partials:
+    (dx, dpos_proj, dW1x, db1, dW2, db2) in f32 but dx, which is in x's
+    dtype. `floats` follow the activation code in the kernel's
+    arguments."""
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
     lib = _library()
     if route == MMA:
-        t, rows = GATE_MMA_TILE, bwd_mma_grid(n, hw, _mma_slots(x2d.device.index))
+        slots = _mma_slots(x2d.device.index, fn == "locate_sigmoid_bwd")
+        t, rows = GATE_MMA_TILE, bwd_mma_grid(n, hw, slots)
         smem = lib.locate_softmax_bwd_mma_smem_bytes(c, hd, cout)
     else:
         t, rows = bwd_grid(n, hw, c)
@@ -528,7 +533,6 @@ def _launch_backward(fn: str, ops, x2d, w1x, w2, act, floats, route: Optional[st
         raise ValueError(f"C={c}, Hd={hd}, Cout={cout} needs {smem} bytes of shared "
                          f"memory per backward block, over the card's {_MAX_SMEM}")
     tiles, nb = -(-hw // t), -(-n // rows)
-    lead = () if route is None else (_ROUTE_CODE[route],)
     sizes = (c * hd, hd * cout, hd, cout)
     with torch.cuda.device(x2d.device):
         f32 = dict(dtype=torch.float32, device=x2d.device)
@@ -539,12 +543,20 @@ def _launch_backward(fn: str, ops, x2d, w1x, w2, act, floats, route: Optional[st
         dpp = torch.empty((hw, hd), **f32)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = getattr(lib, fn)(
-            *lead, int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops), dx.data_ptr(),
-            part_w.data_ptr(), part_pp.data_ptr(), dw.data_ptr(), dpp.data_ptr(), n, hw, c,
-            hd, cout, t, rows, ACT_CODES[act], *floats, stream)
-    _check(lib, err, fn if route is None else f"{fn} ({route})")
+            _ROUTE_CODE[route], int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
+            dx.data_ptr(), part_w.data_ptr(), part_pp.data_ptr(), dw.data_ptr(), dpp.data_ptr(),
+            n, hw, c, hd, cout, t, rows, ACT_CODES[act], *floats, stream)
+    _check(lib, err, f"{fn} ({route})")
     dw1, dw2, db1, db2 = dw.split(sizes)
     return dx, dpp, dw1.view(c, hd), db1, dw2.view(hd, cout), db2
+
+
+def _aligned(ops, route: str):
+    """`ops`, each 16-byte aligned on the mma route (cp.async and ldmatrix
+    move 16 bytes at a time)."""
+    if route != MMA:
+        return ops
+    return tuple(o if o.data_ptr() % 16 == 0 else o.clone() for o in ops)
 
 
 def _cast_grads(grads, pos_proj, w1x, b1, w2, b2):
@@ -574,9 +586,7 @@ def softmax_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, *, 
         raise ValueError(f"no kernel for device {x2d.device}")
     ops = (*_bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act),
            _stats_operand("c", csum, x2d.shape[0], w2.shape[1], x2d.device))
-    if route == MMA:  # cp.async and ldmatrix move 16 bytes at a time
-        ops = tuple(o if o.data_ptr() % 16 == 0 else o.clone() for o in ops)
-    grads = _launch_backward("locate_softmax_bwd", ops, x2d, w1x, w2, act,
+    grads = _launch_backward("locate_softmax_bwd", _aligned(ops, route), x2d, w1x, w2, act,
                              (float(leaky_slope), float(hw_scale), float(gate_max)), route)
     _count(softmax_gate_backward, route)
     return _cast_grads(grads, pos_proj, w1x, b1, w2, b2)
@@ -616,24 +626,32 @@ sigmoid_gate.launches = 0
 
 
 def sigmoid_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope,
-                          gate_max):
+                          gate_max, route=None):
     """(dx, dpos_proj, dW1x, db1, dW2, db2) of the sigmoid gate in one pass,
-    each cast to its input's dtype. CUDA tensors: the `sigmoid_bwd` kernel
-    and two fixed-order reductions of its per-block partials (replaces
-    `_bwd_kernel_sigmoid`); CPU tensors: the plain version."""
+    each cast to its input's dtype. CUDA tensors: the backward kernel on
+    `route` (`gate_bwd_route`'s choice unless given: `sigmoid_bwd_mma` on
+    the tensor cores or the simt `sigmoid_bwd`) and two fixed-order
+    reductions of its per-block partials (replaces `_bwd_kernel_sigmoid`);
+    CPU tensors: the plain version (a route the call cannot take raises on
+    both)."""
+    if x2d.dim() != 3:
+        raise ValueError(f"x2d must be (N, HW, C), got {tuple(x2d.shape)}")
+    route = _gate_route_of(route, x2d.dtype, x2d.shape[1], x2d.shape[2], w1x.shape[1],
+                           w2.shape[1])
     if x2d.device.type == "cpu":
         return sigmoid_gate_backward_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, act=act,
                                                leaky_slope=leaky_slope, gate_max=gate_max)
     if x2d.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2d.device}")
     ops = _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, None, None, act)
-    grads = _launch_backward("locate_sigmoid_bwd", ops, x2d, w1x, w2, act,
-                             (float(leaky_slope), float(gate_max)))
-    sigmoid_gate_backward.launches += 1
+    grads = _launch_backward("locate_sigmoid_bwd", _aligned(ops, route), x2d, w1x, w2, act,
+                             (float(leaky_slope), float(gate_max)), route)
+    _count(sigmoid_gate_backward, route)
     return _cast_grads(grads, pos_proj, w1x, b1, w2, b2)
 
 
 sigmoid_gate_backward.launches = 0
+sigmoid_gate_backward.launches_mma = sigmoid_gate_backward.launches_simt = 0
 
 
 def _vjp_of_plain(mode, x2d, pos_proj, w1x, b1, w2, b2, dy, opts):

@@ -25,11 +25,12 @@ to the other, and each counts its launches in `launches`:
     stage_softmax_apply_pool   replaces `_kernel_softmax_apply_pool`
     stage_conv_bwd             replaces `_kernel_conv_bwd`
 
-Every wrapper but the apply-pool pass's has two routes, which
-`stage_route` picks from the dtype and the widths: "mma" (bf16 at the
-(C, Co) of `STAGE_MMA_WIDTHS`, on the tensor cores: `stage_conv_mma`,
-`stage_sigmoid_mma`, `stage_softmax_stats_mma` and `stage_conv_bwd_mma`)
-and "simt" (f32 FMAs on the CUDA cores: f32, and every other width). Each
+Every wrapper has two routes, which `stage_route` picks from the dtype
+and the widths: "mma" (bf16 at the (C, Co) of `STAGE_MMA_WIDTHS`, on the
+tensor cores: `stage_conv_mma`, `stage_sigmoid_mma`,
+`stage_softmax_stats_mma`, `stage_conv_bwd_mma` and, at (Co, Hd, Cout) =
+(64, 16, 64), `stage_softmax_apply_pool_mma`) and "simt" (f32 FMAs on the
+CUDA cores: f32, and every other width). Each
 route's launches are counted apart too (`launches_mma`, `launches_simt`);
 `route="simt"` sends a bf16 call to the simt kernel, to compare the two on
 one card.
@@ -333,7 +334,7 @@ def _library() -> ctypes.CDLL:
         lib.locate_stage_sigmoid.restype = i
         lib.locate_stage_softmax_stats.argtypes = [i, i] + [p] * 17 + [i] * 10 + [f, i, p]
         lib.locate_stage_softmax_stats.restype = i
-        lib.locate_stage_softmax_apply_pool.argtypes = [i] + [p] * 9 + [i] * 9 + [f] * 3 + [p]
+        lib.locate_stage_softmax_apply_pool.argtypes = [i, i] + [p] * 9 + [i] * 9 + [f] * 3 + [p]
         lib.locate_stage_softmax_apply_pool.restype = i
         lib.locate_stage_conv_bwd.argtypes = [i, i] + [p] * 14 + [i] * 9 + [f, i, p]
         lib.locate_stage_conv_bwd.restype = i
@@ -362,7 +363,7 @@ def _on_card(t: torch.Tensor) -> bool:
 def stage_route(dtype: torch.dtype, c: int, co: int, *, skip: Optional[bool] = None,
                 h: Optional[int] = None, w: Optional[int] = None, hd: Optional[int] = None,
                 cout: Optional[int] = None) -> str:
-    """The kernel of the four routed wrappers: "mma" for bf16 at the
+    """The kernel of the five routed wrappers: "mma" for bf16 at the
     (C, Co) of a template (`STAGE_MMA_WIDTHS`), "simt" otherwise (f32
     keeps its f32 products, since TF32 would miss the f32 rule of 1e-4).
     What a call also names must fit the template: a 1x1 skip (`skip`)
@@ -630,43 +631,49 @@ stage_softmax_stats.launches_mma = stage_softmax_stats.launches_simt = 0
 
 
 def stage_softmax_apply_pool(w_pre, pp, w1x, b1, w2, b2, m, se, *, act, leaky_slope,
-                             hw_scale, gate_max):
+                             hw_scale, gate_max, route=None):
     """The gate applied to w_pre (N, H, W, Co) and 2x2 average-pooled:
     (N, H/2, W/2, Co) in w_pre's dtype. CUDA tensors: the
-    `stage_softmax_apply_pool` kernel (replaces `_kernel_softmax_apply_pool`);
-    CPU tensors: the plain version."""
+    `stage_softmax_apply_pool` kernel (on the mma route
+    `stage_softmax_apply_pool_mma`, see `stage_route`; replaces
+    `_kernel_softmax_apply_pool`); CPU tensors: the plain version on any
+    route."""
+    if w_pre.dim() != 4:
+        raise ValueError(f"w_pre must be NHWC, got {tuple(w_pre.shape)}")
+    n, h, w, co = w_pre.shape
+    route = _route_of(route, w_pre.dtype, co, co, h=h, w=w, hd=w1x.shape[1], cout=w2.shape[1])
     if not _on_card(w_pre):
         return stage_softmax_apply_pool_reference(
             w_pre, pp, w1x, b1, w2, b2, m, se, act=act, leaky_slope=leaky_slope,
             hw_scale=hw_scale, gate_max=gate_max)
     if act not in fa.ACT_CODES:
         raise ValueError(f"unsupported activation for the fused stage: {act!r}")
-    if w_pre.dim() != 4 or w_pre.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"w_pre must be NHWC float32 or bfloat16, got "
-                         f"{tuple(w_pre.shape)} {w_pre.dtype}")
-    n, h, w, co = w_pre.shape
+    if w_pre.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"w_pre must be float32 or bfloat16, got {w_pre.dtype}")
     if co % 8 or h % 2 or w % 4 or n > 65535:
         raise ValueError(f"kernels take Co % 8 == 0, an even height, a width % 4 == 0 and "
                          f"a batch up to 65535, got {n}x{h}x{w}x{co}")
     gate, (hd, cout) = _gate_operands(w_pre, pp, w1x, b1, w2, b2, co, h * w)
-    m = fa._stats_operand("m", m, n, cout, w_pre.device)
-    se = fa._stats_operand("se", se, n, cout, w_pre.device)
+    m = _dense(fa._stats_operand("m", m, n, cout, w_pre.device))
+    se = _dense(fa._stats_operand("se", se, n, cout, w_pre.device))
     lib = _library()
-    th, tw = pick_tile(_APPLY_POOL, h, w, co, co, hd, cout, lib=lib)
+    th, tw = pick_tile(_APPLY_POOL, h, w, co, co, hd, cout, lib=lib, route=route)
     xw = _dense(w_pre)
     with torch.cuda.device(w_pre.device):
         out = torch.empty((n, h // 2, w // 2, co), dtype=w_pre.dtype, device=w_pre.device)
         stream = torch.cuda.current_stream(w_pre.device).cuda_stream
         err = lib.locate_stage_softmax_apply_pool(
-            int(w_pre.dtype == torch.bfloat16), xw.data_ptr(), *(o.data_ptr() for o in gate),
-            m.data_ptr(), se.data_ptr(), out.data_ptr(), n, h, w, co, hd, cout, th, tw,
-            fa.ACT_CODES[act], float(leaky_slope), float(hw_scale), float(gate_max), stream)
-    _check(lib, err, "stage softmax apply-pool")
-    stage_softmax_apply_pool.launches += 1
+            _ROUTE_CODE[route], int(w_pre.dtype == torch.bfloat16), xw.data_ptr(),
+            *(o.data_ptr() for o in gate), m.data_ptr(), se.data_ptr(), out.data_ptr(), n, h, w,
+            co, hd, cout, th, tw, fa.ACT_CODES[act], float(leaky_slope), float(hw_scale),
+            float(gate_max), stream)
+    _check(lib, err, f"stage softmax apply-pool ({route})")
+    _count(stage_softmax_apply_pool, route)
     return out
 
 
 stage_softmax_apply_pool.launches = 0
+stage_softmax_apply_pool.launches_mma = stage_softmax_apply_pool.launches_simt = 0
 
 
 def bwd_blocks(n: int, h: int, w: int, th: int, tw: int,

@@ -1,11 +1,12 @@
-"""The routes of `softmax_gate_backward`, on the CPU: which kernel
-`gate_bwd_route` picks (mma: bf16 on the tensor cores at (C, Hd, Cout) =
-(64, 16, 64) with HW a multiple of 128; simt: f32 and every other width),
-what the wrapper refuses, that a CPU call runs the plain version and counts
-no launch, the mma route's grid, and what chip_smoke.py reads of the mma
-kernel (its name in ptxas and SASS listings, the route counts of a train
-step, the kernels line). The kernel itself runs on the card only
-(tests/test_torch_kernels_gpu.py, `-k gate_bwd_mma`)."""
+"""The routes of the two gate backward wrappers, `softmax_gate_backward`
+and `sigmoid_gate_backward`, on the CPU: which kernel `gate_bwd_route`
+picks for both (mma: bf16 on the tensor cores at (C, Hd, Cout) = (64, 16,
+64) with HW a multiple of 128; simt: f32 and every other width), what the
+wrappers refuse, that a CPU call runs the plain version and counts no
+launch, the mma route's grid, and what chip_smoke.py reads of the two mma
+kernels (their names in ptxas and SASS listings, the route counts of a
+train step, phase 15's cases, the kernels line). The kernels themselves run
+on the card only (tests/test_torch_kernels_gpu.py, `-k gate_bwd_mma`)."""
 
 import importlib.util
 import os
@@ -75,22 +76,41 @@ def _gate(dtype, n=2, hw=256, c=64, hd=16, cout=64, seed=0):
     return x, dy, pp, w1, b1, w2, b2, m, se, cs
 
 
-def _counts():
-    f = fa.softmax_gate_backward
+# the two gate backward wrappers and their plain versions; the sigmoid
+# gate takes no softmax statistics, c or hw_scale
+GATES = ("softmax", "sigmoid")
+
+
+def _wrapper(gate):
+    return fa.softmax_gate_backward if gate == "softmax" else fa.sigmoid_gate_backward
+
+
+def _backward(gate, ops, hw, plain=False, **kw):
+    """`gate`'s backward (or its plain version) on `_gate`'s operands."""
+    if gate == "softmax":
+        fn = fa.softmax_gate_backward_reference if plain else fa.softmax_gate_backward
+        return fn(*ops, hw_scale=float(hw), **OPTS, **kw)
+    fn = fa.sigmoid_gate_backward_reference if plain else fa.sigmoid_gate_backward
+    return fn(*ops[:7], **OPTS, **kw)
+
+
+def _counts(gate="softmax"):
+    f = _wrapper(gate)
     return f.launches, f.launches_mma, f.launches_simt
 
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
-def test_cpu_backward_runs_the_plain_version_on_any_route(route):
+@pytest.mark.parametrize("gate", GATES)
+def test_cpu_backward_runs_the_plain_version_on_any_route(gate, route):
     """On CPU tensors the route names the card's kernels only: the plain
     version runs, bitwise, and no launch is counted."""
     ops = _gate(torch.bfloat16)
-    before = _counts()
-    got = fa.softmax_gate_backward(*ops, hw_scale=256.0, route=route, **OPTS)
-    want = fa.softmax_gate_backward_reference(*ops, hw_scale=256.0, **OPTS)
+    before = _counts(gate)
+    got = _backward(gate, ops, 256, route=route)
+    want = _backward(gate, ops, 256, plain=True)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert _counts() == before
+    assert _counts(gate) == before
     assert got[0].dtype == torch.bfloat16 and got[0].shape == (2, 256, 64)
 
 
@@ -100,34 +120,39 @@ def test_cpu_backward_runs_the_plain_version_on_any_route(route):
     (torch.bfloat16, 256, 8, 64),    # Hd != 16
     (torch.bfloat16, 256, 16, 1),    # Cout 1
 ])
-def test_mma_route_on_an_unfit_call_raises(dtype, hw, hd, cout):
+@pytest.mark.parametrize("gate", GATES)
+def test_mma_route_on_an_unfit_call_raises(gate, dtype, hw, hd, cout):
     """An explicit mma route raises where the template cannot take the call,
     on the CPU too."""
     ops = _gate(dtype, hw=hw, hd=hd, cout=cout)
     with pytest.raises(ValueError, match="mma route"):
-        fa.softmax_gate_backward(*ops, hw_scale=float(hw), route=fa.MMA, **OPTS)
+        _backward(gate, ops, hw, route=fa.MMA)
 
 
-def test_mma_route_refuses_a_wider_gate():
+@pytest.mark.parametrize("gate", GATES)
+def test_mma_route_refuses_a_wider_gate(gate):
     ops = _gate(torch.bfloat16, n=1, hw=256, c=128, hd=32, cout=128)
     with pytest.raises(ValueError, match="mma route"):
-        fa.softmax_gate_backward(*ops, hw_scale=256.0, route=fa.MMA, **OPTS)
-    assert len(fa.softmax_gate_backward(*ops, hw_scale=256.0, route=fa.SIMT, **OPTS)) == 6
+        _backward(gate, ops, 256, route=fa.MMA)
+    assert len(_backward(gate, ops, 256, route=fa.SIMT)) == 6
 
 
-def test_unknown_route_raises():
+@pytest.mark.parametrize("gate", GATES)
+def test_unknown_route_raises(gate):
     ops = _gate(torch.bfloat16)
     with pytest.raises(ValueError, match="route must be"):
-        fa.softmax_gate_backward(*ops, hw_scale=256.0, route="wgmma", **OPTS)
+        _backward(gate, ops, 256, route="wgmma")
 
 
-def test_the_sigmoid_backward_has_no_route():
-    """The sigmoid gate's backward keeps its one (simt) kernel: it takes no
-    route and counts no routes."""
+@pytest.mark.parametrize("gate", GATES)
+def test_the_sigmoid_backward_has_the_routes(gate):
+    """Both gates' backward take a route and count each route's launches,
+    the sigmoid's as the softmax's: its launches are the sum of the two."""
     import inspect
 
-    assert "route" not in inspect.signature(fa.sigmoid_gate_backward).parameters
-    assert not hasattr(fa.sigmoid_gate_backward, "launches_mma")
+    fn = _wrapper(gate)
+    assert inspect.signature(fn).parameters["route"].default is None
+    assert fn.launches == fn.launches_mma + fn.launches_simt
 
 
 @pytest.mark.parametrize("n,hw,slots,rows", [
@@ -157,13 +182,22 @@ def test_simt_grid_is_unchanged():
 def test_lsun_step_route_counts(smoke):
     """A lsun_bedroom_128 train step runs softmax_bwd 24 times: 9 on the mma
     route (G's 1024, 4096 and 16384; D's 16384 and 4096, three times
-    each) and 15 on the simt route; ffhq_512's 32: 17 and 15."""
+    each) and 15 on the simt route; ffhq_512's 32: 17 and 15. An
+    ffhq_512-sigmoid step runs sigmoid_bwd 16 times: the 4 fused 512^2
+    stages' on the mma route, the 12 of the gates up to 16^2 (C 128-512)
+    on the simt route."""
     assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP) == {"mma": 9, "simt": 15}
     assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP, 3) == {"mma": 27, "simt": 45}
     assert sum(smoke.FFHQ_BWD_PER_STEP.values()) == smoke.FFHQ_GATE_PER_STEP["softmax_bwd"]
     assert smoke.gate_routes_per_step(fa, smoke.FFHQ_BWD_PER_STEP) == {"mma": 17, "simt": 15}
     assert smoke.gate_routes_per_step(fa, {}) == {"mma": 0, "simt": 0}
-    assert smoke.read_gate_routes().keys() == {"mma", "simt"}
+    assert sum(smoke.SIGMOID_BWD_PER_STEP.values()) == smoke.SIGMOID_PER_STEP["sigmoid_bwd"]
+    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP) == {"mma": 4, "simt": 12}
+    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP, 3) == {"mma": 12,
+                                                                            "simt": 36}
+    for kernel in ("softmax_bwd", "sigmoid_bwd"):
+        assert smoke.read_gate_routes(kernel).keys() == {"mma", "simt"}
+    assert smoke.read_gate_routes() == smoke.read_gate_routes("softmax_bwd")
 
 
 def test_phases_4_and_8_cover_the_template(smoke):
@@ -177,11 +211,32 @@ def test_phases_4_and_8_cover_the_template(smoke):
     assert d == torch.float32 and fa.gate_bwd_route(d, hw, c, hd, c) == fa.SIMT
 
 
+def test_phase_15_covers_both_routes(smoke):
+    """Phase 15 runs the sigmoid backward at the 512^2 stage's shape in bf16,
+    the one shape the mma route takes, and every other case (the gates up
+    to 16^2 and the f32 shape) on the simt route; its forward kernel only
+    where the layer runs it."""
+    cases = smoke.sigmoid_gate_cases()
+    routes = {(hw, c, hd, d): fa.gate_bwd_route(d, hw, c, hd, c) for hw, c, hd, d, _ in cases}
+    assert [k for k, r in routes.items() if r == fa.MMA] == [(262144, 64, 16, torch.bfloat16)]
+    assert sum(r == fa.SIMT for r in routes.values()) == len(smoke.SIGMOID_SHAPES) + 1
+    assert {d for hw, c, hd, d, fwd in cases if not fwd} == {torch.bfloat16}
+    assert sum(not fwd for *_, fwd in cases) == 1
+
+
 GATE_PTXAS_LOG = """\
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115softmax_bwd_mmaILb0EEEvPK13__nv_bfloat16S3_PKfS3_S5_S3_S5_S5_S5_S5_PS1_PfS7_iiiiiff' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_115softmax_bwd_mmaILb0EEEvPK13__nv_bfloat16S3_PKfS3_S5_S3_S5_S5_S5_S5_PS1_PfS7_iiiiiff
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115softmax_bwd_mmaEPK13__nv_bfloat16S2_PKfS2_S4_S2_S4_S4_S4_S4_PS0_PfS6_iiiiiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115softmax_bwd_mmaEPK13__nv_bfloat16S2_PKfS2_S4_S2_S4_S4_S4_S4_PS0_PfS6_iiiiiff
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 168 registers, 472 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115sigmoid_bwd_mmaEPK13__nv_bfloat16S2_PKfS2_S4_S2_S4_PS0_PfS6_iiiiiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115sigmoid_bwd_mmaEPK13__nv_bfloat16S2_PKfS2_S4_S2_S4_PS0_PfS6_iiiiiff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 160 registers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111sigmoid_bwdI13__nv_bfloat16EEvPKT_S4_PKfS4_S6_S4_S6_PS2_PfS8_iiiiiiiiff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111sigmoid_bwdI13__nv_bfloat16EEvPKT_S4_PKfS4_S6_S4_S6_PS2_PfS8_iiiiiiiiff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 456 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111softmax_bwdI13__nv_bfloat16EEvPKT_S4_PKfS4_S6_S4_S6_S6_S6_S6_PS2_PfS8_iiiiiiiifff' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_111softmax_bwdI13__nv_bfloat16EEvPKT_S4_PKfS4_S6_S4_S6_S6_S6_S6_PS2_PfS8_iiiiiiiifff
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -190,31 +245,36 @@ ptxas info    : Used 64 registers, 480 bytes cmem[0]
 
 
 def test_ptxas_names_the_gate_mma_kernel(smoke):
-    """softmax_bwd_mma keeps a name of its own, apart from the simt kernel
-    whose name it contains."""
-    assert smoke.GATE_MMA_KERNELS == ("softmax_bwd_mma",)
-    assert (smoke.ALL_CUDA_KERNELS.index("softmax_bwd_mma")
-            < smoke.ALL_CUDA_KERNELS.index("softmax_bwd"))
+    """softmax_bwd_mma and sigmoid_bwd_mma keep names of their own, apart
+    from the simt kernels whose names they contain."""
+    assert smoke.GATE_MMA_KERNELS == ("softmax_bwd_mma", "sigmoid_bwd_mma")
+    for k in smoke.GATE_MMA_KERNELS:
+        assert smoke.ALL_CUDA_KERNELS.index(k) < smoke.ALL_CUDA_KERNELS.index(k[:-len("_mma")])
     kernels = smoke.parse_ptxas(GATE_PTXAS_LOG)
-    assert set(kernels) == {"softmax_bwd_mma", "softmax_bwd<bf16>"}
+    assert set(kernels) == {"softmax_bwd_mma", "sigmoid_bwd_mma", "softmax_bwd<bf16>",
+                            "sigmoid_bwd<bf16>"}
     assert kernels["softmax_bwd_mma"]["registers"] == 168
-    assert kernels["softmax_bwd_mma"]["spill_stores"] == 0
+    assert kernels["sigmoid_bwd_mma"]["registers"] == 160
+    assert kernels["sigmoid_bwd_mma"]["spill_stores"] == kernels["softmax_bwd_mma"]["spill_loads"] == 0
 
 
 def test_sass_counts_the_gate_mma_kernel(smoke, tmp_path, monkeypatch):
     listing = tmp_path / "listing.txt"
     listing.write_text(
-        "\t\tFunction : _ZN12_GLOBAL__N_115softmax_bwd_mmaILb0EEEvPK13__nv_bfloat16S3_PKf\n"
+        "\t\tFunction : _ZN12_GLOBAL__N_115softmax_bwd_mmaEPK13__nv_bfloat16S2_PKf\n"
         "        /*0100*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;\n"
         "        /*0110*/                   LDSM.16.MT88.4 R8, [R2] ;\n"
         "        /*0120*/                   HMMA.16816.F32.BF16 R28, R4, R22, R28 ;\n"
+        "\t\tFunction : _ZN12_GLOBAL__N_115sigmoid_bwd_mmaEPK13__nv_bfloat16S2_PKf\n"
+        "        /*0100*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;\n"
         "\t\tFunction : _ZN12_GLOBAL__N_111softmax_bwdI13__nv_bfloat16EEvPKT_S4_PKf\n"
         "        /*0100*/                   FFMA R1, R2, R3, R1 ;\n")
     tool = tmp_path / "cuobjdump"
     tool.write_text(f"#!{sys.executable}\nimport sys\nprint(open({str(listing)!r}).read())\n")
     tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setattr(smoke, "cuobjdump_path", lambda: str(tool))
-    assert smoke.sass_tensor_ops("lib.so") == {"softmax_bwd_mma": 2, "softmax_bwd<bf16>": 0}
+    assert smoke.sass_tensor_ops("lib.so") == {"softmax_bwd_mma": 2, "sigmoid_bwd_mma": 1,
+                                               "softmax_bwd<bf16>": 0}
 
 
 def test_kernels_line_carries_the_gate_routes(smoke):
@@ -240,6 +300,34 @@ def test_kernels_line_carries_the_gate_routes(smoke):
     assert entry["launches"] == 72 and entry["route"] == "cuda"
     assert {s["route"] for s in entry["shapes"]} == {"mma", "simt"}
     assert sum("ms_simt" in s for s in entry["shapes"]) == 3
+    for key in ("name", "source", "replaces", "max_abs_err", "plain_ms", "bound_ms",
+                "bound_by", "library_ms"):
+        assert key in entry
+
+
+def test_kernels_line_carries_the_sigmoid_routes(smoke):
+    """Row 6 of the kernels line: sigmoid_bwd's per-step time on the routes
+    the wrapper picks (4 launches a step at the 512^2 stage's shape on the
+    mma route, 12 on simt), beside the simt route's time of the same
+    launches and the main path's launches on the mma route."""
+    rows = []
+    for hw, c, hd, dtype, forward in smoke.sigmoid_gate_cases():
+        route = fa.gate_bwd_route(dtype, hw, c, hd, c)
+        t = dict(ms=1.0 if route == fa.MMA else 2.0, plain_ms=3.0, bound_ms=0.1,
+                 bound_by="bytes", route=route)
+        if route == fa.MMA:
+            t["ms_simt"] = 5.0
+        rows.append(dict(shape=dict(N=smoke.FFHQ_BATCH, HW=hw, C=c, Hd=hd, Cout=c),
+                         dtype=str(dtype).replace("torch.", ""), sigmoid_bwd=t,
+                         **{f"{n}_max_abs_err": 0.01 for n in smoke.GRAD_NAMES[1:]}))
+    launches = smoke.expected(smoke.SIGMOID_PER_STEP, 3)
+    routes = {"sigmoid_bwd": smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP, 3)}
+    entry = smoke.sigmoid_entry("sigmoid_bwd", rows, launches, {}, routes)
+    assert entry["ms"] == 4 * 1.0 + 12 * 2.0
+    assert entry["ms_simt"] == 4 * 5.0 + 12 * 2.0
+    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 12
+    assert entry["launches"] == 48 and entry["route"] == "cuda"
+    assert sum("ms_simt" in s for s in entry["shapes"]) == 1
     for key in ("name", "source", "replaces", "max_abs_err", "plain_ms", "bound_ms",
                 "bound_by", "library_ms"):
         assert key in entry

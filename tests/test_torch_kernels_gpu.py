@@ -347,7 +347,8 @@ def test_gate_bwd_mma_refuses_a_wider_gate(cuda):
         assert err == 1, (bf16, hw, c, hd, cout, t, err)  # cudaErrorInvalidValue
     assert lib.locate_softmax_bwd_mma_smem_bytes(128, 32, 128) == 0
     assert lib.locate_softmax_bwd_mma_smem_bytes(64, 16, 64) <= fa._MAX_SMEM
-    assert lib.locate_softmax_bwd_mma_blocks_per_sm() >= 1
+    assert lib.locate_softmax_bwd_mma_blocks_per_sm(0) >= 1
+    assert lib.locate_softmax_bwd_mma_blocks_per_sm(1) >= 1
 
 
 # ---------------------------------------------------------------------------
@@ -586,6 +587,77 @@ MMA_FORWARD_FORMS = [(64, 64, False, False), (64, 64, True, False), (64, 64, Fal
                      (32, 64, False, False), (32, 64, True, False), (32, 64, False, True)]
 
 
+def apply_pool(w_pre, gate, stats, gate_max, plain=False, route=None):
+    n, h, w, co = w_pre.shape
+    kw = dict(hw_scale=float(h * w), gate_max=gate_max, **STAGE_KW)
+    with torch.no_grad():
+        if plain:
+            return fs.stage_softmax_apply_pool_reference(w_pre, *gate, *stats, **kw)
+        return fs.stage_softmax_apply_pool(w_pre, *gate, *stats, route=route, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate_max", [0.0, 16.0])
+@pytest.mark.parametrize("n,h,w", [(2, 32, 32), (3, 64, 128), (1, 16, 48)])
+def test_stage_apply_pool_mma_route(cuda, n, h, w, gate_max):
+    """The pooled apply pass at (Co, Hd, Cout) = (64, 16, 64) in bf16 on the
+    mma route (the wrapper's choice) and on the simt route on the same
+    inputs, each under the bf16 rule against the f32 plain version (each
+    path with the statistics of its own w_pre); the mma route twice,
+    bitwise equal. Batch 3 at 64 x 128 leaves the persistent blocks a
+    ragged last share and several images a block."""
+    g = torch.Generator(device="cpu").manual_seed(25)
+    w_pre = torch.randn(n, h, w, 64, generator=g).to(device=cuda, dtype=torch.bfloat16)
+    gate = stage_gate(h * w, 64, torch.bfloat16, cuda, seed=26)
+    assert fs.stage_route(torch.bfloat16, 64, 64, h=h, w=w, hd=16, cout=64) == fs.MMA
+    stats, truth_stats = (fa.softmax_gate_stats_reference(t.reshape(n, h * w, 64), *gate,
+                                                          **STAGE_KW)
+                          for t in (w_pre, w_pre.float()))
+    before = route_counts(fs.stage_softmax_apply_pool)
+    kern = apply_pool(w_pre, gate, stats, gate_max)
+    again = apply_pool(w_pre, gate, stats, gate_max, route=fs.MMA)
+    simt = apply_pool(w_pre, gate, stats, gate_max, route=fs.SIMT)
+    plain = apply_pool(w_pre, gate, stats, gate_max, plain=True)
+    truth = apply_pool(w_pre.float(), as_f32(gate), truth_stats, gate_max, plain=True)
+    torch.cuda.synchronize()
+    after = route_counts(fs.stage_softmax_apply_pool)
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 1)
+    assert kern.shape == (n, h // 2, w // 2, 64) and kern.dtype == torch.bfloat16
+    assert torch.equal(kern, again)
+    hold("stage_softmax_apply_pool", kern, plain, truth)
+    hold("stage_softmax_apply_pool (simt)", simt, plain, truth)
+
+
+@pytest.mark.gpu
+def test_stage_apply_pool_mma_refuses_an_unfit_call(cuda):
+    """route="mma" for f32 or Co = 32 raises in the wrapper; the C interface
+    refuses what the template cannot take (cudaErrorInvalidValue) before it
+    reads an operand; the library reports the block's bytes and blocks an
+    SM on both routes."""
+    w_pre = torch.zeros(2, 16, 32, 64, device=cuda)
+    gate = stage_gate(16 * 32, 64, torch.float32, cuda)
+    stats = fa.softmax_gate_stats_reference(w_pre.reshape(2, 512, 64), *gate, **STAGE_KW)
+    with pytest.raises(ValueError, match="mma route"):
+        apply_pool(w_pre, gate, stats, 16.0, route=fs.MMA)
+    lib = fs._library()
+    for route, bf16, h, w, co, hd, cout, th, tw in [(1, 0, 16, 32, 64, 16, 64, 8, 16),
+                                                    (1, 1, 16, 32, 32, 8, 32, 8, 16),
+                                                    (1, 1, 16, 32, 64, 32, 64, 8, 16),
+                                                    (1, 1, 16, 32, 64, 16, 1, 8, 16),
+                                                    (1, 1, 12, 32, 64, 16, 64, 8, 16),
+                                                    (1, 1, 16, 32, 64, 16, 64, 4, 16),
+                                                    (2, 1, 16, 32, 64, 16, 64, 8, 16)]:
+        err = lib.locate_stage_softmax_apply_pool(route, bf16, *([None] * 9), 2, h, w, co, hd,
+                                                  cout, th, tw, 0, 0.2, 512.0, 16.0, None)
+        assert err == 1, (route, bf16, h, w, co, hd, cout, th, tw, err)
+    nbytes = lib.locate_stage_smem_bytes(1, fs._APPLY_POOL, 64, 64, 16, 64, 8, 16)
+    assert 0 < nbytes <= fa._MAX_SMEM
+    assert lib.locate_stage_smem_bytes(1, fs._APPLY_POOL, 64, 64, 32, 64, 8, 16) == 0
+    assert lib.locate_stage_blocks_per_sm(1, fs._APPLY_POOL, 64, 64, 16, 64, 8, 16) >= 2
+    th, tw = fs.pick_tile(fs._APPLY_POOL, 512, 512, 64, 64, 16, 64, lib=lib)
+    assert lib.locate_stage_blocks_per_sm(0, fs._APPLY_POOL, 64, 64, 16, 64, th, tw) >= 1
+
+
 def stage_forward(kind, ops, gate, up, dn, plain=False, route=None):
     """stage_conv or stage_sigmoid (gate_max 1.5), or its plain version."""
     kw = dict(upsample=up, downsample=dn, **STAGE_KW)
@@ -718,7 +790,9 @@ def test_stage_routes_refuse_and_f32_keeps_simt(cuda):
     assert lib.locate_stage_smem_bytes(1, fs._STATS, 64, 64, 32, 64, 8, 16) == 0
     assert lib.locate_stage_smem_bytes(1, fs._CONV, 48, 64, 0, 0, 8, 16) == 0
     assert lib.locate_stage_smem_bytes(1, fs._SIGMOID, 64, 64, 16, 1, 8, 16) == 0
-    assert lib.locate_stage_smem_bytes(1, fs._APPLY_POOL, 64, 64, 16, 64, 8, 16) == 0
+    assert lib.locate_stage_smem_bytes(1, fs._APPLY_POOL, 64, 64, 32, 64, 8, 16) == 0
+    assert lib.locate_stage_smem_bytes(1, fs._APPLY_POOL, 32, 32, 8, 32, 8, 16) == 0
+    assert lib.locate_stage_smem_bytes(1, fs._APPLY_POOL, 64, 64, 16, 64, 8, 16) > 0
     assert lib.locate_stage_blocks_per_sm(1, fs._BWD, 64, 64, 0, 0, 8, 16) >= 1
     assert lib.locate_stage_blocks_per_sm(1, fs._STATS, 32, 64, 16, 64, 8, 16) >= 1
     # f32 x on the mma route: refused by the library itself (cudaErrorInvalidValue)
@@ -872,6 +946,102 @@ def test_sigmoid_function_on_the_card(cuda):
     assert rel_err(y.detach().reshape(y_ref.shape), y_ref.detach()) <= F32_TOL
     for i, (g, w) in enumerate(zip(got, want)):
         assert rel_err(g.reshape(w.shape), w) <= F32_TOL, i
+
+
+def sigmoid_route_counts():
+    f = fa.sigmoid_gate_backward
+    return f.launches, f.launches_mma, f.launches_simt
+
+
+def run_sigmoid_bwd(ops, dy, gate_max, kernel, route=None):
+    """(dx, dpos_proj, dW1x, db1, dW2, db2) of the sigmoid gate: the kernel
+    on `route` (the wrapper's choice where None) or the plain version."""
+    kw = dict(act="leaky_relu", leaky_slope=0.2, gate_max=gate_max)
+    with torch.no_grad():
+        if kernel:
+            out = fa.sigmoid_gate_backward(ops[0], dy, *ops[1:], route=route, **kw)
+        else:
+            out = fa.sigmoid_gate_backward_reference(ops[0], dy, *ops[1:], **kw)
+        torch.cuda.synchronize()
+    return out
+
+
+def check_sigmoid_bwd(ops, dy, gate_max, route=None):
+    """The backward on `route` in bf16 under the rule of check_sigmoid."""
+    kern = run_sigmoid_bwd(ops, dy, gate_max, True, route)
+    plain = run_sigmoid_bwd(ops, dy, gate_max, False)
+    truth = run_sigmoid_bwd([ops[0].float()] + ops[1:], dy.float(), gate_max, False)
+    for name, k, p, t in zip(SIGMOID_NAMES, kern, plain, truth):
+        ek, ep = rel_err(k, t), rel_err(p, t)
+        assert ek <= max(BF16_FACTOR * ep, 1e-6), (name, route, ek, ep)
+    return kern
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate_max", [0.0, 1.5])
+@pytest.mark.parametrize("n,hw", [(2, 1024), (4, 4096)])
+def test_sigmoid_bwd_mma_route_against_plain(cuda, n, hw, gate_max):
+    """sigmoid_bwd_mma (the wrapper's choice at bf16, C = 64, Hd = 16) and
+    the simt kernel on the same inputs, each under the bf16 rule; at
+    gate_max 1.5 the clamp binds at a part of the locations."""
+    ops = sigmoid_inputs(n, hw, 64, 16, 64, torch.bfloat16, cuda, seed=21)
+    dy = make_dy(n, hw, 64, torch.bfloat16, cuda, seed=22)
+    assert fa.gate_bwd_route(torch.bfloat16, hw, 64, 16, 64) == fa.MMA
+    before = sigmoid_route_counts()
+    check_sigmoid_bwd(ops, dy, gate_max)
+    after = sigmoid_route_counts()
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
+    check_sigmoid_bwd(ops, dy, gate_max, route=fa.SIMT)
+    assert sigmoid_route_counts()[2] == after[2] + 1
+    if gate_max:
+        l = fa.gate_logits_reference(ops[0].float(), *ops[1:], act="leaky_relu",
+                                     leaky_slope=0.2)
+        share = float((2 * torch.sigmoid(l) > gate_max).float().mean())
+        assert 0.05 < share < 0.95, share
+
+
+@pytest.mark.gpu
+def test_sigmoid_bwd_mma_is_bitwise_repeatable(cuda):
+    ops = sigmoid_inputs(8, 4096, 64, 16, 64, torch.bfloat16, cuda, seed=23)
+    dy = make_dy(8, 4096, 64, torch.bfloat16, cuda)
+    first = run_sigmoid_bwd(ops, dy, 1.5, True, fa.MMA)
+    second = run_sigmoid_bwd(ops, dy, 1.5, True, fa.MMA)
+    for name, a, b in zip(SIGMOID_NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_sigmoid_bwd_mma_route_counters_after_one_gate(cuda):
+    """One SigmoidGate forward and backward at the template's widths: the
+    backward once on the mma route."""
+    ops = sigmoid_inputs(2, 1024, 64, 16, 64, torch.bfloat16, cuda, seed=24)
+    w1 = ops[2].clone().requires_grad_(True)
+    before = sigmoid_route_counts()
+    y = fa.fused_locate_attention(ops[0].reshape(2, 32, 32, 64), ops[1], w1, *ops[3:],
+                                  mode="sigmoid", gate_max=1.5)
+    y.float().sum().backward()
+    assert tuple(a - b for a, b in zip(sigmoid_route_counts(), before)) == (1, 1, 0)
+    assert w1.grad is not None and bool(torch.isfinite(w1.grad).all())
+
+
+@pytest.mark.gpu
+def test_sigmoid_bwd_mma_refuses_an_unfit_call(cuda):
+    """route="mma" at C = 128 raises in the wrapper; the C interface refuses
+    a call the template cannot take (cudaErrorInvalidValue) before it reads
+    an operand, and route codes other than 0 and 1."""
+    ops = sigmoid_inputs(2, 1024, 128, 32, 128, torch.bfloat16, cuda)
+    dy = make_dy(2, 1024, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="mma route"):
+        run_sigmoid_bwd(ops, dy, 1.5, True, fa.MMA)
+    lib = fa._library()
+    for route, bf16, hw, c, hd, cout, t in [(1, 1, 1024, 128, 32, 128, 128),
+                                            (1, 0, 1024, 64, 16, 64, 128),
+                                            (1, 1, 1000, 64, 16, 64, 128),
+                                            (1, 1, 1024, 64, 16, 64, 64),
+                                            (2, 1, 1024, 64, 16, 64, 128)]:
+        err = lib.locate_sigmoid_bwd(route, bf16, *([None] * 12), 2, hw, c, hd, cout, t, 1, 0,
+                                     0.2, 1.5, None)
+        assert err == 1, (route, bf16, hw, c, hd, cout, t, err)
 
 
 def sigmoid_stage(ops, gate, up, dn, plain, gate_max=1.5):

@@ -1,9 +1,10 @@
-"""The routes of `stage_conv`, `stage_sigmoid`, `stage_softmax_stats` and
-`stage_conv_bwd`, on the CPU: which kernels `stage_route` picks (mma: bf16
-on the tensor cores at the (C, Co) of a template; simt: f32 and every
-other width), what the wrappers refuse, how a route counts its launches
-and asks the library for its tile, and what chip_smoke.py reads of the
-four mma kernels (their names in ptxas and SASS listings, the route
+"""The routes of `stage_conv`, `stage_sigmoid`, `stage_softmax_stats`,
+`stage_softmax_apply_pool` and `stage_conv_bwd`, on the CPU: which kernels
+`stage_route` picks (mma: bf16 on the tensor cores at the (C, Co) of a
+template, the apply-pool pass's at (Co, Hd, Cout) = (64, 16, 64); simt: f32
+and every other width), what the wrappers refuse, how a route counts its
+launches and asks the library for its tile, and what chip_smoke.py reads
+of the five mma kernels (their names in ptxas and SASS listings, the route
 counters of an ffhq_512 step, the kernels line). The kernels themselves
 run on the card only (tests/test_torch_kernels_gpu.py)."""
 
@@ -207,6 +208,79 @@ def test_unfit_conv_and_sigmoid_calls_take_the_simt_route(why):
             fs.stage_conv(*ops, route=fs.MMA, **KW)
 
 
+def _apply_pool_call(dtype=torch.bfloat16, co=64, hd=16, cout=None, h=16, w=32):
+    """(w_pre, pos_proj, w1x, b1, w2, b2, m, se) of an apply-pool call on
+    an h x w fine image, the statistics from the plain stats pass."""
+    cout = co if cout is None else cout
+    gen = torch.Generator().manual_seed(4)
+    w_pre = torch.randn(2, h, w, co, generator=gen).to(dtype)
+    gate = [torch.randn(h * w, hd, generator=gen) * 0.5,
+            (torch.randn(co, hd, generator=gen) * co ** -0.5).to(dtype),
+            torch.randn(hd, generator=gen) * 0.1,
+            (torch.randn(hd, cout, generator=gen) * 0.75).to(dtype),
+            torch.randn(cout, generator=gen) * 0.1]
+    m, se = fs.fa.softmax_gate_stats_reference(w_pre.reshape(2, h * w, co), *gate, **KW)
+    return [w_pre, *gate, m, se]
+
+
+POOL_OPTS = dict(hw_scale=512.0, gate_max=16.0, **KW)
+
+
+def test_bf16_apply_pool_at_the_template_takes_the_mma_route():
+    """The pooled apply pass goes to stage_softmax_apply_pool_mma for bf16 at
+    (Co, Hd, Cout) = (64, 16, 64) on an image the 8 x 16 tile divides:
+    every D stage that fuses in ffhq_512 (512^2 and 256^2)."""
+    for h in (16, 256, 512):
+        assert fs.stage_route(torch.bfloat16, 64, 64, h=h, w=h, hd=16, cout=64) == fs.MMA
+    ops = _apply_pool_call()
+    assert fs._route_of(None, torch.bfloat16, 64, 64, h=16, w=32, hd=16, cout=64) == fs.MMA
+    assert fs.stage_softmax_apply_pool(*ops, route=fs.MMA, **POOL_OPTS).shape == (2, 8, 16, 64)
+
+
+APPLY_POOL_UNFIT = {  # what an apply-pool call names, and why the mma route does not take it
+    "f32": dict(dtype=torch.float32),
+    "co_32": dict(co=32, hd=8),
+    "gate_hd_32": dict(hd=32),
+    "gate_cout_1": dict(cout=1),
+    "tile_does_not_divide_h": dict(h=12),
+    "tile_does_not_divide_w": dict(w=24),
+}
+
+
+@pytest.mark.parametrize("why", sorted(APPLY_POOL_UNFIT))
+def test_unfit_apply_pool_calls_take_the_simt_route(why):
+    """f32, Co != 64, a gate with Hd != 16 or Cout 1 and an image the tile
+    does not divide take the simt route; an explicit mma route raises for
+    them, on the CPU too, and the simt route runs the plain version."""
+    ops = _apply_pool_call(**APPLY_POOL_UNFIT[why])
+    w_pre = ops[0]
+    _, h, w, co = w_pre.shape
+    assert fs._route_of(None, w_pre.dtype, co, co, h=h, w=w, hd=ops[2].shape[1],
+                        cout=ops[4].shape[1]) == fs.SIMT
+    with pytest.raises(ValueError, match="mma route"):
+        fs.stage_softmax_apply_pool(*ops, route=fs.MMA, **POOL_OPTS)
+    assert torch.equal(fs.stage_softmax_apply_pool(*ops, route=fs.SIMT, **POOL_OPTS),
+                       fs.stage_softmax_apply_pool_reference(*ops, **POOL_OPTS))
+
+
+@pytest.mark.parametrize("route", [None, "mma", "simt"])
+def test_cpu_apply_pool_runs_the_plain_version_on_any_route(route):
+    """On CPU tensors the pooled apply pass returns its plain version
+    bitwise on any route and counts no launch on either route."""
+    ops = _apply_pool_call()
+    fn = fs.stage_softmax_apply_pool
+    before = _counts(fn)
+    assert torch.equal(fn(*ops, route=route, **POOL_OPTS),
+                       fs.stage_softmax_apply_pool_reference(*ops, **POOL_OPTS))
+    assert _counts(fn) == before
+    assert fn.launches == fn.launches_mma + fn.launches_simt
+
+
+def test_unknown_route_of_the_apply_pool_pass_raises():
+    with pytest.raises(ValueError, match="route must be"):
+        fs.stage_softmax_apply_pool(*_apply_pool_call(), route="wgmma", **POOL_OPTS)
+
+
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
 @pytest.mark.parametrize("c,co,up,dn", [(64, 64, True, False), (32, 64, False, True)])
 def test_cpu_conv_and_sigmoid_run_the_plain_version_on_any_route(route, c, co, up, dn):
@@ -246,7 +320,7 @@ def test_each_launch_counts_on_its_route():
     for route in (fs.MMA, fs.SIMT, fs.MMA, fs.MMA):
         fs._count(Fn, route)
     assert (Fn.launches, Fn.launches_mma, Fn.launches_simt) == (4, 3, 1)
-    for fn in (fs.stage_softmax_stats, fs.stage_conv_bwd):
+    for fn in (fs.stage_softmax_stats, fs.stage_conv_bwd, fs.stage_softmax_apply_pool):
         assert fn.launches == fn.launches_mma + fn.launches_simt
 
 
@@ -272,6 +346,10 @@ def test_the_mma_tile_asks_the_library():
     lib = _Lib(103232)
     assert fs.pick_tile(fs._STATS, 512, 512, 32, 64, 16, 64, lib=lib, route=fs.MMA) == (8, 16)
     assert lib.asked == [(1, fs._STATS, 32, 64, 16, 64, 8, 16)]
+    lib = _Lib(71424)
+    assert fs.pick_tile(fs._APPLY_POOL, 512, 512, 64, 64, 16, 64, lib=lib,
+                        route=fs.MMA) == (8, 16)
+    assert lib.asked == [(1, fs._APPLY_POOL, 64, 64, 16, 64, 8, 16)]
     with pytest.raises(ValueError, match="no mma template"):
         fs.pick_tile(fs._STATS, 512, 512, 64, 64, 32, 64, lib=_Lib(0), route=fs.MMA)
     with pytest.raises(ValueError, match="shared memory"):
@@ -325,6 +403,12 @@ ptxas info    : Used 110 registers, used 1 barriers
 ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b17stage_sigmoid_mmaILi32ELi64EEEvPK13__nv_bfloat16PKfS5_S3_S3_S5_S3_S5_S3_S5_S3_S5_PS1_iiiiffii' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 126 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b28stage_softmax_apply_pool_mmaEPK13__nv_bfloat16PKfS2_S4_S2_S4_S4_S4_PS0_iiiifff' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__0000c1d2_14_fused_stage_cu_7a1e3f2b24stage_softmax_apply_poolI13__nv_bfloat16EEvPKT_PKfS4_S6_S4_S6_S6_S6_PS2_iiiiiiiiifff' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers
 """
 
 
@@ -332,14 +416,17 @@ def test_ptxas_names_the_stage_mma_kernels(smoke):
     """The stage's mma kernels are templates on (C, Co): each instance keeps
     a name of its own, apart from the simt kernel whose name it contains."""
     assert smoke.STAGE_MMA_KERNELS == ("stage_softmax_stats_mma", "stage_conv_bwd_mma",
-                                       "stage_conv_mma", "stage_sigmoid_mma")
+                                       "stage_conv_mma", "stage_sigmoid_mma",
+                                       "stage_softmax_apply_pool_mma")
     for k in smoke.STAGE_MMA_KERNELS:
         simt = k[:-len("_mma")]
         assert smoke.ALL_CUDA_KERNELS.index(k) < smoke.ALL_CUDA_KERNELS.index(simt)
     kernels = smoke.parse_ptxas(STAGE_PTXAS_LOG)
     assert set(kernels) == {"stage_softmax_stats_mma<64,64>", "stage_conv_bwd_mma<32,64>",
                             "stage_conv_bwd<bf16>", "stage_softmax_stats<f32>",
-                            "stage_conv_mma<64,64>", "stage_sigmoid_mma<32,64>"}
+                            "stage_conv_mma<64,64>", "stage_sigmoid_mma<32,64>",
+                            "stage_softmax_apply_pool_mma", "stage_softmax_apply_pool<bf16>"}
+    assert kernels["stage_softmax_apply_pool_mma"]["registers"] == 80
     assert kernels["stage_sigmoid_mma<32,64>"]["registers"] == 126
     assert kernels["stage_conv_bwd_mma<32,64>"]["registers"] == 203
     assert kernels["stage_softmax_stats_mma<64,64>"]["spill_stores"] == 0
@@ -354,59 +441,77 @@ def test_sass_counts_the_stage_mma_kernels(smoke, tmp_path, monkeypatch):
         "        /*0120*/                   HMMA.16816.F32.BF16 R28, R4, R22, R28 ;\n"
         "        /*0130*/                   HMMA.16816.F32.BF16 R32, R4, R22, R32 ;\n"
         "\t\tFunction : _ZN50_GLOBAL__N__0_fused_stage_cu_14stage_conv_bwdI13__nv_bfloat16EEvPK\n"
+        "        /*0100*/                   FFMA R1, R2, R3, R1 ;\n"
+        "\t\tFunction : _ZN50_GLOBAL__N__0_fused_stage_cu_28stage_softmax_apply_pool_mmaEPK13\n"
+        "        /*0100*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;\n"
+        "\t\tFunction : _ZN50_GLOBAL__N__0_fused_stage_cu_24stage_softmax_apply_poolI13__nv_bfloat16EEv\n"
         "        /*0100*/                   FFMA R1, R2, R3, R1 ;\n")
     tool = tmp_path / "cuobjdump"
     tool.write_text(f"#!{sys.executable}\nimport sys\nprint(open({str(listing)!r}).read())\n")
     tool.chmod(tool.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setattr(smoke, "cuobjdump_path", lambda: str(tool))
     assert smoke.sass_tensor_ops("lib.so") == {"stage_conv_bwd_mma<64,64>": 3,
-                                               "stage_conv_bwd<bf16>": 0}
+                                               "stage_conv_bwd<bf16>": 0,
+                                               "stage_softmax_apply_pool_mma": 1,
+                                               "stage_softmax_apply_pool<bf16>": 0}
 
 
 def test_ffhq_512_step_route_expectation(smoke):
-    """An ffhq_512 step (softmax gate) launches 9 stats passes, 4 conv
-    passes (the backward's recompute of w) and 4 backward passes, all on
-    the mma route; with the sigmoid gate 9 sigmoid passes, 4 conv passes,
-    4 backward passes and no stats pass; the f32 step at 64^2 takes the
-    simt route."""
+    """An ffhq_512 step (softmax gate) launches 9 stats passes, 6 pooled
+    apply passes (D's 512^2 stage: real, fake, the G step, and remat's
+    reruns of the two that are differentiated), 4 conv passes (the
+    backward's recompute of w) and 4 backward passes, all on the mma
+    route; with the sigmoid gate 9 sigmoid passes, 4 conv passes, 4
+    backward passes and no stats or apply pass; the f32 step at 64^2 takes
+    the simt route."""
     none = {"mma": 0, "simt": 0}
     per_step = {k: sum(v.values()) for k, v in smoke.FFHQ_STAGE_PER_STEP.items()}
+    assert per_step["stage_softmax_apply_pool"] == 6
     launches = smoke.expected(per_step, 3)
     assert smoke.stage_routes_expected(launches) == {
         "stage_softmax_stats": {"mma": 27, "simt": 0}, "stage_conv_bwd": {"mma": 12, "simt": 0},
-        "stage_conv": {"mma": 12, "simt": 0}, "stage_sigmoid": none}
+        "stage_conv": {"mma": 12, "simt": 0}, "stage_sigmoid": none,
+        "stage_softmax_apply_pool": {"mma": 18, "simt": 0}}
     one = smoke.stage_routes_expected(smoke.expected(smoke.SIGMOID_PER_STEP))
     assert one["stage_sigmoid"] == {"mma": 9, "simt": 0}
     assert one["stage_conv"] == {"mma": 4, "simt": 0}
     sig = smoke.expected(smoke.SIGMOID_PER_STEP, 3)
     assert smoke.stage_routes_expected(sig) == {
         "stage_softmax_stats": none, "stage_conv_bwd": {"mma": 12, "simt": 0},
-        "stage_conv": {"mma": 12, "simt": 0}, "stage_sigmoid": {"mma": 27, "simt": 0}}
-    assert smoke.stage_routes_expected({"stage_conv_bwd": 20, "stage_sigmoid": 10}, "simt") == {
+        "stage_conv": {"mma": 12, "simt": 0}, "stage_sigmoid": {"mma": 27, "simt": 0},
+        "stage_softmax_apply_pool": none}
+    assert smoke.stage_routes_expected({"stage_conv_bwd": 20, "stage_sigmoid": 10,
+                                        "stage_softmax_apply_pool": 5}, "simt") == {
         "stage_softmax_stats": none, "stage_conv_bwd": {"mma": 0, "simt": 20},
-        "stage_conv": none, "stage_sigmoid": {"mma": 0, "simt": 10}}
+        "stage_conv": none, "stage_sigmoid": {"mma": 0, "simt": 10},
+        "stage_softmax_apply_pool": {"mma": 0, "simt": 5}}
     assert smoke.read_stage_routes().keys() == set(smoke.STAGE_ROUTED)
 
 
 def test_phase_9_covers_every_template(smoke):
     """Phases 9 and 16 run every routed kernel at both templates: (64, 64)
     in the plain and `up` forms, (32, 64) with the 1x1 skip, and the two
-    forward passes that pool in their `down` form."""
+    forward passes that pool in their `down` form; the pooled apply pass
+    (routed too) at its one template, (64, 64), the form D runs."""
     cases = {(k, f, c, co) for k, f, c, co in smoke.STAGE_CASES + smoke.SIGMOID_STAGE_CASES
              if k in smoke.STAGE_ROUTED}
+    pool = "stage_softmax_apply_pool"
+    assert pool in smoke.STAGE_ROUTED
     for k in smoke.STAGE_ROUTED:
-        assert {(k, "plain", 64, 64), (k, "up", 64, 64), (k, "skip", 32, 64)} <= cases
+        if k != pool:
+            assert {(k, "plain", 64, 64), (k, "up", 64, 64), (k, "skip", 32, 64)} <= cases
     for k in ("stage_conv", "stage_sigmoid"):
         assert (k, "down", 64, 64) in cases
+    assert {(k, f, c, co) for k, f, c, co in cases if k == pool} == {(pool, "plain", 64, 64)}
+    assert fs.stage_route(torch.bfloat16, 64, 64, h=512, w=512, hd=16, cout=64) == fs.MMA
     assert {(c, co) for _, _, c, co in cases} == set(fs.STAGE_MMA_WIDTHS)
-    assert "stage_softmax_apply_pool" not in smoke.STAGE_ROUTED
 
 
 def test_kernels_line_carries_the_stage_routes(smoke):
-    """Rows 7, 8, 9 and 11 of the kernels line: the mma route's per-step
-    time, beside the simt route's time of the same launches and the main
-    path's launches on the mma route (stage_sigmoid's from the
-    ffhq_512-sigmoid steps); the apply-pool row has no route keys."""
+    """Rows 7-11 of the kernels line: the mma route's per-step time, beside
+    the simt route's time of the same launches and the main path's
+    launches on the mma route (stage_sigmoid's from the ffhq_512-sigmoid
+    steps); the apply-pool row's 6 launches a step among them."""
     times, err = {}, {}
     forms_of = dict(smoke.FFHQ_STAGE_PER_STEP,
                     stage_sigmoid=smoke.SIGMOID_STAGE_PER_STEP["stage_sigmoid"])
@@ -435,7 +540,9 @@ def test_kernels_line_carries_the_stage_routes(smoke):
     assert rows["stage_sigmoid"]["launches"] == rows["stage_sigmoid"]["launches_mma"] == 27
     assert {f["form"] for f in rows["stage_sigmoid"]["forms"]} == {"up", "down"}
     apply_pool = rows["stage_softmax_apply_pool"]
-    assert "launches_mma" not in apply_pool and "ms_simt" not in apply_pool
+    assert apply_pool["ms"] == 12.0 and apply_pool["ms_simt"] == 120.0
+    assert apply_pool["launches_mma"] == apply_pool["launches"] == 18
+    assert apply_pool["routes"] == ["mma"] and "ms_simt" in apply_pool["forms"][0]
     for row in rows.values():
         assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(row)
