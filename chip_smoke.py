@@ -30,9 +30,11 @@ line each:
      (C, Co) template, `stage_softmax_apply_pool_mma` at (64, 64)): HMMA
      in the SASS, no spill, registers, shared memory and blocks an SM; the
      simt kernels' shared memory and blocks an SM beside them; the gate
-     backward's two mma kernels (`softmax_bwd_mma`, `sigmoid_bwd_mma`)
-     alike: HMMA in the SASS, no spill, registers, shared memory and
-     blocks an SM;
+     backward's mma kernels (`softmax_bwd_mma`, `sigmoid_bwd_mma` at
+     (C, Hd, Cout) = (64, 16, 64); `softmax_bwd_wide_mma`,
+     `sigmoid_bwd_wide_mma` and their weight-gradient pass
+     `gate_wgrad_wide_mma` at (512, 128, 512)) alike: HMMA in the SASS, no
+     spill, registers, shared memory and blocks an SM;
   3. the gate's forward kernels (stats, apply) against the plain version at
      the nine G and D gate shapes of lsun_bedroom_128, batch 64, bf16, with
      gate weights that make the gate vary and pass the clamp at 16, plus one
@@ -41,15 +43,17 @@ line each:
      against an f32 plain computation of the same inputs is at most twice
      the bf16 plain version's. Rule in f32: at most 1e-4 against the plain
      version;
-  4. the gate's backward kernels (csum, backward) at the same shapes under
-     the same rules, for c, dx, dpos_proj, dW1x, db1, dW2 and db2. These are
+  4. the gate's backward kernels (csum, backward) at the same shapes, and
+     at ffhq_512's two C = 512 shapes at batch 16, under the same rules,
+     for c, dx, dpos_proj, dW1x, db1, dW2 and db2. These are
      sums that cancel (db2 exactly: sum_s dl = c - c), so each error is taken
      against the norm of the sum of its terms' absolute values, the scale
      rounding error grows with; the same inputs run twice give bitwise-equal
      gradients. The backward runs on the route its wrapper picks: at each
-     bf16 C = 64 shape the tensor-core kernel (mma), and on the same inputs
-     the simt kernel too, both under the rule, each twice bitwise equal,
-     the mma route the faster (timed); every other shape and f32 on simt;
+     bf16 shape at C = 64 or 512 the tensor-core kernels (mma), and on the
+     same inputs the simt kernel too, both under the rule, each twice
+     bitwise equal, the mma route faster than the simt route and than the
+     plain version (timed); C = 128 and 256 and f32 on simt;
   5. lsun_bedroom_128 serving: seeded random weights with non-zero logit
      convs serve requests of batch 1, 16 and 64 through `generate_samples`;
      the launch counters read 6 per forward for each forward gate kernel and
@@ -63,18 +67,18 @@ line each:
      weights, 3 steps from step 0 through `make_train_step`: losses, norms and
      r1 finite, G, D and EMA moved, the guard counters as the norms imply,
      launch counters 30 / 30 / 24 / 24 per step and no fused-stage launch,
-     softmax_bwd's 24 on their routes: 9 mma (C = 64), 15 simt.
+     softmax_bwd's 24 on their routes: 16 mma (C = 64 and 512), 8 simt.
      Then one step's gradients from one state and batch with the same latents
      on the kernel path, the plain path and an f32 plain path: the kernel
      path's error against f32 is at most twice the plain path's, for D and
      for G. With random weights the 128^2 model's gradient is ill-conditioned
      (the f32 plain path's own gradient moves by percents when the weights
      move by 1e-7, printed), so two more checks carry the weight: each of the
-     step's 24 gate backward calls is held against the plain backward on its
-     own saved tensors (the bf16 rule), and at 64^2 (one stage fewer, same
-     widths) the f32 kernel path's gradients are within 1e-3 of the f32 plain
-     path's (or ten times the plain path's own change under 1e-7 weight
-     noise, if larger), each call within 1e-4;
+     step's 24 gate backward calls (16 on the mma route) is held against the
+     plain backward on its own saved tensors (the bf16 rule), and at 64^2
+     (one stage fewer, same widths) the f32 kernel path's gradients are
+     within 1e-3 of the f32 plain path's (or ten times the plain path's own
+     change under 1e-7 weight noise, if larger), each call within 1e-4;
   7. lsun_bedroom_128 training throughput: `bench 128 20` and `bench 128 20
      xla` (images/sec, flops per step, MFU), peak memory of a batch-128 step
      with R1 firing (r1_remat on and off), and over 3 steps of each path the
@@ -107,7 +111,7 @@ line each:
      kernels as the step implies, every launch of stage_conv,
      stage_softmax_stats, stage_softmax_apply_pool (6 a step) and
      stage_conv_bwd on the mma route, softmax_bwd's 32 on their routes
-     (17 mma, 15 simt), sec/step,
+     (24 mma, 8 simt), sec/step,
      images/sec, peak memory, idle
      share and top kernels; the same steps again with the grad-norm guard
      raised to 1e9, where G's and D's updates all apply and G, D and the
@@ -131,10 +135,11 @@ line each:
      and 4 at gate_max 1.5 (below the gate's ceiling of 2, so the clamp
      binds at about a third of the locations); two runs bitwise equal; each
      timed beside its bound and the plain version's time; the backward at
-     (262144, 64, 16) in bf16 on the mma route (sigmoid_bwd_mma) and, on
-     the same inputs, the simt route, both under the rule, each twice
-     bitwise equal, timed (fails if the mma route is not the faster); the
-     shapes up to 16^2 and f32 on the simt route;
+     (262144, 64, 16), (16, 512, 128) and (64, 512, 128) in bf16 on the mma
+     route (sigmoid_bwd_mma, sigmoid_bwd_wide_mma) and, on the same inputs,
+     the simt route, both under the rule, each twice bitwise equal, timed
+     (fails if the mma route is not faster than the simt route and the
+     plain version); the shapes at C = 128 and 256 and f32 on simt;
  16. the stage's sigmoid pass (stage_sigmoid) at 512^2 in G's `up` and
      D's `down` forms, plain and with a 1x1 skip, under the rules of 9 at
      gate_max 1.5, on both routes, timed alike;
@@ -143,10 +148,13 @@ line each:
  18. ffhq_512-sigmoid training as 11: 27 / 16 / 9 launches a step of
      sigmoid_gate / sigmoid_bwd / stage_sigmoid, 4 of stage_conv and of
      stage_conv_bwd, none of the softmax kernels; the three stage kernels
-     on the mma route; sigmoid_bwd's 16 on their routes (4 mma at the
-     512^2 stages, 12 simt);
+     on the mma route; sigmoid_bwd's 16 on their routes (11 mma: the 512^2
+     stages' 4 and the 7 at C = 512; 5 simt), and on phase 19's step each
+     of the 12 gate backward calls outside the fused stage (SigmoidGate: 7
+     at C = 512 on the mma route, 5 simt) held against the plain backward
+     on its own saved tensors (the bf16 rule);
  19. as 12, the four sigmoid stage backward calls of one step, their gate
-     backward on the mma route;
+     backward on the mma route (11 of the step's 16 sigmoid_bwd launches);
  20. as 13, at 64^2 with every sigmoid stage fused;
  21. one sigmoid attention layer at ffhq_512's shapes from 32^2 to 256^2
      (C 64), forward and forward plus backward through the kernels and the
@@ -229,9 +237,12 @@ SHAPES = G_SHAPES + [s for s in D_SHAPES if s not in G_SHAPES]
 SERVE = {s: int(s in G_SHAPES) for s in SHAPES}
 FWD_PER_STEP = {s: 2 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
 BWD_PER_STEP = {s: 1 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
-# the gate backward's tensor-core kernels, one body (their mma route: bf16
-# at (C, Hd, Cout) = (64, 16, 64)); each must hold HMMA and not spill
-GATE_MMA_KERNELS = ("softmax_bwd_mma", "sigmoid_bwd_mma")
+# the gate backward's tensor-core kernels (their mma route, bf16): two on
+# one body at (C, Hd, Cout) = (64, 16, 64), two on one body at (512, 128,
+# 512) and that template's weight-gradient pass; each must hold HMMA and
+# not spill
+GATE_MMA_KERNELS = ("softmax_bwd_mma", "sigmoid_bwd_mma", "softmax_bwd_wide_mma",
+                    "sigmoid_bwd_wide_mma", "gate_wgrad_wide_mma")
 F32_SHAPE = (1024, 64, 16)
 F32_TOL = 1e-4
 # a whole step's gradient tree at 64^2, kernel path vs plain path, f32: at
@@ -299,6 +310,7 @@ SFU_HZ = 1.98e9
 # four fused backward calls' gate stats, csum and backward)
 FFHQ_BATCH = 16
 FFHQ_GATE_SHAPES = [(65536, 64, 16), (262144, 64, 16)]
+FFHQ_WIDE_SHAPES = [(16, 512, 128), (64, 512, 128)]
 FFHQ_STAGE_PER_STEP = {"stage_softmax_stats": {"up": 3, "plain": 6},
                        "stage_softmax_apply_pool": {"plain": 6},
                        "stage_conv": {"up": 1, "plain": 3},
@@ -621,8 +633,11 @@ def cases():
     return out + [(*F32_SHAPE, torch.float32)]
 
 
-def ffhq_gate_cases():
-    return [(hw, c, hd, torch.bfloat16) for hw, c, hd in FFHQ_GATE_SHAPES]
+def ffhq_gate_cases(wide=False):
+    """ffhq_512's new gate shapes in bf16; with `wide` also its two C = 512
+    shapes, where the backward at batch 16 takes the wide mma template."""
+    shapes = FFHQ_GATE_SHAPES + (FFHQ_WIDE_SHAPES if wide else [])
+    return [(hw, c, hd, torch.bfloat16) for hw, c, hd in shapes]
 
 
 def phase_forward(fa, shapes, batch, phase="forward-kernels-vs-plain"):
@@ -671,12 +686,38 @@ def phase_forward(fa, shapes, batch, phase="forward-kernels-vs-plain"):
     return rows
 
 
+def bwd_grid_of(fa, route, n, hw, c, hd) -> dict:
+    """The grid and workspace of a gate backward call on `route`: the simt
+    kernel's tile rows and batch rows a block (its workspace slices), or,
+    at the wide mma template's widths, the weight-gradient pass's splits
+    and the workspace bytes."""
+    if route == "mma" and (c, hd, c) == fa.GATE_WIDE:
+        splits, w_floats, pp_floats = fa.bwd_wide_grid(n, hw, c, hd, c)
+        return dict(splits=splits, workspace_bytes=4 * (w_floats + pp_floats))
+    if route == "mma":
+        return dict(tile_rows=fa.GATE_MMA_TILE)
+    t, rows = fa.bwd_grid(n, hw, c)
+    return dict(tile_rows=t, batch_rows_per_block=rows,
+                workspace_bytes=4 * (-(-hw // t) * -(-n // rows) * (2 * c * hd + hd + c)
+                                     + -(-n // rows) * hw * hd))
+
+
+def check_mma_wins(kernel, shape, t):
+    """A gate backward's mma route must beat, on the same inputs, both the
+    simt route and the plain version."""
+    ms = t["ms"]
+    check(ms < t["ms_simt"], f"{kernel} at {shape}: the mma route ({ms:.4f} ms) is not faster "
+                             f"than the simt route ({t['ms_simt']:.4f} ms)")
+    check(ms < t["plain_ms"], f"{kernel} at {shape}: the mma route ({ms:.4f} ms) is not faster "
+                              f"than the plain version ({t['plain_ms']:.4f} ms)")
+
+
 def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
     """Phase 4 and the backward half of phase 8. softmax_bwd runs on the
     route its wrapper picks (`gate_bwd_route`); where that is the mma route
-    (bf16 at C = 64), the simt route runs on the same inputs too, under
-    the same rule and twice bitwise equal, is timed beside it, and must be
-    the slower."""
+    (bf16 at C = 64 and 512), the simt route runs on the same inputs too,
+    under the same rule and twice bitwise equal, is timed beside it, and
+    must be slower, as must the plain version."""
     rows = []
     for i, (hw, c, hd, dtype) in enumerate(shapes):
         ops, dy = gate_inputs(batch, hw, c, hd, dtype, seed=200 + i)
@@ -696,8 +737,7 @@ def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
             truth = run_backward(fa, [ops[0].float()] + ops[1:], dy.float(), hw, plain=True)
             torch.cuda.synchronize()
         row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""), route=route,
-                   bwd_grid=dict(zip(("tile_rows", "batch_rows_per_block"),
-                                     fa.bwd_grid(batch, hw, c))))
+                   bwd_grid=bwd_grid_of(fa, route, batch, hw, c, hd))
         for name, k, a in zip(GRAD_NAMES, kern, again):
             check(torch.equal(k, a), f"{name} at {shape}: two runs differ bitwise")
         if simt is not None:
@@ -734,13 +774,11 @@ def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
                 batch, hw, c, hd, dtype)
             row["softmax_bwd"]["route"] = route
             if route == "mma":
-                ms, ms_simt = row["softmax_bwd"]["ms"], graph_ms(
-                    lambda: fa.softmax_gate_backward(kops[0], dy, *kops[1:], m, se, cs,
-                                                     route="simt", **opts))
+                ms_simt = graph_ms(lambda: fa.softmax_gate_backward(
+                    kops[0], dy, *kops[1:], m, se, cs, route="simt", **opts))
                 row["softmax_bwd"]["ms_simt"] = ms_simt
                 row["softmax_bwd"]["share_of_bound_simt"] = row["softmax_bwd"]["bound_ms"] / ms_simt
-                check(ms < ms_simt, f"softmax_bwd at {shape}: the mma route ({ms:.4f} ms) is not "
-                                    f"faster than the simt route ({ms_simt:.4f} ms)")
+                check_mma_wins("softmax_bwd", shape, row["softmax_bwd"])
             row["profiler_us_per_call"] = kernel_split(lambda: fa.softmax_gate_backward(
                 kops[0], dy, *kops[1:], m, se,
                 fa.softmax_gate_csum(kops[0], dy, *kops[1:], m, se, **opts), **opts))
@@ -762,19 +800,20 @@ def run_sigmoid(fa, ops, dy, plain: bool, forward: bool = True, route=None):
     return (fwd(*ops, **kw) if forward else None, *bwd(ops[0], dy, *ops[1:], **kw))
 
 
-def sigmoid_term_scales(fa, x2d, dy, pp, w1x, b1, w2, b2):
+def sigmoid_term_scales(fa, x2d, dy, pp, w1x, b1, w2, b2, gate_max=SIGMOID_GATE_MAX,
+                        act=KW["act"], leaky_slope=KW["leaky_slope"]):
     """The sigmoid backward's (dx, dpos_proj, dW1x, db1, dW2, db2) computed
     on the absolute values of their terms, as `term_scales`."""
     cd = x2d.dtype
     xf, dyf = x2d.float(), dy.float()
     w1c, w2c = w1x.to(cd).float(), w2.to(cd).float()
     u = xf @ w1c + pp.float() + b1.float()
-    h = fa._act(KW["act"], KW["leaky_slope"])(u).to(cd).float()
+    h = fa._act(act, leaky_slope)(u).to(cd).float()
     p = torch.sigmoid(h @ w2c + b2.float())
     dl = (2.0 * p * (1.0 - p) * fa._dgate(xf.abs(), dyf.abs(), w2.shape[1])
-          * fa._gate_mask(2.0 * p, SIGMOID_GATE_MAX))
-    du = fa._act_grad(KW["act"], KW["leaky_slope"])(u).abs() * (dl @ w2c.abs().t())
-    dx = fa._clamp_gate(2.0 * p, SIGMOID_GATE_MAX) * dyf.abs() + du @ w1c.abs().t()
+          * fa._gate_mask(2.0 * p, gate_max))
+    du = fa._act_grad(act, leaky_slope)(u).abs() * (dl @ w2c.abs().t())
+    dx = fa._clamp_gate(2.0 * p, gate_max) * dyf.abs() + du @ w1c.abs().t()
     return (dx, du.sum(dim=0), torch.einsum("nsc,nsh->ch", xf.abs(), du),
             du.sum(dim=(0, 1)), torch.einsum("nsh,nsc->hc", h.abs(), dl), dl.sum(dim=(0, 1)))
 
@@ -796,9 +835,9 @@ def phase_sigmoid_gate(fa):
     part of the locations); two runs bitwise equal; each timed beside its
     bound and the plain version's time. sigmoid_bwd runs on the route its
     wrapper picks (`gate_bwd_route`); where that is the mma route (bf16 at
-    the 512^2 stage's shape), the simt route runs on the same inputs too,
-    under the same rule and twice bitwise equal, is timed beside it, and
-    must be the slower."""
+    the 512^2 stage's shape and at C = 512), the simt route runs on the
+    same inputs too, under the same rule and twice bitwise equal, is timed
+    beside it, and must be slower, as must the plain version."""
     n = FFHQ_BATCH
     names = ("y",) + GRAD_NAMES[1:]
     kw = dict(gate_max=SIGMOID_GATE_MAX, **KW)
@@ -827,8 +866,7 @@ def phase_sigmoid_gate(fa):
             torch.cuda.synchronize()
         row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""),
                    gate_max=SIGMOID_GATE_MAX, clamped_share=clamped, route=route,
-                   bwd_grid=dict(zip(("tile_rows", "batch_rows_per_block"),
-                                     fa.bwd_grid(n, hw, c))))
+                   bwd_grid=bwd_grid_of(fa, route, n, hw, c, hd))
         check(0.05 < clamped < 0.95, f"gate_max {SIGMOID_GATE_MAX} clamps {clamped} at {shape}")
         for name, k, a in zip(names, kern, again):
             check(k is None or torch.equal(k, a), f"{name} at {shape}: two runs differ bitwise")
@@ -856,12 +894,11 @@ def phase_sigmoid_gate(fa):
                 n, hw, c, hd, dtype)
             row["sigmoid_bwd"]["route"] = route
             if route == "mma":
-                ms, ms_simt = row["sigmoid_bwd"]["ms"], graph_ms(
+                ms_simt = graph_ms(
                     lambda: fa.sigmoid_gate_backward(kops[0], dy, *kops[1:], route="simt", **kw))
                 row["sigmoid_bwd"]["ms_simt"] = ms_simt
                 row["sigmoid_bwd"]["share_of_bound_simt"] = row["sigmoid_bwd"]["bound_ms"] / ms_simt
-                check(ms < ms_simt, f"sigmoid_bwd at {shape}: the mma route ({ms:.4f} ms) is not "
-                                    f"faster than the simt route ({ms_simt:.4f} ms)")
+                check_mma_wins("sigmoid_bwd", shape, row["sigmoid_bwd"])
             row["profiler_us_per_call"] = kernel_split(
                 lambda: fa.sigmoid_gate_backward(kops[0], dy, *kops[1:], **kw))
         say("sigmoid-gate-kernels-vs-plain", **row)
@@ -968,8 +1005,8 @@ def read_gate_routes(kernel: str = "softmax_bwd") -> dict:
 def gate_routes_per_step(fa, per_step: dict, steps: int = 1) -> dict:
     """{route: launches} of a gate backward (softmax_bwd or sigmoid_bwd)
     over `steps` steps that launch it `per_step[(HW, C, Hd)]` times a step
-    at each shape, bf16, Cout = C: softmax_bwd 9 mma and 15 simt a
-    lsun_bedroom_128 step, 17 and 15 an ffhq_512 one; sigmoid_bwd 4 and 12
+    at each shape, bf16, Cout = C: softmax_bwd 16 mma and 8 simt a
+    lsun_bedroom_128 step, 24 and 8 an ffhq_512 one; sigmoid_bwd 11 and 5
     an ffhq_512-sigmoid one."""
     out = {"mma": 0, "simt": 0}
     for (hw, c, hd), k in per_step.items():
@@ -1269,48 +1306,67 @@ def phase_train(fa):
 
 
 @contextlib.contextmanager
-def checked_gate_backward(fa, record):
-    """Hold every backward of the gate Function run inside the block
-    against the plain backward on the very tensors that call saved: in bf16
-    by the rule of phase 4 (against an f32 plain backward of the same
-    inputs), in f32 to F32_TOL. One row per call goes to `record`."""
-    original = fa.SoftmaxGate.backward
+def checked_gate_backward(fa, record, mode="softmax"):
+    """Hold every backward of the gate Function (`SoftmaxGate`, or
+    `SigmoidGate` for mode "sigmoid") run inside the block against the
+    plain backward on the very tensors that call saved: in bf16 by the rule
+    of phase 4 (against an f32 plain backward of the same inputs), in f32
+    to F32_TOL. One row per call goes to `record`. The saved tensors are
+    unpacked once (a checkpointed stage allows no more) and the wrapper
+    runs the Function's kernel backward on them itself."""
+    gate = fa.SigmoidGate if mode == "sigmoid" else fa.SoftmaxGate
+    original = gate.backward
+
+    def softmax(x2d, dy, pp, w1x, b1, w2, b2, m, se, opts):
+        """(kernel, plain, f32 plain, term scales) of a SoftmaxGate call."""
+        def plain(x, d, m, se):
+            c = fa.softmax_gate_csum_reference(x, d, pp, w1x, b1, w2, b2, m, se, **opts)
+            return fa.softmax_gate_backward_reference(x, d, pp, w1x, b1, w2, b2, m, se, c,
+                                                      **opts)
+
+        c = fa.softmax_gate_csum(x2d, dy, pp, w1x, b1, w2, b2, m, se, **opts)
+        grads = fa.softmax_gate_backward(x2d, dy, pp, w1x, b1, w2, b2, m, se, c, **opts)
+        p = t = plain(x2d, dy, m, se)
+        xf = x2d.float()
+        stats = fa.softmax_gate_stats_reference(xf, pp, w1x, b1, w2, b2, act=opts["act"],
+                                                leaky_slope=opts["leaky_slope"])
+        if x2d.dtype == torch.bfloat16:  # the f32 truth, its own softmax stats
+            t = plain(xf, dy.float(), *stats)
+        c = fa.softmax_gate_csum_reference(xf, dy.float(), pp, w1x, b1, w2, b2, *stats, **opts)
+        scales = term_scales(fa, xf, dy.float(), pp, w1x, b1, w2, b2, *stats, c, opts)
+        return grads, p, t, scales[1:]
+
+    def sigmoid(x2d, dy, pp, w1x, b1, w2, b2, opts):
+        """(kernel, plain, f32 plain, term scales) of a SigmoidGate call."""
+        grads = fa.sigmoid_gate_backward(x2d, dy, pp, w1x, b1, w2, b2, **opts)
+        p = t = fa.sigmoid_gate_backward_reference(x2d, dy, pp, w1x, b1, w2, b2, **opts)
+        xf, dyf = x2d.float(), dy.float()
+        if x2d.dtype == torch.bfloat16:
+            t = fa.sigmoid_gate_backward_reference(xf, dyf, pp, w1x, b1, w2, b2, **opts)
+        return grads, p, t, sigmoid_term_scales(fa, xf, dyf, pp, w1x, b1, w2, b2, **opts)
 
     def backward(ctx, dy):
-        grads = original(ctx, dy)
-        x2d, pp, w1x, b1, w2, b2, m, se = ctx.saved_tensors
-        opts = ctx.options
+        saved, opts = ctx.saved_tensors, ctx.options
+        check(opts["act"] in fa.BWD_ACTS, f"no backward kernel for {opts['act']}")
         with torch.no_grad():
-            def plain(x, d, m, se):
-                c = fa.softmax_gate_csum_reference(x, d, pp, w1x, b1, w2, b2, m, se, **opts)
-                return fa.softmax_gate_backward_reference(x, d, pp, w1x, b1, w2, b2, m, se, c,
-                                                          **opts)
-
-            p = plain(x2d, dy, m, se)
-            t = p
-            xf = x2d.float()
-            stats = fa.softmax_gate_stats_reference(xf, pp, w1x, b1, w2, b2,
-                                                    act=opts["act"],
-                                                    leaky_slope=opts["leaky_slope"])
-            if x2d.dtype == torch.bfloat16:  # the f32 truth, its own softmax stats
-                t = plain(xf, dy.float(), *stats)
-            c = fa.softmax_gate_csum_reference(xf, dy.float(), pp, w1x, b1, w2, b2, *stats,
-                                               **opts)
-            scales = term_scales(fa, xf, dy.float(), pp, w1x, b1, w2, b2, *stats, c, opts)
+            grads, p, t, scales = (sigmoid if mode == "sigmoid" else softmax)(
+                saved[0], dy, *saved[1:], opts)
+        x2d, w1x, w2 = saved[0], saved[2], saved[4]
         n, hw, c = x2d.shape
         row = dict(N=n, HW=hw, C=c, dtype=str(x2d.dtype).replace("torch.", ""),
                    route=fa.gate_bwd_route(x2d.dtype, hw, c, w1x.shape[1], w2.shape[1]))
         shape = dict(N=n, HW=hw, C=c)
-        for name, k, pi, ti, sc in zip(GRAD_NAMES[1:], grads, p, t, scales[1:]):
+        for name, k, pi, ti, sc in zip(GRAD_NAMES[1:], grads, p, t, scales):
             hold(name, shape, k, pi, ti, x2d.dtype, row, scale=sc)
         record.append(row)
-        return grads
+        # none for the Function's non-tensor arguments, the options
+        return (*grads, *[None] * len(opts))
 
-    fa.SoftmaxGate.backward = staticmethod(backward)
+    gate.backward = staticmethod(backward)
     try:
         yield
     finally:
-        fa.SoftmaxGate.backward = original
+        gate.backward = original
 
 
 def step_grads(cfg, weights, z_d, z_g, res, use_pallas, dtype, perturb=0.0):
@@ -1362,6 +1418,9 @@ def phase_train_grads(fa, cfg, weights):
     with checked_gate_backward(fa, calls):
         kernel = step_grads(cfg, weights, z_d, z_g, 128, True, "bfloat16")
     check(len(calls) == 24, f"{len(calls)} gate backward calls in one step's gradients")
+    want = gate_routes_per_step(fa, BWD_PER_STEP)
+    got = {r: sum(call["route"] == r for call in calls) for r in want}
+    check(got == want, f"one step's gate backward calls took the routes {got}, want {want}")
     paths = {"kernel": kernel,
              "plain": step_grads(cfg, weights, z_d, z_g, 128, False, "bfloat16"),
              "f32": step_grads(cfg, weights, z_d, z_g, 128, False, "float32"),
@@ -1942,7 +2001,10 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-
     backward calls held against the plain chain on its own saved tensors;
     each recomputes w (stage_conv) and runs the conv backward on the mma
     route, and with the sigmoid gate the gate's backward too
-    (sigmoid_bwd_mma); D's forward pools on the mma route."""
+    (sigmoid_bwd_mma); D's forward pools on the mma route. With the
+    sigmoid gate each of the step's 12 SigmoidGate backward calls (the
+    gates up to 16^2, 7 at C = 512 on the mma route) is held against the
+    plain backward on its own saved tensors too (phase 18's check)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(6)
     z = [torch.randn(FFHQ_BATCH, cfg.model.latent_dim, device="cuda", generator=g)
@@ -1952,21 +2014,32 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-
     def routes():
         return dict(read_stage_routes(), sigmoid_bwd=read_gate_routes("sigmoid_bwd"))
 
+    sigmoid = cfg.model.attention.mode == "sigmoid"
+    gate_calls = []
     before = routes()
-    with checked_stage_backward(fs, fa, calls):
+    with checked_stage_backward(fs, fa, calls), (
+            checked_gate_backward(fa, gate_calls, "sigmoid") if sigmoid
+            else contextlib.nullcontext()):
         _, _, d_loss, g_loss, r1 = step_grads(cfg, weights, *z, 512, True, "bfloat16")
     after = routes()
     check(len(calls) == 4, f"{len(calls)} fused-stage backward calls in one ffhq_512 step")
     moved = {k: {r: after[k][r] - before[k][r] for r in after[k]} for k in after}
-    sigmoid = cfg.model.attention.mode == "sigmoid"
     check(moved["stage_conv_bwd"] == moved["stage_conv"] == {"mma": 4, "simt": 0}
           and moved["stage_softmax_stats"]["simt"] == moved["stage_sigmoid"]["simt"] == 0
           and moved["stage_softmax_apply_pool"]["simt"] == 0
-          and moved["sigmoid_bwd"]["mma"] == (4 if sigmoid else 0),
+          and moved["sigmoid_bwd"] == gate_routes_per_step(
+              fa, SIGMOID_BWD_PER_STEP if sigmoid else {}),
           f"the checked ffhq_512 step's stage kernels took the routes {moved}")
+    if sigmoid:  # the gate's own calls: every shape but the fused 512^2 stage's
+        want = gate_routes_per_step(fa, {s: k for s, k in SIGMOID_BWD_PER_STEP.items()
+                                         if s != SIGMOID_STAGE_BWD_SHAPE})
+        got = {r: sum(call["route"] == r for call in gate_calls) for r in want}
+        check(got == want, f"the checked step's SigmoidGate calls took the routes {got}, "
+                           f"want {want}")
     check(all(math.isfinite(v) for v in (d_loss, g_loss, r1)) and r1 > 0.0,
           f"ffhq_512 step losses {d_loss}, {g_loss}, r1 {r1}")
-    say(phase, calls=calls, stage_routes=moved, d_loss=d_loss, g_loss=g_loss, r1=r1)
+    say(phase, calls=calls, gate_calls=gate_calls, stage_routes=moved, d_loss=d_loss,
+        g_loss=g_loss, r1=r1)
 
 
 def phase_ffhq_grads_64(fs, fa, blocks, overrides=None, kernels=STAGE_KERNELS,
@@ -2915,6 +2988,19 @@ def sass_tensor_ops(library) -> dict:
     return counts
 
 
+def gate_mma_instances(fa) -> dict:
+    """{GATE_MMA_KERNELS' instances, as ptxas and the SASS name them: (kind
+    of the blocks-per-SM query, (C, Hd, Cout))}; the wide template's kernels
+    carry their widths, and its location pass's shared memory is the
+    softmax's (kinds 0 and 1), the weight-gradient pass's (2) static."""
+    wide = ",".join(map(str, fa.GATE_WIDE))
+    narrow = (64, 16, 64)
+    return {"softmax_bwd_mma": (0, narrow), "sigmoid_bwd_mma": (1, narrow),
+            f"softmax_bwd_wide_mma<{wide}>": (0, fa.GATE_WIDE),
+            f"sigmoid_bwd_wide_mma<{wide}>": (1, fa.GATE_WIDE),
+            f"gate_wgrad_wide_mma<{wide}>": (2, fa.GATE_WIDE)}
+
+
 def phase_build(fa, fs, fl, build):
     """Phase 2: the three libraries, one nvcc each, started together; the
     flash library's mma kernels hold tensor-core instructions and spill
@@ -2980,22 +3066,22 @@ def phase_build(fa, fs, fl, build):
                 blocks_per_sm=int(stage_lib.locate_stage_blocks_per_sm(
                     1, kind, c, co, hd, cout, *fs._MMA_TILE)))
             check(stage_mma[n]["blocks_per_sm"] >= 1, f"{n}: no block fits on an SM")
-    # the gate backward's two mma kernels alike, each at its own occupancy,
+    # the gate backward's mma kernels alike, each at its own occupancy,
     # with the simt kernels' shared memory at the same widths (their tile at
     # lsun's 16384 locations)
     gate_sass = sass_tensor_ops(libs["fused_attention"])
     gate_lib = fa._library()
     gate_bwd = {}
-    for k in GATE_MMA_KERNELS:
+    for k, (kind, widths) in gate_mma_instances(fa).items():
         ptx = reports["fused_attention"].get(k, {})
         check(gate_sass.get(k, 0) > 0, f"{k}: no HMMA or HGMMA instruction in its SASS")
         check(bool(ptx) and ptx.get("spill_stores", 0) == 0 and ptx.get("spill_loads", 0) == 0,
               f"{k} spills: {ptx}")
-        gate_bwd[k] = dict(ptx, tensor_core_instructions=gate_sass[k], widths=fa.GATE_MMA_WIDTHS,
-                           bytes=int(gate_lib.locate_softmax_bwd_mma_smem_bytes(
-                               *fa.GATE_MMA_WIDTHS)),
+        gate_bwd[k] = dict(ptx, tensor_core_instructions=gate_sass[k], widths=widths,
+                           bytes=int(gate_lib.locate_softmax_bwd_mma_smem_bytes(*widths)
+                                     if kind < 2 else 0),
                            blocks_per_sm=int(gate_lib.locate_softmax_bwd_mma_blocks_per_sm(
-                               int(k == "sigmoid_bwd_mma"))))
+                               kind, *widths)))
         check(gate_bwd[k]["blocks_per_sm"] >= 1, f"{k}: no block fits on an SM")
     simt_tile = fa.bwd_grid(BATCH, 16384, 64)[0]
     for k in ("softmax_bwd<bf16>", "sigmoid_bwd<bf16>"):
@@ -3100,7 +3186,7 @@ def main() -> int:
     fwd_rows = phase_forward(fa, cases(), BATCH)
     fwd_rows += phase_forward(fa, ffhq_gate_cases(), FFHQ_BATCH, "ffhq-gate-forward")
     bwd_rows = phase_backward(fa, cases(), BATCH)
-    bwd_rows += phase_backward(fa, ffhq_gate_cases(), FFHQ_BATCH, "ffhq-gate-backward")
+    bwd_rows += phase_backward(fa, ffhq_gate_cases(wide=True), FFHQ_BATCH, "ffhq-gate-backward")
 
     # lsun_bedroom_128: serving and training (no stage fuses at 128^2)
     cfg = get_config("lsun_bedroom_128", {"use_pallas": "true"})

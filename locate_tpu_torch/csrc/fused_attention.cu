@@ -8,11 +8,17 @@
 //   * _bwd_kernel_softmax   (:397, body _bwd_body :408)
 //                                   -> softmax_bwd + reduce_partials (twice);
 //                                      bf16 at (C, Hd, Cout) = (64, 16, 64):
-//                                      softmax_bwd_mma (the tensor cores)
+//                                      softmax_bwd_mma (the tensor cores);
+//                                      bf16 at (512, 128, 512):
+//                                      softmax_bwd_wide_mma +
+//                                      gate_wgrad_wide_mma + reduce_partials
 //   * _sigmoid_kernel       (:145)  -> sigmoid_gate
 //   * _bwd_kernel_sigmoid   (:387, body _bwd_body :408)
 //                                   -> sigmoid_bwd + reduce_partials (twice);
-//                                      bf16 at (64, 16, 64): sigmoid_bwd_mma
+//                                      bf16 at (64, 16, 64): sigmoid_bwd_mma;
+//                                      at (512, 128, 512):
+//                                      sigmoid_bwd_wide_mma +
+//                                      gate_wgrad_wide_mma + reduce_partials
 // (softmax_stats_merge and reduce_partials live in common.cuh, which the
 // fused-stage kernels share.) The sigmoid gate g = 2 sigmoid(l) is local to
 // a location, so its forward is one pass (the apply pass with g in place of
@@ -67,9 +73,10 @@
 // the small products run as f32 FMA loops with a 4-location register
 // tile, the weights read through the read-only cache (C=512 x Hd=128
 // weights would not fit in shared memory as f32). These simt kernels use
-// no tensor cores; the two backward passes' bf16 route at the gate width
-// of the 64-channel stages does (softmax_bwd_mma and sigmoid_bwd_mma, on
-// one body, gate_bwd_mma, below).
+// no tensor cores; the two backward passes' bf16 route does, at the gate
+// width of the 64-channel stages (softmax_bwd_mma and sigmoid_bwd_mma, on
+// one body, gate_bwd_mma, below) and of the 512-channel stages (the two
+// passes of gate_bwd_wide, further below).
 
 #include "common.cuh"
 
@@ -878,6 +885,495 @@ __global__ void __launch_bounds__(kThreads, 1) sigmoid_bwd_mma(
                      N, HW, R, act, slope, 1.f, gate_max);
 }
 
+// ---- the gate backward on the tensor cores at the wide gates: bf16 at (C, Hd, Cout) =
+//      (512, 128, 512) ----
+//
+// gate_bwd_mma's plan does not carry over: W1x and W2 are 128 KB of bf16
+// each, more than a block's shared memory together, and a 16-location
+// m-tile of l or dx is 16 x 512 f32, too wide for a warp's registers; the
+// weight gradients (131,072 f32) cannot stay in registers either. So the
+// backward runs in two passes, computing what gate_bwd<bf16, S> computes
+// with its rounding points (h, dl and du rounded to bf16 before their
+// products, dx rounded once, the weight gradients f32 sums, db1, db2 and
+// dpos_proj sums of the unrounded f32 du and dl):
+//
+// 1. The location pass, softmax_bwd_wide_mma (S false) or
+//    sigmoid_bwd_wide_mma (S true, no m, se or c), both on gate_bwd_wide<C,
+//    HD, CO, S>. Grid ceil(N HW / 32): a block owns 32 consecutive rows of
+//    the flattened (N HW) locations, two m-tiles of 16 (HW % 16 == 0, so an
+//    m-tile never crosses an image and (n, channel) is row / HW). Each of
+//    its 8 warps owns one m-tile and a quarter of every product's columns.
+//    x and dy of the 32 rows are staged once by cp.async; the weights
+//    stream through a double buffer of 64-wide tiles that all 8 warps read
+//    (W1x by rows, then W2 by columns, then W1x by rows again: 24 tiles,
+//    each fetched under the previous one's products):
+//      * u = x W1x + pos_proj + b1 over C in 8 k-chunks, staged in f32;
+//        h = act(u)_bf16 staged for the sweep and written to a scratch;
+//      * the Cout sweep, 8 chunks of 64 columns, each W2 chunk read twice:
+//        l = h W2 + b2 (a warp: 16 x 16), dl element-wise (softmax: g =
+//        exp(l - m) / se HW, dl = g mask dg - (g / HW) c; sigmoid: p =
+//        sigmoid(l), g = 2p, dl = 2p(1 - p) mask dg; mask = [g <=
+//        gate_max]), dx's first term min(g, gate_max) dy kept in registers
+//        (64 f32 a lane over the sweep), db2's partial of the m-tile (f32
+//        dl summed over its 16 rows by warp shuffles), dl_bf16 staged and
+//        written to a scratch, and dh += dl_bf16 W2^T (a warp: 16 x 32);
+//        so l is neither recomputed nor stored: the gate term is the one
+//        product of l that dx needs, and it fits in registers;
+//      * du = act'(u) dh, written in f32 (for db1 and dpos_proj) and as
+//        bf16 (staged, and to a scratch);
+//      * the C sweep, 8 chunks: dx = min(g, gate_max) dy + du_bf16
+//        W1x^T, rounded once, written from the fragments.
+//    The sigmoid's u and l run on the tensor cores (a warp: 16 x 32 of u;
+//    each k-step of 16 products from a zero accumulator, summed in f32).
+//    The softmax's u and l run as tile_logits' FMA chains, in its order,
+//    on the CUDA cores: its g = exp(l - m) / se HW meets m, se and c from
+//    the simt stats and csum passes, and where the gate saturates (D's
+//    last stages: |x| up to 4,576 with random weights, |l| ~ 1e4, f32's
+//    step there ~1e-3) any other summation order moves g at the argmax by
+//    a few per mille, and dx, du and every weight gradient with it (100x
+//    the plain version's error on the card), while db2 = c - c stops
+//    cancelling. Bit for bit the stats pass's l, the route keeps simt's
+//    consistency; 4 of its 6 products stay on the tensor cores.
+// 2. The weight-gradient pass, gate_wgrad_wide_mma: dW1x = x^T du_bf16
+//    and dW2 = h^T dl_bf16 as products with the N HW locations as k, read
+//    by ldmatrix.trans (gate_bwd_mma's fragments). Grid (32 output tiles of
+//    64 x 64, splits): k is split over a fixed number of blocks so that
+//    the grid fills the card, each split writes its own partial.
+// 3. Fixed-order reductions (reduce_partials): the splits' partials into
+//    dW1x and dW2, the m-tiles' db2 partials into db2, du over the batch
+//    into dpos_proj, and dpos_proj over the locations into db1.
+// One owner per output and no atomics: two runs are bitwise equal. The
+// workspace is a few MB (the simt kernel's per-block slices: 135 MB at
+// (64, 512, 128), N = 64). Bound: bytes, as every pass of the gate. At
+// these shapes (N HW = 256 to 4096 rows, 8 to 128 location blocks) a launch
+// takes about one location block's time, whatever the grid: its 24 steps
+// of weight tiles and, for the softmax, its FMA chains.
+template <int C, int HD, int CO>
+struct WideGate {
+  static constexpr int kRows = 32;   // rows of a location block: two m-tiles
+  static constexpr int kChunk = 64;  // columns of a weight tile
+  static constexpr int kLX = C + 8, kLH = HD + 8, kLO = kChunk + 8;
+  static constexpr int kXChunks = C / kChunk, kOChunks = CO / kChunk;
+  static constexpr int kTiles = 2 * kXChunks + kOChunks;
+  // a W1x row chunk [kChunk][kLH] or a W2 column chunk [HD][kLO]
+  static constexpr int kWBuf = kChunk * kLH > HD * kLO ? kChunk * kLH : HD * kLO;
+  static constexpr int kHG = HD / 4;  // the hidden columns a warp owns
+  static constexpr int kLU = HD + 4;  // the f32 u tile's row stride
+  static constexpr int kWT = C * HD + HD * CO;
+  static constexpr size_t bytes =
+      (size_t)(2 * kRows * kLX + 2 * kRows * kLH + kRows * kLO + 2 * kWBuf) * sizeof(bf16) +
+      (size_t)kRows * kLU * sizeof(float);
+  static_assert(C == CO, "dx's gate term is per channel: Cout = C");
+  static_assert(C % kChunk == 0 && HD % 64 == 0 && (kHG / 8) % 2 == 0,
+                "64-wide chunks and an even number of hidden n-tiles a warp");
+};
+constexpr int kWideC = 512, kWideHd = 128, kWideCout = 512;
+using Wide = WideGate<kWideC, kWideHd, kWideCout>;
+constexpr int kWgRows = 64;  // the locations of a weight-gradient stage
+
+// ROWS x WIDTH bf16 of a row-major matrix (row stride `stride`) into shared
+// memory (row stride ld) by cp.async, the block's threads together; the
+// caller commits
+template <int ROWS, int WIDTH>
+__device__ __forceinline__ void fetch_tile(bf16* dst, int ld, const bf16* __restrict__ src,
+                                           int stride) {
+  constexpr int kChunks = WIDTH / 8;
+  for (int e = threadIdx.x; e < ROWS * kChunks; e += blockDim.x) {
+    const int r = e / kChunks, c = (e - r * kChunks) * 8;
+    cp_async16(dst + r * ld + c, src + (size_t)r * stride + c, true);
+  }
+}
+
+// weight tile t of the location pass into `buf`: W1x rows for the u chunks
+// and the dx chunks, W2 columns for the Cout sweep
+template <int C, int HD, int CO>
+__device__ __forceinline__ void fetch_weights(int t, bf16* buf, const bf16* __restrict__ w1,
+                                              const bf16* __restrict__ w2) {
+  using G = WideGate<C, HD, CO>;
+  if (t >= G::kXChunks && t < G::kXChunks + G::kOChunks) {
+    fetch_tile<HD, G::kChunk>(buf, G::kLO, w2 + (t - G::kXChunks) * G::kChunk, CO);
+  } else {
+    const int k = t < G::kXChunks ? t : t - G::kXChunks - G::kOChunks;
+    fetch_tile<G::kChunk, HD>(buf, G::kLH, w1 + (size_t)k * G::kChunk * HD, HD);
+  }
+}
+
+// the pipeline's step to weight tile t: fetch tile t + 1 into the buffer
+// that tile t - 1 left (one commit group a step, empty past the last
+// tile), wait for tile t, and hand it out
+template <int C, int HD, int CO>
+__device__ __forceinline__ const bf16* next_weights(int t, bf16* Wb, const bf16* __restrict__ w1,
+                                                    const bf16* __restrict__ w2) {
+  using G = WideGate<C, HD, CO>;
+  if (t + 1 < G::kTiles) fetch_weights<C, HD, CO>(t + 1, Wb + ((t + 1) & 1) * G::kWBuf, w1, w2);
+  cp_async_commit();
+  cp_async_wait_one();
+  __syncthreads();
+  return Wb + (t & 1) * G::kWBuf;
+}
+
+template <int N>
+__device__ __forceinline__ void add_to(float (&acc)[N][4], const float (&part)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+// S: the sigmoid gate (m, se and csum unused, hw_scale 1), else the softmax.
+// Out: dx, the m-tiles' db2 partials (N HW / 16, CO), and the scratches du
+// (f32), h_bf16, du_bf16 (N HW, HD) and dl_bf16 (N HW, CO).
+template <int C, int HD, int CO, bool S>
+__device__ __forceinline__ void gate_bwd_wide(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy, const float* __restrict__ pp,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ m, const float* __restrict__ se,
+    const float* __restrict__ csum, bf16* __restrict__ dx, float* __restrict__ db2_part,
+    float* __restrict__ du_f32, bf16* __restrict__ h_cd, bf16* __restrict__ du_cd,
+    bf16* __restrict__ dl_cd, int N, int HW, int act, float slope, float hw_scale,
+    float gate_max) {
+  using G = WideGate<C, HD, CO>;
+  constexpr int HNT = G::kHG / 8;  // hidden n-tiles a warp owns
+  extern __shared__ float4 smem4[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem4);  // [kRows][kLX] x
+  bf16* Ds = Xs + G::kRows * G::kLX;          // [kRows][kLX] dy
+  bf16* Hs = Ds + G::kRows * G::kLX;          // [kRows][kLH] h_bf16
+  bf16* DUs = Hs + G::kRows * G::kLH;         // [kRows][kLH] du_bf16
+  bf16* DLs = DUs + G::kRows * G::kLH;        // [kRows][kLO] dl_bf16 of a Cout chunk
+  bf16* Wb = DLs + G::kRows * G::kLO;         // [2][kWBuf] weight tiles
+  float* Us = reinterpret_cast<float*>(Wb + 2 * G::kWBuf);  // [kRows][kLU] u
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  const int mt = warp & 1, g = warp >> 1;  // the warp's m-tile and column quarter
+  const int M = N * HW, row0 = blockIdx.x * G::kRows;
+  const int r0 = row0 + 16 * mt;  // the warp's first row
+  const bool live = r0 < M;       // (the last block's second m-tile may lie past the end)
+  const int img = live ? r0 / HW : 0;
+  const int s0 = live ? r0 - img * HW : 0;  // its first location
+  const int hc = G::kHG * g;                // its first hidden column
+
+  for (int e = threadIdx.x; e < G::kRows * (C / 8); e += blockDim.x) {
+    const int r = e / (C / 8), ch = (e - r * (C / 8)) * 8;
+    const bool ok = row0 + r < M;
+    const size_t src = (size_t)(ok ? row0 + r : 0) * C + ch;
+    cp_async16(Xs + r * G::kLX + ch, x + src, ok);
+    cp_async16(Ds + r * G::kLX + ch, dy + src, ok);
+  }
+  fetch_weights<C, HD, CO>(0, Wb, w1, w2);  // with x and dy, one group
+  cp_async_commit();
+
+  // 1. u = x W1x + pos_proj + b1 (staged in f32 for act'(u)); h =
+  //    act(u)_bf16, staged and written
+  if constexpr (S) {
+    // on the tensor cores, each k-step of 16 products from a zero
+    // accumulator added to u in f32 (their own accumulation truncates)
+    float u[HNT][4];
+    zero(u);
+    for (int t = 0; t < G::kXChunks; ++t) {
+      const bf16* W = next_weights<C, HD, CO>(t, Wb, w1, w2);
+#pragma unroll
+      for (int kk = 0; kk < G::kChunk / 16; ++kk) {
+        uint32_t xa[1][4];
+        frag_a(xa[0], Xs, G::kLX, 16 * mt, t * G::kChunk + kk * 16);
+        float part[HNT][4];
+        zero(part);
+        mma_kn<1, HNT>(part, xa, W + kk * 16 * G::kLH, G::kLH, hc);
+        add_to(u, part);
+      }
+      __syncthreads();  // the next fetch overwrites this buffer
+    }
+#pragma unroll
+    for (int nt = 0; nt < HNT; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int j = hc + nt * 8 + col + e1, s = s0 + q + 8 * hh;
+          Us[(16 * mt + q + 8 * hh) * G::kLU + j] =
+              u[nt][2 * hh + e1] + pp[(size_t)s * HD + j] + b1[j];
+        }
+  } else {
+    // tile_logits' FMA chains, in its order: bit for bit the u of the stats
+    // and csum passes. A thread owns RT rows x 4 hidden columns.
+    constexpr int RT = G::kRows * 32 / kThreads;
+    const int rg = threadIdx.x >> 5, hg = lane;
+    float ua[RT][4] = {};
+    for (int t = 0; t < G::kXChunks; ++t) {
+      const bf16* W = next_weights<C, HD, CO>(t, Wb, w1, w2) + 4 * hg;
+      const bf16* xr = Xs + RT * rg * G::kLX + t * G::kChunk;
+#pragma unroll 8
+      for (int k = 0; k < G::kChunk; k += 2) {  // x read in pairs of k
+        float2 xv[RT];
+#pragma unroll
+        for (int r = 0; r < RT; ++r)
+          xv[r] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(xr + r * G::kLX + k));
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint2 wv = *reinterpret_cast<const uint2*>(W + (k + kk) * G::kLH);
+          const float2 w01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv.x));
+          const float2 w23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wv.y));
+          const float w[4] = {w01.x, w01.y, w23.x, w23.y};
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              ua[r][jj] = fmaf(kk ? xv[r].y : xv[r].x, w[jj], ua[r][jj]);
+        }
+      }
+      __syncthreads();  // the next fetch overwrites this buffer
+    }
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const int row = RT * rg + r, s = row0 + row < M ? (row0 + row) % HW : 0;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        Us[row * G::kLU + 4 * hg + jj] = ua[r][jj] + pp[(size_t)s * HD + 4 * hg + jj] +
+                                         b1[4 * hg + jj];
+    }
+  }
+  __syncthreads();  // u staged
+  // h from the staged u, in the fragment layout of the warp's columns
+#pragma unroll
+  for (int nt = 0; nt < HNT; ++nt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int j = hc + nt * 8 + col, rr = 16 * mt + q + 8 * hh;
+      const float2 uv = *reinterpret_cast<const float2*>(Us + rr * G::kLU + j);
+      const uint32_t hp = pack_bf16(activate(uv.x, act, slope), activate(uv.y, act, slope));
+      *reinterpret_cast<uint32_t*>(Hs + rr * G::kLH + j) = hp;
+      if (live) *reinterpret_cast<uint32_t*>(h_cd + (size_t)(r0 + q + 8 * hh) * HD + j) = hp;
+    }
+
+  // 2. the Cout sweep: l, dl, the gate term of dx, db2, dl_bf16, dh
+  float dh[HNT][4], gd[G::kOChunks][2][4];
+  zero(dh);
+#pragma unroll
+  for (int i = 0; i < G::kOChunks; ++i) {
+    const bf16* W = next_weights<C, HD, CO>(G::kXChunks + i, Wb, w1, w2);
+    float l[2][4];
+    zero(l);
+    if constexpr (S) {  // on the tensor cores, k-steps summed as u's
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t ha[1][4];
+        frag_a(ha[0], Hs, G::kLH, 16 * mt, kk * 16);
+        float part[2][4];
+        zero(part);
+        mma_kn<1, 2>(part, ha, W + kk * 16 * G::kLO, G::kLO, 16 * g);
+        add_to(l, part);
+      }
+    } else {  // tile_logits' FMA chains, in its order, in l's fragment layout
+      const bf16* hr = Hs + (16 * mt + q) * G::kLH;
+      const bf16* wc = W + 16 * g + col;
+#pragma unroll 8
+      for (int j = 0; j < HD; j += 2) {  // h read in pairs of j
+        const float2 h0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(hr + j));
+        const float2 h1 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(hr + 8 * G::kLH + j));
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                wc + (j + jj) * G::kLO + nt * 8));
+            const float a = jj ? h0.y : h0.x, b = jj ? h1.y : h1.x;
+            l[nt][0] = fmaf(a, w.x, l[nt][0]);
+            l[nt][1] = fmaf(a, w.y, l[nt][1]);
+            l[nt][2] = fmaf(b, w.x, l[nt][2]);
+            l[nt][3] = fmaf(b, w.y, l[nt][3]);
+          }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int cc = 16 * g + nt * 8 + col;  // the column in the chunk
+      const int co = i * G::kChunk + cc;
+      const float2 bv = *reinterpret_cast<const float2*>(b2 + co);
+      float2 mv = make_float2(0.f, 0.f), sv = mv, cv = mv;
+      if (!S) {
+        const size_t st = (size_t)img * CO + co;
+        mv = *reinterpret_cast<const float2*>(m + st);
+        sv = *reinterpret_cast<const float2*>(se + st);
+        cv = *reinterpret_cast<const float2*>(csum + st);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int o = (16 * mt + q + 8 * hh) * G::kLX + co;
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Xs + o));
+        const float2 dv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Ds + o));
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int e = 2 * hh + e1;
+          const float lv = l[nt][e] + (e1 ? bv.y : bv.x), de = e1 ? dv.y : dv.x;
+          const float p = S ? logistic(lv) : 0.f;
+          const float gv =
+              S ? 2.f * p : expf(lv - (e1 ? mv.y : mv.x)) / (e1 ? sv.y : sv.x) * hw_scale;
+          float dg = (e1 ? xv.y : xv.x) * de;
+          float ghat = gv;
+          if (gate_max > 0.f) {
+            dg *= gv <= gate_max ? 1.f : 0.f;
+            if (gv > gate_max) ghat = gate_max;
+          }
+          l[nt][e] = S ? 2.f * p * (1.f - p) * dg
+                       : gv * dg - (gv / hw_scale) * (e1 ? cv.y : cv.x);
+          gd[i][nt][e] = ghat * de;
+        }
+      }
+      const float v0 = sum_locations(l[nt][0] + l[nt][2]);
+      const float v1 = sum_locations(l[nt][1] + l[nt][3]);
+      if (live && q == 0)
+        *reinterpret_cast<float2*>(db2_part + (size_t)(r0 / 16) * CO + co) = make_float2(v0, v1);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const uint32_t dp = pack_bf16(l[nt][2 * hh], l[nt][2 * hh + 1]);
+        *reinterpret_cast<uint32_t*>(DLs + (16 * mt + q + 8 * hh) * G::kLO + cc) = dp;
+        if (live) *reinterpret_cast<uint32_t*>(dl_cd + (size_t)(r0 + q + 8 * hh) * CO + co) = dp;
+      }
+    }
+    __syncthreads();  // the m-tiles' dl_bf16 of the chunk staged
+    mma_nk_smem<G::kChunk / 16, HNT>(dh, DLs, G::kLO, 16 * mt, W + hc * G::kLO, G::kLO);
+    __syncthreads();  // DLs and this buffer are free again
+  }
+
+  // 3. du = act'(u) dh: f32 and bf16 out, bf16 staged for dx
+#pragma unroll
+  for (int nt = 0; nt < HNT; ++nt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int j = hc + nt * 8 + col, rr = q + 8 * hh;
+      const float2 uv = *reinterpret_cast<const float2*>(Us + (16 * mt + rr) * G::kLU + j);
+      const float d0 = activate_grad(uv.x, act, slope) * dh[nt][2 * hh];
+      const float d1 = activate_grad(uv.y, act, slope) * dh[nt][2 * hh + 1];
+      const uint32_t dp = pack_bf16(d0, d1);
+      *reinterpret_cast<uint32_t*>(DUs + (16 * mt + rr) * G::kLH + j) = dp;
+      if (live) {
+        *reinterpret_cast<float2*>(du_f32 + (size_t)(r0 + rr) * HD + j) = make_float2(d0, d1);
+        *reinterpret_cast<uint32_t*>(du_cd + (size_t)(r0 + rr) * HD + j) = dp;
+      }
+    }
+
+  // 4. the C sweep: dx = min(g, gate_max) dy + du_bf16 W1x^T, rounded once
+#pragma unroll
+  for (int i = 0; i < G::kXChunks; ++i) {
+    const bf16* W = next_weights<C, HD, CO>(G::kXChunks + G::kOChunks + i, Wb, w1, w2);
+    mma_nk_smem<HD / 16, 2>(gd[i], DUs, G::kLH, 16 * mt, W + 16 * g * G::kLH, G::kLH);
+    if (live) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<uint32_t*>(
+              dx + (size_t)(r0 + q + 8 * hh) * C + i * G::kChunk + 16 * g + nt * 8 + col) =
+              pack_bf16(gd[i][nt][2 * hh], gd[i][nt][2 * hh + 1]);
+    }
+    __syncthreads();
+  }
+  cp_async_wait_all();
+}
+
+template <int C, int HD, int CO>
+__global__ void __launch_bounds__(kThreads, 1) softmax_bwd_wide_mma(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy, const float* __restrict__ pp,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ m, const float* __restrict__ se,
+    const float* __restrict__ csum, bf16* __restrict__ dx, float* __restrict__ db2_part,
+    float* __restrict__ du_f32, bf16* __restrict__ h_cd, bf16* __restrict__ du_cd,
+    bf16* __restrict__ dl_cd, int N, int HW, int act, float slope, float hw_scale,
+    float gate_max) {
+  gate_bwd_wide<C, HD, CO, false>(x, dy, pp, w1, b1, w2, b2, m, se, csum, dx, db2_part, du_f32,
+                                  h_cd, du_cd, dl_cd, N, HW, act, slope, hw_scale, gate_max);
+}
+
+// The sigmoid gate's location pass: softmax_bwd_wide_mma's grid, tiles
+// and scratches, without the softmax statistics and c.
+template <int C, int HD, int CO>
+__global__ void __launch_bounds__(kThreads, 1) sigmoid_bwd_wide_mma(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy, const float* __restrict__ pp,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, bf16* __restrict__ dx, float* __restrict__ db2_part,
+    float* __restrict__ du_f32, bf16* __restrict__ h_cd, bf16* __restrict__ du_cd,
+    bf16* __restrict__ dl_cd, int N, int HW, int act, float slope, float gate_max) {
+  gate_bwd_wide<C, HD, CO, true>(x, dy, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, dx,
+                                 db2_part, du_f32, h_cd, du_cd, dl_cd, N, HW, act, slope, 1.f,
+                                 gate_max);
+}
+
+// The weight-gradient pass of both gates: grid (the 64 x 64 tiles of dW1x
+// (C, HD) then of dW2 (HD, CO), splits). Block (tile, s) sums its tile over
+// the location stages s * per_split .. (s + 1) * per_split - 1 of kWgRows
+// rows (x and du_bf16, or h_bf16 and dl_bf16, by cp.async a stage ahead) and
+// writes it to split s's partial [dW1x | dW2] in part; a split past the
+// last stage writes zeros. Each of the 8 warps owns 16 x 32 of the tile.
+template <int C, int HD, int CO>
+__global__ void __launch_bounds__(kThreads) gate_wgrad_wide_mma(
+    const bf16* __restrict__ x, const bf16* __restrict__ h_cd, const bf16* __restrict__ du_cd,
+    const bf16* __restrict__ dl_cd, float* __restrict__ part, int M, int per_split) {
+  constexpr int kT1 = (C / 64) * (HD / 64), kLd = 64 + 8;
+  __shared__ __align__(16) bf16 Ps[2][kWgRows * kLd], Qs[2][kWgRows * kLd];
+  int tile = blockIdx.x;
+  const bf16 *P, *Q;
+  int lp, lq, ldo;
+  float* out = part + (size_t)blockIdx.y * WideGate<C, HD, CO>::kWT;
+  if (tile < kT1) {  // dW1x = x^T du_bf16
+    const int a0 = tile / (HD / 64) * 64, b0 = tile % (HD / 64) * 64;
+    P = x + a0, lp = C, Q = du_cd + b0, lq = HD, ldo = HD;
+    out += (size_t)a0 * HD + b0;
+  } else {  // dW2 = h^T dl_bf16
+    tile -= kT1;
+    const int a0 = tile / (CO / 64) * 64, b0 = tile % (CO / 64) * 64;
+    P = h_cd + a0, lp = HD, Q = dl_cd + b0, lq = CO, ldo = CO;
+    out += (size_t)C * HD + (size_t)a0 * CO + b0;
+  }
+  const int stages = (M + kWgRows - 1) / kWgRows;
+  const int k0 = blockIdx.y * per_split, k1 = min(k0 + per_split, stages);
+  auto fetch = [&](int k, int buf) {
+    for (int e = threadIdx.x; e < kWgRows * 8; e += blockDim.x) {
+      const int r = e >> 3, ch = (e & 7) * 8, row = k * kWgRows + r;
+      const bool ok = row < M;
+      cp_async16(Ps[buf] + r * kLd + ch, P + (size_t)(ok ? row : 0) * lp + ch, ok);
+      cp_async16(Qs[buf] + r * kLd + ch, Q + (size_t)(ok ? row : 0) * lq + ch, ok);
+    }
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  const int wm = warp & 3, wn = warp >> 2;
+  // ldmatrix.trans rows and columns (gate_bwd_mma's): A = P^T, B = Q
+  const int ka = (lane & 7) + ((lane >> 4) << 3), ac = ((lane >> 3) & 1) << 3;
+  const int kb = (lane & 7) + (((lane >> 3) & 1) << 3), bc = (lane >> 4) << 3;
+  float acc[4][4];
+  zero(acc);
+  if (k0 < k1) fetch(k0, 0);
+  cp_async_commit();
+  for (int k = k0; k < k1; ++k) {
+    if (k + 1 < k1) fetch(k + 1, (k + 1 - k0) & 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const bf16* Pc = Ps[(k - k0) & 1];
+    const bf16* Qc = Qs[(k - k0) & 1];
+#pragma unroll
+    for (int ks = 0; ks < kWgRows / 16; ++ks) {
+      uint32_t af[4], bf[4];
+      ldsm_x4_t(af, Pc + (ks * 16 + ka) * kLd + 16 * wm + ac);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        ldsm_x4_t(bf, Qc + (ks * 16 + kb) * kLd + 32 * wn + 16 * np + bc);
+        mma16816(acc[2 * np], af, bf[0], bf[1]);
+        mma16816(acc[2 * np + 1], af, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // the next fetch overwrites this stage
+  }
+  cp_async_wait_all();
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(out + (size_t)(16 * wm + q + 8 * hh) * ldo + 32 * wn + nt * 8 +
+                                 col) = make_float2(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
+}
+
 template <typename T>
 cudaError_t launch_stats(const void* x, const void* pp, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* part_m, void* part_s,
@@ -1011,11 +1507,89 @@ cudaError_t launch_bwd_mma(const void* x, const void* dy, const void* pp, const 
   return launch_reduce((const float*)part_pp, (float*)dpp, 1, nb, HW * kGateHd, stream);
 }
 
+// The wide gates' backward on the tensor cores, S as launch_bwd_mma's:
+// the location pass on grid ceil(N HW / 32), the weight-gradient pass on
+// (32 tiles, splits), then four fixed-order reductions. Workspaces (the
+// sizes ops/fused_attention.py:bwd_wide_grid allocates): part_w holds
+// the splits' [dW1x | dW2] partials, then the m-tiles' db2 partials
+// (N HW / 16, Cout); part_pp holds du in f32 (N HW, Hd), then h_bf16 and
+// du_bf16 (N HW, Hd) and dl_bf16 (N HW, Cout).
+template <bool S>
+cudaError_t launch_bwd_wide(const void* x, const void* dy, const void* pp, const void* w1,
+                            const void* b1, const void* w2, const void* b2, const void* m,
+                            const void* se, const void* c, void* dx, void* part_w,
+                            void* part_pp, void* dw, void* dpp, int N, int HW, int splits,
+                            int act, float slope, float hw_scale, float gate_max,
+                            cudaStream_t stream) {
+  constexpr int C = kWideC, HD = kWideHd, CO = kWideCout;
+  const int M = N * HW;
+  float* pw = static_cast<float*>(part_w);
+  float* db2_part = pw + (size_t)splits * Wide::kWT;
+  float* du_f32 = static_cast<float*>(part_pp);
+  bf16* h_cd = reinterpret_cast<bf16*>(du_f32 + (size_t)M * HD);
+  bf16* du_cd = h_cd + (size_t)M * HD;
+  bf16* dl_cd = du_cd + (size_t)M * HD;
+  const size_t smem = Wide::bytes;
+  cudaError_t err = S ? allow_smem(sigmoid_bwd_wide_mma<C, HD, CO>, smem)
+                      : allow_smem(softmax_bwd_wide_mma<C, HD, CO>, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (M + Wide::kRows - 1) / Wide::kRows;
+  if (S)
+    sigmoid_bwd_wide_mma<C, HD, CO><<<blocks, kThreads, smem, stream>>>(
+        (const bf16*)x, (const bf16*)dy, (const float*)pp, (const bf16*)w1, (const float*)b1,
+        (const bf16*)w2, (const float*)b2, (bf16*)dx, db2_part, du_f32, h_cd, du_cd, dl_cd, N,
+        HW, act, slope, gate_max);
+  else
+    softmax_bwd_wide_mma<C, HD, CO><<<blocks, kThreads, smem, stream>>>(
+        (const bf16*)x, (const bf16*)dy, (const float*)pp, (const bf16*)w1, (const float*)b1,
+        (const bf16*)w2, (const float*)b2, (const float*)m, (const float*)se, (const float*)c,
+        (bf16*)dx, db2_part, du_f32, h_cd, du_cd, dl_cd, N, HW, act, slope, hw_scale, gate_max);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int stages = (M + kWgRows - 1) / kWgRows;
+  const int per_split = (stages + splits - 1) / splits;
+  constexpr int tiles = (C / 64) * (HD / 64) + (HD / 64) * (CO / 64);
+  gate_wgrad_wide_mma<C, HD, CO><<<dim3(tiles, splits), kThreads, 0, stream>>>(
+      (const bf16*)x, h_cd, du_cd, dl_cd, pw, M, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  float* dwf = static_cast<float*>(dw);
+  err = launch_reduce(pw, dwf, 1, splits, Wide::kWT, stream);  // dW1x, dW2
+  if (err != cudaSuccess) return err;
+  err = launch_reduce(db2_part, dwf + Wide::kWT + HD, 1, M / 16, CO, stream);  // db2
+  if (err != cudaSuccess) return err;
+  err = launch_reduce(du_f32, (float*)dpp, 1, N, HW * HD, stream);  // dpos_proj
+  if (err != cudaSuccess) return err;
+  return launch_reduce((const float*)dpp, dwf + Wide::kWT, 1, HW, HD, stream);  // db1
+}
+
 // Whether the mma route takes a backward call: bf16 at the template's
 // widths, its 128-location tile, an HW the tile divides.
 bool bwd_mma_fits(int is_bf16, int HW, int C, int Hd, int Cout, int T_rows) {
   return is_bf16 && C == kGateC && Hd == kGateHd && Cout == kGateCout && T_rows == kBwdTile &&
          HW % kBwdTile == 0;
+}
+
+// Whether the wide template takes it: bf16 at (512, 128, 512), its
+// 32-row location block, an HW that its 16-row m-tiles divide.
+bool bwd_wide_fits(int is_bf16, int HW, int C, int Hd, int Cout, int T_rows) {
+  return is_bf16 && C == kWideC && Hd == kWideHd && Cout == kWideCout && T_rows == Wide::kRows &&
+         HW % 16 == 0;
+}
+
+// Blocks of `kernel` (kThreads threads, `smem` bytes of dynamic shared
+// memory) that fit on an SM; -1 on an error.
+template <typename K>
+int blocks_per_sm(K kernel, size_t smem) {
+  int n = -1;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads, smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return n;
 }
 
 }  // namespace
@@ -1073,36 +1647,43 @@ int locate_softmax_csum(int is_bf16, const void* x, const void* dy, const void* 
                                  Cout, T_rows, act, slope, hw_scale, gate_max, s);
 }
 
-// Dynamic shared memory of a softmax_bwd_mma or sigmoid_bwd_mma block (the
-// same for both); 0 where the template does not take the widths.
+// Dynamic shared memory of a block of the mma route's location kernel at
+// (C, Hd, Cout), the same for both gates: softmax_bwd_mma's at (64, 16,
+// 64), softmax_bwd_wide_mma's at (512, 128, 512); 0 where no template
+// takes the widths.
 size_t locate_softmax_bwd_mma_smem_bytes(int C, int Hd, int Cout) {
-  return C == kGateC && Hd == kGateHd && Cout == kGateCout ? bwd_mma_bytes() : 0;
+  if (C == kGateC && Hd == kGateHd && Cout == kGateCout) return bwd_mma_bytes();
+  if (C == kWideC && Hd == kWideHd && Cout == kWideCout) return Wide::bytes;
+  return 0;
 }
 
-// Blocks of softmax_bwd_mma (sigmoid 0) or sigmoid_bwd_mma (sigmoid 1)
-// that fit on an SM; -1 on an error.
-int locate_softmax_bwd_mma_blocks_per_sm(int sigmoid) {
-  int n = -1;
-  const size_t smem = bwd_mma_bytes();
-  cudaError_t err = sigmoid ? allow_smem(sigmoid_bwd_mma, smem) : allow_smem(softmax_bwd_mma, smem);
-  if (err == cudaSuccess)
-    err = sigmoid ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sigmoid_bwd_mma, kThreads,
-                                                                  smem)
-                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, softmax_bwd_mma, kThreads,
-                                                                  smem);
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return -1;
+// Blocks of a kernel of the mma route at (C, Hd, Cout) that fit on an SM:
+// kind 0 the softmax's (softmax_bwd_mma, or softmax_bwd_wide_mma at the
+// wide widths), 1 the sigmoid's, 2 the wide widths' weight-gradient pass
+// (gate_wgrad_wide_mma); 0 where no template takes the call, -1 on an
+// error.
+int locate_softmax_bwd_mma_blocks_per_sm(int kind, int C, int Hd, int Cout) {
+  constexpr int WC = kWideC, WH = kWideHd, WO = kWideCout;
+  if (C == kGateC && Hd == kGateHd && Cout == kGateCout && kind < 2)
+    return kind ? blocks_per_sm(sigmoid_bwd_mma, bwd_mma_bytes())
+                : blocks_per_sm(softmax_bwd_mma, bwd_mma_bytes());
+  if (C == kWideC && Hd == kWideHd && Cout == kWideCout) {
+    if (kind == 0) return blocks_per_sm(softmax_bwd_wide_mma<WC, WH, WO>, Wide::bytes);
+    if (kind == 1) return blocks_per_sm(sigmoid_bwd_wide_mma<WC, WH, WO>, Wide::bytes);
+    if (kind == 2) return blocks_per_sm(gate_wgrad_wide_mma<WC, WH, WO>, 0);
   }
-  return n;
+  return 0;
 }
 
 // part_w: (ceil(HW/T_rows) * ceil(N/R), C*Hd + Hd*Cout + Hd + Cout) and
 // part_pp: (ceil(N/R), HW, Hd) workspaces; dx: (N, HW, C) out; dw: the
 // concatenated f32 [dW1x (C, Hd), dW2 (Hd, Cout), db1 (Hd), db2 (Cout)]
 // out; dpp: (HW, Hd) out. route 0 is the simt kernel (every dtype and
-// width); route 1 the tensor cores' (softmax_bwd_mma), which takes bf16 at
-// (C, Hd, Cout) = (64, 16, 64) with T_rows = 128 dividing HW only.
+// width); route 1 the tensor cores': softmax_bwd_mma for bf16 at (C, Hd,
+// Cout) = (64, 16, 64) with T_rows = 128 dividing HW, and
+// softmax_bwd_wide_mma with its weight-gradient pass for bf16 at (512, 128,
+// 512) with T_rows = 32 and 16 dividing HW, where R is the weight-gradient
+// pass's splits and the workspaces are launch_bwd_wide's; nothing else.
 int locate_softmax_bwd(int route, int is_bf16, const void* x, const void* dy, const void* pp,
                        const void* w1, const void* b1, const void* w2, const void* b2,
                        const void* m, const void* se, const void* c, void* dx, void* part_w,
@@ -1111,8 +1692,12 @@ int locate_softmax_bwd(int route, int is_bf16, const void* x, const void* dy, co
                        float gate_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (route == 1) {
-    if (!bwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows) || R < 1)
-      return (int)cudaErrorInvalidValue;
+    if (R < 1) return (int)cudaErrorInvalidValue;
+    if (bwd_wide_fits(is_bf16, HW, C, Hd, Cout, T_rows))
+      return (int)launch_bwd_wide<false>(x, dy, pp, w1, b1, w2, b2, m, se, c, dx, part_w,
+                                         part_pp, dw, dpp, N, HW, R, act, slope, hw_scale,
+                                         gate_max, s);
+    if (!bwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows)) return (int)cudaErrorInvalidValue;
     return (int)launch_bwd_mma<false>(x, dy, pp, w1, b1, w2, b2, m, se, c, dx, part_w, part_pp,
                                       dw, dpp, N, HW, R, act, slope, hw_scale, gate_max, s);
   }
@@ -1141,7 +1726,8 @@ int locate_sigmoid_gate(int is_bf16, const void* x, const void* pp, const void* 
 
 // The workspaces and outputs of locate_softmax_bwd, without m, se and c.
 // route 0 is the simt kernel (every dtype and width); route 1 the tensor
-// cores' (sigmoid_bwd_mma), under locate_softmax_bwd's condition.
+// cores' (sigmoid_bwd_mma, or sigmoid_bwd_wide_mma at the wide widths),
+// under locate_softmax_bwd's conditions.
 int locate_sigmoid_bwd(int route, int is_bf16, const void* x, const void* dy, const void* pp,
                        const void* w1, const void* b1, const void* w2, const void* b2, void* dx,
                        void* part_w, void* part_pp, void* dw, void* dpp, int N, int HW, int C,
@@ -1149,8 +1735,12 @@ int locate_sigmoid_bwd(int route, int is_bf16, const void* x, const void* dy, co
                        float gate_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (route == 1) {
-    if (!bwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows) || R < 1)
-      return (int)cudaErrorInvalidValue;
+    if (R < 1) return (int)cudaErrorInvalidValue;
+    if (bwd_wide_fits(is_bf16, HW, C, Hd, Cout, T_rows))
+      return (int)launch_bwd_wide<true>(x, dy, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, dx,
+                                        part_w, part_pp, dw, dpp, N, HW, R, act, slope, 1.f,
+                                        gate_max, s);
+    if (!bwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows)) return (int)cudaErrorInvalidValue;
     return (int)launch_bwd_mma<true>(x, dy, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, dx,
                                      part_w, part_pp, dw, dpp, N, HW, R, act, slope, 1.f,
                                      gate_max, s);

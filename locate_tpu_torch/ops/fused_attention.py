@@ -24,10 +24,13 @@ counts its kernel launches in its `launches` attribute.
 
 The two backward wrappers, `softmax_gate_backward` and
 `sigmoid_gate_backward`, have two routes each, which `gate_bwd_route` picks
-from the dtype and the widths: "mma" (bf16 at (C, Hd, Cout) = (64, 16, 64)
-with HW a multiple of 128, on the tensor cores: `softmax_bwd_mma` and
-`sigmoid_bwd_mma`, one body) and "simt" (f32 FMAs on the CUDA cores: f32,
-every other width, a gate with Cout 1). Each route's launches are counted
+from the dtype and the widths: "mma" on the tensor cores (bf16 at the
+widths of `GATE_MMA_WIDTHS`: (C, Hd, Cout) = (64, 16, 64) with HW a
+multiple of 128, `softmax_bwd_mma` and `sigmoid_bwd_mma`, one body; and
+(512, 128, 512) with HW a multiple of 16, `softmax_bwd_wide_mma` and
+`sigmoid_bwd_wide_mma`, one body, then the weight-gradient pass
+`gate_wgrad_wide_mma`) and "simt" (f32 FMAs on the CUDA cores: f32, every
+other width, a gate with Cout 1). Each route's launches are counted
 apart too (`launches_mma`, `launches_simt`); `route="simt"` sends a bf16
 call to the simt kernel, to compare the two on one card.
 `fused_locate_attention` runs them through a first-order
@@ -62,10 +65,16 @@ _MAX_SMEM = 232448
 # blocks the backward kernel aims for: two per SM of the H100's 132
 _BWD_TARGET_BLOCKS = 264
 
-# (C, Hd, Cout) of the backward's mma template (csrc/fused_attention.cu:
-# gate_bwd_mma), and its tile of locations, which must divide HW
-GATE_MMA_WIDTHS = (64, 16, 64)
+# the (C, Hd, Cout) of the backward's mma templates (csrc/fused_attention.cu),
+# each with the locations that must divide HW: gate_bwd_mma's 128-location
+# tile at the 64-channel stages' gate, gate_bwd_wide's 16-row m-tiles at
+# the 512-channel stages' gate
 GATE_MMA_TILE = 128
+GATE_WIDE = (512, 128, 512)
+GATE_MMA_WIDTHS = {(64, 16, 64): GATE_MMA_TILE, GATE_WIDE: 16}
+# rows of the wide template's location block, and of a weight-gradient stage
+GATE_WIDE_ROWS = 32
+GATE_WIDE_STAGE = 64
 
 
 def _act(kind: str, slope: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -268,7 +277,7 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.locate_softmax_bwd_mma_smem_bytes.argtypes = [i] * 3
         lib.locate_softmax_bwd_mma_smem_bytes.restype = ctypes.c_size_t
-        lib.locate_softmax_bwd_mma_blocks_per_sm.argtypes = [i]
+        lib.locate_softmax_bwd_mma_blocks_per_sm.argtypes = [i] * 4
         lib.locate_softmax_bwd_mma_blocks_per_sm.restype = i
         lib.locate_cuda_error_string.argtypes = [i]
         lib.locate_cuda_error_string.restype = ctypes.c_char_p
@@ -466,12 +475,12 @@ def bwd_grid(n: int, hw: int, c: int) -> Tuple[int, int]:
 
 def gate_bwd_route(dtype: torch.dtype, hw: int, c: int, hd: int, cout: int) -> str:
     """The kernel of both gates' backward (`softmax_gate_backward`,
-    `sigmoid_gate_backward`): "mma" for bf16 at the
-    template's (C, Hd, Cout) (`GATE_MMA_WIDTHS`) with HW a multiple of its
-    128-location tile, "simt" otherwise (f32 keeps its f32 products, every
-    other width and a gate with Cout 1 the simt kernel)."""
-    if (dtype == torch.bfloat16 and (c, hd, cout) == GATE_MMA_WIDTHS
-            and hw % GATE_MMA_TILE == 0):
+    `sigmoid_gate_backward`): "mma" for bf16 at a template's (C, Hd, Cout)
+    (`GATE_MMA_WIDTHS`) with HW a multiple of its tile, "simt" otherwise
+    (f32 keeps its f32 products, every other width and a gate with Cout 1
+    the simt kernel)."""
+    tile = GATE_MMA_WIDTHS.get((c, hd, cout))
+    if dtype == torch.bfloat16 and tile and hw % tile == 0:
         return MMA
     return SIMT
 
@@ -485,9 +494,9 @@ def _gate_route_of(route: Optional[str], dtype: torch.dtype, hw: int, c: int, hd
     if route not in _ROUTE_CODE:
         raise ValueError(f"route must be {MMA!r} or {SIMT!r}, got {route!r}")
     if route == MMA and gate_bwd_route(dtype, hw, c, hd, cout) != MMA:
-        raise ValueError(f"the mma route takes bf16 at (C, Hd, Cout) = {GATE_MMA_WIDTHS} with "
-                         f"HW a multiple of {GATE_MMA_TILE}, got {dtype}, HW={hw}, C={c}, "
-                         f"Hd={hd}, Cout={cout}")
+        widths = ", ".join(f"{w} with HW a multiple of {t}" for w, t in GATE_MMA_WIDTHS.items())
+        raise ValueError(f"the mma route takes bf16 at (C, Hd, Cout) = {widths}; got {dtype}, "
+                         f"HW={hw}, C={c}, Hd={hd}, Cout={cout}")
     return route
 
 
@@ -501,11 +510,29 @@ def bwd_mma_grid(n: int, hw: int, slots: int) -> int:
     return -(-n // nb)
 
 
+def bwd_wide_grid(n: int, hw: int, c: int, hd: int, cout: int) -> Tuple[int, int, int]:
+    """(splits, part_w floats, part_pp floats) of the mma route at the wide
+    widths (`GATE_WIDE`). The location pass has ceil(N HW / 32) blocks;
+    the weight-gradient pass splits the N HW locations (stages of 64) over
+    as many blocks as make `_BWD_TARGET_BLOCKS` with the 64 x 64 tiles of
+    dW1x and dW2, at most one a stage. part_w holds the splits' [dW1x | dW2]
+    partials and the 16-row m-tiles' db2 partials; part_pp du in f32 and
+    the bf16 scratches h, du (N HW, Hd) and dl (N HW, Cout), two to a
+    float. A few MB where the simt kernel's slices take 135 MB."""
+    rows = n * hw
+    stages = -(-rows // GATE_WIDE_STAGE)
+    tiles = (c // 64) * (hd // 64) + (hd // 64) * (cout // 64)
+    splits = max(1, min(stages, _BWD_TARGET_BLOCKS // tiles))
+    part_w = splits * (c * hd + hd * cout) + rows // 16 * cout
+    part_pp = rows * hd + (2 * rows * hd + rows * cout) // 2
+    return splits, part_w, part_pp
+
+
 @functools.lru_cache(maxsize=None)
 def _mma_slots(device_index: int, sigmoid: bool) -> int:
-    """Blocks of the gate's mma backward kernel (`sigmoid_bwd_mma` or
-    `softmax_bwd_mma`) that fit on the card at once."""
-    per_sm = _library().locate_softmax_bwd_mma_blocks_per_sm(int(sigmoid))
+    """Blocks of the gate's mma backward kernel at (64, 16, 64)
+    (`sigmoid_bwd_mma` or `softmax_bwd_mma`) that fit on the card at once."""
+    per_sm = _library().locate_softmax_bwd_mma_blocks_per_sm(int(sigmoid), 64, 16, 64)
     if per_sm < 1:
         gate = "sigmoid" if sigmoid else "softmax"
         raise RuntimeError(f"{gate} backward (mma): no block fits on an SM ({per_sm})")
@@ -521,24 +548,30 @@ def _launch_backward(fn: str, ops, x2d, w1x, w2, act, floats, route: str):
     arguments."""
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
+    sizes = (c * hd, hd * cout, hd, cout)
     lib = _library()
-    if route == MMA:
-        slots = _mma_slots(x2d.device.index, fn == "locate_sigmoid_bwd")
-        t, rows = GATE_MMA_TILE, bwd_mma_grid(n, hw, slots)
+    if route == MMA and (c, hd, cout) == GATE_WIDE:
+        # rows: the weight-gradient pass's splits
+        t, (rows, w_floats, pp_floats) = GATE_WIDE_ROWS, bwd_wide_grid(n, hw, c, hd, cout)
         smem = lib.locate_softmax_bwd_mma_smem_bytes(c, hd, cout)
     else:
-        t, rows = bwd_grid(n, hw, c)
-        smem = lib.locate_softmax_bwd_smem_bytes(c, hd, cout, t)
+        if route == MMA:
+            slots = _mma_slots(x2d.device.index, fn == "locate_sigmoid_bwd")
+            t, rows = GATE_MMA_TILE, bwd_mma_grid(n, hw, slots)
+            smem = lib.locate_softmax_bwd_mma_smem_bytes(c, hd, cout)
+        else:
+            t, rows = bwd_grid(n, hw, c)
+            smem = lib.locate_softmax_bwd_smem_bytes(c, hd, cout, t)
+        nb = -(-n // rows)
+        w_floats, pp_floats = -(-hw // t) * nb * sum(sizes), nb * hw * hd
     if smem > _MAX_SMEM:
         raise ValueError(f"C={c}, Hd={hd}, Cout={cout} needs {smem} bytes of shared "
                          f"memory per backward block, over the card's {_MAX_SMEM}")
-    tiles, nb = -(-hw // t), -(-n // rows)
-    sizes = (c * hd, hd * cout, hd, cout)
     with torch.cuda.device(x2d.device):
         f32 = dict(dtype=torch.float32, device=x2d.device)
         dx = torch.empty_like(ops[0])
-        part_w = torch.empty((tiles * nb, sum(sizes)), **f32)
-        part_pp = torch.empty((nb, hw, hd), **f32)
+        part_w = torch.empty(w_floats, **f32)
+        part_pp = torch.empty(pp_floats, **f32)
         dw = torch.empty(sum(sizes), **f32)
         dpp = torch.empty((hw, hd), **f32)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream

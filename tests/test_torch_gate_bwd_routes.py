@@ -1,12 +1,15 @@
 """The routes of the two gate backward wrappers, `softmax_gate_backward`
 and `sigmoid_gate_backward`, on the CPU: which kernel `gate_bwd_route`
 picks for both (mma: bf16 on the tensor cores at (C, Hd, Cout) = (64, 16,
-64) with HW a multiple of 128; simt: f32 and every other width), what the
-wrappers refuse, that a CPU call runs the plain version and counts no
-launch, the mma route's grid, and what chip_smoke.py reads of the two mma
-kernels (their names in ptxas and SASS listings, the route counts of a
-train step, phase 15's cases, the kernels line). The kernels themselves run
-on the card only (tests/test_torch_kernels_gpu.py, `-k gate_bwd_mma`)."""
+64) with HW a multiple of 128 and at (512, 128, 512) with HW a multiple of
+16; simt: f32 and every other width), what the wrappers refuse, that a CPU
+call runs the plain version and counts no launch, the mma route's grid, and
+what chip_smoke.py reads of the mma kernels (their names in ptxas and SASS
+listings, the route counts of a train step, phase 15's cases, the kernels
+line). The wide template's own cases are in
+tests/test_torch_gate_bwd_wide.py. The kernels themselves run on the card
+only (tests/test_torch_kernels_gpu.py, `-k "gate_bwd_mma or
+sigmoid_bwd_mma or wide"`)."""
 
 import importlib.util
 import os
@@ -23,9 +26,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPTS = dict(act="leaky_relu", leaky_slope=0.2, gate_max=16.0)
 
 # (HW, C, Hd) of lsun_bedroom_128's gates at C >= 128 (G's 4^2-16^2, D's
-# 32^2-4^2): the widths that stay on the simt route
-WIDE_SHAPES = [(16, 512, 128), (64, 256, 64), (256, 128, 32), (1024, 128, 32),
-               (256, 256, 64), (64, 512, 128)]
+# 32^2-4^2) by route: C = 512 on the wide mma template, C = 128 and 256 on
+# the simt route
+WIDE_MMA_SHAPES = [(16, 512, 128), (64, 512, 128)]
+WIDE_SIMT_SHAPES = [(64, 256, 64), (256, 128, 32), (1024, 128, 32), (256, 256, 64)]
 
 
 @pytest.fixture(scope="module")
@@ -39,14 +43,14 @@ def smoke():
 
 @pytest.mark.parametrize("hw", [128, 1024, 4096, 16384, 65536, 262144])
 def test_bf16_at_the_template_takes_the_mma_route(hw):
-    assert fa.GATE_MMA_WIDTHS == (64, 16, 64) and fa.GATE_MMA_TILE == 128
+    assert fa.GATE_MMA_WIDTHS[(64, 16, 64)] == fa.GATE_MMA_TILE == 128
     assert fa.gate_bwd_route(torch.bfloat16, hw, 64, 16, 64) == fa.MMA
 
 
 @pytest.mark.parametrize("dtype,hw,c,hd,cout", [
     (torch.float32, 1024, 64, 16, 64),        # f32 keeps f32 products
     (torch.float16, 1024, 64, 16, 64),
-    *[(torch.bfloat16, hw, c, hd, c) for hw, c, hd in WIDE_SHAPES],
+    *[(torch.bfloat16, hw, c, hd, c) for hw, c, hd in WIDE_SIMT_SHAPES],
     (torch.bfloat16, 1024, 64, 16, 1),        # a gate broadcast over the channels
     (torch.bfloat16, 1024, 64, 32, 64),       # Hd != 16
     (torch.bfloat16, 1024, 64, 8, 64),
@@ -131,10 +135,13 @@ def test_mma_route_on_an_unfit_call_raises(gate, dtype, hw, hd, cout):
 
 @pytest.mark.parametrize("gate", GATES)
 def test_mma_route_refuses_a_wider_gate(gate):
-    ops = _gate(torch.bfloat16, n=1, hw=256, c=128, hd=32, cout=128)
-    with pytest.raises(ValueError, match="mma route"):
-        _backward(gate, ops, 256, route=fa.MMA)
-    assert len(_backward(gate, ops, 256, route=fa.SIMT)) == 6
+    """The widths that stay on simt, C = 128 and 256 (K1d, K1e), refuse the
+    mma route."""
+    for c, hd in ((128, 32), (256, 64)):
+        ops = _gate(torch.bfloat16, n=1, hw=256, c=c, hd=hd, cout=c)
+        with pytest.raises(ValueError, match="mma route"):
+            _backward(gate, ops, 256, route=fa.MMA)
+        assert len(_backward(gate, ops, 256, route=fa.SIMT)) == 6
 
 
 @pytest.mark.parametrize("gate", GATES)
@@ -180,46 +187,49 @@ def test_simt_grid_is_unchanged():
 
 
 def test_lsun_step_route_counts(smoke):
-    """A lsun_bedroom_128 train step runs softmax_bwd 24 times: 9 on the mma
-    route (G's 1024, 4096 and 16384; D's 16384 and 4096, three times
-    each) and 15 on the simt route; ffhq_512's 32: 17 and 15. An
-    ffhq_512-sigmoid step runs sigmoid_bwd 16 times: the 4 fused 512^2
-    stages' on the mma route, the 12 of the gates up to 16^2 (C 128-512)
-    on the simt route."""
-    assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP) == {"mma": 9, "simt": 15}
-    assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP, 3) == {"mma": 27, "simt": 45}
+    """A lsun_bedroom_128 train step runs softmax_bwd 24 times: 16 on the
+    mma route (C = 64: G's 1024, 4096 and 16384, D's 16384 and 4096 three
+    times each; C = 512: G's 16, D's 16 and 64 three times each) and 8 on
+    the simt route; ffhq_512's 32: 24 and 8. An ffhq_512-sigmoid step runs
+    sigmoid_bwd 16 times: 11 on the mma route (the 4 fused 512^2 stages',
+    the 7 at C = 512), the 5 at C = 128 and 256 on the simt route."""
+    assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP) == {"mma": 16, "simt": 8}
+    assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP, 3) == {"mma": 48, "simt": 24}
     assert sum(smoke.FFHQ_BWD_PER_STEP.values()) == smoke.FFHQ_GATE_PER_STEP["softmax_bwd"]
-    assert smoke.gate_routes_per_step(fa, smoke.FFHQ_BWD_PER_STEP) == {"mma": 17, "simt": 15}
+    assert smoke.gate_routes_per_step(fa, smoke.FFHQ_BWD_PER_STEP) == {"mma": 24, "simt": 8}
     assert smoke.gate_routes_per_step(fa, {}) == {"mma": 0, "simt": 0}
     assert sum(smoke.SIGMOID_BWD_PER_STEP.values()) == smoke.SIGMOID_PER_STEP["sigmoid_bwd"]
-    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP) == {"mma": 4, "simt": 12}
-    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP, 3) == {"mma": 12,
-                                                                            "simt": 36}
+    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP) == {"mma": 11, "simt": 5}
+    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP, 3) == {"mma": 33,
+                                                                            "simt": 15}
     for kernel in ("softmax_bwd", "sigmoid_bwd"):
         assert smoke.read_gate_routes(kernel).keys() == {"mma", "simt"}
     assert smoke.read_gate_routes() == smoke.read_gate_routes("softmax_bwd")
 
 
 def test_phases_4_and_8_cover_the_template(smoke):
-    """Phases 4 and 8 run every C = 64 shape of the two main paths in bf16,
-    the shapes the mma route takes, and one f32 shape (simt)."""
+    """Phases 4 and 8 run every C = 64 and C = 512 shape of the two main
+    paths in bf16, the shapes the mma route takes, and one f32 shape
+    (simt)."""
     bf16 = {(hw, c, hd) for hw, c, hd, d in smoke.cases() + smoke.ffhq_gate_cases()
             if d == torch.bfloat16 and fa.gate_bwd_route(d, hw, c, hd, c) == fa.MMA}
     assert bf16 == {(1024, 64, 16), (4096, 64, 16), (16384, 64, 16), (65536, 64, 16),
-                    (262144, 64, 16)}
+                    (262144, 64, 16), (16, 512, 128), (64, 512, 128)}
     hw, c, hd, d = smoke.cases()[-1]
     assert d == torch.float32 and fa.gate_bwd_route(d, hw, c, hd, c) == fa.SIMT
 
 
 def test_phase_15_covers_both_routes(smoke):
-    """Phase 15 runs the sigmoid backward at the 512^2 stage's shape in bf16,
-    the one shape the mma route takes, and every other case (the gates up
-    to 16^2 and the f32 shape) on the simt route; its forward kernel only
-    where the layer runs it."""
+    """Phase 15 runs the sigmoid backward in bf16 at the 512^2 stage's shape
+    and at C = 512, the shapes the mma route takes, and every other case
+    (the gates at C = 128 and 256 and the f32 shape) on the simt route; its
+    forward kernel only where the layer runs it."""
     cases = smoke.sigmoid_gate_cases()
     routes = {(hw, c, hd, d): fa.gate_bwd_route(d, hw, c, hd, c) for hw, c, hd, d, _ in cases}
-    assert [k for k, r in routes.items() if r == fa.MMA] == [(262144, 64, 16, torch.bfloat16)]
-    assert sum(r == fa.SIMT for r in routes.values()) == len(smoke.SIGMOID_SHAPES) + 1
+    assert [k for k, r in routes.items() if r == fa.MMA] == [
+        (16, 512, 128, torch.bfloat16), (64, 512, 128, torch.bfloat16),
+        (262144, 64, 16, torch.bfloat16)]
+    assert sum(r == fa.SIMT for r in routes.values()) == len(smoke.SIGMOID_SHAPES) + 1 - 2
     assert {d for hw, c, hd, d, fwd in cases if not fwd} == {torch.bfloat16}
     assert sum(not fwd for *_, fwd in cases) == 1
 
@@ -233,6 +243,14 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115sigmoid_bwd_mmaEPK1
 ptxas info    : Function properties for _ZN12_GLOBAL__N_115sigmoid_bwd_mmaEPK13__nv_bfloat16S2_PKfS2_S4_S2_S4_PS0_PfS6_iiiiiff
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 160 registers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120softmax_bwd_wide_mmaILi512ELi128ELi512EEEvPK13__nv_bfloat16S3_PKfS3_S5_S3_S5_S5_S5_S5_PS1_PfS7_PS1_S8_S8_iiifff' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120softmax_bwd_wide_mmaILi512ELi128ELi512EEEvPK13__nv_bfloat16S3_PKfS3_S5_S3_S5_S5_S5_S5_PS1_PfS7_PS1_S8_S8_iiifff
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 200 registers, 472 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119gate_wgrad_wide_mmaILi512ELi128ELi512EEEvPK13__nv_bfloat16S3_S3_S3_Pfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119gate_wgrad_wide_mmaILi512ELi128ELi512EEEvPK13__nv_bfloat16S3_S3_S3_Pfii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 36864 bytes smem, 384 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111sigmoid_bwdI13__nv_bfloat16EEvPKT_S4_PKfS4_S6_S4_S6_PS2_PfS8_iiiiiiiiff' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_111sigmoid_bwdI13__nv_bfloat16EEvPKT_S4_PKfS4_S6_S4_S6_PS2_PfS8_iiiiiiiiff
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -245,14 +263,23 @@ ptxas info    : Used 64 registers, 480 bytes cmem[0]
 
 
 def test_ptxas_names_the_gate_mma_kernel(smoke):
-    """softmax_bwd_mma and sigmoid_bwd_mma keep names of their own, apart
-    from the simt kernels whose names they contain."""
-    assert smoke.GATE_MMA_KERNELS == ("softmax_bwd_mma", "sigmoid_bwd_mma")
+    """The gate backward's mma kernels keep names of their own, apart from
+    the simt kernels whose names they contain; the wide template's carry
+    its widths."""
+    assert smoke.GATE_MMA_KERNELS == ("softmax_bwd_mma", "sigmoid_bwd_mma",
+                                      "softmax_bwd_wide_mma", "sigmoid_bwd_wide_mma",
+                                      "gate_wgrad_wide_mma")
+    names = smoke.ALL_CUDA_KERNELS
     for k in smoke.GATE_MMA_KERNELS:
-        assert smoke.ALL_CUDA_KERNELS.index(k) < smoke.ALL_CUDA_KERNELS.index(k[:-len("_mma")])
+        assert all(names.index(k) < names.index(o) for o in names if o != k and o in k)
     kernels = smoke.parse_ptxas(GATE_PTXAS_LOG)
     assert set(kernels) == {"softmax_bwd_mma", "sigmoid_bwd_mma", "softmax_bwd<bf16>",
-                            "sigmoid_bwd<bf16>"}
+                            "sigmoid_bwd<bf16>", "softmax_bwd_wide_mma<512,128,512>",
+                            "gate_wgrad_wide_mma<512,128,512>"}
+    assert set(kernels) - {"softmax_bwd<bf16>", "sigmoid_bwd<bf16>"} < set(
+        smoke.gate_mma_instances(fa))
+    assert kernels["softmax_bwd_wide_mma<512,128,512>"]["registers"] == 200
+    assert kernels["gate_wgrad_wide_mma<512,128,512>"]["static_smem"] == 36864
     assert kernels["softmax_bwd_mma"]["registers"] == 168
     assert kernels["sigmoid_bwd_mma"]["registers"] == 160
     assert kernels["sigmoid_bwd_mma"]["spill_stores"] == kernels["softmax_bwd_mma"]["spill_loads"] == 0
@@ -294,12 +321,12 @@ def test_kernels_line_carries_the_gate_routes(smoke):
     launches = smoke.expected({"softmax_bwd": 24}, 3)
     routes = smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP, 3)
     entry = smoke.gate_entry("softmax_bwd", [], rows, launches, launches, launches, routes)
-    assert entry["ms"] == 9 * 1.0 + 15 * 2.0
-    assert entry["ms_simt"] == 9 * 4.0 + 15 * 2.0
-    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 27
+    assert entry["ms"] == 16 * 1.0 + 8 * 2.0
+    assert entry["ms_simt"] == 16 * 4.0 + 8 * 2.0
+    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 48
     assert entry["launches"] == 72 and entry["route"] == "cuda"
     assert {s["route"] for s in entry["shapes"]} == {"mma", "simt"}
-    assert sum("ms_simt" in s for s in entry["shapes"]) == 3
+    assert sum("ms_simt" in s for s in entry["shapes"]) == 5
     for key in ("name", "source", "replaces", "max_abs_err", "plain_ms", "bound_ms",
                 "bound_by", "library_ms"):
         assert key in entry
@@ -307,9 +334,9 @@ def test_kernels_line_carries_the_gate_routes(smoke):
 
 def test_kernels_line_carries_the_sigmoid_routes(smoke):
     """Row 6 of the kernels line: sigmoid_bwd's per-step time on the routes
-    the wrapper picks (4 launches a step at the 512^2 stage's shape on the
-    mma route, 12 on simt), beside the simt route's time of the same
-    launches and the main path's launches on the mma route."""
+    the wrapper picks (11 launches a step on the mma route, at the 512^2
+    stage's shape and at C = 512, 5 on simt), beside the simt route's time
+    of the same launches and the main path's launches on the mma route."""
     rows = []
     for hw, c, hd, dtype, forward in smoke.sigmoid_gate_cases():
         route = fa.gate_bwd_route(dtype, hw, c, hd, c)
@@ -323,11 +350,11 @@ def test_kernels_line_carries_the_sigmoid_routes(smoke):
     launches = smoke.expected(smoke.SIGMOID_PER_STEP, 3)
     routes = {"sigmoid_bwd": smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP, 3)}
     entry = smoke.sigmoid_entry("sigmoid_bwd", rows, launches, {}, routes)
-    assert entry["ms"] == 4 * 1.0 + 12 * 2.0
-    assert entry["ms_simt"] == 4 * 5.0 + 12 * 2.0
-    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 12
+    assert entry["ms"] == 11 * 1.0 + 5 * 2.0
+    assert entry["ms_simt"] == 11 * 5.0 + 5 * 2.0
+    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 33
     assert entry["launches"] == 48 and entry["route"] == "cuda"
-    assert sum("ms_simt" in s for s in entry["shapes"]) == 1
+    assert sum("ms_simt" in s for s in entry["shapes"]) == 3
     for key in ("name", "source", "replaces", "max_abs_err", "plain_ms", "bound_ms",
                 "bound_by", "library_ms"):
         assert key in entry

@@ -347,8 +347,98 @@ def test_gate_bwd_mma_refuses_a_wider_gate(cuda):
         assert err == 1, (bf16, hw, c, hd, cout, t, err)  # cudaErrorInvalidValue
     assert lib.locate_softmax_bwd_mma_smem_bytes(128, 32, 128) == 0
     assert lib.locate_softmax_bwd_mma_smem_bytes(64, 16, 64) <= fa._MAX_SMEM
-    assert lib.locate_softmax_bwd_mma_blocks_per_sm(0) >= 1
-    assert lib.locate_softmax_bwd_mma_blocks_per_sm(1) >= 1
+    assert lib.locate_softmax_bwd_mma_blocks_per_sm(0, 64, 16, 64) >= 1
+    assert lib.locate_softmax_bwd_mma_blocks_per_sm(1, 64, 16, 64) >= 1
+    assert lib.locate_softmax_bwd_mma_blocks_per_sm(0, 128, 32, 128) == 0
+
+
+# the wide template, (C, Hd, Cout) = (512, 128, 512): each gate at its
+# path's batch (softmax: lsun_bedroom_128's 64; sigmoid: ffhq_512's 16) at
+# the two C = 512 shapes, HW 16 and 64
+WIDE_CASES = [("softmax", 64, 16), ("softmax", 64, 64), ("sigmoid", 16, 16),
+              ("sigmoid", 16, 64)]
+
+
+def wide_backward(gate, ops, dy, route):
+    if gate == "softmax":
+        return run_backward(ops, dy, "leaky_relu", 16.0, ops[0].shape[1], kernel=True,
+                            route=route)
+    return run_sigmoid_bwd(ops, dy, 1.5, True, route)
+
+
+def event_ms(fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate,n,hw", WIDE_CASES)
+def test_gate_bwd_wide_mma_route_against_plain(cuda, gate, n, hw):
+    """softmax_bwd_wide_mma / sigmoid_bwd_wide_mma with their weight-gradient
+    pass (the wrapper's choice at bf16, C = 512, Hd = 128) and the simt
+    kernel on the same inputs: each under the bf16 rule on every output,
+    each twice bitwise equal; the mma route the faster."""
+    ops = make_inputs(n, hw, 512, 128, 512, torch.bfloat16, cuda, seed=41)
+    dy = make_dy(n, hw, 512, torch.bfloat16, cuda, seed=42)
+    assert fa.gate_bwd_route(torch.bfloat16, hw, 512, 128, 512) == fa.MMA
+    counts = gate_route_counts if gate == "softmax" else sigmoid_route_counts
+    for route in (None, fa.SIMT):
+        before = counts()
+        if gate == "softmax":
+            check_backward(ops, dy, "leaky_relu", 16.0, hw, route=route)
+        else:
+            check_sigmoid_bwd(ops, dy, 1.5, route=route)
+        step = [b - a for a, b in zip(before, counts())]
+        assert step == ([1, 1, 0] if route is None else [1, 0, 1]), (route, step)
+        first, second = (wide_backward(gate, ops, dy, route) for _ in range(2))
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), route
+    with torch.no_grad():
+        ms = {r: event_ms(lambda: wide_backward(gate, ops, dy, r)) for r in (fa.MMA, fa.SIMT)}
+    assert ms[fa.MMA] < ms[fa.SIMT], ms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["softmax", "sigmoid"])
+def test_gate_bwd_wide_mma_route_counters_after_one_gate(cuda, mode):
+    """One gate forward and backward at the wide widths (4 x 4 locations, a
+    last block of one m-tile): the backward once on the mma route."""
+    ops = make_inputs(3, 16, 512, 128, 512, torch.bfloat16, cuda, seed=43)
+    w1 = ops[2].clone().requires_grad_(True)
+    counts = gate_route_counts if mode == "softmax" else sigmoid_route_counts
+    before = counts()
+    y = fa.fused_locate_attention(ops[0].reshape(3, 4, 4, 512), ops[1], w1, *ops[3:],
+                                  mode=mode, gate_max=1.5)
+    y.float().sum().backward()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 0)
+    assert w1.grad is not None and bool(torch.isfinite(w1.grad).all())
+
+
+@pytest.mark.gpu
+def test_gate_bwd_wide_mma_refuses_an_unfit_call(cuda):
+    """The C interface takes the wide template only for bf16 at (512, 128,
+    512) with its 32-row block and HW a multiple of 16, and at least one
+    split; its occupancy and shared memory answer for its three kernels."""
+    lib = fa._library()
+    for bf16, hw, c, hd, cout, t, r in [(0, 64, 512, 128, 512, 32, 8),
+                                        (1, 24, 512, 128, 512, 32, 8),
+                                        (1, 64, 512, 128, 512, 16, 8),
+                                        (1, 64, 512, 64, 512, 32, 8),
+                                        (1, 64, 512, 128, 512, 32, 0)]:
+        for fn, nptr in ((lib.locate_softmax_bwd, 15), (lib.locate_sigmoid_bwd, 12)):
+            floats = (0.2, float(hw), 16.0) if nptr == 15 else (0.2, 16.0)
+            err = fn(1, bf16, *([None] * nptr), 2, hw, c, hd, cout, t, r, 0, *floats, None)
+            assert err == 1, (fn, bf16, hw, c, hd, cout, t, r, err)
+    assert 0 < lib.locate_softmax_bwd_mma_smem_bytes(512, 128, 512) <= fa._MAX_SMEM
+    for kind in (0, 1, 2):
+        assert lib.locate_softmax_bwd_mma_blocks_per_sm(kind, 512, 128, 512) >= 1
 
 
 # ---------------------------------------------------------------------------
