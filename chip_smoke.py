@@ -33,8 +33,9 @@ line each:
      backward's mma kernels (`softmax_bwd_mma`, `sigmoid_bwd_mma` at
      (C, Hd, Cout) = (64, 16, 64); `softmax_bwd_wide_mma`,
      `sigmoid_bwd_wide_mma` and their weight-gradient pass
-     `gate_wgrad_wide_mma` at (512, 128, 512)) alike: HMMA in the SASS, no
-     spill, registers, shared memory and blocks an SM;
+     `gate_wgrad_wide_mma` at (512, 128, 512)) and the softmax forward
+     pair's (`softmax_stats_mma`, `softmax_apply_mma` at (64, 16, 64)) alike:
+     HMMA in the SASS, no spill, registers, shared memory and blocks an SM;
   3. the gate's forward kernels (stats, apply) against the plain version at
      the nine G and D gate shapes of lsun_bedroom_128, batch 64, bf16, with
      gate weights that make the gate vary and pass the clamp at 16, plus one
@@ -42,7 +43,11 @@ line each:
      262144, C 64), batch 16. Rule in bf16: the kernel's norm-relative error
      against an f32 plain computation of the same inputs is at most twice
      the bf16 plain version's. Rule in f32: at most 1e-4 against the plain
-     version;
+     version. Both passes run on the route their wrappers pick: at each
+     bf16 shape at C = 64 the tensor-core kernels (mma), and on the same
+     inputs the simt kernels too, both under the rule, each twice bitwise
+     equal, the mma route faster than the simt route and than the plain
+     version (timed); the other widths and f32 on simt;
   4. the gate's backward kernels (csum, backward) at the same shapes, and
      at ffhq_512's two C = 512 shapes at batch 16, under the same rules,
      for c, dx, dpos_proj, dW1x, db1, dW2 and db2. These are
@@ -56,9 +61,10 @@ line each:
      plain version (timed); C = 128 and 256 and f32 on simt;
   5. lsun_bedroom_128 serving: seeded random weights with non-zero logit
      convs serve requests of batch 1, 16 and 64 through `generate_samples`;
-     the launch counters read 6 per forward for each forward gate kernel and
-     0 for every other; each attention layer of the batch-64 request is held
-     against the plain version on the activations it received; the kernel
+     the launch counters read 6 per forward for each forward gate kernel
+     (3 on the mma route: G's C = 64 stages) and 0 for every other; each
+     attention layer of the batch-64 request is held against the plain
+     version on the activations it received; the kernel
      path, the plain path and an f32 plain generator run the same latents
      (kernel error <= 2x plain error); `bench-sample`'s images/sec at batch
      64 for both paths, peak memory, idle share;
@@ -67,7 +73,8 @@ line each:
      weights, 3 steps from step 0 through `make_train_step`: losses, norms and
      r1 finite, G, D and EMA moved, the guard counters as the norms imply,
      launch counters 30 / 30 / 24 / 24 per step and no fused-stage launch,
-     softmax_bwd's 24 on their routes: 16 mma (C = 64 and 512), 8 simt.
+     softmax_stats' and softmax_apply's 30 on their routes: 12 mma (C =
+     64), 18 simt; softmax_bwd's 24: 16 mma (C = 64 and 512), 8 simt.
      Then one step's gradients from one state and batch with the same latents
      on the kernel path, the plain path and an f32 plain path: the kernel
      path's error against f32 is at most twice the plain path's, for D and
@@ -98,10 +105,15 @@ line each:
      the same inputs, the simt route, both under the bf16 rule, each case
      twice and bitwise equal, f32 on the simt route; each bf16 case timed
      beside its bound, the plain version's time and the simt route's time
-     (fails if the mma route is not the faster);
+     (fails if the mma route is not the faster); then, in G's `up` and D's
+     plain form, the stats pass's m and se against `softmax_stats_mma` on
+     the w the stage stores, with the same gate weights: m bitwise equal,
+     se within the f32 steps of its longer sum (one l for the fused and the
+     unfused path);
  10. ffhq_512 serving: one request of 4 through `generate_samples` (the
      launches of one forward: the stage's stats pass once, the gate's kernels
-     at the seven stages below), the kernel path, the plain path and an f32
+     at the seven stages below, stats 4 and apply 5 of them on the mma
+     route), the kernel path, the plain path and an f32
      plain generator on the same latents (kernel error <= 2x plain error),
      the idle share of a batch-16 request, and `bench-sample ffhq_512
      --batch=16` on both paths with peak memory;
@@ -111,7 +123,8 @@ line each:
      kernels as the step implies, every launch of stage_conv,
      stage_softmax_stats, stage_softmax_apply_pool (6 a step) and
      stage_conv_bwd on the mma route, softmax_bwd's 32 on their routes
-     (24 mma, 8 simt), sec/step,
+     (24 mma, 8 simt), softmax_stats' 67 (34 mma) and softmax_apply's 66
+     (33 mma), sec/step,
      images/sec, peak memory, idle
      share and top kernels; the same steps again with the grad-norm guard
      raised to 1e9, where G's and D's updates all apply and G, D and the
@@ -193,9 +206,10 @@ line each:
      gradients against the plain path (the tolerance of 6), each call
      within 1e-4;
  26. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
-     flash kernels, the five routed stage kernels, softmax_bwd and
-     sigmoid_bwd with their mma-route launches and the simt route's time of
-     the same launches beside their own);
+     flash kernels, the five routed stage kernels, softmax_stats,
+     softmax_apply, softmax_bwd and sigmoid_bwd with their mma-route
+     launches and the simt route's time of the same launches beside their
+     own);
  27. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
@@ -243,6 +257,11 @@ BWD_PER_STEP = {s: 1 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
 # not spill
 GATE_MMA_KERNELS = ("softmax_bwd_mma", "sigmoid_bwd_mma", "softmax_bwd_wide_mma",
                     "sigmoid_bwd_wide_mma", "gate_wgrad_wide_mma")
+# the softmax gate's forward pair on the tensor cores (bf16 at (64, 16, 64),
+# one body on the backward's logit core); each must hold HMMA and not spill
+GATE_FWD_MMA_KERNELS = ("softmax_stats_mma", "softmax_apply_mma")
+# the forward's two wrappers with two routes
+GATE_FWD_ROUTED = ("softmax_stats", "softmax_apply")
 F32_SHAPE = (1024, 64, 16)
 F32_TOL = 1e-4
 # a whole step's gradient tree at 64^2, kernel path vs plain path, f32: at
@@ -293,8 +312,10 @@ FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # templates on the padded head widths; each must hold HMMA or HGMMA
 FLASH_MMA_KERNELS = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")
 FLASH_MMA_SPILL_LIMIT = 16  # bytes: the simt kernels' worst spill
-ALL_CUDA_KERNELS = (GATE_MMA_KERNELS + STAGE_MMA_KERNELS + STAGE_CUDA_KERNELS + CUDA_KERNELS
-                    + FLASH_MMA_KERNELS + FLASH_KERNELS)
+# (stage_softmax_stats_mma holds softmax_stats_mma, softmax_apply_mma holds
+# softmax_apply: the longer name first)
+ALL_CUDA_KERNELS = (GATE_MMA_KERNELS + STAGE_MMA_KERNELS + GATE_FWD_MMA_KERNELS
+                    + STAGE_CUDA_KERNELS + CUDA_KERNELS + FLASH_MMA_KERNELS + FLASH_KERNELS)
 # the exponential floor of a flash pass: B T S exponentials on the H100's
 # 132 x 16 SFU lanes (one ex2 a lane a clock) at the SXM card's 1.98 GHz
 # boost clock, the clock PEAK_FLOPS's f32 figure (132 x 128 FMA x 2) assumes
@@ -324,6 +345,20 @@ FFHQ_BWD_PER_STEP = {(16, 512, 128): 1 + 3, (64, 256, 64): 1, (256, 128, 32): 1,
                      (1024, 64, 16): 1, (4096, 64, 16): 1 + 3, (16384, 64, 16): 1 + 3,
                      (65536, 64, 16): 1 + 3, (262144, 64, 16): 1 + 3, (1024, 128, 32): 3,
                      (256, 256, 64): 3, (64, 512, 128): 3}
+# softmax_stats' and softmax_apply's launches a step at each (HW, C, Hd): the
+# seven unfused gates of G three times (the fake for D, the G step, remat's
+# rerun) and of D six times (real, fake, the G step, and their reruns);
+# stats also in the four fused backward calls at 512^2, apply in G's fused
+# 512^2 stage (not pooled) three times; and a served forward's: G's seven,
+# apply also at 512^2
+FFHQ_STATS_PER_STEP = {(16, 512, 128): 3 + 6, (64, 256, 64): 3, (256, 128, 32): 3,
+                       (1024, 64, 16): 3, (4096, 64, 16): 3 + 6, (16384, 64, 16): 3 + 6,
+                       (65536, 64, 16): 3 + 6, (262144, 64, 16): 4, (1024, 128, 32): 6,
+                       (256, 256, 64): 6, (64, 512, 128): 6}
+FFHQ_APPLY_PER_STEP = {**FFHQ_STATS_PER_STEP, (262144, 64, 16): 3}
+FFHQ_STATS_SERVE = {(16, 512, 128): 1, (64, 256, 64): 1, (256, 128, 32): 1, (1024, 64, 16): 1,
+                    (4096, 64, 16): 1, (16384, 64, 16): 1, (65536, 64, 16): 1}
+FFHQ_APPLY_SERVE = {**FFHQ_STATS_SERVE, (262144, 64, 16): 1}
 FFHQ_SERVE_PER_FORWARD = {"softmax_stats": 7, "softmax_apply": 8, "softmax_csum": 0,
                           "softmax_bwd": 0, "stage_conv": 0, "stage_softmax_stats": 1,
                           "stage_softmax_apply_pool": 0, "stage_conv_bwd": 0}
@@ -553,14 +588,17 @@ def bound(kind: str, n, hw, c, hd, cout, dtype):
 KW = dict(act="leaky_relu", leaky_slope=0.2)
 
 
-def run_forward(fa, ops, hw, plain: bool):
+def run_forward(fa, ops, hw, plain: bool, route=None):
+    """(m, se, y): the plain versions, or both kernels on `route` (the
+    wrappers' choice where None)."""
     if plain:
         m, se = fa.softmax_gate_stats_reference(*ops, **KW)
         y = fa.softmax_gate_apply_reference(*ops, m, se, hw_scale=float(hw),
                                             gate_max=16.0, **KW)
     else:
-        m, se = fa.softmax_gate_stats(*ops, **KW)
-        y = fa.softmax_gate_apply(*ops, m, se, hw_scale=float(hw), gate_max=16.0, **KW)
+        m, se = fa.softmax_gate_stats(*ops, route=route, **KW)
+        y = fa.softmax_gate_apply(*ops, m, se, hw_scale=float(hw), gate_max=16.0, route=route,
+                                  **KW)
     return m, se, y
 
 
@@ -641,13 +679,26 @@ def ffhq_gate_cases(wide=False):
 
 
 def phase_forward(fa, shapes, batch, phase="forward-kernels-vs-plain"):
-    """Phase 3 and the forward half of phase 8."""
+    """Phase 3 and the forward half of phase 8. The stats and apply passes
+    run on the route their wrappers pick (`gate_fwd_route`); where that is
+    the mma route (bf16 at C = 64), the simt route runs on the same inputs
+    too, under the same rule, each route twice and bitwise equal, is timed
+    beside it, and must be slower, as must the plain version."""
     rows = []
     for i, (hw, c, hd, dtype) in enumerate(shapes):
         ops, _ = gate_inputs(batch, hw, c, hd, dtype, seed=100 + i)
         shape = dict(N=batch, HW=hw, C=c, Hd=hd, Cout=c)
+        route = fa.gate_fwd_route(dtype, hw, c, hd, c)
         with torch.inference_mode():
+            before = read_fwd_routes()
             kern = run_forward(fa, ops, hw, plain=False)
+            want = {k: dict(v, **{route: v[route] + 1}) for k, v in before.items()}
+            check(read_fwd_routes() == want, f"the forward at {shape}: not on the {route} route")
+            again = run_forward(fa, ops, hw, plain=False)
+            simt = simt_again = None
+            if route == "mma":
+                simt = run_forward(fa, ops, hw, plain=False, route="simt")
+                simt_again = run_forward(fa, ops, hw, plain=False, route="simt")
             plain = run_forward(fa, ops, hw, plain=True)
             truth = run_forward(fa, [ops[0].float()] + ops[1:], hw, plain=True)
             torch.cuda.synchronize()
@@ -656,27 +707,43 @@ def phase_forward(fa, shapes, batch, phase="forward-kernels-vs-plain"):
             clamped = float((gate > 16.0).float().mean())
             gate_std = float(gate.std())
             del l, gate
-        row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""),
+        row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""), route=route,
                    gate_std=round(gate_std, 3), clamped_share=clamped)
+        for tag, first, second in (("", kern, again), ("simt ", simt, simt_again)):
+            if first is not None:
+                for name, a, b in zip(("m", "se", "y"), first, second):
+                    check(torch.equal(a, b), f"{name} at {shape} ({tag}route): two runs differ "
+                                             f"bitwise")
+        row["bitwise_repeatable"] = True
         for name, k, p, t in zip(("m", "se", "y"), kern, plain, truth):
             hold(name, shape, k, p, t, dtype, row)
+        if simt is not None:  # the simt route on the same inputs, under the same rule
+            for name, k, p, t in zip(("m", "se", "y"), simt, plain, truth):
+                hold(f"simt_{name}", shape, k, p, t, dtype, row)
         check(gate_std > 0.5, f"gate barely varies at {shape}")
         if hw > 16:
             check(clamped > 0.0, f"gate never reaches the clamp at {shape}")
-        del kern, plain, truth
+        del kern, again, simt, simt_again, plain, truth
 
         # timing: operands pre-cast as the kernel takes them
         kops = [ops[0], ops[1], ops[2].to(dtype), ops[3], ops[4].to(dtype), ops[5]]
         apply_kw = dict(hw_scale=float(hw), gate_max=16.0, **KW)
         with torch.inference_mode():
             m, se = fa.softmax_gate_stats(*kops, **KW)
-            row["softmax_stats"] = timed(
-                "softmax_stats", lambda: fa.softmax_gate_stats(*kops, **KW),
-                lambda: fa.softmax_gate_stats_reference(*kops, **KW), batch, hw, c, hd, dtype)
-            row["softmax_apply"] = timed(
-                "softmax_apply", lambda: fa.softmax_gate_apply(*kops, m, se, **apply_kw),
-                lambda: fa.softmax_gate_apply_reference(*kops, m, se, **apply_kw),
-                batch, hw, c, hd, dtype)
+            calls = {"softmax_stats": (
+                lambda r: fa.softmax_gate_stats(*kops, route=r, **KW),
+                lambda: fa.softmax_gate_stats_reference(*kops, **KW)),
+                     "softmax_apply": (
+                lambda r: fa.softmax_gate_apply(*kops, m, se, route=r, **apply_kw),
+                lambda: fa.softmax_gate_apply_reference(*kops, m, se, **apply_kw))}
+            for kernel, (fn, plain_fn) in calls.items():
+                row[kernel] = timed(kernel, lambda: fn(None), plain_fn, batch, hw, c, hd, dtype)
+                row[kernel]["route"] = route
+                if route == "mma":
+                    ms_simt = graph_ms(lambda: fn("simt"))
+                    row[kernel].update(ms_simt=ms_simt,
+                                       share_of_bound_simt=row[kernel]["bound_ms"] / ms_simt)
+                    check_mma_wins(kernel, shape, row[kernel])
             row["profiler_us_per_call"] = kernel_split(lambda: fa.softmax_gate_apply(
                 *kops, *fa.softmax_gate_stats(*kops, **KW), **apply_kw))
         say(phase, **row)
@@ -703,7 +770,7 @@ def bwd_grid_of(fa, route, n, hw, c, hd) -> dict:
 
 
 def check_mma_wins(kernel, shape, t):
-    """A gate backward's mma route must beat, on the same inputs, both the
+    """A gate kernel's mma route must beat, on the same inputs, both the
     simt route and the plain version."""
     ms = t["ms"]
     check(ms < t["ms_simt"], f"{kernel} at {shape}: the mma route ({ms:.4f} ms) is not faster "
@@ -997,20 +1064,29 @@ def read_counters() -> dict:
 
 
 def read_gate_routes(kernel: str = "softmax_bwd") -> dict:
-    """{route: launches} of a gate backward wrapper with two routes
-    (softmax_bwd or sigmoid_bwd)."""
+    """{route: launches} of a gate wrapper with two routes (softmax_bwd,
+    sigmoid_bwd, softmax_stats or softmax_apply)."""
     return {r: getattr(counters()[kernel], f"launches_{r}") for r in ("mma", "simt")}
 
 
-def gate_routes_per_step(fa, per_step: dict, steps: int = 1) -> dict:
-    """{route: launches} of a gate backward (softmax_bwd or sigmoid_bwd)
-    over `steps` steps that launch it `per_step[(HW, C, Hd)]` times a step
-    at each shape, bf16, Cout = C: softmax_bwd 16 mma and 8 simt a
-    lsun_bedroom_128 step, 24 and 8 an ffhq_512 one; sigmoid_bwd 11 and 5
-    an ffhq_512-sigmoid one."""
+def read_fwd_routes() -> dict:
+    """{kernel: {route: launches}} of the softmax gate's forward pair."""
+    return {k: read_gate_routes(k) for k in GATE_FWD_ROUTED}
+
+
+def gate_routes_per_step(fa, per_step: dict, steps: int = 1, forward: bool = False) -> dict:
+    """{route: launches} of a gate kernel with two routes over `steps`
+    steps that launch it `per_step[(HW, C, Hd)]` times a step at each
+    shape, bf16, Cout = C: a backward (`gate_bwd_route`), softmax_bwd 16
+    mma and 8 simt a lsun_bedroom_128 step, 24 and 8 an ffhq_512 one,
+    sigmoid_bwd 11 and 5 an ffhq_512-sigmoid one; with `forward` the
+    softmax forward pair (`gate_fwd_route`), 12 mma and 18 simt a
+    lsun_bedroom_128 step for either, 34 / 33 and 33 / 33 an ffhq_512 one
+    (stats / apply)."""
+    route_of = fa.gate_fwd_route if forward else fa.gate_bwd_route
     out = {"mma": 0, "simt": 0}
     for (hw, c, hd), k in per_step.items():
-        out[fa.gate_bwd_route(torch.bfloat16, hw, c, hd, c)] += k * steps
+        out[route_of(torch.bfloat16, hw, c, hd, c)] += k * steps
     return out
 
 
@@ -1075,7 +1151,7 @@ def phase_generator(fa, cfg):
     requests = (1, 16, BATCH)
     reset_counters()
     images = [generate_samples(model, gen, b) for b in requests]
-    launches = read_counters()
+    launches, fwd_routes = read_counters(), read_fwd_routes()
     for h in hooks:
         h.remove()
     check(len(captured) == stages, f"captured {len(captured)} attention layers")
@@ -1088,6 +1164,9 @@ def phase_generator(fa, cfg):
     want = stages * len(requests)
     check(launches == expected({"softmax_stats": want, "softmax_apply": want}),
           f"serving launched {launches} for {len(requests)} forwards of {stages} stages")
+    want_routes = gate_routes_per_step(fa, SERVE, len(requests), forward=True)
+    check(fwd_routes == {k: want_routes for k in GATE_FWD_ROUTED},
+          f"serving's forward passes took the routes {fwd_routes}, want {want_routes} each")
 
     # the kernel path against the plain path, both against f32
     plain = build_generator(plain_cfg, "bfloat16", "cuda").eval()
@@ -1107,7 +1186,8 @@ def phase_generator(fa, cfg):
     check(ek <= max(BF16_FACTOR * ep, 1e-6),
           f"generator: kernel path error {ek:.3e} > {BF16_FACTOR} x plain path {ep:.3e}")
     say("generator", config="lsun_bedroom_128", params=params, requests=list(requests),
-        launches=launches, rel_err_kernel_path_vs_f32=ek, rel_err_plain_path_vs_f32=ep,
+        launches=launches, forward_routes=fwd_routes, rel_err_kernel_path_vs_f32=ek,
+        rel_err_plain_path_vs_f32=ep,
         max_abs_err_kernel_vs_plain_path=float((yk - yp).abs().max()),
         image_std=float(yt.std()), attention_layers=layers)
     del model, plain, truth
@@ -1284,6 +1364,7 @@ def phase_train(fa):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counters()
+    routes = dict(read_fwd_routes(), softmax_bwd=read_gate_routes())
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
     # no stage fuses at 128^2
@@ -1291,12 +1372,15 @@ def phase_train(fa):
                 "softmax_bwd": 24}
     check(launches == expected(per_step, steps),
           f"train steps launched {launches}, want {per_step} per step")
-    routes = read_gate_routes()
-    check(routes == gate_routes_per_step(fa, BWD_PER_STEP, steps),
-          f"train steps' softmax_bwd took the routes {routes}, want "
+    check(routes["softmax_bwd"] == gate_routes_per_step(fa, BWD_PER_STEP, steps),
+          f"train steps' softmax_bwd took the routes {routes['softmax_bwd']}, want "
           f"{gate_routes_per_step(fa, BWD_PER_STEP)} per step")
+    for kernel in GATE_FWD_ROUTED:
+        want = gate_routes_per_step(fa, FWD_PER_STEP, forward=True)
+        check(routes[kernel] == {r: k * steps for r, k in want.items()},
+              f"train steps' {kernel} took the routes {routes[kernel]}, want {want} per step")
     say("train", config="lsun_bedroom_128 as shipped, use_pallas=true", batch=BATCH,
-        steps=steps, seconds=seconds, launches=launches, softmax_bwd_routes=routes,
+        steps=steps, seconds=seconds, launches=launches, gate_routes=routes,
         metrics=history, max_param_change=moved,
         params=dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel()))
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
@@ -1743,6 +1827,52 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
     return rows, times, max_err
 
 
+# se of the fused stage against softmax_stats_mma's on its w: the same
+# per-warp (max, sum-exp) pairs of 16 locations, merged in two orders; the
+# longer chain is the merge of a 512^2 image's 2,048 tiles, plus at most
+# 128 rescalings (exp, product, sum) on a term's way there: that many f32
+# steps of 2^-24
+SE_ORDER_TOL = (512 * 512 // 128 + 128) * 2.0 ** -24
+
+
+def phase_stage_shares_l(fs, fa, phase="stage-stats-vs-gate-stats"):
+    """Phase 9's last check: at ffhq_512's 512^2 stage (batch 16, bf16, G's
+    `up` and D's plain form) the fused stage's statistics (m, se from
+    stage_softmax_stats_mma) against softmax_stats_mma on the pre-gate w
+    the stage stores, with the same gate weights. Both compute l by
+    gate_mlp_mma from the same bf16 w, so m must be bitwise equal, and se
+    equal up to the order of its f32 sums (SE_ORDER_TOL): the fused path
+    and the unfused apply that G's 512^2 stage runs on m and se see one l."""
+    n = FFHQ_BATCH
+    rows = []
+    for i, form in enumerate(("up", "plain")):
+        ops = stage_inputs(n, 256 if form == "up" else 512, 64, 64, torch.bfloat16, seed=600 + i)
+        gate = stage_gate(512 * 512, 64, seed=700 + i)
+        with torch.no_grad():
+            before = dict(read_stage_routes()["stage_softmax_stats"])
+            w_pre, m, se = run_stage(fs, "stage_softmax_stats", ops, gate, form)
+            check(read_stage_routes()["stage_softmax_stats"]["mma"] == before["mma"] + 1,
+                  f"the {form} stage's statistics: not on the mma route")
+            before = read_gate_routes("softmax_stats")
+            m2, se2 = fa.softmax_gate_stats(w_pre.reshape(n, 512 * 512, 64), *gate, **STAGE_KW)
+            check(read_gate_routes("softmax_stats")["mma"] == before["mma"] + 1,
+                  f"softmax_gate_stats on the {form} stage's w: not on the mma route")
+            torch.cuda.synchronize()
+        se_diff = float(((se2 - se).abs() / se).max())
+        row = dict(form=form, N=n, H=512, C=64, m_bitwise_equal=bool(torch.equal(m, m2)),
+                   m_max_abs_diff=float((m2 - m).abs().max()), se_max_rel_diff=se_diff,
+                   se_tolerance=SE_ORDER_TOL)
+        say(phase, **row)
+        check(row["m_bitwise_equal"], f"the {form} stage's m differs from softmax_stats_mma's on "
+                                      f"its w by up to {row['m_max_abs_diff']:.3e}")
+        check(se_diff <= SE_ORDER_TOL, f"the {form} stage's se differs from softmax_stats_mma's "
+                                       f"by {se_diff:.3e} relative, over {SE_ORDER_TOL:.3e}")
+        rows.append(row)
+        del ops, gate, w_pre, m, se, m2, se2
+        torch.cuda.empty_cache()
+    return rows
+
+
 def plain_stage_backward(fs, fa, o, gy, saved):
     """`FusedStage`'s backward chain on its saved tensors through the
     kernels' plain versions: the gradients of its twelve inputs."""
@@ -1825,6 +1955,7 @@ def phase_ffhq_serving(overrides=None, want=FFHQ_SERVE_PER_FORWARD, phase="ffhq-
     from locate_tpu_torch.io.sampling import generate_samples
     from locate_tpu_torch.models.gan import model_config
     from locate_tpu_torch.models.generator import build_generator
+    from locate_tpu_torch.ops import fused_attention as fa
 
     mcfg = model_config(cfg_g)
     check(mcfg.use_pallas and mcfg.resolution == 512, "ffhq_512 does not serve fused at 512^2")
@@ -1834,11 +1965,17 @@ def phase_ffhq_serving(overrides=None, want=FFHQ_SERVE_PER_FORWARD, phase="ffhq-
     gen.manual_seed(2)
     reset_counters()
     images = generate_samples(model, gen, 4)
-    launches = read_counters()
+    launches, fwd_routes = read_counters(), read_fwd_routes()
     check(images.shape == (4, 512, 512, 3) and str(images.dtype) == "uint8",
           f"ffhq_512 request: images {images.shape} {images.dtype}")
     check(float(images.std()) > 0.0, "ffhq_512 request: constant images")
     check(launches == expected(want), f"one ffhq_512 forward launched {launches}, want {want}")
+    softmax = bool(want.get("softmax_stats"))
+    want_routes = {k: gate_routes_per_step(fa, shapes if softmax else {}, forward=True)
+                   for k, shapes in (("softmax_stats", FFHQ_STATS_SERVE),
+                                     ("softmax_apply", FFHQ_APPLY_SERVE))}
+    check(fwd_routes == want_routes,
+          f"one ffhq_512 forward's softmax passes took the routes {fwd_routes}, want {want_routes}")
     plain_cfg = dataclasses.replace(mcfg, use_pallas=False)
     plain = build_generator(plain_cfg, "bfloat16", "cuda").eval()
     truth = build_generator(plain_cfg, "float32", "cuda").eval()
@@ -1868,6 +2005,7 @@ def phase_ffhq_serving(overrides=None, want=FFHQ_SERVE_PER_FORWARD, phase="ffhq-
         return dict(out, peak_memory_bytes=torch.cuda.max_memory_allocated())
 
     say(phase, config="ffhq_512", overrides=overrides, launches_one_forward=launches,
+        forward_routes_one_forward=fwd_routes,
         rel_err_kernel_path_vs_f32=ek, rel_err_plain_path_vs_f32=ep,
         max_abs_err_kernel_vs_plain_path=float((yk - yp).abs().max()),
         kernel_path=bench_sample(True), plain_path=bench_sample(False),
@@ -1941,7 +2079,8 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     reset_counters()
     state, history, seconds = timed_steps(step, state, batch, steps)
     launches, stage_routes = read_counters(), read_stage_routes()
-    gate_routes = {k: read_gate_routes(k) for k in ("softmax_bwd", "sigmoid_bwd")}
+    gate_routes = {k: read_gate_routes(k) for k in ("softmax_bwd", "sigmoid_bwd")
+                   + GATE_FWD_ROUTED}
     peak = torch.cuda.max_memory_allocated()
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
@@ -1957,6 +2096,13 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     for kernel, shapes in (("softmax_bwd", FFHQ_BWD_PER_STEP),
                            ("sigmoid_bwd", SIGMOID_BWD_PER_STEP)):
         want_gate = gate_routes_per_step(fa, shapes if per_step.get(kernel) else {}, steps)
+        check(gate_routes[kernel] == want_gate,
+              f"ffhq_512 steps' {kernel} took the routes {gate_routes[kernel]}, want {want_gate}")
+    # and the softmax forward pair's, the stats in the fused backward calls too
+    for kernel, shapes in (("softmax_stats", FFHQ_STATS_PER_STEP),
+                           ("softmax_apply", FFHQ_APPLY_PER_STEP)):
+        want_gate = gate_routes_per_step(fa, shapes if per_step.get(kernel) else {}, steps,
+                                         forward=True)
         check(gate_routes[kernel] == want_gate,
               f"ffhq_512 steps' {kernel} took the routes {gate_routes[kernel]}, want {want_gate}")
     idle, top = profile_calls(lambda: step(state, batch), calls=2, top=15)
@@ -3013,7 +3159,8 @@ def phase_build(fa, fs, fl, build):
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
     reports = {name: parse_ptxas(build.ptxas_report(name)) for name in names}
-    for name, wanted in (("fused_attention", CUDA_KERNELS + GATE_MMA_KERNELS),
+    for name, wanted in (("fused_attention", CUDA_KERNELS + GATE_MMA_KERNELS
+                          + GATE_FWD_MMA_KERNELS),
                          ("fused_stage", STAGE_CUDA_KERNELS + STAGE_MMA_KERNELS),
                          ("flash_attention", FLASH_KERNELS + FLASH_MMA_KERNELS)):
         for k in wanted:
@@ -3083,6 +3230,23 @@ def phase_build(fa, fs, fl, build):
                            blocks_per_sm=int(gate_lib.locate_softmax_bwd_mma_blocks_per_sm(
                                kind, *widths)))
         check(gate_bwd[k]["blocks_per_sm"] >= 1, f"{k}: no block fits on an SM")
+    # the forward pair's mma kernels alike, beside the simt kernels' registers
+    gate_fwd = {}
+    for k in GATE_FWD_MMA_KERNELS:
+        ptx = reports["fused_attention"].get(k, {})
+        check(gate_sass.get(k, 0) > 0, f"{k}: no HMMA or HGMMA instruction in its SASS")
+        check(bool(ptx) and ptx.get("spill_stores", 0) == 0 and ptx.get("spill_loads", 0) == 0,
+              f"{k} spills: {ptx}")
+        gate_fwd[k] = dict(ptx, tensor_core_instructions=gate_sass[k],
+                           widths=fa.GATE_FWD_MMA_WIDTHS,
+                           bytes=int(gate_lib.locate_softmax_fwd_mma_smem_bytes(
+                               *fa.GATE_FWD_MMA_WIDTHS)),
+                           blocks_per_sm=int(gate_lib.locate_softmax_fwd_mma_blocks_per_sm(
+                               int(k == "softmax_apply_mma"), *fa.GATE_FWD_MMA_WIDTHS)))
+        check(gate_fwd[k]["blocks_per_sm"] >= 1, f"{k}: no block fits on an SM")
+    for k in ("softmax_stats_partial<bf16>", "softmax_apply<bf16>"):
+        gate_fwd[k] = dict(reports["fused_attention"].get(k, {}),
+                           tensor_core_instructions=gate_sass.get(k, 0))
     simt_tile = fa.bwd_grid(BATCH, 16384, 64)[0]
     for k in ("softmax_bwd<bf16>", "sigmoid_bwd<bf16>"):
         gate_bwd[k] = dict(reports["fused_attention"].get(k, {}),
@@ -3113,7 +3277,7 @@ def phase_build(fa, fs, fl, build):
         flash_mma_kernels=mma, flash_simt_bf16_tensor_core_instructions=simt_bf16,
         flash_dynamic_smem_at_batch_16=flash_smem,
         stage_dynamic_smem_at_512x512x64=stage_smem, stage_mma_kernels=stage_mma,
-        gate_bwd_kernels=gate_bwd,
+        gate_bwd_kernels=gate_bwd, gate_fwd_kernels=gate_fwd,
         stage_conv_bwd_blocks=fs.bwd_blocks(FFHQ_BATCH, 512, 512, *fs.pick_tile(
             fs._BWD, 512, 512, 64, 64, lib=stage_lib)))
 
@@ -3150,7 +3314,7 @@ def gate_entry(kernel, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_
     if rows is fwd_rows:
         entry["launches_serving"] = serve_launches[kernel]
         entry["ms_per_served_forward"] = per_step(lsun, kernel, SERVE, "ms")
-    if kernel == "softmax_bwd":  # two routes: the mma shapes beside their simt time
+    if gate_routes is not None:  # two routes: the mma shapes beside their simt time
         entry["routes"] = sorted({r[kernel]["route"] for r in lsun})
         entry["launches_mma"] = gate_routes["mma"]
         entry["ms_simt"] = sum(mult[(r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])]
@@ -3199,6 +3363,7 @@ def main() -> int:
 
     # ffhq_512: the fused-stage kernels, serving, training (their main path)
     stage_rows, stage_times, stage_err = phase_stage_kernels(fs, fa)
+    phase_stage_shares_l(fs, fa)
     phase_ffhq_serving()
     ffhq_cfg, ffhq_weights, ffhq_launches, ffhq_routes = phase_ffhq_train()
     # with the softmax gate random weights give G a norm above the shipped
@@ -3233,7 +3398,7 @@ def main() -> int:
     del self_weights
 
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
-                      gate_routes) for k in KERNELS]
+                      gate_routes.get(k)) for k in KERNELS]
     out += [stage_entry(k, stage_times, stage_err, ffhq_launches, routes=ffhq_routes)
             for k in STAGE_KERNELS]
     out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve, sig_routes)

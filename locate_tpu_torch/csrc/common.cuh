@@ -290,8 +290,10 @@ constexpr int kGateHd = 16;
 // of this lane's two locations, lane / 4 and 8 + lane / 4. Out, in
 // C-fragment layout (location lane / 4 + 8 (e >> 1), column nt * 8 +
 // 2 (lane % 4) + (e & 1)): u and h (f32, h rounded to bf16), and l. The
-// fused stage's forward passes (gate_logits_mma) and the gate's backward
-// (softmax_bwd_mma, which also needs act'(u)) share it.
+// fused stage's forward passes (gate_logits_mma), the softmax gate's
+// forward pair (softmax_stats_mma, softmax_apply_mma) and the gate's
+// backward (softmax_bwd_mma, which also needs act'(u)) share it, so that
+// they see one l at (64, 16, 64).
 template <int KS, int NT>
 __device__ __forceinline__ void gate_mlp_mma(const uint32_t (&xa)[KS][4], const bf16* W1,
                                              const bf16* W2, const float* __restrict__ pp_lo,

@@ -2,8 +2,12 @@
 // Hopper (sm_90a).
 //
 // Replaces the six TPU kernels of locate_tpu/ops/pallas/fused_attention.py:
-//   * _softmax_stats_kernel (:152)  -> softmax_stats_partial + softmax_stats_merge
-//   * _softmax_apply_kernel (:179)  -> softmax_apply
+//   * _softmax_stats_kernel (:152)  -> softmax_stats_partial + softmax_stats_merge;
+//                                      bf16 at (C, Hd, Cout) = (64, 16, 64):
+//                                      softmax_stats_mma (the tensor cores)
+//                                      + softmax_stats_merge
+//   * _softmax_apply_kernel (:179)  -> softmax_apply; bf16 at (64, 16, 64):
+//                                      softmax_apply_mma
 //   * _softmax_csum_kernel  (:358)  -> softmax_csum_partial + reduce_partials
 //   * _bwd_kernel_softmax   (:397, body _bwd_body :408)
 //                                   -> softmax_bwd + reduce_partials (twice);
@@ -73,10 +77,12 @@
 // the small products run as f32 FMA loops with a 4-location register
 // tile, the weights read through the read-only cache (C=512 x Hd=128
 // weights would not fit in shared memory as f32). These simt kernels use
-// no tensor cores; the two backward passes' bf16 route does, at the gate
-// width of the 64-channel stages (softmax_bwd_mma and sigmoid_bwd_mma, on
-// one body, gate_bwd_mma, below) and of the 512-channel stages (the two
-// passes of gate_bwd_wide, further below).
+// no tensor cores; the bf16 route of the softmax forward pair and of the
+// two backward passes does, at the gate width of the 64-channel stages
+// (softmax_bwd_mma and sigmoid_bwd_mma, on one body, gate_bwd_mma, below;
+// softmax_stats_mma and softmax_apply_mma, on one body, gate_fwd_mma, on
+// the same logit core), and the backward's at the 512-channel stages (the
+// two passes of gate_bwd_wide, further below).
 
 #include "common.cuh"
 
@@ -618,18 +624,23 @@ __host__ __device__ constexpr size_t bwd_mma_bytes() {
   return (size_t)(kGateC * kLH + kGateHd * kLO + kBwdWarps * kWarpElems) * sizeof(bf16);
 }
 
-// x and dy of a warp's 16 locations (rows row0.. of the (N HW, C) tensors)
-// into Xs and Ds [16][kLX], by cp.async; the caller commits.
-__device__ __forceinline__ void fetch_rows(const bf16* __restrict__ x,
-                                           const bf16* __restrict__ dy, size_t row0, bf16* Xs,
-                                           bf16* Ds) {
+// x of a warp's 16 locations (rows row0.. of the (N HW, C) tensor) into
+// Xs [16][kLX], by cp.async; the caller commits.
+__device__ __forceinline__ void fetch_x(const bf16* __restrict__ x, size_t row0, bf16* Xs) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int e = lane + 32 * k, r = e >> 3, ch = (e & 7) << 3;
     cp_async16(Xs + r * kLX + ch, x + (row0 + r) * kGateC + ch, true);
-    cp_async16(Ds + r * kLX + ch, dy + (row0 + r) * kGateC + ch, true);
   }
+}
+
+// x and dy of a warp's 16 locations into Xs and Ds; the caller commits.
+__device__ __forceinline__ void fetch_rows(const bf16* __restrict__ x,
+                                           const bf16* __restrict__ dy, size_t row0, bf16* Xs,
+                                           bf16* Ds) {
+  fetch_x(x, row0, Xs);
+  fetch_x(dy, row0, Ds);
 }
 
 // the sum of v over the 8 lanes of one lane % 4 (the 16 locations of a
@@ -883,6 +894,226 @@ __global__ void __launch_bounds__(kThreads, 1) sigmoid_bwd_mma(
     float* __restrict__ part_pp, int N, int HW, int R, int act, float slope, float gate_max) {
   gate_bwd_mma<true>(x, dy, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, dx, part_w, part_pp,
                      N, HW, R, act, slope, 1.f, gate_max);
+}
+
+// ---- the softmax gate's forward on the tensor cores: bf16 at (C, Hd, Cout) = (64, 16, 64) ----
+//
+// gate_fwd_mma<APPLY> computes what softmax_stats_partial<bf16> (APPLY
+// false) and softmax_apply<bf16> (APPLY true) compute, with their rounding
+// points (h rounded to bf16 before its product, the gate math in f32, y =
+// (x g) rounded once), on mma.sync m16n8k16. Two kernels wrap it:
+// softmax_stats_mma and softmax_apply_mma. Grid (ceil(HW / T_rows), N),
+// T_rows a multiple of 128: block (b, n) owns locations b T_rows ..
+// b T_rows + T_rows - 1 of batch row n and walks them 128 at a time (a
+// tile). Each of its 8 warps owns 16 consecutive locations of every tile
+// and works alone until the block's end:
+//   * x of its 16 locations comes by cp.async as bf16 [16][64 + 8], the
+//     next tile's a tile ahead (two stages);
+//   * u, h and l by gate_mlp_mma, called as gate_bwd_mma calls it (x as 4
+//     A fragments, W1x and W2 staged once a block, the rows of pos_proj of
+//     the lane's two locations), so l is bit for bit the l of
+//     softmax_bwd_mma and of the fused stage's stats pass
+//     (gate_logits_mma): at this width the forward's m and se, the
+//     backward's g and the fused stage's statistics come from one l;
+//   * stats: per channel, the (max, sum-exp) of l over the warp's 16
+//     locations, in l's C-fragment layout: each lane's pair over its two
+//     locations, then a butterfly of warp shuffles in a fixed order
+//     (reduce_scatter_stats) that merges the 8 lanes of a channel while it
+//     halves the channels a lane holds, so that the lane that keeps the
+//     channel (as db2 in gate_bwd_mma) ends with it after 14 merges of 28
+//     shuffles, each merge one exp (merge_stats); that lane folds the pair
+//     into its running (max, sum-exp) over the block's tiles; at the end
+//     the 8 warps' pairs are merged in warp order through shared memory
+//     into the block's entry of part_m / part_s, (N, blocks, Cout), which
+//     softmax_stats_merge folds as it folds the simt kernel's tiles. Issue
+//     slots, not bytes, bound this pass: with an all-reduce a channel (96
+//     shuffles and 64 exps a lane a tile) it took as long as the apply
+//     pass, which moves twice its bytes;
+//   * apply: g = min(exp(l - m) / se HW, gate_max) on l's C fragments,
+//     with m and se of the block's row staged once; y = (x g)_bf16, x read
+//     from the staged tile, y staged over it (each lane overwrites only
+//     the x it read) and written with 16-byte stores.
+// One owner per output and no atomics: two runs are bitwise equal. Bound:
+// bytes, as the simt kernels' (stats reads x once, apply reads x and
+// writes y); the gate MLP is 16 HMMA a warp a tile. The grid is about one
+// wave (ops/fused_attention.py:fwd_mma_rows, from
+// locate_softmax_fwd_mma_blocks_per_sm).
+constexpr int kFwdStage = 16 * kLX;  // bf16 of a warp's x tile, [16][kLX]
+constexpr int kFwdBlocks = 3;        // blocks an SM it is built for
+static_assert(kBwdWarps * 2 * kFwdStage * sizeof(bf16) >= kBwdWarps * kGateCout * sizeof(float2),
+              "the warps' statistics must fit in their regions");
+
+__host__ __device__ constexpr size_t fwd_mma_bytes() {
+  return (size_t)(kGateC * kLH + kGateHd * kLO + kBwdWarps * 2 * kFwdStage) * sizeof(bf16) +
+         2 * kGateCout * sizeof(float);
+}
+
+// (m, s) <- the merge of the softmax statistics (m, s) and (m2, s2), (max,
+// sum-exp) pairs, with one exp: the sum of the larger max is kept as it is
+__device__ __forceinline__ void merge_stats(float& m, float& s, float m2, float s2) {
+  const float mx = fmaxf(m, m2), e = expf(fminf(m, m2) - mx);
+  s = m2 > m ? s2 + s * e : s + s2 * e;
+  m = mx;
+}
+
+// The (max, sum-exp) over the 8 lanes of one lane % 4 (a C fragment's 16
+// locations) of each of a lane's 16 channels, pm and ps [n-tile][column]
+// holding the lane's pairs: three butterfly steps (lane bits 16, 8, 4)
+// each merge a lane's pairs with its partner's while halving the n-tiles
+// it keeps (the upper half to the lane with the bit set), so that lane
+// (q, col) ends with n-tile q, channels q * 8 + col + e1, in pm[0][e1],
+// ps[0][e1]. 14 merges and 28 shuffles, in a fixed order.
+__device__ __forceinline__ void reduce_scatter_stats(float (&pm)[8][2], float (&ps)[8][2]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int step = 0; step < 3; ++step) {
+    const int half = 4 >> step, bit = 16 >> step;
+    const bool upper = lane & bit;
+#pragma unroll
+    for (int nt = 0; nt < half; ++nt)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        // send the half the partner keeps, keep the other
+        const float om = __shfl_xor_sync(0xffffffffu, upper ? pm[nt][e1] : pm[nt + half][e1], bit);
+        const float os = __shfl_xor_sync(0xffffffffu, upper ? ps[nt][e1] : ps[nt + half][e1], bit);
+        float km = upper ? pm[nt + half][e1] : pm[nt][e1];
+        float ks = upper ? ps[nt + half][e1] : ps[nt][e1];
+        merge_stats(km, ks, om, os);
+        pm[nt][e1] = km;
+        ps[nt][e1] = ks;
+      }
+  }
+}
+
+// APPLY: y from m and se (part_m, part_s unused), else the statistics
+// (m, se, y unused, hw_scale and gate_max too).
+template <bool APPLY>
+__device__ __forceinline__ void gate_fwd_mma(
+    const bf16* __restrict__ x, const float* __restrict__ pp, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    const float* __restrict__ m, const float* __restrict__ se, bf16* __restrict__ y,
+    float* __restrict__ part_m, float* __restrict__ part_s, int HW, int T_rows, int act,
+    float slope, float hw_scale, float gate_max) {
+  extern __shared__ float4 smem4[];
+  bf16* W1s = reinterpret_cast<bf16*>(smem4);  // [C][kLH]
+  bf16* W2s = W1s + kGateC * kLH;              // [Hd][kLO]
+  bf16* region = W2s + kGateHd * kLO;          // [warps][2][16][kLX]
+  float* Ms = reinterpret_cast<float*>(region + kBwdWarps * 2 * kFwdStage);  // m, then se [Cout]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  bf16* Xb = region + warp * 2 * kFwdStage;
+  const int n = blockIdx.y, t0 = blockIdx.x * T_rows;
+  const int tiles = min(T_rows, HW - t0) / kBwdTile;
+  const size_t row0 = (size_t)n * HW + t0 + 16 * warp;  // the warp's first row of tile 0
+  if (tiles > 0) fetch_x(x, row0, Xb);
+  cp_async_commit();
+  stage_rows(W1s, w1, kGateC, kGateHd, kLH);
+  stage_rows(W2s, w2, kGateHd, kGateCout, kLO);
+  if (APPLY)
+    for (int i = threadIdx.x; i < kGateCout; i += blockDim.x) {
+      Ms[i] = m[(size_t)n * kGateCout + i];
+      Ms[kGateCout + i] = se[(size_t)n * kGateCout + i];
+    }
+  __syncthreads();
+
+  // this lane's running (max, sum-exp) of channels q * 8 + col and + 1
+  float rm[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f};
+  for (int k = 0; k < tiles; ++k) {
+    bf16* Xs = Xb + (k & 1) * kFwdStage;
+    if (k + 1 < tiles)
+      fetch_x(x, row0 + (size_t)(k + 1) * kBwdTile, Xb + ((k + 1) & 1) * kFwdStage);
+    cp_async_commit();
+    cp_async_wait_one();  // this tile's x
+    __syncwarp();
+
+    const float* ppl = pp + (size_t)(t0 + k * kBwdTile + 16 * warp + q) * kGateHd;
+    float u[2][4], h[2][4], l[8][4];
+    {
+      uint32_t xa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) frag_a(xa[kk], Xs, kLX, 0, kk * 16);
+      gate_mlp_mma<4, 8>(xa, W1s, W2s, ppl, ppl + 8 * kGateHd, b1, b2, act, slope, u, h, l);
+    }
+    if (APPLY) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 mv = *reinterpret_cast<const float2*>(Ms + nt * 8 + col);
+        const float2 sv = *reinterpret_cast<const float2*>(Ms + kGateCout + nt * 8 + col);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          uint32_t* p = reinterpret_cast<uint32_t*>(Xs + (q + 8 * hh) * kLX + nt * 8 + col);
+          const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+          float g0 = expf(l[nt][2 * hh] - mv.x) / sv.x * hw_scale;
+          float g1 = expf(l[nt][2 * hh + 1] - mv.y) / sv.y * hw_scale;
+          if (gate_max > 0.f) {
+            if (g0 > gate_max) g0 = gate_max;
+            if (g1 > gate_max) g1 = gate_max;
+          }
+          *p = pack_bf16(xv.x * g0, xv.y * g1);
+        }
+      }
+      __syncwarp();  // y staged
+      // y out, 16 bytes a lane a store, the 16 rows contiguous
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        const int e = lane + 32 * kq, rr = e >> 3, ch = (e & 7) << 3;
+        *reinterpret_cast<uint4*>(y + (row0 + (size_t)k * kBwdTile + rr) * kGateC + ch) =
+            *reinterpret_cast<const uint4*>(Xs + rr * kLX + ch);
+      }
+    } else {
+      float pm[8][2], ps[8][2];  // the lane's pairs over its locations q and q + 8
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          pm[nt][e1] = l[nt][e1];
+          ps[nt][e1] = 1.f;
+          merge_stats(pm[nt][e1], ps[nt][e1], l[nt][2 + e1], 1.f);
+        }
+      reduce_scatter_stats(pm, ps);
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) merge_stats(rm[e1], rs[e1], pm[0][e1], ps[0][e1]);
+    }
+    __syncwarp();  // the fetch of tile k + 2 overwrites this stage
+  }
+  if (APPLY) return;
+
+  // the block's statistics: the warps' pairs, merged in warp order
+  cp_async_wait_all();
+  __syncthreads();  // every warp is done with its region
+  float2* St = reinterpret_cast<float2*>(region);  // [warps][Cout]
+  St[warp * kGateCout + q * 8 + col] = make_float2(rm[0], rs[0]);
+  St[warp * kGateCout + q * 8 + col + 1] = make_float2(rm[1], rs[1]);
+  __syncthreads();
+  for (int c = threadIdx.x; c < kGateCout; c += blockDim.x) {
+    float mm = St[c].x, s = St[c].y;
+    for (int w = 1; w < kBwdWarps; ++w)
+      merge_stats(mm, s, St[w * kGateCout + c].x, St[w * kGateCout + c].y);
+    const size_t off = ((size_t)n * gridDim.x + blockIdx.x) * kGateCout + c;
+    part_m[off] = mm;
+    part_s[off] = s;
+  }
+}
+
+// Stats pass, part 1, on the tensor cores: the block's (max, sum-exp) per
+// channel into part_m / part_s, (N, blocks, Cout).
+__global__ void __launch_bounds__(kThreads, kFwdBlocks) softmax_stats_mma(
+    const bf16* __restrict__ x, const float* __restrict__ pp, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    float* __restrict__ part_m, float* __restrict__ part_s, int HW, int T_rows, int act,
+    float slope) {
+  gate_fwd_mma<false>(x, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, part_m, part_s, HW,
+                      T_rows, act, slope, 1.f, 0.f);
+}
+
+// Apply pass on the tensor cores: y = (x min(exp(l - m) / se HW, gate_max))_bf16.
+__global__ void __launch_bounds__(kThreads, kFwdBlocks) softmax_apply_mma(
+    const bf16* __restrict__ x, const float* __restrict__ pp, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    const float* __restrict__ m, const float* __restrict__ se, bf16* __restrict__ y, int HW,
+    int T_rows, int act, float slope, float hw_scale, float gate_max) {
+  gate_fwd_mma<true>(x, pp, w1, b1, w2, b2, m, se, y, nullptr, nullptr, HW, T_rows, act, slope,
+                     hw_scale, gate_max);
 }
 
 // ---- the gate backward on the tensor cores at the wide gates: bf16 at (C, Hd, Cout) =
@@ -1410,6 +1641,40 @@ cudaError_t launch_apply(const void* x, const void* pp, const void* w1, const vo
   return cudaGetLastError();
 }
 
+// The forward pair on the tensor cores (softmax_stats_mma, softmax_apply_mma)
+// on grid (ceil(HW / T_rows), N); the stats pass then merges its blocks'
+// partials as launch_stats does.
+cudaError_t launch_stats_mma(const void* x, const void* pp, const void* w1, const void* b1,
+                             const void* w2, const void* b2, void* part_m, void* part_s,
+                             void* m, void* se, int N, int HW, int T_rows, int act,
+                             float slope, cudaStream_t stream) {
+  const int blocks = (HW + T_rows - 1) / T_rows;
+  const size_t smem = fwd_mma_bytes();
+  cudaError_t err = allow_smem(softmax_stats_mma, smem);
+  if (err != cudaSuccess) return err;
+  softmax_stats_mma<<<dim3(blocks, N), kThreads, smem, stream>>>(
+      (const bf16*)x, (const float*)pp, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+      (const float*)b2, (float*)part_m, (float*)part_s, HW, T_rows, act, slope);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_stats_merge((const float*)part_m, (const float*)part_s, (float*)m, (float*)se,
+                            N, blocks, kGateCout, stream);
+}
+
+cudaError_t launch_apply_mma(const void* x, const void* pp, const void* w1, const void* b1,
+                             const void* w2, const void* b2, const void* m, const void* se,
+                             void* y, int N, int HW, int T_rows, int act, float slope,
+                             float hw_scale, float gate_max, cudaStream_t stream) {
+  const int blocks = (HW + T_rows - 1) / T_rows;
+  const size_t smem = fwd_mma_bytes();
+  cudaError_t err = allow_smem(softmax_apply_mma, smem);
+  if (err != cudaSuccess) return err;
+  softmax_apply_mma<<<dim3(blocks, N), kThreads, smem, stream>>>(
+      (const bf16*)x, (const float*)pp, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+      (const float*)b2, (const float*)m, (const float*)se, (bf16*)y, HW, T_rows, act, slope,
+      hw_scale, gate_max);
+  return cudaGetLastError();
+}
 
 template <typename T>
 cudaError_t launch_csum(const void* x, const void* dy, const void* pp, const void* w1,
@@ -1563,6 +1828,14 @@ cudaError_t launch_bwd_wide(const void* x, const void* dy, const void* pp, const
   return launch_reduce((const float*)dpp, dwf + Wide::kWT, 1, HW, HD, stream);  // db1
 }
 
+// Whether the forward's mma route takes a call: bf16 at (64, 16, 64), HW
+// a multiple of its 128-location tile, T_rows (a block's locations) a
+// positive multiple of the tile.
+bool fwd_mma_fits(int is_bf16, int HW, int C, int Hd, int Cout, int T_rows) {
+  return is_bf16 && C == kGateC && Hd == kGateHd && Cout == kGateCout && HW % kBwdTile == 0 &&
+         T_rows > 0 && T_rows % kBwdTile == 0;
+}
+
 // Whether the mma route takes a backward call: bf16 at the template's
 // widths, its 128-location tile, an HW the tile divides.
 bool bwd_mma_fits(int is_bf16, int HW, int C, int Hd, int Cout, int T_rows) {
@@ -1602,11 +1875,22 @@ size_t locate_softmax_smem_bytes(int C, int Hd, int Cout, int T_rows) {
   return tile_floats(C, Hd, Cout, T_rows) * sizeof(float);
 }
 
-int locate_softmax_stats(int is_bf16, const void* x, const void* pp, const void* w1,
-                         const void* b1, const void* w2, const void* b2, void* part_m,
-                         void* part_s, void* m, void* se, int N, int HW, int C, int Hd,
-                         int Cout, int T_rows, int act, float slope, void* stream) {
+// part_m, part_s: (N, ceil(HW / T_rows), Cout) workspaces; m, se: (N, Cout)
+// out. route 0 is the simt kernel (every dtype and width, T_rows from
+// locate_softmax_smem_bytes' tile); route 1 the tensor cores'
+// (softmax_stats_mma) for bf16 at (C, Hd, Cout) = (64, 16, 64) with 128
+// dividing HW and T_rows; nothing else.
+int locate_softmax_stats(int route, int is_bf16, const void* x, const void* pp,
+                         const void* w1, const void* b1, const void* w2, const void* b2,
+                         void* part_m, void* part_s, void* m, void* se, int N, int HW, int C,
+                         int Hd, int Cout, int T_rows, int act, float slope, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!fwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows)) return (int)cudaErrorInvalidValue;
+    return (int)launch_stats_mma(x, pp, w1, b1, w2, b2, part_m, part_s, m, se, N, HW, T_rows,
+                                 act, slope, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_stats<__nv_bfloat16>(x, pp, w1, b1, w2, b2, part_m, part_s, m, se,
                                             N, HW, C, Hd, Cout, T_rows, act, slope, s);
@@ -1614,18 +1898,41 @@ int locate_softmax_stats(int is_bf16, const void* x, const void* pp, const void*
                                   Hd, Cout, T_rows, act, slope, s);
 }
 
-int locate_softmax_apply(int is_bf16, const void* x, const void* pp, const void* w1,
-                         const void* b1, const void* w2, const void* b2, const void* m,
-                         const void* se, void* y, int N, int HW, int C, int Hd, int Cout,
-                         int T_rows, int act, float slope, float hw_scale, float gate_max,
-                         void* stream) {
+// y: (N, HW, C) out; the routes as locate_softmax_stats' (route 1:
+// softmax_apply_mma).
+int locate_softmax_apply(int route, int is_bf16, const void* x, const void* pp,
+                         const void* w1, const void* b1, const void* w2, const void* b2,
+                         const void* m, const void* se, void* y, int N, int HW, int C, int Hd,
+                         int Cout, int T_rows, int act, float slope, float hw_scale,
+                         float gate_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!fwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows)) return (int)cudaErrorInvalidValue;
+    return (int)launch_apply_mma(x, pp, w1, b1, w2, b2, m, se, y, N, HW, T_rows, act, slope,
+                                 hw_scale, gate_max, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_apply<__nv_bfloat16>(x, pp, w1, b1, w2, b2, m, se, y, N, HW, C, Hd,
                                             Cout, T_rows, act, slope, hw_scale, gate_max,
                                             s);
   return (int)launch_apply<float>(x, pp, w1, b1, w2, b2, m, se, y, N, HW, C, Hd, Cout,
                                   T_rows, act, slope, hw_scale, gate_max, s);
+}
+
+// Dynamic shared memory of a block of the forward pair's mma route at (C,
+// Hd, Cout), the same for both kernels; 0 where it does not take the widths.
+size_t locate_softmax_fwd_mma_smem_bytes(int C, int Hd, int Cout) {
+  return C == kGateC && Hd == kGateHd && Cout == kGateCout ? fwd_mma_bytes() : 0;
+}
+
+// Blocks of softmax_stats_mma (apply 0) or softmax_apply_mma (apply 1) that
+// fit on an SM; 0 where the mma route does not take (C, Hd, Cout), -1 on
+// an error.
+int locate_softmax_fwd_mma_blocks_per_sm(int apply, int C, int Hd, int Cout) {
+  if (C != kGateC || Hd != kGateHd || Cout != kGateCout) return 0;
+  return apply ? blocks_per_sm(softmax_apply_mma, fwd_mma_bytes())
+               : blocks_per_sm(softmax_stats_mma, fwd_mma_bytes());
 }
 
 size_t locate_softmax_bwd_smem_bytes(int C, int Hd, int Cout, int T_rows) {

@@ -22,6 +22,13 @@ per-(n, channel) sum c of the softmax Jacobian) and
 each one pass: `sigmoid_gate` and `sigmoid_gate_backward`. Each wrapper
 counts its kernel launches in its `launches` attribute.
 
+The softmax gate's forward pair, `softmax_gate_stats` and
+`softmax_gate_apply`, has two routes, which `gate_fwd_route` picks: "mma"
+on the tensor cores for bf16 at (C, Hd, Cout) = (64, 16, 64) with HW a
+multiple of 128 (`softmax_stats_mma` and `softmax_apply_mma`, one body on
+the backward's logit core, so that stats, apply and backward see one l
+there), and "simt" for everything else, C = 512 included.
+
 The two backward wrappers, `softmax_gate_backward` and
 `sigmoid_gate_backward`, have two routes each, which `gate_bwd_route` picks
 from the dtype and the widths: "mma" on the tensor cores (bf16 at the
@@ -75,6 +82,9 @@ GATE_MMA_WIDTHS = {(64, 16, 64): GATE_MMA_TILE, GATE_WIDE: 16}
 # rows of the wide template's location block, and of a weight-gradient stage
 GATE_WIDE_ROWS = 32
 GATE_WIDE_STAGE = 64
+# the (C, Hd, Cout) of the forward pair's mma template (gate_fwd_mma), whose
+# 128-location tile must divide HW
+GATE_FWD_MMA_WIDTHS = (64, 16, 64)
 
 
 def _act(kind: str, slope: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -259,9 +269,9 @@ def _library() -> ctypes.CDLL:
     lib = build.load_library("fused_attention")
     if not getattr(lib, "_locate_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.locate_softmax_stats.argtypes = [i] + [p] * 10 + [i] * 7 + [f, p]
+        lib.locate_softmax_stats.argtypes = [i, i] + [p] * 10 + [i] * 7 + [f, p]
         lib.locate_softmax_stats.restype = i
-        lib.locate_softmax_apply.argtypes = [i] + [p] * 9 + [i] * 7 + [f, f, f, p]
+        lib.locate_softmax_apply.argtypes = [i, i] + [p] * 9 + [i] * 7 + [f, f, f, p]
         lib.locate_softmax_apply.restype = i
         lib.locate_softmax_csum.argtypes = [i] + [p] * 11 + [i] * 7 + [f, f, f, p]
         lib.locate_softmax_csum.restype = i
@@ -275,6 +285,10 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_smem_bytes.restype = ctypes.c_size_t
         lib.locate_softmax_bwd_smem_bytes.argtypes = [i] * 4
         lib.locate_softmax_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.locate_softmax_fwd_mma_smem_bytes.argtypes = [i] * 3
+        lib.locate_softmax_fwd_mma_smem_bytes.restype = ctypes.c_size_t
+        lib.locate_softmax_fwd_mma_blocks_per_sm.argtypes = [i] * 4
+        lib.locate_softmax_fwd_mma_blocks_per_sm.restype = i
         lib.locate_softmax_bwd_mma_smem_bytes.argtypes = [i] * 3
         lib.locate_softmax_bwd_mma_smem_bytes.restype = ctypes.c_size_t
         lib.locate_softmax_bwd_mma_blocks_per_sm.argtypes = [i] * 4
@@ -332,70 +346,138 @@ def _tile_for(lib, c, hd, cout) -> int:
     return t
 
 
-def softmax_gate_stats(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope):
-    """(m, se), each (N, 1, Cout) f32. CUDA tensors: the stats kernel
-    (replaces `_softmax_stats_kernel`); CPU tensors: the plain version."""
+def gate_fwd_route(dtype: torch.dtype, hw: int, c: int, hd: int, cout: int) -> str:
+    """The kernel of the softmax gate's forward pair (`softmax_gate_stats`,
+    `softmax_gate_apply`): "mma" for bf16 at (C, Hd, Cout) =
+    `GATE_FWD_MMA_WIDTHS` with HW a multiple of `GATE_MMA_TILE`, "simt"
+    otherwise (f32, a gate with Cout 1, C = 128, 256 and 512). Only that
+    width: there the forward's l is the backward's (`gate_mlp_mma`, the
+    stats, apply and mma backward all computing it alike). At C = 512 the
+    backward's mma route recomputes l in the simt stats pass's FMA order,
+    bit for bit the l that gave m and se, because a saturated gate moves
+    with any other summation order; a tensor-core stats pass there would
+    break that, so C = 512's forward moves only together with its csum and
+    its backward."""
+    if (dtype == torch.bfloat16 and (c, hd, cout) == GATE_FWD_MMA_WIDTHS
+            and hw % GATE_MMA_TILE == 0):
+        return MMA
+    return SIMT
+
+
+def _fwd_route_of(route: Optional[str], x2d, w1x, w2) -> str:
+    """`route` of a forward call, or `gate_fwd_route`'s choice where it is
+    None; a route the call cannot take raises."""
+    if x2d.dim() != 3:
+        raise ValueError(f"x2d must be (N, HW, C), got {tuple(x2d.shape)}")
+    _, hw, c = x2d.shape
+    hd, cout = w1x.shape[1], w2.shape[1]
+    return _route_of(route, gate_fwd_route, {GATE_FWD_MMA_WIDTHS: GATE_MMA_TILE}, x2d.dtype,
+                     hw, c, hd, cout)
+
+
+def fwd_mma_rows(n: int, hw: int, slots: int) -> int:
+    """Locations a block of the forward's mma route takes (whole
+    128-location tiles of one batch row): as many as keep the grid
+    (ceil(HW / rows), N) within `slots` blocks (the blocks that fit on the
+    card at once) where the batch allows, one tile at least."""
+    tiles = hw // GATE_MMA_TILE
+    groups = max(1, min(tiles, slots // n))
+    return -(-tiles // groups) * GATE_MMA_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_slots(device_index: int, apply: bool) -> int:
+    """Blocks of the forward pair's mma kernel (`softmax_apply_mma` or
+    `softmax_stats_mma`) that fit on the card at once."""
+    per_sm = _library().locate_softmax_fwd_mma_blocks_per_sm(int(apply),
+                                                             *GATE_FWD_MMA_WIDTHS)
+    if per_sm < 1:
+        kernel = "apply" if apply else "stats"
+        raise RuntimeError(f"softmax {kernel} (mma): no block fits on an SM ({per_sm})")
+    return torch.cuda.get_device_properties(device_index).multi_processor_count * per_sm
+
+
+def _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route: str, apply: bool):
+    """(operands, library, locations a block) of a forward call on the
+    card on `route`."""
+    if x2d.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x2d.device}")
+    ops = _aligned(_kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act), route)
+    n, hw, c = x2d.shape
+    lib = _library()
+    if route == MMA:
+        t = fwd_mma_rows(n, hw, _fwd_slots(x2d.device.index, apply))
+    else:
+        t = _tile_for(lib, c, w1x.shape[1], w2.shape[1])
+    return ops, lib, t
+
+
+def softmax_gate_stats(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, route=None):
+    """(m, se), each (N, 1, Cout) f32. CUDA tensors: the stats kernel on
+    `route` (`gate_fwd_route`'s choice unless given: `softmax_stats_mma` on
+    the tensor cores or the simt `softmax_stats_partial`) and the merge of
+    its per-block partials (replaces `_softmax_stats_kernel`); CPU tensors:
+    the plain version (a route the call cannot take raises on both)."""
+    route = _fwd_route_of(route, x2d, w1x, w2)
     if x2d.device.type == "cpu":
         return softmax_gate_stats_reference(x2d, pos_proj, w1x, b1, w2, b2,
                                             act=act, leaky_slope=leaky_slope)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x2d.device}")
-    ops = _kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act)
+    ops, lib, t = _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route, apply=False)
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
-    lib = _library()
-    t = _tile_for(lib, c, hd, cout)
-    tiles = -(-hw // t)
+    blocks = -(-hw // t)
     with torch.cuda.device(x2d.device):
         f32 = dict(dtype=torch.float32, device=x2d.device)
-        part_m = torch.empty((n, tiles, cout), **f32)
-        part_s = torch.empty((n, tiles, cout), **f32)
+        part_m = torch.empty((n, blocks, cout), **f32)
+        part_s = torch.empty((n, blocks, cout), **f32)
         m = torch.empty((n, 1, cout), **f32)
         se = torch.empty((n, 1, cout), **f32)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = lib.locate_softmax_stats(
-            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
+            _ROUTE_CODE[route], int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
             part_m.data_ptr(), part_s.data_ptr(), m.data_ptr(), se.data_ptr(),
             n, hw, c, hd, cout, t, ACT_CODES[act], float(leaky_slope), stream)
-    _check(lib, err, "softmax stats")
-    softmax_gate_stats.launches += 1
+    _check(lib, err, f"softmax stats ({route})")
+    _count(softmax_gate_stats, route)
     return m, se
 
 
 softmax_gate_stats.launches = 0
+softmax_gate_stats.launches_mma = softmax_gate_stats.launches_simt = 0
 
 
 def softmax_gate_apply(x2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
-                       leaky_slope, hw_scale, gate_max):
-    """y (N, HW, C) in x's dtype. CUDA tensors: the apply kernel (replaces
-    `_softmax_apply_kernel`); CPU tensors: the plain version."""
+                       leaky_slope, hw_scale, gate_max, route=None):
+    """y (N, HW, C) in x's dtype. CUDA tensors: the apply kernel on `route`
+    (`gate_fwd_route`'s choice unless given: `softmax_apply_mma` on the
+    tensor cores or the simt `softmax_apply`; replaces
+    `_softmax_apply_kernel`); CPU tensors: the plain version (a route the
+    call cannot take raises on both)."""
+    route = _fwd_route_of(route, x2d, w1x, w2)
     if x2d.device.type == "cpu":
         return softmax_gate_apply_reference(
             x2d, pos_proj, w1x, b1, w2, b2, m, se, act=act,
             leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x2d.device}")
-    ops = _kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act)
+    ops, lib, t = _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route, apply=True)
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
     m = _stats_operand("m", m, n, cout, x2d.device)
     se = _stats_operand("se", se, n, cout, x2d.device)
-    lib = _library()
-    t = _tile_for(lib, c, hd, cout)
     with torch.cuda.device(x2d.device):
         y = torch.empty_like(ops[0])
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = lib.locate_softmax_apply(
-            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
+            _ROUTE_CODE[route], int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
             m.data_ptr(), se.data_ptr(), y.data_ptr(),
             n, hw, c, hd, cout, t, ACT_CODES[act], float(leaky_slope),
             float(hw_scale), float(gate_max), stream)
-    _check(lib, err, "softmax apply")
-    softmax_gate_apply.launches += 1
+    _check(lib, err, f"softmax apply ({route})")
+    _count(softmax_gate_apply, route)
     return y
 
 
 softmax_gate_apply.launches = 0
+softmax_gate_apply.launches_mma = softmax_gate_apply.launches_simt = 0
 
 
 def _stats_operand(name, s, n, cout, device):
@@ -485,19 +567,27 @@ def gate_bwd_route(dtype: torch.dtype, hw: int, c: int, hd: int, cout: int) -> s
     return SIMT
 
 
-def _gate_route_of(route: Optional[str], dtype: torch.dtype, hw: int, c: int, hd: int,
-                   cout: int) -> str:
-    """`route`, or `gate_bwd_route`'s choice where it is None; a route the
-    call cannot take raises."""
+def _route_of(route: Optional[str], pick: Callable[..., str], widths: dict,
+              dtype: torch.dtype, hw: int, c: int, hd: int, cout: int) -> str:
+    """`route`, or `pick`'s choice (`gate_fwd_route` or `gate_bwd_route`)
+    where it is None; a route the call cannot take raises, naming the
+    mma templates' `widths` ({(C, Hd, Cout): the tile that divides HW})."""
     if route is None:
-        return gate_bwd_route(dtype, hw, c, hd, cout)
+        return pick(dtype, hw, c, hd, cout)
     if route not in _ROUTE_CODE:
         raise ValueError(f"route must be {MMA!r} or {SIMT!r}, got {route!r}")
-    if route == MMA and gate_bwd_route(dtype, hw, c, hd, cout) != MMA:
-        widths = ", ".join(f"{w} with HW a multiple of {t}" for w, t in GATE_MMA_WIDTHS.items())
-        raise ValueError(f"the mma route takes bf16 at (C, Hd, Cout) = {widths}; got {dtype}, "
+    if route == MMA and pick(dtype, hw, c, hd, cout) != MMA:
+        names = ", ".join(f"{w} with HW a multiple of {t}" for w, t in widths.items())
+        raise ValueError(f"the mma route takes bf16 at (C, Hd, Cout) = {names}; got {dtype}, "
                          f"HW={hw}, C={c}, Hd={hd}, Cout={cout}")
     return route
+
+
+def _gate_route_of(route: Optional[str], dtype: torch.dtype, hw: int, c: int, hd: int,
+                   cout: int) -> str:
+    """`route` of a backward call, or `gate_bwd_route`'s choice where it is
+    None; a route the call cannot take raises."""
+    return _route_of(route, gate_bwd_route, GATE_MMA_WIDTHS, dtype, hw, c, hd, cout)
 
 
 def bwd_mma_grid(n: int, hw: int, slots: int) -> int:

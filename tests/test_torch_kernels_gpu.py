@@ -58,13 +58,14 @@ def rel_err(got, truth):
     return float((got - truth).norm() / truth.norm().clamp_min(1e-12))
 
 
-def run_both(ops, act, gate_max, hw):
-    """(kernel (m, se, y), plain (m, se, y)) on the same inputs."""
+def run_both(ops, act, gate_max, hw, route=None):
+    """(kernel (m, se, y), plain (m, se, y)) on the same inputs, the
+    kernels on `route` (the wrappers' choice where None)."""
     kw = dict(act=act, leaky_slope=0.2)
     with torch.inference_mode():
-        km, ks = fa.softmax_gate_stats(*ops, **kw)
+        km, ks = fa.softmax_gate_stats(*ops, route=route, **kw)
         ky = fa.softmax_gate_apply(*ops, km, ks, hw_scale=float(hw),
-                                   gate_max=gate_max, **kw)
+                                   gate_max=gate_max, route=route, **kw)
         pm, ps = fa.softmax_gate_stats_reference(*ops, **kw)
         py = fa.softmax_gate_apply_reference(*ops, pm, ps, hw_scale=float(hw),
                                              gate_max=gate_max, **kw)
@@ -72,8 +73,8 @@ def run_both(ops, act, gate_max, hw):
     return (km, ks, ky), (pm, ps, py)
 
 
-def check_bf16(ops, act, gate_max, hw):
-    kern, plain = run_both(ops, act, gate_max, hw)
+def check_bf16(ops, act, gate_max, hw, route=None):
+    kern, plain = run_both(ops, act, gate_max, hw, route)
     f32_ops = [ops[0].float()] + ops[1:]
     _, truth = run_both(f32_ops, act, gate_max, hw)
     for name, k, p, t in zip(("m", "se", "y"), kern, plain, truth):
@@ -350,6 +351,89 @@ def test_gate_bwd_mma_refuses_a_wider_gate(cuda):
     assert lib.locate_softmax_bwd_mma_blocks_per_sm(0, 64, 16, 64) >= 1
     assert lib.locate_softmax_bwd_mma_blocks_per_sm(1, 64, 16, 64) >= 1
     assert lib.locate_softmax_bwd_mma_blocks_per_sm(0, 128, 32, 128) == 0
+
+
+# the forward pair's tensor-core route, bf16 at (C, Hd, Cout) = (64, 16, 64)
+
+def fwd_route_counts():
+    return tuple((f.launches, f.launches_mma, f.launches_simt)
+                 for f in (fa.softmax_gate_stats, fa.softmax_gate_apply))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate_max", [0.0, 16.0, 1.5])
+@pytest.mark.parametrize("n,hw", [(2, 1024), (64, 4096), (3, 16384)])
+def test_gate_fwd_mma_route_against_plain(cuda, n, hw, gate_max):
+    """softmax_stats_mma and softmax_apply_mma (the wrappers' choice at bf16,
+    (64, 16, 64)) and the simt kernels on the same inputs, each under the
+    bf16 rule; at batch 64 a block walks several tiles of a row (and the
+    last block fewer); at gate_max 1.5 the clamp binds at a part of the
+    locations."""
+    ops = make_inputs(n, hw, 64, 16, 64, torch.bfloat16, cuda, seed=21)
+    assert fa.gate_fwd_route(torch.bfloat16, hw, 64, 16, 64) == fa.MMA
+    before = fwd_route_counts()
+    check_bf16(ops, "leaky_relu", gate_max, hw)
+    after = fwd_route_counts()
+    # the bf16 call on the mma route, its f32 truth's on the simt route
+    assert [tuple(a - b for a, b in zip(x, y)) for x, y in zip(after, before)] == [(2, 1, 1)] * 2
+    check_bf16(ops, "leaky_relu", gate_max, hw, route=fa.SIMT)
+    assert [c[2] for c in fwd_route_counts()] == [c[2] + 2 for c in after]
+
+
+@pytest.mark.gpu
+def test_gate_fwd_mma_relu_and_broadcast_pos(cuda):
+    ops = make_inputs(3, 2048, 64, 16, 64, torch.bfloat16, cuda, pos=False, seed=22)
+    check_bf16(ops, "relu", 16.0, 2048, route=fa.MMA)
+
+
+@pytest.mark.gpu
+def test_gate_fwd_mma_is_bitwise_repeatable(cuda):
+    ops = make_inputs(16, 8192, 64, 16, 64, torch.bfloat16, cuda, seed=23)
+    first, _ = run_both(ops, "leaky_relu", 16.0, 8192, fa.MMA)
+    second, _ = run_both(ops, "leaky_relu", 16.0, 8192, fa.MMA)
+    for name, a, b in zip(("m", "se", "y"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_gate_fwd_mma_route_counters_after_one_gate(cuda):
+    """One SoftmaxGate forward and backward at the template's widths: stats
+    and apply once each on the mma route, the backward's mma route once."""
+    ops = make_inputs(2, 1024, 64, 16, 64, torch.bfloat16, cuda, seed=25)
+    w1 = ops[2].clone().requires_grad_(True)
+    before, bwd = fwd_route_counts(), gate_route_counts()
+    y = fa.fused_locate_attention(ops[0].reshape(2, 32, 32, 64), ops[1], w1, *ops[3:],
+                                  gate_max=16.0)
+    y.float().sum().backward()
+    after = fwd_route_counts()
+    assert [tuple(a - b for a, b in zip(x, y)) for x, y in zip(after, before)] == [(1, 1, 0)] * 2
+    assert tuple(a - b for a, b in zip(gate_route_counts(), bwd)) == (1, 1, 0)
+
+
+@pytest.mark.gpu
+def test_gate_fwd_mma_refuses_an_unfit_call(cuda):
+    """route="mma" where the template cannot take the call raises in the
+    wrappers; the C interface itself refuses it (cudaErrorInvalidValue)
+    before it reads an operand, and refuses an unknown route."""
+    ops = make_inputs(2, 1024, 128, 32, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="mma route"):
+        run_both(ops, "leaky_relu", 16.0, 1024, fa.MMA)
+    lib = fa._library()
+    for route, bf16, hw, c, hd, cout, t in [
+            (1, 1, 1024, 128, 32, 128, 128), (1, 0, 1024, 64, 16, 64, 128),
+            (1, 1, 1000, 64, 16, 64, 128), (1, 1, 1024, 64, 16, 64, 64),
+            (1, 1, 1024, 64, 16, 64, 0), (2, 1, 1024, 64, 16, 64, 128)]:
+        err = lib.locate_softmax_stats(route, bf16, *([None] * 10), 2, hw, c, hd, cout, t, 0,
+                                       0.2, None)
+        assert err == 1, ("stats", route, bf16, hw, c, hd, cout, t, err)
+        err = lib.locate_softmax_apply(route, bf16, *([None] * 9), 2, hw, c, hd, cout, t, 0,
+                                       0.2, float(hw), 16.0, None)
+        assert err == 1, ("apply", route, bf16, hw, c, hd, cout, t, err)
+    assert lib.locate_softmax_fwd_mma_smem_bytes(128, 32, 128) == 0
+    assert 0 < lib.locate_softmax_fwd_mma_smem_bytes(64, 16, 64) <= fa._MAX_SMEM
+    for apply in (0, 1):
+        assert lib.locate_softmax_fwd_mma_blocks_per_sm(apply, 64, 16, 64) >= 1
+        assert lib.locate_softmax_fwd_mma_blocks_per_sm(apply, 512, 128, 512) == 0
 
 
 # the wide template, (C, Hd, Cout) = (512, 128, 512): each gate at its
@@ -639,6 +723,27 @@ def test_stage_softmax_stats_mma_route(cuda, c, co, up):
         assert torch.equal(k, a), name
         hold(name, k, p, t)
         hold(name + " (simt)", sm, p, t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("up", [False, True])
+def test_stage_stats_and_gate_stats_share_one_l(cuda, up):
+    """The fused stage's statistics (stage_softmax_stats_mma) against
+    softmax_stats_mma on the pre-gate w the stage stores, with the same
+    gate weights: both compute l by gate_mlp_mma from the same bf16 w, so
+    m is bitwise equal and se equal up to the order of its f32 merges (at
+    most one f32 step a tile and 128 more, chip_smoke's SE_ORDER_TOL)."""
+    n, hin = 2, (32 if up else 64)
+    h = 2 * hin if up else hin
+    ops = stage_inputs(n, hin, 64, 64, torch.bfloat16, cuda, seed=26)
+    gate = stage_gate(h * h, 64, torch.bfloat16, cuda, seed=27)
+    with torch.no_grad():
+        w_pre, m, se = fs.stage_softmax_stats(*ops, *gate, upsample=up, **STAGE_KW)
+        m2, se2 = fa.softmax_gate_stats(w_pre.reshape(n, h * h, 64), *gate, route=fa.MMA,
+                                        **STAGE_KW)
+        torch.cuda.synchronize()
+    assert torch.equal(m, m2)
+    assert float(((se2 - se).abs() / se).max()) <= (h * h // 128 + 128) * 2.0 ** -24
 
 
 @pytest.mark.gpu
