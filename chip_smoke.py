@@ -74,7 +74,8 @@ line each:
      r1 finite, G, D and EMA moved, the guard counters as the norms imply,
      launch counters 30 / 30 / 24 / 24 per step and no fused-stage launch,
      softmax_stats' and softmax_apply's 30 on their routes: 12 mma (C =
-     64), 18 simt; softmax_bwd's 24: 16 mma (C = 64 and 512), 8 simt.
+     64), 18 simt; softmax_bwd's 24: 16 mma (C = 64 and 512), 8 simt;
+     softmax_csum's 24: 9 mma (C = 64), 15 simt.
      Then one step's gradients from one state and batch with the same latents
      on the kernel path, the plain path and an f32 plain path: the kernel
      path's error against f32 is at most twice the plain path's, for D and
@@ -123,8 +124,8 @@ line each:
      kernels as the step implies, every launch of stage_conv,
      stage_softmax_stats, stage_softmax_apply_pool (6 a step) and
      stage_conv_bwd on the mma route, softmax_bwd's 32 on their routes
-     (24 mma, 8 simt), softmax_stats' 67 (34 mma) and softmax_apply's 66
-     (33 mma), sec/step,
+     (24 mma, 8 simt), softmax_csum's 32 (17 mma: C = 64), softmax_stats'
+     67 (34 mma) and softmax_apply's 66 (33 mma), sec/step,
      images/sec, peak memory, idle
      share and top kernels; the same steps again with the grad-norm guard
      raised to 1e9, where G's and D's updates all apply and G, D and the
@@ -134,7 +135,9 @@ line each:
  12. one ffhq_512 step's gradients with R1 on the kernel path, each of its
      four fused-stage backward calls (the recompute of w by stage_conv
      and the backward, both on the mma route) held against the plain
-     backward chain on its own saved tensors (the bf16 rule);
+     backward chain on its own saved tensors (the bf16 rule); the step's
+     csum calls on their routes (17 of 32 on the mma route, those at C =
+     64, the four in the fused calls among them);
  13. one step's whole gradients at ffhq_512's widths cut to 64^2 with every
      stage fused, f32 kernel path against f32 plain path (the tolerance of
      6), each of the 20 fused-stage backward calls within 1e-4, on the simt
@@ -157,12 +160,14 @@ line each:
      D's `down` forms, plain and with a 1x1 skip, under the rules of 9 at
      gate_max 1.5, on both routes, timed alike;
  17. ffhq_512-sigmoid serving as 10: one forward launches the gate's
-     kernel 3 times and the stage's sigmoid pass once, no softmax kernel;
+     kernel 3 times (once on the mma route, at C = 512) and the stage's
+     sigmoid pass once, no softmax kernel;
  18. ffhq_512-sigmoid training as 11: 27 / 16 / 9 launches a step of
      sigmoid_gate / sigmoid_bwd / stage_sigmoid, 4 of stage_conv and of
      stage_conv_bwd, none of the softmax kernels; the three stage kernels
      on the mma route; sigmoid_bwd's 16 on their routes (11 mma: the 512^2
-     stages' 4 and the 7 at C = 512; 5 simt), and on phase 19's step each
+     stages' 4 and the 7 at C = 512; 5 simt), sigmoid_gate's 27 (15 mma:
+     the 9 + 6 at C = 512; 12 simt), and on phase 19's step each
      of the 12 gate backward calls outside the fused stage (SigmoidGate: 7
      at C = 512 on the mma route, 5 simt) held against the plain backward
      on its own saved tensors (the bf16 rule);
@@ -257,11 +262,18 @@ BWD_PER_STEP = {s: 1 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
 # not spill
 GATE_MMA_KERNELS = ("softmax_bwd_mma", "sigmoid_bwd_mma", "softmax_bwd_wide_mma",
                     "sigmoid_bwd_wide_mma", "gate_wgrad_wide_mma")
-# the softmax gate's forward pair on the tensor cores (bf16 at (64, 16, 64),
-# one body on the backward's logit core); each must hold HMMA and not spill
-GATE_FWD_MMA_KERNELS = ("softmax_stats_mma", "softmax_apply_mma")
-# the forward's two wrappers with two routes
+# the softmax gate's forward pair and csum pass on the tensor cores (bf16 at
+# (64, 16, 64), one body on the backward's logit core), with the pass each
+# answers to in the occupancy query; each must hold HMMA and not spill, the
+# pair at FWD_MMA_BLOCKS blocks an SM
+GATE_FWD_MMA_KERNELS = ("softmax_stats_mma", "softmax_apply_mma", "softmax_csum_mma")
+FWD_MMA_PASS = {"softmax_stats_mma": 0, "softmax_apply_mma": 1, "softmax_csum_mma": 2}
+FWD_MMA_BLOCKS = 3
+# the forward's two wrappers with two routes (the csum pass takes their route)
 GATE_FWD_ROUTED = ("softmax_stats", "softmax_apply")
+# the sigmoid gate's forward on the tensor cores at (512, 128, 512), on the
+# sigmoid backward's logit code; HMMA, no spill
+SIGMOID_MMA_KERNELS = ("sigmoid_gate_wide_mma",)
 F32_SHAPE = (1024, 64, 16)
 F32_TOL = 1e-4
 # a whole step's gradient tree at 64^2, kernel path vs plain path, f32: at
@@ -313,9 +325,11 @@ FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 FLASH_MMA_KERNELS = ("flash_fwd_mma", "flash_dq_mma", "flash_dkv_mma")
 FLASH_MMA_SPILL_LIMIT = 16  # bytes: the simt kernels' worst spill
 # (stage_softmax_stats_mma holds softmax_stats_mma, softmax_apply_mma holds
-# softmax_apply: the longer name first)
+# softmax_apply, sigmoid_gate_wide_mma holds sigmoid_gate: the longer name
+# first)
 ALL_CUDA_KERNELS = (GATE_MMA_KERNELS + STAGE_MMA_KERNELS + GATE_FWD_MMA_KERNELS
-                    + STAGE_CUDA_KERNELS + CUDA_KERNELS + FLASH_MMA_KERNELS + FLASH_KERNELS)
+                    + SIGMOID_MMA_KERNELS + STAGE_CUDA_KERNELS + CUDA_KERNELS
+                    + FLASH_MMA_KERNELS + FLASH_KERNELS)
 # the exponential floor of a flash pass: B T S exponentials on the H100's
 # 132 x 16 SFU lanes (one ex2 a lane a clock) at the SXM card's 1.98 GHz
 # boost clock, the clock PEAK_FLOPS's f32 figure (132 x 128 FMA x 2) assumes
@@ -602,9 +616,10 @@ def run_forward(fa, ops, hw, plain: bool, route=None):
     return m, se, y
 
 
-def run_backward(fa, ops, dy, hw, plain: bool, route=None):
+def run_backward(fa, ops, dy, hw, plain: bool, route=None, csum_route=None):
     """(c, dx, dpos_proj, dW1x, db1, dW2, db2), each path its own stats;
-    the kernels' backward on `route` (the wrapper's choice where None)."""
+    the kernels' backward on `route` and their csum pass on `csum_route`
+    (each the wrapper's choice where None)."""
     opts = dict(hw_scale=float(hw), gate_max=16.0, **KW)
     if plain:
         m, se = fa.softmax_gate_stats_reference(*ops, **KW)
@@ -612,7 +627,7 @@ def run_backward(fa, ops, dy, hw, plain: bool, route=None):
         grads = fa.softmax_gate_backward_reference(ops[0], dy, *ops[1:], m, se, c, **opts)
     else:
         m, se = fa.softmax_gate_stats(*ops, **KW)
-        c = fa.softmax_gate_csum(ops[0], dy, *ops[1:], m, se, **opts)
+        c = fa.softmax_gate_csum(ops[0], dy, *ops[1:], m, se, route=csum_route, **opts)
         grads = fa.softmax_gate_backward(ops[0], dy, *ops[1:], m, se, c, route=route, **opts)
     return (c, *grads)
 
@@ -781,35 +796,52 @@ def check_mma_wins(kernel, shape, t):
 
 def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
     """Phase 4 and the backward half of phase 8. softmax_bwd runs on the
-    route its wrapper picks (`gate_bwd_route`); where that is the mma route
-    (bf16 at C = 64 and 512), the simt route runs on the same inputs too,
-    under the same rule and twice bitwise equal, is timed beside it, and
-    must be slower, as must the plain version."""
+    route its wrapper picks (`gate_bwd_route`), and softmax_csum on the
+    forward pair's (`gate_fwd_route`); where the backward's is the mma route
+    (bf16 at C = 64 and 512), the simt route of both runs on the same inputs
+    too, under the same rule and twice bitwise equal, is timed beside it,
+    and must be slower, as must the plain version. Where csum's is the mma
+    route (bf16 at C = 64), the mma backward also runs on c from the simt
+    csum: its c is held to the rule, repeats bitwise and is timed, and db2's
+    error over its term scale with each csum's c is recorded; c from the
+    mma csum (the backward's own l) must not make it larger."""
     rows = []
     for i, (hw, c, hd, dtype) in enumerate(shapes):
         ops, dy = gate_inputs(batch, hw, c, hd, dtype, seed=200 + i)
         shape = dict(N=batch, HW=hw, C=c, Hd=hd, Cout=c)
         route = fa.gate_bwd_route(dtype, hw, c, hd, c)
+        csum_route = fa.gate_fwd_route(dtype, hw, c, hd, c)
         with torch.no_grad():
-            before = read_gate_routes()
+            before = {k: read_gate_routes(k) for k in ("softmax_bwd", "softmax_csum")}
             kern = run_backward(fa, ops, dy, hw, plain=False)
-            want = dict(before, **{route: before[route] + 1})
-            check(read_gate_routes() == want, f"softmax_bwd at {shape}: not on the {route} route")
+            want = {"softmax_bwd": dict(before["softmax_bwd"], **{
+                route: before["softmax_bwd"][route] + 1}),
+                    "softmax_csum": dict(before["softmax_csum"], **{
+                        csum_route: before["softmax_csum"][csum_route] + 1})}
+            for k in want:
+                check(read_gate_routes(k) == want[k],
+                      f"{k} at {shape}: not on the {route if k == 'softmax_bwd' else csum_route} "
+                      f"route")
             again = run_backward(fa, ops, dy, hw, plain=False)
-            simt = simt_again = None
+            simt = simt_again = mixed = mixed_again = None
             if route == "mma":
-                simt = run_backward(fa, ops, dy, hw, plain=False, route="simt")
-                simt_again = run_backward(fa, ops, dy, hw, plain=False, route="simt")
+                simt = run_backward(fa, ops, dy, hw, plain=False, route="simt",
+                                    csum_route="simt")
+                simt_again = run_backward(fa, ops, dy, hw, plain=False, route="simt",
+                                          csum_route="simt")
+            if csum_route == "mma":  # the mma backward on the simt csum's c
+                mixed = run_backward(fa, ops, dy, hw, plain=False, csum_route="simt")
+                mixed_again = run_backward(fa, ops, dy, hw, plain=False, csum_route="simt")
             plain = run_backward(fa, ops, dy, hw, plain=True)
             truth = run_backward(fa, [ops[0].float()] + ops[1:], dy.float(), hw, plain=True)
             torch.cuda.synchronize()
         row = dict(shape=shape, dtype=str(dtype).replace("torch.", ""), route=route,
-                   bwd_grid=bwd_grid_of(fa, route, batch, hw, c, hd))
-        for name, k, a in zip(GRAD_NAMES, kern, again):
-            check(torch.equal(k, a), f"{name} at {shape}: two runs differ bitwise")
-        if simt is not None:
-            for name, k, a in zip(GRAD_NAMES, simt, simt_again):
-                check(torch.equal(k, a), f"{name} at {shape} (simt): two runs differ bitwise")
+                   csum_route=csum_route, bwd_grid=bwd_grid_of(fa, route, batch, hw, c, hd))
+        for tag, first, second in (("", kern, again), (" (simt)", simt, simt_again),
+                                   (" (c from the simt csum)", mixed, mixed_again)):
+            if first is not None:
+                for name, k, a in zip(GRAD_NAMES, first, second):
+                    check(torch.equal(k, a), f"{name} at {shape}{tag}: two runs differ bitwise")
         row["bitwise_repeatable"] = True
         with torch.no_grad():
             m, se = fa.softmax_gate_stats_reference(ops[0].float(), *ops[1:], **KW)
@@ -818,21 +850,37 @@ def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
         for name, k, p, t, sc in zip(GRAD_NAMES, kern, plain, truth, scales):
             hold(name, shape, k, p, t, dtype, row, scale=sc)
         if simt is not None:  # the simt route on the same inputs, under the same rule
-            for name, k, p, t, sc in zip(GRAD_NAMES[1:], simt[1:], plain[1:], truth[1:],
-                                         scales[1:]):
+            for name, k, p, t, sc in zip(GRAD_NAMES, simt, plain, truth, scales):
                 hold(f"simt_{name}", shape, k, p, t, dtype, row, scale=sc)
-        del kern, again, simt, simt_again, plain, truth
+        if mixed is not None:  # one l against two: db2 over its term scale either way
+            hold("simt_csum_c", shape, mixed[0], plain[0], truth[0], dtype, row, scale=scales[0])
+            row["db2_rel_err_c_from_mma_csum"] = rel_err(kern[-1], truth[-1], scales[-1])
+            row["db2_rel_err_c_from_simt_csum"] = rel_err(mixed[-1], truth[-1], scales[-1])
+            check(row["db2_rel_err_c_from_mma_csum"] <= row["db2_rel_err_c_from_simt_csum"],
+                  f"db2 at {shape}: c from the mma csum gives "
+                  f"{row['db2_rel_err_c_from_mma_csum']:.3e} of its term scale, more than c "
+                  f"from the simt csum ({row['db2_rel_err_c_from_simt_csum']:.3e})")
+        del kern, again, simt, simt_again, mixed, mixed_again, plain, truth
 
         kops = [ops[0], ops[1], ops[2].to(dtype), ops[3], ops[4].to(dtype), ops[5]]
         opts = dict(hw_scale=float(hw), gate_max=16.0, **KW)
         with torch.no_grad():
             m, se = fa.softmax_gate_stats(*kops, **KW)
             cs = fa.softmax_gate_csum(kops[0], dy, *kops[1:], m, se, **opts)
+
+            def csum(r=None):
+                return fa.softmax_gate_csum(kops[0], dy, *kops[1:], m, se, route=r, **opts)
+
             row["softmax_csum"] = timed(
-                "softmax_csum", lambda: fa.softmax_gate_csum(kops[0], dy, *kops[1:], m, se,
-                                                             **opts),
+                "softmax_csum", csum,
                 lambda: fa.softmax_gate_csum_reference(kops[0], dy, *kops[1:], m, se, **opts),
                 batch, hw, c, hd, dtype)
+            row["softmax_csum"]["route"] = csum_route
+            if csum_route == "mma":
+                ms_simt = graph_ms(lambda: csum("simt"))
+                row["softmax_csum"].update(
+                    ms_simt=ms_simt, share_of_bound_simt=row["softmax_csum"]["bound_ms"] / ms_simt)
+                check_mma_wins("softmax_csum", shape, row["softmax_csum"])
             row["softmax_bwd"] = timed(
                 "softmax_bwd", lambda: fa.softmax_gate_backward(kops[0], dy, *kops[1:], m, se,
                                                                 cs, **opts),
@@ -856,12 +904,14 @@ def phase_backward(fa, shapes, batch, phase="backward-kernels-vs-plain"):
     return rows
 
 
-def run_sigmoid(fa, ops, dy, plain: bool, forward: bool = True, route=None):
+def run_sigmoid(fa, ops, dy, plain: bool, forward: bool = True, route=None, fwd_route=None):
     """(y, dx, dpos_proj, dW1x, db1, dW2, db2) of the sigmoid gate at
-    SIGMOID_GATE_MAX, kernels (the backward on `route`, the wrapper's
-    choice where None) or plain versions; y is None without `forward`."""
+    SIGMOID_GATE_MAX, kernels (the backward on `route`, the forward on
+    `fwd_route`, each the wrapper's choice where None) or plain versions; y
+    is None without `forward`."""
     kw = dict(gate_max=SIGMOID_GATE_MAX, **KW)
-    fwd = fa.sigmoid_gate_reference if plain else fa.sigmoid_gate
+    fwd = (fa.sigmoid_gate_reference if plain
+           else lambda *a, **k: fa.sigmoid_gate(*a, route=fwd_route, **k))
     bwd = (fa.sigmoid_gate_backward_reference if plain
            else lambda *a, **k: fa.sigmoid_gate_backward(*a, route=route, **k))
     return (fwd(*ops, **kw) if forward else None, *bwd(ops[0], dy, *ops[1:], **kw))
@@ -904,7 +954,9 @@ def phase_sigmoid_gate(fa):
     wrapper picks (`gate_bwd_route`); where that is the mma route (bf16 at
     the 512^2 stage's shape and at C = 512), the simt route runs on the
     same inputs too, under the same rule and twice bitwise equal, is timed
-    beside it, and must be slower, as must the plain version."""
+    beside it, and must be slower, as must the plain version; sigmoid_gate
+    alike on its route (`sigmoid_gate_route`: the mma route at C = 512),
+    where the mma route's grid unsplit over Cout is timed too."""
     n = FFHQ_BATCH
     names = ("y",) + GRAD_NAMES[1:]
     kw = dict(gate_max=SIGMOID_GATE_MAX, **KW)
@@ -913,17 +965,20 @@ def phase_sigmoid_gate(fa):
         ops, dy = gate_inputs(n, hw, c, hd, dtype, seed=600 + i)
         shape = dict(N=n, HW=hw, C=c, Hd=hd, Cout=c)
         route = fa.gate_bwd_route(dtype, hw, c, hd, c)
+        fwd_route = fa.sigmoid_gate_route(dtype, hw, c, hd, c)
         with torch.no_grad():
-            before = read_gate_routes("sigmoid_bwd")
+            before = {k: read_gate_routes(k) for k in SIGMOID_KERNELS}
             kern = run_sigmoid(fa, ops, dy, False, forward)
-            want = dict(before, **{route: before[route] + 1})
-            check(read_gate_routes("sigmoid_bwd") == want,
-                  f"sigmoid_bwd at {shape}: not on the {route} route")
+            for k, r in zip(SIGMOID_KERNELS, (fwd_route, route)):
+                want = dict(before[k], **{r: before[k][r] + int(forward or k == "sigmoid_bwd")})
+                check(read_gate_routes(k) == want, f"{k} at {shape}: not on the {r} route")
             again = run_sigmoid(fa, ops, dy, False, forward)
             simt = simt_again = None
-            if route == "mma":
-                simt = run_sigmoid(fa, ops, dy, False, False, route="simt")
-                simt_again = run_sigmoid(fa, ops, dy, False, False, route="simt")
+            if route == "mma" or (forward and fwd_route == "mma"):
+                simt = run_sigmoid(fa, ops, dy, False, forward and fwd_route == "mma",
+                                   route="simt", fwd_route="simt")
+                simt_again = run_sigmoid(fa, ops, dy, False, forward and fwd_route == "mma",
+                                         route="simt", fwd_route="simt")
             plain = run_sigmoid(fa, ops, dy, True, forward)
             truth = run_sigmoid(fa, [ops[0].float()] + ops[1:], dy.float(), True, forward)
             scales = (None, *sigmoid_term_scales(fa, ops[0].float(), dy, *ops[1:]))
@@ -938,15 +993,17 @@ def phase_sigmoid_gate(fa):
         for name, k, a in zip(names, kern, again):
             check(k is None or torch.equal(k, a), f"{name} at {shape}: two runs differ bitwise")
         if simt is not None:
-            for name, k, a in zip(names[1:], simt[1:], simt_again[1:]):
-                check(torch.equal(k, a), f"{name} at {shape} (simt): two runs differ bitwise")
+            for name, k, a in zip(names, simt, simt_again):
+                check(k is None or torch.equal(k, a),
+                      f"{name} at {shape} (simt): two runs differ bitwise")
         row["bitwise_repeatable"] = True
         for name, k, p, t, sc in zip(names, kern, plain, truth, scales):
             if k is not None:
                 hold(name, shape, k, p, t, dtype, row, scale=sc)
         if simt is not None:  # the simt route on the same inputs, under the same rule
-            for name, k, p, t, sc in zip(names[1:], simt[1:], plain[1:], truth[1:], scales[1:]):
-                hold(f"simt_{name}", shape, k, p, t, dtype, row, scale=sc)
+            for name, k, p, t, sc in zip(names, simt, plain, truth, scales):
+                if k is not None:
+                    hold(f"simt_{name}", shape, k, p, t, dtype, row, scale=sc)
         del kern, again, simt, simt_again, plain, truth, scales
 
         kops = [ops[0], ops[1], ops[2].to(dtype), ops[3], ops[4].to(dtype), ops[5]]
@@ -955,6 +1012,16 @@ def phase_sigmoid_gate(fa):
                 row["sigmoid_gate"] = timed(
                     "sigmoid_gate", lambda: fa.sigmoid_gate(*kops, **kw),
                     lambda: fa.sigmoid_gate_reference(*kops, **kw), n, hw, c, hd, dtype)
+                row["sigmoid_gate"]["route"] = fwd_route
+                if fwd_route == "mma":
+                    t = row["sigmoid_gate"]
+                    t["ms_simt"] = graph_ms(lambda: fa.sigmoid_gate(*kops, route="simt", **kw))
+                    t["share_of_bound_simt"] = t["bound_ms"] / t["ms_simt"]
+                    t["splits"] = fa.sigmoid_wide_splits(n, hw, torch.cuda.get_device_properties(
+                        0).multi_processor_count)
+                    with wide_splits(fa, 1):  # the mma route's grid without the split
+                        t["ms_unsplit"] = graph_ms(lambda: fa.sigmoid_gate(*kops, **kw))
+                    check_mma_wins("sigmoid_gate", shape, t)
             row["sigmoid_bwd"] = timed(
                 "sigmoid_bwd", lambda: fa.sigmoid_gate_backward(kops[0], dy, *kops[1:], **kw),
                 lambda: fa.sigmoid_gate_backward_reference(kops[0], dy, *kops[1:], **kw),
@@ -973,6 +1040,19 @@ def phase_sigmoid_gate(fa):
         del ops, dy, kops
         torch.cuda.empty_cache()
     return rows
+
+
+@contextlib.contextmanager
+def wide_splits(fa, splits: int):
+    """Run the sigmoid gate's wide forward split `splits` ways over Cout
+    inside the block, whatever `sigmoid_wide_splits` would pick: to time
+    its other grids on the same inputs."""
+    pick = fa.sigmoid_wide_splits
+    fa.sigmoid_wide_splits = lambda n, hw, sms: splits
+    try:
+        yield
+    finally:
+        fa.sigmoid_wide_splits = pick
 
 
 def fill_gammas(model, value: float = 0.5) -> int:
@@ -1065,7 +1145,8 @@ def read_counters() -> dict:
 
 def read_gate_routes(kernel: str = "softmax_bwd") -> dict:
     """{route: launches} of a gate wrapper with two routes (softmax_bwd,
-    sigmoid_bwd, softmax_stats or softmax_apply)."""
+    sigmoid_bwd, softmax_stats, softmax_apply, softmax_csum or
+    sigmoid_gate)."""
     return {r: getattr(counters()[kernel], f"launches_{r}") for r in ("mma", "simt")}
 
 
@@ -1074,16 +1155,20 @@ def read_fwd_routes() -> dict:
     return {k: read_gate_routes(k) for k in GATE_FWD_ROUTED}
 
 
-def gate_routes_per_step(fa, per_step: dict, steps: int = 1, forward: bool = False) -> dict:
+def gate_routes_per_step(fa, per_step: dict, steps: int = 1, forward: bool = False,
+                         sigmoid: bool = False) -> dict:
     """{route: launches} of a gate kernel with two routes over `steps`
     steps that launch it `per_step[(HW, C, Hd)]` times a step at each
     shape, bf16, Cout = C: a backward (`gate_bwd_route`), softmax_bwd 16
     mma and 8 simt a lsun_bedroom_128 step, 24 and 8 an ffhq_512 one,
     sigmoid_bwd 11 and 5 an ffhq_512-sigmoid one; with `forward` the
-    softmax forward pair (`gate_fwd_route`), 12 mma and 18 simt a
-    lsun_bedroom_128 step for either, 34 / 33 and 33 / 33 an ffhq_512 one
-    (stats / apply)."""
-    route_of = fa.gate_fwd_route if forward else fa.gate_bwd_route
+    softmax forward pair and csum pass (`gate_fwd_route`), 12 mma and 18
+    simt a lsun_bedroom_128 step for stats or apply, 34 / 33 and 33 / 33 an
+    ffhq_512 one (stats / apply), csum 9 / 15 and 17 / 15; with `sigmoid`
+    the sigmoid gate's forward (`sigmoid_gate_route`), 15 mma and 12 simt
+    an ffhq_512-sigmoid step."""
+    route_of = (fa.sigmoid_gate_route if sigmoid else fa.gate_fwd_route if forward
+                else fa.gate_bwd_route)
     out = {"mma": 0, "simt": 0}
     for (hw, c, hd), k in per_step.items():
         out[route_of(torch.bfloat16, hw, c, hd, c)] += k * steps
@@ -1364,7 +1449,8 @@ def phase_train(fa):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counters()
-    routes = dict(read_fwd_routes(), softmax_bwd=read_gate_routes())
+    routes = dict(read_fwd_routes(), softmax_bwd=read_gate_routes(),
+                  softmax_csum=read_gate_routes("softmax_csum"))
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
     # no stage fuses at 128^2
@@ -1379,6 +1465,11 @@ def phase_train(fa):
         want = gate_routes_per_step(fa, FWD_PER_STEP, forward=True)
         check(routes[kernel] == {r: k * steps for r, k in want.items()},
               f"train steps' {kernel} took the routes {routes[kernel]}, want {want} per step")
+    # csum takes the forward pair's route at the backward's shapes
+    want = gate_routes_per_step(fa, BWD_PER_STEP, forward=True)
+    check(routes["softmax_csum"] == {r: k * steps for r, k in want.items()},
+          f"train steps' softmax_csum took the routes {routes['softmax_csum']}, want {want} "
+          f"per step")
     say("train", config="lsun_bedroom_128 as shipped, use_pallas=true", batch=BATCH,
         steps=steps, seconds=seconds, launches=launches, gate_routes=routes,
         metrics=history, max_param_change=moved,
@@ -1437,8 +1528,11 @@ def checked_gate_backward(fa, record, mode="softmax"):
                 saved[0], dy, *saved[1:], opts)
         x2d, w1x, w2 = saved[0], saved[2], saved[4]
         n, hw, c = x2d.shape
+        widths = (x2d.dtype, hw, c, w1x.shape[1], w2.shape[1])
         row = dict(N=n, HW=hw, C=c, dtype=str(x2d.dtype).replace("torch.", ""),
-                   route=fa.gate_bwd_route(x2d.dtype, hw, c, w1x.shape[1], w2.shape[1]))
+                   route=fa.gate_bwd_route(*widths))
+        if mode != "sigmoid":  # the csum pass's route, the forward pair's
+            row["csum_route"] = fa.gate_fwd_route(*widths)
         shape = dict(N=n, HW=hw, C=c)
         for name, k, pi, ti, sc in zip(GRAD_NAMES[1:], grads, p, t, scales):
             hold(name, shape, k, pi, ti, x2d.dtype, row, scale=sc)
@@ -1505,6 +1599,9 @@ def phase_train_grads(fa, cfg, weights):
     want = gate_routes_per_step(fa, BWD_PER_STEP)
     got = {r: sum(call["route"] == r for call in calls) for r in want}
     check(got == want, f"one step's gate backward calls took the routes {got}, want {want}")
+    want = gate_routes_per_step(fa, BWD_PER_STEP, forward=True)
+    got = {r: sum(call["csum_route"] == r for call in calls) for r in want}
+    check(got == want, f"one step's csum calls took the routes {got}, want {want}")
     paths = {"kernel": kernel,
              "plain": step_grads(cfg, weights, z_d, z_g, 128, False, "bfloat16"),
              "f32": step_grads(cfg, weights, z_d, z_g, 128, False, "float32"),
@@ -1965,7 +2062,8 @@ def phase_ffhq_serving(overrides=None, want=FFHQ_SERVE_PER_FORWARD, phase="ffhq-
     gen.manual_seed(2)
     reset_counters()
     images = generate_samples(model, gen, 4)
-    launches, fwd_routes = read_counters(), read_fwd_routes()
+    launches = read_counters()
+    fwd_routes = dict(read_fwd_routes(), sigmoid_gate=read_gate_routes("sigmoid_gate"))
     check(images.shape == (4, 512, 512, 3) and str(images.dtype) == "uint8",
           f"ffhq_512 request: images {images.shape} {images.dtype}")
     check(float(images.std()) > 0.0, "ffhq_512 request: constant images")
@@ -1974,8 +2072,10 @@ def phase_ffhq_serving(overrides=None, want=FFHQ_SERVE_PER_FORWARD, phase="ffhq-
     want_routes = {k: gate_routes_per_step(fa, shapes if softmax else {}, forward=True)
                    for k, shapes in (("softmax_stats", FFHQ_STATS_SERVE),
                                      ("softmax_apply", FFHQ_APPLY_SERVE))}
+    want_routes["sigmoid_gate"] = gate_routes_per_step(fa, {} if softmax else SIGMOID_SERVE,
+                                                       sigmoid=True)
     check(fwd_routes == want_routes,
-          f"one ffhq_512 forward's softmax passes took the routes {fwd_routes}, want {want_routes}")
+          f"one ffhq_512 forward's gate passes took the routes {fwd_routes}, want {want_routes}")
     plain_cfg = dataclasses.replace(mcfg, use_pallas=False)
     plain = build_generator(plain_cfg, "bfloat16", "cuda").eval()
     truth = build_generator(plain_cfg, "float32", "cuda").eval()
@@ -2079,8 +2179,8 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     reset_counters()
     state, history, seconds = timed_steps(step, state, batch, steps)
     launches, stage_routes = read_counters(), read_stage_routes()
-    gate_routes = {k: read_gate_routes(k) for k in ("softmax_bwd", "sigmoid_bwd")
-                   + GATE_FWD_ROUTED}
+    gate_routes = {k: read_gate_routes(k) for k in ("softmax_bwd", "sigmoid_bwd", "softmax_csum",
+                                                    "sigmoid_gate") + GATE_FWD_ROUTED}
     peak = torch.cuda.max_memory_allocated()
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
@@ -2098,13 +2198,20 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
         want_gate = gate_routes_per_step(fa, shapes if per_step.get(kernel) else {}, steps)
         check(gate_routes[kernel] == want_gate,
               f"ffhq_512 steps' {kernel} took the routes {gate_routes[kernel]}, want {want_gate}")
-    # and the softmax forward pair's, the stats in the fused backward calls too
+    # and the softmax forward pair's, the stats in the fused backward calls
+    # too, and its csum pass's at the backward's shapes; the sigmoid gate's
     for kernel, shapes in (("softmax_stats", FFHQ_STATS_PER_STEP),
-                           ("softmax_apply", FFHQ_APPLY_PER_STEP)):
+                           ("softmax_apply", FFHQ_APPLY_PER_STEP),
+                           ("softmax_csum", FFHQ_BWD_PER_STEP)):
         want_gate = gate_routes_per_step(fa, shapes if per_step.get(kernel) else {}, steps,
                                          forward=True)
         check(gate_routes[kernel] == want_gate,
               f"ffhq_512 steps' {kernel} took the routes {gate_routes[kernel]}, want {want_gate}")
+    want_gate = gate_routes_per_step(
+        fa, SIGMOID_FWD_PER_STEP if per_step.get("sigmoid_gate") else {}, steps, sigmoid=True)
+    check(gate_routes["sigmoid_gate"] == want_gate,
+          f"ffhq_512 steps' sigmoid_gate took the routes {gate_routes['sigmoid_gate']}, want "
+          f"{want_gate}")
     idle, top = profile_calls(lambda: step(state, batch), calls=2, top=15)
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
     params = dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel())
@@ -2158,7 +2265,8 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-
     calls = []
 
     def routes():
-        return dict(read_stage_routes(), sigmoid_bwd=read_gate_routes("sigmoid_bwd"))
+        return dict(read_stage_routes(), sigmoid_bwd=read_gate_routes("sigmoid_bwd"),
+                    softmax_csum=read_gate_routes("softmax_csum"))
 
     sigmoid = cfg.model.attention.mode == "sigmoid"
     gate_calls = []
@@ -2174,7 +2282,9 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-
           and moved["stage_softmax_stats"]["simt"] == moved["stage_sigmoid"]["simt"] == 0
           and moved["stage_softmax_apply_pool"]["simt"] == 0
           and moved["sigmoid_bwd"] == gate_routes_per_step(
-              fa, SIGMOID_BWD_PER_STEP if sigmoid else {}),
+              fa, SIGMOID_BWD_PER_STEP if sigmoid else {})
+          and moved["softmax_csum"] == gate_routes_per_step(
+              fa, {} if sigmoid else FFHQ_BWD_PER_STEP, forward=True),
           f"the checked ffhq_512 step's stage kernels took the routes {moved}")
     if sigmoid:  # the gate's own calls: every shape but the fused 512^2 stage's
         want = gate_routes_per_step(fa, {s: k for s, k in SIGMOID_BWD_PER_STEP.items()
@@ -3011,12 +3121,12 @@ def flash_entry(kernel, rows, train_rows, launches, serve_launches, routes):
     return entry
 
 
-def sigmoid_entry(kernel, rows, launches, serve_launches, routes=None):
+def sigmoid_entry(kernel, rows, launches, serve_launches, routes):
     """The {"kernels": [...]} entry of a sigmoid gate kernel: per
     ffhq_512-sigmoid train step at batch 16, each shape's time times its
-    launches a step; for sigmoid_bwd beside the simt route's time of the
-    same launches, with the launches the main path's run made on the mma
-    route (`routes`, phase 18's counters)."""
+    launches a step, beside the simt route's time of the same launches,
+    with the launches the main path's run made on the mma route (`routes`,
+    phase 18's counters)."""
     mult = SIGMOID_FWD_PER_STEP if kernel == "sigmoid_gate" else SIGMOID_BWD_PER_STEP
     names = ("y",) if kernel == "sigmoid_gate" else GRAD_NAMES[1:]
     timed_rows = [r for r in rows if kernel in r]
@@ -3037,18 +3147,19 @@ def sigmoid_entry(kernel, rows, launches, serve_launches, routes=None):
                         dtype=r["dtype"], launches_per_step=mult[(
                             r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])],
                         **{k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms", "route",
-                                                     "ms_simt") if k in r[kernel]})
+                                                     "ms_simt", "ms_unsplit", "splits")
+                           if k in r[kernel]})
                    for r in timed_rows],
     }
     if kernel == "sigmoid_gate":
         entry["launches_serving"] = serve_launches[kernel]
         entry["ms_per_served_forward"] = per_step(timed_rows, kernel, SIGMOID_SERVE, "ms")
-    else:  # two routes: the mma shape beside its simt time
-        bf16 = [r for r in timed_rows if r["dtype"] == "bfloat16"]
-        entry["routes"] = sorted({r[kernel]["route"] for r in bf16})
-        entry["launches_mma"] = routes[kernel]["mma"]
-        entry["ms_simt"] = sum(mult[(r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])]
-                               * r[kernel].get("ms_simt", r[kernel]["ms"]) for r in bf16)
+    # two routes: the mma shapes beside their simt time
+    bf16 = [r for r in timed_rows if r["dtype"] == "bfloat16"]
+    entry["routes"] = sorted({r[kernel]["route"] for r in bf16})
+    entry["launches_mma"] = routes[kernel]["mma"]
+    entry["ms_simt"] = sum(mult[(r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])]
+                           * r[kernel].get("ms_simt", r[kernel]["ms"]) for r in bf16)
     return entry
 
 
@@ -3160,7 +3271,7 @@ def phase_build(fa, fs, fl, build):
         libs = dict(zip(names, pool.map(build.build, names)))
     reports = {name: parse_ptxas(build.ptxas_report(name)) for name in names}
     for name, wanted in (("fused_attention", CUDA_KERNELS + GATE_MMA_KERNELS
-                          + GATE_FWD_MMA_KERNELS),
+                          + GATE_FWD_MMA_KERNELS + SIGMOID_MMA_KERNELS),
                          ("fused_stage", STAGE_CUDA_KERNELS + STAGE_MMA_KERNELS),
                          ("flash_attention", FLASH_KERNELS + FLASH_MMA_KERNELS)):
         for k in wanted:
@@ -3230,21 +3341,31 @@ def phase_build(fa, fs, fl, build):
                            blocks_per_sm=int(gate_lib.locate_softmax_bwd_mma_blocks_per_sm(
                                kind, *widths)))
         check(gate_bwd[k]["blocks_per_sm"] >= 1, f"{k}: no block fits on an SM")
-    # the forward pair's mma kernels alike, beside the simt kernels' registers
+    # the forward body's mma kernels alike, beside the simt kernels'
+    # registers: the stats and apply passes at FWD_MMA_BLOCKS blocks an SM
+    # (the csum pass's stages hold dy too); the sigmoid gate's wide forward
     gate_fwd = {}
-    for k in GATE_FWD_MMA_KERNELS:
-        ptx = reports["fused_attention"].get(k, {})
-        check(gate_sass.get(k, 0) > 0, f"{k}: no HMMA or HGMMA instruction in its SASS")
+    for k in GATE_FWD_MMA_KERNELS + SIGMOID_MMA_KERNELS:
+        wide = k in SIGMOID_MMA_KERNELS
+        name = f"{k}<{','.join(map(str, fa.GATE_WIDE))}>" if wide else k
+        widths = fa.GATE_WIDE if wide else fa.GATE_FWD_MMA_WIDTHS
+        ptx = reports["fused_attention"].get(name, {})
+        check(gate_sass.get(name, 0) > 0, f"{name}: no HMMA or HGMMA instruction in its SASS")
         check(bool(ptx) and ptx.get("spill_stores", 0) == 0 and ptx.get("spill_loads", 0) == 0,
-              f"{k} spills: {ptx}")
-        gate_fwd[k] = dict(ptx, tensor_core_instructions=gate_sass[k],
-                           widths=fa.GATE_FWD_MMA_WIDTHS,
-                           bytes=int(gate_lib.locate_softmax_fwd_mma_smem_bytes(
-                               *fa.GATE_FWD_MMA_WIDTHS)),
-                           blocks_per_sm=int(gate_lib.locate_softmax_fwd_mma_blocks_per_sm(
-                               int(k == "softmax_apply_mma"), *fa.GATE_FWD_MMA_WIDTHS)))
-        check(gate_fwd[k]["blocks_per_sm"] >= 1, f"{k}: no block fits on an SM")
-    for k in ("softmax_stats_partial<bf16>", "softmax_apply<bf16>"):
+              f"{name} spills: {ptx}")
+        if wide:
+            smem_bytes = gate_lib.locate_sigmoid_gate_mma_smem_bytes(*widths)
+            per_sm = gate_lib.locate_sigmoid_gate_mma_blocks_per_sm(*widths)
+        else:
+            smem_bytes = gate_lib.locate_softmax_fwd_mma_smem_bytes(FWD_MMA_PASS[k], *widths)
+            per_sm = gate_lib.locate_softmax_fwd_mma_blocks_per_sm(FWD_MMA_PASS[k], *widths)
+        gate_fwd[name] = dict(ptx, tensor_core_instructions=gate_sass[name], widths=widths,
+                              bytes=int(smem_bytes), blocks_per_sm=int(per_sm))
+        check(per_sm >= 1, f"{name}: no block fits on an SM")
+        if k in ("softmax_stats_mma", "softmax_apply_mma"):
+            check(per_sm == FWD_MMA_BLOCKS, f"{name}: {per_sm} blocks an SM, want {FWD_MMA_BLOCKS}")
+    for k in ("softmax_stats_partial<bf16>", "softmax_apply<bf16>", "softmax_csum_partial<bf16>",
+              "sigmoid_gate<bf16>"):
         gate_fwd[k] = dict(reports["fused_attention"].get(k, {}),
                            tensor_core_instructions=gate_sass.get(k, 0))
     simt_tile = fa.bwd_grid(BATCH, 16384, 64)[0]

@@ -8,7 +8,9 @@
 //                                      + softmax_stats_merge
 //   * _softmax_apply_kernel (:179)  -> softmax_apply; bf16 at (64, 16, 64):
 //                                      softmax_apply_mma
-//   * _softmax_csum_kernel  (:358)  -> softmax_csum_partial + reduce_partials
+//   * _softmax_csum_kernel  (:358)  -> softmax_csum_partial + reduce_partials;
+//                                      bf16 at (64, 16, 64): softmax_csum_mma
+//                                      + reduce_partials
 //   * _bwd_kernel_softmax   (:397, body _bwd_body :408)
 //                                   -> softmax_bwd + reduce_partials (twice);
 //                                      bf16 at (C, Hd, Cout) = (64, 16, 64):
@@ -16,7 +18,8 @@
 //                                      bf16 at (512, 128, 512):
 //                                      softmax_bwd_wide_mma +
 //                                      gate_wgrad_wide_mma + reduce_partials
-//   * _sigmoid_kernel       (:145)  -> sigmoid_gate
+//   * _sigmoid_kernel       (:145)  -> sigmoid_gate; bf16 at (512, 128, 512):
+//                                      sigmoid_gate_wide_mma
 //   * _bwd_kernel_sigmoid   (:387, body _bwd_body :408)
 //                                   -> sigmoid_bwd + reduce_partials (twice);
 //                                      bf16 at (64, 16, 64): sigmoid_bwd_mma;
@@ -77,12 +80,14 @@
 // the small products run as f32 FMA loops with a 4-location register
 // tile, the weights read through the read-only cache (C=512 x Hd=128
 // weights would not fit in shared memory as f32). These simt kernels use
-// no tensor cores; the bf16 route of the softmax forward pair and of the
-// two backward passes does, at the gate width of the 64-channel stages
-// (softmax_bwd_mma and sigmoid_bwd_mma, on one body, gate_bwd_mma, below;
-// softmax_stats_mma and softmax_apply_mma, on one body, gate_fwd_mma, on
-// the same logit core), and the backward's at the 512-channel stages (the
-// two passes of gate_bwd_wide, further below).
+// no tensor cores; the bf16 route of the softmax gate's passes does at the
+// gate width of the 64-channel stages (softmax_bwd_mma and
+// sigmoid_bwd_mma, on one body, gate_bwd_mma, below; softmax_stats_mma,
+// softmax_apply_mma and softmax_csum_mma, on one body, gate_fwd_mma, on the
+// same logit core), and the backward's and the sigmoid gate's at the
+// 512-channel stages (the two passes of gate_bwd_wide, and
+// sigmoid_gate_wide_mma on the sigmoid backward's logit code, further
+// below).
 
 #include "common.cuh"
 
@@ -898,23 +903,24 @@ __global__ void __launch_bounds__(kThreads, 1) sigmoid_bwd_mma(
 
 // ---- the softmax gate's forward on the tensor cores: bf16 at (C, Hd, Cout) = (64, 16, 64) ----
 //
-// gate_fwd_mma<APPLY> computes what softmax_stats_partial<bf16> (APPLY
-// false) and softmax_apply<bf16> (APPLY true) compute, with their rounding
-// points (h rounded to bf16 before its product, the gate math in f32, y =
-// (x g) rounded once), on mma.sync m16n8k16. Two kernels wrap it:
-// softmax_stats_mma and softmax_apply_mma. Grid (ceil(HW / T_rows), N),
-// T_rows a multiple of 128: block (b, n) owns locations b T_rows ..
-// b T_rows + T_rows - 1 of batch row n and walks them 128 at a time (a
-// tile). Each of its 8 warps owns 16 consecutive locations of every tile
-// and works alone until the block's end:
-//   * x of its 16 locations comes by cp.async as bf16 [16][64 + 8], the
-//     next tile's a tile ahead (two stages);
+// gate_fwd_mma<PASS> computes what softmax_stats_partial<bf16> (PASS
+// kStatsPass), softmax_apply<bf16> (kApplyPass) and softmax_csum_partial<bf16>
+// (kCsumPass) compute, with their rounding points (h rounded to bf16 before
+// its product, the gate math in f32, y = (x g) rounded once), on mma.sync
+// m16n8k16. Three kernels wrap it: softmax_stats_mma, softmax_apply_mma and
+// softmax_csum_mma. Grid (ceil(HW / T_rows), N), T_rows a multiple of 128:
+// block (b, n) owns locations b T_rows .. b T_rows + T_rows - 1 of batch
+// row n and walks them 128 at a time (a tile). Each of its 8 warps owns 16
+// consecutive locations of every tile and works alone until the block's
+// end:
+//   * x of its 16 locations (and dy beside it, csum) comes by cp.async as
+//     bf16 [16][64 + 8], the next tile's a tile ahead (two stages);
 //   * u, h and l by gate_mlp_mma, called as gate_bwd_mma calls it (x as 4
 //     A fragments, W1x and W2 staged once a block, the rows of pos_proj of
 //     the lane's two locations), so l is bit for bit the l of
 //     softmax_bwd_mma and of the fused stage's stats pass
 //     (gate_logits_mma): at this width the forward's m and se, the
-//     backward's g and the fused stage's statistics come from one l;
+//     backward's c and g and the fused stage's statistics come from one l;
 //   * stats: per channel, the (max, sum-exp) of l over the warp's 16
 //     locations, in l's C-fragment layout: each lane's pair over its two
 //     locations, then a butterfly of warp shuffles in a fixed order
@@ -932,19 +938,37 @@ __global__ void __launch_bounds__(kThreads, 1) sigmoid_bwd_mma(
 //   * apply: g = min(exp(l - m) / se HW, gate_max) on l's C fragments,
 //     with m and se of the block's row staged once; y = (x g)_bf16, x read
 //     from the staged tile, y staged over it (each lane overwrites only
-//     the x it read) and written with 16-byte stores.
+//     the x it read) and written with 16-byte stores;
+//   * csum: g = exp(l - m) / se HW (gate_bwd_mma's expression, in its
+//     order) and g mask (x dy), mask = [g <= gate_max], on l's C fragments
+//     with m and se staged as apply stages them; summed over the lane's two
+//     locations, then over the 8 lanes of a channel by the stats pass's
+//     butterfly with adds for merges (reduce_scatter_sums), into the
+//     lane's running sum over the block's tiles; at the end the 8 warps'
+//     sums are added in warp order through shared memory into the block's
+//     entry of part_c, (N, blocks, Cout), which reduce_partials sums as it
+//     sums the simt kernel's tiles. x and dy in flight double a warp's
+//     region (78 KB a block): two blocks an SM.
 // One owner per output and no atomics: two runs are bitwise equal. Bound:
 // bytes, as the simt kernels' (stats reads x once, apply reads x and
-// writes y); the gate MLP is 16 HMMA a warp a tile. The grid is about one
-// wave (ops/fused_attention.py:fwd_mma_rows, from
+// writes y, csum reads x and dy); the gate MLP is 16 HMMA a warp a tile.
+// The grid is about one wave (ops/fused_attention.py:fwd_mma_rows, from
 // locate_softmax_fwd_mma_blocks_per_sm).
+enum FwdPass { kStatsPass = 0, kApplyPass = 1, kCsumPass = 2 };
 constexpr int kFwdStage = 16 * kLX;  // bf16 of a warp's x tile, [16][kLX]
-constexpr int kFwdBlocks = 3;        // blocks an SM it is built for
+constexpr int kFwdBlocks = 3;        // blocks an SM the stats and apply passes are built for
+constexpr int kCsumBlocks = 2;       // and the csum pass, whose stages hold x and dy
 static_assert(kBwdWarps * 2 * kFwdStage * sizeof(bf16) >= kBwdWarps * kGateCout * sizeof(float2),
               "the warps' statistics must fit in their regions");
 
-__host__ __device__ constexpr size_t fwd_mma_bytes() {
-  return (size_t)(kGateC * kLH + kGateHd * kLO + kBwdWarps * 2 * kFwdStage) * sizeof(bf16) +
+// bf16 of one of a warp's two stages: its x tile, and dy's beside it (csum)
+__host__ __device__ constexpr int fwd_stage_elems(int pass) {
+  return (pass == kCsumPass ? 2 : 1) * kFwdStage;
+}
+
+__host__ __device__ constexpr size_t fwd_mma_bytes(int pass) {
+  return (size_t)(kGateC * kLH + kGateHd * kLO + kBwdWarps * 2 * fwd_stage_elems(pass)) *
+             sizeof(bf16) +
          2 * kGateCout * sizeof(float);
 }
 
@@ -985,45 +1009,82 @@ __device__ __forceinline__ void reduce_scatter_stats(float (&pm)[8][2], float (&
   }
 }
 
-// APPLY: y from m and se (part_m, part_s unused), else the statistics
-// (m, se, y unused, hw_scale and gate_max too).
-template <bool APPLY>
+// The sums over the 8 lanes of one lane % 4 of each of a lane's 16
+// channels, v [n-tile][column] holding the lane's: reduce_scatter_stats'
+// butterfly with an add for each merge, so that lane (q, col) ends with
+// n-tile q, channels q * 8 + col + e1, in v[0][e1]. 14 adds and 14
+// shuffles, in a fixed order.
+__device__ __forceinline__ void reduce_scatter_sums(float (&v)[8][2]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int step = 0; step < 3; ++step) {
+    const int half = 4 >> step, bit = 16 >> step;
+    const bool upper = lane & bit;
+#pragma unroll
+    for (int nt = 0; nt < half; ++nt)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const float o = __shfl_xor_sync(0xffffffffu, upper ? v[nt][e1] : v[nt + half][e1], bit);
+        v[nt][e1] = (upper ? v[nt + half][e1] : v[nt][e1]) + o;
+      }
+  }
+}
+
+// PASS: kStatsPass writes the statistics (dy, m, se, y unused, hw_scale
+// and gate_max too); kApplyPass y from m and se (dy, part_m, part_s
+// unused); kCsumPass c's partials into part_m from dy, m and se (y,
+// part_s unused).
+template <int PASS>
 __device__ __forceinline__ void gate_fwd_mma(
-    const bf16* __restrict__ x, const float* __restrict__ pp, const bf16* __restrict__ w1,
-    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
-    const float* __restrict__ m, const float* __restrict__ se, bf16* __restrict__ y,
-    float* __restrict__ part_m, float* __restrict__ part_s, int HW, int T_rows, int act,
-    float slope, float hw_scale, float gate_max) {
+    const bf16* __restrict__ x, const bf16* __restrict__ dy, const float* __restrict__ pp,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ m, const float* __restrict__ se,
+    bf16* __restrict__ y, float* __restrict__ part_m, float* __restrict__ part_s, int HW,
+    int T_rows, int act, float slope, float hw_scale, float gate_max) {
+  constexpr bool kCsum = PASS == kCsumPass;
+  constexpr int kStage = fwd_stage_elems(PASS);
   extern __shared__ float4 smem4[];
   bf16* W1s = reinterpret_cast<bf16*>(smem4);  // [C][kLH]
   bf16* W2s = W1s + kGateC * kLH;              // [Hd][kLO]
-  bf16* region = W2s + kGateHd * kLO;          // [warps][2][16][kLX]
-  float* Ms = reinterpret_cast<float*>(region + kBwdWarps * 2 * kFwdStage);  // m, then se [Cout]
+  bf16* region = W2s + kGateHd * kLO;          // [warps][2][kStage]: x (and dy) [16][kLX]
+  float* Ms = reinterpret_cast<float*>(region + kBwdWarps * 2 * kStage);  // m, then se [Cout]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q = lane >> 2, col = 2 * (lane & 3);
-  bf16* Xb = region + warp * 2 * kFwdStage;
+  bf16* Xb = region + warp * 2 * kStage;
   const int n = blockIdx.y, t0 = blockIdx.x * T_rows;
   const int tiles = min(T_rows, HW - t0) / kBwdTile;
   const size_t row0 = (size_t)n * HW + t0 + 16 * warp;  // the warp's first row of tile 0
-  if (tiles > 0) fetch_x(x, row0, Xb);
+  if (tiles > 0) {
+    if constexpr (kCsum)
+      fetch_rows(x, dy, row0, Xb, Xb + kFwdStage);
+    else
+      fetch_x(x, row0, Xb);
+  }
   cp_async_commit();
   stage_rows(W1s, w1, kGateC, kGateHd, kLH);
   stage_rows(W2s, w2, kGateHd, kGateCout, kLO);
-  if (APPLY)
+  if constexpr (PASS != kStatsPass)
     for (int i = threadIdx.x; i < kGateCout; i += blockDim.x) {
       Ms[i] = m[(size_t)n * kGateCout + i];
       Ms[kGateCout + i] = se[(size_t)n * kGateCout + i];
     }
   __syncthreads();
 
-  // this lane's running (max, sum-exp) of channels q * 8 + col and + 1
+  // this lane's running (max, sum-exp), or sum (csum), of channels q * 8 +
+  // col and + 1
   float rm[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f};
   for (int k = 0; k < tiles; ++k) {
-    bf16* Xs = Xb + (k & 1) * kFwdStage;
-    if (k + 1 < tiles)
-      fetch_x(x, row0 + (size_t)(k + 1) * kBwdTile, Xb + ((k + 1) & 1) * kFwdStage);
+    bf16* Xs = Xb + (k & 1) * kStage;
+    if (k + 1 < tiles) {
+      const size_t next = row0 + (size_t)(k + 1) * kBwdTile;
+      bf16* Xn = Xb + ((k + 1) & 1) * kStage;
+      if constexpr (kCsum)
+        fetch_rows(x, dy, next, Xn, Xn + kFwdStage);
+      else
+        fetch_x(x, next, Xn);
+    }
     cp_async_commit();
-    cp_async_wait_one();  // this tile's x
+    cp_async_wait_one();  // this tile's x (and dy)
     __syncwarp();
 
     const float* ppl = pp + (size_t)(t0 + k * kBwdTile + 16 * warp + q) * kGateHd;
@@ -1034,7 +1095,7 @@ __device__ __forceinline__ void gate_fwd_mma(
       for (int kk = 0; kk < 4; ++kk) frag_a(xa[kk], Xs, kLX, 0, kk * 16);
       gate_mlp_mma<4, 8>(xa, W1s, W2s, ppl, ppl + 8 * kGateHd, b1, b2, act, slope, u, h, l);
     }
-    if (APPLY) {
+    if constexpr (PASS == kApplyPass) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
         const float2 mv = *reinterpret_cast<const float2*>(Ms + nt * 8 + col);
@@ -1060,6 +1121,34 @@ __device__ __forceinline__ void gate_fwd_mma(
         *reinterpret_cast<uint4*>(y + (row0 + (size_t)k * kBwdTile + rr) * kGateC + ch) =
             *reinterpret_cast<const uint4*>(Xs + rr * kLX + ch);
       }
+    } else if constexpr (kCsum) {
+      const bf16* Ds = Xs + kFwdStage;
+      float v[8][2];  // the lane's g mask dg, summed over its locations q and q + 8
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 mv = *reinterpret_cast<const float2*>(Ms + nt * 8 + col);
+        const float2 sv = *reinterpret_cast<const float2*>(Ms + kGateCout + nt * 8 + col);
+        float t[2][2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int o = (q + 8 * hh) * kLX + nt * 8 + col;
+          const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Xs + o));
+          const float2 dv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Ds + o));
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            const float g = expf(l[nt][2 * hh + e1] - (e1 ? mv.y : mv.x)) /
+                            (e1 ? sv.y : sv.x) * hw_scale;
+            float dg = (e1 ? xv.y : xv.x) * (e1 ? dv.y : dv.x);
+            if (gate_max > 0.f) dg *= g <= gate_max ? 1.f : 0.f;
+            t[hh][e1] = g * dg;
+          }
+        }
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) v[nt][e1] = t[0][e1] + t[1][e1];
+      }
+      reduce_scatter_sums(v);
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) rs[e1] += v[0][e1];
     } else {
       float pm[8][2], ps[8][2];  // the lane's pairs over its locations q and q + 8
 #pragma unroll
@@ -1076,22 +1165,35 @@ __device__ __forceinline__ void gate_fwd_mma(
     }
     __syncwarp();  // the fetch of tile k + 2 overwrites this stage
   }
-  if (APPLY) return;
+  if constexpr (PASS == kApplyPass) return;
 
-  // the block's statistics: the warps' pairs, merged in warp order
   cp_async_wait_all();
   __syncthreads();  // every warp is done with its region
-  float2* St = reinterpret_cast<float2*>(region);  // [warps][Cout]
-  St[warp * kGateCout + q * 8 + col] = make_float2(rm[0], rs[0]);
-  St[warp * kGateCout + q * 8 + col + 1] = make_float2(rm[1], rs[1]);
-  __syncthreads();
-  for (int c = threadIdx.x; c < kGateCout; c += blockDim.x) {
-    float mm = St[c].x, s = St[c].y;
-    for (int w = 1; w < kBwdWarps; ++w)
-      merge_stats(mm, s, St[w * kGateCout + c].x, St[w * kGateCout + c].y);
-    const size_t off = ((size_t)n * gridDim.x + blockIdx.x) * kGateCout + c;
-    part_m[off] = mm;
-    part_s[off] = s;
+  if constexpr (kCsum) {
+    // the block's c: the warps' sums, added in warp order
+    float* Cs = reinterpret_cast<float*>(region);  // [warps][Cout]
+    Cs[warp * kGateCout + q * 8 + col] = rs[0];
+    Cs[warp * kGateCout + q * 8 + col + 1] = rs[1];
+    __syncthreads();
+    for (int c = threadIdx.x; c < kGateCout; c += blockDim.x) {
+      float s = Cs[c];
+      for (int w = 1; w < kBwdWarps; ++w) s += Cs[w * kGateCout + c];
+      part_m[((size_t)n * gridDim.x + blockIdx.x) * kGateCout + c] = s;
+    }
+  } else {
+    // the block's statistics: the warps' pairs, merged in warp order
+    float2* St = reinterpret_cast<float2*>(region);  // [warps][Cout]
+    St[warp * kGateCout + q * 8 + col] = make_float2(rm[0], rs[0]);
+    St[warp * kGateCout + q * 8 + col + 1] = make_float2(rm[1], rs[1]);
+    __syncthreads();
+    for (int c = threadIdx.x; c < kGateCout; c += blockDim.x) {
+      float mm = St[c].x, s = St[c].y;
+      for (int w = 1; w < kBwdWarps; ++w)
+        merge_stats(mm, s, St[w * kGateCout + c].x, St[w * kGateCout + c].y);
+      const size_t off = ((size_t)n * gridDim.x + blockIdx.x) * kGateCout + c;
+      part_m[off] = mm;
+      part_s[off] = s;
+    }
   }
 }
 
@@ -1102,8 +1204,8 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks) softmax_stats_mma(
     const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
     float* __restrict__ part_m, float* __restrict__ part_s, int HW, int T_rows, int act,
     float slope) {
-  gate_fwd_mma<false>(x, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, part_m, part_s, HW,
-                      T_rows, act, slope, 1.f, 0.f);
+  gate_fwd_mma<kStatsPass>(x, nullptr, pp, w1, b1, w2, b2, nullptr, nullptr, nullptr, part_m,
+                           part_s, HW, T_rows, act, slope, 1.f, 0.f);
 }
 
 // Apply pass on the tensor cores: y = (x min(exp(l - m) / se HW, gate_max))_bf16.
@@ -1112,8 +1214,20 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks) softmax_apply_mma(
     const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
     const float* __restrict__ m, const float* __restrict__ se, bf16* __restrict__ y, int HW,
     int T_rows, int act, float slope, float hw_scale, float gate_max) {
-  gate_fwd_mma<true>(x, pp, w1, b1, w2, b2, m, se, y, nullptr, nullptr, HW, T_rows, act, slope,
-                     hw_scale, gate_max);
+  gate_fwd_mma<kApplyPass>(x, nullptr, pp, w1, b1, w2, b2, m, se, y, nullptr, nullptr, HW, T_rows,
+                           act, slope, hw_scale, gate_max);
+}
+
+// Backward pass A, part 1, on the tensor cores: the block's partial c =
+// sum_s g mask (x dy) per channel into part_c, (N, blocks, Cout).
+__global__ void __launch_bounds__(kThreads, kCsumBlocks) softmax_csum_mma(
+    const bf16* __restrict__ x, const bf16* __restrict__ dy, const float* __restrict__ pp,
+    const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
+    const float* __restrict__ b2, const float* __restrict__ m, const float* __restrict__ se,
+    float* __restrict__ part_c, int HW, int T_rows, int act, float slope, float hw_scale,
+    float gate_max) {
+  gate_fwd_mma<kCsumPass>(x, dy, pp, w1, b1, w2, b2, m, se, nullptr, part_c, nullptr, HW, T_rows,
+                          act, slope, hw_scale, gate_max);
 }
 
 // ---- the gate backward on the tensor cores at the wide gates: bf16 at (C, Hd, Cout) =
@@ -1155,7 +1269,8 @@ __global__ void __launch_bounds__(kThreads, kFwdBlocks) softmax_apply_mma(
 //      * the C sweep, 8 chunks: dx = min(g, gate_max) dy + du_bf16
 //        W1x^T, rounded once, written from the fragments.
 //    The sigmoid's u and l run on the tensor cores (a warp: 16 x 32 of u;
-//    each k-step of 16 products from a zero accumulator, summed in f32).
+//    each k-step of 16 products from a zero accumulator, summed in f32),
+//    in the code its forward runs too (wide_u_mma, wide_h, wide_l_mma).
 //    The softmax's u and l run as tile_logits' FMA chains, in its order,
 //    on the CUDA cores: its g = exp(l - m) / se HW meets m, se and c from
 //    the simt stats and csum passes, and where the gate saturates (D's
@@ -1194,6 +1309,11 @@ struct WideGate {
   static constexpr size_t bytes =
       (size_t)(2 * kRows * kLX + 2 * kRows * kLH + kRows * kLO + 2 * kWBuf) * sizeof(bf16) +
       (size_t)kRows * kLU * sizeof(float);
+  // the sigmoid gate's forward (sigmoid_gate_wide_mma): x (then y), h, the
+  // weight tiles and u
+  static constexpr size_t fwd_bytes =
+      (size_t)(kRows * kLX + kRows * kLH + 2 * kWBuf) * sizeof(bf16) +
+      (size_t)kRows * kLU * sizeof(float);
   static_assert(C == CO, "dx's gate term is per channel: Cout = C");
   static_assert(C % kChunk == 0 && HD % 64 == 0 && (kHG / 8) % 2 == 0,
                 "64-wide chunks and an even number of hidden n-tiles a warp");
@@ -1229,18 +1349,27 @@ __device__ __forceinline__ void fetch_weights(int t, bf16* buf, const bf16* __re
   }
 }
 
-// the pipeline's step to weight tile t: fetch tile t + 1 into the buffer
-// that tile t - 1 left (one commit group a step, empty past the last
-// tile), wait for tile t, and hand it out
+// the pipeline's step `step`, whose weight tile is in buffer step & 1:
+// fetch tile `next` (none where it is negative) into the buffer the
+// previous step left (one commit group a step, empty without a tile), wait
+// for this step's tile, and hand it out
 template <int C, int HD, int CO>
-__device__ __forceinline__ const bf16* next_weights(int t, bf16* Wb, const bf16* __restrict__ w1,
+__device__ __forceinline__ const bf16* next_weights(int step, int next, bf16* Wb,
+                                                    const bf16* __restrict__ w1,
                                                     const bf16* __restrict__ w2) {
   using G = WideGate<C, HD, CO>;
-  if (t + 1 < G::kTiles) fetch_weights<C, HD, CO>(t + 1, Wb + ((t + 1) & 1) * G::kWBuf, w1, w2);
+  if (next >= 0) fetch_weights<C, HD, CO>(next, Wb + ((step + 1) & 1) * G::kWBuf, w1, w2);
   cp_async_commit();
   cp_async_wait_one();
   __syncthreads();
-  return Wb + (t & 1) * G::kWBuf;
+  return Wb + (step & 1) * G::kWBuf;
+}
+
+// the backward's step to weight tile t, the tiles in order
+template <int C, int HD, int CO>
+__device__ __forceinline__ const bf16* next_weights(int t, bf16* Wb, const bf16* __restrict__ w1,
+                                                    const bf16* __restrict__ w2) {
+  return next_weights<C, HD, CO>(t, t + 1 < WideGate<C, HD, CO>::kTiles ? t + 1 : -1, Wb, w1, w2);
 }
 
 template <int N>
@@ -1249,6 +1378,99 @@ __device__ __forceinline__ void add_to(float (&acc)[N][4], const float (&part)[N
   for (int n = 0; n < N; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+// The sigmoid gate's logit code at the wide gates, which its forward
+// (sigmoid_gate_wide_mma) and its backward's location pass
+// (gate_bwd_wide<..., true>) both run, so that the forward's l is the
+// backward's bit for bit. A block's 8 warps split its two m-tiles of 16
+// rows (warp & 1) and the hidden columns and each 64-column chunk of Cout
+// in quarters (warp >> 1), as gate_bwd_wide splits them.
+//
+// wide_u_mma: u = x W1x + pos_proj + b1 of the warp's m-tile and hidden
+// quarter, on the tensor cores, from x staged in Xs [kRows][kLX]: the
+// pipeline's steps 0 .. kXChunks - 1 (W1x's row chunks, tile 0 already
+// fetched), the last fetching tile `next`; each k-step of 16 products from
+// a zero accumulator added to u in f32 (their own accumulation truncates).
+// Staged in f32 into Us [kRows][kLU], pos_proj from location s0 on (the
+// m-tile's first location; HW % 16 == 0, so it lies in one image).
+template <int C, int HD, int CO>
+__device__ __forceinline__ void wide_u_mma(const bf16* Xs, bf16* Wb, const bf16* __restrict__ w1,
+                                           const bf16* __restrict__ w2,
+                                           const float* __restrict__ pp,
+                                           const float* __restrict__ b1, float* Us, int s0,
+                                           int next) {
+  using G = WideGate<C, HD, CO>;
+  constexpr int HNT = G::kHG / 8;  // hidden n-tiles a warp owns
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  const int mt = warp & 1, hc = G::kHG * (warp >> 1);
+  float u[HNT][4];
+  zero(u);
+  for (int t = 0; t < G::kXChunks; ++t) {
+    const bf16* W = next_weights<C, HD, CO>(t, t + 1 < G::kXChunks ? t + 1 : next, Wb, w1, w2);
+#pragma unroll
+    for (int kk = 0; kk < G::kChunk / 16; ++kk) {
+      uint32_t xa[1][4];
+      frag_a(xa[0], Xs, G::kLX, 16 * mt, t * G::kChunk + kk * 16);
+      float part[HNT][4];
+      zero(part);
+      mma_kn<1, HNT>(part, xa, W + kk * 16 * G::kLH, G::kLH, hc);
+      add_to(u, part);
+    }
+    __syncthreads();  // the next fetch overwrites this buffer
+  }
+#pragma unroll
+  for (int nt = 0; nt < HNT; ++nt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int j = hc + nt * 8 + col + e1, s = s0 + q + 8 * hh;
+        Us[(16 * mt + q + 8 * hh) * G::kLU + j] = u[nt][2 * hh + e1] + pp[(size_t)s * HD + j] + b1[j];
+      }
+}
+
+// wide_h: h = act(u)_bf16 of the warp's m-tile and hidden quarter from the
+// staged u (after a barrier), into Hs [kRows][kLH] and, where h_cd is set,
+// to its rows r0.. (the m-tile's first row of the (N HW, HD) scratch).
+template <int C, int HD, int CO>
+__device__ __forceinline__ void wide_h(const float* Us, bf16* Hs, bf16* __restrict__ h_cd, int r0,
+                                       int act, float slope) {
+  using G = WideGate<C, HD, CO>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  const int mt = warp & 1, hc = G::kHG * (warp >> 1);
+#pragma unroll
+  for (int nt = 0; nt < G::kHG / 8; ++nt)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int j = hc + nt * 8 + col, rr = 16 * mt + q + 8 * hh;
+      const float2 uv = *reinterpret_cast<const float2*>(Us + rr * G::kLU + j);
+      const uint32_t hp = pack_bf16(activate(uv.x, act, slope), activate(uv.y, act, slope));
+      *reinterpret_cast<uint32_t*>(Hs + rr * G::kLH + j) = hp;
+      if (h_cd) *reinterpret_cast<uint32_t*>(h_cd + (size_t)(r0 + q + 8 * hh) * HD + j) = hp;
+    }
+}
+
+// wide_l_mma: l - b2 of the warp's m-tile at its 16 columns (16 (warp >> 1)
+// ..) of the W2 column chunk W [HD][kLO], on the tensor cores from the
+// staged h (after a barrier), k-steps summed as u's; b2 is added by the
+// caller, in the same expression in both passes.
+template <int C, int HD, int CO>
+__device__ __forceinline__ void wide_l_mma(float (&l)[2][4], const bf16* Hs, const bf16* W) {
+  using G = WideGate<C, HD, CO>;
+  const int warp = threadIdx.x >> 5;
+  zero(l);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t ha[1][4];
+    frag_a(ha[0], Hs, G::kLH, 16 * (warp & 1), kk * 16);
+    float part[2][4];
+    zero(part);
+    mma_kn<1, 2>(part, ha, W + kk * 16 * G::kLO, G::kLO, 16 * (warp >> 1));
+    add_to(l, part);
+  }
 }
 
 // S: the sigmoid gate (m, se and csum unused, hw_scale 1), else the softmax.
@@ -1296,33 +1518,7 @@ __device__ __forceinline__ void gate_bwd_wide(
   // 1. u = x W1x + pos_proj + b1 (staged in f32 for act'(u)); h =
   //    act(u)_bf16, staged and written
   if constexpr (S) {
-    // on the tensor cores, each k-step of 16 products from a zero
-    // accumulator added to u in f32 (their own accumulation truncates)
-    float u[HNT][4];
-    zero(u);
-    for (int t = 0; t < G::kXChunks; ++t) {
-      const bf16* W = next_weights<C, HD, CO>(t, Wb, w1, w2);
-#pragma unroll
-      for (int kk = 0; kk < G::kChunk / 16; ++kk) {
-        uint32_t xa[1][4];
-        frag_a(xa[0], Xs, G::kLX, 16 * mt, t * G::kChunk + kk * 16);
-        float part[HNT][4];
-        zero(part);
-        mma_kn<1, HNT>(part, xa, W + kk * 16 * G::kLH, G::kLH, hc);
-        add_to(u, part);
-      }
-      __syncthreads();  // the next fetch overwrites this buffer
-    }
-#pragma unroll
-    for (int nt = 0; nt < HNT; ++nt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-        for (int e1 = 0; e1 < 2; ++e1) {
-          const int j = hc + nt * 8 + col + e1, s = s0 + q + 8 * hh;
-          Us[(16 * mt + q + 8 * hh) * G::kLU + j] =
-              u[nt][2 * hh + e1] + pp[(size_t)s * HD + j] + b1[j];
-        }
+    wide_u_mma<C, HD, CO>(Xs, Wb, w1, w2, pp, b1, Us, s0, G::kXChunks);
   } else {
     // tile_logits' FMA chains, in its order: bit for bit the u of the stats
     // and csum passes. A thread owns RT rows x 4 hidden columns.
@@ -1364,17 +1560,7 @@ __device__ __forceinline__ void gate_bwd_wide(
     }
   }
   __syncthreads();  // u staged
-  // h from the staged u, in the fragment layout of the warp's columns
-#pragma unroll
-  for (int nt = 0; nt < HNT; ++nt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int j = hc + nt * 8 + col, rr = 16 * mt + q + 8 * hh;
-      const float2 uv = *reinterpret_cast<const float2*>(Us + rr * G::kLU + j);
-      const uint32_t hp = pack_bf16(activate(uv.x, act, slope), activate(uv.y, act, slope));
-      *reinterpret_cast<uint32_t*>(Hs + rr * G::kLH + j) = hp;
-      if (live) *reinterpret_cast<uint32_t*>(h_cd + (size_t)(r0 + q + 8 * hh) * HD + j) = hp;
-    }
+  wide_h<C, HD, CO>(Us, Hs, live ? h_cd : nullptr, r0, act, slope);
 
   // 2. the Cout sweep: l, dl, the gate term of dx, db2, dl_bf16, dh
   float dh[HNT][4], gd[G::kOChunks][2][4];
@@ -1383,18 +1569,10 @@ __device__ __forceinline__ void gate_bwd_wide(
   for (int i = 0; i < G::kOChunks; ++i) {
     const bf16* W = next_weights<C, HD, CO>(G::kXChunks + i, Wb, w1, w2);
     float l[2][4];
-    zero(l);
-    if constexpr (S) {  // on the tensor cores, k-steps summed as u's
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t ha[1][4];
-        frag_a(ha[0], Hs, G::kLH, 16 * mt, kk * 16);
-        float part[2][4];
-        zero(part);
-        mma_kn<1, 2>(part, ha, W + kk * 16 * G::kLO, G::kLO, 16 * g);
-        add_to(l, part);
-      }
+    if constexpr (S) {
+      wide_l_mma<C, HD, CO>(l, Hs, W);
     } else {  // tile_logits' FMA chains, in its order, in l's fragment layout
+      zero(l);
       const bf16* hr = Hs + (16 * mt + q) * G::kLH;
       const bf16* wc = W + 16 * g + col;
 #pragma unroll 8
@@ -1530,6 +1708,86 @@ __global__ void __launch_bounds__(kThreads, 1) sigmoid_bwd_wide_mma(
                                  gate_max);
 }
 
+// The sigmoid gate's forward on the tensor cores at the wide gates: y =
+// (x min(2 sigmoid(l), gate_max))_bf16 (sigmoid_gate<bf16>'s rounding
+// points), u, h and l by the backward's own code (wide_u_mma, wide_h,
+// wide_l_mma), so that the forward's l is the sigmoid backward's bit for
+// bit. Grid (ceil(N HW / 32), splits): block (b, s) owns rows 32 b .. 32 b
+// + 31 of the flattened (N HW) locations and the Cout chunks s per ..
+// (s + 1) per - 1 (per = kOChunks / splits). It stages x of its rows by
+// cp.async, computes u over all of W1x (8 weight tiles) and h, then for
+// each of its chunks l (a warp: 16 x 16), g = min(2 sigmoid(l), gate_max)
+// and y = (x g)_bf16, staged over the x it read; y leaves with 16-byte
+// stores. No dy, no dh or dx: 8 + per weight tiles where the backward
+// streams 24. Splitting Cout over blocks repeats u in each (W1x from L2)
+// to put more blocks on the card: the two C = 512 shapes of the paths have
+// 8 and 32 row blocks. Bound: bytes (x in, y out); about 20 HMMA a warp a
+// weight tile.
+template <int C, int HD, int CO>
+__global__ void __launch_bounds__(kThreads, 2) sigmoid_gate_wide_mma(
+    const bf16* __restrict__ x, const float* __restrict__ pp, const bf16* __restrict__ w1,
+    const float* __restrict__ b1, const bf16* __restrict__ w2, const float* __restrict__ b2,
+    bf16* __restrict__ y, int N, int HW, int act, float slope, float gate_max) {
+  using G = WideGate<C, HD, CO>;
+  extern __shared__ float4 smem4[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem4);  // [kRows][kLX] x, then y
+  bf16* Hs = Xs + G::kRows * G::kLX;          // [kRows][kLH] h_bf16
+  bf16* Wb = Hs + G::kRows * G::kLH;          // [2][kWBuf] weight tiles
+  float* Us = reinterpret_cast<float*>(Wb + 2 * G::kWBuf);  // [kRows][kLU] u
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = lane >> 2, col = 2 * (lane & 3);
+  const int mt = warp & 1, g = warp >> 1;
+  const int M = N * HW, row0 = blockIdx.x * G::kRows;
+  const int r0 = row0 + 16 * mt;                  // the warp's first row
+  const int s0 = r0 < M ? r0 - r0 / HW * HW : 0;  // its first location
+  const int per = G::kOChunks / gridDim.y, first = blockIdx.y * per;
+
+  for (int e = threadIdx.x; e < G::kRows * (C / 8); e += blockDim.x) {
+    const int r = e / (C / 8), ch = (e - r * (C / 8)) * 8;
+    const bool ok = row0 + r < M;
+    cp_async16(Xs + r * G::kLX + ch, x + (size_t)(ok ? row0 + r : 0) * C + ch, ok);
+  }
+  fetch_weights<C, HD, CO>(0, Wb, w1, w2);  // with x, one group
+  cp_async_commit();
+
+  wide_u_mma<C, HD, CO>(Xs, Wb, w1, w2, pp, b1, Us, s0, G::kXChunks + first);
+  __syncthreads();  // u staged
+  wide_h<C, HD, CO>(Us, Hs, nullptr, r0, act, slope);
+
+  for (int i = 0; i < per; ++i) {
+    const int chunk = first + i;
+    const bf16* W = next_weights<C, HD, CO>(G::kXChunks + i,
+                                            i + 1 < per ? G::kXChunks + chunk + 1 : -1, Wb, w1,
+                                            w2);
+    float l[2][4];
+    wide_l_mma<C, HD, CO>(l, Hs, W);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int co = chunk * G::kChunk + 16 * g + nt * 8 + col;
+      const float2 bv = *reinterpret_cast<const float2*>(b2 + co);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        uint32_t* p = reinterpret_cast<uint32_t*>(Xs + (16 * mt + q + 8 * hh) * G::kLX + co);
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+        const float g0 = sigmoid_gate_of(l[nt][2 * hh] + bv.x, gate_max);
+        const float g1 = sigmoid_gate_of(l[nt][2 * hh + 1] + bv.y, gate_max);
+        *p = pack_bf16(xv.x * g0, xv.y * g1);
+      }
+    }
+    __syncthreads();  // y of the chunk staged; the next fetch overwrites this buffer
+  }
+
+  // y out: the block's rows at its chunks' columns, 16 bytes a copy
+  const int vecs = per * G::kChunk / 8;  // 16-byte vectors of a row
+  for (int e = threadIdx.x; e < G::kRows * vecs; e += blockDim.x) {
+    const int r = e / vecs, ch = first * G::kChunk + (e - r * vecs) * 8;
+    if (row0 + r < M)
+      *reinterpret_cast<uint4*>(y + (size_t)(row0 + r) * C + ch) =
+          *reinterpret_cast<const uint4*>(Xs + r * G::kLX + ch);
+  }
+  cp_async_wait_all();
+}
+
 // The weight-gradient pass of both gates: grid (the 64 x 64 tiles of dW1x
 // (C, HD) then of dW2 (HD, CO), splits). Block (tile, s) sums its tile over
 // the location stages s * per_split .. (s + 1) * per_split - 1 of kWgRows
@@ -1649,7 +1907,7 @@ cudaError_t launch_stats_mma(const void* x, const void* pp, const void* w1, cons
                              void* m, void* se, int N, int HW, int T_rows, int act,
                              float slope, cudaStream_t stream) {
   const int blocks = (HW + T_rows - 1) / T_rows;
-  const size_t smem = fwd_mma_bytes();
+  const size_t smem = fwd_mma_bytes(kStatsPass);
   cudaError_t err = allow_smem(softmax_stats_mma, smem);
   if (err != cudaSuccess) return err;
   softmax_stats_mma<<<dim3(blocks, N), kThreads, smem, stream>>>(
@@ -1666,7 +1924,7 @@ cudaError_t launch_apply_mma(const void* x, const void* pp, const void* w1, cons
                              void* y, int N, int HW, int T_rows, int act, float slope,
                              float hw_scale, float gate_max, cudaStream_t stream) {
   const int blocks = (HW + T_rows - 1) / T_rows;
-  const size_t smem = fwd_mma_bytes();
+  const size_t smem = fwd_mma_bytes(kApplyPass);
   cudaError_t err = allow_smem(softmax_apply_mma, smem);
   if (err != cudaSuccess) return err;
   softmax_apply_mma<<<dim3(blocks, N), kThreads, smem, stream>>>(
@@ -1695,6 +1953,26 @@ cudaError_t launch_csum(const void* x, const void* dy, const void* pp, const voi
   return launch_reduce((const float*)part_c, (float*)c, N, tiles, Cout, stream);
 }
 
+// The csum pass on the tensor cores (softmax_csum_mma) on the forward
+// pair's grid, then the fixed-order sum of its blocks' partials.
+cudaError_t launch_csum_mma(const void* x, const void* dy, const void* pp, const void* w1,
+                            const void* b1, const void* w2, const void* b2, const void* m,
+                            const void* se, void* part_c, void* c, int N, int HW, int T_rows,
+                            int act, float slope, float hw_scale, float gate_max,
+                            cudaStream_t stream) {
+  const int blocks = (HW + T_rows - 1) / T_rows;
+  const size_t smem = fwd_mma_bytes(kCsumPass);
+  cudaError_t err = allow_smem(softmax_csum_mma, smem);
+  if (err != cudaSuccess) return err;
+  softmax_csum_mma<<<dim3(blocks, N), kThreads, smem, stream>>>(
+      (const bf16*)x, (const bf16*)dy, (const float*)pp, (const bf16*)w1, (const float*)b1,
+      (const bf16*)w2, (const float*)b2, (const float*)m, (const float*)se, (float*)part_c, HW,
+      T_rows, act, slope, hw_scale, gate_max);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce((const float*)part_c, (float*)c, N, blocks, kGateCout, stream);
+}
+
 template <typename T>
 cudaError_t launch_sigmoid(const void* x, const void* pp, const void* w1, const void* b1,
                            const void* w2, const void* b2, void* y, int N, int HW, int C,
@@ -1707,6 +1985,23 @@ cudaError_t launch_sigmoid(const void* x, const void* pp, const void* w1, const 
   sigmoid_gate<T><<<dim3(tiles, N), kThreads, smem, stream>>>(
       (const T*)x, (const float*)pp, (const T*)w1, (const float*)b1, (const T*)w2,
       (const float*)b2, (T*)y, HW, C, Hd, Cout, T_rows, act, slope, gate_max);
+  return cudaGetLastError();
+}
+
+// The sigmoid gate's forward on the tensor cores at the wide widths
+// (sigmoid_gate_wide_mma) on grid (ceil(N HW / 32), splits).
+cudaError_t launch_sigmoid_wide(const void* x, const void* pp, const void* w1, const void* b1,
+                                const void* w2, const void* b2, void* y, int N, int HW,
+                                int splits, int act, float slope, float gate_max,
+                                cudaStream_t stream) {
+  constexpr int C = kWideC, HD = kWideHd, CO = kWideCout;
+  const size_t smem = Wide::fwd_bytes;
+  cudaError_t err = allow_smem(sigmoid_gate_wide_mma<C, HD, CO>, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = (N * HW + Wide::kRows - 1) / Wide::kRows;
+  sigmoid_gate_wide_mma<C, HD, CO><<<dim3(blocks, splits), kThreads, smem, stream>>>(
+      (const bf16*)x, (const float*)pp, (const bf16*)w1, (const float*)b1, (const bf16*)w2,
+      (const float*)b2, (bf16*)y, N, HW, act, slope, gate_max);
   return cudaGetLastError();
 }
 
@@ -1850,6 +2145,13 @@ bool bwd_wide_fits(int is_bf16, int HW, int C, int Hd, int Cout, int T_rows) {
          HW % 16 == 0;
 }
 
+// Whether the wide forward takes a sigmoid gate call: the wide template's
+// conditions, and splits that divide Cout's 64-column chunks.
+bool sigmoid_wide_fits(int is_bf16, int HW, int C, int Hd, int Cout, int T_rows, int splits) {
+  return bwd_wide_fits(is_bf16, HW, C, Hd, Cout, T_rows) && splits >= 1 &&
+         Wide::kOChunks % splits == 0;
+}
+
 // Blocks of `kernel` (kThreads threads, `smem` bytes of dynamic shared
 // memory) that fit on an SM; -1 on an error.
 template <typename K>
@@ -1920,32 +2222,47 @@ int locate_softmax_apply(int route, int is_bf16, const void* x, const void* pp,
                                   T_rows, act, slope, hw_scale, gate_max, s);
 }
 
-// Dynamic shared memory of a block of the forward pair's mma route at (C,
-// Hd, Cout), the same for both kernels; 0 where it does not take the widths.
-size_t locate_softmax_fwd_mma_smem_bytes(int C, int Hd, int Cout) {
-  return C == kGateC && Hd == kGateHd && Cout == kGateCout ? fwd_mma_bytes() : 0;
+// Dynamic shared memory of a block of pass `pass` (0 stats, 1 apply, 2
+// csum) of the forward body's mma route at (C, Hd, Cout); 0 where it does
+// not take the widths or the pass.
+size_t locate_softmax_fwd_mma_smem_bytes(int pass, int C, int Hd, int Cout) {
+  if (C != kGateC || Hd != kGateHd || Cout != kGateCout || pass < kStatsPass || pass > kCsumPass)
+    return 0;
+  return fwd_mma_bytes(pass);
 }
 
-// Blocks of softmax_stats_mma (apply 0) or softmax_apply_mma (apply 1) that
-// fit on an SM; 0 where the mma route does not take (C, Hd, Cout), -1 on
-// an error.
-int locate_softmax_fwd_mma_blocks_per_sm(int apply, int C, int Hd, int Cout) {
+// Blocks of softmax_stats_mma (pass 0), softmax_apply_mma (1) or
+// softmax_csum_mma (2) that fit on an SM; 0 where the mma route does not
+// take (C, Hd, Cout) or the pass, -1 on an error.
+int locate_softmax_fwd_mma_blocks_per_sm(int pass, int C, int Hd, int Cout) {
   if (C != kGateC || Hd != kGateHd || Cout != kGateCout) return 0;
-  return apply ? blocks_per_sm(softmax_apply_mma, fwd_mma_bytes())
-               : blocks_per_sm(softmax_stats_mma, fwd_mma_bytes());
+  switch (pass) {
+    case kStatsPass: return blocks_per_sm(softmax_stats_mma, fwd_mma_bytes(kStatsPass));
+    case kApplyPass: return blocks_per_sm(softmax_apply_mma, fwd_mma_bytes(kApplyPass));
+    case kCsumPass: return blocks_per_sm(softmax_csum_mma, fwd_mma_bytes(kCsumPass));
+    default: return 0;
+  }
 }
 
 size_t locate_softmax_bwd_smem_bytes(int C, int Hd, int Cout, int T_rows) {
   return bwd_tile_floats(C, Hd, Cout, T_rows) * sizeof(float);
 }
 
-// part_c: (N, tiles, Cout) workspace; c: (N, Cout) out.
-int locate_softmax_csum(int is_bf16, const void* x, const void* dy, const void* pp,
+// part_c: (N, ceil(HW / T_rows), Cout) workspace; c: (N, Cout) out. The
+// routes as locate_softmax_stats' (route 1: softmax_csum_mma, its T_rows
+// sized by its own occupancy).
+int locate_softmax_csum(int route, int is_bf16, const void* x, const void* dy, const void* pp,
                         const void* w1, const void* b1, const void* w2, const void* b2,
                         const void* m, const void* se, void* part_c, void* c, int N, int HW,
                         int C, int Hd, int Cout, int T_rows, int act, float slope,
                         float hw_scale, float gate_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!fwd_mma_fits(is_bf16, HW, C, Hd, Cout, T_rows)) return (int)cudaErrorInvalidValue;
+    return (int)launch_csum_mma(x, dy, pp, w1, b1, w2, b2, m, se, part_c, c, N, HW, T_rows, act,
+                                slope, hw_scale, gate_max, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_csum<__nv_bfloat16>(x, dy, pp, w1, b1, w2, b2, m, se, part_c, c, N,
                                            HW, C, Hd, Cout, T_rows, act, slope, hw_scale,
@@ -2018,17 +2335,37 @@ int locate_softmax_bwd(int route, int is_bf16, const void* x, const void* dy, co
                                        slope, hw_scale, gate_max, s);
 }
 
-// y: (N, HW, C) out.
-int locate_sigmoid_gate(int is_bf16, const void* x, const void* pp, const void* w1,
+// y: (N, HW, C) out. route 0 is the simt kernel (every dtype and width, R
+// unused); route 1 the tensor cores' (sigmoid_gate_wide_mma) for bf16 at
+// (512, 128, 512) with T_rows = 32 and 16 dividing HW, R splits of Cout's
+// 64-column chunks (1, 2, 4 or 8); nothing else.
+int locate_sigmoid_gate(int route, int is_bf16, const void* x, const void* pp, const void* w1,
                         const void* b1, const void* w2, const void* b2, void* y, int N, int HW,
-                        int C, int Hd, int Cout, int T_rows, int act, float slope,
+                        int C, int Hd, int Cout, int T_rows, int R, int act, float slope,
                         float gate_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    if (!sigmoid_wide_fits(is_bf16, HW, C, Hd, Cout, T_rows, R)) return (int)cudaErrorInvalidValue;
+    return (int)launch_sigmoid_wide(x, pp, w1, b1, w2, b2, y, N, HW, R, act, slope, gate_max, s);
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)launch_sigmoid<__nv_bfloat16>(x, pp, w1, b1, w2, b2, y, N, HW, C, Hd, Cout,
                                               T_rows, act, slope, gate_max, s);
   return (int)launch_sigmoid<float>(x, pp, w1, b1, w2, b2, y, N, HW, C, Hd, Cout, T_rows, act,
                                     slope, gate_max, s);
+}
+
+// Dynamic shared memory of a block, and blocks that fit on an SM, of the
+// sigmoid gate's forward mma route at (C, Hd, Cout): sigmoid_gate_wide_mma
+// at (512, 128, 512); 0 where it does not take the widths (-1 on an error).
+size_t locate_sigmoid_gate_mma_smem_bytes(int C, int Hd, int Cout) {
+  return C == kWideC && Hd == kWideHd && Cout == kWideCout ? Wide::fwd_bytes : 0;
+}
+
+int locate_sigmoid_gate_mma_blocks_per_sm(int C, int Hd, int Cout) {
+  if (C != kWideC || Hd != kWideHd || Cout != kWideCout) return 0;
+  return blocks_per_sm(sigmoid_gate_wide_mma<kWideC, kWideHd, kWideCout>, Wide::fwd_bytes);
 }
 
 // The workspaces and outputs of locate_softmax_bwd, without m, se and c.

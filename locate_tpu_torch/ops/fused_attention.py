@@ -23,11 +23,16 @@ each one pass: `sigmoid_gate` and `sigmoid_gate_backward`. Each wrapper
 counts its kernel launches in its `launches` attribute.
 
 The softmax gate's forward pair, `softmax_gate_stats` and
-`softmax_gate_apply`, has two routes, which `gate_fwd_route` picks: "mma"
-on the tensor cores for bf16 at (C, Hd, Cout) = (64, 16, 64) with HW a
-multiple of 128 (`softmax_stats_mma` and `softmax_apply_mma`, one body on
-the backward's logit core, so that stats, apply and backward see one l
-there), and "simt" for everything else, C = 512 included.
+`softmax_gate_apply`, and its csum pass, `softmax_gate_csum`, have two
+routes, which `gate_fwd_route` picks: "mma" on the tensor cores for bf16
+at (C, Hd, Cout) = (64, 16, 64) with HW a multiple of 128
+(`softmax_stats_mma`, `softmax_apply_mma` and `softmax_csum_mma`, one body
+on the backward's logit core, so that stats, apply, csum and backward see
+one l there), and "simt" for everything else, C = 512 included.
+`sigmoid_gate` has two routes, which `sigmoid_gate_route` picks: "mma" for
+bf16 at (512, 128, 512) with HW a multiple of 16
+(`sigmoid_gate_wide_mma`, on the sigmoid backward's logit code), "simt"
+for everything else.
 
 The two backward wrappers, `softmax_gate_backward` and
 `sigmoid_gate_backward`, have two routes each, which `gate_bwd_route` picks
@@ -85,6 +90,8 @@ GATE_WIDE_STAGE = 64
 # the (C, Hd, Cout) of the forward pair's mma template (gate_fwd_mma), whose
 # 128-location tile must divide HW
 GATE_FWD_MMA_WIDTHS = (64, 16, 64)
+# the passes of gate_fwd_mma, as the C interface numbers them
+_FWD_PASS = {"stats": 0, "apply": 1, "csum": 2}
 
 
 def _act(kind: str, slope: float) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -273,11 +280,11 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_stats.restype = i
         lib.locate_softmax_apply.argtypes = [i, i] + [p] * 9 + [i] * 7 + [f, f, f, p]
         lib.locate_softmax_apply.restype = i
-        lib.locate_softmax_csum.argtypes = [i] + [p] * 11 + [i] * 7 + [f, f, f, p]
+        lib.locate_softmax_csum.argtypes = [i, i] + [p] * 11 + [i] * 7 + [f, f, f, p]
         lib.locate_softmax_csum.restype = i
         lib.locate_softmax_bwd.argtypes = [i, i] + [p] * 15 + [i] * 8 + [f, f, f, p]
         lib.locate_softmax_bwd.restype = i
-        lib.locate_sigmoid_gate.argtypes = [i] + [p] * 7 + [i] * 7 + [f, f, p]
+        lib.locate_sigmoid_gate.argtypes = [i, i] + [p] * 7 + [i] * 8 + [f, f, p]
         lib.locate_sigmoid_gate.restype = i
         lib.locate_sigmoid_bwd.argtypes = [i, i] + [p] * 12 + [i] * 8 + [f, f, p]
         lib.locate_sigmoid_bwd.restype = i
@@ -285,7 +292,7 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_smem_bytes.restype = ctypes.c_size_t
         lib.locate_softmax_bwd_smem_bytes.argtypes = [i] * 4
         lib.locate_softmax_bwd_smem_bytes.restype = ctypes.c_size_t
-        lib.locate_softmax_fwd_mma_smem_bytes.argtypes = [i] * 3
+        lib.locate_softmax_fwd_mma_smem_bytes.argtypes = [i] * 4
         lib.locate_softmax_fwd_mma_smem_bytes.restype = ctypes.c_size_t
         lib.locate_softmax_fwd_mma_blocks_per_sm.argtypes = [i] * 4
         lib.locate_softmax_fwd_mma_blocks_per_sm.restype = i
@@ -293,6 +300,10 @@ def _library() -> ctypes.CDLL:
         lib.locate_softmax_bwd_mma_smem_bytes.restype = ctypes.c_size_t
         lib.locate_softmax_bwd_mma_blocks_per_sm.argtypes = [i] * 4
         lib.locate_softmax_bwd_mma_blocks_per_sm.restype = i
+        lib.locate_sigmoid_gate_mma_smem_bytes.argtypes = [i] * 3
+        lib.locate_sigmoid_gate_mma_smem_bytes.restype = ctypes.c_size_t
+        lib.locate_sigmoid_gate_mma_blocks_per_sm.argtypes = [i] * 3
+        lib.locate_sigmoid_gate_mma_blocks_per_sm.restype = i
         lib.locate_cuda_error_string.argtypes = [i]
         lib.locate_cuda_error_string.restype = ctypes.c_char_p
         lib._locate_typed = True
@@ -347,17 +358,18 @@ def _tile_for(lib, c, hd, cout) -> int:
 
 
 def gate_fwd_route(dtype: torch.dtype, hw: int, c: int, hd: int, cout: int) -> str:
-    """The kernel of the softmax gate's forward pair (`softmax_gate_stats`,
-    `softmax_gate_apply`): "mma" for bf16 at (C, Hd, Cout) =
-    `GATE_FWD_MMA_WIDTHS` with HW a multiple of `GATE_MMA_TILE`, "simt"
-    otherwise (f32, a gate with Cout 1, C = 128, 256 and 512). Only that
-    width: there the forward's l is the backward's (`gate_mlp_mma`, the
-    stats, apply and mma backward all computing it alike). At C = 512 the
-    backward's mma route recomputes l in the simt stats pass's FMA order,
-    bit for bit the l that gave m and se, because a saturated gate moves
-    with any other summation order; a tensor-core stats pass there would
-    break that, so C = 512's forward moves only together with its csum and
-    its backward."""
+    """The kernel of the softmax gate's forward pair and its csum pass
+    (`softmax_gate_stats`, `softmax_gate_apply`, `softmax_gate_csum`): "mma"
+    for bf16 at (C, Hd, Cout) = `GATE_FWD_MMA_WIDTHS` with HW a multiple of
+    `GATE_MMA_TILE`, "simt" otherwise (f32, a gate with Cout 1, C = 128, 256
+    and 512). Only that width: there the forward's l is the backward's
+    (`gate_mlp_mma`, the stats, apply, csum and mma backward all computing
+    it alike), so m, se, c and the backward's g come from one l. At C = 512
+    the backward's mma route recomputes l in the simt stats pass's FMA
+    order, bit for bit the l that gave m, se and c, because a saturated gate
+    moves with any other summation order; a tensor-core stats or csum pass
+    there would break that, so C = 512's forward and csum move only
+    together with its backward."""
     if (dtype == torch.bfloat16 and (c, hd, cout) == GATE_FWD_MMA_WIDTHS
             and hw % GATE_MMA_TILE == 0):
         return MMA
@@ -386,30 +398,39 @@ def fwd_mma_rows(n: int, hw: int, slots: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_slots(device_index: int, apply: bool) -> int:
-    """Blocks of the forward pair's mma kernel (`softmax_apply_mma` or
-    `softmax_stats_mma`) that fit on the card at once."""
-    per_sm = _library().locate_softmax_fwd_mma_blocks_per_sm(int(apply),
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_slots(device_index: int, kind: str) -> int:
+    """Blocks of the forward body's mma kernel of pass `kind` ("stats",
+    "apply" or "csum": `softmax_stats_mma`, `softmax_apply_mma`,
+    `softmax_csum_mma`) that fit on the card at once."""
+    per_sm = _library().locate_softmax_fwd_mma_blocks_per_sm(_FWD_PASS[kind],
                                                              *GATE_FWD_MMA_WIDTHS)
     if per_sm < 1:
-        kernel = "apply" if apply else "stats"
-        raise RuntimeError(f"softmax {kernel} (mma): no block fits on an SM ({per_sm})")
-    return torch.cuda.get_device_properties(device_index).multi_processor_count * per_sm
+        raise RuntimeError(f"softmax {kind} (mma): no block fits on an SM ({per_sm})")
+    return _sm_count(device_index) * per_sm
 
 
-def _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route: str, apply: bool):
+def _fwd_rows(lib, x2d, w1x, w2, route: str, kind: str) -> int:
+    """Locations a block of pass `kind` takes on `route`: the mma route's
+    run of tiles (`fwd_mma_rows`), or the simt kernels' tile."""
+    n, hw, c = x2d.shape
+    if route == MMA:
+        return fwd_mma_rows(n, hw, _fwd_slots(x2d.device.index, kind))
+    return _tile_for(lib, c, w1x.shape[1], w2.shape[1])
+
+
+def _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route: str, kind: str):
     """(operands, library, locations a block) of a forward call on the
     card on `route`."""
     if x2d.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2d.device}")
     ops = _aligned(_kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act), route)
-    n, hw, c = x2d.shape
     lib = _library()
-    if route == MMA:
-        t = fwd_mma_rows(n, hw, _fwd_slots(x2d.device.index, apply))
-    else:
-        t = _tile_for(lib, c, w1x.shape[1], w2.shape[1])
-    return ops, lib, t
+    return ops, lib, _fwd_rows(lib, x2d, w1x, w2, route, kind)
 
 
 def softmax_gate_stats(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, route=None):
@@ -422,7 +443,7 @@ def softmax_gate_stats(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, rout
     if x2d.device.type == "cpu":
         return softmax_gate_stats_reference(x2d, pos_proj, w1x, b1, w2, b2,
                                             act=act, leaky_slope=leaky_slope)
-    ops, lib, t = _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route, apply=False)
+    ops, lib, t = _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route, "stats")
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
     blocks = -(-hw // t)
@@ -458,7 +479,7 @@ def softmax_gate_apply(x2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
         return softmax_gate_apply_reference(
             x2d, pos_proj, w1x, b1, w2, b2, m, se, act=act,
             leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
-    ops, lib, t = _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route, apply=True)
+    ops, lib, t = _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route, "apply")
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
     m = _stats_operand("m", m, n, cout, x2d.device)
@@ -507,38 +528,44 @@ def _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act):
 
 
 def softmax_gate_csum(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
-                      leaky_slope, hw_scale, gate_max):
+                      leaky_slope, hw_scale, gate_max, route=None):
     """c (N, 1, Cout) f32, backward pass A. CUDA tensors: the csum kernel
-    and a fixed-order reduction of its per-tile partials (replaces
-    `_softmax_csum_kernel`); CPU tensors: the plain version."""
+    on `route` (`gate_fwd_route`'s choice unless given, the forward pair's
+    route, so that c comes from the l that gave m and se:
+    `softmax_csum_mma` on the tensor cores or the simt
+    `softmax_csum_partial`) and a fixed-order reduction of its per-block
+    partials (replaces `_softmax_csum_kernel`); CPU tensors: the plain
+    version (a route the call cannot take raises on both)."""
+    route = _fwd_route_of(route, x2d, w1x, w2)
     if x2d.device.type == "cpu":
         return softmax_gate_csum_reference(
             x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act=act,
             leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
     if x2d.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2d.device}")
-    ops = _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act)
+    ops = _aligned(_bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act), route)
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
     lib = _library()
-    t = _tile_for(lib, c, hd, cout)
-    tiles = -(-hw // t)
+    t = _fwd_rows(lib, x2d, w1x, w2, route, "csum")
+    blocks = -(-hw // t)
     with torch.cuda.device(x2d.device):
         f32 = dict(dtype=torch.float32, device=x2d.device)
-        part_c = torch.empty((n, tiles, cout), **f32)
+        part_c = torch.empty((n, blocks, cout), **f32)
         csum = torch.empty((n, 1, cout), **f32)
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = lib.locate_softmax_csum(
-            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
+            _ROUTE_CODE[route], int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
             part_c.data_ptr(), csum.data_ptr(), n, hw, c, hd, cout, t,
             ACT_CODES[act], float(leaky_slope), float(hw_scale), float(gate_max),
             stream)
-    _check(lib, err, "softmax csum")
-    softmax_gate_csum.launches += 1
+    _check(lib, err, f"softmax csum ({route})")
+    _count(softmax_gate_csum, route)
     return csum
 
 
 softmax_gate_csum.launches = 0
+softmax_gate_csum.launches_mma = softmax_gate_csum.launches_simt = 0
 
 
 def bwd_grid(n: int, hw: int, c: int) -> Tuple[int, int]:
@@ -719,33 +746,69 @@ softmax_gate_backward.launches = 0
 softmax_gate_backward.launches_mma = softmax_gate_backward.launches_simt = 0
 
 
-def sigmoid_gate(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, gate_max):
+def sigmoid_gate_route(dtype: torch.dtype, hw: int, c: int, hd: int, cout: int) -> str:
+    """The kernel of the sigmoid gate's forward (`sigmoid_gate`): "mma" for
+    bf16 at (C, Hd, Cout) = `GATE_WIDE` with HW a multiple of the wide
+    template's 16-row m-tile (`sigmoid_gate_wide_mma`, whose u, h and l are
+    the sigmoid backward's code on the same route), "simt" otherwise (f32,
+    a gate with Cout 1, C = 64, 128 and 256)."""
+    if (dtype == torch.bfloat16 and (c, hd, cout) == GATE_WIDE
+            and hw % GATE_MMA_WIDTHS[GATE_WIDE] == 0):
+        return MMA
+    return SIMT
+
+
+def sigmoid_wide_splits(n: int, hw: int, sms: int) -> int:
+    """Blocks a 32-row location block of the sigmoid gate's wide forward is
+    split over (Cout's eight 64-column chunks shared out): the most of 8,
+    4 and 2 that keeps the grid, ceil(N HW / 32) row blocks times the
+    splits, within one block an SM of the card's `sms`, else 1. Each split
+    computes u over all of W1x again, so blocks past one an SM share an SM
+    and cost more than they hide."""
+    rows = -(-n * hw // GATE_WIDE_ROWS)
+    return next((s for s in (8, 4, 2) if rows * s <= sms), 1)
+
+
+def sigmoid_gate(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, gate_max, route=None):
     """y (N, HW, C) in x's dtype, y = x * min(2 sigmoid(l), gate_max). CUDA
-    tensors: the one-pass `sigmoid_gate` kernel (replaces
-    `_sigmoid_kernel`); CPU tensors: the plain version."""
+    tensors: the one-pass kernel on `route` (`sigmoid_gate_route`'s choice
+    unless given: `sigmoid_gate_wide_mma` on the tensor cores, its grid
+    split over Cout as `sigmoid_wide_splits` picks, or the simt
+    `sigmoid_gate`; replaces `_sigmoid_kernel`); CPU tensors: the plain
+    version (a route the call cannot take raises on both)."""
+    if x2d.dim() != 3:
+        raise ValueError(f"x2d must be (N, HW, C), got {tuple(x2d.shape)}")
+    _, hw, c = x2d.shape
+    route = _route_of(route, sigmoid_gate_route, {GATE_WIDE: GATE_MMA_WIDTHS[GATE_WIDE]},
+                      x2d.dtype, hw, c, w1x.shape[1], w2.shape[1])
     if x2d.device.type == "cpu":
         return sigmoid_gate_reference(x2d, pos_proj, w1x, b1, w2, b2, act=act,
                                       leaky_slope=leaky_slope, gate_max=gate_max)
     if x2d.device.type != "cuda":
         raise ValueError(f"no kernel for device {x2d.device}")
-    ops = _kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act)
-    n, hw, c = x2d.shape
+    ops = _aligned(_kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act), route)
+    n = x2d.shape[0]
     hd, cout = w1x.shape[1], w2.shape[1]
     lib = _library()
-    t = _tile_for(lib, c, hd, cout)
+    if route == MMA:
+        t = GATE_WIDE_ROWS
+        splits = sigmoid_wide_splits(n, hw, _sm_count(x2d.device.index))
+    else:
+        t, splits = _tile_for(lib, c, hd, cout), 1
     with torch.cuda.device(x2d.device):
         y = torch.empty_like(ops[0])
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         err = lib.locate_sigmoid_gate(
-            int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops), y.data_ptr(),
-            n, hw, c, hd, cout, t, ACT_CODES[act], float(leaky_slope), float(gate_max),
-            stream)
-    _check(lib, err, "sigmoid gate")
-    sigmoid_gate.launches += 1
+            _ROUTE_CODE[route], int(x2d.dtype == torch.bfloat16), *(o.data_ptr() for o in ops),
+            y.data_ptr(), n, hw, c, hd, cout, t, splits, ACT_CODES[act], float(leaky_slope),
+            float(gate_max), stream)
+    _check(lib, err, f"sigmoid gate ({route})")
+    _count(sigmoid_gate, route)
     return y
 
 
 sigmoid_gate.launches = 0
+sigmoid_gate.launches_mma = sigmoid_gate.launches_simt = 0
 
 
 def sigmoid_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope,

@@ -50,7 +50,8 @@ def main() -> int:
     report, sass = cs.parse_ptxas(build.ptxas_report("fused_attention")), cs.sass_tensor_ops(lib)
     print(json.dumps(dict(build_seconds=time.perf_counter() - t0, kernels={
         k: dict(report.get(k, {}), tensor_core_instructions=sass.get(k)) for k in KERNELS},
-        smem_bytes=fa._library().locate_softmax_fwd_mma_smem_bytes(*fa.GATE_FWD_MMA_WIDTHS),
+        smem_bytes=[fa._library().locate_softmax_fwd_mma_smem_bytes(
+            apply, *fa.GATE_FWD_MMA_WIDTHS) for apply in (0, 1)],
         blocks_per_sm=[fa._library().locate_softmax_fwd_mma_blocks_per_sm(
             apply, *fa.GATE_FWD_MMA_WIDTHS) for apply in (0, 1)],
         card=cs.nvidia_smi())), flush=True)

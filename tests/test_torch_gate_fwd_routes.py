@@ -300,7 +300,8 @@ def test_build_phase_names_the_forward_mma_kernels(smoke):
     simt kernel whose name softmax_apply_mma contains, and from the stage's
     stats pass whose name contains softmax_stats_mma; phase 2 checks their
     HMMA, spills, shared memory and blocks an SM."""
-    assert smoke.GATE_FWD_MMA_KERNELS == ("softmax_stats_mma", "softmax_apply_mma")
+    assert smoke.GATE_FWD_MMA_KERNELS == ("softmax_stats_mma", "softmax_apply_mma",
+                                          "softmax_csum_mma")
     names = smoke.ALL_CUDA_KERNELS
     for k in names:
         assert all(names.index(k) < names.index(o) for o in names if o != k and o in k), k
@@ -387,8 +388,10 @@ def test_kernels_line_carries_the_forward_routes(smoke, kernel):
     for key in ("name", "source", "replaces", "max_abs_err", "plain_ms", "bound_ms",
                 "bound_by", "library_ms"):
         assert key in entry
-    # the csum pass has one route and no route keys
+    # the csum pass takes the forward pair's route: two routes and their keys
     csum = smoke.gate_entry("softmax_csum", [], [dict(
-        r, softmax_csum=dict(r[kernel], route=fa.SIMT), c_max_abs_err=0.01) for r in rows],
-        smoke.expected({"softmax_csum": 24}, 3), launches, launches)
-    assert "routes" not in csum and "ms_simt" not in csum
+        r, softmax_csum=r[kernel], c_max_abs_err=0.01) for r in rows],
+        smoke.expected({"softmax_csum": 24}, 3), launches, launches,
+        smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP, 3, forward=True))
+    assert csum["routes"] == ["mma", "simt"] and csum["launches_mma"] == 27
+    assert csum["ms_simt"] == 9 * 4.0 + 15 * 2.0

@@ -429,11 +429,219 @@ def test_gate_fwd_mma_refuses_an_unfit_call(cuda):
         err = lib.locate_softmax_apply(route, bf16, *([None] * 9), 2, hw, c, hd, cout, t, 0,
                                        0.2, float(hw), 16.0, None)
         assert err == 1, ("apply", route, bf16, hw, c, hd, cout, t, err)
-    assert lib.locate_softmax_fwd_mma_smem_bytes(128, 32, 128) == 0
-    assert 0 < lib.locate_softmax_fwd_mma_smem_bytes(64, 16, 64) <= fa._MAX_SMEM
     for apply in (0, 1):
+        assert lib.locate_softmax_fwd_mma_smem_bytes(apply, 128, 32, 128) == 0
+        assert 0 < lib.locate_softmax_fwd_mma_smem_bytes(apply, 64, 16, 64) <= fa._MAX_SMEM
         assert lib.locate_softmax_fwd_mma_blocks_per_sm(apply, 64, 16, 64) >= 1
         assert lib.locate_softmax_fwd_mma_blocks_per_sm(apply, 512, 128, 512) == 0
+
+
+# the csum pass on the forward body's tensor-core route, bf16 at (64, 16, 64)
+
+def csum_route_counts():
+    f = fa.softmax_gate_csum
+    return f.launches, f.launches_mma, f.launches_simt
+
+
+def run_csum(ops, dy, gate_max, hw, route=None, plain=False):
+    """c from the plain statistics: the kernel on `route` (the wrapper's
+    choice where None) or the plain version."""
+    kw = dict(act="leaky_relu", leaky_slope=0.2)
+    opts = dict(hw_scale=float(hw), gate_max=gate_max, **kw)
+    with torch.no_grad():
+        m, se = fa.softmax_gate_stats_reference(ops[0].float(), *ops[1:], **kw)
+        if plain:
+            c = fa.softmax_gate_csum_reference(ops[0], dy, *ops[1:], m, se, **opts)
+        else:
+            c = fa.softmax_gate_csum(ops[0], dy, *ops[1:], m, se, route=route, **opts)
+        torch.cuda.synchronize()
+    return c, m, se
+
+
+def check_csum(ops, dy, gate_max, hw, route=None):
+    """c on `route` under the bf16 rule, each error against the norm of c's
+    absolute terms (c cancels over the locations)."""
+    kern, m, se = run_csum(ops, dy, gate_max, hw, route)
+    plain, _, _ = run_csum(ops, dy, gate_max, hw, plain=True)
+    truth, _, _ = run_csum([ops[0].float()] + ops[1:], dy.float(), gate_max, hw, plain=True)
+    with torch.no_grad():
+        l = fa.gate_logits_reference(ops[0].float(), *ops[1:], act="leaky_relu",
+                                     leaky_slope=0.2)
+        scale = (torch.exp(l - m) / se * hw * (ops[0].float() * dy.float()).abs()).sum(1)
+    err = [float((c.double() - truth.double()).norm() / scale.double().norm())
+           for c in (kern, plain)]
+    assert err[0] <= max(BF16_FACTOR * err[1], 1e-6), (route, err)
+    return kern
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate_max", [0.0, 16.0, 1.5])
+@pytest.mark.parametrize("n,hw", [(2, 1024), (64, 4096), (3, 16384)])
+def test_gate_csum_mma_route_against_plain(cuda, n, hw, gate_max):
+    """softmax_csum_mma (the wrapper's choice at bf16, (64, 16, 64)) and the
+    simt kernel on the same inputs, each under the bf16 rule; at batch 64 a
+    block walks several tiles of a row; at gate_max 1.5 the clamp binds."""
+    ops = make_inputs(n, hw, 64, 16, 64, torch.bfloat16, cuda, seed=51)
+    dy = make_dy(n, hw, 64, torch.bfloat16, cuda, seed=52)
+    assert fa.gate_fwd_route(torch.bfloat16, hw, 64, 16, 64) == fa.MMA
+    before = csum_route_counts()
+    check_csum(ops, dy, gate_max, hw)
+    after = csum_route_counts()
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0)
+    check_csum(ops, dy, gate_max, hw, route=fa.SIMT)
+    assert tuple(a - b for a, b in zip(csum_route_counts(), after)) == (1, 0, 1)
+
+
+@pytest.mark.gpu
+def test_gate_csum_mma_is_bitwise_repeatable_and_faster(cuda):
+    """Two runs bitwise equal; the mma route faster than the simt route in
+    device time (CUDA graphs of the launches, chip_smoke's graph_ms: a
+    wrapper's host time would hide the kernels') at ffhq_512's 256^2 gate."""
+    ops = make_inputs(16, 65536, 64, 16, 64, torch.bfloat16, cuda, seed=53)
+    dy = make_dy(16, 65536, 64, torch.bfloat16, cuda, seed=54)
+    first, m, se = run_csum(ops, dy, 16.0, 65536, fa.MMA)
+    assert torch.equal(first, run_csum(ops, dy, 16.0, 65536, fa.MMA)[0])
+    kw = dict(act="leaky_relu", leaky_slope=0.2, hw_scale=65536.0, gate_max=16.0)
+    with torch.no_grad():
+        ms = {r: chip_smoke().graph_ms(lambda: fa.softmax_gate_csum(
+            ops[0], dy, *ops[1:], m, se, route=r, **kw)) for r in (fa.MMA, fa.SIMT)}
+    assert ms[fa.MMA] < ms[fa.SIMT], ms
+
+
+@pytest.mark.gpu
+def test_gate_csum_mma_counters_after_one_gate(cuda):
+    """One SoftmaxGate forward and backward at the template's widths: stats,
+    apply, csum and the backward each once on the mma route."""
+    ops = make_inputs(2, 1024, 64, 16, 64, torch.bfloat16, cuda, seed=55)
+    w1 = ops[2].clone().requires_grad_(True)
+    before = (fwd_route_counts(), csum_route_counts(), gate_route_counts())
+    y = fa.fused_locate_attention(ops[0].reshape(2, 32, 32, 64), ops[1], w1, *ops[3:],
+                                  gate_max=16.0)
+    y.float().sum().backward()
+    after = (fwd_route_counts(), csum_route_counts(), gate_route_counts())
+    assert [tuple(a - b for a, b in zip(x, y)) for x, y in zip(after[0], before[0])] == \
+        [(1, 1, 0)] * 2
+    for x, y in zip(after[1:], before[1:]):
+        assert tuple(a - b for a, b in zip(x, y)) == (1, 1, 0)
+
+
+@pytest.mark.gpu
+def test_gate_csum_mma_refuses_an_unfit_call(cuda):
+    """route="mma" where the template cannot take the call raises in the
+    wrapper; the C interface refuses it (cudaErrorInvalidValue) before it
+    reads an operand, and an unknown route; its occupancy and shared memory
+    answer for the csum pass (x and dy staged: more than the pair's)."""
+    ops = make_inputs(2, 1024, 128, 32, 128, torch.bfloat16, cuda)
+    dy = make_dy(2, 1024, 128, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="mma route"):
+        run_csum(ops, dy, 16.0, 1024, fa.MMA)
+    lib = fa._library()
+    for route, bf16, hw, c, hd, cout, t in [
+            (1, 1, 1024, 128, 32, 128, 128), (1, 0, 1024, 64, 16, 64, 128),
+            (1, 1, 1000, 64, 16, 64, 128), (1, 1, 1024, 64, 16, 64, 64),
+            (1, 1, 1024, 64, 16, 64, 0), (2, 1, 1024, 64, 16, 64, 128)]:
+        err = lib.locate_softmax_csum(route, bf16, *([None] * 11), 2, hw, c, hd, cout, t, 0,
+                                      0.2, float(hw), 16.0, None)
+        assert err == 1, (route, bf16, hw, c, hd, cout, t, err)
+    pair = lib.locate_softmax_fwd_mma_smem_bytes(0, 64, 16, 64)
+    assert pair < lib.locate_softmax_fwd_mma_smem_bytes(2, 64, 16, 64) <= fa._MAX_SMEM
+    assert lib.locate_softmax_fwd_mma_smem_bytes(3, 64, 16, 64) == 0
+    assert lib.locate_softmax_fwd_mma_blocks_per_sm(2, 64, 16, 64) >= 1
+    assert lib.locate_softmax_fwd_mma_blocks_per_sm(2, 128, 32, 128) == 0
+
+
+# the sigmoid gate's forward on the tensor cores at (512, 128, 512)
+
+def sigmoid_gate_route_counts():
+    f = fa.sigmoid_gate
+    return f.launches, f.launches_mma, f.launches_simt
+
+
+def check_sigmoid_gate(ops, gate_max, route=None):
+    """y on `route` in bf16 under the rule of check_bf16."""
+    kw = dict(act="leaky_relu", leaky_slope=0.2, gate_max=gate_max)
+    with torch.no_grad():
+        kern = fa.sigmoid_gate(*ops, route=route, **kw)
+        plain = fa.sigmoid_gate_reference(*ops, **kw)
+        truth = fa.sigmoid_gate_reference(ops[0].float(), *ops[1:], **kw)
+        torch.cuda.synchronize()
+    ek, ep = rel_err(kern, truth), rel_err(plain, truth)
+    assert ek <= max(BF16_FACTOR * ep, 1e-6), (route, ek, ep)
+    return kern
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gate_max", [0.0, 1.5])
+@pytest.mark.parametrize("n,hw", [(16, 16), (16, 64), (3, 16)])
+def test_sigmoid_gate_mma_route_against_plain(cuda, monkeypatch, n, hw, gate_max):
+    """sigmoid_gate_wide_mma (the wrapper's choice at bf16, C = 512, Hd =
+    128) at every split of Cout over blocks, and the simt kernel on the same
+    inputs, each under the bf16 rule, each twice bitwise equal and every
+    split bitwise equal to the others (one l, whatever the grid); 3 x 16
+    rows leave the last location block one m-tile; at gate_max 1.5 the
+    clamp binds."""
+    ops = sigmoid_inputs(n, hw, 512, 128, 512, torch.bfloat16, cuda, seed=61)
+    assert fa.sigmoid_gate_route(torch.bfloat16, hw, 512, 128, 512) == fa.MMA
+    before = sigmoid_gate_route_counts()
+    first = check_sigmoid_gate(ops, gate_max)
+    assert tuple(a - b for a, b in zip(sigmoid_gate_route_counts(), before)) == (1, 1, 0)
+    for k in (1, 2, 4, 8):
+        monkeypatch.setattr(fa, "sigmoid_wide_splits", lambda n, hw, sms, k=k: k)
+        assert torch.equal(check_sigmoid_gate(ops, gate_max), first), k
+    monkeypatch.undo()
+    simt = check_sigmoid_gate(ops, gate_max, route=fa.SIMT)
+    assert torch.equal(simt, check_sigmoid_gate(ops, gate_max, route=fa.SIMT))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [16, 64])
+def test_sigmoid_gate_mma_is_faster(cuda, hw):
+    """The mma route faster than the simt route in device time (CUDA
+    graphs, as above) at ffhq_512's two C = 512 shapes."""
+    ops = sigmoid_inputs(16, hw, 512, 128, 512, torch.bfloat16, cuda, seed=62)
+    kw = dict(act="leaky_relu", leaky_slope=0.2, gate_max=1.5)
+    with torch.no_grad():
+        ms = {r: chip_smoke().graph_ms(lambda: fa.sigmoid_gate(*ops, route=r, **kw))
+              for r in (fa.MMA, fa.SIMT)}
+    assert ms[fa.MMA] < ms[fa.SIMT], ms
+
+
+@pytest.mark.gpu
+def test_sigmoid_gate_mma_counters_after_one_gate(cuda):
+    """One SigmoidGate forward and backward at the wide widths: the forward
+    and the backward each once on the mma route."""
+    ops = sigmoid_inputs(3, 16, 512, 128, 512, torch.bfloat16, cuda, seed=63)
+    w1 = ops[2].clone().requires_grad_(True)
+    before = (sigmoid_gate_route_counts(), sigmoid_route_counts())
+    y = fa.fused_locate_attention(ops[0].reshape(3, 4, 4, 512), ops[1], w1, *ops[3:],
+                                  mode="sigmoid", gate_max=1.5)
+    y.float().sum().backward()
+    for x, y in zip((sigmoid_gate_route_counts(), sigmoid_route_counts()), before):
+        assert tuple(a - b for a, b in zip(x, y)) == (1, 1, 0)
+
+
+@pytest.mark.gpu
+def test_sigmoid_gate_mma_refuses_an_unfit_call(cuda):
+    """The C interface takes the wide forward only for bf16 at (512, 128,
+    512) with its 32-row block, HW a multiple of 16 and splits that divide
+    Cout's 8 chunks; its occupancy and shared memory answer at that width
+    only."""
+    ops = sigmoid_inputs(2, 24, 512, 128, 512, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="mma route"):
+        fa.sigmoid_gate(*ops, act="leaky_relu", leaky_slope=0.2, gate_max=1.5, route=fa.MMA)
+    lib = fa._library()
+    for route, bf16, hw, c, hd, cout, t, r in [
+            (1, 0, 64, 512, 128, 512, 32, 8), (1, 1, 24, 512, 128, 512, 32, 8),
+            (1, 1, 64, 512, 128, 512, 16, 8), (1, 1, 64, 512, 64, 512, 32, 8),
+            (1, 1, 64, 512, 128, 512, 32, 0), (1, 1, 64, 512, 128, 512, 32, 3),
+            (1, 1, 64, 512, 128, 512, 32, 16), (2, 1, 64, 512, 128, 512, 32, 8)]:
+        err = lib.locate_sigmoid_gate(route, bf16, *([None] * 7), 2, hw, c, hd, cout, t, r, 0,
+                                      0.2, 1.5, None)
+        assert err == 1, (route, bf16, hw, c, hd, cout, t, r, err)
+    assert 0 < lib.locate_sigmoid_gate_mma_smem_bytes(512, 128, 512) <= fa._MAX_SMEM
+    assert lib.locate_sigmoid_gate_mma_smem_bytes(256, 64, 256) == 0
+    assert lib.locate_sigmoid_gate_mma_blocks_per_sm(512, 128, 512) >= 1
+    assert lib.locate_sigmoid_gate_mma_blocks_per_sm(64, 16, 64) == 0
 
 
 # the wide template, (C, Hd, Cout) = (512, 128, 512): each gate at its
