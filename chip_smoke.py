@@ -4,7 +4,12 @@
     python3 chip_smoke.py
 
 Drives the port's paths through the entry points a user calls and holds
-every CUDA kernel against its plain PyTorch version: lsun_bedroom_128 at
+every CUDA kernel against its plain PyTorch version. Which kernels a path
+launches, and how often, follows the models' dispatch under the card's
+gate profile (locate_tpu_torch/ops/gate_profile.json, `path_plan`): G's
+stages from 64^2 up fuse their conv block behind the upsample (and the
+gate after it where there is one), no other stage fuses, and the sigmoid
+gate runs its kernels from 32^2 to 512^2. lsun_bedroom_128 at
 full width (use_pallas=true, bf16 compute, f32 params), serving and the
 alternating train step, the main path of the softmax gate's kernels; then
 ffhq_512 at full width and depth, serving and its train step with lazy R1,
@@ -62,7 +67,9 @@ line each:
   5. lsun_bedroom_128 serving: seeded random weights with non-zero logit
      convs serve requests of batch 1, 16 and 64 through `generate_samples`;
      the launch counters read 6 per forward for each forward gate kernel
-     (3 on the mma route: G's C = 64 stages) and 0 for every other; each
+     (3 on the mma route: G's C = 64 stages), 2 of stage_conv (G's 64^2
+     and 128^2 first conv blocks, fused behind the upsample) and 0 for
+     every other; each
      attention layer of the batch-64 request is held against the plain
      version on the activations it received; the kernel
      path, the plain path and an f32 plain generator run the same latents
@@ -72,7 +79,8 @@ line each:
      steps, the grad-norm and non-finite guards, EMA 0.999), batch 64, seeded
      weights, 3 steps from step 0 through `make_train_step`: losses, norms and
      r1 finite, G, D and EMA moved, the guard counters as the norms imply,
-     launch counters 30 / 30 / 24 / 24 per step and no fused-stage launch,
+     launch counters 30 / 30 / 24 / 24 per step, stage_conv 4 and
+     stage_conv_bwd 2 (G's two fused conv blocks) on the mma route,
      softmax_stats' and softmax_apply's 30 on their routes: 12 mma (C =
      64), 18 simt; softmax_bwd's 24: 16 mma (C = 64 and 512), 8 simt;
      softmax_csum's 24: 9 mma (C = 64), 15 simt.
@@ -88,14 +96,19 @@ line each:
      within 1e-3 of the f32 plain path's (or ten times the plain path's own
      change under 1e-7 weight noise, if larger), each call within 1e-4;
   7. lsun_bedroom_128 training throughput: `bench 128 20` and `bench 128 20
-     xla` (images/sec, flops per step, MFU), peak memory of a batch-128 step
-     with R1 firing (r1_remat on and off), and over 3 steps of each path the
-     device's idle share and its kernels by time;
+     xla` (16 steps a call through a CUDA graph of the step, and one step a
+     call beside it: images/sec, flops per step, MFU; the kernel path must
+     be the faster at both), peak memory of a batch-128 step with R1 firing
+     (r1_remat on and off), and over 3 eager steps and over one 16-step
+     graph call of each path the device's idle share and its kernels by
+     time;
   8. (in 3 and 4) each gate kernel's time at each shape (CUDA graphs of
      back-to-back launches timed with CUDA events) beside its bound, share
      of the bound and the plain version's time;
   9. the four fused-stage kernels against their plain versions at
-     ffhq_512's 512^2 stage (C = Co = 64, Hd = 16), batch 16, bf16 and f32
+     ffhq_512's 512^2 stage (C = Co = 64, Hd = 16), batch 16, and in the
+     `up` forms at each smaller stage the profile fuses (ffhq_512's 64^2 to
+     256^2 at batch 16, lsun_bedroom_128's 64^2 and 128^2 at 64), bf16 and f32
      under the rules of 3: the softmax stats pass in G's `up` form (coarse
      256^2 in) and D's plain form, the pooled apply pass, the conv pass
      plain, `up`, `down` and with a 1x1 skip (C 32), the conv backward plain
@@ -112,20 +125,21 @@ line each:
      se within the f32 steps of its longer sum (one l for the fused and the
      unfused path);
  10. ffhq_512 serving: one request of 4 through `generate_samples` (the
-     launches of one forward: the stage's stats pass once, the gate's kernels
-     at the seven stages below, stats 4 and apply 5 of them on the mma
-     route), the kernel path, the plain path and an f32
+     launches of one forward: the stats pass of each of G's four fused
+     stages, the gate's stats at the four stages below and its apply at all
+     eight, 1 and 5 of them on the mma route), the kernel path, the plain
+     path and an f32
      plain generator on the same latents (kernel error <= 2x plain error),
      the idle share of a batch-16 request, and `bench-sample ffhq_512
      --batch=16` on both paths with peak memory;
  11. ffhq_512 training (the fused-stage kernels' main path): the preset as
      shipped (R1 gamma 0.1 every 16 steps, remat, both guards) at batch 16,
      3 steps from step 0: the checks of 6, launches per step of all eight
-     kernels as the step implies, every launch of stage_conv,
-     stage_softmax_stats, stage_softmax_apply_pool (6 a step) and
-     stage_conv_bwd on the mma route, softmax_bwd's 32 on their routes
-     (24 mma, 8 simt), softmax_csum's 32 (17 mma: C = 64), softmax_stats'
-     67 (34 mma) and softmax_apply's 66 (33 mma), sec/step,
+     kernels as the plan implies, every launch of stage_conv,
+     stage_softmax_stats (12 a step) and stage_conv_bwd on the mma route
+     (D's 512^2 stage runs unfused: no pooled apply), softmax_bwd's 32 on
+     their routes (24 mma, 8 simt), softmax_csum's 32 (17 mma: C = 64),
+     softmax_stats' 64 (31 mma) and softmax_apply's 72 (39 mma), sec/step,
      images/sec, peak memory, idle
      share and top kernels; the same steps again with the grad-norm guard
      raised to 1e9, where G's and D's updates all apply and G, D and the
@@ -133,50 +147,55 @@ line each:
      1e6, so this is the card's check of G's Adam update); then the plain
      path's 3 steps alike;
  12. one ffhq_512 step's gradients with R1 on the kernel path, each of its
-     four fused-stage backward calls (the recompute of w by stage_conv
-     and the backward, both on the mma route) held against the plain
-     backward chain on its own saved tensors (the bf16 rule); the step's
-     csum calls on their routes (17 of 32 on the mma route, those at C =
-     64, the four in the fused calls among them);
+     four fused-stage backward calls (G's 64^2 to 512^2 stages: the
+     recompute of w by stage_conv and the backward, both on the mma route)
+     held against the plain backward chain on its own saved tensors (the
+     bf16 rule); the step's csum calls on their routes (17 of 32 on the
+     mma route, those at C = 64, the four in the fused calls among them);
  13. one step's whole gradients at ffhq_512's widths cut to 64^2 with every
      stage fused, f32 kernel path against f32 plain path (the tolerance of
      6), each of the 20 fused-stage backward calls within 1e-4, on the simt
      route;
- 14. one 512^2 G stage and one D stage, forward plus backward, fused,
-     unfused and on the plain path;
+ 14. one 512^2 G stage and one D stage, forward plus backward, fused
+     (forced), unfused and on the plain path;
  15. the sigmoid gate's two kernels (sigmoid_gate, sigmoid_bwd) against
-     their plain versions at ffhq_512's five gate shapes up to 16^2 (G's
-     three, D's two others), batch 16, bf16, one also in f32, and the
-     backward at the 512^2 stage's (262144, 64, 16), under the rules of 3
-     and 4 at gate_max 1.5 (below the gate's ceiling of 2, so the clamp
+     their plain versions at the six shapes where ffhq_512-sigmoid runs
+     them outside a fused stage (32^2 at C = 128 and C = 64, 64^2 to 512^2
+     at C = 64), and at the 4^2 gate's (16, 512, 128), which the profile
+     leaves to the plain composition, batch 16, bf16, one also in f32,
+     under the rules of 3 and 4 at gate_max 1.5 (below the gate's ceiling of 2, so the clamp
      binds at about a third of the locations); two runs bitwise equal; each
      timed beside its bound and the plain version's time; the backward at
-     (262144, 64, 16), (16, 512, 128) and (64, 512, 128) in bf16 on the mma
-     route (sigmoid_bwd_mma, sigmoid_bwd_wide_mma) and, on the same inputs,
-     the simt route, both under the rule, each twice bitwise equal, timed
-     (fails if the mma route is not faster than the simt route and the
-     plain version); the shapes at C = 128 and 256 and f32 on simt;
+     C = 64 (HW % 128 == 0) and (16, 512, 128) in bf16 on the mma route
+     (sigmoid_bwd_mma, sigmoid_bwd_wide_mma; the forward at C = 512 on
+     sigmoid_gate_wide_mma) and, on the same inputs, the simt route, both
+     under the rule, each twice bitwise equal, timed (fails if the mma
+     route is not faster than the simt route and the plain version); the
+     shape at C = 128 and f32 on simt;
  16. the stage's sigmoid pass (stage_sigmoid) at 512^2 in G's `up` and
-     D's `down` forms, plain and with a 1x1 skip, under the rules of 9 at
-     gate_max 1.5, on both routes, timed alike;
+     D's `down` forms, plain and with a 1x1 skip, and in the `up` form at
+     64^2 to 256^2, under the rules of 9 at gate_max 1.5, on both routes,
+     timed alike;
  17. ffhq_512-sigmoid serving as 10: one forward launches the gate's
-     kernel 3 times (once on the mma route, at C = 512) and the stage's
-     sigmoid pass once, no softmax kernel;
- 18. ffhq_512-sigmoid training as 11: 27 / 16 / 9 launches a step of
+     kernel once (G's 32^2 gate) and the stage's sigmoid pass 4 times, no
+     softmax kernel;
+ 18. ffhq_512-sigmoid training as 11: 33 / 20 / 12 launches a step of
      sigmoid_gate / sigmoid_bwd / stage_sigmoid, 4 of stage_conv and of
      stage_conv_bwd, none of the softmax kernels; the three stage kernels
-     on the mma route; sigmoid_bwd's 16 on their routes (11 mma: the 512^2
-     stages' 4 and the 7 at C = 512; 5 simt), sigmoid_gate's 27 (15 mma:
-     the 9 + 6 at C = 512; 12 simt), and on phase 19's step each
-     of the 12 gate backward calls outside the fused stage (SigmoidGate: 7
-     at C = 512 on the mma route, 5 simt) held against the plain backward
-     on its own saved tensors (the bf16 rule);
+     on the mma route; sigmoid_bwd's 20 on their routes (17 mma, 3 simt),
+     sigmoid_gate's 33 (all simt: C = 64 and 128), and on phase 19's step
+     each of the 16 gate backward calls outside the fused stages
+     (SigmoidGate) held against the plain backward on its own saved
+     tensors (the bf16 rule);
  19. as 12, the four sigmoid stage backward calls of one step, their gate
-     backward on the mma route (11 of the step's 16 sigmoid_bwd launches);
+     backward on the mma route;
  20. as 13, at 64^2 with every sigmoid stage fused;
- 21. one sigmoid attention layer at ffhq_512's shapes from 32^2 to 256^2
-     (C 64), forward and forward plus backward through the kernels and the
-     plain composition: the input to a retune of the 256-location threshold;
+ 21. the gate profile's ladder again (scripts/torch_retune_gates.py's
+     measurements): one sigmoid layer's kernels against the plain
+     composition at ffhq_512's gate widths from 4^2 to 512^2, and each
+     stage flavor fused against unfused from 64^2 to 512^2, forward plus
+     backward in CUDA graphs; each rung's two times, the thresholds the
+     profile holds and those this run's times would give;
  22. the three flash kernels (flash_fwd, flash_dq, flash_dkv) against their
      plain versions at the nine (T, dh, dv) of lsun_bedroom_128's
      self-attention layers (G's six from T = 16, dh 64, dv 256 to T = 16384,
@@ -194,7 +213,7 @@ line each:
      or (64, 4096, 8, 32);
  23. lsun_bedroom_128 + attention.kind=self serving, all six layers:
      requests of 1, 16 and 64 (6 flash_fwd launches a forward, all on the
-     mma route, nothing else), each layer of the batch-16 request against
+     mma route, and G's two fused conv blocks' stage_conv), each layer of the batch-16 request against
      the plain composition on its own q, k, v, the three generators on the
      same latents,
      `bench-sample` at batch 1, 16, 64 with peak memory, the plain path at
@@ -202,7 +221,8 @@ line each:
      68.7 GB score tensor, is caught and recorded), idle share, top kernels;
  24. the same preset training as shipped (batch 64, R1, both guards, EMA)
      with attention at 4^2..64^2: 3 steps from step 0 under the checks of 6,
-     launches 25 / 20 / 20 a step, every launch on the mma route,
+     launches 25 / 20 / 20 a step (and 4 / 2 of stage_conv and
+     stage_conv_bwd), every flash launch on the mma route,
      sec/step, images/sec, peak memory, idle share, top kernels; then the
      plain path alike; a refused batch is halved and recorded;
  25. one such step's gradients with each of its 20 flash backward calls on
@@ -210,12 +230,26 @@ line each:
      tensors (bf16), and at 64^2 in f32 (the simt route) the whole
      gradients against the plain path (the tolerance of 6), each call
      within 1e-4;
- 26. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
+ 26. several steps a call (`make_multi_step`, a CUDA graph of the whole
+     alternating step replayed k times, R1's steps a second graph): from
+     one state, one call against the same steps run eagerly, params,
+     optimizer states, EMA, guard counters, step, generator state and the
+     call's reduced metrics bitwise equal (or, where two eager runs differ,
+     within their spread), each capture launching one eager step's
+     kernels: lsun_bedroom_128's bench config at batch 64, spc=4; the
+     preset as shipped (R1 every 16, both guards), two calls of 16 from
+     step 0; ffhq_512 with each gate, spc=2, the guard raised; the
+     self-attention config of 24, spc=2;
+ 27. bench-sample's CUDA graph of the draw, the forward and the uint8
+     conversion against eager `generate_samples` from one seed, bitwise,
+     at batch 64 (lsun_bedroom_128) and 16 (ffhq_512), with the idle share;
+ 28. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
      flash kernels, the five routed stage kernels, softmax_stats,
      softmax_apply, softmax_bwd and sigmoid_bwd with their mma-route
      launches and the simt route's time of the same launches beside their
-     own);
- 27. the card's name and power limit again, then the last line
+     own; stage_softmax_apply_pool, off ffhq_512's path under the profile,
+     with the launches of 13's every-stage-fused step);
+ 29. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -250,12 +284,6 @@ G_SHAPES = [(16, 512, 128), (64, 256, 64), (256, 128, 32),
 D_SHAPES = [(16384, 64, 16), (4096, 64, 16), (1024, 128, 32),
             (256, 256, 64), (64, 512, 128), (16, 512, 128)]
 SHAPES = G_SHAPES + [s for s in D_SHAPES if s not in G_SHAPES]
-# launches per shape: one served forward, and one train step (G no-grad and
-# G forwards, D on real, fake and in the G step; backward of D real, D
-# fake, D in the G step, and G)
-SERVE = {s: int(s in G_SHAPES) for s in SHAPES}
-FWD_PER_STEP = {s: 2 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
-BWD_PER_STEP = {s: 1 * (s in G_SHAPES) + 3 * (s in D_SHAPES) for s in SHAPES}
 # the gate backward's tensor-core kernels (their mma route, bf16): two on
 # one body at (C, Hd, Cout) = (64, 16, 64), two on one body at (512, 128,
 # 512) and that template's weight-gradient pass; each must hold HMMA and
@@ -338,76 +366,20 @@ SFU_HZ = 1.98e9
 
 # ffhq_512 (config.py:792-808): batch 16 per card (the preset's global 256
 # over a v5p-32's 16 chips); the gate's new shapes (HW, C, Hd) at 256^2 and
-# 512^2; per train step, the fused-stage launches of each shape (G's 512^2
-# stage runs `up` forms, D's the plain ones; remat reruns each stage's
-# forward in the backward), and the gate's launches per step and per served
-# forward (every stage below 512^2 of G and D, plus G's 512^2 apply and the
-# four fused backward calls' gate stats, csum and backward)
+# 512^2, and the two C = 512 shapes its batch gives the wide backward
 FFHQ_BATCH = 16
 FFHQ_GATE_SHAPES = [(65536, 64, 16), (262144, 64, 16)]
 FFHQ_WIDE_SHAPES = [(16, 512, 128), (64, 512, 128)]
-FFHQ_STAGE_PER_STEP = {"stage_softmax_stats": {"up": 3, "plain": 6},
-                       "stage_softmax_apply_pool": {"plain": 6},
-                       "stage_conv": {"up": 1, "plain": 3},
-                       "stage_conv_bwd": {"up": 1, "plain": 3}}
-FFHQ_GATE_PER_STEP = {"softmax_stats": 67, "softmax_apply": 66, "softmax_csum": 32,
-                      "softmax_bwd": 32}
-# softmax_bwd's launches a step at each (HW, C, Hd): G's stages once, D's
-# three times (D's gate at its stage's output width), the 512^2 stages'
-# through the fused stage's backward
-FFHQ_BWD_PER_STEP = {(16, 512, 128): 1 + 3, (64, 256, 64): 1, (256, 128, 32): 1,
-                     (1024, 64, 16): 1, (4096, 64, 16): 1 + 3, (16384, 64, 16): 1 + 3,
-                     (65536, 64, 16): 1 + 3, (262144, 64, 16): 1 + 3, (1024, 128, 32): 3,
-                     (256, 256, 64): 3, (64, 512, 128): 3}
-# softmax_stats' and softmax_apply's launches a step at each (HW, C, Hd): the
-# seven unfused gates of G three times (the fake for D, the G step, remat's
-# rerun) and of D six times (real, fake, the G step, and their reruns);
-# stats also in the four fused backward calls at 512^2, apply in G's fused
-# 512^2 stage (not pooled) three times; and a served forward's: G's seven,
-# apply also at 512^2
-FFHQ_STATS_PER_STEP = {(16, 512, 128): 3 + 6, (64, 256, 64): 3, (256, 128, 32): 3,
-                       (1024, 64, 16): 3, (4096, 64, 16): 3 + 6, (16384, 64, 16): 3 + 6,
-                       (65536, 64, 16): 3 + 6, (262144, 64, 16): 4, (1024, 128, 32): 6,
-                       (256, 256, 64): 6, (64, 512, 128): 6}
-FFHQ_APPLY_PER_STEP = {**FFHQ_STATS_PER_STEP, (262144, 64, 16): 3}
-FFHQ_STATS_SERVE = {(16, 512, 128): 1, (64, 256, 64): 1, (256, 128, 32): 1, (1024, 64, 16): 1,
-                    (4096, 64, 16): 1, (16384, 64, 16): 1, (65536, 64, 16): 1}
-FFHQ_APPLY_SERVE = {**FFHQ_STATS_SERVE, (262144, 64, 16): 1}
-FFHQ_SERVE_PER_FORWARD = {"softmax_stats": 7, "softmax_apply": 8, "softmax_csum": 0,
-                          "softmax_bwd": 0, "stage_conv": 0, "stage_softmax_stats": 1,
-                          "stage_softmax_apply_pool": 0, "stage_conv_bwd": 0}
 
-# ffhq_512 with model.attention.mode=sigmoid: the gate runs its one-pass
-# kernel at the stages up to 16^2 (the JAX layer's 256 locations), the
-# plain composition from 32^2 to 256^2, and the fused stage's sigmoid pass
-# at 512^2 (G `up`, D `down`); each fused backward recomputes w with the
-# conv pass and runs the gate's one-pass backward on its 262,144 locations.
-# (HW, C, Hd) of the gates at G's 4^2, 8^2, 16^2 stages, then D's 16^2,
-# 8^2, 4^2 (D's gate runs at its stage's output width).
+# ffhq_512 with model.attention.mode=sigmoid
 SIGMOID = {"model.attention.mode": "sigmoid"}
 SIGMOID_KERNELS = ("sigmoid_gate", "sigmoid_bwd")
-SIGMOID_G_SHAPES = [(16, 512, 128), (64, 256, 64), (256, 128, 32)]
-SIGMOID_D_SHAPES = [(256, 256, 64), (64, 512, 128), (16, 512, 128)]
-SIGMOID_SHAPES = SIGMOID_G_SHAPES + [s for s in SIGMOID_D_SHAPES if s not in SIGMOID_G_SHAPES]
-SIGMOID_STAGE_BWD_SHAPE = (262144, 64, 16)
-SIGMOID_F32_SHAPE = (256, 128, 32)
 # below the sigmoid gate's ceiling of 2, so that the clamp binds in the
 # kernel checks (the preset's 16 never does)
 SIGMOID_GATE_MAX = 1.5
-# launches per train step (G forwards 3, D forwards 6, each D and G
-# backward once per pass: G 1, D 3) and per served forward
-SIGMOID_FWD_PER_STEP = {s: 3 * (s in SIGMOID_G_SHAPES) + 6 * (s in SIGMOID_D_SHAPES)
-                        for s in SIGMOID_SHAPES}
-SIGMOID_BWD_PER_STEP = {**{s: 1 * (s in SIGMOID_G_SHAPES) + 3 * (s in SIGMOID_D_SHAPES)
-                           for s in SIGMOID_SHAPES}, SIGMOID_STAGE_BWD_SHAPE: 4}
-SIGMOID_SERVE = {s: int(s in SIGMOID_G_SHAPES) for s in SIGMOID_SHAPES}
-SIGMOID_STAGE_PER_STEP = {"stage_sigmoid": {"up": 3, "down": 6},
-                          "stage_conv": {"up": 1, "plain": 3},
-                          "stage_conv_bwd": {"up": 1, "plain": 3}}
-SIGMOID_PER_STEP = {"sigmoid_gate": sum(SIGMOID_FWD_PER_STEP.values()),
-                    "sigmoid_bwd": sum(SIGMOID_BWD_PER_STEP.values()),
-                    **{k: sum(v.values()) for k, v in SIGMOID_STAGE_PER_STEP.items()}}
-SIGMOID_SERVE_PER_FORWARD = {"sigmoid_gate": sum(SIGMOID_SERVE.values()), "stage_sigmoid": 1}
+SIGMOID_F32_SHAPE = (1024, 64, 16)
+# the sigmoid gate's (512, 128, 512) template at ffhq_512's 4^2 gate
+SIGMOID_WIDE_SHAPES = [(16, 512, 128)]
 
 # lsun_bedroom_128 with model.attention.kind=self (heads 1, dk = C/8,
 # dv = C/2): serving runs all six layers (T up to 16384); training drops the
@@ -438,6 +410,157 @@ FLASH_PER_STEP = {"flash_fwd": sum(FLASH_FWD_PER_STEP.values()),
                   "flash_dq": sum(FLASH_BWD_PER_STEP.values()),
                   "flash_dkv": sum(FLASH_BWD_PER_STEP.values())}
 FLASH_NAMES = ("o", "ell", "dq", "dk", "dv")
+
+# ---------------------------------------------------------------------------
+# Launch plans: what a path launches, from its models' dispatch under the
+# card's gate profile (locate_tpu_torch/ops/gate_profile.json)
+# ---------------------------------------------------------------------------
+
+WRAPPERS = ("softmax_stats", "softmax_apply", "softmax_csum", "softmax_bwd", "stage_conv",
+            "stage_softmax_stats", "stage_softmax_apply_pool", "stage_conv_bwd",
+            "sigmoid_gate", "sigmoid_bwd", "stage_sigmoid", "flash_fwd", "flash_dq",
+            "flash_dkv")
+
+
+def path_plan(cfg, serve: bool = False) -> dict:
+    """{wrapper: {key: launches}} of one train step of `cfg`'s kernel path
+    (`serve`: of one served forward), read from the models' own dispatch
+    (`FusableStage.plan`, `LocateAttention.fused_profitable`) under the
+    active gate profile. A gate kernel's key is its (HW, C, Hd), Cout = C;
+    a stage kernel's its form and fine resolution, "up@512". A train step
+    runs G forward 2 times (3 under remat: the G step's forward again in
+    its backward) and backward once, D forward 3 times (6 under remat) and
+    backward 3 times; R1's twin of D launches nothing. An unfused softmax
+    gate runs stats and apply forward, csum and the backward backward; a
+    sigmoid gate in its profile's ranges sigmoid_gate and sigmoid_bwd; a
+    fused pair the stage's pass forward (stats, then apply, pooled after
+    a pool; the sigmoid pass) and backward the conv pass (w again), the
+    gate's stats, csum and backward (sigmoid_bwd) and the conv backward; a
+    fused conv block the conv pass and the conv backward. Self-attention
+    layers are left to FLASH_PER_STEP. "sigmoid_gate_bwd" counts the
+    sigmoid backward calls outside a fused stage (SigmoidGate's)."""
+    from locate_tpu_torch.models.discriminator import Discriminator
+    from locate_tpu_torch.models.gan import model_config
+    from locate_tpu_torch.models.generator import Generator
+    from locate_tpu_torch.nn.blocks import _resampled
+    from locate_tpu_torch.ops.attention import LocateAttention
+
+    mcfg = dataclasses.replace(model_config(cfg), use_pallas=True)
+    with torch.device("meta"):
+        nets = {"g": Generator(mcfg, torch.bfloat16), "d": Discriminator(mcfg, torch.bfloat16)}
+    remat = 2 if mcfg.remat else 1
+    passes = ({"g": (1, 0), "d": (0, 0)} if serve else
+              {"g": (1 + remat, 1), "d": (3 * remat, 3)})
+    out = {k: {} for k in WRAPPERS + ("sigmoid_gate_bwd",)}
+
+    def add(kernel, key, n):
+        if n:
+            out[kernel][key] = out[kernel].get(key, 0) + n
+
+    for name, net in nets.items():
+        fwd, bwd = passes[name]
+        h = w = 4 if name == "g" else mcfg.resolution
+        for stage in net.trunk:
+            layers = list(stage)
+            for flavor, i, _, sh, sw in stage.plan(h, w):
+                if flavor is None:
+                    gate = layers[i]
+                    if not isinstance(gate, LocateAttention) or not gate.use_fused:
+                        continue
+                    if not gate.fused_profitable(sh * sw):
+                        continue
+                    key = (sh * sw, gate.to_logits.w.shape[0], gate.to_hidden.w.shape[0])
+                    if gate.cfg.mode == "softmax":
+                        for k, n in (("softmax_stats", fwd), ("softmax_apply", fwd),
+                                     ("softmax_csum", bwd), ("softmax_bwd", bwd)):
+                            add(k, key, n)
+                    else:
+                        add("sigmoid_gate", key, fwd)
+                        add("sigmoid_bwd", key, bwd)
+                        add("sigmoid_gate_bwd", key, bwd)
+                    continue
+                up, down = flavor.startswith("up_"), flavor.startswith("down_")
+                res = sh * (2 if up else 1)
+                form = f"{'up' if up else 'plain'}@{res}"
+                out_form = f"{'up' if up else 'down' if down else 'plain'}@{res}"
+                if flavor.endswith("conv"):
+                    add("stage_conv", out_form, fwd)
+                    add("stage_conv_bwd", form, bwd)
+                    continue
+                gate = layers[i + up + 1]
+                key = (res * res, gate.to_logits.w.shape[0], gate.to_hidden.w.shape[0])
+                add("stage_conv", form, bwd)
+                add("stage_conv_bwd", form, bwd)
+                if gate.cfg.mode == "sigmoid":
+                    add("stage_sigmoid", out_form, fwd)
+                    add("sigmoid_bwd", key, bwd)
+                    continue
+                add("stage_softmax_stats", form, fwd)
+                if down:
+                    add("stage_softmax_apply_pool", f"plain@{res}", fwd)
+                else:
+                    add("softmax_apply", key, fwd)
+                for k in ("softmax_stats", "softmax_csum", "softmax_bwd"):
+                    add(k, key, bwd)
+            for layer in layers:
+                h, w = _resampled(layer, h, w)
+    return out
+
+
+def totals(plan: dict) -> dict:
+    """{wrapper: launches} of a plan, the wrappers it does not launch left out."""
+    return {k: sum(v.values()) for k, v in plan.items() if v and k in WRAPPERS}
+
+
+def lsun_config(**overrides):
+    from locate_tpu_torch.config import get_config
+
+    return get_config("lsun_bedroom_128", {"use_pallas": "true", **overrides})
+
+
+def ffhq_config(**overrides):
+    from locate_tpu_torch.config import get_config
+
+    return get_config("ffhq_512", {"train.global_batch": str(FFHQ_BATCH), **overrides})
+
+
+# the plans of the paths chip_smoke drives, under the profile in the tree
+LSUN_PLAN = path_plan(lsun_config())
+LSUN_SERVE_PLAN = path_plan(lsun_config(), serve=True)
+FFHQ_PLAN = path_plan(ffhq_config())
+FFHQ_SERVE_PLAN = path_plan(ffhq_config(), serve=True)
+SIGMOID_PLAN = path_plan(ffhq_config(**SIGMOID))
+SIGMOID_SERVE_PLAN = path_plan(ffhq_config(**SIGMOID), serve=True)
+SELF_PLAN = path_plan(lsun_config(**SELF, **{"model.attention_stages": SELF_TRAIN_STAGES}))
+SELF_SERVE_PLAN = path_plan(lsun_config(**SELF), serve=True)
+# lsun_bedroom_128's gate launches a shape: one served forward, one step
+SERVE = LSUN_SERVE_PLAN["softmax_stats"]
+FWD_PER_STEP = LSUN_PLAN["softmax_stats"]
+BWD_PER_STEP = LSUN_PLAN["softmax_bwd"]
+# ffhq_512's (softmax gate): a step's stage launches by form, and each gate
+# kernel's by shape; a served forward's
+FFHQ_STAGE_PER_STEP = {k: FFHQ_PLAN[k] for k in ("stage_softmax_stats", "stage_softmax_apply_pool",
+                                                 "stage_conv", "stage_conv_bwd")}
+FFHQ_GATE_PER_STEP = {k: sum(FFHQ_PLAN[k].values()) for k in
+                      ("softmax_stats", "softmax_apply", "softmax_csum", "softmax_bwd")}
+FFHQ_BWD_PER_STEP = FFHQ_PLAN["softmax_bwd"]
+FFHQ_STATS_PER_STEP = FFHQ_PLAN["softmax_stats"]
+FFHQ_APPLY_PER_STEP = FFHQ_PLAN["softmax_apply"]
+FFHQ_STATS_SERVE = FFHQ_SERVE_PLAN["softmax_stats"]
+FFHQ_APPLY_SERVE = FFHQ_SERVE_PLAN["softmax_apply"]
+FFHQ_SERVE_PER_FORWARD = totals(FFHQ_SERVE_PLAN)
+# ffhq_512-sigmoid's: the shapes where the gate runs its kernels outside a
+# fused stage (phase 15's), a step's launches by shape and by form
+SIGMOID_SHAPES = sorted(SIGMOID_PLAN["sigmoid_gate"], key=lambda s: (s[1], s[0]), reverse=True)
+SIGMOID_FWD_PER_STEP = SIGMOID_PLAN["sigmoid_gate"]
+SIGMOID_BWD_PER_STEP = SIGMOID_PLAN["sigmoid_bwd"]
+# the backward's shapes inside a fused stage only
+SIGMOID_STAGE_BWD_SHAPES = sorted(s for s in SIGMOID_BWD_PER_STEP if s not in SIGMOID_SHAPES)
+SIGMOID_SERVE = SIGMOID_SERVE_PLAN["sigmoid_gate"]
+SIGMOID_STAGE_PER_STEP = {k: SIGMOID_PLAN[k] for k in ("stage_sigmoid", "stage_conv",
+                                                       "stage_conv_bwd")}
+SIGMOID_PER_STEP = totals(SIGMOID_PLAN)
+SIGMOID_SERVE_PER_FORWARD = totals(SIGMOID_SERVE_PLAN)
 
 
 class SmokeFailure(Exception):
@@ -514,7 +637,7 @@ def graph_ms(fn, reps: int = 10, replays: int = 5) -> float:
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -936,19 +1059,23 @@ def sigmoid_term_scales(fa, x2d, dy, pp, w1x, b1, w2, b2, gate_max=SIGMOID_GATE_
 
 
 def sigmoid_gate_cases():
-    """Phase 15's (HW, C, Hd, dtype, forward) cases: ffhq_512's five gate
-    shapes up to 16^2 in bf16 and one in f32, forward and backward, and the
-    backward alone at the 512^2 stage's shape in bf16."""
+    """Phase 15's (HW, C, Hd, dtype, forward) cases: the shapes where
+    ffhq_512-sigmoid runs the gate's kernels outside a fused stage (the
+    profile's ranges) in bf16, the C = 512 template's shape at the 4^2
+    gate (held on the card wherever the profile sends that gate) and one
+    shape in f32, forward and backward, and the backward alone at a fused
+    stage's shape that no gate outside one has, in bf16."""
     return ([(hw, c, hd, torch.bfloat16, True) for hw, c, hd in SIGMOID_SHAPES]
-            + [(*SIGMOID_F32_SHAPE, torch.float32, True),
-               (*SIGMOID_STAGE_BWD_SHAPE, torch.bfloat16, False)])
+            + [(*s, torch.bfloat16, True) for s in SIGMOID_WIDE_SHAPES
+               if s not in SIGMOID_SHAPES]
+            + [(*SIGMOID_F32_SHAPE, torch.float32, True)]
+            + [(*s, torch.bfloat16, False) for s in SIGMOID_STAGE_BWD_SHAPES])
 
 
 def phase_sigmoid_gate(fa):
     """Phase 15: the sigmoid gate's two kernels against their plain versions
-    at ffhq_512's five gate shapes up to 16^2, batch 16, bf16, one of them
-    also in f32, and the backward at the 512^2 stage's (262144, 64, 16),
-    under the rules of phases 3-4 at gate_max 1.5 (the clamp binds at a
+    at the shapes of `sigmoid_gate_cases`, batch 16, under the rules of
+    phases 3-4 at gate_max 1.5 (the clamp binds at a
     part of the locations); two runs bitwise equal; each timed beside its
     bound and the plain version's time. sigmoid_bwd runs on the route its
     wrapper picks (`gate_bwd_route`); where that is the mma route (bf16 at
@@ -1246,9 +1373,9 @@ def phase_generator(fa, cfg):
         check(img.shape == (b, 128, 128, 3) and str(img.dtype) == "uint8",
               f"request of {b}: images {img.shape} {img.dtype}")
         check(float(img.std()) > 0.0, f"request of {b}: constant images")
-    want = stages * len(requests)
-    check(launches == expected({"softmax_stats": want, "softmax_apply": want}),
-          f"serving launched {launches} for {len(requests)} forwards of {stages} stages")
+    want = totals(LSUN_SERVE_PLAN)
+    check(launches == expected(want, len(requests)),
+          f"serving launched {launches} for {len(requests)} forwards, want {want} each")
     want_routes = gate_routes_per_step(fa, SERVE, len(requests), forward=True)
     check(fwd_routes == {k: want_routes for k in GATE_FWD_ROUTED},
           f"serving's forward passes took the routes {fwd_routes}, want {want_routes} each")
@@ -1453,11 +1580,13 @@ def phase_train(fa):
                   softmax_csum=read_gate_routes("softmax_csum"))
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
-    # no stage fuses at 128^2
-    per_step = {"softmax_stats": 30, "softmax_apply": 30, "softmax_csum": 24,
-                "softmax_bwd": 24}
+    # the gate profile's dispatch: G's conv blocks behind an upsample fuse
+    per_step = totals(LSUN_PLAN)
     check(launches == expected(per_step, steps),
           f"train steps launched {launches}, want {per_step} per step")
+    stage_routes = read_stage_routes()
+    check(stage_routes == stage_routes_expected(launches),
+          f"train steps' stage kernels took the routes {stage_routes}")
     check(routes["softmax_bwd"] == gate_routes_per_step(fa, BWD_PER_STEP, steps),
           f"train steps' softmax_bwd took the routes {routes['softmax_bwd']}, want "
           f"{gate_routes_per_step(fa, BWD_PER_STEP)} per step")
@@ -1595,7 +1724,9 @@ def phase_train_grads(fa, cfg, weights):
     calls = []
     with checked_gate_backward(fa, calls):
         kernel = step_grads(cfg, weights, z_d, z_g, 128, True, "bfloat16")
-    check(len(calls) == 24, f"{len(calls)} gate backward calls in one step's gradients")
+    want = sum(BWD_PER_STEP.values())
+    check(len(calls) == want, f"{len(calls)} gate backward calls in one step's gradients, "
+                              f"want {want}")
     want = gate_routes_per_step(fa, BWD_PER_STEP)
     got = {r: sum(call["route"] == r for call in calls) for r in want}
     check(got == want, f"one step's gate backward calls took the routes {got}, want {want}")
@@ -1648,15 +1779,24 @@ def phase_train_grads(fa, cfg, weights):
 
 
 def phase_train_throughput():
-    """Phase 7."""
+    """Phase 7: `bench 128 20` (16 steps a call, a CUDA graph of the step,
+    and one step a call beside it) on the kernel path and the plain path:
+    the kernel path faster at both; peak memory with R1; the idle share
+    and top kernels of 3 eager steps and of one 16-step graph call."""
     from locate_tpu_torch import cli
     from locate_tpu_torch.config import get_config
+    from locate_tpu_torch.train.step import make_multi_step
 
     kernel = run_cli(["bench", "128", "20"])
     torch.cuda.empty_cache()
     plain = run_cli(["bench", "128", "20", "xla"])
     torch.cuda.empty_cache()
     check(kernel["flops_per_step"] == plain["flops_per_step"], "flop counts differ")
+    check(kernel["steps_per_call"] == plain["steps_per_call"] == 16, "bench did not run spc=16")
+    for key in ("value", "single_step_images_per_sec"):
+        check(kernel[key] > plain[key], f"bench 128 20 {key}: the kernel path "
+                                        f"({kernel[key]}) is not faster than the plain path "
+                                        f"({plain[key]})")
     peaks = {}
     for remat in (True, False):
         cfg = get_config("lsun_bedroom_128", {"use_pallas": "true",
@@ -1677,10 +1817,16 @@ def phase_train_throughput():
         gan, state, step = trainer(cli.bench_config(128, [] if use_pallas else ["xla"]))
         batch = fixed_batch(128)
         idle, top = profile_calls(lambda: step(state, batch), top=15)
+        multi = make_multi_step(step, 16)
+        batches = stacked_batch(16, 128)
+        graph_idle, graph_top = profile_calls(lambda: multi(state, batches), calls=1, top=15)
         profiles[name] = dict(device_idle_share="not measured" if idle is None else idle,
-                              top_kernels=top)
-        del gan, state, step, batch
-        torch.cuda.empty_cache()
+                              top_kernels=top,
+                              graph_call_16_steps=dict(
+                                  device_idle_share=("not measured" if graph_idle is None
+                                                     else graph_idle), top_kernels=graph_top))
+        del gan, state, step, batch, multi, batches
+        release_memory()
     say("train-throughput", kernel_path=kernel, plain_path=plain,
         peak_memory_bytes_batch128_with_r1=peaks, profile_3_steps_batch128=profiles)
     return kernel, plain
@@ -1695,23 +1841,46 @@ BWD_NAMES = ("du", "dxs", "dWr", "dWc", "db_col", "dWskip")
 STAGE_OUTPUTS = {"stage_conv": ("y",), "stage_softmax_stats": ("w_pre", "m", "se"),
                  "stage_softmax_apply_pool": ("y",), "stage_conv_bwd": BWD_NAMES,
                  "stage_sigmoid": ("y",)}
-# (kernel, form, C, Co): G's 512^2 stage runs `up` forms from 256^2 x 64,
-# D's the plain ones; `down` is the conv-only pool tail; `skip` a 1x1 skip
-STAGE_CASES = [("stage_softmax_stats", "up", 64, 64), ("stage_softmax_stats", "plain", 64, 64),
-               ("stage_softmax_apply_pool", "plain", 64, 64),
-               ("stage_conv", "plain", 64, 64), ("stage_conv", "up", 64, 64),
-               ("stage_conv", "down", 64, 64), ("stage_conv", "skip", 32, 64),
-               ("stage_conv_bwd", "plain", 64, 64), ("stage_conv_bwd", "up", 64, 64),
-               ("stage_softmax_stats", "skip", 32, 64), ("stage_conv_bwd", "skip", 32, 64)]
+# (kernel, form, C, Co, fine resolution, batch): at ffhq_512's 512^2 stage
+# every form, G's `up` from 256^2 x 64 and D's plain ones; `down` is the
+# conv-only pool tail; `skip` a 1x1 skip; then the `up` forms at the other
+# resolutions where the gate profile fuses a stage of ffhq_512 (batch 16)
+# or of lsun_bedroom_128 (batch 64)
+STAGE_CASES_512 = [("stage_softmax_stats", "up", 64, 64), ("stage_softmax_stats", "plain", 64, 64),
+                   ("stage_softmax_apply_pool", "plain", 64, 64),
+                   ("stage_conv", "plain", 64, 64), ("stage_conv", "up", 64, 64),
+                   ("stage_conv", "down", 64, 64), ("stage_conv", "skip", 32, 64),
+                   ("stage_conv_bwd", "plain", 64, 64), ("stage_conv_bwd", "up", 64, 64),
+                   ("stage_softmax_stats", "skip", 32, 64), ("stage_conv_bwd", "skip", 32, 64)]
+
+
+def planned_cases(kernels, plans, n, skip=()):
+    """(kernel, form, 64, 64, res, n) of each form@res below 512^2 that
+    `plans` launch for `kernels` (not in `skip`)."""
+    out = []
+    for kernel in kernels:
+        keys = sorted({key for plan in plans for key in plan[kernel]},
+                      key=lambda k: int(k.split("@")[1]))
+        for key in keys:
+            form, res = key.split("@")
+            case = (kernel, form, 64, 64, int(res), n)
+            if int(res) < 512 and case not in skip:
+                out.append(case)
+    return out
+
+
+STAGE_CASES = ([c + (512, FFHQ_BATCH) for c in STAGE_CASES_512]
+               + planned_cases(STAGE_KERNELS, [FFHQ_PLAN], FFHQ_BATCH)
+               + planned_cases(STAGE_KERNELS, [LSUN_PLAN, SELF_PLAN], BATCH))
 # the sigmoid pass: G's `up`, D's `down`, and the plain and 1x1-skip forms
-SIGMOID_STAGE_CASES = [("stage_sigmoid", "up", 64, 64), ("stage_sigmoid", "down", 64, 64),
-                       ("stage_sigmoid", "plain", 64, 64), ("stage_sigmoid", "skip", 32, 64)]
+SIGMOID_STAGE_CASES = ([("stage_sigmoid", form, c, 64, 512, FFHQ_BATCH)
+                        for form, c in (("up", 64), ("down", 64), ("plain", 64), ("skip", 32))]
+                       + planned_cases(("stage_sigmoid",), [SIGMOID_PLAN], FFHQ_BATCH))
 
 
-def ffhq_config(**overrides):
-    from locate_tpu_torch.config import get_config
-
-    return get_config("ffhq_512", {"train.global_batch": str(FFHQ_BATCH), **overrides})
+def stage_key(form, res, n):
+    """A stage time's key: form@res at ffhq_512's batch, form@res/N else."""
+    return f"{form}@{res}" if n == FFHQ_BATCH else f"{form}@{res}/{n}"
 
 
 def stage_inputs(n, hin, c, co, dtype, seed):
@@ -1829,25 +1998,25 @@ def stage_bound(kind, n, c, co, dtype, form, h=512):
 def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain"):
     """Phase 9 (and 16 with the sigmoid cases): the fused-stage kernels
     against their plain versions at ffhq_512's 512^2 stage shapes, batch
-    16, in bf16 (timed) and f32; the backward's outputs against their
+    16, and at the smaller stages the gate profile fuses (STAGE_CASES), in
+    bf16 (timed) and f32; the backward's outputs against their
     absolute-term scales, and bitwise repeatable in f32; the sigmoid pass
     at gate_max 1.5, where the clamp binds at a part of the pixels. The
     kernels of STAGE_ROUTED (all five) run bf16 on the mma route (the
     wrappers' choice) and, on the same inputs, on the simt route, both
     under the bf16 rule, each case twice and bitwise equal; the mma route
     must be the faster; f32 takes the simt route."""
-    n = FFHQ_BATCH
     rows, times, max_err = [], {}, {}
-    for i, (kind, form, c, co) in enumerate(cases):
+    for i, (kind, form, c, co, res, n) in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
-            ops = stage_inputs(n, 256 if form == "up" else 512, c, co, dtype, seed=300 + i)
-            gate = stage_gate(512 * 512, co, seed=400 + i)
+            ops = stage_inputs(n, res // 2 if form == "up" else res, c, co, dtype, seed=300 + i)
+            gate = stage_gate(res * res, co, seed=400 + i)
             dw = None
             if kind == "stage_conv_bwd":
                 g = torch.Generator(device="cuda")
                 g.manual_seed(500 + i)
-                dw = torch.randn(n, 512, 512, co, device="cuda", generator=g).to(dtype)
-            shape = dict(kernel=kind, form=form, N=n, H=512, C=c, Co=co)
+                dw = torch.randn(n, res, res, co, device="cuda", generator=g).to(dtype)
+            shape = dict(kernel=kind, form=form, N=n, H=res, C=c, Co=co)
             row = dict(shape, dtype=str(dtype).replace("torch.", ""))
             with torch.no_grad():
                 # the apply pass's statistics, each path's own: x's in its
@@ -1855,7 +2024,7 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
                 stats = truth_stats = None
                 if kind == "stage_softmax_apply_pool":
                     stats, truth_stats = (fa.softmax_gate_stats_reference(
-                        t.reshape(n, 512 * 512, co), *gate, **STAGE_KW)
+                        t.reshape(n, res * res, co), *gate, **STAGE_KW)
                         for t in (ops[0], ops[0].float()))
                 routed = kind in STAGE_ROUTED
                 before = read_stage_routes()
@@ -1894,7 +2063,7 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
             if kind == "stage_sigmoid" and dtype == torch.float32:
                 with torch.no_grad():
                     w = fs.stage_conv_reference(*ops, upsample=form == "up", **STAGE_KW)
-                    l = fa.gate_logits_reference(w.reshape(n, 512 * 512, co), *gate, **STAGE_KW)
+                    l = fa.gate_logits_reference(w.reshape(n, res * res, co), *gate, **STAGE_KW)
                     row["clamped_share"] = float(
                         (2.0 * torch.sigmoid(l) > SIGMOID_GATE_MAX).float().mean())
                     del w, l
@@ -1909,14 +2078,16 @@ def phase_stage_kernels(fs, fa, cases=STAGE_CASES, phase="stage-kernels-vs-plain
                     ms_simt = (graph_ms(lambda: run_stage(fs, kind, ops, gate, form, dw, stats,
                                                           route=fs.SIMT), 3, 3)
                                if kind in STAGE_ROUTED else None)
-                b_ms, b_by = stage_bound(kind, n, c, co, dtype, form)
-                times[(kind, form)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                           bound_by=b_by, share_of_bound=b_ms / ms)
+                b_ms, b_by = stage_bound(kind, n, c, co, dtype, form, res)
+                key = (kind, stage_key(form, res, n))
+                times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                  share_of_bound=b_ms / ms)
                 if ms_simt is not None:
-                    times[(kind, form)].update(ms_simt=ms_simt, route=fs.MMA)
-                    check(ms < ms_simt, f"{kind} {form}: the mma route ({ms:.4f} ms) is not "
-                                        f"faster than the simt route ({ms_simt:.4f} ms)")
-                row.update(times[(kind, form)])
+                    times[key].update(ms_simt=ms_simt, route=fs.MMA)
+                    check(ms < ms_simt, f"{kind} {form} at {res}^2: the mma route ({ms:.4f} "
+                                        f"ms) is not faster than the simt route "
+                                        f"({ms_simt:.4f} ms)")
+                row.update(times[key])
             say(phase, **row)
             rows.append(row)
             del ops, gate, dw, stats, truth_stats
@@ -2163,8 +2334,7 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     `per_step` kernels a step, then the plain path's three steps, and a
     profile of each."""
     overrides = overrides or {}
-    per_step = per_step or {**FFHQ_GATE_PER_STEP,
-                            **{k: sum(v.values()) for k, v in FFHQ_STAGE_PER_STEP.items()}}
+    per_step = per_step or totals(FFHQ_PLAN)
     cfg = ffhq_config(**overrides)
     tcfg = cfg.train
     check(cfg.use_pallas and cfg.model.remat and cfg.model.resolution == 512
@@ -2250,14 +2420,15 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
 
 def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-backward"):
     """Phase 12 (and 19 with the sigmoid gate): one ffhq_512 step's
-    gradients (R1 firing) on the kernel path, each of its four fused-stage
-    backward calls held against the plain chain on its own saved tensors;
-    each recomputes w (stage_conv) and runs the conv backward on the mma
-    route, and with the sigmoid gate the gate's backward too
-    (sigmoid_bwd_mma); D's forward pools on the mma route. With the
-    sigmoid gate each of the step's 12 SigmoidGate backward calls (the
-    gates up to 16^2, 7 at C = 512 on the mma route) is held against the
-    plain backward on its own saved tensors too (phase 18's check)."""
+    gradients (R1 firing) on the kernel path, each of its fused-stage
+    backward calls (G's four from 64^2 to 512^2 under the card's profile)
+    held against the plain chain on its own saved tensors; each recomputes
+    w (stage_conv) and runs the conv backward on the mma route, and with
+    the sigmoid gate the gate's backward too (sigmoid_bwd_mma); a fused
+    D stage's forward pools on the mma route. With the sigmoid gate each of
+    the step's SigmoidGate backward calls (the gates the profile's ranges
+    hold) is held against the plain backward on its own saved tensors too
+    (phase 18's check)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(6)
     z = [torch.randn(FFHQ_BATCH, cfg.model.latent_dim, device="cuda", generator=g)
@@ -2276,9 +2447,12 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-
             else contextlib.nullcontext()):
         _, _, d_loss, g_loss, r1 = step_grads(cfg, weights, *z, 512, True, "bfloat16")
     after = routes()
-    check(len(calls) == 4, f"{len(calls)} fused-stage backward calls in one ffhq_512 step")
+    plan = SIGMOID_PLAN if sigmoid else FFHQ_PLAN
+    fused = sum(plan["stage_conv_bwd"].values())
+    check(len(calls) == fused, f"{len(calls)} fused-stage backward calls in one ffhq_512 step, "
+                               f"want {fused}")
     moved = {k: {r: after[k][r] - before[k][r] for r in after[k]} for k in after}
-    check(moved["stage_conv_bwd"] == moved["stage_conv"] == {"mma": 4, "simt": 0}
+    check(moved["stage_conv_bwd"] == moved["stage_conv"] == {"mma": fused, "simt": 0}
           and moved["stage_softmax_stats"]["simt"] == moved["stage_sigmoid"]["simt"] == 0
           and moved["stage_softmax_apply_pool"]["simt"] == 0
           and moved["sigmoid_bwd"] == gate_routes_per_step(
@@ -2286,9 +2460,8 @@ def phase_ffhq_checked_backward(fs, fa, cfg, weights, phase="ffhq-checked-stage-
           and moved["softmax_csum"] == gate_routes_per_step(
               fa, {} if sigmoid else FFHQ_BWD_PER_STEP, forward=True),
           f"the checked ffhq_512 step's stage kernels took the routes {moved}")
-    if sigmoid:  # the gate's own calls: every shape but the fused 512^2 stage's
-        want = gate_routes_per_step(fa, {s: k for s, k in SIGMOID_BWD_PER_STEP.items()
-                                         if s != SIGMOID_STAGE_BWD_SHAPE})
+    if sigmoid:  # the gate's own calls, outside the fused stages
+        want = gate_routes_per_step(fa, SIGMOID_PLAN["sigmoid_gate_bwd"])
         got = {r: sum(call["route"] == r for call in gate_calls) for r in want}
         check(got == want, f"the checked step's SigmoidGate calls took the routes {got}, "
                            f"want {want}")
@@ -2343,6 +2516,7 @@ def phase_ffhq_grads_64(fs, fa, blocks, overrides=None, kernels=STAGE_KERNELS,
         worst_stage_backward_rel_err=max(v for r in calls for k, v in r.items()
                                           if k.endswith("rel_err_kernel_vs_plain")),
         losses=dict(kernel=kernel[2:], plain=plain[2:]))
+    return launches
 
 
 def event_ms(fn, reps=5):
@@ -2393,7 +2567,7 @@ def phase_fusion_timing(blocks):
             torch.autograd.grad(y, [x, *module.parameters()], dy)
 
         times = {}
-        for mode, threshold in (("fused", None), ("unfused", 1 << 62)):
+        for mode, threshold in (("fused", 0), ("unfused", 1 << 62)):
             blocks.FUSE_MIN_LOCATIONS = threshold
             times[f"{mode}_ms"] = event_ms(lambda: fwd_bwd(stage))
         blocks.FUSE_MIN_LOCATIONS = None
@@ -2406,38 +2580,39 @@ def phase_fusion_timing(blocks):
     return rows
 
 
-def phase_sigmoid_threshold():
-    """Phase 21: one sigmoid LocateAttention layer at ffhq_512's G shapes
-    from 32^2 to 256^2 (C 64, Hd 16; there both packages run the plain
-    composition), batch 16, bf16: forward, and forward plus backward,
-    through the one-pass kernels and through the plain composition. The
-    input to a retune of SIGMOID_FUSED_MAX_LOCATIONS (256, the TPU's)."""
-    from locate_tpu_torch.config import AttentionConfig
-    from locate_tpu_torch.ops.attention import LocateAttention
+def retune_script():
+    """scripts/torch_retune_gates.py, imported."""
+    import importlib.util
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(13)
-    rows = {}
-    for side in (32, 64, 128, 256):
-        layer = LocateAttention(64, AttentionConfig(mode="sigmoid", gate_max=16.0),
-                                compute_dtype=torch.bfloat16, use_pallas=True, gen=gen)
-        randomize_logit_convs(layer, seed=14, scale=0.25)
-        x = torch.randn(FFHQ_BATCH, side, side, 64, device="cuda", generator=gen)
-        x = x.to(torch.bfloat16).requires_grad_(True)
-        dy = torch.randn(x.shape, device="cuda", generator=gen).to(torch.bfloat16)
-        row = {}
-        for path, fn in (("kernel", layer.forward_fused), ("plain", layer.forward_composed)):
-            with torch.no_grad():
-                row[f"{path}_forward_ms"] = event_ms(lambda: fn(x))
-            row[f"{path}_forward_backward_ms"] = event_ms(
-                lambda: torch.autograd.grad(fn(x), [x, *layer.parameters()], dy))
-        row["kernel_over_plain_forward_backward"] = (row["kernel_forward_backward_ms"]
-                                                     / row["plain_forward_backward_ms"])
-        rows[f"{side}^2"] = row
-        del layer, x, dy
-        torch.cuda.empty_cache()
-    say("sigmoid-threshold-timing", batch=FFHQ_BATCH, C=64, Hd=16, dtype="bfloat16",
-        rows=rows)
+    spec = importlib.util.spec_from_file_location(
+        "torch_retune_gates", os.path.join(REPO, "scripts", "torch_retune_gates.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_retune_table():
+    """Phase 21: the gate profile's ladder again (scripts/torch_retune_gates.py's
+    measurements, bf16, CUDA graphs): one sigmoid LocateAttention layer's
+    kernels against the plain composition from 4^2 to 512^2, and each stage
+    flavor fused against unfused from 64^2 to 512^2, forward plus backward,
+    under the profile in the tree; each rung's two times, the thresholds
+    the profile holds, and those this run's times would give."""
+    from locate_tpu_torch.ops import gate_profile
+
+    rt = retune_script()
+    sigmoid = rt.measure_sigmoid()
+    stages = rt.measure_stages()
+    prof = gate_profile.load()
+    held = {"min_locations": prof["min_locations"],
+            "sigmoid_locations": prof["sigmoid_locations"]}
+    now = {"min_locations": rt.thresholds(stages, prof["meta"].get("margin", 0.02)),
+           "sigmoid_locations": rt.sigmoid_ranges_rule(
+               [(r["locations"], r["kernel_ms"], r["plain_ms"]) for r in sigmoid],
+               prof["meta"].get("margin", 0.02))}
+    say("retune-table", profile=held, profile_measured_on=prof["meta"].get("nvidia_smi"),
+        this_run_would_give=now, agrees=now == held, sigmoid_rungs=sigmoid, stage_rungs=stages)
+    return held
 
 
 # ---------------------------------------------------------------------------
@@ -2813,8 +2988,9 @@ def phase_self_serving(fl):
         launches, routes = read_counters(), read_route_counters()
     finally:
         SelfAttention.attend = original
-    check(launches == expected({"flash_fwd": stages * len(requests)}),
-          f"serving launched {launches} for {len(requests)} forwards of {stages} layers")
+    want = {"flash_fwd": stages, **totals(SELF_SERVE_PLAN)}
+    check(launches == expected(want, len(requests)),
+          f"serving launched {launches} for {len(requests)} forwards, want {want} each")
     check(routes == routes_expected(launches),
           f"serving's flash_fwd launches took {routes['flash_fwd']}, want all on mma")
     for b, img in zip(requests, images):
@@ -2952,8 +3128,9 @@ def phase_self_train():
     steps = 3
     (kernel, launches, weights), batch, refusals = halving(
         lambda b: self_train_attempt(cfg, b, steps), BATCH)
-    check(launches == expected(FLASH_PER_STEP, steps),
-          f"self-attention train steps launched {launches}, want {FLASH_PER_STEP} per step")
+    want = {**FLASH_PER_STEP, **totals(SELF_PLAN)}
+    check(launches == expected(want, steps),
+          f"self-attention train steps launched {launches}, want {want} per step")
     want_routes = routes_expected(launches)
     check(kernel["routes"] == want_routes,
           f"the steps' flash launches took {kernel['routes']}, want {want_routes}")
@@ -3031,8 +3208,8 @@ def phase_self_train_grads(fl, cfg, weights, batch):
         launches, routes = read_counters(), read_route_counters()
     want = FLASH_PER_STEP["flash_dq"]
     check(len(calls) == want, f"{len(calls)} flash backward calls in one step, want {want}")
-    check(launches == expected({"flash_fwd": FLASH_PER_STEP["flash_fwd"], "flash_dq": want,
-                                "flash_dkv": want}), f"one step's gradients launched {launches}")
+    check(launches == expected({**FLASH_PER_STEP, **totals(SELF_PLAN)}),
+          f"one step's gradients launched {launches}")
     check(routes == routes_expected(FLASH_PER_STEP), f"one step's flash launches took {routes}")
     check(all(math.isfinite(x) for x in (d_loss, g_loss, r1)) and r1 > 0.0,
           f"self-attention step losses {d_loss}, {g_loss}, r1 {r1}")
@@ -3144,8 +3321,8 @@ def sigmoid_entry(kernel, rows, launches, serve_launches, routes):
                                     if r["dtype"] == "bfloat16") else "operations"),
         "library_ms": None,
         "shapes": [dict(N=r["shape"]["N"], HW=r["shape"]["HW"], C=r["shape"]["C"],
-                        dtype=r["dtype"], launches_per_step=mult[(
-                            r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])],
+                        dtype=r["dtype"], launches_per_step=mult.get((
+                            r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"]), 0),
                         **{k: r[kernel][k] for k in ("ms", "plain_ms", "bound_ms", "route",
                                                      "ms_simt", "ms_unsplit", "splits")
                            if k in r[kernel]})
@@ -3158,19 +3335,23 @@ def sigmoid_entry(kernel, rows, launches, serve_launches, routes):
     bf16 = [r for r in timed_rows if r["dtype"] == "bfloat16"]
     entry["routes"] = sorted({r[kernel]["route"] for r in bf16})
     entry["launches_mma"] = routes[kernel]["mma"]
-    entry["ms_simt"] = sum(mult[(r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])]
+    entry["ms_simt"] = sum(mult.get((r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"]), 0)
                            * r[kernel].get("ms_simt", r[kernel]["ms"]) for r in bf16)
     return entry
 
 
-def stage_entry(kernel, times, max_err, launches, forms=None, routes=None):
+def stage_entry(kernel, times, max_err, launches, forms=None, routes=None, forced=None):
     """The {"kernels": [...]} entry of a fused-stage kernel: per ffhq_512
     train step at batch 16 (ffhq_512-sigmoid for stage_sigmoid), each
     form's time times its launches a step; for the kernels of
     STAGE_ROUTED beside the simt route's time of the same launches, with
     the launches the main path's run made on the mma route (`routes`,
-    read_stage_routes())."""
-    forms = forms or FFHQ_STAGE_PER_STEP[kernel]
+    read_stage_routes()). A kernel the profile takes off the main path
+    reports the launches of the run with every stage fused (`forced`)."""
+    forms = FFHQ_STAGE_PER_STEP[kernel] if forms is None else forms
+    off_path = not forms
+    if off_path:  # the profile fuses no stage of this form: one launch at 512^2
+        forms = {"plain@512": 1}
 
     def total(key):
         return sum(times[(kernel, f)][key] * k for f, k in forms.items())
@@ -3199,12 +3380,205 @@ def stage_entry(kernel, times, max_err, launches, forms=None, routes=None):
         entry["routes"] = ["mma"]
         entry["launches_mma"] = routes[kernel]["mma"]
         entry["ms_simt"] = total("ms_simt")  # the same launches on the simt route
+    if off_path:
+        entry.update(launches=forced[kernel], main_path=False, launches_source=(
+            "phase 13: ffhq_512's widths at 64^2 with every stage fused; the gate profile "
+            "fuses no stage that launches it on ffhq_512's path, so ms, plain_ms and "
+            "bound_ms are one launch at 512^2"))
     return entry
 
 
 def per_step(rows, kind, mult, key):
-    return sum(mult[(r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])] * r[kind][key]
-               for r in rows if r["dtype"] == "bfloat16")
+    """Each bf16 row's `key` times its shape's launches in `mult` (none
+    where `mult` does not name the shape), summed."""
+    return sum(mult.get((r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"]), 0)
+               * r[kind][key] for r in rows if r["dtype"] == "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: several steps a call (make_multi_step) and sampling
+# ---------------------------------------------------------------------------
+
+
+def stacked_batch(k, n, res=128, seed=0):
+    """k different uint8 batches of n images, [k, n, res, res, 3], and their
+    labels, on the card."""
+    import numpy as np
+
+    host = np.random.default_rng(seed).integers(0, 256, (k, n, res, res, 3), dtype=np.uint8)
+    return {"image": torch.from_numpy(host).to("cuda"),
+            "label": torch.zeros((k, n), dtype=torch.long, device="cuda")}
+
+
+def state_values(state):
+    """A copy of a train state's tensors, step and generator state."""
+    from locate_tpu_torch.train.state import state_tensors
+
+    torch.cuda.synchronize()
+    return ({k: t.clone() for k, t in state_tensors(state).items()}, state.step,
+            state.rng.get_state())
+
+
+def differences(a, b) -> dict:
+    """{name: largest |a - b|} of two state_values' tensors and two lists of
+    call metrics, only where they differ; the step count and the generator
+    state under "step" and "rng"."""
+    out = {}
+    for k in a[0]:
+        if not torch.equal(a[0][k], b[0][k]):
+            out[k] = float((a[0][k].double() - b[0][k].double()).abs().max())
+    if a[1] != b[1]:
+        out["step"] = abs(a[1] - b[1])
+    if not torch.equal(a[2], b[2]):
+        out["rng"] = 1.0
+    for i, (ma, mb) in enumerate(zip(a[3], b[3])):
+        for k in ma:
+            if not torch.equal(ma[k], mb[k]):
+                out[f"call{i}.{k}"] = float((ma[k].double() - mb[k].double()).abs().max())
+    return out
+
+
+def graph_vs_eager(cfg, k, calls, n, res, phase):
+    """One state, `calls` calls of `make_multi_step(step, k)` on the card
+    (CUDA graphs of the step, R1's steps a second graph) against calls * k
+    eager steps on the same k batches, twice: params, optimizer states,
+    EMA, guard counters, step, generator state and each call's reduced
+    metrics bitwise equal to the eager run's, or, where two eager runs
+    already differ, the graph's differences within the eager runs' own;
+    each captured variant launches the kernels of one eager step."""
+    from locate_tpu_torch.train.graph import StepGraphs
+    from locate_tpu_torch.train.state import restore, snapshot
+    from locate_tpu_torch.train.step import make_multi_step, reduce_metrics
+
+    gan, state, step = trainer(cfg)
+    batches = stacked_batch(k, n, res)
+    saved = snapshot(state)
+
+    def eager():
+        restore(state, saved)
+        metrics = []
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            history = [step(state, {name: t[i] for name, t in batches.items()})[1]
+                       for i in range(k)]
+            metrics.append(reduce_metrics({key: torch.stack([m[key] for m in history])
+                                           for key in history[0]}))
+        values = state_values(state)
+        return (*values, metrics), time.perf_counter() - t0
+
+    reset_counters()
+    first, eager_s = eager()
+    steps = calls * k
+    launches = read_counters()
+    check(all(v % steps == 0 for v in launches.values()),
+          f"{phase}: eager launches {launches} over {steps} steps")
+    per_step = {name: v // steps for name, v in launches.items()}
+
+    restore(state, saved)
+    multi = make_multi_step(step, k)
+    graphs = multi.graphs = StepGraphs(step, k, state, batches, {})
+    graphs.load(batches, {})
+    flags = sorted({step.r1_due(saved.step + c * k + i) for c in range(calls) for i in range(k)})
+    graphs.warm_up(flags)
+    captured = {}
+    for r1 in flags:
+        reset_counters()
+        graphs.capture(r1)
+        captured["r1" if r1 else "plain"] = read_counters()
+        check(captured["r1" if r1 else "plain"] == per_step,
+              f"{phase}: the {'R1' if r1 else 'plain'} step's capture launched "
+              f"{captured['r1' if r1 else 'plain']}, an eager step {per_step}")
+    reset_counters()
+    metrics = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        metrics.append(multi(state, batches)[1])
+    graph = (*state_values(state), metrics)
+    graph_s = time.perf_counter() - t0
+    check(read_counters() == expected({}), f"{phase}: replays called a wrapper")
+    diff = differences(first, graph)
+    # a second eager run only where the graph's differs: if two eager runs
+    # differ too, an op of the step is not repeatable
+    spread = differences(first, eager()[0]) if diff else {}
+    if spread:
+        # an op of the eager step is not repeatable: the graph's differences
+        # from the first eager run within the second run's
+        check(set(diff) <= set(spread) and all(diff[k] <= spread[k] for k in diff),
+              f"{phase}: graph vs eager {diff}, beyond the eager runs' spread {spread}")
+    else:
+        check(not diff, f"{phase}: graph vs eager differ bitwise: {diff}")
+    history = [{key: float(v) for key, v in m.items()} for m in metrics]
+    for m in history:
+        check(all(math.isfinite(v) for v in m.values()), f"{phase}: metrics {m}")
+    out = dict(config=cfg.name, batch=n, steps_per_call=k, calls=calls,
+               graph_variants=sorted(captured), launches_per_step=per_step,
+               bitwise_equal=not diff, eager_spread=spread, graph_vs_eager=diff,
+               eager_seconds_per_step=eager_s / steps, graph_seconds_per_step=graph_s / steps,
+               metrics=history)
+    del gan, state, step, multi, graphs, batches, first, graph, saved
+    release_memory()
+    return out
+
+
+def phase_step_graphs():
+    """The CUDA-graph step against eager steps: lsun_bedroom_128's bench
+    config at batch 64, spc=4; the preset as shipped (R1 every 16, both
+    guards) at spc=16, two calls from step 0; ffhq_512 with each gate at
+    spc=2 under the raised guard; lsun_bedroom_128 with self-attention at
+    phase 24's config, spc=2."""
+    from locate_tpu_torch import cli
+
+    rows = {}
+    rows["lsun_bench_config"] = graph_vs_eager(cli.bench_config(BATCH, []), 4, 1, BATCH, 128,
+                                               "graph-lsun-bench")
+    shipped = lsun_config()
+    check(shipped.train.r1_interval == 16 and shipped.train.r1_gamma > 0
+          and shipped.train.grad_norm_limit > 0 and shipped.train.max_nonfinite_skips > 0,
+          "lsun_bedroom_128 is not the shipped recipe")
+    rows["lsun_shipped"] = graph_vs_eager(shipped, 16, 2, BATCH, 128, "graph-lsun-shipped")
+    check(rows["lsun_shipped"]["graph_variants"] == ["plain", "r1"],
+          "the shipped preset's calls did not capture an R1 step")
+    for name, overrides in (("ffhq_softmax", {}), ("ffhq_sigmoid", SIGMOID)):
+        cfg = ffhq_config(**{"train.grad_norm_limit": str(RAISED_GRAD_NORM_LIMIT), **overrides})
+        rows[name] = graph_vs_eager(cfg, 2, 1, FFHQ_BATCH, 512, f"graph-{name}")
+    rows["self_attention"] = graph_vs_eager(
+        self_config(**{"model.attention_stages": SELF_TRAIN_STAGES}), 2, 1, BATCH, 128,
+        "graph-self-attention")
+    say("step-graphs", **rows)
+    return rows
+
+
+def phase_sample_graph():
+    """bench-sample's CUDA graph (draw, forward, uint8) against eager
+    `generate_samples` from the same seed: lsun_bedroom_128 at batch 64,
+    ffhq_512 at 16, three batches each, bitwise."""
+    from locate_tpu_torch.io.sampling import generate_samples
+    from locate_tpu_torch.models.gan import model_config
+    from locate_tpu_torch.models.generator import build_generator
+    from locate_tpu_torch.train.graph import SampleGraph
+
+    rows = {}
+    for name, cfg, n in (("lsun_bedroom_128", lsun_config(), BATCH),
+                         ("ffhq_512", ffhq_config(), FFHQ_BATCH)):
+        model = build_generator(model_config(cfg), cfg.train.compute_dtype, "cuda").eval()
+        randomize_logit_convs(model, seed=1, scale=0.25)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        eager = [generate_samples(model, gen, n) for _ in range(3)]
+        gen.manual_seed(5)
+        sample = SampleGraph(model, gen, n)
+        graph = [sample() for _ in range(3)]
+        same = all((a == b).all() for a, b in zip(eager, graph))
+        check(same, f"{name}: graph sampling differs from eager sampling")
+        check(len({a.tobytes() for a in graph}) == 3, f"{name}: replays drew the same latents")
+        idle, _ = profile_calls(sample, calls=3)
+        rows[name] = dict(batch=n, bitwise_equal=same, images=list(graph[0].shape),
+                          device_idle_share_graph="not measured" if idle is None else idle)
+        del model, sample, eager, graph
+        release_memory()
+    say("sample-graphs", **rows)
+    return rows
 
 
 def cuobjdump_path() -> str:
@@ -3438,7 +3812,7 @@ def gate_entry(kernel, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_
     if gate_routes is not None:  # two routes: the mma shapes beside their simt time
         entry["routes"] = sorted({r[kernel]["route"] for r in lsun})
         entry["launches_mma"] = gate_routes["mma"]
-        entry["ms_simt"] = sum(mult[(r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"])]
+        entry["ms_simt"] = sum(mult.get((r["shape"]["HW"], r["shape"]["C"], r["shape"]["Hd"]), 0)
                                * r[kernel].get("ms_simt", r[kernel]["ms"])
                                for r in lsun if r["dtype"] == "bfloat16")
         for shape, r in zip(entry["shapes"], rows):
@@ -3492,7 +3866,7 @@ def main() -> int:
     say("ffhq-train-raised-guard", **raised_guard_steps(3, "ffhq-train-raised-guard"))
     phase_ffhq_checked_backward(fs, fa, ffhq_cfg, ffhq_weights)
     del ffhq_weights
-    phase_ffhq_grads_64(fs, fa, blocks)
+    forced_launches = phase_ffhq_grads_64(fs, fa, blocks)
     phase_fusion_timing(blocks)
 
     # ffhq_512 with the sigmoid gate: its three kernels, serving, training
@@ -3508,7 +3882,7 @@ def main() -> int:
     phase_ffhq_grads_64(fs, fa, blocks, SIGMOID,
                         ("stage_sigmoid", "stage_conv", "stage_conv_bwd", "sigmoid_bwd"),
                         "ffhq-sigmoid-train-grads-64")
-    phase_sigmoid_threshold()
+    phase_retune_table()
 
     # lsun_bedroom_128 with full self-attention: the three flash kernels,
     # serving (all six layers), training (five layers a net, their main path)
@@ -3518,10 +3892,15 @@ def main() -> int:
     phase_self_train_grads(fl, self_cfg, self_weights, self_batch)
     del self_weights
 
+    # several steps a call: CUDA graphs of the step against eager steps on
+    # each path; bench-sample's graph against eager sampling
+    phase_step_graphs()
+    phase_sample_graph()
+
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
                       gate_routes.get(k)) for k in KERNELS]
-    out += [stage_entry(k, stage_times, stage_err, ffhq_launches, routes=ffhq_routes)
-            for k in STAGE_KERNELS]
+    out += [stage_entry(k, stage_times, stage_err, ffhq_launches, routes=ffhq_routes,
+                        forced=forced_launches) for k in STAGE_KERNELS]
     out += [sigmoid_entry(k, sigmoid_rows, sig_launches, sig_serve, sig_routes)
             for k in SIGMOID_KERNELS]
     out.append(stage_entry("stage_sigmoid", sig_stage_times, sig_stage_err, sig_launches,

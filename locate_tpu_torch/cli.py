@@ -1,6 +1,6 @@
 """Command line of the PyTorch port, counterpart of `locate_tpu/cli.py`.
 
-    python -m locate_tpu_torch bench [batch] [steps] [xla] [key=value ...] [--device=D]
+    python -m locate_tpu_torch bench [batch] [steps] [xla] [spc=N] [key=value ...] [--device=D]
     python -m locate_tpu_torch bench-sample lsun_bedroom_128 use_pallas=true --batch=64
     python -m locate_tpu_torch sample lsun_bedroom_128 --generator=PATH.npz --out=grid.png
 
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import sys
 import time
 from typing import List, Optional, Tuple
@@ -63,19 +64,20 @@ def bench_modes(argv: List[str]) -> Tuple[int, int, List[str]]:
                              "(usage: bench [batch] [steps] [xla|fused|e2e|spc=N])")
     batch = int(nums[0]) if nums else 128
     steps = int(nums[1]) if len(nums) > 1 else 20
-    if batch < 1 or steps < 1:
-        raise SystemExit("bench: batch and steps must be >= 1")
+    if batch < 1 or steps < 1 or any(m.startswith("spc=") and int(m[4:]) < 1
+                                     for m in modes):
+        raise SystemExit("bench: batch, steps and spc must be >= 1")
     return batch, steps, modes
 
 
 def bench_config(batch: int, modes: List[str], overrides: Optional[dict] = None) -> Config:
-    """The config bench.py (:110-175) builds for `modes`: lsun_bedroom_128
+    """The config bench.py (:101-175) builds for `modes`: lsun_bedroom_128
     at 128^2, bf16, use_pallas unless `xla`, the reference-parity pins
-    (R1, ADA, LeCam, both update guards off), one device, and for spc=N the
-    cadences that steps_per_call=N requires. The port's default is one
-    step per call (bench.py's is 16). `overrides` (config key -> value, as
+    (R1, ADA, LeCam, both update guards off), one device, and
+    `steps_per_call` from spc=N, 16 by default (1 for e2e), with the
+    cadences it requires. `overrides` (config key -> value, as
     `model.attention.kind=self` on the command line) are applied last."""
-    spc = 1
+    spc = 1 if "e2e" in modes else 16
     for m in modes:
         if m.startswith("spc="):
             spc = int(m[4:])
@@ -134,26 +136,68 @@ def step_flops(cfg: Config, device, batch: int) -> int:
     return int(counter.get_total_flops())
 
 
-def cmd_bench(argv: List[str]) -> int:
-    """`bench [batch] [steps] [xla|fused|e2e|spc=N] [key=value ...] [--device D]`:
-    training throughput of the lsun_bedroom_128 train step, the counterpart
-    of `locate-tpu bench` (bench.py) with one step per call: 10 warm-up
-    steps, then the best of 3 windows of `steps` steps on one fixed uint8
-    batch (numpy seed 0). `key=value` arguments override the config (for
-    example `model.attention.kind=self model.attention_stages=4,8,16,32,64`).
-    One JSON line: images/sec, flops per step, MFU."""
+def bench_images_per_sec(cfg: Config, device, batch: int, steps: int) -> float:
+    """Images/sec of the train step at `train.steps_per_call` = k steps a call (`make_multi_step`: a CUDA
+    graph of the step replayed k times on the card): ceil(10 / k) warm-up
+    calls, then the best of 3 windows of max(3, steps // k) calls, on one
+    fixed uint8 batch a step (numpy seed 0), as bench.py times it; the
+    last call's metrics must be finite."""
     import numpy as np
     import torch
 
-    from locate_tpu_torch.device import device_name, resolve_device
     from locate_tpu_torch.models.gan import build_gan
     from locate_tpu_torch.train.state import create_train_state
-    from locate_tpu_torch.train.step import make_train_step
+    from locate_tpu_torch.train.step import make_multi_step, make_train_step
+
+    k = cfg.train.steps_per_call
+    gan = build_gan(cfg, device)
+    step = make_multi_step(make_train_step(cfg, gan), k)
+    state = create_train_state(cfg, gan)
+    res = cfg.data.resolution
+    shape = (batch, res, res, 3) if k == 1 else (k, batch, res, res, 3)
+    host = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    fixed = {"image": torch.from_numpy(host).to(device),
+             "label": torch.zeros(shape[:-3], dtype=torch.long, device=device)}
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    for _ in range(-(-10 // k)):
+        state, metrics = step(state, fixed)
+    sync()
+    calls = max(3, steps // k)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            state, metrics = step(state, fixed)
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    metrics = {name: float(v) for name, v in metrics.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"bench: non-finite metrics {metrics}")
+    return calls * k * batch / best
+
+
+def cmd_bench(argv: List[str]) -> int:
+    """`bench [batch] [steps] [xla|fused|e2e|spc=N] [key=value ...] [--device D]`:
+    training throughput of the lsun_bedroom_128 train step, the counterpart
+    of `locate-tpu bench` (bench.py): k = spc (16 by default) steps a call,
+    timed as `bench_images_per_sec` says; for k > 1 also one step a call
+    (eager), as `single_step_images_per_sec`. `key=value` arguments
+    override the config (for example `model.attention.kind=self
+    model.attention_stages=4,8,16,32,64`). One JSON line: images/sec,
+    flops per step, MFU."""
+    import torch
+
+    from locate_tpu_torch.device import device_name, resolve_device
 
     flags, bare = _split_args(argv)
     pairs = [a for a in bare if "=" in a and not a.startswith("spc=")]
     batch, steps, modes = bench_modes([a for a in bare if a not in pairs])
-    cfg = bench_config(batch, modes, parse_cli_overrides(pairs))
+    overrides = parse_cli_overrides(pairs)
+    cfg = bench_config(batch, modes, overrides)
     if "fused" in modes:
         raise NotImplementedError(
             "bench fused: the fused simultaneous step (train.fused_step) is not "
@@ -161,51 +205,36 @@ def cmd_bench(argv: List[str]) -> int:
     if "e2e" in modes:
         raise NotImplementedError(
             "bench e2e: the data pipeline is not ported yet (ROADMAP.md Queue 1 item 7)")
-    if cfg.train.steps_per_call > 1:
-        raise NotImplementedError(
-            "bench spc=N: several steps per call need the CUDA-graph analogue of "
-            "steps_per_call, not ported yet (ROADMAP.md Queue 1 item 6)")
     device = resolve_device(_str_flag(flags, "device"))
     flops = step_flops(cfg, device, batch)
-
-    gan = build_gan(cfg, device)
-    step = make_train_step(cfg, gan)
-    state = create_train_state(cfg, gan)
-    res = cfg.data.resolution
-    host = np.random.default_rng(0).integers(0, 256, (batch, res, res, 3), dtype=np.uint8)
-    fixed = {"image": torch.from_numpy(host).to(device),
-             "label": torch.zeros(batch, dtype=torch.long, device=device)}
-
-    def sync():
+    k = cfg.train.steps_per_call
+    images_per_sec = bench_images_per_sec(cfg, device, batch, steps)
+    single = None
+    if k > 1:
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    for _ in range(10):
-        state, metrics = step(state, fixed)
-    sync()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            state, metrics = step(state, fixed)
-        sync()
-        best = min(best, time.perf_counter() - t0)
-    if not all(bool(torch.isfinite(v).all()) for v in metrics.values()):
-        raise RuntimeError(f"bench: non-finite metrics {metrics}")
-    steps_per_sec = steps / best
+            torch.cuda.empty_cache()
+        one = bench_config(batch, [m for m in modes if not m.startswith("spc=")] + ["spc=1"],
+                           overrides)
+        single = bench_images_per_sec(one, device, batch, steps)
+    res = cfg.data.resolution
     name = device_name(device)
+
+    def mfu(ips):  # a CPU run has no tensor-core peak to hold its rate against
+        return round(flops * ips / batch / PEAK_BF16_FLOPS, 4) if device.type == "cuda" else None
+
     print(json.dumps({
         "metric": (f"images/sec @ {res}x{res} GAN train step (bf16, batch {batch}, "
                    f"device step, {name})"),
-        "value": round(steps_per_sec * batch, 2),
+        "value": round(images_per_sec, 2),
         "unit": "images/sec",
         "batch": batch,
         "use_pallas": cfg.use_pallas,
-        "sec_per_step": round(1.0 / steps_per_sec, 6),
+        "steps_per_call": k,
+        "sec_per_step": round(batch / images_per_sec, 6),
         "flops_per_step": flops,
-        # a CPU run has no tensor-core peak to hold its rate against
-        "mfu": (round(flops * steps_per_sec / PEAK_BF16_FLOPS, 4)
-                if device.type == "cuda" else None),
+        "mfu": mfu(images_per_sec),
+        **({"single_step_images_per_sec": round(single, 2),
+            "single_step_mfu": mfu(single)} if single is not None else {}),
         "device": name,
     }))
     return 0
@@ -214,14 +243,18 @@ def cmd_bench(argv: List[str]) -> int:
 def cmd_bench_sample(argv: List[str]) -> int:
     """`bench-sample PRESET [overrides] [--batch N] [--steps N] [--device D]`:
     serving throughput, images/sec generating in `train.compute_dtype`,
-    device compute and the uint8 copy to the host included. Times freshly
-    initialized weights (throughput does not depend on their values)."""
+    device compute and the uint8 copy to the host included; on the card
+    each batch is one replay of a CUDA graph of the latent draw, the
+    forward and the uint8 conversion (`train/graph.py:SampleGraph`). Times
+    freshly initialized weights (throughput does not depend on their
+    values)."""
     import torch
 
     from locate_tpu_torch.device import device_name, resolve_device
     from locate_tpu_torch.io.sampling import generate_samples
     from locate_tpu_torch.models.gan import model_config
     from locate_tpu_torch.models.generator import build_generator
+    from locate_tpu_torch.train.graph import SampleGraph
 
     preset = argv[0] if argv else "cifar10_32"
     flags, bare = _split_args(argv[1:])
@@ -241,12 +274,17 @@ def cmd_bench_sample(argv: List[str]) -> int:
     model = build_generator(model_config(cfg), cfg.train.compute_dtype, device).eval()
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    generate_samples(model, gen, batch)  # warm-up: kernel build, cuDNN plans
+    if device.type == "cuda":  # one captured graph (its warm-up builds the kernels)
+        sample = SampleGraph(model, gen, batch)
+    else:
+        def sample():
+            return generate_samples(model, gen, batch)
+        sample()  # warm-up
     best = float("inf")
     for _ in range(3):
         t0 = time.perf_counter()
         for _ in range(steps):
-            generate_samples(model, gen, batch)
+            sample()
         best = min(best, time.perf_counter() - t0)
     print(json.dumps({
         "metric": (
@@ -257,6 +295,7 @@ def cmd_bench_sample(argv: List[str]) -> int:
         "value": round(steps * batch / best, 2),
         "unit": "images/sec",
         "sec_per_batch": round(best / steps, 5),
+        "cuda_graph": device.type == "cuda",
         "devices": 1,
         "weights": "init",
     }))

@@ -14,14 +14,14 @@ never part of a fused pair.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
 from locate_tpu_torch.config import ModelConfig
-from locate_tpu_torch.ops import initializers
+from locate_tpu_torch.ops import gate_profile, initializers
 from locate_tpu_torch.ops.activations import Act
 from locate_tpu_torch.ops.attention import LocateAttention
 from locate_tpu_torch.ops.conv import (Conv2d, DownsampleAvg, FactorizedConv2d,
@@ -30,22 +30,19 @@ from locate_tpu_torch.ops.fused_stage import fused_stage
 from locate_tpu_torch.ops.norm import make_norm
 from locate_tpu_torch.ops.self_attention import SelfAttention
 
-# The port's copy of the JAX package's `ops/pallas/gate_profile.json`
-# `min_locations`: a stage flavor fuses at or above its count of (fine)
-# locations. Kept at the JAX values so that both packages run the same
-# kernels at the same shapes; whether fusion pays on the H100 is measured
-# (PERF.md), not yet acted on.
-MIN_LOCATIONS = {"pair": 262144, "conv": 262144, "up_pair": 262144, "up_conv": 262144,
-                 "down_pair": 262144, "down_conv": 262144}
-# An int here overrides MIN_LOCATIONS for every flavor (tests force fusion
-# with it), as the JAX package's `FUSE_MIN_LOCATIONS` does.
+# An int here overrides the profile's threshold for every flavor (tests and
+# chip_smoke.py force fusion with it), as the JAX package's
+# `FUSE_MIN_LOCATIONS` does.
 FUSE_MIN_LOCATIONS: Optional[int] = None
 
 
 def fuse_threshold(flavor: str) -> int:
+    """The count of (fine) locations at or above which a stage flavor runs
+    fused: `FUSE_MIN_LOCATIONS`, else the card's profile
+    (`ops/gate_profile.json`)."""
     if FUSE_MIN_LOCATIONS is not None:
         return FUSE_MIN_LOCATIONS
-    return MIN_LOCATIONS[flavor]
+    return gate_profile.min_locations(flavor)
 
 
 def _conv(in_ch, out_ch, cfg: ModelConfig, compute_dtype, gen):
@@ -134,43 +131,71 @@ class FusableStage(nn.Sequential):
         self.cfg = cfg
         self.compute_dtype = compute_dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not stage_fusable(self.cfg):
-            return super().forward(x)
+    def plan(self, height: int, width: int) -> List[Tuple[Optional[str], int, int, int, int]]:
+        """The calls `forward` makes on an input of height x width (coarse
+        under an upsample), in order: (flavor, first layer, layer count,
+        height, width of that call's input), where a flavor runs those
+        layers as one fused stage and None runs the one layer alone."""
         layers = list(self)
-        i = 0
+        if not stage_fusable(self.cfg):
+            calls = []
+            for i, layer in enumerate(layers):
+                calls.append((None, i, 1, height, width))
+                height, width = _resampled(layer, height, width)
+            return calls
+        calls, i = [], 0
         while i < len(layers):
             up = (isinstance(layers[i], UpsampleNearest) and i + 1 < len(layers)
                   and isinstance(layers[i + 1], ConvBlock))
-            if up:
-                i += 1  # the candidate conv block; x stays coarse
-            scale = 2 if up else 1
-            locs = x.shape[1] * x.shape[2] * scale * scale
-            block = layers[i]
-            conv = isinstance(block, ConvBlock)
-            nxt = layers[i + 1] if i + 1 < len(layers) else None
-            pair = (conv and isinstance(nxt, LocateAttention)
-                    and self.cfg.attention.residual)
-            if pair:
-                dn = (not up and i + 2 < len(layers)
-                      and isinstance(layers[i + 2], DownsampleAvg))
+            j = i + up  # the candidate conv block
+            locs = height * width * (4 if up else 1)
+            conv = isinstance(layers[j], ConvBlock)
+            nxt = layers[j + 1] if j + 1 < len(layers) else None
+            taken = None
+            if conv and isinstance(nxt, LocateAttention) and self.cfg.attention.residual:
+                dn = (not up and j + 2 < len(layers)
+                      and isinstance(layers[j + 2], DownsampleAvg))
                 flavor = "up_pair" if up else ("down_pair" if dn else "pair")
                 if locs >= fuse_threshold(flavor):
-                    x = _apply_fused_stage(self.cfg, block, nxt, x, self.compute_dtype,
-                                           up, dn)
-                    i += 3 if dn else 2
-                    continue
-            dn = not up and isinstance(nxt, DownsampleAvg)
-            flavor = "up_conv" if up else ("down_conv" if dn else "conv")
-            if conv and locs >= fuse_threshold(flavor):
-                x = _apply_fused_stage(self.cfg, block, None, x, self.compute_dtype, up, dn)
-                i += 2 if dn else 1
+                    taken = (flavor, 2 + dn)
+            if taken is None and conv:
+                dn = not up and isinstance(nxt, DownsampleAvg)
+                flavor = "up_conv" if up else ("down_conv" if dn else "conv")
+                if locs >= fuse_threshold(flavor):
+                    taken = (flavor, 1 + dn)
+            if taken is None:  # layer i alone (an unfused upsample too)
+                calls.append((None, i, 1, height, width))
+                height, width = _resampled(layers[i], height, width)
+                i += 1
                 continue
-            if up:
-                i -= 1  # not fused: run the upsample itself
-            x = layers[i](x)
-            i += 1
+            flavor, count = taken
+            calls.append((flavor, i, up + count, height, width))
+            for layer in layers[i:j + count]:
+                height, width = _resampled(layer, height, width)
+            i = j + count
+        return calls
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layers = list(self)
+        for flavor, i, _, _, _ in self.plan(x.shape[1], x.shape[2]):
+            if flavor is None:
+                x = layers[i](x)
+                continue
+            up, dn = flavor.startswith("up_"), flavor.startswith("down_")
+            attn = layers[i + up + 1] if flavor.endswith("pair") else None
+            x = _apply_fused_stage(self.cfg, layers[i + up], attn, x, self.compute_dtype,
+                                   up, dn)
         return x
+
+
+def _resampled(layer: nn.Module, height: int, width: int) -> Tuple[int, int]:
+    """The spatial size after `layer`: scaled up by an upsample, down by a
+    pool, else kept."""
+    if isinstance(layer, UpsampleNearest):
+        return layer.factor * height, layer.factor * width
+    if isinstance(layer, DownsampleAvg):
+        return height // layer.factor, width // layer.factor
+    return height, width
 
 
 def _attention_layer(cfg: ModelConfig, out_ch: int, compute_dtype, gen):
@@ -198,10 +223,12 @@ def generator_stage(in_ch: int, out_ch: int, resolution: int, cfg: ModelConfig,
 def run_stages(stages: nn.Sequential, x: torch.Tensor, remat: bool) -> torch.Tensor:
     """Run `stages` in turn. With `remat` (model.remat, `nn/core.py:maybe_remat`)
     each stage's activations are recomputed in the backward pass instead of
-    stored, through non-reentrant `torch.utils.checkpoint`."""
+    stored, through non-reentrant `torch.utils.checkpoint`; a stage draws no
+    random numbers, so no generator state is stashed for the recompute."""
     for stage in stages:
         if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(stage, x, use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(stage, x, use_reentrant=False,
+                                                  preserve_rng_state=False)
         else:
             x = stage(x)
     return x

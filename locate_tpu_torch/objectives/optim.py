@@ -21,6 +21,7 @@ its skips in total and in a row.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict
 
 import torch
@@ -44,6 +45,14 @@ def safe_global_norm(grads: torch.Tensor) -> torch.Tensor:
     return scale * (g / scale).square().sum().sqrt()
 
 
+@functools.lru_cache(maxsize=None)
+def device_scalar(value: float, device: str) -> torch.Tensor:
+    """`value` as an f32 0-d tensor on `device`, made once: a step that
+    reuses it copies nothing from the host (which a captured CUDA graph
+    refuses, and which would stall an eager step)."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
 def _safe_increment(count: torch.Tensor) -> torch.Tensor:
     """count + 1, held at the int32 maximum (optax's safe_increment)."""
     return torch.where(count < _INT32_MAX, count + 1, count)
@@ -63,6 +72,15 @@ class OptState:
     toolarge_count: torch.Tensor    # int32, updates skipped for size
     toolarge_streak: torch.Tensor   # int32, consecutive such skips
     grad_norm: torch.Tensor         # f32, the size guard's last reading
+
+    def copy_(self, other: "OptState") -> "OptState":
+        """Write `other`'s values into this state's own tensors, which keep
+        their addresses (a captured step reads and writes them there)."""
+        for f in dataclasses.fields(self):
+            mine, theirs = getattr(self, f.name), getattr(other, f.name)
+            if mine is not theirs:
+                mine.copy_(theirs)
+        return self
 
     def inner_fields(self):
         """The fields inside skip_if_too_large (what a size skip leaves)."""
@@ -105,8 +123,8 @@ class Optimizer:
         nu = (1 - c.beta2) * g.square() + c.beta2 * s.nu
         count = _safe_increment(s.count)
         t = count.float()
-        b1 = torch.tensor(c.beta1, device=g.device)
-        b2 = torch.tensor(c.beta2, device=g.device)
+        b1 = device_scalar(c.beta1, str(g.device))
+        b2 = device_scalar(c.beta2, str(g.device))
         mu_hat = mu / (1 - b1 ** t)
         nu_hat = nu / (1 - b2 ** t)
         updates = mu_hat / (nu_hat.sqrt() + c.eps) * -c.lr

@@ -26,18 +26,10 @@ import torch
 from torch import nn
 
 from locate_tpu_torch.config import AttentionConfig
-from locate_tpu_torch.ops import initializers
+from locate_tpu_torch.ops import gate_profile, initializers
 from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.conv import Conv2d
 from locate_tpu_torch.ops.fused_attention import fused_locate_attention
-
-# The JAX layer's threshold for the sigmoid gate's one-pass kernel
-# (`fused_profitable`: fused at H*W <= 256, the XLA composition above), a
-# measurement of the TPU's. Kept so that both packages run the same kernels
-# at the same shapes; whether it suits the H100 is measured (PERF.md), not
-# yet acted on.
-SIGMOID_FUSED_MAX_LOCATIONS = 256
-
 
 @functools.lru_cache(maxsize=64)
 def _coord_features_np(height: int, width: int, features: int) -> np.ndarray:
@@ -132,9 +124,10 @@ class LocateAttention(nn.Module):
         return self._pos[key]
 
     def fused_profitable(self, hw: int) -> bool:
-        """The JAX layer's dispatch (`fused_profitable`): the softmax gate
-        always runs fused, the sigmoid gate at H*W <= SIGMOID_FUSED_MAX_LOCATIONS."""
-        return self.cfg.mode == "softmax" or hw <= SIGMOID_FUSED_MAX_LOCATIONS
+        """The JAX layer's dispatch (`fused_profitable`) on the card's
+        profile: the softmax gate always runs fused, the sigmoid gate where
+        one of `gate_profile.sigmoid_ranges()` holds H*W."""
+        return self.cfg.mode == "softmax" or gate_profile.sigmoid_fused(hw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         _, h, w, _ = x.shape

@@ -67,6 +67,42 @@ class TrainState:
     ema_params: Optional[torch.Tensor]  # flat f32 EMA of g_params.flat, or None
 
 
+def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
+    """Every tensor the step updates in place, by name: both networks' flat
+    parameters, both optimizer states' fields and the EMA shadow."""
+    out = {"g_params": state.g_params.flat, "d_params": state.d_params.flat}
+    for net, opt in (("g", state.g_opt_state), ("d", state.d_opt_state)):
+        for f in dataclasses.fields(opt):
+            out[f"{net}_opt.{f.name}"] = getattr(opt, f.name)
+    if state.ema_params is not None:
+        out["ema_params"] = state.ema_params
+    return out
+
+
+@dataclasses.dataclass
+class Snapshot:
+    """A copy of a state's values: its tensors, step and generator state."""
+    tensors: Dict[str, torch.Tensor]
+    step: int
+    rng: torch.Tensor
+
+
+def snapshot(state: TrainState) -> Snapshot:
+    return Snapshot({k: t.clone() for k, t in state_tensors(state).items()}, state.step,
+                    state.rng.get_state())
+
+
+def restore(state: TrainState, snap: Snapshot) -> TrainState:
+    """Put a snapshot's values back into the state's own tensors (which
+    keep their addresses), its step and its generator."""
+    with torch.no_grad():
+        for k, t in state_tensors(state).items():
+            t.copy_(snap.tensors[k])
+    state.step = snap.step
+    state.rng.set_state(snap.rng)
+    return state
+
+
 def create_train_state(cfg: Config, gan: GAN, seed: int = 0) -> TrainState:
     """The state of a fresh run of `gan`, whose modules hold their initial
     weights; `seed` seeds the step's random generator."""

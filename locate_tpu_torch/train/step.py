@@ -13,11 +13,18 @@ parameter tensors and runs the plain composition (`d_apply_r1` in JAX);
 (`torch.utils.checkpoint`, non-reentrant).
 
 The step updates the state in place (the parameter buffers, the
-optimizer and EMA tensors, the step count) and returns it with its
-metrics, 0-d tensors on the device under the JAX metric names; nothing in
-the step waits for the host. Latents and labels come from the state's
-generator unless the caller passes them (`z_d`, `z_g`, `labels_d`,
-`labels_g`), which is how tests feed JAX's threefry draws.
+optimizer and EMA tensors, written with `copy_` so that every tensor keeps
+its address, and the step count) and returns it with its metrics, 0-d
+tensors on the device under the JAX metric names; nothing in the step
+waits for the host or copies from it, so a CUDA graph can capture it
+(`train/graph.py`). Latents and labels come from the state's generator
+unless the caller passes them (`z_d`, `z_g`, `labels_d`, `labels_g`),
+which is how tests feed JAX's threefry draws.
+
+`make_multi_step(step, k)` is the counterpart of the JAX package's: k
+steps a call over batches with a leading [k] axis, the metrics reduced as
+`_LAST_METRICS` says; on the card the k steps are replays of a captured
+graph of one step.
 """
 
 from __future__ import annotations
@@ -102,15 +109,23 @@ class TrainStep:
 
     def d_apply_r1(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
         """D for the R1 penalty: the plain twin under use_pallas, its
-        forward recomputed in the backward pass under train.r1_remat."""
+        forward recomputed in the backward pass under train.r1_remat (it
+        draws no random numbers, so no generator state is stashed)."""
         if self.tcfg.r1_remat:
             return torch.utils.checkpoint.checkpoint(self._r1_twin, x, labels,
-                                                     use_reentrant=False)
+                                                     use_reentrant=False,
+                                                     preserve_rng_state=False)
         return self._r1_twin(x, labels)
 
-    def d_loss_and_grads(self, state: TrainState, real, labels, z_d, labels_d):
+    def r1_due(self, step: int) -> bool:
+        """Whether lazy R1 fires at optimizer step `step` (host integer)."""
+        return self.tcfg.r1_gamma > 0.0 and step % self.tcfg.r1_interval == 0
+
+    def d_loss_and_grads(self, state: TrainState, real, labels, z_d, labels_d,
+                         r1: Optional[bool] = None):
         """(D loss, its aux metrics, flat D gradient) on (real, G(z_d)),
-        G's forward under no_grad; R1 joins the loss at its steps."""
+        G's forward under no_grad; R1 joins the loss where `r1` says (by
+        default at the steps of its cadence)."""
         tcfg, D = self.tcfg, self.gan.discriminator
         with torch.no_grad():
             fake = self.gan.generator(z_d, labels_d)
@@ -120,7 +135,7 @@ class TrainStep:
         aux = {"real_logits": real_logits.float().mean(),
                "fake_logits": fake_logits.float().mean()}
         if tcfg.r1_gamma > 0.0:
-            if state.step % tcfg.r1_interval == 0:
+            if self.r1_due(state.step) if r1 is None else r1:
                 pen = r1_penalty(self.d_apply_r1, real, labels)
                 pen = pen * (tcfg.r1_gamma * tcfg.r1_interval)
             else:
@@ -160,39 +175,51 @@ class TrainStep:
             labels_g = gan.sample_labels(state.rng, n)
         return real, labels, z_d, labels_d, z_g, labels_g
 
-    def __call__(self, state: TrainState, batch: Batch, *,
-                 z_d: Optional[torch.Tensor] = None, z_g: Optional[torch.Tensor] = None,
-                 labels_d: Optional[torch.Tensor] = None,
-                 labels_g: Optional[torch.Tensor] = None) -> Tuple[TrainState, Metrics]:
+    def update(self, state: TrainState, real, labels, z_d, labels_d, z_g, labels_g,
+               r1: bool) -> Metrics:
+        """One step's device work on prepared inputs, R1 included where `r1`
+        says: D's update, G's through the updated D, the EMA, all in the
+        state's own tensors; the metrics. The step count is the caller's."""
         tcfg = self.tcfg
-        real, labels, z_d, labels_d, z_g, labels_g = self.prepare(
-            state, batch, z_d, z_g, labels_d, labels_g)
         # 1. D on (real, detached fake)
-        d_loss, d_aux, d_grads = self.d_loss_and_grads(state, real, labels, z_d, labels_d)
-        state.d_opt_state = _apply(self.d_opt, state.d_params, state.d_opt_state, d_grads)
+        d_loss, d_aux, d_grads = self.d_loss_and_grads(state, real, labels, z_d, labels_d,
+                                                       r1=r1)
+        _apply(self.d_opt, state.d_params, state.d_opt_state, d_grads)
         # 2. G through the updated D
         g_loss, g_grads = self.g_loss_and_grads(state, z_g, labels_g)
-        state.g_opt_state = _apply(self.g_opt, state.g_params, state.g_opt_state, g_grads)
+        _apply(self.g_opt, state.g_params, state.g_opt_state, g_grads)
         # 3. EMA of G
         if state.ema_params is not None:
-            state.ema_params = ema_update(state.ema_params, state.g_params.flat,
-                                          tcfg.ema_decay)
+            with torch.no_grad():
+                state.ema_params.copy_(ema_update(state.ema_params, state.g_params.flat,
+                                                  tcfg.ema_decay))
         metrics = {"d_loss": d_loss, "g_loss": g_loss,
                    "d_grad_norm": safe_global_norm(d_grads),
                    "g_grad_norm": safe_global_norm(g_grads), **d_aux}
         for prefix, s in (("d_", state.d_opt_state), ("g_", state.g_opt_state)):
             for k, v in guard_stats(s, tcfg).items():
                 if k != "grad_norm_guard":
-                    metrics[prefix + k] = v
+                    # a copy: the state's tensor moves on at the next step
+                    metrics[prefix + k] = v.clone()
+        return metrics
+
+    def __call__(self, state: TrainState, batch: Batch, *,
+                 z_d: Optional[torch.Tensor] = None, z_g: Optional[torch.Tensor] = None,
+                 labels_d: Optional[torch.Tensor] = None,
+                 labels_g: Optional[torch.Tensor] = None) -> Tuple[TrainState, Metrics]:
+        prepared = self.prepare(state, batch, z_d, z_g, labels_d, labels_g)
+        metrics = self.update(state, *prepared, r1=self.r1_due(state.step))
         state.step += 1
         return state, metrics
 
 
 def _apply(opt, params, opt_state, grads):
-    """One optimizer update of a flat parameter buffer, in place."""
-    updates, opt_state = opt.update(grads, opt_state)
+    """One optimizer update of a flat parameter buffer: the parameters and
+    the optimizer state change in place, every tensor at its address."""
+    updates, new = opt.update(grads, opt_state)
     with torch.no_grad():
         params.flat.add_(updates)
+        opt_state.copy_(new)
     return opt_state
 
 
@@ -201,3 +228,59 @@ def make_train_step(cfg: Config, gan: GAN) -> TrainStep:
     the other flavors and every unported regularizer raises
     NotImplementedError."""
     return TrainStep(cfg, gan)
+
+
+# Metric keys whose reduction over a call's steps is the last step's, not
+# the mean: running state (the guards' skip streaks and counts), whose value
+# at the end of the call is the current one (`locate_tpu/train/step.py`).
+_LAST_METRICS = ("d_nonfinite_streak", "g_nonfinite_streak",
+                 "d_grad_limit_count", "g_grad_limit_count",
+                 "d_grad_limit_streak", "g_grad_limit_streak",
+                 "augment_p", "pl_mean")
+
+
+def reduce_metrics(per_step: Dict[str, torch.Tensor]) -> Metrics:
+    """A call's metrics from each metric's [k] values, one a step: the last
+    step's for `_LAST_METRICS`, the mean for the rest."""
+    return {k: (v[-1].clone() if k in _LAST_METRICS else v.mean())
+            for k, v in per_step.items()}
+
+
+class MultiStep:
+    """`multi(state, batches, *, z_d=None, z_g=None, labels_d=None,
+    labels_g=None) -> (state, metrics)`: `k` optimizer steps a call, the
+    counterpart of the JAX package's `make_multi_step`. Every leaf of
+    `batches` (and each draw passed) has a leading [k] axis, step i takes
+    row i. On the CPU the steps run one by one; on the card they are
+    replays of a CUDA graph of one step (`train/graph.py`), R1's steps of
+    a second one, with nothing between the replays that waits for the
+    host. A capture or replay that fails raises."""
+
+    def __init__(self, step: TrainStep, k: int):
+        self.step, self.k = step, k
+        self.graphs = None
+
+    def __call__(self, state: TrainState, batches: Batch, **draws) -> Tuple[TrainState,
+                                                                          Metrics]:
+        draws = {name: t for name, t in draws.items() if t is not None}
+        if state.g_params.flat.device.type == "cuda":
+            from locate_tpu_torch.train.graph import StepGraphs
+
+            if self.graphs is None:
+                self.graphs = StepGraphs(self.step, self.k, state, batches, draws)
+            return self.graphs(state, batches, draws)
+        history = []
+        for i in range(self.k):
+            state, metrics = self.step(state, {n: t[i] for n, t in batches.items()},
+                                       **{n: t[i] for n, t in draws.items()})
+            history.append(metrics)
+        return state, reduce_metrics({k: torch.stack([m[k] for m in history])
+                                      for k in history[0]})
+
+
+def make_multi_step(step: TrainStep, steps_per_call: int):
+    """`step` itself for one step a call, else a `MultiStep` of
+    `steps_per_call` steps (`train.steps_per_call`)."""
+    if steps_per_call <= 1:
+        return step
+    return MultiStep(step, steps_per_call)

@@ -1,8 +1,10 @@
 """The port's `bench` command (the counterpart of bench.py) on the CPU: one
-JSON line from a full-width lsun_bedroom_128 train step at batch 1, and
-every config bench builds, the modes the port does not run included
-(the guard against bench.py's round-5 override crash, where a config
-the bench built could not be built)."""
+JSON line from a full-width lsun_bedroom_128 train step at batch 1, one
+step a call; one JSON line from several steps a call (spc=2, cut to
+16x16), with the one-step-a-call rate beside it; and every config bench
+builds, the modes the port does not run included (the guard against
+bench.py's round-5 override crash, where a config the bench built could
+not be built)."""
 
 import json
 
@@ -23,7 +25,7 @@ def two_threads():
 
 
 def test_bench_prints_one_json_line(capsys, two_threads):
-    assert cli.main(["bench", "1", "1", "--device=cpu"]) == 0
+    assert cli.main(["bench", "1", "1", "spc=1", "--device=cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     d = json.loads(lines[0])
@@ -32,6 +34,7 @@ def test_bench_prints_one_json_line(capsys, two_threads):
     # G and D forward and backward at 128^2: tens of GFLOP per image
     assert d["flops_per_step"] > 1e10
     assert d["mfu"] is None  # no tensor-core peak for a CPU rate
+    assert d["steps_per_call"] == 1 and "single_step_images_per_sec" not in d
 
 
 @pytest.mark.parametrize("modes", [[], ["xla"], ["fused"], ["e2e"], ["spc=16"],
@@ -47,15 +50,30 @@ def test_every_bench_config_builds(modes):
     assert (t.r1_gamma, t.ada_target, t.augment_p, t.lecam_gamma, t.grad_norm_limit,
             t.max_nonfinite_skips) == (0.0, 0.0, 0.0, 0.0, 0.0, 0)
     spc = [int(m[4:]) for m in modes if m.startswith("spc=")]
-    assert t.steps_per_call == (spc[0] if spc else 1)
+    # bench.py's default: 16 steps a call, one for e2e
+    assert t.steps_per_call == (spc[0] if spc else 1 if "e2e" in modes else 16)
     assert cfg.parallel.data_parallel == 1
 
 
-@pytest.mark.parametrize("modes,message", [(["fused"], "fused"), (["e2e"], "data pipeline"),
-                                           (["spc=16"], "steps_per_call")])
+@pytest.mark.parametrize("modes,message", [(["fused"], "fused"), (["e2e"], "data pipeline")])
 def test_unported_bench_modes_raise(modes, message):
     with pytest.raises(NotImplementedError, match=message):
         cli.main(["bench", "1", "1", *modes, "--device=cpu"])
+
+
+def test_bench_several_steps_a_call(capsys, two_threads):
+    """`bench 1 2 spc=2` (make_multi_step: two steps a call) prints one
+    JSON line with steps_per_call 2 and the one-step-a-call rate beside
+    the headline, on one flop count; cut to 16x16 to stay quick."""
+    small = ["model.resolution=16", "data.resolution=16", "model.base_channels=32",
+             "model.max_channels=32", "model.min_channels=16"]
+    assert cli.main(["bench", "1", "2", "spc=2", "--device=cpu", *small]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    d = json.loads(lines[0])
+    assert d["steps_per_call"] == 2 and d["value"] > 0
+    assert d["single_step_images_per_sec"] > 0 and d["single_step_mfu"] is None
+    assert "16x16" in d["metric"] and d["flops_per_step"] > 0
 
 
 def test_bench_config_takes_overrides_last():

@@ -2,9 +2,12 @@
 kernel of csrc/fused_attention.cu, csrc/fused_stage.cu and
 csrc/flash_attention.cu (and on a kernel it does not know), its bounds and
 launch counts, the softmax and the sigmoid gate's and the flash kernels',
-and its refusal to report anything when there is no card."""
+read from the models' dispatch under the card's gate profile (and, under
+the JAX package's thresholds, the counts chip_smoke.py pinned before the
+profile), and its refusal to report anything when there is no card."""
 
 import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -22,6 +25,19 @@ def smoke():
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+@pytest.fixture
+def jax_thresholds(tmp_path, monkeypatch):
+    """A gate profile holding the JAX package's dispatch: every flavor fuses
+    at 512^2, the sigmoid gate runs its kernels up to 256 locations."""
+    from locate_tpu_torch.ops import gate_profile
+
+    path = tmp_path / "gate_profile.json"
+    path.write_text(json.dumps({"meta": {}, "min_locations": {f: 512 * 512 for f in
+                                                              gate_profile.FLAVORS},
+                                "sigmoid_locations": [{"min": 0, "max": 256}]}))
+    monkeypatch.setenv(gate_profile.ENV, str(path))
 
 
 PTXAS_LOG = """\
@@ -108,15 +124,32 @@ def test_bounds_of_the_stage_kernels(smoke):
     assert by == "bytes" and 0.63 < t < 0.65
 
 
-def test_ffhq_launches_per_step_add_up(smoke):
-    """G's 512^2 stage runs its stats pass three times a step (the fake, the
-    G step, its remat recompute), D's six (real, fake, the G step, each
-    recomputed); each of the four fused backward calls recomputes w once."""
+def test_ffhq_launches_per_step_add_up(smoke, jax_thresholds):
+    """Under the card's profile G's four stages from 64^2 to 512^2 fuse
+    (up_pair) and no stage of D does: each fused stage runs its stats pass
+    three times a step (the fake, the G step, its remat recompute) and its
+    backward once (w recomputed once), D's 512^2 gate runs unfused, and
+    the pooled apply pass has no launch. Under the JAX package's
+    thresholds (512^2 for every flavor) the plan gives the counts chip_smoke
+    pinned by hand before: G's and D's 512^2 stages fused, D's stats pass
+    six times."""
     per_step = {k: sum(v.values()) for k, v in smoke.FFHQ_STAGE_PER_STEP.items()}
-    assert per_step == {"stage_softmax_stats": 9, "stage_softmax_apply_pool": 6,
+    assert per_step == {"stage_softmax_stats": 12, "stage_softmax_apply_pool": 0,
                         "stage_conv": 4, "stage_conv_bwd": 4}
-    assert smoke.FFHQ_GATE_PER_STEP["softmax_csum"] == 4 * 8  # 4 backward calls x 8 stages
-    assert set(smoke.FFHQ_SERVE_PER_FORWARD) == set(smoke.KERNELS) | set(smoke.STAGE_KERNELS)
+    assert smoke.FFHQ_STAGE_PER_STEP["stage_softmax_stats"] == {
+        f"up@{r}": 3 for r in (64, 128, 256, 512)}
+    # 4 backward calls x 8 stages: G's, D's three
+    assert smoke.FFHQ_GATE_PER_STEP["softmax_csum"] == 4 * 8
+    assert smoke.FFHQ_GATE_PER_STEP == {"softmax_stats": 64, "softmax_apply": 72,
+                                        "softmax_csum": 32, "softmax_bwd": 32}
+    assert smoke.FFHQ_SERVE_PER_FORWARD == {"softmax_stats": 4, "softmax_apply": 8,
+                                            "stage_softmax_stats": 4}
+    jax = smoke.totals(smoke.path_plan(smoke.ffhq_config()))
+    assert jax == {"softmax_stats": 67, "softmax_apply": 66, "softmax_csum": 32,
+                   "softmax_bwd": 32, "stage_conv": 4, "stage_softmax_stats": 9,
+                   "stage_softmax_apply_pool": 6, "stage_conv_bwd": 4}
+    assert smoke.totals(smoke.path_plan(smoke.ffhq_config(), serve=True)) == {
+        "softmax_stats": 7, "softmax_apply": 8, "stage_softmax_stats": 1}
 
 
 SIGMOID_PTXAS_LOG = """\
@@ -151,7 +184,8 @@ def test_bounds_of_the_sigmoid_kernels(smoke):
     ms, more than their 671 MB of traffic (0.200 ms). The gate's backward at
     the stage's 262,144 locations reads x and dy and writes dx (1.61 GB),
     and reads pos_proj and writes dpos_proj: 0.4908 ms. At the gate's
-    shapes up to 16^2 every bound is at most 2 microseconds."""
+    shapes of 16^2 and less every bound is at most 2 microseconds; at 512^2
+the gate reads x and writes y, 1.074 GB, 0.3255 ms."""
     bf16 = torch.bfloat16
     t, by = smoke.stage_bound("stage_sigmoid", 16, 64, 64, bf16, "plain")
     assert by == "bytes" and 0.3255 < t < 0.3256
@@ -163,24 +197,32 @@ def test_bounds_of_the_sigmoid_kernels(smoke):
     assert by == "bytes" and 0.490 < t < 0.491
     for hw, c, hd in smoke.SIGMOID_SHAPES:
         for kind in ("sigmoid_gate", "sigmoid_bwd"):
-            assert smoke.bound(kind, 16, hw, c, hd, c, bf16)[0] < 2e-3
+            assert hw > 256 or smoke.bound(kind, 16, hw, c, hd, c, bf16)[0] < 2e-3
+    t, by = smoke.bound("sigmoid_gate", 16, 262144, 64, 16, 64, bf16)
+    assert by == "bytes" and 0.3255 < t < 0.3256
 
 
-def test_sigmoid_launches_per_step_add_up(smoke):
+def test_sigmoid_launches_per_step_add_up(smoke, jax_thresholds):
     """One ffhq_512-sigmoid train step: G forwards three times (the fake,
     the G step, its remat recompute) and D six (real, fake, the G step,
-    each recomputed); the gate's one-pass kernel runs at the stages up to
-    16^2 (three in G, three in D), the stage's sigmoid pass at 512^2; each
-    of the four backward passes (G once, D three times) runs the gate's
-    backward at its three small stages and in the fused stage's backward,
-    with the conv recompute and the conv backward. One served forward:
-    G's three gates and its 512^2 stage."""
-    assert smoke.SIGMOID_PER_STEP == {"sigmoid_gate": 27, "sigmoid_bwd": 16,
-                                      "stage_sigmoid": 9, "stage_conv": 4, "stage_conv_bwd": 4}
-    assert sum(smoke.SIGMOID_FWD_PER_STEP.values()) == 9 * 3
-    assert sum(smoke.SIGMOID_BWD_PER_STEP.values()) == 4 * 4
-    assert smoke.SIGMOID_SERVE_PER_FORWARD == {"sigmoid_gate": 3, "stage_sigmoid": 1}
-    assert len(smoke.SIGMOID_SHAPES) == 5
+    each recomputed). Under the card's profile the gate's one-pass kernel
+    runs from 32^2 to 512^2 (G's 32^2 gate, D's five), the stage's sigmoid
+    pass in G's four fused stages from 64^2 to 512^2; each backward pass
+    runs the gate's backward at those gates, and G's in each fused stage's
+    backward, with the conv recompute and the conv backward. One served
+    forward: G's 32^2 gate and its four fused stages. Under the JAX package's thresholds: the gates up to 16^2 and
+    both 512^2 stages, as chip_smoke pinned by hand before."""
+    assert smoke.SIGMOID_PER_STEP == {"sigmoid_gate": 33, "sigmoid_bwd": 20,
+                                      "stage_sigmoid": 12, "stage_conv": 4,
+                                      "stage_conv_bwd": 4}
+    assert sum(smoke.SIGMOID_FWD_PER_STEP.values()) == 1 * 3 + 5 * 6
+    assert sum(smoke.SIGMOID_BWD_PER_STEP.values()) == 1 + 5 * 3 + 4
+    assert smoke.SIGMOID_SERVE_PER_FORWARD == {"sigmoid_gate": 1, "stage_sigmoid": 4}
+    assert len(smoke.SIGMOID_SHAPES) == 6
+    jax = smoke.path_plan(smoke.ffhq_config(**smoke.SIGMOID))
+    assert smoke.totals(jax) == {"sigmoid_gate": 27, "sigmoid_bwd": 16, "stage_sigmoid": 9,
+                                 "stage_conv": 4, "stage_conv_bwd": 4}
+    assert len(jax["sigmoid_gate"]) == 5
     assert smoke.SIGMOID_GATE_MAX < 2.0  # the clamp binds below the gate's ceiling
     per_step = {k: sum(v.values()) for k, v in smoke.SIGMOID_STAGE_PER_STEP.items()}
     assert all(smoke.SIGMOID_PER_STEP[k] == v for k, v in per_step.items())

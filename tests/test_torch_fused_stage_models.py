@@ -14,6 +14,7 @@ seeded) go through both: outputs, input gradients and parameter gradients
 agree to 2e-4, the tolerance of tests/test_model_parity_torch.py."""
 
 import dataclasses
+import json
 
 import numpy as np
 import jax
@@ -30,6 +31,7 @@ from locate_tpu_torch.models.discriminator import build_discriminator
 from locate_tpu_torch.models.gan import build_gan
 from locate_tpu_torch.models.generator import build_generator
 from locate_tpu_torch.nn import blocks
+from locate_tpu_torch.ops import gate_profile
 from locate_tpu_torch.train.state import create_train_state
 from locate_tpu_torch.train.step import make_train_step
 from torch_port_parity import as_state_dict, port_config, randomize_zero_init
@@ -152,11 +154,12 @@ def test_state_dict_keys_do_not_depend_on_use_pallas(blocks_per_stage):
 
 
 def test_default_thresholds_keep_small_stages_unfused(fused_calls):
-    """At the JAX profile's thresholds (512^2 locations for every flavor) a
-    16x16 stage runs its layers one by one: bitwise the plain sequence
-    (tests/test_fused_stage.py:302)."""
+    """At the card profile's thresholds (64^2 locations and more for every
+    flavor, read from ops/gate_profile.json) a 16x16 stage runs its layers
+    one by one: bitwise the plain sequence (tests/test_fused_stage.py:302)."""
     assert blocks.FUSE_MIN_LOCATIONS is None
-    assert set(blocks.MIN_LOCATIONS.values()) == {512 * 512}
+    assert all(blocks.fuse_threshold(f) == gate_profile.min_locations(f) >= 64 * 64
+               for f in gate_profile.FLAVORS)
     _, tcfg, _ = configs(2)
     for stage, shape in ((blocks.generator_stage(32, 16, 16, tcfg, first=False), (2, 8, 8, 32)),
                          (blocks.discriminator_stage(32, 16, 16, tcfg, last=False),
@@ -168,10 +171,15 @@ def test_default_thresholds_keep_small_stages_unfused(fused_calls):
     assert fused_calls == []
 
 
-def test_thresholds_dispatch_per_flavor(monkeypatch, fused_calls):
-    """Opening the down_pair flavor alone fuses the discriminator's stage
-    and leaves the generator's (up_pair) unfused."""
-    monkeypatch.setitem(blocks.MIN_LOCATIONS, "down_pair", 1)
+def test_thresholds_dispatch_per_flavor(monkeypatch, tmp_path, fused_calls):
+    """A profile (LOCATE_TPU_TORCH_GATE_PROFILE) opening the down_pair flavor
+    alone fuses the discriminator's stage and leaves the generator's
+    (up_pair) unfused."""
+    path = tmp_path / "gate_profile.json"
+    mins = {f: 1 << 40 for f in gate_profile.FLAVORS}
+    path.write_text(json.dumps(dict(gate_profile.load(),
+                                    min_locations=dict(mins, down_pair=1))))
+    monkeypatch.setenv(gate_profile.ENV, str(path))
     _, tcfg, _ = configs(1)
     x = torch.zeros(2, 16, 16, 32)
     with torch.no_grad():

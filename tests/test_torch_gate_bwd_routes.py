@@ -191,17 +191,18 @@ def test_lsun_step_route_counts(smoke):
     mma route (C = 64: G's 1024, 4096 and 16384, D's 16384 and 4096 three
     times each; C = 512: G's 16, D's 16 and 64 three times each) and 8 on
     the simt route; ffhq_512's 32: 24 and 8. An ffhq_512-sigmoid step runs
-    sigmoid_bwd 16 times: 11 on the mma route (the 4 fused 512^2 stages',
-    the 7 at C = 512), the 5 at C = 128 and 256 on the simt route."""
+    sigmoid_bwd 20 times (the card's profile: the gates from 32^2 up, G's
+    fused stages from 64^2 to 512^2): 17 on the mma route (C = 64 with
+    HW % 128 == 0), the 3 at D's 32^2 gate (C = 128) on the simt route."""
     assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP) == {"mma": 16, "simt": 8}
     assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP, 3) == {"mma": 48, "simt": 24}
     assert sum(smoke.FFHQ_BWD_PER_STEP.values()) == smoke.FFHQ_GATE_PER_STEP["softmax_bwd"]
     assert smoke.gate_routes_per_step(fa, smoke.FFHQ_BWD_PER_STEP) == {"mma": 24, "simt": 8}
     assert smoke.gate_routes_per_step(fa, {}) == {"mma": 0, "simt": 0}
     assert sum(smoke.SIGMOID_BWD_PER_STEP.values()) == smoke.SIGMOID_PER_STEP["sigmoid_bwd"]
-    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP) == {"mma": 11, "simt": 5}
-    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP, 3) == {"mma": 33,
-                                                                            "simt": 15}
+    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP) == {"mma": 17, "simt": 3}
+    assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP, 3) == {"mma": 51,
+                                                                            "simt": 9}
     for kernel in ("softmax_bwd", "sigmoid_bwd"):
         assert smoke.read_gate_routes(kernel).keys() == {"mma", "simt"}
     assert smoke.read_gate_routes() == smoke.read_gate_routes("softmax_bwd")
@@ -220,18 +221,19 @@ def test_phases_4_and_8_cover_the_template(smoke):
 
 
 def test_phase_15_covers_both_routes(smoke):
-    """Phase 15 runs the sigmoid backward in bf16 at the 512^2 stage's shape
-    and at C = 512, the shapes the mma route takes, and every other case
-    (the gates at C = 128 and 256 and the f32 shape) on the simt route; its
-    forward kernel only where the layer runs it."""
+    """Phase 15 runs the sigmoid backward in bf16 at every shape the card's
+    profile gives the gate's kernels and at the C = 512 template's 4^2
+    shape, the mma route at C = 64 (HW % 128 == 0) and C = 512, the simt
+    route at D's 32^2 gate (C = 128) and the f32 shape; the forward at each
+    of them (no fused stage has a shape of its own)."""
     cases = smoke.sigmoid_gate_cases()
     routes = {(hw, c, hd, d): fa.gate_bwd_route(d, hw, c, hd, c) for hw, c, hd, d, _ in cases}
     assert [k for k, r in routes.items() if r == fa.MMA] == [
-        (16, 512, 128, torch.bfloat16), (64, 512, 128, torch.bfloat16),
-        (262144, 64, 16, torch.bfloat16)]
-    assert sum(r == fa.SIMT for r in routes.values()) == len(smoke.SIGMOID_SHAPES) + 1 - 2
-    assert {d for hw, c, hd, d, fwd in cases if not fwd} == {torch.bfloat16}
-    assert sum(not fwd for *_, fwd in cases) == 1
+        (hw, 64, 16, torch.bfloat16) for hw in (262144, 65536, 16384, 4096, 1024)] + [
+        (16, 512, 128, torch.bfloat16)]
+    assert [k for k, r in routes.items() if r == fa.SIMT] == [
+        (1024, 128, 32, torch.bfloat16), (*smoke.SIGMOID_F32_SHAPE, torch.float32)]
+    assert all(fwd for *_, fwd in cases) and smoke.SIGMOID_STAGE_BWD_SHAPES == []
 
 
 GATE_PTXAS_LOG = """\
@@ -334,9 +336,10 @@ def test_kernels_line_carries_the_gate_routes(smoke):
 
 def test_kernels_line_carries_the_sigmoid_routes(smoke):
     """Row 6 of the kernels line: sigmoid_bwd's per-step time on the routes
-    the wrapper picks (11 launches a step on the mma route, at the 512^2
-    stage's shape and at C = 512, 5 on simt), beside the simt route's time
-    of the same launches and the main path's launches on the mma route."""
+    the wrapper picks (17 launches a step on the mma route, at C = 64, 3 on
+    simt; the C = 512 shape, held off the path, none), beside the simt
+    route's time of the same launches and the main path's launches on the
+    mma route."""
     rows = []
     for hw, c, hd, dtype, forward in smoke.sigmoid_gate_cases():
         route = fa.gate_bwd_route(dtype, hw, c, hd, c)
@@ -350,11 +353,11 @@ def test_kernels_line_carries_the_sigmoid_routes(smoke):
     launches = smoke.expected(smoke.SIGMOID_PER_STEP, 3)
     routes = {"sigmoid_bwd": smoke.gate_routes_per_step(fa, smoke.SIGMOID_BWD_PER_STEP, 3)}
     entry = smoke.sigmoid_entry("sigmoid_bwd", rows, launches, {}, routes)
-    assert entry["ms"] == 11 * 1.0 + 5 * 2.0
-    assert entry["ms_simt"] == 11 * 5.0 + 5 * 2.0
-    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 33
-    assert entry["launches"] == 48 and entry["route"] == "cuda"
-    assert sum("ms_simt" in s for s in entry["shapes"]) == 3
+    assert entry["ms"] == 17 * 1.0 + 3 * 2.0
+    assert entry["ms_simt"] == 17 * 5.0 + 3 * 2.0
+    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 51
+    assert entry["launches"] == 60 and entry["route"] == "cuda"
+    assert sum("ms_simt" in s for s in entry["shapes"]) == 6
     for key in ("name", "source", "replaces", "max_abs_err", "plain_ms", "bound_ms",
                 "bound_by", "library_ms"):
         assert key in entry

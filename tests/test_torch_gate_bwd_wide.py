@@ -126,15 +126,17 @@ def test_wide_grid_at_the_largest_shape():
 
 
 @pytest.mark.parametrize("per_step,wide", [("BWD_PER_STEP", 7), ("FFHQ_BWD_PER_STEP", 7),
-                                            ("SIGMOID_BWD_PER_STEP", 7)])
+                                            ("SIGMOID_BWD_PER_STEP", 0)])
 def test_seven_calls_a_step_take_the_wide_template(smoke, per_step, wide):
-    """Each train step runs the gate backward 7 times at C = 512 (G's 4^2
-    once, D's 4^2 and 8^2 three times each), all of them now on the mma
-    route: 16 / 8, 24 / 8 and 11 / 5 launches a step by route."""
+    """Each softmax train step runs the gate backward 7 times at C = 512
+    (G's 4^2 once, D's 4^2 and 8^2 three times each), all of them on the
+    mma route: 16 / 8 and 24 / 8 launches a step by route; the sigmoid
+    step none (the card's profile runs the sigmoid gates up to 16^2 plain):
+    17 / 3."""
     shapes = getattr(smoke, per_step)
     assert sum(k for (hw, c, hd), k in shapes.items() if (c, hd, c) == WIDE) == wide
     want = {"BWD_PER_STEP": {"mma": 16, "simt": 8}, "FFHQ_BWD_PER_STEP": {"mma": 24, "simt": 8},
-            "SIGMOID_BWD_PER_STEP": {"mma": 11, "simt": 5}}[per_step]
+            "SIGMOID_BWD_PER_STEP": {"mma": 17, "simt": 3}}[per_step]
     assert smoke.gate_routes_per_step(fa, shapes) == want
 
 

@@ -357,21 +357,21 @@ def test_step_route_counts(smoke):
     a lsun_bedroom_128 step's 24 launches on the mma route (G's 1024, 4096,
     16384 once, D's 4096 and 16384 three times), 17 of an ffhq_512 step's
     32 (the C = 64 gates from 32^2 to 512^2, the fused stages' four at
-    512^2 among them). The sigmoid gate's forward: 15 of an
-    ffhq_512-sigmoid step's 27 (C = 512: G's 4^2 three times, D's 8^2 and
-    4^2 six), 1 of a served forward's 3."""
+    512^2 among them). The sigmoid gate's forward under the card's profile:
+    none of an ffhq_512-sigmoid step's 33 (the gates at C = 512 run plain),
+    nor of a served forward's 1."""
     assert smoke.gate_routes_per_step(fa, smoke.BWD_PER_STEP,
                                       forward=True) == {"mma": 9, "simt": 15}
     assert smoke.gate_routes_per_step(fa, smoke.FFHQ_BWD_PER_STEP,
                                       forward=True) == {"mma": 17, "simt": 15}
     assert sum(smoke.FFHQ_BWD_PER_STEP.values()) == smoke.FFHQ_GATE_PER_STEP["softmax_csum"]
     assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_FWD_PER_STEP,
-                                      sigmoid=True) == {"mma": 15, "simt": 12}
+                                      sigmoid=True) == {"mma": 0, "simt": 33}
     assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_FWD_PER_STEP, 3,
-                                      sigmoid=True) == {"mma": 45, "simt": 36}
+                                      sigmoid=True) == {"mma": 0, "simt": 99}
     assert sum(smoke.SIGMOID_FWD_PER_STEP.values()) == smoke.SIGMOID_PER_STEP["sigmoid_gate"]
     assert smoke.gate_routes_per_step(fa, smoke.SIGMOID_SERVE,
-                                      sigmoid=True) == {"mma": 1, "simt": 2}
+                                      sigmoid=True) == {"mma": 0, "simt": 1}
     for kernel in ("softmax_csum", "sigmoid_gate"):
         assert smoke.read_gate_routes(kernel).keys() == {"mma", "simt"}
 
@@ -392,8 +392,8 @@ def test_phases_4_8_and_15_time_both_routes(smoke):
     """Phases 4 and 8 run csum on both routes at the five C = 64 shapes,
     hold both to the rule against c's absolute terms, repeat them bitwise,
     time them and compare db2 with c from either; phase 15 runs the sigmoid
-    gate on both routes at the two C = 512 shapes and times the unsplit
-    grid too."""
+    gate on both routes at the C = 512 template's 4^2 shape (off the path
+    under the card's profile) and times the unsplit grid too."""
     bf16 = {(hw, c, hd) for hw, c, hd, d in smoke.cases() + smoke.ffhq_gate_cases(wide=True)
             if d == torch.bfloat16 and fa.gate_fwd_route(d, hw, c, hd, c) == fa.MMA}
     assert bf16 == {(1024, 64, 16), (4096, 64, 16), (16384, 64, 16), (65536, 64, 16),
@@ -405,7 +405,7 @@ def test_phases_4_8_and_15_time_both_routes(smoke):
         assert needle in src, needle
     wide = {(hw, c, hd) for hw, c, hd, d, fwd in smoke.sigmoid_gate_cases()
             if fwd and fa.sigmoid_gate_route(d, hw, c, hd, c) == fa.MMA}
-    assert wide == {(16, 512, 128), (64, 512, 128)}
+    assert wide == {(16, 512, 128)}
     src = inspect.getsource(smoke.phase_sigmoid_gate)
     for needle in ('fwd_route="simt"', 'check_mma_wins("sigmoid_gate"', "ms_unsplit",
                    "wide_splits(fa, 1)"):
@@ -478,10 +478,10 @@ def test_kernels_line_carries_the_csum_routes(smoke):
 
 
 def test_kernels_line_carries_the_sigmoid_gate_routes(smoke):
-    """Row 3: the sigmoid gate's per-step time on its routes (15 launches an
-    ffhq_512-sigmoid step on mma, 12 on simt) beside the simt route's time
-    of the same launches, the mma route's launches, and each mma shape's
-    unsplit grid."""
+    """Row 3: the sigmoid gate's per-step time on its routes (33 launches an
+    ffhq_512-sigmoid step, all on simt under the card's profile) beside the
+    simt route's time of the same launches, the mma route's launches, and
+    the mma shape's unsplit grid (timed off the path)."""
     rows = []
     for hw, c, hd, dtype, fwd in smoke.sigmoid_gate_cases():
         if not fwd:
@@ -494,15 +494,15 @@ def test_kernels_line_carries_the_sigmoid_gate_routes(smoke):
         rows.append(dict(shape=dict(N=16, HW=hw, C=c, Hd=hd, Cout=c),
                          dtype=str(dtype).replace("torch.", ""), y_max_abs_err=0.01,
                          sigmoid_gate=t))
-    launches = smoke.expected({"sigmoid_gate": 27}, 3)
+    launches = smoke.expected({"sigmoid_gate": 33}, 3)
     routes = {"sigmoid_gate": smoke.gate_routes_per_step(fa, smoke.SIGMOID_FWD_PER_STEP, 3,
                                                          sigmoid=True)}
     entry = smoke.sigmoid_entry("sigmoid_gate", rows, launches, launches, routes)
-    assert entry["ms"] == 15 * 1.0 + 12 * 2.0
-    assert entry["ms_simt"] == 15 * 4.0 + 12 * 2.0
-    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 45
-    assert entry["launches"] == 81 and entry["launches_serving"] == 81
-    assert sum("ms_unsplit" in s for s in entry["shapes"]) == 2
+    assert entry["ms"] == 33 * 2.0
+    assert entry["ms_simt"] == 33 * 2.0
+    assert entry["routes"] == ["mma", "simt"] and entry["launches_mma"] == 0
+    assert entry["launches"] == 99 and entry["launches_serving"] == 99
+    assert sum("ms_unsplit" in s for s in entry["shapes"]) == 1
     for key in ("name", "route", "source", "replaces", "max_abs_err", "plain_ms", "bound_ms",
                 "bound_by", "library_ms"):
         assert key in entry

@@ -233,27 +233,29 @@ def test_simt_tile_is_unchanged():
 def test_step_and_serving_route_counts(smoke):
     """A lsun_bedroom_128 step runs each forward pass 30 times: 12 on the mma
     route (G's 1024, 4096 and 16384 twice, D's 16384 and 4096 three times),
-    18 on simt; a served forward 3 of 6. An ffhq_512 step: stats 67 (34 mma,
-    with the four fused backward calls' statistics at 512^2), apply 66 (33,
-    with G's fused 512^2 stage three times); a served ffhq_512 forward
-    stats 4 of 7, apply 5 of 8."""
+    18 on simt; a served forward 3 of 6. An ffhq_512 step, G's stages from
+    64^2 to 512^2 fused under the card's profile: stats 64 (31 mma: D's
+    C = 64 gates six times, G's 32^2 gate three times, each fused backward
+    call's statistics once), apply 72 (39: those forwards, and each fused
+    G stage's three times); a served ffhq_512 forward stats 1 of 4 (G's
+    gates to 32^2), apply 5 of 8 (and its four fused stages)."""
     assert smoke.gate_routes_per_step(fa, smoke.FWD_PER_STEP,
                                       forward=True) == {"mma": 12, "simt": 18}
     assert smoke.gate_routes_per_step(fa, smoke.FWD_PER_STEP, 3,
                                       forward=True) == {"mma": 36, "simt": 54}
     assert smoke.gate_routes_per_step(fa, smoke.SERVE, forward=True) == {"mma": 3, "simt": 3}
     gate = smoke.FFHQ_GATE_PER_STEP
-    assert sum(smoke.FFHQ_STATS_PER_STEP.values()) == gate["softmax_stats"] == 67
-    assert sum(smoke.FFHQ_APPLY_PER_STEP.values()) == gate["softmax_apply"] == 66
+    assert sum(smoke.FFHQ_STATS_PER_STEP.values()) == gate["softmax_stats"] == 64
+    assert sum(smoke.FFHQ_APPLY_PER_STEP.values()) == gate["softmax_apply"] == 72
     assert smoke.gate_routes_per_step(fa, smoke.FFHQ_STATS_PER_STEP,
-                                      forward=True) == {"mma": 34, "simt": 33}
+                                      forward=True) == {"mma": 31, "simt": 33}
     assert smoke.gate_routes_per_step(fa, smoke.FFHQ_APPLY_PER_STEP,
-                                      forward=True) == {"mma": 33, "simt": 33}
+                                      forward=True) == {"mma": 39, "simt": 33}
     serve = smoke.FFHQ_SERVE_PER_FORWARD
-    assert sum(smoke.FFHQ_STATS_SERVE.values()) == serve["softmax_stats"] == 7
+    assert sum(smoke.FFHQ_STATS_SERVE.values()) == serve["softmax_stats"] == 4
     assert sum(smoke.FFHQ_APPLY_SERVE.values()) == serve["softmax_apply"] == 8
     assert smoke.gate_routes_per_step(fa, smoke.FFHQ_STATS_SERVE,
-                                      forward=True) == {"mma": 4, "simt": 3}
+                                      forward=True) == {"mma": 1, "simt": 3}
     assert smoke.gate_routes_per_step(fa, smoke.FFHQ_APPLY_SERVE,
                                       forward=True) == {"mma": 5, "simt": 3}
     assert smoke.read_fwd_routes().keys() == {"softmax_stats", "softmax_apply"}

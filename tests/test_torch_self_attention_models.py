@@ -323,10 +323,12 @@ def test_bench_sample_cli_serves_self_attention(capsys, flash_calls):
 
 
 def test_bench_cli_trains_self_attention(capsys, flash_calls):
-    rc = cli.main(["bench", "2", "1", *TINY, "model.attention_stages=4,8", "--device=cpu"])
+    rc = cli.main(["bench", "2", "1", "spc=1", *TINY, "model.attention_stages=4,8",
+                   "--device=cpu"])
     assert rc == 0
     d = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert d["unit"] == "images/sec" and d["value"] > 0 and d["use_pallas"] is True
-    assert len(flash_calls) == 13 * 5 * 2  # 10 warm-up and 3 timed steps, two layers
+    # 10 warm-up steps and 3 windows of max(3, steps) one-step calls, two layers
+    assert len(flash_calls) == (10 + 3 * 3) * 5 * 2
     cfg = cli.bench_config(2, [], {"model.attention.kind": "self"})
     assert cfg.model.attention.kind == "self" and cfg.train.r1_gamma == 0.0

@@ -26,6 +26,8 @@ from locate_tpu_torch.config import AttentionConfig
 from locate_tpu_torch.io.export import params_from_jax
 from locate_tpu_torch.ops import attention as tatt
 from locate_tpu_torch.ops import fused_attention as tfa
+from locate_tpu_torch.ops import gate_profile
+from torch_port_parity import use_jax_sigmoid_bound
 
 NAMES = ("x", "pos_proj", "w1x", "b1", "w2", "b2")
 BF16_STEP = 2.0 ** -7
@@ -147,10 +149,12 @@ def layer_params(layer, seed):
 
 
 @pytest.mark.parametrize("side,fused", [(16, True), (32, False)])
-def test_layer_dispatch_matches_jax(monkeypatch, side, fused):
-    """LocateAttention with use_pallas, mode="sigmoid": at H*W <= 256 the
-    fused gate, above it the composed path, as the JAX layer's
-    `apply_dispatch`; output and gradients of x and the params."""
+def test_layer_dispatch_matches_jax(monkeypatch, tmp_path, side, fused):
+    """LocateAttention with use_pallas, mode="sigmoid", on a profile holding
+    the JAX layer's bound: at H*W <= 256 the fused gate, above it the
+    composed path, as the JAX layer's `apply_dispatch`; output and
+    gradients of x and the params."""
+    use_jax_sigmoid_bound(monkeypatch, tmp_path)
     kw = dict(mode="sigmoid", pos_features=4, bottleneck=2, gate_max=1.5)
     layer = jatt.locate_attention(16, JaxAttentionConfig(**kw), use_pallas=True)
     params = layer_params(layer, seed=4)
@@ -182,11 +186,18 @@ def test_layer_dispatch_matches_jax(monkeypatch, side, fused):
 
 
 def test_threshold_is_the_jax_layers():
-    """The port keeps the JAX layer's 256 (`fused_profitable`)."""
-    assert tatt.SIGMOID_FUSED_MAX_LOCATIONS == 256
+    """The JAX layer's dispatch (`fused_profitable`) on the card's profile:
+    the sigmoid gate runs its kernels inside each of the profile's ranges
+    and not just outside them; the softmax gate everywhere."""
     port = tatt.LocateAttention(8, AttentionConfig(mode="sigmoid"), use_pallas=True,
                                 gen=torch.Generator(device="cpu"))
-    assert port.fused_profitable(256) and not port.fused_profitable(257)
+    ranges = gate_profile.sigmoid_ranges()
+    assert ranges
+    for lo, hi in ranges:
+        assert port.fused_profitable(lo) and port.fused_profitable(hi)
+        assert not port.fused_profitable(hi + 1) or any(a <= hi + 1 <= b for a, b in ranges)
+        assert lo == 0 or not port.fused_profitable(lo - 1) or any(
+            a <= lo - 1 <= b for a, b in ranges)
     softmax = tatt.LocateAttention(8, AttentionConfig(), use_pallas=True,
                                    gen=torch.Generator(device="cpu"))
     assert softmax.fused_profitable(1 << 20)

@@ -4,8 +4,8 @@ every stage, pos_features 8, bottleneck 4) cut to 16x16 and widths 32..16.
 
 With `FUSE_MIN_LOCATIONS = 0` every stage fuses (the `stage_sigmoid` pass
 and its backward chain); without it every stage is at most 16x16, so each
-runs its layers one by one and its gate through `SigmoidGate` (the JAX
-layer's one-pass kernel at H*W <= 256). The JAX models run their Pallas
+runs its layers one by one and, on a profile holding the JAX layer's
+bound (the one-pass kernel at H*W <= 256), its gate through `SigmoidGate`. The JAX models run their Pallas
 kernels in interpret mode, the port its kernels' plain versions; the same
 weights (JAX init with the zero-init leaves filled, carried across by
 `params_from_jax`) and inputs (numpy, seeded) go through both. Outputs,
@@ -29,7 +29,8 @@ from locate_tpu_torch.models.generator import build_generator
 from locate_tpu_torch.nn import blocks
 from locate_tpu_torch.ops import fused_attention as fa
 from locate_tpu_torch.ops import fused_stage as fs
-from torch_port_parity import as_state_dict, port_config, randomize_zero_init
+from torch_port_parity import (as_state_dict, port_config, randomize_zero_init,
+                               use_jax_sigmoid_bound)
 
 TOL = 2e-4
 SMALL = {"model.resolution": "16", "data.resolution": "16", "model.base_channels": "32",
@@ -47,9 +48,11 @@ def model_configs():
 
 
 @pytest.fixture(params=["fused", "standalone_gate"])
-def path(request, monkeypatch):
-    """Every stage fused, or none (the gate through SigmoidGate); the spy
-    records which of the port's sigmoid functions ran."""
+def path(request, monkeypatch, tmp_path):
+    """Every stage fused, or none (the gate through SigmoidGate, at the JAX
+    layer's bound); the spy records which of the port's sigmoid functions
+    ran."""
+    use_jax_sigmoid_bound(monkeypatch, tmp_path)
     if request.param == "fused":
         monkeypatch.setattr(jblocks, "FUSE_MIN_LOCATIONS", 0)
         monkeypatch.setattr(blocks, "FUSE_MIN_LOCATIONS", 0)

@@ -6,7 +6,8 @@ firing at step 0, remat, grad_norm_limit 1e6, non-finite skips 200) with
 Both start from one JAX `create_train_state` (zero-init leaves filled),
 carried over by `state_from_jax`; the port takes JAX's latents. The JAX
 step runs jitted on its XLA composition (use_pallas off), the exact
-reference; the port runs use_pallas: its gates through `SigmoidGate`, or
+reference; the port runs use_pallas: its gates through `SigmoidGate` (on a
+profile holding the JAX layer's bound, the kernel at H*W <= 256), or
 with `FUSE_MIN_LOCATIONS = 0` every stage through `FusedStage`, and R1
 through the kernel-free twin of D either way. Two steps; metrics and
 parameters to the tolerances of tests/test_torch_train_step.py."""
@@ -29,7 +30,7 @@ from locate_tpu_torch.ops import fused_stage as fs
 from locate_tpu_torch.train.state import state_from_jax
 from locate_tpu_torch.train.step import make_train_step
 from test_torch_train_step import compare_params, jax_state
-from torch_port_parity import port_config
+from torch_port_parity import port_config, use_jax_sigmoid_bound
 
 BATCH = 2
 SMALL = {"model.resolution": "16", "data.resolution": "16", "model.base_channels": "32",
@@ -46,7 +47,8 @@ def jax_latents(jgan, state):
 
 
 @pytest.mark.parametrize("fuse", [False, True])
-def test_two_steps_match_jax(monkeypatch, fuse):
+def test_two_steps_match_jax(monkeypatch, tmp_path, fuse):
+    use_jax_sigmoid_bound(monkeypatch, tmp_path)
     jcfg = jconfig.get_config("ffhq_512", SMALL)
     tcfg = port_config(jcfg)
     assert tcfg.use_pallas and tcfg.model.remat and tcfg.train.r1_gamma == 0.1

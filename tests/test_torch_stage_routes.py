@@ -457,28 +457,28 @@ def test_sass_counts_the_stage_mma_kernels(smoke, tmp_path, monkeypatch):
 
 
 def test_ffhq_512_step_route_expectation(smoke):
-    """An ffhq_512 step (softmax gate) launches 9 stats passes, 6 pooled
-    apply passes (D's 512^2 stage: real, fake, the G step, and remat's
-    reruns of the two that are differentiated), 4 conv passes (the
-    backward's recompute of w) and 4 backward passes, all on the mma
-    route; with the sigmoid gate 9 sigmoid passes, 4 conv passes, 4
-    backward passes and no stats or apply pass; the f32 step at 64^2 takes
-    the simt route."""
+    """An ffhq_512 step (softmax gate; the card's profile fuses G's four
+    stages from 64^2 to 512^2 and no D stage) launches 12 stats passes (3
+    a fused stage: the fake, the G step, remat's rerun), no pooled apply
+    pass, 4 conv passes (the backward's recompute of w) and 4 backward
+    passes, all on the mma route; with the sigmoid gate 12 sigmoid passes,
+    4 conv passes, 4 backward passes and no stats or apply pass; the f32
+    step at 64^2 takes the simt route."""
     none = {"mma": 0, "simt": 0}
     per_step = {k: sum(v.values()) for k, v in smoke.FFHQ_STAGE_PER_STEP.items()}
-    assert per_step["stage_softmax_apply_pool"] == 6
+    assert per_step["stage_softmax_apply_pool"] == 0
     launches = smoke.expected(per_step, 3)
     assert smoke.stage_routes_expected(launches) == {
-        "stage_softmax_stats": {"mma": 27, "simt": 0}, "stage_conv_bwd": {"mma": 12, "simt": 0},
+        "stage_softmax_stats": {"mma": 36, "simt": 0}, "stage_conv_bwd": {"mma": 12, "simt": 0},
         "stage_conv": {"mma": 12, "simt": 0}, "stage_sigmoid": none,
-        "stage_softmax_apply_pool": {"mma": 18, "simt": 0}}
+        "stage_softmax_apply_pool": none}
     one = smoke.stage_routes_expected(smoke.expected(smoke.SIGMOID_PER_STEP))
-    assert one["stage_sigmoid"] == {"mma": 9, "simt": 0}
+    assert one["stage_sigmoid"] == {"mma": 12, "simt": 0}
     assert one["stage_conv"] == {"mma": 4, "simt": 0}
     sig = smoke.expected(smoke.SIGMOID_PER_STEP, 3)
     assert smoke.stage_routes_expected(sig) == {
         "stage_softmax_stats": none, "stage_conv_bwd": {"mma": 12, "simt": 0},
-        "stage_conv": {"mma": 12, "simt": 0}, "stage_sigmoid": {"mma": 27, "simt": 0},
+        "stage_conv": {"mma": 12, "simt": 0}, "stage_sigmoid": {"mma": 36, "simt": 0},
         "stage_softmax_apply_pool": none}
     assert smoke.stage_routes_expected({"stage_conv_bwd": 20, "stage_sigmoid": 10,
                                         "stage_softmax_apply_pool": 5}, "simt") == {
@@ -492,9 +492,16 @@ def test_phase_9_covers_every_template(smoke):
     """Phases 9 and 16 run every routed kernel at both templates: (64, 64)
     in the plain and `up` forms, (32, 64) with the 1x1 skip, and the two
     forward passes that pool in their `down` form; the pooled apply pass
-    (routed too) at its one template, (64, 64), the form D runs."""
-    cases = {(k, f, c, co) for k, f, c, co in smoke.STAGE_CASES + smoke.SIGMOID_STAGE_CASES
-             if k in smoke.STAGE_ROUTED}
+    (routed too) at its one template, (64, 64), the form D runs. Every
+    form and resolution the plans launch is among the cases, at its path's
+    batch."""
+    both = smoke.STAGE_CASES + smoke.SIGMOID_STAGE_CASES
+    cases = {(k, f, c, co) for k, f, c, co, _, _ in both if k in smoke.STAGE_ROUTED}
+    timed = {(k, smoke.stage_key(f, res, n)) for k, f, c, co, res, n in both}
+    for plan in (smoke.FFHQ_PLAN, smoke.SIGMOID_PLAN):
+        assert {(k, key) for k in smoke.STAGE_ROUTED for key in plan[k]} <= timed
+    for k in smoke.STAGE_ROUTED:
+        assert {(k, key + f"/{smoke.BATCH}") for key in smoke.LSUN_PLAN[k]} <= timed
     pool = "stage_softmax_apply_pool"
     assert pool in smoke.STAGE_ROUTED
     for k in smoke.STAGE_ROUTED:
@@ -505,44 +512,54 @@ def test_phase_9_covers_every_template(smoke):
     assert {(k, f, c, co) for k, f, c, co in cases if k == pool} == {(pool, "plain", 64, 64)}
     assert fs.stage_route(torch.bfloat16, 64, 64, h=512, w=512, hd=16, cout=64) == fs.MMA
     assert {(c, co) for _, _, c, co in cases} == set(fs.STAGE_MMA_WIDTHS)
+    assert ({k: len(v) for k, v in smoke.LSUN_PLAN.items() if k.startswith("stage")}
+            == {"stage_conv": 2, "stage_conv_bwd": 2, "stage_softmax_stats": 0,
+                "stage_softmax_apply_pool": 0, "stage_sigmoid": 0})
 
 
 def test_kernels_line_carries_the_stage_routes(smoke):
     """Rows 7-11 of the kernels line: the mma route's per-step time, beside
     the simt route's time of the same launches and the main path's
     launches on the mma route (stage_sigmoid's from the ffhq_512-sigmoid
-    steps); the apply-pool row's 6 launches a step among them."""
+    steps); the apply-pool row, which the card's profile takes off the
+    path, with one launch's times at 512^2 and the launches of the run
+    with every stage fused."""
     times, err = {}, {}
     forms_of = dict(smoke.FFHQ_STAGE_PER_STEP,
                     stage_sigmoid=smoke.SIGMOID_STAGE_PER_STEP["stage_sigmoid"])
     for kernel, forms in forms_of.items():
         err[kernel] = 0.01
-        for f in forms:
+        for f in list(forms) + ["plain@512"]:
             times[(kernel, f)] = dict(ms=2.0, plain_ms=30.0, bound_ms=0.3, bound_by="bytes",
                                       ms_simt=20.0)
     launches = smoke.expected({k: sum(v.values()) for k, v in
                                smoke.FFHQ_STAGE_PER_STEP.items()}, 3)
     routes = smoke.stage_routes_expected(launches)
-    rows = {k: smoke.stage_entry(k, times, err, launches, routes=routes)
+    forced = smoke.expected({k: 20 for k in smoke.STAGE_KERNELS})
+    rows = {k: smoke.stage_entry(k, times, err, launches, routes=routes, forced=forced)
             for k in smoke.STAGE_KERNELS}
     sig_launches = smoke.expected(smoke.SIGMOID_PER_STEP, 3)
     rows["stage_sigmoid"] = smoke.stage_entry(
         "stage_sigmoid", times, err, sig_launches, forms_of["stage_sigmoid"],
         smoke.stage_routes_expected(sig_launches))
-    assert rows["stage_softmax_stats"]["ms"] == 18.0
-    assert rows["stage_softmax_stats"]["ms_simt"] == 180.0
-    assert rows["stage_softmax_stats"]["launches_mma"] == 27
+    assert rows["stage_softmax_stats"]["ms"] == 24.0
+    assert rows["stage_softmax_stats"]["ms_simt"] == 240.0
+    assert rows["stage_softmax_stats"]["launches_mma"] == 36
     assert rows["stage_conv_bwd"]["ms_simt"] == 80.0 and rows["stage_conv_bwd"]["routes"] == ["mma"]
     assert "ms_simt" in rows["stage_conv_bwd"]["forms"][0]
     assert rows["stage_conv"]["ms"] == 8.0 and rows["stage_conv"]["ms_simt"] == 80.0
     assert rows["stage_conv"]["launches_mma"] == 12 and rows["stage_conv"]["routes"] == ["mma"]
-    assert rows["stage_sigmoid"]["ms"] == 18.0 and rows["stage_sigmoid"]["ms_simt"] == 180.0
-    assert rows["stage_sigmoid"]["launches"] == rows["stage_sigmoid"]["launches_mma"] == 27
-    assert {f["form"] for f in rows["stage_sigmoid"]["forms"]} == {"up", "down"}
+    assert rows["stage_sigmoid"]["ms"] == 24.0 and rows["stage_sigmoid"]["ms_simt"] == 240.0
+    assert rows["stage_sigmoid"]["launches"] == rows["stage_sigmoid"]["launches_mma"] == 36
+    assert {f["form"] for f in rows["stage_sigmoid"]["forms"]} == {
+        f"up@{r}" for r in (64, 128, 256, 512)}
     apply_pool = rows["stage_softmax_apply_pool"]
-    assert apply_pool["ms"] == 12.0 and apply_pool["ms_simt"] == 120.0
-    assert apply_pool["launches_mma"] == apply_pool["launches"] == 18
+    assert apply_pool["ms"] == 2.0 and apply_pool["ms_simt"] == 20.0
+    assert apply_pool["launches"] == 20 and apply_pool["launches_mma"] == 0
+    assert apply_pool["main_path"] is False and "every stage fused" in apply_pool[
+        "launches_source"]
     assert apply_pool["routes"] == ["mma"] and "ms_simt" in apply_pool["forms"][0]
+    assert all("main_path" not in r for k, r in rows.items() if k != "stage_softmax_apply_pool")
     for row in rows.values():
         assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms"} <= set(row)

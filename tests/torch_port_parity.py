@@ -1,8 +1,10 @@
 """Helpers of the tests that hold the PyTorch port against the JAX package:
 the same config in both packages, JAX params with their zero-init leaves
-filled, and JAX params or gradients as the port's state_dict."""
+filled, JAX params or gradients as the port's state_dict, and the JAX
+layer's sigmoid dispatch as the port's gate profile."""
 
 import dataclasses
+import json
 
 import numpy as np
 import jax
@@ -10,6 +12,19 @@ import jax.numpy as jnp
 
 from locate_tpu_torch import config as tconfig
 from locate_tpu_torch.io.export import flatten_tree, params_from_jax
+
+
+def use_jax_sigmoid_bound(monkeypatch, tmp_path):
+    """Point LOCATE_TPU_TORCH_GATE_PROFILE at a copy of the card's profile
+    whose sigmoid range is the JAX layer's (`fused_profitable`: the
+    one-pass kernel at H*W <= 256), so that the port dispatches a sigmoid
+    gate as the JAX package does."""
+    from locate_tpu_torch.ops import gate_profile
+
+    path = tmp_path / "gate_profile.json"
+    path.write_text(json.dumps(dict(gate_profile.load(),
+                                    sigmoid_locations=[{"min": 0, "max": 256}])))
+    monkeypatch.setenv(gate_profile.ENV, str(path))
 
 
 def port_config(cfg):
