@@ -17,8 +17,8 @@ the main path of the fused-stage kernels; then ffhq_512 with
 model.attention.mode=sigmoid, serving and training alike, the main path of
 the sigmoid gate's three kernels; then lsun_bedroom_128 with
 model.attention.kind=self, serving with all six self-attention layers and
-training with five, the main path of the three flash kernels. Phases, one
-line each:
+training with five, the main path of the three flash kernels; last, the
+lsun_bedroom_128 step fed through the input path. Phases, one line each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
   2. build: csrc/fused_attention.cu, csrc/fused_stage.cu and
@@ -243,13 +243,25 @@ line each:
  27. bench-sample's CUDA graph of the draw, the forward and the uint8
      conversion against eager `generate_samples` from one seed, bitwise,
      at batch 64 (lsun_bedroom_128) and 16 (ffhq_512), with the idle share;
- 28. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
+ 28. the input path (packed shards, the producer thread, the pinned-memory
+     device prefetch): the pack's rate at 128^2 and whether the native
+     loader built on this host; `bench 128 20 e2e` on the kernel path
+     (fails if its reconciliation e2e <= 1.15 min(input path, device
+     only) does not hold, or if the input path alone is slower than the
+     device-only step); the idle share and top kernels of 3 eager steps
+     fed by the live pipeline, beside the idle share of 3 fed batches
+     pulled before the window and of 3 steps on one fixed batch; 8
+     prefetched batches, the step run between them, copied back and equal
+     byte for byte to a second producer's host batches from the same
+     seed; two spc=4 graph calls fed from the prefetch, bitwise equal to
+     the same calls fed host-made tensors;
+ 29. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
      flash kernels, the five routed stage kernels, softmax_stats,
      softmax_apply, softmax_bwd and sigmoid_bwd with their mma-route
      launches and the simt route's time of the same launches beside their
      own; stage_softmax_apply_pool, off ffhq_512's path under the profile,
      with the launches of 13's every-stage-fused step);
- 29. the card's name and power limit again, then the last line
+ 30. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -3581,6 +3593,136 @@ def phase_sample_graph():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The input path: packed shards, the producer thread and the device prefetch
+# ---------------------------------------------------------------------------
+
+E2E_BATCH = 128
+E2E_PACK_LENGTH = 2048  # bench.py:146-170's max(4 batch, 2048) at batch 128
+
+
+def host_batch_on_card(batch, lead=()):
+    """A producer's host batch as tensors on the card, labels int64, with
+    `lead` leading axes split off the batch axis."""
+    import numpy as np
+
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.reshape(*lead, -1, *v.shape[1:]).astype(np.int64 if k == "label" else v.dtype)))
+        .to("cuda") for k, v in batch.items()}
+
+
+def phase_e2e_input_path():
+    """Phase 28: the pack's rate and the native loader's state on this
+    host; `bench 128 20 e2e` on the kernel path (reconciliation held, the
+    input path alone faster than the device-only rate); the idle share and
+    top kernels of 3 eager steps fed by the pipeline (beside 3 fed batches
+    pulled before the window, and 3 on one fixed batch); 8 prefetched batches,
+    the step run between them, copied back and held byte for byte against
+    a second producer's host batches from the same seed; two spc=4 graph
+    calls fed from the prefetch against the same calls fed host-made
+    tensors, bitwise."""
+    import shutil
+    import tempfile
+
+    from locate_tpu_torch import cli
+    from locate_tpu_torch.data import native
+    from locate_tpu_torch.data.datasets import SyntheticImages
+    from locate_tpu_torch.data.packed import PackedDataset, pack_dataset
+    from locate_tpu_torch.data.pipeline import BatchProducer, make_input_pipeline
+    from locate_tpu_torch.train.state import restore, snapshot
+    from locate_tpu_torch.train.step import make_multi_step
+
+    scratch = tempfile.mkdtemp(prefix="smoke_pack_")
+    pack = os.path.join(scratch, "pack128")
+    t0 = time.perf_counter()
+    pack_dataset(SyntheticImages(128, 3, length=E2E_PACK_LENGTH), pack)
+    pack_s = time.perf_counter() - t0
+    loader = dict(native_loader_built=native.available(), native_error=native.load_error(),
+                  packed_flip="native" if native.available() else "numpy reversed-W gather",
+                  pack_images=E2E_PACK_LENGTH, pack_seconds=pack_s,
+                  pack_images_per_sec=E2E_PACK_LENGTH / pack_s)
+    say("input-path-host", **loader)
+
+    e2e = run_cli(["bench", str(E2E_BATCH), "20", "e2e", f"--pack={pack}"])
+    release_memory()
+    rec = e2e["reconciliation"]
+    check(rec["ok"], f"bench e2e: reconciliation failed {rec}")
+    check(e2e["input_path_images_per_sec"] > e2e["device_only_images_per_sec"],
+          f"bench e2e: the input path alone ({e2e['input_path_images_per_sec']} img/s) is "
+          f"slower than the device-only step ({e2e['device_only_images_per_sec']})")
+
+    # the idle share of 3 eager steps fed by the live pipeline, by 3 of its
+    # batches pulled first (the producer then blocked on a full queue), and
+    # by one fixed batch: what the producer thread's work costs the launches
+    cfg = cli.bench_pack(cli.bench_config(E2E_BATCH, ["e2e"]), E2E_BATCH, pack)
+    gan, state, step = trainer(cfg)
+    with make_input_pipeline(cfg.data, E2E_BATCH, device="cuda", seed=0) as pipe:
+        idle, top = profile_calls(lambda: step(state, next(pipe)), calls=3, top=12)
+        pulled = [next(pipe) for _ in range(4)]
+        time.sleep(1.0)  # the producer refills its queue and blocks
+        idle_pulled, _ = profile_calls(lambda: step(state, pulled.pop()), calls=3)
+    fixed = fixed_batch(E2E_BATCH)
+    idle_fixed, _ = profile_calls(lambda: step(state, fixed), calls=3)
+    idles = {name: "not measured" if v is None else v for name, v in
+             (("live_pipeline", idle), ("pulled_batches", idle_pulled),
+              ("fixed_batch", idle_fixed))}
+
+    # prefetched batches under a running step, against host batches
+    ref = BatchProducer(PackedDataset(pack), E2E_BATCH, seed=7, random_flip=True)
+    ref_it = iter(ref)
+    mismatched = []
+    with make_input_pipeline(cfg.data, E2E_BATCH, device="cuda", seed=7) as pipe:
+        for i in range(8):
+            b = next(pipe)
+            state, _ = step(state, b)
+            got = {k: v.cpu().numpy() for k, v in b.items()}
+            want = next(ref_it)
+            if not all((got[k] == want[k]).all() and got[k].shape == want[k].shape
+                       for k in want):
+                mismatched.append(i)
+    ref.close()
+    check(not mismatched, f"prefetched batches {mismatched} differ from the host batches")
+    del gan, state, step
+    release_memory()
+
+    # two spc=4 graph calls: fed from the prefetch, and fed host-made tensors
+    k, n = 4, BATCH
+    cfg4 = cli.bench_pack(cli.bench_config(n, ["e2e", f"spc={k}"]), n, pack)
+    gan, state, step = trainer(cfg4)
+    multi = make_multi_step(step, k)
+    saved = snapshot(state)
+
+    def two_calls(fed):
+        restore(state, saved)
+        metrics = []
+        if fed == "prefetch":
+            with make_input_pipeline(cfg4.data, n, device="cuda", seed=3,
+                                     steps_per_call=k) as pipe:
+                for _ in range(2):
+                    metrics.append(multi(state, next(pipe))[1])
+        else:
+            prod = BatchProducer(PackedDataset(pack), n * k, seed=3, random_flip=True)
+            it = iter(prod)
+            for _ in range(2):
+                metrics.append(multi(state, host_batch_on_card(next(it), (k,)))[1])
+            prod.close()
+        return (*state_values(state), metrics)
+
+    prefetched, host = two_calls("prefetch"), two_calls("host")
+    diff = differences(prefetched, host)
+    # where they differ, a second host-fed run shows whether the step itself repeats
+    spread = differences(host, two_calls("host")) if diff else {}
+    check(not diff, f"prefetch-fed graph calls differ from host-fed ones: {diff} "
+                    f"(two host-fed runs: {spread})")
+    del gan, state, step, multi, saved, prefetched, host
+    release_memory()
+    shutil.rmtree(scratch)
+    say("e2e-input-path", bench_e2e=e2e,
+        e2e_eager_3_steps=dict(device_idle_share=idles, top_kernels=top),
+        prefetch_byte_exact_batches=8, graph_spc4_prefetch_vs_host="bitwise equal")
+    return e2e, loader
+
+
 def cuobjdump_path() -> str:
     """The toolkit's cuobjdump (CUDA_HOME, /usr/local/cuda, PATH), else the
     copy Triton's package carries; None where there is none."""
@@ -3896,6 +4038,9 @@ def main() -> int:
     # each path; bench-sample's graph against eager sampling
     phase_step_graphs()
     phase_sample_graph()
+
+    # the input path: packed shards through the producer and the prefetch
+    phase_e2e_input_path()
 
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
                       gate_routes.get(k)) for k in KERNELS]

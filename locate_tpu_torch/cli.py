@@ -1,10 +1,14 @@
 """Command line of the PyTorch port, counterpart of `locate_tpu/cli.py`.
 
-    python -m locate_tpu_torch bench [batch] [steps] [xla] [spc=N] [key=value ...] [--device=D]
+    python -m locate_tpu_torch bench [batch] [steps] [xla|e2e] [spc=N] [key=value ...] [--device=D]
     python -m locate_tpu_torch bench-sample lsun_bedroom_128 use_pallas=true --batch=64
     python -m locate_tpu_torch sample lsun_bedroom_128 --generator=PATH.npz --out=grid.png
+    python -m locate_tpu_torch pack lsun_bedroom_128 data.dataset=folder data.path=DIR --out=PACKED
+    python -m locate_tpu_torch bench-input lsun_bedroom_128 data.dataset=packed data.path=PACKED
+    python -m locate_tpu_torch lsun-export LMDB_DIR OUT_DIR [--limit N]
 
-All run on the card; `--device=cpu` asks for the CPU.
+`bench` and the sampling commands run on the card; `--device=cpu` asks
+for the CPU. `pack`, `bench-input` and `lsun-export` are host work.
 """
 
 from __future__ import annotations
@@ -12,7 +16,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import sys
+import tempfile
 import time
 from typing import List, Optional, Tuple
 
@@ -180,15 +186,152 @@ def bench_images_per_sec(cfg: Config, device, batch: int, steps: int) -> float:
     return calls * k * batch / best
 
 
+def bench_pack(cfg: Config, batch: int, path: Optional[str] = None) -> Config:
+    """`cfg` reading a packed synthetic set of max(4 batch, 2048) images at
+    `data.resolution` (bench.py:146-170), packed by the port's
+    `pack_dataset` into `path` (by default a directory of the port's own
+    under the temp dir) unless a pack is there already."""
+    from locate_tpu_torch.data.datasets import SyntheticImages
+    from locate_tpu_torch.data.packed import pack_dataset
+
+    res = cfg.data.resolution
+    length = max(4 * batch, 2048)
+    path = path or os.path.join(tempfile.gettempdir(), f"ltpu_torch_bench_pack_{res}_{length}")
+    if not os.path.exists(os.path.join(path, "meta.json")):
+        pack_dataset(SyntheticImages(res, 3, length=length), path)
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, dataset="packed",
+                                                             path=path))
+
+
+def bench_e2e(cfg: Config, device, batch: int, steps: int, device_only: float) -> dict:
+    """The e2e mode's keys (bench.py:222-268, 295-380): images/sec of the
+    step fed through `make_input_pipeline` (k = `train.steps_per_call`
+    steps a call, `make_multi_step` on the prefetched [k, ...] batches),
+    best of 3 windows of max(max(3, steps // k), 6 q_depth) calls, each
+    after q_depth untimed calls that drain the primed queue (q_depth = 2
+    prefetch + 2: the producer's queue and the device stage); the input
+    path alone, timed before and after those windows; the reconciliation
+    e2e <= 1.15 min(input path, device only); the host's load; and the
+    input path split into host assembly and the device stage."""
+    import numpy as np
+    import torch
+
+    from locate_tpu_torch.data.datasets import make_dataset
+    from locate_tpu_torch.data.pipeline import device_prefetch, make_input_pipeline
+    from locate_tpu_torch.models.gan import build_gan
+    from locate_tpu_torch.train.state import create_train_state
+    from locate_tpu_torch.train.step import make_multi_step, make_train_step
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    k = cfg.train.steps_per_call
+    gan = build_gan(cfg, device)
+    step = make_multi_step(make_train_step(cfg, gan), k)
+    state = create_train_state(cfg, gan)
+    q_depth = 2 * cfg.data.prefetch + 2
+    load_before = os.getloadavg()
+    with make_input_pipeline(cfg.data, batch, device=device, seed=0,
+                             steps_per_call=k) as batches:
+        def input_path(n_calls):
+            for _ in range(q_depth):
+                next(batches)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(n_calls):
+                next(batches)
+            sync()
+            return n_calls * k * batch / (time.perf_counter() - t0)
+
+        for _ in range(-(-10 // k)):
+            state, metrics = step(state, next(batches))
+        sync()
+        calls = max(3, steps // k)
+        windows = [input_path(2 * calls)]
+        calls = max(calls, 6 * q_depth)
+        best = float("inf")
+        for _ in range(3):
+            for _ in range(q_depth):
+                state, metrics = step(state, next(batches))
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                state, metrics = step(state, next(batches))
+            sync()
+            best = min(best, time.perf_counter() - t0)
+        windows.append(input_path(2 * calls))
+    load_after = os.getloadavg()
+    metrics = {name: float(v) for name, v in metrics.items()}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"bench e2e: non-finite metrics {metrics}")
+    e2e = calls * k * batch / best
+    input_ips = max(windows)
+    ok = e2e <= 1.15 * min(input_ips, device_only)
+
+    # the input path's two halves, each alone on the same batches
+    ds = make_dataset(cfg.data)
+    rng = np.random.default_rng(1)
+    nb = 20
+    idxs = rng.integers(0, len(ds), (nb, batch))
+    flips = rng.random((nb, batch)) < 0.5
+    ds.batch_fast(idxs[0], flips[0])
+    t0 = time.perf_counter()
+    for i in range(nb):
+        imgs, labels = ds.batch_fast(idxs[i], flips[i])
+    assembly = nb * batch / (time.perf_counter() - t0)
+    host = {"image": imgs, "label": labels}
+    for _ in device_prefetch(iter([host] * 2), device, cfg.data.prefetch):
+        pass
+    sync()
+    t0 = time.perf_counter()
+    for _ in device_prefetch(iter([host] * nb), device, cfg.data.prefetch):
+        pass
+    sync()
+    transfer = nb * batch / (time.perf_counter() - t0)
+    return {
+        "measures": "end_to_end",
+        "e2e_images_per_sec": round(e2e, 2),
+        "device_only_images_per_sec": round(device_only, 2),
+        "input_path_images_per_sec": round(input_ips, 2),
+        "input_path_windows": [round(x, 2) for x in windows],
+        "reconciliation": {
+            "model": "e2e <= 1.15 * min(input_path, device_only)",
+            "device_only": round(device_only, 2),
+            "input_path": round(input_ips, 2),
+            "e2e": round(e2e, 2),
+            "ok": bool(ok),
+        },
+        "host": {
+            "cpu_count": os.cpu_count(),
+            "loadavg_before_e2e": [round(x, 2) for x in load_before],
+            "loadavg_after_e2e": [round(x, 2) for x in load_after],
+            "pipeline": f"{cfg.data.dataset} (producer thread + device prefetch)",
+            "producer_threads": 1,
+            "pack": cfg.data.path,
+        },
+        "input_path_split": {
+            "host_assembly_images_per_sec": round(assembly, 1),
+            "device_stage_images_per_sec": round(transfer, 1),
+            "note": "input_path ~ the pipelined min of the two; the device stage "
+                    "(pinned copy, side-stream copy, events) timed alone on one "
+                    "assembled batch",
+        },
+    }
+
+
 def cmd_bench(argv: List[str]) -> int:
-    """`bench [batch] [steps] [xla|fused|e2e|spc=N] [key=value ...] [--device D]`:
-    training throughput of the lsun_bedroom_128 train step, the counterpart
-    of `locate-tpu bench` (bench.py): k = spc (16 by default) steps a call,
-    timed as `bench_images_per_sec` says; for k > 1 also one step a call
-    (eager), as `single_step_images_per_sec`. `key=value` arguments
-    override the config (for example `model.attention.kind=self
-    model.attention_stages=4,8,16,32,64`). One JSON line: images/sec,
-    flops per step, MFU."""
+    """`bench [batch] [steps] [xla|fused|e2e|spc=N] [key=value ...] [--device D]
+    [--pack DIR]`: training throughput of the lsun_bedroom_128 train step,
+    the counterpart of `locate-tpu bench` (bench.py): k = spc (16 by
+    default) steps a call, timed as `bench_images_per_sec` says; for k > 1
+    also one step a call (eager), as `single_step_images_per_sec`. `e2e`
+    (k = 1 unless spc=N says otherwise) feeds the step through the input
+    pipeline from a packed synthetic set (`bench_pack`, `--pack` names its
+    directory) and adds `bench_e2e`'s keys; its `value` is the e2e rate.
+    `key=value` arguments override the config (for example
+    `model.attention.kind=self model.attention_stages=4,8,16,32,64`). One
+    JSON line: images/sec, flops per step, MFU."""
     import torch
 
     from locate_tpu_torch.device import device_name, resolve_device
@@ -202,15 +345,18 @@ def cmd_bench(argv: List[str]) -> int:
         raise NotImplementedError(
             "bench fused: the fused simultaneous step (train.fused_step) is not "
             "ported yet (ROADMAP.md Queue 1 item 11)")
-    if "e2e" in modes:
-        raise NotImplementedError(
-            "bench e2e: the data pipeline is not ported yet (ROADMAP.md Queue 1 item 7)")
     device = resolve_device(_str_flag(flags, "device"))
+    e2e = "e2e" in modes
+    if e2e:
+        cfg = bench_pack(cfg, batch, _str_flag(flags, "pack"))
     flops = step_flops(cfg, device, batch)
     k = cfg.train.steps_per_call
     images_per_sec = bench_images_per_sec(cfg, device, batch, steps)
     single = None
-    if k > 1:
+    extra = {}
+    if e2e:
+        extra = bench_e2e(cfg, device, batch, steps, images_per_sec)
+    elif k > 1:
         if device.type == "cuda":
             torch.cuda.empty_cache()
         one = bench_config(batch, [m for m in modes if not m.startswith("spc=")] + ["spc=1"],
@@ -222,19 +368,22 @@ def cmd_bench(argv: List[str]) -> int:
     def mfu(ips):  # a CPU run has no tensor-core peak to hold its rate against
         return round(flops * ips / batch / PEAK_BF16_FLOPS, 4) if device.type == "cuda" else None
 
+    value = extra["e2e_images_per_sec"] if e2e else round(images_per_sec, 2)
+    label = "e2e (host pipeline + transfer + step)" if e2e else "device step"
     print(json.dumps({
         "metric": (f"images/sec @ {res}x{res} GAN train step (bf16, batch {batch}, "
-                   f"device step, {name})"),
-        "value": round(images_per_sec, 2),
+                   f"{label}, {name})"),
+        "value": value,
         "unit": "images/sec",
         "batch": batch,
         "use_pallas": cfg.use_pallas,
         "steps_per_call": k,
-        "sec_per_step": round(batch / images_per_sec, 6),
+        "sec_per_step": round(batch / value, 6),
         "flops_per_step": flops,
-        "mfu": mfu(images_per_sec),
+        "mfu": mfu(value),
         **({"single_step_images_per_sec": round(single, 2),
             "single_step_mfu": mfu(single)} if single is not None else {}),
+        **extra,
         "device": name,
     }))
     return 0
@@ -343,9 +492,81 @@ def cmd_sample(argv: List[str]) -> int:
     return 0
 
 
+def cmd_pack(argv: List[str]) -> int:
+    """`pack PRESET [overrides] [--out DIR] [--shard-size N] [--batch N]`:
+    one-time offline pack of the config's dataset into pre-decoded,
+    pre-resized uint8 memmap shards, the format `locate-tpu pack` writes.
+    Training then reads `data.dataset=packed data.path=DIR`, and the host
+    input path is page-cache memcpy (no decode an epoch)."""
+    from locate_tpu_torch.data.datasets import make_dataset
+    from locate_tpu_torch.data.packed import pack_dataset
+
+    preset = argv[0] if argv else "cifar10_32"
+    flags, bare = _split_args(argv[1:])
+    cfg = get_config(preset, parse_cli_overrides(bare))
+    src = make_dataset(cfg.data)
+    out = _str_flag(flags, "out") or (
+        (cfg.data.path.rstrip("/") or cfg.workdir) + f"_packed{cfg.data.resolution}")
+    path = pack_dataset(src, out, shard_size=int(_str_flag(flags, "shard-size", "4096")),
+                        batch_size=int(_str_flag(flags, "batch", "64")), progress=True)
+    print(f"[locate-tpu-torch] packed {len(src)} examples @ {cfg.data.resolution}px "
+          f"to {path} — train with data.dataset=packed data.path={path}")
+    return 0
+
+
+def cmd_lsun_export(argv: List[str]) -> int:
+    """`lsun-export <lmdb_dir> <out_dir> [--limit N]`: an LSUN LMDB
+    archive as an image folder, which then feeds `data.dataset=folder` or
+    `pack`; `data.dataset=lsun` reads the archive directly, so the export
+    is optional."""
+    from locate_tpu_torch.data.lsun import lsun_to_folder
+
+    if len(argv) < 2:
+        print("usage: lsun-export <lmdb_dir> <out_dir> [--limit N]")
+        return 1
+    flags, _ = _split_args(argv[2:])
+    limit = _str_flag(flags, "limit")
+    n = lsun_to_folder(argv[0], argv[1], limit=int(limit) if limit else None,
+                       progress=True)
+    print(f"[locate-tpu-torch] exported {n} LSUN records to {argv[1]}")
+    return 0
+
+
+def cmd_bench_input(argv: List[str]) -> int:
+    """`bench-input PRESET [overrides] [--batches N]`: the host input
+    path's throughput (images/sec, no device): the producer thread at
+    `train.global_batch`, decode and flips included, after one batch of
+    warm-up."""
+    from locate_tpu_torch.data.datasets import make_dataset
+    from locate_tpu_torch.data.pipeline import BatchProducer
+
+    preset = argv[0] if argv else "cifar10_32"
+    flags, bare = _split_args(argv[1:])
+    cfg = get_config(preset, parse_cli_overrides(bare))
+    batches = int(_str_flag(flags, "batches", "20"))
+    prod = BatchProducer(make_dataset(cfg.data), cfg.train.global_batch,
+                         random_flip=cfg.data.random_flip, seed=0)
+    it = iter(prod)
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    dt = time.perf_counter() - t0
+    prod.close()
+    print(json.dumps({
+        "metric": f"input pipeline images/sec ({cfg.data.dataset}, {cfg.data.resolution}px)",
+        "value": round(batches * cfg.train.global_batch / dt, 2),
+        "unit": "images/sec",
+    }))
+    return 0
+
+
 COMMANDS = {
     "bench": cmd_bench,
+    "bench-input": cmd_bench_input,
     "bench-sample": cmd_bench_sample,
+    "lsun-export": cmd_lsun_export,
+    "pack": cmd_pack,
     "sample": cmd_sample,
 }
 

@@ -4,7 +4,7 @@ step a call; one JSON line from several steps a call (spc=2, cut to
 16x16), with the one-step-a-call rate beside it; and every config bench
 builds, the modes the port does not run included (the guard against
 bench.py's round-5 override crash, where a config the bench built could
-not be built)."""
+not be built). `bench e2e` runs in tests/test_torch_data_pipeline.py."""
 
 import json
 
@@ -55,7 +55,7 @@ def test_every_bench_config_builds(modes):
     assert cfg.parallel.data_parallel == 1
 
 
-@pytest.mark.parametrize("modes,message", [(["fused"], "fused"), (["e2e"], "data pipeline")])
+@pytest.mark.parametrize("modes,message", [(["fused"], "fused")])
 def test_unported_bench_modes_raise(modes, message):
     with pytest.raises(NotImplementedError, match=message):
         cli.main(["bench", "1", "1", *modes, "--device=cpu"])

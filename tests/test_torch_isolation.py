@@ -19,8 +19,8 @@ def port_modules():
 
 
 def test_import_loads_no_jax():
-    assert {"locate_tpu_torch.ops.flash_attention",
-            "locate_tpu_torch.ops.self_attention"} <= set(port_modules())
+    assert {"locate_tpu_torch.ops.flash_attention", "locate_tpu_torch.ops.self_attention",
+            "locate_tpu_torch.data.pipeline", "locate_tpu_torch.data.native"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {['locate_tpu_torch'] + port_modules()!r}:\n"
@@ -40,7 +40,7 @@ def sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "locate_tpu_torch")):
         files += [os.path.join(root, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+                  if n.endswith((".py", ".cu", ".cuh", ".cc"))]
     return files
 
 
@@ -48,7 +48,8 @@ def test_no_source_imports_the_jax_package():
     assert len(sources()) > 10
     names = {os.path.relpath(path, REPO) for path in sources()}
     assert {"locate_tpu_torch/ops/flash_attention.py", "locate_tpu_torch/ops/self_attention.py",
-            "locate_tpu_torch/csrc/flash_attention.cu"} <= names
+            "locate_tpu_torch/csrc/flash_attention.cu",
+            "locate_tpu_torch/data/_native/loader.cc"} <= names
     offenders = []
     for path in sources():
         with open(path) as fh:
