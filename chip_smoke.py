@@ -17,8 +17,10 @@ the main path of the fused-stage kernels; then ffhq_512 with
 model.attention.mode=sigmoid, serving and training alike, the main path of
 the sigmoid gate's three kernels; then lsun_bedroom_128 with
 model.attention.kind=self, serving with all six self-attention layers and
-training with five, the main path of the three flash kernels; last, the
-lsun_bedroom_128 step fed through the input path. Phases, one line each:
+training with five, the main path of the three flash kernels; then the
+lsun_bedroom_128 step fed through the input path; last, the train loop of
+lsun_bedroom_128 with checkpoints, a SIGKILL and resume, export and
+sampling from a checkpoint. Phases, one line each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
   2. build: csrc/fused_attention.cu, csrc/fused_stage.cu and
@@ -255,13 +257,32 @@ lsun_bedroom_128 step fed through the input path. Phases, one line each:
      byte for byte to a second producer's host batches from the same
      seed; two spc=4 graph calls fed from the prefetch, bitwise equal to
      the same calls fed host-made tensors;
- 29. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
+ 29. the train loop (`python -m locate_tpu_torch train` in child
+     processes): lsun_bedroom_128 as shipped at full width, batch 64, bf16,
+     synthetic data, 16 steps a call (a CUDA graph), 64 steps, an async
+     checkpoint every 16; run A twice (where the two differ, cuDNN is made
+     deterministic for the comparison below, and the phase says so); run B
+     SIGKILLed as soon as checkpoints/32 is complete and resumed to 64: its
+     final checkpoint (every state tensor, the step, the generator), its
+     sample grid and its metrics.jsonl (one monotone trajectory, every
+     record but the timing fields) equal A's; then the loop in this process
+     (no sample grid) with the counters from 0 (each of the step's six kernels
+     launched: the softmax gate's four, stage_conv and stage_conv_bwd, and
+     no other), the device's idle share and top kernels over one logged
+     window (steps 49-64, an async save and a log read in it), its logged
+     images/sec beside `bench 64 20`'s fixed-batch rate at spc=16 and the
+     loop's recipe (R1, guards) on one fixed batch at spc=16, an async
+     save's time on the step's stream; `export` of A's checkpoint, and
+     `sample --generator` on the export and `sample --checkpoint` on A
+     writing the same PNG bytes for one seed;
+ 30. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
      flash kernels, the five routed stage kernels, softmax_stats,
      softmax_apply, softmax_bwd and sigmoid_bwd with their mma-route
      launches and the simt route's time of the same launches beside their
      own; stage_softmax_apply_pool, off ffhq_512's path under the profile,
-     with the launches of 13's every-stage-fused step);
- 30. the card's name and power limit again, then the last line
+     with the launches of 13's every-stage-fused step; each with its
+     launches in 29's loop);
+ 31. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -1419,14 +1440,20 @@ def phase_generator(fa, cfg):
     return launches
 
 
-def run_cli(argv) -> dict:
+def cli_text(argv) -> str:
+    """What `locate_tpu_torch.cli.main(argv)` prints; it must return 0."""
     from locate_tpu_torch import cli
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     check(rc == 0, f"{' '.join(argv)} returned {rc}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
+    return buf.getvalue()
+
+
+def run_cli(argv) -> dict:
+    """The JSON line a command prints last."""
+    return json.loads(cli_text(argv).strip().splitlines()[-1])
 
 
 def profile_calls(fn, calls: int = 3, top: int = 0):
@@ -1444,10 +1471,18 @@ def profile_calls(fn, calls: int = 3, top: int = 0):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = []
-    for ev in prof.events():
-        if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            spans.append((ev.time_range.start, ev.time_range.end))
+    return idle_and_top(prof, wall, calls, top)
+
+
+def idle_and_top(prof, wall: float, calls: int = 1, top: int = 0):
+    """`profile_calls`' two readings of a finished profiler over `wall`
+    seconds of `calls` calls. A range a `record_function` annotation
+    draws on the device's timeline is no kernel, and is left out."""
+    def kernel(ev):
+        return (getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False))
+
+    spans = [(ev.time_range.start, ev.time_range.end) for ev in prof.events() if kernel(ev)]
     if not spans:
         return None, []
     spans.sort()
@@ -1462,7 +1497,7 @@ def profile_calls(fn, calls: int = 3, top: int = 0):
     kernels = []
     if top:
         for ev in prof.key_averages():
-            if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            if not kernel(ev):
                 continue  # an operator's row: its kernels have rows of their own
             total = getattr(ev, "self_device_time_total", None)
             if total is None:
@@ -3723,6 +3758,280 @@ def phase_e2e_input_path():
     return e2e, loader
 
 
+# ---------------------------------------------------------------------------
+# The train loop: checkpoints, a SIGKILL and resume, export and sampling
+# ---------------------------------------------------------------------------
+
+LOOP_STEPS = 64
+LOOP_SPC = 16
+# lsun_bedroom_128 as shipped (R1 every 16, both guards, EMA) at full
+# width, batch 64, bf16, on the kernels; only the data source is cut (the
+# preset's folder holds no images on the card's machine)
+LOOP_ARGS = ["lsun_bedroom_128", "use_pallas=true", "data.dataset=synthetic",
+             f"train.global_batch={BATCH}", "train.compute_dtype=bfloat16",
+             f"train.steps_per_call={LOOP_SPC}", f"train.total_steps={LOOP_STEPS}",
+             f"train.log_every={LOOP_SPC}", f"train.checkpoint_every={LOOP_SPC}",
+             f"train.sample_every={LOOP_STEPS}", "train.async_checkpoint=true"]
+LOOP_KERNELS = ("softmax_stats", "softmax_apply", "softmax_csum", "softmax_bwd",
+                "stage_conv", "stage_conv_bwd")
+# a child that trains through the CLI with cuDNN held to deterministic
+# algorithms (the drill's own setting, no option of the port)
+DETERMINISTIC_CHILD = ("import sys, torch\n"
+                       "torch.backends.cudnn.deterministic = True\n"
+                       "from locate_tpu_torch import cli\n"
+                       "sys.exit(cli.main(sys.argv[1:]))\n")
+TIMING_KEYS = ("images_per_sec", "sec_per_step")
+
+
+def train_child(workdir, deterministic, wait=True):
+    """`train` of LOOP_ARGS in `workdir`, in a child process (output to
+    <workdir>.log): `python -m locate_tpu_torch train ...`, or the same
+    command with cuDNN deterministic. Waits for it unless `wait` is
+    False (then returns the process)."""
+    cmd = ([sys.executable, "-c", DETERMINISTIC_CHILD] if deterministic
+           else [sys.executable, "-m", "locate_tpu_torch"])
+    cmd += ["train", *LOOP_ARGS, f"workdir={workdir}"]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log = open(workdir + ".log", "a")
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    if not wait:
+        return proc
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(workdir + ".log") as f:
+        out = f.read()
+    check(rc == 0, f"train in {workdir} exited {rc}: {out[-3000:]}")
+    return out
+
+
+def loop_records(workdir):
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def checkpoint_payload(workdir, step):
+    return torch.load(os.path.join(workdir, "checkpoints", str(step), "state.pt"),
+                      map_location="cpu", weights_only=True)
+
+
+def run_differences(a, b) -> dict:
+    """Where two runs' final checkpoints, sample grids and logged records
+    (but their timing fields) differ: {what: largest |a - b| or a note}."""
+    pa, pb = checkpoint_payload(a, LOOP_STEPS), checkpoint_payload(b, LOOP_STEPS)
+    out = {}
+    for k, t in pa["tensors"].items():
+        if not torch.equal(t, pb["tensors"][k]):
+            out[k] = float((t.double() - pb["tensors"][k].double()).abs().max())
+    if pa["step"] != pb["step"]:
+        out["step"] = [pa["step"], pb["step"]]
+    if not torch.equal(pa["rng"], pb["rng"]):
+        out["rng"] = "differs"
+    grid = os.path.join("samples", f"step_{LOOP_STEPS:08d}.png")
+    with open(os.path.join(a, grid), "rb") as fa, open(os.path.join(b, grid), "rb") as fb:
+        if fa.read() != fb.read():
+            out["sample_grid"] = "differs"
+    ra, rb = loop_records(a), loop_records(b)
+    for x, y in zip(ra, rb):
+        for k in x:
+            if k not in TIMING_KEYS and x[k] != y.get(k):
+                out[f"step{x['step']}.{k}"] = [x[k], y.get(k)]
+    if [r["step"] for r in ra] != [r["step"] for r in rb]:
+        out["logged_steps"] = [[r["step"] for r in ra], [r["step"] for r in rb]]
+    return out
+
+
+def killed_and_resumed(workdir, deterministic):
+    """Run B: the loop in a child SIGKILLed as soon as checkpoints/32 is
+    complete (renamed into place), then resumed to the end by another."""
+    proc = train_child(workdir, deterministic, wait=False)
+    target = os.path.join(workdir, "checkpoints", str(2 * LOOP_SPC))
+    deadline = time.time() + 600
+    try:
+        while not os.path.isdir(target) and proc.poll() is None and time.time() < deadline:
+            time.sleep(0.02)
+        check(os.path.isdir(target), f"run B never wrote {target}")
+        os.kill(proc.pid, 9)
+    finally:
+        rc = proc.wait()
+    check(rc == -9, f"run B ended before the kill ({rc})")
+    killed_at = sorted(int(n) for n in os.listdir(os.path.join(workdir, "checkpoints"))
+                       if n.isdigit())
+    out = train_child(workdir, deterministic)
+    resumed = re.search(r"resumed from step (\d+)", out)
+    check(resumed is not None, f"run B did not resume: {out[-2000:]}")
+    return killed_at, int(resumed.group(1))
+
+
+class WindowProfile:
+    """torch.profiler over the loop's log boundaries `start` to `stop`
+    (the hook "on_metrics" at each): one logged window. Its readings are
+    taken after the run (`result`), outside the loop's clock."""
+
+    def __init__(self, start, stop):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.start, self.stop = start, stop
+        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.wall = None
+
+    def __call__(self, step, metrics):
+        if step == self.start:
+            torch.cuda.synchronize()
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        elif step == self.stop:
+            torch.cuda.synchronize()
+            self.wall = time.perf_counter() - self.t0
+            self.prof.stop()
+
+    def result(self) -> dict:
+        check(self.wall is not None, f"the loop never reached log step {self.stop}")
+        idle, top = idle_and_top(self.prof, self.wall, 1, top=8)
+        return dict(steps=[self.start + 1, self.stop], wall_seconds=self.wall,
+                    device_idle_share="not measured" if idle is None else idle,
+                    top_kernels=top)
+
+
+def save_cost(state):
+    """An async save of `state` on the step's stream: the device time of
+    its device-to-host copies (CUDA events around `save`), the host time
+    of the call, the first save's (which pins the host buffers), bytes."""
+    import shutil
+    import tempfile
+
+    from locate_tpu_torch.io.checkpoint import CheckpointManager
+    from locate_tpu_torch.train.state import state_tensors
+
+    scratch = tempfile.mkdtemp(prefix="smoke_ckpt_")
+    mgr = CheckpointManager(scratch, keep=1, async_save=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(state, step=1)
+    first_host_ms = (time.perf_counter() - t0) * 1e3
+    mgr.wait()
+    rows = []
+    for step in (2, 3, 4):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        mgr.save(state, step=step)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        rows.append((start.elapsed_time(end), host_ms))
+        mgr.wait()
+    mgr.close()
+    shutil.rmtree(scratch)
+    nbytes = sum(t.numel() * t.element_size() for t in state_tensors(state).values())
+    device_ms = min(r[0] for r in rows)
+    return dict(state_bytes=nbytes, stream_ms=[r[0] for r in rows],
+                host_ms=[r[1] for r in rows], first_save_host_ms=first_host_ms,
+                copy_gb_per_s=nbytes / device_ms / 1e6)
+
+
+def phase_train_loop():
+    """Phase 29: the train loop of lsun_bedroom_128 at full width (LOOP_ARGS)
+    in child processes through `python -m locate_tpu_torch train`: run A
+    twice (if they differ, cuDNN is made deterministic for A and B, and
+    the run says so), its logged images/sec the loop's rate; run B
+    SIGKILLed as soon as checkpoints/32 is complete and resumed to the
+    end: its final checkpoint (every tensor, step, generator), sample grid
+    and metrics.jsonl (one monotone trajectory; every record but its
+    timing fields) equal A's. In this process: the loop once more, with
+    the counters from 0 (every kernel of the step launched) and the
+    device's idle share over one logged window (steps 49-64); an async
+    save's cost on the step's stream; `bench 64 20`'s fixed-batch rate at
+    spc=16 and the loop's recipe on a fixed batch beside the loop's rate.
+    Then `export` of A's checkpoint: `sample --generator` on the export
+    and `sample --checkpoint` on A write the same PNG bytes."""
+    import shutil
+    import tempfile
+
+    from locate_tpu_torch import cli
+    from locate_tpu_torch.config import get_config, parse_cli_overrides
+    from locate_tpu_torch.train.loop import train
+
+    scratch = tempfile.mkdtemp(prefix="smoke_loop_")
+    run_a, run_a2, run_b = (os.path.join(scratch, n) for n in ("a", "a2", "b"))
+    t0 = time.perf_counter()
+    train_child(run_a, False)
+    child_seconds = time.perf_counter() - t0
+    train_child(run_a2, False)
+    repeat = run_differences(run_a, run_a2)
+    deterministic = bool(repeat)
+    if deterministic:  # cuDNN picked algorithms that do not repeat across processes
+        shutil.rmtree(run_a)
+        train_child(run_a, True)
+    shutil.rmtree(run_a2)
+    killed_at, resumed_from = killed_and_resumed(run_b, deterministic)
+    check(resumed_from >= 2 * LOOP_SPC, f"run B resumed from step {resumed_from}")
+    steps_b = [r["step"] for r in loop_records(run_b)]
+    check(steps_b == sorted(set(steps_b)) == list(range(LOOP_SPC, LOOP_STEPS + 1, LOOP_SPC)),
+          f"run B's metrics.jsonl steps {steps_b}")
+    diff = run_differences(run_a, run_b)
+    check(not diff, f"the killed and resumed run differs from the uninterrupted one: {diff}")
+    logged = loop_records(run_a)
+    check(all(math.isfinite(v) for r in logged for v in r.values() if v is not None)
+          and all(v is not None for r in logged for v in r.values()),
+          f"run A logged non-finite metrics: {logged}")
+
+    # the loop in this process: its launches, one logged window's idle
+    # share, its rate beside bench 64 20's
+    cfg = dataclasses.replace(get_config(LOOP_ARGS[0], parse_cli_overrides(LOOP_ARGS[1:])),
+                              workdir=os.path.join(scratch, "p"))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, sample_every=0))
+    window = WindowProfile(LOOP_STEPS - LOOP_SPC, LOOP_STEPS)
+    reset_counters()
+    state = train(cfg, hooks={"on_metrics": window}, device="cuda")
+    launches = read_counters()
+    for name, n in launches.items():
+        check((n > 0) == (name in LOOP_KERNELS),
+              f"the loop launched {name} {n} times (its step's kernels: {LOOP_KERNELS})")
+    window_readings = window.result()
+    cost = save_cost(state)
+    del state, window
+    release_memory()
+    # the same step on one fixed batch: bench's pins (no R1, no guards), and
+    # the loop's own recipe (R1 every 16, both guards)
+    bench = cli.bench_images_per_sec(cli.bench_config(BATCH, [f"spc={LOOP_SPC}"]),
+                                     torch.device("cuda"), BATCH, 20)
+    release_memory()
+    recipe = cli.bench_images_per_sec(cfg, torch.device("cuda"), BATCH, 20)
+    release_memory()
+    loop_rate = logged[-1]["images_per_sec"]  # run A's, which ran unprofiled
+
+    # export A's checkpoint; both sample paths on one seed
+    base = os.path.join(scratch, "export", "gen")
+    cli_text(["export", *LOOP_ARGS, f"workdir={run_a}", f"--out={base}"])
+    sample = ["sample", *LOOP_ARGS, "--seed=7", "--count=16"]
+    cli_text([*sample, f"--generator={base}.npz", f"--out={scratch}/export.png"])
+    cli_text([*sample, f"--checkpoint={run_a}/checkpoints", f"--out={scratch}/ckpt.png"])
+    with open(f"{scratch}/export.png", "rb") as fa, open(f"{scratch}/ckpt.png", "rb") as fb:
+        same_png = fa.read() == fb.read()
+    check(same_png, "sample --generator on the export and sample --checkpoint differ")
+    release_memory()
+    shutil.rmtree(scratch)
+    out = dict(config=" ".join(LOOP_ARGS), child_run_seconds=child_seconds,
+               uninterrupted_runs_repeat=not repeat, repeat_differences=repeat,
+               cudnn_deterministic=deterministic,
+               run_b=dict(complete_checkpoints_at_kill=killed_at, resumed_from=resumed_from,
+                          equal_to_run_a=True),
+               logged_images_per_sec_run_a=[r["images_per_sec"] for r in logged],
+               loop_images_per_sec=loop_rate, bench_64_20_spc16_images_per_sec=bench,
+               fixed_batch_loop_recipe_images_per_sec=recipe,
+               loop_over_bench=loop_rate / bench, loop_over_fixed_recipe=loop_rate / recipe,
+               logged_window=window_readings,
+               async_save=cost, launches=launches, export_png_equals_checkpoint_png=same_png)
+    say("train-loop", **out)
+    return out, launches
+
+
 def cuobjdump_path() -> str:
     """The toolkit's cuobjdump (CUDA_HOME, /usr/local/cuda, PATH), else the
     copy Triton's package carries; None where there is none."""
@@ -4042,6 +4351,10 @@ def main() -> int:
     # the input path: packed shards through the producer and the prefetch
     phase_e2e_input_path()
 
+    # the train loop: a SIGKILLed run resumed against an uninterrupted one,
+    # export and sampling from the checkpoint
+    _, loop_launches = phase_train_loop()
+
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
                       gate_routes.get(k)) for k in KERNELS]
     out += [stage_entry(k, stage_times, stage_err, ffhq_launches, routes=ffhq_routes,
@@ -4055,6 +4368,7 @@ def main() -> int:
     for entry in out:
         entry["launches_ffhq_512_sigmoid_train"] = sig_launches[entry["name"]]
         entry["launches_self_attention_train"] = self_launches[entry["name"]]
+        entry["launches_train_loop"] = loop_launches[entry["name"]]
         check(entry["launches"] > 0, f"{entry['name']} never launched on its main path")
     check(len(out) == 14, f"{len(out)} kernels listed")
     print(json.dumps({"kernels": out}), flush=True)

@@ -1,14 +1,18 @@
 """Command line of the PyTorch port, counterpart of `locate_tpu/cli.py`.
 
+    python -m locate_tpu_torch train lsun_bedroom_128 use_pallas=true [--no-resume] [--profile[=DIR]] [--debug-nans]
+    python -m locate_tpu_torch sample lsun_bedroom_128 [--checkpoint=DIR | --generator=PATH.npz] [--interpolate]
+    python -m locate_tpu_torch export lsun_bedroom_128 [--checkpoint=DIR] [--out=BASE] [--torch=PATH.pt]
+    python -m locate_tpu_torch info ffhq_512
     python -m locate_tpu_torch bench [batch] [steps] [xla|e2e] [spc=N] [key=value ...] [--device=D]
-    python -m locate_tpu_torch bench-sample lsun_bedroom_128 use_pallas=true --batch=64
-    python -m locate_tpu_torch sample lsun_bedroom_128 --generator=PATH.npz --out=grid.png
+    python -m locate_tpu_torch bench-sample lsun_bedroom_128 use_pallas=true --batch=64 [--checkpoint=DIR]
     python -m locate_tpu_torch pack lsun_bedroom_128 data.dataset=folder data.path=DIR --out=PACKED
     python -m locate_tpu_torch bench-input lsun_bedroom_128 data.dataset=packed data.path=PACKED
     python -m locate_tpu_torch lsun-export LMDB_DIR OUT_DIR [--limit N]
 
-`bench` and the sampling commands run on the card; `--device=cpu` asks
-for the CPU. `pack`, `bench-input` and `lsun-export` are host work.
+`train`, `export`, `bench` and the sampling commands run on the card;
+`--device=cpu` asks for the CPU. `info`, `pack`, `bench-input` and
+`lsun-export` are host work.
 """
 
 from __future__ import annotations
@@ -389,18 +393,75 @@ def cmd_bench(argv: List[str]) -> int:
     return 0
 
 
+def _restore(cfg: Config, ckpt_dir: str, device):
+    """(gan, state) of `cfg` on `device` with the latest checkpoint in
+    `ckpt_dir` restored (`io/checkpoint.py`)."""
+    from locate_tpu_torch.io.checkpoint import CheckpointManager
+    from locate_tpu_torch.models.gan import build_gan
+    from locate_tpu_torch.train.state import create_train_state
+
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(f"no checkpoint directory {ckpt_dir}")
+    gan = build_gan(cfg, device, seed=cfg.train.seed)
+    state = create_train_state(cfg, gan, seed=cfg.train.seed)
+    CheckpointManager(ckpt_dir, keep=cfg.train.keep_checkpoints).restore(state)
+    return gan, state
+
+
+def _weights(state) -> str:
+    return "ema" if state.ema_params is not None else "g"
+
+
+def cmd_train(argv: List[str]) -> int:
+    """`train PRESET [overrides] [--no-resume] [--profile[=DIR]]
+    [--debug-nans] [--device D]`: run or resume training in the preset's
+    workdir (`train/loop.py`). `--profile` writes a Chrome trace of the
+    run (to <workdir>/trace without a DIR). `--debug-nans` runs under
+    `torch.autograd.detect_anomaly(check_nan=True)`, which raises at the
+    backward that made a NaN; a CUDA graph cannot run in that mode, so on
+    the card it needs `train.steps_per_call=1`."""
+    import contextlib
+
+    import torch
+
+    from locate_tpu_torch.device import resolve_device
+    from locate_tpu_torch.train.loop import train
+    from locate_tpu_torch.utils.profiling import profiler_trace
+
+    preset = argv[0] if argv else "cifar10_32"
+    flags, bare = _split_args(argv[1:])
+    cfg = get_config(preset, parse_cli_overrides(bare))
+    device = resolve_device(_str_flag(flags, "device"))
+    anomaly = contextlib.nullcontext()
+    if flags.get("debug-nans"):
+        if device.type == "cuda" and cfg.train.steps_per_call > 1:
+            raise SystemExit(
+                f"--debug-nans: anomaly mode cannot run inside a CUDA graph, and "
+                f"train.steps_per_call={cfg.train.steps_per_call} captures one on the card; "
+                "pass train.steps_per_call=1 (or --device=cpu)")
+        anomaly = torch.autograd.detect_anomaly(check_nan=True)
+    trace_dir = flags.get("profile")
+    with profiler_trace(os.path.join(cfg.workdir, "trace") if trace_dir is True
+                        else trace_dir), anomaly:
+        train(cfg, resume=not flags.get("no-resume"), device=device)
+    return 0
+
+
 def cmd_bench_sample(argv: List[str]) -> int:
-    """`bench-sample PRESET [overrides] [--batch N] [--steps N] [--device D]`:
-    serving throughput, images/sec generating in `train.compute_dtype`,
-    device compute and the uint8 copy to the host included; on the card
-    each batch is one replay of a CUDA graph of the latent draw, the
-    forward and the uint8 conversion (`train/graph.py:SampleGraph`). Times
-    freshly initialized weights (throughput does not depend on their
-    values)."""
+    """`bench-sample PRESET [overrides] [--batch N] [--steps N]
+    [--checkpoint DIR] [--device D]`: serving throughput, images/sec
+    generating in `train.compute_dtype`, device compute and the uint8 copy
+    to the host included; on the card each batch is one replay of a CUDA
+    graph of the latent draw, the forward and the uint8 conversion
+    (`train/graph.py:SampleGraph`). Serves the latest checkpoint's EMA
+    generator (of `--checkpoint`, by default <workdir>/checkpoints) when
+    there is one, else freshly initialized weights (throughput does not
+    depend on their values)."""
     import torch
 
     from locate_tpu_torch.device import device_name, resolve_device
-    from locate_tpu_torch.io.sampling import generate_samples
+    from locate_tpu_torch.io.checkpoint import CheckpointManager
+    from locate_tpu_torch.io.sampling import generate_samples, serving_generator
     from locate_tpu_torch.models.gan import model_config
     from locate_tpu_torch.models.generator import build_generator
     from locate_tpu_torch.train.graph import SampleGraph
@@ -409,18 +470,23 @@ def cmd_bench_sample(argv: List[str]) -> int:
     flags, bare = _split_args(argv[1:])
     overrides = parse_cli_overrides(bare)
     if flags.get("dp"):
-        raise SystemExit("--dp: data-parallel serving waits for the parallel "
-                         "slice of the port (ROADMAP.md Queue 1)")
-    if flags.get("checkpoint"):
-        raise SystemExit("--checkpoint: orbax checkpoints wait for the "
-                         "checkpoint slice of the port (ROADMAP.md Queue 1)")
+        raise SystemExit("--dp: data-parallel serving (ShardedSampler) waits for the "
+                         "parallel slice of the port (ROADMAP.md Queue 1 item 9)")
     cfg = get_config(preset, overrides)
     batch = int(_str_flag(flags, "batch", "64"))
     steps = int(_str_flag(flags, "steps", "20"))
     if batch < 1 or steps < 1:
         raise SystemExit("usage: --batch and --steps must be >= 1")
     device = resolve_device(_str_flag(flags, "device"))
-    model = build_generator(model_config(cfg), cfg.train.compute_dtype, device).eval()
+    ckpt_dir = _str_flag(flags, "checkpoint") or os.path.join(cfg.workdir, "checkpoints")
+    weights = "init"
+    # no manager without a directory: it would create one
+    if os.path.isdir(ckpt_dir) and CheckpointManager(ckpt_dir).latest_step() is not None:
+        gan, state = _restore(cfg, ckpt_dir, device)
+        model, weights = serving_generator(gan, state), _weights(state)
+        del gan, state
+    else:
+        model = build_generator(model_config(cfg), cfg.train.compute_dtype, device).eval()
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     if device.type == "cuda":  # one captured graph (its warm-up builds the kernels)
@@ -446,49 +512,156 @@ def cmd_bench_sample(argv: List[str]) -> int:
         "sec_per_batch": round(best / steps, 5),
         "cuda_graph": device.type == "cuda",
         "devices": 1,
-        "weights": "init",
+        "weights": weights,
     }))
     return 0
 
 
 def cmd_sample(argv: List[str]) -> int:
-    """`sample PRESET [overrides] --generator=PATH.npz [--count N]
-    [--seed S] [--truncation T] [--label L] [--out PNG] [--device D]`:
-    an image grid from a generator exported by `locate-tpu export`. The
-    preset gives the compute dtype and `use_pallas`; the export gives the
-    model. Orbax checkpoints wait for the checkpoint slice."""
+    """`sample PRESET [overrides] [--generator=PATH.npz | --checkpoint DIR]
+    [--count N] [--seed S] [--truncation T] [--label L] [--interpolate
+    [--rows R] [--cols C]] [--out PNG] [--device D]`: an image grid from a
+    generator exported by `export` (or `locate-tpu export`), else from the
+    latest checkpoint's EMA generator (of `--checkpoint`, by default
+    <workdir>/checkpoints). `--interpolate` renders a slerp interpolation
+    sheet, `rows` latent pairs across `cols` steps. The preset gives the
+    compute dtype and `use_pallas`."""
     import torch
 
     from locate_tpu_torch.device import resolve_device
     from locate_tpu_torch.io.export import load_generator
-    from locate_tpu_torch.io.sampling import generate_samples, save_image_grid
+    from locate_tpu_torch.io.sampling import (generate_samples, interpolation_grid,
+                                              save_image_grid, serving_generator)
 
     preset = argv[0] if argv else "cifar10_32"
     flags, bare = _split_args(argv[1:])
     overrides = parse_cli_overrides(bare)
-    path = _str_flag(flags, "generator")
-    if not path:
-        raise SystemExit("sample needs --generator=PATH.npz (an export of "
-                         "`locate-tpu export`); orbax checkpoints wait for the "
-                         "checkpoint slice of the port (ROADMAP.md Queue 1)")
     cfg = get_config(preset, overrides)
     device = resolve_device(_str_flag(flags, "device"))
-    model = load_generator(path, device, cfg.train.compute_dtype,
-                           use_pallas=cfg.use_pallas or cfg.model.use_pallas).eval()
-    count = int(_str_flag(flags, "count", "64"))
+    path = _str_flag(flags, "generator")
+    if path:
+        model = load_generator(path, device, cfg.train.compute_dtype,
+                               use_pallas=cfg.use_pallas or cfg.model.use_pallas).eval()
+        default_out = f"{cfg.workdir}/samples/torch_samples.png"
+        source = path
+    else:
+        ckpt_dir = _str_flag(flags, "checkpoint") or os.path.join(cfg.workdir, "checkpoints")
+        gan, state = _restore(cfg, ckpt_dir, device)
+        model = serving_generator(gan, state)
+        default_out = f"{cfg.workdir}/samples/cli_step_{state.step}.png"
+        source = f"step {state.step}"
+        del gan, state
     gen = torch.Generator(device=device)
     gen.manual_seed(int(_str_flag(flags, "seed", "0")))
-    labels = None
-    label = _str_flag(flags, "label")
-    if label is not None:
-        if not model.config.num_classes:
-            raise SystemExit("--label needs model.num_classes > 0")
-        labels = torch.full((count,), int(label), device=device)
-    imgs = generate_samples(model, gen, count, labels=labels,
-                            truncation=float(_str_flag(flags, "truncation", "0.0")))
-    out = _str_flag(flags, "out") or f"{cfg.workdir}/samples/torch_samples.png"
-    save_image_grid(imgs, out)
-    print(f"[locate-tpu-torch] wrote {count} samples to {out}")
+    grid_cols = None
+    if flags.get("interpolate"):
+        rows = int(_str_flag(flags, "rows", "4"))
+        grid_cols = int(_str_flag(flags, "cols", "8"))
+        imgs = interpolation_grid(model, gen, rows, grid_cols)
+        count = rows * grid_cols
+    else:
+        count = int(_str_flag(flags, "count", "64"))
+        labels = None
+        label = _str_flag(flags, "label")
+        if label is not None:
+            if not model.config.num_classes:
+                raise SystemExit("--label needs model.num_classes > 0")
+            labels = torch.full((count,), int(label), device=device)
+        imgs = generate_samples(model, gen, count, labels=labels,
+                                truncation=float(_str_flag(flags, "truncation", "0.0")))
+    out = _str_flag(flags, "out") or default_out
+    save_image_grid(imgs, out, cols=grid_cols)
+    print(f"[locate-tpu-torch] wrote {count} samples ({source}) to {out}")
+    return 0
+
+
+def cmd_export(argv: List[str]) -> int:
+    """`export PRESET [overrides] [--checkpoint DIR] [--out BASE]
+    [--torch PATH.pt] [--device D]`: the latest checkpoint's EMA generator
+    as the `.npz` + `.json` pair `locate-tpu export` writes (both packages'
+    `load_generator` read it); `--torch` also writes the port generator's
+    state_dict."""
+    import torch
+
+    from locate_tpu_torch.device import resolve_device
+    from locate_tpu_torch.io.export import export_generator
+    from locate_tpu_torch.io.sampling import serving_weights
+
+    preset = argv[0] if argv else "cifar10_32"
+    flags, bare = _split_args(argv[1:])
+    if flags.get("compiled-batch"):
+        raise SystemExit("--compiled-batch: the compiled serving artifact (export_compiled) "
+                         "is not ported yet (ROADMAP.md Queue 1 item 11)")
+    cfg = get_config(preset, parse_cli_overrides(bare))
+    device = resolve_device(_str_flag(flags, "device"))
+    ckpt_dir = _str_flag(flags, "checkpoint") or os.path.join(cfg.workdir, "checkpoints")
+    gan, state = _restore(cfg, ckpt_dir, device)
+    params = serving_weights(state)
+    out = _str_flag(flags, "out") or f"{cfg.workdir}/export/generator_{state.step}"
+    path = export_generator(gan.config, params, out)
+    print(f"[locate-tpu-torch] exported generator (step {state.step}, {_weights(state)}) "
+          f"to {path}")
+    torch_out = _str_flag(flags, "torch")
+    if torch_out:
+        os.makedirs(os.path.dirname(torch_out) or ".", exist_ok=True)
+        torch.save({k: v.detach().cpu().clone() for k, v in params.items()}, torch_out)
+        print(f"[locate-tpu-torch] exported torch state_dict to {torch_out}")
+    return 0
+
+
+def cmd_info(argv: List[str]) -> int:
+    """`info PRESET [overrides]`: model and memory planning without a
+    device: stage shapes, parameter counts (G, D, total) and the training
+    state's bytes a device (params, Adam moments and the EMA shadow, split
+    as the ZeRO stage and the data-parallel width say). Both nets are
+    built on `torch.device("meta")`, which allocates nothing, so ffhq_512
+    answers at once. The JSON has the keys and values of `locate-tpu
+    info`; `parallel.data_parallel=-1` counts the visible cards (1 with
+    none)."""
+    import torch
+
+    from locate_tpu_torch.models.discriminator import Discriminator
+    from locate_tpu_torch.models.gan import model_config
+    from locate_tpu_torch.models.generator import Generator, as_dtype
+
+    preset = argv[0] if argv else "cifar10_32"
+    _, bare = _split_args(argv[1:])
+    cfg = get_config(preset, parse_cli_overrides(bare))
+    mcfg, cd = model_config(cfg), as_dtype(cfg.train.compute_dtype)
+    with torch.device("meta"):
+        n_g = sum(p.numel() for p in Generator(mcfg, cd).parameters())
+        n_d = sum(p.numel() for p in Discriminator(mcfg, cd).parameters())
+    n_total = n_g + n_d
+    # f32 training state a replica: params + Adam mu/nu (both nets) + the
+    # EMA shadow of G; ZeRO-1 shards the moments and the EMA over the data
+    # axis, ZeRO-3 the params too
+    ema_bytes = n_g * (2 if cfg.train.ema_dtype == "bfloat16" else 4)
+    dp = cfg.parallel.data_parallel
+    dp = max(torch.cuda.device_count(), 1) if dp == -1 else dp
+    z = cfg.parallel.zero_stage
+    param_bytes = n_total * 4 / (dp if z >= 3 else 1)
+    opt_bytes = (n_total * 2 * 4 + (ema_bytes if cfg.train.ema_decay > 0 else 0)) / (
+        dp if z >= 1 else 1)
+    batch_bytes = (cfg.train.global_batch * cfg.model.resolution ** 2
+                   * cfg.model.img_channels) // max(dp, 1)
+    print(json.dumps({
+        "preset": cfg.name,
+        "arch": cfg.model.arch,
+        "resolution": cfg.model.resolution,
+        "stage_resolutions": list(cfg.model.stage_resolutions()),
+        "stage_channels": list(cfg.model.stage_channels()),
+        "g_rgb": cfg.model.g_rgb,
+        "params_g": n_g,
+        "params_d": n_d,
+        "params_total": n_total,
+        "zero_stage": z,
+        "data_parallel": dp,
+        "state_bytes_per_device": int(param_bytes + opt_bytes),
+        "state_mib_per_device": round((param_bytes + opt_bytes) / 2**20, 1),
+        "input_bytes_per_device_per_step": int(batch_bytes),
+        "global_batch": cfg.train.global_batch,
+        "compute_dtype": cfg.train.compute_dtype,
+    }))
     return 0
 
 
@@ -565,9 +738,12 @@ COMMANDS = {
     "bench": cmd_bench,
     "bench-input": cmd_bench_input,
     "bench-sample": cmd_bench_sample,
+    "export": cmd_export,
+    "info": cmd_info,
     "lsun-export": cmd_lsun_export,
     "pack": cmd_pack,
     "sample": cmd_sample,
+    "train": cmd_train,
 }
 
 

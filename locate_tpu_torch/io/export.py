@@ -1,7 +1,11 @@
-"""Loading exported generators, counterpart of `locate_tpu/io/export.py`.
+"""Exported generators, counterpart of `locate_tpu/io/export.py`: the
+`.npz` + `.json` pair that `locate-tpu export` writes, read by
+`load_generator` and written by `export_generator` (in the JAX layout, so
+the JAX package's `load_generator` reads the port's exports too).
 
 `params_from_jax` is the function that carries weights across frameworks
-(`flatten_tree` gives it a params pytree's arrays).
+(`flatten_tree` gives it a params pytree's arrays), `params_to_jax` its
+exact inverse.
 It takes the JAX generator's params as numpy arrays keyed by their pytree
 path, joined with `/` (the `.npz` that `locate-tpu export` writes) or `.`
 (the `--torch=PATH.pt` state_dict of `locate_tpu/io/torch_bridge.py`), and
@@ -14,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -51,6 +56,32 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
         sd[name] = torch.from_numpy(np.array(arr, copy=True))
     return sd
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of `params_from_jax`: a port state_dict as f32 numpy
+    arrays keyed by their `/`-joined JAX paths, conv kernels transposed
+    OIHW -> HWIO."""
+    flat = {}
+    for name, t in state_dict.items():
+        arr = t.detach().float().cpu().numpy()
+        if name.rsplit(".", 1)[-1] == "w" and arr.ndim == 4:
+            arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
+        flat[name.replace(".", "/")] = np.ascontiguousarray(arr)
+    return flat
+
+
+def export_generator(model_cfg: ModelConfig, params: Mapping[str, torch.Tensor],
+                     path: str) -> str:
+    """Write `<path>.npz` (the generator's parameters, `params` a port
+    state_dict such as `FlatParams.named(state.ema_params)`, in the JAX
+    layout) and `<path>.json` (its model config); returns the `.npz`."""
+    base = path[:-4] if path.endswith(".npz") else path
+    os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
+    np.savez(base + ".npz", **params_to_jax(params))
+    with open(base + ".json", "w") as f:
+        json.dump(dataclasses.asdict(model_cfg), f, indent=2)
+    return base + ".npz"
 
 
 def _load_model_config(path: str) -> ModelConfig:

@@ -1,12 +1,13 @@
 """Sampling, counterpart of `locate_tpu/io/sampling.py`: latents from an
 explicit `torch.Generator`, images to uint8 on the device before the copy
-to the host, and PNG grids."""
+to the host, slerp interpolation sheets, PNG grids, and the serving
+generator of a train state (its EMA weights in a module of their own)."""
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +57,68 @@ def generate_samples(model: Generator, gen: torch.Generator, count: int,
             labels = torch.arange(count, device=device) % cfg.num_classes
         imgs = model(z, labels)
         return to_uint8_tensor(imgs).cpu().numpy()
+
+
+def slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
+    """Spherical interpolation between latent vectors (the way to walk a
+    Gaussian latent space: a linear path leaves the shell); parallel
+    vectors fall back to the linear path."""
+    a_n = a / torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+    b_n = b / torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+    omega = torch.arccos(torch.clamp((a_n * b_n).sum(-1, keepdim=True), -1, 1))
+    so = torch.sin(omega)
+    t = torch.as_tensor(t, dtype=a.dtype, device=a.device)[..., None]
+    return torch.where(so < 1e-6, (1.0 - t) * a + t * b,
+                       (torch.sin((1.0 - t) * omega) * a + torch.sin(t * omega) * b) / so)
+
+
+def interpolation_grid(model: Generator, gen: torch.Generator, rows: int = 4, cols: int = 8,
+                       labels: Optional[torch.Tensor] = None,
+                       latents: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> np.ndarray:
+    """`rows` latent pairs (drawn from `gen` unless `latents` gives them,
+    each [rows, latent_dim]), each slerp-interpolated across `cols` steps:
+    uint8 (rows * cols, H, W, C) in row-major order for
+    `save_image_grid(..., cols=cols)`. A class-conditional model's row r
+    takes class r mod num_classes."""
+    cfg = model.config
+    device = gen.device
+    if latents is None:
+        latents = (sample_latents(gen, rows, cfg.latent_dim),
+                   sample_latents(gen, rows, cfg.latent_dim))
+    za, zb = (z.to(device, torch.float32) for z in latents)
+    ts = torch.linspace(0.0, 1.0, cols, device=device)
+    z = torch.stack([slerp(za, zb, torch.full((rows,), float(t), device=device))
+                     for t in ts])                      # (cols, rows, D)
+    z = z.transpose(0, 1).reshape(rows * cols, -1)
+    if labels is None and cfg.num_classes:
+        labels = torch.repeat_interleave(torch.arange(rows, device=device) % cfg.num_classes,
+                                         cols)
+    with torch.inference_mode():
+        return to_uint8_tensor(model(z, labels)).cpu().numpy()
+
+
+def serving_weights(state) -> Dict[str, torch.Tensor]:
+    """The generator weights a train state serves, by parameter name: its
+    EMA shadow's, or G's own where the run keeps no EMA (views, not
+    copies)."""
+    flat = state.ema_params if state.ema_params is not None else state.g_params.flat
+    return state.g_params.named(flat)
+
+
+def serving_generator(gan, state) -> Generator:
+    """A second generator module holding `serving_weights(state)`, for
+    sample grids and `sample --checkpoint`: the live G keeps training,
+    this one only serves."""
+    from locate_tpu_torch.models.generator import build_generator
+
+    model = build_generator(gan.config, gan.compute_dtype, gan.device).eval()
+    return load_weights(model, state)
+
+
+def load_weights(model: Generator, state) -> Generator:
+    """Copy `serving_weights(state)` into `model`."""
+    model.load_state_dict(serving_weights(state))
+    return model
 
 
 def tile_grid(imgs: np.ndarray, cols: Optional[int] = None) -> np.ndarray:

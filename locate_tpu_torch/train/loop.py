@@ -1,0 +1,224 @@
+"""The train loop, counterpart of `locate_tpu/train/loop.py`: config ->
+data -> models -> step, with periodic logging, sample grids and
+checkpoints, and resume from the latest checkpoint.
+
+The loop reads the device once a log boundary (every metric in one
+copy to the host) and nowhere else: the step, the input prefetch and an
+async checkpoint's copies all queue on the card. With
+`train.steps_per_call` = k > 1 each call runs k steps (on the card the
+replays of a CUDA graph of one step, `train/step.py:make_multi_step`),
+and every cadence is a multiple of k.
+
+A resumed run continues bit for bit: the checkpoint restores the state's
+tensors in place, its step and its generator before the first call (so
+before any graph is captured), the input stream skips the batches the
+restored steps consumed, and sample grids draw from a generator of their
+own, reseeded before each grid, never from the state's.
+
+`cfg.compile_cache` has no effect here: the kernels' build cache of
+`ops/cuda/build.py`, keyed by a digest of sources and flags, does that
+work. In-training eval (`train.eval_every`, with `keep_best` and
+`regress_warn_evals`) waits for the eval slice (ROADMAP.md Queue 1
+item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Callable, Dict, Optional
+
+import torch
+
+from locate_tpu_torch.config import Config
+from locate_tpu_torch.data.pipeline import make_input_pipeline
+from locate_tpu_torch.device import resolve_device
+from locate_tpu_torch.io.checkpoint import CheckpointManager
+from locate_tpu_torch.io.sampling import (generate_samples, load_weights, save_image_grid,
+                                          serving_generator)
+from locate_tpu_torch.models.gan import build_gan
+from locate_tpu_torch.train.state import TrainState, create_train_state
+from locate_tpu_torch.train.step import make_multi_step, make_train_step
+from locate_tpu_torch.utils.metrics import PREFIX, MetricsLogger
+from locate_tpu_torch.utils.profiling import StepTimer, trace_annotation
+from locate_tpu_torch.utils.runlock import RunLock
+
+
+def _dump_config(cfg: Config) -> None:
+    """The resolved config as <workdir>/config.json (tuples and other
+    non-JSON leaves as strings)."""
+    os.makedirs(cfg.workdir, exist_ok=True)
+    with open(os.path.join(cfg.workdir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+
+
+def train(
+    cfg: Config,
+    total_steps: Optional[int] = None,
+    hooks: Optional[Dict[str, Callable]] = None,
+    resume: bool = True,
+    device=None,
+) -> TrainState:
+    """Run (or resume) training on `device` (the card unless "cpu");
+    returns the final TrainState.
+
+    `hooks` may give "on_metrics(step, metrics)" and
+    "on_samples(step, images_u8)". The workdir is locked for the run
+    (`utils/runlock.py`): a second `train()` on it raises instead of
+    tearing metrics.jsonl and racing checkpoint writes."""
+    if cfg.train.eval_every > 0:
+        raise NotImplementedError(
+            "train.eval_every > 0 (in-training rFID eval, keep_best, regress_warn_evals) "
+            "is not ported yet (ROADMAP.md Queue 1 item 10)")
+    device = resolve_device(device)
+    lock = RunLock.acquire(cfg.workdir)
+    try:
+        return _train_locked(cfg, total_steps, hooks or {}, resume, device)
+    finally:
+        lock.release()
+
+
+def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Callable],
+                  resume: bool, device: torch.device) -> TrainState:
+    tcfg = cfg.train
+    total_steps = total_steps or tcfg.total_steps
+    gan = build_gan(cfg, device, seed=tcfg.seed)
+    step_fn = make_multi_step(make_train_step(cfg, gan), tcfg.steps_per_call)
+    state = create_train_state(cfg, gan, seed=tcfg.seed)
+
+    ckpt = CheckpointManager(os.path.join(cfg.workdir, "checkpoints"),
+                             keep=tcfg.keep_checkpoints, async_save=tcfg.async_checkpoint)
+    if resume and ckpt.latest_step() is not None:
+        ckpt.restore(state)  # before the first call: the graphs capture restored tensors
+        print(f"{PREFIX} resumed from step {state.step}", flush=True)
+
+    k = tcfg.steps_per_call
+    if k > 1 and (total_steps % k or state.step % k):
+        raise ValueError(
+            f"total_steps={total_steps} and the resume step {state.step} must both be "
+            f"multiples of train.steps_per_call={k}")
+    batches = make_input_pipeline(cfg.data, tcfg.global_batch, device=device, seed=tcfg.seed,
+                                  skip_batches=state.step,  # resume replays the exact stream
+                                  steps_per_call=k, d_steps=tcfg.d_steps)
+    # throughput counts the real images consumed
+    timer = StepTimer(tcfg.global_batch * k * tcfg.d_steps)
+    # metrics.jsonl appends on resume and truncates on a fresh run, so the
+    # file describes one trajectory
+    logger = MetricsLogger(os.path.join(cfg.workdir, "tb") if tcfg.tensorboard else None,
+                           jsonl_path=os.path.join(cfg.workdir, "metrics.jsonl"),
+                           append=state.step > 0, resume_step=state.step)
+    _dump_config(cfg)
+    # sample grids: fixed latents from a generator of their own, reseeded
+    # before every grid, and the EMA weights in a serving module
+    sample_gen = torch.Generator(device=device)
+    server = None
+    # Lazy R1's value at a log boundary is 0 unless R1 fired in that call:
+    # keep the metrics of the latest call whose steps held a fire step and
+    # log its r1 as r1_last_fire (with k > 1 the call's mean, the penalty
+    # diluted by k). The track lives in this process, as the JAX loop's
+    # does: a resumed run logs it from its first fire step on. R2 and PL,
+    # the other lazy terms, are not ported.
+    r1_every = tcfg.r1_interval if tcfg.r1_gamma > 0 and tcfg.r1_interval > 1 else 0
+    r1_fire = None
+    grad_limit_seen = 0  # grad-norm-limit skips already warned about
+    try:
+        for step_idx in range(state.step, total_steps, k):
+            batch = next(batches)
+            with trace_annotation("train_step"):
+                state, metrics = step_fn(state, batch)
+            # wait for the device only while warming up: the clock starts
+            # from a synchronized point, the steady state stays asynchronous
+            timer.tick(metrics if timer.warming_up else None)
+            # a fire step in [step_idx, step_idx + k)
+            if r1_every and (step_idx % r1_every == 0 or step_idx % r1_every + k > r1_every):
+                r1_fire = metrics
+
+            step_num = step_idx + k
+            if step_num % tcfg.log_every == 0 or step_num == total_steps:
+                host_metrics = _read_metrics(metrics, r1_fire)
+                host_metrics["images_per_sec"] = timer.images_per_sec
+                host_metrics["sec_per_step"] = timer.sec_per_step / k
+                logger.log_scalars(step_num, host_metrics)
+                if "on_metrics" in hooks:
+                    hooks["on_metrics"](step_num, host_metrics)
+                grad_limit_seen = _check_guards(tcfg, step_num, host_metrics, grad_limit_seen)
+
+            if tcfg.sample_every and (step_num % tcfg.sample_every == 0
+                                      or step_num == total_steps):
+                if server is None:
+                    server = serving_generator(gan, state)
+                else:
+                    load_weights(server, state)
+                sample_gen.manual_seed(tcfg.seed + 1)
+                imgs = generate_samples(server, sample_gen, min(64, tcfg.global_batch))
+                save_image_grid(imgs, os.path.join(cfg.workdir, "samples",
+                                                   f"step_{step_num:08d}.png"))
+                logger.log_images(step_num, "samples", imgs)
+                if "on_samples" in hooks:
+                    hooks["on_samples"](step_num, imgs)
+
+            if tcfg.checkpoint_every and (step_num % tcfg.checkpoint_every == 0
+                                          or step_num == total_steps):
+                ckpt.save(state)
+    finally:
+        batches.close()  # stops the producer thread, drops the prefetched batches
+        logger.close()
+        ckpt.close()
+        _print_digest(cfg.workdir)
+    return state
+
+
+def _read_metrics(metrics: Dict[str, torch.Tensor], r1_fire) -> Dict[str, float]:
+    """The call's metrics (and r1_last_fire) on the host, in one copy."""
+    values = dict(metrics)
+    if r1_fire is not None and "r1" in r1_fire:
+        values["r1_last_fire"] = r1_fire["r1"]
+    names = list(values)
+    host = torch.stack([values[n].detach().reshape(()).float() for n in names]).cpu()
+    return dict(zip(names, host.tolist()))
+
+
+def _check_guards(tcfg, step_num: int, m: Dict[str, float], grad_limit_seen: int) -> int:
+    """Warn when grad-norm-limit skips start; abort on a streak of
+    non-finite or over-limit updates at `max_nonfinite_skips` (params are
+    never poisoned, but such a streak means training is dead). Returns the
+    skips warned about so far."""
+    if tcfg.grad_norm_limit > 0.0:
+        n_skips = int(m.get("d_grad_limit_count", 0) + m.get("g_grad_limit_count", 0))
+        if n_skips > grad_limit_seen:
+            print(f"{PREFIX} WARNING step {step_num}: {n_skips - grad_limit_seen} update(s) "
+                  f"skipped for |grad| > {tcfg.grad_norm_limit:g} ({n_skips} total; window "
+                  f"norms d={m.get('d_grad_norm', 0):.3g} g={m.get('g_grad_norm', 0):.3g})",
+                  flush=True)
+            grad_limit_seen = n_skips
+    limit = tcfg.max_nonfinite_skips
+    if limit > 0:
+        streak = max(m.get("d_nonfinite_streak", 0), m.get("g_nonfinite_streak", 0))
+        if streak >= limit:
+            raise RuntimeError(f"aborting at step {step_num}: {int(streak)} consecutive "
+                               f"non-finite gradient steps (limit {limit})")
+        lim_streak = max(m.get("d_grad_limit_streak", 0), m.get("g_grad_limit_streak", 0))
+        if lim_streak >= limit:
+            raise RuntimeError(f"aborting at step {step_num}: {int(lim_streak)} consecutive "
+                               f"updates over grad_norm_limit={tcfg.grad_norm_limit:g} "
+                               f"(limit {limit})")
+    return grad_limit_seen
+
+
+def _print_digest(workdir: str) -> None:
+    """The end-of-run stability digest (`utils/digest.py`), aborted runs
+    included. Best effort: a digest failure never masks the run's own
+    outcome."""
+    from locate_tpu_torch.utils.digest import format_digest, load_metrics_jsonl, stability_digest
+
+    path = os.path.join(workdir, "metrics.jsonl")
+    try:
+        if os.path.exists(path):
+            dig = stability_digest(load_metrics_jsonl(path))
+            if dig is not None:
+                print(f"{PREFIX} run stability digest:", flush=True)
+                for line in format_digest(dig):
+                    print("  " + line, flush=True)
+    except Exception as e:  # pragma: no cover
+        print(f"{PREFIX} (stability digest failed: {e!r})", flush=True)

@@ -20,13 +20,18 @@ def port_modules():
 
 def test_import_loads_no_jax():
     assert {"locate_tpu_torch.ops.flash_attention", "locate_tpu_torch.ops.self_attention",
-            "locate_tpu_torch.data.pipeline", "locate_tpu_torch.data.native"} <= set(port_modules())
+            "locate_tpu_torch.data.pipeline", "locate_tpu_torch.data.native",
+            "locate_tpu_torch.train.loop", "locate_tpu_torch.io.checkpoint",
+            "locate_tpu_torch.utils.runlock", "locate_tpu_torch.utils.digest",
+            "locate_tpu_torch.utils.metrics",
+            "locate_tpu_torch.utils.profiling"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {['locate_tpu_torch'] + port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'locate_tpu'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "                                    'locate_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -57,7 +62,7 @@ def test_no_source_imports_the_jax_package():
                 code = line.split("#", 1)[0]
                 importing = (re.match(r"\s*(from|import)\s", code)
                              or "import_module(" in code or "__import__(" in code)
-                if importing and (JAX_PACKAGE.search(code) or re.search(r"\bjax\b", code)):
+                if importing and (JAX_PACKAGE.search(code) or re.search(r"\b(jax|orbax)\b", code)):
                     offenders.append(f"{os.path.relpath(path, REPO)}:{i}: {line.strip()}")
     assert not offenders, offenders
 
