@@ -18,9 +18,10 @@ model.attention.mode=sigmoid, serving and training alike, the main path of
 the sigmoid gate's three kernels; then lsun_bedroom_128 with
 model.attention.kind=self, serving with all six self-attention layers and
 training with five, the main path of the three flash kernels; then the
-lsun_bedroom_128 step fed through the input path; last, the train loop of
+lsun_bedroom_128 step fed through the input path; the train loop of
 lsun_bedroom_128 with checkpoints, a SIGKILL and resume, export and
-sampling from a checkpoint. Phases, one line each:
+sampling from a checkpoint; last, three more presets and six recipes of
+the train step's options. Phases, one line each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
   2. build: csrc/fused_attention.cu, csrc/fused_stage.cu and
@@ -275,14 +276,39 @@ sampling from a checkpoint. Phases, one line each:
      save's time on the step's stream; `export` of A's checkpoint, and
      `sample --generator` on the export and `sample --checkpoint` on A
      writing the same PNG bytes for one seed;
- 30. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
+ 30. three more presets as shipped, at full width: cifar10_32 (f32
+     compute), celeba_64 (attention at every stage) and ffhq_256
+     (class-conditional, the projection D): a served batch; 4 steps from
+     one state with the same draws and the learning rate at 0
+     (`paths_from_one_state`): on the kernel path in the preset's dtype,
+     each gate backward call of step 0 held to the plain backward on its
+     own saved tensors by the rule of 3; and 2 whole steps in f32 at 64^2
+     or below on the kernel and the plain path, D's and G's gradients and
+     the loss metrics within 1e-4 of the plain path or ten times its own
+     move under 1e-7 weight noise; ffhq_256's at batch 16 (the checked
+     calls' f32 references; printed as a cut); a graph call of 4 steps at
+     the preset's batch (ffhq_256 halved while the allocator refuses it
+     with R1; printed) bitwise equal to the eager steps (cuDNN
+     deterministic), R1 firing; each kernel's launches a step, the softmax
+     gate's four above 0;
+ 31. lsun_bedroom_128 as shipped at full width and batch 64 under six
+     recipes of docs/GUIDE.md: the limited-data stack (ADA, bCR, LeCam),
+     R3GAN (rpgan, R1 and R2), WGAN-GP with 5 critic steps, the fused
+     simultaneous step, path-length and orthogonal regularization, and
+     grad_accum 2 with the bf16 EMA, the warmup-cosine schedule and
+     ema_rampup: 2 kernel-path steps and 1 f32 step a path as in 30 (the
+     f32 step at 64^2); a 2-step graph call
+     bitwise equal to its eager steps, crossing an R1 step (and a PL
+     step); the softmax gate's launches a step above 0; step times and
+     the idle share; then `bench 128 20 fused` beside 7's `bench 128 20`;
+ 32. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
      flash kernels, the five routed stage kernels, softmax_stats,
      softmax_apply, softmax_bwd and sigmoid_bwd with their mma-route
      launches and the simt route's time of the same launches beside their
      own; stage_softmax_apply_pool, off ffhq_512's path under the profile,
      with the launches of 13's every-stage-fused step; each with its
      launches in 29's loop);
- 31. the card's name and power limit again, then the last line
+ 33. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -605,7 +631,12 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+START = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
+    """One tagged JSON line, with the seconds since the script started."""
+    fields["elapsed_seconds"] = time.perf_counter() - START
     print(f"[{phase}] " + json.dumps(fields), flush=True)
 
 
@@ -1541,9 +1572,9 @@ def fixed_batch(n, res=128, device="cuda"):
             "label": torch.zeros(n, dtype=torch.long, device=device)}
 
 
-def trainer(cfg, seed=0):
+def trainer(cfg, seed=0, weights=None):
     """A seeded GAN with non-zero logit convs (and self-attention gammas),
-    its fresh state and step."""
+    or with `weights` (G's and D's state_dicts), its fresh state and step."""
     from locate_tpu_torch.models.gan import build_gan
     from locate_tpu_torch.train.state import create_train_state
     from locate_tpu_torch.train.step import make_train_step
@@ -1552,6 +1583,9 @@ def trainer(cfg, seed=0):
     for net in (gan.generator, gan.discriminator):
         randomize_logit_convs(net, seed=seed + 1, scale=0.25)
         fill_gammas(net)
+    if weights is not None:
+        gan.generator.load_state_dict(weights[0])
+        gan.discriminator.load_state_dict(weights[1])
     return gan, create_train_state(cfg, gan, seed=seed + 2), make_train_step(cfg, gan)
 
 
@@ -1746,10 +1780,15 @@ def step_grads(cfg, weights, z_d, z_g, res, use_pallas, dtype, perturb=0.0):
                 p.mul_(1.0 + perturb * torch.randn(p.shape, device="cuda", generator=g))
     state = create_train_state(pcfg, gan)
     step = make_train_step(pcfg, gan)
-    real, labels, zd, ld, zg, lg = step.prepare(state, fixed_batch(z_d.shape[0], res),
-                                                z_d=z_d, z_g=z_g)
-    d_loss, d_aux, d_grads = step.d_loss_and_grads(state, real, labels, zd, ld)
-    g_loss, g_grads = step.g_loss_and_grads(state, zg, lg)
+    real, labels, draws = step.prepare(state, fixed_batch(z_d.shape[0], res), z_d=z_d,
+                                       z_g=z_g)
+    with torch.no_grad():
+        fake = gan.generator(draws["z_d"], draws.get("labels_d"))
+    d_loss, d_aux, d_grads, _ = step.d_loss_and_grads(state, real, labels, fake,
+                                                      draws.get("labels_d"), draws,
+                                                      step.r1_due(state.step))
+    g_loss, _, g_grads = step.g_loss_and_grads(state, draws["z_g"], draws.get("labels_g"),
+                                               real, labels, {}, draws, False)
     torch.cuda.synchronize()
     out = (d_grads, g_grads, float(d_loss), float(g_loss), float(d_aux.get("r1", 0.0)))
     del gan, state, step
@@ -3447,14 +3486,18 @@ def per_step(rows, kind, mult, key):
 # ---------------------------------------------------------------------------
 
 
-def stacked_batch(k, n, res=128, seed=0):
-    """k different uint8 batches of n images, [k, n, res, res, 3], and their
-    labels, on the card."""
+def stacked_batch(k, n, res=128, seed=0, lead=(), classes=0):
+    """k different uint8 batches of n images, [k, *lead, n, res, res, 3]
+    (`lead` = (d_steps,) for the multi-critic step), and their labels
+    (uniform over `classes`, or zeros), on the card."""
     import numpy as np
 
-    host = np.random.default_rng(seed).integers(0, 256, (k, n, res, res, 3), dtype=np.uint8)
+    rng = np.random.default_rng(seed)
+    shape = (k, *lead, n)
+    host = rng.integers(0, 256, shape + (res, res, 3), dtype=np.uint8)
+    labels = rng.integers(0, max(classes, 1), shape)
     return {"image": torch.from_numpy(host).to("cuda"),
-            "label": torch.zeros((k, n), dtype=torch.long, device="cuda")}
+            "label": torch.from_numpy(labels).to("cuda")}
 
 
 def state_values(state):
@@ -3492,13 +3535,15 @@ def graph_vs_eager(cfg, k, calls, n, res, phase):
     EMA, guard counters, step, generator state and each call's reduced
     metrics bitwise equal to the eager run's, or, where two eager runs
     already differ, the graph's differences within the eager runs' own;
-    each captured variant launches the kernels of one eager step."""
+    each captured variant (one a set of lazy flags: R1, PL) launches the
+    kernels of one eager step."""
     from locate_tpu_torch.train.graph import StepGraphs
     from locate_tpu_torch.train.state import restore, snapshot
     from locate_tpu_torch.train.step import make_multi_step, reduce_metrics
 
     gan, state, step = trainer(cfg)
-    batches = stacked_batch(k, n, res)
+    lead = (cfg.train.d_steps,) if cfg.train.d_steps > 1 else ()
+    batches = stacked_batch(k, n, res, lead=lead, classes=cfg.model.num_classes)
     saved = snapshot(state)
 
     def eager():
@@ -3525,16 +3570,18 @@ def graph_vs_eager(cfg, k, calls, n, res, phase):
     multi = make_multi_step(step, k)
     graphs = multi.graphs = StepGraphs(step, k, state, batches, {})
     graphs.load(batches, {})
-    flags = sorted({step.r1_due(saved.step + c * k + i) for c in range(calls) for i in range(k)})
+    flags = sorted({step.lazy_flags(saved.step + c * k + i) for c in range(calls)
+                    for i in range(k)})
     graphs.warm_up(flags)
     captured = {}
-    for r1 in flags:
+    for f in flags:
         reset_counters()
-        graphs.capture(r1)
-        captured["r1" if r1 else "plain"] = read_counters()
-        check(captured["r1" if r1 else "plain"] == per_step,
-              f"{phase}: the {'R1' if r1 else 'plain'} step's capture launched "
-              f"{captured['r1' if r1 else 'plain']}, an eager step {per_step}")
+        graphs.capture(f)
+        name = "+".join(n for n, on in zip(("r1", "pl"), f) if on) or "plain"
+        captured[name] = read_counters()
+        check(captured[name] == per_step,
+              f"{phase}: the {name} step's capture launched {captured[name]}, an eager "
+              f"step {per_step}")
     reset_counters()
     metrics = []
     torch.cuda.synchronize()
@@ -4271,6 +4318,309 @@ def gate_entry(kernel, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_
     return entry
 
 
+# ---------------------------------------------------------------------------
+# Every option of the train step: three presets at full width, and six
+# recipes at lsun_bedroom_128's
+# ---------------------------------------------------------------------------
+
+PRESETS = ("cifar10_32", "celeba_64", "ffhq_256")
+PRESET_STEPS = 4
+# the batch of the kernel-path steps held call by call and of the f32
+# comparison; each preset's own batch runs the graph call (ffhq_256's
+# halved while the allocator refuses it with R1). ffhq_256's checked
+# calls at batch 128 would take tens of seconds (f32 references of every
+# call at 256^2): the comparison runs at 16 there (printed as a cut)
+PRESET_COMPARE_BATCH = {"cifar10_32": 64, "celeba_64": 64, "ffhq_256": 16}
+RECIPES = {
+    "limited_data": {"train.ada_target": "0.6", "train.bcr_gamma": "10",
+                     "train.lecam_gamma": "0.3"},
+    "r3gan": {"train.loss": "rpgan", "train.r1_gamma": "0.1", "train.r2_gamma": "0.1"},
+    "wgan_gp": {"train.loss": "wgan", "train.gp_gamma": "10", "train.d_steps": "5"},
+    "fused": {"train.fused_step": "true"},
+    "pl_ortho": {"train.pl_gamma": "2", "train.ortho_gamma": "1e-4"},
+    "accum_bf16_ema_schedule": {"train.grad_accum": "2", "train.ema_dtype": "bfloat16",
+                                "train.lr_schedule": "linear_warmup_cosine",
+                                "train.ema_rampup": "0.05"},
+}
+RECIPE_STEPS = 2
+RECIPE_GRAPH_STEPS = 2
+LOSS_KEYS = ("d_loss", "g_loss", "real_logits", "fake_logits")
+SOFTMAX_GATE = ("softmax_stats", "softmax_apply", "softmax_csum", "softmax_bwd")
+
+
+def path_config(cfg, use_pallas, dtype=None):
+    """`cfg` on the kernel path or the plain path, in `dtype` compute, with
+    both optimizers' learning rate at 0."""
+    t = cfg.train if dtype is None else dataclasses.replace(cfg.train, compute_dtype=dtype)
+    t = dataclasses.replace(t, g_opt=dataclasses.replace(t.g_opt, lr=0.0),
+                            d_opt=dataclasses.replace(t.d_opt, lr=0.0))
+    return dataclasses.replace(cfg, use_pallas=use_pallas, train=t,
+                               model=dataclasses.replace(cfg.model, use_pallas=use_pallas))
+
+
+def recorded_gradients(step):
+    """Record every flat gradient `step` hands its two optimizers, in
+    order: {"d": [...], "g": [...]}."""
+    rec = {"d": [], "g": []}
+    for name, opt in (("d", step.d_opt), ("g", step.g_opt)):
+        def update(grads, state, _orig=opt.update, _name=name):
+            rec[_name].append(grads.detach().clone())
+            return _orig(grads, state)
+        opt.update = update
+    return rec
+
+
+GRAD_NOISE = 1e-7
+
+
+def worst_call(rows):
+    """The worst of held gate backward calls: the largest kernel / plain
+    error ratio (bf16) or kernel-vs-plain error (f32), with its call."""
+    worst = None
+    for row in rows:
+        for key, v in row.items():
+            if key.endswith("_rel_err_kernel_vs_f32"):
+                ratio = v / max(row[key.replace("kernel", "plain")], 1e-30)
+            elif key.endswith("_rel_err_kernel_vs_plain"):
+                ratio = v
+            else:
+                continue
+            if worst is None or ratio > worst["value"]:
+                worst = dict(value=ratio, output=key.split("_rel_err")[0],
+                             shape=(row["N"], row["HW"], row["C"]), dtype=row["dtype"])
+    return worst
+
+
+def perturbed(weights, scale, seed=9):
+    """G's and D's state_dicts with every weight times 1 + scale N(0, 1)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return tuple({k: v * (1.0 + scale * torch.randn(v.shape, device="cuda", generator=g))
+                  for k, v in sd.items()} for sd in weights)
+
+
+# the resolution of the whole-step f32 comparison: at 128^2 and up the
+# random-weight model's f32 gradient moves by 10-70 % under 1e-7 weight
+# noise (PERF.md §6), at 64^2 it is phase 6's check
+F32_STEP_RES = 64
+
+
+def at_resolution(cfg, res):
+    """`cfg` with the model and the data at `res` (one stage fewer a
+    halving, the same widths)."""
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, resolution=res),
+                               data=dataclasses.replace(cfg.data, resolution=res))
+
+
+def paths_from_one_state(cfg, n, steps, res, phase):
+    """Steps from one seeded state with the same draws (the state's
+    generator, seeded alike) on one fixed batch, with both learning rates
+    at 0, so that every step reads the same weights and no Adam step turns
+    rounding into diverging trajectories:
+    - `steps` steps on the kernel path in the config's compute dtype,
+      step 0 inside `checked_gate_backward`: each gate backward call of the
+      step (under ADA's augmentation, the fused step's second pass, every
+      critic, the regularizers' extra D forwards) held to the plain
+      backward on its own saved tensors by the rule of 3 (bf16: error
+      against f32 at most twice the plain bf16 version's; f32 within
+      F32_TOL); its seconds a step and the device's idle share over one
+      more step;
+    - one whole step in f32 at F32_STEP_RES or below, on the
+      kernel path, the plain path, and the plain path from weights moved
+      by GRAD_NOISE: D's and G's gradients as handed to the optimizers
+      (every critic's under d_steps) and the loss metrics of every step,
+      norm-relative to the plain path; the kernel path within 1e-4 of it,
+      or within ten times the plain path's own move under the noise
+      (phase 6's rule). With these random weights a bf16 step's gradients
+      are 100-800 % off the f32 step's on either path (PERF.md §6), so
+      the bf16 rule is held call by call."""
+    from locate_tpu_torch.ops import fused_attention as fa
+
+    small = at_resolution(cfg, min(res, F32_STEP_RES))
+    variants = {"kernel": (path_config(cfg, True), res, steps),
+                "kernel_f32": (path_config(small, True, "float32"),
+                               small.model.resolution, 1)}
+    variants["plain_f32"] = (path_config(small, False, "float32"),
+                             small.model.resolution, 1)
+    variants["plain_f32_noise"] = variants["plain_f32"]
+    lead = (cfg.train.d_steps,) if cfg.train.d_steps > 1 else ()
+    runs, idle, weights, gate_calls = {}, None, None, []
+    for name, (c, r, k) in variants.items():
+        start = perturbed(weights, GRAD_NOISE) if name.endswith("noise") else weights
+        gan, state, step = trainer(c, weights=start if name != "kernel" else None)
+        if name == "kernel_f32":  # the f32 paths start from these weights
+            weights = ({k_: v.clone() for k_, v in gan.generator.state_dict().items()},
+                       {k_: v.clone() for k_, v in gan.discriminator.state_dict().items()})
+        batch = {key: v[0] for key, v in stacked_batch(1, n, r, lead=lead,
+                                                       classes=c.model.num_classes).items()}
+        rec = recorded_gradients(step)
+        if name == "kernel":
+            with checked_gate_backward(fa, gate_calls):
+                state, history, seconds = timed_steps(step, state, batch, 1)
+            state, more, later = timed_steps(step, state, batch, k - 1)
+            history, seconds = history + more, seconds + later
+            idle, _ = profile_calls(lambda: step(state, batch), calls=1)
+        else:
+            state, history, seconds = timed_steps(step, state, batch, k)
+        metrics = [{key: float(v) for key, v in m.items()} for m in history]
+        for i, m in enumerate(metrics):
+            check(all(math.isfinite(v) for v in m.values()), f"{phase} {name} step {i}: {m}")
+        runs[name] = dict(d=torch.cat(rec["d"][:k * c.train.d_steps]),
+                          g=torch.cat(rec["g"][:k]), metrics=metrics, seconds=seconds)
+        del gan, state, step, rec, batch
+        release_memory()
+    check(gate_calls, f"{phase}: no gate backward call in the kernel path's step 0")
+    ref = runs["plain_f32"]
+
+    def vec(run):
+        return torch.tensor([[m[key] for key in LOSS_KEYS] for m in run["metrics"]],
+                            dtype=torch.float64)
+
+    def err(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    out = {name: dict(d_grads=err(runs[name]["d"], ref["d"]),
+                      g_grads=err(runs[name]["g"], ref["g"]),
+                      losses=err(vec(runs[name]), vec(ref)))
+           for name in ("kernel_f32", "plain_f32_noise")}
+    for key, k in out["kernel_f32"].items():
+        noise = out["plain_f32_noise"][key]
+        check(k <= max(1e-4, 10 * noise),
+              f"{phase}: the f32 kernel path's {key} error {k:.3e} against the plain path is "
+              f"over 1e-4 and over ten times the plain path's own move {noise:.3e} under "
+              f"{GRAD_NOISE:g} weight noise")
+    return dict(batch=n, steps=steps, f32_steps=1, learning_rate=0.0,
+                f32_resolution=small.model.resolution, errors_against_plain_f32=out,
+                gate_backward_calls_held=len(gate_calls), worst_gate_call=worst_call(gate_calls),
+                seconds_per_step_kernel=runs["kernel"]["seconds"],
+                device_idle_share_kernel=("not measured" if idle is None else idle),
+                loss_metrics_kernel=[{key: m[key] for key in LOSS_KEYS}
+                                     for m in runs["kernel"]["metrics"]])
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms for a graph-vs-eager comparison:
+    f32 convolutions' weight gradients otherwise sum with atomics, and two
+    eager runs of a few steps already differ (cifar10_32, phase 30)."""
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+
+
+def check_gate_launches(row, phase):
+    per = row["launches_per_step"]
+    check(all(per.get(k, 0) > 0 for k in SOFTMAX_GATE),
+          f"{phase}: a softmax gate kernel never launched a step: {per}")
+
+
+def preset_serving(cfg, n, phase):
+    """A batch of `n` served through `generate_samples` on the kernel path:
+    uint8 images of the preset's shape, the forward gate kernels launched."""
+    from locate_tpu_torch.io.sampling import generate_samples
+    from locate_tpu_torch.models.gan import model_config
+    from locate_tpu_torch.models.generator import build_generator
+
+    model = build_generator(model_config(cfg), cfg.train.compute_dtype, "cuda").eval()
+    randomize_logit_convs(model, seed=1, scale=0.25)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    reset_counters()
+    images = generate_samples(model, gen, n)
+    launches = read_counters()
+    res = cfg.model.resolution
+    check(images.shape == (n, res, res, 3) and images.dtype.name == "uint8",
+          f"{phase}: served {images.shape} {images.dtype}")
+    check(launches["softmax_stats"] > 0 and launches["softmax_apply"] > 0,
+          f"{phase}: serving launched {launches}")
+    check(len({images[i].tobytes() for i in range(min(n, 4))}) == min(n, 4),
+          f"{phase}: served images repeat")
+    del model
+    release_memory()
+    return dict(batch=n, launches=launches)
+
+
+def phase_presets():
+    """Phase 30: cifar10_32 (f32 compute), celeba_64 (attention at every
+    stage) and ffhq_256 (class-conditional, the projection D) as shipped,
+    at full width: a served batch; 4 steps from one state on the kernel
+    path against the plain path (`paths_from_one_state`); a graph call of
+    4 steps at the preset's batch, bitwise equal to the same 4 eager steps
+    (R1 fires at step 0); each gate kernel's launches a step."""
+    from locate_tpu_torch.config import get_config
+
+    rows = {}
+    for name in PRESETS:
+        t0 = time.perf_counter()
+        cfg = get_config(name, {"use_pallas": "true"})
+        n, res = cfg.train.global_batch, cfg.model.resolution
+        row = dict(serving=preset_serving(cfg, min(n, 64), f"preset-{name}-serving"))
+        row["kernel_vs_plain"] = paths_from_one_state(
+            cfg, PRESET_COMPARE_BATCH[name], PRESET_STEPS, res, f"preset-{name}")
+        t1 = time.perf_counter()
+        with deterministic_convs():
+            graph, fitted, refusals = halving(
+                lambda b: graph_vs_eager(cfg, PRESET_STEPS, 1, b, res, f"preset-{name}-graph"),
+                n)
+        check(graph["bitwise_equal"] and "r1" in graph["graph_variants"],
+              f"preset {name}: the graph call {graph['graph_variants']} is not bitwise its "
+              "eager steps or crossed no R1 step")
+        check_gate_launches(graph, f"preset-{name}")
+        row.update(graph=graph, batch_cut=None if fitted == n else dict(
+            preset_batch=n, batch=fitted, refusals=refusals),
+                   seconds=dict(serving_and_paths=t1 - t0, graph=time.perf_counter() - t1))
+        if PRESET_COMPARE_BATCH[name] != n:
+            row["compare_batch_cut"] = dict(preset_batch=n, batch=PRESET_COMPARE_BATCH[name],
+                                            why="the checked calls' f32 references at 256^2")
+        rows[name] = row
+        say(f"preset-{name}", **row)
+    return rows
+
+
+def phase_recipes(bench_kernel):
+    """Phase 31: lsun_bedroom_128 as shipped at full width and batch 64
+    under each of six recipes of docs/GUIDE.md (`RECIPES`): 2 steps from
+    one state on the kernel path against the plain path
+    (`paths_from_one_state`); a graph call of 2 steps bitwise equal to its
+    eager steps (cuDNN deterministic for the comparison), crossing an R1
+    step (and a PL step);
+    the softmax gate kernels' launches a step (none 0); step times and the
+    idle share. Then `bench 128 20 fused` beside phase 7's `bench 128
+    20`."""
+    from locate_tpu_torch.config import get_config
+
+    rows = {}
+    for name, overrides in RECIPES.items():
+        t0 = time.perf_counter()
+        cfg = get_config("lsun_bedroom_128", {"use_pallas": "true", **overrides})
+        row = dict(overrides=overrides)
+        row["kernel_vs_plain"] = paths_from_one_state(cfg, BATCH, RECIPE_STEPS, 128,
+                                                      f"recipe-{name}")
+        t1 = time.perf_counter()
+        with deterministic_convs():
+            graph = graph_vs_eager(cfg, RECIPE_GRAPH_STEPS, 1, BATCH, 128,
+                                   f"recipe-{name}-graph")
+        check(graph["bitwise_equal"] and any("r1" in v for v in graph["graph_variants"]),
+              f"recipe {name}: the graph call {graph['graph_variants']} is not bitwise its "
+              "eager steps or crossed no R1 step")
+        if cfg.train.pl_gamma > 0:
+            check("r1+pl" in graph["graph_variants"], f"recipe {name}: no PL step captured")
+        check_gate_launches(graph, f"recipe-{name}")
+        row.update(graph=graph, seconds=dict(paths=t1 - t0, graph=time.perf_counter() - t1))
+        rows[name] = row
+        say(f"recipe-{name}", **row)
+    t0 = time.perf_counter()
+    fused = run_cli(["bench", "128", "20", "fused"])
+    check(fused["steps_per_call"] == 16 and fused["value"] > 0, f"bench fused: {fused}")
+    say("bench-fused", fused=fused, alternating=bench_kernel,
+        fused_over_alternating=fused["value"] / bench_kernel["value"],
+        seconds=time.perf_counter() - t0)
+    return rows, fused
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4305,7 +4655,7 @@ def main() -> int:
     train_cfg, weights, train_launches, gate_routes = phase_train(fa)
     phase_train_grads(fa, train_cfg, weights)
     del weights
-    phase_train_throughput()
+    bench_kernel, _ = phase_train_throughput()
 
     # ffhq_512: the fused-stage kernels, serving, training (their main path)
     stage_rows, stage_times, stage_err = phase_stage_kernels(fs, fa)
@@ -4354,6 +4704,11 @@ def main() -> int:
     # the train loop: a SIGKILLed run resumed against an uninterrupted one,
     # export and sampling from the checkpoint
     _, loop_launches = phase_train_loop()
+
+    # every option of the train step: three more presets at full width, six
+    # recipes at lsun_bedroom_128's, and the fused step's bench line
+    phase_presets()
+    phase_recipes(bench_kernel)
 
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
                       gate_routes.get(k)) for k in KERNELS]

@@ -345,10 +345,6 @@ def cmd_bench(argv: List[str]) -> int:
     batch, steps, modes = bench_modes([a for a in bare if a not in pairs])
     overrides = parse_cli_overrides(pairs)
     cfg = bench_config(batch, modes, overrides)
-    if "fused" in modes:
-        raise NotImplementedError(
-            "bench fused: the fused simultaneous step (train.fused_step) is not "
-            "ported yet (ROADMAP.md Queue 1 item 11)")
     device = resolve_device(_str_flag(flags, "device"))
     e2e = "e2e" in modes
     if e2e:

@@ -35,7 +35,7 @@ from typing import Dict, List, Optional
 import torch
 
 from locate_tpu_torch.objectives.ema import ema_init
-from locate_tpu_torch.train.state import FlatParams, TrainState, state_tensors
+from locate_tpu_torch.train.state import OPTIONAL, FlatParams, TrainState, state_tensors
 
 FORMAT = "locate-tpu-torch/ckpt-v1"
 PAYLOAD = "state.pt"
@@ -162,9 +162,11 @@ class CheckpointManager:
     def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
         """Write checkpoint `step` (the latest by default) into `state`'s own
         tensors, step and generator; returns `state`. Nothing is written
-        unless the checkpoint fits the state. An EMA enabled on resume is
-        seeded from the restored G; a checkpoint with an EMA restored into
-        a state without one raises (that would drop its shadow)."""
+        unless the checkpoint fits the state. An option turned on at resume
+        keeps its fresh tensor (ADA's p, the path-length mean, LeCam's
+        trackers), an EMA enabled on resume is seeded from the restored G;
+        a checkpoint with a tensor the state lacks raises (an EMA
+        restored into a state without one would drop its shadow)."""
         step = self.latest_step() if step is None else int(step)
         if step is None:
             raise FileNotFoundError(f"no checkpoint to restore in {self.directory}")
@@ -181,9 +183,12 @@ class CheckpointManager:
             raise ValueError(
                 f"{path} holds an EMA shadow but the run has none (train.ema_decay = 0): "
                 "restoring would drop it")
-        backfill_ema = "ema_params" in live and "ema_params" not in saved
+        # an option turned on at resume: its tensor keeps the fresh value
+        # the state was made with (the EMA from the restored G, the device
+        # step from the restored step)
+        backfill = {n for n in OPTIONAL if n in live and n not in saved}
         for name, t in live.items():
-            if name == "ema_params" and backfill_ema:
+            if name in backfill:
                 continue
             if name not in saved:
                 raise ValueError(f"{path} has no tensor {name!r}")
@@ -198,8 +203,11 @@ class CheckpointManager:
             for name, t in live.items():
                 if name in saved:
                     t.copy_(saved[name])
-            if backfill_ema:
-                state.ema_params.copy_(ema_init(state.g_params.flat))
+            if "ema_params" in backfill:
+                dtype = str(state.ema_params.dtype).removeprefix("torch.")
+                state.ema_params.copy_(ema_init(state.g_params.flat, dtype))
+            if "step_tensor" in backfill:
+                state.step_tensor.fill_(int(payload["step"]))
         state.step = int(payload["step"])
         state.rng.set_state(payload["rng"])
         return state

@@ -16,13 +16,21 @@ update is zero and leaves Adam's moments and count untouched, and nothing
 waits for the host. The non-finite guard counts its consecutive skips; the
 size guard, outside it, reads the safe norm of the raw gradient and counts
 its skips in total and in a row.
+
+`train.lr_schedule` (cosine, linear_warmup_cosine) gives lr as a device
+tensor of Adam's count before the update (optax's schedule count, which
+moves with it), horizons counted in optimizer updates. `train.grad_accum`
+= k > 1 is `optax.MultiSteps` outside the guards: the running mean of k
+gradients goes to the inner chain every k-th call, whose state moves only
+then; the other calls emit zero updates. Both decide on the card too.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict
+import math
+from typing import Dict, Optional
 
 import torch
 
@@ -72,15 +80,24 @@ class OptState:
     toolarge_count: torch.Tensor    # int32, updates skipped for size
     toolarge_streak: torch.Tensor   # int32, consecutive such skips
     grad_norm: torch.Tensor         # f32, the size guard's last reading
+    # optax.MultiStepsState, with train.grad_accum > 1 (else None)
+    mini_step: Optional[torch.Tensor] = None      # int32, calls into the window
+    gradient_step: Optional[torch.Tensor] = None  # int32, updates emitted
+    acc_grads: Optional[torch.Tensor] = None      # f32, flat running mean
 
     def copy_(self, other: "OptState") -> "OptState":
         """Write `other`'s values into this state's own tensors, which keep
         their addresses (a captured step reads and writes them there)."""
         for f in dataclasses.fields(self):
             mine, theirs = getattr(self, f.name), getattr(other, f.name)
-            if mine is not theirs:
+            if mine is not None and mine is not theirs:
                 mine.copy_(theirs)
         return self
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every field that holds a tensor, by name."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
     def inner_fields(self):
         """The fields inside skip_if_too_large (what a size skip leaves)."""
@@ -88,31 +105,66 @@ class OptState:
                 "total_notfinite")
 
 
+def make_schedule(base_lr: float, tcfg: TrainConfig):
+    """`train.lr_schedule` as a function of Adam's count (an int32 device
+    tensor) to an f32 device tensor, or None for a constant lr; optax's
+    formulas, horizons in optimizer updates (`locate_tpu/objectives/optim.py`
+    `make_schedule`)."""
+    accum = max(1, tcfg.grad_accum)
+    decay = max(1, tcfg.total_steps // accum)
+    kind = tcfg.lr_schedule
+    if kind == "constant":
+        return None
+
+    def cosine(count, init, steps):
+        c = torch.minimum(count.float(), torch.full_like(count, steps, dtype=torch.float32))
+        return init * (0.5 * (1 + torch.cos(math.pi * c / float(steps))))
+
+    if kind == "cosine":
+        return lambda count: cosine(count, base_lr, decay)
+    if kind == "linear_warmup_cosine":
+        warm = max(1, tcfg.warmup_steps // accum)
+        if decay - warm <= 0:  # optax's cosine_decay_schedule refuses it too
+            raise ValueError(f"linear_warmup_cosine: {decay} updates leave no decay after "
+                             f"{warm} of warmup")
+
+        def schedule(count):
+            frac = 1 - count.clamp(0, warm).float() / warm
+            ramp = (0.0 - base_lr) * frac + base_lr
+            return torch.where(count < warm, ramp, cosine(count - warm, base_lr, decay - warm))
+
+        return schedule
+    raise ValueError(f"unknown lr_schedule {kind!r}")
+
+
 class Optimizer:
     """`make_optimizer`: Adam with optional global-norm clip, non-finite
     skip (`max_nonfinite_skips > 0`) and size skip (`grad_norm_limit > 0`),
-    on a constant learning rate."""
+    on a constant learning rate or `schedule(count)`; with `accum` > 1
+    wrapped in `optax.MultiSteps(every_k_schedule=accum)`."""
 
     def __init__(self, ocfg: OptimConfig, max_nonfinite_skips: int = 0,
-                 grad_norm_limit: float = 0.0, lr_schedule: str = "constant"):
-        if lr_schedule != "constant":
-            raise NotImplementedError(
-                f"train.lr_schedule={lr_schedule!r} is not ported yet "
-                "(ROADMAP.md Queue 1 item 11); the port runs 'constant'")
+                 grad_norm_limit: float = 0.0, schedule=None, accum: int = 1):
         self.cfg = ocfg
         self.guard_finite = max_nonfinite_skips > 0
         self.grad_norm_limit = grad_norm_limit
+        self.schedule = schedule
+        self.accum = accum
 
     def init(self, params: torch.Tensor) -> OptState:
         def i32():
             return torch.zeros((), dtype=torch.int32, device=params.device)
 
-        return OptState(
+        state = OptState(
             count=i32(), mu=torch.zeros_like(params), nu=torch.zeros_like(params),
             notfinite_count=i32(),
             last_finite=torch.ones((), dtype=torch.bool, device=params.device),
             total_notfinite=i32(), toolarge_count=i32(), toolarge_streak=i32(),
             grad_norm=torch.zeros((), device=params.device))
+        if self.accum > 1:
+            state.mini_step, state.gradient_step = i32(), i32()
+            state.acc_grads = torch.zeros_like(params)
+        return state
 
     def _adam(self, g: torch.Tensor, s: OptState):
         c = self.cfg
@@ -127,11 +179,15 @@ class Optimizer:
         b2 = device_scalar(c.beta2, str(g.device))
         mu_hat = mu / (1 - b1 ** t)
         nu_hat = nu / (1 - b2 ** t)
-        updates = mu_hat / (nu_hat.sqrt() + c.eps) * -c.lr
+        direction = mu_hat / (nu_hat.sqrt() + c.eps)
+        if self.schedule is None:
+            updates = direction * -c.lr
+        else:  # optax's scale_by_schedule reads the count before this update
+            updates = direction * -self.schedule(s.count)
         return updates, dict(count=count, mu=mu, nu=nu)
 
-    def update(self, grads: torch.Tensor, state: OptState):
-        """(updates, new state) for the flat f32 gradient `grads`."""
+    def _guarded(self, grads: torch.Tensor, state: OptState):
+        """(updates, new state) of the guarded Adam chain."""
         new = dataclasses.replace(state)
         if self.grad_norm_limit > 0:
             norm = safe_global_norm(grads)
@@ -160,21 +216,46 @@ class Optimizer:
             new.grad_norm = norm
         return updates, new
 
+    def update(self, grads: torch.Tensor, state: OptState):
+        """(updates, new state) for the flat f32 gradient `grads`."""
+        if self.accum <= 1:
+            return self._guarded(grads, state)
+        # optax.MultiSteps (use_grad_mean): Welford's running mean, the
+        # inner chain on it, its state kept only on the emitting call
+        acc = state.acc_grads + (grads - state.acc_grads) / (state.mini_step + 1).float()
+        updates, inner = self._guarded(acc, state)
+        emit = state.mini_step == self.accum - 1
+        new = dataclasses.replace(state)
+        for f in dataclasses.fields(OptState):
+            if f.name not in ("mini_step", "gradient_step", "acc_grads"):
+                setattr(new, f.name, torch.where(emit, getattr(inner, f.name),
+                                                 getattr(state, f.name)))
+        keep = (~emit).float()
+        new.mini_step = torch.remainder(_safe_increment(state.mini_step), self.accum)
+        new.gradient_step = torch.where(emit, _safe_increment(state.gradient_step),
+                                        state.gradient_step)
+        new.acc_grads = keep * acc
+        return updates * emit.float(), new
+
+    def emitted(self, state: OptState) -> Optional[torch.Tensor]:
+        """Whether the update that made `state` was applied (MultiSteps'
+        mini_step back at 0), as a bool device tensor; None without
+        accumulation (every update is)."""
+        return None if self.accum <= 1 else state.mini_step == 0
+
 
 def make_optimizers(tcfg: TrainConfig):
     """The (G, D) optimizer pair."""
-    if tcfg.grad_accum > 1:
-        raise NotImplementedError(
-            "train.grad_accum > 1 (optax.MultiSteps) is not ported yet "
-            "(ROADMAP.md Queue 1 item 11)")
     return tuple(Optimizer(o, tcfg.max_nonfinite_skips, tcfg.grad_norm_limit,
-                           tcfg.lr_schedule) for o in (tcfg.g_opt, tcfg.d_opt))
+                           make_schedule(o.lr, tcfg), max(1, tcfg.grad_accum))
+                 for o in (tcfg.g_opt, tcfg.d_opt))
 
 
 def guard_stats(state: OptState, tcfg: TrainConfig) -> Dict[str, torch.Tensor]:
     """The update guards' counters, only those whose guard is on:
     nonfinite_streak, grad_limit_count, grad_limit_streak and the size
-    guard's own norm reading grad_norm_guard."""
+    guard's own norm reading grad_norm_guard (under grad_accum the inner
+    chain's, which the record holds beside MultiSteps' fields)."""
     out = {}
     if tcfg.grad_norm_limit > 0.0:
         out["grad_limit_count"] = state.toolarge_count

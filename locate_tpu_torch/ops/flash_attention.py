@@ -32,9 +32,9 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from locate_tpu_torch.ops.cuda import build
+from locate_tpu_torch.ops.first_order import first_order
 
 # shared memory a block may use on sm_90 (227 KB)
 _MAX_SMEM = 232448
@@ -406,7 +406,7 @@ class FlashAttention(torch.autograd.Function):
     """o = softmax(q k^T * scale) v, first-order only: the counterpart of
     `_make_flash_core`'s custom_vjp. Forward saves (q, k, v, o, ell), all
     O(T); backward runs the dQ and dK/dV passes. Differentiating the
-    backward again raises (`once_differentiable`): second-order terms such
+    backward again raises (`ops/first_order.py`): second-order terms such
     as R1 go through `attention_reference` instead."""
 
     @staticmethod
@@ -417,7 +417,7 @@ class FlashAttention(torch.autograd.Function):
         return o
 
     @staticmethod
-    @once_differentiable
+    @first_order
     def backward(ctx, do):
         q, k, v, o, ell = ctx.saved_tensors
         return (*flash_backward(q, k, v, o, ell, do, ctx.scale), None)

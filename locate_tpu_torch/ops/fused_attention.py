@@ -57,10 +57,10 @@ import functools
 from typing import Callable, Optional, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.cuda import build
+from locate_tpu_torch.ops.first_order import first_order
 # the two routes and their launch counting are the flash wrappers' own
 from locate_tpu_torch.ops.flash_attention import _ROUTE_CODE, MMA, SIMT, _count
 
@@ -856,7 +856,7 @@ class SoftmaxGate(torch.autograd.Function):
     apply passes, saving (x, pos_proj, w1x, b1, w2, b2, m, se). Backward:
     the csum and backward passes for leaky_relu and relu; for the other
     activations the vjp of the plain composition. Differentiating the
-    backward again raises (`once_differentiable`): second-order terms
+    backward again raises (`ops/first_order.py`): second-order terms
     such as R1 go through the plain composition instead."""
 
     @staticmethod
@@ -872,7 +872,7 @@ class SoftmaxGate(torch.autograd.Function):
         return y
 
     @staticmethod
-    @once_differentiable
+    @first_order
     def backward(ctx, dy):
         x2d, pos_proj, w1x, b1, w2, b2, m, se = ctx.saved_tensors
         opts = ctx.options
@@ -899,7 +899,7 @@ class SigmoidGate(torch.autograd.Function):
         return sigmoid_gate(x2d, pos_proj, w1x, b1, w2, b2, **ctx.options)
 
     @staticmethod
-    @once_differentiable
+    @first_order
     def backward(ctx, dy):
         saved = ctx.saved_tensors
         opts = ctx.options

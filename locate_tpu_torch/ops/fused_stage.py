@@ -54,8 +54,8 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
+from locate_tpu_torch.ops.first_order import first_order
 from locate_tpu_torch.ops import fused_attention as fa
 # the two routes and their launch counting are the flash wrappers' own
 from locate_tpu_torch.ops.flash_attention import _ROUTE_CODE, MMA, SIMT, _count
@@ -854,7 +854,7 @@ class FusedStage(torch.autograd.Function):
     """The fused stage, first-order only: the counterpart of
     `_make_stage_core`'s custom_vjp. It saves its inputs and recomputes
     w in the backward; differentiating the backward again raises
-    (`once_differentiable`), so second-order terms such as R1 go through
+    (`ops/first_order.py`), so second-order terms such as R1 go through
     the plain composition."""
 
     @staticmethod
@@ -867,7 +867,7 @@ class FusedStage(torch.autograd.Function):
                         (pos_proj, w1x, b1, w2, b2))
 
     @staticmethod
-    @once_differentiable
+    @first_order
     def backward(ctx, gy):
         o = ctx.options
         saved = ctx.saved_tensors

@@ -2,10 +2,15 @@
 one compiled `lax.scan` call of k steps (`locate_tpu/train/step.py`
 `make_multi_step`) and of a jitted sampler.
 
-`StepGraphs` captures one whole alternating step (D's update, G's, the
-EMA, the guards' decisions) reading row `idx` of static [k, ...] input
-buffers, and replays it k times a call; lazy R1's step is a second graph,
-picked on the host from the step count. Nothing between two replays waits
+`StepGraphs` captures one whole step of any flavor (D's updates, G's, the
+EMA, the guards' and the options' decisions, every draw) reading row `idx`
+of static [k, ...] input buffers, and replays it k times a call; each set
+of lazy flags (`TrainStep.lazy_flags`: R1 and R2 firing, PL firing) has a
+graph of its own, picked on the host from the step count. What else moves
+from step to step lives in the state's tensors and is decided on the card
+(ADA's p, LeCam's trackers, the path-length mean, the LR schedule's and
+grad_accum's counts, the device step of ema_rampup), so a replay moves
+it. Nothing between two replays waits
 for the host. Before a capture, the variant runs once eagerly on a side
 stream (the kernel libraries load, cuDNN and cuBLAS pick their plans, the
 kernels' `cudaFuncSetAttribute` and occupancy queries run, the caches of
@@ -22,7 +27,7 @@ copies the images to the host after each replay.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -63,18 +68,19 @@ class StepGraphs:
                 raise ValueError(f"{n}: leading axis {t.shape[0]}, want steps_per_call {k}")
         self.idx = torch.zeros(1, dtype=torch.long, device=device)
         self.out: Dict[str, torch.Tensor] = {}
-        self.graphs: Dict[bool, torch.cuda.CUDAGraph] = {}
-        self.pool = None  # one memory pool for both graphs, made at the first capture
+        self.graphs: Dict[Tuple[bool, bool], torch.cuda.CUDAGraph] = {}
+        self.pool = None  # one memory pool for every graph, made at the first capture
         self.addresses = _addresses(state)
 
-    def body(self, r1: bool) -> None:
-        """One step on row `idx` of the static inputs; its metrics go to
-        row `idx` of `out`, and `idx` moves on (mod k). What the graphs
-        capture."""
+    def body(self, flags: Tuple[bool, bool]) -> None:
+        """One step with lazy `flags` on row `idx` of the static inputs;
+        its metrics go to row `idx` of `out`, and `idx` moves on (mod k).
+        What the graphs capture."""
         state, i = self.state, self.idx
         batch = {n: t.index_select(0, i)[0] for n, t in self.inputs.items()}
         draws = {n: t.index_select(0, i)[0] for n, t in self.draws.items()}
-        metrics = self.step.update(state, *self.step.prepare(state, batch, **draws), r1=r1)
+        real, labels, prepared = self.step.prepare(state, batch, flags, **draws)
+        metrics = self.step.update(state, real, labels, prepared, *flags)
         for n, v in metrics.items():
             if n not in self.out:  # the eager warm-up's first run allocates
                 self.out[n] = torch.zeros(self.k, dtype=v.dtype, device=v.device)
@@ -82,13 +88,13 @@ class StepGraphs:
         i.copy_(torch.remainder(i + 1, self.k))
 
     def prepare(self, flags) -> None:
-        """Warm up and capture the variants in `flags` (R1 or not) that
-        have no graph yet."""
+        """Warm up and capture the variants in `flags` (each a set of lazy
+        flags) that have no graph yet."""
         flags = sorted(set(flags) - set(self.graphs))
         if flags:
             self.warm_up(flags)
-            for r1 in flags:
-                self.capture(r1)
+            for f in flags:
+                self.capture(f)
 
     def warm_up(self, flags) -> None:
         """Run each variant in `flags` once, eagerly, on a side stream, from
@@ -96,21 +102,21 @@ class StepGraphs:
         saved = snapshot(self.state)
 
         def run():
-            for r1 in flags:
-                self.body(r1)
+            for f in flags:
+                self.body(f)
 
         _on_side_stream(run)
         restore(self.state, saved)
         self.idx.zero_()
 
-    def capture(self, r1: bool) -> None:
+    def capture(self, flags: Tuple[bool, bool]) -> None:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.state.rng)
         with torch.cuda.graph(graph, pool=self.pool):
-            self.body(r1)
-        self.graphs[r1] = graph
+            self.body(flags)
+        self.graphs[flags] = graph
 
     def __call__(self, state: TrainState, batches: Dict[str, torch.Tensor],
                  draws: Dict[str, torch.Tensor]):
@@ -118,10 +124,10 @@ class StepGraphs:
             raise ValueError("a step graph runs the state it was captured for, "
                              "in its own tensors")
         self.load(batches, draws)
-        flags = [self.step.r1_due(state.step + i) for i in range(self.k)]
+        flags = [self.step.lazy_flags(state.step + i) for i in range(self.k)]
         self.prepare(flags)
-        for r1 in flags:
-            self.graphs[r1].replay()
+        for f in flags:
+            self.graphs[f].replay()
         state.step += self.k
         return state, reduce_metrics(self.out)
 

@@ -15,6 +15,11 @@ before any graph is captured), the input stream skips the batches the
 restored steps consumed, and sample grids draw from a generator of their
 own, reseeded before each grid, never from the state's.
 
+Every flavor of the step runs: with `train.d_steps` = c each step takes c
+batches (the pipeline stacks them) and the rate counts the c batches'
+images. ADA's `augment_p`, the path-length mean `pl_mean` and LeCam's
+penalty `lecam` are step metrics, logged with the others.
+
 `cfg.compile_cache` has no effect here: the kernels' build cache of
 `ops/cuda/build.py`, keyed by a digest of sources and flags, does that
 work. In-training eval (`train.eval_every`, with `keep_best` and
@@ -113,14 +118,15 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
     # before every grid, and the EMA weights in a serving module
     sample_gen = torch.Generator(device=device)
     server = None
-    # Lazy R1's value at a log boundary is 0 unless R1 fired in that call:
-    # keep the metrics of the latest call whose steps held a fire step and
-    # log its r1 as r1_last_fire (with k > 1 the call's mean, the penalty
-    # diluted by k). The track lives in this process, as the JAX loop's
-    # does: a resumed run logs it from its first fire step on. R2 and PL,
-    # the other lazy terms, are not ported.
-    r1_every = tcfg.r1_interval if tcfg.r1_gamma > 0 and tcfg.r1_interval > 1 else 0
-    r1_fire = None
+    # A lazy term's value at a log boundary is 0 unless it fired in that
+    # call: keep the metrics of the latest call whose steps held a fire
+    # step of each (R1, R2 on R1's cadence, PL) and log its value as
+    # <name>_last_fire (with k > 1 the call's mean, the penalty diluted by
+    # k). The tracks live in this process, as the JAX loop's do: a resumed
+    # run logs them from its first fire step on.
+    lazy = [[name, every, None] for name, gamma, every in (
+        ("r1", tcfg.r1_gamma, tcfg.r1_interval), ("r2", tcfg.r2_gamma, tcfg.r1_interval),
+        ("pl", tcfg.pl_gamma, tcfg.pl_interval)) if gamma > 0 and every > 1]
     grad_limit_seen = 0  # grad-norm-limit skips already warned about
     try:
         for step_idx in range(state.step, total_steps, k):
@@ -130,13 +136,13 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
             # wait for the device only while warming up: the clock starts
             # from a synchronized point, the steady state stays asynchronous
             timer.tick(metrics if timer.warming_up else None)
-            # a fire step in [step_idx, step_idx + k)
-            if r1_every and (step_idx % r1_every == 0 or step_idx % r1_every + k > r1_every):
-                r1_fire = metrics
+            for track in lazy:  # a fire step in [step_idx, step_idx + k)
+                if step_idx % track[1] == 0 or step_idx % track[1] + k > track[1]:
+                    track[2] = metrics
 
             step_num = step_idx + k
             if step_num % tcfg.log_every == 0 or step_num == total_steps:
-                host_metrics = _read_metrics(metrics, r1_fire)
+                host_metrics = _read_metrics(metrics, lazy)
                 host_metrics["images_per_sec"] = timer.images_per_sec
                 host_metrics["sec_per_step"] = timer.sec_per_step / k
                 logger.log_scalars(step_num, host_metrics)
@@ -169,11 +175,13 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
     return state
 
 
-def _read_metrics(metrics: Dict[str, torch.Tensor], r1_fire) -> Dict[str, float]:
-    """The call's metrics (and r1_last_fire) on the host, in one copy."""
+def _read_metrics(metrics: Dict[str, torch.Tensor], lazy) -> Dict[str, float]:
+    """The call's metrics (and each lazy term's <name>_last_fire) on the
+    host, in one copy."""
     values = dict(metrics)
-    if r1_fire is not None and "r1" in r1_fire:
-        values["r1_last_fire"] = r1_fire["r1"]
+    for name, _, fired in lazy:
+        if fired is not None and name in fired:
+            values[name + "_last_fire"] = fired[name]
     names = list(values)
     host = torch.stack([values[n].detach().reshape(()).float() for n in names]).cpu()
     return dict(zip(names, host.tolist()))

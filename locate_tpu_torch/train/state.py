@@ -1,6 +1,9 @@
 """Train state, counterpart of `locate_tpu/train/state.py`: the step count,
 the random generator of the step's draws, both networks' parameters, both
-optimizer states and the EMA shadow.
+optimizer states and the EMA shadow, and, each only while its option is
+on, ADA's p, the path-length running mean, LeCam's two trackers and the
+step count on the device (what `train.ema_rampup` reads), all device
+tensors that the step updates in place.
 
 Each network's parameters live in one contiguous f32 buffer
 (`FlatParams`): the module's parameters are views of it, so the optimizer
@@ -64,19 +67,56 @@ class TrainState:
     d_params: FlatParams          # of gan.discriminator
     g_opt_state: OptState
     d_opt_state: OptState
-    ema_params: Optional[torch.Tensor]  # flat f32 EMA of g_params.flat, or None
+    ema_params: Optional[torch.Tensor]  # flat EMA of g_params.flat in ema_dtype, or None
+    ada_p: Optional[torch.Tensor] = None    # f32 augmentation probability (ADA)
+    pl_mean: Optional[torch.Tensor] = None  # f32 path-length running mean
+    lecam: Optional[torch.Tensor] = None    # f32 [ema_real, ema_fake] logit trackers
+    step_tensor: Optional[torch.Tensor] = None  # int32 step count (ema_rampup)
+
+
+# the optional tensors of a state, each present only while its option is on
+OPTIONAL = ("ema_params", "ada_p", "pl_mean", "lecam", "step_tensor")
 
 
 def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     """Every tensor the step updates in place, by name: both networks' flat
-    parameters, both optimizer states' fields and the EMA shadow."""
+    parameters, both optimizer states' fields and the optional tensors
+    that are on."""
     out = {"g_params": state.g_params.flat, "d_params": state.d_params.flat}
     for net, opt in (("g", state.g_opt_state), ("d", state.d_opt_state)):
-        for f in dataclasses.fields(opt):
-            out[f"{net}_opt.{f.name}"] = getattr(opt, f.name)
-    if state.ema_params is not None:
-        out["ema_params"] = state.ema_params
+        for name, t in opt.tensors().items():
+            out[f"{net}_opt.{name}"] = t
+    for name in OPTIONAL:
+        if getattr(state, name) is not None:
+            out[name] = getattr(state, name)
     return out
+
+
+def fresh_optional(cfg: Config, name: str, state: TrainState) -> torch.Tensor:
+    """The value an optional tensor starts from (also what a resume that
+    turns its option on fills it with): p = train.augment_p, a zero
+    path-length mean and zero LeCam trackers (the JAX package's), the
+    state's step count; the EMA shadow from the live G."""
+    dev = state.g_params.flat.device
+    if name == "ema_params":
+        return ema_init(state.g_params.flat, cfg.train.ema_dtype)
+    if name == "ada_p":
+        return torch.tensor(cfg.train.augment_p, dtype=torch.float32, device=dev)
+    if name == "pl_mean":
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    if name == "lecam":
+        return torch.zeros((2,), dtype=torch.float32, device=dev)
+    if name == "step_tensor":
+        return torch.tensor(state.step, dtype=torch.int32, device=dev)
+    raise KeyError(name)
+
+
+def optional_on(cfg: Config) -> Dict[str, bool]:
+    """Which optional tensors `cfg` keeps."""
+    t = cfg.train
+    return {"ema_params": t.ema_decay > 0, "ada_p": t.augment_p > 0.0 or t.ada_target > 0.0,
+            "pl_mean": t.pl_gamma > 0.0, "lecam": t.lecam_gamma > 0.0,
+            "step_tensor": t.ema_rampup > 0.0}
 
 
 @dataclasses.dataclass
@@ -110,11 +150,13 @@ def create_train_state(cfg: Config, gan: GAN, seed: int = 0) -> TrainState:
     g_params, d_params = FlatParams(gan.generator), FlatParams(gan.discriminator)
     rng = torch.Generator(device=gan.device)
     rng.manual_seed(seed)
-    ema = (ema_init(g_params.flat, cfg.train.ema_dtype)
-           if cfg.train.ema_decay > 0 else None)
-    return TrainState(step=0, rng=rng, g_params=g_params, d_params=d_params,
-                      g_opt_state=g_opt.init(g_params.flat),
-                      d_opt_state=d_opt.init(d_params.flat), ema_params=ema)
+    state = TrainState(step=0, rng=rng, g_params=g_params, d_params=d_params,
+                       g_opt_state=g_opt.init(g_params.flat),
+                       d_opt_state=d_opt.init(d_params.flat), ema_params=None)
+    for name, on in optional_on(cfg).items():
+        if on:
+            setattr(state, name, fresh_optional(cfg, name, state))
+    return state
 
 
 def _find(tree: Any, field: str) -> Any:
@@ -145,17 +187,21 @@ def _opt_state_from_jax(jax_opt: Any, params: FlatParams, fresh: OptState) -> Op
             return like
         return torch.as_tensor(np.array(value)).to(like.device, like.dtype)
 
+    vectors = ("mu", "nu", "acc_grads")
     out = dataclasses.replace(fresh, mu=moment("mu"), nu=moment("nu"))
-    for f in dataclasses.fields(OptState):
-        if f.name not in ("mu", "nu"):
-            setattr(out, f.name, scalar(f.name, getattr(fresh, f.name)))
+    if fresh.acc_grads is not None:  # optax.MultiStepsState
+        out.acc_grads = moment("acc_grads")
+    for name, like in fresh.tensors().items():
+        if name not in vectors:
+            setattr(out, name, scalar(name, like))
     return out
 
 
 def state_from_jax(jax_state: Any, cfg: Config, gan: GAN, seed: int = 0) -> TrainState:
     """A port state holding a JAX `TrainState`'s values: G, D and EMA
-    params, both optimizers' Adam mu, nu and count, and the guard
-    counters. Reads the JAX state's arrays through numpy (no JAX import).
+    params, both optimizers' Adam mu, nu and count, the guard counters and
+    MultiSteps' fields, ADA's p, the path-length mean and LeCam's
+    trackers. Reads the JAX state's arrays through numpy (no JAX import).
     JAX's threefry key has no counterpart: the port's generator is seeded
     with `seed`, and a step that must draw JAX's latents takes them as
     arguments."""
@@ -169,5 +215,11 @@ def state_from_jax(jax_state: Any, cfg: Config, gan: GAN, seed: int = 0) -> Trai
                                             state.d_opt_state)
     if jax_state.ema_params is not None:
         state.ema_params = state.g_params.from_named(
-            params_from_jax(flatten_tree(jax_state.ema_params)))
+            params_from_jax(flatten_tree(jax_state.ema_params))).to(state.ema_params.dtype)
+    for name in ("ada_p", "pl_mean", "lecam"):
+        value = getattr(jax_state, name, None)
+        if value is not None:
+            setattr(state, name, torch.as_tensor(np.array(value, np.float32)).to(gan.device))
+    if state.step_tensor is not None:
+        state.step_tensor.fill_(state.step)
     return state

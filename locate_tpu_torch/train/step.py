@@ -1,25 +1,47 @@
 """The GAN train step, counterpart of `locate_tpu/train/step.py`, in its
-alternating flavor (the reference's):
+three flavors (`train.fused_step`, `train.d_steps`):
 
+* alternating (the reference's):
     1. D update on (real, G(z_d)), G's forward under no_grad;
     2. G update through the *updated* D on G(z_g);
-    3. EMA update of G's parameters.
+    3. EMA update of G's parameters;
+* multi-critic (`d_steps` = c > 1): c D updates, each on a fresh real
+  batch (the batch's leaves carry a leading [c] axis) and fresh latents,
+  then one G update through the updated D;
+* fused simultaneous: one forward of G(z) and D(aug(G(z))), both
+  gradients taken from it at the current parameters (two backward passes
+  through one graph, `retain_graph`), both updates applied.
 
-Lazy R1 fires when `step % r1_interval == 0`. Its gradient of a gradient
-cannot go through the gate kernels' first-order Function, so with
-use_pallas it runs through a kernel-free twin of D that shares D's
-parameter tensors and runs the plain composition (`d_apply_r1` in JAX);
-`r1_remat` recomputes that twin's forward in the backward pass
-(`torch.utils.checkpoint`, non-reentrant).
+Every option of the JAX step outside the style family runs: the seven
+loss families, top-k G training, ADA (augmentation of what D sees, G's
+gradient going through it, and the controller of p), bCR, LeCam, the
+drift penalty, R1 (with `r1_batch_fraction`'s leading rows), R2, WGAN-GP,
+path-length and orthogonal regularization, feature matching,
+`share_latents`, `grad_accum`, the LR schedules, the bf16 EMA and
+`ema_rampup`. Lazy R1 and R2 fire when `step % r1_interval == 0`, lazy PL
+when `step % pl_interval == 0`: host flags (`lazy_flags`), one graph
+variant each in `train/graph.py`; everything else decides on the card.
+
+Second-order terms (R1, R2, GP through D; PL through G) cannot go through
+the kernels' first-order Functions, so with use_pallas they run through
+kernel-free twins that share the networks' parameter tensors and run the
+plain composition (`plain_twin`, the JAX package's `d_apply_r1` and
+`g_apply_pl`); `r1_remat` recomputes D's twin's forward in the backward
+pass (`torch.utils.checkpoint`, non-reentrant).
 
 The step updates the state in place (the parameter buffers, the
-optimizer and EMA tensors, written with `copy_` so that every tensor keeps
-its address, and the step count) and returns it with its metrics, 0-d
-tensors on the device under the JAX metric names; nothing in the step
-waits for the host or copies from it, so a CUDA graph can capture it
-(`train/graph.py`). Latents and labels come from the state's generator
-unless the caller passes them (`z_d`, `z_g`, `labels_d`, `labels_g`),
-which is how tests feed JAX's threefry draws.
+optimizer, EMA and option tensors, written with `copy_` so that every
+tensor keeps its address, and the step count) and returns it with its
+metrics, 0-d tensors on the device under the JAX metric names; nothing in
+the step waits for the host or copies from it, so a CUDA graph can
+capture it. Every random draw comes from the state's generator unless the
+caller passes it, which is how tests feed JAX's threefry draws
+(`prepare`'s names: `z_d`, `labels_d`, `z_g`, `labels_g`; `aug_real.*`,
+`aug_fake.*`, `aug_g.*` and `bcr_real.*`, `bcr_fake.*`, each an
+`ops/augment.py` parameter set; `gp_eps`; `pl_noise`; `ema_bits`; under
+d_steps the critics' draws carry a leading [c] axis; the fused flavor's
+one latent batch is `z_d`, `labels_d`, its augmentation of fakes
+`aug_fake.*`).
 
 `make_multi_step(step, k)` is the counterpart of the JAX package's: k
 steps a call over batches with a leading [k] axis, the metrics reduced as
@@ -35,128 +57,190 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from locate_tpu_torch.config import Config, TrainConfig
-from locate_tpu_torch.models.discriminator import Discriminator
+from locate_tpu_torch.config import Config
 from locate_tpu_torch.models.gan import GAN
-from locate_tpu_torch.objectives.ema import ema_update
-from locate_tpu_torch.objectives.losses import get_losses, r1_penalty
-from locate_tpu_torch.objectives.optim import (guard_stats, make_optimizers,
-                                               safe_global_norm)
+from locate_tpu_torch.objectives.ema import ema_bits, ema_update, rampup_decay
+from locate_tpu_torch.objectives.losses import (RELATIVISTIC, g_per_sample, get_losses,
+                                                gradient_penalty, lecam_penalty,
+                                                orthogonal_penalty, ortho_weights,
+                                                path_lengths, path_noise, r1_penalty)
+from locate_tpu_torch.objectives.optim import guard_stats, make_optimizers, safe_global_norm
+from locate_tpu_torch.ops.augment import augment, draw_params, parse_ops
 from locate_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 Metrics = Dict[str, torch.Tensor]
-
-# (option is on, what it is): the train-step options not ported yet
-_UNPORTED = (
-    (lambda t: t.d_steps > 1, "train.d_steps > 1 (the multi-critic step)"),
-    (lambda t: t.fused_step, "train.fused_step (the fused simultaneous step)"),
-    (lambda t: t.augment_p > 0.0 or t.ada_target > 0.0,
-     "train.augment_p / ada_target (ADA, ops/augment.py)"),
-    (lambda t: t.bcr_gamma > 0.0, "train.bcr_gamma (bCR)"),
-    (lambda t: t.lecam_gamma > 0.0, "train.lecam_gamma (LeCam)"),
-    (lambda t: t.gp_gamma > 0.0, "train.gp_gamma (WGAN-GP)"),
-    (lambda t: t.r2_gamma > 0.0, "train.r2_gamma (R2)"),
-    (lambda t: t.pl_gamma > 0.0, "train.pl_gamma (path-length regularization)"),
-    (lambda t: t.ortho_gamma > 0.0, "train.ortho_gamma (orthogonal regularization)"),
-    (lambda t: t.feature_matching > 0.0, "train.feature_matching"),
-    (lambda t: t.topk_fraction < 1.0, "train.topk_fraction < 1 (top-k training)"),
-    (lambda t: t.logit_penalty > 0.0, "train.logit_penalty (the drift penalty)"),
-    (lambda t: t.share_latents, "train.share_latents"),
-    (lambda t: t.ema_rampup > 0.0, "train.ema_rampup"),
-    (lambda t: t.r1_batch_fraction < 1.0, "train.r1_batch_fraction < 1"),
-)
+Draws = Dict[str, torch.Tensor]
 
 
-def refuse_unported(tcfg: TrainConfig) -> None:
-    for on, what in _UNPORTED:
-        if on(tcfg):
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md Queue 1 item 11)")
-
-
-def plain_twin(disc: Discriminator) -> Discriminator:
-    """A discriminator that runs the plain composition (use_pallas=False)
-    on `disc`'s own parameter tensors: gradients through it reach the
-    same leaves, and an update of `disc` is an update of the twin."""
-    device = disc.head.w.device
+def plain_twin(module: torch.nn.Module) -> torch.nn.Module:
+    """A generator or discriminator that runs the plain composition
+    (use_pallas=False) on `module`'s own parameter tensors: gradients
+    through it reach the same leaves, and an update of `module` is an
+    update of the twin."""
+    device = next(module.parameters()).device
     gen = torch.Generator(device=device)
-    twin = Discriminator(dataclasses.replace(disc.config, use_pallas=False),
-                         disc.compute_dtype, gen)
-    for name, p in disc.named_parameters():
+    twin = type(module)(dataclasses.replace(module.config, use_pallas=False),
+                        module.compute_dtype, gen)
+    for name, p in module.named_parameters():
         owner, _, attr = name.rpartition(".")
         twin.get_submodule(owner)._parameters[attr] = p
     return twin
 
 
+def _group(draws: Draws, prefix: str) -> Dict[str, torch.Tensor]:
+    """The entries `prefix.<name>` of a flat draw dict, as {name: tensor}."""
+    start = prefix + "."
+    return {k[len(start):]: v for k, v in draws.items() if k.startswith(start)}
+
+
+def _flat(prefix: str, params: Dict[str, torch.Tensor]) -> Draws:
+    return {f"{prefix}.{k}": v for k, v in params.items()}
+
+
+def _row(draws: Draws, i: int) -> Draws:
+    return {k: v[i] for k, v in draws.items()}
+
+
+def _critic_draw(name: str) -> bool:
+    """Whether a draw is one critic update's (stacked [c] under d_steps)."""
+    return name in ("z_d", "labels_d", "gp_eps") or name.startswith(
+        ("aug_real.", "aug_fake.", "bcr_real.", "bcr_fake."))
+
+
 class TrainStep:
-    """`step(state, batch, *, z_d=None, z_g=None, labels_d=None,
-    labels_g=None) -> (state, metrics)`: the alternating flavor. Its two
-    halves are methods too (`d_loss_and_grads`, `g_loss_and_grads`), so
-    one step's gradients can be taken on several paths from one state."""
+    """`step(state, batch, **draws) -> (state, metrics)`, the flavor the
+    config names. Its parts are methods (`prepare`, `d_loss_and_grads`,
+    `g_loss_and_grads`, `update`), so one step's gradients can be taken on
+    several paths from one state."""
 
     def __init__(self, cfg: Config, gan: GAN):
         tcfg = cfg.train
-        refuse_unported(tcfg)
-        self.tcfg = tcfg
-        self.gan = gan
+        self.tcfg, self.gan = tcfg, gan
         self.g_opt, self.d_opt = make_optimizers(tcfg)
         self.g_loss_of, self.d_loss_of = get_losses(tcfg.loss)
-        twin = gan.discriminator
-        if tcfg.r1_gamma > 0.0 and gan.config.use_pallas:
-            twin = plain_twin(gan.discriminator)
-        self._r1_twin = twin
+        self.relativistic = tcfg.loss in RELATIVISTIC
+        self.per_sample = g_per_sample(tcfg.loss) if tcfg.topk_fraction < 1.0 else None
+        self.flavor = ("fused" if tcfg.fused_step
+                       else "multi_critic" if tcfg.d_steps > 1 else "alternating")
+        self.aug_on = tcfg.augment_p > 0.0 or tcfg.ada_target > 0.0
+        self.ada_ops = parse_ops(tcfg.augment_ops)
+        self.bcr_ops = parse_ops(tcfg.bcr_ops)
+        self.bf16_ema = tcfg.ema_decay > 0 and tcfg.ema_dtype == "bfloat16"
+        use_pallas = gan.config.use_pallas
+        any_gp = tcfg.r1_gamma > 0.0 or tcfg.gp_gamma > 0.0 or tcfg.r2_gamma > 0.0
+        self._d_twin = (plain_twin(gan.discriminator) if any_gp and use_pallas
+                        else gan.discriminator)
+        self._g_twin = (plain_twin(gan.generator) if tcfg.pl_gamma > 0.0 and use_pallas
+                        else gan.generator)
+        named = list(gan.generator.named_parameters())
+        self._ortho = ortho_weights([n for n, _ in named], [p for _, p in named])
+
+    # ------------------------------------------------------------- schedule
+    def r1_due(self, step: int) -> bool:
+        """Whether lazy R1 (and R2, on its cadence) fires at optimizer step
+        `step` (host integer)."""
+        t = self.tcfg
+        return (t.r1_gamma > 0.0 or t.r2_gamma > 0.0) and step % t.r1_interval == 0
+
+    def pl_due(self, step: int) -> bool:
+        t = self.tcfg
+        return t.pl_gamma > 0.0 and step % t.pl_interval == 0
+
+    def lazy_flags(self, step: int) -> Tuple[bool, bool]:
+        """(R1/R2 fire, PL fire) at step `step`: what a step's graph
+        variant is keyed on."""
+        return self.r1_due(step), self.pl_due(step)
 
     def d_apply_r1(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
-        """D for the R1 penalty: the plain twin under use_pallas, its
-        forward recomputed in the backward pass under train.r1_remat (it
-        draws no random numbers, so no generator state is stashed)."""
+        """D for R1, R2 and GP: the plain twin under use_pallas, its forward
+        recomputed in the backward pass under train.r1_remat (it draws no
+        random numbers, so no generator state is stashed)."""
         if self.tcfg.r1_remat:
-            return torch.utils.checkpoint.checkpoint(self._r1_twin, x, labels,
+            return torch.utils.checkpoint.checkpoint(self._d_twin, x, labels,
                                                      use_reentrant=False,
                                                      preserve_rng_state=False)
-        return self._r1_twin(x, labels)
+        return self._d_twin(x, labels)
 
-    def r1_due(self, step: int) -> bool:
-        """Whether lazy R1 fires at optimizer step `step` (host integer)."""
-        return self.tcfg.r1_gamma > 0.0 and step % self.tcfg.r1_interval == 0
+    # ---------------------------------------------------------------- draws
+    def _critic_draws(self, state: TrainState, shape, given: Draws) -> Draws:
+        """One D update's draws for real images of NHWC `shape`: latents and
+        labels (and, in the alternating flavor, G's right after them),
+        ADA's augmentation of reals and fakes, bCR's, GP's eps; those in
+        `given` taken as they are."""
+        gan, t, rng = self.gan, self.tcfg, state.rng
+        n = shape[0]
+        out = {}
 
-    def d_loss_and_grads(self, state: TrainState, real, labels, z_d, labels_d,
-                         r1: Optional[bool] = None):
-        """(D loss, its aux metrics, flat D gradient) on (real, G(z_d)),
-        G's forward under no_grad; R1 joins the loss where `r1` says (by
-        default at the steps of its cadence)."""
-        tcfg, D = self.tcfg, self.gan.discriminator
-        with torch.no_grad():
-            fake = self.gan.generator(z_d, labels_d)
-        real_logits = D(real, labels)
-        fake_logits = D(fake, labels_d)
-        loss = self.d_loss_of(real_logits, fake_logits)
-        aux = {"real_logits": real_logits.float().mean(),
-               "fake_logits": fake_logits.float().mean()}
-        if tcfg.r1_gamma > 0.0:
-            if self.r1_due(state.step) if r1 is None else r1:
-                pen = r1_penalty(self.d_apply_r1, real, labels)
-                pen = pen * (tcfg.r1_gamma * tcfg.r1_interval)
+        def take(name, draw):
+            out[name] = given[name] if name in given else draw()
+
+        def take_aug(prefix, p, ops):
+            out.update(_flat(prefix, _group(given, prefix) or draw_params(rng, shape, p, ops)))
+
+        take("z_d", lambda: gan.sample_latents(rng, n))
+        take("labels_d", lambda: gan.sample_labels(rng, n))
+        if self.flavor == "alternating":
+            if t.share_latents:
+                out["z_g"], out["labels_g"] = out["z_d"], out["labels_d"]
             else:
-                pen = torch.zeros((), device=real.device)
-            aux["r1"] = pen
-            loss = loss + pen
-        grads = torch.autograd.grad(loss, state.d_params.params)
-        return (loss.detach(), {k: v.detach() for k, v in aux.items()},
-                state.d_params.flatten(grads))
+                take("z_g", lambda: gan.sample_latents(rng, n))
+                take("labels_g", lambda: gan.sample_labels(rng, n))
+        if self.aug_on:
+            take_aug("aug_real", state.ada_p, self.ada_ops)
+            take_aug("aug_fake", state.ada_p, self.ada_ops)
+        if t.bcr_gamma > 0.0:
+            take_aug("bcr_real", t.bcr_p, self.bcr_ops)
+            take_aug("bcr_fake", t.bcr_p, self.bcr_ops)
+        if t.gp_gamma > 0.0:
+            take("gp_eps", lambda: torch.rand((n, 1, 1, 1), generator=rng, device=rng.device))
+        return {k: v for k, v in out.items() if v is not None}
 
-    def g_loss_and_grads(self, state: TrainState, z_g, labels_g):
-        """(G loss, flat G gradient) of G(z_g) scored by D as it stands."""
-        gan = self.gan
-        loss = self.g_loss_of(gan.discriminator(gan.generator(z_g, labels_g), labels_g))
-        grads = torch.autograd.grad(loss, state.g_params.params)
-        return loss.detach(), state.g_params.flatten(grads)
+    def _g_draws(self, state: TrainState, n: int, pl: bool, given: Draws) -> Draws:
+        """The draws of G's update and the EMA after the critics': G's
+        latents under d_steps, ADA's augmentation of G's fakes (but in the
+        fused flavor, whose fakes D saw), PL's noise where PL fires, the
+        bf16 EMA's bits."""
+        gan, rng = self.gan, state.rng
+        cfg = gan.config
+        gshape = (n, cfg.resolution, cfg.resolution, cfg.img_channels)
+        out = {}
 
-    def prepare(self, state: TrainState, batch: Batch, z_d=None, z_g=None,
-                labels_d=None, labels_g=None):
-        """(real, labels, z_d, labels_d, z_g, labels_g): the batch on the
-        device in the compute dtype, and the draws not passed in."""
+        def take(name, draw):
+            out[name] = given[name] if name in given else draw()
+
+        if self.flavor == "multi_critic":
+            take("z_g", lambda: gan.sample_latents(rng, n))
+            take("labels_g", lambda: gan.sample_labels(rng, n))
+        if self.aug_on and self.flavor != "fused":
+            out.update(_flat("aug_g", _group(given, "aug_g")
+                             or draw_params(rng, gshape, state.ada_p, self.ada_ops)))
+        if pl:
+            take("pl_noise", lambda: path_noise(rng, gshape))
+        if self.bf16_ema:
+            take("ema_bits", lambda: ema_bits(rng, state.g_params.flat.numel()))
+        return {k: v for k, v in out.items() if v is not None}
+
+    def draw(self, state: TrainState, shape, flags, given: Draws) -> Draws:
+        """Every draw of one step for real images of NHWC `shape` (one
+        critic's under d_steps, whose draws are stacked on a leading [c]
+        axis), from the state's generator in a fixed order unless in
+        `given`: the latents and labels first, as the alternating step has
+        always drawn them."""
+        if self.flavor == "multi_critic":
+            per = [self._critic_draws(state, shape, {k: v[i] for k, v in given.items()
+                                                     if _critic_draw(k)})
+                   for i in range(self.tcfg.d_steps)]
+            out = {k: torch.stack([d[k] for d in per]) for k in per[0]}
+            given = {k: v for k, v in given.items() if not _critic_draw(k)}
+        else:
+            out = self._critic_draws(state, shape, given)
+        out.update(self._g_draws(state, shape[0], flags[1], given))
+        return out
+
+    def prepare(self, state: TrainState, batch: Batch, flags=None, **given):
+        """(real, labels, draws): the batch on the device in the compute
+        dtype, and the step's draws (`draw`) with those passed in."""
         gan = self.gan
         real = batch["image"].to(gan.device)
         if real.dtype == torch.uint8:
@@ -164,51 +248,266 @@ class TrainStep:
             real = real.float() / 127.5 - 1.0
         real = real.to(gan.compute_dtype)
         labels = batch["label"].to(gan.device) if gan.config.num_classes else None
-        n = real.shape[0]
-        if z_d is None:
-            z_d = gan.sample_latents(state.rng, n)
-        if labels_d is None:
-            labels_d = gan.sample_labels(state.rng, n)
-        if z_g is None:
-            z_g = gan.sample_latents(state.rng, n)
-        if labels_g is None:
-            labels_g = gan.sample_labels(state.rng, n)
-        return real, labels, z_d, labels_d, z_g, labels_g
+        flags = self.lazy_flags(state.step) if flags is None else flags
+        shape = real.shape[1:] if self.flavor == "multi_critic" else real.shape
+        draws = self.draw(state, tuple(shape), flags,
+                          {k: v.to(gan.device) for k, v in given.items() if v is not None})
+        return real, labels, draws
 
-    def update(self, state: TrainState, real, labels, z_d, labels_d, z_g, labels_g,
-               r1: bool) -> Metrics:
-        """One step's device work on prepared inputs, R1 included where `r1`
-        says: D's update, G's through the updated D, the EMA, all in the
-        state's own tensors; the metrics. The step count is the caller's."""
-        tcfg = self.tcfg
-        # 1. D on (real, detached fake)
-        d_loss, d_aux, d_grads = self.d_loss_and_grads(state, real, labels, z_d, labels_d,
-                                                       r1=r1)
-        _apply(self.d_opt, state.d_params, state.d_opt_state, d_grads)
-        # 2. G through the updated D
-        g_loss, g_grads = self.g_loss_and_grads(state, z_g, labels_g)
-        _apply(self.g_opt, state.g_params, state.g_opt_state, g_grads)
-        # 3. EMA of G
-        if state.ema_params is not None:
+    # ------------------------------------------------------------------- D
+    def d_loss_and_grads(self, state: TrainState, real_in, labels, fake_in, fake_labels,
+                         draws: Draws, r1: bool, keep_graph: bool = False):
+        """(D loss, its aux metrics, flat D gradient, fake logits) on D's
+        inputs as given (augmented where ADA is on); the regularizers each
+        join where their option is on, R1 and R2 where `r1` says. With
+        `keep_graph` the fake logits keep their graph for a second
+        backward pass (the fused flavor's G gradient)."""
+        t, D = self.tcfg, self.gan.discriminator
+        fake_feats = None
+        if t.feature_matching > 0.0 and keep_graph:
+            fake_logits, fake_feats = D(fake_in, fake_labels, return_features=True)
+        else:
+            fake_logits = D(fake_in, fake_labels)
+        real_logits = D(real_in, labels)
+        if self.relativistic:
+            loss = self.d_loss_of(real_logits, fake_logits, torch.mean)
+        else:
+            loss = self.d_loss_of(real_logits, fake_logits)
+        aux = {"real_logits": real_logits.float().mean(),
+               "fake_logits": fake_logits.float().mean()}
+        fake_d = fake_in.detach()
+        if t.ada_target > 0.0:
+            # ADA's overfitting heuristic r_t = E[sign(D(real))]
+            aux["ada_r"] = torch.sign(real_logits.float()).mean()
+        if t.bcr_gamma > 0.0:
+            rl_t = D(augment(real_in, _group(draws, "bcr_real"), self.bcr_ops), labels)
+            fl_t = D(augment(fake_d, _group(draws, "bcr_fake"), self.bcr_ops), fake_labels)
+            bcr = ((real_logits.float() - rl_t.float()).square().mean()
+                   + (fake_logits.float() - fl_t.float()).square().mean())
+            aux["bcr"] = bcr
+            loss = loss + t.bcr_gamma * bcr
+        if t.lecam_gamma > 0.0:
+            lc = lecam_penalty(real_logits, fake_logits, state.lecam[0], state.lecam[1])
+            aux["lecam"] = lc
+            loss = loss + t.lecam_gamma * lc
+        if t.logit_penalty > 0.0:
+            drift = t.logit_penalty * real_logits.float().square().mean()
+            aux["drift"] = drift
+            loss = loss + drift
+        for gamma, name, x, lab in ((t.r1_gamma, "r1", real_in, labels),
+                                    (t.r2_gamma, "r2", fake_d, fake_labels)):
+            if gamma <= 0.0:
+                continue
+            if r1:
+                # the leading rows: an unbiased sample of i.i.d. rows
+                k = max(1, int(round(x.shape[0] * t.r1_batch_fraction)))
+                sub = lab[:k] if lab is not None else None
+                pen = r1_penalty(self.d_apply_r1, x[:k], sub) * (gamma * t.r1_interval)
+            else:
+                pen = torch.zeros((), device=x.device)
+            aux[name] = pen
+            loss = loss + pen
+        if t.gp_gamma > 0.0:
+            gp = gradient_penalty(self.d_apply_r1, real_in, fake_d, draws["gp_eps"], labels)
+            aux["gp"] = gp
+            loss = loss + t.gp_gamma * gp
+        grads = torch.autograd.grad(loss, state.d_params.params, retain_graph=keep_graph)
+        detached = {k: v.detach() for k, v in aux.items()}
+        logits = (fake_logits, fake_feats, real_logits.detach())
+        return loss.detach(), detached, state.d_params.flatten(grads), logits
+
+    # ------------------------------------------------------------------- G
+    def g_adv(self, fake_logits, real_logits):
+        """The adversarial G term: the family's loss, relativistic ones
+        against `real_logits()`, top-k training's masked mean (the global
+        top-k fake logits, ties at the threshold included)."""
+        if self.relativistic:
+            return self.g_loss_of(fake_logits, real_logits(), torch.mean)
+        if self.per_sample is None:
+            return self.g_loss_of(fake_logits)
+        per = self.per_sample(fake_logits).reshape(-1)
+        fl = fake_logits.float().reshape(-1)
+        k = max(1, int(round(fl.shape[0] * self.tcfg.topk_fraction)))
+        thresh = torch.topk(fl, k).values[-1]
+        mask = (fl >= thresh).float()
+        return (per * mask).sum() / mask.sum()
+
+    def g_reg(self, state: TrainState, z, labels, draws: Draws, pl: bool):
+        """(term, aux) of G's parameter and Jacobian regularizers:
+        orthogonal regularization every step, lazy path-length where `pl`
+        says, the penalty mean((len - b)^2) as m2 - 2 b m1 + b^2 with b the
+        updated running mean (no gradient), as the JAX package does."""
+        t = self.tcfg
+        ortho = torch.zeros((), device=z.device)
+        aux = {}
+        if t.ortho_gamma > 0.0:
+            tot = orthogonal_penalty(self._ortho)
+            ortho = t.ortho_gamma * tot
+            aux["ortho"] = tot
+        if t.pl_gamma <= 0.0:
+            return ortho, aux
+        pl_mean = state.pl_mean
+        if pl:
+            lengths = path_lengths(self._g_twin, z, labels, draws["pl_noise"])
+            m1, m2 = lengths.mean(), lengths.square().mean()
+            fired = torch.ones((), device=z.device)
+            base = (pl_mean + t.pl_decay * (m1 - pl_mean)).detach()
+        else:
+            m1 = m2 = fired = torch.zeros((), device=z.device)
+            base = pl_mean.clone()
+        pen = m2 - 2.0 * base * m1 + base * base * fired
+        term = pen * (t.pl_gamma * t.pl_interval)
+        return term + ortho, {"pl": term, "pl_len": m1, "pl_mean": base, **aux}
+
+    def g_loss_and_grads(self, state: TrainState, z, labels_g, real_in, labels,
+                         aug_params, draws: Draws, pl: bool, fake_logits=None):
+        """(G loss, its aux metrics, flat G gradient) of G(z) scored by D
+        as it stands, through the augmentation where ADA is on; the fused
+        flavor passes the (fake, features, real) logits of its shared
+        forward instead, whose graph reaches G through the same D."""
+        t, gan = self.tcfg, self.gan
+        D = gan.discriminator
+        fm = torch.zeros((), device=z.device)
+        fm_aux = {}
+        if fake_logits is None:
+            fake = gan.generator(z, labels_g)
+            if self.aug_on:
+                fake = augment(fake, aug_params, self.ada_ops)
+            if t.feature_matching > 0.0:
+                logits, feats = D(fake, labels_g, return_features=True)
+            else:
+                logits, feats = D(fake, labels_g), None
+            real_logits = None
+        else:
+            logits, feats, real_logits = fake_logits
+
+        def real():
+            if real_logits is not None:
+                return real_logits
             with torch.no_grad():
-                state.ema_params.copy_(ema_update(state.ema_params, state.g_params.flat,
-                                                  tcfg.ema_decay))
-        metrics = {"d_loss": d_loss, "g_loss": g_loss,
-                   "d_grad_norm": safe_global_norm(d_grads),
+                return D(real_in, labels)
+
+        loss = self.g_adv(logits, real)
+        reg, g_aux = self.g_reg(state, z, labels_g, draws, pl)
+        if t.feature_matching > 0.0:
+            with torch.no_grad():
+                f_real = D(real_in, labels, return_features=True)[1]
+            m_fake = feats.float().mean(dim=0)
+            fm_val = (f_real.float().mean(dim=0) - m_fake).square().mean()
+            fm = fm_val * t.feature_matching
+            fm_aux = {"fm": fm_val.detach()}
+        total = loss + reg + fm
+        grads = torch.autograd.grad(total, state.g_params.params)
+        aux = {k: v.detach() for k, v in {**g_aux, **fm_aux}.items()}
+        return total.detach(), aux, state.g_params.flatten(grads)
+
+    # ----------------------------------------------------------------- step
+    def _augmented(self, x, draws, prefix):
+        return augment(x, _group(draws, prefix), self.ada_ops) if self.aug_on else x
+
+    def update(self, state: TrainState, real, labels, draws: Draws, r1: bool,
+               pl: bool = False) -> Metrics:
+        """One step's device work on prepared inputs, R1 and R2 where `r1`
+        says, PL where `pl` says: the updates, the EMA, ADA's p, LeCam's
+        trackers and the path-length mean, all in the state's own tensors;
+        the metrics. The step count is the caller's."""
+        t, gan = self.tcfg, self.gan
+        d_norm = None
+        if self.flavor == "fused":
+            z, lab = draws["z_d"], draws.get("labels_d")
+            fake = self._augmented(gan.generator(z, lab), draws, "aug_fake")
+            real_in = self._augmented(real, draws, "aug_real")
+            d_loss, d_aux, d_grads, logits = self.d_loss_and_grads(
+                state, real_in, labels, fake, lab, draws, r1, keep_graph=True)
+            g_loss, g_aux, g_grads = self.g_loss_and_grads(
+                state, z, lab, real_in, labels, None, draws, pl, fake_logits=logits)
+            _apply(self.d_opt, state.d_params, state.d_opt_state, d_grads)
+            n_images = real.shape[0]
+        elif self.flavor == "multi_critic":
+            losses, auxes, norms = [], [], []
+            for i in range(t.d_steps):
+                cd = _row({k: v for k, v in draws.items() if _critic_draw(k)}, i)
+                lab_i = labels[i] if labels is not None else None
+                d_loss, d_aux, d_grads, real_g = self._d_update(state, real[i], lab_i, cd, r1)
+                losses.append(d_loss)
+                auxes.append(d_aux)
+                norms.append(safe_global_norm(d_grads))
+            d_loss = torch.stack(losses).mean()
+            d_aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
+            d_norm = torch.stack(norms).mean()
+            # FM's and the relativistic G loss's real side: the last critic
+            # batch under the augmentation D saw
+            lab_g = labels[-1] if labels is not None else None
+            g_loss, g_aux, g_grads = self.g_loss_and_grads(
+                state, draws["z_g"], draws.get("labels_g"), real_g, lab_g,
+                _group(draws, "aug_g"), draws, pl)
+            n_images = real.shape[0] * real.shape[1]
+        else:
+            d_loss, d_aux, d_grads, real_in = self._d_update(state, real, labels, draws, r1)
+            g_loss, g_aux, g_grads = self.g_loss_and_grads(
+                state, draws["z_g"], draws.get("labels_g"), real_in, labels,
+                _group(draws, "aug_g"), draws, pl)
+            n_images = real.shape[0]
+        return self.finish(state, d_loss, d_aux, d_grads, d_norm, g_loss, g_aux, g_grads,
+                           n_images, draws)
+
+    def _d_update(self, state, real, labels, draws, r1):
+        """One D update on (real, G(z_d)) with G's forward under no_grad;
+        returns D's loss, aux metrics, gradient and input reals."""
+        with torch.no_grad():
+            fake = self.gan.generator(draws["z_d"], draws.get("labels_d"))
+            fake_in = self._augmented(fake, draws, "aug_fake")
+            real_in = self._augmented(real, draws, "aug_real")
+        d_loss, d_aux, d_grads, _ = self.d_loss_and_grads(
+            state, real_in, labels, fake_in, draws.get("labels_d"), draws, r1)
+        _apply(self.d_opt, state.d_params, state.d_opt_state, d_grads)
+        return d_loss, d_aux, d_grads, real_in
+
+    def finish(self, state, d_loss, d_aux, d_grads, d_norm, g_loss, g_aux, g_grads,
+               n_images, draws) -> Metrics:
+        """The shared tail of the flavors: G's update, the EMA, ADA's
+        controller, LeCam's trackers, the path-length mean, the metrics."""
+        t = self.tcfg
+        _apply(self.g_opt, state.g_params, state.g_opt_state, g_grads)
+        with torch.no_grad():
+            if state.ema_params is not None:
+                decay = t.ema_decay
+                if t.ema_rampup > 0.0:
+                    decay = rampup_decay(state.step_tensor, t.ema_decay, t.ema_rampup)
+                new = ema_update(state.ema_params, state.g_params.flat, decay,
+                                 draws.get("ema_bits"))
+                emitted = self.g_opt.emitted(state.g_opt_state)
+                if emitted is not None:  # the EMA moves on optimizer emits only
+                    new = torch.where(emitted, new, state.ema_params)
+                state.ema_params.copy_(new)
+            if t.ada_target > 0.0:
+                step = n_images / (t.ada_speed_kimg * 1000.0)
+                state.ada_p.copy_(torch.clamp(
+                    state.ada_p + torch.sign(d_aux["ada_r"] - t.ada_target) * step, 0.0, 1.0))
+            if "pl_mean" in g_aux:
+                state.pl_mean.copy_(g_aux["pl_mean"])
+            if t.lecam_gamma > 0.0:
+                m = torch.stack([d_aux["real_logits"], d_aux["fake_logits"]]).float()
+                new = t.lecam_decay * state.lecam + (1.0 - t.lecam_decay) * m
+                state.lecam.copy_(torch.where(torch.isfinite(m).all(), new, state.lecam))
+            if state.step_tensor is not None:
+                state.step_tensor.add_(1)
+        metrics = {**g_aux, "d_loss": d_loss, "g_loss": g_loss,
+                   "d_grad_norm": safe_global_norm(d_grads) if d_norm is None else d_norm,
                    "g_grad_norm": safe_global_norm(g_grads), **d_aux}
+        if self.aug_on:
+            metrics["augment_p"] = state.ada_p.clone()
         for prefix, s in (("d_", state.d_opt_state), ("g_", state.g_opt_state)):
-            for k, v in guard_stats(s, tcfg).items():
+            for k, v in guard_stats(s, t).items():
                 if k != "grad_norm_guard":
                     # a copy: the state's tensor moves on at the next step
                     metrics[prefix + k] = v.clone()
         return metrics
 
-    def __call__(self, state: TrainState, batch: Batch, *,
-                 z_d: Optional[torch.Tensor] = None, z_g: Optional[torch.Tensor] = None,
-                 labels_d: Optional[torch.Tensor] = None,
-                 labels_g: Optional[torch.Tensor] = None) -> Tuple[TrainState, Metrics]:
-        prepared = self.prepare(state, batch, z_d, z_g, labels_d, labels_g)
-        metrics = self.update(state, *prepared, r1=self.r1_due(state.step))
+    def __call__(self, state: TrainState, batch: Batch, **draws) -> Tuple[TrainState, Metrics]:
+        flags = self.lazy_flags(state.step)
+        real, labels, prepared = self.prepare(state, batch, flags, **draws)
+        metrics = self.update(state, real, labels, prepared, *flags)
         state.step += 1
         return state, metrics
 
@@ -224,15 +523,14 @@ def _apply(opt, params, opt_state, grads):
 
 
 def make_train_step(cfg: Config, gan: GAN) -> TrainStep:
-    """The alternating train step of `gan` (`TrainStep`); every option of
-    the other flavors and every unported regularizer raises
-    NotImplementedError."""
+    """The train step of `gan` in the flavor `cfg.train` names (`TrainStep`)."""
     return TrainStep(cfg, gan)
 
 
 # Metric keys whose reduction over a call's steps is the last step's, not
-# the mean: running state (the guards' skip streaks and counts), whose value
-# at the end of the call is the current one (`locate_tpu/train/step.py`).
+# the mean: running state (the guards' skip streaks and counts, ADA's p, the
+# path-length mean), whose value at the end of the call is the current one
+# (`locate_tpu/train/step.py`).
 _LAST_METRICS = ("d_nonfinite_streak", "g_nonfinite_streak",
                  "d_grad_limit_count", "g_grad_limit_count",
                  "d_grad_limit_streak", "g_grad_limit_streak",
@@ -247,14 +545,13 @@ def reduce_metrics(per_step: Dict[str, torch.Tensor]) -> Metrics:
 
 
 class MultiStep:
-    """`multi(state, batches, *, z_d=None, z_g=None, labels_d=None,
-    labels_g=None) -> (state, metrics)`: `k` optimizer steps a call, the
-    counterpart of the JAX package's `make_multi_step`. Every leaf of
-    `batches` (and each draw passed) has a leading [k] axis, step i takes
-    row i. On the CPU the steps run one by one; on the card they are
-    replays of a CUDA graph of one step (`train/graph.py`), R1's steps of
-    a second one, with nothing between the replays that waits for the
-    host. A capture or replay that fails raises."""
+    """`multi(state, batches, **draws) -> (state, metrics)`: `k` optimizer
+    steps a call, the counterpart of the JAX package's `make_multi_step`.
+    Every leaf of `batches` (and each draw passed) has a leading [k] axis,
+    step i takes row i. On the CPU the steps run one by one; on the card
+    they are replays of a CUDA graph of one step (`train/graph.py`), one
+    graph for each set of lazy flags, with nothing between the replays
+    that waits for the host. A capture or replay that fails raises."""
 
     def __init__(self, step: TrainStep, k: int):
         self.step, self.k = step, k

@@ -55,10 +55,14 @@ def test_every_bench_config_builds(modes):
     assert cfg.parallel.data_parallel == 1
 
 
-@pytest.mark.parametrize("modes,message", [(["fused"], "fused")])
-def test_unported_bench_modes_raise(modes, message):
-    with pytest.raises(NotImplementedError, match=message):
-        cli.main(["bench", "1", "1", *modes, "--device=cpu"])
+def test_bench_fused_runs(capsys, two_threads):
+    """`bench 1 2 fused spc=2`: the fused simultaneous step, two steps a
+    call, one JSON line; cut to 16x16 to stay quick."""
+    small = ["model.resolution=16", "data.resolution=16", "model.base_channels=32",
+             "model.max_channels=32", "model.min_channels=16"]
+    assert cli.main(["bench", "1", "2", "fused", "spc=2", "--device=cpu", *small]) == 0
+    d = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert d["steps_per_call"] == 2 and d["value"] > 0 and d["single_step_images_per_sec"] > 0
 
 
 def test_bench_several_steps_a_call(capsys, two_threads):

@@ -281,3 +281,48 @@ def test_torn_tmp_is_never_offered(tiny_config, tmp_path):
     assert mgr.latest_step() == 4
     mgr.save(state, step=5)
     assert not torn.exists() and mgr.all_steps() == [4, 5]
+
+
+OPTIONS = dict(ada_target=0.6, lecam_gamma=0.1, pl_gamma=2.0, pl_interval=2,
+               ema_rampup=0.05, grad_accum=2, ema_dtype="bfloat16",
+               lr_schedule="cosine", total_steps=8)
+
+
+def test_option_tensors_round_trip_and_resume_bitwise(tiny_config, tmp_path):
+    """ADA's p, LeCam's trackers, the path-length mean, the device step,
+    MultiSteps' fields and the bf16 shadow are saved and restored; a step
+    after a restore into a fresh state equals the step after the save,
+    bit for bit."""
+    tcfg, _, state, step = trained(tiny_config, steps=3, **OPTIONS)
+    names = set(state_tensors(state))
+    assert {"ada_p", "lecam", "pl_mean", "step_tensor", "g_opt.mini_step",
+            "g_opt.acc_grads", "d_opt.gradient_step"} <= names
+    assert state.ema_params.dtype == torch.bfloat16 and int(state.step_tensor) == 3
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(state)
+    state, _ = step(state, host_batch())
+    want = values(state)
+    _, gan2, fresh, step2 = port(tiny_config, seed=5, **OPTIONS)
+    mgr.restore(fresh)
+    fresh, _ = step2(fresh, host_batch())
+    assert_same(values(fresh), want)
+
+
+def test_options_turned_on_at_resume_start_fresh(tiny_config, tmp_path):
+    """A checkpoint of a run without ADA, LeCam, PL and ema_rampup restored
+    into one with them: the other tensors restored, the new ones at their
+    fresh values (p = augment_p, zero trackers and mean, the device step
+    the restored step)."""
+    _, _, state, _ = trained(tiny_config, steps=2)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(state)
+    _, _, fresh, _ = port(tiny_config, seed=3, augment_p=0.25, lecam_gamma=0.1,
+                          pl_gamma=2.0, ema_rampup=0.05)
+    mgr.restore(fresh)
+    assert torch.equal(fresh.g_params.flat, state.g_params.flat) and fresh.step == 2
+    assert float(fresh.ada_p) == 0.25 and not fresh.lecam.any() and float(fresh.pl_mean) == 0
+    assert int(fresh.step_tensor) == 2
+    # and the other way round: a tensor the state lacks would be dropped
+    with pytest.raises(ValueError, match="holds tensors the state has not"):
+        CheckpointManager(str(tmp_path / "ck2")).save(fresh) or CheckpointManager(
+            str(tmp_path / "ck2")).restore(port(tiny_config)[2])

@@ -382,3 +382,34 @@ def test_kernels_line_gives_the_forward_its_routes(smoke):
     for key in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms"):
         assert key in entry
+
+
+def test_recipes_and_presets_are_the_guides(smoke):
+    """Phase 31 trains docs/GUIDE.md's recipes: each override is a key of
+    the port's config (so `get_config` takes it) and each recipe turns on
+    what it names; phase 30 runs the three presets no other phase drives."""
+    from locate_tpu_torch.config import get_config
+
+    assert smoke.PRESETS == ("cifar10_32", "celeba_64", "ffhq_256")
+    want = {"limited_data": lambda t: t.ada_target and t.bcr_gamma and t.lecam_gamma,
+            "r3gan": lambda t: t.loss == "rpgan" and t.r1_gamma and t.r2_gamma,
+            "wgan_gp": lambda t: t.loss == "wgan" and t.gp_gamma and t.d_steps == 5,
+            "fused": lambda t: t.fused_step,
+            "pl_ortho": lambda t: t.pl_gamma and t.ortho_gamma,
+            "accum_bf16_ema_schedule": lambda t: (t.grad_accum == 2 and t.ema_rampup
+                                                  and t.ema_dtype == "bfloat16"
+                                                  and t.lr_schedule != "constant")}
+    assert set(smoke.RECIPES) == set(want)
+    for name, overrides in smoke.RECIPES.items():
+        cfg = get_config("lsun_bedroom_128", {"use_pallas": "true", **overrides})
+        assert want[name](cfg.train), name
+
+
+def test_worst_gate_call_reads_the_held_rows(smoke):
+    rows = [dict(N=2, HW=16, C=64, dtype="bfloat16", dx_rel_err_kernel_vs_f32=2e-3,
+                 dx_rel_err_plain_vs_f32=1e-3, db2_rel_err_kernel_vs_f32=1e-3,
+                 db2_rel_err_plain_vs_f32=4e-3),
+            dict(N=2, HW=64, C=64, dtype="float32", dx_rel_err_kernel_vs_plain=3e-5)]
+    worst = smoke.worst_call(rows)
+    assert worst == dict(value=2.0, output="dx", shape=(2, 16, 64), dtype="bfloat16")
+    assert smoke.worst_call([]) is None

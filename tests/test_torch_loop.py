@@ -10,6 +10,7 @@ r1_last_fire; config.json; the run lock; and the options that raise."""
 
 import dataclasses
 import json
+import math
 import os
 import pickle
 import signal
@@ -204,9 +205,38 @@ def test_run_lock_refuses_a_second_train(tiny_config, tmp_path):
 
 @pytest.mark.parametrize("option, match", [
     ({"eval_every": 4}, "ROADMAP.md Queue 1 item 10"),
-    ({"lecam_gamma": 0.1}, "ROADMAP.md Queue 1 item 11"),
 ])
 def test_unported_options_raise(tiny_config, tmp_path, option, match):
     cfg = loop_config(tiny_config, tmp_path / "run", **option)
     with pytest.raises(NotImplementedError, match=match):
         train(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("option", [
+    dict(lecam_gamma=0.1, ada_target=0.6, pl_gamma=2.0, pl_interval=2, r2_gamma=1.0),
+    dict(d_steps=2, gp_gamma=10.0, fused_step=False),
+    dict(fused_step=True, augment_p=0.2, grad_accum=2, ema_dtype="bfloat16"),
+], ids=["lecam_ada_pl_r2", "d_steps", "fused_accum_bf16"])
+def test_loop_trains_every_flavor_and_logs_the_options(tiny_config, tmp_path, option):
+    """The loop runs the options the step ports (the lecam_gamma that
+    raised before this slice among them): d_steps batches a step, counted
+    in the rate's images; ADA's augment_p, LeCam's lecam, the path-length
+    mean and each lazy term's <name>_last_fire in the records; a resume
+    from the step-4 checkpoint carries the option tensors."""
+    cfg = loop_config(tiny_config, tmp_path / "run", **option)
+    state = train(cfg, device="cpu")
+    assert state.step == 8
+    recs = records(cfg.workdir)
+    assert [r["step"] for r in recs] == [2, 4, 6, 8]
+    last = recs[-1]
+    assert all(math.isfinite(v) for v in last.values() if isinstance(v, float))
+    if "lecam_gamma" in option:
+        for key in ("lecam", "augment_p", "pl_mean", "r1_last_fire", "r2_last_fire",
+                    "pl_last_fire"):
+            assert key in last, key
+        assert last["pl_mean"] != 0.0 and float(state.pl_mean) == last["pl_mean"]
+        assert float(state.ada_p) == pytest.approx(last["augment_p"])
+    if "augment_p" in option:
+        assert "augment_p" in last
+    cfg2 = loop_config(tiny_config, tmp_path / "run", total_steps=10, **option)
+    assert train(cfg2, device="cpu").step == 10

@@ -167,12 +167,12 @@ def test_captured_body_keeps_addresses_and_equals_the_step(tiny_config, r1):
     addresses = {k: t.data_ptr() for k, t in state_tensors(state).items()}
     graphs = StepGraphs(step, 2, state, batches, {})
     graphs.load(batches, {})
-    graphs.body(r1)
+    graphs.body((r1, False))
     assert {k: t.data_ptr() for k, t in state_tensors(state).items()} == addresses
     body = values(state)
     restore(state, saved)
     first = {k: v[0] for k, v in batches.items()}
-    metrics = step.update(state, *step.prepare(state, first), r1=r1)
+    metrics = step.update(state, *step.prepare(state, first, (r1, False)), r1)
     assert_same(body, values(state))
     assert int(graphs.idx) == 1
     for k, v in metrics.items():

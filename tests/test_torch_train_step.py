@@ -168,33 +168,3 @@ def test_ema_and_params_move(tiny_config):
     assert float(metrics["r1"]) > 0
     # the modules read the updated buffers
     assert gan.generator.seed.w.data_ptr() == state.g_params.flat.data_ptr()
-
-
-@pytest.mark.parametrize("override,message", [
-    (dict(d_steps=2), "d_steps"),
-    (dict(fused_step=True), "fused_step"),
-    (dict(augment_p=0.2), "augment"),
-    (dict(bcr_gamma=1.0), "bcr"),
-    (dict(lecam_gamma=0.1), "lecam"),
-    (dict(gp_gamma=10.0), "gp_gamma"),
-    (dict(r2_gamma=1.0), "r2_gamma"),
-    (dict(pl_gamma=2.0), "pl_gamma"),
-    (dict(ortho_gamma=1e-4), "ortho"),
-    (dict(feature_matching=1.0), "feature_matching"),
-    (dict(topk_fraction=0.5), "topk"),
-    (dict(loss="hinge"), "hinge"),
-    (dict(grad_accum=2), "grad_accum"),
-    (dict(lr_schedule="cosine"), "lr_schedule"),
-    (dict(ema_dtype="bfloat16"), "ema_dtype"),
-    (dict(logit_penalty=1e-3), "logit_penalty"),
-    (dict(share_latents=True), "share_latents"),
-    (dict(ema_rampup=0.05), "ema_rampup"),
-    (dict(r1_batch_fraction=0.5), "r1_batch_fraction"),
-])
-def test_unported_options_raise(tiny_config, override, message):
-    _, tcfg = configs(tiny_config, False)
-    tcfg = dataclasses.replace(tcfg, train=dataclasses.replace(tcfg.train, **override))
-    with pytest.raises(NotImplementedError, match=message):
-        gan = build_gan(tcfg, device="cpu")
-        make_train_step(tcfg, gan)(create_train_state(tcfg, gan),
-                                   {k: torch.from_numpy(v) for k, v in batch().items()})
