@@ -102,7 +102,7 @@ the train step's options. Phases, one line each:
      xla` (16 steps a call through a CUDA graph of the step, and one step a
      call beside it: images/sec, flops per step, MFU; the kernel path must
      be the faster at both), peak memory of a batch-128 step with R1 firing
-     (r1_remat on and off), and over 3 eager steps and over one 16-step
+     (r1_remat on and off), and over 3 eager steps and over one 4-step
      graph call of each path the device's idle share and its kernels by
      time;
   8. (in 3 and 4) each gate kernel's time at each shape (CUDA graphs of
@@ -253,26 +253,26 @@ the train step's options. Phases, one line each:
      only) does not hold, or if the input path alone is slower than the
      device-only step); the idle share and top kernels of 3 eager steps
      fed by the live pipeline, beside the idle share of 3 fed batches
-     pulled before the window and of 3 steps on one fixed batch; 8
+     pulled before the window and of 3 steps on one fixed batch; 4
      prefetched batches, the step run between them, copied back and equal
      byte for byte to a second producer's host batches from the same
      seed; two spc=4 graph calls fed from the prefetch, bitwise equal to
      the same calls fed host-made tensors;
  29. the train loop (`python -m locate_tpu_torch train` in child
      processes): lsun_bedroom_128 as shipped at full width, batch 64, bf16,
-     synthetic data, 16 steps a call (a CUDA graph), 64 steps, an async
-     checkpoint every 16; run A twice (where the two differ, cuDNN is made
+     synthetic data, 8 steps a call (a CUDA graph), 32 steps, an async
+     checkpoint every 8; run A twice (where the two differ, cuDNN is made
      deterministic for the comparison below, and the phase says so); run B
-     SIGKILLed as soon as checkpoints/32 is complete and resumed to 64: its
+     SIGKILLed as soon as checkpoints/16 is complete and resumed to 32: its
      final checkpoint (every state tensor, the step, the generator), its
      sample grid and its metrics.jsonl (one monotone trajectory, every
      record but the timing fields) equal A's; then the loop in this process
      (no sample grid) with the counters from 0 (each of the step's six kernels
      launched: the softmax gate's four, stage_conv and stage_conv_bwd, and
      no other), the device's idle share and top kernels over one logged
-     window (steps 49-64, an async save and a log read in it), its logged
-     images/sec beside `bench 64 20`'s fixed-batch rate at spc=16 and the
-     loop's recipe (R1, guards) on one fixed batch at spc=16, an async
+     window (steps 25-32, an async save and a log read in it), its logged
+     images/sec beside `bench 64 20`'s fixed-batch rate at spc=8 and the
+     loop's recipe (R1, guards) on one fixed batch at spc=8, an async
      save's time on the step's stream; `export` of A's checkpoint, and
      `sample --generator` on the export and `sample --checkpoint` on A
      writing the same PNG bytes for one seed;
@@ -301,14 +301,36 @@ the train step's options. Phases, one line each:
      bitwise equal to its eager steps, crossing an R1 step (and a PL
      step); the softmax gate's launches a step above 0; step times and
      the idle share; then `bench 128 20 fused` beside 7's `bench 128 20`;
- 32. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
+ 32. the style family serving: celeba_64 with docs/GUIDE.md's style recipe
+     (`model.arch=style model.style.mapping_layers=8`), bf16, batch 64,
+     w-space truncation at psi 0.7: three `SampleGraph` replays bitwise
+     equal to three eager batches from one seed, on the kernel and the
+     plain path; the served forward's gate launches on both routes;
+     images/sec of both, the idle share;
+ 33. the style family training at batch 64: the recipe with PL (R1 0.1),
+     and a StyleGAN2 variant adding the skip head, style mixing at 0.9 and
+     random noise: 2 steps and 1 f32 step a path as in 30, a 2-step graph
+     call bitwise equal to its eager steps crossing R1's and PL's step,
+     every draw (the second latent, the crossover, the noise planes) made
+     on the card from the state's generator; the softmax gate's launches a
+     step above 0;
+ 34. lsun_bedroom_128 as shipped with `model.spectral_norm=true`, and with
+     `model.g_rgb=skip`, as 31;
+ 35. `project` through the CLI: 16 random images, 32 steps as replays of
+     one captured step, from a checkpoint of a seeded state, in the z
+     space on lsun_bedroom_128 and the w+ space on the style recipe: the
+     loss falls, the gate kernels launch; one eager step's gate backward
+     calls held to the plain backward; 4 eager steps against 4 graph
+     replays, bitwise;
+ 36. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
      flash kernels, the five routed stage kernels, softmax_stats,
      softmax_apply, softmax_bwd and sigmoid_bwd with their mma-route
      launches and the simt route's time of the same launches beside their
      own; stage_softmax_apply_pool, off ffhq_512's path under the profile,
      with the launches of 13's every-stage-fused step; each with its
-     launches in 29's loop);
- 33. the card's name and power limit again, then the last line
+     launches in 29's loop, a step of 33's style recipe and a forward of
+     32's serving);
+ 37. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -1246,13 +1268,15 @@ def wide_splits(fa, splits: int):
         fa.sigmoid_wide_splits = pick
 
 
-def fill_gammas(model, value: float = 0.5) -> int:
-    """Set every self-attention block's zero-init `gamma`, so that the
-    block attends and its gradients are not all zero; returns how many."""
+def fill_gammas(model, value: float = 0.5, suffix: str = "gamma") -> int:
+    """Set every self-attention block's zero-init `gamma` (or the leaves
+    named with another `suffix`: the style family's noise strengths), so
+    that the block attends and its gradients are not all zero; returns
+    how many."""
     n = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("gamma"):
+            if name.endswith(suffix):
                 p.fill_(value)
                 n += 1
     return n
@@ -1583,6 +1607,7 @@ def trainer(cfg, seed=0, weights=None):
     for net in (gan.generator, gan.discriminator):
         randomize_logit_convs(net, seed=seed + 1, scale=0.25)
         fill_gammas(net)
+        fill_gammas(net, 0.1, "noise_strength")
     if weights is not None:
         gan.generator.load_state_dict(weights[0])
         gan.discriminator.load_state_dict(weights[1])
@@ -1868,7 +1893,7 @@ def phase_train_throughput():
     """Phase 7: `bench 128 20` (16 steps a call, a CUDA graph of the step,
     and one step a call beside it) on the kernel path and the plain path:
     the kernel path faster at both; peak memory with R1; the idle share
-    and top kernels of 3 eager steps and of one 16-step graph call."""
+    and top kernels of 3 eager steps and of one 4-step graph call."""
     from locate_tpu_torch import cli
     from locate_tpu_torch.config import get_config
     from locate_tpu_torch.train.step import make_multi_step
@@ -1903,12 +1928,12 @@ def phase_train_throughput():
         gan, state, step = trainer(cli.bench_config(128, [] if use_pallas else ["xla"]))
         batch = fixed_batch(128)
         idle, top = profile_calls(lambda: step(state, batch), top=15)
-        multi = make_multi_step(step, 16)
-        batches = stacked_batch(16, 128)
+        multi = make_multi_step(step, 4)
+        batches = stacked_batch(4, 128)
         graph_idle, graph_top = profile_calls(lambda: multi(state, batches), calls=1, top=15)
         profiles[name] = dict(device_idle_share="not measured" if idle is None else idle,
                               top_kernels=top,
-                              graph_call_16_steps=dict(
+                              graph_call_4_steps=dict(
                                   device_idle_share=("not measured" if graph_idle is None
                                                      else graph_idle), top_kernels=graph_top))
         del gan, state, step, batch, multi, batches
@@ -3681,6 +3706,7 @@ def phase_sample_graph():
 
 E2E_BATCH = 128
 E2E_PACK_LENGTH = 2048  # bench.py:146-170's max(4 batch, 2048) at batch 128
+E2E_PREFETCHED = 4
 
 
 def host_batch_on_card(batch, lead=()):
@@ -3754,7 +3780,7 @@ def phase_e2e_input_path():
     ref_it = iter(ref)
     mismatched = []
     with make_input_pipeline(cfg.data, E2E_BATCH, device="cuda", seed=7) as pipe:
-        for i in range(8):
+        for i in range(E2E_PREFETCHED):
             b = next(pipe)
             state, _ = step(state, b)
             got = {k: v.cpu().numpy() for k, v in b.items()}
@@ -3801,7 +3827,7 @@ def phase_e2e_input_path():
     shutil.rmtree(scratch)
     say("e2e-input-path", bench_e2e=e2e,
         e2e_eager_3_steps=dict(device_idle_share=idles, top_kernels=top),
-        prefetch_byte_exact_batches=8, graph_spc4_prefetch_vs_host="bitwise equal")
+        prefetch_byte_exact_batches=E2E_PREFETCHED, graph_spc4_prefetch_vs_host="bitwise equal")
     return e2e, loader
 
 
@@ -3809,8 +3835,8 @@ def phase_e2e_input_path():
 # The train loop: checkpoints, a SIGKILL and resume, export and sampling
 # ---------------------------------------------------------------------------
 
-LOOP_STEPS = 64
-LOOP_SPC = 16
+LOOP_STEPS = 32
+LOOP_SPC = 8
 # lsun_bedroom_128 as shipped (R1 every 16, both guards, EMA) at full
 # width, batch 64, bf16, on the kernels; only the data source is cut (the
 # preset's folder holds no images on the card's machine)
@@ -3893,7 +3919,7 @@ def run_differences(a, b) -> dict:
 
 
 def killed_and_resumed(workdir, deterministic):
-    """Run B: the loop in a child SIGKILLed as soon as checkpoints/32 is
+    """Run B: the loop in a child SIGKILLed as soon as checkpoints/16 is
     complete (renamed into place), then resumed to the end by another."""
     proc = train_child(workdir, deterministic, wait=False)
     target = os.path.join(workdir, "checkpoints", str(2 * LOOP_SPC))
@@ -3987,14 +4013,16 @@ def phase_train_loop():
     in child processes through `python -m locate_tpu_torch train`: run A
     twice (if they differ, cuDNN is made deterministic for A and B, and
     the run says so), its logged images/sec the loop's rate; run B
-    SIGKILLed as soon as checkpoints/32 is complete and resumed to the
+    SIGKILLed as soon as checkpoints/16 is complete and resumed to the
     end: its final checkpoint (every tensor, step, generator), sample grid
     and metrics.jsonl (one monotone trajectory; every record but its
-    timing fields) equal A's. In this process: the loop once more, with
-    the counters from 0 (every kernel of the step launched) and the
-    device's idle share over one logged window (steps 49-64); an async
-    save's cost on the step's stream; `bench 64 20`'s fixed-batch rate at
-    spc=16 and the loop's recipe on a fixed batch beside the loop's rate.
+    timing fields) equal A's. The loop's rate is run A's over its last R1
+    period (steps 17-32, R1 at the first of them: two logged calls at
+    spc 8). In this process: the loop once more, with the counters from 0
+    (every kernel of the step launched) and the device's idle share over
+    that period; an async save's cost on the step's stream; `bench 64
+    20`'s fixed-batch rate at spc=8 and the loop's recipe on a fixed batch
+    beside the loop's rate.
     Then `export` of A's checkpoint: `sample --generator` on the export
     and `sample --checkpoint` on A write the same PNG bytes."""
     import shutil
@@ -4033,7 +4061,10 @@ def phase_train_loop():
     cfg = dataclasses.replace(get_config(LOOP_ARGS[0], parse_cli_overrides(LOOP_ARGS[1:])),
                               workdir=os.path.join(scratch, "p"))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, sample_every=0))
-    window = WindowProfile(LOOP_STEPS - LOOP_SPC, LOOP_STEPS)
+    period = cfg.train.r1_interval  # a whole R1 period, its R1 step at its start
+    check(period % LOOP_SPC == 0 and LOOP_STEPS % period == 0,
+          f"LOOP_STEPS {LOOP_STEPS} and spc {LOOP_SPC} do not tile R1's period {period}")
+    window = WindowProfile(LOOP_STEPS - period, LOOP_STEPS)
     reset_counters()
     state = train(cfg, hooks={"on_metrics": window}, device="cuda")
     launches = read_counters()
@@ -4051,7 +4082,9 @@ def phase_train_loop():
     release_memory()
     recipe = cli.bench_images_per_sec(cfg, torch.device("cuda"), BATCH, 20)
     release_memory()
-    loop_rate = logged[-1]["images_per_sec"]  # run A's, which ran unprofiled
+    # run A's (unprofiled) over the window's calls, each of LOOP_SPC steps
+    calls = logged[-(period // LOOP_SPC):]
+    loop_rate = len(calls) / sum(1.0 / r["images_per_sec"] for r in calls)
 
     # export A's checkpoint; both sample paths on one seed
     base = os.path.join(scratch, "export", "gen")
@@ -4070,7 +4103,7 @@ def phase_train_loop():
                run_b=dict(complete_checkpoints_at_kill=killed_at, resumed_from=resumed_from,
                           equal_to_run_a=True),
                logged_images_per_sec_run_a=[r["images_per_sec"] for r in logged],
-               loop_images_per_sec=loop_rate, bench_64_20_spc16_images_per_sec=bench,
+               loop_images_per_sec=loop_rate, bench_64_20_spc8_images_per_sec=bench,
                fixed_batch_loop_recipe_images_per_sec=recipe,
                loop_over_bench=loop_rate / bench, loop_over_fixed_recipe=loop_rate / recipe,
                logged_window=window_readings,
@@ -4621,6 +4654,289 @@ def phase_recipes(bench_kernel):
     return rows, fused
 
 
+# ---------------------------------------------------------------------------
+# The style generator family, spectral norm, the skip head and projection
+# ---------------------------------------------------------------------------
+
+# docs/GUIDE.md:30-34's style recipe on celeba_64 (its R1 gamma, 0.1, is
+# the preset's), and a StyleGAN2 variant with every style option on
+STYLE_RECIPE = {"model.arch": "style", "model.style.mapping_layers": "8"}
+STYLE_TRAIN = {**STYLE_RECIPE, "train.pl_gamma": "2.0", "train.r1_gamma": "0.1"}
+STYLEGAN2 = {**STYLE_TRAIN, "model.g_rgb": "skip", "model.style.mixing_prob": "0.9",
+             "model.style.noise": "random"}
+STYLE_PSI = 0.7
+STYLE_STEPS = 2
+STYLE_GRAPH_STEPS = 2
+SERVE_REPLAYS = 10
+# lsun_bedroom_128 with spectral norm (docs/GUIDE.md:251-255) and with the
+# skip head (:43-50)
+SN_SKIP = {"spectral_norm": {"model.spectral_norm": "true"},
+           "skip_rgb": {"model.g_rgb": "skip"}}
+SN_SKIP_STEPS = 2
+PROJECT_IMAGES = 16
+PROJECT_STEPS = 32
+PROJECT_BITWISE_STEPS = 4
+PROJECTIONS = (("lsun_bedroom_128_z", "lsun_bedroom_128", {}, "z"),
+               ("style_w+", "celeba_64", STYLE_RECIPE, "w+"))
+
+
+def style_config(**overrides):
+    """celeba_64 on the kernel path with the style recipe and `overrides`."""
+    from locate_tpu_torch.config import get_config
+
+    return get_config("celeba_64", {"use_pallas": "true", **STYLE_RECIPE, **overrides})
+
+
+def check_both_routes(routes, phase):
+    """A path whose softmax gates run on both routes: the C = 64 gates on the
+    tensor cores, the wider ones on the simt kernels."""
+    for kernel, by_route in routes.items():
+        check(by_route.get("mma", 0) > 0 and by_route.get("simt", 0) > 0,
+              f"{phase}: {kernel} took the routes {by_route}, want both")
+
+
+def phase_style_serving():
+    """Phase 32: celeba_64 with the style recipe, bf16, batch 64, w-space
+    truncation at psi 0.7 around the mean w of 4096 draws, on the kernel
+    path and on the plain path: `generate_samples` from a seed equals the
+    first replay of `SampleGraph` from that seed, bitwise; three replays
+    equal three eager batches around the graph's kept centre, bitwise;
+    the served forward's gate launches (both routes on the kernel path,
+    none on the plain one); img/s over SERVE_REPLAYS replays of each and
+    the idle share of three replays."""
+    from locate_tpu_torch.io.sampling import (generate_samples, sample_latents,
+                                              to_uint8_tensor, truncation_centre)
+    from locate_tpu_torch.models.gan import model_config
+    from locate_tpu_torch.models.generator import build_generator
+    from locate_tpu_torch.models.style_generator import apply_truncated
+    from locate_tpu_torch.train.graph import SampleGraph
+
+    def kept_centre_batch(model, gen, w_avg):
+        """What a replay after the first computes: z alone, around w_avg."""
+        with torch.inference_mode():
+            z = sample_latents(gen, n, model.config.latent_dim)
+            imgs = apply_truncated(model, z, psi=STYLE_PSI, w_avg=w_avg)
+            return to_uint8_tensor(imgs).cpu().numpy()
+
+    cfg = style_config()
+    n = BATCH
+    rows, per_forward = {}, None
+    for name, use_pallas in (("kernel_path", True), ("plain_path", False)):
+        model = build_generator(dataclasses.replace(model_config(cfg), use_pallas=use_pallas),
+                                cfg.train.compute_dtype, "cuda").eval()
+        randomize_logit_convs(model, seed=1, scale=0.25)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(5)
+        reset_counters()
+        first = generate_samples(model, gen, n, truncation_psi=STYLE_PSI)
+        forward, routes = read_counters(), read_fwd_routes()
+        gen.manual_seed(5)
+        w_avg = truncation_centre(model, gen)
+        eager = [kept_centre_batch(model, gen, w_avg) for _ in range(3)]
+        gen.manual_seed(5)
+        sample = SampleGraph(model, gen, n, truncation_psi=STYLE_PSI)
+        check(torch.equal(sample.w_avg, w_avg), f"style-serving {name}: another w_avg")
+        graph = [sample() for _ in range(3)]
+        check((first == graph[0]).all(),
+              f"style-serving {name}: SampleGraph's first batch differs from generate_samples'")
+        same = all((a == b).all() for a, b in zip(eager, graph))
+        check(same, f"style-serving {name}: graph sampling differs from eager sampling")
+        check(len({a.tobytes() for a in graph}) == 3, f"style-serving {name}: replays repeat")
+        check(graph[0].shape == (n, 64, 64, 3), f"style-serving {name}: {graph[0].shape}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_REPLAYS):
+            sample()
+        rate = SERVE_REPLAYS * n / (time.perf_counter() - t0)
+        idle, _ = profile_calls(sample, calls=3)
+        if use_pallas:
+            check(forward["softmax_stats"] > 0 and forward["softmax_apply"] > 0,
+                  f"style-serving: launched {forward}")
+            check_both_routes(routes, "style-serving")
+            per_forward = forward
+        else:
+            check(forward == expected({}), f"style-serving plain path launched {forward}")
+        rows[name] = dict(images_per_sec=rate, bitwise_equal=same, launches_per_forward=forward,
+                          gate_routes=routes,
+                          device_idle_share_graph="not measured" if idle is None else idle)
+        del model, sample, first, eager, graph
+        release_memory()
+    say("style-serving", config="celeba_64 " + " ".join(f"{k}={v}" for k, v in
+                                                         STYLE_RECIPE.items()),
+        batch=n, truncation_psi=STYLE_PSI,
+        kernel_over_plain=rows["kernel_path"]["images_per_sec"]
+        / rows["plain_path"]["images_per_sec"], **rows)
+    return per_forward
+
+
+def phase_style_train():
+    """Phase 33: celeba_64 with the style recipe and PL, and the StyleGAN2
+    variant (the skip head, mixing at 0.9, random noise), bf16 at batch 64:
+    steps from one state on the kernel path against the plain path
+    (`paths_from_one_state`: every gate backward of step 0 held to its
+    plain version, one f32 step within max(1e-4, 10x the plain path's move
+    under 1e-7 weight noise), seconds a step, the idle share); a graph call
+    of 2 steps bitwise its eager steps, crossing R1's and PL's step; each
+    gate kernel's launches a step, both routes. Returns the recipe's
+    launches a step."""
+    rows = {}
+    for name, overrides in (("style_recipe", STYLE_TRAIN), ("stylegan2", STYLEGAN2)):
+        t0 = time.perf_counter()
+        cfg = style_config(**overrides)
+        check(cfg.train.global_batch == BATCH and cfg.train.compute_dtype == "bfloat16",
+              f"style-{name}: batch {cfg.train.global_batch} {cfg.train.compute_dtype}")
+        row = dict(overrides=overrides)
+        reset_counters()
+        row["kernel_vs_plain"] = paths_from_one_state(cfg, BATCH, STYLE_STEPS, 64,
+                                                      f"style-{name}")
+        t1 = time.perf_counter()
+        with deterministic_convs():
+            graph = graph_vs_eager(cfg, STYLE_GRAPH_STEPS, 1, BATCH, 64, f"style-{name}-graph")
+        check(graph["bitwise_equal"] and "r1+pl" in graph["graph_variants"],
+              f"style {name}: the graph call {graph['graph_variants']} is not bitwise its "
+              "eager steps or crossed no R1 + PL step")
+        check_gate_launches(graph, f"style-{name}")
+        row.update(graph=graph, seconds=dict(paths=t1 - t0, graph=time.perf_counter() - t1))
+        rows[name] = row
+        say(f"style-train-{name}", **row)
+    return rows["style_recipe"]["graph"]["launches_per_step"]
+
+
+def phase_sn_and_skip():
+    """Phase 34: lsun_bedroom_128 as shipped with spectral norm, and with the
+    skip head, bf16 at batch 64: steps from one state on the kernel path
+    against the plain path (`paths_from_one_state`), a graph call of 2 steps
+    bitwise its eager steps crossing R1's step, each gate kernel's launches
+    a step."""
+    from locate_tpu_torch.config import get_config
+
+    rows = {}
+    for name, overrides in SN_SKIP.items():
+        t0 = time.perf_counter()
+        cfg = get_config("lsun_bedroom_128", {"use_pallas": "true", **overrides})
+        row = dict(overrides=overrides)
+        row["kernel_vs_plain"] = paths_from_one_state(cfg, BATCH, SN_SKIP_STEPS, 128,
+                                                      f"sn-and-skip-{name}")
+        t1 = time.perf_counter()
+        with deterministic_convs():
+            graph = graph_vs_eager(cfg, SN_SKIP_STEPS, 1, BATCH, 128, f"sn-and-skip-{name}-graph")
+        check(graph["bitwise_equal"] and "r1" in graph["graph_variants"],
+              f"{name}: the graph call {graph['graph_variants']} is not bitwise its eager "
+              "steps or crossed no R1 step")
+        check_gate_launches(graph, f"sn-and-skip-{name}")
+        row.update(graph=graph, seconds=dict(paths=t1 - t0, graph=time.perf_counter() - t1))
+        rows[name] = row
+        say(f"sn-and-skip-{name}", **row)
+    return rows
+
+
+def projector_tensors_differ(a, b) -> dict:
+    names = ("v", "mu", "nu", "count", "hist", "idx")
+    return {k: float((x.double() - y.double()).abs().max())
+            for k, x, y in zip(names, a.tensors(), b.tensors()) if not torch.equal(x, y)}
+
+
+def phase_project(fa):
+    """Phase 35: the CLI's `project` of 16 random images (a .npy) for 32
+    steps, replays of one captured step, from a checkpoint of a seeded
+    state: lsun_bedroom_128 in the z space (its bf16 generator) and the
+    style recipe (celeba_64) in the w+ space (the f32 synthesis); the loss
+    falls and the gate kernels launch. Then, on the checkpoint's serving
+    generator: every gate backward call of one eager projection step held
+    to its plain version (bf16 rule, or F32_TOL in f32), and 4 eager steps
+    against 4 graph replays from the same start, bitwise."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from locate_tpu_torch.config import get_config
+    from locate_tpu_torch.io.checkpoint import CheckpointManager
+    from locate_tpu_torch.io.projection import projector
+    from locate_tpu_torch.io.sampling import serving_generator
+
+    scratch = tempfile.mkdtemp(prefix="smoke_project_")
+    rows = {}
+    for name, preset, overrides, space in PROJECTIONS:
+        t0 = time.perf_counter()
+        cfg = get_config(preset, {"use_pallas": "true", **overrides})
+        args = [preset, "use_pallas=true", *[f"{k}={v}" for k, v in overrides.items()]]
+        gan, state, _ = trainer(cfg)
+        ckpt = os.path.join(scratch, name)
+        mgr = CheckpointManager(ckpt, keep=1)
+        mgr.save(state)
+        mgr.close()
+        res = cfg.model.resolution
+        imgs = np.random.default_rng(0).integers(0, 256, (PROJECT_IMAGES, res, res, 3),
+                                                 dtype=np.uint8)
+        npy, out = os.path.join(scratch, name + ".npy"), os.path.join(scratch, name + ".npz")
+        np.save(npy, imgs)
+        reset_counters()
+        t1 = time.perf_counter()
+        text = cli_text(["project", *args, f"--checkpoint={ckpt}", f"--images={npy}",
+                         f"--count={PROJECT_IMAGES}", f"--steps={PROJECT_STEPS}",
+                         f"--space={space}", f"--out={out}",
+                         f"--recon={os.path.join(scratch, name + '.png')}"])
+        cli_seconds = time.perf_counter() - t1
+        launches = read_counters()
+        with np.load(out) as npz:
+            hist, z = npz["loss_history"], npz["z"]
+        check(np.isfinite(hist).all() and hist[-1] < hist[0],
+              f"project {name}: the loss went {hist[0]} -> {hist[-1]}")
+        check(all(launches[k] > 0 for k in SOFTMAX_GATE),
+              f"project {name}: launched {launches}")
+        model = serving_generator(gan, state)
+        targets = imgs.astype(np.float32) / 127.5 - 1.0
+        gen = torch.Generator(device="cuda")
+
+        def fresh():
+            gen.manual_seed(0)
+            return projector(model, targets, steps=PROJECT_BITWISE_STEPS, space=space, gen=gen)
+
+        calls = []
+        with deterministic_convs():
+            with checked_gate_backward(fa, calls):
+                fresh().step()
+            eager = fresh()
+            for _ in range(PROJECT_BITWISE_STEPS):
+                eager.step()
+            graph = fresh()
+            graph.run(PROJECT_BITWISE_STEPS)
+            torch.cuda.synchronize()
+        check(calls, f"project {name}: no gate backward call in the checked step")
+        diff = projector_tensors_differ(eager, graph)
+        check(not diff, f"project {name}: graph replays differ from eager steps: {diff}")
+        rows[name] = dict(space=space, images=PROJECT_IMAGES, steps=PROJECT_STEPS,
+                          latents=list(z.shape), loss_first=float(hist[0]),
+                          loss_last=float(hist[-1]), cli_seconds=cli_seconds,
+                          launches=launches, gate_backward_calls_held=len(calls),
+                          worst_gate_call=worst_call(calls),
+                          graph_vs_eager_bitwise_steps=PROJECT_BITWISE_STEPS,
+                          cli_output=text.strip().splitlines()[-2:],
+                          seconds=time.perf_counter() - t0)
+        del gan, state, model, eager, graph
+        release_memory()
+    shutil.rmtree(scratch)
+    say("project", **rows)
+    return rows
+
+
+def launch_columns(out, columns: dict) -> None:
+    """Each kernels-line entry's launches on other paths: `columns` maps a
+    column name to {kernel: launches}."""
+    for entry in out:
+        for column, launches in columns.items():
+            entry[column] = launches[entry["name"]]
+
+
+def check_style_launches(out) -> None:
+    """The style family's train step launched every softmax gate kernel."""
+    for entry in out:
+        if entry["name"] in SOFTMAX_GATE:
+            check(entry["launches_style_train"] > 0,
+                  f"{entry['name']} never launched in a style train step")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: FAIL: torch.cuda.is_available() is False", file=sys.stderr)
@@ -4710,6 +5026,13 @@ def main() -> int:
     phase_presets()
     phase_recipes(bench_kernel)
 
+    # the style family (serving with truncation, training with mixing and
+    # noise), spectral norm and the skip head, projection
+    style_serve = phase_style_serving()
+    style_train = phase_style_train()
+    phase_sn_and_skip()
+    phase_project(fa)
+
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
                       gate_routes.get(k)) for k in KERNELS]
     out += [stage_entry(k, stage_times, stage_err, ffhq_launches, routes=ffhq_routes,
@@ -4720,10 +5043,13 @@ def main() -> int:
                            SIGMOID_STAGE_PER_STEP["stage_sigmoid"], sig_routes))
     out += [flash_entry(k, flash_rows, flash_train_rows, self_launches, self_serve,
                         self_routes) for k in FLASH_KERNELS]
+    launch_columns(out, {"launches_ffhq_512_sigmoid_train": sig_launches,
+                         "launches_self_attention_train": self_launches,
+                         "launches_train_loop": loop_launches,
+                         "launches_style_train": style_train,
+                         "launches_style_serve": style_serve})
+    check_style_launches(out)
     for entry in out:
-        entry["launches_ffhq_512_sigmoid_train"] = sig_launches[entry["name"]]
-        entry["launches_self_attention_train"] = self_launches[entry["name"]]
-        entry["launches_train_loop"] = loop_launches[entry["name"]]
         check(entry["launches"] > 0, f"{entry['name']} never launched on its main path")
     check(len(out) == 14, f"{len(out)} kernels listed")
     print(json.dumps({"kernels": out}), flush=True)

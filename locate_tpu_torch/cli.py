@@ -1,7 +1,8 @@
 """Command line of the PyTorch port, counterpart of `locate_tpu/cli.py`.
 
     python -m locate_tpu_torch train lsun_bedroom_128 use_pallas=true [--no-resume] [--profile[=DIR]] [--debug-nans]
-    python -m locate_tpu_torch sample lsun_bedroom_128 [--checkpoint=DIR | --generator=PATH.npz] [--interpolate]
+    python -m locate_tpu_torch sample lsun_bedroom_128 [--checkpoint=DIR | --generator=PATH.npz] [--interpolate] [--truncation-psi=P]
+    python -m locate_tpu_torch project celeba_64 model.arch=style --images=DIR_or_NPY [--space=z|w|w+] [--steps=N] [--recon=PNG]
     python -m locate_tpu_torch export lsun_bedroom_128 [--checkpoint=DIR] [--out=BASE] [--torch=PATH.pt]
     python -m locate_tpu_torch info ffhq_512
     python -m locate_tpu_torch bench [batch] [steps] [xla|e2e] [spc=N] [key=value ...] [--device=D]
@@ -10,7 +11,7 @@
     python -m locate_tpu_torch bench-input lsun_bedroom_128 data.dataset=packed data.path=PACKED
     python -m locate_tpu_torch lsun-export LMDB_DIR OUT_DIR [--limit N]
 
-`train`, `export`, `bench` and the sampling commands run on the card;
+`train`, `export`, `bench`, `project` and the sampling commands run on the card;
 `--device=cpu` asks for the CPU. `info`, `pack`, `bench-input` and
 `lsun-export` are host work.
 """
@@ -515,13 +516,15 @@ def cmd_bench_sample(argv: List[str]) -> int:
 
 def cmd_sample(argv: List[str]) -> int:
     """`sample PRESET [overrides] [--generator=PATH.npz | --checkpoint DIR]
-    [--count N] [--seed S] [--truncation T] [--label L] [--interpolate
-    [--rows R] [--cols C]] [--out PNG] [--device D]`: an image grid from a
-    generator exported by `export` (or `locate-tpu export`), else from the
-    latest checkpoint's EMA generator (of `--checkpoint`, by default
-    <workdir>/checkpoints). `--interpolate` renders a slerp interpolation
-    sheet, `rows` latent pairs across `cols` steps. The preset gives the
-    compute dtype and `use_pallas`."""
+    [--count N] [--seed S] [--truncation T] [--truncation-psi P] [--label L]
+    [--interpolate [--rows R] [--cols C]] [--out PNG] [--device D]`: an
+    image grid from a generator exported by `export` (or `locate-tpu
+    export`), else from the latest checkpoint's EMA generator (of
+    `--checkpoint`, by default <workdir>/checkpoints). `--truncation`
+    truncates the z draw (either family), `--truncation-psi` applies
+    w-space truncation (model.arch=style). `--interpolate` renders a slerp
+    interpolation sheet, `rows` latent pairs across `cols` steps. The
+    preset gives the compute dtype and `use_pallas`."""
     import torch
 
     from locate_tpu_torch.device import resolve_device
@@ -563,8 +566,13 @@ def cmd_sample(argv: List[str]) -> int:
             if not model.config.num_classes:
                 raise SystemExit("--label needs model.num_classes > 0")
             labels = torch.full((count,), int(label), device=device)
-        imgs = generate_samples(model, gen, count, labels=labels,
-                                truncation=float(_str_flag(flags, "truncation", "0.0")))
+        try:
+            imgs = generate_samples(
+                model, gen, count, labels=labels,
+                truncation=float(_str_flag(flags, "truncation", "0.0")),
+                truncation_psi=float(_str_flag(flags, "truncation-psi", "0.0")))
+        except ValueError as e:
+            raise SystemExit(f"--truncation-psi: {e}")
     out = _str_flag(flags, "out") or default_out
     save_image_grid(imgs, out, cols=grid_cols)
     print(f"[locate-tpu-torch] wrote {count} samples ({source}) to {out}")
@@ -586,8 +594,11 @@ def cmd_export(argv: List[str]) -> int:
     preset = argv[0] if argv else "cifar10_32"
     flags, bare = _split_args(argv[1:])
     if flags.get("compiled-batch"):
-        raise SystemExit("--compiled-batch: the compiled serving artifact (export_compiled) "
-                         "is not ported yet (ROADMAP.md Queue 1 item 11)")
+        raise SystemExit(
+            "--compiled-batch: the compiled serving artifact (export_compiled) is not "
+            "ported yet (ROADMAP.md Queue 1 item 11): the port's kernels load as ctypes "
+            "libraries, which neither torch.export nor TorchScript can trace, so they "
+            "must first be registered as torch.library ops")
     cfg = get_config(preset, parse_cli_overrides(bare))
     device = resolve_device(_str_flag(flags, "device"))
     ckpt_dir = _str_flag(flags, "checkpoint") or os.path.join(cfg.workdir, "checkpoints")
@@ -618,14 +629,15 @@ def cmd_info(argv: List[str]) -> int:
 
     from locate_tpu_torch.models.discriminator import Discriminator
     from locate_tpu_torch.models.gan import model_config
-    from locate_tpu_torch.models.generator import Generator, as_dtype
+    from locate_tpu_torch.models.generator import as_dtype, generator_of
 
     preset = argv[0] if argv else "cifar10_32"
     _, bare = _split_args(argv[1:])
     cfg = get_config(preset, parse_cli_overrides(bare))
     mcfg, cd = model_config(cfg), as_dtype(cfg.train.compute_dtype)
     with torch.device("meta"):
-        n_g = sum(p.numel() for p in Generator(mcfg, cd).parameters())
+        g = generator_of(mcfg, cd)
+        n_g = sum(p.numel() for p in g.parameters())
         n_d = sum(p.numel() for p in Discriminator(mcfg, cd).parameters())
     n_total = n_g + n_d
     # f32 training state a replica: params + Adam mu/nu (both nets) + the
@@ -640,7 +652,7 @@ def cmd_info(argv: List[str]) -> int:
         dp if z >= 1 else 1)
     batch_bytes = (cfg.train.global_batch * cfg.model.resolution ** 2
                    * cfg.model.img_channels) // max(dp, 1)
-    print(json.dumps({
+    info = {
         "preset": cfg.name,
         "arch": cfg.model.arch,
         "resolution": cfg.model.resolution,
@@ -657,7 +669,84 @@ def cmd_info(argv: List[str]) -> int:
         "input_bytes_per_device_per_step": int(batch_bytes),
         "global_batch": cfg.train.global_batch,
         "compute_dtype": cfg.train.compute_dtype,
-    }))
+    }
+    if cfg.model.arch == "style":
+        info["num_ws"] = g.num_ws
+    print(json.dumps(info))
+    return 0
+
+
+def cmd_project(argv: List[str]) -> int:
+    """`project PRESET [overrides] --images DIR_or_NPY [--count N] [--steps N]
+    [--lr F] [--prior-weight F] [--space z|w|w+] [--seed S] [--out z.npz]
+    [--recon grid.png] [--raw] [--checkpoint DIR] [--device D]`: invert
+    images into the latent space of the latest checkpoint's EMA generator
+    (`--raw`: G's own weights) by `io/projection.py:project`. `--images`
+    is a folder of images (center-cropped and resized to the model's
+    resolution; class subfolders give a class-conditional model its
+    labels) or a .npy of uint8 or float NHWC images. `--space w` / `w+`
+    (model.arch=style) optimize the intermediate latent(s). Writes the
+    latents, the loss history and the space to `--out` (.npz), and with
+    `--recon` a [target | reconstruction] grid."""
+    import numpy as np
+    import torch
+
+    from locate_tpu_torch.data.datasets import ImageFolder
+    from locate_tpu_torch.device import resolve_device
+    from locate_tpu_torch.io.projection import project, reconstruction_grid
+    from locate_tpu_torch.io.sampling import save_image_grid, serving_generator
+
+    preset = argv[0] if argv else "cifar10_32"
+    flags, bare = _split_args(argv[1:])
+    cfg = get_config(preset, parse_cli_overrides(bare))
+    device = resolve_device(_str_flag(flags, "device"))
+    ckpt_dir = _str_flag(flags, "checkpoint") or os.path.join(cfg.workdir, "checkpoints")
+    gan, state = _restore(cfg, ckpt_dir, device)
+    model = serving_generator(gan, state)
+    if flags.get("raw"):
+        model.load_state_dict(state.g_params.named(state.g_params.flat))
+    step = state.step
+    del gan, state
+    src = _str_flag(flags, "images")
+    if not src:
+        raise SystemExit("project needs --images=DIR_or_NPY")
+    count = int(_str_flag(flags, "count", "16"))
+    labels = None
+    if src.endswith(".npy"):
+        imgs = np.asarray(np.load(src)[:count], np.float32)
+        if imgs.max() > 2.0:  # uint8 range -> [-1, 1]
+            imgs = imgs / 127.5 - 1.0
+    else:
+        ds = ImageFolder(src, cfg.model.resolution, cfg.model.img_channels)
+        pairs = [ds.example(i) for i in range(min(count, len(ds)))]
+        imgs = np.stack([p[0] for p in pairs]).astype(np.float32) / 127.5 - 1.0
+        if cfg.model.num_classes:
+            labels = np.asarray([p[1] for p in pairs], np.int32)
+    if cfg.model.num_classes and labels is None:
+        labels = np.zeros((imgs.shape[0],), np.int32)
+    steps = int(_str_flag(flags, "steps", "400"))
+    space = _str_flag(flags, "space", "z")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(_str_flag(flags, "seed", "0")))
+    try:
+        z, hist = project(model, imgs, labels=labels, steps=steps,
+                          lr=float(_str_flag(flags, "lr", "0.05")),
+                          prior_weight=float(_str_flag(flags, "prior-weight", "1e-3")),
+                          space=space, gen=gen)
+    except ValueError as e:
+        raise SystemExit(f"project: {e}")
+    out = _str_flag(flags, "out") or f"{cfg.workdir}/projected_z.npz"
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    np.savez(out, z=z, loss_history=hist, space=space,
+             **({} if labels is None else {"labels": labels}))
+    print(f"[locate-tpu-torch] projected {imgs.shape[0]} images in {steps} steps "
+          f"(step {step}, {space}): loss {float(hist[0]):.4f} -> {float(hist[-1]):.4f}; "
+          f"z -> {out}")
+    recon = _str_flag(flags, "recon")
+    if recon:
+        grid = reconstruction_grid(model, imgs, z, labels, space=space)
+        save_image_grid(grid, recon, cols=2)
+        print(f"[locate-tpu-torch] wrote [target|recon] grid to {recon}")
     return 0
 
 
@@ -738,6 +827,7 @@ COMMANDS = {
     "info": cmd_info,
     "lsun-export": cmd_lsun_export,
     "pack": cmd_pack,
+    "project": cmd_project,
     "sample": cmd_sample,
     "train": cmd_train,
 }

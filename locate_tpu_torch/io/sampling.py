@@ -1,7 +1,8 @@
 """Sampling, counterpart of `locate_tpu/io/sampling.py`: latents from an
 explicit `torch.Generator`, images to uint8 on the device before the copy
-to the host, slerp interpolation sheets, PNG grids, and the serving
-generator of a train state (its EMA weights in a module of their own)."""
+to the host, the style family's w-space truncation, slerp interpolation
+sheets, PNG grids, and the serving generator of a train state (its EMA
+weights in a module of their own)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from locate_tpu_torch.models.generator import Generator
+from torch import nn
+
+W_AVG_DRAWS = 4096  # latents of a truncation centre (`style_generator.w_average`)
 
 
 def sample_latents(gen: torch.Generator, n: int, latent_dim: int,
@@ -44,18 +47,45 @@ def to_uint8_tensor(imgs: torch.Tensor) -> torch.Tensor:
     return ((imgs.float() + 1.0) * 127.5 + 0.5).clamp(0, 255).to(torch.uint8)
 
 
-def generate_samples(model: Generator, gen: torch.Generator, count: int,
+def check_truncation_psi(model: nn.Module, truncation_psi: float) -> None:
+    if truncation_psi > 0.0 and model.config.arch != "style":
+        raise ValueError("truncation_psi is w-space truncation — it needs "
+                         "model.arch='style' (use `truncation` for z-space)")
+
+
+def truncation_centre(model: nn.Module, gen: torch.Generator) -> torch.Tensor:
+    """The style family's w-space truncation centre: the mean w of
+    `W_AVG_DRAWS` latents drawn from `gen`. `generate_samples` and
+    `SampleGraph` both draw it before any z, so from one seed their first
+    batches are the same images."""
+    from locate_tpu_torch.models.style_generator import w_average
+
+    with torch.inference_mode():
+        return w_average(model, gen, W_AVG_DRAWS)
+
+
+def generate_samples(model: nn.Module, gen: torch.Generator, count: int,
                      labels: Optional[torch.Tensor] = None,
-                     truncation: float = 0.0) -> np.ndarray:
+                     truncation: float = 0.0, truncation_psi: float = 0.0) -> np.ndarray:
     """Run the generator on its device and return uint8 NHWC images on the
-    host (device compute and the transfer both included)."""
+    host (device compute and the transfer both included). `truncation` >
+    0 truncates the z draw (either family); `truncation_psi` in (0, 1]
+    applies the style family's w-space truncation around
+    `truncation_centre(model, gen)`, drawn before z."""
     cfg = model.config
+    check_truncation_psi(model, truncation_psi)
     device = gen.device
     with torch.inference_mode():
+        w_avg = truncation_centre(model, gen) if truncation_psi > 0.0 else None
         z = sample_latents(gen, count, cfg.latent_dim, truncation)
         if labels is None and cfg.num_classes:
             labels = torch.arange(count, device=device) % cfg.num_classes
-        imgs = model(z, labels)
+        if w_avg is not None:
+            from locate_tpu_torch.models.style_generator import apply_truncated
+
+            imgs = apply_truncated(model, z, labels, psi=truncation_psi, w_avg=w_avg)
+        else:
+            imgs = model(z, labels)
         return to_uint8_tensor(imgs).cpu().numpy()
 
 
@@ -72,7 +102,7 @@ def slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
                        (torch.sin((1.0 - t) * omega) * a + torch.sin(t * omega) * b) / so)
 
 
-def interpolation_grid(model: Generator, gen: torch.Generator, rows: int = 4, cols: int = 8,
+def interpolation_grid(model: nn.Module, gen: torch.Generator, rows: int = 4, cols: int = 8,
                        labels: Optional[torch.Tensor] = None,
                        latents: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> np.ndarray:
     """`rows` latent pairs (drawn from `gen` unless `latents` gives them,
@@ -105,7 +135,7 @@ def serving_weights(state) -> Dict[str, torch.Tensor]:
     return state.g_params.named(flat)
 
 
-def serving_generator(gan, state) -> Generator:
+def serving_generator(gan, state) -> nn.Module:
     """A second generator module holding `serving_weights(state)`, for
     sample grids and `sample --checkpoint`: the live G keeps training,
     this one only serves."""
@@ -115,7 +145,7 @@ def serving_generator(gan, state) -> Generator:
     return load_weights(model, state)
 
 
-def load_weights(model: Generator, state) -> Generator:
+def load_weights(model: nn.Module, state) -> nn.Module:
     """Copy `serving_weights(state)` into `model`."""
     model.load_state_dict(serving_weights(state))
     return model

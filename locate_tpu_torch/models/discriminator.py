@@ -3,7 +3,9 @@
 Image (+ optional class) -> from-RGB 1x1 conv -> stages of [conv blocks +
 location attention + 2x average-pool], the generator's mirror -> norm +
 act + global average pool -> dense logit, plus a projection term
-<class_proj[y], features> when class-conditional.
+<class_proj[y], features> when class-conditional. With
+`model.spectral_norm` every forward runs on spectrally normalized weights
+(`ops/spectral.py`).
 
 The module tree mirrors the JAX params pytree, so `state_dict()` keys are
 the JAX dotted paths (`stem.w`, `trunk.0.0.main.2.row.w`, `neck.0.scale`,
@@ -26,6 +28,7 @@ from locate_tpu_torch.ops import initializers
 from locate_tpu_torch.ops.activations import Act
 from locate_tpu_torch.ops.conv import Dense, GlobalAvgPool
 from locate_tpu_torch.ops.norm import make_norm, minibatch_stddev
+from locate_tpu_torch.ops.spectral import spectral_normalize
 
 
 class Discriminator(nn.Module):
@@ -35,11 +38,8 @@ class Discriminator(nn.Module):
     def __init__(self, cfg: ModelConfig, compute_dtype: Optional[torch.dtype] = None,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.spectral_norm:
-            raise NotImplementedError(
-                "model.spectral_norm (ops/spectral.py) is not ported yet "
-                "(ROADMAP.md Queue 1 item 11)")
         self.config = cfg
+        self._normalizing = False
         self.compute_dtype = compute_dtype
         chans = cfg.stage_channels()
         resolutions = cfg.stage_resolutions()
@@ -70,6 +70,16 @@ class Discriminator(nn.Module):
     def forward(self, x: torch.Tensor, labels: Optional[torch.Tensor] = None,
                 return_features: bool = False):
         cfg = self.config
+        if cfg.spectral_norm and not self._normalizing:
+            # the same forward on spectrally normalized weights: the
+            # parameters stay what they are (the optimizer's, the EMA's and
+            # the checkpoint's), gradients reach them through sigma
+            sn = spectral_normalize(dict(self.named_parameters()), cfg.sn_iters)
+            self._normalizing = True
+            try:
+                return torch.func.functional_call(self, sn, (x, labels, return_features))
+            finally:
+                self._normalizing = False
         cd = self.compute_dtype or x.dtype
         h = run_stages(self.trunk, self.stem(x.to(cd)), cfg.remat)
         feats = self.neck(h)                                   # (N, chans[0])

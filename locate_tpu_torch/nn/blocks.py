@@ -220,17 +220,21 @@ def generator_stage(in_ch: int, out_ch: int, resolution: int, cfg: ModelConfig,
     return FusableStage(layers, cfg, compute_dtype)
 
 
+def run_stage(stage: nn.Module, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """Run one stage. With `remat` (model.remat, `nn/core.py:maybe_remat`)
+    its activations are recomputed in the backward pass instead of stored,
+    through non-reentrant `torch.utils.checkpoint`; a stage draws no random
+    numbers, so no generator state is stashed for the recompute."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(stage, x, use_reentrant=False,
+                                                 preserve_rng_state=False)
+    return stage(x)
+
+
 def run_stages(stages: nn.Sequential, x: torch.Tensor, remat: bool) -> torch.Tensor:
-    """Run `stages` in turn. With `remat` (model.remat, `nn/core.py:maybe_remat`)
-    each stage's activations are recomputed in the backward pass instead of
-    stored, through non-reentrant `torch.utils.checkpoint`; a stage draws no
-    random numbers, so no generator state is stashed for the recompute."""
+    """Run `stages` in turn, each through `run_stage`."""
     for stage in stages:
-        if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(stage, x, use_reentrant=False,
-                                                  preserve_rng_state=False)
-        else:
-            x = stage(x)
+        x = run_stage(stage, x, remat)
     return x
 
 

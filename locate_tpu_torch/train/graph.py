@@ -21,8 +21,10 @@ latents, as an eager step would. A failed capture or replay raises; there
 is no eager fallback.
 
 `SampleGraph` captures `io/sampling.py:generate_samples`'s device work
-(the latent draw, the generator's forward, the uint8 conversion) and
-copies the images to the host after each replay.
+(the latent draw, the generator's forward, the uint8 conversion; with
+`truncation_psi` the style family's truncated forward around a w_avg
+estimated once, before the capture) and copies the images to the host
+after each replay.
 """
 
 from __future__ import annotations
@@ -146,22 +148,32 @@ class StepGraphs:
 
 
 class SampleGraph:
-    """`generate_samples(model, gen, count)` as one graph: each call
-    replays the latent draw from `gen` (registered with the graph, so it
-    moves on as an eager draw does), the forward and the uint8
-    conversion, and copies the images to the host."""
+    """`generate_samples(model, gen, count, truncation_psi=...)` as one
+    graph: each call replays the latent draw from `gen` (registered with
+    the graph, so it moves on as an eager draw does), the forward and the
+    uint8 conversion, and copies the images to the host. With
+    `truncation_psi` the truncation centre (`truncation_centre`) is drawn
+    from `gen` once, here, before the capture: the first replay equals
+    `generate_samples` from the same seed, and later replays keep that
+    centre (`self.w_avg`)."""
 
-    def __init__(self, model, gen: torch.Generator, count: int):
-        from locate_tpu_torch.io.sampling import sample_latents, to_uint8_tensor
+    def __init__(self, model, gen: torch.Generator, count: int, truncation_psi: float = 0.0):
+        from locate_tpu_torch.io.sampling import (check_truncation_psi, sample_latents,
+                                                  to_uint8_tensor, truncation_centre)
+        from locate_tpu_torch.models.style_generator import apply_truncated
 
         cfg = model.config
-        labels = None
+        check_truncation_psi(model, truncation_psi)
+        self.w_avg = w_avg = truncation_centre(model, gen) if truncation_psi > 0.0 else None
 
         def run():
             with torch.inference_mode():
                 z = sample_latents(gen, count, cfg.latent_dim)
                 lab = (torch.arange(count, device=gen.device) % cfg.num_classes
-                       if cfg.num_classes else labels)
+                       if cfg.num_classes else None)
+                if truncation_psi > 0.0:
+                    return to_uint8_tensor(apply_truncated(model, z, lab, psi=truncation_psi,
+                                                           w_avg=w_avg))
                 return to_uint8_tensor(model(z, lab))
 
         state = gen.get_state()

@@ -12,13 +12,13 @@ three flavors (`train.fused_step`, `train.d_steps`):
   gradients taken from it at the current parameters (two backward passes
   through one graph, `retain_graph`), both updates applied.
 
-Every option of the JAX step outside the style family runs: the seven
-loss families, top-k G training, ADA (augmentation of what D sees, G's
+Every option of the JAX step runs: the seven loss families, top-k G training, ADA (augmentation of what D sees, G's
 gradient going through it, and the controller of p), bCR, LeCam, the
 drift penalty, R1 (with `r1_batch_fraction`'s leading rows), R2, WGAN-GP,
 path-length and orthogonal regularization, feature matching,
 `share_latents`, `grad_accum`, the LR schedules, the bf16 EMA and
-`ema_rampup`. Lazy R1 and R2 fire when `step % r1_interval == 0`, lazy PL
+`ema_rampup`, and the style family's training forward (`g_forward`, the
+JAX step's `g_apply_train`): style mixing and random noise. Lazy R1 and R2 fire when `step % r1_interval == 0`, lazy PL
 when `step % pl_interval == 0`: host flags (`lazy_flags`), one graph
 variant each in `train/graph.py`; everything else decides on the card.
 
@@ -38,10 +38,13 @@ capture it. Every random draw comes from the state's generator unless the
 caller passes it, which is how tests feed JAX's threefry draws
 (`prepare`'s names: `z_d`, `labels_d`, `z_g`, `labels_g`; `aug_real.*`,
 `aug_fake.*`, `aug_g.*` and `bcr_real.*`, `bcr_fake.*`, each an
-`ops/augment.py` parameter set; `gp_eps`; `pl_noise`; `ema_bits`; under
-d_steps the critics' draws carry a leading [c] axis; the fused flavor's
-one latent batch is `z_d`, `labels_d`, its augmentation of fakes
-`aug_fake.*`).
+`ops/augment.py` parameter set; `gp_eps`; `pl_noise`; `ema_bits`; the
+style family's `mix_z2_d`, `mix_cut_d`, `g_noise_d.<stage>.<conv>` for the
+G forward of D's update and `mix_z2_g`, `mix_cut_g`, `g_noise_g.*` for
+G's; under d_steps the critics' draws carry a leading [c] axis; the fused
+flavor's one latent batch is `z_d`, `labels_d`, its augmentation of fakes
+`aug_fake.*`, its one G forward's style draws the `_d` ones, which
+`share_latents` also gives G's forward, as JAX reuses the forward's key).
 
 `make_multi_step(step, k)` is the counterpart of the JAX package's: k
 steps a call over batches with a leading [k] axis, the metrics reduced as
@@ -58,7 +61,7 @@ import torch
 import torch.utils.checkpoint
 
 from locate_tpu_torch.config import Config
-from locate_tpu_torch.models.gan import GAN
+from locate_tpu_torch.models.gan import GAN, shared_twin
 from locate_tpu_torch.objectives.ema import ema_bits, ema_update, rampup_decay
 from locate_tpu_torch.objectives.losses import (RELATIVISTIC, g_per_sample, get_losses,
                                                 gradient_penalty, lecam_penalty,
@@ -78,14 +81,8 @@ def plain_twin(module: torch.nn.Module) -> torch.nn.Module:
     (use_pallas=False) on `module`'s own parameter tensors: gradients
     through it reach the same leaves, and an update of `module` is an
     update of the twin."""
-    device = next(module.parameters()).device
-    gen = torch.Generator(device=device)
-    twin = type(module)(dataclasses.replace(module.config, use_pallas=False),
-                        module.compute_dtype, gen)
-    for name, p in module.named_parameters():
-        owner, _, attr = name.rpartition(".")
-        twin.get_submodule(owner)._parameters[attr] = p
-    return twin
+    return shared_twin(module, dataclasses.replace(module.config, use_pallas=False),
+                       module.compute_dtype)
 
 
 def _group(draws: Draws, prefix: str) -> Dict[str, torch.Tensor]:
@@ -104,8 +101,8 @@ def _row(draws: Draws, i: int) -> Draws:
 
 def _critic_draw(name: str) -> bool:
     """Whether a draw is one critic update's (stacked [c] under d_steps)."""
-    return name in ("z_d", "labels_d", "gp_eps") or name.startswith(
-        ("aug_real.", "aug_fake.", "bcr_real.", "bcr_fake."))
+    return name in ("z_d", "labels_d", "gp_eps", "mix_z2_d", "mix_cut_d") or name.startswith(
+        ("aug_real.", "aug_fake.", "bcr_real.", "bcr_fake.", "g_noise_d."))
 
 
 class TrainStep:
@@ -127,6 +124,12 @@ class TrainStep:
         self.ada_ops = parse_ops(tcfg.augment_ops)
         self.bcr_ops = parse_ops(tcfg.bcr_ops)
         self.bf16_ema = tcfg.ema_decay > 0 and tcfg.ema_dtype == "bfloat16"
+        style = gan.config.arch == "style"
+        self.style_mixing = style and gan.config.style.mixing_prob > 0.0
+        self.style_noise = style and gan.config.style.noise == "random"
+        # the style draws of G's own forward: JAX folds them off the
+        # forward's latent key, which share_latents makes D's
+        self.g_side = "d" if self.flavor == "alternating" and tcfg.share_latents else "g"
         use_pallas = gan.config.use_pallas
         any_gp = tcfg.r1_gamma > 0.0 or tcfg.gp_gamma > 0.0 or tcfg.r2_gamma > 0.0
         self._d_twin = (plain_twin(gan.discriminator) if any_gp and use_pallas
@@ -163,6 +166,52 @@ class TrainStep:
         return self._d_twin(x, labels)
 
     # ---------------------------------------------------------------- draws
+    def _style_draws(self, rng: torch.Generator, n: int, side: str, given: Draws) -> Draws:
+        """The style family's draws of one G forward (`side` "d" or "g"):
+        style mixing's second latent `mix_z2_<side>` and per-sample
+        crossover `mix_cut_<side>` (with probability mixing_prob uniform in
+        [1, num_ws - 1], else num_ws: no mixing), random noise's
+        `g_noise_<side>.<stage>.<conv>` planes; those in `given` as given."""
+        gan, out = self.gan, {}
+
+        def take(name, draw):
+            out[name] = given[name] if name in given else draw()
+
+        if self.style_mixing:
+            num_ws = gan.num_ws
+
+            def cut():
+                mix = torch.rand((n,), generator=rng, device=rng.device) < \
+                    gan.config.style.mixing_prob
+                layer = torch.randint(1, num_ws, (n,), generator=rng, device=rng.device)
+                return torch.where(mix, layer, num_ws).to(torch.int32)
+
+            take(f"mix_z2_{side}", lambda: gan.sample_latents(rng, n))
+            take(f"mix_cut_{side}", cut)
+        if self.style_noise:
+            for i, shapes in enumerate(gan.generator.noise_shapes(n)):
+                for j, shape in enumerate(shapes):
+                    take(f"g_noise_{side}.{i}.{j}",
+                         lambda shape=shape: torch.randn(shape, generator=rng, device=rng.device))
+        return out
+
+    def g_forward(self, z: torch.Tensor, labels: Optional[torch.Tensor], draws: Draws,
+                  side: str) -> torch.Tensor:
+        """G's training forward (`g_apply_train`): the style family's mixing
+        and random noise on the `side` draws where configured, else the
+        plain forward."""
+        G = self.gan.generator
+        if not (self.style_mixing or self.style_noise):
+            return G(z, labels)
+        noise = None
+        if self.style_noise:
+            noise = [[draws[f"g_noise_{side}.{i}.{j}"] for j in range(len(shapes))]
+                     for i, shapes in enumerate(G.noise_shapes(z.shape[0]))]
+        if self.style_mixing:
+            return G.apply_mixed(z, draws[f"mix_z2_{side}"], draws[f"mix_cut_{side}"], labels,
+                                 noise=noise)
+        return G(z, labels, noise=noise)
+
     def _critic_draws(self, state: TrainState, shape, given: Draws) -> Draws:
         """One D update's draws for real images of NHWC `shape`: latents and
         labels (and, in the alternating flavor, G's right after them),
@@ -180,12 +229,14 @@ class TrainStep:
 
         take("z_d", lambda: gan.sample_latents(rng, n))
         take("labels_d", lambda: gan.sample_labels(rng, n))
+        out.update(self._style_draws(rng, n, "d", given))
         if self.flavor == "alternating":
             if t.share_latents:
                 out["z_g"], out["labels_g"] = out["z_d"], out["labels_d"]
             else:
                 take("z_g", lambda: gan.sample_latents(rng, n))
                 take("labels_g", lambda: gan.sample_labels(rng, n))
+                out.update(self._style_draws(rng, n, "g", given))
         if self.aug_on:
             take_aug("aug_real", state.ada_p, self.ada_ops)
             take_aug("aug_fake", state.ada_p, self.ada_ops)
@@ -212,6 +263,7 @@ class TrainStep:
         if self.flavor == "multi_critic":
             take("z_g", lambda: gan.sample_latents(rng, n))
             take("labels_g", lambda: gan.sample_labels(rng, n))
+            out.update(self._style_draws(rng, n, "g", given))
         if self.aug_on and self.flavor != "fused":
             out.update(_flat("aug_g", _group(given, "aug_g")
                              or draw_params(rng, gshape, state.ada_p, self.ada_ops)))
@@ -370,7 +422,7 @@ class TrainStep:
         fm = torch.zeros((), device=z.device)
         fm_aux = {}
         if fake_logits is None:
-            fake = gan.generator(z, labels_g)
+            fake = self.g_forward(z, labels_g, draws, self.g_side)
             if self.aug_on:
                 fake = augment(fake, aug_params, self.ada_ops)
             if t.feature_matching > 0.0:
@@ -415,7 +467,7 @@ class TrainStep:
         d_norm = None
         if self.flavor == "fused":
             z, lab = draws["z_d"], draws.get("labels_d")
-            fake = self._augmented(gan.generator(z, lab), draws, "aug_fake")
+            fake = self._augmented(self.g_forward(z, lab, draws, "d"), draws, "aug_fake")
             real_in = self._augmented(real, draws, "aug_real")
             d_loss, d_aux, d_grads, logits = self.d_loss_and_grads(
                 state, real_in, labels, fake, lab, draws, r1, keep_graph=True)
@@ -455,7 +507,7 @@ class TrainStep:
         """One D update on (real, G(z_d)) with G's forward under no_grad;
         returns D's loss, aux metrics, gradient and input reals."""
         with torch.no_grad():
-            fake = self.gan.generator(draws["z_d"], draws.get("labels_d"))
+            fake = self.g_forward(draws["z_d"], draws.get("labels_d"), draws, "d")
             fake_in = self._augmented(fake, draws, "aug_fake")
             real_in = self._augmented(real, draws, "aug_real")
         d_loss, d_aux, d_grads, _ = self.d_loss_and_grads(

@@ -413,3 +413,51 @@ def test_worst_gate_call_reads_the_held_rows(smoke):
     worst = smoke.worst_call(rows)
     assert worst == dict(value=2.0, output="dx", shape=(2, 16, 64), dtype="bfloat16")
     assert smoke.worst_call([]) is None
+
+
+def test_style_sn_and_skip_phases_are_the_guides(smoke):
+    """Phases 32-35 drive what docs/GUIDE.md documents: the style recipe
+    (celeba_64, mapping 8, PL 2, R1 0.1, batch 64, bf16), the StyleGAN2
+    variant with every style option, lsun_bedroom_128 with spectral norm
+    and with the skip head, and `project` in the z and the w+ space."""
+    from locate_tpu_torch.config import get_config
+
+    recipe = smoke.style_config(**smoke.STYLE_TRAIN)
+    m, t = recipe.model, recipe.train
+    assert (m.arch, m.style.mapping_layers, m.g_rgb, m.resolution) == ("style", 8, "last", 64)
+    assert (t.pl_gamma, t.r1_gamma, t.global_batch, t.compute_dtype) == (2.0, 0.1, 64,
+                                                                        "bfloat16")
+    assert recipe.use_pallas and m.stage_channels() == (512, 256, 128, 64, 64)
+    v2 = smoke.style_config(**smoke.STYLEGAN2).model
+    assert (v2.g_rgb, v2.style.mixing_prob, v2.style.noise) == ("skip", 0.9, "random")
+    sn, skip = (get_config("lsun_bedroom_128", o).model for o in smoke.SN_SKIP.values())
+    assert sn.spectral_norm and sn.g_rgb == "last" and skip.g_rgb == "skip"
+    assert [(p[1], p[3]) for p in smoke.PROJECTIONS] == [("lsun_bedroom_128", "z"),
+                                                          ("celeba_64", "w+")]
+    assert smoke.PROJECT_IMAGES == 16 and smoke.PROJECT_STEPS >= 24
+    for name in ("phase_style_serving", "phase_style_train", "phase_sn_and_skip",
+                 "phase_project"):
+        assert callable(getattr(smoke, name))
+
+
+def test_kernels_line_gains_the_style_columns(smoke):
+    """Every entry of the kernels line gets its launches a style train step
+    and a style served forward; the line fails where a softmax gate kernel
+    never launched in the style step."""
+    names = list(smoke.counters())
+    out = [dict(name=k, launches=1) for k in names]
+    train = {k: (6 if k in smoke.SOFTMAX_GATE else 0) for k in names}
+    serve = {k: (3 if k in ("softmax_stats", "softmax_apply") else 0) for k in names}
+    smoke.launch_columns(out, {"launches_style_train": train, "launches_style_serve": serve})
+    smoke.check_style_launches(out)
+    assert {e["name"]: e["launches_style_train"] for e in out} == train
+    assert {e["name"]: e["launches_style_serve"] for e in out} == serve
+    out[3]["launches_style_train"] = 0  # softmax_bwd
+    with pytest.raises(smoke.SmokeFailure, match="softmax_bwd never launched"):
+        smoke.check_style_launches(out)
+
+
+def test_both_routes_are_required(smoke):
+    smoke.check_both_routes({"softmax_stats": {"mma": 2, "simt": 3}}, "style-serving")
+    with pytest.raises(smoke.SmokeFailure, match="want both"):
+        smoke.check_both_routes({"softmax_apply": {"mma": 0, "simt": 5}}, "style-serving")

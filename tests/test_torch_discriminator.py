@@ -127,9 +127,22 @@ def test_blocks_build_without_a_generator(tiny_config):
 
 
 def test_unported_discriminator_options_raise(tiny_config):
-    _, tcfg = model_configs(tiny_config, "plain")
-    with pytest.raises(NotImplementedError, match="spectral_norm"):
-        build_discriminator(dataclasses.replace(tcfg, spectral_norm=True), "float32", "cpu")
+    """`model.spectral_norm`, which used to raise, builds with the plain
+    D's state_dict keys and matches the JAX package's normalized D
+    (tests/test_torch_spectral.py holds its gradients)."""
+    jcfg, tcfg = model_configs(tiny_config, "plain")
+    jcfg = dataclasses.replace(jcfg, spectral_norm=True)
+    jd = jax_build_discriminator(jcfg)
+    params = randomize_zero_init(jd.init(jax.random.PRNGKey(0)), jax.random.PRNGKey(1))
+    model = build_discriminator(port_config(jcfg), "float32", "cpu")
+    assert set(model.state_dict()) == set(build_discriminator(tcfg, "float32", "cpu")
+                                          .state_dict())
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in as_state_dict(params).items()})
+    x = np.random.default_rng(2).uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax.jit(jd.apply)(params, jnp.asarray(x))),
+                               **TOL)
     # attention.kind="self" used to raise here: it builds and runs, with the
     # JAX pytree's names for its leaves
     model = build_discriminator(dataclasses.replace(

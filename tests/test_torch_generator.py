@@ -32,6 +32,7 @@ ATTN = dict(pos_features=4, bottleneck=2, gate_max=16.0)
 CASES = {
     "composed_classes": dict(use_pallas=False, num_classes=3, class_embed_dim=6),
     "pallas": dict(use_pallas=True),
+    "pallas_skip_rgb": dict(use_pallas=True, g_rgb="skip"),
 }
 _jax_runs = {}
 
@@ -140,10 +141,12 @@ def test_sample_cli_cpu(tmp_path, capsys):
     (dict(attention=tconfig.AttentionConfig(kind="self")), None),
 ])
 def test_unported_paths_raise(override, message):
-    """The paths still to port raise; `attention.kind="self"`, which used
-    to, builds and runs (message None): a self-attention layer per stage,
-    the identity at init, so the images are those of a generator without
-    attention."""
+    """Each of these used to raise. `model.arch="style"` and
+    `model.g_rgb="skip"` (`message` names the feature) now build the
+    JAX package's generator of that config and match its images on its
+    weights; `attention.kind="self"` (message None) builds and runs: a
+    self-attention layer per stage, the identity at init, so the images are
+    those of a generator without attention."""
     fields = {**BASE, "attention": tconfig.AttentionConfig(**ATTN), **override}
     z = np.random.default_rng(3).standard_normal((1, BASE["latent_dim"])).astype(np.float32)
     if message is None:
@@ -161,9 +164,13 @@ def test_unported_paths_raise(override, message):
             np.testing.assert_allclose(port_images(model, z), port_images(bare, z),
                                        rtol=1e-6, atol=1e-6)
         return
-    with pytest.raises(NotImplementedError, match=message):
-        model = build_generator(tconfig.ModelConfig(**fields), "float32", device="cpu")
-        port_images(model, z)
+    jcfg, tcfg = configs(**override)
+    assert message in (tcfg.arch, tcfg.g_rgb)
+    g = jax_build_generator(jcfg)
+    params = randomize_zero_init(g.init(jax.random.PRNGKey(0)), jax.random.PRNGKey(5))
+    model = build_generator(tcfg, "float32", device="cpu")
+    model.load_state_dict(params_from_jax(_flatten(jax.device_get(params))))
+    np.testing.assert_allclose(port_images(model, z), np.asarray(g.apply(params, z)), **TOL)
 
 
 def test_fused_stage_resolution_raises(monkeypatch):

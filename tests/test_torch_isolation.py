@@ -24,7 +24,9 @@ def test_import_loads_no_jax():
             "locate_tpu_torch.train.loop", "locate_tpu_torch.io.checkpoint",
             "locate_tpu_torch.utils.runlock", "locate_tpu_torch.utils.digest",
             "locate_tpu_torch.utils.metrics",
-            "locate_tpu_torch.utils.profiling"} <= set(port_modules())
+            "locate_tpu_torch.utils.profiling", "locate_tpu_torch.utils.jax_random",
+            "locate_tpu_torch.ops.spectral", "locate_tpu_torch.models.style_generator",
+            "locate_tpu_torch.io.projection"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {['locate_tpu_torch'] + port_modules()!r}:\n"

@@ -25,6 +25,7 @@ from locate_tpu_torch.train.step import make_train_step
 from torch_port_parity import as_state_dict, port_config, randomize_zero_init, rel_err
 
 ADA_TAG, BCR_TAG, GP_TAG, PL_TAG = 0x41444121, 0x424352, 0x47504750, 0x504C3132
+MIX_Z2_TAG, MIX_CUT_TAG, NOISE_TAG = 0x4D5832, 0x4D5833, 0x4E5A31
 
 
 def aug_params(key, shape, p, ops):
@@ -91,6 +92,31 @@ def _flat(prefix, params):
     return {f"{prefix}.{k}": v for k, v in params.items()}
 
 
+def style_draws(jcfg, jgan, key, n, side):
+    """The style family's draws of the G forward on the latent key `key`
+    (`g_apply_train`): mixing's second latent and crossover, random
+    noise's planes a stage and conv, as the port's `<name>_<side>` draws."""
+    m, out = jcfg.model, {}
+    if m.arch != "style":
+        return out
+    if m.style.mixing_prob > 0.0:
+        num_ws = jgan.generator.num_ws
+        out[f"mix_z2_{side}"] = np.asarray(
+            jgan.sample_latents(jax.random.fold_in(key, MIX_Z2_TAG), n))
+        ku, kl = jax.random.split(jax.random.fold_in(key, MIX_CUT_TAG))
+        mix = jax.random.uniform(ku, (n,)) < m.style.mixing_prob
+        layer = jax.random.randint(kl, (n,), 1, num_ws)
+        out[f"mix_cut_{side}"] = np.asarray(jnp.where(mix, layer, num_ws).astype(jnp.int32))
+    if m.style.noise == "random":
+        kn = jax.random.fold_in(key, NOISE_TAG)
+        for i, r in enumerate(m.stage_resolutions()):
+            ki = jax.random.fold_in(kn, i)
+            for j in range(m.blocks_per_stage):
+                out[f"g_noise_{side}.{i}.{j}"] = np.asarray(jax.random.normal(
+                    jax.random.fold_in(ki, j), (n, r, r, 1), jnp.float32))
+    return out
+
+
 def _critic(jgan, tcfg, rng, n, real_shape, fake_shape, ada_p, zl, aug_count):
     """One D update's draws: latents and labels from the keys `zl`, ADA's
     (from `aug_keys(rng, aug_count)`), bCR's and GP's from `rng`."""
@@ -129,14 +155,17 @@ def jax_draws(jcfg, jgan, jstate, pstate, real_shape):
     if t.fused_step:
         k_ema, k_z, k_l = jax.random.split(rng, 3)
         out = _critic(jgan, t, rng, n, real_shape, fake_shape, ada_p, (k_z, k_l), 2)
+        out.update(style_draws(jcfg, jgan, k_z, n, "d"))
     elif t.d_steps > 1:
         k_ema, k_zg, k_lg = jax.random.split(rng, 3)
         per = []
         for i in range(t.d_steps):
             ri = jax.random.fold_in(rng, i)
             zl = (jax.random.fold_in(ri, 1), jax.random.fold_in(ri, 2))
-            per.append(_critic(jgan, t, ri, n, real_shape, fake_shape, ada_p, zl, 3))
+            per.append({**_critic(jgan, t, ri, n, real_shape, fake_shape, ada_p, zl, 3),
+                        **style_draws(jcfg, jgan, zl[0], n, "d")})
         out = {k: np.stack([d[k] for d in per]) for k in per[0]}
+        out.update(style_draws(jcfg, jgan, k_zg, n, "g"))
         out["z_g"] = np.asarray(jgan.sample_latents(k_zg, n))
         lab = jgan.sample_labels(k_lg, n)
         if lab is not None:
@@ -149,6 +178,9 @@ def jax_draws(jcfg, jgan, jstate, pstate, real_shape):
         if t.share_latents:
             k_zg, k_lg = k_zd, k_ld
         out = _critic(jgan, t, rng, n, real_shape, fake_shape, ada_p, (k_zd, k_ld), 3)
+        out.update(style_draws(jcfg, jgan, k_zd, n, "d"))
+        if not t.share_latents:  # else G's forward takes the "d" draws
+            out.update(style_draws(jcfg, jgan, k_zg, n, "g"))
         out["z_g"] = np.asarray(jgan.sample_latents(k_zg, n))
         lab = jgan.sample_labels(k_lg, n)
         if lab is not None:
@@ -257,16 +289,20 @@ def compare_params(pstate, jstate, steps, lr=2e-4, tol=1e-3, d_steps=1, loss="no
 
 
 def run_parity(jcfg, tcfg, steps=2, use_pallas=None, rtol=2e-4, atol=1e-5, n=BATCH,
-               param_tol=1e-3, scale=0.2):
+               param_tol=1e-3, scale=0.2, state_fn=None, record=None):
     """`steps` steps of the jitted JAX step and of the port's from one
     state with the same draws: every metric within rtol (atol; the mean
     logits under a shift-invariant loss also within the Adam moves of D's
     head bias, whose gradient is rounding noise), params as
     `compare_params` says, the option tensors (ADA's p, the path-length
-    mean, LeCam's trackers) within rtol. Returns the last metrics of
-    both, and both states."""
+    mean, LeCam's trackers) within rtol. `state_fn`, when given, maps
+    the fresh JAX state to the start state; `record`, a list when given,
+    gets each step's draws. Returns the last metrics of both, and both
+    states."""
     jgan = jax_build_gan(jcfg)
     jstate = jax_state(jcfg, jgan, scale)
+    if state_fn is not None:
+        jstate = state_fn(jstate)
     jstep = jax.jit(jax_make_train_step(jcfg, jgan))
     if use_pallas is not None:
         tcfg = dataclasses.replace(tcfg, use_pallas=use_pallas)
@@ -278,6 +314,8 @@ def run_parity(jcfg, tcfg, steps=2, use_pallas=None, rtol=2e-4, atol=1e-5, n=BAT
     real_shape = b["image"].shape[-4:]
     for i in range(steps):
         draws = jax_draws(jcfg, jgan, jstate, pstate, real_shape)
+        if record is not None:
+            record.append(draws)
         jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
         pstate, pm = step(pstate, tb, **draws)
         assert set(pm) == set(jm), (sorted(pm), sorted(jm))
