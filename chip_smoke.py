@@ -19,9 +19,11 @@ the sigmoid gate's three kernels; then lsun_bedroom_128 with
 model.attention.kind=self, serving with all six self-attention layers and
 training with five, the main path of the three flash kernels; then the
 lsun_bedroom_128 step fed through the input path; the train loop of
-lsun_bedroom_128 with checkpoints, a SIGKILL and resume, export and
-sampling from a checkpoint; last, three more presets and six recipes of
-the train step's options. Phases, one line each:
+lsun_bedroom_128 with checkpoints, an in-training eval, a SIGKILL and
+resume, export and sampling from a checkpoint; three more presets and six
+recipes of the train step's options; the style family, spectral norm and
+projection; last, the eval of the loop's checkpoint. Phases, one line
+each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
   2. build: csrc/fused_attention.cu, csrc/fused_stage.cu and
@@ -261,13 +263,16 @@ the train step's options. Phases, one line each:
  29. the train loop (`python -m locate_tpu_torch train` in child
      processes): lsun_bedroom_128 as shipped at full width, batch 64, bf16,
      synthetic data, 8 steps a call (a CUDA graph), 32 steps, an async
-     checkpoint every 8; run A twice (where the two differ, cuDNN is made
-     deterministic for the comparison below, and the phase says so); run B
-     SIGKILLed as soon as checkpoints/16 is complete and resumed to 32: its
-     final checkpoint (every state tensor, the step, the generator), its
-     sample grid and its metrics.jsonl (one monotone trajectory, every
-     record but the timing fields) equal A's; then the loop in this process
-     (no sample grid) with the counters from 0 (each of the step's six kernels
+     checkpoint every 8, an in-training eval (rFID, rKID, keep_best) every
+     16; the children hold cuDNN to deterministic algorithms (two
+     unheld runs differed in every earlier run of this phase); run A;
+     run B SIGKILLed as soon as checkpoints/16 is complete (after step
+     16's eval) and resumed to 32: its final checkpoint (every state
+     tensor, the step, the generator), its sample grid, its metrics.jsonl
+     (one monotone trajectory, every record but the timing fields, the
+     eval records included), its best.json and best checkpoint equal A's;
+     then the loop in this process (no sample grid, no eval) with the
+     counters from 0 (each of the step's six kernels
      launched: the softmax gate's four, stage_conv and stage_conv_bwd, and
      no other), the device's idle share and top kernels over one logged
      window (steps 25-32, an async save and a log read in it), its logged
@@ -322,15 +327,25 @@ the train step's options. Phases, one line each:
      loss falls, the gate kernels launch; one eager step's gate backward
      calls held to the plain backward; 4 eager steps against 4 graph
      replays, bitwise;
- 36. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
+ 36. the eval (`eval` through the CLI) of 29's checkpoint of run A, 1024
+     samples a side, with SWD and PRDC (k 5): rFID, KID, swd_avg, PRDC, the
+     seconds of generation, features and metrics, images/sec; the gate
+     kernels' launches, those of its 32 served forwards; the rFID of the
+     same uint8 real and fake sets with the card's features (f32, TF32
+     off) and the CPU's within 1e-3 relative; `compare` of a folder
+     against itself (fid under 1e-3, swd_avg 0); an InceptionV3 extractor
+     with random weights from an `.npz` written from a seed: its
+     images/sec at batch 64, its card features within rtol 2e-3 / atol
+     2e-4 of the CPU's;
+ 37. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
      flash kernels, the five routed stage kernels, softmax_stats,
      softmax_apply, softmax_bwd and sigmoid_bwd with their mma-route
      launches and the simt route's time of the same launches beside their
      own; stage_softmax_apply_pool, off ffhq_512's path under the profile,
      with the launches of 13's every-stage-fused step; each with its
-     launches in 29's loop, a step of 33's style recipe and a forward of
-     32's serving);
- 37. the card's name and power limit again, then the last line
+     launches in 29's loop, a step of 33's style recipe, a forward of 32's
+     serving and 36's eval);
+ 38. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -346,6 +361,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -3844,7 +3860,8 @@ LOOP_ARGS = ["lsun_bedroom_128", "use_pallas=true", "data.dataset=synthetic",
              f"train.global_batch={BATCH}", "train.compute_dtype=bfloat16",
              f"train.steps_per_call={LOOP_SPC}", f"train.total_steps={LOOP_STEPS}",
              f"train.log_every={LOOP_SPC}", f"train.checkpoint_every={LOOP_SPC}",
-             f"train.sample_every={LOOP_STEPS}", "train.async_checkpoint=true"]
+             f"train.sample_every={LOOP_STEPS}", "train.async_checkpoint=true",
+             f"train.eval_every={2 * LOOP_SPC}"]
 LOOP_KERNELS = ("softmax_stats", "softmax_apply", "softmax_csum", "softmax_bwd",
                 "stage_conv", "stage_conv_bwd")
 # a child that trains through the CLI with cuDNN held to deterministic
@@ -3915,7 +3932,25 @@ def run_differences(a, b) -> dict:
                 out[f"step{x['step']}.{k}"] = [x[k], y.get(k)]
     if [r["step"] for r in ra] != [r["step"] for r in rb]:
         out["logged_steps"] = [[r["step"] for r in ra], [r["step"] for r in rb]]
+    best = [os.path.join(run, "best.json") for run in (a, b)]
+    if not all(os.path.isfile(p) for p in best):
+        out["best_json"] = "missing"
+        return out
+    with open(best[0]) as fa, open(best[1]) as fb:
+        ba, bb = json.load(fa), json.load(fb)
+    if ba != bb:
+        out["best_json"] = [ba, bb]
+    pa, pb = (torch.load(os.path.join(run, "checkpoints_best", str(ba["step"]), "state.pt"),
+                         map_location="cpu", weights_only=True) for run in (a, b))
+    for k, t in pa["tensors"].items():
+        if not torch.equal(t, pb["tensors"][k]):
+            out[f"best.{k}"] = float((t.double() - pb["tensors"][k].double()).abs().max())
     return out
+
+
+def train_records(records):
+    """The step records of a metrics.jsonl, its eval records left out."""
+    return [r for r in records if "eval_rfid" not in r]
 
 
 def killed_and_resumed(workdir, deterministic):
@@ -4009,23 +4044,25 @@ def save_cost(state):
 
 
 def phase_train_loop():
-    """Phase 29: the train loop of lsun_bedroom_128 at full width (LOOP_ARGS)
-    in child processes through `python -m locate_tpu_torch train`: run A
-    twice (if they differ, cuDNN is made deterministic for A and B, and
-    the run says so), its logged images/sec the loop's rate; run B
-    SIGKILLed as soon as checkpoints/16 is complete and resumed to the
-    end: its final checkpoint (every tensor, step, generator), sample grid
-    and metrics.jsonl (one monotone trajectory; every record but its
-    timing fields) equal A's. The loop's rate is run A's over its last R1
-    period (steps 17-32, R1 at the first of them: two logged calls at
-    spc 8). In this process: the loop once more, with the counters from 0
+    """Phase 29: the train loop of lsun_bedroom_128 at full width (LOOP_ARGS,
+    an in-training eval every 16 steps) in child processes through
+    `python -m locate_tpu_torch train` with cuDNN deterministic: run A,
+    its logged images/sec the loop's rate (the eval's time left out);
+    run B SIGKILLed as soon as checkpoints/16 is complete and resumed to
+    the end: its final checkpoint (every tensor, step, generator), sample
+    grid, metrics.jsonl (one monotone trajectory; every record but its
+    timing fields), best.json and best checkpoint equal A's. The loop's
+    rate is run A's over its last R1 period (steps 17-32, R1 at the first
+    of them: two logged calls at spc 8). In this process: the loop once
+    more, without the eval, with the counters from 0
     (every kernel of the step launched) and the device's idle share over
     that period; an async save's cost on the step's stream; `bench 64
     20`'s fixed-batch rate at spc=8 and the loop's recipe on a fixed batch
     beside the loop's rate.
     Then `export` of A's checkpoint: `sample --generator` on the export
-    and `sample --checkpoint` on A write the same PNG bytes."""
-    import shutil
+    and `sample --checkpoint` on A write the same PNG bytes. Returns (its
+    line, the loop's launches, the phase's directory: run A's checkpoint
+    for phase 36, which removes it)."""
     import tempfile
 
     from locate_tpu_torch import cli
@@ -4033,34 +4070,35 @@ def phase_train_loop():
     from locate_tpu_torch.train.loop import train
 
     scratch = tempfile.mkdtemp(prefix="smoke_loop_")
-    run_a, run_a2, run_b = (os.path.join(scratch, n) for n in ("a", "a2", "b"))
+    run_a, run_b = (os.path.join(scratch, n) for n in ("a", "b"))
     t0 = time.perf_counter()
-    train_child(run_a, False)
+    train_child(run_a, True)
     child_seconds = time.perf_counter() - t0
-    train_child(run_a2, False)
-    repeat = run_differences(run_a, run_a2)
-    deterministic = bool(repeat)
-    if deterministic:  # cuDNN picked algorithms that do not repeat across processes
-        shutil.rmtree(run_a)
-        train_child(run_a, True)
-    shutil.rmtree(run_a2)
-    killed_at, resumed_from = killed_and_resumed(run_b, deterministic)
+    killed_at, resumed_from = killed_and_resumed(run_b, True)
     check(resumed_from >= 2 * LOOP_SPC, f"run B resumed from step {resumed_from}")
-    steps_b = [r["step"] for r in loop_records(run_b)]
+    all_b = loop_records(run_b)
+    steps_b = [r["step"] for r in train_records(all_b)]
     check(steps_b == sorted(set(steps_b)) == list(range(LOOP_SPC, LOOP_STEPS + 1, LOOP_SPC)),
           f"run B's metrics.jsonl steps {steps_b}")
+    evals_b = [r["step"] for r in all_b if "eval_rfid" in r]
+    check(evals_b == list(range(2 * LOOP_SPC, LOOP_STEPS + 1, 2 * LOOP_SPC)),
+          f"run B's eval records at steps {evals_b}")
     diff = run_differences(run_a, run_b)
     check(not diff, f"the killed and resumed run differs from the uninterrupted one: {diff}")
-    logged = loop_records(run_a)
-    check(all(math.isfinite(v) for r in logged for v in r.values() if v is not None)
-          and all(v is not None for r in logged for v in r.values()),
-          f"run A logged non-finite metrics: {logged}")
+    all_a = loop_records(run_a)
+    check(all(math.isfinite(v) for r in all_a for v in r.values() if v is not None)
+          and all(v is not None for r in all_a for v in r.values()),
+          f"run A logged non-finite metrics: {all_a}")
+    logged, evals = train_records(all_a), [r for r in all_a if "eval_rfid" in r]
+    with open(os.path.join(run_a, "best.json")) as f:
+        best = json.load(f)
 
     # the loop in this process: its launches, one logged window's idle
     # share, its rate beside bench 64 20's
     cfg = dataclasses.replace(get_config(LOOP_ARGS[0], parse_cli_overrides(LOOP_ARGS[1:])),
                               workdir=os.path.join(scratch, "p"))
-    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, sample_every=0))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, sample_every=0,
+                                                             eval_every=0))
     period = cfg.train.r1_interval  # a whole R1 period, its R1 step at its start
     check(period % LOOP_SPC == 0 and LOOP_STEPS % period == 0,
           f"LOOP_STEPS {LOOP_STEPS} and spc {LOOP_SPC} do not tile R1's period {period}")
@@ -4096,10 +4134,10 @@ def phase_train_loop():
         same_png = fa.read() == fb.read()
     check(same_png, "sample --generator on the export and sample --checkpoint differ")
     release_memory()
-    shutil.rmtree(scratch)
     out = dict(config=" ".join(LOOP_ARGS), child_run_seconds=child_seconds,
-               uninterrupted_runs_repeat=not repeat, repeat_differences=repeat,
-               cudnn_deterministic=deterministic,
+               cudnn_deterministic=True,
+               evals_run_a=[{k: r[k] for k in ("step", "eval_rfid", "eval_rkid")}
+                            for r in evals], best_json=best,
                run_b=dict(complete_checkpoints_at_kill=killed_at, resumed_from=resumed_from,
                           equal_to_run_a=True),
                logged_images_per_sec_run_a=[r["images_per_sec"] for r in logged],
@@ -4109,7 +4147,136 @@ def phase_train_loop():
                logged_window=window_readings,
                async_save=cost, launches=launches, export_png_equals_checkpoint_png=same_png)
     say("train-loop", **out)
-    return out, launches
+    return out, launches, scratch
+
+
+EVAL_SAMPLES = 1024
+# served forwards of the eval at batch 64: evaluate_generator's, then swd_generator's
+EVAL_FORWARDS = 2 * -(-EVAL_SAMPLES // BATCH)
+EVAL_METRICS = ("fid", "kid", "swd_avg", "precision", "recall", "density", "coverage")
+# The card's and the CPU's random-conv features are both f32 sums (TF32
+# off) in other orders: a feature moves by about sqrt(2304) f32 ulps,
+# ~3e-6 of its size. rFID reads them through f64 moments and a matrix
+# square root, so the two devices' rFID may differ by a few 1e-6 of it;
+# 1e-3 leaves room for the square root of the near-singular covariances
+# (1024 features, 1024 samples) and is far below any rFID gap a user reads.
+RFID_DEVICE_RTOL = 1e-3
+COMPARE_IMAGES = 256
+INCEPTION_BATCH = 64
+INCEPTION_REPS = 5
+INCEPTION_CPU_IMAGES = 8
+
+
+def phase_eval(run_a):
+    """Phase 36: the eval of phase 29's run A checkpoint through the CLI
+    (`eval`, 1024 samples, SWD, PRDC k 5; the serving generator on the
+    gate kernels, the counters from 0: exactly 32 served forwards'
+    launches), the rFID of one fixed uint8 set with the card's features
+    against the CPU's, `compare` of a folder against itself, and an
+    InceptionV3 extractor with random weights (images/sec at batch 64,
+    card against CPU features). Returns the eval's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from locate_tpu_torch import cli
+    from locate_tpu_torch.config import get_config, parse_cli_overrides
+    from locate_tpu_torch.data.datasets import make_dataset
+    from locate_tpu_torch.io import fid
+    from locate_tpu_torch.io.inception import InceptionExtractor, random_archive
+    from locate_tpu_torch.io.sampling import serving_generator
+
+    args = [*LOOP_ARGS, f"workdir={run_a}"]
+    reset_counters()
+    t0 = time.perf_counter()
+    scores = run_cli(["eval", *args, f"--samples={EVAL_SAMPLES}", "--swd", "--prdc-k=5"])
+    eval_seconds = time.perf_counter() - t0
+    launches = read_counters()
+    want = expected(totals(LSUN_SERVE_PLAN), EVAL_FORWARDS)
+    check(launches == want, f"the eval launched {launches}; its {EVAL_FORWARDS} served "
+                            f"forwards launch {want}")
+    check(all(math.isfinite(scores[k]) for k in EVAL_METRICS), f"eval scores {scores}")
+    check(scores["n_fake"] == scores["n_real"] == EVAL_SAMPLES, f"eval counts {scores}")
+    sec = scores["seconds"]
+    rates = dict(generate=EVAL_SAMPLES / sec["generate"],
+                 features=2 * EVAL_SAMPLES / sec["features"],
+                 evaluate_generator=EVAL_SAMPLES / sum(sec[k] for k in
+                                                       ("generate", "features", "data",
+                                                        "metrics")),
+                 swd=EVAL_SAMPLES / sec["swd"], whole_command=EVAL_SAMPLES / eval_seconds)
+
+    # one fixed uint8 set: the checkpoint's fakes and the eval's reals
+    cfg = get_config(args[0], parse_cli_overrides(args[1:]))
+    gan, state = cli._restore(cfg, os.path.join(run_a, "checkpoints"), torch.device("cuda"))
+    model = serving_generator(gan, state)
+    del gan, state
+    fake = torch.cat(list(fid.generate_fakes(model, EVAL_SAMPLES, BATCH, 0))).cpu().numpy()
+    real = fid.real_examples(make_dataset(cfg.data), EVAL_SAMPLES, 0)
+    del model
+    release_memory()
+    fixed = {}
+    for dev in ("cuda", "cpu"):
+        ex = fid.RandomConvFeatures(device=dev)
+        t = time.perf_counter()
+        fr, ff = (fid.features_in_batches(x, ex, BATCH) for x in (real, fake))
+        fixed[dev] = dict(real=fr, fake=ff, seconds=time.perf_counter() - t,
+                          rfid=fid.frechet_distance(*fid.feature_stats(ff),
+                                                    *fid.feature_stats(fr)))
+    card, cpu = fixed["cuda"], fixed["cpu"]
+    feature_err = max(float(np.abs(card[s] - cpu[s]).max() / np.abs(cpu[s]).max())
+                      for s in ("real", "fake"))
+    rfid_rel = abs(card["rfid"] - cpu["rfid"]) / abs(cpu["rfid"])
+    check(rfid_rel <= RFID_DEVICE_RTOL,
+          f"rFID of one set: card {card['rfid']} against CPU {cpu['rfid']} ({rfid_rel:.3g})")
+
+    scratch = tempfile.mkdtemp(prefix="smoke_eval_")
+    folder = os.path.join(scratch, "real")
+    os.makedirs(folder)
+    for i, img in enumerate(real[:COMPARE_IMAGES]):
+        Image.fromarray(img).save(os.path.join(folder, f"im{i:04d}.png"))
+    same = run_cli(["compare", f"--a={folder}", f"--b={folder}", "--resolution=128",
+                    f"--samples={COMPARE_IMAGES}", "--swd"])
+    check(abs(same["fid"]) < 1e-3 and same["swd_avg"] == 0.0,
+          f"compare of a folder against itself: {same}")
+
+    path = random_archive(os.path.join(scratch, "inception.npz"), seed=5, variant="fid",
+                          fc_classes=1008)
+    inception = InceptionExtractor(path, device="cuda")
+    batch = real[:INCEPTION_BATCH]
+    inception(batch)  # cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(INCEPTION_REPS):
+        feats = inception(batch)
+    inception_rate = INCEPTION_REPS * INCEPTION_BATCH / (time.perf_counter() - t)
+    on_cpu = InceptionExtractor(path, device="cpu")(batch[:INCEPTION_CPU_IMAGES])
+    got = feats[:INCEPTION_CPU_IMAGES]
+    inception_err = float(np.abs(got - on_cpu).max())
+    check(feats.shape == (INCEPTION_BATCH, 2048) and np.isfinite(feats).all()
+          and np.allclose(got, on_cpu, rtol=2e-3, atol=2e-4),
+          f"Inception features card vs CPU: max |diff| {inception_err}")
+    w, b = inception.fc
+    is_mean, is_std = fid.inception_score(feats @ w + b, splits=4)
+    del inception
+    release_memory()
+    shutil.rmtree(scratch)
+    say("eval", config=" ".join(args[:-1]), samples=EVAL_SAMPLES,
+        **{k: scores[k] for k in EVAL_METRICS}, kid_subsets="10 of 512",
+        swd_levels={k: v for k, v in scores.items() if k.startswith("swd_")},
+        seconds=sec, command_seconds=eval_seconds, images_per_sec=rates,
+        launches_eval=launches,
+        fixed_set=dict(rfid_card=card["rfid"], rfid_cpu=cpu["rfid"], rfid_rel_diff=rfid_rel,
+                       tolerance=RFID_DEVICE_RTOL, feature_max_rel_err=feature_err,
+                       cli_rfid=scores["fid"],
+                       features_images_per_sec_card=2 * EVAL_SAMPLES / card["seconds"],
+                       features_images_per_sec_cpu=2 * EVAL_SAMPLES / cpu["seconds"]),
+        compare_same_folder={k: same[k] for k in ("fid", "kid", "swd_avg")},
+        inception=dict(images_per_sec_batch_64=inception_rate, max_abs_err_vs_cpu=inception_err,
+                       feature_scale=float(np.abs(on_cpu).max()), is_mean=is_mean,
+                       is_std=is_std, weights="random, default_rng(5)"))
+    return launches
 
 
 def cuobjdump_path() -> str:
@@ -5019,7 +5186,7 @@ def main() -> int:
 
     # the train loop: a SIGKILLed run resumed against an uninterrupted one,
     # export and sampling from the checkpoint
-    _, loop_launches = phase_train_loop()
+    _, loop_launches, loop_dir = phase_train_loop()
 
     # every option of the train step: three more presets at full width, six
     # recipes at lsun_bedroom_128's, and the fused step's bench line
@@ -5032,6 +5199,12 @@ def main() -> int:
     style_train = phase_style_train()
     phase_sn_and_skip()
     phase_project(fa)
+
+    # the eval of the loop's checkpoint, and the extractors on the card
+    eval_launches = phase_eval(os.path.join(loop_dir, "a"))
+    shutil.rmtree(loop_dir)
+    for kernel in ("softmax_stats", "softmax_apply"):
+        check(eval_launches[kernel] > 0, f"the eval never launched {kernel}")
 
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
                       gate_routes.get(k)) for k in KERNELS]
@@ -5047,7 +5220,8 @@ def main() -> int:
                          "launches_self_attention_train": self_launches,
                          "launches_train_loop": loop_launches,
                          "launches_style_train": style_train,
-                         "launches_style_serve": style_serve})
+                         "launches_style_serve": style_serve,
+                         "launches_eval": eval_launches})
     check_style_launches(out)
     for entry in out:
         check(entry["launches"] > 0, f"{entry['name']} never launched on its main path")

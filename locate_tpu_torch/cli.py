@@ -10,10 +10,12 @@
     python -m locate_tpu_torch pack lsun_bedroom_128 data.dataset=folder data.path=DIR --out=PACKED
     python -m locate_tpu_torch bench-input lsun_bedroom_128 data.dataset=packed data.path=PACKED
     python -m locate_tpu_torch lsun-export LMDB_DIR OUT_DIR [--limit N]
+    python -m locate_tpu_torch eval lsun_bedroom_128 [--checkpoint=DIR] [--samples=N] [--swd] [--prdc-k=K] [--extractor=PATH.npz] [--ref-stats=PATH.npz]
+    python -m locate_tpu_torch compare --a=PATH --b=PATH [--resolution=R] [--samples=N] [--swd] [--prdc-k=K]
 
-`train`, `export`, `bench`, `project` and the sampling commands run on the card;
-`--device=cpu` asks for the CPU. `info`, `pack`, `bench-input` and
-`lsun-export` are host work.
+`train`, `export`, `bench`, `project`, `eval`, `compare` and the sampling
+commands run on the card; `--device=cpu` asks for the CPU. `info`, `pack`,
+`bench-input` and `lsun-export` are host work.
 """
 
 from __future__ import annotations
@@ -819,10 +821,211 @@ def cmd_bench_input(argv: List[str]) -> int:
     return 0
 
 
+def cmd_eval(argv: List[str]) -> int:
+    """`eval PRESET [overrides] [--checkpoint DIR] [--device D] [flags]`:
+    FID / KID of the latest checkpoint's EMA generator against the
+    config's dataset (`io/fid.py:evaluate_generator`; rFID / rKID with the
+    default random-conv extractor, on the card unless `--device=cpu`).
+    The JSON line has `locate-tpu eval`'s keys, and `seconds`: the time
+    of generation, feature extraction, the real images and the metrics.
+
+      --samples=N            images a side (default 1024)
+      --extractor=PATH.npz   an extractor archive: `w0..wK` conv kernels,
+                             or InceptionV3 converted by
+                             scripts/convert_inception.py (true FID)
+      --ref-stats=PATH.npz   the real side's (mu, sigma), computed
+                             elsewhere (pytorch-fid's keys): no dataset
+                             is read, and KID is null
+      --stats-out=PATH.npz   write the generated side's (mu, sigma)
+      --real-stats-out=PATH.npz  write the real side's (mu, sigma)
+      --features-out=PATH.npz    write the raw feature matrices
+      --prdc-k=K             precision / recall / density / coverage at
+                             kNN size K (needs the dataset)
+      --per-class            conditional models: FID / KID a class and
+                             the worst and mean over classes
+      --inception-score[=S]  Inception Score over S splits (default 10);
+                             needs an Inception archive with its fc head
+      --swd                  sliced Wasserstein distance over Laplacian-
+                             pyramid patches (swd_<res> x1e3, swd_avg;
+                             needs the dataset)
+      --dp                   data-parallel eval: not ported yet
+    """
+    import numpy as np
+
+    from locate_tpu_torch.data.datasets import make_dataset
+    from locate_tpu_torch.device import resolve_device
+    from locate_tpu_torch.io.fid import (NpzFeatureExtractor, RandomConvFeatures,
+                                         evaluate_generator, load_stats, save_stats)
+    from locate_tpu_torch.io.sampling import serving_generator
+
+    preset = argv[0] if argv else "cifar10_32"
+    flags, bare = _split_args(argv[1:])
+    cfg = get_config(preset, parse_cli_overrides(bare))
+    if flags.get("dp"):
+        raise SystemExit("--dp: data-parallel eval (sharded generation and feature "
+                         "extraction) waits for the parallel slice of the port "
+                         "(ROADMAP.md Queue 1 item 9)")
+    ref_stats_path = _str_flag(flags, "ref-stats")
+    stats_out = _str_flag(flags, "stats-out")
+    real_stats_out = _str_flag(flags, "real-stats-out")
+    features_out = _str_flag(flags, "features-out")
+    if real_stats_out and ref_stats_path:
+        raise SystemExit(
+            "--real-stats-out needs the dataset path (it computes the real "
+            "side); drop --ref-stats"
+        )
+    if flags.get("per-class"):
+        if not cfg.model.num_classes:
+            raise SystemExit("--per-class needs a conditional model "
+                             "(model.num_classes > 0)")
+        if ref_stats_path:
+            raise SystemExit("--per-class needs the dataset, not --ref-stats")
+    if flags.get("swd") and ref_stats_path:
+        raise SystemExit("--swd compares raw images — it needs the "
+                         "dataset, not --ref-stats")
+    n_samples = int(_str_flag(flags, "samples", "1024"))
+    prdc_k = _str_flag(flags, "prdc-k")
+    is_flag = flags.get("inception-score")
+    device = resolve_device(_str_flag(flags, "device"))
+    ckpt_dir = _str_flag(flags, "checkpoint") or os.path.join(cfg.workdir, "checkpoints")
+    gan, state = _restore(cfg, ckpt_dir, device)
+    model, step = serving_generator(gan, state), state.step
+    del gan, state
+    extractor_path = _str_flag(flags, "extractor")
+    extractor = (NpzFeatureExtractor(extractor_path, device=device) if extractor_path
+                 else RandomConvFeatures(device=device))
+    dataset = None if ref_stats_path else make_dataset(cfg.data)
+    arrays: dict = {}
+    seconds: dict = {}
+    result = evaluate_generator(
+        model, dataset, n_samples=n_samples, extractor=extractor,
+        ref_stats=load_stats(ref_stats_path) if ref_stats_path else None,
+        out=arrays if (stats_out or real_stats_out or features_out) else None,
+        prdc_k=int(prdc_k) if prdc_k else None,
+        is_splits=(10 if is_flag is True else int(is_flag)) if is_flag else None,
+        seconds=seconds,
+    )
+    if stats_out:
+        save_stats(stats_out, arrays["fake_mu"], arrays["fake_sigma"],
+                   n=np.int64(result["n_fake"]))
+        result["stats_out"] = stats_out
+    if real_stats_out:
+        save_stats(real_stats_out, arrays["real_mu"], arrays["real_sigma"],
+                   n=np.int64(result["n_real"]))
+        result["real_stats_out"] = real_stats_out
+    if features_out:
+        feats = {"fake_features": arrays["fake_features"]}
+        if "real_features" in arrays:
+            feats["real_features"] = arrays["real_features"]
+        np.savez(features_out, **feats)
+        result["features_out"] = features_out
+    if flags.get("per-class"):
+        # per-class FID shows class dropping that the aggregate hides
+        per = {}
+        for cls in range(cfg.model.num_classes):
+            r = evaluate_generator(model, dataset, n_samples=n_samples, extractor=extractor,
+                                   label=cls)
+            per[cls] = {"fid": r["fid"], "kid": r["kid"], "n_real": r["n_real"]}
+        result["per_class"] = per
+        fids = [v["fid"] for v in per.values()]
+        result["per_class_fid_worst"] = max(fids)
+        result["per_class_fid_mean"] = float(np.mean(fids))
+    if flags.get("swd"):
+        from locate_tpu_torch.io.swd import swd_generator
+
+        t0 = time.perf_counter()
+        result.update(swd_generator(model, dataset, n_samples=n_samples,
+                                    seed=cfg.train.seed))
+        seconds["swd"] = time.perf_counter() - t0
+    result["step"] = int(step)
+    result["seconds"] = seconds
+    print(json.dumps(result))
+    return 0
+
+
+def _infer_dataset_kind(path: str) -> str:
+    """The `data.dataset` kind that reads `path`: .zip archives, LMDB
+    environments (data.mdb / .mdb), TFRecord shards, packed directories
+    (meta.json), else an image folder."""
+    low = path.lower()
+    if low.endswith(".zip"):
+        return "zip"
+    if low.endswith(".mdb") or os.path.isfile(os.path.join(path, "data.mdb")):
+        return "lsun"
+    if low.endswith((".tfrecord", ".tfrecords")):
+        return "tfrecord"
+    if os.path.isfile(os.path.join(path, "meta.json")):
+        return "packed"
+    return "folder"
+
+
+def cmd_compare(argv: List[str]) -> int:
+    """`compare --a=PATH --b=PATH [--resolution=R] [--samples=N]
+    [--extractor=npz] [--swd] [--prdc-k=K] [--seed=S] [--device D]`:
+    FID / KID between two image sources with no model (folder, zip, LMDB,
+    TFRecord or packed, from the path), and optionally SWD and precision
+    / recall / density / coverage. Identical sources score zero (KID near
+    it); the features and SWD run on the card unless `--device=cpu`."""
+    import numpy as np
+
+    from locate_tpu_torch.config import DataConfig
+    from locate_tpu_torch.data.datasets import make_dataset
+    from locate_tpu_torch.device import resolve_device
+    from locate_tpu_torch.io.fid import (NpzFeatureExtractor, RandomConvFeatures,
+                                         feature_stats, features_in_batches,
+                                         frechet_distance, kid, prdc)
+
+    flags, overrides = _split_args(argv)
+    if overrides:
+        raise SystemExit(f"compare takes flags only, got {overrides}")
+    a_path, b_path = _str_flag(flags, "a"), _str_flag(flags, "b")
+    if not a_path or not b_path:
+        raise SystemExit("compare needs --a=PATH and --b=PATH")
+    res = int(_str_flag(flags, "resolution", "256"))
+    n = int(_str_flag(flags, "samples", "1024"))
+    seed = int(_str_flag(flags, "seed", "0"))
+    device = resolve_device(_str_flag(flags, "device"))
+    extractor_path = _str_flag(flags, "extractor")
+    extractor = (NpzFeatureExtractor(extractor_path, device=device) if extractor_path
+                 else RandomConvFeatures(device=device))
+
+    def load(path):
+        kind = _infer_dataset_kind(path)
+        ds = make_dataset(DataConfig(dataset=kind, path=path, resolution=res))
+        rng = np.random.default_rng(seed)
+        idx = rng.choice(len(ds), min(n, len(ds)), replace=False)
+        return kind, np.stack([ds.example(int(i))[0] for i in idx])
+
+    kind_a, imgs_a = load(a_path)
+    kind_b, imgs_b = load(b_path)
+    m = min(len(imgs_a), len(imgs_b))
+    imgs_a, imgs_b = imgs_a[:m], imgs_b[:m]
+    fa = features_in_batches(imgs_a, extractor)
+    fb = features_in_batches(imgs_b, extractor)
+    result = {
+        "a": {"path": a_path, "kind": kind_a, "n": int(m)},
+        "b": {"path": b_path, "kind": kind_b, "n": int(m)},
+        "fid": frechet_distance(*feature_stats(fa), *feature_stats(fb)),
+        "kid": kid(fa, fb),
+        "extractor": "npz" if extractor_path else "random-conv (rFID)",
+    }
+    k_prdc = _str_flag(flags, "prdc-k")
+    if k_prdc:
+        result.update(prdc(fa, fb, k=int(k_prdc)))
+    if flags.get("swd"):
+        from locate_tpu_torch.io.swd import swd
+
+        result.update(swd(imgs_a, imgs_b, seed=seed, device=device))
+    print(json.dumps(result))
+    return 0
+
+
 COMMANDS = {
     "bench": cmd_bench,
     "bench-input": cmd_bench_input,
     "bench-sample": cmd_bench_sample,
+    "compare": cmd_compare,
+    "eval": cmd_eval,
     "export": cmd_export,
     "info": cmd_info,
     "lsun-export": cmd_lsun_export,

@@ -20,11 +20,26 @@ batches (the pipeline stacks them) and the rate counts the c batches'
 images. ADA's `augment_p`, the path-length mean `pl_mean` and LeCam's
 penalty `lecam` are step metrics, logged with the others.
 
+Every `train.eval_every` steps the loop evaluates the EMA's serving
+weights (`io/fid.py:evaluate_generator`, rFID and rKID with the random-conv
+extractor on the run's device, and SWD with `train.eval_swd`), logs
+`eval_rfid`, `eval_rkid` and `eval_swd_*`, and calls the hook "on_eval".
+The check sits where sample grids are made, after a call of
+`steps_per_call` steps, and the config holds `eval_every` to a multiple
+of `steps_per_call`, so every eval falls on a call's end. The eval draws
+its latents from the JAX package's key scheme on the host and nothing
+from the state's generators, so a resumed run still continues bit for
+bit; its time is left out of the logged rate. With `train.keep_best` the
+state of the best rFID so far is saved (synchronously) to
+<workdir>/checkpoints_best, and best.json records its fid, kid and step;
+a resumed run reads best.json back, so a better incumbent is never
+demoted, and `regress_warn_evals` evals without a new best print a
+warning.
+
 `cfg.compile_cache` has no effect here: the kernels' build cache of
 `ops/cuda/build.py`, keyed by a digest of sources and flags, does that
-work. In-training eval (`train.eval_every`, with `keep_best` and
-`regress_warn_evals`) waits for the eval slice (ROADMAP.md Queue 1
-item 10).
+work. The port trains on one device: parallel settings that ask for more
+raise (data parallelism is ROADMAP.md Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -68,20 +83,34 @@ def train(
     """Run (or resume) training on `device` (the card unless "cpu");
     returns the final TrainState.
 
-    `hooks` may give "on_metrics(step, metrics)" and
-    "on_samples(step, images_u8)". The workdir is locked for the run
-    (`utils/runlock.py`): a second `train()` on it raises instead of
-    tearing metrics.jsonl and racing checkpoint writes."""
-    if cfg.train.eval_every > 0:
-        raise NotImplementedError(
-            "train.eval_every > 0 (in-training rFID eval, keep_best, regress_warn_evals) "
-            "is not ported yet (ROADMAP.md Queue 1 item 10)")
+    `hooks` may give "on_metrics(step, metrics)",
+    "on_samples(step, images_u8)" and "on_eval(step, scores)". The
+    workdir is locked for the run (`utils/runlock.py`): a second `train()`
+    on it raises instead of tearing metrics.jsonl and racing checkpoint
+    writes."""
+    check_one_device(cfg.parallel)
     device = resolve_device(device)
     lock = RunLock.acquire(cfg.workdir)
     try:
         return _train_locked(cfg, total_steps, hooks or {}, resume, device)
     finally:
         lock.release()
+
+
+def check_one_device(parallel) -> None:
+    """Raise where `parallel` asks for more than the one device the port
+    trains on, with `locate_tpu/parallel/mesh.py:make_mesh`'s words (a
+    one-device `zero_stage` keeps JAX's trajectory and passes)."""
+    n = 1
+    mp = max(1, parallel.model_parallel)
+    todo = ("the port trains on one device; data and model parallelism wait for "
+            "the parallel slice (ROADMAP.md Queue 1 item 9)")
+    if n % mp:
+        raise NotImplementedError(f"{n} devices not divisible by model_parallel={mp}: {todo}")
+    dp = parallel.data_parallel if parallel.data_parallel > 0 else n // mp
+    if dp * mp != n:
+        raise NotImplementedError(
+            f"mesh {dp}x{mp} != {n} devices (data_parallel={parallel.data_parallel}): {todo}")
 
 
 def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Callable],
@@ -128,6 +157,16 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
         ("r1", tcfg.r1_gamma, tcfg.r1_interval), ("r2", tcfg.r2_gamma, tcfg.r1_interval),
         ("pl", tcfg.pl_gamma, tcfg.pl_interval)) if gamma > 0 and every > 1]
     grad_limit_seen = 0  # grad-norm-limit skips already warned about
+    evaluator = InTrainingEval(cfg, batches.dataset, resume) if tcfg.eval_every else None
+
+    def serve():  # the EMA's serving weights, in one module for the whole run
+        nonlocal server
+        if server is None:
+            server = serving_generator(gan, state)
+        else:
+            load_weights(server, state)
+        return server
+
     try:
         for step_idx in range(state.step, total_steps, k):
             batch = next(batches)
@@ -152,17 +191,22 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
 
             if tcfg.sample_every and (step_num % tcfg.sample_every == 0
                                       or step_num == total_steps):
-                if server is None:
-                    server = serving_generator(gan, state)
-                else:
-                    load_weights(server, state)
                 sample_gen.manual_seed(tcfg.seed + 1)
-                imgs = generate_samples(server, sample_gen, min(64, tcfg.global_batch))
+                imgs = generate_samples(serve(), sample_gen, min(64, tcfg.global_batch))
                 save_image_grid(imgs, os.path.join(cfg.workdir, "samples",
                                                    f"step_{step_num:08d}.png"))
                 logger.log_images(step_num, "samples", imgs)
                 if "on_samples" in hooks:
                     hooks["on_samples"](step_num, imgs)
+
+            if evaluator is not None and step_num % tcfg.eval_every == 0:
+                with timer.paused(metrics):
+                    scores = evaluator(step_num, serve(), state)
+                logger.log_scalars(step_num, {
+                    "eval_rfid": scores["fid"], "eval_rkid": scores["kid"],
+                    **{f"eval_{k}": v for k, v in scores.items() if k.startswith("swd")}})
+                if "on_eval" in hooks:
+                    hooks["on_eval"](step_num, scores)
 
             if tcfg.checkpoint_every and (step_num % tcfg.checkpoint_every == 0
                                           or step_num == total_steps):
@@ -171,8 +215,72 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
         batches.close()  # stops the producer thread, drops the prefetched batches
         logger.close()
         ckpt.close()
+        if evaluator is not None:
+            evaluator.close()
         _print_digest(cfg.workdir)
     return state
+
+
+class InTrainingEval:
+    """The loop's eval (`locate_tpu/train/loop.py`'s eval block): rFID and
+    rKID of the serving generator against `train.eval_samples` examples of
+    the training set (their features computed once, in `cache`), SWD with
+    `train.eval_swd`, and with `train.keep_best` the best checkpoint, its
+    best.json and the quality-regression warning."""
+
+    def __init__(self, cfg: Config, dataset, resume: bool):
+        self.cfg, self.dataset = cfg, dataset
+        self.extractor = None  # on the serving generator's device, at the first eval
+        self.cache: dict = {}
+        self.best_fid, self.best_step = float("inf"), 0
+        self.evals_since_best = 0
+        self.best_path = os.path.join(cfg.workdir, "best.json")
+        self.best_ckpt = None
+        if cfg.train.keep_best:
+            self.best_ckpt = CheckpointManager(os.path.join(cfg.workdir, "checkpoints_best"),
+                                               keep=1, async_save=False)
+            if resume and os.path.exists(self.best_path):
+                with open(self.best_path) as f:
+                    best = json.load(f)
+                self.best_fid, self.best_step = float(best["fid"]), int(best.get("step", 0))
+
+    def __call__(self, step_num: int, model, state: TrainState) -> dict:
+        from locate_tpu_torch.io.fid import RandomConvFeatures, evaluate_generator, model_device
+
+        tcfg = self.cfg.train
+        if self.extractor is None:
+            self.extractor = RandomConvFeatures(device=model_device(model))
+        scores = evaluate_generator(model, self.dataset, n_samples=tcfg.eval_samples,
+                                    seed=tcfg.seed, extractor=self.extractor, cache=self.cache)
+        if tcfg.eval_swd:
+            from locate_tpu_torch.io.swd import swd_generator
+
+            scores.update(swd_generator(model, self.dataset, n_samples=tcfg.eval_samples,
+                                        seed=tcfg.seed))
+        if self.best_ckpt is None:
+            return scores
+        if scores["fid"] < self.best_fid:
+            self.best_fid, self.best_step = float(scores["fid"]), step_num
+            self.evals_since_best = 0
+            self.best_ckpt.save(state)
+            self.best_ckpt.wait()
+            with open(self.best_path, "w") as f:
+                json.dump({"fid": self.best_fid, "kid": float(scores["kid"]),
+                           "step": step_num}, f)
+        else:
+            # advisory: rFID is noisy, and the best state is already saved
+            self.evals_since_best += 1
+            warn_after = tcfg.regress_warn_evals
+            if warn_after and self.evals_since_best >= warn_after:
+                print(f"{PREFIX} WARNING step {step_num}: quality regressing — best rFID "
+                      f"{self.best_fid:.2f} was at step {self.best_step}, "
+                      f"{self.evals_since_best} evals ago (current {scores['fid']:.2f})",
+                      flush=True)
+        return scores
+
+    def close(self) -> None:
+        if self.best_ckpt is not None:
+            self.best_ckpt.close()
 
 
 def _read_metrics(metrics: Dict[str, torch.Tensor], lazy) -> Dict[str, float]:

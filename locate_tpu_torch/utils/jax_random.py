@@ -1,4 +1,5 @@
-"""JAX's `PRNGKey`, `fold_in` and `normal` (f32) in numpy.
+"""JAX's `PRNGKey`, `fold_in`, `split`, `normal` (f32) and `randint`
+(int32) in numpy.
 
 The JAX package bakes two fixed random constants into the model's
 function: the style family's const noise planes
@@ -13,8 +14,11 @@ and XLA's single-precision erfinv (Giles' polynomial). The keys, bits and
 uniforms are JAX's bit for bit; the normals too at the model's shapes,
 and within 2 f32 ulps at a million draws, where about 2 in 100,000
 differ (XLA CPU's f32 log rounds 0.04 % of its inputs one ulp apart from
-`_log_f32`). It is used for those constants only; the port's training
-draws come from `torch.Generator`s.
+`_log_f32`). It is used for those constants and for the evaluation's
+draws (`io/fid.py`: the random-conv extractor's weights and the fake
+latents; `io/swd.py`: patch positions and projection directions), so a
+checkpoint scores the same in both packages; the port's training draws
+come from `torch.Generator`s.
 
 A key is a numpy uint32 array of shape (2,).
 """
@@ -60,6 +64,15 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     y0, y1 = threefry2x32(key, np.zeros(1, np.uint32),
                           np.array([int(data) & 0xFFFFFFFF], np.uint32))
     return np.array([y0[0], y1[0]], np.uint32)
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """`jax.random.split(key, num)`: (num, 2) keys, row i the threefry of
+    the counter (hi(i), lo(i)), which is `fold_in(key, i)` for i < 2**32."""
+    iota = np.arange(int(num), dtype=np.uint64)
+    y0, y1 = threefry2x32(key, (iota >> np.uint64(32)).astype(np.uint32),
+                          (iota & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    return np.stack([y0, y1], axis=1)
 
 
 def random_bits(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
@@ -167,3 +180,21 @@ def normal(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     u = uniform(key, shape, lo, 1.0)
     return (np.float32(np.sqrt(2)) * erfinv_f32(u)).astype(np.float32)
+
+
+def randint(key: np.ndarray, shape: Sequence[int], minval: int, maxval: int) -> np.ndarray:
+    """`jax.random.randint(key, shape, minval, maxval)` (int32, scalar
+    bounds inside int32's range): two sets of bits from `split(key)`,
+    combined modulo the span as (hi mod span) * (2**32 mod span) + lo
+    mod span, in uint32 arithmetic; minval where maxval <= minval."""
+    lo_i, hi_i = int(minval), int(maxval)
+    if not (-2**31 <= lo_i < 2**31 and -2**31 <= hi_i < 2**31):
+        raise ValueError(f"randint bounds ({minval}, {maxval}) outside int32")
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(1 if hi_i <= lo_i else (hi_i - lo_i) & 0xFFFFFFFF)
+    with np.errstate(over="ignore"):
+        mult = np.uint32(2 ** 16) % span
+        mult = (mult * mult) % span
+        offset = ((higher % span) * mult + lower % span) % span
+        return (np.int32(lo_i) + offset.astype(np.int32)).astype(np.int32)

@@ -66,6 +66,20 @@ class StepTimer:
         elif self._count > self.warmup:
             self._timed_steps += 1
 
+    @contextlib.contextmanager
+    def paused(self, result=None):
+        """Leave the block's time out of the rate (the train loop's
+        in-training eval): the device work that produced `result` is
+        waited for first, so the queued steps count as training."""
+        if result is not None:
+            _wait_for(result)
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self._t0 is not None:
+                self._t0 += time.perf_counter() - t
+
     @property
     def warming_up(self) -> bool:
         """True until the tick that starts the clock. A caller passes

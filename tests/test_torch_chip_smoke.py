@@ -461,3 +461,22 @@ def test_both_routes_are_required(smoke):
     smoke.check_both_routes({"softmax_stats": {"mma": 2, "simt": 3}}, "style-serving")
     with pytest.raises(smoke.SmokeFailure, match="want both"):
         smoke.check_both_routes({"softmax_apply": {"mma": 0, "simt": 5}}, "style-serving")
+
+
+def test_eval_phase_expects_its_served_forwards(smoke):
+    """Phase 36 evaluates 1024 samples a side at batch 64, rFID's and
+    SWD's fakes each: 32 served forwards' gate launches and no training
+    kernel; phase 29's loop evaluates every 16 steps (at 16 and 32)."""
+    assert smoke.EVAL_FORWARDS == 32 and smoke.BATCH == 64
+    want = smoke.expected(smoke.totals(smoke.LSUN_SERVE_PLAN), smoke.EVAL_FORWARDS)
+    assert want["softmax_stats"] == want["softmax_apply"] == 32 * sum(smoke.SERVE.values())
+    assert want["stage_conv"] == 32 * 2  # G's fused up_conv blocks at 64^2 and 128^2
+    assert want["softmax_csum"] == want["softmax_bwd"] == want["stage_conv_bwd"] == 0
+    assert "train.eval_every=16" in smoke.LOOP_ARGS
+    assert smoke.LOOP_STEPS % 16 == 0 and 16 == 2 * smoke.LOOP_SPC
+
+
+def test_loop_records_split_steps_from_evals(smoke):
+    recs = [{"step": 8, "d_loss": 1.0}, {"step": 16, "d_loss": 0.5},
+            {"step": 16, "eval_rfid": 3.0, "eval_rkid": 0.1}]
+    assert smoke.train_records(recs) == recs[:2]

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from locate_tpu_torch.ops import flash_attention as fl
+from torch_threads import on_one_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -101,6 +102,7 @@ def _operands(dtype, b=2, t=24, s=40, dh=8, dv=16, seed=0):
 
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
+@on_one_thread
 def test_cpu_wrappers_run_the_plain_version_on_any_route(route):
     """On CPU tensors the route names the card's kernels only: the plain
     versions run, and no launch is counted."""
@@ -225,6 +227,7 @@ def _forward_counts():
 
 
 @pytest.mark.parametrize("layer,padded", LAYERS)
+@on_one_thread
 def test_the_forward_takes_the_mma_route_at_every_bf16_layer(layer, padded):
     """The forward routes as the backward passes do: each bf16 layer of the
     model goes to the mma kernel of its template; on CPU tensors that route
@@ -240,6 +243,7 @@ def test_the_forward_takes_the_mma_route_at_every_bf16_layer(layer, padded):
 
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
+@on_one_thread
 def test_cpu_forward_runs_the_plain_version_on_any_route(route):
     q, k, v, *_ = _operands(torch.bfloat16)
     before = _forward_counts()
@@ -250,6 +254,7 @@ def test_cpu_forward_runs_the_plain_version_on_any_route(route):
     assert _forward_counts() == before
 
 
+@on_one_thread
 def test_f32_forward_keeps_the_simt_route():
     """f32 keeps its f32 products: the forward takes the simt kernel by
     default and refuses the mma route, on the CPU too."""

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from locate_tpu_torch.ops import fused_attention as fa
+from torch_threads import on_one_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPTS = dict(act="leaky_relu", leaky_slope=0.2, gate_max=16.0)
@@ -105,6 +106,7 @@ def _counts(gate="softmax"):
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
 @pytest.mark.parametrize("gate", GATES)
+@on_one_thread
 def test_cpu_backward_runs_the_plain_version_on_any_route(gate, route):
     """On CPU tensors the route names the card's kernels only: the plain
     version runs, bitwise, and no launch is counted."""

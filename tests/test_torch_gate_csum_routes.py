@@ -32,6 +32,7 @@ from jax.experimental import pallas as pl
 
 from locate_tpu.ops.pallas import fused_attention as jfa
 from locate_tpu_torch.ops import fused_attention as fa
+from torch_threads import on_one_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(act="leaky_relu", leaky_slope=0.2)
@@ -213,6 +214,7 @@ def _counts(*wrappers):
 
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
+@on_one_thread
 def test_cpu_csum_runs_the_plain_version_on_any_route(route):
     ops, _ = _gate(torch.bfloat16)
     before = _counts(fa.softmax_gate_csum)
@@ -226,6 +228,7 @@ def test_cpu_csum_runs_the_plain_version_on_any_route(route):
 
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
+@on_one_thread
 def test_cpu_sigmoid_gate_runs_the_plain_version_on_any_route(route):
     ops, _ = _gate(torch.bfloat16, n=2, hw=16, c=512, hd=128, cout=512, w2_scale=1.0)
     before = _counts(fa.sigmoid_gate)

@@ -23,6 +23,7 @@ import torch
 
 from locate_tpu.ops.pallas import fused_attention as jfa
 from locate_tpu_torch.ops import fused_attention as fa
+from torch_threads import on_one_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(act="leaky_relu", leaky_slope=0.2)
@@ -107,6 +108,7 @@ def _counts():
 
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
+@on_one_thread
 def test_cpu_forward_runs_the_plain_version_on_any_route(route):
     """On CPU tensors the route names the card's kernels only: the plain
     versions run, bitwise, and no launch is counted."""
@@ -149,6 +151,7 @@ def test_cpu_forward_equals_the_jax_package(dtype, route):
     assert close.mean() > 0.99, close.mean()
 
 
+@on_one_thread
 def test_cpu_softmax_gate_counts_no_forward_launch():
     """The autograd Function's forward on CPU tensors at the template's
     widths: the plain passes, no launch counted on either route."""

@@ -6,7 +6,8 @@ state tensor, the generator's state, the sample grids and the
 metrics.jsonl records but their two timing fields), at steps_per_call 1
 and 2; the resumed metrics.jsonl drops the records past the checkpoint;
 the non-finite and grad-limit aborts and the grad-limit warning;
-r1_last_fire; config.json; the run lock; and the options that raise."""
+r1_last_fire; config.json; the run lock; and the parallel settings that
+raise (the port trains on one device)."""
 
 import dataclasses
 import json
@@ -204,12 +205,29 @@ def test_run_lock_refuses_a_second_train(tiny_config, tmp_path):
 
 
 @pytest.mark.parametrize("option, match", [
-    ({"eval_every": 4}, "ROADMAP.md Queue 1 item 10"),
-])
+    ({"data_parallel": 4}, r"mesh 4x1 != 1 devices \(data_parallel=4\)"),
+    ({"model_parallel": 2}, "1 devices not divisible by model_parallel=2"),
+    ({"data_parallel": 4, "model_parallel": 2, "zero_stage": 3}, "1 devices not divisible"),
+], ids=["data_parallel", "model_parallel", "dp_mp_zero3"])
 def test_unported_options_raise(tiny_config, tmp_path, option, match):
-    cfg = loop_config(tiny_config, tmp_path / "run", **option)
-    with pytest.raises(NotImplementedError, match=match):
+    """Parallel settings that ask for more than the one device the port
+    trains on raise with the JAX mesh's words and cite the parallel slice,
+    before anything is written (a one-device zero_stage trains: see
+    test_one_device_zero_stage_trains)."""
+    cfg = loop_config(tiny_config, tmp_path / "run")
+    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, **option))
+    with pytest.raises(NotImplementedError, match=match) as err:
         train(cfg, device="cpu")
+    assert "ROADMAP.md Queue 1 item 9" in str(err.value)
+    assert not os.path.exists(tmp_path / "run")
+
+
+def test_one_device_zero_stage_trains(tiny_config, tmp_path):
+    cfg = loop_config(tiny_config, tmp_path / "run", total_steps=2, sample_every=0,
+                      checkpoint_every=0)
+    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, data_parallel=1,
+                                                                zero_stage=1))
+    assert train(cfg, device="cpu").step == 2
 
 
 @pytest.mark.parametrize("option", [

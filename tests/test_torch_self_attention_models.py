@@ -239,23 +239,43 @@ def compare_params(port_state, jstate, steps, lr):
                 assert rel_err(got, w) < 1e-3, (part, name)
 
 
-def run_train_parity(jax_use_pallas, flash_calls):
+def jax_steps(jcfg, steps=2):
+    """The jitted JAX step's states (the first one JAX's init, `jax_state`)
+    and metrics over `steps` steps on `batch()`, with the latents it drew
+    at each."""
+    jgan = jax_build_gan(jcfg)
+    states, metrics, latents = [jax_state(jcfg, jgan)], [], []
+    jstep = jax.jit(jax_make_train_step(jcfg, jgan))
+    b = {k: jnp.asarray(v) for k, v in batch().items()}
+    for _ in range(steps):
+        latents.append(jax_latents(jgan, states[-1]))
+        jstate, jm = jstep(states[-1], b)
+        states.append(jstate)
+        metrics.append(jm)
+    return states, metrics, latents
+
+
+@pytest.fixture(scope="module")
+def xla_steps():
+    """Two steps of the JAX step on its jitted XLA composition (the exact
+    reference), one compile for the tests that hold the port to it."""
+    return jax_steps(configs(False)[0])
+
+
+def run_train_parity(jax_use_pallas, flash_calls, xla=None):
+    """Two port steps (the kernel path's plain versions) against two JAX
+    steps on JAX's draws: the XLA composition's (`xla`, from the
+    `xla_steps` fixture) or the JAX kernel path's."""
     jcfg, tcfg = configs(True)
     assert tcfg.train.r1_gamma == 1.0 and tcfg.train.grad_norm_limit == 1e6
-    if not jax_use_pallas:  # the jitted XLA composition: the exact reference
-        jcfg = dataclasses.replace(jcfg, use_pallas=False,
-                                   model=dataclasses.replace(jcfg.model, use_pallas=False))
-    jgan = jax_build_gan(jcfg)
-    jstate = jax_state(jcfg, jgan)
-    jstep = jax.jit(jax_make_train_step(jcfg, jgan))
+    states, metrics, latents = xla if not jax_use_pallas else jax_steps(jcfg)
     gan = build_gan(tcfg, device="cpu")
-    pstate = state_from_jax(jstate, tcfg, gan)
+    pstate = state_from_jax(states[0], tcfg, gan)
     step = make_train_step(tcfg, gan)
-    b = batch()
-    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch().items()}
     for i in range(2):
-        z_d, z_g = jax_latents(jgan, jstate)
-        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        z_d, z_g = latents[i]
+        jstate, jm = states[i + 1], metrics[i]
         pstate, pm = step(pstate, tb, z_d=torch.from_numpy(z_d.copy()),
                           z_g=torch.from_numpy(z_g.copy()))
         assert set(pm) == set(jm)
@@ -270,8 +290,8 @@ def run_train_parity(jax_use_pallas, flash_calls):
     return pstate
 
 
-def test_two_train_steps_match_jax(flash_calls):
-    pstate = run_train_parity(False, flash_calls)
+def test_two_train_steps_match_jax(flash_calls, xla_steps):
+    pstate = run_train_parity(False, flash_calls, xla_steps)
     named = pstate.g_params.named(pstate.g_params.flat)
     gammas = [v for k, v in named.items() if k.endswith("gamma")]
     assert len(gammas) == 3 and all(g.shape == () for g in gammas)
@@ -285,14 +305,11 @@ def test_two_train_steps_match_jax_pallas_interpret(flash_calls):
     run_train_parity(True, flash_calls)
 
 
-def test_state_from_jax_carries_the_scalar_gamma():
+def test_state_from_jax_carries_the_scalar_gamma(xla_steps):
     """After one JAX step: gamma's value, Adam moments and EMA arrive as 0-d
     views of the flat buffers, equal to JAX's."""
-    jcfg, tcfg = configs(False)
-    jgan = jax_build_gan(jcfg)
-    jstate = jax_state(jcfg, jgan)
-    jstate, _ = jax.jit(jax_make_train_step(jcfg, jgan))(
-        jstate, {k: jnp.asarray(v) for k, v in batch().items()})
+    _, tcfg = configs(False)
+    jstate = xla_steps[0][1]
     pstate = state_from_jax(jstate, tcfg, build_gan(tcfg, device="cpu"))
     adam = jstate.g_opt_state.inner_state.inner_state[0]
     key = "trunk.0.2.gamma"

@@ -46,17 +46,38 @@ def jax_latents(jgan, state):
             np.asarray(jgan.sample_latents(k_zg, BATCH)))
 
 
-@pytest.mark.parametrize("fuse", [False, True])
-def test_two_steps_match_jax(monkeypatch, tmp_path, fuse):
-    use_jax_sigmoid_bound(monkeypatch, tmp_path)
+def batch():
+    rng = np.random.default_rng(0)
+    return {"image": rng.integers(0, 256, (BATCH, 16, 16, 3), dtype=np.uint8),
+            "label": np.zeros(BATCH, np.int32)}
+
+
+@pytest.fixture(scope="module")
+def xla_steps():
+    """(states, metrics, latents) of two JAX steps on the XLA composition
+    (use_pallas=False, the exact reference), from `jax_state`: one jit
+    compile for both fusions of the port."""
     jcfg = jconfig.get_config("ffhq_512", SMALL)
-    tcfg = port_config(jcfg)
-    assert tcfg.use_pallas and tcfg.model.remat and tcfg.train.r1_gamma == 0.1
     jcfg = dataclasses.replace(jcfg, use_pallas=False,
                                model=dataclasses.replace(jcfg.model, use_pallas=False))
     jgan = jax_build_gan(jcfg)
-    jstate = jax_state(jcfg, jgan)
+    states, metrics, latents = [jax_state(jcfg, jgan)], [], []
     jstep = jax.jit(jax_make_train_step(jcfg, jgan))
+    b = {k: jnp.asarray(v) for k, v in batch().items()}
+    for _ in range(2):
+        latents.append(jax_latents(jgan, states[-1]))
+        jstate, jm = jstep(states[-1], b)
+        states.append(jstate)
+        metrics.append(jm)
+    return states, metrics, latents
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_two_steps_match_jax(monkeypatch, tmp_path, fuse, xla_steps):
+    use_jax_sigmoid_bound(monkeypatch, tmp_path)
+    tcfg = port_config(jconfig.get_config("ffhq_512", SMALL))
+    assert tcfg.use_pallas and tcfg.model.remat and tcfg.train.r1_gamma == 0.1
+    states, metrics, latents = xla_steps
     if fuse:
         monkeypatch.setattr(blocks, "FUSE_MIN_LOCATIONS", 0)
     ran = set()
@@ -66,15 +87,11 @@ def test_two_steps_match_jax(monkeypatch, tmp_path, fuse):
         monkeypatch.setattr(module, name,
                             lambda *a, _n=name, _f=original, **kw: ran.add(_n) or _f(*a, **kw))
     gan = build_gan(tcfg, device="cpu")
-    pstate = state_from_jax(jstate, tcfg, gan)
+    pstate = state_from_jax(states[0], tcfg, gan)
     step = make_train_step(tcfg, gan)
-    rng = np.random.default_rng(0)
-    b = {"image": rng.integers(0, 256, (BATCH, 16, 16, 3), dtype=np.uint8),
-         "label": np.zeros(BATCH, np.int32)}
-    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch().items()}
     for i in range(2):
-        z_d, z_g = jax_latents(jgan, jstate)
-        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        (z_d, z_g), jstate, jm = latents[i], states[i + 1], metrics[i]
         pstate, pm = step(pstate, tb, z_d=torch.from_numpy(z_d.copy()),
                           z_g=torch.from_numpy(z_g.copy()))
         assert set(pm) == set(jm)

@@ -19,6 +19,7 @@ import torch
 
 from locate_tpu_torch.config import get_config
 from locate_tpu_torch.ops import fused_stage as fs
+from torch_threads import on_one_thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KW = dict(act="leaky_relu", leaky_slope=0.2)
@@ -98,6 +99,7 @@ def _counts(fn):
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
 @pytest.mark.parametrize("c,co,up", [(64, 64, False), (32, 64, True)])
+@on_one_thread
 def test_cpu_wrappers_run_the_plain_version_on_any_route(route, c, co, up):
     """On CPU tensors the route names the card's kernels only: the plain
     versions run, bitwise, and no launch is counted."""
@@ -248,6 +250,7 @@ APPLY_POOL_UNFIT = {  # what an apply-pool call names, and why the mma route doe
 
 
 @pytest.mark.parametrize("why", sorted(APPLY_POOL_UNFIT))
+@on_one_thread
 def test_unfit_apply_pool_calls_take_the_simt_route(why):
     """f32, Co != 64, a gate with Hd != 16 or Cout 1 and an image the tile
     does not divide take the simt route; an explicit mma route raises for
@@ -264,6 +267,7 @@ def test_unfit_apply_pool_calls_take_the_simt_route(why):
 
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
+@on_one_thread
 def test_cpu_apply_pool_runs_the_plain_version_on_any_route(route):
     """On CPU tensors the pooled apply pass returns its plain version
     bitwise on any route and counts no launch on either route."""
@@ -283,6 +287,7 @@ def test_unknown_route_of_the_apply_pool_pass_raises():
 
 @pytest.mark.parametrize("route", [None, "mma", "simt"])
 @pytest.mark.parametrize("c,co,up,dn", [(64, 64, True, False), (32, 64, False, True)])
+@on_one_thread
 def test_cpu_conv_and_sigmoid_run_the_plain_version_on_any_route(route, c, co, up, dn):
     """On CPU tensors `stage_conv` and `stage_sigmoid` return their plain
     versions bitwise on any route and count no launch on either."""

@@ -45,3 +45,29 @@ def test_a_million_normals():
     got = jr.normal(kk, (1_000_000,))
     ulps = np.abs(got - want) / np.spacing(np.abs(want))
     assert ulps.max() <= 2 and (ulps == 0).mean() > 0.9999
+
+
+@pytest.mark.parametrize("seed,num", [(0, 2), (0, 4), (7, 5), (2**32 - 1, 3)])
+def test_split_matches_jax(seed, num):
+    """`split` (the eval's extractor weights take split(PRNGKey(seed), 4))
+    bit for bit."""
+    k, kk = keys(seed, None)
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(jax.random.split(k, num))),
+                                  jr.split(kk, num))
+
+
+@pytest.mark.parametrize("h", [16, 17, 32, 64, 128])
+def test_randint_matches_jax_at_the_swd_shapes(h):
+    """`randint` as SWD draws its patch rows and columns: maxval h - 6,
+    up to 1024 images of 128 patches, from the two keys of a level's
+    k_patch; and bounds that cross int32's range or meet."""
+    k_patch, kk_patch = keys(3, h)
+    for sub, ssub in zip(jax.random.split(k_patch), jr.split(kk_patch)):
+        for shape in ((1024, 128), (3, 128)):
+            want = np.asarray(jax.random.randint(sub, shape, 0, h - 6))
+            got = jr.randint(ssub, shape, 0, h - 6)
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want)
+    for lo, hi in ((5, 5), (5, 3), (-10, 1000), (-2**31, 2**31 - 1)):
+        np.testing.assert_array_equal(np.asarray(jax.random.randint(k_patch, (64,), lo, hi)),
+                                      jr.randint(kk_patch, (64,), lo, hi))

@@ -84,20 +84,42 @@ def compare_params(port_state, jstate, steps, lr=2e-4):
                 assert rel_err(got, w) < 1e-3, (part, name)
 
 
-def run_parity(tiny_config, use_pallas, jax_interpret):
-    jcfg, tcfg = configs(tiny_config, jax_interpret)
+def jax_steps(jcfg, steps=2):
+    """The jitted JAX step's states (the first one `jax_state`'s) and
+    metrics over `steps` steps on `batch()`, with the latents it drew at
+    each."""
     jgan = jax_build_gan(jcfg)
-    jstate = jax_state(jcfg, jgan)
+    states, metrics, latents = [jax_state(jcfg, jgan)], [], []
     jstep = jax.jit(jax_make_train_step(jcfg, jgan))
+    b = {k: jnp.asarray(v) for k, v in batch().items()}
+    for _ in range(steps):
+        latents.append(jax_latents(jgan, states[-1]))
+        jstate, jm = jstep(states[-1], b)
+        states.append(jstate)
+        metrics.append(jm)
+    return states, metrics, latents
+
+
+@pytest.fixture(scope="module")
+def xla_steps(tiny_config):
+    """Two steps of the JAX step on its XLA composition, one compile for
+    the tests that hold the port to it."""
+    return jax_steps(configs(tiny_config, False)[0])
+
+
+def run_parity(tiny_config, use_pallas, jax_interpret, xla=None):
+    """Two port steps on JAX's draws against two JAX steps: the XLA
+    composition's (`xla`, from the `xla_steps` fixture) or, with
+    `jax_interpret`, the Pallas kernels' in interpret mode."""
+    jcfg, tcfg = configs(tiny_config, jax_interpret)
+    states, metrics, latents = jax_steps(jcfg) if xla is None else xla
     tcfg = dataclasses.replace(tcfg, use_pallas=use_pallas)
     gan = build_gan(tcfg, device="cpu")
-    pstate = state_from_jax(jstate, tcfg, gan)
+    pstate = state_from_jax(states[0], tcfg, gan)
     step = make_train_step(tcfg, gan)
-    b = batch()
-    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch().items()}
     for i in range(2):
-        z_d, z_g = jax_latents(jgan, jstate)
-        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in b.items()})
+        (z_d, z_g), jstate, jm = latents[i], states[i + 1], metrics[i]
         pstate, pm = step(pstate, tb, z_d=torch.from_numpy(z_d), z_g=torch.from_numpy(z_g))
         assert set(pm) == set(jm), (sorted(pm), sorted(jm))
         for k in jm:
@@ -109,10 +131,10 @@ def run_parity(tiny_config, use_pallas, jax_interpret):
     return pm
 
 
-def test_two_steps_match_jax(tiny_config):
+def test_two_steps_match_jax(tiny_config, xla_steps):
     """The port with its gate Function (use_pallas) and the JAX step on its
     XLA composition (use_pallas=False)."""
-    metrics = run_parity(tiny_config, use_pallas=True, jax_interpret=False)
+    metrics = run_parity(tiny_config, use_pallas=True, jax_interpret=False, xla=xla_steps)
     assert float(metrics["d_grad_limit_count"]) == 0.0
 
 
@@ -123,12 +145,9 @@ def test_two_steps_match_jax_pallas_interpret(tiny_config):
     run_parity(tiny_config, use_pallas=True, jax_interpret=True)
 
 
-def test_state_from_jax_carries_the_whole_state(tiny_config):
-    jcfg, tcfg = configs(tiny_config, False)
-    jgan = jax_build_gan(jcfg)
-    jstate = jax_state(jcfg, jgan)
-    jstate, _ = jax.jit(jax_make_train_step(jcfg, jgan))(
-        jstate, {k: jnp.asarray(v) for k, v in batch().items()})
+def test_state_from_jax_carries_the_whole_state(tiny_config, xla_steps):
+    _, tcfg = configs(tiny_config, False)
+    jstate = xla_steps[0][1]
     pstate = state_from_jax(jstate, tcfg, build_gan(tcfg, device="cpu"))
     assert pstate.step == 1
     compare_params(pstate, jstate, steps=0)
