@@ -22,8 +22,9 @@ lsun_bedroom_128 step fed through the input path; the train loop of
 lsun_bedroom_128 with checkpoints, an in-training eval, a SIGKILL and
 resume, export and sampling from a checkpoint; three more presets and six
 recipes of the train step's options; the style family, spectral norm and
-projection; last, the eval of the loop's checkpoint. Phases, one line
-each:
+projection; the eval of the loop's checkpoint; last, data parallelism:
+lsun_bedroom_128's loop in a world-size-1 NCCL group and on two gloo
+ranks sharing the card. Phases, one line each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
   2. build: csrc/fused_attention.cu, csrc/fused_stage.cu and
@@ -104,9 +105,9 @@ each:
      xla` (16 steps a call through a CUDA graph of the step, and one step a
      call beside it: images/sec, flops per step, MFU; the kernel path must
      be the faster at both), peak memory of a batch-128 step with R1 firing
-     (r1_remat on and off), and over 3 eager steps and over one 4-step
-     graph call of each path the device's idle share and its kernels by
-     time;
+     (r1_remat on and off), and over PROFILED_EAGER_STEPS eager step(s)
+     and over one 4-step graph call of each path the device's idle share
+     and its kernels by time;
   8. (in 3 and 4) each gate kernel's time at each shape (CUDA graphs of
      back-to-back launches timed with CUDA events) beside its bound, share
      of the bound and the plain version's time;
@@ -253,9 +254,10 @@ each:
      loader built on this host; `bench 128 20 e2e` on the kernel path
      (fails if its reconciliation e2e <= 1.15 min(input path, device
      only) does not hold, or if the input path alone is slower than the
-     device-only step); the idle share and top kernels of 3 eager steps
-     fed by the live pipeline, beside the idle share of 3 fed batches
-     pulled before the window and of 3 steps on one fixed batch; 4
+     device-only step); the idle share and top kernels of
+     PROFILED_EAGER_STEPS eager step(s) fed by the live pipeline, beside
+     the idle share of as many fed batches pulled before the window and of
+     as many steps on one fixed batch; 4
      prefetched batches, the step run between them, copied back and equal
      byte for byte to a second producer's host batches from the same
      seed; two spc=4 graph calls fed from the prefetch, bitwise equal to
@@ -276,8 +278,9 @@ each:
      launched: the softmax gate's four, stage_conv and stage_conv_bwd, and
      no other), the device's idle share and top kernels over one logged
      window (steps 25-32, an async save and a log read in it), its logged
-     images/sec beside `bench 64 20`'s fixed-batch rate at spc=8 and the
-     loop's recipe (R1, guards) on one fixed batch at spc=8, an async
+     images/sec beside `bench 64 10`'s fixed-batch rate at spc=8 and the
+     loop's recipe (R1, guards) on one fixed batch at spc=8 (10 calls
+     each, 20 before phases 37-38), an async
      save's time on the step's stream; `export` of A's checkpoint, and
      `sample --generator` on the export and `sample --checkpoint` on A
      writing the same PNG bytes for one seed;
@@ -337,15 +340,32 @@ each:
      with random weights from an `.npz` written from a seed: its
      images/sec at batch 64, its card features within rtol 2e-3 / atol
      2e-4 of the CPU's;
- 37. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
+ 37. "dp-one-rank-nccl": in a child process, `initialize_from_env()` makes a
+     world-size-1 NCCL group; `train()` of lsun_bedroom_128 as shipped
+     (full width, batch 64, bf16, 8 steps as one call of a CUDA graph that
+     captures the step's collectives, R1 at step 0) at zero_stage 0, 1 and
+     3, each bitwise equal (final checkpoint, generator, every logged
+     metric) to the same run before the group was made, each launching
+     the step's six kernels; `ShardedSampler` bitwise equal to
+     `generate_samples` at a count of 67; the step's ms (bench's config, no
+     R1), eager and as a graph, with and without the group;
+ 38. "dp-two-ranks-gloo": two child processes on the card in a gloo group
+     ("gspmd", zero_stage 0, the preset's options: all_reduce and
+     broadcast only), `train()` of lsun_bedroom_128 at global batch 64 (32
+     a rank), 2 eager steps with R1 at the first, against the same run in
+     this process without a group: every metric bitwise equal on both
+     ranks and within 1e-2 relative of the one-process run's (the worst
+     printed), metrics.jsonl written by rank 0 alone, the six kernels
+     launched on both ranks, step 2's seconds on each;
+ 39. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
      flash kernels, the five routed stage kernels, softmax_stats,
      softmax_apply, softmax_bwd and sigmoid_bwd with their mma-route
      launches and the simt route's time of the same launches beside their
      own; stage_softmax_apply_pool, off ffhq_512's path under the profile,
      with the launches of 13's every-stage-fused step; each with its
      launches in 29's loop, a step of 33's style recipe, a forward of 32's
-     serving and 36's eval);
- 38. the card's name and power limit again, then the last line
+     serving, 36's eval, 37's NCCL run at zero_stage 0 and 38's rank 0);
+ 40. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -1905,23 +1925,41 @@ def phase_train_grads(fa, cfg, weights):
         losses={k: dict(d_loss=v[2], g_loss=v[3], r1=v[4]) for k, v in paths.items()})
 
 
+# phases 7 and 28 profile one eager step a path or feed (3 before phases
+# 37-38; CUTS)
+PROFILED_EAGER_STEPS = 1
+# the calls `bench 128 N` times in phases 7, 28 and 31
+BENCH_CALLS = "20"
+# the calls each of phase 29's in-process benches times (20 before phases
+# 37-38; CUTS)
+LOOP_BENCH_CALLS = 10
+# the depth cut to keep the script inside its time with phases 37-38,
+# printed on a line each
+CUTS = {"phase 7": "profiles 1 eager step of each path (was 3)",
+        "phase 28": "packs 1024 images (was 2048); profiles 1 eager step a feed (was 3)",
+        "phase 29": f"its two in-process benches time {LOOP_BENCH_CALLS} calls each (was 20)",
+        "phase 37": "times the step on bench's config (no R1): 2 eager steps after 2, one "
+                    "8-step graph call after its capture"}
+
+
 def phase_train_throughput():
-    """Phase 7: `bench 128 20` (16 steps a call, a CUDA graph of the step,
+    """Phase 7: `bench 128 BENCH_CALLS` (16 steps a call, a CUDA graph of the step,
     and one step a call beside it) on the kernel path and the plain path:
     the kernel path faster at both; peak memory with R1; the idle share
-    and top kernels of 3 eager steps and of one 4-step graph call."""
+    and top kernels of PROFILED_EAGER_STEPS eager step(s) and of one
+    4-step graph call."""
     from locate_tpu_torch import cli
     from locate_tpu_torch.config import get_config
     from locate_tpu_torch.train.step import make_multi_step
 
-    kernel = run_cli(["bench", "128", "20"])
+    kernel = run_cli(["bench", "128", BENCH_CALLS])
     torch.cuda.empty_cache()
-    plain = run_cli(["bench", "128", "20", "xla"])
+    plain = run_cli(["bench", "128", BENCH_CALLS, "xla"])
     torch.cuda.empty_cache()
     check(kernel["flops_per_step"] == plain["flops_per_step"], "flop counts differ")
     check(kernel["steps_per_call"] == plain["steps_per_call"] == 16, "bench did not run spc=16")
     for key in ("value", "single_step_images_per_sec"):
-        check(kernel[key] > plain[key], f"bench 128 20 {key}: the kernel path "
+        check(kernel[key] > plain[key], f"bench 128 {BENCH_CALLS} {key}: the kernel path "
                                         f"({kernel[key]}) is not faster than the plain path "
                                         f"({plain[key]})")
     peaks = {}
@@ -1943,7 +1981,8 @@ def phase_train_throughput():
     for name, use_pallas in (("kernel_path", True), ("plain_path", False)):
         gan, state, step = trainer(cli.bench_config(128, [] if use_pallas else ["xla"]))
         batch = fixed_batch(128)
-        idle, top = profile_calls(lambda: step(state, batch), top=15)
+        idle, top = profile_calls(lambda: step(state, batch), calls=PROFILED_EAGER_STEPS,
+                                  top=15)
         multi = make_multi_step(step, 4)
         batches = stacked_batch(4, 128)
         graph_idle, graph_top = profile_calls(lambda: multi(state, batches), calls=1, top=15)
@@ -1955,7 +1994,8 @@ def phase_train_throughput():
         del gan, state, step, batch, multi, batches
         release_memory()
     say("train-throughput", kernel_path=kernel, plain_path=plain,
-        peak_memory_bytes_batch128_with_r1=peaks, profile_3_steps_batch128=profiles)
+        peak_memory_bytes_batch128_with_r1=peaks, profiled_eager_steps=PROFILED_EAGER_STEPS,
+        profile_batch128=profiles)
     return kernel, plain
 
 
@@ -3721,7 +3761,9 @@ def phase_sample_graph():
 # ---------------------------------------------------------------------------
 
 E2E_BATCH = 128
-E2E_PACK_LENGTH = 2048  # bench.py:146-170's max(4 batch, 2048) at batch 128
+# bench.py:146-170 packs max(4 batch, 2048) at batch 128; cut to 1024 to pay
+# for phases 37-38 (CUTS)
+E2E_PACK_LENGTH = 1024
 E2E_PREFETCHED = 4
 
 
@@ -3737,10 +3779,11 @@ def host_batch_on_card(batch, lead=()):
 
 def phase_e2e_input_path():
     """Phase 28: the pack's rate and the native loader's state on this
-    host; `bench 128 20 e2e` on the kernel path (reconciliation held, the
+    host; `bench 128 BENCH_CALLS e2e` on the kernel path (reconciliation held, the
     input path alone faster than the device-only rate); the idle share and
-    top kernels of 3 eager steps fed by the pipeline (beside 3 fed batches
-    pulled before the window, and 3 on one fixed batch); 8 prefetched batches,
+    top kernels of PROFILED_EAGER_STEPS eager step(s) fed by the pipeline
+    (beside as many fed batches pulled before the window, and as many on
+    one fixed batch); 8 prefetched batches,
     the step run between them, copied back and held byte for byte against
     a second producer's host batches from the same seed; two spc=4 graph
     calls fed from the prefetch against the same calls fed host-made
@@ -3767,7 +3810,7 @@ def phase_e2e_input_path():
                   pack_images_per_sec=E2E_PACK_LENGTH / pack_s)
     say("input-path-host", **loader)
 
-    e2e = run_cli(["bench", str(E2E_BATCH), "20", "e2e", f"--pack={pack}"])
+    e2e = run_cli(["bench", str(E2E_BATCH), BENCH_CALLS, "e2e", f"--pack={pack}"])
     release_memory()
     rec = e2e["reconciliation"]
     check(rec["ok"], f"bench e2e: reconciliation failed {rec}")
@@ -3775,18 +3818,20 @@ def phase_e2e_input_path():
           f"bench e2e: the input path alone ({e2e['input_path_images_per_sec']} img/s) is "
           f"slower than the device-only step ({e2e['device_only_images_per_sec']})")
 
-    # the idle share of 3 eager steps fed by the live pipeline, by 3 of its
+    # the idle share of eager steps fed by the live pipeline, by its
     # batches pulled first (the producer then blocked on a full queue), and
     # by one fixed batch: what the producer thread's work costs the launches
     cfg = cli.bench_pack(cli.bench_config(E2E_BATCH, ["e2e"]), E2E_BATCH, pack)
     gan, state, step = trainer(cfg)
     with make_input_pipeline(cfg.data, E2E_BATCH, device="cuda", seed=0) as pipe:
-        idle, top = profile_calls(lambda: step(state, next(pipe)), calls=3, top=12)
+        idle, top = profile_calls(lambda: step(state, next(pipe)), calls=PROFILED_EAGER_STEPS,
+                                  top=12)
         pulled = [next(pipe) for _ in range(4)]
         time.sleep(1.0)  # the producer refills its queue and blocks
-        idle_pulled, _ = profile_calls(lambda: step(state, pulled.pop()), calls=3)
+        idle_pulled, _ = profile_calls(lambda: step(state, pulled.pop()),
+                                       calls=PROFILED_EAGER_STEPS)
     fixed = fixed_batch(E2E_BATCH)
-    idle_fixed, _ = profile_calls(lambda: step(state, fixed), calls=3)
+    idle_fixed, _ = profile_calls(lambda: step(state, fixed), calls=PROFILED_EAGER_STEPS)
     idles = {name: "not measured" if v is None else v for name, v in
              (("live_pipeline", idle), ("pulled_batches", idle_pulled),
               ("fixed_batch", idle_fixed))}
@@ -3842,7 +3887,8 @@ def phase_e2e_input_path():
     release_memory()
     shutil.rmtree(scratch)
     say("e2e-input-path", bench_e2e=e2e,
-        e2e_eager_3_steps=dict(device_idle_share=idles, top_kernels=top),
+        e2e_eager_steps=dict(steps=PROFILED_EAGER_STEPS, device_idle_share=idles,
+                             top_kernels=top),
         prefetch_byte_exact_batches=E2E_PREFETCHED, graph_spc4_prefetch_vs_host="bitwise equal")
     return e2e, loader
 
@@ -4057,8 +4103,8 @@ def phase_train_loop():
     more, without the eval, with the counters from 0
     (every kernel of the step launched) and the device's idle share over
     that period; an async save's cost on the step's stream; `bench 64
-    20`'s fixed-batch rate at spc=8 and the loop's recipe on a fixed batch
-    beside the loop's rate.
+    LOOP_BENCH_CALLS`'s fixed-batch rate at spc=8 and the loop's recipe on
+    a fixed batch (LOOP_BENCH_CALLS calls) beside the loop's rate.
     Then `export` of A's checkpoint: `sample --generator` on the export
     and `sample --checkpoint` on A write the same PNG bytes. Returns (its
     line, the loop's launches, the phase's directory: run A's checkpoint
@@ -4094,7 +4140,7 @@ def phase_train_loop():
         best = json.load(f)
 
     # the loop in this process: its launches, one logged window's idle
-    # share, its rate beside bench 64 20's
+    # share, its rate beside bench 64 LOOP_BENCH_CALLS's
     cfg = dataclasses.replace(get_config(LOOP_ARGS[0], parse_cli_overrides(LOOP_ARGS[1:])),
                               workdir=os.path.join(scratch, "p"))
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, sample_every=0,
@@ -4116,9 +4162,9 @@ def phase_train_loop():
     # the same step on one fixed batch: bench's pins (no R1, no guards), and
     # the loop's own recipe (R1 every 16, both guards)
     bench = cli.bench_images_per_sec(cli.bench_config(BATCH, [f"spc={LOOP_SPC}"]),
-                                     torch.device("cuda"), BATCH, 20)
+                                     torch.device("cuda"), BATCH, LOOP_BENCH_CALLS)
     release_memory()
-    recipe = cli.bench_images_per_sec(cfg, torch.device("cuda"), BATCH, 20)
+    recipe = cli.bench_images_per_sec(cfg, torch.device("cuda"), BATCH, LOOP_BENCH_CALLS)
     release_memory()
     # run A's (unprofiled) over the window's calls, each of LOOP_SPC steps
     calls = logged[-(period // LOOP_SPC):]
@@ -4141,7 +4187,8 @@ def phase_train_loop():
                run_b=dict(complete_checkpoints_at_kill=killed_at, resumed_from=resumed_from,
                           equal_to_run_a=True),
                logged_images_per_sec_run_a=[r["images_per_sec"] for r in logged],
-               loop_images_per_sec=loop_rate, bench_64_20_spc8_images_per_sec=bench,
+               loop_images_per_sec=loop_rate, bench_64_spc8_images_per_sec=bench,
+               bench_calls=LOOP_BENCH_CALLS,
                fixed_batch_loop_recipe_images_per_sec=recipe,
                loop_over_bench=loop_rate / bench, loop_over_fixed_recipe=loop_rate / recipe,
                logged_window=window_readings,
@@ -4277,6 +4324,288 @@ def phase_eval(run_a):
                        feature_scale=float(np.abs(on_cpu).max()), is_mean=is_mean,
                        is_std=is_std, weights="random, default_rng(5)"))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Data parallelism: a group of one NCCL rank, and two gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 8  # one call of 8 steps, R1 (every 16) at its first
+DP_KERNELS = LOOP_KERNELS
+# lsun_bedroom_128 as shipped at full width, batch 64, bf16, as 29's loop
+DP_ARGS = ["lsun_bedroom_128", "use_pallas=true", "data.dataset=synthetic",
+           f"train.global_batch={BATCH}", "train.compute_dtype=bfloat16",
+           f"train.steps_per_call={DP_STEPS}", f"train.total_steps={DP_STEPS}",
+           f"train.log_every={DP_STEPS}", f"train.checkpoint_every={DP_STEPS}",
+           "train.sample_every=0", "train.eval_every=0", "train.async_checkpoint=false"]
+# two eager steps (R1 at the first) of two gloo ranks, 32 images each, and
+# of one process on the same global batch: the reals' order differs, so the
+# data path's flips are off
+DP2_STEPS = 2
+DP2_ARGS = ["lsun_bedroom_128", "use_pallas=true", "data.dataset=synthetic",
+            "data.random_flip=false", f"train.global_batch={BATCH}",
+            "train.compute_dtype=bfloat16", "train.steps_per_call=1",
+            f"train.total_steps={DP2_STEPS}", "train.log_every=1", "train.checkpoint_every=0",
+            "train.sample_every=0", "train.eval_every=0"]
+DP2_RTOL = 1e-2
+SAMPLER_COUNT = BATCH + 3
+
+
+def dp_config(args, workdir, **parallel):
+    from locate_tpu_torch.config import get_config, parse_cli_overrides
+
+    cfg = get_config(args[0], parse_cli_overrides(args[1:]))
+    return dataclasses.replace(cfg, workdir=workdir,
+                               parallel=dataclasses.replace(cfg.parallel, **parallel))
+
+
+def dp_child(kind, *args):
+    """A child process running `dp_nccl_child` or `dp_gloo_child` of this
+    file (output to <out>.log); returns the process."""
+    code = f"import sys, chip_smoke; chip_smoke.dp_{kind}_child(*sys.argv[1:])"
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log = open(args[-1] + ".log", "w")
+    proc = subprocess.Popen([sys.executable, "-c", code, *map(str, args)], cwd=REPO, env=env,
+                            stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+def wait_children(procs, outs, timeout=900):
+    """Wait for the children; raise with a log's tail if one failed."""
+    try:
+        for proc, out in zip(procs, outs):
+            rc = proc.wait(timeout=timeout)
+            with open(out + ".log") as f:
+                log = f.read()
+            check(rc == 0, f"a data-parallel child exited {rc}: {log[-4000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    results = []
+    for out in outs:
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def step_times(mesh, calls=2):
+    """ms a step of lsun_bedroom_128's step at batch 64 on `mesh`, on
+    bench's config (no R1, no guards: one graph variant): eager steps
+    (after two warm ones) and a DP_STEPS-step graph call (after the call
+    that captures it), on one fixed batch."""
+    from locate_tpu_torch import cli
+    from locate_tpu_torch.models.gan import build_gan
+    from locate_tpu_torch.parallel.sharding import make_step_for
+    from locate_tpu_torch.train.state import create_train_state
+    from locate_tpu_torch.train.step import make_multi_step
+
+    cfg = cli.bench_config(BATCH, [f"spc={DP_STEPS}"])
+    gan = build_gan(cfg, "cuda", seed=0)
+    state = create_train_state(cfg, gan, mesh=mesh if mesh.group is not None else None)
+    step = make_step_for(cfg, gan, mesh)
+    batch = fixed_batch(BATCH)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    out = {}
+    for name, fn, n, reps in (("eager", lambda: step(state, batch), 1, calls),
+                              ("graph", None, DP_STEPS, 1)):
+        if fn is None:
+            multi = make_multi_step(step, DP_STEPS)
+            batches = stacked_batch(DP_STEPS, BATCH)
+            multi(state, batches)  # captures
+
+            def fn():
+                return multi(state, batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / (reps * n)
+    del gan, state, step
+    release_memory()
+    return out
+
+
+def dp_nccl_child(out):
+    """The NCCL phase's child: `train()` of DP_ARGS without a group, then
+    in a world-size-1 NCCL group at zero_stage 0, 1 and 3 (each run's
+    launches counted), `ShardedSampler` against `generate_samples`, the
+    step's times on both meshes. Writes its readings to `out`."""
+    from locate_tpu_torch.io.sampling import ShardedSampler, generate_samples
+    from locate_tpu_torch.models.gan import build_gan
+    from locate_tpu_torch.parallel.distributed import initialize_from_env
+    from locate_tpu_torch.parallel.dryrun import free_port
+    from locate_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from locate_tpu_torch.train.loop import train
+
+    torch.backends.cudnn.deterministic = True  # two runs of the loop, bit for bit
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scratch = os.path.dirname(out)
+
+    def run(name, **parallel):
+        workdir = os.path.join(scratch, name)
+        reset_counters()
+        train(dp_config(DP_ARGS, workdir, **parallel), device="cuda")
+        torch.cuda.synchronize()
+        return (read_counters(), [{k: v for k, v in r.items() if k not in TIMING_KEYS}
+                                  for r in loop_records(workdir)],
+                checkpoint_payload(workdir, DP_STEPS))
+
+    _, ref_records, ref = run("no_group")
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{free_port()}", NUM_PROCESSES="1",
+                      PROCESS_ID="0", LOCAL_RANK="0")
+    grouped = initialize_from_env()
+    mesh = make_mesh(dp_config(DP_ARGS, scratch).parallel)
+    result = dict(group=grouped, backend=torch.distributed.get_backend(), world=mesh.world,
+                  runs={})
+    for zero in (0, 1, 3):
+        launches, records, payload = run(f"nccl_zero{zero}", zero_stage=zero)
+        diff = {k: float((t.double() - ref["tensors"][k].double()).abs().max())
+                for k, t in payload["tensors"].items() if not torch.equal(t, ref["tensors"][k])}
+        if not torch.equal(payload["rng"], ref["rng"]):
+            diff["rng"] = "differs"
+        if records != ref_records:
+            diff["metrics"] = [records, ref_records]
+        result["runs"][f"zero{zero}"] = dict(launches=launches, differences=diff)
+    cfg = dp_config(DP_ARGS, scratch)
+    gan = build_gan(cfg, "cuda", seed=3)
+    model = gan.generator.eval()
+    sampled = ShardedSampler(model, None, mesh)(torch.Generator("cuda").manual_seed(5),
+                                                SAMPLER_COUNT)
+    want = generate_samples(model, torch.Generator("cuda").manual_seed(5), SAMPLER_COUNT)
+    result["sampler_equal"] = bool(sampled.shape == want.shape and (sampled == want).all())
+    del gan, model
+    release_memory()
+    result["times"] = {"no_group": step_times(Mesh()), "nccl_group": step_times(mesh)}
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def phase_dp_nccl():
+    """Phase 37, "dp-one-rank-nccl": in one child, `initialize_from_env()`
+    makes a world-size-1 NCCL group on the card; `train()` of
+    lsun_bedroom_128 as shipped (DP_ARGS: 8 steps in one call of a CUDA
+    graph, R1 at step 0) in the group, whose collectives the graph
+    captures, at zero_stage 0, 1 and 3, each equal bit for bit (final
+    checkpoint, generator, every logged metric) to the same run without a
+    group, each launching the step's six kernels; `ShardedSampler` equal
+    to `generate_samples` at a count of 67; the step's ms eager and as a
+    graph, with and without the group."""
+    import tempfile
+
+    scratch = tempfile.mkdtemp(prefix="smoke_dp1_")
+    out = os.path.join(scratch, "result.json")
+    t0 = time.perf_counter()
+    (res,) = wait_children([dp_child("nccl", out)], [out])
+    check(res["group"] and res["backend"] == "nccl" and res["world"] == 1,
+          f"the child's group: {res}")
+    for name, run in res["runs"].items():
+        check(not run["differences"], f"the NCCL run at {name} differs from the run without a "
+                                      f"group: {run['differences']}")
+        for kernel in DP_KERNELS:
+            check(run["launches"][kernel] > 0, f"the NCCL run at {name} never launched {kernel}")
+    check(res["sampler_equal"], "ShardedSampler differs from generate_samples")
+    shutil.rmtree(scratch)
+    say("dp-one-rank-nccl", config=" ".join(DP_ARGS), runs=res["runs"],
+        sampler_count=SAMPLER_COUNT, sampler_equal=True, step_ms=res["times"],
+        child_seconds=time.perf_counter() - t0)
+    return res
+
+
+def dp_gloo_child(rank, port, workdir, out):
+    """One rank of the gloo phase: `train()` of DP2_ARGS on the card in a
+    gloo group of two; writes its launches and each logged metric (the
+    hook "on_metrics") to `out`."""
+    from locate_tpu_torch.parallel.distributed import initialize_from_env
+    from locate_tpu_torch.train.loop import train
+
+    os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port}", NUM_PROCESSES="2",
+                      PROCESS_ID=str(rank), LOCAL_RANK="0")
+    check(initialize_from_env(backend="gloo"), "no group")
+    logged, clock = [], []
+    reset_counters()
+    t0 = time.perf_counter()
+    train(dp_config(DP2_ARGS, workdir), device="cuda", hooks={"on_metrics": logger(logged, clock)})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(dict(rank=int(rank), launches=read_counters(), logged=logged,
+                       train_seconds=seconds, step2_seconds=clock[1] - clock[0]), f)
+
+
+def logger(logged, clock):
+    """A hook "on_metrics" that keeps each step's metrics and the time it
+    was called (every step logs: the metrics' copy to the host has waited
+    for the step, so the difference of two readings is a step's time)."""
+    def hook(step, metrics):
+        clock.append(time.perf_counter())
+        logged.append(dict(metrics, step=step))
+    return hook
+
+
+def phase_dp_gloo():
+    """Phase 38, "dp-two-ranks-gloo" (returns its line and rank 0's
+    launches): two children on the one card, a gloo
+    group ("gspmd", zero_stage 0, the preset's options: all_reduce and
+    broadcast only), `train()` of DP2_ARGS (global batch 64, 32 a rank, 2
+    eager steps, R1 at the first); in this process the same run without a
+    group. Every metric bitwise equal on both ranks, each within 1e-2
+    relative of the one-process run's (bf16, half the batch a launch; the
+    worst ratio printed), metrics.jsonl written by rank 0 alone (each step
+    once), the six kernels launched on both ranks."""
+    import tempfile
+
+    from locate_tpu_torch.parallel.dryrun import free_port
+    from locate_tpu_torch.train.loop import train
+
+    scratch = tempfile.mkdtemp(prefix="smoke_dp2_")
+    workdir = os.path.join(scratch, "run")
+    outs = [os.path.join(scratch, f"rank{r}.json") for r in range(2)]
+    port = free_port()
+    t0 = time.perf_counter()
+    ranks = wait_children([dp_child("gloo", r, port, workdir, o) for r, o in enumerate(outs)],
+                          outs)
+    child_seconds = time.perf_counter() - t0
+    one = dp_config(DP2_ARGS, os.path.join(scratch, "one"))
+    one_clock = []
+    train(one, device="cuda", hooks={"on_metrics": logger([], one_clock)})
+    release_memory()
+    strip = [{k: v for k, v in r.items() if k not in TIMING_KEYS} for r in ranks[0]["logged"]]
+    check(strip == [{k: v for k, v in r.items() if k not in TIMING_KEYS}
+                    for r in ranks[1]["logged"]], "the two ranks logged different metrics")
+    written = loop_records(workdir)
+    check([r["step"] for r in written] == list(range(1, DP2_STEPS + 1)),
+          f"metrics.jsonl holds steps {[r['step'] for r in written]}")
+    want = loop_records(one.workdir)
+    worst, where = 0.0, None
+    for got, ref in zip(written, want):
+        for k, v in ref.items():
+            if k in TIMING_KEYS or k == "step":
+                continue
+            ratio = abs(got[k] - v) / max(abs(got[k]), abs(v), 1e-30)
+            if ratio > worst:
+                worst, where = ratio, f"step {ref['step']} {k}"
+    check(worst <= DP2_RTOL, f"two gloo ranks against one process: {where} off by {worst}")
+    for r in ranks:
+        for kernel in DP_KERNELS:
+            check(r["launches"][kernel] > 0, f"rank {r['rank']} never launched {kernel}")
+    shutil.rmtree(scratch)
+    out = dict(config=" ".join(DP2_ARGS), worst_relative_difference=worst, worst_at=where,
+               rtol=DP2_RTOL, metrics_rank0=written,
+               step2_seconds={**{r["rank"]: r["step2_seconds"] for r in ranks},
+                              "one_process": one_clock[1] - one_clock[0]},
+               launches={r["rank"]: {k: r["launches"][k] for k in DP_KERNELS} for r in ranks},
+               train_seconds={r["rank"]: r["train_seconds"] for r in ranks},
+               child_seconds=child_seconds)
+    say("dp-two-ranks-gloo", **out)
+    return out, ranks[0]["launches"]
 
 
 def cuobjdump_path() -> str:
@@ -4788,8 +5117,8 @@ def phase_recipes(bench_kernel):
     eager steps (cuDNN deterministic for the comparison), crossing an R1
     step (and a PL step);
     the softmax gate kernels' launches a step (none 0); step times and the
-    idle share. Then `bench 128 20 fused` beside phase 7's `bench 128
-    20`."""
+    idle share. Then `bench 128 BENCH_CALLS fused` (16 steps a call) beside
+    phase 7's bench."""
     from locate_tpu_torch.config import get_config
 
     rows = {}
@@ -4813,7 +5142,7 @@ def phase_recipes(bench_kernel):
         rows[name] = row
         say(f"recipe-{name}", **row)
     t0 = time.perf_counter()
-    fused = run_cli(["bench", "128", "20", "fused"])
+    fused = run_cli(["bench", "128", BENCH_CALLS, "fused"])
     check(fused["steps_per_call"] == 16 and fused["value"] > 0, f"bench fused: {fused}")
     say("bench-fused", fused=fused, alternating=bench_kernel,
         fused_over_alternating=fused["value"] / bench_kernel["value"],
@@ -5121,6 +5450,8 @@ def main() -> int:
     say("card", torch_name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
     phase_build(fa, fs, fl, build)
+    for phase, cut in CUTS.items():
+        say("cut", where=phase, cut=cut)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5206,6 +5537,10 @@ def main() -> int:
     for kernel in ("softmax_stats", "softmax_apply"):
         check(eval_launches[kernel] > 0, f"the eval never launched {kernel}")
 
+    # data parallelism: a world-size-1 NCCL group, and two gloo ranks
+    dp_nccl = phase_dp_nccl()
+    _, dp_gloo_launches = phase_dp_gloo()
+
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
                       gate_routes.get(k)) for k in KERNELS]
     out += [stage_entry(k, stage_times, stage_err, ffhq_launches, routes=ffhq_routes,
@@ -5221,7 +5556,9 @@ def main() -> int:
                          "launches_train_loop": loop_launches,
                          "launches_style_train": style_train,
                          "launches_style_serve": style_serve,
-                         "launches_eval": eval_launches})
+                         "launches_eval": eval_launches,
+                         "launches_dp_nccl": dp_nccl["runs"]["zero0"]["launches"],
+                         "launches_dp_gloo_rank0": dp_gloo_launches})
     check_style_launches(out)
     for entry in out:
         check(entry["launches"] > 0, f"{entry['name']} never launched on its main path")

@@ -407,6 +407,15 @@ def _restore(cfg: Config, ckpt_dir: str, device):
     return gan, state
 
 
+def _join_group(flags) -> bool:
+    """`parallel/distributed.py:initialize_from_env` with the backend of the
+    command's device: gloo for `--device=cpu`, else NCCL on a card."""
+    from locate_tpu_torch.parallel.distributed import initialize_from_env
+
+    cpu = str(flags.get("device") or "").startswith("cpu")
+    return initialize_from_env(backend="gloo" if cpu else None)
+
+
 def _weights(state) -> str:
     return "ema" if state.ema_params is not None else "g"
 
@@ -418,7 +427,11 @@ def cmd_train(argv: List[str]) -> int:
     run (to <workdir>/trace without a DIR). `--debug-nans` runs under
     `torch.autograd.detect_anomaly(check_nan=True)`, which raises at the
     backward that made a NaN; a CUDA graph cannot run in that mode, so on
-    the card it needs `train.steps_per_call=1`."""
+    the card it needs `train.steps_per_call=1`. Launched as several
+    processes (`torchrun --nproc_per_node=N -m locate_tpu_torch train ...`,
+    or with the JAX package's COORDINATOR_ADDRESS, NUM_PROCESSES and
+    PROCESS_ID) the processes join one group first and train data-parallel
+    (`parallel/distributed.py`, `train/loop.py`)."""
     import contextlib
 
     import torch
@@ -429,6 +442,7 @@ def cmd_train(argv: List[str]) -> int:
 
     preset = argv[0] if argv else "cifar10_32"
     flags, bare = _split_args(argv[1:])
+    _join_group(flags)  # a no-op in one process; launchers set the environment
     cfg = get_config(preset, parse_cli_overrides(bare))
     device = resolve_device(_str_flag(flags, "device"))
     anomaly = contextlib.nullcontext()
@@ -448,19 +462,24 @@ def cmd_train(argv: List[str]) -> int:
 
 def cmd_bench_sample(argv: List[str]) -> int:
     """`bench-sample PRESET [overrides] [--batch N] [--steps N]
-    [--checkpoint DIR] [--device D]`: serving throughput, images/sec
+    [--checkpoint DIR] [--device D] [--dp]`: serving throughput, images/sec
     generating in `train.compute_dtype`, device compute and the uint8 copy
     to the host included; on the card each batch is one replay of a CUDA
     graph of the latent draw, the forward and the uint8 conversion
     (`train/graph.py:SampleGraph`). Serves the latest checkpoint's EMA
     generator (of `--checkpoint`, by default <workdir>/checkpoints) when
     there is one, else freshly initialized weights (throughput does not
-    depend on their values)."""
+    depend on their values). `--dp` splits each request batch over the
+    process group's ranks (`io/sampling.py:ShardedSampler`, eager
+    forwards; one rank without a group), and rank 0 prints."""
     import torch
 
     from locate_tpu_torch.device import device_name, resolve_device
     from locate_tpu_torch.io.checkpoint import CheckpointManager
-    from locate_tpu_torch.io.sampling import generate_samples, serving_generator
+    from locate_tpu_torch.io.sampling import (ShardedSampler, generate_samples,
+                                              serving_generator)
+    from locate_tpu_torch.parallel.distributed import local_device
+    from locate_tpu_torch.parallel.mesh import make_mesh
     from locate_tpu_torch.models.gan import model_config
     from locate_tpu_torch.models.generator import build_generator
     from locate_tpu_torch.train.graph import SampleGraph
@@ -468,15 +487,17 @@ def cmd_bench_sample(argv: List[str]) -> int:
     preset = argv[0] if argv else "cifar10_32"
     flags, bare = _split_args(argv[1:])
     overrides = parse_cli_overrides(bare)
-    if flags.get("dp"):
-        raise SystemExit("--dp: data-parallel serving (ShardedSampler) waits for the "
-                         "parallel slice of the port (ROADMAP.md Queue 1 item 9)")
     cfg = get_config(preset, overrides)
+    dp = bool(flags.get("dp"))
+    mesh = None
+    if dp:
+        _join_group(flags)
+        mesh = make_mesh(cfg.parallel)
     batch = int(_str_flag(flags, "batch", "64"))
     steps = int(_str_flag(flags, "steps", "20"))
     if batch < 1 or steps < 1:
         raise SystemExit("usage: --batch and --steps must be >= 1")
-    device = resolve_device(_str_flag(flags, "device"))
+    device = local_device(resolve_device(_str_flag(flags, "device")))
     ckpt_dir = _str_flag(flags, "checkpoint") or os.path.join(cfg.workdir, "checkpoints")
     weights = "init"
     # no manager without a directory: it would create one
@@ -488,7 +509,13 @@ def cmd_bench_sample(argv: List[str]) -> int:
         model = build_generator(model_config(cfg), cfg.train.compute_dtype, device).eval()
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    if device.type == "cuda":  # one captured graph (its warm-up builds the kernels)
+    if dp:
+        sampler = ShardedSampler(model, None, mesh)
+
+        def sample():
+            return sampler(gen, batch)
+        sample()  # warm-up
+    elif device.type == "cuda":  # one captured graph (its warm-up builds the kernels)
         sample = SampleGraph(model, gen, batch)
     else:
         def sample():
@@ -500,6 +527,8 @@ def cmd_bench_sample(argv: List[str]) -> int:
         for _ in range(steps):
             sample()
         best = min(best, time.perf_counter() - t0)
+    if mesh is not None and not mesh.primary:
+        return 0
     print(json.dumps({
         "metric": (
             f"generator sampling images/sec ({cfg.model.resolution}px, "
@@ -509,8 +538,8 @@ def cmd_bench_sample(argv: List[str]) -> int:
         "value": round(steps * batch / best, 2),
         "unit": "images/sec",
         "sec_per_batch": round(best / steps, 5),
-        "cuda_graph": device.type == "cuda",
-        "devices": 1,
+        "cuda_graph": device.type == "cuda" and not dp,
+        "devices": mesh.world if dp else 1,
         "weights": weights,
     }))
     return 0
@@ -618,6 +647,22 @@ def cmd_export(argv: List[str]) -> int:
     return 0
 
 
+def state_bytes_per_device(n_g: int, n_d: int, tcfg, dp: int, zero_stage: int) -> float:
+    """The f32 training state a rank keeps: both nets' parameters and Adam
+    moments and G's EMA shadow. ZeRO-1 and ZeRO-3 shard the moments and
+    the EMA over the data axis; the parameters stay whole on every rank at
+    either stage (`parallel/sharding.py`; `locate-tpu info` divides them
+    at stage 3, which the port does not do yet: ROADMAP.md Queue 1 item
+    15). The port's slices are these sizes, each rounded up to a whole
+    element a rank."""
+    n_total = n_g + n_d
+    ema_bytes = n_g * (2 if tcfg.ema_dtype == "bfloat16" else 4)
+    param_bytes = n_total * 4
+    opt_bytes = (n_total * 2 * 4 + (ema_bytes if tcfg.ema_decay > 0 else 0)) / (
+        dp if zero_stage >= 1 else 1)
+    return param_bytes + opt_bytes
+
+
 def cmd_info(argv: List[str]) -> int:
     """`info PRESET [overrides]`: model and memory planning without a
     device: stage shapes, parameter counts (G, D, total) and the training
@@ -625,13 +670,15 @@ def cmd_info(argv: List[str]) -> int:
     as the ZeRO stage and the data-parallel width say). Both nets are
     built on `torch.device("meta")`, which allocates nothing, so ffhq_512
     answers at once. The JSON has the keys and values of `locate-tpu
-    info`; `parallel.data_parallel=-1` counts the visible cards (1 with
-    none)."""
+    info`; `parallel.data_parallel=-1` counts the job's processes, one a
+    device (`parallel/distributed.py:world_size`: the group's, or the
+    launcher's WORLD_SIZE, 1 in a single process)."""
     import torch
 
     from locate_tpu_torch.models.discriminator import Discriminator
     from locate_tpu_torch.models.gan import model_config
     from locate_tpu_torch.models.generator import as_dtype, generator_of
+    from locate_tpu_torch.parallel.distributed import world_size
 
     preset = argv[0] if argv else "cifar10_32"
     _, bare = _split_args(argv[1:])
@@ -642,16 +689,10 @@ def cmd_info(argv: List[str]) -> int:
         n_g = sum(p.numel() for p in g.parameters())
         n_d = sum(p.numel() for p in Discriminator(mcfg, cd).parameters())
     n_total = n_g + n_d
-    # f32 training state a replica: params + Adam mu/nu (both nets) + the
-    # EMA shadow of G; ZeRO-1 shards the moments and the EMA over the data
-    # axis, ZeRO-3 the params too
-    ema_bytes = n_g * (2 if cfg.train.ema_dtype == "bfloat16" else 4)
     dp = cfg.parallel.data_parallel
-    dp = max(torch.cuda.device_count(), 1) if dp == -1 else dp
+    dp = world_size() if dp == -1 else dp
     z = cfg.parallel.zero_stage
-    param_bytes = n_total * 4 / (dp if z >= 3 else 1)
-    opt_bytes = (n_total * 2 * 4 + (ema_bytes if cfg.train.ema_decay > 0 else 0)) / (
-        dp if z >= 1 else 1)
+    state_bytes = state_bytes_per_device(n_g, n_d, cfg.train, dp, z)
     batch_bytes = (cfg.train.global_batch * cfg.model.resolution ** 2
                    * cfg.model.img_channels) // max(dp, 1)
     info = {
@@ -666,8 +707,8 @@ def cmd_info(argv: List[str]) -> int:
         "params_total": n_total,
         "zero_stage": z,
         "data_parallel": dp,
-        "state_bytes_per_device": int(param_bytes + opt_bytes),
-        "state_mib_per_device": round((param_bytes + opt_bytes) / 2**20, 1),
+        "state_bytes_per_device": int(state_bytes),
+        "state_mib_per_device": round(state_bytes / 2**20, 1),
         "input_bytes_per_device_per_step": int(batch_bytes),
         "global_batch": cfg.train.global_batch,
         "compute_dtype": cfg.train.compute_dtype,
@@ -848,7 +889,9 @@ def cmd_eval(argv: List[str]) -> int:
       --swd                  sliced Wasserstein distance over Laplacian-
                              pyramid patches (swd_<res> x1e3, swd_avg;
                              needs the dataset)
-      --dp                   data-parallel eval: not ported yet
+      --dp                   split generation and feature extraction over
+                             the process group's ranks (one rank without
+                             a group); rank 0 prints and writes
     """
     import numpy as np
 
@@ -857,14 +900,17 @@ def cmd_eval(argv: List[str]) -> int:
     from locate_tpu_torch.io.fid import (NpzFeatureExtractor, RandomConvFeatures,
                                          evaluate_generator, load_stats, save_stats)
     from locate_tpu_torch.io.sampling import serving_generator
+    from locate_tpu_torch.parallel.distributed import local_device
+    from locate_tpu_torch.parallel.mesh import make_mesh
 
     preset = argv[0] if argv else "cifar10_32"
     flags, bare = _split_args(argv[1:])
     cfg = get_config(preset, parse_cli_overrides(bare))
+    mesh = None
     if flags.get("dp"):
-        raise SystemExit("--dp: data-parallel eval (sharded generation and feature "
-                         "extraction) waits for the parallel slice of the port "
-                         "(ROADMAP.md Queue 1 item 9)")
+        _join_group(flags)
+        mesh = make_mesh(cfg.parallel)
+    primary = mesh is None or mesh.primary
     ref_stats_path = _str_flag(flags, "ref-stats")
     stats_out = _str_flag(flags, "stats-out")
     real_stats_out = _str_flag(flags, "real-stats-out")
@@ -886,7 +932,7 @@ def cmd_eval(argv: List[str]) -> int:
     n_samples = int(_str_flag(flags, "samples", "1024"))
     prdc_k = _str_flag(flags, "prdc-k")
     is_flag = flags.get("inception-score")
-    device = resolve_device(_str_flag(flags, "device"))
+    device = local_device(resolve_device(_str_flag(flags, "device")))
     ckpt_dir = _str_flag(flags, "checkpoint") or os.path.join(cfg.workdir, "checkpoints")
     gan, state = _restore(cfg, ckpt_dir, device)
     model, step = serving_generator(gan, state), state.step
@@ -903,8 +949,21 @@ def cmd_eval(argv: List[str]) -> int:
         out=arrays if (stats_out or real_stats_out or features_out) else None,
         prdc_k=int(prdc_k) if prdc_k else None,
         is_splits=(10 if is_flag is True else int(is_flag)) if is_flag else None,
-        seconds=seconds,
+        seconds=seconds, mesh=mesh,
     )
+    if flags.get("per-class"):
+        # per-class FID shows class dropping that the aggregate hides
+        per = {}
+        for cls in range(cfg.model.num_classes):
+            r = evaluate_generator(model, dataset, n_samples=n_samples, extractor=extractor,
+                                   label=cls, mesh=mesh)
+            per[cls] = {"fid": r["fid"], "kid": r["kid"], "n_real": r["n_real"]}
+        result["per_class"] = per
+        fids = [v["fid"] for v in per.values()]
+        result["per_class_fid_worst"] = max(fids)
+        result["per_class_fid_mean"] = float(np.mean(fids))
+    if not primary:
+        return 0
     if stats_out:
         save_stats(stats_out, arrays["fake_mu"], arrays["fake_sigma"],
                    n=np.int64(result["n_fake"]))
@@ -919,17 +978,6 @@ def cmd_eval(argv: List[str]) -> int:
             feats["real_features"] = arrays["real_features"]
         np.savez(features_out, **feats)
         result["features_out"] = features_out
-    if flags.get("per-class"):
-        # per-class FID shows class dropping that the aggregate hides
-        per = {}
-        for cls in range(cfg.model.num_classes):
-            r = evaluate_generator(model, dataset, n_samples=n_samples, extractor=extractor,
-                                   label=cls)
-            per[cls] = {"fid": r["fid"], "kid": r["kid"], "n_real": r["n_real"]}
-        result["per_class"] = per
-        fids = [v["fid"] for v in per.values()]
-        result["per_class_fid_worst"] = max(fids)
-        result["per_class_fid_mean"] = float(np.mean(fids))
     if flags.get("swd"):
         from locate_tpu_torch.io.swd import swd_generator
 

@@ -649,8 +649,9 @@ class ParallelConfig:
     #   1 — shard Adam mu/nu and the EMA shadow over `data` (ZeRO-1: the
     #       partitioner turns the grad all-reduce into reduce-scatter +
     #       sharded update + param all-gather)
-    #   3 — also shard the params themselves over `data` (FSDP/ZeRO-3:
-    #       all-gather at use inside fwd/bwd, nothing replicated)
+    #   3 — in the JAX package, also shard the params themselves over
+    #       `data` (FSDP/ZeRO-3); the port keeps them whole, as at stage 1
+    #       (parallel/sharding.py; ROADMAP.md Queue 1 item 15)
     # Pure memory/layout change: trajectories are identical to stage 0
     # (pinned by tests/test_parallel.py::test_zero*_matches_replicated).
     zero_stage: int = 0

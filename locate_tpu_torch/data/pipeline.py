@@ -19,9 +19,10 @@
     event has completed. On the CPU the stage passes the arrays through
     (`torch.from_numpy`).
 
-Several hosts: each process passes its (process_index, process_count), so
-the index sets are disjoint; setting up the processes is the parallel
-slice's work (ROADMAP.md Queue 1 item 9).
+Several processes: each takes its (process_index, process_count), by
+default its rank and the world size of the process group
+(`parallel/distributed.py`), so the index sets are disjoint and each
+rank's batch is the JAX package's process-local batch of that index.
 """
 
 from __future__ import annotations
@@ -295,22 +296,29 @@ def make_input_pipeline(
     *,
     device: Union[str, torch.device, None] = None,
     seed: int = 0,
-    process_index: int = 0,
-    process_count: int = 1,
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
     skip_batches: int = 0,
     steps_per_call: int = 1,
     d_steps: int = 1,
 ) -> InputPipeline:
-    """Dataset -> producer thread -> device prefetch, one shard a process.
+    """Dataset -> producer thread -> device prefetch, one shard a process
+    (`process_index` / `process_count`: by default the process group's rank
+    and world size, 0 and 1 without a group).
     `skip_batches` deterministically fast-forwards the stream for resume
     (counted in OPTIMIZER steps, whatever `steps_per_call`; with a critic
     ratio each optimizer step consumes `d_steps` batches, which the
     fast-forward accounts for). The device is resolved before the producer
     starts, so a CUDA device without a card raises with no thread left."""
+    import torch.distributed as dist
+
     from locate_tpu_torch.data.datasets import make_dataset
     from locate_tpu_torch.device import resolve_device
 
-    pi, pc = process_index, process_count
+    grouped = dist.is_initialized()
+    pi = process_index if process_index is not None else (dist.get_rank() if grouped else 0)
+    pc = (process_count if process_count is not None
+          else (dist.get_world_size() if grouped else 1))
     if global_batch % pc:
         raise ValueError(f"global_batch {global_batch} not divisible by {pc} hosts")
     device = resolve_device(device)

@@ -22,6 +22,12 @@ writes and renames. Ordered on the step's stream, the copies read the
 state before any later step writes it in place. The host buffers are
 reused, so the next `save` first waits for the writer to release them;
 a failed background write raises there (or at `wait` / `close`).
+
+In a process group (`mesh`) the format stays the same and does not depend
+on the world size: a save all-gathers the ZeRO slices of the state
+(`parallel/sharding.py:gathered_tensors`, a collective every rank joins)
+and rank 0 alone writes; a restore reads the file on every rank and keeps
+each rank's slice, so a run resumes at another world size.
 """
 
 from __future__ import annotations
@@ -69,8 +75,9 @@ def _check_layout(net: str, params: FlatParams, names: List[str], shapes: List[l
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = False):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = False, mesh=None):
         self.directory = os.path.abspath(directory)
+        self.primary = mesh is None or mesh.primary
         os.makedirs(self.directory, exist_ok=True)
         self.keep = keep
         self._async = async_save
@@ -81,13 +88,19 @@ class CheckpointManager:
     # ----------------------------------------------------------------- save
     def save(self, state: TrainState, step: Optional[int] = None) -> None:
         """Save `state` as checkpoint `step` (by default its own step; the
-        payload keeps the state's step either way)."""
+        payload keeps the state's step either way). In a group every rank
+        calls it and rank 0 writes."""
+        from locate_tpu_torch.parallel.sharding import gathered_tensors
+
+        full = gathered_tensors(state)
+        if not self.primary:
+            return
         self.wait()  # the host buffers are free; a failed background write raises
         step = state.step if step is None else int(step)
         for name in os.listdir(self.directory):
             if _TORN.match(name):
                 shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
-        tensors, ready = self._to_host(state)
+        tensors, ready = self._to_host(state, full)
         (g_names, g_shapes), (d_names, d_shapes) = _layout(state.g_params), _layout(state.d_params)
         payload = {"format": FORMAT, "step": state.step, "rng": state.rng.get_state(),
                    "g_names": g_names, "g_shapes": g_shapes,
@@ -102,15 +115,15 @@ class CheckpointManager:
                                         name=f"checkpoint-{step}")
         self._writer.start()
 
-    def _to_host(self, state: TrainState):
-        """Copies of the state's tensors in the reused host buffers, and the
-        event after the copies on the card (None on the CPU, where the
-        copies are done when this returns)."""
+    def _to_host(self, state: TrainState, full: Dict[str, torch.Tensor]):
+        """Copies of the state's (gathered) tensors in the reused host
+        buffers, and the event after the copies on the card (None on the
+        CPU, where the copies are done when this returns)."""
         device = state.g_params.flat.device
         on_card = device.type == "cuda"
         out = {}
         with torch.no_grad():
-            for name, t in state_tensors(state).items():
+            for name, t in full.items():
                 buf = self._host.get(name)
                 if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
                     buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=on_card)
@@ -178,7 +191,10 @@ class CheckpointManager:
             raise ValueError(f"{path}: format {payload.get('format')!r}, want {FORMAT!r}")
         _check_layout("G", state.g_params, payload["g_names"], payload["g_shapes"])
         _check_layout("D", state.d_params, payload["d_names"], payload["d_shapes"])
+        from locate_tpu_torch.parallel.sharding import sharded_tensors
+
         saved, live = payload["tensors"], state_tensors(state)
+        shards = sharded_tensors(state)
         if "ema_params" in saved and "ema_params" not in live:
             raise ValueError(
                 f"{path} holds an EMA shadow but the run has none (train.ema_decay = 0): "
@@ -193,19 +209,21 @@ class CheckpointManager:
             if name not in saved:
                 raise ValueError(f"{path} has no tensor {name!r}")
             src = saved[name]
-            if src.shape != t.shape or src.dtype != t.dtype:
+            shape = (shards[name].n,) if name in shards else t.shape
+            if src.shape != shape or src.dtype != t.dtype:
                 raise ValueError(f"{path}: {name} is {src.dtype} {tuple(src.shape)}, the "
-                                 f"state's {t.dtype} {tuple(t.shape)}")
+                                 f"state's {t.dtype} {tuple(shape)}")
         extra = sorted(set(saved) - set(live))
         if extra:
             raise ValueError(f"{path} holds tensors the state has not: {extra}")
         with torch.no_grad():
             for name, t in live.items():
                 if name in saved:
-                    t.copy_(saved[name])
+                    t.copy_(shards[name].take(saved[name]) if name in shards else saved[name])
             if "ema_params" in backfill:
                 dtype = str(state.ema_params.dtype).removeprefix("torch.")
-                state.ema_params.copy_(ema_init(state.g_params.flat, dtype))
+                state.ema_params.copy_(state.g_params.local(ema_init(state.g_params.flat,
+                                                                     dtype)))
             if "step_tensor" in backfill:
                 state.step_tensor.fill_(int(payload["step"]))
         state.step = int(payload["step"])

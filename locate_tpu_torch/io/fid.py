@@ -23,6 +23,14 @@ call (a feature net at TF32 would move the score between devices):
 the fake latents of the batch at offset i are `normal(fold_in(
 prng_key(seed), i))`, so a JAX checkpoint carried across scores the same
 rFID in both packages. The eval draws nothing from any `torch.Generator`.
+
+The eval runs over a mesh (`parallel/mesh.py`; one process's mesh by
+default): each batch of latents (drawn whole on every rank) and of real
+images is padded to a multiple of the world by repeating its leading rows
+and each rank generates and extracts its rows (the JAX `_shard_batch`'s
+pad-and-trim); the features are all-gathered, and rank 0 computes the
+scores once and hands them to every rank. One process's mesh has no
+collectives: its rows are the whole batch and it gathers nothing.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from locate_tpu_torch.device import resolve_device
+from locate_tpu_torch.parallel.mesh import Mesh
 from locate_tpu_torch.utils import jax_random as jr
 
 Images = Union[np.ndarray, torch.Tensor]
@@ -332,11 +341,17 @@ class NpzFeatureExtractor:
 # ---------------------------------------------------------------------------
 
 
-def features_in_batches(images_u8: Images, extractor: FeatureFn,
-                        batch: int = 64) -> np.ndarray:
+def features_in_batches(images_u8: Images, extractor: FeatureFn, batch: int = 64,
+                        mesh: Optional[Mesh] = None,
+                        device: Optional[torch.device] = None) -> np.ndarray:
+    """The extractor's features of `images_u8`, `batch` images a call; with
+    `mesh`, each batch's rows split over its ranks (`rank_rows`),
+    extracted where they lie, all-gathered on `device` and trimmed."""
+    mesh = mesh or Mesh()
     outs = []
     for i in range(0, len(images_u8), batch):
-        outs.append(extractor(images_u8[i : i + batch]))
+        chunk = images_u8[i : i + batch]
+        outs.append(gather_rows(extractor(rank_rows(chunk, mesh)), len(chunk), mesh, device))
     return np.concatenate(outs, axis=0)
 
 
@@ -345,11 +360,13 @@ def model_device(model: torch.nn.Module) -> torch.device:
 
 
 def generate_from_key(model: torch.nn.Module, key: np.ndarray, count: int,
-                      labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      labels: Optional[torch.Tensor] = None,
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
     """uint8 NHWC images on the model's device from the JAX package's
     latents `normal(key, (count, latent_dim))`, drawn on the host; labels
     arange(count) % num_classes for a conditional model (`locate_tpu/io/
-    sampling.py:generate_samples`)."""
+    sampling.py:generate_samples`). With `mesh`, this rank's rows of them
+    (`rank_rows`)."""
     from locate_tpu_torch.io.sampling import to_uint8_tensor
 
     cfg = model.config
@@ -357,20 +374,52 @@ def generate_from_key(model: torch.nn.Module, key: np.ndarray, count: int,
     z = torch.from_numpy(jr.normal(key, (count, cfg.latent_dim))).to(device)
     if labels is None and cfg.num_classes:
         labels = torch.arange(count, device=device) % cfg.num_classes
+    if mesh is not None:
+        z = rank_rows(z, mesh)
+        labels = None if labels is None else rank_rows(labels, mesh)
     with torch.inference_mode():
         return to_uint8_tensor(model(z, labels))
 
 
+def _pad_rows(x, m: int):
+    """`x` (numpy or tensor) with its leading rows repeated up to m rows."""
+    n = len(x)
+    if m == n:
+        return x
+    reps = -(-(m - n) // n)
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x] + [x] * reps)[:m]
+    return np.concatenate([x] + [x] * reps)[:m]
+
+
+def rank_rows(x, mesh):
+    """This rank's rows of a batch padded to a multiple of the mesh's world
+    (`_pad_rows`)."""
+    per = -(-len(x) // mesh.world)
+    return _pad_rows(x, per * mesh.world)[mesh.rank * per:(mesh.rank + 1) * per]
+
+
+def gather_rows(features: np.ndarray, n: int, mesh: Mesh, device: torch.device) -> np.ndarray:
+    """Every rank's rows of a padded batch (`rank_rows`), in order, trimmed
+    to its n rows: the all-gather runs on `device` (one process's rows
+    are the batch, returned as they are)."""
+    if mesh.group is None:
+        return features[:n]
+    t = torch.from_numpy(np.ascontiguousarray(features)).to(device)
+    return mesh.all_gather(t).cpu().numpy()[:n]
+
+
 def generate_fakes(model: torch.nn.Module, n_samples: int, batch: int, seed: int,
-                   label: Optional[int] = None):
+                   label: Optional[int] = None, mesh: Optional[Mesh] = None):
     """The eval's fake batches: offset i draws from fold_in(prng_key(seed),
-    i) (`evaluate_generator`'s and `swd_generator`'s key scheme)."""
+    i) (`evaluate_generator`'s and `swd_generator`'s key scheme); with
+    `mesh`, this rank's rows of each (`generate_from_key`)."""
     key = jr.prng_key(seed)
     device = model_device(model)
     for i in range(0, n_samples, batch):
         n = min(batch, n_samples - i)
         labels = None if label is None else torch.full((n,), label, device=device)
-        yield generate_from_key(model, jr.fold_in(key, i), n, labels)
+        yield generate_from_key(model, jr.fold_in(key, i), n, labels, mesh)
 
 
 def real_examples(dataset, n_samples: int, seed: int, label: Optional[int] = None) -> np.ndarray:
@@ -428,6 +477,7 @@ def evaluate_generator(
     label: Optional[int] = None,
     is_splits: Optional[int] = None,
     seconds: Optional[dict] = None,
+    mesh: Optional[Mesh] = None,
 ) -> dict:
     """Generate n_samples with `model` (a serving generator), extract
     features of them and of as many dataset examples, and return {"fid",
@@ -445,16 +495,32 @@ def evaluate_generator(
     of the fakes through the extractor's classifier head `.fc`.
     `seconds` receives the time of generation, feature extraction, the
     real images' reading and the metrics ("generate", "features", "data",
-    "metrics")."""
+    "metrics"). `mesh` (a process group's, `parallel/mesh.py`; one
+    process's by default) splits generation and feature extraction over
+    its ranks, every rank calling this; the scores, computed on rank 0,
+    are every rank's result."""
     device = model_device(model)
     extractor = extractor or RandomConvFeatures(device=device)
     clock = _Clock(seconds, device)
+    mesh = mesh or Mesh()
     fake_feats = []
-    for imgs in generate_fakes(model, n_samples, batch, seed, label):
+    for i, imgs in zip(range(0, n_samples, batch),
+                       generate_fakes(model, n_samples, batch, seed, label, mesh)):
         clock.lap("generate")
-        fake_feats.append(extractor(imgs))
+        fake_feats.append(gather_rows(extractor(imgs), min(batch, n_samples - i), mesh, device))
         clock.lap("features")
     fake = np.concatenate(fake_feats, axis=0)
+    result = _scores(fake, dataset, extractor, n_samples, batch, seed, cache, ref_stats, out,
+                     prdc_k, label, is_splits, clock, mesh, device)
+    return mesh.broadcast_object(result)
+
+
+def _scores(fake, dataset, extractor, n_samples, batch, seed, cache, ref_stats, out, prdc_k,
+            label, is_splits, clock, mesh: Mesh, device) -> Optional[dict]:
+    """`evaluate_generator`'s scores from the fake features: the real
+    features split over the mesh's ranks, the scores on rank 0 only (None
+    elsewhere)."""
+    primary = mesh.primary
     mu_f, s_f = feature_stats(fake)
     if out is not None:
         out.update(fake_features=fake, fake_mu=mu_f, fake_sigma=s_f)
@@ -469,8 +535,9 @@ def evaluate_generator(
                 "fc.w/fc.b (scripts/convert_inception.py ships it)"
             )
         w, b = fc
-        is_mean, is_std = inception_score(fake @ w + b, splits=is_splits)
-        is_result = {"is_mean": is_mean, "is_std": is_std}
+        if primary:
+            is_mean, is_std = inception_score(fake @ w + b, splits=is_splits)
+            is_result = {"is_mean": is_mean, "is_std": is_std}
 
     if ref_stats is not None:
         if prdc_k is not None:
@@ -479,6 +546,8 @@ def evaluate_generator(
                 "has (mu, sigma) — pass a dataset (or precomputed features) "
                 "instead"
             )
+        if not primary:
+            return None
         mu_r, s_r = ref_stats
         result = {
             "fid": frechet_distance(mu_f, s_f, mu_r, s_r),
@@ -500,7 +569,7 @@ def evaluate_generator(
     if real is None:
         real_imgs = real_examples(dataset, n_samples, seed, label)
         clock.lap("data")
-        real = features_in_batches(real_imgs, extractor, batch)
+        real = features_in_batches(real_imgs, extractor, batch, mesh, device)
         clock.lap("features")
         if cache is not None:
             cache[cache_key] = real
@@ -508,6 +577,8 @@ def evaluate_generator(
     mu_r, s_r = feature_stats(real)
     if out is not None:
         out.update(real_features=real, real_mu=mu_r, real_sigma=s_r)
+    if not primary:
+        return None
     result = {
         "fid": frechet_distance(mu_f, s_f, mu_r, s_r),
         "kid": kid(fake, real),

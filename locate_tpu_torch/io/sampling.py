@@ -89,6 +89,55 @@ def generate_samples(model: nn.Module, gen: torch.Generator, count: int,
         return to_uint8_tensor(imgs).cpu().numpy()
 
 
+class ShardedSampler:
+    """Data-parallel serving (`locate_tpu/io/sampling.py:ShardedSampler`):
+    each request's batch split over the ranks of `mesh` (by default the
+    process group's, `parallel/mesh.py:make_mesh`), one forward a rank.
+    The latents are `generate_samples`' draw of `count` from `gen` on
+    every rank (so the generators stay in step, and from one seed the
+    images are `generate_samples`' images), padded with zero rows up to a
+    multiple of the world; rank 0 gathers the images and trims the
+    padding. `gan_or_model` is a GAN (its generator) or a generator
+    module; `weights` (parameters by name, e.g. `serving_weights(state)`)
+    go into a serving copy of it, else the module serves as it is."""
+
+    def __init__(self, gan_or_model, weights: Optional[Dict[str, torch.Tensor]] = None,
+                 mesh=None):
+        model = getattr(gan_or_model, "generator", gan_or_model)
+        if weights is not None:
+            from locate_tpu_torch.models.generator import build_generator
+
+            device = next(model.parameters()).device
+            model = build_generator(model.config, model.compute_dtype, device).eval()
+            model.load_state_dict(weights)
+        if mesh is None:
+            from locate_tpu_torch.config import ParallelConfig
+            from locate_tpu_torch.parallel.mesh import make_mesh
+
+            mesh = make_mesh(ParallelConfig(data_parallel=-1))
+        self.model, self.mesh = model, mesh
+
+    def __call__(self, gen: torch.Generator, count: int, labels: Optional[torch.Tensor] = None,
+                 truncation: float = 0.0) -> Optional[np.ndarray]:
+        """uint8 NHWC images of `count` samples on rank 0 (None on the
+        other ranks); every rank calls it."""
+        cfg, mesh = self.model.config, self.mesh
+        per = -(-count // mesh.world)
+        with torch.inference_mode():
+            z = sample_latents(gen, count, cfg.latent_dim, truncation)
+            if labels is None and cfg.num_classes:
+                labels = torch.arange(count, device=gen.device) % cfg.num_classes
+            pad = per * mesh.world - count
+            if pad:
+                z = torch.cat([z, z.new_zeros((pad, z.shape[1]))])
+                if labels is not None:
+                    labels = torch.cat([labels, labels.new_zeros(pad)])
+            rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+            imgs = to_uint8_tensor(self.model(z[rows], None if labels is None else labels[rows]))
+            imgs = mesh.all_gather(imgs)
+        return imgs[:count].cpu().numpy() if mesh.primary else None
+
+
 def slerp(a: torch.Tensor, b: torch.Tensor, t) -> torch.Tensor:
     """Spherical interpolation between latent vectors (the way to walk a
     Gaussian latent space: a linear path leaves the shell); parallel

@@ -23,6 +23,11 @@ moves with it), horizons counted in optimizer updates. `train.grad_accum`
 = k > 1 is `optax.MultiSteps` outside the guards: the running mean of k
 gradients goes to the inner chain every k-th call, whose state moves only
 then; the other calls emit zero updates. Both decide on the card too.
+
+Under ZeRO (`parallel/sharding.py`) an `OptState` holds Adam's moments as
+the rank's slice (`OptState.shard`): the update takes the whole reduced
+gradient, reads the clip's and the guards' norms and finiteness on it,
+and runs Adam on the rank's slice of it, returning the slice's update.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -84,20 +89,22 @@ class OptState:
     mini_step: Optional[torch.Tensor] = None      # int32, calls into the window
     gradient_step: Optional[torch.Tensor] = None  # int32, updates emitted
     acc_grads: Optional[torch.Tensor] = None      # f32, flat running mean
+    # ZeRO: mu and nu are this rank's slice (`parallel/sharding.py:Shard`)
+    shard: Optional[Any] = None
 
     def copy_(self, other: "OptState") -> "OptState":
         """Write `other`'s values into this state's own tensors, which keep
         their addresses (a captured step reads and writes them there)."""
-        for f in dataclasses.fields(self):
-            mine, theirs = getattr(self, f.name), getattr(other, f.name)
-            if mine is not None and mine is not theirs:
+        for name, mine in self.tensors().items():
+            theirs = getattr(other, name)
+            if mine is not theirs:
                 mine.copy_(theirs)
         return self
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         """Every field that holds a tensor, by name."""
         return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-                if getattr(self, f.name) is not None}
+                if isinstance(getattr(self, f.name), torch.Tensor)}
 
     def inner_fields(self):
         """The fields inside skip_if_too_large (what a size skip leaves)."""
@@ -171,6 +178,8 @@ class Optimizer:
         if c.clip_grad_norm > 0:
             norm = g.square().sum().sqrt()  # optax.global_norm
             g = torch.where(norm < c.clip_grad_norm, g, g / norm * c.clip_grad_norm)
+        if s.shard is not None:
+            g = s.shard.take(g)
         mu = (1 - c.beta1) * g + c.beta1 * s.mu
         nu = (1 - c.beta2) * g.square() + c.beta2 * s.nu
         count = _safe_increment(s.count)
@@ -226,10 +235,10 @@ class Optimizer:
         updates, inner = self._guarded(acc, state)
         emit = state.mini_step == self.accum - 1
         new = dataclasses.replace(state)
-        for f in dataclasses.fields(OptState):
-            if f.name not in ("mini_step", "gradient_step", "acc_grads"):
-                setattr(new, f.name, torch.where(emit, getattr(inner, f.name),
-                                                 getattr(state, f.name)))
+        for name in state.tensors():
+            if name not in ("mini_step", "gradient_step", "acc_grads"):
+                setattr(new, name, torch.where(emit, getattr(inner, name),
+                                               getattr(state, name)))
         keep = (~emit).float()
         new.mini_step = torch.remainder(_safe_increment(state.mini_step), self.accum)
         new.gradient_step = torch.where(emit, _safe_increment(state.gradient_step),

@@ -18,7 +18,10 @@ device constants fill) from a snapshot of the state that is then put
 back, so the warm-up leaves no trace in the trajectory. The state's
 generator is registered with each graph, so every replay draws the next
 latents, as an eager step would. A failed capture or replay raises; there
-is no eager fallback.
+is no eager fallback. Under a process group the step's collectives are
+captured too: every graph is captured on one stream of its own, on which
+a collective has run before the first capture (NCCL makes its
+communicator at a first collective, which a capture cannot hold).
 
 `SampleGraph` captures `io/sampling.py:generate_samples`'s device work
 (the latent draw, the generator's forward, the uint8 conversion; with
@@ -72,6 +75,7 @@ class StepGraphs:
         self.out: Dict[str, torch.Tensor] = {}
         self.graphs: Dict[Tuple[bool, bool], torch.cuda.CUDAGraph] = {}
         self.pool = None  # one memory pool for every graph, made at the first capture
+        self.stream = None  # every capture's stream, made at the first capture
         self.addresses = _addresses(state)
 
     def body(self, flags: Tuple[bool, bool]) -> None:
@@ -114,9 +118,16 @@ class StepGraphs:
     def capture(self, flags: Tuple[bool, bool]) -> None:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(self.idx.device)
+            mesh = self.step.mesh
+            if mesh.group is not None:  # a collective on the capture stream first
+                self.stream.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(self.stream):
+                    mesh.sum_(torch.zeros(1, device=self.idx.device))
+                torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.state.rng)
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             self.body(flags)
         self.graphs[flags] = graph
 

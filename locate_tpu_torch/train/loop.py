@@ -38,8 +38,17 @@ warning.
 
 `cfg.compile_cache` has no effect here: the kernels' build cache of
 `ops/cuda/build.py`, keyed by a digest of sources and flags, does that
-work. The port trains on one device: parallel settings that ask for more
-raise (data parallelism is ROADMAP.md Queue 1 item 9).
+work.
+
+In a process group (`parallel/distributed.py:initialize_from_env`, one
+process a device) every rank runs this loop on the mesh of
+`cfg.parallel` (`parallel/mesh.py`): the step of `parallel.backend`
+(`parallel/sharding.py`), the state sharded as `parallel.zero_stage`
+says, each rank's input the JAX process-local batch of its index. Rank 0
+alone holds the run lock and writes metrics.jsonl, the config, sample
+grids, checkpoints and best.json; every rank joins the collectives of
+saves, sample grids and evals, and the eval's scores, computed once,
+reach every rank, so keep_best decides alike everywhere.
 """
 
 from __future__ import annotations
@@ -58,8 +67,11 @@ from locate_tpu_torch.io.checkpoint import CheckpointManager
 from locate_tpu_torch.io.sampling import (generate_samples, load_weights, save_image_grid,
                                           serving_generator)
 from locate_tpu_torch.models.gan import build_gan
+from locate_tpu_torch.parallel.distributed import local_device
+from locate_tpu_torch.parallel.mesh import Mesh, make_mesh
+from locate_tpu_torch.parallel.sharding import make_step_for, place_train_state
 from locate_tpu_torch.train.state import TrainState, create_train_state
-from locate_tpu_torch.train.step import make_multi_step, make_train_step
+from locate_tpu_torch.train.step import make_multi_step
 from locate_tpu_torch.utils.metrics import PREFIX, MetricsLogger
 from locate_tpu_torch.utils.profiling import StepTimer, trace_annotation
 from locate_tpu_torch.utils.runlock import RunLock
@@ -85,47 +97,53 @@ def train(
 
     `hooks` may give "on_metrics(step, metrics)",
     "on_samples(step, images_u8)" and "on_eval(step, scores)". The
-    workdir is locked for the run (`utils/runlock.py`): a second `train()`
-    on it raises instead of tearing metrics.jsonl and racing checkpoint
-    writes."""
-    check_one_device(cfg.parallel)
-    device = resolve_device(device)
-    lock = RunLock.acquire(cfg.workdir)
+    workdir is locked for the run (`utils/runlock.py`; by rank 0 in a
+    group): a second `train()` on it raises instead of tearing
+    metrics.jsonl and racing checkpoint writes."""
+    mesh = make_mesh(cfg.parallel)
+    check_batch(cfg, mesh)
+    device = local_device(resolve_device(device))
+    lock = RunLock.acquire(cfg.workdir) if mesh.primary else None
     try:
-        return _train_locked(cfg, total_steps, hooks or {}, resume, device)
+        return _train_locked(cfg, total_steps, hooks or {}, resume, device, mesh)
     finally:
-        lock.release()
+        if lock is not None:
+            lock.release()
 
 
-def check_one_device(parallel) -> None:
-    """Raise where `parallel` asks for more than the one device the port
-    trains on, with `locate_tpu/parallel/mesh.py:make_mesh`'s words (a
-    one-device `zero_stage` keeps JAX's trajectory and passes)."""
-    n = 1
-    mp = max(1, parallel.model_parallel)
-    todo = ("the port trains on one device; data and model parallelism wait for "
-            "the parallel slice (ROADMAP.md Queue 1 item 9)")
-    if n % mp:
-        raise NotImplementedError(f"{n} devices not divisible by model_parallel={mp}: {todo}")
-    dp = parallel.data_parallel if parallel.data_parallel > 0 else n // mp
-    if dp * mp != n:
-        raise NotImplementedError(
-            f"mesh {dp}x{mp} != {n} devices (data_parallel={parallel.data_parallel}): {todo}")
+def check_batch(cfg: Config, mesh: Mesh) -> None:
+    """Raise where the global batch does not split over the mesh's ranks,
+    or the minibatch-stddev group does not divide a rank's batch, with
+    the JAX package's words (`locate_tpu/data/pipeline.py`,
+    `locate_tpu/ops/norm.py:minibatch_stddev`)."""
+    gb = cfg.train.global_batch
+    if gb % mesh.world:
+        raise ValueError(f"global_batch {gb} not divisible by {mesh.world} hosts")
+    n, group = gb // mesh.world, cfg.model.mbstd_group
+    g = min(group, n)
+    if group and n % g:
+        raise ValueError(f"minibatch_stddev: batch {n} not divisible by group {g} "
+                         "(pick mbstd_group dividing the per-replica batch)")
 
 
 def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Callable],
-                  resume: bool, device: torch.device) -> TrainState:
+                  resume: bool, device: torch.device, mesh: Mesh) -> TrainState:
     tcfg = cfg.train
     total_steps = total_steps or tcfg.total_steps
+    primary = mesh.primary
     gan = build_gan(cfg, device, seed=tcfg.seed)
-    step_fn = make_multi_step(make_train_step(cfg, gan), tcfg.steps_per_call)
-    state = create_train_state(cfg, gan, seed=tcfg.seed)
+    step_fn = make_multi_step(make_step_for(cfg, gan, mesh), tcfg.steps_per_call)
+    state = create_train_state(cfg, gan, seed=tcfg.seed,
+                               mesh=mesh if mesh.group is not None else None)
+    place_train_state(state, mesh, cfg.parallel.zero_stage)
 
     ckpt = CheckpointManager(os.path.join(cfg.workdir, "checkpoints"),
-                             keep=tcfg.keep_checkpoints, async_save=tcfg.async_checkpoint)
+                             keep=tcfg.keep_checkpoints, async_save=tcfg.async_checkpoint,
+                             mesh=mesh)
     if resume and ckpt.latest_step() is not None:
         ckpt.restore(state)  # before the first call: the graphs capture restored tensors
-        print(f"{PREFIX} resumed from step {state.step}", flush=True)
+        if primary:
+            print(f"{PREFIX} resumed from step {state.step}", flush=True)
 
     k = tcfg.steps_per_call
     if k > 1 and (total_steps % k or state.step % k):
@@ -133,16 +151,20 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
             f"total_steps={total_steps} and the resume step {state.step} must both be "
             f"multiples of train.steps_per_call={k}")
     batches = make_input_pipeline(cfg.data, tcfg.global_batch, device=device, seed=tcfg.seed,
+                                  process_index=mesh.rank, process_count=mesh.world,
                                   skip_batches=state.step,  # resume replays the exact stream
                                   steps_per_call=k, d_steps=tcfg.d_steps)
     # throughput counts the real images consumed
     timer = StepTimer(tcfg.global_batch * k * tcfg.d_steps)
     # metrics.jsonl appends on resume and truncates on a fresh run, so the
     # file describes one trajectory
-    logger = MetricsLogger(os.path.join(cfg.workdir, "tb") if tcfg.tensorboard else None,
-                           jsonl_path=os.path.join(cfg.workdir, "metrics.jsonl"),
+    logger = MetricsLogger(os.path.join(cfg.workdir, "tb") if tcfg.tensorboard and primary
+                           else None,
+                           jsonl_path=os.path.join(cfg.workdir, "metrics.jsonl") if primary
+                           else None,
                            append=state.step > 0, resume_step=state.step)
-    _dump_config(cfg)
+    if primary:
+        _dump_config(cfg)
     # sample grids: fixed latents from a generator of their own, reseeded
     # before every grid, and the EMA weights in a serving module
     sample_gen = torch.Generator(device=device)
@@ -157,7 +179,7 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
         ("r1", tcfg.r1_gamma, tcfg.r1_interval), ("r2", tcfg.r2_gamma, tcfg.r1_interval),
         ("pl", tcfg.pl_gamma, tcfg.pl_interval)) if gamma > 0 and every > 1]
     grad_limit_seen = 0  # grad-norm-limit skips already warned about
-    evaluator = InTrainingEval(cfg, batches.dataset, resume) if tcfg.eval_every else None
+    evaluator = InTrainingEval(cfg, batches.dataset, resume, mesh) if tcfg.eval_every else None
 
     def serve():  # the EMA's serving weights, in one module for the whole run
         nonlocal server
@@ -191,13 +213,15 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
 
             if tcfg.sample_every and (step_num % tcfg.sample_every == 0
                                       or step_num == total_steps):
-                sample_gen.manual_seed(tcfg.seed + 1)
-                imgs = generate_samples(serve(), sample_gen, min(64, tcfg.global_batch))
-                save_image_grid(imgs, os.path.join(cfg.workdir, "samples",
-                                                   f"step_{step_num:08d}.png"))
-                logger.log_images(step_num, "samples", imgs)
-                if "on_samples" in hooks:
-                    hooks["on_samples"](step_num, imgs)
+                model = serve()  # every rank: a ZeRO shadow is all-gathered
+                if primary:
+                    sample_gen.manual_seed(tcfg.seed + 1)
+                    imgs = generate_samples(model, sample_gen, min(64, tcfg.global_batch))
+                    save_image_grid(imgs, os.path.join(cfg.workdir, "samples",
+                                                       f"step_{step_num:08d}.png"))
+                    logger.log_images(step_num, "samples", imgs)
+                    if "on_samples" in hooks:
+                        hooks["on_samples"](step_num, imgs)
 
             if evaluator is not None and step_num % tcfg.eval_every == 0:
                 with timer.paused(metrics):
@@ -217,7 +241,8 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
         ckpt.close()
         if evaluator is not None:
             evaluator.close()
-        _print_digest(cfg.workdir)
+        if primary:
+            _print_digest(cfg.workdir)
     return state
 
 
@@ -226,10 +251,12 @@ class InTrainingEval:
     rKID of the serving generator against `train.eval_samples` examples of
     the training set (their features computed once, in `cache`), SWD with
     `train.eval_swd`, and with `train.keep_best` the best checkpoint, its
-    best.json and the quality-regression warning."""
+    best.json and the quality-regression warning. On a mesh of several
+    ranks the eval splits over them and every rank gets the same scores."""
 
-    def __init__(self, cfg: Config, dataset, resume: bool):
+    def __init__(self, cfg: Config, dataset, resume: bool, mesh: Optional[Mesh] = None):
         self.cfg, self.dataset = cfg, dataset
+        self.mesh = mesh or Mesh()
         self.extractor = None  # on the serving generator's device, at the first eval
         self.cache: dict = {}
         self.best_fid, self.best_step = float("inf"), 0
@@ -238,7 +265,7 @@ class InTrainingEval:
         self.best_ckpt = None
         if cfg.train.keep_best:
             self.best_ckpt = CheckpointManager(os.path.join(cfg.workdir, "checkpoints_best"),
-                                               keep=1, async_save=False)
+                                               keep=1, async_save=False, mesh=self.mesh)
             if resume and os.path.exists(self.best_path):
                 with open(self.best_path) as f:
                     best = json.load(f)
@@ -251,12 +278,14 @@ class InTrainingEval:
         if self.extractor is None:
             self.extractor = RandomConvFeatures(device=model_device(model))
         scores = evaluate_generator(model, self.dataset, n_samples=tcfg.eval_samples,
-                                    seed=tcfg.seed, extractor=self.extractor, cache=self.cache)
+                                    seed=tcfg.seed, extractor=self.extractor, cache=self.cache,
+                                    mesh=self.mesh)
         if tcfg.eval_swd:
             from locate_tpu_torch.io.swd import swd_generator
 
-            scores.update(swd_generator(model, self.dataset, n_samples=tcfg.eval_samples,
-                                        seed=tcfg.seed))
+            swd = (swd_generator(model, self.dataset, n_samples=tcfg.eval_samples,
+                                 seed=tcfg.seed) if self.mesh.primary else None)
+            scores.update(self.mesh.broadcast_object(swd))
         if self.best_ckpt is None:
             return scores
         if scores["fid"] < self.best_fid:
@@ -264,14 +293,15 @@ class InTrainingEval:
             self.evals_since_best = 0
             self.best_ckpt.save(state)
             self.best_ckpt.wait()
-            with open(self.best_path, "w") as f:
-                json.dump({"fid": self.best_fid, "kid": float(scores["kid"]),
-                           "step": step_num}, f)
+            if self.mesh.primary:
+                with open(self.best_path, "w") as f:
+                    json.dump({"fid": self.best_fid, "kid": float(scores["kid"]),
+                               "step": step_num}, f)
         else:
             # advisory: rFID is noisy, and the best state is already saved
             self.evals_since_best += 1
             warn_after = tcfg.regress_warn_evals
-            if warn_after and self.evals_since_best >= warn_after:
+            if warn_after and self.evals_since_best >= warn_after and self.mesh.primary:
                 print(f"{PREFIX} WARNING step {step_num}: quality regressing — best rFID "
                       f"{self.best_fid:.2f} was at step {self.best_step}, "
                       f"{self.evals_since_best} evals ago (current {scores['fid']:.2f})",

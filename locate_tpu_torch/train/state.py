@@ -11,6 +11,12 @@ and the EMA update a network with a few whole-buffer operations, in
 place, and the module sees the new values. Optimizer moments and the EMA
 shadow are flat buffers of the same layout; `FlatParams.named` views one
 under the JAX dotted names.
+
+Under ZeRO (`parallel/sharding.py:place_train_state`) a rank keeps the
+moments and the EMA shadow as its slice of the vector; the parameters
+stay whole on every rank, in a buffer that each update all-gathers
+(`FlatParams.apply_update`). In a group, `create_train_state` gives every
+rank rank 0's values.
 """
 
 from __future__ import annotations
@@ -38,8 +44,37 @@ class FlatParams:
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.flat = torch.cat([p.detach().float().reshape(-1) for p in self.params])
-        for p, view in zip(self.params, self.split(self.flat)):
+        self._view(self.flat)
+        self.shard = None      # ZeRO: this rank's slice (`parallel/sharding.py:Shard`)
+        self.padded = None     # ZeRO: `flat` padded to the ranks' slices (flat views it)
+
+    def _view(self, flat: torch.Tensor) -> None:
+        for p, view in zip(self.params, self.split(flat)):
             p.data = view
+
+    def shard_over(self, shard) -> None:
+        """Move `flat` into a buffer padded to `shard`'s ranks (the modules'
+        parameters follow it), which the updates all-gather into."""
+        n = self.flat.numel()
+        self.padded = torch.zeros(shard.padded, dtype=self.flat.dtype, device=self.flat.device)
+        self.padded[:n].copy_(self.flat)
+        self.flat = self.padded[:n]
+        self._view(self.flat)
+        self.shard = shard
+
+    def local(self, vec: torch.Tensor) -> torch.Tensor:
+        """The rank's slice of a full vector of this layout (the vector
+        itself without ZeRO)."""
+        return vec if self.shard is None else self.shard.take(vec)
+
+    def apply_update(self, updates: torch.Tensor) -> None:
+        """Add an optimizer update in place: the whole vector's, or under
+        ZeRO the rank's slice's, then all-gather every rank's new slice
+        into the buffer the modules view."""
+        if self.shard is None:
+            self.flat.add_(updates)
+            return
+        self.shard.gather_into(self.padded, self.shard.take(self.flat) + updates)
 
     def split(self, vec: torch.Tensor) -> List[torch.Tensor]:
         """Views of a flat vector, one per parameter, in its shape."""
@@ -72,6 +107,7 @@ class TrainState:
     pl_mean: Optional[torch.Tensor] = None  # f32 path-length running mean
     lecam: Optional[torch.Tensor] = None    # f32 [ema_real, ema_fake] logit trackers
     step_tensor: Optional[torch.Tensor] = None  # int32 step count (ema_rampup)
+    zero_stage: int = 0           # ZeRO stage the state is sharded at (parallel/sharding.py)
 
 
 # the optional tensors of a state, each present only while its option is on
@@ -99,7 +135,7 @@ def fresh_optional(cfg: Config, name: str, state: TrainState) -> torch.Tensor:
     state's step count; the EMA shadow from the live G."""
     dev = state.g_params.flat.device
     if name == "ema_params":
-        return ema_init(state.g_params.flat, cfg.train.ema_dtype)
+        return state.g_params.local(ema_init(state.g_params.flat, cfg.train.ema_dtype)).clone()
     if name == "ada_p":
         return torch.tensor(cfg.train.augment_p, dtype=torch.float32, device=dev)
     if name == "pl_mean":
@@ -143,9 +179,21 @@ def restore(state: TrainState, snap: Snapshot) -> TrainState:
     return state
 
 
-def create_train_state(cfg: Config, gan: GAN, seed: int = 0) -> TrainState:
+def serving_vector(state: TrainState) -> torch.Tensor:
+    """The flat generator weights a state serves: its EMA shadow, or G's
+    own where the run keeps no EMA; a ZeRO shadow all-gathered (a
+    collective: every rank calls it)."""
+    if state.ema_params is None:
+        return state.g_params.flat
+    if state.zero_stage:
+        return state.g_params.shard.gather(state.ema_params)
+    return state.ema_params
+
+
+def create_train_state(cfg: Config, gan: GAN, seed: int = 0, mesh=None) -> TrainState:
     """The state of a fresh run of `gan`, whose modules hold their initial
-    weights; `seed` seeds the step's random generator."""
+    weights; `seed` seeds the step's random generator. On a mesh with a
+    group every rank takes rank 0's tensors."""
     g_opt, d_opt = make_optimizers(cfg.train)
     g_params, d_params = FlatParams(gan.generator), FlatParams(gan.discriminator)
     rng = torch.Generator(device=gan.device)
@@ -156,6 +204,10 @@ def create_train_state(cfg: Config, gan: GAN, seed: int = 0) -> TrainState:
     for name, on in optional_on(cfg).items():
         if on:
             setattr(state, name, fresh_optional(cfg, name, state))
+    if mesh is not None:
+        with torch.no_grad():
+            for t in state_tensors(state).values():
+                mesh.broadcast_(t)
     return state
 
 

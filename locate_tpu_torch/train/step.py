@@ -46,6 +46,20 @@ flavor's one latent batch is `z_d`, `labels_d`, its augmentation of fakes
 `aug_fake.*`, its one G forward's style draws the `_d` ones, which
 `share_latents` also gives G's forward, as JAX reuses the forward's key).
 
+On a mesh (`parallel/mesh.py`, built by `parallel/sharding.py:
+make_step_for`) the step runs on the rank's rows of the global batch
+with the JAX step's collectives: the gradients' mean before each update
+(so every guard decides on the reduced gradient, on every rank alike),
+the metrics' mean, ADA's r and LeCam's logit means before they move the
+state, the relativistic losses' and feature matching's global means
+(differentiable, `Mesh.gmean`), top-k's gathered fake logits and its
+summed mask. Latents, labels, GP's eps and the style mixing's draws are
+made for the global batch on every rank, which takes its rows; the
+augmentation, bCR and style-noise draws are the global batch's rows too
+under "gspmd" and a replica's own under "shard_map" (`per_replica`).
+Without a mesh, or on one of one rank with no group, nothing differs
+from the one-process step.
+
 `make_multi_step(step, k)` is the counterpart of the JAX package's: k
 steps a call over batches with a leading [k] axis, the metrics reduced as
 `_LAST_METRICS` says; on the card the k steps are replays of a captured
@@ -69,6 +83,7 @@ from locate_tpu_torch.objectives.losses import (RELATIVISTIC, g_per_sample, get_
                                                 path_lengths, path_noise, r1_penalty)
 from locate_tpu_torch.objectives.optim import guard_stats, make_optimizers, safe_global_norm
 from locate_tpu_torch.ops.augment import augment, draw_params, parse_ops
+from locate_tpu_torch.parallel.mesh import Mesh
 from locate_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -99,6 +114,20 @@ def _row(draws: Draws, i: int) -> Draws:
     return {k: v[i] for k, v in draws.items()}
 
 
+def _rows(x, lo: int, hi: int):
+    """Rows [lo, hi) of a draw (a tensor, a dict of them, or None)."""
+    if x is None:
+        return None
+    if isinstance(x, dict):
+        return {k: v[lo:hi] for k, v in x.items()}
+    return x[lo:hi]
+
+
+# metrics that are the same on every rank before the metrics' mean (made
+# from reduced or replicated values), left out of it
+_REPLICATED = ("pl_len", "pl_mean", "ortho", "fm")
+
+
 def _critic_draw(name: str) -> bool:
     """Whether a draw is one critic update's (stacked [c] under d_steps)."""
     return name in ("z_d", "labels_d", "gp_eps", "mix_z2_d", "mix_cut_d") or name.startswith(
@@ -111,9 +140,14 @@ class TrainStep:
     `g_loss_and_grads`, `update`), so one step's gradients can be taken on
     several paths from one state."""
 
-    def __init__(self, cfg: Config, gan: GAN):
+    def __init__(self, cfg: Config, gan: GAN, mesh: Optional[Mesh] = None,
+                 per_replica: bool = False):
         tcfg = cfg.train
         self.tcfg, self.gan = tcfg, gan
+        self.mesh = mesh or Mesh()
+        if self.mesh.world > 1 and self.mesh.group is None:
+            raise ValueError(f"a mesh of {self.mesh.world} ranks needs a process group")
+        self.per_replica = per_replica
         self.g_opt, self.d_opt = make_optimizers(tcfg)
         self.g_loss_of, self.d_loss_of = get_losses(tcfg.loss)
         self.relativistic = tcfg.loss in RELATIVISTIC
@@ -166,6 +200,23 @@ class TrainStep:
         return self._d_twin(x, labels)
 
     # ---------------------------------------------------------------- draws
+    def _global(self, draw, n: int):
+        """`draw(m)` made for the global batch (n rows a rank), this rank's
+        rows."""
+        m = self.mesh
+        if m.world == 1:
+            return draw(n)
+        return _rows(draw(n * m.world), m.rank * n, (m.rank + 1) * n)
+
+    def _replica(self, draw, n: int):
+        """A draw of n rows that is each replica's own under "shard_map"
+        (every rank draws the world's sets in turn and keeps its own, so
+        the generators stay in step), else the global batch's rows."""
+        m = self.mesh
+        if not self.per_replica or m.world == 1:
+            return self._global(draw, n)
+        return [draw(n) for _ in range(m.world)][m.rank]
+
     def _style_draws(self, rng: torch.Generator, n: int, side: str, given: Draws) -> Draws:
         """The style family's draws of one G forward (`side` "d" or "g"):
         style mixing's second latent `mix_z2_<side>` and per-sample
@@ -180,19 +231,21 @@ class TrainStep:
         if self.style_mixing:
             num_ws = gan.num_ws
 
-            def cut():
-                mix = torch.rand((n,), generator=rng, device=rng.device) < \
+            def cut(m):
+                mix = torch.rand((m,), generator=rng, device=rng.device) < \
                     gan.config.style.mixing_prob
-                layer = torch.randint(1, num_ws, (n,), generator=rng, device=rng.device)
+                layer = torch.randint(1, num_ws, (m,), generator=rng, device=rng.device)
                 return torch.where(mix, layer, num_ws).to(torch.int32)
 
-            take(f"mix_z2_{side}", lambda: gan.sample_latents(rng, n))
-            take(f"mix_cut_{side}", cut)
+            take(f"mix_z2_{side}",
+                 lambda: self._global(lambda m: gan.sample_latents(rng, m), n))
+            take(f"mix_cut_{side}", lambda: self._global(cut, n))
         if self.style_noise:
             for i, shapes in enumerate(gan.generator.noise_shapes(n)):
                 for j, shape in enumerate(shapes):
-                    take(f"g_noise_{side}.{i}.{j}",
-                         lambda shape=shape: torch.randn(shape, generator=rng, device=rng.device))
+                    take(f"g_noise_{side}.{i}.{j}", lambda shape=shape: self._replica(
+                        lambda m: torch.randn((m,) + tuple(shape[1:]), generator=rng,
+                                              device=rng.device), n))
         return out
 
     def g_forward(self, z: torch.Tensor, labels: Optional[torch.Tensor], draws: Draws,
@@ -225,17 +278,24 @@ class TrainStep:
             out[name] = given[name] if name in given else draw()
 
         def take_aug(prefix, p, ops):
-            out.update(_flat(prefix, _group(given, prefix) or draw_params(rng, shape, p, ops)))
+            out.update(_flat(prefix, _group(given, prefix) or self._replica(
+                lambda m: draw_params(rng, (m,) + tuple(shape[1:]), p, ops), n)))
 
-        take("z_d", lambda: gan.sample_latents(rng, n))
-        take("labels_d", lambda: gan.sample_labels(rng, n))
+        def latents():
+            return self._global(lambda m: gan.sample_latents(rng, m), n)
+
+        def labels():
+            return self._global(lambda m: gan.sample_labels(rng, m), n)
+
+        take("z_d", latents)
+        take("labels_d", labels)
         out.update(self._style_draws(rng, n, "d", given))
         if self.flavor == "alternating":
             if t.share_latents:
                 out["z_g"], out["labels_g"] = out["z_d"], out["labels_d"]
             else:
-                take("z_g", lambda: gan.sample_latents(rng, n))
-                take("labels_g", lambda: gan.sample_labels(rng, n))
+                take("z_g", latents)
+                take("labels_g", labels)
                 out.update(self._style_draws(rng, n, "g", given))
         if self.aug_on:
             take_aug("aug_real", state.ada_p, self.ada_ops)
@@ -244,7 +304,8 @@ class TrainStep:
             take_aug("bcr_real", t.bcr_p, self.bcr_ops)
             take_aug("bcr_fake", t.bcr_p, self.bcr_ops)
         if t.gp_gamma > 0.0:
-            take("gp_eps", lambda: torch.rand((n, 1, 1, 1), generator=rng, device=rng.device))
+            take("gp_eps", lambda: self._global(
+                lambda m: torch.rand((m, 1, 1, 1), generator=rng, device=rng.device), n))
         return {k: v for k, v in out.items() if v is not None}
 
     def _g_draws(self, state: TrainState, n: int, pl: bool, given: Draws) -> Draws:
@@ -261,14 +322,17 @@ class TrainStep:
             out[name] = given[name] if name in given else draw()
 
         if self.flavor == "multi_critic":
-            take("z_g", lambda: gan.sample_latents(rng, n))
-            take("labels_g", lambda: gan.sample_labels(rng, n))
+            take("z_g", lambda: self._global(lambda m: gan.sample_latents(rng, m), n))
+            take("labels_g", lambda: self._global(lambda m: gan.sample_labels(rng, m), n))
             out.update(self._style_draws(rng, n, "g", given))
         if self.aug_on and self.flavor != "fused":
-            out.update(_flat("aug_g", _group(given, "aug_g")
-                             or draw_params(rng, gshape, state.ada_p, self.ada_ops)))
+            out.update(_flat("aug_g", _group(given, "aug_g") or self._replica(
+                lambda m: draw_params(rng, (m,) + gshape[1:], state.ada_p, self.ada_ops), n)))
         if pl:
-            take("pl_noise", lambda: path_noise(rng, gshape))
+            # the JAX shard_map step draws PL's noise with the replicated
+            # key at the replica's shape: the same rows on every replica
+            take("pl_noise", lambda: path_noise(rng, gshape) if self.per_replica else
+                 self._global(lambda m: path_noise(rng, (m,) + gshape[1:]), n))
         if self.bf16_ema:
             take("ema_bits", lambda: ema_bits(rng, state.g_params.flat.numel()))
         return {k: v for k, v in out.items() if v is not None}
@@ -322,7 +386,7 @@ class TrainStep:
             fake_logits = D(fake_in, fake_labels)
         real_logits = D(real_in, labels)
         if self.relativistic:
-            loss = self.d_loss_of(real_logits, fake_logits, torch.mean)
+            loss = self.d_loss_of(real_logits, fake_logits, self.gmean)
         else:
             loss = self.d_loss_of(real_logits, fake_logits)
         aux = {"real_logits": real_logits.float().mean(),
@@ -350,11 +414,13 @@ class TrainStep:
                                     (t.r2_gamma, "r2", fake_d, fake_labels)):
             if gamma <= 0.0:
                 continue
-            if r1:
+            k, scale = self.r1_rows(x.shape[0])
+            if r1 and k:
                 # the leading rows: an unbiased sample of i.i.d. rows
-                k = max(1, int(round(x.shape[0] * t.r1_batch_fraction)))
                 sub = lab[:k] if lab is not None else None
                 pen = r1_penalty(self.d_apply_r1, x[:k], sub) * (gamma * t.r1_interval)
+                if scale != 1.0:
+                    pen = pen * scale
             else:
                 pen = torch.zeros((), device=x.device)
             aux[name] = pen
@@ -368,21 +434,44 @@ class TrainStep:
         logits = (fake_logits, fake_feats, real_logits.detach())
         return loss.detach(), detached, state.d_params.flatten(grads), logits
 
+    def r1_rows(self, n: int) -> Tuple[int, float]:
+        """(k, scale): R1's and R2's leading rows of a rank's n, and the
+        factor that makes the rank's penalty, averaged over ranks, the
+        penalty of its batch. `r1_batch_fraction` takes the leading rows
+        of the batch the step sees: each replica's own under "shard_map";
+        the global batch's under "gspmd", of which a rank may hold some,
+        all or none (k = 0: the rank adds no penalty)."""
+        m, frac = self.mesh, self.tcfg.r1_batch_fraction
+        if self.per_replica or m.world == 1:
+            return max(1, int(round(n * frac))), 1.0
+        k_glob = max(1, int(round(n * m.world * frac)))
+        k = min(max(k_glob - m.rank * n, 0), n)
+        return k, k * m.world / k_glob
+
+    def gmean(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch's mean of a per-sample tensor (the relativistic
+        losses' mean), differentiable across ranks (`Mesh.gmean`)."""
+        return self.mesh.gmean(torch.mean(x))
+
     # ------------------------------------------------------------------- G
     def g_adv(self, fake_logits, real_logits):
         """The adversarial G term: the family's loss, relativistic ones
         against `real_logits()`, top-k training's masked mean (the global
-        top-k fake logits, ties at the threshold included)."""
+        top-k fake logits, gathered from every rank, ties at the threshold
+        included; a rank's masked sum over the global mask count, times
+        the world, whose gradients' mean is the global masked mean's)."""
         if self.relativistic:
-            return self.g_loss_of(fake_logits, real_logits(), torch.mean)
+            return self.g_loss_of(fake_logits, real_logits(), self.gmean)
         if self.per_sample is None:
             return self.g_loss_of(fake_logits)
         per = self.per_sample(fake_logits).reshape(-1)
         fl = fake_logits.float().reshape(-1)
-        k = max(1, int(round(fl.shape[0] * self.tcfg.topk_fraction)))
-        thresh = torch.topk(fl, k).values[-1]
+        glob = self.mesh.all_gather(fl.detach())
+        k = max(1, int(round(glob.shape[0] * self.tcfg.topk_fraction)))
+        thresh = torch.topk(glob, k).values[-1]
         mask = (fl >= thresh).float()
-        return (per * mask).sum() / mask.sum()
+        loss = (per * mask).sum() / self.mesh.sum_(mask.sum())
+        return loss * self.mesh.world if self.mesh.world > 1 else loss
 
     def g_reg(self, state: TrainState, z, labels, draws: Draws, pl: bool):
         """(term, aux) of G's parameter and Jacobian regularizers:
@@ -403,13 +492,14 @@ class TrainStep:
             lengths = path_lengths(self._g_twin, z, labels, draws["pl_noise"])
             m1, m2 = lengths.mean(), lengths.square().mean()
             fired = torch.ones((), device=z.device)
-            base = (pl_mean + t.pl_decay * (m1 - pl_mean)).detach()
+            m1g = self.mesh.mean_(m1.detach().clone())  # the same on every rank
+            base = (pl_mean + t.pl_decay * (m1g - pl_mean)).detach()
         else:
-            m1 = m2 = fired = torch.zeros((), device=z.device)
+            m1 = m2 = m1g = fired = torch.zeros((), device=z.device)
             base = pl_mean.clone()
         pen = m2 - 2.0 * base * m1 + base * base * fired
         term = pen * (t.pl_gamma * t.pl_interval)
-        return term + ortho, {"pl": term, "pl_len": m1, "pl_mean": base, **aux}
+        return term + ortho, {"pl": term, "pl_len": m1g, "pl_mean": base, **aux}
 
     def g_loss_and_grads(self, state: TrainState, z, labels_g, real_in, labels,
                          aug_params, draws: Draws, pl: bool, fake_logits=None):
@@ -444,9 +534,11 @@ class TrainStep:
         if t.feature_matching > 0.0:
             with torch.no_grad():
                 f_real = D(real_in, labels, return_features=True)[1]
-            m_fake = feats.float().mean(dim=0)
-            fm_val = (f_real.float().mean(dim=0) - m_fake).square().mean()
-            fm = fm_val * t.feature_matching
+            m_fake = self.mesh.gmean(feats.float().mean(dim=0))
+            m_real = self.mesh.mean_(f_real.float().mean(dim=0))
+            fm_val = (m_real - m_fake).square().mean()
+            # the JAX shard_map step scales the term by the axis size
+            fm = fm_val * (t.feature_matching * (self.mesh.world if self.per_replica else 1))
             fm_aux = {"fm": fm_val.detach()}
         total = loss + reg + fm
         grads = torch.autograd.grad(total, state.g_params.params)
@@ -473,7 +565,7 @@ class TrainStep:
                 state, real_in, labels, fake, lab, draws, r1, keep_graph=True)
             g_loss, g_aux, g_grads = self.g_loss_and_grads(
                 state, z, lab, real_in, labels, None, draws, pl, fake_logits=logits)
-            _apply(self.d_opt, state.d_params, state.d_opt_state, d_grads)
+            d_grads = self._apply(self.d_opt, state.d_params, state.d_opt_state, d_grads)
             n_images = real.shape[0]
         elif self.flavor == "multi_critic":
             losses, auxes, norms = [], [], []
@@ -512,28 +604,55 @@ class TrainStep:
             real_in = self._augmented(real, draws, "aug_real")
         d_loss, d_aux, d_grads, _ = self.d_loss_and_grads(
             state, real_in, labels, fake_in, draws.get("labels_d"), draws, r1)
-        _apply(self.d_opt, state.d_params, state.d_opt_state, d_grads)
+        d_grads = self._apply(self.d_opt, state.d_params, state.d_opt_state, d_grads)
         return d_loss, d_aux, d_grads, real_in
+
+    def _apply(self, opt, params, opt_state, grads):
+        """One optimizer update of a flat parameter buffer from the ranks'
+        mean gradient (returned): the parameters and the optimizer state
+        change in place, every tensor at its address."""
+        grads = self.mesh.mean_(grads)
+        updates, new = opt.update(grads, opt_state)
+        with torch.no_grad():
+            params.apply_update(updates)
+            opt_state.copy_(new)
+        return grads
+
+    def _mean_metrics(self, metrics: Metrics) -> Metrics:
+        """The ranks' mean of every metric, in one all-reduce."""
+        if self.mesh.group is None or not metrics:
+            return metrics
+        names = list(metrics)
+        packed = self.mesh.mean_(torch.stack([metrics[k].float().reshape(()) for k in names]))
+        return dict(zip(names, packed.unbind(0)))
 
     def finish(self, state, d_loss, d_aux, d_grads, d_norm, g_loss, g_aux, g_grads,
                n_images, draws) -> Metrics:
         """The shared tail of the flavors: G's update, the EMA, ADA's
         controller, LeCam's trackers, the path-length mean, the metrics."""
         t = self.tcfg
-        _apply(self.g_opt, state.g_params, state.g_opt_state, g_grads)
+        g_grads = self._apply(self.g_opt, state.g_params, state.g_opt_state, g_grads)
+        # the metrics that differ between ranks, reduced before ADA and
+        # LeCam read them
+        local = self._mean_metrics({"d_loss": d_loss, "g_loss": g_loss, **d_aux, **{
+            k: v for k, v in g_aux.items() if k not in _REPLICATED}})
+        d_loss, g_loss = local.pop("d_loss"), local.pop("g_loss")
+        d_aux = {k: local[k] for k in d_aux}
+        g_aux = {k: local.get(k, v) for k, v in g_aux.items()}
         with torch.no_grad():
             if state.ema_params is not None:
                 decay = t.ema_decay
                 if t.ema_rampup > 0.0:
                     decay = rampup_decay(state.step_tensor, t.ema_decay, t.ema_rampup)
-                new = ema_update(state.ema_params, state.g_params.flat, decay,
-                                 draws.get("ema_bits"))
+                bits = draws.get("ema_bits")
+                new = ema_update(state.ema_params, state.g_params.local(state.g_params.flat),
+                                 decay, None if bits is None else state.g_params.local(bits))
                 emitted = self.g_opt.emitted(state.g_opt_state)
                 if emitted is not None:  # the EMA moves on optimizer emits only
                     new = torch.where(emitted, new, state.ema_params)
                 state.ema_params.copy_(new)
             if t.ada_target > 0.0:
-                step = n_images / (t.ada_speed_kimg * 1000.0)
+                step = n_images * self.mesh.world / (t.ada_speed_kimg * 1000.0)
                 state.ada_p.copy_(torch.clamp(
                     state.ada_p + torch.sign(d_aux["ada_r"] - t.ada_target) * step, 0.0, 1.0))
             if "pl_mean" in g_aux:
@@ -564,18 +683,9 @@ class TrainStep:
         return state, metrics
 
 
-def _apply(opt, params, opt_state, grads):
-    """One optimizer update of a flat parameter buffer: the parameters and
-    the optimizer state change in place, every tensor at its address."""
-    updates, new = opt.update(grads, opt_state)
-    with torch.no_grad():
-        params.flat.add_(updates)
-        opt_state.copy_(new)
-    return opt_state
-
-
 def make_train_step(cfg: Config, gan: GAN) -> TrainStep:
-    """The train step of `gan` in the flavor `cfg.train` names (`TrainStep`)."""
+    """The one-process train step of `gan` in the flavor `cfg.train` names
+    (`TrainStep`); on a mesh, `parallel/sharding.py:make_step_for`."""
     return TrainStep(cfg, gan)
 
 

@@ -117,8 +117,9 @@ def test_bench_sample_serves_the_checkpoint(trained):
     _, args, _, _ = trained
     out = json.loads(run(cli.main, ["bench-sample", *args, "--batch=2", "--steps=1"]))
     assert out["weights"] == "ema" and out["value"] > 0
-    with pytest.raises(SystemExit, match="item 9"):
-        cli.main(["bench-sample", *args, "--dp"])
+    dp = json.loads(run(cli.main, ["bench-sample", *args, "--batch=3", "--steps=1", "--dp"]))
+    assert dp["weights"] == "ema" and dp["value"] > 0 and dp["devices"] == 1
+    assert dp["cuda_graph"] is False
 
 
 def test_debug_nans(trained, tmp_path, monkeypatch):
@@ -151,13 +152,31 @@ def test_info_matches_the_jax_command(preset):
 
 
 def test_info_counts_the_cards(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    """`parallel.data_parallel=-1` counts the job's processes, one a card:
+    1 in a single process, the launcher's WORLD_SIZE under torchrun."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.delenv("NUM_PROCESSES", raising=False)
     assert json.loads(run(cli.main, ["info", "cifar10_32"]))["data_parallel"] == 1
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setenv("WORLD_SIZE", "4")
     info = json.loads(run(cli.main, ["info", "cifar10_32", "parallel.zero_stage=1"]))
     assert info["data_parallel"] == 4
     argv = ["info", "cifar10_32", "parallel.data_parallel=4", "parallel.zero_stage=1"]
     assert info == json.loads(run(jax_cli.main, argv))
+
+
+def test_info_stage_three_keeps_the_parameters_whole():
+    """ZeRO-3 keeps the parameters whole on every rank, as ZeRO-1 does
+    (only the moments and the EMA shadow are sliced), and `info` says so:
+    its bytes a device at stage 3 are stage 1's, above JAX's stage-3
+    figure by the parameters the port does not shard."""
+    argv = ["info", "cifar10_32", "parallel.data_parallel=4"]
+    one, three = (json.loads(run(cli.main, [*argv, f"parallel.zero_stage={z}"]))
+                  for z in (1, 3))
+    jax_three = json.loads(run(jax_cli.main, [*argv, "parallel.zero_stage=3"]))
+    assert three["state_bytes_per_device"] == one["state_bytes_per_device"]
+    n = three["params_total"]
+    gap = three["state_bytes_per_device"] - jax_three["state_bytes_per_device"]
+    assert abs(gap - (n * 4 - n)) <= 1  # both round the bytes down to an int
 
 
 @pytest.fixture(scope="module")

@@ -54,9 +54,14 @@ def test_cli_needs_a_card_or_cpu(no_card, command):
 
 
 def test_cli_unported_flags_raise():
-    for flag in ("--dp",):
-        with pytest.raises(SystemExit, match="slice"):
-            cli.main(["bench-sample", "cifar10_32", flag, "--device=cpu"])
+    """`--dp` runs now (tests/test_torch_parallel.py); a mesh one process
+    cannot hold raises with the JAX mesh's words before any work."""
+    for command, match in ((["bench-sample", "parallel.data_parallel=2"],
+                            r"mesh 2x1 != 1 devices \(data_parallel=2\)"),
+                           (["eval", "parallel.model_parallel=2"],
+                            "1 devices not divisible by model_parallel=2")):
+        with pytest.raises(ValueError, match=match):
+            cli.main([command[0], "cifar10_32", command[1], "--dp", "--device=cpu"])
 
 
 def test_kernel_wrappers_refuse_other_devices():

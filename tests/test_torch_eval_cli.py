@@ -87,7 +87,6 @@ def test_eval_usage_errors(workdir, tmp_path):
             ([f"--ref-stats={stats}", "--per-class", "model.num_classes=2"],
              "--per-class needs the dataset"),
             ([f"--ref-stats={stats}", "--swd"], "--swd compares raw images"),
-            (["--dp"], "ROADMAP.md Queue 1 item 9"),
             (["--stats-out"], "--stats-out requires a value")):
         with pytest.raises(SystemExit, match=match):
             cli.main(base + flags)

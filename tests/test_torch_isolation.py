@@ -27,7 +27,10 @@ def test_import_loads_no_jax():
             "locate_tpu_torch.utils.profiling", "locate_tpu_torch.utils.jax_random",
             "locate_tpu_torch.ops.spectral", "locate_tpu_torch.models.style_generator",
             "locate_tpu_torch.io.projection", "locate_tpu_torch.io.fid",
-            "locate_tpu_torch.io.inception", "locate_tpu_torch.io.swd"} <= set(port_modules())
+            "locate_tpu_torch.io.inception", "locate_tpu_torch.io.swd",
+            "locate_tpu_torch.parallel.distributed", "locate_tpu_torch.parallel.mesh",
+            "locate_tpu_torch.parallel.sharding",
+            "locate_tpu_torch.parallel.dryrun"} <= set(port_modules())
     code = (
         "import importlib, sys\n"
         f"for name in {['locate_tpu_torch'] + port_modules()!r}:\n"
@@ -58,7 +61,9 @@ def test_no_source_imports_the_jax_package():
     assert {"locate_tpu_torch/ops/flash_attention.py", "locate_tpu_torch/ops/self_attention.py",
             "locate_tpu_torch/csrc/flash_attention.cu",
             "locate_tpu_torch/data/_native/loader.cc", "locate_tpu_torch/io/fid.py",
-            "locate_tpu_torch/io/inception.py", "locate_tpu_torch/io/swd.py"} <= names
+            "locate_tpu_torch/io/inception.py", "locate_tpu_torch/io/swd.py",
+            "locate_tpu_torch/parallel/distributed.py", "locate_tpu_torch/parallel/mesh.py",
+            "locate_tpu_torch/parallel/sharding.py", "locate_tpu_torch/parallel/dryrun.py"} <= names
     offenders = []
     for path in sources():
         with open(path) as fh:

@@ -210,15 +210,15 @@ def test_run_lock_refuses_a_second_train(tiny_config, tmp_path):
     ({"data_parallel": 4, "model_parallel": 2, "zero_stage": 3}, "1 devices not divisible"),
 ], ids=["data_parallel", "model_parallel", "dp_mp_zero3"])
 def test_unported_options_raise(tiny_config, tmp_path, option, match):
-    """Parallel settings that ask for more than the one device the port
-    trains on raise with the JAX mesh's words and cite the parallel slice,
-    before anything is written (a one-device zero_stage trains: see
-    test_one_device_zero_stage_trains)."""
+    """Parallel settings that ask for more ranks than the run has (one
+    process, no group) raise with the JAX mesh's words, before anything
+    is written (a one-rank zero_stage trains: see
+    test_one_device_zero_stage_trains; the TP slot's raise on a mesh that
+    divides: tests/test_torch_parallel.py)."""
     cfg = loop_config(tiny_config, tmp_path / "run")
     cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel, **option))
-    with pytest.raises(NotImplementedError, match=match) as err:
+    with pytest.raises(ValueError, match=match):
         train(cfg, device="cpu")
-    assert "ROADMAP.md Queue 1 item 9" in str(err.value)
     assert not os.path.exists(tmp_path / "run")
 
 
