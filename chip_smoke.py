@@ -22,9 +22,10 @@ lsun_bedroom_128 step fed through the input path; the train loop of
 lsun_bedroom_128 with checkpoints, an in-training eval, a SIGKILL and
 resume, export and sampling from a checkpoint; three more presets and six
 recipes of the train step's options; the style family, spectral norm and
-projection; the eval of the loop's checkpoint; last, data parallelism:
+projection; the eval of the loop's checkpoint; data parallelism:
 lsun_bedroom_128's loop in a world-size-1 NCCL group and on two gloo
-ranks sharing the card. Phases, one line each:
+ranks sharing the card; last, the compiled serving artifact. Phases, one
+line each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
   2. build: csrc/fused_attention.cu, csrc/fused_stage.cu and
@@ -101,7 +102,7 @@ ranks sharing the card. Phases, one line each:
      (one stage fewer, same widths) the f32 kernel path's gradients are
      within 1e-3 of the f32 plain path's (or ten times the plain path's own
      change under 1e-7 weight noise, if larger), each call within 1e-4;
-  7. lsun_bedroom_128 training throughput: `bench 128 20` and `bench 128 20
+  7. lsun_bedroom_128 training throughput: `bench 128 20` and `bench 128 5
      xla` (16 steps a call through a CUDA graph of the step, and one step a
      call beside it: images/sec, flops per step, MFU; the kernel path must
      be the faster at both), peak memory of a batch-128 step with R1 firing
@@ -251,7 +252,7 @@ ranks sharing the card. Phases, one line each:
      at batch 64 (lsun_bedroom_128) and 16 (ffhq_512), with the idle share;
  28. the input path (packed shards, the producer thread, the pinned-memory
      device prefetch): the pack's rate at 128^2 and whether the native
-     loader built on this host; `bench 128 20 e2e` on the kernel path
+     loader built on this host; `bench 128 5 e2e` on the kernel path
      (fails if its reconciliation e2e <= 1.15 min(input path, device
      only) does not hold, or if the input path alone is slower than the
      device-only step); the idle share and top kernels of
@@ -279,8 +280,8 @@ ranks sharing the card. Phases, one line each:
      no other), the device's idle share and top kernels over one logged
      window (steps 25-32, an async save and a log read in it), its logged
      images/sec beside `bench 64 10`'s fixed-batch rate at spc=8 and the
-     loop's recipe (R1, guards) on one fixed batch at spc=8 (10 calls
-     each, 20 before phases 37-38), an async
+     loop's recipe (R1, guards) on one fixed batch at spc=8 (10 steps
+     asked, 3 calls a window; 20 before phases 37-38), an async
      save's time on the step's stream; `export` of A's checkpoint, and
      `sample --generator` on the export and `sample --checkpoint` on A
      writing the same PNG bytes for one seed;
@@ -308,7 +309,7 @@ ranks sharing the card. Phases, one line each:
      f32 step at 64^2); a 2-step graph call
      bitwise equal to its eager steps, crossing an R1 step (and a PL
      step); the softmax gate's launches a step above 0; step times and
-     the idle share; then `bench 128 20 fused` beside 7's `bench 128 20`;
+     the idle share; then `bench 128 5 fused` beside 7's `bench 128 20`;
  32. the style family serving: celeba_64 with docs/GUIDE.md's style recipe
      (`model.arch=style model.style.mapping_layers=8`), bf16, batch 64,
      w-space truncation at psi 0.7: three `SampleGraph` replays bitwise
@@ -357,15 +358,29 @@ ranks sharing the card. Phases, one line each:
      ranks and within 1e-2 relative of the one-process run's (the worst
      printed), metrics.jsonl written by rank 0 alone, the six kernels
      launched on both ranks, step 2's seconds on each;
- 39. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
+ 39. "export-compiled": `export --compiled-batch 64` of 29's run A through
+     the CLI writes lsun_bedroom_128's compiled serving artifact (`.pt2`,
+     `torch.export` through the kernels' `torch.ops.locate.*` ops); a child
+     process that imports only torch, the three kernel modules and
+     `load_compiled` runs it on 64 seeded latents, bitwise the eager
+     generator of the export's `.npz` (TF32 off, cuDNN deterministic and
+     not autotuned in both processes), with the eager forward's launches
+     of rows 1, 2 and 7 (counters and the profiler's kernel names) and no
+     model code loaded; its images/sec beside the eager generator's and
+     the `SampleGraph`'s; then ffhq_512, ffhq_512-sigmoid and
+     lsun_bedroom_128 + self-attention from seeded random weights at
+     batch 2, each artifact bitwise its eager generator with its launches
+     (rows 1, 2, 9; 3, 8; 12, 7);
+ 40. one JSON line `{"kernels": [...]}` for the fourteen kernels (the three
      flash kernels, the five routed stage kernels, softmax_stats,
      softmax_apply, softmax_bwd and sigmoid_bwd with their mma-route
      launches and the simt route's time of the same launches beside their
      own; stage_softmax_apply_pool, off ffhq_512's path under the profile,
      with the launches of 13's every-stage-fused step; each with its
      launches in 29's loop, a step of 33's style recipe, a forward of 32's
-     serving, 36's eval, 37's NCCL run at zero_stage 0 and 38's rank 0);
- 40. the card's name and power limit again, then the last line
+     serving, 36's eval, 37's NCCL run at zero_stage 0, 38's rank 0 and
+     39's four artifacts);
+ 41. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
 
 Any failed check exits non-zero before the last line. Needs one card; run
@@ -1930,21 +1945,33 @@ def phase_train_grads(fa, cfg, weights):
 PROFILED_EAGER_STEPS = 1
 # the calls `bench 128 N` times in phases 7, 28 and 31
 BENCH_CALLS = "20"
-# the calls each of phase 29's in-process benches times (20 before phases
-# 37-38; CUTS)
+# the steps the side benches are asked for: phase 7's plain-path yardstick
+# (`bench 128 N xla`), phase 28's `e2e` and phase 31's `fused` (20 before
+# phase 39; the headline `bench 128 BENCH_CALLS` of phase 7 keeps its 20).
+# A spc-16 rate times max(3, N // 16) calls a window either way: the cut
+# is the one-step rates' windows and e2e's (CUTS)
+SIDE_BENCH_CALLS = "5"
+# the steps each of phase 29's in-process benches is asked for (20 before
+# phases 37-38; CUTS): at spc 8 any count under 32 times 3 calls a window
 LOOP_BENCH_CALLS = 10
 # the depth cut to keep the script inside its time with phases 37-38,
 # printed on a line each
-CUTS = {"phase 7": "profiles 1 eager step of each path (was 3)",
-        "phase 28": "packs 1024 images (was 2048); profiles 1 eager step a feed (was 3)",
-        "phase 29": f"its two in-process benches time {LOOP_BENCH_CALLS} calls each (was 20)",
+CUTS = {"phase 7": "profiles 1 eager step of each path (was 3); times the plain path's "
+                   f"`bench 128 {SIDE_BENCH_CALLS} xla` (was 20; the kernel path keeps "
+                   f"{BENCH_CALLS})",
+        "phase 28": "packs 1024 images (was 2048); profiles 1 eager step a feed (was 3); "
+                    f"`bench 128 {SIDE_BENCH_CALLS} e2e` (was 20)",
+        "phase 29": f"its two in-process benches are asked for {LOOP_BENCH_CALLS} steps (was "
+                    "20; at spc 8 either times 3 calls a window)",
+        "phase 31": f"`bench 128 {SIDE_BENCH_CALLS} fused` (was 20)",
         "phase 37": "times the step on bench's config (no R1): 2 eager steps after 2, one "
                     "8-step graph call after its capture"}
 
 
 def phase_train_throughput():
     """Phase 7: `bench 128 BENCH_CALLS` (16 steps a call, a CUDA graph of the step,
-    and one step a call beside it) on the kernel path and the plain path:
+    and one step a call beside it) on the kernel path and `bench 128
+    SIDE_BENCH_CALLS xla` on the plain path:
     the kernel path faster at both; peak memory with R1; the idle share
     and top kernels of PROFILED_EAGER_STEPS eager step(s) and of one
     4-step graph call."""
@@ -1954,14 +1981,14 @@ def phase_train_throughput():
 
     kernel = run_cli(["bench", "128", BENCH_CALLS])
     torch.cuda.empty_cache()
-    plain = run_cli(["bench", "128", BENCH_CALLS, "xla"])
+    plain = run_cli(["bench", "128", SIDE_BENCH_CALLS, "xla"])
     torch.cuda.empty_cache()
     check(kernel["flops_per_step"] == plain["flops_per_step"], "flop counts differ")
     check(kernel["steps_per_call"] == plain["steps_per_call"] == 16, "bench did not run spc=16")
     for key in ("value", "single_step_images_per_sec"):
-        check(kernel[key] > plain[key], f"bench 128 {BENCH_CALLS} {key}: the kernel path "
-                                        f"({kernel[key]}) is not faster than the plain path "
-                                        f"({plain[key]})")
+        check(kernel[key] > plain[key], f"bench 128 {key}: the kernel path ({kernel[key]}, "
+                                        f"{BENCH_CALLS} calls) is not faster than the plain "
+                                        f"path ({plain[key]}, {SIDE_BENCH_CALLS} calls)")
     peaks = {}
     for remat in (True, False):
         cfg = get_config("lsun_bedroom_128", {"use_pallas": "true",
@@ -3779,7 +3806,7 @@ def host_batch_on_card(batch, lead=()):
 
 def phase_e2e_input_path():
     """Phase 28: the pack's rate and the native loader's state on this
-    host; `bench 128 BENCH_CALLS e2e` on the kernel path (reconciliation held, the
+    host; `bench 128 SIDE_BENCH_CALLS e2e` on the kernel path (reconciliation held, the
     input path alone faster than the device-only rate); the idle share and
     top kernels of PROFILED_EAGER_STEPS eager step(s) fed by the pipeline
     (beside as many fed batches pulled before the window, and as many on
@@ -3810,7 +3837,7 @@ def phase_e2e_input_path():
                   pack_images_per_sec=E2E_PACK_LENGTH / pack_s)
     say("input-path-host", **loader)
 
-    e2e = run_cli(["bench", str(E2E_BATCH), BENCH_CALLS, "e2e", f"--pack={pack}"])
+    e2e = run_cli(["bench", str(E2E_BATCH), SIDE_BENCH_CALLS, "e2e", f"--pack={pack}"])
     release_memory()
     rec = e2e["reconciliation"]
     check(rec["ok"], f"bench e2e: reconciliation failed {rec}")
@@ -4608,6 +4635,259 @@ def phase_dp_gloo():
     return out, ranks[0]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# The compiled serving artifact: export_compiled / load_compiled
+# ---------------------------------------------------------------------------
+
+# (artifact, its config, overrides) of the three artifacts of seeded random
+# weights at EXPORT_SMALL_BATCH, and a served forward's launches of each
+# under the profile (the self-attention layers: one flash_fwd a stage, left
+# out of path_plan): ffhq_512 rows 1, 2, 9; its sigmoid variant 3, 8;
+# self-attention 12, 7. With the lsun_bedroom_128 artifact (rows 1, 2, 7)
+# they launch every forward kernel a generator reaches.
+EXPORT_SMALL_BATCH = 2
+EXPORT_RANDOM = (("ffhq_512", ffhq_config, {}), ("ffhq_512_sigmoid", ffhq_config, SIGMOID),
+                 ("lsun_bedroom_128_self", self_config, {}))
+EXPORT_WANT = {"ffhq_512": totals(FFHQ_SERVE_PLAN),
+               "ffhq_512_sigmoid": totals(SIGMOID_SERVE_PLAN),
+               "lsun_bedroom_128_self": {"flash_fwd": len(FLASH_G_SHAPES),
+                                         **totals(SELF_SERVE_PLAN)}}
+EXPORT_LSUN_ROWS = ("softmax_stats", "softmax_apply", "stage_conv")
+# the forward kernels a generator reaches (rows 1, 2, 3, 7, 8, 9, 12), each
+# launched by one of the four artifacts at least
+EXPORT_ROWS = ("softmax_stats", "softmax_apply", "sigmoid_gate", "stage_conv", "stage_sigmoid",
+               "stage_softmax_stats", "flash_fwd")
+# the CUDA functions by which a row shows in a profiler trace (kernel_name's
+# base names: the mma instance, and the simt kernel)
+ROW_CUDA_KERNELS = {"softmax_stats": ("softmax_stats_mma", "softmax_stats_partial"),
+                    "softmax_apply": ("softmax_apply_mma", "softmax_apply"),
+                    "stage_conv": ("stage_conv_mma", "stage_conv"),
+                    "stage_softmax_stats": ("stage_softmax_stats_mma", "stage_softmax_stats"),
+                    "sigmoid_gate": ("sigmoid_gate_wide_mma", "sigmoid_gate"),
+                    "stage_sigmoid": ("stage_sigmoid_mma", "stage_sigmoid"),
+                    "flash_fwd": ("flash_fwd_mma", "flash_fwd")}
+EXPORT_REPS = 10
+# what both the parent's eager run and the child's artifact run pin: TF32
+# off (as `main`), cuDNN's deterministic algorithms, no autotuning
+PINNED_NUMERICS = ("torch.backends.cuda.matmul.allow_tf32 = False\n"
+                   "torch.backends.cudnn.allow_tf32 = False\n"
+                   "torch.set_float32_matmul_precision('highest')\n"
+                   "torch.backends.cudnn.deterministic = True\n"
+                   "torch.backends.cudnn.benchmark = False\n")
+# the serving process: torch, the three kernel modules and load_compiled,
+# no model code; one call counted and profiled, EXPORT_REPS timed
+EXPORT_CHILD = ("import importlib, json, sys, time\n"
+                "import torch\n" + PINNED_NUMERICS +
+                "from locate_tpu_torch.ops import flash_attention, fused_attention, "
+                "fused_stage\n"
+                "from locate_tpu_torch.io.export import load_compiled\n"
+                """
+path, z_path, out_path, counter_names, reps = sys.argv[1:6]
+counters = {k: getattr(importlib.import_module(f"locate_tpu_torch.ops.{m}"), fn)
+            for k, (m, fn) in json.loads(counter_names).items()}
+fn, sig = load_compiled(path)
+z = torch.load(z_path, weights_only=True).cuda()
+for f in counters.values():
+    f.launches = 0
+y = fn(z)
+torch.cuda.synchronize()
+launches = {k: f.launches for k, f in counters.items()}
+torch.save(y.cpu(), out_path)
+from torch.profiler import ProfilerActivity, profile
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn(z)
+    torch.cuda.synchronize()
+names = sorted({ev.key for ev in prof.key_averages()
+                if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA})
+fn(z)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+for _ in range(int(reps)):
+    fn(z)
+torch.cuda.synchronize()
+seconds = time.perf_counter() - t0
+loaded = sorted(m for m in sys.modules
+                if m.startswith(("locate_tpu_torch.models", "locate_tpu_torch.nn",
+                                 "locate_tpu_torch.train"))
+                or m.split(".")[0] in ("jax", "jaxlib", "locate_tpu"))
+print(json.dumps(dict(sig=sig, launches=launches, cuda_kernels=names, loaded=loaded,
+                      images_per_sec=int(reps) * z.shape[0] / seconds)))
+""")
+
+
+@contextlib.contextmanager
+def pinned_numerics():
+    """PINNED_NUMERICS in this process inside the block (TF32 as `main`
+    leaves it), cuDNN's two settings restored after it."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    exec(PINNED_NUMERICS, {"torch": torch})
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def export_random_artifacts(scratch):
+    """Phase 39's three artifacts of seeded random weights (EXPORT_RANDOM),
+    exported into `scratch` and loaded here: each bitwise its eager
+    generator, with the eager forward's launches. Returns (their line,
+    each kernel's launches over their runs)."""
+    from locate_tpu_torch.io.export import export_compiled, load_compiled
+    from locate_tpu_torch.models.gan import model_config
+    from locate_tpu_torch.models.generator import build_generator
+
+    small, total = {}, {k: 0 for k in counters()}
+    for name, config_of, overrides in EXPORT_RANDOM:
+        cfg, dtype = model_config(config_of(**overrides)), "bfloat16"
+        check(cfg.use_pallas, f"{name} does not serve on the kernels")
+        model = build_generator(cfg, dtype, "cuda", seed=0).eval()
+        randomize_logit_convs(model, seed=1, scale=0.25)
+        fill_gammas(model)
+        t0 = time.perf_counter()
+        path = export_compiled(cfg, model.state_dict(), os.path.join(scratch, name),
+                               batch=EXPORT_SMALL_BATCH, compute_dtype=dtype, device="cuda")
+        fn, _ = load_compiled(path)
+        seconds = time.perf_counter() - t0
+        zs = torch.randn(EXPORT_SMALL_BATCH, cfg.latent_dim, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(12))
+        with pinned_numerics(), torch.no_grad():
+            reset_counters()
+            eager = model(zs)
+            torch.cuda.synchronize()
+            eager_launches = read_counters()
+            reset_counters()
+            got = fn(zs)
+            torch.cuda.synchronize()
+            launches = read_counters()
+        same = torch.equal(got, eager)
+        check(same, f"{name}: the artifact's images differ from the eager generator's "
+                    f"(max |diff| {float((got.float() - eager.float()).abs().max())})")
+        want = expected(EXPORT_WANT[name])
+        check(eager_launches == want, f"{name}: the eager forward launched {eager_launches}, "
+                                      f"want {want}")
+        check(launches == eager_launches,
+              f"{name}: the artifact launched {launches}, the eager forward {eager_launches}")
+        for row, n in EXPORT_WANT[name].items():
+            check(n > 0 and launches[row] > 0, f"{name}: the artifact never launched {row}")
+        small[name] = dict(batch=EXPORT_SMALL_BATCH, bitwise_equal=same,
+                           export_and_load_seconds=seconds,
+                           launches={k: v for k, v in launches.items() if v})
+        total = {k: total[k] + launches[k] for k in total}
+        del model, fn, eager, got
+        release_memory()
+    return small, total
+
+
+def trace_rows(names, rows) -> dict:
+    """{row: the CUDA functions of `rows` (ROW_CUDA_KERNELS) among the
+    profiled kernel `names`, by kernel_name's base}."""
+    bases = {next((k for k in ALL_CUDA_KERNELS if k in n), None) for n in names}
+    return {row: sorted(bases & set(ROW_CUDA_KERNELS[row])) for row in rows}
+
+
+def phase_export_compiled(run_a):
+    """Phase 39: the compiled serving artifact. `export --compiled-batch
+    64` of phase 29's run A through the CLI writes lsun_bedroom_128's
+    artifact (bf16, `train.compute_dtype`); a child process that imports
+    only torch, the three kernel modules and `load_compiled` runs it on 64
+    seeded latents: bitwise the eager generator of `load_generator(<base>
+    .npz)` in this process, both under PINNED_NUMERICS, with the eager
+    forward's launches (rows 1, 2 and 7), whose CUDA functions its
+    profiler trace shows, and no model code loaded. Its images/sec beside
+    the eager generator's and the `SampleGraph`'s (draw, forward, uint8
+    copy). While the child starts, ffhq_512, ffhq_512-sigmoid and
+    lsun_bedroom_128 + self-attention from seeded random weights
+    (`export_random_artifacts`: rows 1, 2, 9; 3, 8; 12, 7). Returns each
+    kernel's launches over the four artifacts' runs."""
+    import tempfile
+
+    from locate_tpu_torch.config import get_config, parse_cli_overrides
+    from locate_tpu_torch.io.export import load_generator
+    from locate_tpu_torch.train.graph import SampleGraph
+
+    t_phase = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="smoke_export_")
+    base = os.path.join(scratch, "lsun")
+    t0 = time.perf_counter()
+    text = cli_text(["export", *LOOP_ARGS, f"workdir={run_a}", f"--out={base}",
+                     f"--compiled-batch={BATCH}"])
+    export_seconds = time.perf_counter() - t0
+    check(f"compiled serving artifact to {base}.pt2" in text, f"export printed {text}")
+    with open(base + ".pt2.json") as f:
+        sig = json.load(f)
+    check(sig["batch"] == BATCH and sig["platforms"] == ["cuda"], f"the sidecar reads {sig}")
+    gz = torch.Generator().manual_seed(11)
+    z = torch.randn(BATCH, sig["latent_dim"], generator=gz)
+    torch.save(z, os.path.join(scratch, "z.pt"))
+    names = {k: [fn.__module__.rsplit(".", 1)[1], fn.__name__] for k, fn in counters().items()}
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log = os.path.join(scratch, "child.log")
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-c", EXPORT_CHILD, base + ".pt2",
+                                 os.path.join(scratch, "z.pt"), os.path.join(scratch, "y.pt"),
+                                 json.dumps(names), str(EXPORT_REPS)],
+                                cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        # the child's start-up (import, load) overlaps the other three artifacts
+        small, total = export_random_artifacts(scratch)
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    child_seconds = time.perf_counter() - t0
+    with open(log) as f:
+        lines = f.read().strip().splitlines()
+    check(rc == 0, f"the serving child exited {rc}: {lines[-40:]}")
+    child = json.loads(lines[-1])
+    check(child["loaded"] == [], f"load_compiled loaded {child['loaded']}")
+
+    loop_cfg = get_config(LOOP_ARGS[0], parse_cli_overrides(LOOP_ARGS[1:]))
+    model = load_generator(base + ".npz", "cuda", compute_dtype=loop_cfg.train.compute_dtype)
+    model.eval()
+    zc = z.cuda()
+    with pinned_numerics(), torch.no_grad():
+        reset_counters()
+        eager = model(zc)
+        torch.cuda.synchronize()
+        eager_launches = read_counters()
+    got = torch.load(os.path.join(scratch, "y.pt"), weights_only=True)
+    same = torch.equal(got, eager.cpu())
+    check(same, "lsun_bedroom_128: the artifact's images differ from the eager generator's "
+                f"(max |diff| {float((got.float() - eager.float().cpu()).abs().max())})")
+    want = expected(totals(LSUN_SERVE_PLAN))
+    check(eager_launches == want, f"the eager forward launched {eager_launches}, want {want}")
+    check(child["launches"] == eager_launches,
+          f"the artifact launched {child['launches']}, the eager forward {eager_launches}")
+    traced = trace_rows(child["cuda_kernels"], EXPORT_LSUN_ROWS)
+    for row in EXPORT_LSUN_ROWS:
+        check(child["launches"][row] > 0 and traced[row],
+              f"the artifact's run shows no {row} ({child['launches'][row]} launches, "
+              f"trace {traced[row]})")
+    with torch.no_grad():
+        eager_rate = BATCH * 1e3 / event_ms(lambda: model(zc), EXPORT_REPS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    sample = SampleGraph(model, gen, BATCH)
+    graph_rate = BATCH * 1e3 / event_ms(sample, EXPORT_REPS)
+    lsun = dict(config=" ".join(LOOP_ARGS), batch=BATCH, export_seconds=export_seconds,
+                child_seconds=child_seconds, bitwise_equal=same, launches=child["launches"],
+                trace=traced, artifact_images_per_sec=child["images_per_sec"],
+                eager_images_per_sec=eager_rate, sample_graph_images_per_sec=graph_rate,
+                artifact_bytes=os.path.getsize(base + ".pt2"))
+    del model, sample, eager, zc
+    release_memory()
+
+    total = {k: total[k] + child["launches"][k] for k in total}
+    shutil.rmtree(scratch)
+    seconds = time.perf_counter() - t_phase
+    say("export-compiled", lsun_bedroom_128=lsun, random_weights=small,
+        pinned="TF32 off, cudnn.deterministic, no cudnn.benchmark (parent and child)",
+        launches_export=total, seconds=seconds)
+    return total
+
+
 def cuobjdump_path() -> str:
     """The toolkit's cuobjdump (CUDA_HOME, /usr/local/cuda, PATH), else the
     copy Triton's package carries; None where there is none."""
@@ -5117,7 +5397,7 @@ def phase_recipes(bench_kernel):
     eager steps (cuDNN deterministic for the comparison), crossing an R1
     step (and a PL step);
     the softmax gate kernels' launches a step (none 0); step times and the
-    idle share. Then `bench 128 BENCH_CALLS fused` (16 steps a call) beside
+    idle share. Then `bench 128 SIDE_BENCH_CALLS fused` (16 steps a call) beside
     phase 7's bench."""
     from locate_tpu_torch.config import get_config
 
@@ -5142,7 +5422,7 @@ def phase_recipes(bench_kernel):
         rows[name] = row
         say(f"recipe-{name}", **row)
     t0 = time.perf_counter()
-    fused = run_cli(["bench", "128", BENCH_CALLS, "fused"])
+    fused = run_cli(["bench", "128", SIDE_BENCH_CALLS, "fused"])
     check(fused["steps_per_call"] == 16 and fused["value"] > 0, f"bench fused: {fused}")
     say("bench-fused", fused=fused, alternating=bench_kernel,
         fused_over_alternating=fused["value"] / bench_kernel["value"],
@@ -5533,13 +5813,17 @@ def main() -> int:
 
     # the eval of the loop's checkpoint, and the extractors on the card
     eval_launches = phase_eval(os.path.join(loop_dir, "a"))
-    shutil.rmtree(loop_dir)
     for kernel in ("softmax_stats", "softmax_apply"):
         check(eval_launches[kernel] > 0, f"the eval never launched {kernel}")
 
     # data parallelism: a world-size-1 NCCL group, and two gloo ranks
     dp_nccl = phase_dp_nccl()
     _, dp_gloo_launches = phase_dp_gloo()
+
+    # the compiled serving artifact of the loop's checkpoint, served by a
+    # process without the model code, and three more from random weights
+    export_launches = phase_export_compiled(os.path.join(loop_dir, "a"))
+    shutil.rmtree(loop_dir)
 
     out = [gate_entry(k, fwd_rows, bwd_rows, train_launches, serve_launches, ffhq_launches,
                       gate_routes.get(k)) for k in KERNELS]
@@ -5558,8 +5842,13 @@ def main() -> int:
                          "launches_style_serve": style_serve,
                          "launches_eval": eval_launches,
                          "launches_dp_nccl": dp_nccl["runs"]["zero0"]["launches"],
-                         "launches_dp_gloo_rank0": dp_gloo_launches})
+                         "launches_dp_gloo_rank0": dp_gloo_launches,
+                         "launches_export": export_launches})
     check_style_launches(out)
+    for entry in out:
+        if entry["name"] in EXPORT_ROWS:
+            check(entry["launches_export"] > 0,
+                  f"no artifact launched {entry['name']}")
     for entry in out:
         check(entry["launches"] > 0, f"{entry['name']} never launched on its main path")
     check(len(out) == 14, f"{len(out)} kernels listed")

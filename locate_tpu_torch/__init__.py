@@ -12,9 +12,23 @@ modules keep the JAX package's layout (`config`, `data/`, `ops/`, `nn/`,
 kernels on those paths are CUDA C++ kernels in `csrc/`, built at first
 use. The package imports neither JAX nor `locate_tpu`. Entry points run
 on the card unless the caller passes `device="cpu"`.
+
+The exports below load at first use (a module `__getattr__`), so that
+importing a submodule, such as the kernel ops for `io/export.py`'s
+`load_compiled`, does not pull in the model and train code.
 """
 
-from locate_tpu_torch.config import Config, ModelConfig, get_config  # noqa: F401
-from locate_tpu_torch.train.loop import train  # noqa: F401
+import importlib
 
-__all__ = ["Config", "ModelConfig", "get_config", "train"]
+_EXPORTS = {"Config": "config", "ModelConfig": "config", "get_config": "config",
+            "train": "train.loop"}
+
+__all__ = list(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value

@@ -612,24 +612,21 @@ def cmd_sample(argv: List[str]) -> int:
 
 def cmd_export(argv: List[str]) -> int:
     """`export PRESET [overrides] [--checkpoint DIR] [--out BASE]
-    [--torch PATH.pt] [--device D]`: the latest checkpoint's EMA generator
-    as the `.npz` + `.json` pair `locate-tpu export` writes (both packages'
-    `load_generator` read it); `--torch` also writes the port generator's
-    state_dict."""
+    [--compiled-batch N] [--torch PATH.pt] [--device D]`: the latest
+    checkpoint's EMA generator as the `.npz` + `.json` pair `locate-tpu
+    export` writes (both packages' `load_generator` read it);
+    `--compiled-batch N` also writes the compiled serving artifact at batch
+    N beside it (`<base>.pt2` + `<base>.pt2.json`, `io/export.py:
+    export_compiled`, in `train.compute_dtype`); `--torch` also writes the
+    port generator's state_dict."""
     import torch
 
     from locate_tpu_torch.device import resolve_device
-    from locate_tpu_torch.io.export import export_generator
+    from locate_tpu_torch.io.export import export_compiled, export_generator
     from locate_tpu_torch.io.sampling import serving_weights
 
     preset = argv[0] if argv else "cifar10_32"
     flags, bare = _split_args(argv[1:])
-    if flags.get("compiled-batch"):
-        raise SystemExit(
-            "--compiled-batch: the compiled serving artifact (export_compiled) is not "
-            "ported yet (ROADMAP.md Queue 1 item 11): the port's kernels load as ctypes "
-            "libraries, which neither torch.export nor TorchScript can trace, so they "
-            "must first be registered as torch.library ops")
     cfg = get_config(preset, parse_cli_overrides(bare))
     device = resolve_device(_str_flag(flags, "device"))
     ckpt_dir = _str_flag(flags, "checkpoint") or os.path.join(cfg.workdir, "checkpoints")
@@ -639,6 +636,11 @@ def cmd_export(argv: List[str]) -> int:
     path = export_generator(gan.config, params, out)
     print(f"[locate-tpu-torch] exported generator (step {state.step}, {_weights(state)}) "
           f"to {path}")
+    compiled_batch = _str_flag(flags, "compiled-batch")
+    if compiled_batch:
+        cpath = export_compiled(gan.config, params, out, batch=int(compiled_batch),
+                                compute_dtype=cfg.train.compute_dtype, device=device)
+        print(f"[locate-tpu-torch] exported compiled serving artifact to {cpath}")
     torch_out = _str_flag(flags, "torch")
     if torch_out:
         os.makedirs(os.path.dirname(torch_out) or ".", exist_ok=True)

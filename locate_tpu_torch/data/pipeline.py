@@ -173,8 +173,20 @@ class BatchProducer:
                 raise batch["__error__"]  # type: ignore[misc]
             yield batch
 
-    def close(self):
+    def close(self, timeout: float = 30.0):
+        """Stop the producer thread and wait for it: the prefetched batches
+        are dropped, so a put the thread is waiting on returns at once and
+        it sees the stop event; a batch it is assembling is finished first.
+        Raises if the thread is still running after `timeout` seconds."""
         self._stop.set()
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout)
+        if self._thread.is_alive():
+            raise RuntimeError(f"the batch producer thread did not stop within {timeout} s")
 
 
 def _host_array(key: str, value: np.ndarray) -> np.ndarray:

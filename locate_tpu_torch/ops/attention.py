@@ -116,7 +116,11 @@ class LocateAttention(nn.Module):
 
     def _coords(self, h: int, w: int, dtype: torch.dtype, device) -> torch.Tensor:
         """Coordinate features, cached per shape so a forward uploads none
-        (made outside inference mode, so autograd may use them later)."""
+        (made outside inference mode, so autograd may use them later).
+        While `torch.export` traces, they are made anew and the trace keeps
+        them as constants: the tracer's tensors never enter the cache."""
+        if torch.compiler.is_compiling():
+            return coord_features(h, w, self.cfg.pos_features, dtype, device)
         key = (h, w, dtype, str(device))
         if key not in self._pos:
             with torch.inference_mode(False):

@@ -10,7 +10,12 @@ f32; P and dS are rounded to the compute dtype before their second product.
 
 Three wrappers launch the kernels of `csrc/flash_attention.cu` for CUDA
 tensors and run the plain version for CPU tensors; nothing falls back from
-one to the other: `flash_fwd` (O and the per-row logsumexp `ell`),
+one to the other. Each kernel is an op, `torch.ops.locate.<name>`
+(`define_op`): its CUDA implementation is the launcher, its CPU
+implementation the plain version, its fake implementation the outputs'
+shapes and dtypes, so `torch.export` traces a model through it as one
+node; the wrappers call the ops: `flash_fwd` (O and the per-row
+logsumexp `ell`),
 `flash_dq` and `flash_dkv` (the two backward passes, from `ell` and
 `delta = rowsum(dO * O)`). Each counts its kernel launches in its
 `launches` attribute. Each has two routes, which `flash_route` picks from
@@ -47,6 +52,9 @@ Q_TILES = (64, 16)
 # the two routes of the three passes, and their codes in the C interface
 MMA, SIMT = "mma", "simt"
 _ROUTE_CODE = {SIMT: 0, MMA: 1}
+# the ops of the port's fourteen kernels, `torch.ops.locate.<name>`
+# (`define_op`; ops/fused_attention.py and ops/fused_stage.py add theirs)
+_LIB = torch.library.Library("locate", "FRAGMENT")
 # (dh, dv) of the mma kernels' templates, narrowest first: a call's widths
 # (multiples of 8) are padded, in shared memory, up to the first pair that
 # holds both (`mma_widths`), and the library launches the pair it is given;
@@ -138,6 +146,30 @@ def flash_backward_reference(q, k, v, o, ell, do, scale: float):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+
+def define_op(schema: str, cpu, cuda, fake):
+    """Register `schema` as `torch.ops.locate.<name>` and return its
+    overload: `cuda` (the launcher, which picks the route, tile and grid,
+    launches the kernel, checks the launch and counts it) serves CUDA
+    tensors, `cpu` (the plain version) CPU tensors, and `fake` gives the
+    outputs' shapes and dtypes without touching a device (`torch.export`
+    traces through it; a tensor of another device, such as "meta",
+    raises). No autograd kernel: the autograd Functions own the
+    gradients."""
+    name = schema.split("(", 1)[0]
+
+    def shapes_only(*args):
+        for a in args:
+            if isinstance(a, torch.Tensor) and a.device.type not in ("cpu", "cuda"):
+                raise ValueError(f"no kernel for device {a.device}")
+        return fake(*args)
+
+    _LIB.define(schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"locate::{name}", shapes_only, lib=_LIB)
+    return getattr(torch.ops.locate, name).default
 
 
 def _library() -> ctypes.CDLL:
@@ -313,15 +345,23 @@ def _count(fn, route: str) -> None:
         fn.launches_simt += 1
 
 
-def flash_fwd(q, k, v, scale: float,
-              route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o (B, T, dv) in q's dtype, ell (B, T) f32). CUDA tensors: the
-    `flash_fwd` kernel (replaces `_fwd_kernel`) on `route`, `flash_route`'s
-    choice unless given; CPU tensors: the plain version (a route the call
-    cannot take raises on both)."""
-    if not _on_card(q):
-        _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
-        return flash_forward_reference(q, k, v, scale)
+def _row_dtype(q: torch.Tensor) -> torch.dtype:
+    """The dtype of the plain versions' row statistics: `_wide`'s."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+def _flash_fwd_cpu(q, k, v, scale, route):
+    _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
+    return flash_forward_reference(q, k, v, scale)
+
+
+def _flash_fwd_fake(q, k, v, scale, route):
+    _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
+    b, t, _ = q.shape
+    return q.new_empty((b, t, v.shape[-1])), q.new_empty((b, t), dtype=_row_dtype(q))
+
+
+def _flash_fwd_cuda(q, k, v, scale, route):
     (q, k, v), (b, t, s, dh, dv) = _operands(q, k, v)
     (q, k, v), route, tile, lib = _plan(_FWD, (q, k, v), b, t, dh, dv, route)
     with torch.cuda.device(q.device):
@@ -337,17 +377,34 @@ def flash_fwd(q, k, v, scale: float,
     return o, ell
 
 
+_FLASH_FWD = define_op(
+    "flash_fwd(Tensor q, Tensor k, Tensor v, float scale, str? route) -> (Tensor, Tensor)",
+    _flash_fwd_cpu, _flash_fwd_cuda, _flash_fwd_fake)
+
+
+def flash_fwd(q, k, v, scale: float,
+              route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o (B, T, dv) in q's dtype, ell (B, T) f32), `torch.ops.locate.flash_fwd`.
+    CUDA tensors: the `flash_fwd` kernel (replaces `_fwd_kernel`) on
+    `route`, `flash_route`'s choice unless given; CPU tensors: the plain
+    version (a route the call cannot take raises on both)."""
+    return _FLASH_FWD(q, k, v, float(scale), route)
+
+
 flash_fwd.launches = flash_fwd.launches_mma = flash_fwd.launches_simt = 0
 
 
-def flash_dq(q, k, v, do, ell, delta, scale: float, route: Optional[str] = None) -> torch.Tensor:
-    """dq (B, T, dh) in q's dtype. CUDA tensors: the `flash_dq` kernel
-    (replaces `_dq_kernel`) on `route`, `flash_route`'s choice unless
-    given; CPU tensors: the plain version (a route the call cannot take
-    raises on both)."""
-    if not _on_card(q):
-        _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
-        return flash_dq_reference(q, k, v, do, ell, delta, scale)
+def _flash_dq_cpu(q, k, v, do, ell, delta, scale, route):
+    _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
+    return flash_dq_reference(q, k, v, do, ell, delta, scale)
+
+
+def _flash_dq_fake(q, k, v, do, ell, delta, scale, route):
+    _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
+    return q.new_empty(q.shape)
+
+
+def _flash_dq_cuda(q, k, v, do, ell, delta, scale, route):
     (q, k, v, do), ell, delta, (b, t, s, dh, dv), route, tile, lib = _backward_call(
         _DQ, q, k, v, do, ell, delta, route)
     with torch.cuda.device(q.device):
@@ -362,18 +419,33 @@ def flash_dq(q, k, v, do, ell, delta, scale: float, route: Optional[str] = None)
     return dq
 
 
+_FLASH_DQ = define_op(
+    "flash_dq(Tensor q, Tensor k, Tensor v, Tensor do, Tensor ell, Tensor delta, float scale, "
+    "str? route) -> Tensor", _flash_dq_cpu, _flash_dq_cuda, _flash_dq_fake)
+
+
+def flash_dq(q, k, v, do, ell, delta, scale: float, route: Optional[str] = None) -> torch.Tensor:
+    """dq (B, T, dh) in q's dtype, `torch.ops.locate.flash_dq`. CUDA
+    tensors: the `flash_dq` kernel (replaces `_dq_kernel`) on `route`,
+    `flash_route`'s choice unless given; CPU tensors: the plain version (a
+    route the call cannot take raises on both)."""
+    return _FLASH_DQ(q, k, v, do, ell, delta, float(scale), route)
+
+
 flash_dq.launches = flash_dq.launches_mma = flash_dq.launches_simt = 0
 
 
-def flash_dkv(q, k, v, do, ell, delta, scale: float,
-              route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk (B, S, dh), dv (B, S, dv)) in q's dtype. CUDA tensors: the
-    `flash_dkv` kernel (replaces `_dkv_kernel`) on `route`,
-    `flash_route`'s choice unless given; CPU tensors: the plain version
-    (a route the call cannot take raises on both)."""
-    if not _on_card(q):
-        _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
-        return flash_dkv_reference(q, k, v, do, ell, delta, scale)
+def _flash_dkv_cpu(q, k, v, do, ell, delta, scale, route):
+    _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
+    return flash_dkv_reference(q, k, v, do, ell, delta, scale)
+
+
+def _flash_dkv_fake(q, k, v, do, ell, delta, scale, route):
+    _route_of(route, q.dtype, q.shape[-1], v.shape[-1])
+    return q.new_empty(k.shape), q.new_empty(v.shape)
+
+
+def _flash_dkv_cuda(q, k, v, do, ell, delta, scale, route):
     (q, k, v, do), ell, delta, (b, t, s, dh, dv), route, tile, lib = _backward_call(
         _DKV, q, k, v, do, ell, delta, route)
     with torch.cuda.device(q.device):
@@ -386,6 +458,20 @@ def flash_dkv(q, k, v, do, ell, delta, scale: float,
     _check(lib, err, f"flash_dkv ({route})")
     _count(flash_dkv, route)
     return dk, dv_out
+
+
+_FLASH_DKV = define_op(
+    "flash_dkv(Tensor q, Tensor k, Tensor v, Tensor do, Tensor ell, Tensor delta, float scale, "
+    "str? route) -> (Tensor, Tensor)", _flash_dkv_cpu, _flash_dkv_cuda, _flash_dkv_fake)
+
+
+def flash_dkv(q, k, v, do, ell, delta, scale: float,
+              route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk (B, S, dh), dv (B, S, dv)) in q's dtype, `torch.ops.locate.flash_dkv`.
+    CUDA tensors: the `flash_dkv` kernel (replaces `_dkv_kernel`) on
+    `route`, `flash_route`'s choice unless given; CPU tensors: the plain
+    version (a route the call cannot take raises on both)."""
+    return _FLASH_DKV(q, k, v, do, ell, delta, float(scale), route)
 
 
 flash_dkv.launches = flash_dkv.launches_mma = flash_dkv.launches_simt = 0

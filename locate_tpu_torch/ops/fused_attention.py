@@ -62,7 +62,7 @@ from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.cuda import build
 from locate_tpu_torch.ops.first_order import first_order
 # the two routes and their launch counting are the flash wrappers' own
-from locate_tpu_torch.ops.flash_attention import _ROUTE_CODE, MMA, SIMT, _count
+from locate_tpu_torch.ops.flash_attention import _ROUTE_CODE, MMA, SIMT, _count, define_op
 
 # activation codes of csrc/fused_attention.cu
 ACT_CODES = {"leaky_relu": 0, "relu": 1, "silu": 2, "gelu": 3}
@@ -426,23 +426,30 @@ def _fwd_rows(lib, x2d, w1x, w2, route: str, kind: str) -> int:
 def _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route: str, kind: str):
     """(operands, library, locations a block) of a forward call on the
     card on `route`."""
-    if x2d.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x2d.device}")
     ops = _aligned(_kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act), route)
     lib = _library()
     return ops, lib, _fwd_rows(lib, x2d, w1x, w2, route, kind)
 
 
-def softmax_gate_stats(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, route=None):
-    """(m, se), each (N, 1, Cout) f32. CUDA tensors: the stats kernel on
-    `route` (`gate_fwd_route`'s choice unless given: `softmax_stats_mma` on
-    the tensor cores or the simt `softmax_stats_partial`) and the merge of
-    its per-block partials (replaces `_softmax_stats_kernel`); CPU tensors:
-    the plain version (a route the call cannot take raises on both)."""
+def _stats_shape(x2d, w2):
+    return (x2d.shape[0], 1, w2.shape[1])
+
+
+def _softmax_gate_stats_cpu(x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope, route):
+    _fwd_route_of(route, x2d, w1x, w2)
+    return softmax_gate_stats_reference(x2d, pos_proj, w1x, b1, w2, b2, act=act,
+                                        leaky_slope=leaky_slope)
+
+
+def _softmax_gate_stats_fake(x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope, route):
+    _fwd_route_of(route, x2d, w1x, w2)
+    shape = _stats_shape(x2d, w2)
+    return (x2d.new_empty(shape, dtype=torch.float32),
+            x2d.new_empty(shape, dtype=torch.float32))
+
+
+def _softmax_gate_stats_cuda(x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope, route):
     route = _fwd_route_of(route, x2d, w1x, w2)
-    if x2d.device.type == "cpu":
-        return softmax_gate_stats_reference(x2d, pos_proj, w1x, b1, w2, b2,
-                                            act=act, leaky_slope=leaky_slope)
     ops, lib, t = _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route, "stats")
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
@@ -463,22 +470,44 @@ def softmax_gate_stats(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, rout
     return m, se
 
 
+_GATE = "Tensor pos_proj, Tensor w1x, Tensor b1, Tensor w2, Tensor b2"
+_SOFTMAX_GATE_STATS = define_op(
+    f"softmax_gate_stats(Tensor x2d, {_GATE}, str act, float leaky_slope, str? route) "
+    "-> (Tensor, Tensor)",
+    _softmax_gate_stats_cpu, _softmax_gate_stats_cuda, _softmax_gate_stats_fake)
+
+
+def softmax_gate_stats(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, route=None):
+    """(m, se), each (N, 1, Cout) f32, `torch.ops.locate.softmax_gate_stats`.
+    CUDA tensors: the stats kernel on `route` (`gate_fwd_route`'s choice
+    unless given: `softmax_stats_mma` on the tensor cores or the simt
+    `softmax_stats_partial`) and the merge of its per-block partials
+    (replaces `_softmax_stats_kernel`); CPU tensors: the plain version (a
+    route the call cannot take raises on both)."""
+    return _SOFTMAX_GATE_STATS(x2d, pos_proj, w1x, b1, w2, b2, act, float(leaky_slope), route)
+
+
 softmax_gate_stats.launches = 0
 softmax_gate_stats.launches_mma = softmax_gate_stats.launches_simt = 0
 
 
-def softmax_gate_apply(x2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
-                       leaky_slope, hw_scale, gate_max, route=None):
-    """y (N, HW, C) in x's dtype. CUDA tensors: the apply kernel on `route`
-    (`gate_fwd_route`'s choice unless given: `softmax_apply_mma` on the
-    tensor cores or the simt `softmax_apply`; replaces
-    `_softmax_apply_kernel`); CPU tensors: the plain version (a route the
-    call cannot take raises on both)."""
+def _softmax_gate_apply_cpu(x2d, pos_proj, w1x, b1, w2, b2, m, se, act, leaky_slope,
+                            hw_scale, gate_max, route):
+    _fwd_route_of(route, x2d, w1x, w2)
+    return softmax_gate_apply_reference(x2d, pos_proj, w1x, b1, w2, b2, m, se, act=act,
+                                        leaky_slope=leaky_slope, hw_scale=hw_scale,
+                                        gate_max=gate_max)
+
+
+def _softmax_gate_apply_fake(x2d, pos_proj, w1x, b1, w2, b2, m, se, act, leaky_slope,
+                             hw_scale, gate_max, route):
+    _fwd_route_of(route, x2d, w1x, w2)
+    return x2d.new_empty(x2d.shape)
+
+
+def _softmax_gate_apply_cuda(x2d, pos_proj, w1x, b1, w2, b2, m, se, act, leaky_slope,
+                             hw_scale, gate_max, route):
     route = _fwd_route_of(route, x2d, w1x, w2)
-    if x2d.device.type == "cpu":
-        return softmax_gate_apply_reference(
-            x2d, pos_proj, w1x, b1, w2, b2, m, se, act=act,
-            leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
     ops, lib, t = _fwd_launch(x2d, pos_proj, w1x, b1, w2, b2, act, route, "apply")
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
@@ -495,6 +524,23 @@ def softmax_gate_apply(x2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
     _check(lib, err, f"softmax apply ({route})")
     _count(softmax_gate_apply, route)
     return y
+
+
+_SOFTMAX_GATE_APPLY = define_op(
+    f"softmax_gate_apply(Tensor x2d, {_GATE}, Tensor m, Tensor se, str act, "
+    "float leaky_slope, float hw_scale, float gate_max, str? route) -> Tensor",
+    _softmax_gate_apply_cpu, _softmax_gate_apply_cuda, _softmax_gate_apply_fake)
+
+
+def softmax_gate_apply(x2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
+                       leaky_slope, hw_scale, gate_max, route=None):
+    """y (N, HW, C) in x's dtype, `torch.ops.locate.softmax_gate_apply`.
+    CUDA tensors: the apply kernel on `route` (`gate_fwd_route`'s choice
+    unless given: `softmax_apply_mma` on the tensor cores or the simt
+    `softmax_apply`; replaces `_softmax_apply_kernel`); CPU tensors: the
+    plain version (a route the call cannot take raises on both)."""
+    return _SOFTMAX_GATE_APPLY(x2d, pos_proj, w1x, b1, w2, b2, m, se, act, float(leaky_slope),
+                               float(hw_scale), float(gate_max), route)
 
 
 softmax_gate_apply.launches = 0
@@ -527,22 +573,23 @@ def _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act):
     return (ops[0], _grad_operand(x2d, dy2d), *ops[1:], *stats)
 
 
-def softmax_gate_csum(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
-                      leaky_slope, hw_scale, gate_max, route=None):
-    """c (N, 1, Cout) f32, backward pass A. CUDA tensors: the csum kernel
-    on `route` (`gate_fwd_route`'s choice unless given, the forward pair's
-    route, so that c comes from the l that gave m and se:
-    `softmax_csum_mma` on the tensor cores or the simt
-    `softmax_csum_partial`) and a fixed-order reduction of its per-block
-    partials (replaces `_softmax_csum_kernel`); CPU tensors: the plain
-    version (a route the call cannot take raises on both)."""
+def _softmax_gate_csum_cpu(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act, leaky_slope,
+                           hw_scale, gate_max, route):
+    _fwd_route_of(route, x2d, w1x, w2)
+    return softmax_gate_csum_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act=act,
+                                       leaky_slope=leaky_slope, hw_scale=hw_scale,
+                                       gate_max=gate_max)
+
+
+def _softmax_gate_csum_fake(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act, leaky_slope,
+                            hw_scale, gate_max, route):
+    _fwd_route_of(route, x2d, w1x, w2)
+    return x2d.new_empty(_stats_shape(x2d, w2), dtype=torch.float32)
+
+
+def _softmax_gate_csum_cuda(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act, leaky_slope,
+                            hw_scale, gate_max, route):
     route = _fwd_route_of(route, x2d, w1x, w2)
-    if x2d.device.type == "cpu":
-        return softmax_gate_csum_reference(
-            x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act=act,
-            leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x2d.device}")
     ops = _aligned(_bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act), route)
     n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
@@ -562,6 +609,25 @@ def softmax_gate_csum(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
     _check(lib, err, f"softmax csum ({route})")
     _count(softmax_gate_csum, route)
     return csum
+
+
+_SOFTMAX_GATE_CSUM = define_op(
+    f"softmax_gate_csum(Tensor x2d, Tensor dy2d, {_GATE}, Tensor m, Tensor se, str act, "
+    "float leaky_slope, float hw_scale, float gate_max, str? route) -> Tensor",
+    _softmax_gate_csum_cpu, _softmax_gate_csum_cuda, _softmax_gate_csum_fake)
+
+
+def softmax_gate_csum(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, *, act,
+                      leaky_slope, hw_scale, gate_max, route=None):
+    """c (N, 1, Cout) f32, backward pass A, `torch.ops.locate.softmax_gate_csum`.
+    CUDA tensors: the csum kernel on `route` (`gate_fwd_route`'s choice
+    unless given, the forward pair's route, so that c comes from the l
+    that gave m and se: `softmax_csum_mma` on the tensor cores or the
+    simt `softmax_csum_partial`) and a fixed-order reduction of its
+    per-block partials (replaces `_softmax_csum_kernel`); CPU tensors:
+    the plain version (a route the call cannot take raises on both)."""
+    return _SOFTMAX_GATE_CSUM(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act,
+                              float(leaky_slope), float(hw_scale), float(gate_max), route)
 
 
 softmax_gate_csum.launches = 0
@@ -715,31 +781,64 @@ def _cast_grads(grads, pos_proj, w1x, b1, w2, b2):
             dw2.to(w2.dtype), db2.to(b2.dtype))
 
 
-def softmax_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, *, act,
-                          leaky_slope, hw_scale, gate_max, route=None):
-    """(dx, dpos_proj, dW1x, db1, dW2, db2), backward pass B, each cast to
-    its input's dtype. CUDA tensors: the backward kernel on `route`
-    (`gate_bwd_route`'s choice unless given: `softmax_bwd_mma` on the
-    tensor cores or the simt `softmax_bwd`) and two fixed-order reductions
-    of its per-block partials (replaces `_bwd_kernel_softmax`); CPU
-    tensors: the plain version (a route the call cannot take raises on
-    both)."""
+def _bwd_route_of(route, x2d, w1x, w2) -> str:
+    """`route` of a backward call, or `gate_bwd_route`'s choice (see
+    `_gate_route_of`)."""
     if x2d.dim() != 3:
         raise ValueError(f"x2d must be (N, HW, C), got {tuple(x2d.shape)}")
-    route = _gate_route_of(route, x2d.dtype, x2d.shape[1], x2d.shape[2], w1x.shape[1],
-                           w2.shape[1])
-    if x2d.device.type == "cpu":
-        return softmax_gate_backward_reference(
-            x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act=act,
-            leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x2d.device}")
+    return _gate_route_of(route, x2d.dtype, x2d.shape[1], x2d.shape[2], w1x.shape[1],
+                          w2.shape[1])
+
+
+def _grads_fake(x2d, pos_proj, w1x, b1, w2, b2):
+    """Empty (dx, dpos_proj, dW1x, db1, dW2, db2), each like its input."""
+    return tuple(t.new_empty(t.shape) for t in (x2d, pos_proj, w1x, b1, w2, b2))
+
+
+def _softmax_gate_backward_cpu(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act,
+                               leaky_slope, hw_scale, gate_max, route):
+    _bwd_route_of(route, x2d, w1x, w2)
+    return softmax_gate_backward_reference(
+        x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act=act,
+        leaky_slope=leaky_slope, hw_scale=hw_scale, gate_max=gate_max)
+
+
+def _softmax_gate_backward_fake(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act,
+                                leaky_slope, hw_scale, gate_max, route):
+    _bwd_route_of(route, x2d, w1x, w2)
+    return _grads_fake(x2d, pos_proj, w1x, b1, w2, b2)
+
+
+def _softmax_gate_backward_cuda(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act,
+                                leaky_slope, hw_scale, gate_max, route):
+    route = _bwd_route_of(route, x2d, w1x, w2)
     ops = (*_bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, act),
            _stats_operand("c", csum, x2d.shape[0], w2.shape[1], x2d.device))
     grads = _launch_backward("locate_softmax_bwd", _aligned(ops, route), x2d, w1x, w2, act,
                              (float(leaky_slope), float(hw_scale), float(gate_max)), route)
     _count(softmax_gate_backward, route)
     return _cast_grads(grads, pos_proj, w1x, b1, w2, b2)
+
+
+_GRADS = "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)"
+_SOFTMAX_GATE_BACKWARD = define_op(
+    f"softmax_gate_backward(Tensor x2d, Tensor dy2d, {_GATE}, Tensor m, Tensor se, "
+    f"Tensor csum, str act, float leaky_slope, float hw_scale, float gate_max, str? route) "
+    f"-> {_GRADS}",
+    _softmax_gate_backward_cpu, _softmax_gate_backward_cuda, _softmax_gate_backward_fake)
+
+
+def softmax_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, *, act,
+                          leaky_slope, hw_scale, gate_max, route=None):
+    """(dx, dpos_proj, dW1x, db1, dW2, db2), backward pass B, each cast to
+    its input's dtype, `torch.ops.locate.softmax_gate_backward`. CUDA
+    tensors: the backward kernel on `route` (`gate_bwd_route`'s choice
+    unless given: `softmax_bwd_mma` on the tensor cores or the simt
+    `softmax_bwd`) and two fixed-order reductions of its per-block
+    partials (replaces `_bwd_kernel_softmax`); CPU tensors: the plain
+    version (a route the call cannot take raises on both)."""
+    return _SOFTMAX_GATE_BACKWARD(x2d, dy2d, pos_proj, w1x, b1, w2, b2, m, se, csum, act,
+                                  float(leaky_slope), float(hw_scale), float(gate_max), route)
 
 
 softmax_gate_backward.launches = 0
@@ -769,25 +868,31 @@ def sigmoid_wide_splits(n: int, hw: int, sms: int) -> int:
     return next((s for s in (8, 4, 2) if rows * s <= sms), 1)
 
 
-def sigmoid_gate(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, gate_max, route=None):
-    """y (N, HW, C) in x's dtype, y = x * min(2 sigmoid(l), gate_max). CUDA
-    tensors: the one-pass kernel on `route` (`sigmoid_gate_route`'s choice
-    unless given: `sigmoid_gate_wide_mma` on the tensor cores, its grid
-    split over Cout as `sigmoid_wide_splits` picks, or the simt
-    `sigmoid_gate`; replaces `_sigmoid_kernel`); CPU tensors: the plain
-    version (a route the call cannot take raises on both)."""
+def _sigmoid_route_of(route, x2d, w1x, w2) -> str:
+    """`route` of a `sigmoid_gate` call, or `sigmoid_gate_route`'s choice
+    where it is None; a route the call cannot take raises."""
     if x2d.dim() != 3:
         raise ValueError(f"x2d must be (N, HW, C), got {tuple(x2d.shape)}")
     _, hw, c = x2d.shape
-    route = _route_of(route, sigmoid_gate_route, {GATE_WIDE: GATE_MMA_WIDTHS[GATE_WIDE]},
-                      x2d.dtype, hw, c, w1x.shape[1], w2.shape[1])
-    if x2d.device.type == "cpu":
-        return sigmoid_gate_reference(x2d, pos_proj, w1x, b1, w2, b2, act=act,
-                                      leaky_slope=leaky_slope, gate_max=gate_max)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x2d.device}")
+    return _route_of(route, sigmoid_gate_route, {GATE_WIDE: GATE_MMA_WIDTHS[GATE_WIDE]},
+                     x2d.dtype, hw, c, w1x.shape[1], w2.shape[1])
+
+
+def _sigmoid_gate_cpu(x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope, gate_max, route):
+    _sigmoid_route_of(route, x2d, w1x, w2)
+    return sigmoid_gate_reference(x2d, pos_proj, w1x, b1, w2, b2, act=act,
+                                  leaky_slope=leaky_slope, gate_max=gate_max)
+
+
+def _sigmoid_gate_fake(x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope, gate_max, route):
+    _sigmoid_route_of(route, x2d, w1x, w2)
+    return x2d.new_empty(x2d.shape)
+
+
+def _sigmoid_gate_cuda(x2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope, gate_max, route):
+    route = _sigmoid_route_of(route, x2d, w1x, w2)
     ops = _aligned(_kernel_operands(x2d, pos_proj, w1x, b1, w2, b2, act), route)
-    n = x2d.shape[0]
+    n, hw, c = x2d.shape
     hd, cout = w1x.shape[1], w2.shape[1]
     lib = _library()
     if route == MMA:
@@ -807,33 +912,67 @@ def sigmoid_gate(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, gate_max, 
     return y
 
 
+_SIGMOID_GATE = define_op(
+    f"sigmoid_gate(Tensor x2d, {_GATE}, str act, float leaky_slope, float gate_max, "
+    "str? route) -> Tensor", _sigmoid_gate_cpu, _sigmoid_gate_cuda, _sigmoid_gate_fake)
+
+
+def sigmoid_gate(x2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope, gate_max, route=None):
+    """y (N, HW, C) in x's dtype, y = x * min(2 sigmoid(l), gate_max),
+    `torch.ops.locate.sigmoid_gate`. CUDA tensors: the one-pass kernel on
+    `route` (`sigmoid_gate_route`'s choice unless given:
+    `sigmoid_gate_wide_mma` on the tensor cores, its grid split over Cout
+    as `sigmoid_wide_splits` picks, or the simt `sigmoid_gate`; replaces
+    `_sigmoid_kernel`); CPU tensors: the plain version (a route the call
+    cannot take raises on both)."""
+    return _SIGMOID_GATE(x2d, pos_proj, w1x, b1, w2, b2, act, float(leaky_slope),
+                         float(gate_max), route)
+
+
 sigmoid_gate.launches = 0
 sigmoid_gate.launches_mma = sigmoid_gate.launches_simt = 0
 
 
-def sigmoid_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope,
-                          gate_max, route=None):
-    """(dx, dpos_proj, dW1x, db1, dW2, db2) of the sigmoid gate in one pass,
-    each cast to its input's dtype. CUDA tensors: the backward kernel on
-    `route` (`gate_bwd_route`'s choice unless given: `sigmoid_bwd_mma` on
-    the tensor cores or the simt `sigmoid_bwd`) and two fixed-order
-    reductions of its per-block partials (replaces `_bwd_kernel_sigmoid`);
-    CPU tensors: the plain version (a route the call cannot take raises on
-    both)."""
-    if x2d.dim() != 3:
-        raise ValueError(f"x2d must be (N, HW, C), got {tuple(x2d.shape)}")
-    route = _gate_route_of(route, x2d.dtype, x2d.shape[1], x2d.shape[2], w1x.shape[1],
-                           w2.shape[1])
-    if x2d.device.type == "cpu":
-        return sigmoid_gate_backward_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, act=act,
-                                               leaky_slope=leaky_slope, gate_max=gate_max)
-    if x2d.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x2d.device}")
+def _sigmoid_gate_backward_cpu(x2d, dy2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope,
+                               gate_max, route):
+    _bwd_route_of(route, x2d, w1x, w2)
+    return sigmoid_gate_backward_reference(x2d, dy2d, pos_proj, w1x, b1, w2, b2, act=act,
+                                           leaky_slope=leaky_slope, gate_max=gate_max)
+
+
+def _sigmoid_gate_backward_fake(x2d, dy2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope,
+                                gate_max, route):
+    _bwd_route_of(route, x2d, w1x, w2)
+    return _grads_fake(x2d, pos_proj, w1x, b1, w2, b2)
+
+
+def _sigmoid_gate_backward_cuda(x2d, dy2d, pos_proj, w1x, b1, w2, b2, act, leaky_slope,
+                                gate_max, route):
+    route = _bwd_route_of(route, x2d, w1x, w2)
     ops = _bwd_operands(x2d, dy2d, pos_proj, w1x, b1, w2, b2, None, None, act)
     grads = _launch_backward("locate_sigmoid_bwd", _aligned(ops, route), x2d, w1x, w2, act,
                              (float(leaky_slope), float(gate_max)), route)
     _count(sigmoid_gate_backward, route)
     return _cast_grads(grads, pos_proj, w1x, b1, w2, b2)
+
+
+_SIGMOID_GATE_BACKWARD = define_op(
+    f"sigmoid_gate_backward(Tensor x2d, Tensor dy2d, {_GATE}, str act, float leaky_slope, "
+    f"float gate_max, str? route) -> {_GRADS}",
+    _sigmoid_gate_backward_cpu, _sigmoid_gate_backward_cuda, _sigmoid_gate_backward_fake)
+
+
+def sigmoid_gate_backward(x2d, dy2d, pos_proj, w1x, b1, w2, b2, *, act, leaky_slope,
+                          gate_max, route=None):
+    """(dx, dpos_proj, dW1x, db1, dW2, db2) of the sigmoid gate in one pass,
+    each cast to its input's dtype, `torch.ops.locate.sigmoid_gate_backward`.
+    CUDA tensors: the backward kernel on `route` (`gate_bwd_route`'s choice
+    unless given: `sigmoid_bwd_mma` on the tensor cores or the simt
+    `sigmoid_bwd`) and two fixed-order reductions of its per-block
+    partials (replaces `_bwd_kernel_sigmoid`); CPU tensors: the plain
+    version (a route the call cannot take raises on both)."""
+    return _SIGMOID_GATE_BACKWARD(x2d, dy2d, pos_proj, w1x, b1, w2, b2, act,
+                                  float(leaky_slope), float(gate_max), route)
 
 
 sigmoid_gate_backward.launches = 0

@@ -17,7 +17,10 @@ on w.
 
 Five wrappers launch the kernels of `csrc/fused_stage.cu` for CUDA tensors
 and run their plain versions for CPU tensors; nothing falls back from one
-to the other, and each counts its launches in `launches`:
+to the other, and each counts its launches in `launches`. Each kernel is
+an op, `torch.ops.locate.<wrapper's name>` (`flash_attention.define_op`:
+the launcher its CUDA implementation, the plain version its CPU one),
+which the wrapper calls:
 
     stage_conv                 replaces `_kernel_conv_only`
     stage_sigmoid              replaces `_kernel_sigmoid`
@@ -58,7 +61,7 @@ import torch
 from locate_tpu_torch.ops.first_order import first_order
 from locate_tpu_torch.ops import fused_attention as fa
 # the two routes and their launch counting are the flash wrappers' own
-from locate_tpu_torch.ops.flash_attention import _ROUTE_CODE, MMA, SIMT, _count
+from locate_tpu_torch.ops.flash_attention import _ROUTE_CODE, MMA, SIMT, _count, define_op
 from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.cuda import build
 
@@ -350,16 +353,6 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err} ({msg})")
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
-    version); any other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
-    return True
-
-
 def stage_route(dtype: torch.dtype, c: int, co: int, *, skip: Optional[bool] = None,
                 h: Optional[int] = None, w: Optional[int] = None, hd: Optional[int] = None,
                 cout: Optional[int] = None) -> str:
@@ -431,6 +424,15 @@ def pick_tile(kind: int, h: int, w: int, c: int, co: int, hd: int = 0, cout: int
     return fits[0]
 
 
+def _fine_dims(x: torch.Tensor, upsample: bool) -> Tuple[int, int]:
+    """(H, W) of a stage call's output before any pool: x's, doubled under
+    `upsample`."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
+    _, h, w, _ = x.shape
+    return (2 * h, 2 * w) if upsample else (h, w)
+
+
 def _call_route(route: Optional[str], x: torch.Tensor, wr: torch.Tensor,
                 ws: Optional[torch.Tensor], upsample: bool, w1x: Optional[torch.Tensor] = None,
                 w2: Optional[torch.Tensor] = None) -> str:
@@ -438,13 +440,10 @@ def _call_route(route: Optional[str], x: torch.Tensor, wr: torch.Tensor,
     conv weights and, for the gated passes, gate weights: `route`, or
     `stage_route`'s choice where it is None (see `_route_of`); the fine
     dims (H, W) are x's, doubled under upsample."""
-    if x.dim() != 4:
-        raise ValueError(f"x must be NHWC, got {tuple(x.shape)}")
-    _, h, w, c = x.shape
-    if upsample:
-        h, w = 2 * h, 2 * w
+    h, w = _fine_dims(x, upsample)
     gate = {} if w1x is None else dict(hd=w1x.shape[1], cout=w2.shape[1])
-    return _route_of(route, x.dtype, c, wr.shape[-1], skip=ws is not None, h=h, w=w, **gate)
+    return _route_of(route, x.dtype, x.shape[-1], wr.shape[-1], skip=ws is not None, h=h, w=w,
+                     **gate)
 
 
 def _conv_operands(x, a, b, wr, wc, bc, ws, upsample):
@@ -497,18 +496,28 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def stage_conv(x, a, b, wr, wc, bc, ws, *, act, leaky_slope, upsample=False,
-               downsample=False, route=None):
-    """The conv block's output w (N, H, W, Co), (N, H/2, W/2, Co) under
-    `downsample`, in x's dtype. CUDA tensors: the `stage_conv` kernel (on
-    the mma route `stage_conv_mma`, see `stage_route`; replaces
-    `_kernel_conv_only`); CPU tensors: the plain version on any route."""
-    if upsample and downsample:
-        raise ValueError("upsample and downsample are mutually exclusive")
+def _stage_out(x, co, upsample, downsample):
+    """An empty stage output (N, H, W, Co) in x's dtype, (N, H/2, W/2, Co)
+    under `downsample`: the fake implementations' result."""
+    h, w = _fine_dims(x, upsample)
+    if downsample:
+        h, w = h // 2, w // 2
+    return x.new_empty((x.shape[0], h, w, co))
+
+
+def _stage_conv_cpu(x, a, b, wr, wc, bc, ws, act, leaky_slope, upsample, downsample, route):
+    _call_route(route, x, wr, ws, upsample)
+    return stage_conv_reference(x, a, b, wr, wc, bc, ws, act=act, leaky_slope=leaky_slope,
+                                upsample=upsample, downsample=downsample)
+
+
+def _stage_conv_fake(x, a, b, wr, wc, bc, ws, act, leaky_slope, upsample, downsample, route):
+    _call_route(route, x, wr, ws, upsample)
+    return _stage_out(x, wr.shape[-1], upsample, downsample)
+
+
+def _stage_conv_cuda(x, a, b, wr, wc, bc, ws, act, leaky_slope, upsample, downsample, route):
     route = _call_route(route, x, wr, ws, upsample)
-    if not _on_card(x):
-        return stage_conv_reference(x, a, b, wr, wc, bc, ws, act=act, leaky_slope=leaky_slope,
-                                    upsample=upsample, downsample=downsample)
     if act not in fa.ACT_CODES:
         raise ValueError(f"unsupported activation for the fused stage: {act!r}")
     ops, (n, h, w, c, co) = _conv_operands(x, a, b, wr, wc, bc, ws, upsample)
@@ -527,24 +536,51 @@ def stage_conv(x, a, b, wr, wc, bc, ws, *, act, leaky_slope, upsample=False,
     return out
 
 
+_CONV_ARGS = "Tensor x, Tensor a, Tensor b, Tensor wr, Tensor wc, Tensor bc, Tensor? ws"
+_GATE_ARGS = "Tensor pp, Tensor w1x, Tensor b1, Tensor w2, Tensor b2"
+_STAGE_CONV = define_op(
+    f"stage_conv({_CONV_ARGS}, str act, float leaky_slope, bool upsample, bool downsample, "
+    "str? route) -> Tensor", _stage_conv_cpu, _stage_conv_cuda, _stage_conv_fake)
+
+
+def _no_up_and_down(upsample: bool, downsample: bool) -> None:
+    if upsample and downsample:
+        raise ValueError("upsample and downsample are mutually exclusive")
+
+
+def stage_conv(x, a, b, wr, wc, bc, ws, *, act, leaky_slope, upsample=False,
+               downsample=False, route=None):
+    """The conv block's output w (N, H, W, Co), (N, H/2, W/2, Co) under
+    `downsample`, in x's dtype, `torch.ops.locate.stage_conv`. CUDA
+    tensors: the `stage_conv` kernel (on the mma route `stage_conv_mma`,
+    see `stage_route`; replaces `_kernel_conv_only`); CPU tensors: the
+    plain version on any route."""
+    _no_up_and_down(upsample, downsample)
+    return _STAGE_CONV(x, a, b, wr, wc, bc, ws, act, float(leaky_slope), bool(upsample),
+                       bool(downsample), route)
+
+
 stage_conv.launches = 0
 stage_conv.launches_mma = stage_conv.launches_simt = 0
 
 
-def stage_sigmoid(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, leaky_slope,
-                  gate_max, upsample=False, downsample=False, route=None):
-    """The conv block's output with the sigmoid gate applied, (N, H, W, Co),
-    (N, H/2, W/2, Co) under `downsample`, in x's dtype; pp is at the fine
-    resolution. CUDA tensors: the one-pass `stage_sigmoid` kernel (on the
-    mma route `stage_sigmoid_mma`, see `stage_route`; replaces
-    `_kernel_sigmoid`); CPU tensors: the plain version on any route."""
-    if upsample and downsample:
-        raise ValueError("upsample and downsample are mutually exclusive")
+def _stage_sigmoid_cpu(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act, leaky_slope,
+                       gate_max, upsample, downsample, route):
+    _call_route(route, x, wr, ws, upsample, w1x, w2)
+    return stage_sigmoid_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act=act,
+                                   leaky_slope=leaky_slope, gate_max=gate_max,
+                                   upsample=upsample, downsample=downsample)
+
+
+def _stage_sigmoid_fake(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act, leaky_slope,
+                        gate_max, upsample, downsample, route):
+    _call_route(route, x, wr, ws, upsample, w1x, w2)
+    return _stage_out(x, wr.shape[-1], upsample, downsample)
+
+
+def _stage_sigmoid_cuda(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act, leaky_slope,
+                        gate_max, upsample, downsample, route):
     route = _call_route(route, x, wr, ws, upsample, w1x, w2)
-    if not _on_card(x):
-        return stage_sigmoid_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act=act,
-                                       leaky_slope=leaky_slope, gate_max=gate_max,
-                                       upsample=upsample, downsample=downsample)
     if act not in fa.ACT_CODES:
         raise ValueError(f"unsupported activation for the fused stage: {act!r}")
     ops, (n, h, w, c, co) = _conv_operands(x, a, b, wr, wc, bc, ws, upsample)
@@ -563,6 +599,25 @@ def stage_sigmoid(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, leaky_sl
     _check(lib, err, f"stage sigmoid ({route})")
     _count(stage_sigmoid, route)
     return out
+
+
+_STAGE_SIGMOID = define_op(
+    f"stage_sigmoid({_CONV_ARGS}, {_GATE_ARGS}, str act, float leaky_slope, float gate_max, "
+    "bool upsample, bool downsample, str? route) -> Tensor",
+    _stage_sigmoid_cpu, _stage_sigmoid_cuda, _stage_sigmoid_fake)
+
+
+def stage_sigmoid(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, leaky_slope,
+                  gate_max, upsample=False, downsample=False, route=None):
+    """The conv block's output with the sigmoid gate applied, (N, H, W, Co),
+    (N, H/2, W/2, Co) under `downsample`, in x's dtype; pp is at the fine
+    resolution; `torch.ops.locate.stage_sigmoid`. CUDA tensors: the
+    one-pass `stage_sigmoid` kernel (on the mma route `stage_sigmoid_mma`,
+    see `stage_route`; replaces `_kernel_sigmoid`); CPU tensors: the plain
+    version on any route."""
+    _no_up_and_down(upsample, downsample)
+    return _STAGE_SIGMOID(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act, float(leaky_slope),
+                          float(gate_max), bool(upsample), bool(downsample), route)
 
 
 stage_sigmoid.launches = 0
@@ -587,20 +642,24 @@ def _gate_operands(x, pp, w1x, b1, w2, b2, co, hw):
             _dense(w2, cd), _dense(b2, torch.float32)], (hd, cout)
 
 
-def stage_softmax_stats(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, leaky_slope,
-                        upsample=False, route=None):
-    """(w_pre (N, H, W, Co) in x's dtype, m, se (N, 1, Cout) f32): the conv
-    block's output and the max and sum-exp over H*W of the gate logits on
-    it. CUDA tensors: the `stage_softmax_stats` kernel (on the mma route
-    `stage_softmax_stats_mma`, see `stage_route`) and the merge of its
-    per-tile statistics, `softmax_stats_merge` (replaces
-    `_kernel_softmax_stats`); CPU tensors: the plain version on any
-    route."""
+def _stage_softmax_stats_cpu(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act, leaky_slope,
+                             upsample, route):
+    _call_route(route, x, wr, ws, upsample, w1x, w2)
+    return stage_softmax_stats_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2,
+                                         act=act, leaky_slope=leaky_slope, upsample=upsample)
+
+
+def _stage_softmax_stats_fake(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act, leaky_slope,
+                              upsample, route):
+    _call_route(route, x, wr, ws, upsample, w1x, w2)
+    stats = (x.shape[0], 1, w2.shape[1])
+    return (_stage_out(x, wr.shape[-1], upsample, False),
+            x.new_empty(stats, dtype=torch.float32), x.new_empty(stats, dtype=torch.float32))
+
+
+def _stage_softmax_stats_cuda(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act, leaky_slope,
+                              upsample, route):
     route = _call_route(route, x, wr, ws, upsample, w1x, w2)
-    if not _on_card(x):
-        return stage_softmax_stats_reference(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2,
-                                             act=act, leaky_slope=leaky_slope,
-                                             upsample=upsample)
     if act not in fa.ACT_CODES:
         raise ValueError(f"unsupported activation for the fused stage: {act!r}")
     ops, (n, h, w, c, co) = _conv_operands(x, a, b, wr, wc, bc, ws, upsample)
@@ -626,26 +685,57 @@ def stage_softmax_stats(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, le
     return w_pre, m, se
 
 
+_STAGE_SOFTMAX_STATS = define_op(
+    f"stage_softmax_stats({_CONV_ARGS}, {_GATE_ARGS}, str act, float leaky_slope, "
+    "bool upsample, str? route) -> (Tensor, Tensor, Tensor)",
+    _stage_softmax_stats_cpu, _stage_softmax_stats_cuda, _stage_softmax_stats_fake)
+
+
+def stage_softmax_stats(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, *, act, leaky_slope,
+                        upsample=False, route=None):
+    """(w_pre (N, H, W, Co) in x's dtype, m, se (N, 1, Cout) f32): the conv
+    block's output and the max and sum-exp over H*W of the gate logits on
+    it, `torch.ops.locate.stage_softmax_stats`. CUDA tensors: the
+    `stage_softmax_stats` kernel (on the mma route
+    `stage_softmax_stats_mma`, see `stage_route`) and the merge of its
+    per-tile statistics, `softmax_stats_merge` (replaces
+    `_kernel_softmax_stats`); CPU tensors: the plain version on any
+    route."""
+    return _STAGE_SOFTMAX_STATS(x, a, b, wr, wc, bc, ws, pp, w1x, b1, w2, b2, act,
+                                float(leaky_slope), bool(upsample), route)
+
+
 stage_softmax_stats.launches = 0
 stage_softmax_stats.launches_mma = stage_softmax_stats.launches_simt = 0
 
 
-def stage_softmax_apply_pool(w_pre, pp, w1x, b1, w2, b2, m, se, *, act, leaky_slope,
-                             hw_scale, gate_max, route=None):
-    """The gate applied to w_pre (N, H, W, Co) and 2x2 average-pooled:
-    (N, H/2, W/2, Co) in w_pre's dtype. CUDA tensors: the
-    `stage_softmax_apply_pool` kernel (on the mma route
-    `stage_softmax_apply_pool_mma`, see `stage_route`; replaces
-    `_kernel_softmax_apply_pool`); CPU tensors: the plain version on any
-    route."""
+def _apply_pool_route(route, w_pre, w1x, w2) -> str:
+    """`route` of a `stage_softmax_apply_pool` call on w_pre, or
+    `stage_route`'s choice (see `_route_of`)."""
     if w_pre.dim() != 4:
         raise ValueError(f"w_pre must be NHWC, got {tuple(w_pre.shape)}")
+    _, h, w, co = w_pre.shape
+    return _route_of(route, w_pre.dtype, co, co, h=h, w=w, hd=w1x.shape[1], cout=w2.shape[1])
+
+
+def _stage_softmax_apply_pool_cpu(w_pre, pp, w1x, b1, w2, b2, m, se, act, leaky_slope,
+                                  hw_scale, gate_max, route):
+    _apply_pool_route(route, w_pre, w1x, w2)
+    return stage_softmax_apply_pool_reference(
+        w_pre, pp, w1x, b1, w2, b2, m, se, act=act, leaky_slope=leaky_slope,
+        hw_scale=hw_scale, gate_max=gate_max)
+
+
+def _stage_softmax_apply_pool_fake(w_pre, pp, w1x, b1, w2, b2, m, se, act, leaky_slope,
+                                   hw_scale, gate_max, route):
+    _apply_pool_route(route, w_pre, w1x, w2)
+    return _stage_out(w_pre, w_pre.shape[-1], False, True)
+
+
+def _stage_softmax_apply_pool_cuda(w_pre, pp, w1x, b1, w2, b2, m, se, act, leaky_slope,
+                                   hw_scale, gate_max, route):
+    route = _apply_pool_route(route, w_pre, w1x, w2)
     n, h, w, co = w_pre.shape
-    route = _route_of(route, w_pre.dtype, co, co, h=h, w=w, hd=w1x.shape[1], cout=w2.shape[1])
-    if not _on_card(w_pre):
-        return stage_softmax_apply_pool_reference(
-            w_pre, pp, w1x, b1, w2, b2, m, se, act=act, leaky_slope=leaky_slope,
-            hw_scale=hw_scale, gate_max=gate_max)
     if act not in fa.ACT_CODES:
         raise ValueError(f"unsupported activation for the fused stage: {act!r}")
     if w_pre.dtype not in (torch.float32, torch.bfloat16):
@@ -672,6 +762,25 @@ def stage_softmax_apply_pool(w_pre, pp, w1x, b1, w2, b2, m, se, *, act, leaky_sl
     return out
 
 
+_STAGE_SOFTMAX_APPLY_POOL = define_op(
+    f"stage_softmax_apply_pool(Tensor w_pre, {_GATE_ARGS}, Tensor m, Tensor se, str act, "
+    "float leaky_slope, float hw_scale, float gate_max, str? route) -> Tensor",
+    _stage_softmax_apply_pool_cpu, _stage_softmax_apply_pool_cuda,
+    _stage_softmax_apply_pool_fake)
+
+
+def stage_softmax_apply_pool(w_pre, pp, w1x, b1, w2, b2, m, se, *, act, leaky_slope,
+                             hw_scale, gate_max, route=None):
+    """The gate applied to w_pre (N, H, W, Co) and 2x2 average-pooled:
+    (N, H/2, W/2, Co) in w_pre's dtype, `torch.ops.locate.stage_softmax_apply_pool`.
+    CUDA tensors: the `stage_softmax_apply_pool` kernel (on the mma route
+    `stage_softmax_apply_pool_mma`, see `stage_route`; replaces
+    `_kernel_softmax_apply_pool`); CPU tensors: the plain version on any
+    route."""
+    return _STAGE_SOFTMAX_APPLY_POOL(w_pre, pp, w1x, b1, w2, b2, m, se, act, float(leaky_slope),
+                                     float(hw_scale), float(gate_max), route)
+
+
 stage_softmax_apply_pool.launches = 0
 stage_softmax_apply_pool.launches_mma = stage_softmax_apply_pool.launches_simt = 0
 
@@ -685,17 +794,24 @@ def bwd_blocks(n: int, h: int, w: int, th: int, tw: int,
     return min(n * (h // th) * (w // tw), target)
 
 
-def stage_conv_bwd(x, dw, a, b, wr, wc, ws, *, act, leaky_slope, upsample=False, route=None):
-    """(du, dxs, dWr, dWc, db_col, dWskip) of `stage_conv_bwd_reference`.
-    CUDA tensors: the `stage_conv_bwd` kernel (on the mma route
-    `stage_conv_bwd_mma`, see `stage_route`) and `reduce_partials`, a
-    fixed-order sum of its per-block weight-gradient partials, bitwise
-    repeatable (replaces `_kernel_conv_bwd`); CPU tensors: the plain
-    version on any route."""
+def _stage_conv_bwd_cpu(x, dw, a, b, wr, wc, ws, act, leaky_slope, upsample, route):
+    _call_route(route, x, wr, ws, upsample)
+    *grads, dws = stage_conv_bwd_reference(x, dw, a, b, wr, wc, ws, act=act,
+                                           leaky_slope=leaky_slope, upsample=upsample)
+    return (*grads, x.new_empty(0, dtype=torch.float32) if dws is None else dws)
+
+
+def _stage_conv_bwd_fake(x, dw, a, b, wr, wc, ws, act, leaky_slope, upsample, route):
+    _call_route(route, x, wr, ws, upsample)
+    c, co = x.shape[-1], wr.shape[-1]
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty(x.shape), x.new_empty(x.shape), x.new_empty((3, c, co), **f32),
+            x.new_empty((3, co, co), **f32), x.new_empty((co,), **f32),
+            x.new_empty((0,) if ws is None else (c, co), **f32))
+
+
+def _stage_conv_bwd_cuda(x, dw, a, b, wr, wc, ws, act, leaky_slope, upsample, route):
     route = _call_route(route, x, wr, ws, upsample)
-    if not _on_card(x):
-        return stage_conv_bwd_reference(x, dw, a, b, wr, wc, ws, act=act,
-                                        leaky_slope=leaky_slope, upsample=upsample)
     if act not in fa.ACT_CODES:
         raise ValueError(f"unsupported activation for the fused stage: {act!r}")
     ops, (n, h, w, c, co) = _conv_operands(x, a, b, wr, wc, None, ws, upsample)
@@ -737,8 +853,28 @@ def stage_conv_bwd(x, dw, a, b, wr, wc, ws, *, act, leaky_slope, upsample=False,
     _check(lib, err, f"stage conv backward ({route})")
     _count(stage_conv_bwd, route)
     parts = grads.split(sizes)
-    dws = parts[3].view(c, co) if ws_ is not None else None
+    dws = parts[3].view(c, co) if ws_ is not None else grads.new_empty(0)
     return du, dxs, parts[0].view(3, c, co), parts[1].view(3, co, co), parts[2], dws
+
+
+_STAGE_CONV_BWD = define_op(
+    "stage_conv_bwd(Tensor x, Tensor dw, Tensor a, Tensor b, Tensor wr, Tensor wc, Tensor? ws, "
+    "str act, float leaky_slope, bool upsample, str? route) "
+    "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _stage_conv_bwd_cpu, _stage_conv_bwd_cuda, _stage_conv_bwd_fake)
+
+
+def stage_conv_bwd(x, dw, a, b, wr, wc, ws, *, act, leaky_slope, upsample=False, route=None):
+    """(du, dxs, dWr, dWc, db_col, dWskip) of `stage_conv_bwd_reference`,
+    `torch.ops.locate.stage_conv_bwd` (whose dWskip is empty without a 1x1
+    skip: None here). CUDA tensors: the `stage_conv_bwd` kernel (on the mma
+    route `stage_conv_bwd_mma`, see `stage_route`) and `reduce_partials`, a
+    fixed-order sum of its per-block weight-gradient partials, bitwise
+    repeatable (replaces `_kernel_conv_bwd`); CPU tensors: the plain
+    version on any route."""
+    *grads, dws = _STAGE_CONV_BWD(x, dw, a, b, wr, wc, ws, act, float(leaky_slope),
+                                  bool(upsample), route)
+    return (*grads, None if ws is None else dws)
 
 
 stage_conv_bwd.launches = 0

@@ -1,6 +1,7 @@
 """The port's CLI for training and serving from checkpoints, on the CPU at
 16x16: `train` (twice on one workdir: the second resumes), `sample
---checkpoint`, `sample --interpolate`, `export` (with `--torch`) and
+--checkpoint`, `sample --interpolate`, `export` (with `--torch`, and
+with `--compiled-batch`: the artifact against the exported generator) and
 `bench-sample --checkpoint` through `cli.main`; `info`'s JSON against the
 JAX command's for the five presets; the port's export read by the JAX
 package's `load_generator` and by the port's own; `slerp` and
@@ -29,7 +30,8 @@ from locate_tpu.models.gan import build_gan as jax_build_gan
 from locate_tpu.utils import digest as jax_digest
 from locate_tpu.utils.metrics import MetricsLogger as JaxMetricsLogger
 from locate_tpu_torch import cli
-from locate_tpu_torch.io.export import export_generator, load_generator, params_to_jax
+from locate_tpu_torch.io.export import (export_generator, load_compiled, load_generator,
+                                       params_to_jax)
 from locate_tpu_torch.io.sampling import interpolation_grid, slerp
 from locate_tpu_torch.models.generator import build_generator
 from locate_tpu_torch.utils import digest
@@ -107,10 +109,22 @@ def test_sample_from_the_checkpoint_and_from_its_export(trained, tmp_path):
     assert all(torch.equal(sd[k], v) for k, v in model.state_dict().items())
 
 
-def test_export_refuses_the_compiled_artifact(trained):
+def test_export_writes_the_compiled_artifact(trained, tmp_path):
+    """`export --compiled-batch=8` writes `<base>.pt2` and its sidecar
+    beside the `.npz`; the artifact's images equal those of
+    `load_generator(<base>.npz)` bitwise."""
     _, args, _, _ = trained
-    with pytest.raises(SystemExit, match="item 11"):
-        cli.main(["export", *args, "--compiled-batch=8"])
+    out = run(cli.main, ["export", *args, f"--out={tmp_path}/gen", "--compiled-batch=8"])
+    assert f"compiled serving artifact to {tmp_path}/gen.pt2" in out
+    assert (tmp_path / "gen.pt2").is_file()
+    with open(tmp_path / "gen.pt2.json") as f:
+        assert json.load(f) == {"batch": 8, "latent_dim": 16, "num_classes": 0,
+                                "resolution": 16, "platforms": ["cpu"]}
+    fn, sig = load_compiled(f"{tmp_path}/gen.pt2")
+    z = torch.from_numpy(np.random.default_rng(5).standard_normal((8, 16)).astype(np.float32))
+    model = load_generator(f"{tmp_path}/gen.npz", "cpu", compute_dtype="float32")
+    with torch.no_grad():
+        assert torch.equal(fn(z), model(z))
 
 
 def test_bench_sample_serves_the_checkpoint(trained):

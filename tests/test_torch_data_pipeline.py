@@ -8,7 +8,6 @@ class-conditional step; and `bench e2e` on the CPU at a narrowed model."""
 
 import json
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -137,17 +136,40 @@ def test_producer_error_reaches_the_consumer():
 
 
 def test_close_stops_the_producer_thread():
-    before = threading.active_count()
+    """The pipeline's own producer thread has stopped when `close()`
+    returns (a count of the process's threads also sees other tests'
+    threads come and go under xdist)."""
     cfg = DataConfig(dataset="synthetic", resolution=16)
     with tpl.make_input_pipeline(cfg, 8, seed=0, device="cpu") as pipe:
+        thread = pipe._producer._thread
         assert next(pipe)["image"].shape == (8, 16, 16, 3)
-        assert threading.active_count() > before
+        assert thread.is_alive()
+    assert not thread.is_alive()
     with pytest.raises(StopIteration):
         next(pipe)
-    deadline = time.monotonic() + 5.0  # the producer polls its stop event at 0.5 s
-    while threading.active_count() > before and time.monotonic() < deadline:
-        time.sleep(0.05)
-    assert threading.active_count() <= before
+
+
+def test_close_raises_while_the_thread_runs_on():
+    """A producer held inside a batch past `close`'s timeout raises; it
+    stops once that batch is done."""
+    entered, release = threading.Event(), threading.Event()
+
+    class Stuck:
+        def __len__(self):
+            return 16
+
+        def example(self, i, rng):
+            entered.set()
+            release.wait()
+            return np.zeros((4, 4, 3), np.uint8), 0
+
+    prod = tpl.BatchProducer(Stuck(), 2, seed=0)
+    assert entered.wait(10.0)
+    with pytest.raises(RuntimeError, match="did not stop within 0.2 s"):
+        prod.close(timeout=0.2)
+    release.set()
+    prod.close()
+    assert not prod._thread.is_alive()
 
 
 def test_cpu_device_stage_passes_arrays_through():

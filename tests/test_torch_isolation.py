@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads no JAX, and no source of the
-port or of chip_smoke.py imports the JAX package."""
+port or of chip_smoke.py imports the JAX package. The package's exports
+load lazily, and the kernel modules register their ops alone."""
 
 import os
 import pkgutil
@@ -35,6 +36,39 @@ def test_import_loads_no_jax():
         "import importlib, sys\n"
         f"for name in {['locate_tpu_torch'] + port_modules()!r}:\n"
         "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "                                    'locate_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_the_package_is_lazy_and_the_ops_register_alone():
+    """`import locate_tpu_torch` loads no submodule; the three kernel
+    modules register the fourteen `torch.ops.locate.*` ops without the
+    model, block or train code; the lazy exports still resolve; and no
+    JAX and no JAX package is imported on the way."""
+    code = (
+        "import sys, torch\n"
+        "import locate_tpu_torch\n"
+        "port = lambda: sorted(m for m in sys.modules if m.startswith('locate_tpu_torch'))\n"
+        "assert port() == ['locate_tpu_torch'], port()\n"
+        "from locate_tpu_torch.ops import flash_attention, fused_attention, fused_stage\n"
+        "ops = ['flash_fwd', 'flash_dq', 'flash_dkv', 'softmax_gate_stats',\n"
+        "       'softmax_gate_apply', 'softmax_gate_csum', 'softmax_gate_backward',\n"
+        "       'sigmoid_gate', 'sigmoid_gate_backward', 'stage_conv', 'stage_sigmoid',\n"
+        "       'stage_softmax_stats', 'stage_softmax_apply_pool', 'stage_conv_bwd']\n"
+        "for name in ops:\n"
+        "    assert getattr(torch.ops.locate, name).default.namespace == 'locate'\n"
+        "model = [m for m in port() if m.split('.')[1:2] in (['models'], ['nn'], ['train'])]\n"
+        "assert not model, model\n"
+        "from locate_tpu_torch import Config, get_config, train\n"
+        "assert callable(train) and get_config('cifar10_32').model.resolution == 32\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
         "                                    'locate_tpu'))\n"
