@@ -24,7 +24,8 @@ resume, export and sampling from a checkpoint; three more presets and six
 recipes of the train step's options; the style family, spectral norm and
 projection; the eval of the loop's checkpoint; data parallelism:
 lsun_bedroom_128's loop in a world-size-1 NCCL group and on two gloo
-ranks sharing the card; last, the compiled serving artifact. Phases, one
+ranks sharing the card, and tensor parallelism on the same two ranks;
+last, the compiled serving artifact. Phases, one
 line each:
 
   1. the card: torch's name for it, and `name, power.limit` from nvidia-smi;
@@ -263,7 +264,7 @@ line each:
      byte for byte to a second producer's host batches from the same
      seed; two spc=4 graph calls fed from the prefetch, bitwise equal to
      the same calls fed host-made tensors;
- 29. the train loop (`python -m locate_tpu_torch train` in child
+ 29. the train loop (the CLI's `train` in child
      processes): lsun_bedroom_128 as shipped at full width, batch 64, bf16,
      synthetic data, 8 steps a call (a CUDA graph), 32 steps, an async
      checkpoint every 8, an in-training eval (rFID, rKID, keep_best) every
@@ -302,14 +303,16 @@ line each:
      gate's four above 0;
  31. lsun_bedroom_128 as shipped at full width and batch 64 under six
      recipes of docs/GUIDE.md: the limited-data stack (ADA, bCR, LeCam),
-     R3GAN (rpgan, R1 and R2), WGAN-GP with 5 critic steps, the fused
+     R3GAN (rpgan, R1 and R2), WGAN-GP with 2 critic steps (the recipe's
+     5, cut for time), the fused
      simultaneous step, path-length and orthogonal regularization, and
      grad_accum 2 with the bf16 EMA, the warmup-cosine schedule and
      ema_rampup: 2 kernel-path steps and 1 f32 step a path as in 30 (the
      f32 step at 64^2); a 2-step graph call
      bitwise equal to its eager steps, crossing an R1 step (and a PL
      step); the softmax gate's launches a step above 0; step times and
-     the idle share; then `bench 128 5 fused` beside 7's `bench 128 20`;
+     the idle share; then `bench 64 5 fused spc=8` beside 29's `bench 64`
+     at spc=8;
  32. the style family serving: celeba_64 with docs/GUIDE.md's style recipe
      (`model.arch=style model.style.mapping_layers=8`), bf16, batch 64,
      w-space truncation at psi 0.7: three `SampleGraph` replays bitwise
@@ -357,7 +360,14 @@ line each:
      this process without a group: every metric bitwise equal on both
      ranks and within 1e-2 relative of the one-process run's (the worst
      printed), metrics.jsonl written by rank 0 alone, the six kernels
-     launched on both ranks, step 2's seconds on each;
+     launched on both ranks, step 2's seconds on each; then
+     "tp-two-ranks-gloo": in the same children and group, the same run on
+     the (1, 2) data x model mesh (tensor parallelism: 64 images a rank,
+     every conv, dense and gate weight with 128 or more output channels
+     split over the two ranks, column-parallel convs and dense layers, the
+     gate kernels on weights gathered at use), held the same way, each
+     rank's state tensors of the layout's bytes (its parameters about 52 %
+     of one process's), step 2's seconds;
  39. "export-compiled": `export --compiled-batch 64` of 29's run A through
      the CLI writes lsun_bedroom_128's compiled serving artifact (`.pt2`,
      `torch.export` through the kernels' `torch.ops.locate.*` ops); a child
@@ -378,10 +388,16 @@ line each:
      own; stage_softmax_apply_pool, off ffhq_512's path under the profile,
      with the launches of 13's every-stage-fused step; each with its
      launches in 29's loop, a step of 33's style recipe, a forward of 32's
-     serving, 36's eval, 37's NCCL run at zero_stage 0, 38's rank 0 and
-     39's four artifacts);
+     serving, 36's eval, 37's NCCL run at zero_stage 0, 38's DP rank 0,
+     38's TP rank 0 and 39's four artifacts);
  41. the card's name and power limit again, then the last line
      `{"ok": true, "device": {...}}`.
+
+The child processes (29's three, 37's, 38's two and 39's serving child)
+start ahead of their turn and wait, their imports done, for a go file:
+their start-up overlaps the phases before them (`Gated`). The idle
+shares and top kernels are read from the device's activity alone
+(`PROFILED`).
 
 Any failed check exits non-zero before the last line. Needs one card; run
 it from the root of a checkout (the kernels build into .build/kernels/).
@@ -1562,16 +1578,25 @@ def run_cli(argv) -> dict:
     return json.loads(cli_text(argv).strip().splitlines()[-1])
 
 
+# what torch.profiler records for the idle shares and top kernels: the
+# device's activity (CUDA, with the runtime's launch calls). The host's
+# operators, which no reading uses, are not recorded: recording them costs
+# the host time to process each profile
+PROFILED = [torch.profiler.ProfilerActivity.CUDA]
+
+
 def profile_calls(fn, calls: int = 3, top: int = 0):
     """(idle share, top kernels) over `calls` calls of `fn`, from
     torch.profiler: the share of wall time with no kernel running (None
     when it records no device time), and the `top` CUDA kernels by device
-    time per call, with their share of the device's busy time."""
-    from torch.profiler import ProfilerActivity, profile
+    time per call, with their share of the device's busy time. The
+    profiler records the device's activity alone (PROFILED): the host's
+    operators are not read, and recording them costs the host time."""
+    from torch.profiler import profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=PROFILED) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -1940,10 +1965,10 @@ def phase_train_grads(fa, cfg, weights):
         losses={k: dict(d_loss=v[2], g_loss=v[3], r1=v[4]) for k, v in paths.items()})
 
 
-# phases 7 and 28 profile one eager step a path or feed (3 before phases
-# 37-38; CUTS)
+# phases 7, 11, 18, 24 and 28 profile one eager step a path or feed (3 in
+# 7 and 28 before phases 37-38, 2 in 11, 18 and 24 before the TP run; CUTS)
 PROFILED_EAGER_STEPS = 1
-# the calls `bench 128 N` times in phases 7, 28 and 31
+# the calls `bench 128 N` times in phase 7
 BENCH_CALLS = "20"
 # the steps the side benches are asked for: phase 7's plain-path yardstick
 # (`bench 128 N xla`), phase 28's `e2e` and phase 31's `fused` (20 before
@@ -1951,21 +1976,35 @@ BENCH_CALLS = "20"
 # A spc-16 rate times max(3, N // 16) calls a window either way: the cut
 # is the one-step rates' windows and e2e's (CUTS)
 SIDE_BENCH_CALLS = "5"
+# phase 31's WGAN-GP recipe: critic updates a step (the recipe's 5)
+WGAN_GP_CRITICS = 2
+# phase 29's loop and benches: steps a call (phase 31's fused bench too)
+LOOP_SPC = 8
 # the steps each of phase 29's in-process benches is asked for (20 before
 # phases 37-38; CUTS): at spc 8 any count under 32 times 3 calls a window
 LOOP_BENCH_CALLS = 10
-# the depth cut to keep the script inside its time with phases 37-38,
-# printed on a line each
+# the depth cuts that keep the script inside its time with phases 37-39
+# and the TP run, printed on a line each
 CUTS = {"phase 7": "profiles 1 eager step of each path (was 3); times the plain path's "
                    f"`bench 128 {SIDE_BENCH_CALLS} xla` (was 20; the kernel path keeps "
                    f"{BENCH_CALLS})",
+        "phases 11, 18, 24": "profile 1 eager step of each path (was 2)",
         "phase 28": "packs 1024 images (was 2048); profiles 1 eager step a feed (was 3); "
                     f"`bench 128 {SIDE_BENCH_CALLS} e2e` (was 20)",
         "phase 29": f"its two in-process benches are asked for {LOOP_BENCH_CALLS} steps (was "
-                    "20; at spc 8 either times 3 calls a window)",
-        "phase 31": f"`bench 128 {SIDE_BENCH_CALLS} fused` (was 20)",
+                    "20; at spc 8 either times 3 calls a window); its three children "
+                    "start during the build and wait, their imports done, for their turn",
+        "phase 31": f"`bench {BATCH} {SIDE_BENCH_CALLS} fused spc={LOOP_SPC}` beside phase "
+                    "29's bench at the same batch and spc (was `bench 128 5 fused` beside "
+                    f"phase 7's); the WGAN-GP recipe takes {WGAN_GP_CRITICS} critic updates "
+                    "a step (the recipe's 5)",
         "phase 37": "times the step on bench's config (no R1): 2 eager steps after 2, one "
-                    "8-step graph call after its capture"}
+                    "8-step graph call after its capture; its child starts with phase 36 "
+                    "and waits, its imports done, for its turn",
+        "phase 38": "its two children start with phase 37 and wait, their imports done, "
+                    "for their turn",
+        "phase 39": "the serving child starts before the export and waits, its imports "
+                    "done, for the artifact"}
 
 
 def phase_train_throughput():
@@ -2576,7 +2615,7 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     check(gate_routes["sigmoid_gate"] == want_gate,
           f"ffhq_512 steps' sigmoid_gate took the routes {gate_routes['sigmoid_gate']}, want "
           f"{want_gate}")
-    idle, top = profile_calls(lambda: step(state, batch), calls=2, top=15)
+    idle, top = profile_calls(lambda: step(state, batch), calls=PROFILED_EAGER_STEPS, top=15)
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
     params = dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel())
     del gan, state, step, before
@@ -2588,7 +2627,8 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
     state, plain_history, plain_seconds = timed_steps(step, state, batch, steps)
     plain_peak = torch.cuda.max_memory_allocated()
     plain_history = check_history(plain_history, tcfg)
-    plain_idle, plain_top = profile_calls(lambda: step(state, batch), calls=2, top=15)
+    plain_idle, plain_top = profile_calls(lambda: step(state, batch), calls=PROFILED_EAGER_STEPS,
+                                          top=15)
     del gan, state, step
     torch.cuda.empty_cache()
 
@@ -2603,12 +2643,13 @@ def phase_ffhq_train(overrides=None, per_step=None, phase="ffhq-train"):
         max_param_change=moved,
         kernel_path=dict(rates(seconds), peak_memory_bytes=peak,
                          device_idle_share="not measured" if idle is None else idle,
-                         top_kernels_2_steps=top),
+                         top_kernels=top),
         plain_path=dict(rates(plain_seconds), peak_memory_bytes=plain_peak,
                         metrics=plain_history,
                         device_idle_share=("not measured" if plain_idle is None
                                            else plain_idle),
-                        top_kernels_2_steps=plain_top))
+                        top_kernels=plain_top),
+        profiled_eager_steps=PROFILED_EAGER_STEPS)
     return cfg, weights, launches, dict(stage_routes, **gate_routes)
 
 
@@ -3258,6 +3299,50 @@ def release_memory():
     torch.cuda.empty_cache()
 
 
+# a child started ahead of its turn waits here, its imports done, until
+# its go file exists (the path is its first argument, taken off argv)
+GATE = ("import os as _os, sys as _sys, time as _time\n"
+        "_go = _sys.argv.pop(1)\n"
+        "while not _os.path.exists(_go):\n"
+        "    _time.sleep(0.02)\n")
+
+
+class Gated:
+    """A child process `python -c <imports> GATE <body> <args>` (output to
+    `log`), started now: its start-up (import torch takes ~11 s on the
+    card's host) overlaps the work before its turn, and it runs `body`
+    once `go()` creates its go file. `stop_children` kills any left."""
+
+    started = []
+
+    def __init__(self, imports, body, args, log, mode="w"):
+        import tempfile
+
+        self.go_path = os.path.join(tempfile.mkdtemp(prefix="smoke_go_"), "go")
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        with open(log, mode) as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", imports + GATE + body, self.go_path, *map(str, args)],
+                cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+        Gated.started.append(self)
+
+    def go(self) -> subprocess.Popen:
+        """Let the child run; its process."""
+        open(self.go_path, "w").close()
+        return self.proc
+
+
+def stop_children() -> None:
+    """Kill every started child still running (a failed phase's), and
+    remove the go files."""
+    for child in Gated.started:
+        if child.proc.poll() is None:
+            child.proc.kill()
+            child.proc.wait()
+        shutil.rmtree(os.path.dirname(child.go_path), ignore_errors=True)
+    Gated.started.clear()
+
+
 def self_train_attempt(cfg, batch_size, steps=3):
     """`steps` preset steps from step 0 at `batch_size`, checked: (times,
     memory, metrics and profile; the launches; the GAN's weights). The
@@ -3275,12 +3360,12 @@ def self_train_attempt(cfg, batch_size, steps=3):
     peak = torch.cuda.max_memory_allocated()
     history = check_history(history, tcfg)
     moved = check_moved(before, state, history, tcfg)
-    idle, top = profile_calls(lambda: step(state, batch), calls=2, top=12)
+    idle, top = profile_calls(lambda: step(state, batch), calls=PROFILED_EAGER_STEPS, top=12)
     out = dict(batch=batch_size, seconds_per_step=seconds, routes=routes,
                images_per_sec_after_step0=batch_size * (steps - 1) / sum(seconds[1:]),
                peak_memory_bytes=peak, metrics=history, max_param_change=moved,
                device_idle_share="not measured" if idle is None else idle,
-               top_kernels_2_steps=top,
+               top_kernels=top, profiled_eager_steps=PROFILED_EAGER_STEPS,
                params=dict(g=state.g_params.flat.numel(), d=state.d_params.flat.numel()))
     weights = (gan.generator.state_dict(), gan.discriminator.state_dict())
     return out, launches, weights
@@ -3925,7 +4010,6 @@ def phase_e2e_input_path():
 # ---------------------------------------------------------------------------
 
 LOOP_STEPS = 32
-LOOP_SPC = 8
 # lsun_bedroom_128 as shipped (R1 every 16, both guards, EMA) at full
 # width, batch 64, bf16, on the kernels; only the data source is cut (the
 # preset's folder holds no images on the card's machine)
@@ -3938,28 +4022,26 @@ LOOP_ARGS = ["lsun_bedroom_128", "use_pallas=true", "data.dataset=synthetic",
 LOOP_KERNELS = ("softmax_stats", "softmax_apply", "softmax_csum", "softmax_bwd",
                 "stage_conv", "stage_conv_bwd")
 # a child that trains through the CLI with cuDNN held to deterministic
-# algorithms (the drill's own setting, no option of the port)
-DETERMINISTIC_CHILD = ("import sys, torch\n"
-                       "torch.backends.cudnn.deterministic = True\n"
-                       "from locate_tpu_torch import cli\n"
-                       "sys.exit(cli.main(sys.argv[1:]))\n")
+# algorithms (the drill's own setting, no option of the port): its
+# imports, then (after its go file) the CLI's main
+DETERMINISTIC_IMPORTS = ("import sys, torch\n"
+                         "torch.backends.cudnn.deterministic = True\n"
+                         "from locate_tpu_torch import cli\n"
+                         "from locate_tpu_torch.train import loop\n")
+CLI_MAIN = "sys.exit(cli.main(sys.argv[1:]))\n"
 TIMING_KEYS = ("images_per_sec", "sec_per_step")
 
 
-def train_child(workdir, deterministic, wait=True):
-    """`train` of LOOP_ARGS in `workdir`, in a child process (output to
-    <workdir>.log): `python -m locate_tpu_torch train ...`, or the same
-    command with cuDNN deterministic. Waits for it unless `wait` is
-    False (then returns the process)."""
-    cmd = ([sys.executable, "-c", DETERMINISTIC_CHILD] if deterministic
-           else [sys.executable, "-m", "locate_tpu_torch"])
-    cmd += ["train", *LOOP_ARGS, f"workdir={workdir}"]
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    log = open(workdir + ".log", "a")
-    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
-    log.close()
-    if not wait:
-        return proc
+def start_train_child(workdir) -> "Gated":
+    """`train` of LOOP_ARGS in `workdir` through the CLI in a child with
+    cuDNN deterministic (output appended to <workdir>.log), started now and
+    held after its imports until its `go()`."""
+    return Gated(DETERMINISTIC_IMPORTS, CLI_MAIN, ["train", *LOOP_ARGS, f"workdir={workdir}"],
+                 workdir + ".log", mode="a")
+
+
+def wait_train_child(proc, workdir):
+    """Wait for a released train child; its output."""
     try:
         rc = proc.wait(timeout=600)
     finally:
@@ -4026,10 +4108,11 @@ def train_records(records):
     return [r for r in records if "eval_rfid" not in r]
 
 
-def killed_and_resumed(workdir, deterministic):
-    """Run B: the loop in a child SIGKILLed as soon as checkpoints/16 is
-    complete (renamed into place), then resumed to the end by another."""
-    proc = train_child(workdir, deterministic, wait=False)
+def killed_and_resumed(workdir, first, second):
+    """Run B: the loop in a child (`first`, a started `Gated`) SIGKILLed as
+    soon as checkpoints/16 is complete (renamed into place), then resumed
+    to the end by another (`second`)."""
+    proc = first.go()
     target = os.path.join(workdir, "checkpoints", str(2 * LOOP_SPC))
     deadline = time.time() + 600
     try:
@@ -4042,7 +4125,7 @@ def killed_and_resumed(workdir, deterministic):
     check(rc == -9, f"run B ended before the kill ({rc})")
     killed_at = sorted(int(n) for n in os.listdir(os.path.join(workdir, "checkpoints"))
                        if n.isdigit())
-    out = train_child(workdir, deterministic)
+    out = wait_train_child(second.go(), workdir)
     resumed = re.search(r"resumed from step (\d+)", out)
     check(resumed is not None, f"run B did not resume: {out[-2000:]}")
     return killed_at, int(resumed.group(1))
@@ -4054,10 +4137,10 @@ class WindowProfile:
     taken after the run (`result`), outside the loop's clock."""
 
     def __init__(self, start, stop):
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import profile
 
         self.start, self.stop = start, stop
-        self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof = profile(activities=PROFILED)
         self.wall = None
 
     def __call__(self, step, metrics):
@@ -4116,10 +4199,22 @@ def save_cost(state):
                 copy_gb_per_s=nbytes / device_ms / 1e6)
 
 
-def phase_train_loop():
+def start_loop_children():
+    """Phase 29's three children (run A; run B, killed; run B resumed),
+    started (and held after their imports) during the build (CUTS): (the
+    phase's directory, run A's and run B's workdirs, the children)."""
+    import tempfile
+
+    scratch = tempfile.mkdtemp(prefix="smoke_loop_")
+    run_a, run_b = (os.path.join(scratch, n) for n in ("a", "b"))
+    return scratch, run_a, run_b, [start_train_child(run) for run in (run_a, run_b, run_b)]
+
+
+def phase_train_loop(started):
     """Phase 29: the train loop of lsun_bedroom_128 at full width (LOOP_ARGS,
-    an in-training eval every 16 steps) in child processes through
-    `python -m locate_tpu_torch train` with cuDNN deterministic: run A,
+    an in-training eval every 16 steps) in child processes through the
+    CLI's `train` with cuDNN deterministic (`start_loop_children`'s,
+    released in turn): run A,
     its logged images/sec the loop's rate (the eval's time left out);
     run B SIGKILLed as soon as checkpoints/16 is complete and resumed to
     the end: its final checkpoint (every tensor, step, generator), sample
@@ -4136,18 +4231,15 @@ def phase_train_loop():
     and `sample --checkpoint` on A write the same PNG bytes. Returns (its
     line, the loop's launches, the phase's directory: run A's checkpoint
     for phase 36, which removes it)."""
-    import tempfile
-
     from locate_tpu_torch import cli
     from locate_tpu_torch.config import get_config, parse_cli_overrides
     from locate_tpu_torch.train.loop import train
 
-    scratch = tempfile.mkdtemp(prefix="smoke_loop_")
-    run_a, run_b = (os.path.join(scratch, n) for n in ("a", "b"))
+    scratch, run_a, run_b, (child_a, *children_b) = started
     t0 = time.perf_counter()
-    train_child(run_a, True)
+    wait_train_child(child_a.go(), run_a)
     child_seconds = time.perf_counter() - t0
-    killed_at, resumed_from = killed_and_resumed(run_b, True)
+    killed_at, resumed_from = killed_and_resumed(run_b, *children_b)
     check(resumed_from >= 2 * LOOP_SPC, f"run B resumed from step {resumed_from}")
     all_b = loop_records(run_b)
     steps_b = [r["step"] for r in train_records(all_b)]
@@ -4375,6 +4467,8 @@ DP2_ARGS = ["lsun_bedroom_128", "use_pallas=true", "data.dataset=synthetic",
             f"train.total_steps={DP2_STEPS}", "train.log_every=1", "train.checkpoint_every=0",
             "train.sample_every=0", "train.eval_every=0"]
 DP2_RTOL = 1e-2
+# phase 38's TP run: the same two ranks on the (1, 2) mesh, 64 images each
+TP_PARALLEL = dict(data_parallel=1, model_parallel=2)
 SAMPLER_COUNT = BATCH + 3
 
 
@@ -4386,16 +4480,12 @@ def dp_config(args, workdir, **parallel):
                                parallel=dataclasses.replace(cfg.parallel, **parallel))
 
 
-def dp_child(kind, *args):
+def dp_child(kind, *args) -> Gated:
     """A child process running `dp_nccl_child` or `dp_gloo_child` of this
-    file (output to <out>.log); returns the process."""
-    code = f"import sys, chip_smoke; chip_smoke.dp_{kind}_child(*sys.argv[1:])"
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    log = open(args[-1] + ".log", "w")
-    proc = subprocess.Popen([sys.executable, "-c", code, *map(str, args)], cwd=REPO, env=env,
-                            stdout=log, stderr=subprocess.STDOUT)
-    log.close()
-    return proc
+    file (output to <out>.log), started now and held after its imports
+    until its `go()`."""
+    return Gated("import sys, torch, chip_smoke\n", f"chip_smoke.dp_{kind}_child(*sys.argv[1:])\n",
+                 args, args[-1] + ".log")
 
 
 def wait_children(procs, outs, timeout=900):
@@ -4514,22 +4604,29 @@ def dp_nccl_child(out):
         json.dump(result, f)
 
 
-def phase_dp_nccl():
-    """Phase 37, "dp-one-rank-nccl": in one child, `initialize_from_env()`
-    makes a world-size-1 NCCL group on the card; `train()` of
-    lsun_bedroom_128 as shipped (DP_ARGS: 8 steps in one call of a CUDA
-    graph, R1 at step 0) in the group, whose collectives the graph
-    captures, at zero_stage 0, 1 and 3, each equal bit for bit (final
-    checkpoint, generator, every logged metric) to the same run without a
-    group, each launching the step's six kernels; `ShardedSampler` equal
-    to `generate_samples` at a count of 67; the step's ms eager and as a
-    graph, with and without the group."""
+def start_dp_nccl():
+    """Phase 37's child, started (and held after its imports) while phase
+    36 runs (CUTS): (its directory, its result's path, the child)."""
     import tempfile
 
     scratch = tempfile.mkdtemp(prefix="smoke_dp1_")
     out = os.path.join(scratch, "result.json")
+    return scratch, out, dp_child("nccl", out)
+
+
+def phase_dp_nccl(started):
+    """Phase 37, "dp-one-rank-nccl": in one child (`start_dp_nccl`'s,
+    released now), `initialize_from_env()` makes a world-size-1 NCCL
+    group on the card; `train()` of lsun_bedroom_128 as shipped (DP_ARGS:
+    8 steps in one call of a CUDA graph, R1 at step 0) in the group, whose
+    collectives the graph captures, at zero_stage 0, 1 and 3, each equal
+    bit for bit (final checkpoint, generator, every logged metric) to the
+    same run without a group, each launching the step's six kernels;
+    `ShardedSampler` equal to `generate_samples` at a count of 67; the
+    step's ms eager and as a graph, with and without the group."""
+    scratch, out, child = started
     t0 = time.perf_counter()
-    (res,) = wait_children([dp_child("nccl", out)], [out])
+    (res,) = wait_children([child.go()], [out])
     check(res["group"] and res["backend"] == "nccl" and res["world"] == 1,
           f"the child's group: {res}")
     for name, run in res["runs"].items():
@@ -4547,24 +4644,42 @@ def phase_dp_nccl():
 
 def dp_gloo_child(rank, port, workdir, out):
     """One rank of the gloo phase: `train()` of DP2_ARGS on the card in a
-    gloo group of two; writes its launches and each logged metric (the
-    hook "on_metrics") to `out`."""
+    gloo group of two, on the (2, 1) mesh (data parallelism) and then, in
+    the same group, on the (1, 2) mesh (tensor parallelism); writes each
+    run's launches, each logged metric (the hook "on_metrics") and, of the
+    TP run, the sizes of the state's tensors and the split gate weights to
+    `out`."""
     from locate_tpu_torch.parallel.distributed import initialize_from_env
+    from locate_tpu_torch.parallel.tp import slice_of
     from locate_tpu_torch.train.loop import train
+    from locate_tpu_torch.train.state import state_tensors
 
     os.environ.update(COORDINATOR_ADDRESS=f"localhost:{port}", NUM_PROCESSES="2",
                       PROCESS_ID=str(rank), LOCAL_RANK="0")
     check(initialize_from_env(backend="gloo"), "no group")
-    logged, clock = [], []
-    reset_counters()
-    t0 = time.perf_counter()
-    train(dp_config(DP2_ARGS, workdir), device="cuda", hooks={"on_metrics": logger(logged, clock)})
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    result = dict(rank=int(rank))
+    for name, parallel in (("dp", {}), ("tp", TP_PARALLEL)):
+        logged, clock = [], []
+        reset_counters()
+        t0 = time.perf_counter()
+        state = train(dp_config(DP2_ARGS, f"{workdir}_{name}", **parallel), device="cuda",
+                      hooks={"on_metrics": logger(logged, clock)})
+        torch.cuda.synchronize()
+        result[name] = dict(launches=read_counters(), logged=logged,
+                            train_seconds=time.perf_counter() - t0,
+                            step2_seconds=clock[1] - clock[0])
+        if name == "tp":
+            result[name]["state_bytes"] = {k: t.numel() * t.element_size()
+                                           for k, t in state_tensors(state).items()}
+            result[name]["split_gate_weights"] = [
+                n for params in (state.g_params, state.d_params)
+                for n, p in zip(params.names, params.params)
+                if n.endswith(("to_hidden.w", "to_logits.w")) and slice_of(p) is not None]
+        del state
+        release_memory()
     torch.distributed.destroy_process_group()
     with open(out, "w") as f:
-        json.dump(dict(rank=int(rank), launches=read_counters(), logged=logged,
-                       train_seconds=seconds, step2_seconds=clock[1] - clock[0]), f)
+        json.dump(result, f)
 
 
 def logger(logged, clock):
@@ -4577,62 +4692,143 @@ def logger(logged, clock):
     return hook
 
 
-def phase_dp_gloo():
-    """Phase 38, "dp-two-ranks-gloo" (returns its line and rank 0's
-    launches): two children on the one card, a gloo
-    group ("gspmd", zero_stage 0, the preset's options: all_reduce and
-    broadcast only), `train()` of DP2_ARGS (global batch 64, 32 a rank, 2
-    eager steps, R1 at the first); in this process the same run without a
-    group. Every metric bitwise equal on both ranks, each within 1e-2
-    relative of the one-process run's (bf16, half the batch a launch; the
-    worst ratio printed), metrics.jsonl written by rank 0 alone (each step
-    once), the six kernels launched on both ranks."""
-    import tempfile
-
-    from locate_tpu_torch.parallel.dryrun import free_port
-    from locate_tpu_torch.train.loop import train
-
-    scratch = tempfile.mkdtemp(prefix="smoke_dp2_")
-    workdir = os.path.join(scratch, "run")
-    outs = [os.path.join(scratch, f"rank{r}.json") for r in range(2)]
-    port = free_port()
-    t0 = time.perf_counter()
-    ranks = wait_children([dp_child("gloo", r, port, workdir, o) for r, o in enumerate(outs)],
-                          outs)
-    child_seconds = time.perf_counter() - t0
-    one = dp_config(DP2_ARGS, os.path.join(scratch, "one"))
-    one_clock = []
-    train(one, device="cuda", hooks={"on_metrics": logger([], one_clock)})
-    release_memory()
-    strip = [{k: v for k, v in r.items() if k not in TIMING_KEYS} for r in ranks[0]["logged"]]
-    check(strip == [{k: v for k, v in r.items() if k not in TIMING_KEYS}
-                    for r in ranks[1]["logged"]], "the two ranks logged different metrics")
-    written = loop_records(workdir)
-    check([r["step"] for r in written] == list(range(1, DP2_STEPS + 1)),
-          f"metrics.jsonl holds steps {[r['step'] for r in written]}")
-    want = loop_records(one.workdir)
+def worst_ratio(got_records, want_records):
+    """The largest relative difference of two metrics.jsonl's metrics, and
+    where it is."""
     worst, where = 0.0, None
-    for got, ref in zip(written, want):
+    for got, ref in zip(got_records, want_records):
         for k, v in ref.items():
             if k in TIMING_KEYS or k == "step":
                 continue
             ratio = abs(got[k] - v) / max(abs(got[k]), abs(v), 1e-30)
             if ratio > worst:
                 worst, where = ratio, f"step {ref['step']} {k}"
-    check(worst <= DP2_RTOL, f"two gloo ranks against one process: {where} off by {worst}")
+    return worst, where
+
+
+# lsun_bedroom_128's parameter elements that a rank of the (1, 2) mesh keeps,
+# and one process's (G and D together), counted apart from the port: the
+# JAX package's `param_shardings` rule (`_leaf_spec`) at model_parallel=2 on
+# `jax.eval_shape` of its init (G 3,082,771 of 5,952,531, D 3,743,489 of
+# 7,351,041)
+LSUN_TP_PARAM_ELEMENTS = (6_826_260, 13_303_572)
+
+
+def tp_layout_bytes(state):
+    """The bytes of each of a one-process state's tensors that a rank of
+    the (1, 2) mesh keeps (`parallel/tp.py`'s layout of both networks),
+    their bytes in one process, and (the rank's parameter elements, one
+    process's)."""
+    from locate_tpu_torch.parallel.mesh import Mesh
+    from locate_tpu_torch.parallel.sharding import VECTOR_FIELDS
+    from locate_tpu_torch.parallel.tp import ModelLayout
+    from locate_tpu_torch.train.state import state_tensors
+
+    mesh = Mesh(dp=1, mp=2, world=2)
+    layouts = {net: ModelLayout(mesh, p.names, p.full_shapes)
+               for net, p in (("g", state.g_params), ("d", state.d_params))}
+    split = {"g_params": "g", "d_params": "d", "ema_params": "g",
+             **{f"{net}_opt.{v}": net for net in "gd" for v in VECTOR_FIELDS}}
+    out, whole = {}, {}
+    for k, t in state_tensors(state).items():
+        n = layouts[split[k]].local_numel if k in split else t.numel()
+        out[k], whole[k] = n * t.element_size(), t.numel() * t.element_size()
+    params = (sum(lay.local_numel for lay in layouts.values()),
+              sum(lay.full_numel for lay in layouts.values()))
+    return out, whole, params
+
+
+def start_dp_gloo():
+    """Phase 38's two children, started (and held after their imports)
+    while phase 37 runs (CUTS): (the phase's directory, the run's
+    workdir, the ranks' result paths, the children)."""
+    import tempfile
+
+    from locate_tpu_torch.parallel.dryrun import free_port
+
+    scratch = tempfile.mkdtemp(prefix="smoke_dp2_")
+    workdir = os.path.join(scratch, "run")
+    outs = [os.path.join(scratch, f"rank{r}.json") for r in range(2)]
+    port = free_port()
+    return scratch, workdir, outs, [dp_child("gloo", r, port, workdir, o)
+                                     for r, o in enumerate(outs)]
+
+
+def phase_dp_gloo(started):
+    """Phase 38, "dp-two-ranks-gloo" and "tp-two-ranks-gloo" (returns the
+    DP line, rank 0's DP launches and rank 0's TP launches): two children
+    on the one card (`start_dp_gloo`'s, released now), a gloo group
+    ("gspmd", zero_stage 0, the preset's options: all_reduce and
+    broadcast only), `train()` of DP2_ARGS (global batch 64, 2 eager
+    steps, R1 at the first) on the (2, 1) mesh, 32
+    images a rank, then in the same processes and group on the (1, 2)
+    mesh, 64 images a rank and every eligible leaf split over the two
+    ranks; in this process the same run without a group. For each: every
+    metric bitwise equal on both ranks, each within 1e-2 relative of the
+    one-process run's (bf16; the worst ratio printed), metrics.jsonl
+    written by rank 0 alone (each step once), the six kernels launched on
+    both ranks. The TP run's gate kernels read gathered weights (the gate
+    weights split on the ranks, named); each rank's state tensors hold the
+    layout's bytes, its parameters about half of one process's."""
+    from locate_tpu_torch.train.loop import train
+
+    scratch, workdir, outs, children = started
+    t0 = time.perf_counter()
+    ranks = wait_children([child.go() for child in children], outs)
+    child_seconds = time.perf_counter() - t0
+    one = dp_config(DP2_ARGS, os.path.join(scratch, "one"))
+    one_clock = []
+    one_state = train(one, device="cuda", hooks={"on_metrics": logger([], one_clock)})
+    want_bytes, one_bytes, (tp_params, one_params) = tp_layout_bytes(one_state)
+    del one_state
+    release_memory()
+    want = loop_records(one.workdir)
+    lines = {}
+    for name in ("dp", "tp"):
+        runs = [r[name] for r in ranks]
+        strip = [[{k: v for k, v in rec.items() if k not in TIMING_KEYS} for rec in run["logged"]]
+                 for run in runs]
+        check(strip[0] == strip[1], f"{name}: the two ranks logged different metrics")
+        written = loop_records(f"{workdir}_{name}")
+        check([r["step"] for r in written] == list(range(1, DP2_STEPS + 1)),
+              f"{name}: metrics.jsonl holds steps {[r['step'] for r in written]}")
+        worst, where = worst_ratio(written, want)
+        check(worst <= DP2_RTOL, f"{name}: two gloo ranks against one process: {where} off "
+                                 f"by {worst}")
+        for r, run in zip(ranks, runs):
+            for kernel in DP_KERNELS:
+                check(run["launches"][kernel] > 0,
+                      f"{name}: rank {r['rank']} never launched {kernel}")
+        lines[name] = dict(
+            config=" ".join(DP2_ARGS), worst_relative_difference=worst, worst_at=where,
+            rtol=DP2_RTOL, metrics_rank0=written,
+            step2_seconds={**{r["rank"]: run["step2_seconds"] for r, run in zip(ranks, runs)},
+                           "one_process": one_clock[1] - one_clock[0]},
+            launches={r["rank"]: {k: run["launches"][k] for k in DP_KERNELS}
+                      for r, run in zip(ranks, runs)},
+            train_seconds={r["rank"]: run["train_seconds"] for r, run in zip(ranks, runs)})
     for r in ranks:
-        for kernel in DP_KERNELS:
-            check(r["launches"][kernel] > 0, f"rank {r['rank']} never launched {kernel}")
+        got = r["tp"]["state_bytes"]
+        check(got == want_bytes, f"tp: rank {r['rank']}'s state bytes {got}, the layout's "
+                                 f"{want_bytes}")
+        check(r["tp"]["split_gate_weights"], f"tp: rank {r['rank']} split no gate weight")
+        held = (got["g_params"] + got["d_params"]) // 4  # the flat f32 vectors
+        check(held == LSUN_TP_PARAM_ELEMENTS[0],
+              f"tp: rank {r['rank']} holds {held} parameter elements, JAX's rule "
+              f"{LSUN_TP_PARAM_ELEMENTS[0]}")
+    check((tp_params, one_params) == LSUN_TP_PARAM_ELEMENTS,
+          f"tp: the layout's parameter elements {(tp_params, one_params)}, JAX's rule "
+          f"{LSUN_TP_PARAM_ELEMENTS}")
     shutil.rmtree(scratch)
-    out = dict(config=" ".join(DP2_ARGS), worst_relative_difference=worst, worst_at=where,
-               rtol=DP2_RTOL, metrics_rank0=written,
-               step2_seconds={**{r["rank"]: r["step2_seconds"] for r in ranks},
-                              "one_process": one_clock[1] - one_clock[0]},
-               launches={r["rank"]: {k: r["launches"][k] for k in DP_KERNELS} for r in ranks},
-               train_seconds={r["rank"]: r["train_seconds"] for r in ranks},
-               child_seconds=child_seconds)
-    say("dp-two-ranks-gloo", **out)
-    return out, ranks[0]["launches"]
+    lines["dp"]["child_seconds"] = child_seconds
+    say("dp-two-ranks-gloo", **lines["dp"])
+    say("tp-two-ranks-gloo", **lines["tp"], mesh=TP_PARALLEL,
+        resident_state_bytes={r["rank"]: sum(r["tp"]["state_bytes"].values()) for r in ranks},
+        one_process_state_bytes=sum(one_bytes.values()),
+        param_elements=dict(rank=tp_params, one_process=one_params,
+                            share=tp_params / one_params),
+        split_gate_weights=ranks[0]["tp"]["split_gate_weights"])
+    return lines["dp"], ranks[0]["dp"]["launches"], ranks[0]["tp"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -4676,12 +4872,12 @@ PINNED_NUMERICS = ("torch.backends.cuda.matmul.allow_tf32 = False\n"
                    "torch.backends.cudnn.benchmark = False\n")
 # the serving process: torch, the three kernel modules and load_compiled,
 # no model code; one call counted and profiled, EXPORT_REPS timed
-EXPORT_CHILD = ("import importlib, json, sys, time\n"
-                "import torch\n" + PINNED_NUMERICS +
-                "from locate_tpu_torch.ops import flash_attention, fused_attention, "
-                "fused_stage\n"
-                "from locate_tpu_torch.io.export import load_compiled\n"
-                """
+EXPORT_IMPORTS = ("import importlib, json, sys, time\n"
+                  "import torch\n" + PINNED_NUMERICS +
+                  "from locate_tpu_torch.ops import flash_attention, fused_attention, "
+                  "fused_stage\n"
+                  "from locate_tpu_torch.io.export import load_compiled\n")
+EXPORT_BODY = """
 path, z_path, out_path, counter_names, reps = sys.argv[1:6]
 counters = {k: getattr(importlib.import_module(f"locate_tpu_torch.ops.{m}"), fn)
             for k, (m, fn) in json.loads(counter_names).items()}
@@ -4712,7 +4908,7 @@ loaded = sorted(m for m in sys.modules
                 or m.split(".")[0] in ("jax", "jaxlib", "locate_tpu"))
 print(json.dumps(dict(sig=sig, launches=launches, cuda_kernels=names, loaded=loaded,
                       images_per_sec=int(reps) * z.shape[0] / seconds)))
-""")
+"""
 
 
 @contextlib.contextmanager
@@ -4808,6 +5004,11 @@ def phase_export_compiled(run_a):
     t_phase = time.perf_counter()
     scratch = tempfile.mkdtemp(prefix="smoke_export_")
     base = os.path.join(scratch, "lsun")
+    names = {k: [fn.__module__.rsplit(".", 1)[1], fn.__name__] for k, fn in counters().items()}
+    # the serving child does its imports during the export (CUTS)
+    child = Gated(EXPORT_IMPORTS, EXPORT_BODY,
+                  [base + ".pt2", os.path.join(scratch, "z.pt"), os.path.join(scratch, "y.pt"),
+                   json.dumps(names), EXPORT_REPS], os.path.join(scratch, "child.log"))
     t0 = time.perf_counter()
     text = cli_text(["export", *LOOP_ARGS, f"workdir={run_a}", f"--out={base}",
                      f"--compiled-batch={BATCH}"])
@@ -4819,17 +5020,11 @@ def phase_export_compiled(run_a):
     gz = torch.Generator().manual_seed(11)
     z = torch.randn(BATCH, sig["latent_dim"], generator=gz)
     torch.save(z, os.path.join(scratch, "z.pt"))
-    names = {k: [fn.__module__.rsplit(".", 1)[1], fn.__name__] for k, fn in counters().items()}
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     log = os.path.join(scratch, "child.log")
     t0 = time.perf_counter()
-    with open(log, "w") as out:
-        proc = subprocess.Popen([sys.executable, "-c", EXPORT_CHILD, base + ".pt2",
-                                 os.path.join(scratch, "z.pt"), os.path.join(scratch, "y.pt"),
-                                 json.dumps(names), str(EXPORT_REPS)],
-                                cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+    proc = child.go()
     try:
-        # the child's start-up (import, load) overlaps the other three artifacts
+        # the child's load and run overlap the other three artifacts
         small, total = export_random_artifacts(scratch)
         rc = proc.wait(timeout=600)
     finally:
@@ -5389,7 +5584,7 @@ def phase_presets():
     return rows
 
 
-def phase_recipes(bench_kernel):
+def phase_recipes(alternating):
     """Phase 31: lsun_bedroom_128 as shipped at full width and batch 64
     under each of six recipes of docs/GUIDE.md (`RECIPES`): 2 steps from
     one state on the kernel path against the plain path
@@ -5397,13 +5592,16 @@ def phase_recipes(bench_kernel):
     eager steps (cuDNN deterministic for the comparison), crossing an R1
     step (and a PL step);
     the softmax gate kernels' launches a step (none 0); step times and the
-    idle share. Then `bench 128 SIDE_BENCH_CALLS fused` (16 steps a call) beside
-    phase 7's bench."""
+    idle share. Then `bench 64 SIDE_BENCH_CALLS fused spc=8` (8 steps a
+    call) beside phase 29's `bench 64` at spc=8 (`alternating`, its
+    images/sec; both time 3 calls a window)."""
     from locate_tpu_torch.config import get_config
 
     rows = {}
     for name, overrides in RECIPES.items():
         t0 = time.perf_counter()
+        if name == "wgan_gp":  # the depth cut of CUTS: fewer critic updates a step
+            overrides = {**overrides, "train.d_steps": str(WGAN_GP_CRITICS)}
         cfg = get_config("lsun_bedroom_128", {"use_pallas": "true", **overrides})
         row = dict(overrides=overrides)
         row["kernel_vs_plain"] = paths_from_one_state(cfg, BATCH, RECIPE_STEPS, 128,
@@ -5422,11 +5620,10 @@ def phase_recipes(bench_kernel):
         rows[name] = row
         say(f"recipe-{name}", **row)
     t0 = time.perf_counter()
-    fused = run_cli(["bench", "128", SIDE_BENCH_CALLS, "fused"])
-    check(fused["steps_per_call"] == 16 and fused["value"] > 0, f"bench fused: {fused}")
-    say("bench-fused", fused=fused, alternating=bench_kernel,
-        fused_over_alternating=fused["value"] / bench_kernel["value"],
-        seconds=time.perf_counter() - t0)
+    fused = run_cli(["bench", str(BATCH), SIDE_BENCH_CALLS, "fused", f"spc={LOOP_SPC}"])
+    check(fused["steps_per_call"] == LOOP_SPC and fused["value"] > 0, f"bench fused: {fused}")
+    say("bench-fused", fused=fused, alternating_bench_64_spc8_images_per_sec=alternating,
+        fused_over_alternating=fused["value"] / alternating, seconds=time.perf_counter() - t0)
     return rows, fused
 
 
@@ -5729,6 +5926,8 @@ def main() -> int:
     smi = nvidia_smi()
     say("card", torch_name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
+    # the train loop's children do their imports during the build
+    loop_children = start_loop_children()
     phase_build(fa, fs, fl, build)
     for phase, cut in CUTS.items():
         say("cut", where=phase, cut=cut)
@@ -5749,7 +5948,7 @@ def main() -> int:
     train_cfg, weights, train_launches, gate_routes = phase_train(fa)
     phase_train_grads(fa, train_cfg, weights)
     del weights
-    bench_kernel, _ = phase_train_throughput()
+    phase_train_throughput()
 
     # ffhq_512: the fused-stage kernels, serving, training (their main path)
     stage_rows, stage_times, stage_err = phase_stage_kernels(fs, fa)
@@ -5797,12 +5996,12 @@ def main() -> int:
 
     # the train loop: a SIGKILLed run resumed against an uninterrupted one,
     # export and sampling from the checkpoint
-    _, loop_launches, loop_dir = phase_train_loop()
+    loop_line, loop_launches, loop_dir = phase_train_loop(loop_children)
 
     # every option of the train step: three more presets at full width, six
     # recipes at lsun_bedroom_128's, and the fused step's bench line
     phase_presets()
-    phase_recipes(bench_kernel)
+    phase_recipes(loop_line["bench_64_spc8_images_per_sec"])
 
     # the style family (serving with truncation, training with mixing and
     # noise), spectral norm and the skip head, projection
@@ -5812,13 +6011,17 @@ def main() -> int:
     phase_project(fa)
 
     # the eval of the loop's checkpoint, and the extractors on the card
+    # (phase 37's child does its imports meanwhile)
+    nccl_child = start_dp_nccl()
     eval_launches = phase_eval(os.path.join(loop_dir, "a"))
     for kernel in ("softmax_stats", "softmax_apply"):
         check(eval_launches[kernel] > 0, f"the eval never launched {kernel}")
 
-    # data parallelism: a world-size-1 NCCL group, and two gloo ranks
-    dp_nccl = phase_dp_nccl()
-    _, dp_gloo_launches = phase_dp_gloo()
+    # data parallelism: a world-size-1 NCCL group (phase 38's children do
+    # their imports meanwhile), and two gloo ranks
+    gloo_children = start_dp_gloo()
+    dp_nccl = phase_dp_nccl(nccl_child)
+    _, dp_gloo_launches, tp_launches = phase_dp_gloo(gloo_children)
 
     # the compiled serving artifact of the loop's checkpoint, served by a
     # process without the model code, and three more from random weights
@@ -5843,6 +6046,7 @@ def main() -> int:
                          "launches_eval": eval_launches,
                          "launches_dp_nccl": dp_nccl["runs"]["zero0"]["launches"],
                          "launches_dp_gloo_rank0": dp_gloo_launches,
+                         "launches_tp_rank0": tp_launches,
                          "launches_export": export_launches})
     check_style_launches(out)
     for entry in out:
@@ -5866,3 +6070,5 @@ if __name__ == "__main__":
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        stop_children()

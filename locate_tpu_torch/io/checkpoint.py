@@ -24,10 +24,12 @@ reused, so the next `save` first waits for the writer to release them;
 a failed background write raises there (or at `wait` / `close`).
 
 In a process group (`mesh`) the format stays the same and does not depend
-on the world size: a save all-gathers the ZeRO slices of the state
-(`parallel/sharding.py:gathered_tensors`, a collective every rank joins)
-and rank 0 alone writes; a restore reads the file on every rank and keeps
-each rank's slice, so a run resumes at another world size.
+on the world size or the mesh's shape: a save all-gathers the ZeRO slices
+and the model slices of the state (`parallel/sharding.py:
+gathered_tensors`, a collective every rank joins) and rank 0 alone
+writes; a restore reads the file on every rank and keeps each rank's
+model slice and ZeRO slice (`own_tensor`), so a run resumes on another
+mesh.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ def _fsync_dir(path: str) -> None:
 
 
 def _layout(params: FlatParams):
-    return params.names, [list(p.shape) for p in params.params]
+    """Names and whole (one-process) shapes of a network's parameters."""
+    return params.names, [list(s) for s in params.full_shapes]
 
 
 def _check_layout(net: str, params: FlatParams, names: List[str], shapes: List[list]):
@@ -191,10 +194,9 @@ class CheckpointManager:
             raise ValueError(f"{path}: format {payload.get('format')!r}, want {FORMAT!r}")
         _check_layout("G", state.g_params, payload["g_names"], payload["g_shapes"])
         _check_layout("D", state.d_params, payload["d_names"], payload["d_shapes"])
-        from locate_tpu_torch.parallel.sharding import sharded_tensors
+        from locate_tpu_torch.parallel.sharding import full_shape, own_tensor
 
         saved, live = payload["tensors"], state_tensors(state)
-        shards = sharded_tensors(state)
         if "ema_params" in saved and "ema_params" not in live:
             raise ValueError(
                 f"{path} holds an EMA shadow but the run has none (train.ema_decay = 0): "
@@ -209,8 +211,8 @@ class CheckpointManager:
             if name not in saved:
                 raise ValueError(f"{path} has no tensor {name!r}")
             src = saved[name]
-            shape = (shards[name].n,) if name in shards else t.shape
-            if src.shape != shape or src.dtype != t.dtype:
+            shape = full_shape(state, name, t)
+            if tuple(src.shape) != shape or src.dtype != t.dtype:
                 raise ValueError(f"{path}: {name} is {src.dtype} {tuple(src.shape)}, the "
                                  f"state's {t.dtype} {tuple(shape)}")
         extra = sorted(set(saved) - set(live))
@@ -219,7 +221,7 @@ class CheckpointManager:
         with torch.no_grad():
             for name, t in live.items():
                 if name in saved:
-                    t.copy_(shards[name].take(saved[name]) if name in shards else saved[name])
+                    t.copy_(own_tensor(state, name, saved[name]))
             if "ema_params" in backfill:
                 dtype = str(state.ema_params.dtype).removeprefix("torch.")
                 state.ema_params.copy_(state.g_params.local(ema_init(state.g_params.flat,

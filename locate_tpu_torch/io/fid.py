@@ -393,14 +393,15 @@ def _pad_rows(x, m: int):
 
 
 def rank_rows(x, mesh):
-    """This rank's rows of a batch padded to a multiple of the mesh's world
-    (`_pad_rows`)."""
-    per = -(-len(x) // mesh.world)
-    return _pad_rows(x, per * mesh.world)[mesh.rank * per:(mesh.rank + 1) * per]
+    """This rank's rows of a batch padded to a multiple of the mesh's data
+    axis (`_pad_rows`); the model ranks of a data row take the same rows."""
+    per = -(-len(x) // mesh.dp)
+    i = mesh.data_index
+    return _pad_rows(x, per * mesh.dp)[i * per:(i + 1) * per]
 
 
 def gather_rows(features: np.ndarray, n: int, mesh: Mesh, device: torch.device) -> np.ndarray:
-    """Every rank's rows of a padded batch (`rank_rows`), in order, trimmed
+    """Every data rank's rows of a padded batch (`rank_rows`), in order, trimmed
     to its n rows: the all-gather runs on `device` (one process's rows
     are the batch, returned as they are)."""
     if mesh.group is None:

@@ -96,10 +96,11 @@ class ShardedSampler:
     The latents are `generate_samples`' draw of `count` from `gen` on
     every rank (so the generators stay in step, and from one seed the
     images are `generate_samples`' images), padded with zero rows up to a
-    multiple of the world; rank 0 gathers the images and trims the
-    padding. `gan_or_model` is a GAN (its generator) or a generator
-    module; `weights` (parameters by name, e.g. `serving_weights(state)`)
-    go into a serving copy of it, else the module serves as it is."""
+    multiple of the data axis (the model ranks of a data row serve the
+    same rows); rank 0 gathers the images and trims the padding.
+    `gan_or_model` is a GAN (its generator) or a generator module;
+    `weights` (parameters by name, e.g. `serving_weights(state)`) go into
+    a serving copy of it, else the module serves as it is."""
 
     def __init__(self, gan_or_model, weights: Optional[Dict[str, torch.Tensor]] = None,
                  mesh=None):
@@ -122,17 +123,17 @@ class ShardedSampler:
         """uint8 NHWC images of `count` samples on rank 0 (None on the
         other ranks); every rank calls it."""
         cfg, mesh = self.model.config, self.mesh
-        per = -(-count // mesh.world)
+        per = -(-count // mesh.dp)
         with torch.inference_mode():
             z = sample_latents(gen, count, cfg.latent_dim, truncation)
             if labels is None and cfg.num_classes:
                 labels = torch.arange(count, device=gen.device) % cfg.num_classes
-            pad = per * mesh.world - count
+            pad = per * mesh.dp - count
             if pad:
                 z = torch.cat([z, z.new_zeros((pad, z.shape[1]))])
                 if labels is not None:
                     labels = torch.cat([labels, labels.new_zeros(pad)])
-            rows = slice(mesh.rank * per, (mesh.rank + 1) * per)
+            rows = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
             imgs = to_uint8_tensor(self.model(z[rows], None if labels is None else labels[rows]))
             imgs = mesh.all_gather(imgs)
         return imgs[:count].cpu().numpy() if mesh.primary else None
@@ -177,11 +178,13 @@ def interpolation_grid(model: nn.Module, gen: torch.Generator, rows: int = 4, co
 
 
 def serving_weights(state) -> Dict[str, torch.Tensor]:
-    """The generator weights a train state serves, by parameter name: its
-    EMA shadow's, or G's own where the run keeps no EMA (views, not
-    copies)."""
-    flat = state.ema_params if state.ema_params is not None else state.g_params.flat
-    return state.g_params.named(flat)
+    """The whole generator weights a train state serves, by parameter
+    name: its EMA shadow's, or G's own where the run keeps no EMA (views,
+    not copies, in one process; a sharded state's gathered, a collective
+    every rank joins: `train/state.py:serving_vector`)."""
+    from locate_tpu_torch.train.state import serving_vector
+
+    return state.g_params.named_full(serving_vector(state))
 
 
 def serving_generator(gan, state) -> nn.Module:

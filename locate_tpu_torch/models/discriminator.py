@@ -29,6 +29,7 @@ from locate_tpu_torch.ops.activations import Act
 from locate_tpu_torch.ops.conv import Dense, GlobalAvgPool
 from locate_tpu_torch.ops.norm import make_norm, minibatch_stddev
 from locate_tpu_torch.ops.spectral import spectral_normalize
+from locate_tpu_torch.parallel.tp import whole
 
 
 class Discriminator(nn.Module):
@@ -91,7 +92,7 @@ class Discriminator(nn.Module):
         if cfg.num_classes:
             if labels is None:
                 raise ValueError("class-conditional discriminator needs labels")
-            proj = self.class_proj.float()[labels]
+            proj = whole(self.class_proj).float()[labels]
             logit = logit + (proj * feats.float()).sum(dim=-1)
         if return_features:
             return logit, feats

@@ -28,6 +28,7 @@ from locate_tpu_torch.ops import initializers
 from locate_tpu_torch.ops.activations import Act
 from locate_tpu_torch.ops.conv import Conv2d, Dense, upsample_nearest
 from locate_tpu_torch.ops.norm import make_norm
+from locate_tpu_torch.parallel.tp import whole
 
 
 def as_dtype(dtype: Union[None, str, torch.dtype]) -> Optional[torch.dtype]:
@@ -85,7 +86,7 @@ class Generator(nn.Module):
         if self.config.num_classes:
             if labels is None:
                 raise ValueError("class-conditional generator needs labels")
-            z = torch.cat([z, self.class_embed.to(cd)[labels]], dim=-1)
+            z = torch.cat([z, whole(self.class_embed).to(cd)[labels]], dim=-1)
         x = self.seed(z).reshape(z.shape[0], 4, 4, self.chans[0])
         if self.config.g_rgb != "skip":
             return self.head(run_stages(self.trunk, x, self.config.remat))

@@ -25,6 +25,8 @@ The module tree mirrors the JAX params pytree, so `state_dict()` keys are
 its dotted paths (`mapping.layers.0.w`, `const`,
 `stages.1.convs.0.affine.b`, `stages.1.attn.to_hidden.w`, `rgb.w` or
 `rgb.2.w`) and `io/export.py:params_from_jax` carries weights across.
+Under tensor parallelism (`parallel/tp.py`) the mapping's, the modulated
+convs' and the constant's split leaves are gathered whole at use.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from locate_tpu_torch.nn.blocks import _attention_layer
 from locate_tpu_torch.ops import initializers
 from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.conv import conv_nhwc, upsample_nearest
+from locate_tpu_torch.parallel.tp import whole
 from locate_tpu_torch.utils import jax_random
 
 NOISE_SEED = 0x4E4F4953  # the const planes' PRNGKey
@@ -68,7 +71,7 @@ class EqDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.lr_mul / float(np.sqrt(self.w.shape[0]))
-        return x @ (self.w * scale).to(x.dtype) + (self.b * self.lr_mul).to(x.dtype)
+        return x @ (whole(self.w) * scale).to(x.dtype) + (self.b * self.lr_mul).to(x.dtype)
 
 
 class ModulatedConv2d(nn.Module):
@@ -96,12 +99,13 @@ class ModulatedConv2d(nn.Module):
     def forward(self, x: torch.Tensor, wlat: torch.Tensor, demodulate: bool = True,
                 eps: float = 1e-8) -> torch.Tensor:
         cd = x.dtype
-        _, cin, kh, kw = self.w.shape
+        w = whole(self.w)
+        _, cin, kh, kw = w.shape
         he = 1.0 / float(np.sqrt(kh * kw * cin))
         s = self.affine(wlat.float())                                   # (N, Cin)
-        y = conv_nhwc(x * s.to(cd)[:, None, None, :], (self.w * he).to(cd))
+        y = conv_nhwc(x * s.to(cd)[:, None, None, :], (w * he).to(cd))
         if demodulate:
-            wsq = ((self.w.float() * he) ** 2).sum(dim=(2, 3)).T        # (Cin, Cout)
+            wsq = ((w.float() * he) ** 2).sum(dim=(2, 3)).T             # (Cin, Cout)
             d = torch.rsqrt((s ** 2) @ wsq + eps)                       # (N, Cout)
             y = y * d.to(cd)[:, None, None, :]
         return y + self.b.to(cd)
@@ -217,7 +221,8 @@ class StyleGenerator(nn.Module):
         if self.config.num_classes:
             if labels is None:
                 raise ValueError("class-conditional generator needs labels")
-            x = torch.cat([x, _pixel_norm(self.mapping.class_embed[labels].float())], dim=-1)
+            embed = whole(self.mapping.class_embed)
+            x = torch.cat([x, _pixel_norm(embed[labels].float())], dim=-1)
         for layer in self.mapping.layers:
             x = self._act(layer(x))
         return x
@@ -245,7 +250,7 @@ class StyleGenerator(nn.Module):
         if cfg.style.noise != "random":
             noise = None
         n = wlat.shape[0]
-        x = self.const.to(cd)[None].expand(n, 4, 4, self.chans[0])
+        x = whole(self.const).to(cd)[None].expand(n, 4, 4, self.chans[0])
         rgb = None
         for i in range(len(self.stages)):
             nz = noise[i] if noise is not None else None

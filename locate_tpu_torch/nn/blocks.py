@@ -29,6 +29,7 @@ from locate_tpu_torch.ops.conv import (Conv2d, DownsampleAvg, FactorizedConv2d,
 from locate_tpu_torch.ops.fused_stage import fused_stage
 from locate_tpu_torch.ops.norm import make_norm
 from locate_tpu_torch.ops.self_attention import SelfAttention
+from locate_tpu_torch.parallel.tp import whole
 
 # An int here overrides the profile's threshold for every flavor (tests and
 # chip_smoke.py force fusion with it), as the JAX package's
@@ -104,18 +105,20 @@ def _apply_fused_stage(cfg: ModelConfig, block: ConvBlock,
     the coarse input of the stage's upsample; with `downsample`, the
     stage's pool is fused in."""
     norm, _, conv = block.main
+    # the kernels read whole weights: a model-split one is gathered
+    w_row, w_col = whole(conv.row.w), whole(conv.col.w)
+    skip = None if block.skip is None else whole(block.skip.w)
     kw = dict(groups=norm.groups, eps=norm.eps, act=cfg.act, leaky_slope=cfg.leaky_slope,
               upsample=upsample, downsample=downsample)
     if attn is not None:
         _, h, w, _ = x.shape
         if upsample:
             h, w = 2 * h, 2 * w  # the gate's position features are fine
-        pos_proj, w1x, b1, w2, b2 = attn.gate_operands(h, w, conv.col.w.shape[0], x.device)
+        pos_proj, w1x, b1, w2, b2 = attn.gate_operands(h, w, w_col.shape[0], x.device)
         kw.update(mode=cfg.attention.mode, pos_proj=pos_proj, w1x=w1x, b1=b1, w2=w2, b2=b2,
                   gate_max=cfg.attention.gate_max)
-    skip = None if block.skip is None else block.skip.w
-    return fused_stage(x.to(compute_dtype or x.dtype), norm.scale, norm.bias, conv.row.w,
-                       conv.col.w, conv.col.b, skip, **kw)
+    return fused_stage(x.to(compute_dtype or x.dtype), norm.scale, norm.bias, w_row, w_col,
+                       conv.col.b, skip, **kw)
 
 
 class FusableStage(nn.Sequential):

@@ -19,6 +19,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from locate_tpu_torch.parallel.tp import whole
+
 
 def _f(t: torch.Tensor) -> torch.Tensor:
     return t.float().reshape(-1)
@@ -156,7 +158,7 @@ def orthogonal_penalty(weights: Sequence[torch.Tensor]) -> torch.Tensor:
     The Gram matrix does not depend on the order of the fan-in."""
     tot = torch.zeros((), dtype=torch.float32, device=weights[0].device)
     for p in weights:
-        w = p.float()
+        w = whole(p).float()  # the Gram matrix has cross-slice blocks
         w = w.reshape(w.shape[0], -1).t() if w.dim() == 4 else w.reshape(-1, w.shape[-1])
         gram = w.t() @ w
         gram = gram - torch.diag(torch.diagonal(gram))

@@ -28,6 +28,10 @@ Under ZeRO (`parallel/sharding.py`) an `OptState` holds Adam's moments as
 the rank's slice (`OptState.shard`): the update takes the whole reduced
 gradient, reads the clip's and the guards' norms and finiteness on it,
 and runs Adam on the rank's slice of it, returning the slice's update.
+Under tensor parallelism (`OptState.layout`) the vectors are the rank's
+model-axis layout, and the clip's and the guards' norms and finiteness
+are the whole gradient's, the same on every model rank, so every rank
+takes the same decision.
 """
 
 from __future__ import annotations
@@ -47,15 +51,34 @@ _MAX_CONSECUTIVE_ERRORS = 10**9
 _INT32_MAX = 2**31 - 1
 
 
-def safe_global_norm(grads: torch.Tensor) -> torch.Tensor:
+def safe_global_norm(grads: torch.Tensor, layout=None) -> torch.Tensor:
     """Overflow-proof L2 norm in f32: every element is divided by the
     largest magnitude first, so the sum of squares is at most the element
-    count. A non-finite element gives a non-finite norm."""
+    count. A non-finite element gives a non-finite norm. With a model-axis
+    `layout` (`parallel/tp.py:ModelLayout`) the norm is the whole
+    vector's: the largest magnitude and the split leaves' squares over the
+    model group, the whole leaves' squares once."""
     g = grads.float()
     if g.numel() == 0:
         return torch.zeros((), device=g.device)
-    scale = g.abs().amax().clamp_min(torch.finfo(torch.float32).tiny)
-    return scale * (g / scale).square().sum().sqrt()
+    peak = g.abs().amax()
+    if layout is None:
+        scale = peak.clamp_min(torch.finfo(torch.float32).tiny)
+        return scale * (g / scale).square().sum().sqrt()
+    scale = layout.max_(peak).clamp_min(torch.finfo(torch.float32).tiny)
+    return scale * layout.total((g / scale).square()).sqrt()
+
+
+def global_norm(grads: torch.Tensor, layout=None) -> torch.Tensor:
+    """optax.global_norm of a flat vector (the whole vector's under TP)."""
+    sq = grads.square()
+    return (sq.sum() if layout is None else layout.total(sq)).sqrt()
+
+
+def all_finite(grads: torch.Tensor, layout=None) -> torch.Tensor:
+    """Whether every element of the (whole, under TP) vector is finite."""
+    finite = torch.isfinite(grads).all()
+    return finite if layout is None else layout.all_(finite)
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,6 +114,8 @@ class OptState:
     acc_grads: Optional[torch.Tensor] = None      # f32, flat running mean
     # ZeRO: mu and nu are this rank's slice (`parallel/sharding.py:Shard`)
     shard: Optional[Any] = None
+    # TP: the vectors are the rank's model-axis layout (`parallel/tp.py`)
+    layout: Optional[Any] = None
 
     def copy_(self, other: "OptState") -> "OptState":
         """Write `other`'s values into this state's own tensors, which keep
@@ -176,7 +201,7 @@ class Optimizer:
     def _adam(self, g: torch.Tensor, s: OptState):
         c = self.cfg
         if c.clip_grad_norm > 0:
-            norm = g.square().sum().sqrt()  # optax.global_norm
+            norm = global_norm(g, s.layout)
             g = torch.where(norm < c.clip_grad_norm, g, g / norm * c.clip_grad_norm)
         if s.shard is not None:
             g = s.shard.take(g)
@@ -199,11 +224,11 @@ class Optimizer:
         """(updates, new state) of the guarded Adam chain."""
         new = dataclasses.replace(state)
         if self.grad_norm_limit > 0:
-            norm = safe_global_norm(grads)
+            norm = safe_global_norm(grads, state.layout)
             too_large = torch.isfinite(norm) & (norm > self.grad_norm_limit)
         updates, adam = self._adam(grads, state)
         if self.guard_finite:
-            finite = torch.isfinite(grads).all()
+            finite = all_finite(grads, state.layout)
             notfinite = torch.where(finite, torch.zeros_like(state.notfinite_count),
                                     _safe_increment(state.notfinite_count))
             apply = finite | (notfinite > _MAX_CONSECUTIVE_ERRORS)

@@ -30,6 +30,7 @@ from locate_tpu_torch.ops import gate_profile, initializers
 from locate_tpu_torch.ops.activations import act_fn
 from locate_tpu_torch.ops.conv import Conv2d
 from locate_tpu_torch.ops.fused_attention import fused_locate_attention
+from locate_tpu_torch.parallel.tp import whole
 
 @functools.lru_cache(maxsize=64)
 def _coord_features_np(height: int, width: int, features: int) -> np.ndarray:
@@ -157,9 +158,10 @@ class LocateAttention(nn.Module):
         """(pos_proj, w1x, b1, w2, b2) of the fused gate on an h x w map of
         `channels`: pos_proj precomputed in f32 from the W1[C:] slice, or
         None without position features."""
-        w1 = self.to_hidden.w[:, :, 0, 0].t()          # (C+P, Hd)
+        # the kernels read whole weights: a model-split one is gathered
+        w1 = whole(self.to_hidden.w)[:, :, 0, 0].t()   # (C+P, Hd)
         w1x, w1p = w1[:channels], w1[channels:]
-        w2 = self.to_logits.w[:, :, 0, 0].t()          # (Hd, Cout)
+        w2 = whole(self.to_logits.w)[:, :, 0, 0].t()   # (Hd, Cout)
         p = self.cfg.pos_features
         pos_proj = None
         if p:

@@ -6,6 +6,12 @@ NCHW in channels_last memory (a permute, no copy), which is the layout
 cuDNN prefers, and permutes its result back. Weights are stored OIHW (the
 `F.conv2d` layout; `io/export.py` transposes JAX's HWIO) in float32 and
 cast to the compute dtype at apply time, as the JAX layers do.
+
+Under tensor parallelism (`parallel/tp.py`) a weight split over the model
+axis makes `Conv2d` and `Dense` column-parallel: the rank computes its
+output channels and all-gathers them along the channel axis over the
+model group; the input's gradient is summed over the group. The bias is
+1-d, whole on every rank, and added after the gather as without TP.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from locate_tpu_torch.ops import initializers
+from locate_tpu_torch.parallel.tp import copy_to_model, gather_from_model, slice_of
 
 
 def conv_nhwc(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -44,7 +51,12 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype or x.dtype
-        y = conv_nhwc(x.to(cd), self.w.to(cd))
+        split = slice_of(self.w)
+        if split is None:
+            y = conv_nhwc(x.to(cd), self.w.to(cd))
+        else:
+            y = conv_nhwc(copy_to_model(x.to(cd), split.mesh), self.w.to(cd))
+            y = gather_from_model(y, split.mesh, -1)
         if self.b is not None:
             y = y + self.b.to(cd)
         return y
@@ -82,7 +94,12 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype or x.dtype
-        y = x.to(cd) @ self.w.to(cd)
+        split = slice_of(self.w)
+        if split is None:
+            y = x.to(cd) @ self.w.to(cd)
+        else:
+            y = copy_to_model(x.to(cd), split.mesh) @ self.w.to(cd)
+            y = gather_from_model(y, split.mesh, -1)
         if self.b is not None:
             y = y + self.b.to(cd)
         return y

@@ -19,6 +19,7 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
+from locate_tpu_torch.parallel.tp import tag_like, whole
 from locate_tpu_torch.utils import jax_random
 
 _START: Dict[Tuple[int, str], torch.Tensor] = {}
@@ -74,6 +75,7 @@ def spectral_normalize(params: Mapping[str, torch.Tensor], n_iters: int = 9,
     out = {}
     for name, w in params.items():
         if normalized(name, w):
-            sigma = spectral_sigma(w, n_iters, eps)
-            out[name] = (w.float() / torch.clamp_min(sigma, eps)).to(w.dtype)
+            # sigma of the whole matrix; a model-split weight keeps its slice
+            sigma = spectral_sigma(whole(w), n_iters, eps)
+            out[name] = tag_like((w.float() / torch.clamp_min(sigma, eps)).to(w.dtype), w)
     return out

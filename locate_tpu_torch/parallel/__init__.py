@@ -1,1 +1,2 @@
-"""Data parallelism: process groups, the mesh, the step's backends and ZeRO."""
+"""Data and tensor parallelism: process groups, the (data, model) mesh, the
+step's backends, the model axis's layout and ZeRO."""

@@ -1,9 +1,12 @@
 """`dryrun_multichip(n)`, counterpart of `__graft_entry__.py:dryrun_multichip`:
 n gloo ranks on the CPU (`torch.multiprocessing`), each running two steps
 of both backends at tiny shapes on its rows of one global batch (R1
-firing at step 0; "gspmd" with ZeRO-1), every metric held against the
-one-process run of the same program (rtol 1e-3: the order of reductions
-only). Run it as `python -m locate_tpu_torch.parallel.dryrun [N]`."""
+firing at step 0): "shard_map" on the pure data-parallel (n, 1) mesh,
+"gspmd" with ZeRO-1 on the (n // 2, 2) data x model mesh where n is even
+(channels of 128, so the model axis splits every conv and the gates'
+logits), every metric held against the one-process run of the same
+program (rtol 1e-3: the order of reductions only). Run it as
+`python -m locate_tpu_torch.parallel.dryrun [N]`."""
 
 from __future__ import annotations
 
@@ -27,16 +30,32 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def mesh_shape(world: int, backend: str):
+    """(dp, mp): "gspmd" on (world // 2, 2) where world is even, else the
+    pure data-parallel (world, 1), as the JAX dryrun lays them out."""
+    if backend == "gspmd" and world % 2 == 0:
+        return world // 2, 2
+    return world, 1
+
+
 def dryrun_config(world: int, backend: str = "gspmd", zero_stage: int = 0):
-    """lsun_bedroom_128 cut to 16x16 and thin channels, f32, two images a
-    rank."""
+    """lsun_bedroom_128 cut to 16x16, f32, two images a data rank: thin
+    channels on a pure data-parallel mesh, 128 (one block a stage, the
+    gate at 16x16 only, as the JAX dryrun) where the mesh has a model
+    axis."""
     from locate_tpu_torch.config import get_config
 
+    dp, mp = mesh_shape(world, backend)
+    widths = ({"model.base_channels": 32, "model.max_channels": 32, "model.min_channels": 16}
+              if mp == 1 else
+              {"model.base_channels": 128, "model.max_channels": 128,
+               "model.min_channels": 128, "model.blocks_per_stage": 1,
+               "model.attention_stages": "16"})
     return get_config("lsun_bedroom_128", {
-        "model.resolution": 16, "model.base_channels": 32, "model.max_channels": 32,
-        "model.min_channels": 16, "model.latent_dim": 16, "data.resolution": 16,
-        "train.global_batch": 2 * world, "train.compute_dtype": "float32",
-        "parallel.backend": backend, "parallel.zero_stage": zero_stage})
+        "model.resolution": 16, **widths, "model.latent_dim": 16, "data.resolution": 16,
+        "train.global_batch": 2 * dp, "train.compute_dtype": "float32",
+        "parallel.backend": backend, "parallel.zero_stage": zero_stage,
+        "parallel.data_parallel": dp, "parallel.model_parallel": mp})
 
 
 def global_batch(cfg, seed: int = 0) -> np.ndarray:
@@ -46,7 +65,7 @@ def global_batch(cfg, seed: int = 0) -> np.ndarray:
 
 def run_steps(cfg, mesh, images: np.ndarray, steps: int = STEPS) -> List[Dict[str, float]]:
     """`steps` steps of `cfg`'s step on `mesh` from the seed's fresh state,
-    on this rank's rows of `images`; each step's metrics."""
+    on this rank's data row's rows of `images`; each step's metrics."""
     from locate_tpu_torch.models.gan import build_gan
     from locate_tpu_torch.parallel.sharding import make_step_for, place_train_state
     from locate_tpu_torch.train.state import create_train_state
@@ -56,8 +75,8 @@ def run_steps(cfg, mesh, images: np.ndarray, steps: int = STEPS) -> List[Dict[st
                                mesh=mesh if mesh.group is not None else None)
     place_train_state(state, mesh, cfg.parallel.zero_stage)
     step = make_step_for(cfg, gan, mesh)
-    n = len(images) // mesh.world
-    rows = {"image": torch.from_numpy(images[mesh.rank * n:(mesh.rank + 1) * n])}
+    n, i = len(images) // mesh.dp, mesh.data_index
+    rows = {"image": torch.from_numpy(images[i * n:(i + 1) * n])}
     out = []
     for _ in range(steps):
         state, metrics = step(state, rows)

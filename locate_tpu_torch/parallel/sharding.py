@@ -16,18 +16,30 @@ relativistic losses and of feature matching, top-k's gathered logits):
     noise draw per replica, `r1_batch_fraction` takes each replica's own
     leading rows, feature matching is scaled by the axis size.
 
+Tensor parallelism (`parallel.model_parallel` = mp > 1, "gspmd" only, as
+in the JAX package) splits the trailing channel dimension of every
+eligible leaf over the mesh's model axis (`parallel/tp.py`: the JAX
+rule `_leaf_spec`, on the leaf's JAX-layout shape): each rank's flat
+vector of a network holds its slice of every split leaf and every other
+leaf whole, and Adam's moments and the EMA shadow follow the same layout
+(`train/state.py:FlatParams.slice_model`). The model ranks of a data row
+see the same rows; the gradients' and metrics' means run over the data
+group.
+
 ZeRO (`parallel.zero_stage`) is written for the port's one flat f32
-vector a network (`train/state.py:FlatParams`): rank r owns the slice
-[r s, (r + 1) s) of the vector padded to a multiple of the world, s =
-ceil(n / world) (`Shard`). Stages 1 and 3 keep Adam's mu and nu and the
-EMA shadow as the rank's slice. The update all-reduces the whole gradient
-(the guards' and the clip's norms read the whole reduced gradient), runs
-Adam on the rank's slice and all-gathers the new parameters: an
-elementwise split of stage 0's arithmetic, so the trajectory is stage 0's
-bit for bit. Stage 3 keeps the parameters whole on every rank, as stage 1
-does: the step and its captured CUDA graph read them at one address, and
-sharding them between steps (freeing the gathered buffer outside the
-step) is ROADMAP.md Queue 1 item 15. `info` reports these resident bytes.
+vector a network, the rank's layout under TP: rank d of the data axis
+owns the slice [d s, (d + 1) s) of the vector padded to a multiple of
+dp, s = ceil(n / dp) (`Shard`). Stages 1 and 3 keep Adam's mu and nu and
+the EMA shadow as the rank's slice. The update all-reduces the whole
+gradient over the data group (the guards' and the clip's norms read the
+whole reduced gradient, summed over the model group under TP), runs Adam
+on the rank's slice of it and all-gathers the new parameters: an
+elementwise split of stage 0's arithmetic, so the trajectory is stage
+0's bit for bit. Stage 3 keeps the parameters whole within the model
+slice on every rank, as stage 1 does: the step and its captured CUDA
+graph read them at one address, and sharding them between steps
+(freeing the gathered buffer outside the step) is ROADMAP.md Queue 1
+item 15. `info` reports these resident bytes.
 """
 
 from __future__ import annotations
@@ -37,22 +49,23 @@ from typing import Dict
 
 import torch
 
-from locate_tpu_torch.parallel.mesh import Mesh
+from locate_tpu_torch.parallel.mesh import Mesh, all_gather_into
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Shard:
-    """This rank's slice of a flat vector of `n` elements."""
+    """This rank's slice over the data axis of a flat vector of `n`
+    elements."""
     n: int
     mesh: Mesh
 
     @property
     def size(self) -> int:
-        return -(-self.n // self.mesh.world)
+        return -(-self.n // self.mesh.dp)
 
     @property
     def lo(self) -> int:
-        return self.mesh.rank * self.size
+        return self.mesh.data_index * self.size
 
     @property
     def hi(self) -> int:
@@ -60,7 +73,7 @@ class Shard:
 
     @property
     def padded(self) -> int:
-        return self.size * self.mesh.world
+        return self.size * self.mesh.dp
 
     def take(self, vec: torch.Tensor) -> torch.Tensor:
         """The rank's slice of a full vector (a view where it lies inside
@@ -71,13 +84,11 @@ class Shard:
         return torch.cat([inside, vec.new_zeros(self.size - inside.numel())])
 
     def gather_into(self, out: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:
-        """Every rank's slice into `out` (the padded vector), in place."""
-        if self.mesh.group is None:
+        """Every data rank's slice into `out` (the padded vector), in place."""
+        m = self.mesh
+        if m.data_group is None:
             return out.copy_(shard)
-        import torch.distributed as dist
-
-        dist.all_gather_into_tensor(out, shard.contiguous(), group=self.mesh.group)
-        return out
+        return all_gather_into(out, shard, m.data_group, m.dp, m.data_index)
 
     def gather(self, shard: torch.Tensor) -> torch.Tensor:
         """The full vector of every rank's slice (a new tensor)."""
@@ -102,13 +113,20 @@ def make_step_for(cfg, gan, mesh: Mesh):
 
 
 def place_train_state(state, mesh: Mesh, zero_stage: int):
-    """Shard a (replicated) state over `mesh` as `zero_stage` says, in
-    place: the optimizers' moments and the EMA shadow at 1 and 3 (the
-    parameters stay whole: ROADMAP.md Queue 1 item 15). Run it before a
-    checkpoint is restored into the state and before a step graph is
-    captured (both bind the tensors it makes). Returns `state`."""
+    """Lay a (replicated, one-process) state out on `mesh`, in place: under
+    a model axis each rank keeps its model slice of the parameters, the
+    moments and the EMA shadow (`FlatParams.slice_model`); then at
+    `zero_stage` 1 and 3 its data-axis slice of the moments and the EMA
+    shadow (the parameters stay whole within the model slice: ROADMAP.md
+    Queue 1 item 15). Run it before a checkpoint is restored into the
+    state and before a step graph is captured (both bind the tensors it
+    makes). Returns `state`."""
     if zero_stage not in (0, 1, 3):
         raise ValueError(f"parallel.zero_stage={zero_stage}; expected 0, 1, or 3")
+    if mesh.mp > 1:
+        if state.g_params.layout is not None:
+            raise ValueError("the state is already split over the model axis")
+        _slice_model(state, mesh)
     if zero_stage == 0:
         return state
     if state.zero_stage:
@@ -126,9 +144,27 @@ def place_train_state(state, mesh: Mesh, zero_stage: int):
     return state
 
 
+# the optimizer fields that are vectors of the parameters' layout
+VECTOR_FIELDS = ("mu", "nu", "acc_grads")
+
+
+def _slice_model(state, mesh: Mesh) -> None:
+    with torch.no_grad():
+        for params, opt in ((state.g_params, state.g_opt_state),
+                            (state.d_params, state.d_opt_state)):
+            params.slice_model(mesh)
+            for name in VECTOR_FIELDS:
+                vec = getattr(opt, name)
+                if vec is not None:
+                    setattr(opt, name, params.model_slice(vec))
+            opt.layout = params.layout
+        if state.ema_params is not None:
+            state.ema_params = state.g_params.model_slice(state.ema_params)
+
+
 def sharded_tensors(state) -> Dict[str, Shard]:
     """The names of `train/state.py:state_tensors` that hold a rank's
-    slice, with their `Shard`."""
+    ZeRO slice, with their `Shard`."""
     if not state.zero_stage:
         return {}
     out = {}
@@ -139,12 +175,59 @@ def sharded_tensors(state) -> Dict[str, Shard]:
     return out
 
 
+def model_tensors(state) -> Dict[str, object]:
+    """The names of `train/state.py:state_tensors` that are vectors of a
+    network's model-axis layout (under TP), with that network's
+    `FlatParams`."""
+    if state.g_params.layout is None:
+        return {}
+    out = {}
+    for net, params, opt in (("g", state.g_params, state.g_opt_state),
+                             ("d", state.d_params, state.d_opt_state)):
+        out[f"{net}_params"] = params
+        for name in VECTOR_FIELDS:
+            if getattr(opt, name) is not None:
+                out[f"{net}_opt.{name}"] = params
+    if state.ema_params is not None:
+        out["ema_params"] = state.g_params
+    return out
+
+
 def gathered_tensors(state) -> Dict[str, torch.Tensor]:
-    """`state_tensors(state)` with every slice all-gathered into its full
-    vector: the world-size-independent tensors a checkpoint holds. A
-    collective under ZeRO: every rank calls it."""
+    """`state_tensors(state)` with every ZeRO slice all-gathered over the
+    data group and every model slice gathered over the model group: the
+    world-size-independent (one-process) tensors a checkpoint holds. A
+    collective under ZeRO or TP: every rank calls it."""
     from locate_tpu_torch.train.state import state_tensors
 
-    shards = sharded_tensors(state)
-    return {k: shards[k].gather(t) if k in shards else t
-            for k, t in state_tensors(state).items()}
+    shards, models = sharded_tensors(state), model_tensors(state)
+    out = {}
+    for k, t in state_tensors(state).items():
+        if k in shards:
+            t = shards[k].gather(t)
+        if k in models:
+            t = models[k].model_full(t)
+        out[k] = t
+    return out
+
+
+def own_tensor(state, name: str, full: torch.Tensor) -> torch.Tensor:
+    """This rank's part of the whole (one-process) tensor `full` of
+    `state_tensors`' `name`: its model slice, then its ZeRO slice."""
+    models, shards = model_tensors(state), sharded_tensors(state)
+    if name in models:
+        full = models[name].model_slice(full)
+    if name in shards:
+        full = shards[name].take(full)
+    return full
+
+
+def full_shape(state, name: str, t: torch.Tensor):
+    """The whole (one-process) shape of `state_tensors`' `name`, the
+    rank's `t`."""
+    models, shards = model_tensors(state), sharded_tensors(state)
+    if name in models:
+        return (models[name].full_numel,)
+    if name in shards:
+        return (shards[name].n,)
+    return tuple(t.shape)

@@ -20,8 +20,10 @@ generator is registered with each graph, so every replay draws the next
 latents, as an eager step would. A failed capture or replay raises; there
 is no eager fallback. Under a process group the step's collectives are
 captured too: every graph is captured on one stream of its own, on which
-a collective has run before the first capture (NCCL makes its
-communicator at a first collective, which a capture cannot hold).
+a collective of every group the step uses (the world's, the data and
+the model group of a (data, model) mesh) has run before the first capture
+(NCCL makes a group's communicator at its first collective, which a
+capture cannot hold).
 
 `SampleGraph` captures `io/sampling.py:generate_samples`'s device work
 (the latent draw, the generator's forward, the uint8 conversion; with
@@ -36,6 +38,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed
 
 from locate_tpu_torch.train.state import TrainState, restore, snapshot, state_tensors
 from locate_tpu_torch.train.step import reduce_metrics
@@ -120,10 +123,12 @@ class StepGraphs:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(self.idx.device)
             mesh = self.step.mesh
-            if mesh.group is not None:  # a collective on the capture stream first
+            if mesh.group is not None:  # a collective of every group on the stream first
                 self.stream.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(self.stream):
-                    mesh.sum_(torch.zeros(1, device=self.idx.device))
+                    for group in mesh.groups():
+                        torch.distributed.all_reduce(
+                            torch.zeros(1, device=self.idx.device), group=group)
                 torch.cuda.synchronize()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.state.rng)

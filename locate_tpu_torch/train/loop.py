@@ -44,7 +44,9 @@ In a process group (`parallel/distributed.py:initialize_from_env`, one
 process a device) every rank runs this loop on the mesh of
 `cfg.parallel` (`parallel/mesh.py`): the step of `parallel.backend`
 (`parallel/sharding.py`), the state sharded as `parallel.zero_stage`
-says, each rank's input the JAX process-local batch of its index. Rank 0
+says, each rank's input the JAX process-local batch of its data row's
+index (the model ranks of a row read the same rows, draws and
+augmentation). Rank 0
 alone holds the run lock and writes metrics.jsonl, the config, sample
 grids, checkpoints and best.json; every rank joins the collectives of
 saves, sample grids and evals, and the eval's scores, computed once,
@@ -112,14 +114,14 @@ def train(
 
 
 def check_batch(cfg: Config, mesh: Mesh) -> None:
-    """Raise where the global batch does not split over the mesh's ranks,
-    or the minibatch-stddev group does not divide a rank's batch, with
-    the JAX package's words (`locate_tpu/data/pipeline.py`,
+    """Raise where the global batch does not split over the mesh's data
+    axis, or the minibatch-stddev group does not divide a rank's batch,
+    with the JAX package's words (`locate_tpu/data/pipeline.py`,
     `locate_tpu/ops/norm.py:minibatch_stddev`)."""
     gb = cfg.train.global_batch
-    if gb % mesh.world:
-        raise ValueError(f"global_batch {gb} not divisible by {mesh.world} hosts")
-    n, group = gb // mesh.world, cfg.model.mbstd_group
+    if gb % mesh.dp:
+        raise ValueError(f"global_batch {gb} not divisible by {mesh.dp} hosts")
+    n, group = gb // mesh.dp, cfg.model.mbstd_group
     g = min(group, n)
     if group and n % g:
         raise ValueError(f"minibatch_stddev: batch {n} not divisible by group {g} "
@@ -151,7 +153,8 @@ def _train_locked(cfg: Config, total_steps: Optional[int], hooks: Dict[str, Call
             f"total_steps={total_steps} and the resume step {state.step} must both be "
             f"multiples of train.steps_per_call={k}")
     batches = make_input_pipeline(cfg.data, tcfg.global_batch, device=device, seed=tcfg.seed,
-                                  process_index=mesh.rank, process_count=mesh.world,
+                                  # the model ranks of a data row read its rows
+                                  process_index=mesh.data_index, process_count=mesh.dp,
                                   skip_batches=state.step,  # resume replays the exact stream
                                   steps_per_call=k, d_steps=tcfg.d_steps)
     # throughput counts the real images consumed

@@ -12,9 +12,12 @@ place, and the module sees the new values. Optimizer moments and the EMA
 shadow are flat buffers of the same layout; `FlatParams.named` views one
 under the JAX dotted names.
 
-Under ZeRO (`parallel/sharding.py:place_train_state`) a rank keeps the
-moments and the EMA shadow as its slice of the vector; the parameters
-stay whole on every rank, in a buffer that each update all-gathers
+Under tensor parallelism (`parallel/sharding.py:place_train_state`,
+`parallel/tp.py`) each vector is the rank's layout: its model slice of
+every split leaf and every other leaf whole (`FlatParams.slice_model`).
+Under ZeRO a rank keeps the moments and the EMA shadow as its slice of
+that vector over the data group; the parameters stay whole within the
+model slice on every rank, in a buffer that each update all-gathers
 (`FlatParams.apply_update`). In a group, `create_train_state` gives every
 rank rank 0's values.
 """
@@ -22,6 +25,7 @@ rank rank 0's values.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -43,14 +47,46 @@ class FlatParams:
         named = list(module.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
-        self.flat = torch.cat([p.detach().float().reshape(-1) for p in self.params])
-        self._view(self.flat)
+        self.full_shapes = [tuple(p.shape) for p in self.params]
+        self.shapes = list(self.full_shapes)  # the rank's (local) shapes
+        self.layout = None     # TP: the model axis's layout (`parallel/tp.py:ModelLayout`)
         self.shard = None      # ZeRO: this rank's slice (`parallel/sharding.py:Shard`)
         self.padded = None     # ZeRO: `flat` padded to the ranks' slices (flat views it)
+        self.flat = torch.cat([p.detach().float().reshape(-1) for p in self.params])
+        self._view(self.flat)
+
+    @property
+    def full_numel(self) -> int:
+        """The element count of the whole (one-process) vector."""
+        return self.flat.numel() if self.layout is None else self.layout.full_numel
 
     def _view(self, flat: torch.Tensor) -> None:
         for p, view in zip(self.params, self.split(flat)):
             p.data = view
+
+    def slice_model(self, mesh) -> None:
+        """Keep this rank's model slice of every split leaf (`parallel/tp.py`):
+        `flat` becomes the rank's vector, the modules' parameters views of
+        it in their local shapes, each split one marked with its slice."""
+        from locate_tpu_torch.parallel.tp import ModelLayout, ModelSlice
+
+        layout = ModelLayout(mesh, self.names, self.full_shapes)
+        self.flat = layout.local(self.flat)
+        self.layout, self.shapes = layout, list(layout.local_shapes)
+        self._view(self.flat)
+        for p, d in zip(self.params, layout.dims):
+            if d is not None:
+                p.model_slice = ModelSlice(mesh, d)
+
+    def model_slice(self, vec: torch.Tensor) -> torch.Tensor:
+        """The rank's model slice of a whole vector of this layout (the
+        vector itself without TP)."""
+        return vec if self.layout is None else self.layout.local(vec)
+
+    def model_full(self, vec: torch.Tensor) -> torch.Tensor:
+        """The whole vector of the model ranks' vectors (a collective over
+        the model group under TP; the vector itself without)."""
+        return vec if self.layout is None else self.layout.full(vec)
 
     def shard_over(self, shard) -> None:
         """Move `flat` into a buffer padded to `shard`'s ranks (the modules'
@@ -63,8 +99,8 @@ class FlatParams:
         self.shard = shard
 
     def local(self, vec: torch.Tensor) -> torch.Tensor:
-        """The rank's slice of a full vector of this layout (the vector
-        itself without ZeRO)."""
+        """The rank's ZeRO slice of a vector of the rank's layout (the
+        vector itself without ZeRO)."""
         return vec if self.shard is None else self.shard.take(vec)
 
     def apply_update(self, updates: torch.Tensor) -> None:
@@ -76,13 +112,21 @@ class FlatParams:
             return
         self.shard.gather_into(self.padded, self.shard.take(self.flat) + updates)
 
-    def split(self, vec: torch.Tensor) -> List[torch.Tensor]:
-        """Views of a flat vector, one per parameter, in its shape."""
-        return [v.view(p.shape) for v, p in
-                zip(vec.split([p.numel() for p in self.params]), self.params)]
+    def split(self, vec: torch.Tensor, shapes=None) -> List[torch.Tensor]:
+        """Views of a flat vector of the rank's layout, one per parameter in
+        its local shape (or in `shapes`)."""
+        shapes = self.shapes if shapes is None else shapes
+        return [v.view(s) for v, s in
+                zip(vec.split([math.prod(s) for s in shapes]), shapes)]
 
     def named(self, vec: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Views of a vector of the rank's layout by parameter name."""
         return dict(zip(self.names, self.split(vec)))
+
+    def named_full(self, vec: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Views of a whole (one-process) vector by parameter name, in the
+        whole shapes: a gathered vector under TP (`model_full`)."""
+        return dict(zip(self.names, self.split(vec, self.full_shapes)))
 
     def flatten(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
         """One f32 vector of per-parameter tensors (gradients), in order."""
@@ -180,14 +224,16 @@ def restore(state: TrainState, snap: Snapshot) -> TrainState:
 
 
 def serving_vector(state: TrainState) -> torch.Tensor:
-    """The flat generator weights a state serves: its EMA shadow, or G's
-    own where the run keeps no EMA; a ZeRO shadow all-gathered (a
-    collective: every rank calls it)."""
+    """The whole flat generator weights a state serves: its EMA shadow, or
+    G's own where the run keeps no EMA; a ZeRO shadow all-gathered and a
+    model-split vector gathered (collectives: every rank calls it)."""
+    params = state.g_params
     if state.ema_params is None:
-        return state.g_params.flat
+        return params.model_full(params.flat)
+    ema = state.ema_params
     if state.zero_stage:
-        return state.g_params.shard.gather(state.ema_params)
-    return state.ema_params
+        ema = params.shard.gather(ema)
+    return params.model_full(ema)
 
 
 def create_train_state(cfg: Config, gan: GAN, seed: int = 0, mesh=None) -> TrainState:

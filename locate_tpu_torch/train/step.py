@@ -47,8 +47,9 @@ flavor's one latent batch is `z_d`, `labels_d`, its augmentation of fakes
 `share_latents` also gives G's forward, as JAX reuses the forward's key).
 
 On a mesh (`parallel/mesh.py`, built by `parallel/sharding.py:
-make_step_for`) the step runs on the rank's rows of the global batch
-with the JAX step's collectives: the gradients' mean before each update
+make_step_for`) the step runs on its data row's rows of the global batch
+(the model ranks of a row see the same rows) with the JAX step's
+collectives over the data axis: the gradients' mean before each update
 (so every guard decides on the reduced gradient, on every rank alike),
 the metrics' mean, ADA's r and LeCam's logit means before they move the
 state, the relativistic losses' and feature matching's global means
@@ -57,8 +58,11 @@ summed mask. Latents, labels, GP's eps and the style mixing's draws are
 made for the global batch on every rank, which takes its rows; the
 augmentation, bCR and style-noise draws are the global batch's rows too
 under "gspmd" and a replica's own under "shard_map" (`per_replica`).
-Without a mesh, or on one of one rank with no group, nothing differs
-from the one-process step.
+Under a model axis the state is the rank's model-axis layout
+(`parallel/tp.py`): the networks' split layers gather their channels over
+the model group, the gradients are the rank's slices, and the norms
+gather their sums. Without a mesh, or on one of one rank with no group,
+nothing differs from the one-process step.
 
 `make_multi_step(step, k)` is the counterpart of the JAX package's: k
 steps a call over batches with a leading [k] axis, the metrics reduced as
@@ -201,21 +205,21 @@ class TrainStep:
 
     # ---------------------------------------------------------------- draws
     def _global(self, draw, n: int):
-        """`draw(m)` made for the global batch (n rows a rank), this rank's
-        rows."""
+        """`draw(m)` made for the global batch (n rows a data rank), this
+        rank's rows (the same on the model ranks of a data row)."""
         m = self.mesh
-        if m.world == 1:
+        if m.dp == 1:
             return draw(n)
-        return _rows(draw(n * m.world), m.rank * n, (m.rank + 1) * n)
+        return _rows(draw(n * m.dp), m.data_index * n, (m.data_index + 1) * n)
 
     def _replica(self, draw, n: int):
         """A draw of n rows that is each replica's own under "shard_map"
         (every rank draws the world's sets in turn and keeps its own, so
         the generators stay in step), else the global batch's rows."""
         m = self.mesh
-        if not self.per_replica or m.world == 1:
+        if not self.per_replica or m.dp == 1:
             return self._global(draw, n)
-        return [draw(n) for _ in range(m.world)][m.rank]
+        return [draw(n) for _ in range(m.dp)][m.data_index]
 
     def _style_draws(self, rng: torch.Generator, n: int, side: str, given: Draws) -> Draws:
         """The style family's draws of one G forward (`side` "d" or "g"):
@@ -334,7 +338,7 @@ class TrainStep:
             take("pl_noise", lambda: path_noise(rng, gshape) if self.per_replica else
                  self._global(lambda m: path_noise(rng, (m,) + gshape[1:]), n))
         if self.bf16_ema:
-            take("ema_bits", lambda: ema_bits(rng, state.g_params.flat.numel()))
+            take("ema_bits", lambda: ema_bits(rng, state.g_params.full_numel))
         return {k: v for k, v in out.items() if v is not None}
 
     def draw(self, state: TrainState, shape, flags, given: Draws) -> Draws:
@@ -442,11 +446,11 @@ class TrainStep:
         the global batch's under "gspmd", of which a rank may hold some,
         all or none (k = 0: the rank adds no penalty)."""
         m, frac = self.mesh, self.tcfg.r1_batch_fraction
-        if self.per_replica or m.world == 1:
+        if self.per_replica or m.dp == 1:
             return max(1, int(round(n * frac))), 1.0
-        k_glob = max(1, int(round(n * m.world * frac)))
-        k = min(max(k_glob - m.rank * n, 0), n)
-        return k, k * m.world / k_glob
+        k_glob = max(1, int(round(n * m.dp * frac)))
+        k = min(max(k_glob - m.data_index * n, 0), n)
+        return k, k * m.dp / k_glob
 
     def gmean(self, x: torch.Tensor) -> torch.Tensor:
         """The global batch's mean of a per-sample tensor (the relativistic
@@ -471,7 +475,7 @@ class TrainStep:
         thresh = torch.topk(glob, k).values[-1]
         mask = (fl >= thresh).float()
         loss = (per * mask).sum() / self.mesh.sum_(mask.sum())
-        return loss * self.mesh.world if self.mesh.world > 1 else loss
+        return loss * self.mesh.dp if self.mesh.dp > 1 else loss
 
     def g_reg(self, state: TrainState, z, labels, draws: Draws, pl: bool):
         """(term, aux) of G's parameter and Jacobian regularizers:
@@ -538,7 +542,7 @@ class TrainStep:
             m_real = self.mesh.mean_(f_real.float().mean(dim=0))
             fm_val = (m_real - m_fake).square().mean()
             # the JAX shard_map step scales the term by the axis size
-            fm = fm_val * (t.feature_matching * (self.mesh.world if self.per_replica else 1))
+            fm = fm_val * (t.feature_matching * (self.mesh.dp if self.per_replica else 1))
             fm_aux = {"fm": fm_val.detach()}
         total = loss + reg + fm
         grads = torch.autograd.grad(total, state.g_params.params)
@@ -575,7 +579,7 @@ class TrainStep:
                 d_loss, d_aux, d_grads, real_g = self._d_update(state, real[i], lab_i, cd, r1)
                 losses.append(d_loss)
                 auxes.append(d_aux)
-                norms.append(safe_global_norm(d_grads))
+                norms.append(safe_global_norm(d_grads, state.d_params.layout))
             d_loss = torch.stack(losses).mean()
             d_aux = {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
             d_norm = torch.stack(norms).mean()
@@ -645,14 +649,15 @@ class TrainStep:
                 if t.ema_rampup > 0.0:
                     decay = rampup_decay(state.step_tensor, t.ema_decay, t.ema_rampup)
                 bits = draws.get("ema_bits")
-                new = ema_update(state.ema_params, state.g_params.local(state.g_params.flat),
-                                 decay, None if bits is None else state.g_params.local(bits))
+                g = state.g_params
+                new = ema_update(state.ema_params, g.local(g.flat), decay,
+                                 None if bits is None else g.local(g.model_slice(bits)))
                 emitted = self.g_opt.emitted(state.g_opt_state)
                 if emitted is not None:  # the EMA moves on optimizer emits only
                     new = torch.where(emitted, new, state.ema_params)
                 state.ema_params.copy_(new)
             if t.ada_target > 0.0:
-                step = n_images * self.mesh.world / (t.ada_speed_kimg * 1000.0)
+                step = n_images * self.mesh.dp / (t.ada_speed_kimg * 1000.0)
                 state.ada_p.copy_(torch.clamp(
                     state.ada_p + torch.sign(d_aux["ada_r"] - t.ada_target) * step, 0.0, 1.0))
             if "pl_mean" in g_aux:
@@ -664,8 +669,9 @@ class TrainStep:
             if state.step_tensor is not None:
                 state.step_tensor.add_(1)
         metrics = {**g_aux, "d_loss": d_loss, "g_loss": g_loss,
-                   "d_grad_norm": safe_global_norm(d_grads) if d_norm is None else d_norm,
-                   "g_grad_norm": safe_global_norm(g_grads), **d_aux}
+                   "d_grad_norm": (safe_global_norm(d_grads, state.d_params.layout)
+                                   if d_norm is None else d_norm),
+                   "g_grad_norm": safe_global_norm(g_grads, state.g_params.layout), **d_aux}
         if self.aug_on:
             metrics["augment_p"] = state.ada_p.clone()
         for prefix, s in (("d_", state.d_opt_state), ("g_", state.g_opt_state)):

@@ -1,6 +1,6 @@
 """The port's parallel layer without a second process: the mesh's shapes
 and errors against the JAX package's `make_mesh` (8 fake CPU devices),
-the TP slot's raise, ZeRO's slices and stages on one rank, the backend
+the (data, model) mesh's model axis, ZeRO's slices and stages on one rank, the backend
 dispatch, `initialize_from_env`'s environment, and a gloo group of one
 rank, under which the step, `eval --dp` and `bench-sample --dp` run the
 group's code and give the one-process results."""
@@ -21,7 +21,8 @@ from locate_tpu_torch.config import ParallelConfig
 from locate_tpu_torch.models.gan import build_gan
 from locate_tpu_torch.parallel import distributed
 from locate_tpu_torch.parallel.dryrun import free_port
-from locate_tpu_torch.parallel.mesh import TP_TODO, Mesh, make_mesh, single_device_mesh
+from locate_tpu_torch.parallel import mesh as mesh_module
+from locate_tpu_torch.parallel.mesh import Mesh, make_mesh, single_device_mesh
 from locate_tpu_torch.parallel.sharding import (Shard, gathered_tensors, make_step_for,
                                                 place_train_state, sharded_tensors)
 from locate_tpu_torch.train.state import create_train_state, state_tensors
@@ -38,10 +39,11 @@ def clean_env(monkeypatch):
     return monkeypatch
 
 
-@pytest.mark.parametrize("dp, mp", [(-1, 1), (8, 1), (3, 2), (-1, 3), (4, 1), (-1, 16)])
+@pytest.mark.parametrize("dp, mp", [(-1, 1), (8, 1), (3, 2), (-1, 3), (4, 1), (-1, 16),
+                                    (4, 2), (-1, 2), (2, 4), (-1, 8)])
 def test_mesh_shapes_and_errors_are_the_jax_words(dp, mp):
-    """make_mesh over 8 ranks: JAX's data axis, or JAX's ValueError word
-    for word; a model axis that divides raises the TP slot's error."""
+    """make_mesh over 8 ranks: JAX's (data, model) shape, or JAX's
+    ValueError word for word."""
     try:
         want = jax_make_mesh(JaxParallelConfig(data_parallel=dp, model_parallel=mp))
     except ValueError as e:
@@ -49,19 +51,21 @@ def test_mesh_shapes_and_errors_are_the_jax_words(dp, mp):
             make_mesh(ParallelConfig(data_parallel=dp, model_parallel=mp), world=8)
         assert str(got.value) == str(e)
         return
-    if mp > 1:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-            make_mesh(ParallelConfig(data_parallel=dp, model_parallel=mp), world=8)
-        return
     mesh = make_mesh(ParallelConfig(data_parallel=dp, model_parallel=mp), world=8)
     assert (mesh.dp, mesh.mp, mesh.world, mesh.rank) == (want.shape["data"],
                                                         want.shape["model"], 8, 0)
 
 
 def test_model_parallel_cites_the_tp_item():
-    with pytest.raises(NotImplementedError) as err:
-        make_mesh(ParallelConfig(data_parallel=4, model_parallel=2), world=8)
-    assert TP_TODO in str(err.value) and "mesh 4x2" in str(err.value)
+    """The TP slot is ported: a model axis over 1 builds JAX's 4x2 mesh
+    (rank r at data row r // 2, model column r % 2), and the raise that
+    cited ROADMAP item 14 is gone."""
+    mesh = make_mesh(ParallelConfig(data_parallel=4, model_parallel=2), world=8)
+    assert (mesh.dp, mesh.mp, mesh.data_index, mesh.model_index) == (4, 2, 0, 0)
+    assert [(Mesh(dp=4, mp=2, rank=r, world=8).data_index,
+             Mesh(dp=4, mp=2, rank=r, world=8).model_index) for r in range(8)] == [
+        (r // 2, r % 2) for r in range(8)]
+    assert not hasattr(mesh_module, "TP_TODO")
     assert single_device_mesh() == Mesh() and make_mesh(ParallelConfig()) == Mesh()
 
 
@@ -73,7 +77,7 @@ def test_zero_slices(n, world):
     size = -(-n // world)
     got = []
     for r in range(world):
-        shard = Shard(n, Mesh(world=world, rank=r))
+        shard = Shard(n, Mesh(dp=world, world=world, rank=r))
         assert (shard.size, shard.lo, shard.hi, shard.padded) == (size, r * size,
                                                                    (r + 1) * size, size * world)
         got.append(shard.take(vec))

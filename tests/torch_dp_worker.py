@@ -1,9 +1,11 @@
-"""One gloo rank of tests/test_torch_dp.py's data-parallel runs (CPU, no
-JAX). `python tests/torch_dp_worker.py INPUTS OUT_DIR` joins the group
-from MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK, runs every case of
-INPUTS (a torch.save'd dict of the port's configs, start states, global
-batches and JAX's draws, each either the global batch, of which the rank
-takes its rows, or a list of every rank's own) and saves what it saw to
+"""One gloo rank of tests/test_torch_dp.py's data-parallel runs and
+tests/test_torch_tp.py's tensor-parallel ones (CPU, no JAX).
+`python tests/torch_dp_worker.py INPUTS OUT_DIR` joins the group from
+MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK, runs every case of INPUTS
+(a torch.save'd dict of the port's configs, each on the mesh its
+`parallel` names, start states, global batches and JAX's draws, each
+either the global batch, of which the rank takes its data row's rows, or
+a list of every data rank's own) and saves what it saw to
 OUT_DIR/rank<r>.pt."""
 
 import os
@@ -68,15 +70,19 @@ def start(cfg, mesh, tensors=None):
 
 
 def rows(x, mesh):
-    """The rank's rows of a global batch, or its own entry of a list."""
+    """The rank's data row's rows of a global batch, or its own entry of a
+    list."""
+    i = mesh.data_index
     if isinstance(x, (list, tuple)):
-        return torch.as_tensor(np.asarray(x[mesh.rank]))
-    n = len(x) // mesh.world
-    return torch.as_tensor(np.asarray(x)[mesh.rank * n:(mesh.rank + 1) * n])
+        return torch.as_tensor(np.asarray(x[i]))
+    n = len(x) // mesh.dp
+    return torch.as_tensor(np.asarray(x)[i * n:(i + 1) * n])
 
 
-def steps(state, step, images, mesh, count, draws=None):
+def steps(state, step, images, mesh, count, draws=None, labels=None):
     batch = {"image": rows(images, mesh)}
+    if labels is not None:
+        batch["label"] = rows(labels, mesh)
     out = []
     for i in range(count):
         given = {k: rows(v, mesh) for k, v in draws[i].items()} if draws else {}
@@ -101,12 +107,19 @@ def main(inputs_path, out_dir):
         run_mesh = make_mesh(cfg.parallel)
         _, state, step = start(cfg, run_mesh, run.get("tensors"))
         res[name] = {"metrics": steps(state, step, run["images"], run_mesh, run["steps"],
-                                      run.get("draws")),
+                                      run.get("draws"), run.get("labels")),
                      "state": full(state),
                      "bytes": {k: t.numel() * t.element_size()
-                               for k, t in state_tensors(state).items()}}
+                               for k, t in state_tensors(state).items()},
+                     "index": (run_mesh.data_index, run_mesh.model_index)}
+        if "checkpoint" in run:  # the final state, saved by rank 0
+            ckpt = CheckpointManager(run["checkpoint"], keep=1, mesh=run_mesh)
+            ckpt.save(state)
+            ckpt.close()
     if "resume" in inp:
         extras(inp, mesh, res)
+    if "tp_checkpoints" in inp:
+        tp_checkpoints(inp["tp_checkpoints"], res)
     torch.save(res, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
     torch.distributed.destroy_process_group()
 
@@ -148,6 +161,30 @@ def extras(inp, mesh, res):
     from locate_tpu_torch.train.loop import train
 
     train(inp["loop"], device="cpu")
+
+
+def tp_checkpoints(run, res):
+    """The one-process checkpoint in run["one_dir"] restored on the mesh of
+    run["cfg"]; a step run's checkpoint (run["dir"]) restored at (1, 2)
+    by ranks 0 and 1 (the model group of a pair made for it)."""
+    import torch.distributed as dist
+
+    from locate_tpu_torch.parallel.mesh import Mesh
+
+    dist.barrier()  # rank 0's writes are on disk
+    cfg = run["cfg"]
+    mesh = make_mesh(cfg.parallel)
+    _, state, _ = start(cfg, mesh)
+    CheckpointManager(run["one_dir"], mesh=mesh).restore(state)
+    out = {"one_restored": full(state)}
+    pair = dist.new_group([0, 1])  # every rank makes it
+    if mesh.rank < 2:
+        m12 = Mesh(dp=1, mp=2, rank=mesh.rank, world=2, group=pair, model_group=pair)
+        cfg12 = run["cfg12"]
+        _, state, _ = start(cfg12, m12)
+        CheckpointManager(run["dir"], mesh=m12).restore(state)
+        out["restored_12"] = full(state)
+    res["tp_checkpoints"] = out
 
 
 if __name__ == "__main__":
